@@ -1,0 +1,200 @@
+"""TransformerLM (counterpart of ``bigdl_tpu/models/transformer.py``).
+
+Ported: ``ln|rms`` norms, ``gelu|swiglu`` MLPs, learned positions or
+rope, GQA, the ``dense`` and ``flash`` attention strategies.  MoE, remat
+and dropout > 0 come with later slices and raise.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+
+from .. import nn
+from ..device import DeviceLike
+from ..nn.module import Container
+from ..parallel.tensor_parallel import ColumnParallelLinear, RowParallelLinear
+
+
+def gelu(x):
+    """``jax.nn.gelu``'s default: the tanh approximation."""
+    return F.gelu(x, approximate="tanh")
+
+
+def _norm_factory(norm: str, norm_eps, device):
+    """One policy for both the blocks and the final norm: the norm
+    class and its eps default (rms 1e-6 / ln 1e-5, HF's conventions)."""
+    eps = norm_eps if norm_eps is not None else (
+        1e-6 if norm == "rms" else 1e-5)
+    if norm == "rms":
+        return lambda d: nn.RMSNorm(d, eps=eps, device=device)
+    return lambda d: nn.LayerNorm(d, eps=eps, device=device)
+
+
+def _unported(moe_experts: int, dropout: float, remat: bool = False):
+    if moe_experts:
+        raise NotImplementedError("moe_experts > 0 is not ported yet")
+    if dropout > 0.0:
+        raise NotImplementedError("dropout > 0 is not ported yet")
+    if remat:
+        raise NotImplementedError("remat is not ported yet")
+
+
+class TransformerBlock(Container):
+    """Pre-norm residual block: x + MHA(LN(x)); x + MLP(LN(x))."""
+
+    def __init__(self, embed_dim: int, num_heads: int, mlp_dim: int,
+                 causal: bool = True, seq_strategy: str = "dense",
+                 model_axis: Optional[str] = None, moe_experts: int = 0,
+                 dropout: float = 0.0, norm: str = "ln", mlp: str = "gelu",
+                 num_kv_heads: Optional[int] = None, rope: bool = False,
+                 rope_theta: float = 10000.0,
+                 attn_bias: Optional[bool] = None,
+                 mlp_bias: Optional[bool] = None,
+                 norm_eps: Optional[float] = None,
+                 device: DeviceLike = None,
+                 generator: Optional[torch.Generator] = None):
+        if norm not in ("ln", "rms"):
+            raise ValueError(f"norm {norm!r} not in ('ln', 'rms')")
+        if mlp not in ("gelu", "swiglu"):
+            raise ValueError(f"mlp {mlp!r} not in ('gelu', 'swiglu')")
+        _unported(moe_experts, dropout)
+        Norm = _norm_factory(norm, norm_eps, device)
+        # llama convention: bias-free attention (and swiglu) projections
+        with_bias = (attn_bias if attn_bias is not None
+                     else not (rope or norm == "rms"))
+        mods = [
+            Norm(embed_dim),
+            nn.MultiHeadAttention(embed_dim, num_heads, causal=causal,
+                                  seq_strategy=seq_strategy,
+                                  num_kv_heads=num_kv_heads, rope=rope,
+                                  rope_theta=rope_theta,
+                                  with_bias=with_bias, device=device,
+                                  generator=generator),
+            Norm(embed_dim),
+        ]
+        if mlp == "swiglu":
+            mb = mlp_bias if mlp_bias is not None else with_bias
+            mods += [ColumnParallelLinear(embed_dim, mlp_dim, with_bias=mb,
+                                          axis_name=model_axis,
+                                          device=device, generator=generator),
+                     ColumnParallelLinear(embed_dim, mlp_dim, with_bias=mb,
+                                          axis_name=model_axis,
+                                          device=device, generator=generator),
+                     RowParallelLinear(mlp_dim, embed_dim, with_bias=mb,
+                                       axis_name=model_axis,
+                                       device=device, generator=generator)]
+        else:
+            mods += [ColumnParallelLinear(embed_dim, mlp_dim,
+                                          axis_name=model_axis,
+                                          device=device, generator=generator),
+                     RowParallelLinear(mlp_dim, embed_dim,
+                                       axis_name=model_axis,
+                                       device=device, generator=generator)]
+        super().__init__(*mods, device=device)
+        self.mlp_kind = mlp
+
+    def mlp(self, params, h):
+        """The MLP on the ln2 output (gelu or swiglu), no residual."""
+        if self.mlp_kind == "swiglu":
+            g = self[3].apply_fn(params["3"], h)
+            u = self[4].apply_fn(params["4"], h)
+            return self[5].apply_fn(params["5"], F.silu(g) * u)
+        mid = self[3].apply_fn(params["3"], h)
+        return self[4].apply_fn(params["4"], gelu(mid))
+
+    def apply_fn(self, params, x):
+        h = self[0].apply_fn(params["0"], x)
+        x = x + self[1].apply_fn(params["1"], h)
+        h = self[2].apply_fn(params["2"], x)
+        return x + self.mlp(params, h)
+
+
+class TransformerLM(Container):
+    """Decoder-only causal LM over 1-based token ids [batch, seq].
+
+    Output is log-probs [batch, seq, vocab] (``output="logits"`` skips
+    the final log_softmax).  Children: ``"0"`` the LookupTable, then the
+    blocks, the final norm and the vocab head; ``"pos"`` the learned
+    positional table (absent under rope)."""
+
+    def __init__(self, vocab_size: int, embed_dim: int = 256,
+                 num_heads: int = 8, mlp_dim: Optional[int] = None,
+                 num_layers: int = 4, max_len: int = 2048,
+                 causal: bool = True, seq_strategy: str = "dense",
+                 model_axis: Optional[str] = None, remat: bool = False,
+                 output: str = "log_probs", moe_experts: int = 0,
+                 dropout: float = 0.0, norm: str = "ln", mlp: str = "gelu",
+                 num_kv_heads: Optional[int] = None, rope: bool = False,
+                 rope_theta: float = 10000.0,
+                 attn_bias: Optional[bool] = None,
+                 mlp_bias: Optional[bool] = None, head_bias: bool = True,
+                 norm_eps: Optional[float] = None,
+                 device: DeviceLike = None,
+                 generator: Optional[torch.Generator] = None):
+        if output not in ("log_probs", "logits"):
+            raise ValueError(f"output {output!r} not in (log_probs, logits)")
+        _unported(moe_experts, dropout, remat)
+        mlp_dim = mlp_dim or 4 * embed_dim
+        blocks = [TransformerBlock(embed_dim, num_heads, mlp_dim, causal,
+                                   seq_strategy, model_axis, norm=norm,
+                                   mlp=mlp, num_kv_heads=num_kv_heads,
+                                   rope=rope, rope_theta=rope_theta,
+                                   attn_bias=attn_bias, mlp_bias=mlp_bias,
+                                   norm_eps=norm_eps, device=device,
+                                   generator=generator)
+                  for _ in range(num_layers)]
+        Norm = _norm_factory(norm, norm_eps, device)
+        super().__init__(
+            nn.LookupTable(vocab_size, embed_dim, device=device,
+                           generator=generator),
+            *blocks,
+            Norm(embed_dim),
+            nn.Linear(embed_dim, vocab_size, with_bias=head_bias,
+                      device=device, generator=generator),
+            device=device)
+        self._output_mode = output
+        self.vocab_size = vocab_size
+        self.embed_dim = embed_dim
+        self.max_len = max_len
+        self.seq_strategy = seq_strategy
+        # rope models carry no learned positional table — positions
+        # live in the per-layer q/k rotation
+        self.use_rope = bool(rope)
+        if not self.use_rope:
+            self._register_param("pos", 0.02 * torch.empty(
+                max_len, embed_dim).normal_(
+                    generator=generator if generator is not None
+                    else torch.default_generator))
+
+    @property
+    def blocks(self):
+        return [self[i] for i in range(1, len(self) - 2)]
+
+    def apply_fn(self, params, x):
+        h = self[0].apply_fn(params["0"], x)
+        if not self.use_rope:
+            T = h.shape[1]
+            if T > self.max_len:
+                raise ValueError(f"sequence length {T} exceeds "
+                                 f"max_len {self.max_len}")
+            h = h + params["pos"][:T]
+        for i in range(1, len(self)):
+            h = self[i].apply_fn(params[str(i)], h)
+        if self._output_mode == "logits":
+            return h
+        return torch.log_softmax(h, dim=-1)
+
+    def generate(self, prompt_ids, max_new: int, generator=None,
+                 temperature: float = 0.0, top_k: int = 0,
+                 top_p: float = 1.0, compute_dtype=None,
+                 eos_id=None, pad_id=None):
+        """Autoregressive decode with a KV cache (models/generate.py);
+        the generator is cached per (max_len, compute_dtype)."""
+        from .generate import cached_generate
+
+        return cached_generate(self, compute_dtype)(
+            self.param_tree(), prompt_ids, max_new, generator=generator,
+            temperature=temperature, top_k=top_k, top_p=top_p,
+            eos_id=eos_id, pad_id=pad_id)

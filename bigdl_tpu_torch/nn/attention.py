@@ -1,0 +1,118 @@
+"""MultiHeadAttention and rotary embedding (counterpart of
+``bigdl_tpu/nn/attention.py``).  The ``dense`` and ``flash`` strategies
+are ported; the others come with later slices and raise."""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from ..device import DeviceLike
+from ..ops.flash_attention import flash_attention
+from ..parallel.ring_attention import attention
+from .initialization import IN_OUT, ONE_D, Xavier, Zeros
+from .module import TensorModule
+
+#: the JAX layer's strategies; only the first two are ported
+SEQ_STRATEGIES = ("dense", "flash", "block", "ring", "ulysses",
+                  "blocksparse")
+PORTED_STRATEGIES = ("dense", "flash")
+
+
+def rope_rotate(x, pos, theta: float = 10000.0):
+    """Rotary position embedding (HF Llama's rotate-half convention)
+    over ``x`` [B, H, T, D] at absolute positions ``pos`` [T]; the
+    tables in at-least-f32, cast to x's dtype for the product."""
+    D = x.shape[-1]
+    ct = torch.promote_types(x.dtype, torch.float32)
+    inv = 1.0 / (theta ** (torch.arange(0, D, 2, dtype=ct,
+                                        device=x.device) / D))
+    ang = pos.to(ct)[:, None] * inv[None, :]                 # [T, D/2]
+    cos = torch.cat([torch.cos(ang), torch.cos(ang)], -1)    # [T, D]
+    sin = torch.cat([torch.sin(ang), torch.sin(ang)], -1)
+    x1, x2 = x[..., :D // 2], x[..., D // 2:]
+    rot = torch.cat([-x2, x1], -1)
+    return x * cos.to(x.dtype) + rot * sin.to(x.dtype)
+
+
+def proj(x, params, w: str, b: str, with_bias: bool):
+    """x W^T (+ b) by parameter name — the JAX ``jnp.dot`` projection,
+    shared with the cached decode path."""
+    y = torch.matmul(x, params[w].t())
+    return y + params[b] if with_bias else y
+
+
+class MultiHeadAttention(TensorModule):
+    """Multi-head self-attention over [batch, seq, embed]; ``flash``
+    runs kernel K1 (``ops/flash_attention.py``)."""
+
+    def __init__(self, embed_dim: int, num_heads: int,
+                 causal: bool = False, with_bias: bool = True,
+                 seq_strategy: str = "dense",
+                 num_kv_heads: Optional[int] = None,
+                 rope: bool = False, rope_theta: float = 10000.0,
+                 device: DeviceLike = None,
+                 generator: Optional[torch.Generator] = None):
+        if embed_dim % num_heads:
+            raise ValueError("embed_dim % num_heads != 0")
+        if seq_strategy not in SEQ_STRATEGIES:
+            raise ValueError(f"seq_strategy {seq_strategy!r} not in "
+                             f"{SEQ_STRATEGIES}")
+        if seq_strategy not in PORTED_STRATEGIES:
+            raise NotImplementedError(
+                f"seq_strategy {seq_strategy!r} is not ported yet "
+                f"(ported: {PORTED_STRATEGIES})")
+        super().__init__(device)
+        self.embed_dim = embed_dim
+        self.num_heads = num_heads
+        self.head_dim = embed_dim // num_heads
+        self.causal = causal
+        self.with_bias = with_bias
+        self.seq_strategy = seq_strategy
+        # grouped-query attention: kv projections carry num_kv_heads
+        # heads, each shared by num_heads/num_kv_heads query groups
+        self.num_kv_heads = int(num_kv_heads or num_heads)
+        if self.num_heads % self.num_kv_heads:
+            raise ValueError(
+                f"num_heads {num_heads} not divisible by num_kv_heads "
+                f"{self.num_kv_heads}")
+        self.rope = bool(rope)
+        self.rope_theta = float(rope_theta)
+        E = embed_dim
+        kv = self.num_kv_heads * self.head_dim
+        for name, rows in (("wq", E), ("wk", kv), ("wv", kv), ("wo", E)):
+            self._register_param(name, Xavier().init((rows, E), IN_OUT,
+                                                     generator))
+        if with_bias:
+            for name, n in (("bq", E), ("bk", kv), ("bv", kv), ("bo", E)):
+                self._register_param(name, Zeros().init((n,), ONE_D))
+
+    def _split(self, x, heads=None):
+        B, T, _ = x.shape
+        h = heads or self.num_heads
+        return x.reshape(B, T, h, self.head_dim).transpose(1, 2)
+
+    def _attend(self, q, k, v):
+        if self.seq_strategy == "flash":
+            return flash_attention(q.contiguous(), k.contiguous(),
+                                   v.contiguous(), causal=self.causal)
+        return attention(q, k, v, causal=self.causal)
+
+    def _compute(self, params, x):
+        q = self._split(proj(x, params, "wq", "bq", self.with_bias))
+        k = self._split(proj(x, params, "wk", "bk", self.with_bias),
+                        self.num_kv_heads)
+        v = self._split(proj(x, params, "wv", "bv", self.with_bias),
+                        self.num_kv_heads)
+        if self.rope:
+            pos = torch.arange(q.shape[2], device=q.device)
+            q = rope_rotate(q, pos, self.rope_theta)
+            k = rope_rotate(k, pos, self.rope_theta)
+        if self.num_kv_heads != self.num_heads:
+            group = self.num_heads // self.num_kv_heads
+            k = k.repeat_interleave(group, dim=1)
+            v = v.repeat_interleave(group, dim=1)
+        o = self._attend(q, k, v)
+        B, H, T, D = o.shape
+        o = o.transpose(1, 2).reshape(B, T, H * D)
+        return proj(o, params, "wo", "bo", self.with_bias)

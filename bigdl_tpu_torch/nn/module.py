@@ -1,0 +1,133 @@
+"""AbstractModule — the layer protocol over ``torch.nn.Module``
+(counterpart of ``bigdl_tpu/nn/module.py``, trimmed to what the serving
+path uses).
+
+The JAX package computes every layer as one pure function of an
+explicit parameter tree.  The port keeps that shape:
+
+    apply_fn(params, x) -> output
+
+where ``params`` is a nested dict of tensors with the JAX package's
+keys (``param_tree()``), and ``forward(x)`` is
+``apply_fn(self.param_tree(), x)``.  Subclasses implement
+``_compute(params, x)`` — the JAX package's ``_apply``; the name
+differs because ``torch.nn.Module._apply`` is PyTorch's own hook that
+``.to()`` and ``.cuda()`` run through.
+
+Parameters and children are registered under the JAX package's keys
+(``"weight"``, ``"wq"``, ``"pos"``, children ``"0"``, ``"1"``, …), so a
+``state_dict`` key is the JAX ``param_tree()`` path joined with dots.
+Save/load and the Caffe/TF verbs are not ported yet.
+"""
+from __future__ import annotations
+
+from typing import Dict
+
+import torch
+
+from ..device import DeviceLike, resolve_device
+
+
+class AbstractModule(torch.nn.Module):
+    """Base layer.  Subclasses register parameters with
+    ``_register_param`` and implement ``_compute(params, x)``."""
+
+    def __init__(self, device: DeviceLike = None):
+        super().__init__()
+        self._device = resolve_device(device)
+
+    @property
+    def device(self) -> torch.device:
+        return self._device
+
+    def _register_param(self, name: str, value: torch.Tensor):
+        self.register_parameter(
+            name, torch.nn.Parameter(value.to(self._device)))
+
+    # ------------------------------------------------------------------
+    # functional core
+    # ------------------------------------------------------------------
+    def _compute(self, params: Dict, x):
+        raise NotImplementedError(
+            f"{type(self).__name__} must implement _compute")
+
+    def apply_fn(self, params: Dict, x):
+        """The forward over an explicit parameter tree (the cast tree
+        of bf16 serving, or ``param_tree()``)."""
+        return self._compute(params, x)
+
+    def forward(self, x):
+        return self.apply_fn(self.param_tree(), x)
+
+    # ------------------------------------------------------------------
+    # parameter / buffer trees
+    # ------------------------------------------------------------------
+    def param_tree(self) -> Dict:
+        """Own parameters plus each child's tree under its key — the
+        JAX package's ``param_tree()`` layout, holding the live
+        parameters."""
+        tree = dict(self.named_parameters(recurse=False))
+        for key, child in self.named_children():
+            tree[key] = child.param_tree()
+        return tree
+
+    def set_param_tree(self, tree: Dict, _path: str = ""):
+        """Copy ``tree`` (nested dicts of tensors) into the parameters
+        in place, each cast to the parameter's dtype and device.  Raises
+        ``KeyError`` on a missing or extra key and ``ValueError`` on a
+        shape mismatch, naming the dotted path."""
+        own = dict(self.named_parameters(recurse=False))
+        children = dict(self.named_children())
+        expected = set(own) | set(children)
+        missing = sorted(expected - set(tree))
+        extra = sorted(set(tree) - expected)
+        if missing or extra:
+            raise KeyError(
+                f"param tree at {_path or '<root>'}: missing "
+                f"{[_path + k for k in missing]}, extra "
+                f"{[_path + k for k in extra]}")
+        for key, p in own.items():
+            value = torch.as_tensor(tree[key])
+            if tuple(value.shape) != tuple(p.shape):
+                raise ValueError(
+                    f"param {_path + key}: shape {tuple(value.shape)} != "
+                    f"expected {tuple(p.shape)}")
+            with torch.no_grad():
+                p.copy_(value.to(device=p.device, dtype=p.dtype))
+        for key, child in children.items():
+            child.set_param_tree(tree[key], f"{_path}{key}.")
+        return self
+
+    def buffer_tree(self) -> Dict:
+        tree = dict(self.named_buffers(recurse=False))
+        for key, child in self.named_children():
+            tree[key] = child.buffer_tree()
+        return tree
+
+    def evaluate(self):
+        """Switch to eval mode (the JAX package's no-arg ``evaluate``)."""
+        self.eval()
+        return self
+
+
+class TensorModule(AbstractModule):
+    """Module whose input and output are single tensors."""
+
+
+class Container(AbstractModule):
+    """Base container: children registered under ``"0"``, ``"1"``, …"""
+
+    def __init__(self, *modules: AbstractModule, device: DeviceLike = None):
+        super().__init__(device)
+        for m in modules:
+            self.add(m)
+
+    def add(self, module: AbstractModule):
+        self.add_module(str(len(self)), module)
+        return self
+
+    def __len__(self):
+        return len(self._modules)
+
+    def __getitem__(self, i: int) -> AbstractModule:
+        return self._modules[str(i % len(self))]

@@ -1,0 +1,127 @@
+"""What the kernel wrappers share: launch counters, the device checks
+and the build of the CUDA C++ sources.
+
+CUDA sources under ``ops/csrc/`` are compiled with ``nvcc`` for
+``sm_90a`` into a shared library with a plain C interface, loaded with
+``ctypes``.  The build happens at first use, into ``.torch_kernels/`` at
+the root of the checkout, keyed by a hash of the source and the flags,
+so a changed source rebuilds and an unchanged one loads.  Nothing is
+built or imported when a module is imported.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+from pathlib import Path
+from typing import Dict
+
+import torch
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[2] / ".torch_kernels"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+
+class LaunchCounter:
+    """How many times a wrapper launched its kernel.  Only the CUDA
+    branch of a wrapper adds to it, once per launch."""
+
+    def __init__(self, name: str):
+        self.name = name
+        self._n = 0
+        self._lock = threading.Lock()
+
+    def add(self):
+        with self._lock:
+            self._n += 1
+
+    def reset(self):
+        with self._lock:
+            self._n = 0
+
+    @property
+    def count(self) -> int:
+        return self._n
+
+
+def on_cpu(*tensors: torch.Tensor) -> bool:
+    """True when every tensor lies on the CPU (the wrapper then takes
+    the plain version); False when every one lies on one CUDA device
+    (the wrapper launches the kernel).  Anything else raises."""
+    devices = {t.device for t in tensors}
+    if len(devices) != 1:
+        raise ValueError(f"tensors on different devices: {sorted(map(str, devices))}")
+    dev = devices.pop()
+    if dev.type == "cpu":
+        return True
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
+    return False
+
+
+def forbid_grad(what: str, *tensors: torch.Tensor):
+    """The kernels are forward-only in the serving slice."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise NotImplementedError(
+            f"{what}: the CUDA kernel is forward-only; its backward "
+            f"comes with the training slice — call it under "
+            f"torch.no_grad()")
+
+
+def check_cuda_input(what: str, t: torch.Tensor, dtypes):
+    if t.dtype not in dtypes:
+        raise TypeError(f"{what}: dtype {t.dtype} not in {dtypes}")
+    if not t.is_contiguous():
+        raise ValueError(f"{what}: input must be contiguous")
+    if t.data_ptr() % 16:
+        raise ValueError(f"{what}: input must be 16-byte aligned")
+
+
+_LIBS: Dict[str, ctypes.CDLL] = {}
+_LIB_LOCK = threading.Lock()
+#: per library: (build seconds, nvcc's ptxas report), or (0.0, "") on a
+#: load of an earlier build
+BUILD_INFO: Dict[str, tuple] = {}
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    cand = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" / "nvcc"
+    if cand.exists():
+        return str(cand)
+    raise RuntimeError("nvcc not found (PATH or $CUDA_HOME/bin)")
+
+
+def load_cuda_library(name: str) -> ctypes.CDLL:
+    """Build (once per source hash) and load ``csrc/<name>.cu``."""
+    with _LIB_LOCK:
+        if name in _LIBS:
+            return _LIBS[name]
+        src = CSRC / f"{name}.cu"
+        digest = hashlib.sha256(
+            src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+        so = BUILD_DIR / f"lib{name}-{digest}.so"
+        if not so.exists():
+            BUILD_DIR.mkdir(parents=True, exist_ok=True)
+            tmp = so.with_suffix(f".{os.getpid()}.tmp")
+            t0 = time.perf_counter()
+            proc = subprocess.run(
+                [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)],
+                capture_output=True, text=True)
+            if proc.returncode != 0:
+                raise RuntimeError(
+                    f"nvcc failed for {src.name}:\n{proc.stderr[-4000:]}")
+            os.replace(tmp, so)
+            BUILD_INFO[name] = (time.perf_counter() - t0, proc.stderr)
+        else:
+            BUILD_INFO.setdefault(name, (0.0, ""))
+        _LIBS[name] = ctypes.CDLL(str(so))
+        return _LIBS[name]

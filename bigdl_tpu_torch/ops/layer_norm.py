@@ -1,0 +1,108 @@
+"""Fused LayerNorm forward (counterpart of ``bigdl_tpu/ops/layer_norm.py``).
+
+Kernel K4: a Triton kernel replacing the TPU kernel ``_ln_kernel``
+(``bigdl_tpu/ops/layer_norm.py:25``).  It computes exactly what that
+kernel computes: x cast to f32, the row mean, the centered row, var =
+mean(centered^2), rsqrt(var + eps), then gamma and beta in f32 and the
+output cast back to x's dtype.
+
+Design: one program per row, the whole row in one masked block (the
+next power of two >= F).  The work is a one-row reduction plus an
+elementwise pass, with no matrix product and no reuse across rows, so
+it is bound by memory: read x once, write y once.  At the served
+prefill shape (2048 rows x 1024, bf16) that is 8.4 MB, 2.5 us at
+3.35 TB/s on an H100; a decode step's (4 x 1024) is bound by the launch
+itself.
+
+``triton`` is imported, and the kernel built, only when a CUDA tensor
+reaches the wrapper; CPU tensors take the plain version.  Forward only:
+the backward (the JAX package's jnp VJP) comes with the training slice.
+"""
+import os
+
+import torch
+
+from ._support import BUILD_DIR, LaunchCounter, forbid_grad, on_cpu
+
+_DTYPES = (torch.float32, torch.bfloat16, torch.float16)
+_MAX_BLOCK = 32768
+
+#: launches of K4 (CUDA branch only)
+LAUNCHES = LaunchCounter("layer_norm_fwd")
+
+_KERNEL = None
+
+
+def _layer_norm_plain(x, gamma, beta, eps: float):
+    """The kernel's math: f32 statistics and affine, cast back."""
+    xf = x.float()
+    mean = xf.mean(dim=-1, keepdim=True)
+    centered = xf - mean
+    var = (centered * centered).mean(dim=-1, keepdim=True)
+    inv = torch.rsqrt(var + eps)
+    return (centered * inv * gamma.float() + beta.float()).to(x.dtype)
+
+
+def _triton_kernel():
+    """Import triton and define the kernel (once per process).  Triton's
+    compile cache goes beside the CUDA builds unless the caller set
+    ``TRITON_CACHE_DIR``."""
+    global _KERNEL, triton, tl
+    if _KERNEL is None:
+        os.environ.setdefault("TRITON_CACHE_DIR", str(BUILD_DIR / "triton"))
+        import triton
+        import triton.language as tl
+
+        @triton.jit
+        def _ln_fwd_kernel(x_ptr, g_ptr, b_ptr, o_ptr, F, eps,
+                           BLOCK: tl.constexpr):
+            row = tl.program_id(0).to(tl.int64)
+            cols = tl.arange(0, BLOCK)
+            mask = cols < F
+            x = tl.load(x_ptr + row * F + cols, mask=mask,
+                        other=0.0).to(tl.float32)
+            mean = tl.sum(x, axis=0) / F
+            centered = tl.where(mask, x - mean, 0.0)
+            var = tl.sum(centered * centered, axis=0) / F
+            inv = 1.0 / tl.sqrt(var + eps)
+            g = tl.load(g_ptr + cols, mask=mask, other=0.0).to(tl.float32)
+            b = tl.load(b_ptr + cols, mask=mask, other=0.0).to(tl.float32)
+            y = centered * inv * g + b
+            tl.store(o_ptr + row * F + cols,
+                     y.to(o_ptr.dtype.element_ty), mask=mask)
+
+        _KERNEL = _ln_fwd_kernel
+    return _KERNEL
+
+
+def _layer_norm_cuda(x, gamma, beta, eps: float):
+    forbid_grad("fused_layer_norm", x, gamma, beta)
+    if x.dtype not in _DTYPES:
+        raise TypeError(f"fused_layer_norm: dtype {x.dtype} not in {_DTYPES}")
+    if not (x.is_contiguous() and gamma.is_contiguous()
+            and beta.is_contiguous()):
+        raise ValueError("fused_layer_norm: inputs must be contiguous")
+    F = x.shape[-1]
+    if gamma.shape != (F,) or beta.shape != (F,):
+        raise ValueError(f"fused_layer_norm: gamma/beta must be ({F},)")
+    block = 1 << max(F - 1, 0).bit_length()
+    if block > _MAX_BLOCK:
+        raise ValueError(f"fused_layer_norm: F {F} > {_MAX_BLOCK}")
+    out = torch.empty_like(x)
+    rows = x.numel() // F if F else 0
+    if rows == 0:
+        return out
+    kernel = _triton_kernel()
+    with torch.cuda.device(x.device):
+        kernel[(rows,)](x, gamma, beta, out, F, float(eps), BLOCK=block,
+                        num_warps=min(max(block // 256, 1), 16))
+    LAUNCHES.add()
+    return out
+
+
+def fused_layer_norm(x, gamma, beta, eps: float = 1e-5):
+    """LayerNorm over the last dim: the Triton kernel for CUDA tensors,
+    the plain version for CPU tensors."""
+    if on_cpu(x, gamma, beta):
+        return _layer_norm_plain(x, gamma, beta, eps)
+    return _layer_norm_cuda(x, gamma, beta, eps)

@@ -1,0 +1,116 @@
+"""Guards of the PyTorch/CUDA port (bigdl_tpu_torch).
+
+* The port and ``chip_smoke.py`` import neither jax/jaxlib nor anything
+  of the JAX package.  The scan is static (an AST walk of the sources):
+  the interpreter that runs the tests may already hold jax, so an
+  import-time check could not tell.
+* The default device is the GPU: with no CUDA device an entry point
+  raises instead of running on the CPU; only ``device="cpu"`` runs
+  there.
+"""
+import ast
+from pathlib import Path
+
+import pytest
+import torch
+
+from bigdl_tpu_torch.device import resolve_device
+
+REPO = Path(__file__).resolve().parents[1]
+FORBIDDEN = ("jax", "jaxlib", "bigdl_tpu")
+
+
+def _port_sources():
+    files = sorted((REPO / "bigdl_tpu_torch").rglob("*.py"))
+    return files + [REPO / "chip_smoke.py"]
+
+
+def forbidden_imports(source: str):
+    """(line, module) of every import of a forbidden top-level package:
+    ``import``/``from`` statements (relative imports stay inside the
+    port) and ``importlib.import_module``/``__import__`` of a literal."""
+    found = []
+    for node in ast.walk(ast.parse(source)):
+        names = []
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            names = [node.module or ""]
+        elif isinstance(node, ast.Call) and node.args \
+                and isinstance(node.args[0], ast.Constant) \
+                and isinstance(node.args[0].value, str):
+            fn = node.func
+            called = fn.attr if isinstance(fn, ast.Attribute) else \
+                getattr(fn, "id", "")
+            if called in ("import_module", "__import__"):
+                names = [node.args[0].value]
+        found += [(node.lineno, n) for n in names
+                  if n.split(".")[0] in FORBIDDEN]
+    return found
+
+
+def test_port_sources_import_no_jax_and_no_jax_package():
+    files = _port_sources()
+    assert len(files) > 20, "the scan found too few port sources"
+    bad = {str(f.relative_to(REPO)): hits for f in files
+           if (hits := forbidden_imports(f.read_text()))}
+    assert bad == {}
+
+
+@pytest.mark.parametrize("snippet", [
+    "import jax",
+    "import jax.numpy as jnp",
+    "from jaxlib import xla_client",
+    "from bigdl_tpu.serving import status",
+    "import bigdl_tpu.nn",
+    "def f():\n    from jax import lax\n",
+    "import importlib\nimportlib.import_module('jax.numpy')",
+    "__import__('bigdl_tpu')",
+])
+def test_scan_catches_each_import_form(snippet):
+    assert forbidden_imports(snippet)
+
+
+@pytest.mark.parametrize("snippet", [
+    "import bigdl_tpu_torch",
+    "from bigdl_tpu_torch.ops import layer_norm",
+    "from .ops import flash_attention",
+    "from ..device import resolve_device",
+    "import torch\nimport numpy as np",
+])
+def test_scan_allows_the_port_and_torch(snippet):
+    assert forbidden_imports(snippet) == []
+
+
+@pytest.fixture
+def no_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+
+
+def test_default_device_without_cuda_raises(no_cuda):
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        resolve_device()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        resolve_device(None)
+
+
+@pytest.mark.parametrize("device", ["cuda", "cuda:0", torch.device("cuda")])
+def test_explicit_cuda_without_cuda_raises(no_cuda, device):
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        resolve_device(device)
+
+
+def test_entry_points_refuse_to_fall_back_to_the_cpu(no_cuda):
+    from bigdl_tpu_torch.models.transformer import TransformerLM
+    from bigdl_tpu_torch.nn import LayerNorm
+
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        TransformerLM(16, embed_dim=8, num_heads=2, num_layers=1, max_len=8)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        LayerNorm(8, device="cuda")
+
+
+def test_cpu_only_when_named(no_cuda):
+    assert resolve_device("cpu") == torch.device("cpu")
+    with pytest.raises(ValueError):
+        resolve_device("meta")
