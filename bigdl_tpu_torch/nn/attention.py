@@ -44,7 +44,8 @@ def proj(x, params, w: str, b: str, with_bias: bool):
 
 class MultiHeadAttention(TensorModule):
     """Multi-head self-attention over [batch, seq, embed]; ``flash``
-    runs kernel K1 (``ops/flash_attention.py``)."""
+    runs kernel K1 forward and K2/K3 backward
+    (``ops/flash_attention.py``)."""
 
     def __init__(self, embed_dim: int, num_heads: int,
                  causal: bool = False, with_bias: bool = True,

@@ -1,6 +1,6 @@
 """AbstractModule — the layer protocol over ``torch.nn.Module``
 (counterpart of ``bigdl_tpu/nn/module.py``, trimmed to what the serving
-path uses).
+and training paths use).
 
 The JAX package computes every layer as one pure function of an
 explicit parameter tree.  The port keeps that shape:
@@ -12,7 +12,9 @@ keys (``param_tree()``), and ``forward(x)`` is
 ``apply_fn(self.param_tree(), x)``.  Subclasses implement
 ``_compute(params, x)`` — the JAX package's ``_apply``; the name
 differs because ``torch.nn.Module._apply`` is PyTorch's own hook that
-``.to()`` and ``.cuda()`` run through.
+``.to()`` and ``.cuda()`` run through.  Likewise the JAX package's
+``training()`` verb is ``train()`` here: ``training`` is the mode flag
+of every ``torch.nn.Module``.
 
 Parameters and children are registered under the JAX package's keys
 (``"weight"``, ``"wq"``, ``"pos"``, children ``"0"``, ``"1"``, …), so a
@@ -107,6 +109,18 @@ class AbstractModule(torch.nn.Module):
     def evaluate(self):
         """Switch to eval mode (the JAX package's no-arg ``evaluate``)."""
         self.eval()
+        return self
+
+    def train(self, mode: bool = True):
+        """Switch to training mode: the JAX package's ``training()``,
+        spelled as PyTorch's verb, since ``training`` is a bool
+        attribute of every ``torch.nn.Module``.  Training also makes
+        every parameter require a gradient.  ``train(False)`` is
+        ``eval()``, as in PyTorch."""
+        super().train(mode)
+        if mode:
+            for p in self.parameters():
+                p.requires_grad_(True)
         return self
 
 

@@ -3,10 +3,12 @@ and the build of the CUDA C++ sources.
 
 CUDA sources under ``ops/csrc/`` are compiled with ``nvcc`` for
 ``sm_90a`` into a shared library with a plain C interface, loaded with
-``ctypes``.  The build happens at first use, into ``.torch_kernels/`` at
-the root of the checkout, keyed by a hash of the source and the flags,
-so a changed source rebuilds and an unchanged one loads.  Nothing is
-built or imported when a module is imported.
+``ctypes``: one ``.cu`` file per library, which may include the shared
+``*.cuh`` headers beside it.  The build happens at first use, into
+``.torch_kernels/`` at the root of the checkout, keyed by a hash of the
+source, the headers and the flags, so a changed source rebuilds and an
+unchanged one loads.  Libraries build in parallel (one ``nvcc`` each).
+Nothing is built or imported when a module is imported.
 """
 from __future__ import annotations
 
@@ -17,6 +19,7 @@ import shutil
 import subprocess
 import threading
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 from typing import Dict
 
@@ -65,15 +68,6 @@ def on_cpu(*tensors: torch.Tensor) -> bool:
     return False
 
 
-def forbid_grad(what: str, *tensors: torch.Tensor):
-    """The kernels are forward-only in the serving slice."""
-    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
-        raise NotImplementedError(
-            f"{what}: the CUDA kernel is forward-only; its backward "
-            f"comes with the training slice — call it under "
-            f"torch.no_grad()")
-
-
 def check_cuda_input(what: str, t: torch.Tensor, dtypes):
     if t.dtype not in dtypes:
         raise TypeError(f"{what}: dtype {t.dtype} not in {dtypes}")
@@ -84,7 +78,8 @@ def check_cuda_input(what: str, t: torch.Tensor, dtypes):
 
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
-_LIB_LOCK = threading.Lock()
+_LIB_LOCKS: Dict[str, threading.Lock] = {}
+_LOCKS_LOCK = threading.Lock()
 #: per library: (build seconds, nvcc's ptxas report), or (0.0, "") on a
 #: load of an earlier build
 BUILD_INFO: Dict[str, tuple] = {}
@@ -100,15 +95,23 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found (PATH or $CUDA_HOME/bin)")
 
 
+def _source_digest(src: Path) -> str:
+    h = hashlib.sha256(src.read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode() + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return h.hexdigest()[:16]
+
+
 def load_cuda_library(name: str) -> ctypes.CDLL:
     """Build (once per source hash) and load ``csrc/<name>.cu``."""
-    with _LIB_LOCK:
+    with _LOCKS_LOCK:
+        lock = _LIB_LOCKS.setdefault(name, threading.Lock())
+    with lock:
         if name in _LIBS:
             return _LIBS[name]
         src = CSRC / f"{name}.cu"
-        digest = hashlib.sha256(
-            src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-        so = BUILD_DIR / f"lib{name}-{digest}.so"
+        so = BUILD_DIR / f"lib{name}-{_source_digest(src)}.so"
         if not so.exists():
             BUILD_DIR.mkdir(parents=True, exist_ok=True)
             tmp = so.with_suffix(f".{os.getpid()}.tmp")
@@ -125,3 +128,11 @@ def load_cuda_library(name: str) -> ctypes.CDLL:
             BUILD_INFO.setdefault(name, (0.0, ""))
         _LIBS[name] = ctypes.CDLL(str(so))
         return _LIBS[name]
+
+
+def load_cuda_libraries(*names: str) -> Dict[str, ctypes.CDLL]:
+    """Build and load several libraries at once, one ``nvcc`` each,
+    all started together.  Raises the first build failure."""
+    with ThreadPoolExecutor(max_workers=max(len(names), 1)) as pool:
+        libs = list(pool.map(load_cuda_library, names))
+    return dict(zip(names, libs))

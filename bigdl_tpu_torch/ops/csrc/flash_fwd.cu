@@ -18,6 +18,8 @@
 // run on the tensor cores through WMMA (16x16x16, f32 accumulate); f32
 // inputs use plain FMA, since WMMA has no full-f32 product.  Any T and S
 // are taken: the ragged edge is zero-filled on load and masked to -inf.
+// The tile loads, products and warp reductions live in tile_common.cuh,
+// shared with the backward kernels of flash_bwd.cu.
 //
 // What bounds it on an H100.  At the served prefill shape (B 4, H 8,
 // T 512, D 128, bf16, causal) the kernel must move q, k, v and o, 16.8 MB,
@@ -26,130 +28,12 @@
 // query tile and does not overlap loads with compute (no TMA, no wgmma,
 // no pipelining); closing the gap to the bound is later work.
 
-#include <cuda_runtime.h>
-#include <cuda_bf16.h>
-#include <mma.h>
-#include <math.h>
-#include <stdint.h>
-#include <mutex>
-#include <type_traits>
+#include "tile_common.cuh"
 
 namespace {
 
-constexpr int BQ = 64;         // query rows per block
-constexpr int BK = 64;         // key rows per tile
-constexpr int NWARPS = 4;
-constexpr int NTHREADS = NWARPS * 32;
-constexpr int ROWS_PER_WARP = BQ / NWARPS;   // 16
-constexpr float BIG_LSE = 1e30f;
-constexpr int kMaxDevices = 64;
-
-static_assert(BK == 64, "softmax assigns two key columns per lane");
-static_assert(ROWS_PER_WARP == 16, "one WMMA row tile per warp");
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
-
-template <typename T> __device__ __forceinline__ T from_f32(float x);
-template <> __device__ __forceinline__ float from_f32<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);   // round to nearest even, as astype does
-}
-
-__device__ __forceinline__ float warp_max(float v) {
-  for (int off = 16; off > 0; off >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, off));
-  return v;
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
-  for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
-  return v;
-}
-
-// Rows [row0, row0 + nrows) of a row-major (rows_total, D) matrix into
-// shared memory, 16 bytes per thread per step; rows past rows_total are zero.
-template <typename T, int D>
-__device__ __forceinline__ void load_tile(T* dst, const T* src, int row0, int rows_total,
-                                          int nrows) {
-  constexpr int VEC = 16 / sizeof(T);
-  constexpr int VPR = D / VEC;
-  for (int i = threadIdx.x; i < nrows * VPR; i += NTHREADS) {
-    const int r = i / VPR;
-    const int c = (i % VPR) * VEC;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (row0 + r < rows_total)
-      val = *reinterpret_cast<const uint4*>(src + (size_t)(row0 + r) * D + c);
-    *reinterpret_cast<uint4*>(dst + r * D + c) = val;
-  }
-}
-
-// s_s[rows of this warp][0:BK] = q_s . k_s^T (unscaled, f32).
-template <typename T, int D>
-__device__ __forceinline__ void score_tile(const T* q_s, const T* k_s, float* s_s,
-                                           int warp, int lane) {
-  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
-    using namespace nvcuda;
-    for (int ct = 0; ct < BK / 16; ++ct) {
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> c;
-      wmma::fill_fragment(c, 0.0f);
-      for (int kk = 0; kk < D; kk += 16) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> a;
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::col_major> b;
-        wmma::load_matrix_sync(a, q_s + warp * 16 * D + kk, D);
-        wmma::load_matrix_sync(b, k_s + ct * 16 * D + kk, D);   // K^T as col-major
-        wmma::mma_sync(c, a, b, c);
-      }
-      wmma::store_matrix_sync(s_s + warp * 16 * BK + ct * 16, c, BK, wmma::mem_row_major);
-    }
-  } else {
-    for (int rr = 0; rr < ROWS_PER_WARP; ++rr) {
-      const int r = warp * ROWS_PER_WARP + rr;
-      for (int c = lane; c < BK; c += 32) {
-        float acc = 0.0f;
-        for (int dd = 0; dd < D; ++dd) {
-          const int d = (dd + lane) & (D - 1);   // rotate: no bank conflicts on k_s
-          acc += to_f32(q_s[r * D + d]) * to_f32(k_s[c * D + d]);
-        }
-        s_s[r * BK + c] = acc;
-      }
-    }
-  }
-}
-
-// acc[rows of this warp] = acc * alpha[row] + p_s . v_s  (f32 accumulate).
-template <typename T, int D>
-__device__ __forceinline__ void pv_tile(const T* p_s, const T* v_s, float* acc_s,
-                                        const float* alpha_s, int warp, int lane) {
-  const int r0 = warp * ROWS_PER_WARP;
-  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
-    using namespace nvcuda;
-    for (int i = lane; i < ROWS_PER_WARP * D; i += 32)
-      acc_s[r0 * D + i] *= alpha_s[r0 + i / D];
-    __syncwarp();
-    for (int dt = 0; dt < D / 16; ++dt) {
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> c;
-      wmma::load_matrix_sync(c, acc_s + r0 * D + dt * 16, D, wmma::mem_row_major);
-      for (int jj = 0; jj < BK; jj += 16) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> a;
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::row_major> b;
-        wmma::load_matrix_sync(a, p_s + r0 * BK + jj, BK);
-        wmma::load_matrix_sync(b, v_s + jj * D + dt * 16, D);
-        wmma::mma_sync(c, a, b, c);
-      }
-      wmma::store_matrix_sync(acc_s + r0 * D + dt * 16, c, D, wmma::mem_row_major);
-    }
-  } else {
-    for (int rr = 0; rr < ROWS_PER_WARP; ++rr) {
-      const int r = r0 + rr;
-      const float alpha = alpha_s[r];
-      for (int d = lane; d < D; d += 32) {
-        float acc = 0.0f;
-        for (int j = 0; j < BK; ++j) acc += to_f32(p_s[r * BK + j]) * to_f32(v_s[j * D + d]);
-        acc_s[r * D + d] = acc_s[r * D + d] * alpha + acc;
-      }
-    }
-  }
-}
+constexpr int BQ = TILE;   // query rows per block
+constexpr int BK = TILE;   // key rows per tile
 
 template <typename T, int D>
 constexpr size_t smem_bytes() {
@@ -227,7 +111,11 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
     }
     __syncwarp();
 
-    pv_tile<T, D>(p_s, v_s, acc_s, alpha_s, warp, lane);
+    // acc = acc * alpha + P.V over this warp's rows
+    for (int i = lane; i < ROWS_PER_WARP * D; i += 32)
+      acc_s[warp * ROWS_PER_WARP * D + i] *= alpha_s[warp * ROWS_PER_WARP + i / D];
+    __syncwarp();
+    mma_acc_tile<T, D>(p_s, v_s, acc_s, warp, lane);
     __syncthreads();   // k_s / v_s are overwritten by the next tile
   }
 
@@ -246,24 +134,12 @@ template <typename T, int D>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o, void* lse, int BH,
                    int T_len, int S_len, float sm_scale, int causal, cudaStream_t stream) {
   constexpr size_t smem = smem_bytes<T, D>();
+  static_assert(smem <= kMaxSmemBytes, "flash_fwd tile does not fit in shared memory");
   auto kernel = flash_fwd_kernel<T, D>;
-  // The shared-memory opt-in is set once per device, not per launch: it is
-  // a host call on the launch path and no stream operation, so a launch
-  // captured into a CUDA graph must not make it.
   static std::mutex mu;
   static bool attr_set[kMaxDevices] = {};
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
+  cudaError_t err = smem_opt_in_once(kernel, (int)smem, mu, attr_set);
   if (err != cudaSuccess) return err;
-  if (dev < 0 || dev >= kMaxDevices) return cudaErrorInvalidDevice;
-  {
-    std::lock_guard<std::mutex> lock(mu);
-    if (!attr_set[dev]) {
-      err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-      if (err != cudaSuccess) return err;
-      attr_set[dev] = true;
-    }
-  }
   dim3 grid((T_len + BQ - 1) / BQ, BH);
   kernel<<<grid, NTHREADS, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),

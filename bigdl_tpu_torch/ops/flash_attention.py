@@ -1,16 +1,24 @@
-"""Flash attention forward (counterpart of ``bigdl_tpu/ops/flash_attention.py``).
+"""Flash attention, forward and backward (counterpart of
+``bigdl_tpu/ops/flash_attention.py``).
 
-Kernel K1: ``csrc/flash_fwd.cu``, CUDA C++ for ``sm_90a``, replacing
-the TPU kernel ``_fwd_kernel`` (``bigdl_tpu/ops/flash_attention.py:150``).
-The source's header says what it computes, what bounds it and how.
+Kernels, CUDA C++ for ``sm_90a``; each source's header says what it
+computes, what bounds it and how:
 
-``flash_attention`` takes the plain version (``_flash_plain``, the
-kernel's math in PyTorch) only when its tensors lie on the CPU; for CUDA
-tensors it launches the kernel or raises.  It takes any T and S (the
-kernel masks the ragged edge: there is no TPU-style block-multiple
-fallback), head dims 16/32/64/128, and float32 or bfloat16.  Forward
-only: the backward kernels (the TPU's ``_dkv_kernel``/``_dq_kernel``)
-come with the training slice.
+* K1 ``csrc/flash_fwd.cu`` replaces ``_fwd_kernel``
+  (``bigdl_tpu/ops/flash_attention.py:150``);
+* K2 and K3 ``csrc/flash_bwd.cu`` replace ``_dkv_kernel`` (``:236``)
+  and ``_dq_kernel`` (``:271``).
+
+``flash_attention`` and ``flash_forward`` run through one
+``torch.autograd.Function``, the counterpart of the ``custom_vjp`` of
+``_flash``: its forward is K1 and saves ``(q, k, v, o, lse)``, the JAX
+residuals; its backward computes delta = rowsum(dO * O) in f32 and
+launches K2 then K3.  For CPU tensors the same Function runs the plain
+versions (``_flash_plain``, ``_flash_bwd_plain``: the kernels' math in
+PyTorch); for CUDA tensors it launches the kernels or raises, forward
+and backward.  Any T and S (the kernels mask the ragged edge: there is
+no TPU-style block-multiple fallback), head dims 16/32/64/128, float32
+or bfloat16.
 """
 from __future__ import annotations
 
@@ -20,8 +28,8 @@ from typing import Optional, Tuple
 
 import torch
 
-from ._support import (LaunchCounter, check_cuda_input, forbid_grad,
-                       load_cuda_library, on_cpu)
+from ._support import (LaunchCounter, check_cuda_input, load_cuda_library,
+                       on_cpu)
 
 _BIG_LSE = 1e30  # lse sentinel for fully-masked rows: exp(s - BIG) == 0
 HEAD_DIMS = (16, 32, 64, 128)
@@ -29,6 +37,15 @@ _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 #: launches of K1 (CUDA branch only)
 LAUNCHES = LaunchCounter("flash_fwd")
+#: launches of K2 and K3 (CUDA branch only)
+LAUNCHES_DKV = LaunchCounter("flash_bwd_dkv")
+LAUNCHES_DQ = LaunchCounter("flash_bwd_dq")
+
+
+def _causal_keep(T: int, S: int, device) -> torch.Tensor:
+    """(T, S) bool: the top-left aligned causal mask, q_pos >= k_pos."""
+    return (torch.arange(T, device=device)[:, None]
+            >= torch.arange(S, device=device)[None, :])
 
 
 def _flash_plain(q, k, v, causal: bool, sm_scale: float
@@ -40,10 +57,8 @@ def _flash_plain(q, k, v, causal: bool, sm_scale: float
     B, H, T, _ = q.shape
     s = torch.matmul(q.float(), k.float().transpose(-1, -2)) * sm_scale
     if causal:
-        S = k.shape[2]
-        keep = (torch.arange(T, device=q.device)[:, None]
-                >= torch.arange(S, device=q.device)[None, :])
-        s = s.masked_fill(~keep, float("-inf"))
+        s = s.masked_fill(~_causal_keep(T, k.shape[2], q.device),
+                          float("-inf"))
     m = s.amax(dim=-1, keepdim=True)
     m_safe = torch.where(torch.isfinite(m), m, torch.zeros_like(m))
     p = torch.exp(s - m_safe)
@@ -54,43 +69,159 @@ def _flash_plain(q, k, v, causal: bool, sm_scale: float
     return o.to(q.dtype), lse.reshape(B * H, 1, T)
 
 
+def _flash_bwd_plain(q, k, v, o, lse, d_o, causal: bool, sm_scale: float
+                     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """K2 and K3's math over whole rows (the TPU ``_flash_bwd``): dO
+    cast to q's dtype, delta = rowsum(dO * O) in f32, P = exp(S - LSE)
+    recomputed from f32 scores, dP = dO . V^T, dS = P * (dP - delta);
+    P cast to v's dtype before dV = P^T . dO, dS cast to q's (k's) dtype
+    before dK = dS^T . Q (dQ = dS . K), both times sm_scale.  Returns
+    (dq, dk, dv) in the inputs' dtypes."""
+    B, H, T, _ = q.shape
+    S = k.shape[2]
+    do = d_o.to(q.dtype)
+    delta = (d_o.float() * o.float()).sum(dim=-1, keepdim=True)
+    s = torch.matmul(q.float(), k.float().transpose(-1, -2)) * sm_scale
+    if causal:
+        s = s.masked_fill(~_causal_keep(T, S, q.device), float("-inf"))
+    p = torch.exp(s - lse.reshape(B, H, T, 1))
+    dp = torch.matmul(do.float(), v.float().transpose(-1, -2))
+    ds = p * (dp - delta)
+    dv = torch.matmul(p.to(v.dtype).float().transpose(-1, -2), do.float())
+    dk = torch.matmul(ds.to(q.dtype).float().transpose(-1, -2),
+                      q.float()) * sm_scale
+    dq = torch.matmul(ds.to(k.dtype).float(), k.float()) * sm_scale
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def _check_kernel_inputs(what: str, q, k, v):
+    D = q.shape[-1]
+    if D not in HEAD_DIMS:
+        raise ValueError(f"{what}: head dim {D} not in {HEAD_DIMS}")
+    if k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError(f"{what}: q, k and v must share a dtype")
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        check_cuda_input(f"{what} {name}", t, tuple(_DTYPE_CODE))
+    if q.shape[0] * q.shape[1] > 65535:
+        raise ValueError(f"{what}: B*H {q.shape[0] * q.shape[1]} > 65535")
+
+
+def _stream(device) -> int:
+    return torch.cuda.current_stream(device).cuda_stream
+
+
 def _flash_cuda(q, k, v, causal: bool, sm_scale: float
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Launch K1 on the current stream of q's device."""
-    forbid_grad("flash_attention", q, k, v)
+    _check_kernel_inputs("flash_attention", q, k, v)
     B, H, T, D = q.shape
     S = k.shape[2]
-    if D not in HEAD_DIMS:
-        raise ValueError(f"flash_attention: head dim {D} not in {HEAD_DIMS}")
-    if k.dtype != q.dtype or v.dtype != q.dtype:
-        raise TypeError("flash_attention: q, k and v must share a dtype")
-    for name, t in (("q", q), ("k", k), ("v", v)):
-        check_cuda_input(f"flash_attention {name}", t, tuple(_DTYPE_CODE))
-    if B * H > 65535:
-        raise ValueError(f"flash_attention: B*H {B * H} > 65535")
-    lib = load_cuda_library("flash_fwd")
-    fn = lib.bigdl_flash_fwd
+    fn = load_cuda_library("flash_fwd").bigdl_flash_fwd
     fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [
         ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     o = torch.empty_like(q)
     lse = torch.empty((B * H, 1, T), dtype=torch.float32, device=q.device)
     with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
                  lse.data_ptr(), B * H, T, S, D, _DTYPE_CODE[q.dtype],
-                 float(sm_scale), int(bool(causal)), stream)
+                 float(sm_scale), int(bool(causal)), _stream(q.device))
     if err != 0:
         raise RuntimeError(f"flash_fwd launch failed: cudaError {err}")
     LAUNCHES.add()
     return o, lse
 
 
+def _bwd_fn(name: str, n_ptr: int):
+    fn = getattr(load_cuda_library("flash_bwd"), name)
+    fn.argtypes = [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * 5 + [
+        ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _launch_dkv(q, k, v, do, lse, delta, causal: bool, sm_scale: float
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Launch K2 over prepared inputs: dO in q's dtype and delta
+    (B*H, T) f32, both contiguous.  Returns (dk, dv)."""
+    B, H, T, D = q.shape
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    with torch.cuda.device(q.device):
+        err = _bwd_fn("bigdl_flash_bwd_dkv", 8)(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            B * H, T, k.shape[2], D, _DTYPE_CODE[q.dtype], float(sm_scale),
+            int(bool(causal)), _stream(q.device))
+    if err != 0:
+        raise RuntimeError(f"flash_bwd_dkv launch failed: cudaError {err}")
+    LAUNCHES_DKV.add()
+    return dk, dv
+
+
+def _launch_dq(q, k, v, do, lse, delta, causal: bool, sm_scale: float
+               ) -> torch.Tensor:
+    """Launch K3 over the same prepared inputs as ``_launch_dkv``."""
+    B, H, T, D = q.shape
+    dq = torch.empty_like(q)
+    with torch.cuda.device(q.device):
+        err = _bwd_fn("bigdl_flash_bwd_dq", 7)(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), B * H, T,
+            k.shape[2], D, _DTYPE_CODE[q.dtype], float(sm_scale),
+            int(bool(causal)), _stream(q.device))
+    if err != 0:
+        raise RuntimeError(f"flash_bwd_dq launch failed: cudaError {err}")
+    LAUNCHES_DQ.add()
+    return dq
+
+
+def _bwd_inputs(q, o, d_o):
+    """dO in q's dtype and delta = rowsum(dO * O) (B*H, T) in f32 — the
+    plain reduction the JAX package leaves to XLA."""
+    B, H, T, _ = q.shape
+    delta = (d_o.float() * o.float()).sum(dim=-1).reshape(B * H, T)
+    return d_o.to(q.dtype).contiguous(), delta.contiguous()
+
+
+def _flash_bwd_cuda(q, k, v, o, lse, d_o, causal: bool, sm_scale: float
+                    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Launch K2 then K3 on the current stream of q's device."""
+    _check_kernel_inputs("flash_attention backward", q, k, v)
+    check_cuda_input("flash_attention backward lse", lse, (torch.float32,))
+    do, delta = _bwd_inputs(q, o, d_o)
+    dk, dv = _launch_dkv(q, k, v, do, lse, delta, causal, sm_scale)
+    dq = _launch_dq(q, k, v, do, lse, delta, causal, sm_scale)
+    return dq, dk, dv
+
+
+class _FlashAttention(torch.autograd.Function):
+    """The ``custom_vjp`` of the TPU ``_flash``: (O, LSE) forward, the
+    FlashAttention-2 backward from the saved (q, k, v, o, lse)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal: bool, sm_scale: float):
+        if on_cpu(q, k, v):
+            o, lse = _flash_plain(q, k, v, causal, sm_scale)
+        else:
+            o, lse = _flash_cuda(q, k, v, causal, sm_scale)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.causal, ctx.sm_scale = causal, sm_scale
+        ctx.mark_non_differentiable(lse)
+        return o, lse
+
+    @staticmethod
+    def backward(ctx, d_o, _d_lse):
+        q, k, v, o, lse = ctx.saved_tensors
+        bwd = _flash_bwd_plain if on_cpu(q, k, v, d_o) else _flash_bwd_cuda
+        dq, dk, dv = bwd(q, k, v, o, lse, d_o, ctx.causal, ctx.sm_scale)
+        return dq, dk, dv, None, None
+
+
 def flash_forward(q, k, v, causal: bool = False,
                   sm_scale: Optional[float] = None
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(O, LSE) over (B, H, T, D) q and (B, H, S, D) k/v — the TPU
-    ``_flash_fwd``'s two outputs."""
+    ``_flash_fwd``'s two outputs; O is differentiable, LSE is not."""
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
         raise ValueError("flash_attention takes (B, H, T, D) tensors")
     if k.shape != v.shape or k.shape[:2] != q.shape[:2] \
@@ -101,13 +232,11 @@ def flash_forward(q, k, v, causal: bool = False,
         raise ValueError("flash_attention: empty sequence")
     if sm_scale is None:
         sm_scale = 1.0 / math.sqrt(q.shape[-1])
-    if on_cpu(q, k, v):
-        return _flash_plain(q, k, v, causal, sm_scale)
-    return _flash_cuda(q, k, v, causal, sm_scale)
+    return _FlashAttention.apply(q, k, v, bool(causal), float(sm_scale))
 
 
 def flash_attention(q, k, v, causal: bool = False,
                     sm_scale: Optional[float] = None) -> torch.Tensor:
     """Attention over (B, H, T, D) tensors without materializing the
-    scores on the card."""
+    scores on the card; differentiable in q, k and v."""
     return flash_forward(q, k, v, causal, sm_scale)[0]

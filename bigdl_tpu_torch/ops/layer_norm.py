@@ -1,4 +1,4 @@
-"""Fused LayerNorm forward (counterpart of ``bigdl_tpu/ops/layer_norm.py``).
+"""Fused LayerNorm (counterpart of ``bigdl_tpu/ops/layer_norm.py``).
 
 Kernel K4: a Triton kernel replacing the TPU kernel ``_ln_kernel``
 (``bigdl_tpu/ops/layer_norm.py:25``).  It computes exactly what that
@@ -15,14 +15,23 @@ prefill shape (2048 rows x 1024, bf16) that is 8.4 MB, 2.5 us at
 itself.
 
 ``triton`` is imported, and the kernel built, only when a CUDA tensor
-reaches the wrapper; CPU tensors take the plain version.  Forward only:
-the backward (the JAX package's jnp VJP) comes with the training slice.
+reaches the wrapper; CPU tensors take the plain version.
+
+The gradient, as in the JAX package's ``custom_vjp`` of ``_fused_ln``,
+launches no kernel: a ``torch.autograd.Function`` saves ``(x, gamma,
+beta)`` and its backward is autograd over the plain version recomputed
+from them.  It recomputes in f32 and casts each gradient to its input's
+dtype.  The JAX VJP runs its jnp reference in the input dtype, so the
+two are identical in f32 and differ under bf16 compute: there the JAX
+backward rounds its intermediates (mean, centered row, rsqrt, the
+products with g) to bf16, while this one rounds only the three
+gradients it returns.
 """
 import os
 
 import torch
 
-from ._support import BUILD_DIR, LaunchCounter, forbid_grad, on_cpu
+from ._support import BUILD_DIR, LaunchCounter, on_cpu
 
 _DTYPES = (torch.float32, torch.bfloat16, torch.float16)
 _MAX_BLOCK = 32768
@@ -76,7 +85,6 @@ def _triton_kernel():
 
 
 def _layer_norm_cuda(x, gamma, beta, eps: float):
-    forbid_grad("fused_layer_norm", x, gamma, beta)
     if x.dtype not in _DTYPES:
         raise TypeError(f"fused_layer_norm: dtype {x.dtype} not in {_DTYPES}")
     if not (x.is_contiguous() and gamma.is_contiguous()
@@ -100,9 +108,31 @@ def _layer_norm_cuda(x, gamma, beta, eps: float):
     return out
 
 
+class _FusedLayerNorm(torch.autograd.Function):
+    """Forward: K4 for CUDA tensors, the plain version for CPU ones.
+    Backward: autograd over the plain version in f32, recomputed from
+    the saved (x, gamma, beta)."""
+
+    @staticmethod
+    def forward(ctx, x, gamma, beta, eps: float):
+        ctx.save_for_backward(x, gamma, beta)
+        ctx.eps = eps
+        if on_cpu(x, gamma, beta):
+            return _layer_norm_plain(x, gamma, beta, eps)
+        return _layer_norm_cuda(x, gamma, beta, eps)
+
+    @staticmethod
+    def backward(ctx, g):
+        saved = ctx.saved_tensors
+        with torch.enable_grad():
+            leaves = [t.detach().float().requires_grad_() for t in saved]
+            y = _layer_norm_plain(*leaves, ctx.eps)
+            grads = torch.autograd.grad(y, leaves, g.float())
+        return (*(d.to(t.dtype) for d, t in zip(grads, saved)), None)
+
+
 def fused_layer_norm(x, gamma, beta, eps: float = 1e-5):
-    """LayerNorm over the last dim: the Triton kernel for CUDA tensors,
-    the plain version for CPU tensors."""
-    if on_cpu(x, gamma, beta):
-        return _layer_norm_plain(x, gamma, beta, eps)
-    return _layer_norm_cuda(x, gamma, beta, eps)
+    """LayerNorm over the last dim, differentiable in all three inputs:
+    the Triton kernel for CUDA tensors, the plain version for CPU
+    tensors."""
+    return _FusedLayerNorm.apply(x, gamma, beta, float(eps))

@@ -1,5 +1,6 @@
 """The port's kernel modules (bigdl_tpu_torch.ops) against the JAX
-package's Pallas kernels, run in interpret mode on the CPU.
+package's Pallas kernels, run in interpret mode on the CPU, forward and
+backward, and the fused cross entropy against the JAX op.
 
 On the CPU the wrappers take their plain versions — the kernels' math
 in PyTorch — and launch nothing.  The kernels themselves are compared
@@ -12,12 +13,15 @@ import numpy as np
 import pytest
 import torch
 
+import jax
 import jax.numpy as jnp
 
-from bigdl_tpu.ops.flash_attention import _flash_fwd
+from bigdl_tpu.ops.flash_attention import _flash_bwd, _flash_fwd, _pick_block
 from bigdl_tpu.ops.flash_attention import flash_attention as jax_flash
+from bigdl_tpu.ops.fused_xent import softmax_xent_rows as jax_xent
 from bigdl_tpu.ops.layer_norm import fused_layer_norm as jax_ln
 from bigdl_tpu_torch.ops import flash_attention as fa
+from bigdl_tpu_torch.ops import fused_xent
 from bigdl_tpu_torch.ops import layer_norm as ln
 
 # The suite runs in several processes at once: one intra-op thread each
@@ -25,6 +29,8 @@ from bigdl_tpu_torch.ops import layer_norm as ln
 torch.set_num_threads(1)
 
 TOL = dict(rtol=1e-4, atol=1e-5)   # as tests/test_pallas_ops.py
+# gradients: as tests/test_pallas_ops.py holds the Pallas backward
+GRAD_TOL = dict(rtol=1e-3, atol=1e-4)
 
 
 def _qkv(B, H, T, S, D, seed):
@@ -130,3 +136,143 @@ def test_non_cpu_tensors_never_reach_the_plain_version():
                             torch.empty(16, device="meta"))
     with pytest.raises(ValueError):   # mixed devices
         fa.flash_attention(torch.zeros(1, 2, 16, 16), m, m)
+
+
+def _bwd_case(case):
+    """q, k, v, dO of a FLASH_CASES case (numpy f32) and its args."""
+    B, H, T, S, D, causal, sm_scale, block = FLASH_CASES[case]
+    q, k, v = _qkv(B, H, T, S, D, seed=len(case))
+    g = np.random.RandomState(len(case) + 100).randn(
+        B, H, T, D).astype(np.float32)
+    scale = sm_scale if sm_scale is not None else 1 / math.sqrt(D)
+    return q, k, v, g, causal, scale, block
+
+
+@pytest.mark.parametrize("case", sorted(FLASH_CASES))
+def test_flash_bwd_plain_matches_pallas_interpret(case):
+    q, k, v, g, causal, scale, block = _bwd_case(case)
+    T, S, D = q.shape[2], k.shape[2], q.shape[3]
+    bq = block or _pick_block(T, D)
+    bk = block or _pick_block(S, D)
+    jq, jk, jv = jnp.asarray(q), jnp.asarray(k), jnp.asarray(v)
+    o, lse = _flash_fwd(jq, jk, jv, causal, scale, bq, bk, True)
+    want = _flash_bwd(jq, jk, jv, o, lse, jnp.asarray(g), causal, scale,
+                      bq, bk, True)
+    got = fa._flash_bwd_plain(
+        torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v),
+        torch.from_numpy(np.array(o)), torch.from_numpy(np.array(lse)),
+        torch.from_numpy(g), causal, scale)
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), **GRAD_TOL,
+                                   err_msg=name)
+
+
+@pytest.mark.parametrize("case", ["one_block_causal", "causal_t_gt_s",
+                                  "sm_scale"])
+def test_flash_autograd_runs_the_plain_backward_on_cpu(case):
+    q, k, v, g, causal, scale, _ = _bwd_case(case)
+    qt, kt, vt = (torch.from_numpy(a).requires_grad_() for a in (q, k, v))
+    o = fa.flash_attention(qt, kt, vt, causal=causal, sm_scale=scale)
+    got = torch.autograd.grad(o, (qt, kt, vt), torch.from_numpy(g))
+    o2, lse = fa._flash_plain(*(torch.from_numpy(a) for a in (q, k, v)),
+                              causal, scale)
+    want = fa._flash_bwd_plain(
+        *(torch.from_numpy(a) for a in (q, k, v)), o2, lse,
+        torch.from_numpy(g), causal, scale)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    # and the same gradients as the JAX custom_vjp over the dense oracle
+    def jloss(q_, k_, v_):
+        out = jax_flash(q_, k_, v_, causal=causal, sm_scale=scale)
+        return jnp.sum(out * jnp.asarray(g))
+
+    jgrads = jax.grad(jloss, argnums=(0, 1, 2))(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    for a, b in zip(got, jgrads):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), **GRAD_TOL)
+
+
+def test_flash_bwd_fully_masked_rows_give_zero_gradients():
+    # causal with T < S: keys past T are attended by no query; their dk
+    # and dv must come out exactly zero
+    q, k, v = (torch.from_numpy(a) for a in _qkv(1, 2, 8, 24, 16, 7))
+    g = torch.randn(1, 2, 8, 16, generator=torch.Generator().manual_seed(0))
+    o, lse = fa._flash_plain(q, k, v, True, 0.25)
+    dq, dk, dv = fa._flash_bwd_plain(q, k, v, o, lse, g, True, 0.25)
+    assert torch.isfinite(dq).all()
+    assert torch.equal(dk[:, :, 8:], torch.zeros_like(dk[:, :, 8:]))
+    assert torch.equal(dv[:, :, 8:], torch.zeros_like(dv[:, :, 8:]))
+
+
+@pytest.mark.parametrize("shape", [(4, 7, 64), (16, 1000)])
+def test_layer_norm_grad_matches_jax_grad_of_pallas_interpret(shape):
+    rng = np.random.RandomState(2)
+    F = shape[-1]
+    x = (rng.randn(*shape) * 2 + 0.5).astype(np.float32)
+    gam = (1 + 0.1 * rng.randn(F)).astype(np.float32)
+    bet = (0.1 * rng.randn(F)).astype(np.float32)
+    w = rng.randn(*shape).astype(np.float32)
+
+    def jloss(x_, g_, b_):
+        return jnp.sum(jax_ln(x_, g_, b_, 1e-5, interpret=True)
+                       * jnp.asarray(w))
+
+    want = jax.grad(jloss, argnums=(0, 1, 2))(
+        jnp.asarray(x), jnp.asarray(gam), jnp.asarray(bet))
+    xt, gt, bt = (torch.from_numpy(a).requires_grad_() for a in (x, gam, bet))
+    y = ln.fused_layer_norm(xt, gt, bt, 1e-5)
+    got = torch.autograd.grad(y, (xt, gt, bt), torch.from_numpy(w))
+    for a, b in zip(got, want):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), **GRAD_TOL)
+
+
+def test_layer_norm_grad_keeps_input_dtypes():
+    x = torch.randn(5, 32).bfloat16().requires_grad_()
+    gam = torch.ones(32, dtype=torch.bfloat16, requires_grad=True)
+    bet = torch.zeros(32, dtype=torch.bfloat16, requires_grad=True)
+    y = ln.fused_layer_norm(x, gam, bet)
+    grads = torch.autograd.grad(y.float().sum(), (x, gam, bet))
+    assert [d.dtype for d in grads] == [torch.bfloat16] * 3
+
+
+def _xent_inputs(N, V, seed):
+    rng = np.random.RandomState(seed)
+    logits = (rng.randn(N, V) * 3).astype(np.float32)
+    t = rng.randint(0, V, size=N).astype(np.int32)
+    g = rng.rand(N).astype(np.float32)
+    return logits, t, g
+
+
+@pytest.mark.parametrize("N,V", [(6, 11), (32, 1000)])
+def test_softmax_xent_rows_matches_jax(N, V):
+    logits, t, g = _xent_inputs(N, V, seed=N)
+    want = jax_xent(jnp.asarray(logits), jnp.asarray(t))
+    want_grad = jax.grad(lambda a: jnp.sum(
+        jax_xent(a, jnp.asarray(t)) * jnp.asarray(g)))(jnp.asarray(logits))
+    lt = torch.from_numpy(logits).requires_grad_()
+    rows = fused_xent.softmax_xent_rows(lt, torch.from_numpy(t))
+    assert rows.dtype == torch.float32
+    np.testing.assert_allclose(rows.detach().numpy(), np.asarray(want),
+                               **TOL)
+    (grad,) = torch.autograd.grad(rows, lt, torch.from_numpy(g))
+    np.testing.assert_allclose(grad.numpy(), np.asarray(want_grad), **TOL)
+
+
+def test_softmax_xent_rows_bf16_keeps_dtype_and_tracks_f32():
+    logits, t, g = _xent_inputs(16, 300, seed=3)
+    lb = torch.from_numpy(logits).bfloat16().requires_grad_()
+    rows = fused_xent.softmax_xent_rows(lb, torch.from_numpy(t))
+    assert rows.dtype == torch.float32
+    (grad,) = torch.autograd.grad(rows, lb, torch.from_numpy(g))
+    assert grad.dtype == torch.bfloat16
+    # the same bf16 logits through the JAX op: f32 rows and a bf16
+    # gradient that agree up to one bf16 rounding of each element
+    jl = jnp.asarray(lb.detach().float().numpy()).astype(jnp.bfloat16)
+    want = jax_xent(jl, jnp.asarray(t))
+    want_grad = jax.grad(lambda a: jnp.sum(
+        jax_xent(a, jnp.asarray(t)) * jnp.asarray(g)))(jl)
+    np.testing.assert_allclose(rows.detach().numpy(), np.asarray(want),
+                               **TOL)
+    np.testing.assert_allclose(grad.float().numpy(),
+                               np.asarray(want_grad.astype(jnp.float32)),
+                               rtol=2 ** -7, atol=1e-6)
