@@ -1,8 +1,10 @@
 """TransformerLM (counterpart of ``bigdl_tpu/models/transformer.py``).
 
 Ported: ``ln|rms`` norms, ``gelu|swiglu`` MLPs, learned positions or
-rope, GQA, the ``dense`` and ``flash`` attention strategies.  MoE, remat
-and dropout > 0 come with later slices and raise.
+rope, GQA, the ``dense``, ``flash`` and ``blocksparse`` attention
+strategies (``blocksparse={...}`` passes ``pattern``, ``window``,
+``globals``, ``stride`` and ``block`` to each block's mask builder).
+MoE, remat and dropout > 0 come with later slices and raise.
 """
 from __future__ import annotations
 
@@ -53,6 +55,7 @@ class TransformerBlock(Container):
                  attn_bias: Optional[bool] = None,
                  mlp_bias: Optional[bool] = None,
                  norm_eps: Optional[float] = None,
+                 blocksparse: Optional[dict] = None,
                  device: DeviceLike = None,
                  generator: Optional[torch.Generator] = None):
         if norm not in ("ln", "rms"):
@@ -64,14 +67,20 @@ class TransformerBlock(Container):
         # llama convention: bias-free attention (and swiglu) projections
         with_bias = (attn_bias if attn_bias is not None
                      else not (rope or norm == "rms"))
+        bs = dict(blocksparse or {})
         mods = [
             Norm(embed_dim),
             nn.MultiHeadAttention(embed_dim, num_heads, causal=causal,
                                   seq_strategy=seq_strategy,
                                   num_kv_heads=num_kv_heads, rope=rope,
                                   rope_theta=rope_theta,
-                                  with_bias=with_bias, device=device,
-                                  generator=generator),
+                                  with_bias=with_bias,
+                                  sparse_pattern=bs.get("pattern", "sliding"),
+                                  sparse_window=bs.get("window", 2),
+                                  sparse_globals=bs.get("globals", 1),
+                                  sparse_stride=bs.get("stride", 4),
+                                  sparse_block=bs.get("block"),
+                                  device=device, generator=generator),
             Norm(embed_dim),
         ]
         if mlp == "swiglu":
@@ -131,6 +140,7 @@ class TransformerLM(Container):
                  attn_bias: Optional[bool] = None,
                  mlp_bias: Optional[bool] = None, head_bias: bool = True,
                  norm_eps: Optional[float] = None,
+                 blocksparse: Optional[dict] = None,
                  device: DeviceLike = None,
                  generator: Optional[torch.Generator] = None):
         if output not in ("log_probs", "logits"):
@@ -142,7 +152,8 @@ class TransformerLM(Container):
                                    mlp=mlp, num_kv_heads=num_kv_heads,
                                    rope=rope, rope_theta=rope_theta,
                                    attn_bias=attn_bias, mlp_bias=mlp_bias,
-                                   norm_eps=norm_eps, device=device,
+                                   norm_eps=norm_eps,
+                                   blocksparse=blocksparse, device=device,
                                    generator=generator)
                   for _ in range(num_layers)]
         Norm = _norm_factory(norm, norm_eps, device)

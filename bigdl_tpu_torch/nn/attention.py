@@ -1,6 +1,7 @@
 """MultiHeadAttention and rotary embedding (counterpart of
-``bigdl_tpu/nn/attention.py``).  The ``dense`` and ``flash`` strategies
-are ported; the others come with later slices and raise."""
+``bigdl_tpu/nn/attention.py``).  The ``dense``, ``flash`` and
+``blocksparse`` strategies are ported; the others come with later
+slices and raise."""
 from __future__ import annotations
 
 from typing import Optional
@@ -8,15 +9,20 @@ from typing import Optional
 import torch
 
 from ..device import DeviceLike
+from ..ops.block_sparse import (block_sparse_attention, pick_block_divisor,
+                                sliding_window_mask, strided_mask)
 from ..ops.flash_attention import flash_attention
 from ..parallel.ring_attention import attention
 from .initialization import IN_OUT, ONE_D, Xavier, Zeros
 from .module import TensorModule
 
-#: the JAX layer's strategies; only the first two are ported
+#: the JAX layer's strategies, and those ported so far
 SEQ_STRATEGIES = ("dense", "flash", "block", "ring", "ulysses",
                   "blocksparse")
-PORTED_STRATEGIES = ("dense", "flash")
+PORTED_STRATEGIES = ("dense", "flash", "blocksparse")
+
+#: block-sparse mask patterns the layer can build (ops/block_sparse.py)
+SPARSE_PATTERNS = ("sliding", "strided")
 
 
 def rope_rotate(x, pos, theta: float = 10000.0):
@@ -45,13 +51,22 @@ def proj(x, params, w: str, b: str, with_bias: bool):
 class MultiHeadAttention(TensorModule):
     """Multi-head self-attention over [batch, seq, embed]; ``flash``
     runs kernel K1 forward and K2/K3 backward
-    (``ops/flash_attention.py``)."""
+    (``ops/flash_attention.py``), ``blocksparse`` K6 forward and K7/K8
+    backward (``ops/block_sparse.py``) over a static block mask built
+    from ``sparse_pattern`` at ``sparse_block`` granularity (default
+    ``block_size``): ``"sliding"`` = ``sparse_window`` blocks back plus
+    ``sparse_globals`` anchor blocks, ``"strided"`` = own block + every
+    ``sparse_stride``-th block; cached per (T, S)."""
 
     def __init__(self, embed_dim: int, num_heads: int,
                  causal: bool = False, with_bias: bool = True,
                  seq_strategy: str = "dense",
                  num_kv_heads: Optional[int] = None,
                  rope: bool = False, rope_theta: float = 10000.0,
+                 block_size: int = 512, sparse_pattern: str = "sliding",
+                 sparse_window: int = 2, sparse_globals: int = 1,
+                 sparse_stride: int = 4,
+                 sparse_block: Optional[int] = None,
                  device: DeviceLike = None,
                  generator: Optional[torch.Generator] = None):
         if embed_dim % num_heads:
@@ -63,6 +78,9 @@ class MultiHeadAttention(TensorModule):
             raise NotImplementedError(
                 f"seq_strategy {seq_strategy!r} is not ported yet "
                 f"(ported: {PORTED_STRATEGIES})")
+        if sparse_pattern not in SPARSE_PATTERNS:
+            raise ValueError(f"sparse_pattern {sparse_pattern!r} not in "
+                             f"{SPARSE_PATTERNS}")
         super().__init__(device)
         self.embed_dim = embed_dim
         self.num_heads = num_heads
@@ -79,6 +97,13 @@ class MultiHeadAttention(TensorModule):
                 f"{self.num_kv_heads}")
         self.rope = bool(rope)
         self.rope_theta = float(rope_theta)
+        self.block_size = block_size
+        self.sparse_pattern = sparse_pattern
+        self.sparse_window = int(sparse_window)
+        self.sparse_globals = int(sparse_globals)
+        self.sparse_stride = int(sparse_stride)
+        self.sparse_block = sparse_block
+        self._sparse_masks = {}   # (T, S) -> BlockMask
         E = embed_dim
         kv = self.num_kv_heads * self.head_dim
         for name, rows in (("wq", E), ("wk", kv), ("wv", kv), ("wo", E)):
@@ -93,7 +118,29 @@ class MultiHeadAttention(TensorModule):
         h = heads or self.num_heads
         return x.reshape(B, T, h, self.head_dim).transpose(1, 2)
 
+    def block_mask(self, T: int, S: int):
+        """The layer's static :class:`~bigdl_tpu_torch.ops.block_sparse.
+        BlockMask` for a (T, S) attention, built once per shape."""
+        key = (int(T), int(S))
+        if key not in self._sparse_masks:
+            b = pick_block_divisor(T, S, self.sparse_block or self.block_size)
+            nq, nk = T // b, S // b
+            if self.sparse_pattern == "strided":
+                m = strided_mask(nq, nk, self.sparse_stride,
+                                 causal=self.causal, block_q=b, block_k=b)
+            else:
+                m = sliding_window_mask(nq, nk, self.sparse_window,
+                                        n_global=self.sparse_globals,
+                                        causal=self.causal, block_q=b,
+                                        block_k=b)
+            self._sparse_masks[key] = m
+        return self._sparse_masks[key]
+
     def _attend(self, q, k, v):
+        if self.seq_strategy == "blocksparse":
+            return block_sparse_attention(
+                q.contiguous(), k.contiguous(), v.contiguous(),
+                self.block_mask(q.shape[2], k.shape[2]), causal=self.causal)
         if self.seq_strategy == "flash":
             return flash_attention(q.contiguous(), k.contiguous(),
                                    v.contiguous(), causal=self.causal)

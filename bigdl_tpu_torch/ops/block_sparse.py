@@ -1,0 +1,692 @@
+"""Block-sparse attention and the block-sparse matmul (counterpart of
+``bigdl_tpu/ops/block_sparse.py``, BLaST).
+
+Kernels, CUDA C++ for ``sm_90a`` in ``csrc/block_sparse.cu``, whose
+header says what each computes, what bounds it and how:
+
+* K6 ``bigdl_bs_fwd`` replaces ``_bs_fwd_kernel``
+  (``bigdl_tpu/ops/block_sparse.py:292``);
+* K7 ``bigdl_bs_bwd_dkv`` and K8 ``bigdl_bs_bwd_dq`` replace
+  ``_bs_dkv_kernel`` (``:317``) and ``_bs_dq_kernel`` (``:345``);
+* K9 ``bigdl_bs_mm`` replaces ``_bs_mm_kernel`` (``:626``).
+
+The host side is a numpy copy of the JAX module's: :class:`BlockMask`,
+the mask builders, ``pick_block_divisor``, ``_index_tables``,
+``attention_work`` and ``matmul_work`` give the JAX values on the same
+inputs.  The attention kernels work on 64-row tiles, not on mask
+blocks: ``_tile_tables`` lists, for each 64-row tile of one side, the
+tiles of the other side that hold a live element (the caller's mask
+with the causally dead blocks pruned, AND the element-level causal
+mask), and flags the tile pairs the mask covers only in part.  Inside a
+flagged pair the kernels test each element against the block mask and
+zero-fill the rows that no row of the other tile may attend, so a dead
+element never reaches a product.  The tables go to the card once per
+(mask, causal, device) and stay cached: no launch uploads anything.
+
+``block_sparse_attention`` and ``block_sparse_matmul`` are
+``torch.autograd.Function``s, the counterparts of the ``custom_vjp``s
+``_bs_attn`` and ``_bs_mm``.  For CPU tensors they run the plain
+versions (``_bs_attention_plain``, ``_bs_bwd_plain``, ``_bs_mm_plain``:
+the kernels' math in PyTorch, masking with a select); for CUDA tensors
+they launch the kernels or raise, forward and backward.  Any block size
+that tiles the sequence (or the weight), head dims 16/32/64/128,
+float32 or bfloat16.
+"""
+from __future__ import annotations
+
+import ctypes
+import math
+from collections import OrderedDict
+from typing import Optional, Tuple
+
+import numpy as np
+import torch
+
+from ._support import LaunchCounter, check_cuda_input, load_cuda_library, on_cpu
+from .flash_attention import (_DTYPE_CODE, _attn_bwd_plain, _attn_plain,
+                              _bwd_inputs, _causal_keep, _check_kernel_inputs,
+                              _stream)
+
+__all__ = ["BlockMask", "block_sparse_attention", "block_sparse_matmul",
+           "sliding_window_mask", "strided_mask", "magnitude_block_mask",
+           "attention_work", "matmul_work", "pick_block_divisor"]
+
+TILE = 64   # rows of every attention tile the kernels work on
+
+#: launches of K6, K7, K8 and K9 (CUDA branch only)
+LAUNCHES = LaunchCounter("block_sparse_fwd")
+LAUNCHES_DKV = LaunchCounter("block_sparse_bwd_dkv")
+LAUNCHES_DQ = LaunchCounter("block_sparse_bwd_dq")
+LAUNCHES_MM = LaunchCounter("block_sparse_mm")
+
+
+# --------------------------------------------------------------------------
+# BlockMask, the builders and the accounting (numpy copies of the JAX
+# module's host side)
+# --------------------------------------------------------------------------
+
+class BlockMask:
+    """A static boolean grid over (row-block, col-block) tiles plus the
+    block sizes it was built at.  Immutable and hashable (the bytes are
+    the identity), so the tables built from it can be cached by it."""
+
+    __slots__ = ("mask", "block_q", "block_k", "_key")
+
+    def __init__(self, mask, block_q: int, block_k: int):
+        m = np.ascontiguousarray(np.asarray(mask), dtype=bool)
+        if m.ndim != 2:
+            raise ValueError(f"block mask must be 2-D, got shape {m.shape}")
+        m.setflags(write=False)
+        self.mask = m
+        self.block_q = int(block_q)
+        self.block_k = int(block_k)
+        self._key = (m.shape, m.tobytes(), self.block_q, self.block_k)
+
+    def __hash__(self):
+        return hash(self._key)
+
+    def __eq__(self, other):
+        return isinstance(other, BlockMask) and self._key == other._key
+
+    def __repr__(self):
+        return (f"BlockMask({self.mask.shape[0]}x{self.mask.shape[1]} "
+                f"blocks {self.block_q}x{self.block_k}, "
+                f"density {self.density:.3f})")
+
+    @property
+    def nnz(self) -> int:
+        return int(self.mask.sum())
+
+    @property
+    def density(self) -> float:
+        """Active fraction of the FULL block grid (the dense basis)."""
+        return float(self.mask.mean()) if self.mask.size else 0.0
+
+    def transposed(self) -> "BlockMask":
+        return BlockMask(self.mask.T, self.block_k, self.block_q)
+
+    def pruned_causal(self) -> "BlockMask":
+        """Drop blocks strictly above the causal diagonal (no element of
+        the tile can legally attend), top-left aligned."""
+        nq, nk = self.mask.shape
+        qi = np.arange(nq)[:, None]
+        kj = np.arange(nk)[None, :]
+        legal = kj * self.block_k <= qi * self.block_q + self.block_q - 1
+        return BlockMask(self.mask & legal, self.block_q, self.block_k)
+
+    def elementwise(self) -> np.ndarray:
+        """The mask expanded to element granularity [R, C]."""
+        return np.repeat(np.repeat(self.mask, self.block_q, axis=0),
+                         self.block_k, axis=1)
+
+
+def pick_block_divisor(n: int, m: int, target: int) -> int:
+    """Largest 8-aligned block <= ``target`` dividing both ``n`` and
+    ``m``; falls back to the largest common divisor when nothing
+    8-aligned divides."""
+    g = math.gcd(int(n), int(m))
+    best = None
+    for b in range(min(int(target), g), 0, -1):
+        if g % b == 0:
+            if b % 8 == 0:
+                return b
+            if best is None:
+                best = b
+    return best or 1
+
+
+def sliding_window_mask(nq: int, nk: int, window: int, n_global: int = 0,
+                        causal: bool = True, block_q: int = 1,
+                        block_k: int = 1) -> BlockMask:
+    """Sliding-window + global-token pattern at block granularity: each
+    q block attends its own and the previous ``window - 1`` k blocks,
+    plus the first ``n_global`` k blocks.  Non-causal windows extend
+    both directions."""
+    if window < 1:
+        raise ValueError(f"window must be >= 1 blocks, got {window}")
+    qi = np.arange(nq)[:, None]
+    kj = np.arange(nk)[None, :]
+    if causal:
+        m = (kj <= qi) & (kj > qi - window)
+    else:
+        m = np.abs(qi - kj) < window
+    if n_global:
+        g = kj < n_global
+        if causal:
+            g = g & (kj <= qi)
+        m = m | g
+    return BlockMask(m, block_q, block_k)
+
+
+def strided_mask(nq: int, nk: int, stride: int, causal: bool = True,
+                 block_q: int = 1, block_k: int = 1) -> BlockMask:
+    """Local-diagonal + strided pattern: each q block attends its own k
+    block and every ``stride``-th k block."""
+    if stride < 1:
+        raise ValueError(f"stride must be >= 1, got {stride}")
+    qi = np.arange(nq)[:, None]
+    kj = np.arange(nk)[None, :]
+    m = (qi == kj) | ((kj + 1) % stride == 0)
+    if causal:
+        m = m & (kj <= qi)
+    return BlockMask(m, block_q, block_k)
+
+
+def magnitude_block_mask(w, block_rows: int, block_cols: int,
+                         density: float) -> BlockMask:
+    """Keep the top ``density`` fraction of tiles of ``w`` (a 2-D numpy
+    array or tensor) by L2 norm; the kept count is exact (top-k)."""
+    if not 0.0 < density <= 1.0:
+        raise ValueError(f"density must be in (0, 1], got {density}")
+    if isinstance(w, torch.Tensor):
+        w = w.detach().cpu().double().numpy()
+    a = np.asarray(w, dtype=np.float64)
+    if a.ndim != 2:
+        raise ValueError(f"magnitude mask needs a 2-D array, got "
+                         f"shape {a.shape}")
+    R, C = a.shape
+    if R % block_rows or C % block_cols:
+        raise ValueError(
+            f"shape {a.shape} not divisible by blocks "
+            f"({block_rows}, {block_cols})")
+    nr, nc = R // block_rows, C // block_cols
+    norms = np.sqrt(
+        (a.reshape(nr, block_rows, nc, block_cols) ** 2).sum((1, 3)))
+    keep = max(1, int(round(density * nr * nc)))
+    mask = np.zeros(nr * nc, dtype=bool)
+    mask[np.argsort(-norms.ravel(), kind="stable")[:keep]] = True
+    return BlockMask(mask.reshape(nr, nc), block_rows, block_cols)
+
+
+def _index_tables(mask: np.ndarray):
+    """Per-row active column indices, padded to the longest row by
+    repeating the last active index, plus per-row counts (the JAX
+    kernels' scalar-prefetch tables)."""
+    n_rows = mask.shape[0]
+    counts = mask.sum(axis=1).astype(np.int32)
+    L = max(1, int(counts.max()) if n_rows else 1)
+    table = np.zeros((n_rows, L), np.int32)
+    for i in range(n_rows):
+        act = np.nonzero(mask[i])[0]
+        if act.size:
+            table[i, :act.size] = act
+            table[i, act.size:] = act[-1]
+    return table, counts, L
+
+
+def _runtime_mask(mask: BlockMask, causal: bool) -> BlockMask:
+    """The caller's mask with causally dead blocks pruned."""
+    return mask.pruned_causal() if causal else mask
+
+
+def attention_work(mask: BlockMask, batch: int, heads: int, head_dim: int,
+                   causal: bool = False, train: bool = False) -> dict:
+    """Executed vs dense-equivalent FLOPs of one block-sparse attention
+    call, counted at mask-block granularity from ``_index_tables`` (4 ·
+    bq · bk · D per block pair, times 3.5 for forward + backward)."""
+    m = mask.pruned_causal() if causal else mask
+    _, counts, _ = _index_tables(m.mask)
+    per_pair = 4.0 * mask.block_q * mask.block_k * head_dim
+    factor = 3.5 if train else 1.0
+    executed = factor * per_pair * float(counts.sum()) * batch * heads
+    dense = factor * per_pair * float(mask.mask.size) * batch * heads
+    ones = BlockMask(np.ones_like(mask.mask), mask.block_q,
+                     mask.block_k)
+    flash_pairs = (ones.pruned_causal().nnz if causal
+                   else ones.nnz)
+    flash_eq = factor * per_pair * float(flash_pairs) * batch * heads
+    return {
+        "executed_flops": executed,
+        "dense_equivalent_flops": dense,
+        "flash_equivalent_flops": flash_eq,
+        "sparse_flops_skipped": dense - executed,
+        "executed_fraction": executed / dense if dense else 0.0,
+        "executed_vs_flash_fraction": (executed / flash_eq
+                                       if flash_eq else 0.0),
+        "executed_block_pairs": int(counts.sum()),
+        "dense_block_pairs": int(mask.mask.size),
+    }
+
+
+def matmul_work(mask: BlockMask, m_rows: int, train: bool = False) -> dict:
+    """Executed FLOPs of one block-sparse matmul: 2 · M · bk · bn per
+    live weight tile (times 3 for forward + backward)."""
+    factor = 3.0 if train else 1.0
+    per_tile = 2.0 * m_rows * mask.block_q * mask.block_k
+    executed = factor * per_tile * mask.nnz
+    dense = factor * per_tile * mask.mask.size
+    return {
+        "executed_flops": executed,
+        "dense_equivalent_flops": dense,
+        "sparse_flops_skipped": dense - executed,
+        "executed_fraction": executed / dense if dense else 0.0,
+    }
+
+
+# --------------------------------------------------------------------------
+# 64-row tile tables (the port's form of the scalar-prefetch tables)
+# --------------------------------------------------------------------------
+
+def _tile_tables(mask: BlockMask, causal: bool
+                 ) -> Tuple[np.ndarray, np.ndarray]:
+    """(visited, partial), both (ceil(T/64), ceil(S/64)) bool: tile pair
+    (i, j) is visited iff some query of q tile i may attend some key of
+    k tile j (runtime block mask AND, under ``causal``, q >= k), and
+    partial iff visited but the block mask does not cover the whole
+    pair.  Block counts per pair come from a 2-D prefix sum; only the
+    pairs that cross the causal diagonal are checked element by
+    element."""
+    run = _runtime_mask(mask, causal).mask
+    bq, bk = mask.block_q, mask.block_k
+    T, S = run.shape[0] * bq, run.shape[1] * bk
+    nqt, nkt = -(-T // TILE), -(-S // TILE)
+    q_start = np.arange(nqt) * TILE
+    k_start = np.arange(nkt) * TILE
+    q_last = np.minimum(q_start + TILE, T) - 1
+    k_last = np.minimum(k_start + TILE, S) - 1
+    qb0, qb1 = q_start // bq, q_last // bq + 1
+    kb0, kb1 = k_start // bk, k_last // bk + 1
+    pre = np.zeros((run.shape[0] + 1, run.shape[1] + 1), np.int64)
+    pre[1:, 1:] = run.astype(np.int64).cumsum(0).cumsum(1)
+    live_blocks = (pre[qb1][:, kb1] - pre[qb0][:, kb1]
+                   - pre[qb1][:, kb0] + pre[qb0][:, kb0])
+    area = (qb1 - qb0)[:, None] * (kb1 - kb0)[None, :]
+    visited = live_blocks > 0
+    if causal:
+        visited &= k_start[None, :] <= q_last[:, None]
+        crossing = visited & (k_last[None, :] > q_start[:, None])
+        for i, j in zip(*np.nonzero(crossing)):
+            qs = np.arange(q_start[i], q_last[i] + 1)
+            ks = np.arange(k_start[j], k_last[j] + 1)
+            sub = run[qs // bq][:, ks // bk] & (qs[:, None] >= ks[None, :])
+            visited[i, j] = bool(sub.any())
+    return visited, visited & (live_blocks < area)
+
+
+def _tile_lists(visited: np.ndarray, partial: np.ndarray):
+    """Per row of ``visited``: its visited columns in ascending order
+    (the flash kernels' sweep order), their partial flags, and the
+    count.  Returns (tiles int32 (rows, L), flags uint8 (rows, L),
+    counts int32 (rows,))."""
+    counts = visited.sum(axis=1).astype(np.int32)
+    L = max(1, int(counts.max()) if counts.size else 1)
+    tiles = np.zeros((visited.shape[0], L), np.int32)
+    flags = np.zeros((visited.shape[0], L), np.uint8)
+    for r in range(visited.shape[0]):
+        idx = np.nonzero(visited[r])[0]
+        tiles[r, :idx.size] = idx
+        flags[r, :idx.size] = partial[r, idx]
+    return tiles, flags, counts
+
+
+class _LRU(OrderedDict):
+    """A small least-recently-used cache of device tables."""
+
+    def __init__(self, size: int = 64):
+        super().__init__()
+        self.size = size
+
+    def get_or_make(self, key, make):
+        if key in self:
+            self.move_to_end(key)
+            return self[key]
+        value = self[key] = make()
+        while len(self) > self.size:
+            self.popitem(last=False)
+        return value
+
+
+_ATTN_TABLES = _LRU()
+_MM_TABLES = _LRU()
+_KEEP = _LRU(8)   # (T, S) element masks of the plain version
+
+
+def _to_device(a: np.ndarray, device) -> torch.Tensor:
+    return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+
+
+def _attention_tables(mask: BlockMask, causal: bool, device):
+    """The kernels' tables on ``device``, built once per (mask, causal,
+    device): the forward's and K8's per-q-tile lists, K7's per-k-tile
+    lists, and the runtime block mask (uint8) for partial pairs."""
+    def make():
+        visited, partial = _tile_tables(mask, causal)
+        fwd = _tile_lists(visited, partial)
+        dkv = _tile_lists(visited.T, partial.T)
+        run = _runtime_mask(mask, causal).mask.astype(np.uint8)
+        return dict(fwd=tuple(_to_device(a, device) for a in fwd),
+                    dkv=tuple(_to_device(a, device) for a in dkv),
+                    block_mask=_to_device(run, device),
+                    visited=int(visited.sum()), partial=int(partial.sum()))
+
+    return _ATTN_TABLES.get_or_make((mask, bool(causal), device), make)
+
+
+def tile_work(mask: BlockMask, causal: bool) -> dict:
+    """How many 64-row tile pairs the attention kernels visit, how many
+    of those the mask covers only in part, and how many a flash sweep
+    of the same (T, S) visits."""
+    visited, partial = _tile_tables(mask, causal)
+    ones = BlockMask(np.ones_like(mask.mask), mask.block_q, mask.block_k)
+    flash, _ = _tile_tables(ones, causal)
+    return dict(visited=int(visited.sum()), partial=int(partial.sum()),
+                flash=int(flash.sum()))
+
+
+# --------------------------------------------------------------------------
+# Block-sparse attention: plain versions, kernels, autograd
+# --------------------------------------------------------------------------
+
+def _elementwise_keep(mask: BlockMask, causal: bool, device) -> torch.Tensor:
+    """(T, S) bool: the runtime block mask at element granularity, AND
+    the top-left causal mask under ``causal``; built once per (mask,
+    causal, device), so a call captured in a CUDA graph uploads
+    nothing.  Read-only."""
+    def make():
+        keep = _to_device(_runtime_mask(mask, causal).elementwise(), device)
+        if causal:
+            keep &= _causal_keep(keep.shape[0], keep.shape[1], device)
+        return keep
+
+    return _KEEP.get_or_make((mask, bool(causal), torch.device(device)),
+                             make)
+
+
+def _select_live(keep, q, k, v, d_o=None):
+    """q (and dO) rows that attend no key and k/v rows that no query
+    attends, replaced by zeros with a select: a dead row's values (NaN
+    included) never reach a product, as the kernels never load them."""
+    q_live = keep.any(dim=1)[:, None]
+    k_live = keep.any(dim=0)[:, None]
+    zero = torch.zeros((), dtype=q.dtype, device=q.device)
+    out = [torch.where(q_live, q, zero), torch.where(k_live, k, zero),
+           torch.where(k_live, v, zero)]
+    if d_o is not None:
+        out.append(torch.where(q_live, d_o, torch.zeros((), dtype=d_o.dtype,
+                                                        device=d_o.device)))
+    return out
+
+
+def _bs_attention_plain(q, k, v, mask: BlockMask, causal: bool,
+                        sm_scale: float
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K6's math over whole rows: ``_flash_plain``'s rounding points
+    under the elementwise runtime mask.  A row with no live key gets
+    O = 0 and LSE = 1e30.  Returns (O in q's dtype, LSE (B*H, 1, T))."""
+    keep = _elementwise_keep(mask, causal, q.device)
+    q, k, v = _select_live(keep, q, k, v)
+    return _attn_plain(q, k, v, keep, sm_scale)
+
+
+def _bs_bwd_plain(q, k, v, o, lse, d_o, mask: BlockMask, causal: bool,
+                  sm_scale: float
+                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """K7 and K8's math over whole rows: ``_flash_bwd_plain`` under the
+    elementwise runtime mask.  Dead query rows get dQ = 0, dead key rows
+    dK = dV = 0."""
+    keep = _elementwise_keep(mask, causal, q.device)
+    q, k, v, d_o = _select_live(keep, q, k, v, d_o)
+    return _attn_bwd_plain(q, k, v, o, lse, d_o, keep, sm_scale)
+
+
+def _attn_fn(name: str, n_ptr: int):
+    fn = getattr(load_cuda_library("block_sparse"), name)
+    fn.argtypes = [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * 9 + [
+        ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _table_args(tab, which: str):
+    tiles, flags, counts = tab[which]
+    return [tiles.data_ptr(), counts.data_ptr(), flags.data_ptr(),
+            tab["block_mask"].data_ptr()], tiles.shape[1]
+
+
+def _mask_ints(mask: BlockMask, L: int, q, k):
+    B, H, T, D = q.shape
+    return [L, mask.mask.shape[1], mask.block_q, mask.block_k, B * H, T,
+            k.shape[2], D, _DTYPE_CODE[q.dtype]]
+
+
+def _bs_fwd_cuda(q, k, v, mask: BlockMask, causal: bool, sm_scale: float
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Launch K6 on the current stream of q's device."""
+    _check_kernel_inputs("block_sparse_attention", q, k, v)
+    B, H, T, D = q.shape
+    tab = _attention_tables(mask, causal, q.device)
+    ptrs, L = _table_args(tab, "fwd")
+    o = torch.empty_like(q)
+    lse = torch.empty((B * H, 1, T), dtype=torch.float32, device=q.device)
+    with torch.cuda.device(q.device):
+        err = _attn_fn("bigdl_bs_fwd", 9)(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            lse.data_ptr(), *ptrs, *_mask_ints(mask, L, q, k),
+            float(sm_scale), int(bool(causal)), _stream(q.device))
+    if err != 0:
+        raise RuntimeError(f"block_sparse_fwd launch failed: cudaError {err}")
+    LAUNCHES.add()
+    return o, lse
+
+
+def _launch_bs_dkv(q, k, v, do, lse, delta, mask: BlockMask, causal: bool,
+                   sm_scale: float) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Launch K7 over prepared inputs (dO in q's dtype, delta (B*H, T)
+    f32).  Every k tile writes its rows, zeros where no query reads."""
+    tab = _attention_tables(mask, causal, q.device)
+    ptrs, L = _table_args(tab, "dkv")
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    with torch.cuda.device(q.device):
+        err = _attn_fn("bigdl_bs_bwd_dkv", 12)(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            *ptrs, *_mask_ints(mask, L, q, k), float(sm_scale),
+            int(bool(causal)), _stream(q.device))
+    if err != 0:
+        raise RuntimeError(
+            f"block_sparse_bwd_dkv launch failed: cudaError {err}")
+    LAUNCHES_DKV.add()
+    return dk, dv
+
+
+def _launch_bs_dq(q, k, v, do, lse, delta, mask: BlockMask, causal: bool,
+                  sm_scale: float) -> torch.Tensor:
+    """Launch K8 over the same prepared inputs as ``_launch_bs_dkv``."""
+    tab = _attention_tables(mask, causal, q.device)
+    ptrs, L = _table_args(tab, "fwd")
+    dq = torch.empty_like(q)
+    with torch.cuda.device(q.device):
+        err = _attn_fn("bigdl_bs_bwd_dq", 11)(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), *ptrs,
+            *_mask_ints(mask, L, q, k), float(sm_scale), int(bool(causal)),
+            _stream(q.device))
+    if err != 0:
+        raise RuntimeError(
+            f"block_sparse_bwd_dq launch failed: cudaError {err}")
+    LAUNCHES_DQ.add()
+    return dq
+
+
+def _bs_bwd_cuda(q, k, v, o, lse, d_o, mask: BlockMask, causal: bool,
+                 sm_scale: float
+                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Launch K7 then K8 on the current stream of q's device."""
+    _check_kernel_inputs("block_sparse_attention backward", q, k, v)
+    check_cuda_input("block_sparse_attention backward lse", lse,
+                     (torch.float32,))
+    do, delta = _bwd_inputs(q, o, d_o)
+    dk, dv = _launch_bs_dkv(q, k, v, do, lse, delta, mask, causal, sm_scale)
+    dq = _launch_bs_dq(q, k, v, do, lse, delta, mask, causal, sm_scale)
+    return dq, dk, dv
+
+
+class _BlockSparseAttention(torch.autograd.Function):
+    """The ``custom_vjp`` of the TPU ``_bs_attn``: (O, LSE) forward, the
+    FlashAttention-2 backward over the same tables from the saved
+    (q, k, v, o, lse)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, mask: BlockMask, causal: bool,
+                sm_scale: float):
+        if on_cpu(q, k, v):
+            o, lse = _bs_attention_plain(q, k, v, mask, causal, sm_scale)
+        else:
+            o, lse = _bs_fwd_cuda(q, k, v, mask, causal, sm_scale)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.mask, ctx.causal, ctx.sm_scale = mask, causal, sm_scale
+        ctx.mark_non_differentiable(lse)
+        return o, lse
+
+    @staticmethod
+    def backward(ctx, d_o, _d_lse):
+        q, k, v, o, lse = ctx.saved_tensors
+        bwd = _bs_bwd_plain if on_cpu(q, k, v, d_o) else _bs_bwd_cuda
+        dq, dk, dv = bwd(q, k, v, o, lse, d_o, ctx.mask, ctx.causal,
+                         ctx.sm_scale)
+        return dq, dk, dv, None, None, None
+
+
+def _as_block_mask(block_mask, rows: int, cols: int, what: str) -> BlockMask:
+    """A BlockMask from ``block_mask`` (or a raw 2-D bool array, its
+    block sizes inferred), checked to tile (rows, cols)."""
+    if not isinstance(block_mask, BlockMask):
+        m = np.asarray(block_mask)
+        if m.ndim != 2:
+            raise ValueError(f"block mask must be 2-D, got shape {m.shape}")
+        if rows % m.shape[0] or cols % m.shape[1]:
+            raise ValueError(f"{what} ({rows}, {cols}) not divisible by "
+                             f"mask grid {m.shape}")
+        block_mask = BlockMask(m, rows // m.shape[0], cols // m.shape[1])
+    nr, nc = block_mask.mask.shape
+    if nr * block_mask.block_q != rows or nc * block_mask.block_k != cols:
+        raise ValueError(
+            f"mask grid {block_mask.mask.shape} x blocks "
+            f"({block_mask.block_q}, {block_mask.block_k}) does not "
+            f"tile {what} ({rows}, {cols})")
+    return block_mask
+
+
+def block_sparse_attention(q, k, v, block_mask, causal: bool = False,
+                           sm_scale: Optional[float] = None) -> torch.Tensor:
+    """Attention over (B, H, T, D) tensors computing only the pairs the
+    block mask allows: on the card, a dead tile is never loaded and
+    never multiplied.  ``block_mask`` is a :class:`BlockMask` or a raw
+    [nq, nk] bool array (block sizes T // nq, S // nk).  ``causal``
+    also applies the top-left causal mask; an all-ones causal mask runs
+    the flash kernels' sweep.  Differentiable in q, k and v."""
+    if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
+        raise ValueError("block_sparse_attention takes (B, H, T, D) tensors")
+    if k.shape != v.shape or k.shape[:2] != q.shape[:2] \
+            or k.shape[3] != q.shape[3]:
+        raise ValueError(f"block_sparse_attention: q {tuple(q.shape)}, k "
+                         f"{tuple(k.shape)}, v {tuple(v.shape)} disagree")
+    if q.shape[2] == 0 or k.shape[2] == 0:
+        raise ValueError("block_sparse_attention: empty sequence")
+    mask = _as_block_mask(block_mask, q.shape[2], k.shape[2], "seq lens")
+    if sm_scale is None:
+        sm_scale = 1.0 / math.sqrt(q.shape[-1])
+    return _BlockSparseAttention.apply(q, k, v, mask, bool(causal),
+                                       float(sm_scale))[0]
+
+
+# --------------------------------------------------------------------------
+# Block-sparse matmul (the BLaST sparse-MLP kernel)
+# --------------------------------------------------------------------------
+
+def _elementwise_weight_mask(mask: BlockMask, device) -> torch.Tensor:
+    return _MM_TABLES.get_or_make(
+        ("elementwise", mask, device),
+        lambda: _to_device(mask.elementwise(), device))
+
+
+def _bs_mm_plain(x2, w, mask: BlockMask) -> torch.Tensor:
+    """K9's math: x @ (W ∘ mask) in f32, the mask applied with a select
+    (a dead tile's NaN never reaches the product), cast to x's dtype."""
+    live = _elementwise_weight_mask(mask, w.device)
+    wm = torch.where(live, w.float(), torch.zeros((), device=w.device))
+    return torch.matmul(x2.float(), wm).to(x2.dtype)
+
+
+def _bs_mm_cuda(x2, w, mask: BlockMask) -> torch.Tensor:
+    """Launch K9 on the current stream of x's device: for each output
+    column block, the sum over that block's live K blocks only."""
+    if x2.dtype != w.dtype:
+        raise TypeError(f"block_sparse_matmul: x {x2.dtype} and w {w.dtype} "
+                        f"must share a dtype on the card")
+    for name, t in (("x", x2), ("w", w)):
+        check_cuda_input(f"block_sparse_matmul {name}", t,
+                         tuple(_DTYPE_CODE))
+    M, K = x2.shape
+    N = w.shape[1]
+    if M == 0:
+        raise ValueError("block_sparse_matmul: x has no rows")
+    tiles, counts = _MM_TABLES.get_or_make(
+        ("tables", mask, x2.device),
+        lambda: tuple(_to_device(a, x2.device)
+                      for a in _index_tables(mask.mask.T)[:2]))
+    out = torch.empty((M, N), dtype=x2.dtype, device=x2.device)
+    fn = load_cuda_library("block_sparse").bigdl_bs_mm
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [
+        ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    with torch.cuda.device(x2.device):
+        err = fn(x2.data_ptr(), w.data_ptr(), out.data_ptr(),
+                 tiles.data_ptr(), counts.data_ptr(), tiles.shape[1], M, K, N,
+                 mask.block_q, mask.block_k, _DTYPE_CODE[x2.dtype],
+                 _stream(x2.device))
+    if err != 0:
+        raise RuntimeError(f"block_sparse_mm launch failed: cudaError {err}")
+    LAUNCHES_MM.add()
+    return out
+
+
+class _BlockSparseMatmul(torch.autograd.Function):
+    """The ``custom_vjp`` of the TPU ``_bs_mm``: dX is K9 again on
+    (g, Wᵀ, mask.T); dW = (x2ᵀ · g) ∘ mask is one dense product outside
+    the kernels, as the JAX package leaves it to XLA."""
+
+    @staticmethod
+    def forward(ctx, x2, w, mask: BlockMask):
+        mm = _bs_mm_plain if on_cpu(x2, w) else _bs_mm_cuda
+        ctx.save_for_backward(x2, w)
+        ctx.mask = mask
+        return mm(x2, w, mask)
+
+    @staticmethod
+    def backward(ctx, g):
+        x2, w = ctx.saved_tensors
+        mask = ctx.mask
+        dx = dw = None
+        if ctx.needs_input_grad[0]:
+            wt = w.t().to(g.dtype).contiguous()
+            if on_cpu(x2, w, g):
+                dx = _bs_mm_plain(g, wt, mask.transposed())
+            else:
+                dx = _bs_mm_cuda(g.contiguous(), wt, mask.transposed())
+            dx = dx.to(x2.dtype)
+        if ctx.needs_input_grad[1]:
+            live = _elementwise_weight_mask(mask, w.device)
+            dw = torch.matmul(x2.t(), g.to(x2.dtype))
+            dw = torch.where(live, dw, torch.zeros((), dtype=dw.dtype,
+                                                   device=dw.device))
+            dw = dw.to(w.dtype)
+        return dx, dw, None
+
+
+def block_sparse_matmul(x, w, block_mask) -> torch.Tensor:
+    """``x @ w`` where ``w`` [K, N] carries a static :class:`BlockMask`
+    (or a raw bool array) over its (K-block, N-block) tiles: masked
+    tiles are structural zeros, never read on the card.  ``x`` may carry
+    leading batch dims ([..., K]); returns [..., N]."""
+    if w.dim() != 2:
+        raise ValueError(f"block_sparse_matmul: w must be 2-D, got "
+                         f"{tuple(w.shape)}")
+    K, N = w.shape
+    mask = _as_block_mask(block_mask, K, N, "weight shape")
+    if x.shape[-1] != K:
+        raise ValueError(f"block_sparse_matmul: x {tuple(x.shape)} does not "
+                         f"match w {tuple(w.shape)}")
+    lead = x.shape[:-1]
+    y = _BlockSparseMatmul.apply(x.reshape(-1, K), w, mask)
+    return y.reshape(*lead, N)

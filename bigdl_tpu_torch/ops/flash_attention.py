@@ -48,17 +48,17 @@ def _causal_keep(T: int, S: int, device) -> torch.Tensor:
             >= torch.arange(S, device=device)[None, :])
 
 
-def _flash_plain(q, k, v, causal: bool, sm_scale: float
-                 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The kernel's math over whole rows: f32 scores (bf16 inputs are
-    exact in f32), top-left causal mask, max-subtracted exp, P cast to
-    v's dtype before P.V with f32 accumulation.  Returns (O in q's
-    dtype, LSE (B*H, 1, T) f32)."""
+def _attn_plain(q, k, v, keep: Optional[torch.Tensor], sm_scale: float
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The forward kernels' math over whole rows, under ``keep`` ((T, S)
+    bool, None for all): f32 scores (bf16 inputs are exact in f32),
+    masked to -inf, max-subtracted exp, P cast to v's dtype before P.V
+    with f32 accumulation.  Returns (O in q's dtype, LSE (B*H, 1, T)
+    f32); a row with no kept key gets O = 0 and LSE = 1e30."""
     B, H, T, _ = q.shape
     s = torch.matmul(q.float(), k.float().transpose(-1, -2)) * sm_scale
-    if causal:
-        s = s.masked_fill(~_causal_keep(T, k.shape[2], q.device),
-                          float("-inf"))
+    if keep is not None:
+        s = s.masked_fill(~keep, float("-inf"))
     m = s.amax(dim=-1, keepdim=True)
     m_safe = torch.where(torch.isfinite(m), m, torch.zeros_like(m))
     p = torch.exp(s - m_safe)
@@ -69,21 +69,30 @@ def _flash_plain(q, k, v, causal: bool, sm_scale: float
     return o.to(q.dtype), lse.reshape(B * H, 1, T)
 
 
-def _flash_bwd_plain(q, k, v, o, lse, d_o, causal: bool, sm_scale: float
-                     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """K2 and K3's math over whole rows (the TPU ``_flash_bwd``): dO
-    cast to q's dtype, delta = rowsum(dO * O) in f32, P = exp(S - LSE)
-    recomputed from f32 scores, dP = dO . V^T, dS = P * (dP - delta);
-    P cast to v's dtype before dV = P^T . dO, dS cast to q's (k's) dtype
-    before dK = dS^T . Q (dQ = dS . K), both times sm_scale.  Returns
-    (dq, dk, dv) in the inputs' dtypes."""
+def _flash_plain(q, k, v, causal: bool, sm_scale: float
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K1's math: ``_attn_plain`` under the top-left causal mask (or
+    none)."""
+    keep = _causal_keep(q.shape[2], k.shape[2], q.device) if causal else None
+    return _attn_plain(q, k, v, keep, sm_scale)
+
+
+def _attn_bwd_plain(q, k, v, o, lse, d_o, keep: Optional[torch.Tensor],
+                    sm_scale: float
+                    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The backward kernels' math over whole rows (the TPU
+    ``_flash_bwd``), under ``keep`` as in ``_attn_plain``: dO cast to q's
+    dtype, delta = rowsum(dO * O) in f32, P = exp(S - LSE) recomputed
+    from f32 scores, dP = dO . V^T, dS = P * (dP - delta); P cast to v's
+    dtype before dV = P^T . dO, dS cast to q's (k's) dtype before dK =
+    dS^T . Q (dQ = dS . K), both times sm_scale.  Returns (dq, dk, dv)
+    in the inputs' dtypes."""
     B, H, T, _ = q.shape
-    S = k.shape[2]
     do = d_o.to(q.dtype)
     delta = (d_o.float() * o.float()).sum(dim=-1, keepdim=True)
     s = torch.matmul(q.float(), k.float().transpose(-1, -2)) * sm_scale
-    if causal:
-        s = s.masked_fill(~_causal_keep(T, S, q.device), float("-inf"))
+    if keep is not None:
+        s = s.masked_fill(~keep, float("-inf"))
     p = torch.exp(s - lse.reshape(B, H, T, 1))
     dp = torch.matmul(do.float(), v.float().transpose(-1, -2))
     ds = p * (dp - delta)
@@ -92,6 +101,14 @@ def _flash_bwd_plain(q, k, v, o, lse, d_o, causal: bool, sm_scale: float
                       q.float()) * sm_scale
     dq = torch.matmul(ds.to(k.dtype).float(), k.float()) * sm_scale
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def _flash_bwd_plain(q, k, v, o, lse, d_o, causal: bool, sm_scale: float
+                     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """K2 and K3's math: ``_attn_bwd_plain`` under the top-left causal
+    mask (or none)."""
+    keep = _causal_keep(q.shape[2], k.shape[2], q.device) if causal else None
+    return _attn_bwd_plain(q, k, v, o, lse, d_o, keep, sm_scale)
 
 
 def _check_kernel_inputs(what: str, q, k, v):

@@ -7,13 +7,18 @@ Phases; any failure exits non-zero:
 
 1. probe — a CUDA device is required; print the card's
    ``nvidia-smi`` name and power limit; TF32 off for matmul and cuDNN.
-2. build — compile the kernels from this checkout's sources: the two
-   CUDA libraries (``flash_fwd.cu``: K1; ``flash_bwd.cu``: K2 and K3)
-   with one ``nvcc`` each, started together, into ``.torch_kernels/``;
-   Triton compiles K4 at first launch.  Print the build seconds.
+2. build — compile the kernels from this checkout's sources: the three
+   CUDA libraries (``flash_fwd.cu``: K1; ``flash_bwd.cu``: K2 and K3;
+   ``block_sparse.cu``: K6-K9) with one ``nvcc`` each, started
+   together, into ``.torch_kernels/``; Triton compiles K4 at first
+   launch.  Print the build seconds.
 3. kernel parity — each kernel against its plain PyTorch version on the
-   card at the shapes the served and the training paths give it, with
-   the stated tolerance; kernel, plain and library times; the bound.
+   card at the shapes the served, the training, the block-sparse
+   training and the matmul paths give it, with the stated tolerance;
+   the block-sparse kernels also at block 32, 8 (ragged T 200), 96, in
+   f32, non-causal with a dead q block, strided, with NaN in the K/V
+   rows no query may attend, and on an all-ones mask against K1-K3
+   (bit for bit); kernel, plain and library times; the bound.
 4. serving path — the flagship TransformerLM (V 32000, D 1024, 8 heads,
    8 layers, max_len 1024; random weights from a seeded generator)
    served in bf16 by the port's ``InferenceServer``: a batch of four
@@ -32,17 +37,29 @@ Phases; any failure exits non-zero:
    L_k - L_1; a 2-layer copy at full width trained 3 steps in f32 on the
    card and on the CPU gives the same losses, decreases and parameter
    updates.  Step ms, tokens/s, MFU and peak memory.
-6. a ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and as the
+6. block-sparse training path — the flagship with max_len 4096 and
+   ``seq_strategy="blocksparse"`` (sliding window 2 + 1 global at block
+   512), trained as in phase 5 over one batch of 4 sequences of 4096
+   ids: the same checks, launches per step exactly K6 8, K7 8, K8 8,
+   K4 17 and K1-K3 0; a 2-layer copy (T 512, block 64) card vs CPU;
+   the flash flagship at T 4096 against an all-ones block-sparse mask,
+   3 steps each, equal losses.  Step ms, tokens/s (also for flash at
+   T 4096), MFU on executed and flash-equivalent work, peak memory.
+7. the block-sparse matmul's entry point — ``block_sparse_matmul`` at
+   the flagship MLP shape in bf16 under autograd, 3 forward+backward
+   passes: 2 launches of K9 per pass, dW zero on every dead tile, the
+   forward and dX as phase 3 holds them.
+8. a ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and as the
    last line ``{"ok": true, "device": {...}}``.
 
 The full record goes to ``chiprun_out/chip_smoke.json``.
 
     python3 chip_smoke.py --profile
 
-runs phases 1-2, then profiles the served generator of phase 4 and one
-training step of phase 5 with ``torch.profiler`` (device time by
-kernel, launches, the device's busy share) into
-``chiprun_out/chip_profile.json``.
+runs phases 1-2, then profiles the served generator of phase 4, one
+training step of phase 5, one block-sparse training step of phase 6 and
+one flash training step at the same T 4096, B 4 with ``torch.profiler`` (device time by kernel, launches, the device's
+busy share) into ``chiprun_out/chip_profile.json``.
 """
 import json
 import math
@@ -106,6 +123,22 @@ TRAJ_DECREASE_REL_TOL = 2e-4
 TRAJ_UPDATE_ROW_TOL = 1e-2
 TRAIN_BATCH, TRAIN_T, TRAIN_ITERS, TRAIN_LR = 16, 1024, 8, 0.01
 SMALL_LAYERS, SMALL_T, SMALL_BATCH, SMALL_ITERS = 2, 256, 2, 3
+# phase 6: bench.py's transformerlm_blocksparse_T4096 leg
+BS_CFG = {"window": 2, "globals": 1, "block": 512}
+BS_BATCH, BS_T, BS_CMP_ITERS = 4, 4096, 3
+BS_SMALL_CFG, BS_SMALL_T, BS_SMALL_BATCH = (
+    {"window": 2, "globals": 1, "block": 64}, 512, 1)
+# bf16 vs f32 first loss at T 4096, B 4 (the same 16384 tokens as phase
+# 5 in 4 sequences): the readings, 7.870e-06 block-sparse and 9.860e-06
+# flash (PERF.md), are 8-10x phase 5's whatever the attention kernel, so
+# the gap comes with the shape; both are held to one limit, 4x above them
+BS_FIRST_REL_TOL = 4e-5
+# the flash and all-ones block-sparse runs compute the same function
+# through K1-K3 and K6-K8, which are equal bit for bit on that mask
+# (phase 3); 1e-6 leaves room for one f32 ulp of a loss near 10.5
+ALL_ONES_REL_TOL = 1e-6
+# phase 7: the flagship MLP's first weight, a magnitude mask
+MM_SHAPE, MM_BLOCK, MM_DENSITY = (16384, 1024, 4096), 128, 0.5
 
 
 def fail(msg: str) -> int:
@@ -270,11 +303,19 @@ def check_layer_norm(torch, F):
 
 def launch_counters():
     """Every kernel's launch counter, by the kernel's name."""
+    from bigdl_tpu_torch.ops import block_sparse as bs
     from bigdl_tpu_torch.ops import flash_attention as fa
     from bigdl_tpu_torch.ops import layer_norm as ln
 
     return {c.name: c for c in (fa.LAUNCHES, fa.LAUNCHES_DKV,
-                                fa.LAUNCHES_DQ, ln.LAUNCHES)}
+                                fa.LAUNCHES_DQ, ln.LAUNCHES, bs.LAUNCHES,
+                                bs.LAUNCHES_DKV, bs.LAUNCHES_DQ,
+                                bs.LAUNCHES_MM)}
+
+
+def want_launches(**counts):
+    """Every counter at 0 but those named."""
+    return {n: counts.get(n, 0) for n in launch_counters()}
 
 
 def bwd_cases(torch):
@@ -370,6 +411,267 @@ def check_flash_bwd(torch, F):
     return rows
 
 
+def bs_cases(torch):
+    """(label, B, H, T, D, dtype, causal, mask) for K6-K8: the block-sparse
+    training step, block 32 (partly live 64-row tiles), ragged T 200 at
+    block 8 (a 25 x 25 mask), block 96, f32, non-causal with a dead q
+    block, strided."""
+    import numpy as np
+
+    from bigdl_tpu_torch.ops import block_sparse as bs
+
+    bf16, f32 = torch.bfloat16, torch.float32
+    dead = bs.sliding_window_mask(8, 8, 2, causal=False).mask.copy()
+    dead[3, :] = False
+    return [("train", 4, 8, 4096, 128, bf16, True,
+             bs.sliding_window_mask(8, 8, 2, 1, True, 512, 512)),
+            ("block32", 2, 8, 1024, 128, bf16, True,
+             bs.sliding_window_mask(32, 32, 2, 1, True, 32, 32)),
+            ("ragged_T200_block8", 4, 8, 200, 128, bf16, True,
+             bs.sliding_window_mask(25, 25, 3, 1, True, 8, 8)),
+            ("block96", 2, 8, 768, 128, bf16, True,
+             bs.sliding_window_mask(8, 8, 2, 1, True, 96, 96)),
+            ("f32_block128", 2, 8, 1024, 128, f32, True,
+             bs.sliding_window_mask(8, 8, 2, 1, True, 128, 128)),
+            ("noncausal_dead_qblock", 2, 8, 1024, 64, bf16, False,
+             bs.BlockMask(dead, 128, 128)),
+            ("strided_block128", 2, 8, 2048, 128, bf16, True,
+             bs.strided_mask(16, 16, 4, True, 128, 128)),
+            ("all_ones_train", 4, 8, 4096, 128, bf16, True,
+             bs.BlockMask(np.ones((8, 8), bool), 512, 512))]
+
+
+def _bs_bounds(B, H, T, D, item, live, dname):
+    """(ms, by) of K6, K7 and K8 over ``live`` score elements per head:
+    2, 4 and 3 products of 2 * live * D FLOP; bytes as K1-K3 move them."""
+    BH = B * H
+    return (bound(item * 4 * BH * T * D + 4 * BH * T, 4.0 * BH * live * D,
+                  dname),
+            bound(item * 6 * BH * T * D + 8 * BH * T, 8.0 * BH * live * D,
+                  dname),
+            bound(item * 5 * BH * T * D + 8 * BH * T, 6.0 * BH * live * D,
+                  dname))
+
+
+def check_block_sparse(torch, F):
+    """K6, K7 and K8 against ``_bs_attention_plain`` / ``_bs_bwd_plain``
+    on the same inputs (O and LSE from K6), row by row; the all-ones
+    case also against K1-K3, bit for bit.  Times: each kernel alone
+    (graph replay), the plain forward and backward, and
+    ``scaled_dot_product_attention`` with the elementwise boolean mask,
+    forward (graph replay) and backward (``torch.autograd.grad``, CUDA
+    events around 10 calls)."""
+    from bigdl_tpu_torch.ops import block_sparse as bs
+    from bigdl_tpu_torch.ops import flash_attention as fa
+
+    rows = []
+    for label, B, H, T, D, dt, causal, mask in bs_cases(torch):
+        g = torch.Generator(device="cuda").manual_seed(17)
+        q, k, v, d_o = (torch.randn(B, H, T, D, device="cuda", generator=g
+                                    ).to(dt) for _ in range(4))
+        scale = 1.0 / math.sqrt(D)
+        o, lse = bs._bs_fwd_cuda(q, k, v, mask, causal, scale)
+        do, delta = fa._bwd_inputs(q, o, d_o)
+        dk, dv = bs._launch_bs_dkv(q, k, v, do, lse, delta, mask, causal,
+                                   scale)
+        dq = bs._launch_bs_dq(q, k, v, do, lse, delta, mask, causal, scale)
+        torch.cuda.synchronize()
+        o_ref, lse_ref = bs._bs_attention_plain(q, k, v, mask, causal, scale)
+        grads_ref = bs._bs_bwd_plain(q, k, v, o, lse, d_o, mask, causal,
+                                     scale)
+        dname = str(dt).split(".")[-1]
+        tol = ROW_TOL[dname]
+        outs = (("o", o, o_ref), ("dq", dq, grads_ref[0]),
+                ("dk", dk, grads_ref[1]), ("dv", dv, grads_ref[2]))
+        gscale = max(max_row_norm(torch, b) for _, _, b in outs[1:])
+        rel = {n: row_rel_err(torch, a, b, None if n == "o" else gscale)
+               for n, a, b in outs}
+        err = {n: (a.float() - b.float()).abs().max().item()
+               for n, a, b in outs}
+        lse_err = (lse - lse_ref).abs().max().item()
+        finite = all(bool(torch.isfinite(t.float()).all())
+                     for _, t, _ in outs)
+        ok = finite and max(rel.values()) <= tol and lse_err <= LSE_TOL
+        del o_ref, lse_ref, grads_ref
+        keep = bs._elementwise_keep(mask, causal, "cuda")
+        live = int(keep.sum().item())
+        row = dict(case=label, shape=[B, H, T, D], dtype=dname,
+                   causal=causal, mask=repr(mask), live_per_head=live,
+                   tiles=bs.tile_work(mask, causal), row_rel_err=rel,
+                   max_abs_err=err, lse_err=lse_err, tol=tol)
+        if label == "all_ones_train":
+            o1, lse1 = fa._flash_cuda(q, k, v, causal, scale)
+            dk1, dv1 = fa._launch_dkv(q, k, v, do, lse1, delta, causal, scale)
+            dq1 = fa._launch_dq(q, k, v, do, lse1, delta, causal, scale)
+            same = {n: bool(torch.equal(a, b)) for n, a, b in (
+                ("o", o, o1), ("lse", lse, lse1), ("dq", dq, dq1),
+                ("dk", dk, dk1), ("dv", dv, dv1))}
+            row["equals_flash_bitwise"] = same
+            ok = ok and all(same.values())
+            row["ok"] = ok
+            rows.append(row)
+            print(f"K6-K8 vs K1-K3 {label}: bitwise equal {same} "
+                  f"{'OK' if ok else 'FAIL'}")
+            continue
+        big = B * H * T * T >= 1 << 28
+        it = dict(iters=3, reps=2) if big else {}
+        ms = cuda_ms(lambda: bs._bs_fwd_cuda(q, k, v, mask, causal, scale))
+        ms_dkv = cuda_ms(lambda: bs._launch_bs_dkv(q, k, v, do, lse, delta,
+                                                   mask, causal, scale))
+        ms_dq = cuda_ms(lambda: bs._launch_bs_dq(q, k, v, do, lse, delta,
+                                                 mask, causal, scale))
+        plain_ms = cuda_ms(lambda: bs._bs_attention_plain(
+            q, k, v, mask, causal, scale), **it)
+        plain_bwd_ms = cuda_ms(lambda: bs._bs_bwd_plain(
+            q, k, v, o, lse, d_o, mask, causal, scale), **it)
+        lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+            q, k, v, attn_mask=keep), **it)
+        qs, ks, vs = (t.detach().clone().requires_grad_() for t in (q, k, v))
+        o_lib = F.scaled_dot_product_attention(qs, ks, vs, attn_mask=keep)
+        grad = lambda: torch.autograd.grad(o_lib, (qs, ks, vs), d_o,
+                                           retain_graph=True)
+        for _ in range(3):
+            grad()
+        lib_bwd_ms = _event_ms(lambda: [grad() for _ in range(10)], 10)
+        del o_lib, qs, ks, vs, keep
+        (b_f, by_f), (b_dkv, by_dkv), (b_dq, by_dq) = _bs_bounds(
+            B, H, T, D, q.element_size(), live, dname)
+        row.update(ok=ok, plain_ms=plain_ms, plain_bwd_ms=plain_bwd_ms,
+                   library_ms=lib_ms, library_bwd_ms=lib_bwd_ms,
+                   fwd=dict(ms=ms, bound_ms=b_f, bound_by=by_f,
+                            max_abs_err=max(err["o"], lse_err)),
+                   dkv=dict(ms=ms_dkv, bound_ms=b_dkv, bound_by=by_dkv,
+                            max_abs_err=max(err["dk"], err["dv"])),
+                   dq=dict(ms=ms_dq, bound_ms=b_dq, bound_by=by_dq,
+                           max_abs_err=err["dq"]))
+        rows.append(row)
+        print(f"K6-K8 block_sparse {label:>21} {dname:>8} row err o "
+              f"{rel['o']:.3e} dq {rel['dq']:.3e} dk {rel['dk']:.3e} dv "
+              f"{rel['dv']:.3e} lse {lse_err:.3e} (tol {tol:g}) | K6 "
+              f"{ms:.4f} ms (bound {b_f:.4f}, {by_f}) K7 {ms_dkv:.4f} ms "
+              f"(bound {b_dkv:.4f}) K8 {ms_dq:.4f} ms (bound {b_dq:.4f}) "
+              f"plain {plain_ms:.4f} / {plain_bwd_ms:.4f} ms sdpa "
+              f"{lib_ms:.4f} / bwd {lib_bwd_ms:.4f} ms {'OK' if ok else 'FAIL'}")
+        del q, k, v, d_o, o, lse, do, delta, dk, dv, dq
+        torch.cuda.empty_cache()
+    rows.append(check_bs_poison(torch))
+    return rows
+
+
+def check_bs_poison(torch):
+    """The skip proof on the card (``tests/test_block_sparse.py``'s, at
+    T 1024, block 32): NaN in every K/V row that no query may attend;
+    O, LSE and the three gradients finite and equal to the clean run's
+    bit for bit."""
+    import numpy as np
+
+    from bigdl_tpu_torch.ops import block_sparse as bs
+
+    m = np.eye(32, dtype=bool)
+    m[:, 0] = True
+    m[16, 16] = False     # k block 16 is now read by no query
+    mask = bs.BlockMask(m, 32, 32)
+    g = torch.Generator(device="cuda").manual_seed(19)
+    q, k, v, d_o = (torch.randn(2, 8, 1024, 128, device="cuda", generator=g
+                                ).bfloat16() for _ in range(4))
+    dead = ~bs._elementwise_keep(mask, True, "cuda").any(dim=0)
+    kp, vp = k.clone(), v.clone()
+    kp[:, :, dead] = float("nan")
+    vp[:, :, dead] = float("nan")
+    runs = []
+    for kk, vv in ((k, v), (kp, vp)):
+        o, lse = bs._bs_fwd_cuda(q, kk, vv, mask, True, 0.1)
+        runs.append((o, lse) + bs._bs_bwd_cuda(q, kk, vv, o, lse, d_o, mask,
+                                                True, 0.1))
+    torch.cuda.synchronize()
+    names = ("o", "lse", "dq", "dk", "dv")
+    finite = {n: bool(torch.isfinite(t.float()).all())
+              for n, t in zip(names, runs[1])}
+    same = {n: bool(torch.equal(a, b))
+            for n, a, b in zip(names, runs[1], runs[0])}
+    ok = all(finite.values()) and all(same.values())
+    print(f"K6-K8 NaN-poisoned dead K/V ({int(dead.sum())} rows of 1024, "
+          f"block 32): finite {finite} equal to the clean run {same} "
+          f"{'OK' if ok else 'FAIL'}")
+    return dict(case="nan_poison_block32", dead_rows=int(dead.sum()),
+                finite=finite, equals_clean_bitwise=same, ok=ok)
+
+
+def mm_cases(torch):
+    """(label, M, K, N, block, dtype) for K9: the flagship MLP shape in
+    bf16 and f32, the kernel lab's shape, ragged M, block 32."""
+    bf16, f32 = torch.bfloat16, torch.float32
+    M, K, N = MM_SHAPE
+    return [("mlp_bf16", M, K, N, MM_BLOCK, bf16),
+            ("mlp_f32", M, K, N, MM_BLOCK, f32),
+            ("lab_f32", 64, 1024, 1024, 512, f32),
+            ("ragged_M100", 100, K, N, MM_BLOCK, bf16),
+            ("block32", 4096, K, K, 32, bf16)]
+
+
+def mm_inputs(torch, M, K, N, block, dt):
+    """x, W, dY and W's magnitude mask, from one seeded generator."""
+    from bigdl_tpu_torch.ops import block_sparse as bs
+
+    g = torch.Generator(device="cuda").manual_seed(23)
+    x = torch.randn(M, K, device="cuda", generator=g).to(dt)
+    w = (0.03 * torch.randn(K, N, device="cuda", generator=g)).to(dt)
+    gy = torch.randn(M, N, device="cuda", generator=g).to(dt)
+    return x, w, gy, bs.magnitude_block_mask(w, block, block, MM_DENSITY)
+
+
+def check_block_sparse_mm(torch):
+    """K9 against ``_bs_mm_plain`` (forward, and dX = K9 on (dY, Wᵀ,
+    maskᵀ)) row by row; NaN in every dead W tile; times against
+    ``torch.matmul`` on the masked dense W."""
+    from bigdl_tpu_torch.ops import block_sparse as bs
+
+    rows = []
+    for label, M, K, N, block, dt in mm_cases(torch):
+        x, w, gy, mask = mm_inputs(torch, M, K, N, block, dt)
+        wt = w.t().contiguous()
+        y = bs._bs_mm_cuda(x, w, mask)
+        dx = bs._bs_mm_cuda(gy, wt, mask.transposed())
+        torch.cuda.synchronize()
+        dname = str(dt).split(".")[-1]
+        tol = ROW_TOL[dname]
+        y_ref = bs._bs_mm_plain(x, w, mask)
+        rel = {"y": row_rel_err(torch, y, y_ref),
+               "dx": row_rel_err(torch, dx, bs._bs_mm_plain(
+                   gy, wt, mask.transposed()))}
+        err = (y.float() - y_ref.float()).abs().max().item()
+        del y_ref
+        live = bs._elementwise_weight_mask(mask, "cuda")
+        poisoned = bs._bs_mm_cuda(x, w.masked_fill(~live, float("nan")),
+                                  mask)
+        poison_ok = bool(torch.isfinite(poisoned.float()).all()) and bool(
+            torch.equal(poisoned, y))
+        ok = max(rel.values()) <= tol and poison_ok
+        w_dense = torch.where(live, w, torch.zeros((), dtype=dt,
+                                                   device="cuda"))
+        ms = cuda_ms(lambda: bs._bs_mm_cuda(x, w, mask))
+        dx_ms = cuda_ms(lambda: bs._bs_mm_cuda(gy, wt, mask.transposed()))
+        plain_ms = cuda_ms(lambda: bs._bs_mm_plain(x, w, mask))
+        lib_ms = cuda_ms(lambda: torch.matmul(x, w_dense))
+        item = x.element_size()
+        nnz = mask.nnz * mask.block_q * mask.block_k
+        b_ms, b_by = bound(item * (M * K + nnz + M * N), 2.0 * M * nnz, dname)
+        rows.append(dict(case=label, shape=[M, K, N], block=block,
+                         dtype=dname, density=mask.density, row_rel_err=rel,
+                         max_abs_err=err, tol=tol, nan_poison_ok=poison_ok,
+                         ok=ok, ms=ms, dx_ms=dx_ms, plain_ms=plain_ms,
+                         library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by))
+        print(f"K9 block_sparse_mm {label:>12} {dname:>8} row err y "
+              f"{rel['y']:.3e} dx {rel['dx']:.3e} (tol {tol:g}) NaN in dead "
+              f"tiles ignored: {poison_ok} | kernel {ms:.4f} ms (dX "
+              f"{dx_ms:.4f}) plain {plain_ms:.4f} ms matmul(x, W*mask) "
+              f"{lib_ms:.4f} ms bound {b_ms:.4f} ms ({b_by}) "
+              f"{'OK' if ok else 'FAIL'}")
+        del x, w, gy, wt, y, dx, poisoned, w_dense
+        torch.cuda.empty_cache()
+    return rows
+
+
 def serve_flagship(torch):
     """Phase 4: the port's InferenceServer at full flagship width."""
     import numpy as np
@@ -428,10 +730,10 @@ def serve_flagship(torch):
                                 f"{[r.error for r in results]}")
             if not ids_ok:
                 failures.append(f"prompt {T0}: generated ids out of 1..{V}")
-            if n_flash != L or n_ln != want_ln or n_bwd:
-                failures.append(f"prompt {T0}: launches flash {n_flash} "
-                                f"ln {n_ln} backward {n_bwd}, want {L} / "
-                                f"{want_ln} / 0")
+            if batch["launches"] != want_launches(flash_fwd=L,
+                                                  layer_norm_fwd=want_ln):
+                failures.append(f"prompt {T0}: launches {batch['launches']}"
+                                f", want flash {L}, ln {want_ln}, no other")
     finally:
         server.stop(timeout=60)
 
@@ -477,13 +779,15 @@ def serve_flagship(torch):
                 logits_top1_agrees=same_top1), failures
 
 
-def _lm(torch, device, num_layers):
+def _lm(torch, device, num_layers, max_len=None, seq_strategy="flash",
+        blocksparse=None):
     from bigdl_tpu_torch.models.transformer import TransformerLM
 
     cfg = FLAGSHIP
     return TransformerLM(cfg["vocab"], embed_dim=cfg["embed_dim"],
                          num_heads=cfg["num_heads"], num_layers=num_layers,
-                         max_len=cfg["max_len"], seq_strategy="flash",
+                         max_len=max_len or cfg["max_len"],
+                         seq_strategy=seq_strategy, blocksparse=blocksparse,
                          output="logits", device=device,
                          generator=torch.Generator().manual_seed(0))
 
@@ -581,8 +885,8 @@ def train_flagship(torch):
     del model
     torch.cuda.empty_cache()
     losses = bf16["losses"]
-    want = {"flash_fwd": L, "flash_bwd_dkv": L, "flash_bwd_dq": L,
-            "layer_norm_fwd": 2 * L + 1}
+    want = want_launches(flash_fwd=L, flash_bwd_dkv=L, flash_bwd_dq=L,
+                         layer_norm_fwd=2 * L + 1)
     if len(losses) != TRAIN_ITERS or not all(math.isfinite(x)
                                              for x in losses):
         failures.append(f"training losses {losses}")
@@ -672,7 +976,235 @@ def train_flagship(torch):
     ), failures
 
 
+def train_blocksparse(torch):
+    """Phase 6: the port's LocalOptimizer trains the block-sparse
+    flagship at T 4096 (bench.py's transformerlm_blocksparse_T4096)."""
+    from bigdl_tpu_torch.ops import block_sparse as bs
+
+    cfg = FLAGSHIP
+    L, Dm = cfg["num_layers"], cfg["embed_dim"]
+    B, T = BS_BATCH, BS_T
+    lm_kw = dict(max_len=T, seq_strategy="blocksparse", blocksparse=BS_CFG)
+    failures = []
+
+    model = _lm(torch, "cuda", L, **lm_kw)
+    n_params = sum(p.numel() for p in model.parameters())
+    mask = model.blocks[0][1].block_mask(T, T)
+    work = bs.attention_work(mask, 1, 1, Dm // cfg["num_heads"], causal=True)
+    frac = work["executed_vs_flash_fraction"]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    run = run_training(torch, model, B, T, TRAIN_ITERS, torch.bfloat16)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    del model
+    torch.cuda.empty_cache()
+    losses = run["losses"]
+    want = want_launches(block_sparse_fwd=L, block_sparse_bwd_dkv=L,
+                         block_sparse_bwd_dq=L, layer_norm_fwd=2 * L + 1)
+    if len(losses) != TRAIN_ITERS or not all(math.isfinite(x)
+                                             for x in losses):
+        failures.append(f"block-sparse training losses {losses}")
+    if run["skipped_steps"]:
+        failures.append(f"{run['skipped_steps']} block-sparse steps skipped")
+    if not losses[-1] < losses[0]:
+        failures.append(f"block-sparse loss did not fall: {losses[0]} -> "
+                        f"{losses[-1]}")
+    bad = [st for st in run["launches_per_step"] if st != want]
+    if bad:
+        failures.append(f"block-sparse launches per step {bad[0]}, want "
+                        f"{want}")
+
+    def speed(step_s):
+        steady = step_s[2:]
+        step_ms = 1e3 * sum(steady) / len(steady)
+        return step_ms, B * T / (step_ms / 1e3)
+
+    step_ms, tokens_per_s = speed(run["step_s"])
+    attn_flops = 6.0 * T * Dm * L   # bench.py's convention, flash basis
+    mfu = ((6.0 * n_params + frac * attn_flops) * tokens_per_s
+           / PEAK_FLOPS["bfloat16"])
+    mfu_flash_eq = ((6.0 * n_params + attn_flops) * tokens_per_s
+                    / PEAK_FLOPS["bfloat16"])
+    print(f"block-sparse path: bf16, B {B} T {T}, mask {mask} (executed vs "
+          f"flash {frac:.4f}): losses {[round(x, 4) for x in losses]}; "
+          f"launches per step {run['launches_per_step'][0]}; step "
+          f"{step_ms:.2f} ms (iterations 3-{TRAIN_ITERS}), {tokens_per_s:.0f}"
+          f" tokens/s, MFU {mfu:.4f} executed ({mfu_flash_eq:.4f} on the "
+          f"flash-equivalent basis), peak memory {peak_gb:.2f} GB")
+
+    # the same 8 steps in f32 on the card
+    f32 = run_training(torch, _lm(torch, "cuda", L, **lm_kw), B, T,
+                       TRAIN_ITERS, None)
+    torch.cuda.empty_cache()
+    ref = f32["losses"]
+    first_rel = abs(losses[0] - ref[0]) / abs(ref[0])
+    dec_rel = decrease_rel_err(losses, ref)
+    print(f"block-sparse path: bf16 vs f32 on the card: first loss "
+          f"{losses[0]:.6f} vs {ref[0]:.6f}, rel {first_rel:.3e} (tol "
+          f"{BS_FIRST_REL_TOL}); decreases "
+          f"{[round(x - losses[0], 6) for x in losses[1:]]} vs "
+          f"{[round(x - ref[0], 6) for x in ref[1:]]}, worst rel "
+          f"{dec_rel:.3e} (tol {TRAIN_DECREASE_REL_TOL})")
+    if len(ref) != TRAIN_ITERS or not first_rel <= BS_FIRST_REL_TOL:
+        failures.append(f"block-sparse first loss bf16 vs f32 rel "
+                        f"{first_rel:.3e}")
+    if not dec_rel <= TRAIN_DECREASE_REL_TOL:
+        failures.append(f"block-sparse loss decreases bf16 vs f32 rel "
+                        f"{dec_rel:.3e}")
+
+    # a 2-layer copy at full width, an 8 x 8 mask at block 64: f32 on
+    # the card against the CPU
+    small_kw = dict(max_len=BS_SMALL_T, seq_strategy="blocksparse",
+                    blocksparse=BS_SMALL_CFG)
+    small = {dev: run_training(torch, _lm(torch, dev, SMALL_LAYERS,
+                                          **small_kw),
+                               BS_SMALL_BATCH, BS_SMALL_T, SMALL_ITERS, None,
+                               updates=True)
+             for dev in ("cuda", "cpu")}
+    card, cpu = small["cuda"]["losses"], small["cpu"]["losses"]
+    traj_rel = max(abs(a - b) / abs(b) for a, b in zip(card, cpu))
+    traj_dec_rel = decrease_rel_err(card, cpu)
+    got, want_upd = small["cuda"]["updates"], small["cpu"]["updates"]
+    scale = max(max_row_norm(torch, u) for u in want_upd.values())
+    upd_err = {n: row_rel_err(torch, got[n], u, scale)
+               for n, u in want_upd.items()}
+    worst = max(upd_err, key=upd_err.get)
+    print(f"block-sparse path: 2-layer f32 (T {BS_SMALL_T}, block 64) "
+          f"losses card {card} cpu {cpu}: max rel {traj_rel:.3e} (rtol "
+          f"{TRAJ_RTOL}), decreases worst rel {traj_dec_rel:.3e} (tol "
+          f"{TRAJ_DECREASE_REL_TOL}); updates worst row err "
+          f"{upd_err[worst]:.3e} in {worst} (tol {TRAJ_UPDATE_ROW_TOL})")
+    if len(card) != SMALL_ITERS or not traj_rel <= TRAJ_RTOL:
+        failures.append(f"block-sparse 2-layer card vs cpu: {card} vs {cpu}")
+    if not traj_dec_rel <= TRAJ_DECREASE_REL_TOL:
+        failures.append(f"block-sparse 2-layer decreases rel "
+                        f"{traj_dec_rel:.3e}")
+    if not upd_err[worst] <= TRAJ_UPDATE_ROW_TOL:
+        failures.append(f"block-sparse 2-layer updates: {worst} row err "
+                        f"{upd_err[worst]:.3e}")
+    if small["cuda"]["launches"]["block_sparse_bwd_dq"] \
+            != SMALL_LAYERS * SMALL_ITERS:
+        failures.append(f"block-sparse 2-layer launches "
+                        f"{small['cuda']['launches']}")
+
+    # flash at T 4096 (8 steps: its speed on the same basis), and an
+    # all-ones block-sparse mask (window 8 of 8 blocks), 3 steps: the
+    # same function through K1-K3 and through K6-K8
+    flash = run_training(torch, _lm(torch, "cuda", L, max_len=T), B, T,
+                         TRAIN_ITERS, torch.bfloat16)
+    torch.cuda.empty_cache()
+    ones = run_training(torch, _lm(torch, "cuda", L, max_len=T,
+                                   seq_strategy="blocksparse",
+                                   blocksparse=dict(BS_CFG, window=8)),
+                        B, T, BS_CMP_ITERS, torch.bfloat16)
+    torch.cuda.empty_cache()
+    # flash's first loss in f32 at the same shape: its bf16 vs f32 gap
+    flash_f32 = run_training(torch, _lm(torch, "cuda", L, max_len=T), B, T,
+                             1, None)["losses"][0]
+    torch.cuda.empty_cache()
+    flash_first_rel = abs(flash["losses"][0] - flash_f32) / abs(flash_f32)
+    if not flash_first_rel <= BS_FIRST_REL_TOL:
+        failures.append(f"flash at T {T}: first loss bf16 vs f32 rel "
+                        f"{flash_first_rel:.3e}")
+    flash_ms, flash_tps = speed(flash["step_s"])
+    a, b = flash["losses"][:BS_CMP_ITERS], ones["losses"]
+    ones_rel = max(abs(x - y) / abs(y) for x, y in zip(a, b))
+    print(f"block-sparse path: flash at T {T}: first loss bf16 vs f32 "
+          f"{flash['losses'][0]:.6f} vs {flash_f32:.6f}, rel "
+          f"{flash_first_rel:.3e} (tol {BS_FIRST_REL_TOL}); step "
+          f"{flash_ms:.2f} ms, {flash_tps:.0f} tokens/s; block-sparse / "
+          f"flash step {step_ms / flash_ms:.4f}; losses flash {a} vs all-ones mask "
+          f"{b}: identical {a == b}, max rel {ones_rel:.3e} (tol "
+          f"{ALL_ONES_REL_TOL})")
+    if len(b) != BS_CMP_ITERS or not ones_rel <= ALL_ONES_REL_TOL:
+        failures.append(f"flash vs all-ones block-sparse losses {a} vs {b}")
+    if flash["launches_per_step"][0] != want_launches(
+            flash_fwd=L, flash_bwd_dkv=L, flash_bwd_dq=L,
+            layer_norm_fwd=2 * L + 1) or ones["launches_per_step"][0] != want:
+        failures.append(f"flash / all-ones launches "
+                        f"{flash['launches_per_step'][0]} / "
+                        f"{ones['launches_per_step'][0]}")
+    return dict(
+        config=dict(FLAGSHIP, max_len=T, seq_strategy="blocksparse",
+                    blocksparse=BS_CFG), mask=repr(mask),
+        executed_vs_flash_fraction=frac, n_params=n_params, batch=B,
+        seq_len=T, lr=TRAIN_LR, losses=losses, step_s=run["step_s"],
+        launches_per_step=run["launches_per_step"][0],
+        launches=run["launches"], skipped_steps=run["skipped_steps"],
+        step_ms=step_ms, tokens_per_s=tokens_per_s, mfu=mfu,
+        mfu_flash_equivalent=mfu_flash_eq, peak_memory_gb=peak_gb,
+        f32_losses=ref, bf16_vs_f32_first_rel=first_rel,
+        bf16_vs_f32_decrease_rel=dec_rel,
+        small_f32=dict(layers=SMALL_LAYERS, batch=BS_SMALL_BATCH,
+                       seq_len=BS_SMALL_T, blocksparse=BS_SMALL_CFG,
+                       card_losses=card, cpu_losses=cpu, max_rel=traj_rel,
+                       decrease_rel=traj_dec_rel, update_row_err=upd_err),
+        flash=dict(losses=flash["losses"], step_s=flash["step_s"],
+                   f32_first_loss=flash_f32,
+                   bf16_vs_f32_first_rel=flash_first_rel,
+                   step_ms=flash_ms, tokens_per_s=flash_tps,
+                   launches_per_step=flash["launches_per_step"][0]),
+        all_ones=dict(losses=b, max_rel_vs_flash=ones_rel,
+                      identical=a == b),
+        step_ratio_vs_flash=step_ms / flash_ms), failures
+
+
+def matmul_entry(torch):
+    """Phase 7: ``block_sparse_matmul`` at the flagship MLP shape in bf16
+    under autograd, 3 forward+backward passes (phase 3's inputs)."""
+    from bigdl_tpu_torch.ops import block_sparse as bs
+
+    failures = []
+    x, w, gy, mask = mm_inputs(torch, *MM_SHAPE, MM_BLOCK, torch.bfloat16)
+    xl, wl = x.clone().requires_grad_(), w.clone().requires_grad_()
+    bs.LAUNCHES_MM.reset()
+    t0 = time.perf_counter()
+    outs = []
+    for _ in range(3):
+        y = bs.block_sparse_matmul(xl, wl, mask)
+        dx, dw = torch.autograd.grad(y, (xl, wl), gy)
+        outs.append((y.detach(), dx, dw))
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    launches = bs.LAUNCHES_MM.count
+    live = bs._elementwise_weight_mask(mask, "cuda")
+    dead_zero = all(not bool(o[2][~live].any()) for o in outs)
+    same = all(torch.equal(o[0], outs[0][0]) and torch.equal(o[1], outs[0][1])
+               for o in outs)
+    y, dx, dw = outs[0]
+    rel_y = row_rel_err(torch, y, bs._bs_mm_plain(x, w, mask))
+    rel_dx = row_rel_err(torch, dx, bs._bs_mm_plain(
+        gy, w.t().contiguous(), mask.transposed()))
+    tol = ROW_TOL["bfloat16"]
+    print(f"matmul path: block_sparse_matmul x {tuple(x.shape)} W "
+          f"{tuple(w.shape)} bf16, {mask}: 3 forward+backward passes, "
+          f"{launches} K9 launches (want 6), dW zero on every dead tile: "
+          f"{dead_zero}, passes equal: {same}; row err y {rel_y:.3e} dx "
+          f"{rel_dx:.3e} (tol {tol:g}); {wall_s * 1e3:.1f} ms")
+    if launches != 6:
+        failures.append(f"block_sparse_matmul launched K9 {launches} times "
+                        f"in 3 passes, want 6")
+    if not (dead_zero and same and rel_y <= tol and rel_dx <= tol):
+        failures.append(f"block_sparse_matmul: dead dW zero {dead_zero}, "
+                        f"passes equal {same}, row err {rel_y:.3e} / "
+                        f"{rel_dx:.3e}")
+    del x, w, gy, xl, wl, outs, y, dx, dw
+    torch.cuda.empty_cache()
+    return dict(shape=list(MM_SHAPE), block=MM_BLOCK, density=MM_DENSITY,
+                passes=3, launches=launches, dead_tile_dw_zero=dead_zero,
+                passes_equal=same, row_rel_err_y=rel_y,
+                row_rel_err_dx=rel_dx, wall_ms=wall_s * 1e3), failures
+
+
 def _kernel_group(name: str) -> str:
+    if "bs_fwd_kernel" in name:
+        return "K6 block_sparse_fwd"
+    if "bs_dkv_kernel" in name:
+        return "K7 block_sparse_bwd_dkv"
+    if "bs_dq_kernel" in name:
+        return "K8 block_sparse_bwd_dq"
+    if "bs_mm_kernel" in name:
+        return "K9 block_sparse_mm"
     if "flash_fwd" in name:
         return "K1 flash_fwd"
     if "flash_bwd_dkv" in name:
@@ -771,12 +1303,13 @@ def print_profile(title: str, rep: dict):
         print(f"    {t['ms']:9.3f} ms {t['launches']:6d}x  {t['name'][:100]}")
 
 
-def profile_training(torch):
-    """``--profile``: one bf16 training step of phase 5 (B 16, T 1024)
-    under ``torch.profiler``, after two warm iterations; each timed run
-    is one more iteration of the same LocalOptimizer."""
-    model = _lm(torch, "cuda", FLAGSHIP["num_layers"])
-    opt = make_trainer(torch, model, TRAIN_BATCH, TRAIN_T, 2, torch.bfloat16)
+def profile_training(torch, B=TRAIN_BATCH, T=TRAIN_T, **lm_kw):
+    """``--profile``: one bf16 training step of phase 5 (B 16, T 1024),
+    or of phase 6 with its ``lm_kw``, under ``torch.profiler``, after
+    two warm iterations; each timed run is one more iteration of the
+    same LocalOptimizer."""
+    model = _lm(torch, "cuda", FLAGSHIP["num_layers"], **lm_kw)
+    opt = make_trainer(torch, model, B, T, 2, torch.bfloat16)
     opt.optimize()
 
     def run():
@@ -789,8 +1322,10 @@ def profile_training(torch):
         return time.perf_counter() - t
 
     rep = profile_window(torch, run)
-    print_profile(f"profile training step (bf16, batch {TRAIN_BATCH}, "
-                  f"T {TRAIN_T})", rep)
+    print_profile(f"profile training step (bf16, batch {B}, T {T}, "
+                  f"{model.seq_strategy})", rep)
+    del model, opt
+    torch.cuda.empty_cache()
     return rep
 
 
@@ -801,8 +1336,10 @@ def main(argv=None) -> int:
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--profile", action="store_true",
-                    help="after the build, profile the served generator "
-                         "and one training step instead of phases 3-6")
+                    help="after the build, profile the served generator, "
+                         "one training step, and one block-sparse and one "
+                         "flash training step at T 4096 instead of phases "
+                         "3-8")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         return fail("torch.cuda.is_available() is false; a CUDA card is "
@@ -824,14 +1361,15 @@ def main(argv=None) -> int:
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
 
-    # phase 2: build — both CUDA libraries at once, then Triton's K4
+    # phase 2: build — the three CUDA libraries at once, then Triton's K4
     from bigdl_tpu_torch.ops import _support
     from bigdl_tpu_torch.ops import layer_norm as ln
 
+    libs = ("flash_fwd", "flash_bwd", "block_sparse")
     t0 = time.perf_counter()
-    _support.load_cuda_libraries("flash_fwd", "flash_bwd")
+    _support.load_cuda_libraries(*libs)
     cuda_build_s = time.perf_counter() - t0
-    for lib in ("flash_fwd", "flash_bwd"):
+    for lib in libs:
         for line in _support.BUILD_INFO[lib][1].splitlines():
             if "registers" in line or "spill" in line or "Compiling" in line:
                 print(f"ptxas {lib}: {line.strip()}")
@@ -840,7 +1378,8 @@ def main(argv=None) -> int:
     ln._layer_norm_cuda(x, x[0], x[0], 1e-5)
     torch.cuda.synchronize()
     triton_build_s = time.perf_counter() - t0
-    print(f"build: flash_fwd.cu + flash_bwd.cu (nvcc, sm_90a, in parallel) "
+    print(f"build: {' + '.join(f'{n}.cu' for n in libs)} (nvcc, sm_90a, in "
+          f"parallel) "
           f"{cuda_build_s:.1f} s (each: "
           f"{ {k: round(v[0], 1) for k, v in _support.BUILD_INFO.items()} }"
           f") -> {_support.BUILD_DIR}; layer_norm (triton, first launch) "
@@ -850,7 +1389,12 @@ def main(argv=None) -> int:
     out.mkdir(exist_ok=True)
     if args.profile:
         report = dict(served=profile_served(torch),
-                      training_step=profile_training(torch))
+                      training_step=profile_training(torch),
+                      blocksparse_training_step=profile_training(
+                          torch, BS_BATCH, BS_T, max_len=BS_T,
+                          seq_strategy="blocksparse", blocksparse=BS_CFG),
+                      flash_T4096_training_step=profile_training(
+                          torch, BS_BATCH, BS_T, max_len=BS_T))
         (out / "chip_profile.json").write_text(json.dumps(dict(
             device=kind, nvidia_smi=smi, torch=torch.__version__,
             profile=report), indent=1))
@@ -867,6 +1411,11 @@ def main(argv=None) -> int:
                  for r in ln_rows if not r["ok"]]
     failures += [f"K2/K3 {r['case']}: row err {r['row_rel_err']}"
                  for r in bwd_rows if not r["ok"]]
+    bs_rows = check_block_sparse(torch, F)
+    mm_rows = check_block_sparse_mm(torch)
+    failures += [f"K6-K8 {r['case']}: {r}" for r in bs_rows if not r["ok"]]
+    failures += [f"K9 {r['case']}: row err {r['row_rel_err']} NaN-poison "
+                 f"{r['nan_poison_ok']}" for r in mm_rows if not r["ok"]]
 
     # phase 4: the serving path
     served, path_failures = serve_flagship(torch)
@@ -876,13 +1425,33 @@ def main(argv=None) -> int:
     trained, train_failures = train_flagship(torch)
     failures += train_failures
 
-    # launches summed over both paths, each read from zero
+    # phase 6: the block-sparse training path
+    bs_trained, bs_failures = train_blocksparse(torch)
+    failures += bs_failures
+
+    # phase 7: the block-sparse matmul through its entry point
+    mm_path, mm_failures = matmul_entry(torch)
+    failures += mm_failures
+
+    # launches summed over every path, each read from zero
     launches = {n: sum(b["launches"][n] for b in served["batches"])
-                + trained["launches"][n] for n in launch_counters()}
+                + trained["launches"][n] + bs_trained["launches"][n]
+                for n in launch_counters()}
+    launches["block_sparse_mm"] += mm_path["launches"]
+    bs_row = bs_rows[0]
     rows = {"flash_fwd": dict(flash_rows[0]),
             "layer_norm_fwd": dict(ln_rows[0]),
             "flash_bwd_dkv": dict(bwd_rows[0], **bwd_rows[0]["dkv"]),
-            "flash_bwd_dq": dict(bwd_rows[0], **bwd_rows[0]["dq"])}
+            "flash_bwd_dq": dict(bwd_rows[0], **bwd_rows[0]["dq"]),
+            "block_sparse_fwd": dict(bs_row, **bs_row["fwd"]),
+            "block_sparse_bwd_dkv": dict(
+                bs_row, **bs_row["dkv"], plain_ms=bs_row["plain_bwd_ms"],
+                library_ms=bs_row["library_bwd_ms"]),
+            "block_sparse_bwd_dq": dict(
+                bs_row, **bs_row["dq"], plain_ms=bs_row["plain_bwd_ms"],
+                library_ms=bs_row["library_bwd_ms"]),
+            "block_sparse_mm": dict(mm_rows[0])}
+    bs_src = "bigdl_tpu_torch/ops/csrc/block_sparse.cu"
     kernels = []
     for name, route, source, replaces in (
             ("flash_fwd", "cuda", "bigdl_tpu_torch/ops/csrc/flash_fwd.cu",
@@ -892,7 +1461,15 @@ def main(argv=None) -> int:
             ("flash_bwd_dq", "cuda", "bigdl_tpu_torch/ops/csrc/flash_bwd.cu",
              "bigdl_tpu/ops/flash_attention.py:271"),
             ("layer_norm_fwd", "triton", "bigdl_tpu_torch/ops/layer_norm.py",
-             "bigdl_tpu/ops/layer_norm.py:25")):
+             "bigdl_tpu/ops/layer_norm.py:25"),
+            ("block_sparse_fwd", "cuda", bs_src,
+             "bigdl_tpu/ops/block_sparse.py:292"),
+            ("block_sparse_bwd_dkv", "cuda", bs_src,
+             "bigdl_tpu/ops/block_sparse.py:317"),
+            ("block_sparse_bwd_dq", "cuda", bs_src,
+             "bigdl_tpu/ops/block_sparse.py:345"),
+            ("block_sparse_mm", "cuda", bs_src,
+             "bigdl_tpu/ops/block_sparse.py:626")):
         row = rows[name]
         kernels.append(dict(
             name=name, route=route, source=source, replaces=replaces,
@@ -908,7 +1485,9 @@ def main(argv=None) -> int:
         cuda=torch.version.cuda, cuda_build_s=cuda_build_s,
         build_s={k: v[0] for k, v in _support.BUILD_INFO.items()},
         triton_build_s=triton_build_s, flash=flash_rows, layer_norm=ln_rows,
-        flash_bwd=bwd_rows, serving_path=served, training_path=trained,
+        flash_bwd=bwd_rows, block_sparse=bs_rows, block_sparse_mm=mm_rows,
+        serving_path=served, training_path=trained,
+        blocksparse_training_path=bs_trained, matmul_path=mm_path,
         kernels=kernels, failures=failures, seconds=time.perf_counter()
         - T_START), indent=1))
 
@@ -922,6 +1501,7 @@ def main(argv=None) -> int:
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))
     return 0
+
 
 if __name__ == "__main__":
     sys.exit(main())

@@ -1,0 +1,605 @@
+"""The port's block-sparse module (bigdl_tpu_torch.ops.block_sparse)
+against the JAX package's, on the CPU.
+
+* The host side (``BlockMask``, the mask builders, ``pick_block_divisor``,
+  the index tables, the work accounting) gives the JAX values exactly.
+* The plain versions of K6 (forward) and K7/K8 (backward) are held
+  against the JAX Pallas kernels in interpret mode, and the block-sparse
+  matmul against JAX ``block_sparse_matmul(..., interpret=True)``,
+  forward and both gradients.
+* ``MultiHeadAttention(seq_strategy="blocksparse")`` matches the JAX
+  layer (GQA included), and a tiny block-sparse TransformerLM trains
+  along the JAX LocalOptimizer's trajectory.
+
+The kernels themselves are held against these plain versions on the
+card by ``tests/test_torch_cuda.py`` and ``chip_smoke.py``.
+"""
+import functools
+import math
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+
+from bigdl_tpu import nn as jnn
+from bigdl_tpu import optim as joptim
+from bigdl_tpu.dataset import Sample as JSample
+from bigdl_tpu.dataset.dataset import array as jarray
+from bigdl_tpu.models.transformer import TransformerLM as JTransformerLM
+from bigdl_tpu.ops import block_sparse as J
+from bigdl_tpu.optim.optimizer import LocalOptimizer as JLocalOptimizer
+from bigdl_tpu.utils.rng import RNG as JRNG
+from bigdl_tpu_torch import nn as tnn
+from bigdl_tpu_torch import optim as toptim
+from bigdl_tpu_torch.dataset import Sample, array
+from bigdl_tpu_torch.interop import load_param_tree
+from bigdl_tpu_torch.interop.jax_params import param_tree_numpy
+from bigdl_tpu_torch.models.transformer import TransformerLM
+from bigdl_tpu_torch.ops import block_sparse as P
+from bigdl_tpu_torch.utils.rng import RNG
+
+# The suite runs in several processes at once: one intra-op thread each
+# keeps these small tensors from crowding the timing-sensitive tests.
+torch.set_num_threads(1)
+
+TOL = dict(rtol=1e-4, atol=1e-5)   # as tests/test_torch_ops.py
+GRAD_TOL = dict(rtol=1e-3, atol=1e-4)
+
+
+def _port(mask) -> P.BlockMask:
+    return P.BlockMask(mask.mask, mask.block_q, mask.block_k)
+
+
+def _same_mask(got: P.BlockMask, want):
+    np.testing.assert_array_equal(got.mask, want.mask)
+    assert (got.block_q, got.block_k) == (want.block_q, want.block_k)
+    assert got.nnz == want.nnz and got.density == want.density
+
+
+def _magnitude(n, seed, density, block):
+    w = np.random.RandomState(seed).randn(n, n)
+    return J.BlockMask(J.magnitude_block_mask(w, 1, 1, density).mask,
+                       block, block)
+
+
+# --------------------------------------------------------------------------
+# host side: equal to the JAX values
+# --------------------------------------------------------------------------
+
+# builder name -> (args, kwargs), the same call on both modules
+BUILDERS = {
+    "sliding_causal": ("sliding_window_mask", (8, 8, 2),
+                       dict(n_global=1, causal=True, block_q=32, block_k=32)),
+    "sliding_noncausal": ("sliding_window_mask", (6, 9, 3),
+                          dict(n_global=2, causal=False, block_q=16,
+                               block_k=8)),
+    "sliding_no_globals": ("sliding_window_mask", (8, 8, 1),
+                           dict(causal=True)),
+    "strided_causal": ("strided_mask", (8, 8, 4),
+                       dict(causal=True, block_q=64, block_k=64)),
+    "strided_noncausal": ("strided_mask", (5, 7, 3),
+                          dict(causal=False, block_q=8, block_k=24)),
+}
+
+
+@pytest.mark.parametrize("case", sorted(BUILDERS))
+def test_mask_builders_match_jax(case):
+    name, args, kw = BUILDERS[case]
+    want = getattr(J, name)(*args, **kw)
+    got = getattr(P, name)(*args, **kw)
+    _same_mask(got, want)
+    _same_mask(got.transposed(), want.transposed())
+    _same_mask(got.pruned_causal(), want.pruned_causal())
+    np.testing.assert_array_equal(got.elementwise(), want.elementwise())
+    assert got == P.BlockMask(want.mask, want.block_q, want.block_k)
+    assert hash(got) == hash(_port(want))
+
+
+@pytest.mark.parametrize("shape,block,density", [
+    ((8, 8), (1, 1), 0.5), ((128, 64), (32, 32), 0.5),
+    ((96, 200), (24, 40), 0.3), ((64, 64), (16, 16), 1.0)])
+def test_magnitude_block_mask_matches_jax(shape, block, density):
+    w = np.random.RandomState(sum(shape)).randn(*shape).astype(np.float32)
+    want = J.magnitude_block_mask(w, *block, density)
+    _same_mask(P.magnitude_block_mask(w, *block, density), want)
+    # a tensor gives the numpy array's mask
+    _same_mask(P.magnitude_block_mask(torch.from_numpy(w), *block, density),
+               want)
+
+
+def test_builder_errors_match_jax():
+    for mod in (J, P):
+        with pytest.raises(ValueError):
+            mod.sliding_window_mask(4, 4, 0)
+        with pytest.raises(ValueError):
+            mod.strided_mask(4, 4, 0)
+        with pytest.raises(ValueError):
+            mod.magnitude_block_mask(np.ones((8, 8)), 3, 3, 0.5)
+        with pytest.raises(ValueError):
+            mod.magnitude_block_mask(np.ones((8, 8)), 2, 2, 0.0)
+
+
+@pytest.mark.parametrize("n,m,target", [
+    (4096, 4096, 512), (96, 96, 512), (96, 64, 512), (200, 200, 512),
+    (4096, 1024, 96), (100, 30, 64), (7, 7, 512), (24, 24, 512),
+    (1000, 600, 128), (13, 26, 4)])
+def test_pick_block_divisor_matches_jax(n, m, target):
+    assert P.pick_block_divisor(n, m, target) == \
+        J.pick_block_divisor(n, m, target)
+
+
+def test_pick_block_divisor_pins():
+    assert P.pick_block_divisor(96, 96, 512) == 96
+    assert P.pick_block_divisor(96, 64, 512) == 32
+    assert P.pick_block_divisor(4096, 4096, 512) == 512
+
+
+def _table_masks():
+    dead = np.ones((4, 4), bool)
+    dead[2] = False
+    return [J.sliding_window_mask(8, 8, 2, 1, True, 32, 32),
+            J.strided_mask(6, 6, 2, False, 16, 16),
+            J.BlockMask(dead, 32, 32),
+            _magnitude(5, 3, 0.4, 8)]
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_index_tables_match_jax_on_run_and_its_transpose(causal):
+    for want_mask in _table_masks():
+        run_j = J._runtime_mask(want_mask, causal).mask
+        run_p = P._runtime_mask(_port(want_mask), causal).mask
+        np.testing.assert_array_equal(run_p, run_j)
+        for m in (run_j, run_j.T):
+            for a, b in zip(P._index_tables(m), J._index_tables(m)):
+                np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("train", [False, True])
+def test_work_accounting_matches_jax(causal, train):
+    for want_mask in _table_masks():
+        got = P.attention_work(_port(want_mask), 2, 3, 32, causal=causal,
+                               train=train)
+        assert got == J.attention_work(want_mask, 2, 3, 32, causal=causal,
+                                       train=train)
+        assert P.matmul_work(_port(want_mask), 24, train=train) == \
+            J.matmul_work(want_mask, 24, train=train)
+
+
+def _tile_tables_brute(mask, causal):
+    """(visited, partial) of the 64-row tile pairs, element by element."""
+    keep = P._elementwise_keep(mask, causal, "cpu").numpy()
+    el = P._runtime_mask(mask, causal).elementwise()
+    T, S = keep.shape
+    nq, nk = -(-T // P.TILE), -(-S // P.TILE)
+    visited = np.zeros((nq, nk), bool)
+    partial = np.zeros((nq, nk), bool)
+    for i in range(nq):
+        for j in range(nk):
+            rows = slice(i * P.TILE, (i + 1) * P.TILE)
+            cols = slice(j * P.TILE, (j + 1) * P.TILE)
+            visited[i, j] = keep[rows, cols].any()
+            partial[i, j] = visited[i, j] and not el[rows, cols].all()
+    return visited, partial
+
+
+def test_tile_tables_match_the_element_masks():
+    """The kernels' 64-row tile tables: a pair is visited iff one of its
+    elements is live, partial iff the block mask covers it in part, for
+    block sizes above, below and across 64 and ragged sequence ends."""
+    rng = np.random.RandomState(0)
+    sizes = [1, 3, 8, 16, 32, 64, 96, 100, 128, 200]
+    for _ in range(60):
+        bq, bk = (int(rng.choice(sizes)) for _ in range(2))
+        nq = rng.randint(1, max(2, 400 // bq))
+        nk = rng.randint(1, max(2, 400 // bk))
+        mask = P.BlockMask(rng.rand(nq, nk) < rng.rand(), bq, bk)
+        for causal in (False, True):
+            got = P._tile_tables(mask, causal)
+            want = _tile_tables_brute(mask, causal)
+            for a, b in zip(got, want):
+                np.testing.assert_array_equal(a, b,
+                                              err_msg=f"{mask} {causal}")
+
+
+def test_tile_work_at_the_training_shape():
+    # sliding window 2 + 1 global at block 512 over T 4096: 1120 of
+    # flash's 2080 64-row tile pairs per head, none partial
+    mask = P.sliding_window_mask(8, 8, 2, 1, True, 512, 512)
+    assert P.tile_work(mask, True) == dict(visited=1120, partial=0,
+                                           flash=2080)
+    work = P.attention_work(mask, 1, 1, 128, causal=True)
+    assert work["executed_vs_flash_fraction"] == pytest.approx(21 / 36)
+    assert int(P._elementwise_keep(mask, True, "cpu").sum()) == 4458496
+
+
+# --------------------------------------------------------------------------
+# attention: the plain versions against the Pallas kernels in interpret
+# mode
+# --------------------------------------------------------------------------
+
+def _dead_q_block():
+    m = np.ones((4, 4), bool)
+    m[2] = False             # q rows 64..95 attend nothing
+    return J.BlockMask(m, 32, 32)
+
+
+def _dead_k_block():
+    m = np.eye(4, dtype=bool)
+    m[:, 0] = True
+    m[2, 2] = False          # k rows 64..95 are read by no query
+    return J.BlockMask(m, 32, 32)
+
+
+# (mask factory, causal, sm_scale): T = S = 128, D 32, B 1, H 2
+ATTN_CASES = {
+    "full_causal": (lambda: J.BlockMask(np.ones((4, 4), bool), 32, 32),
+                    True, None),
+    "full": (lambda: J.BlockMask(np.ones((4, 4), bool), 32, 32),
+             False, None),
+    "sliding_causal_block32": (
+        lambda: J.sliding_window_mask(4, 4, 2, 1, True, 32, 32), True, None),
+    "sliding_noncausal_block32": (
+        lambda: J.sliding_window_mask(4, 4, 2, 0, False, 32, 32), False,
+        None),
+    "sliding_causal_block64": (
+        lambda: J.sliding_window_mask(2, 2, 1, 1, True, 64, 64), True, None),
+    "strided_causal": (lambda: J.strided_mask(4, 4, 2, True, 32, 32),
+                       True, None),
+    "magnitude": (lambda: _magnitude(4, 1, 0.5, 32), False, None),
+    "dead_q_block": (_dead_q_block, False, None),
+    "dead_k_block_causal": (_dead_k_block, True, None),
+    "sm_scale": (lambda: J.sliding_window_mask(4, 4, 2, 1, True, 32, 32),
+                 True, 0.37),
+}
+
+
+def _attn_inputs(case):
+    rng = np.random.RandomState(len(case))
+    q, k, v, g = ((rng.randn(1, 2, 128, 32) * 0.5).astype(np.float32)
+                  for _ in range(4))
+    make, causal, sm_scale = ATTN_CASES[case]
+    scale = sm_scale if sm_scale is not None else 1 / math.sqrt(32)
+    return q, k, v, g, make(), causal, scale
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_attention(case):
+    """(O, LSE, (dq, dk, dv)) of the Pallas kernels in interpret mode."""
+    q, k, v, g, mask, causal, scale = _attn_inputs(case)
+    jq, jk, jv = jnp.asarray(q), jnp.asarray(k), jnp.asarray(v)
+    o, lse = J._bs_fwd(jq, jk, jv, mask, causal, scale, True)
+    grads = J._bs_bwd(jq, jk, jv, o, lse, jnp.asarray(g), mask, causal,
+                      scale, True)
+    return np.array(o), np.array(lse), tuple(map(np.array, grads))
+
+
+@pytest.mark.parametrize("case", sorted(ATTN_CASES))
+def test_block_sparse_plain_matches_pallas_interpret(case):
+    q, k, v, _, mask, causal, scale = _attn_inputs(case)
+    o_want, lse_want, _ = _jax_attention(case)
+    o, lse = P._bs_attention_plain(*map(torch.from_numpy, (q, k, v)),
+                                   _port(mask), causal, scale)
+    assert lse.shape == (2, 1, 128) and lse.dtype == torch.float32
+    np.testing.assert_allclose(o.numpy(), o_want, **TOL)
+    np.testing.assert_allclose(lse.numpy(), lse_want, **TOL)
+
+
+@pytest.mark.parametrize("case", sorted(ATTN_CASES))
+def test_block_sparse_bwd_plain_matches_pallas_interpret(case):
+    q, k, v, g, mask, causal, scale = _attn_inputs(case)
+    o, lse, want = _jax_attention(case)
+    got = P._bs_bwd_plain(*map(torch.from_numpy, (q, k, v, o, lse, g)),
+                          _port(mask), causal, scale)
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        np.testing.assert_allclose(a.numpy(), b, **GRAD_TOL, err_msg=name)
+
+
+@pytest.mark.parametrize("case", ["sliding_causal_block32", "dead_q_block",
+                                  "sm_scale"])
+def test_block_sparse_autograd_runs_the_plain_backward_on_cpu(case):
+    q, k, v, g, mask, causal, scale = _attn_inputs(case)
+    leaves = [torch.from_numpy(a).requires_grad_() for a in (q, k, v)]
+    before = (P.LAUNCHES.count, P.LAUNCHES_DKV.count, P.LAUNCHES_DQ.count)
+    # a raw bool grid is accepted as the mask (blocks T // nq, S // nk)
+    o = P.block_sparse_attention(*leaves, mask.mask, causal=causal,
+                                 sm_scale=scale)
+    got = torch.autograd.grad(o, leaves, torch.from_numpy(g))
+    assert (P.LAUNCHES.count, P.LAUNCHES_DKV.count, P.LAUNCHES_DQ.count) \
+        == before
+    t = [torch.from_numpy(a) for a in (q, k, v)]
+    o2, lse = P._bs_attention_plain(*t, _port(mask), causal, scale)
+    assert torch.equal(o.detach(), o2)
+    want = P._bs_bwd_plain(*t, o2, lse, torch.from_numpy(g), _port(mask),
+                           causal, scale)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    # and the JAX custom_vjp's gradients through the kernels
+    for a, b in zip(got, _jax_attention(case)[2]):
+        np.testing.assert_allclose(a.numpy(), b, **GRAD_TOL)
+
+
+def test_fully_dead_q_block_gives_zero_output_and_the_lse_sentinel():
+    q, k, v, g, mask, causal, scale = _attn_inputs("dead_q_block")
+    t = [torch.from_numpy(a) for a in (q, k, v)]
+    o, lse = P._bs_attention_plain(*t, _port(mask), causal, scale)
+    assert torch.isfinite(o).all()
+    assert not o[:, :, 64:96].any() and o[:, :, :64].abs().max() > 0
+    assert (lse[:, 0, 64:96] == 1e30).all()
+    dq, dk, dv = P._bs_bwd_plain(*t, o, lse, torch.from_numpy(g),
+                                 _port(mask), causal, scale)
+    assert not dq[:, :, 64:96].any()
+
+
+def test_dead_key_rows_get_zero_gradients():
+    q, k, v, g, mask, causal, scale = _attn_inputs("dead_k_block_causal")
+    t = [torch.from_numpy(a) for a in (q, k, v)]
+    o, lse = P._bs_attention_plain(*t, _port(mask), causal, scale)
+    _, dk, dv = P._bs_bwd_plain(*t, o, lse, torch.from_numpy(g),
+                                _port(mask), causal, scale)
+    assert not dk[:, :, 64:96].any() and not dv[:, :, 64:96].any()
+    assert dk[:, :, :64].abs().max() > 0
+
+
+def test_nan_in_dead_kv_never_reaches_the_plain_output():
+    """``tests/test_block_sparse.py``'s skip proof, for the plain
+    version: NaN in every K/V row that no query may attend; the output
+    and the gradients stay finite and equal the clean run's.  The plain
+    version is dense, so this pins only that it masks with a select; the
+    kernels' skip is pinned on the card."""
+    q, k, v, g, mask, causal, scale = _attn_inputs("dead_k_block_causal")
+    pm = _port(mask)
+    dead = ~mask.pruned_causal().elementwise().any(axis=0)
+    assert dead.any()
+    kp, vp = k.copy(), v.copy()
+    kp[:, :, dead] = np.nan
+    vp[:, :, dead] = np.nan
+    runs = []
+    for kk, vv in ((k, v), (kp, vp)):
+        leaves = [torch.from_numpy(a).requires_grad_() for a in (q, kk, vv)]
+        o = P.block_sparse_attention(*leaves, pm, causal=causal,
+                                     sm_scale=scale)
+        runs.append((o.detach(),) + torch.autograd.grad(
+            o, leaves, torch.from_numpy(g)))
+    for clean, poisoned in zip(*runs):
+        assert torch.isfinite(poisoned).all()
+        assert torch.equal(poisoned, clean)
+    # and the JAX kernels in interpret mode give the same output
+    want = J.block_sparse_attention(jnp.asarray(q), jnp.asarray(kp),
+                                    jnp.asarray(vp), mask, causal=causal,
+                                    sm_scale=scale, interpret=True)
+    np.testing.assert_allclose(runs[1][0].numpy(), np.asarray(want), **TOL)
+
+
+def test_block_sparse_attention_keeps_bf16_and_tracks_f32():
+    q, k, v, _, mask, causal, scale = _attn_inputs("sliding_causal_block32")
+    t = [torch.from_numpy(a) for a in (q, k, v)]
+    o32 = P.block_sparse_attention(*t, _port(mask), causal=causal)
+    o16 = P.block_sparse_attention(*(a.bfloat16() for a in t), _port(mask),
+                                   causal=causal)
+    assert o16.dtype == torch.bfloat16
+    np.testing.assert_allclose(o16.float().numpy(), o32.numpy(), atol=2e-2)
+
+
+def test_block_sparse_attention_validates_like_jax():
+    q = torch.zeros(1, 2, 128, 32)
+    mask = P.sliding_window_mask(4, 4, 2, 1, True, 32, 32)
+    with pytest.raises(ValueError):   # 128 rows not divisible by 3 blocks
+        P.block_sparse_attention(q, q, q, np.ones((3, 4), bool))
+    with pytest.raises(ValueError):   # 4 x 16 does not tile 128
+        P.block_sparse_attention(q, q, q, P.BlockMask(mask.mask, 16, 16))
+    with pytest.raises(ValueError):   # k / v heads disagree
+        P.block_sparse_attention(q, torch.zeros(1, 1, 128, 32),
+                                 torch.zeros(1, 1, 128, 32), mask)
+    with pytest.raises(ValueError):   # not (B, H, T, D)
+        P.block_sparse_attention(q[0], q[0], q[0], mask)
+    with pytest.raises(ValueError):   # a tensor off the CPU and the card
+        m = torch.empty(1, 2, 128, 32, device="meta")
+        P.block_sparse_attention(m, m, m, mask)
+    for mod, x in ((J, jnp.zeros((1, 2, 128, 32))), (P, q)):
+        with pytest.raises(ValueError):
+            mod.block_sparse_attention(x, x, x, np.ones((3, 4), bool))
+
+
+# --------------------------------------------------------------------------
+# the block-sparse matmul
+# --------------------------------------------------------------------------
+
+def _mm_case(seed, M=16, K=128, N=64, block=32, density=0.5):
+    rng = np.random.RandomState(seed)
+    x = rng.randn(M, K).astype(np.float32)
+    w = (rng.randn(K, N) * 0.3).astype(np.float32)
+    g = rng.randn(M, N).astype(np.float32)
+    return x, w, g, J.magnitude_block_mask(w, block, block, density)
+
+
+@pytest.mark.parametrize("shape", [(16, 128, 64, 32), (24, 64, 96, 16),
+                                   (8, 256, 128, 64)])
+def test_block_sparse_matmul_matches_pallas_interpret(shape):
+    M, K, N, block = shape
+    x, w, g, mask = _mm_case(sum(shape), M, K, N, block)
+    want = J.block_sparse_matmul(jnp.asarray(x), jnp.asarray(w), mask,
+                                 interpret=True)
+    jgx, jgw = jax.grad(lambda a, b: jnp.sum(J.block_sparse_matmul(
+        a, b, mask, interpret=True) * jnp.asarray(g)), argnums=(0, 1))(
+        jnp.asarray(x), jnp.asarray(w))
+    xt, wt = (torch.from_numpy(a).requires_grad_() for a in (x, w))
+    before = P.LAUNCHES_MM.count
+    y = P.block_sparse_matmul(xt, wt, _port(mask))
+    gx, gw = torch.autograd.grad(y, (xt, wt), torch.from_numpy(g))
+    assert P.LAUNCHES_MM.count == before
+    np.testing.assert_allclose(y.detach().numpy(), np.asarray(want), **TOL)
+    np.testing.assert_allclose(gx.numpy(), np.asarray(jgx), **GRAD_TOL)
+    np.testing.assert_allclose(gw.numpy(), np.asarray(jgw), **GRAD_TOL)
+    # structural zeros get no gradient
+    assert not gw.numpy()[~mask.elementwise()].any()
+
+
+def test_block_sparse_matmul_ignores_nan_in_dead_tiles():
+    x, w, _, mask = _mm_case(9, 8, 64, 64, 32)
+    clean = P.block_sparse_matmul(torch.from_numpy(x), torch.from_numpy(w),
+                                  _port(mask))
+    wp = w.copy()
+    wp[~mask.elementwise()] = np.nan
+    poisoned = P.block_sparse_matmul(torch.from_numpy(x),
+                                     torch.from_numpy(wp), _port(mask))
+    assert torch.isfinite(poisoned).all() and torch.equal(poisoned, clean)
+
+
+def test_block_sparse_matmul_leading_dims_and_raw_mask():
+    rng = np.random.RandomState(10)
+    x = rng.randn(2, 8, 64).astype(np.float32)
+    w = rng.randn(64, 64).astype(np.float32)
+    mask = J.magnitude_block_mask(w, 32, 32, 0.25)
+    want = J.block_sparse_matmul(jnp.asarray(x), jnp.asarray(w), mask,
+                                 interpret=True)
+    y = P.block_sparse_matmul(torch.from_numpy(x), torch.from_numpy(w),
+                              mask.mask)
+    assert y.shape == (2, 8, 64)
+    np.testing.assert_allclose(y.numpy(), np.asarray(want), **TOL)
+
+
+def test_block_sparse_matmul_bf16_keeps_dtypes():
+    x, w, g, mask = _mm_case(11)
+    xt = torch.from_numpy(x).bfloat16().requires_grad_()
+    wt = torch.from_numpy(w).requires_grad_()
+    y = P.block_sparse_matmul(xt, wt, _port(mask))
+    assert y.dtype == torch.bfloat16
+    gx, gw = torch.autograd.grad(y, (xt, wt), torch.from_numpy(g).bfloat16())
+    assert gx.dtype == torch.bfloat16 and gw.dtype == torch.float32
+    ref = torch.from_numpy(x) @ (torch.from_numpy(w)
+                                 * torch.from_numpy(mask.elementwise()))
+    np.testing.assert_allclose(y.detach().float().numpy(), ref.numpy(), rtol=2e-2,
+                               atol=5e-2)
+
+
+def test_block_sparse_matmul_shape_errors_match_jax():
+    w = np.zeros((64, 96), np.float32)
+    x = np.zeros((4, 64), np.float32)
+    for mod, conv in ((J, jnp.asarray), (P, torch.from_numpy)):
+        with pytest.raises(ValueError):   # 96 columns not divisible by 5
+            mod.block_sparse_matmul(conv(x), conv(w), np.ones((2, 5), bool))
+        with pytest.raises(ValueError):   # 2 x 32 tiles 64 rows, 3 x 16 not 96
+            mod.block_sparse_matmul(conv(x), conv(w),
+                                    mod.BlockMask(np.ones((2, 3), bool),
+                                                  32, 16))
+    with pytest.raises(ValueError):       # x's last dim is not K
+        P.block_sparse_matmul(torch.zeros(4, 32), torch.from_numpy(w),
+                              np.ones((2, 3), bool))
+    with pytest.raises(ValueError):       # w is not 2-D
+        P.block_sparse_matmul(torch.zeros(4, 64), torch.zeros(2, 64, 96),
+                              np.ones((2, 3), bool))
+
+
+def test_ops_package_exports_the_block_sparse_names():
+    from bigdl_tpu import ops as jops
+    from bigdl_tpu_torch import ops as tops
+
+    for name in ("BlockMask", "block_sparse_attention", "block_sparse_matmul",
+                 "magnitude_block_mask", "sliding_window_mask",
+                 "strided_mask"):
+        assert hasattr(jops, name) and getattr(tops, name) is getattr(P, name)
+
+
+# --------------------------------------------------------------------------
+# the layer and the model
+# --------------------------------------------------------------------------
+
+def _numpy_tree(jax_module):
+    return jax.tree_util.tree_map(np.asarray, jax_module.param_tree())
+
+
+@pytest.mark.parametrize("kw", [
+    dict(sparse_window=2, sparse_globals=1, block_size=32),
+    dict(sparse_window=8, sparse_globals=0, block_size=32),
+    dict(sparse_pattern="strided", sparse_stride=2, sparse_block=16),
+])
+@pytest.mark.parametrize("kv_heads", [None, 2])
+def test_multi_head_attention_blocksparse_matches_jax(kw, kv_heads):
+    x = np.random.RandomState(6).randn(2, 128, 32).astype(np.float32)
+    args = dict(causal=True, seq_strategy="blocksparse",
+                num_kv_heads=kv_heads, **kw)
+    jm = jnn.MultiHeadAttention(32, 4, **args)
+    tm = tnn.MultiHeadAttention(32, 4, device="cpu", **args)
+    load_param_tree(tm, _numpy_tree(jm))
+    jm.evaluate()
+    want = np.asarray(jm.forward(jnp.asarray(x)))
+    with torch.no_grad():
+        got = tm.evaluate()(torch.as_tensor(x)).numpy()
+    np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-4)
+    _same_mask(tm.block_mask(128, 128), jm.block_mask(128, 128))
+    assert tm.block_mask(128, 128) is tm.block_mask(128, 128)
+
+
+def test_multi_head_attention_blocksparse_validation():
+    with pytest.raises(ValueError):
+        tnn.MultiHeadAttention(32, 4, seq_strategy="blocksparse",
+                               sparse_pattern="nope", device="cpu")
+    for strategy in ("ring", "ulysses", "block"):
+        with pytest.raises(NotImplementedError):
+            tnn.MultiHeadAttention(32, 4, seq_strategy=strategy,
+                                   device="cpu")
+
+
+# the trajectory: V 64, D 32, 2 heads, 2 layers, T 64, B 4, 16 samples,
+# 6 iterations (an epoch is 4: the run crosses a shuffle)
+V, D, HEADS, LAYERS, T_LEN, BATCH, N_SAMPLES, ITERS = 64, 32, 2, 2, 64, 4, 16, 6
+LM_KW = dict(embed_dim=D, num_heads=HEADS, num_layers=LAYERS, max_len=T_LEN,
+             seq_strategy="blocksparse", output="logits",
+             blocksparse={"window": 2, "globals": 1, "block": 16})
+TRAJ_RTOL = 2e-3   # as tests/test_torch_training.py
+
+
+def _run(opt, optim_pkg, rng):
+    losses = []
+
+    def check(state):
+        if "loss" in state:
+            losses.append(state["loss"])
+        return optim_pkg.max_iteration(ITERS)(state)
+
+    opt.set_optim_method(optim_pkg.SGD(0.05, momentum=0.9))
+    opt.set_end_when(optim_pkg.Trigger(check))
+    rng().set_seed(1)
+    opt.optimize()
+    return losses
+
+
+def test_blocksparse_lm_trajectory_matches_jax():
+    rng = np.random.RandomState(0)
+    x = rng.randint(1, V + 1, size=(N_SAMPLES, T_LEN)).astype(np.int32)
+    y = rng.randint(1, V + 1, size=(N_SAMPLES, T_LEN)).astype(np.int32)
+    jmodel = JTransformerLM(V, **LM_KW)
+    tmodel = TransformerLM(V, **LM_KW, device="cpu")
+    load_param_tree(tmodel, _numpy_tree(jmodel))
+    mha = tmodel.blocks[0][1]
+    assert mha.seq_strategy == "blocksparse"
+    _same_mask(mha.block_mask(T_LEN, T_LEN),
+               J.sliding_window_mask(4, 4, 2, 1, True, 16, 16))
+
+    jopt = JLocalOptimizer(
+        jmodel, jarray([JSample(a, b) for a, b in zip(x, y)]),
+        jnn.TimeDistributedCriterion(jnn.CrossEntropyCriterion(), True),
+        batch_size=BATCH)
+    topt = toptim.LocalOptimizer(
+        tmodel, array([Sample(a, b) for a, b in zip(x, y)]),
+        tnn.TimeDistributedCriterion(tnn.CrossEntropyCriterion(), True),
+        batch_size=BATCH)
+    jlosses = _run(jopt, joptim, JRNG)
+    tlosses = _run(topt, toptim, RNG)
+
+    assert len(tlosses) == len(jlosses) == ITERS
+    assert topt.skipped_steps == jopt.skipped_steps == 0
+    np.testing.assert_allclose(tlosses, jlosses, rtol=TRAJ_RTOL)
+    want = jax.tree_util.tree_flatten_with_path(_numpy_tree(jmodel))[0]
+    got = jax.tree_util.tree_leaves(param_tree_numpy(tmodel))
+    assert len(want) == len(got)
+    for (path, w), g in zip(want, got):
+        # atol 1e-6: bk's gradient is zero in exact arithmetic (a shift
+        # of each score row, which the softmax cancels); both sides hold
+        # only rounding noise there
+        np.testing.assert_allclose(g, w, rtol=TRAJ_RTOL, atol=1e-6,
+                                   err_msg=jax.tree_util.keystr(path))

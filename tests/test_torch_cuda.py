@@ -9,8 +9,8 @@ conftest (which configures jax):
 
 Each kernel is held against its plain PyTorch version on the same
 inputs, forward and backward; a small TransformerLM served on the card
-in f32, and one trained three steps on the card in f32, are held
-against the same model on the CPU.
+in f32, and small flash and block-sparse ones trained three steps on the
+card in f32, are held against the same model on the CPU.
 """
 import math
 
@@ -22,6 +22,7 @@ from bigdl_tpu_torch import nn
 from bigdl_tpu_torch.dataset import Sample, array
 from bigdl_tpu_torch.models.generate import make_generate
 from bigdl_tpu_torch.models.transformer import TransformerLM
+from bigdl_tpu_torch.ops import block_sparse as bs
 from bigdl_tpu_torch.ops import flash_attention as fa
 from bigdl_tpu_torch.ops import layer_norm as ln
 from bigdl_tpu_torch.optim import SGD, LocalOptimizer, Trigger, max_iteration
@@ -171,10 +172,10 @@ def test_cuda_gradients_match_the_plain_backward(cuda_device):
         torch.testing.assert_close(a.cpu(), b, rtol=1e-4, atol=1e-5)
 
 
-def _train_small(device, steps=3):
-    cfg = dict(embed_dim=64, num_heads=4, num_layers=2, max_len=32,
-               seq_strategy="flash", output="logits")
-    V, T, B = 64, 20, 3
+def _train_small(device, steps=3, seq_strategy="flash", T=20, **extra):
+    cfg = dict(embed_dim=64, num_heads=4, num_layers=2, max_len=max(32, T),
+               seq_strategy=seq_strategy, output="logits", **extra)
+    V, B = 64, 3
     model = TransformerLM(V, **cfg, device=device,
                           generator=torch.Generator().manual_seed(3))
     rng = np.random.RandomState(0)
@@ -249,3 +250,212 @@ def test_small_lm_on_card_matches_cpu(cuda_device):
     top2 = np.sort(lp[:, T0 - 1:], axis=-1)[..., -2:]
     assert (top2[..., 1] - top2[..., 0]).min() > 1e-3
     np.testing.assert_array_equal(got, want)
+
+
+# ----------------------------------------------------------------------
+# block-sparse attention (K6-K8) and the block-sparse matmul (K9)
+# ----------------------------------------------------------------------
+
+def _rect_mask():
+    m = np.random.RandomState(4).rand(3, 5) < 0.6
+    m[:, 0] = True
+    return bs.BlockMask(m, 100, 40)
+
+
+def _dead_blocks_mask():
+    m = np.ones((4, 4), bool)
+    m[2, :] = False   # q block 2 attends nothing
+    m[:, 3] = False   # k block 3 is read by no query
+    return bs.BlockMask(m, 64, 64)
+
+
+# (T, S, D, dtype, causal, mask): aligned blocks, partly live 64-row
+# tiles (block 32, 8, 96, 100 x 40), f32, a dead q block and k block,
+# strided, T != S
+BS_CASES = {
+    "aligned_block256": (1024, 1024, 128, torch.bfloat16, True,
+                         lambda: bs.sliding_window_mask(4, 4, 2, 1, True,
+                                                        256, 256)),
+    "block32": (256, 256, 64, torch.bfloat16, True,
+                lambda: bs.sliding_window_mask(8, 8, 2, 1, True, 32, 32)),
+    "ragged_T200_block8": (200, 200, 128, torch.bfloat16, True,
+                           lambda: bs.sliding_window_mask(25, 25, 3, 1, True,
+                                                          8, 8)),
+    "block96_strided": (384, 384, 64, torch.bfloat16, True,
+                        lambda: bs.strided_mask(4, 4, 2, True, 96, 96)),
+    "f32_block32": (256, 256, 32, torch.float32, True,
+                    lambda: bs.sliding_window_mask(8, 8, 2, 1, True, 32, 32)),
+    "noncausal_dead_blocks": (256, 256, 16, torch.float32, False,
+                              _dead_blocks_mask),
+    "strided_block64": (512, 512, 128, torch.bfloat16, True,
+                        lambda: bs.strided_mask(8, 8, 3, True, 64, 64)),
+    "rect_T300_S200": (300, 200, 64, torch.bfloat16, True, _rect_mask),
+}
+
+
+def _bs_inputs(T, S, D, dtype, device, seed):
+    g = torch.Generator(device=device).manual_seed(seed)
+    q, k, v = (torch.randn(2, 4, n, D, device=device, generator=g).to(dtype)
+               for n in (T, S, S))
+    d_o = torch.randn(2, 4, T, D, device=device, generator=g).to(dtype)
+    return q, k, v, d_o
+
+
+@pytest.mark.parametrize("case", sorted(BS_CASES))
+def test_block_sparse_kernels_match_plain_on_card(cuda_device, case):
+    T, S, D, dtype, causal, make_mask = BS_CASES[case]
+    mask = make_mask()
+    q, k, v, d_o = _bs_inputs(T, S, D, dtype, cuda_device, 5)
+    scale = 1 / math.sqrt(D)
+    before = (bs.LAUNCHES.count, bs.LAUNCHES_DKV.count, bs.LAUNCHES_DQ.count)
+    o, lse = bs._bs_fwd_cuda(q, k, v, mask, causal, scale)
+    got = bs._bs_bwd_cuda(q, k, v, o, lse, d_o, mask, causal, scale)
+    torch.cuda.synchronize()
+    assert (bs.LAUNCHES.count, bs.LAUNCHES_DKV.count, bs.LAUNCHES_DQ.count) \
+        == tuple(n + 1 for n in before)
+    o_ref, lse_ref = bs._bs_attention_plain(q, k, v, mask, causal, scale)
+    assert torch.isfinite(o.float()).all()
+    assert _row_rel_err(o, o_ref) <= ROW_TOL[dtype]
+    assert (lse - lse_ref).abs().max().item() <= 1e-3
+    want = bs._bs_bwd_plain(q, k, v, o, lse, d_o, mask, causal, scale)
+    largest = max(torch.linalg.vector_norm(b.float(), dim=-1).max().item()
+                  for b in want)
+    for a, b in zip(got, want):
+        assert a.dtype == dtype and torch.isfinite(a.float()).all()
+        assert _row_rel_err(a, b, largest) <= ROW_TOL[dtype]
+
+
+def test_block_sparse_empty_rows_are_exactly_zero_on_card(cuda_device):
+    mask = _dead_blocks_mask()
+    q, k, v, d_o = _bs_inputs(256, 256, 32, torch.bfloat16, cuda_device, 6)
+    o, lse = bs._bs_fwd_cuda(q, k, v, mask, False, 0.2)
+    dq, dk, dv = bs._bs_bwd_cuda(q, k, v, o, lse, d_o, mask, False, 0.2)
+    torch.cuda.synchronize()
+    assert not o[:, :, 128:192].any() and not dq[:, :, 128:192].any()
+    assert (lse.reshape(2, 4, 256)[:, :, 128:192] == 1e30).all()
+    assert not dk[:, :, 192:].any() and not dv[:, :, 192:].any()
+    assert o[:, :, :128].abs().max() > 0 and dk[:, :, :192].abs().max() > 0
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_block_sparse_all_ones_mask_is_the_flash_kernels(cuda_device, dtype):
+    """An all-ones causal mask at a 64-multiple block visits K1's tiles in
+    K1's order with no partial tile: the same arithmetic, bit for bit."""
+    T, D = 512, 128 if dtype == torch.bfloat16 else 64
+    mask = bs.BlockMask(np.ones((4, 4), bool), 128, 128)
+    q, k, v, d_o = _bs_inputs(T, T, D, dtype, cuda_device, 7)
+    scale = 1 / math.sqrt(D)
+    o, lse = bs._bs_fwd_cuda(q, k, v, mask, True, scale)
+    o1, lse1 = fa._flash_cuda(q, k, v, True, scale)
+    assert torch.equal(o, o1) and torch.equal(lse, lse1)
+    got = bs._bs_bwd_cuda(q, k, v, o, lse, d_o, mask, True, scale)
+    want = fa._flash_bwd_cuda(q, k, v, o1, lse1, d_o, True, scale)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_block_sparse_kernels_never_touch_dead_kv_on_card(cuda_device, dtype):
+    """The JAX skip proof on the card: K/V rows that no query may attend
+    hold NaN; the outputs and every gradient equal the clean run's bit
+    for bit (block 32: the dead rows sit in partly live 64-row tiles)."""
+    m = np.eye(4, dtype=bool)
+    m[:, 0] = True
+    m[2, 2] = False
+    mask = bs.BlockMask(m, 32, 32)
+    q, k, v, d_o = _bs_inputs(128, 128, 32, dtype, cuda_device, 8)
+    dead = ~bs._elementwise_keep(mask, True, cuda_device).any(dim=0)
+    assert dead.any()
+    kp, vp = k.clone(), v.clone()
+    kp[:, :, dead] = float("nan")
+    vp[:, :, dead] = float("nan")
+    clean = bs._bs_fwd_cuda(q, k, v, mask, True, 0.2)
+    poisoned = bs._bs_fwd_cuda(q, kp, vp, mask, True, 0.2)
+    assert torch.isfinite(poisoned[0].float()).all()
+    assert torch.equal(poisoned[0], clean[0])
+    assert torch.equal(poisoned[1], clean[1])
+    g_clean = bs._bs_bwd_cuda(q, k, v, *clean, d_o, mask, True, 0.2)
+    g_pois = bs._bs_bwd_cuda(q, kp, vp, *poisoned, d_o, mask, True, 0.2)
+    for a, b in zip(g_pois, g_clean):
+        assert torch.isfinite(a.float()).all() and torch.equal(a, b)
+
+
+def test_block_sparse_autograd_runs_k6_to_k8(cuda_device):
+    mask = bs.sliding_window_mask(4, 4, 2, 1, True, 32, 32)
+    q, k, v, d_o = _bs_inputs(128, 128, 16, torch.float32, cuda_device, 9)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    before = (bs.LAUNCHES.count, bs.LAUNCHES_DKV.count, bs.LAUNCHES_DQ.count)
+    o = bs.block_sparse_attention(*leaves, mask.mask, causal=True)
+    got = torch.autograd.grad(o, leaves, d_o)
+    assert (bs.LAUNCHES.count, bs.LAUNCHES_DKV.count, bs.LAUNCHES_DQ.count) \
+        == tuple(n + 1 for n in before)
+    o2, lse = bs._bs_attention_plain(q, k, v, mask, True, 0.25)
+    want = bs._bs_bwd_plain(q, k, v, o2, lse, d_o, mask, True, 0.25)
+    for a, b in zip(got, want):
+        assert (a - b).abs().max().item() <= 1e-4 * b.abs().max().item()
+
+
+# (M, K, N, bk, bn, dtype): 16-byte loads (the flagship MLP shape cut in
+# M, the lab shape, ragged M, block 32) and scalar loads (bn 100 in
+# bf16, bk 6 in f32)
+MM_CASES = {
+    "mlp_bf16": (512, 1024, 4096, 128, 128, torch.bfloat16),
+    "mlp_f32": (256, 1024, 4096, 128, 128, torch.float32),
+    "lab_f32": (64, 1024, 1024, 512, 512, torch.float32),
+    "ragged_M100": (100, 256, 192, 32, 32, torch.bfloat16),
+    "block32_f32": (96, 128, 64, 32, 32, torch.float32),
+    "bn100_bf16": (70, 96, 200, 24, 100, torch.bfloat16),
+    "bk6_f32": (33, 96, 60, 6, 20, torch.float32),
+}
+
+
+@pytest.mark.parametrize("case", sorted(MM_CASES))
+def test_block_sparse_matmul_kernel_matches_plain_on_card(cuda_device, case):
+    M, K, N, bk, bn, dtype = MM_CASES[case]
+    g = torch.Generator(device=cuda_device).manual_seed(10)
+    x = torch.randn(M, K, device=cuda_device, generator=g).to(dtype)
+    w = (0.05 * torch.randn(K, N, device=cuda_device, generator=g)).to(dtype)
+    gy = torch.randn(M, N, device=cuda_device, generator=g).to(dtype)
+    mask = bs.magnitude_block_mask(w, bk, bn, 0.5)
+    xl, wl = x.clone().requires_grad_(), w.clone().requires_grad_()
+    before = bs.LAUNCHES_MM.count
+    y = bs.block_sparse_matmul(xl, wl, mask)
+    dx, dw = torch.autograd.grad(y, (xl, wl), gy)
+    torch.cuda.synchronize()
+    assert bs.LAUNCHES_MM.count == before + 2   # forward, then dX
+    assert y.dtype == dtype and dx.dtype == dtype and dw.dtype == dtype
+    tol = ROW_TOL[dtype]
+    assert _row_rel_err(y, bs._bs_mm_plain(x, w, mask)) <= tol
+    want_dx = bs._bs_mm_plain(gy, w.t().contiguous(), mask.transposed())
+    assert _row_rel_err(dx, want_dx) <= tol
+    live = torch.from_numpy(mask.elementwise()).to(cuda_device)
+    assert not dw[~live].any()
+
+
+def test_block_sparse_matmul_never_reads_dead_tiles_on_card(cuda_device):
+    g = torch.Generator(device=cuda_device).manual_seed(11)
+    x = torch.randn(100, 256, device=cuda_device, generator=g)
+    w = torch.randn(256, 192, device=cuda_device, generator=g)
+    mask = bs.magnitude_block_mask(w, 32, 64, 0.5)
+    live = torch.from_numpy(mask.elementwise()).to(cuda_device)
+    clean = bs._bs_mm_cuda(x, w, mask)
+    poisoned = bs._bs_mm_cuda(x, w.masked_fill(~live, float("nan")), mask)
+    assert torch.isfinite(poisoned).all() and torch.equal(poisoned, clean)
+
+
+def test_small_blocksparse_lm_trains_on_card_like_cpu(cuda_device):
+    # block 16 < 64: every visited tile pair is partly live
+    extra = dict(seq_strategy="blocksparse", T=64,
+                 blocksparse={"window": 2, "globals": 1, "block": 16})
+    counters = (bs.LAUNCHES, bs.LAUNCHES_DKV, bs.LAUNCHES_DQ, fa.LAUNCHES)
+    counts = [c.count for c in counters]
+    card, card_model, card_upd = _train_small(cuda_device, **extra)
+    assert [c.count - n for c, n in zip(counters, counts)] == [6, 6, 6, 0]
+    cpu, cpu_model, cpu_upd = _train_small("cpu", **extra)
+    np.testing.assert_allclose(card, cpu, rtol=2e-3)
+    np.testing.assert_allclose(np.subtract(card[1:], card[0]),
+                               np.subtract(cpu[1:], cpu[0]), rtol=1e-4)
+    scale = max(torch.linalg.vector_norm(u, dim=-1).max().item()
+                for u in cpu_upd.values())
+    for name, u in cpu_upd.items():
+        assert _row_rel_err(card_upd[name], u, scale) <= 1e-3, name

@@ -107,6 +107,10 @@ def test_entry_points_refuse_to_fall_back_to_the_cpu(no_cuda):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         TransformerLM(16, embed_dim=8, num_heads=2, num_layers=1, max_len=8)
     with pytest.raises(RuntimeError, match="no CUDA device"):
+        TransformerLM(16, embed_dim=8, num_heads=2, num_layers=1, max_len=8,
+                      seq_strategy="blocksparse",
+                      blocksparse={"window": 2, "globals": 1, "block": 4})
+    with pytest.raises(RuntimeError, match="no CUDA device"):
         LayerNorm(8, device="cuda")
 
 

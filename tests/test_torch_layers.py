@@ -78,7 +78,7 @@ def test_rms_norm():
     np.testing.assert_allclose(got, want, **TOL)
 
 
-@pytest.mark.parametrize("strategy", ["dense", "flash"])
+@pytest.mark.parametrize("strategy", ["dense", "flash", "blocksparse"])
 @pytest.mark.parametrize("rope", [False, True])
 @pytest.mark.parametrize("kv_heads", [None, 2])
 def test_multi_head_attention(strategy, rope, kv_heads):
