@@ -1,8 +1,9 @@
 """Carry weights from a ``bigdl_tpu`` model into its port.
 
-The JAX package's ``param_tree()`` is a nested dict whose leaves are
-arrays; its keys are the port module's child and parameter names, so a
-tree path joined with dots is a ``state_dict`` key.  This module takes
+The JAX package's ``param_tree()`` and ``buffer_tree()`` are nested
+dicts whose leaves are arrays; their keys are the port module's child,
+parameter and buffer names, so a tree path joined with dots is a
+``state_dict`` key.  This module takes
 the tree as nested dicts of numpy arrays (``np.asarray`` of each JAX
 leaf) and never imports jax.
 """
@@ -25,6 +26,13 @@ def load_param_tree(model, tree: Dict):
     to the port parameter's dtype and device).  Raises ``KeyError`` on a
     missing or extra key and ``ValueError`` on a shape mismatch."""
     return model.set_param_tree(_to_tensors(tree))
+
+
+def load_buffer_tree(model, tree: Dict):
+    """Copy each leaf of a JAX ``buffer_tree()`` (BatchNorm's running
+    statistics) into ``model``'s buffers at the same path, with the
+    checks of :func:`load_param_tree`."""
+    return model.set_buffer_tree(_to_tensors(tree))
 
 
 def param_tree_numpy(model) -> Dict:

@@ -28,6 +28,9 @@ class VariableFormat:
         if self.name == "IN_OUT":       # (out, in) linear weight
             fan_out, fan_in = shape[0], math.prod(shape[1:])
             return fan_in, fan_out
+        if self.name == "OUT_IN_KW_KH":  # conv weight (out, in, kh, kw)
+            receptive = math.prod(shape[2:])
+            return shape[1] * receptive, shape[0] * receptive
         n = math.prod(shape)
         d0 = shape[0] if shape else 1
         return n // d0 if d0 else 1, d0
@@ -35,6 +38,7 @@ class VariableFormat:
 
 ONE_D = VariableFormat("ONE_D")
 IN_OUT = VariableFormat("IN_OUT")
+OUT_IN_KW_KH = VariableFormat("OUT_IN_KW_KH")
 DEFAULT_FORMAT = VariableFormat("Default")
 
 

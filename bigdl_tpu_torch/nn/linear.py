@@ -1,5 +1,6 @@
-"""Linear and LookupTable (counterpart of ``bigdl_tpu/nn/linear.py``;
-the other layers of that module are not ported yet)."""
+"""Linear, LookupTable and MulConstant (counterpart of
+``bigdl_tpu/nn/linear.py``; the other layers of that module are not
+ported yet)."""
 from __future__ import annotations
 
 from typing import Optional
@@ -70,3 +71,16 @@ class LookupTable(TensorModule):
 
     def _compute(self, params, x):
         return lookup(x, params["weight"], self.padding_value)
+
+
+class MulConstant(TensorModule):
+    """x times a fixed scalar (reference nn/MulConstant.scala).
+    ``inplace`` is accepted for the reference's signature."""
+
+    def __init__(self, constant_scalar: float, inplace: bool = False,
+                 device: DeviceLike = None):
+        super().__init__(device)
+        self.constant_scalar = constant_scalar
+
+    def _compute(self, params, x):
+        return x * self.constant_scalar

@@ -19,7 +19,18 @@ of every ``torch.nn.Module``.
 Parameters and children are registered under the JAX package's keys
 (``"weight"``, ``"wq"``, ``"pos"``, children ``"0"``, ``"1"``, …), so a
 ``state_dict`` key is the JAX ``param_tree()`` path joined with dots.
-Save/load and the Caffe/TF verbs are not ported yet.
+
+State (the JAX package's buffer tree, BatchNorm's running statistics)
+lives in torch buffers under the JAX keys (``"running_mean"``,
+``"running_var"``), float32 whatever the compute dtype: the parameter
+tree that ``apply_fn`` takes never holds them, so the bf16 cast of the
+training step never reaches them.  A layer with state reads
+``self.training`` and, in training mode, updates its buffers in place
+under ``torch.no_grad()`` — the JAX ``apply_fn`` returns the new
+buffer tree instead.  ``buffer_tree``/``set_buffer_tree`` carry that
+state in and out (the training loop's guard snapshots it and restores
+it on a skipped step).  Save/load and the Caffe/TF verbs are not ported
+yet.
 """
 from __future__ import annotations
 
@@ -45,6 +56,16 @@ class AbstractModule(torch.nn.Module):
     def _register_param(self, name: str, value: torch.Tensor):
         self.register_parameter(
             name, torch.nn.Parameter(value.to(self._device)))
+
+    def _register_buffer(self, name: str, value: torch.Tensor):
+        self.register_buffer(name, value.to(self._device))
+
+    def set_name(self, name: str):
+        self.name = name
+        return self
+
+    def get_name(self) -> str:
+        return getattr(self, "name", None) or type(self).__name__
 
     # ------------------------------------------------------------------
     # functional core
@@ -78,33 +99,45 @@ class AbstractModule(torch.nn.Module):
         in place, each cast to the parameter's dtype and device.  Raises
         ``KeyError`` on a missing or extra key and ``ValueError`` on a
         shape mismatch, naming the dotted path."""
-        own = dict(self.named_parameters(recurse=False))
+        return self._copy_tree(tree, "param", _path)
+
+    def _copy_tree(self, tree: Dict, kind: str, _path: str):
+        own = dict(self.named_parameters(recurse=False) if kind == "param"
+                   else self.named_buffers(recurse=False))
         children = dict(self.named_children())
         expected = set(own) | set(children)
         missing = sorted(expected - set(tree))
         extra = sorted(set(tree) - expected)
         if missing or extra:
             raise KeyError(
-                f"param tree at {_path or '<root>'}: missing "
+                f"{kind} tree at {_path or '<root>'}: missing "
                 f"{[_path + k for k in missing]}, extra "
                 f"{[_path + k for k in extra]}")
         for key, p in own.items():
             value = torch.as_tensor(tree[key])
             if tuple(value.shape) != tuple(p.shape):
                 raise ValueError(
-                    f"param {_path + key}: shape {tuple(value.shape)} != "
+                    f"{kind} {_path + key}: shape {tuple(value.shape)} != "
                     f"expected {tuple(p.shape)}")
             with torch.no_grad():
                 p.copy_(value.to(device=p.device, dtype=p.dtype))
         for key, child in children.items():
-            child.set_param_tree(tree[key], f"{_path}{key}.")
+            child._copy_tree(tree[key], kind, f"{_path}{key}.")
         return self
 
     def buffer_tree(self) -> Dict:
+        """Own buffers plus each child's tree under its key — the JAX
+        package's ``buffer_tree()`` layout, holding the live buffers."""
         tree = dict(self.named_buffers(recurse=False))
         for key, child in self.named_children():
             tree[key] = child.buffer_tree()
         return tree
+
+    def set_buffer_tree(self, tree: Dict, _path: str = ""):
+        """Copy ``tree`` into the buffers in place, each cast to the
+        buffer's dtype and device; the key and shape checks of
+        ``set_param_tree``."""
+        return self._copy_tree(tree, "buffer", _path)
 
     def evaluate(self):
         """Switch to eval mode (the JAX package's no-arg ``evaluate``)."""

@@ -5,7 +5,9 @@ backward K2 dK/dV and K3 dQ (``csrc/flash_bwd.cu``) in
 ``ops.flash_attention``, and K4 LayerNorm forward (Triton) in
 ``ops.layer_norm``; block-sparse attention K6 forward with K7 dK/dV and
 K8 dQ, and the block-sparse matmul K9 (CUDA C++, ``csrc/block_sparse.cu``)
-in ``ops.block_sparse``; the fused softmax cross entropy
+in ``ops.block_sparse``; the 3×3 stride-1 conv K5 (CUDA C++,
+``csrc/conv3x3.cu``, forward and dX) in ``ops.conv3x3``, beside the k²
+GEMM conv of ``ops.conv_gemm``; the fused softmax cross entropy
 (``ops.fused_xent``) is plain PyTorch, as its JAX counterpart is jnp.
 Each wrapper runs its plain PyTorch version for CPU tensors only; a
 CUDA tensor launches the kernel or raises, forward and backward.  The

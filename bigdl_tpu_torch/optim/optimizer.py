@@ -23,6 +23,13 @@ The single-GPU training loop.  The host loop is the JAX package's
    read back with the loss the loop fetches anyway;
 5. the result written into the model's parameters in place.
 
+Model state (BatchNorm's running statistics) lives in the model's f32
+buffers, outside the parameter tree, so the compute-dtype cast never
+reaches it; the forward updates it in place in training mode.  Under
+the guard the step snapshots the buffers before the forward and, on a
+skipped step, puts the snapshot back (``where_tree(ok, new, old)``, as
+the JAX step selects its buffer tree).
+
 Not ported yet, and refused if configured: checkpoints, validation,
 retry, telemetry and elastic training.  Pad-and-mask never arises here:
 one device takes every batch whole, as the JAX package's one-device
@@ -196,6 +203,9 @@ class LocalOptimizer(Optimizer):
         and ok still on the device."""
         model, crit, dtype = self.model, self.criterion, self.compute_dtype
         leaves = tree_leaves(params)
+        buffers = tree_leaves(model.buffer_tree())
+        if self.gradient_guard:
+            old_buffers = [b.clone() for b in buffers]
         with torch.enable_grad():
             p_c, x_c = params, x
             if dtype is not None:
@@ -217,6 +227,8 @@ class LocalOptimizer(Optimizer):
                 ok = tree_finite(grads) & torch.isfinite(loss)
                 new_params = where_tree(ok, new_params, old)
                 new_slots = where_tree(ok, new_slots, slots)
+                for b, b_old in zip(buffers, old_buffers):
+                    b.copy_(torch.where(ok, b, b_old))
             else:
                 ok = torch.ones((), dtype=torch.bool, device=loss.device)
             for p, n in zip(leaves, tree_leaves(new_params)):

@@ -7,18 +7,20 @@ Phases; any failure exits non-zero:
 
 1. probe — a CUDA device is required; print the card's
    ``nvidia-smi`` name and power limit; TF32 off for matmul and cuDNN.
-2. build — compile the kernels from this checkout's sources: the three
+2. build — compile the kernels from this checkout's sources: the four
    CUDA libraries (``flash_fwd.cu``: K1; ``flash_bwd.cu``: K2 and K3;
-   ``block_sparse.cu``: K6-K9) with one ``nvcc`` each, started
-   together, into ``.torch_kernels/``; Triton compiles K4 at first
-   launch.  Print the build seconds.
+   ``block_sparse.cu``: K6-K9; ``conv3x3.cu``: K5) with one ``nvcc``
+   each, started together, into ``.torch_kernels/``; Triton compiles K4
+   at first launch.  Print the build seconds.
 3. kernel parity — each kernel against its plain PyTorch version on the
    card at the shapes the served, the training, the block-sparse
-   training and the matmul paths give it, with the stated tolerance;
-   the block-sparse kernels also at block 32, 8 (ragged T 200), 96, in
-   f32, non-causal with a dead q block, strided, with NaN in the K/V
-   rows no query may attend, and on an all-ones mask against K1-K3
-   (bit for bit); kernel, plain and library times; the bound.
+   training, the matmul and the ResNet-50 paths give it, with the stated
+   tolerance; the block-sparse kernels also at block 32, 8 (ragged
+   T 200), 96, in f32, non-causal with a dead q block, strided, with NaN
+   in the K/V rows no query may attend, and on an all-ones mask against
+   K1-K3 (bit for bit); K5 forward and dX at ResNet-50's four stage
+   shapes (B 64, bf16), one in f32 and ragged C 3, O 10, H 7, W 5;
+   kernel, plain and library times; the bound.
 4. serving path — the flagship TransformerLM (V 32000, D 1024, 8 heads,
    8 layers, max_len 1024; random weights from a seeded generator)
    served in bf16 by the port's ``InferenceServer``: a batch of four
@@ -49,7 +51,21 @@ Phases; any failure exits non-zero:
    the flagship MLP shape in bf16 under autograd, 3 forward+backward
    passes: 2 launches of K9 per pass, dW zero on every dead tile, the
    forward and dX as phase 3 holds them.
-8. a ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and as the
+8. ResNet-50 training path — ``bench.py``'s ``conv_impl="pallas"`` leg on
+   the port: ``ResNet50(1000)`` with the conv7 stem (random weights from
+   a seeded generator), every ``SpatialConvolution`` on ``"pallas"`` (the
+   13 3x3 stride-1 convs run K5), ``ClassNLLCriterion``, SGD at lr 0.01,
+   bf16 compute over f32 masters, 8 iterations of ``LocalOptimizer`` over
+   one batch of 64 random 224x224 images.  Every loss finite, no step
+   skipped, the last loss below the first, launches per step exactly K5
+   26 (13 forward, 13 dX) and no other kernel; the same 8 steps in f32 on
+   the card give the same first loss and decreases; ``"pallas"`` against
+   ``"xla"`` (cuDNN) in f32 at B 8, 3 steps: losses, decreases and every
+   parameter update; the card against the CPU in f32 at B 2, 3 steps:
+   the same plus BatchNorm's running statistics, then one eval-mode
+   forward.  Step ms, images/s, MFU, peak memory, and the ``"xla"``
+   impl's bf16 images/s beside them.
+9. a ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and as the
    last line ``{"ok": true, "device": {...}}``.
 
 The full record goes to ``chiprun_out/chip_smoke.json``.
@@ -57,8 +73,11 @@ The full record goes to ``chiprun_out/chip_smoke.json``.
     python3 chip_smoke.py --profile
 
 runs phases 1-2, then profiles the served generator of phase 4, one
-training step of phase 5, one block-sparse training step of phase 6 and
-one flash training step at the same T 4096, B 4 with ``torch.profiler`` (device time by kernel, launches, the device's
+training step of phase 5, one block-sparse training step of phase 6,
+one flash training step at the same T 4096, B 4, and one bf16 ResNet-50
+step of phase 8 with ``torch.profiler`` (device time by kernel, and for
+ResNet-50 by the op that launched it: K5 forward, K5 dX, the dW
+matmuls, cuDNN, the NCHW/NHWC layout copies; launches, the device's
 busy share) into ``chiprun_out/chip_profile.json``.
 """
 import json
@@ -139,6 +158,38 @@ BS_FIRST_REL_TOL = 4e-5
 ALL_ONES_REL_TOL = 1e-6
 # phase 7: the flagship MLP's first weight, a magnitude mask
 MM_SHAPE, MM_BLOCK, MM_DENSITY = (16384, 1024, 4096), 128, 0.5
+# phase 8: bench.py's ResNet-50 leg (bench.py:231-250), B 64 from its sweep
+RESNET_CLASSES, RESNET_BATCH, RESNET_HW, RESNET_LR = 1000, 64, 224, 0.01
+# a training step's FLOP per image: 3 x the 8.18 GFLOP forward
+# (bench.py:63-65)
+RESNET_STEP_FLOP_PER_IMAGE = 3 * 8.18e9
+RESNET_K5_PER_STEP = 26          # 13 3x3 stride-1 convs, forward and dX
+RESNET_CMP_BATCH, RESNET_CPU_BATCH, RESNET_CMP_ITERS = 8, 2, 3
+# ResNet-50 tolerances.  bf16 vs f32 on the card, 8 steps at B 64: the
+# first loss and each decrease L_k - L_1 relative to f32's.  "pallas" vs
+# "xla" (f32, B 8) and card vs CPU (f32, B 2): the losses and decreases
+# of 3 steps, every BatchNorm statistic after one step, and every
+# parameter update p_3 - p_0 row by row with BatchNorm frozen.  f32
+# differs in summation order only, but ResNet-50's backward at random
+# init is ill conditioned in training mode: the global average pool and
+# the identity shortcuts hand every BatchNorm an output gradient with a
+# large component constant over the positions it normalizes, which its
+# backward subtracts, so an input perturbed by 1e-7 moves the first
+# step's conv-weight gradients by 2 % (median) and the updates of three
+# steps by 100 % (CPU, B 8; PERF.md).  With BatchNorm frozen (running
+# statistics, an affine map) the same perturbation moves no update by
+# more than 3e-3, so the updates are held there.  Each limit sits a few
+# times above its reading on the H100 (PERF.md): first loss bf16 vs f32
+# 8.5e-4, decreases 7.5e-2; f32 first losses equal or 4.7e-7 apart,
+# decreases 1.4e-2 in training mode, rows 2.9e-3 frozen (pallas vs xla)
+# and 1.6e-3 (card vs CPU), BatchNorm statistics 1.3e-5; eval forward
+# 1.2e-6.
+RESNET_FIRST_REL_TOL = 4e-3
+RESNET_DECREASE_REL_TOL = 0.25
+RESNET_CMP_RTOL = 1e-5
+RESNET_CMP_DECREASE_REL_TOL = 5e-2
+RESNET_CMP_ROW_TOL = 1e-2
+RESNET_EVAL_REL_TOL = 1e-5
 
 
 def fail(msg: str) -> int:
@@ -304,13 +355,14 @@ def check_layer_norm(torch, F):
 def launch_counters():
     """Every kernel's launch counter, by the kernel's name."""
     from bigdl_tpu_torch.ops import block_sparse as bs
+    from bigdl_tpu_torch.ops import conv3x3
     from bigdl_tpu_torch.ops import flash_attention as fa
     from bigdl_tpu_torch.ops import layer_norm as ln
 
     return {c.name: c for c in (fa.LAUNCHES, fa.LAUNCHES_DKV,
                                 fa.LAUNCHES_DQ, ln.LAUNCHES, bs.LAUNCHES,
                                 bs.LAUNCHES_DKV, bs.LAUNCHES_DQ,
-                                bs.LAUNCHES_MM)}
+                                bs.LAUNCHES_MM, conv3x3.LAUNCHES)}
 
 
 def want_launches(**counts):
@@ -672,6 +724,81 @@ def check_block_sparse_mm(torch):
     return rows
 
 
+def conv_cases(torch):
+    """(label, B, H, W, C, O, dtype) for K5: ResNet-50's four stage shapes
+    at B 64 (the 13 3x3 stride-1 convs of a step), stage 3 in f32, and a
+    ragged case (C 3, O 10, H 7, W 5) in both types."""
+    bf16, f32 = torch.bfloat16, torch.float32
+    return [("stage1", 64, 56, 56, 64, 64, bf16),
+            ("stage2", 64, 28, 28, 128, 128, bf16),
+            ("stage3", 64, 14, 14, 256, 256, bf16),
+            ("stage4", 64, 7, 7, 512, 512, bf16),
+            ("stage3_f32", 64, 14, 14, 256, 256, f32),
+            ("ragged", 2, 7, 5, 3, 10, bf16),
+            ("ragged_f32", 2, 7, 5, 3, 10, f32)]
+
+
+def check_conv3x3(torch, F):
+    """K5 against ``_conv3x3_plain``, forward and dX (K5 on the flipped,
+    in/out-transposed weights), row by row over output pixels.  Times:
+    each launch alone (graph replay), the plain forward, and the library
+    yardsticks: ``F.conv2d`` on channels-last tensors for the forward,
+    ``torch.nn.grad.conv2d_input`` for dX."""
+    from bigdl_tpu_torch.ops import conv3x3
+
+    rows = []
+    for label, B, H, W, C, O, dt in conv_cases(torch):
+        g = torch.Generator(device="cuda").manual_seed(29)
+        x = torch.randn(B, H, W, C, device="cuda", generator=g).to(dt)
+        w = (torch.randn(3, 3, C, O, device="cuda", generator=g)
+             / (3 * math.sqrt(C))).to(dt)
+        gy = torch.randn(B, H, W, O, device="cuda", generator=g).to(dt)
+        wk = w.permute(0, 1, 3, 2).contiguous()       # (tap, out, in)
+        wk_dx = w.flip(0, 1).contiguous()             # the dX conv's
+        y = conv3x3._conv3x3_cuda(x, wk)
+        dx = conv3x3._conv3x3_cuda(gy, wk_dx)
+        torch.cuda.synchronize()
+        y_ref = conv3x3._conv3x3_plain(x, w)
+        dx_ref = conv3x3._conv3x3_plain(gy, w.flip(0, 1).transpose(2, 3))
+        dname = str(dt).split(".")[-1]
+        tol = ROW_TOL[dname]
+        rel = {"y": row_rel_err(torch, y, y_ref),
+               "dx": row_rel_err(torch, dx, dx_ref)}
+        err = max((y.float() - y_ref.float()).abs().max().item(),
+                  (dx.float() - dx_ref.float()).abs().max().item())
+        finite = bool(torch.isfinite(y.float()).all()) and bool(
+            torch.isfinite(dx.float()).all())
+        ok = finite and max(rel.values()) <= tol
+        del y_ref, dx_ref
+        ms = cuda_ms(lambda: conv3x3._conv3x3_cuda(x, wk))
+        dx_ms = cuda_ms(lambda: conv3x3._conv3x3_cuda(gy, wk_dx))
+        plain_ms = cuda_ms(lambda: conv3x3._conv3x3_plain(x, w),
+                           iters=5, reps=3)
+        # the library on the same NHWC memory: NCHW-shaped channels-last
+        x_cl, gy_cl = x.permute(0, 3, 1, 2), gy.permute(0, 3, 1, 2)
+        w_cl = w.permute(3, 2, 0, 1).contiguous(
+            memory_format=torch.channels_last)
+        lib_ms = cuda_ms(lambda: F.conv2d(x_cl, w_cl, padding=1))
+        lib_dx_ms = cuda_ms(lambda: torch.nn.grad.conv2d_input(
+            x_cl.shape, w_cl, gy_cl, padding=1))
+        item = x.element_size()
+        b_ms, b_by = bound(item * (B * H * W * (C + O) + 9 * C * O),
+                           2.0 * 9 * B * H * W * C * O, dname)
+        rows.append(dict(case=label, shape=[B, H, W, C, O], dtype=dname,
+                         row_rel_err=rel, max_abs_err=err, tol=tol, ok=ok,
+                         ms=ms, dx_ms=dx_ms, plain_ms=plain_ms,
+                         library_ms=lib_ms, library_dx_ms=lib_dx_ms,
+                         bound_ms=b_ms, bound_by=b_by))
+        print(f"K5 conv3x3 {label:>10} {dname:>8} {B}x{H}x{W}x{C}->{O} row "
+              f"err y {rel['y']:.3e} dx {rel['dx']:.3e} (tol {tol:g}) | "
+              f"kernel {ms:.4f} ms (dX {dx_ms:.4f}) plain {plain_ms:.4f} ms "
+              f"F.conv2d {lib_ms:.4f} ms conv2d_input {lib_dx_ms:.4f} ms "
+              f"bound {b_ms:.4f} ms ({b_by}) {'OK' if ok else 'FAIL'}")
+        del x, w, gy, wk, wk_dx, y, dx, x_cl, gy_cl, w_cl
+        torch.cuda.empty_cache()
+    return rows
+
+
 def serve_flagship(torch):
     """Phase 4: the port's InferenceServer at full flagship width."""
     import numpy as np
@@ -806,11 +933,14 @@ def _lm_data(B: int, T: int):
     return array([Sample(a, b) for a, b in zip(x, y)])
 
 
-def make_trainer(torch, model, B, T, iters, compute_dtype, on_check=None):
-    """The port's LocalOptimizer over one batch of B sequences, SGD at
+def make_trainer(torch, model, B, T, iters, compute_dtype, on_check=None,
+                 data=None, crit=None):
+    """The port's LocalOptimizer over one batch of B samples, SGD at
     ``TRAIN_LR``, stopping after ``iters`` iterations; ``on_check(state)``
     runs each time the loop evaluates its end trigger (before the first
-    iteration and after each)."""
+    iteration and after each).  The samples and the criterion are the
+    flagship's (B sequences of T ids) unless ``data`` and ``crit`` are
+    given."""
     from bigdl_tpu_torch import nn
     from bigdl_tpu_torch.optim import SGD, LocalOptimizer, Trigger
 
@@ -819,20 +949,25 @@ def make_trainer(torch, model, B, T, iters, compute_dtype, on_check=None):
             on_check(state)
         return state["neval"] > iters
 
-    crit = nn.TimeDistributedCriterion(nn.CrossEntropyCriterion(), True)
-    opt = LocalOptimizer(model, _lm_data(B, T), crit, batch_size=B)
+    if crit is None:
+        crit = nn.TimeDistributedCriterion(nn.CrossEntropyCriterion(), True)
+    if data is None:
+        data = _lm_data(B, T)
+    opt = LocalOptimizer(model, data, crit, batch_size=B)
     opt.set_optim_method(SGD(TRAIN_LR)).set_end_when(Trigger(check))
     if compute_dtype is not None:
         opt.set_compute_dtype(compute_dtype)
     return opt
 
 
-def run_training(torch, model, B, T, iters, compute_dtype, updates=False):
+def run_training(torch, model, B, T, iters, compute_dtype, updates=False,
+                 data=None, crit=None):
     """Train and record, at each end-trigger check: the host clock, the
     state's loss and every launch count.  Each iteration ends in the
     loss read-back, a device sync, so consecutive clocks bound one
     whole step.  With ``updates``, also each parameter's whole update
-    (final minus initial value, on the CPU)."""
+    (final minus initial value) and every buffer's final value, on the
+    CPU."""
     from bigdl_tpu_torch.utils.rng import RNG
 
     counters = launch_counters()
@@ -842,7 +977,8 @@ def run_training(torch, model, B, T, iters, compute_dtype, updates=False):
         marks.append((time.perf_counter(), state.get("loss"),
                       {n: c.count for n, c in counters.items()}))
 
-    opt = make_trainer(torch, model, B, T, iters, compute_dtype, mark)
+    opt = make_trainer(torch, model, B, T, iters, compute_dtype, mark, data,
+                       crit)
     start = ({n: p.detach().clone() for n, p in model.named_parameters()}
              if updates else {})
     RNG().set_seed(1)
@@ -859,7 +995,9 @@ def run_training(torch, model, B, T, iters, compute_dtype, updates=False):
                 launches={n: c.count for n, c in counters.items()},
                 skipped_steps=opt.skipped_steps,
                 updates={n: (p.detach() - start[n]).cpu()
-                         for n, p in model.named_parameters() if n in start})
+                         for n, p in model.named_parameters() if n in start},
+                buffers={n: b.detach().cpu() for n, b in model.named_buffers()
+                         if updates})
 
 
 def decrease_rel_err(got, ref) -> float:
@@ -1196,6 +1334,239 @@ def matmul_entry(torch):
                 row_rel_err_dx=rel_dx, wall_ms=wall_s * 1e3), failures
 
 
+def _resnet(torch, device, impl):
+    """ResNet50(1000), conv7 stem, random weights from seed 0, every
+    ``SpatialConvolution`` on ``impl``."""
+    from bigdl_tpu_torch import nn
+    from bigdl_tpu_torch.models.resnet import ResNet50
+
+    model = ResNet50(RESNET_CLASSES, device=device,
+                     generator=torch.Generator().manual_seed(0))
+    for m in model.modules():
+        if isinstance(m, nn.SpatialConvolution):
+            m.set_conv_impl(impl)
+    return model
+
+
+def _images(B: int):
+    """B random 224x224 images in [0, 1) and labels in 1..1000, float32,
+    from ``numpy.random.RandomState(0)`` (bench.py's ``_bench_resnet``)."""
+    import numpy as np
+
+    rng = np.random.RandomState(0)
+    x = rng.rand(B, 3, RESNET_HW, RESNET_HW).astype(np.float32)
+    y = rng.randint(1, RESNET_CLASSES + 1, size=B).astype(np.float32)
+    return x, y
+
+
+def _image_data(B: int):
+    from bigdl_tpu_torch.dataset import Sample, array
+
+    return array([Sample(a, b) for a, b in zip(*_images(B))])
+
+
+def _rows(t):
+    """A parameter or statistic as rows: one per output channel (or
+    class), one row for a vector."""
+    return t.reshape(t.shape[0], -1) if t.dim() > 1 else t.reshape(1, -1)
+
+
+def _train_resnet(torch, device, impl, B, iters, dtype, frozen_bn=False):
+    """``iters`` LocalOptimizer steps of a fresh ``_resnet``; with
+    ``frozen_bn`` every BatchNorm stays in eval mode (running statistics,
+    no update of them), so the backward is well conditioned (see
+    RESNET_CMP_*).  Returns (model, run_training record with updates)."""
+    from bigdl_tpu_torch import nn
+
+    model = _resnet(torch, device, impl)
+    if frozen_bn:
+        for m in model.modules():
+            if isinstance(m, nn.BatchNormalization):
+                # LocalOptimizer's model.train() reaches each child's train
+                m.train = (lambda mode=True, m=m:
+                           torch.nn.Module.train(m, False))
+    run = run_training(torch, model, B, 0, iters, dtype, updates=True,
+                       data=_image_data(B), crit=nn.ClassNLLCriterion())
+    return model, run
+
+
+def compare_runs(torch, got, ref, label, rows):
+    """``got`` against ``ref`` (two ``run_training`` records with
+    ``updates``): each decrease, and with ``rows`` every loss and every
+    parameter update and BatchNorm statistic row by row, else the first
+    loss.  Returns (record, failures)."""
+    card, want = got["losses"], ref["losses"]
+    # in training mode only the first loss comes from the forward alone
+    held = card if rows else card[:1]
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(held, want))
+    dec_rel = decrease_rel_err(card, want) if len(want) > 1 else 0.0
+    rec = dict(losses=card, ref_losses=want, loss_rel=loss_rel,
+               decrease_rel=dec_rel)
+    msg = (f"resnet50 path: {label}: losses {card} vs {want}, "
+           f"{'max' if rows else 'first'} rel {loss_rel:.3e} (tol "
+           f"{RESNET_CMP_RTOL}); decreases worst rel {dec_rel:.3e} (tol "
+           f"{RESNET_CMP_DECREASE_REL_TOL})")
+    failures = []
+    if len(card) != len(want) or not loss_rel <= RESNET_CMP_RTOL:
+        failures.append(f"{label}: losses {card} vs {want}")
+    if not dec_rel <= RESNET_CMP_DECREASE_REL_TOL:
+        failures.append(f"{label}: decreases rel {dec_rel:.3e}")
+    if rows:
+        scale = max((max_row_norm(torch, _rows(u))
+                     for u in ref["updates"].values()), default=0.0)
+        errs = {n: row_rel_err(torch, _rows(got["updates"][n]), _rows(u),
+                               scale)
+                for n, u in ref["updates"].items()}
+        errs.update({n: row_rel_err(torch, _rows(got["buffers"][n]),
+                                    _rows(b))
+                     for n, b in ref["buffers"].items()})
+        worst = max(errs, key=errs.get)
+        rec.update(row_err=errs, worst=[worst, errs[worst]])
+        msg += (f"; {len(errs)} parameter updates and statistics, worst row "
+                f"err {errs[worst]:.3e} in {worst} (tol {RESNET_CMP_ROW_TOL})")
+        if not errs[worst] <= RESNET_CMP_ROW_TOL:
+            failures.append(f"{label}: {worst} row err {errs[worst]:.3e}")
+    print(msg)
+    return rec, failures
+
+
+def train_resnet50(torch):
+    """Phase 8: the port's LocalOptimizer trains ResNet-50 at ImageNet
+    shape with every 3x3 stride-1 conv on K5 (bench.py's pallas leg)."""
+    B, iters = RESNET_BATCH, TRAIN_ITERS
+    failures = []
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    model, run = _train_resnet(torch, "cuda", "pallas", B, iters,
+                               torch.bfloat16)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    n_params = sum(p.numel() for p in model.parameters())
+    del model
+    torch.cuda.empty_cache()
+    losses = run["losses"]
+    want = want_launches(conv3x3=RESNET_K5_PER_STEP)
+    if len(losses) != iters or not all(math.isfinite(x) for x in losses):
+        failures.append(f"resnet50 losses {losses}")
+    if run["skipped_steps"]:
+        failures.append(f"{run['skipped_steps']} resnet50 steps skipped")
+    if not losses[-1] < losses[0]:
+        failures.append(f"resnet50 loss did not fall: {losses[0]} -> "
+                        f"{losses[-1]}")
+    bad = [st for st in run["launches_per_step"] if st != want]
+    if bad:
+        failures.append(f"resnet50 launches per step {bad[0]}, want {want}")
+
+    def speed(step_s):
+        steady = step_s[2:]
+        step_ms = 1e3 * sum(steady) / len(steady)
+        ips = B / (step_ms / 1e3)
+        return step_ms, ips, RESNET_STEP_FLOP_PER_IMAGE * ips / PEAK_FLOPS[
+            "bfloat16"]
+
+    step_ms, ips, mfu = speed(run["step_s"])
+    # the "xla" impl (cuDNN for every conv) in bf16: the model-level
+    # yardstick
+    _, xla = _train_resnet(torch, "cuda", "xla", B, iters, torch.bfloat16)
+    torch.cuda.empty_cache()
+    xla_ms, xla_ips, xla_mfu = speed(xla["step_s"])
+    if xla["launches"]["conv3x3"]:
+        failures.append(f"the xla impl launched K5 {xla['launches']}")
+    print(f"resnet50 path: bf16, B {B}, pallas: losses "
+          f"{[round(x, 4) for x in losses]}; launches per step "
+          f"{run['launches_per_step'][0]}; step {step_ms:.2f} ms "
+          f"(iterations 3-{iters}), {ips:.1f} images/s, MFU {mfu:.4f}, peak "
+          f"memory {peak_gb:.2f} GB | xla impl: step {xla_ms:.2f} ms, "
+          f"{xla_ips:.1f} images/s, MFU {xla_mfu:.4f}")
+
+    # the same 8 steps in f32 on the card, same weights and batch
+    _, f32 = _train_resnet(torch, "cuda", "pallas", B, iters, None)
+    torch.cuda.empty_cache()
+    ref = f32["losses"]
+    first_rel = abs(losses[0] - ref[0]) / abs(ref[0])
+    dec_rel = decrease_rel_err(losses, ref)
+    print(f"resnet50 path: bf16 vs f32 on the card: first loss "
+          f"{losses[0]:.6f} vs {ref[0]:.6f}, rel {first_rel:.3e} (tol "
+          f"{RESNET_FIRST_REL_TOL}); decreases "
+          f"{[round(x - losses[0], 6) for x in losses[1:]]} vs "
+          f"{[round(x - ref[0], 6) for x in ref[1:]]}, worst rel "
+          f"{dec_rel:.3e} (tol {RESNET_DECREASE_REL_TOL})")
+    if len(ref) != iters or not first_rel <= RESNET_FIRST_REL_TOL:
+        failures.append(f"resnet50 first loss bf16 vs f32 rel {first_rel:.3e}")
+    if not dec_rel <= RESNET_DECREASE_REL_TOL:
+        failures.append(f"resnet50 loss decreases bf16 vs f32 rel "
+                        f"{dec_rel:.3e}")
+
+    # "pallas" (K5) against "xla" (cuDNN) on the card, f32, B 8: 3 steps
+    # in training mode (losses, decreases), 3 with BatchNorm frozen
+    # (every parameter update row by row)
+    cmp = {}
+    for frozen in (False, True):
+        runs = {impl: _train_resnet(torch, "cuda", impl, RESNET_CMP_BATCH,
+                                    RESNET_CMP_ITERS, None, frozen)[1]
+                for impl in ("pallas", "xla")}
+        torch.cuda.empty_cache()
+        tag = "frozen BatchNorm" if frozen else "training mode"
+        cmp[tag], bad = compare_runs(
+            torch, runs["pallas"], runs["xla"],
+            f"pallas vs xla, f32, B {RESNET_CMP_BATCH}, {tag}", rows=frozen)
+        failures += bad
+        if runs["pallas"]["launches"]["conv3x3"] != (RESNET_K5_PER_STEP
+                                                     * RESNET_CMP_ITERS):
+            failures.append(f"pallas B {RESNET_CMP_BATCH} {tag} launches "
+                            f"{runs['pallas']['launches']}")
+
+    # the card against the CPU, f32, B 2: one step in training mode (the
+    # loss and every BatchNorm statistic, which come from the forward),
+    # then one eval-mode forward; 3 steps with BatchNorm frozen (every
+    # parameter update)
+    models, one, three = {}, {}, {}
+    for dev in ("cuda", "cpu"):
+        models[dev], one[dev] = _train_resnet(
+            torch, dev, "pallas", RESNET_CPU_BATCH, 1, None)
+        three[dev] = _train_resnet(torch, dev, "pallas", RESNET_CPU_BATCH,
+                                   RESNET_CMP_ITERS, None, frozen_bn=True)[1]
+    one["cuda"]["updates"] = one["cpu"]["updates"] = {}
+    vs_cpu = {}
+    vs_cpu["training mode, 1 step"], bad = compare_runs(
+        torch, one["cuda"], one["cpu"],
+        f"card vs cpu, f32, B {RESNET_CPU_BATCH}, 1 step: statistics",
+        rows=True)
+    failures += bad
+    vs_cpu["frozen BatchNorm"], bad = compare_runs(
+        torch, three["cuda"], three["cpu"],
+        f"card vs cpu, f32, B {RESNET_CPU_BATCH}, frozen BatchNorm",
+        rows=True)
+    failures += bad
+    x = torch.from_numpy(_images(RESNET_CPU_BATCH)[0])
+    with torch.no_grad():
+        out = {dev: m.evaluate()(x.to(m.device)).float().cpu()
+               for dev, m in models.items()}
+    eval_rel = ((out["cuda"] - out["cpu"]).abs().max()
+                / out["cpu"].abs().max()).item()
+    print(f"resnet50 path: eval-mode forward card vs cpu: max abs err "
+          f"{eval_rel:.3e} of max |output| (tol {RESNET_EVAL_REL_TOL})")
+    if not eval_rel <= RESNET_EVAL_REL_TOL:
+        failures.append(f"resnet50 eval forward card vs cpu {eval_rel:.3e}")
+    del models
+    torch.cuda.empty_cache()
+    return dict(
+        config=dict(model="ResNet50", classes=RESNET_CLASSES, stem="conv7",
+                    conv_impl="pallas", batch=B, hw=RESNET_HW, lr=RESNET_LR,
+                    compute_dtype="bfloat16"),
+        n_params=n_params, losses=losses, step_s=run["step_s"],
+        launches_per_step=run["launches_per_step"][0],
+        launches=run["launches"], skipped_steps=run["skipped_steps"],
+        step_ms=step_ms, images_per_s=ips, mfu=mfu, peak_memory_gb=peak_gb,
+        timing="host clock between loop iterations 3-8, each ending in the "
+               "loss read-back (a device sync)",
+        xla=dict(losses=xla["losses"], step_ms=xla_ms, images_per_s=xla_ips,
+                 mfu=xla_mfu),
+        f32_losses=ref, bf16_vs_f32_first_rel=first_rel,
+        bf16_vs_f32_decrease_rel=dec_rel, pallas_vs_xla_f32=cmp,
+        card_vs_cpu_f32=vs_cpu, eval_forward_rel=eval_rel), failures
+
+
 def _kernel_group(name: str) -> str:
     if "bs_fwd_kernel" in name:
         return "K6 block_sparse_fwd"
@@ -1213,6 +1584,8 @@ def _kernel_group(name: str) -> str:
         return "K3 flash_bwd_dq"
     if "_ln_fwd" in name:
         return "K4 layer_norm_fwd"
+    if "conv3x3_kernel" in name:
+        return "K5 conv3x3"
     if any(s in name.lower() for s in ("gemm", "gemv", "nvjet", "cutlass",
                                        "xmma", "sm90_")):
         return "matmul (cuBLAS)"
@@ -1256,10 +1629,58 @@ def profile_served(torch):
     return report
 
 
-def profile_window(torch, run):
+def _resnet_group(kernel: str, ops) -> str:
+    """The group of a kernel of the ResNet-50 step, from its name and the
+    names of the op that launched it and that op's ancestors."""
+    def under(*parts):
+        return any(part in op for op in ops for part in parts)
+
+    if "conv3x3_kernel" in kernel:
+        return "K5 conv3x3 dX" if under("_Conv3x3Backward") \
+            else "K5 conv3x3 forward"
+    if kernel.startswith(("Memcpy", "Memset")):
+        return ("memcpy / memset (the batch's upload, parameter and state "
+                "copies)")
+    if under("aten::contiguous"):
+        return "layout copies NCHW <-> NHWC (around K5)"
+    gemm = any(t in kernel.lower() for t in ("gemm", "gemv", "nvjet",
+                                              "cutlass", "xmma", "sm90_"))
+    if under("_Conv3x3Backward"):
+        return ("K5 dW: 9 matmuls a conv (cuBLAS)" if gemm
+                else "K5 dW: operand pad, slice copies, stack")
+    if under("convolution"):
+        return "cuDNN conv (stem, 1x1, strided 3x3; forward and backward)"
+    if gemm:
+        return "matmul (cuBLAS: the classifier)"
+    return "BN, ReLU, pooling, loss, optimizer and other elementwise"
+
+
+def _op_groups(prof, group):
+    """Device ms and launches by ``group(kernel name, op names)`` over the
+    kernels each CPU op launched (the innermost op first, then its
+    ancestors)."""
+    groups = {}
+    for e in prof.events():
+        if not e.kernels:
+            continue
+        ops, op = [], e
+        while op is not None:
+            ops.append(op.name)
+            op = op.cpu_parent
+        for k in e.kernels:
+            g = groups.setdefault(group(k.name, ops), [0.0, 0])
+            g[0] += k.duration / 1e3
+            g[1] += 1
+    return groups
+
+
+def profile_window(torch, run, group_by_op=None):
     """Wall (min of 3 runs of ``run`` without the profiler), then one run
     under ``torch.profiler``: device time by kernel and by group,
-    launches, and the device's busy share of that wall."""
+    launches, and the device's busy share of that wall.  Groups come
+    from the kernel's name, or with ``group_by_op`` from it and the ops
+    that launched the kernel; device time no op claims is
+    "unattributed"."""
     from torch.profiler import ProfilerActivity, profile
 
     cuda_type = torch.autograd.DeviceType.CUDA
@@ -1276,11 +1697,19 @@ def profile_window(torch, run):
             us = e.self_cuda_time_total
         by_kernel[e.key] = (us / 1e3, e.count)
     device_ms = sum(ms for ms, _ in by_kernel.values())
-    groups = {}
-    for name, (ms, count) in by_kernel.items():
-        g = groups.setdefault(_kernel_group(name), [0.0, 0])
-        g[0] += ms
-        g[1] += count
+    if group_by_op is not None:
+        groups = _op_groups(prof, group_by_op)
+        rest = [device_ms - sum(g[0] for g in groups.values()),
+                sum(c for _, c in by_kernel.values())
+                - sum(g[1] for g in groups.values())]
+        if rest[1]:
+            groups["unattributed"] = rest
+    else:
+        groups = {}
+        for name, (ms, count) in by_kernel.items():
+            g = groups.setdefault(_kernel_group(name), [0.0, 0])
+            g[0] += ms
+            g[1] += count
     top = sorted(by_kernel.items(), key=lambda kv: -kv[1][0])[:12]
     return dict(
         wall_ms=wall_s * 1e3, device_ms=device_ms,
@@ -1329,6 +1758,35 @@ def profile_training(torch, B=TRAIN_BATCH, T=TRAIN_T, **lm_kw):
     return rep
 
 
+def profile_resnet(torch):
+    """``--profile``: one bf16 ResNet-50 step of phase 8 (B 64,
+    ``"pallas"``) under ``torch.profiler`` after two warm iterations,
+    grouped by the op that launched each kernel."""
+    from bigdl_tpu_torch import nn
+
+    model = _resnet(torch, "cuda", "pallas")
+    opt = make_trainer(torch, model, RESNET_BATCH, 0, 2, torch.bfloat16,
+                       data=_image_data(RESNET_BATCH),
+                       crit=nn.ClassNLLCriterion())
+    opt.optimize()
+
+    def run():
+        state = opt.optim_method.state
+        opt.set_end_when(lambda s, last=state["neval"]: s["neval"] > last)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        opt.optimize()
+        torch.cuda.synchronize()
+        return time.perf_counter() - t
+
+    rep = profile_window(torch, run, group_by_op=_resnet_group)
+    print_profile(f"profile ResNet-50 training step (bf16, batch "
+                  f"{RESNET_BATCH}, pallas)", rep)
+    del model, opt
+    torch.cuda.empty_cache()
+    return rep
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -1337,9 +1795,9 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--profile", action="store_true",
                     help="after the build, profile the served generator, "
-                         "one training step, and one block-sparse and one "
-                         "flash training step at T 4096 instead of phases "
-                         "3-8")
+                         "one training step, one block-sparse and one "
+                         "flash training step at T 4096, and one ResNet-50 "
+                         "step instead of phases 3-9")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         return fail("torch.cuda.is_available() is false; a CUDA card is "
@@ -1361,11 +1819,11 @@ def main(argv=None) -> int:
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
 
-    # phase 2: build — the three CUDA libraries at once, then Triton's K4
+    # phase 2: build — the four CUDA libraries at once, then Triton's K4
     from bigdl_tpu_torch.ops import _support
     from bigdl_tpu_torch.ops import layer_norm as ln
 
-    libs = ("flash_fwd", "flash_bwd", "block_sparse")
+    libs = ("flash_fwd", "flash_bwd", "block_sparse", "conv3x3")
     t0 = time.perf_counter()
     _support.load_cuda_libraries(*libs)
     cuda_build_s = time.perf_counter() - t0
@@ -1394,7 +1852,8 @@ def main(argv=None) -> int:
                           torch, BS_BATCH, BS_T, max_len=BS_T,
                           seq_strategy="blocksparse", blocksparse=BS_CFG),
                       flash_T4096_training_step=profile_training(
-                          torch, BS_BATCH, BS_T, max_len=BS_T))
+                          torch, BS_BATCH, BS_T, max_len=BS_T),
+                      resnet50_training_step=profile_resnet(torch))
         (out / "chip_profile.json").write_text(json.dumps(dict(
             device=kind, nvidia_smi=smi, torch=torch.__version__,
             profile=report), indent=1))
@@ -1416,6 +1875,9 @@ def main(argv=None) -> int:
     failures += [f"K6-K8 {r['case']}: {r}" for r in bs_rows if not r["ok"]]
     failures += [f"K9 {r['case']}: row err {r['row_rel_err']} NaN-poison "
                  f"{r['nan_poison_ok']}" for r in mm_rows if not r["ok"]]
+    conv_rows = check_conv3x3(torch, F)
+    failures += [f"K5 {r['case']}: row err {r['row_rel_err']}"
+                 for r in conv_rows if not r["ok"]]
 
     # phase 4: the serving path
     served, path_failures = serve_flagship(torch)
@@ -1433,10 +1895,14 @@ def main(argv=None) -> int:
     mm_path, mm_failures = matmul_entry(torch)
     failures += mm_failures
 
+    # phase 8: the ResNet-50 training path
+    resnet, resnet_failures = train_resnet50(torch)
+    failures += resnet_failures
+
     # launches summed over every path, each read from zero
     launches = {n: sum(b["launches"][n] for b in served["batches"])
                 + trained["launches"][n] + bs_trained["launches"][n]
-                for n in launch_counters()}
+                + resnet["launches"][n] for n in launch_counters()}
     launches["block_sparse_mm"] += mm_path["launches"]
     bs_row = bs_rows[0]
     rows = {"flash_fwd": dict(flash_rows[0]),
@@ -1450,7 +1916,8 @@ def main(argv=None) -> int:
             "block_sparse_bwd_dq": dict(
                 bs_row, **bs_row["dq"], plain_ms=bs_row["plain_bwd_ms"],
                 library_ms=bs_row["library_bwd_ms"]),
-            "block_sparse_mm": dict(mm_rows[0])}
+            "block_sparse_mm": dict(mm_rows[0]),
+            "conv3x3": dict(conv_rows[0])}
     bs_src = "bigdl_tpu_torch/ops/csrc/block_sparse.cu"
     kernels = []
     for name, route, source, replaces in (
@@ -1469,7 +1936,9 @@ def main(argv=None) -> int:
             ("block_sparse_bwd_dq", "cuda", bs_src,
              "bigdl_tpu/ops/block_sparse.py:345"),
             ("block_sparse_mm", "cuda", bs_src,
-             "bigdl_tpu/ops/block_sparse.py:626")):
+             "bigdl_tpu/ops/block_sparse.py:626"),
+            ("conv3x3", "cuda", "bigdl_tpu_torch/ops/csrc/conv3x3.cu",
+             "bigdl_tpu/ops/conv3x3_pallas.py:60")):
         row = rows[name]
         kernels.append(dict(
             name=name, route=route, source=source, replaces=replaces,
@@ -1486,8 +1955,9 @@ def main(argv=None) -> int:
         build_s={k: v[0] for k, v in _support.BUILD_INFO.items()},
         triton_build_s=triton_build_s, flash=flash_rows, layer_norm=ln_rows,
         flash_bwd=bwd_rows, block_sparse=bs_rows, block_sparse_mm=mm_rows,
-        serving_path=served, training_path=trained,
+        conv3x3=conv_rows, serving_path=served, training_path=trained,
         blocksparse_training_path=bs_trained, matmul_path=mm_path,
+        resnet50_training_path=resnet,
         kernels=kernels, failures=failures, seconds=time.perf_counter()
         - T_START), indent=1))
 

@@ -9,8 +9,9 @@ conftest (which configures jax):
 
 Each kernel is held against its plain PyTorch version on the same
 inputs, forward and backward; a small TransformerLM served on the card
-in f32, and small flash and block-sparse ones trained three steps on the
-card in f32, are held against the same model on the CPU.
+in f32, and small flash and block-sparse ones, a ResNet-CIFAR on K5 and
+a LeNet-5 trained three steps on the card in f32, are held against the
+same model on the CPU.
 """
 import math
 
@@ -21,8 +22,11 @@ import torch
 from bigdl_tpu_torch import nn
 from bigdl_tpu_torch.dataset import Sample, array
 from bigdl_tpu_torch.models.generate import make_generate
+from bigdl_tpu_torch.models.lenet import LeNet5
+from bigdl_tpu_torch.models.resnet import ResNetCifar
 from bigdl_tpu_torch.models.transformer import TransformerLM
 from bigdl_tpu_torch.ops import block_sparse as bs
+from bigdl_tpu_torch.ops import conv3x3
 from bigdl_tpu_torch.ops import flash_attention as fa
 from bigdl_tpu_torch.ops import layer_norm as ln
 from bigdl_tpu_torch.optim import SGD, LocalOptimizer, Trigger, max_iteration
@@ -459,3 +463,118 @@ def test_small_blocksparse_lm_trains_on_card_like_cpu(cuda_device):
                 for u in cpu_upd.values())
     for name, u in cpu_upd.items():
         assert _row_rel_err(card_upd[name], u, scale) <= 1e-3, name
+
+
+# ----------------------------------------------------------------------
+# the 3x3 conv (K5) and the conv models
+# ----------------------------------------------------------------------
+
+K5_CASES = [(2, 56, 56, 64, 64, torch.bfloat16),
+            (2, 14, 14, 256, 256, torch.bfloat16),
+            (3, 7, 7, 512, 512, torch.float32),
+            (2, 7, 5, 3, 10, torch.bfloat16),
+            (2, 7, 5, 3, 10, torch.float32),
+            (1, 33, 70, 40, 72, torch.bfloat16),
+            (1, 1, 1, 8, 3, torch.float32)]
+
+
+@pytest.mark.parametrize("B,H,W,C,O,dtype", K5_CASES)
+def test_conv3x3_kernel_matches_plain_on_card(cuda_device, B, H, W, C, O,
+                                              dtype):
+    """Forward and dX (K5 on the flipped weights) row by row over output
+    pixels against the plain version; ragged C, O, H and W included."""
+    g = torch.Generator(device=cuda_device).manual_seed(3)
+    x = torch.randn(B, H, W, C, device=cuda_device, generator=g).to(dtype)
+    w = (torch.randn(3, 3, C, O, device=cuda_device, generator=g)
+         / (3 * C ** 0.5)).to(dtype)
+    gy = torch.randn(B, H, W, O, device=cuda_device, generator=g).to(dtype)
+    before = conv3x3.LAUNCHES.count
+    y = conv3x3._conv3x3_cuda(x, w.permute(0, 1, 3, 2).contiguous())
+    dx = conv3x3._conv3x3_cuda(gy, w.flip(0, 1).contiguous())
+    torch.cuda.synchronize()
+    assert conv3x3.LAUNCHES.count == before + 2
+    assert y.dtype == dx.dtype == dtype
+    want_y = conv3x3._conv3x3_plain(x, w)
+    want_dx = conv3x3._conv3x3_plain(gy, w.flip(0, 1).transpose(2, 3))
+    assert _row_rel_err(y, want_y) <= ROW_TOL[dtype]
+    assert _row_rel_err(dx, want_dx) <= ROW_TOL[dtype]
+
+
+def test_conv3x3_autograd_runs_k5_forward_and_dx(cuda_device):
+    g = torch.Generator(device=cuda_device).manual_seed(4)
+    x = torch.randn(2, 9, 11, 24, device=cuda_device, generator=g
+                    ).requires_grad_()
+    w = (0.1 * torch.randn(3, 3, 24, 20, device=cuda_device, generator=g)
+         ).requires_grad_()
+    gy = torch.randn(2, 9, 11, 20, device=cuda_device, generator=g)
+    before = conv3x3.LAUNCHES.count
+    got = torch.autograd.grad(conv3x3.conv3x3_s1_same(x, w), (x, w), gy)
+    assert conv3x3.LAUNCHES.count == before + 2
+    leaves = [t.detach().cpu().requires_grad_() for t in (x, w)]
+    want = torch.autograd.grad(conv3x3.conv3x3_s1_same(*leaves), leaves,
+                               gy.cpu())
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a.cpu(), b, rtol=1e-4, atol=1e-5)
+
+
+def _train_conv_model(build, x, y, device, steps=3):
+    """``steps`` f32 SGD steps of ``build(device)`` over one batch;
+    returns (losses, model, updates)."""
+    model = build(device)
+    losses = []
+
+    def check(state):
+        if "loss" in state:
+            losses.append(state["loss"])
+        return max_iteration(steps)(state)
+
+    opt = LocalOptimizer(model, array([Sample(a, b) for a, b in zip(x, y)]),
+                         nn.ClassNLLCriterion(), batch_size=len(x))
+    opt.set_optim_method(SGD(0.05)).set_end_when(Trigger(check))
+    start = {n: p.detach().clone() for n, p in model.named_parameters()}
+    RNG().set_seed(1)
+    opt.optimize()
+    updates = {n: (p.detach() - start[n]).cpu()
+               for n, p in model.named_parameters()}
+    return losses, model, updates
+
+
+def _pallas(model):
+    for m in model.modules():
+        if isinstance(m, nn.SpatialConvolution):
+            m.set_conv_impl("pallas")
+    return model
+
+
+@pytest.mark.parametrize("which", ["resnet_cifar8", "lenet5"])
+def test_conv_models_train_on_card_like_cpu(cuda_device, which):
+    rng = np.random.RandomState(0)
+    if which == "resnet_cifar8":
+        x = rng.randn(4, 3, 32, 32).astype(np.float32)
+        build = lambda dev: _pallas(ResNetCifar(   # noqa: E731
+            8, device=dev, generator=torch.Generator().manual_seed(5)))
+        # 5 K5 convs forward, and the dX of all but the stem's
+        want_launches = 3 * (5 + 4)
+    else:
+        x = rng.rand(4, 28, 28).astype(np.float32)
+        build = lambda dev: LeNet5(   # noqa: E731
+            device=dev, generator=torch.Generator().manual_seed(5))
+        want_launches = 0
+    y = rng.randint(1, 11, size=len(x)).astype(np.float32)
+    before = conv3x3.LAUNCHES.count
+    card, card_model, card_upd = _train_conv_model(build, x, y, cuda_device)
+    assert conv3x3.LAUNCHES.count - before == want_launches
+    cpu, cpu_model, cpu_upd = _train_conv_model(build, x, y, "cpu")
+    # f32 on both sides: summation order only
+    np.testing.assert_allclose(card, cpu, rtol=1e-5)
+    np.testing.assert_allclose(np.subtract(card[1:], card[0]),
+                               np.subtract(cpu[1:], cpu[0]), rtol=1e-3)
+    scale = max(torch.linalg.vector_norm(u, dim=-1).max().item()
+                for u in cpu_upd.values())
+    for name, u in cpu_upd.items():
+        err = _row_rel_err(card_upd[name], u, scale)
+        assert err <= 1e-3, (name, err)
+    card_stats = dict(card_model.named_buffers())
+    for name, b in cpu_model.named_buffers():
+        torch.testing.assert_close(card_stats[name].cpu(), b, rtol=1e-4,
+                                   atol=1e-6)

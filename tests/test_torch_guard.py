@@ -114,6 +114,22 @@ def test_entry_points_refuse_to_fall_back_to_the_cpu(no_cuda):
         LayerNorm(8, device="cuda")
 
 
+@pytest.mark.parametrize("build", ["ResNet50", "ResNetCifar", "LeNet5",
+                                   "SpatialConvolution",
+                                   "SpatialBatchNormalization"])
+def test_conv_entry_points_refuse_to_fall_back_to_the_cpu(no_cuda, build):
+    from bigdl_tpu_torch import models, nn
+
+    make = {"ResNet50": lambda: models.ResNet50(10),
+            "ResNetCifar": lambda: models.ResNetCifar(8),
+            "LeNet5": models.LeNet5,
+            "SpatialConvolution": lambda: nn.SpatialConvolution(3, 4, 3, 3),
+            "SpatialBatchNormalization":
+                lambda: nn.SpatialBatchNormalization(4)}[build]
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        make()
+
+
 def test_cpu_only_when_named(no_cuda):
     assert resolve_device("cpu") == torch.device("cpu")
     with pytest.raises(ValueError):
