@@ -1,7 +1,9 @@
-// Tile machinery shared by the port's attention kernels (flash_fwd.cu,
-// flash_bwd.cu; the block-sparse kernels are meant to reuse it too), the
-// Hopper counterpart of the shared tile helpers at the top of
-// bigdl_tpu/ops/flash_attention.py.
+// Tile machinery shared by the port's attention kernels: the backward
+// kernels of flash_bwd.cu (K2, K3), the block-sparse kernels of
+// block_sparse.cu (K6-K9) and the f32 path of flash_fwd.cu (K1); conv3x3.cu
+// (K5) takes its helpers too.  It is the counterpart of the shared tile
+// helpers at the top of bigdl_tpu/ops/flash_attention.py.  K1's bf16 path
+// does not use it: it is built on hopper_common.cuh (TMA, mbarriers, wgmma).
 //
 // Every tile is TILE = 64 rows of a row-major (rows, D) matrix, worked on
 // by one block of four warps.  Each warp owns 16 rows of the tile it

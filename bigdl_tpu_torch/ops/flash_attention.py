@@ -5,7 +5,10 @@ Kernels, CUDA C++ for ``sm_90a``; each source's header says what it
 computes, what bounds it and how:
 
 * K1 ``csrc/flash_fwd.cu`` replaces ``_fwd_kernel``
-  (``bigdl_tpu/ops/flash_attention.py:150``);
+  (``bigdl_tpu/ops/flash_attention.py:150``): for bf16 a warp-specialised
+  Hopper kernel (TMA loads into an mbarrier ring, wgmma products, the
+  softmax in registers, on ``csrc/hopper_common.cuh``), for f32 the FMA
+  tile loop of ``csrc/tile_common.cuh``;
 * K2 and K3 ``csrc/flash_bwd.cu`` replace ``_dkv_kernel`` (``:236``)
   and ``_dq_kernel`` (``:271``).
 
