@@ -29,8 +29,8 @@ element never reaches a product.  The tables go to the card once per
 versions (``_bs_attention_plain``, ``_bs_bwd_plain``, ``_bs_mm_plain``:
 the kernels' math in PyTorch, masking with a select); for CUDA tensors
 they launch the kernels or raise, forward and backward.  Any block size
-that tiles the sequence (or the weight), head dims 16/32/64/128,
-float32 or bfloat16.
+that tiles the sequence (or the weight), any head dim up to 128 (padded
+as ``flash_attention`` pads it), float32 or bfloat16.
 """
 from __future__ import annotations
 
@@ -45,6 +45,7 @@ import torch
 from ._support import LaunchCounter, check_cuda_input, load_cuda_library, on_cpu
 from .flash_attention import (_DTYPE_CODE, _attn_bwd_plain, _attn_plain,
                               _bwd_inputs, _causal_keep, _check_kernel_inputs,
+                              _cut_head_dim, _pad_head_dim, _padded_head_dim,
                               _stream)
 
 __all__ = ["BlockMask", "block_sparse_attention", "block_sparse_matmul",
@@ -451,8 +452,12 @@ def _mask_ints(mask: BlockMask, L: int, q, k):
 
 def _bs_fwd_cuda(q, k, v, mask: BlockMask, causal: bool, sm_scale: float
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Launch K6 on the current stream of q's device."""
+    """Launch K6 on the current stream of q's device (a head dim between
+    the built ones zero-padded, O cut back)."""
     _check_kernel_inputs("block_sparse_attention", q, k, v)
+    D_true = q.shape[-1]
+    Dp = _padded_head_dim(D_true)
+    q, k, v = (_pad_head_dim(t, Dp) for t in (q, k, v))
     B, H, T, D = q.shape
     tab = _attention_tables(mask, causal, q.device)
     ptrs, L = _table_args(tab, "fwd")
@@ -466,7 +471,7 @@ def _bs_fwd_cuda(q, k, v, mask: BlockMask, causal: bool, sm_scale: float
     if err != 0:
         raise RuntimeError(f"block_sparse_fwd launch failed: cudaError {err}")
     LAUNCHES.add()
-    return o, lse
+    return _cut_head_dim(o, D_true), lse
 
 
 def _launch_bs_dkv(q, k, v, do, lse, delta, mask: BlockMask, causal: bool,
@@ -511,14 +516,18 @@ def _launch_bs_dq(q, k, v, do, lse, delta, mask: BlockMask, causal: bool,
 def _bs_bwd_cuda(q, k, v, o, lse, d_o, mask: BlockMask, causal: bool,
                  sm_scale: float
                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Launch K7 then K8 on the current stream of q's device."""
+    """Launch K7 then K8 on the current stream of q's device (a head dim
+    between the built ones zero-padded, the gradients cut back)."""
     _check_kernel_inputs("block_sparse_attention backward", q, k, v)
     check_cuda_input("block_sparse_attention backward lse", lse,
                      (torch.float32,))
     do, delta = _bwd_inputs(q, o, d_o)
+    D = q.shape[-1]
+    Dp = _padded_head_dim(D)
+    q, k, v, do = (_pad_head_dim(t, Dp) for t in (q, k, v, do))
     dk, dv = _launch_bs_dkv(q, k, v, do, lse, delta, mask, causal, sm_scale)
     dq = _launch_bs_dq(q, k, v, do, lse, delta, mask, causal, sm_scale)
-    return dq, dk, dv
+    return tuple(_cut_head_dim(t, D) for t in (dq, dk, dv))
 
 
 class _BlockSparseAttention(torch.autograd.Function):

@@ -3,8 +3,8 @@
 // the warpgroup matrix multiply (wgmma), as inline PTX for sm_90a.
 //
 // Written by hand, without CUTLASS or CuTe, so that a library including
-// it builds in seconds.  K1 (flash_fwd.cu) is built on it; it is what a
-// redesign of the other kernels takes up.
+// it builds in seconds.  K1 (flash_fwd.cu), K2 and K3 (flash_bwd.cu) are
+// built on it; it is what a redesign of the other kernels takes up.
 //
 // Conventions.
 //   * Tiles land in shared memory by TMA with a swizzle whose span equals
@@ -283,6 +283,64 @@ __device__ __forceinline__ void wgmma_rs(float* d, const uint32_t* a, uint64_t d
   if constexpr (N == 16) wgmma_rs_m64n16k16<kTransB>(d, a, desc_b, accumulate);
   if constexpr (N == 32) wgmma_rs_m64n32k16<kTransB>(d, a, desc_b, accumulate);
   if constexpr (N == 64) wgmma_rs_m64n64k16<kTransB>(d, a, desc_b, accumulate);
+}
+
+// ---- panels and the consumer epilogue ----------------------------------------
+
+// the panel split of a (rows, D) bf16 tile (see the conventions above)
+template <int D>
+struct Panels {
+  static constexpr int PW = D < 64 ? D : 64;   // panel width, columns
+  static constexpr int NP = D / PW;            // panels per row
+  static constexpr int RB = PW * 2;            // bytes per panel row = swizzle span
+};
+
+// TMA's swizzle and the wgmma descriptors assume 1024-byte-aligned panels
+__device__ __forceinline__ unsigned char* align1024(unsigned char* p) {
+  return reinterpret_cast<unsigned char*>((reinterpret_cast<uintptr_t>(p) + 1023) &
+                                          ~static_cast<uintptr_t>(1023));
+}
+
+// The epilogue of a consumer warpgroup, first half: its accumulator (this
+// thread's rows r and r + 8 of 64, D / 2 f32) times `scale`, in bf16, into
+// the warpgroup's own 64 rows of a tile of panels at `rows` (panel pitch
+// kPanel), which no other warpgroup reads.  The 16-byte chunks of a row
+// are xor'd by row, against bank conflicts.
+template <int D, int kPanel>
+__device__ __forceinline__ void stage_rows(unsigned char* rows, const float* acc, float scale) {
+  using P = Panels<D>;
+  constexpr int SWZ = P::RB / 16 - 1;
+  const int warp = (threadIdx.x % 128) / 32;
+  const int lane = threadIdx.x % 32;
+#pragma unroll
+  for (int p = 0; p < P::NP; ++p)
+#pragma unroll
+    for (int j = 0; j < P::PW / 8; ++j)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int r = 16 * warp + lane / 4 + 8 * h;
+        const float* a = acc + p * (P::PW / 2) + 4 * j + 2 * h;
+        *reinterpret_cast<uint32_t*>(rows + p * kPanel + r * P::RB + 16 * (j ^ (r & SWZ)) +
+                                     4 * (lane % 4)) = pack_bf16x2(a[0] * scale, a[1] * scale);
+      }
+}
+
+// Second half, after the warpgroup's named barrier: the 64 staged rows to
+// rows row0 .. row0 + 63 of `out` (rows of D), 16 bytes a thread; rows at
+// or past n_rows are not written.
+template <int D, int kPanel>
+__device__ __forceinline__ void store_rows(const unsigned char* rows, __nv_bfloat16* out,
+                                           int row0, int n_rows) {
+  using P = Panels<D>;
+  constexpr int SWZ = P::RB / 16 - 1;
+  for (int i = threadIdx.x % 128; i < 64 * (D / 8); i += 128) {
+    const int r = i / (D / 8);
+    const int cc = i % (D / 8);
+    const int p = cc / (P::PW / 8), j = cc % (P::PW / 8);
+    if (row0 + r < n_rows)
+      *reinterpret_cast<uint4*>(out + (size_t)(row0 + r) * D + 8 * cc) =
+          *reinterpret_cast<const uint4*>(rows + p * kPanel + r * P::RB + 16 * (j ^ (r & SWZ)));
+  }
 }
 
 // ---- tensor maps (host) ----------------------------------------------------

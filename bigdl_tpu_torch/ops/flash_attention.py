@@ -10,7 +10,9 @@ computes, what bounds it and how:
   softmax in registers, on ``csrc/hopper_common.cuh``), for f32 the FMA
   tile loop of ``csrc/tile_common.cuh``;
 * K2 and K3 ``csrc/flash_bwd.cu`` replace ``_dkv_kernel`` (``:236``)
-  and ``_dq_kernel`` (``:271``).
+  and ``_dq_kernel`` (``:271``): for bf16 warp-specialised Hopper
+  kernels on the same header (TMA ring, wgmma, dK/dV and dQ in
+  registers), for f32 the tile loop.
 
 ``flash_attention`` and ``flash_forward`` run through one
 ``torch.autograd.Function``, the counterpart of the ``custom_vjp`` of
@@ -20,8 +22,10 @@ launches K2 then K3.  For CPU tensors the same Function runs the plain
 versions (``_flash_plain``, ``_flash_bwd_plain``: the kernels' math in
 PyTorch); for CUDA tensors it launches the kernels or raises, forward
 and backward.  Any T and S (the kernels mask the ragged edge: there is
-no TPU-style block-multiple fallback), head dims 16/32/64/128, float32
-or bfloat16.
+no TPU-style block-multiple fallback), any head dim up to 128 (the
+kernels are built for 16/32/64/128; a head dim between them is
+zero-padded to the next, which leaves attention and its gradients as
+they are, and cut back after the launch), float32 or bfloat16.
 """
 from __future__ import annotations
 
@@ -116,8 +120,9 @@ def _flash_bwd_plain(q, k, v, o, lse, d_o, causal: bool, sm_scale: float
 
 def _check_kernel_inputs(what: str, q, k, v):
     D = q.shape[-1]
-    if D not in HEAD_DIMS:
-        raise ValueError(f"{what}: head dim {D} not in {HEAD_DIMS}")
+    if not 1 <= D <= HEAD_DIMS[-1]:
+        raise ValueError(f"{what}: head dim {D} is not in 1..{HEAD_DIMS[-1]}, "
+                         f"the head dims the kernels take")
     if k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"{what}: q, k and v must share a dtype")
     for name, t in (("q", q), ("k", k), ("v", v)):
@@ -126,14 +131,39 @@ def _check_kernel_inputs(what: str, q, k, v):
         raise ValueError(f"{what}: B*H {q.shape[0] * q.shape[1]} > 65535")
 
 
+def _padded_head_dim(D: int) -> int:
+    """The head dim the kernels run for a true head dim D <= 128: the
+    next of ``HEAD_DIMS``."""
+    return next(d for d in HEAD_DIMS if d >= D)
+
+
+def _pad_head_dim(t: torch.Tensor, Dp: int) -> torch.Tensor:
+    """``t`` zero-padded in its last dim to ``Dp`` columns (``t`` itself
+    when it has them).  Exact for attention at the caller's sm_scale:
+    zero q and k columns add 0 to every score, zero v columns only fill
+    output columns that are cut off, and zero dO columns leave delta =
+    rowsum(dO * O) as it is."""
+    D = t.shape[-1]
+    return t if D == Dp else torch.nn.functional.pad(t, (0, Dp - D))
+
+
+def _cut_head_dim(t: torch.Tensor, D: int) -> torch.Tensor:
+    """The first D columns of a kernel's output, contiguous."""
+    return t if t.shape[-1] == D else t[..., :D].contiguous()
+
+
 def _stream(device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
 
 
 def _flash_cuda(q, k, v, causal: bool, sm_scale: float
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Launch K1 on the current stream of q's device."""
+    """Launch K1 on the current stream of q's device (a head dim between
+    the built ones zero-padded, O cut back)."""
     _check_kernel_inputs("flash_attention", q, k, v)
+    D_true = q.shape[-1]
+    Dp = _padded_head_dim(D_true)
+    q, k, v = (_pad_head_dim(t, Dp) for t in (q, k, v))
     B, H, T, D = q.shape
     S = k.shape[2]
     fn = load_cuda_library("flash_fwd").bigdl_flash_fwd
@@ -149,7 +179,7 @@ def _flash_cuda(q, k, v, causal: bool, sm_scale: float
     if err != 0:
         raise RuntimeError(f"flash_fwd launch failed: cudaError {err}")
     LAUNCHES.add()
-    return o, lse
+    return _cut_head_dim(o, D_true), lse
 
 
 def _bwd_fn(name: str, n_ptr: int):
@@ -205,13 +235,17 @@ def _bwd_inputs(q, o, d_o):
 
 def _flash_bwd_cuda(q, k, v, o, lse, d_o, causal: bool, sm_scale: float
                     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Launch K2 then K3 on the current stream of q's device."""
+    """Launch K2 then K3 on the current stream of q's device (a head dim
+    between the built ones zero-padded, the gradients cut back)."""
     _check_kernel_inputs("flash_attention backward", q, k, v)
     check_cuda_input("flash_attention backward lse", lse, (torch.float32,))
     do, delta = _bwd_inputs(q, o, d_o)
+    D = q.shape[-1]
+    Dp = _padded_head_dim(D)
+    q, k, v, do = (_pad_head_dim(t, Dp) for t in (q, k, v, do))
     dk, dv = _launch_dkv(q, k, v, do, lse, delta, causal, sm_scale)
     dq = _launch_dq(q, k, v, do, lse, delta, causal, sm_scale)
-    return dq, dk, dv
+    return tuple(_cut_head_dim(t, D) for t in (dq, dk, dv))
 
 
 class _FlashAttention(torch.autograd.Function):

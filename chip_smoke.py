@@ -12,17 +12,19 @@ Phases; any failure exits non-zero:
    ``block_sparse.cu``: K6-K9; ``conv3x3.cu``: K5) with one ``nvcc``
    each, started together, into ``.torch_kernels/``; Triton compiles K4
    at first launch.  Print the build seconds, and for each instantiation
-   of K1 its registers, spills and dynamic shared memory (ptxas) and its
-   wgmma (HGMMA) and TMA (UTMALDG) instructions (``cuobjdump -sass``,
-   where the toolkit has it); the bf16 D 128 kernel must not spill.
+   of K1, K2 and K3 its registers, spills and dynamic shared memory
+   (ptxas) and its wgmma (HGMMA) and TMA (UTMALDG) instructions
+   (``cuobjdump -sass``, where the toolkit has it); each bf16 D 128
+   kernel must not spill and must hold both.
 3. kernel parity — each kernel against its plain PyTorch version on the
    card at the shapes the served, the training, the block-sparse
    training, the matmul and the ResNet-50 paths give it, with the stated
    tolerance; the block-sparse kernels also at block 32, 8 (ragged
    T 200), 96, in f32, non-causal with a dead q block, strided, with NaN
    in the K/V rows no query may attend, and on all-ones masks against
-   K1-K3 (K7/K8 = K2/K3 bit for bit on the same inputs; K6 = K1 bit for
-   bit in f32, row by row in bf16); K5 forward and dX at ResNet-50's four stage
+   K1-K3 (in f32 K6 = K1 and K7/K8 = K2/K3 bit for bit on the same
+   inputs; in bf16, where K1-K3 are the Hopper kernels, row by row);
+   K5 forward and dX at ResNet-50's four stage
    shapes (B 64, bf16), one in f32 and ragged C 3, O 10, H 7, W 5;
    kernel, plain and library times; the bound.
 4. serving path — the flagship TransformerLM (V 32000, D 1024, 8 heads,
@@ -160,10 +162,10 @@ BS_SMALL_CFG, BS_SMALL_T, BS_SMALL_BATCH = (
 # the gap comes with the shape; both are held to one limit, 4x above them
 BS_FIRST_REL_TOL = 4e-5
 # the flash and all-ones block-sparse runs compute the same function
-# through K1-K3 and K6-K8; their backward kernels are equal bit for bit
-# on that mask (phase 3), but K1's forward rounds at other points than
-# K6's, so their three losses are held to each other at BS_FIRST_REL_TOL,
-# the limit above for two bf16 computations of one loss
+# through K1-K3 and K6-K8; in bf16 K1-K3 are the Hopper kernels, which
+# round at other points than K6-K8 (phase 3 holds the pairs row by row),
+# so their three losses are held to each other at BS_FIRST_REL_TOL, the
+# limit above for two bf16 computations of one loss
 # phase 7: the flagship MLP's first weight, a magnitude mask
 MM_SHAPE, MM_BLOCK, MM_DENSITY = (16384, 1024, 4096), 128, 0.5
 # phase 8: bench.py's ResNet-50 leg (bench.py:231-250), B 64 from its sweep
@@ -315,52 +317,65 @@ def sass_counts(so_path):
     return counts
 
 
-def k1_design(torch):
-    """Phase 2's report of K1's build: per instantiation (dtype, head dim)
-    its registers, spills and dynamic shared memory from ptxas, and its
-    count of wgmma (HGMMA) and TMA load (UTMALDG) instructions in SASS.
-    Fails where the bf16 kernel at D 128 spills or holds no HGMMA.  A
-    library loaded from an earlier build in the same checkout has no
-    ptxas report (``_support.BUILD_INFO``): its registers and spills read
-    "not measured"."""
+def kernel_design(torch):
+    """Phase 2's report of the Hopper kernels' build: per instantiation
+    of K1, K2 and K3 (dtype, head dim) its registers, spills and dynamic
+    shared memory from ptxas, and its count of wgmma (HGMMA) and TMA load
+    (UTMALDG) instructions in SASS.  Fails where a bf16 kernel at D 128
+    spills or holds no HGMMA or no UTMALDG.  A library loaded from an
+    earlier build in the same checkout has no ptxas report
+    (``_support.BUILD_INFO``): its registers and spills read "not
+    measured"."""
     import ctypes
 
     from bigdl_tpu_torch.ops import _support
 
-    lib = _support.load_cuda_library("flash_fwd")
-    smem_of = lib.bigdl_flash_fwd_smem_bytes
-    smem_of.argtypes, smem_of.restype = [ctypes.c_int] * 2, ctypes.c_int
-    ptxas = ptxas_functions(_support.BUILD_INFO["flash_fwd"][1])
-    sass = sass_counts(lib._name)
+    labels = {"fwd": "K1", "bwd_dkv": "K2", "bwd_dq": "K3"}
+    fwd = _support.load_cuda_library("flash_fwd").bigdl_flash_fwd_smem_bytes
+    fwd.argtypes, fwd.restype = [ctypes.c_int] * 2, ctypes.c_int
+    bwd = _support.load_cuda_library("flash_bwd").bigdl_flash_bwd_smem_bytes
+    bwd.argtypes, bwd.restype = [ctypes.c_int] * 3, ctypes.c_int
+    smem_of = {"fwd": fwd, "bwd_dkv": lambda D, dt: bwd(1, D, dt),
+               "bwd_dq": lambda D, dt: bwd(0, D, dt)}
     rows, failures = [], []
-    for fn in sorted(set(ptxas) | set(sass or {})):
-        m = re.search(r"(flash_fwd_wgmma_kernel|flash_fwd_kernel)I(f)?Li(\d+)E",
-                      fn)
-        if m is None:
-            continue
-        dtype = "float32" if m.group(2) else "bfloat16"
-        D = int(m.group(3))
-        rep = ptxas.get(fn)
-        ops = None if sass is None else sass.get(fn)
-        row = dict(kernel=m.group(1), dtype=dtype, head_dim=D,
-                   dynamic_smem_bytes=smem_of(D, 0 if m.group(2) else 1),
-                   ptxas=rep, sass=ops)
-        rows.append(row)
-        regs = ("not measured (an earlier build was loaded)" if rep is None
-                else f"{rep.get('registers')} registers, spill stores "
-                     f"{rep.get('spill_stores')} B, loads "
-                     f"{rep.get('spill_loads')} B")
-        print(f"K1 {dtype:>8} D {D:3d} ({m.group(1)}): {regs}, dynamic smem "
-              f"{row['dynamic_smem_bytes']} B; SASS "
-              f"{ops if ops is not None else 'not measured (no cuobjdump)'}")
-        if dtype == "bfloat16" and D == 128:
-            if rep and (rep.get("spill_stores") or rep.get("spill_loads")):
-                failures.append(f"K1 bf16 D 128 spills: {rep}")
-            if ops is not None and not ops["HGMMA"]:
-                failures.append("K1 bf16 D 128 holds no HGMMA")
-    if not any(r["dtype"] == "bfloat16" and r["head_dim"] == 128
-               for r in rows) and (ptxas or sass):
-        failures.append("K1 bf16 D 128 missing from the build's reports")
+    for lib_name in ("flash_fwd", "flash_bwd"):
+        ptxas = ptxas_functions(_support.BUILD_INFO[lib_name][1])
+        sass = sass_counts(_support.load_cuda_library(lib_name)._name)
+        for fn in sorted(set(ptxas) | set(sass or {})):
+            m = re.search(r"(flash_(fwd|bwd_dkv|bwd_dq)(_wgmma)?_kernel)"
+                          r"I(?:f)?Li(\d+)E", fn)
+            if m is None:
+                continue
+            which, bf16 = m.group(2), m.group(3) is not None
+            D, dtype = int(m.group(4)), "bfloat16" if bf16 else "float32"
+            rep = ptxas.get(fn)
+            ops = None if sass is None else sass.get(fn)
+            row = dict(kernel=m.group(1), label=labels[which], dtype=dtype,
+                       head_dim=D, dynamic_smem_bytes=smem_of[which](
+                           D, int(bf16)), ptxas=rep, sass=ops)
+            rows.append(row)
+            regs = ("not measured (an earlier build was loaded)"
+                    if rep is None else
+                    f"{rep.get('registers')} registers, spill stores "
+                    f"{rep.get('spill_stores')} B, loads "
+                    f"{rep.get('spill_loads')} B")
+            print(f"{row['label']} {dtype:>8} D {D:3d} ({m.group(1)}): "
+                  f"{regs}, dynamic smem {row['dynamic_smem_bytes']} B; SASS "
+                  f"{'not measured (no cuobjdump)' if ops is None else ops}")
+            spills = rep and (rep.get("spill_stores") or rep.get("spill_loads"))
+            if bf16 and D == 128:
+                if spills:
+                    failures.append(f"{row['label']} bf16 D 128 spills: {rep}")
+                if ops is not None and not (ops["HGMMA"] and ops["UTMALDG"]):
+                    failures.append(f"{row['label']} bf16 D 128 holds no "
+                                    f"HGMMA or no UTMALDG: {ops}")
+        for which in (("fwd",) if lib_name == "flash_fwd"
+                      else ("bwd_dkv", "bwd_dq")):
+            built = any(r["label"] == labels[which] and r["head_dim"] == 128
+                        and r["dtype"] == "bfloat16" for r in rows)
+            if not built and (ptxas or sass):
+                failures.append(f"{labels[which]} bf16 D 128 missing from the "
+                                f"build's reports")
     return rows, failures
 
 
@@ -620,11 +635,13 @@ def _bs_bounds(B, H, T, D, item, live, dname):
 def check_block_sparse(torch, F):
     """K6, K7 and K8 against ``_bs_attention_plain`` / ``_bs_bwd_plain``
     on the same inputs (O and LSE from K6), row by row.  The all-ones
-    cases also against K1-K3: K7/K8 and K2/K3, fed the same (O, LSE, dO,
-    delta) from K6, share one tile loop and are equal bit for bit; K6
-    and K1 forward are equal bit for bit in f32 (one FMA tile loop) and
-    held row by row in bf16, where K1's Hopper design rounds at other
-    points.  Times: each kernel alone
+    cases also against K1-K3, fed the same (O, LSE, dO, delta) from K6:
+    in f32 the two families share one FMA tile loop and are equal bit
+    for bit, K6 = K1 and K7/K8 = K2/K3; in bf16 K1-K3 are the Hopper
+    kernels, which round at other points, and K6 is held against K1 and
+    K7/K8 against K2/K3 row by row (the gradients at one scale for the
+    three, as ``check_flash_bwd`` holds K2/K3 against the plain
+    version).  Times: each kernel alone
     (graph replay), the plain forward and backward, and
     ``scaled_dot_product_attention`` with the elementwise boolean mask,
     forward (graph replay) and backward (``torch.autograd.grad``, CUDA
@@ -671,21 +688,31 @@ def check_block_sparse(torch, F):
             o1, lse1 = fa._flash_cuda(q, k, v, causal, scale)
             dk1, dv1 = fa._launch_dkv(q, k, v, do, lse, delta, causal, scale)
             dq1 = fa._launch_dq(q, k, v, do, lse, delta, causal, scale)
-            same = {n: bool(torch.equal(a, b)) for n, a, b in (
-                ("dq", dq, dq1), ("dk", dk, dk1), ("dv", dv, dv1))}
+            pairs = (("dq", dq, dq1), ("dk", dk, dk1), ("dv", dv, dv1))
             if dname == "float32":
+                same = {n: bool(torch.equal(a, b)) for n, a, b in pairs}
                 same.update(o=bool(torch.equal(o, o1)),
                             lse=bool(torch.equal(lse, lse1)))
-            fwd = dict(row_rel_err=row_rel_err(torch, o1, o),
-                       lse_err=(lse1 - lse).abs().max().item())
-            fwd_ok = fwd["row_rel_err"] <= tol and fwd["lse_err"] <= LSE_TOL
-            row.update(equals_flash_bitwise=same, k1_vs_k6=fwd)
-            ok = ok and all(same.values()) and fwd_ok
+                row["equals_flash_bitwise"] = same
+                pair_ok = all(same.values())
+                said = f"bitwise equal {same}"
+            else:
+                k23 = max(max_row_norm(torch, b) for _, _, b in pairs)
+                bwd = {n: row_rel_err(torch, a, b, k23) for n, a, b in pairs}
+                fwd = dict(row_rel_err=row_rel_err(torch, o1, o),
+                           lse_err=(lse1 - lse).abs().max().item())
+                row.update(k1_vs_k6=fwd, k7k8_vs_k2k3_row_rel_err=bwd)
+                pair_ok = (max(bwd.values()) <= tol
+                           and fwd["row_rel_err"] <= tol
+                           and fwd["lse_err"] <= LSE_TOL)
+                said = (f"K1 vs K6 row err {fwd['row_rel_err']:.3e} lse "
+                        f"{fwd['lse_err']:.3e}; K7/K8 vs K2/K3 row err "
+                        + " ".join(f"{n} {e:.3e}" for n, e in bwd.items())
+                        + f" (tol {tol:g})")
+            ok = ok and pair_ok
             row["ok"] = ok
             rows.append(row)
-            print(f"K6-K8 vs K1-K3 {label}: K1 vs K6 row err "
-                  f"{fwd['row_rel_err']:.3e} (tol {tol:g}) lse "
-                  f"{fwd['lse_err']:.3e}; bitwise equal {same} "
+            print(f"K6-K8 vs K1-K3 {label}: {said} "
                   f"{'OK' if ok else 'FAIL'}")
             continue
         big = B * H * T * T >= 1 << 28
@@ -1966,13 +1993,13 @@ def main(argv=None) -> int:
           f") -> {_support.BUILD_DIR}; layer_norm (triton, first launch) "
           f"{triton_build_s:.1f} s")
 
-    k1_rows, k1_failures = k1_design(torch)
+    design_rows, design_failures = kernel_design(torch)
 
     out = REPO / "chiprun_out"
     out.mkdir(exist_ok=True)
     if args.profile:
-        if k1_failures:
-            for f in k1_failures:
+        if design_failures:
+            for f in design_failures:
                 print(f"FAIL: {f}", file=sys.stderr)
             return 1
         report = dict(served=profile_served(torch),
@@ -1990,7 +2017,7 @@ def main(argv=None) -> int:
         return 0
 
     # phase 3: kernel parity
-    failures = list(k1_failures)
+    failures = list(design_failures)
     flash_rows = check_flash(torch, F)
     ln_rows = check_layer_norm(torch, F)
     bwd_rows = check_flash_bwd(torch, F)
@@ -2083,8 +2110,8 @@ def main(argv=None) -> int:
         device=kind, nvidia_smi=smi, torch=torch.__version__,
         cuda=torch.version.cuda, cuda_build_s=cuda_build_s,
         build_s={k: v[0] for k, v in _support.BUILD_INFO.items()},
-        triton_build_s=triton_build_s, k1_design=k1_rows, flash=flash_rows,
-        layer_norm=ln_rows,
+        triton_build_s=triton_build_s, hopper_design=design_rows,
+        flash=flash_rows, layer_norm=ln_rows,
         flash_bwd=bwd_rows, block_sparse=bs_rows, block_sparse_mm=mm_rows,
         conv3x3=conv_rows, serving_path=served, training_path=trained,
         blocksparse_training_path=bs_trained, matmul_path=mm_path,

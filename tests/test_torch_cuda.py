@@ -8,10 +8,12 @@ conftest (which configures jax):
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q
 
 Each kernel is held against its plain PyTorch version on the same
-inputs, forward and backward; a small TransformerLM served on the card
-in f32, and small flash and block-sparse ones, a ResNet-CIFAR on K5 and
-a LeNet-5 trained three steps on the card in f32, are held against the
-same model on the CPU.
+inputs, forward and backward, also at head dims the kernels are not
+built for (zero-padded to the next); a small TransformerLM served on
+the card in f32 (also at head dim 8, through the server), and small
+flash and block-sparse ones, a ResNet-CIFAR on K5 and a LeNet-5 trained
+three steps on the card in f32, are held against the same model on the
+CPU.
 """
 import math
 
@@ -30,6 +32,7 @@ from bigdl_tpu_torch.ops import conv3x3
 from bigdl_tpu_torch.ops import flash_attention as fa
 from bigdl_tpu_torch.ops import layer_norm as ln
 from bigdl_tpu_torch.optim import SGD, LocalOptimizer, Trigger, max_iteration
+from bigdl_tpu_torch.serving import InferenceServer, Status
 from bigdl_tpu_torch.utils.rng import RNG
 
 pytestmark = pytest.mark.cuda
@@ -105,16 +108,23 @@ def test_flash_kernel_matches_plain_on_card(cuda_device, T, S, D, dtype,
 
 @pytest.mark.parametrize("D", [128, 32])
 def test_flash_kernel_is_deterministic_on_card(cuda_device, D):
-    """No atomics and a fixed order of products and sums: two launches on
-    the same inputs give the same bits."""
+    """No atomics (each output row has one owner block) and a fixed order
+    of products and sums: two launches of K1, of K2 and of K3 on the
+    same inputs give the same bits."""
     g = torch.Generator(device=cuda_device).manual_seed(9)
-    q, k, v = (torch.randn(4, 8, 333, D, device=cuda_device,
-                           generator=g).to(bf16) for _ in range(3))
+    q, k, v, d_o = (torch.randn(4, 8, 333, D, device=cuda_device,
+                                generator=g).to(bf16) for _ in range(4))
     first = fa._flash_cuda(q, k, v, True, 0.1)
     second = fa._flash_cuda(q, k, v, True, 0.1)
+    do, delta = fa._bwd_inputs(q, first[0], d_o)
+    runs = [fa._launch_dkv(q, k, v, do, first[1], delta, True, 0.1)
+            + (fa._launch_dq(q, k, v, do, first[1], delta, True, 0.1),)
+            for _ in range(2)]
     torch.cuda.synchronize()
     assert torch.equal(first[0], second[0])
     assert torch.equal(first[1], second[1])
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
 
 
 @pytest.mark.parametrize("rows,F,dtype", [
@@ -137,9 +147,12 @@ def test_layer_norm_kernel_matches_plain_on_card(cuda_device, rows, F,
 
 
 def test_kernels_reject_what_they_do_not_take(cuda_device):
-    q = torch.randn(1, 2, 16, 48, device=cuda_device)
-    with pytest.raises(ValueError, match="head dim"):
+    # head dims up to 128 are padded to a built one; past 128 none is
+    q = torch.randn(1, 2, 16, 160, device=cuda_device)
+    with pytest.raises(ValueError, match="head dim 160"):
         fa.flash_attention(q, q, q)
+    with pytest.raises(ValueError, match="head dim 160"):
+        bs.block_sparse_attention(q, q, q, np.ones((1, 1), bool))
     q = torch.randn(1, 2, 16, 32, device=cuda_device, dtype=torch.float16)
     with pytest.raises(TypeError):
         fa.flash_attention(q, q, q)
@@ -148,22 +161,44 @@ def test_kernels_reject_what_they_do_not_take(cuda_device):
         fa.flash_attention(q, q, q)
 
 
-@pytest.mark.parametrize("T,S,D,dtype,causal", [
-    (512, 512, 128, torch.bfloat16, True),
-    (200, 200, 128, torch.bfloat16, True),
-    (300, 200, 64, torch.bfloat16, True),
-    (200, 300, 64, torch.bfloat16, True),
-    (1, 1, 16, torch.bfloat16, True),
-    (96, 130, 32, torch.bfloat16, False),
-    (130, 96, 32, torch.float32, False),
-    (256, 256, 128, torch.float32, True),
+@pytest.mark.parametrize("T,S,D,dtype,causal,B,H", [
+    (512, 512, 128, bf16, True, 2, 4),
+    (200, 200, 128, bf16, True, 2, 4),
+    (300, 200, 64, bf16, True, 2, 4),
+    (200, 300, 64, bf16, True, 2, 4),
+    (1, 1, 16, bf16, True, 2, 4),
+    (96, 130, 32, bf16, False, 2, 4),
+    (130, 96, 32, torch.float32, False, 2, 4),
+    (256, 256, 128, torch.float32, True, 2, 4),
+    # bf16 K2/K3 (128 output rows a block, 64-row streamed tiles): at and
+    # around the tile edges
+    (63, 63, 128, bf16, True, 2, 4),
+    (64, 64, 128, bf16, True, 2, 4),
+    (65, 65, 128, bf16, True, 2, 4),
+    (127, 127, 128, bf16, True, 2, 4),
+    (128, 128, 128, bf16, True, 2, 4),
+    (129, 129, 128, bf16, True, 2, 4),
+    (257, 257, 128, bf16, True, 2, 4),
+    (65, 129, 128, bf16, False, 2, 4),
+    (257, 63, 128, bf16, False, 2, 4),
+    # causal T > S and T < S at D 128
+    (257, 129, 128, bf16, True, 2, 4),
+    (129, 257, 128, bf16, True, 2, 4),
+    # every head dim
+    (200, 200, 16, bf16, True, 2, 4),
+    (129, 65, 32, bf16, True, 2, 4),
+    (257, 257, 64, bf16, True, 2, 4),
+    (64, 200, 16, bf16, False, 2, 4),
+    # more blocks than an H100 has SMs (132): 512, and 256 from B*H alone
+    (512, 512, 128, bf16, True, 8, 16),
+    (128, 128, 64, bf16, False, 16, 16),
 ])
 def test_flash_bwd_kernels_match_plain_on_card(cuda_device, T, S, D, dtype,
-                                               causal):
+                                               causal, B, H):
     g = torch.Generator(device=cuda_device).manual_seed(1)
-    q, k, v = (torch.randn(2, 4, n, D, device=cuda_device,
+    q, k, v = (torch.randn(B, H, n, D, device=cuda_device,
                            generator=g).to(dtype) for n in (T, S, S))
-    d_o = torch.randn(2, 4, T, D, device=cuda_device, generator=g).to(dtype)
+    d_o = torch.randn(B, H, T, D, device=cuda_device, generator=g).to(dtype)
     scale = 1 / math.sqrt(D)
     o, lse = fa._flash_cuda(q, k, v, causal, scale)
     before = (fa.LAUNCHES_DKV.count, fa.LAUNCHES_DQ.count)
@@ -181,6 +216,70 @@ def test_flash_bwd_kernels_match_plain_on_card(cuda_device, T, S, D, dtype,
         assert _row_rel_err(a, b, largest) <= ROW_TOL[dtype]
     if causal and S > T:   # keys no query attends get exactly zero
         assert not got[1][:, :, T:].any() and not got[2][:, :, T:].any()
+
+
+def _check_attention_grads(got, want, dtype):
+    """Each of (dq, dk, dv) row by row against the plain version's, at
+    one scale for the three."""
+    largest = max(torch.linalg.vector_norm(b.float(), dim=-1).max().item()
+                  for b in want)
+    for a, b in zip(got, want):
+        assert a.dtype == dtype and a.shape == b.shape
+        assert torch.isfinite(a.float()).all()
+        assert _row_rel_err(a, b, largest) <= ROW_TOL[dtype]
+
+
+@pytest.mark.parametrize("D", [6, 8, 96])
+@pytest.mark.parametrize("dtype", [bf16, torch.float32])
+@pytest.mark.parametrize("which", ["flash", "block_sparse"])
+def test_odd_head_dims_run_the_kernels_on_card(cuda_device, D, dtype, which):
+    """A head dim the kernels are not built for is zero-padded to the
+    next built one and cut back: forward and backward through the entry
+    points launch K1-K3 (K6-K8) once each and match the plain versions
+    on the unpadded inputs at the true sm_scale.
+
+    O is held against the plain forward with q and k in f32: it rounds
+    P to v's dtype where the kernels do and returns O unrounded.  A row
+    here holds as few as 6 elements, and two bf16 roundings of one f32
+    value may land one ulp apart (2^-8 to 2^-7 of the element), which in
+    a row this short is that share of its norm; against the unrounded O
+    the kernel's output rounds once, within half an ulp.  The gradients
+    are held against the plain backward in the working dtype, whose
+    rounding points (P, dS, the outputs) are the kernels'."""
+    T = 200
+    g = torch.Generator(device=cuda_device).manual_seed(14)
+    q, k, v, d_o = (torch.randn(2, 4, T, D, device=cuda_device,
+                                generator=g).to(dtype) for _ in range(4))
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    q32, k32 = q.float(), k.float()
+    scale = 1 / math.sqrt(D)
+    if which == "flash":
+        counters = (fa.LAUNCHES, fa.LAUNCHES_DKV, fa.LAUNCHES_DQ)
+        before = [c.count for c in counters]
+        o, lse = fa.flash_forward(*leaves, causal=True)
+        o_ref, lse_ref = fa._flash_plain(q32, k32, v, True, scale)
+        got = torch.autograd.grad(o, leaves, d_o)
+        want = fa._flash_bwd_plain(q, k, v, o.detach(), lse, d_o, True,
+                                   scale)
+    else:
+        mask = bs.sliding_window_mask(5, 5, 2, 1, True, 40, 40)
+        counters = (bs.LAUNCHES, bs.LAUNCHES_DKV, bs.LAUNCHES_DQ)
+        before = [c.count for c in counters]
+        o = bs.block_sparse_attention(*leaves, mask, causal=True)
+        # the entry point returns O alone: the plain LSE stands for K6's
+        o_ref, lse_ref = bs._bs_attention_plain(q32, k32, v, mask, True,
+                                                scale)
+        lse = lse_ref
+        got = torch.autograd.grad(o, leaves, d_o)
+        want = bs._bs_bwd_plain(q, k, v, o.detach(), lse_ref, d_o, mask,
+                                True, scale)
+    torch.cuda.synchronize()
+    assert [c.count - n for c, n in zip(counters, before)] == [1, 1, 1]
+    assert o.shape == (2, 4, T, D) and o.dtype == dtype
+    assert o_ref.dtype == torch.float32
+    assert _row_rel_err(o, o_ref) <= ROW_TOL[dtype]
+    assert (lse - lse_ref).abs().max().item() <= 1e-3
+    _check_attention_grads(got, want, dtype)
 
 
 def test_cuda_gradients_match_the_plain_backward(cuda_device):
@@ -315,6 +414,38 @@ def test_small_lm_on_card_matches_cpu(cuda_device):
     np.testing.assert_array_equal(got, want)
 
 
+def test_head_dim_8_lm_served_on_card_matches_cpu(cuda_device):
+    """A TransformerLM with heads of 8 (the JAX package's test models)
+    served in f32 by the port's InferenceServer on the card: its prefill
+    runs K1 on heads zero-padded to 16, and the greedy decode is token
+    exact against the same model on the CPU."""
+    cfg = dict(embed_dim=32, num_heads=4, num_layers=2, max_len=64,
+               seq_strategy="flash")
+    V, T0, max_new = 64, 20, 12
+    cpu = TransformerLM(V, **cfg, device="cpu",
+                        generator=torch.Generator().manual_seed(9))
+    card = TransformerLM(V, **cfg, device=cuda_device,
+                         generator=torch.Generator().manual_seed(9))
+    prompts = np.random.RandomState(1).randint(
+        1, V + 1, size=(3, T0)).astype(np.int32)
+    want = make_generate(cpu)(cpu.param_tree(), prompts, max_new).numpy()
+    with torch.no_grad():
+        lp = cpu(torch.as_tensor(want[:, :-1])).numpy()
+    top2 = np.sort(lp[:, T0 - 1:], axis=-1)[..., -2:]
+    assert (top2[..., 1] - top2[..., 0]).min() > 1e-3
+    before = fa.LAUNCHES.count
+    server = InferenceServer(card, max_batch=3).start()
+    try:
+        results = [f.result(timeout=300) for f in
+                   [server.submit_generate(p, max_new) for p in prompts]]
+    finally:
+        assert server.stop(timeout=60)
+    assert [r.status for r in results] == [Status.OK] * 3
+    assert fa.LAUNCHES.count > before   # the prefill ran K1
+    np.testing.assert_array_equal(np.stack([r.output for r in results]),
+                                  want[:, T0:])
+
+
 # ----------------------------------------------------------------------
 # block-sparse attention (K6-K8) and the block-sparse matmul (K9)
 # ----------------------------------------------------------------------
@@ -403,11 +534,12 @@ def test_block_sparse_empty_rows_are_exactly_zero_on_card(cuda_device):
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_block_sparse_all_ones_mask_is_the_flash_kernels(cuda_device, dtype):
     """An all-ones causal mask at a 64-multiple block visits the flash
-    kernels' 64-row tiles in their order with no partial tile.  K7/K8 and
-    K2/K3 share that tile loop: fed the same (O, LSE, dO), from K6, they
-    are equal bit for bit.  So are K6 and K1 in f32, where K1 keeps the
-    same FMA loop; in bf16 K1 is the Hopper kernel, which rounds at other
-    points, and the two forwards are held row by row."""
+    kernels' 64-row tiles in their order with no partial tile.  In f32,
+    K1-K3 keep the FMA tile loop that K6-K8 run over their tile lists:
+    K6 = K1, and K7/K8 = K2/K3 fed the same (O, LSE, dO) from K6, bit for
+    bit.  In bf16, K1-K3 are the Hopper kernels, which round at other
+    points: the forwards and, on the same (O, LSE, dO), the gradients
+    are held row by row, the gradients at one scale for the three."""
     T, D = 512, 128 if dtype == torch.bfloat16 else 64
     mask = bs.BlockMask(np.ones((4, 4), bool), 128, 128)
     q, k, v, d_o = _bs_inputs(T, T, D, dtype, cuda_device, 7)
@@ -421,8 +553,11 @@ def test_block_sparse_all_ones_mask_is_the_flash_kernels(cuda_device, dtype):
         assert (lse1 - lse).abs().max().item() <= 1e-3
     got = bs._bs_bwd_cuda(q, k, v, o, lse, d_o, mask, True, scale)
     want = fa._flash_bwd_cuda(q, k, v, o, lse, d_o, True, scale)
-    for a, b in zip(got, want):
-        assert torch.equal(a, b)
+    if dtype == torch.float32:
+        for a, b in zip(got, want):
+            assert torch.equal(a, b)
+    else:
+        _check_attention_grads(got, want, dtype)
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])

@@ -204,6 +204,33 @@ def test_flash_bwd_fully_masked_rows_give_zero_gradients():
     assert torch.equal(dv[:, :, 8:], torch.zeros_like(dv[:, :, 8:]))
 
 
+@pytest.mark.parametrize("D", [6, 8, 48, 96])
+@pytest.mark.parametrize("causal", [True, False])
+def test_padded_head_dim_leaves_attention_and_grads_unchanged(D, causal):
+    """What the CUDA wrappers do for a head dim the kernels are not
+    built for: zero-pad q, k, v and dO to the next built head dim, run
+    at the true sm_scale, cut the outputs back.  In the plain versions
+    this equals attention on the unpadded inputs."""
+    q, k, v = (torch.from_numpy(a) for a in _qkv(2, 2, 40, 56, D, seed=D))
+    g = torch.from_numpy(np.random.RandomState(D + 1).randn(
+        2, 2, 40, D).astype(np.float32))
+    scale = 1 / math.sqrt(D)
+    Dp = fa._padded_head_dim(D)
+    assert Dp == {6: 16, 8: 16, 48: 64, 96: 128}[D]
+    qp, kp, vp, gp = (fa._pad_head_dim(t, Dp) for t in (q, k, v, g))
+    assert qp.shape[-1] == Dp and not qp[..., D:].any()
+    o, lse = fa._flash_plain(q, k, v, causal, scale)
+    op, lsep = fa._flash_plain(qp, kp, vp, causal, scale)
+    assert not op[..., D:].any()
+    torch.testing.assert_close(fa._cut_head_dim(op, D), o, rtol=0, atol=1e-6)
+    torch.testing.assert_close(lsep, lse, rtol=0, atol=1e-6)
+    want = fa._flash_bwd_plain(q, k, v, o, lse, g, causal, scale)
+    got = fa._flash_bwd_plain(qp, kp, vp, op, lsep, gp, causal, scale)
+    for a, b in zip(got, want):
+        torch.testing.assert_close(fa._cut_head_dim(a, D), b, rtol=0,
+                                   atol=1e-6)
+
+
 @pytest.mark.parametrize("shape", [(4, 7, 64), (16, 1000)])
 def test_layer_norm_grad_matches_jax_grad_of_pallas_interpret(shape):
     rng = np.random.RandomState(2)
