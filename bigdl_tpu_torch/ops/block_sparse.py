@@ -20,8 +20,14 @@ with the causally dead blocks pruned, AND the element-level causal
 mask), and flags the tile pairs the mask covers only in part.  Inside a
 flagged pair the kernels test each element against the block mask and
 zero-fill the rows that no row of the other tile may attend, so a dead
-element never reaches a product.  The tables go to the card once per
-(mask, causal, device) and stay cached: no launch uploads anything.
+element never reaches a product.  K7 and K8 in bf16 (K2/K3's Hopper
+body, ``csrc/attn_bwd_hopper.cuh``) own 128 rows a block:
+``_block_lists`` regroups the lists per block, with per-warpgroup flags,
+the live rows of each partial pair and a heaviest-first block order.
+The tables go to the card once per (mask, causal, device) and stay
+cached: no launch uploads anything.  Head dims above 128 take the wide
+route of ``flash_attention`` (``csrc/attn_wide.cu``) under the block
+mask.
 
 ``block_sparse_attention`` and ``block_sparse_matmul`` are
 ``torch.autograd.Function``s, the counterparts of the ``custom_vjp``s
@@ -29,8 +35,8 @@ element never reaches a product.  The tables go to the card once per
 versions (``_bs_attention_plain``, ``_bs_bwd_plain``, ``_bs_mm_plain``:
 the kernels' math in PyTorch, masking with a select); for CUDA tensors
 they launch the kernels or raise, forward and backward.  Any block size
-that tiles the sequence (or the weight), any head dim up to 128 (padded
-as ``flash_attention`` pads it), float32 or bfloat16.
+that tiles the sequence (or the weight), any head dim (padded or taken
+wide as ``flash_attention`` does), any B*H, float32 or bfloat16.
 """
 from __future__ import annotations
 
@@ -43,16 +49,18 @@ import numpy as np
 import torch
 
 from ._support import LaunchCounter, check_cuda_input, load_cuda_library, on_cpu
-from .flash_attention import (_DTYPE_CODE, _attn_bwd_plain, _attn_plain,
-                              _bwd_inputs, _causal_keep, _check_kernel_inputs,
-                              _cut_head_dim, _pad_head_dim, _padded_head_dim,
-                              _stream)
+from .flash_attention import (_DTYPE_CODE, HEADS, _attn_bwd_plain,
+                              _attn_plain, _bwd_inputs, _causal_keep,
+                              _check_kernel_inputs, _cut_head_dim,
+                              _launch_heads, _pad_head_dim, _padded_head_dim,
+                              _stream, _wide, _wide_dkv, _wide_dq, _wide_fwd)
 
 __all__ = ["BlockMask", "block_sparse_attention", "block_sparse_matmul",
            "sliding_window_mask", "strided_mask", "magnitude_block_mask",
            "attention_work", "matmul_work", "pick_block_divisor"]
 
 TILE = 64   # rows of every attention tile the kernels work on
+BLOCK_ROWS = 128   # own rows of a bf16 K7/K8 block: two 64-row tiles
 
 #: launches of K6, K7, K8 and K9 (CUDA branch only)
 LAUNCHES = LaunchCounter("block_sparse_fwd")
@@ -268,6 +276,15 @@ def matmul_work(mask: BlockMask, m_rows: int, train: bool = False) -> dict:
 # 64-row tile tables (the port's form of the scalar-prefetch tables)
 # --------------------------------------------------------------------------
 
+def _keep_sub(run: np.ndarray, bq: int, bk: int, causal: bool, q0: int,
+              q1: int, k0: int, k1: int) -> np.ndarray:
+    """(q1 - q0, k1 - k0) bool: query q attends key k under the runtime
+    block mask ``run`` (AND q >= k under ``causal``)."""
+    qs, ks = np.arange(q0, q1), np.arange(k0, k1)
+    sub = run[qs // bq][:, ks // bk]
+    return sub & (qs[:, None] >= ks[None, :]) if causal else sub
+
+
 def _tile_tables(mask: BlockMask, causal: bool
                  ) -> Tuple[np.ndarray, np.ndarray]:
     """(visited, partial), both (ceil(T/64), ceil(S/64)) bool: tile pair
@@ -297,10 +314,9 @@ def _tile_tables(mask: BlockMask, causal: bool
         visited &= k_start[None, :] <= q_last[:, None]
         crossing = visited & (k_last[None, :] > q_start[:, None])
         for i, j in zip(*np.nonzero(crossing)):
-            qs = np.arange(q_start[i], q_last[i] + 1)
-            ks = np.arange(k_start[j], k_last[j] + 1)
-            sub = run[qs // bq][:, ks // bk] & (qs[:, None] >= ks[None, :])
-            visited[i, j] = bool(sub.any())
+            visited[i, j] = bool(_keep_sub(run, bq, bk, True, q_start[i],
+                                           q_last[i] + 1, k_start[j],
+                                           k_last[j] + 1).any())
     return visited, visited & (live_blocks < area)
 
 
@@ -318,6 +334,65 @@ def _tile_lists(visited: np.ndarray, partial: np.ndarray):
         tiles[r, :idx.size] = idx
         flags[r, :idx.size] = partial[r, idx]
     return tiles, flags, counts
+
+
+def _block_lists(visited: np.ndarray, partial: np.ndarray, live) -> dict:
+    """The bf16 K7/K8 sweep of each block of 128 own rows, from the 64-row
+    tile tables ``visited`` and ``partial`` ((own tiles, streamed tiles)
+    bool): the ascending union of its two tiles' lists, a flag byte per
+    entry (bit w: own tile w visits the streamed tile; bit 2 + w: that
+    pair is partial), at an entry with a partial pair the streamed rows
+    some row of the block attends (``live(b, j)``, 64 bools, as bits of a
+    uint64 held in an int64), the count, and the blocks ordered by count,
+    largest first (stable).  Arrays: tiles int32, flags uint8, rows int64
+    (blocks, L); counts, order int32 (blocks,)."""
+    n_own, n_other = visited.shape
+    nb = -(-n_own // 2)
+    v = np.zeros((2 * nb, n_other), bool)
+    p = np.zeros((2 * nb, n_other), bool)
+    v[:n_own], p[:n_own] = visited, partial
+    v, p = v.reshape(nb, 2, n_other), p.reshape(nb, 2, n_other)
+    union = v.any(axis=1)
+    counts = union.sum(axis=1).astype(np.int32)
+    L = max(1, int(counts.max()) if nb else 1)
+    tiles = np.zeros((nb, L), np.int32)
+    flags = np.zeros((nb, L), np.uint8)
+    rows = np.zeros((nb, L), np.uint64)
+    bits = np.left_shift(np.uint64(1), np.arange(64, dtype=np.uint64))
+    for b in range(nb):
+        idx = np.nonzero(union[b])[0]
+        f = (v[b, 0, idx] | (v[b, 1, idx] << 1) | (p[b, 0, idx] << 2)
+             | (p[b, 1, idx] << 3))
+        tiles[b, :idx.size] = idx
+        flags[b, :idx.size] = f
+        for e in np.nonzero(f & 12)[0]:
+            live_r = live(b, idx[e])
+            rows[b, e] = bits[:live_r.size][live_r].sum(dtype=np.uint64)
+    order = np.argsort(-counts, kind="stable").astype(np.int32)
+    return dict(tiles=tiles, flags=flags, rows=rows.view(np.int64),
+                counts=counts, order=order)
+
+
+def _block_tables(mask: BlockMask, causal: bool, visited: np.ndarray,
+                  partial: np.ndarray):
+    """``_block_lists`` for K8 (own query blocks, streamed key tiles) and
+    for K7 (own key blocks, streamed query tiles)."""
+    run = _runtime_mask(mask, causal).mask
+    bq, bk = mask.block_q, mask.block_k
+    T, S = run.shape[0] * bq, run.shape[1] * bk
+
+    def live_keys(b, j):    # keys of tile j some query of block b attends
+        return _keep_sub(run, bq, bk, causal, b * BLOCK_ROWS,
+                         min((b + 1) * BLOCK_ROWS, T), j * TILE,
+                         min((j + 1) * TILE, S)).any(axis=0)
+
+    def live_queries(b, j):   # queries of tile j that attend a key of block b
+        return _keep_sub(run, bq, bk, causal, j * TILE, min((j + 1) * TILE, T),
+                         b * BLOCK_ROWS, min((b + 1) * BLOCK_ROWS, S)
+                         ).any(axis=1)
+
+    return (_block_lists(visited, partial, live_keys),
+            _block_lists(visited.T, partial.T, live_queries))
 
 
 class _LRU(OrderedDict):
@@ -348,15 +423,22 @@ def _to_device(a: np.ndarray, device) -> torch.Tensor:
 
 def _attention_tables(mask: BlockMask, causal: bool, device):
     """The kernels' tables on ``device``, built once per (mask, causal,
-    device): the forward's and K8's per-q-tile lists, K7's per-k-tile
-    lists, and the runtime block mask (uint8) for partial pairs."""
+    device): the 64-row tile lists of K6 and the f32 K8 (per q tile) and
+    of the f32 K7 (per k tile), the 128-row block lists of the bf16 K8
+    (``dq_blocks``) and K7 (``dkv_blocks``), and the runtime block mask
+    (uint8) for partial pairs and the wide route."""
     def make():
         visited, partial = _tile_tables(mask, causal)
         fwd = _tile_lists(visited, partial)
         dkv = _tile_lists(visited.T, partial.T)
+        dq_blocks, dkv_blocks = _block_tables(mask, causal, visited, partial)
         run = _runtime_mask(mask, causal).mask.astype(np.uint8)
         return dict(fwd=tuple(_to_device(a, device) for a in fwd),
                     dkv=tuple(_to_device(a, device) for a in dkv),
+                    dq_blocks={n: _to_device(a, device)
+                               for n, a in dq_blocks.items()},
+                    dkv_blocks={n: _to_device(a, device)
+                                for n, a in dkv_blocks.items()},
                     block_mask=_to_device(run, device),
                     visited=int(visited.sum()), partial=int(partial.sum()))
 
@@ -438,39 +520,50 @@ def _attn_fn(name: str, n_ptr: int):
     return fn
 
 
-def _table_args(tab, which: str):
-    tiles, flags, counts = tab[which]
-    return [tiles.data_ptr(), counts.data_ptr(), flags.data_ptr(),
-            tab["block_mask"].data_ptr()], tiles.shape[1]
-
-
-def _mask_ints(mask: BlockMask, L: int, q, k):
+def _table_args(tab, which: str, mask: BlockMask, q, k):
+    """The table pointers and ints of a launch: K6 and the f32 K7/K8
+    read the 64-row tile lists (``fwd``, ``dkv``: tiles, counts, partial
+    flags), the bf16 K7/K8 the 128-row block lists (``dq_blocks``,
+    ``dkv_blocks``: tiles, counts, flags, order, rows); then the block
+    mask, L, the mask's shape and the problem's."""
+    t = tab[which]
+    if isinstance(t, dict):
+        tiles, counts, flags = t["tiles"], t["counts"], t["flags"]
+        extra = [t["order"].data_ptr(), t["rows"].data_ptr()]
+    else:
+        (tiles, flags, counts), extra = t, [None, None]
     B, H, T, D = q.shape
-    return [L, mask.mask.shape[1], mask.block_q, mask.block_k, B * H, T,
-            k.shape[2], D, _DTYPE_CODE[q.dtype]]
+    ptrs = [tiles.data_ptr(), counts.data_ptr(), flags.data_ptr(),
+            tab["block_mask"].data_ptr()]
+    ints = [tiles.shape[1], mask.mask.shape[1], mask.block_q, mask.block_k,
+            HEADS, T, k.shape[2], D, _DTYPE_CODE[q.dtype]]
+    return ptrs, extra, ints
+
+
+def _wide_block_mask(tab, mask: BlockMask):
+    """The wide route's mask arguments: the runtime block mask, bq, bk."""
+    return tab["block_mask"], mask.block_q, mask.block_k
 
 
 def _bs_fwd_cuda(q, k, v, mask: BlockMask, causal: bool, sm_scale: float
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Launch K6 on the current stream of q's device (a head dim between
-    the built ones zero-padded, O cut back)."""
+    the built ones zero-padded, O cut back; above 128 the wide route)."""
     _check_kernel_inputs("block_sparse_attention", q, k, v)
+    tab = _attention_tables(mask, causal, q.device)
     D_true = q.shape[-1]
+    if _wide(D_true):
+        return _wide_fwd(q, k, v, causal, sm_scale, LAUNCHES,
+                         _wide_block_mask(tab, mask))
     Dp = _padded_head_dim(D_true)
     q, k, v = (_pad_head_dim(t, Dp) for t in (q, k, v))
     B, H, T, D = q.shape
-    tab = _attention_tables(mask, causal, q.device)
-    ptrs, L = _table_args(tab, "fwd")
+    ptrs, _, ints = _table_args(tab, "fwd", mask, q, k)
     o = torch.empty_like(q)
     lse = torch.empty((B * H, 1, T), dtype=torch.float32, device=q.device)
-    with torch.cuda.device(q.device):
-        err = _attn_fn("bigdl_bs_fwd", 9)(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-            lse.data_ptr(), *ptrs, *_mask_ints(mask, L, q, k),
-            float(sm_scale), int(bool(causal)), _stream(q.device))
-    if err != 0:
-        raise RuntimeError(f"block_sparse_fwd launch failed: cudaError {err}")
-    LAUNCHES.add()
+    _launch_heads("block_sparse_fwd", (LAUNCHES,), _attn_fn("bigdl_bs_fwd", 9),
+                  [q, k, v, o, lse],
+                  [*ptrs, *ints, float(sm_scale), int(bool(causal))], B * H)
     return _cut_head_dim(o, D_true), lse
 
 
@@ -479,18 +572,17 @@ def _launch_bs_dkv(q, k, v, do, lse, delta, mask: BlockMask, causal: bool,
     """Launch K7 over prepared inputs (dO in q's dtype, delta (B*H, T)
     f32).  Every k tile writes its rows, zeros where no query reads."""
     tab = _attention_tables(mask, causal, q.device)
-    ptrs, L = _table_args(tab, "dkv")
+    if _wide(q.shape[-1]):
+        return _wide_dkv(q, k, v, do, lse, delta, causal, sm_scale,
+                         LAUNCHES_DKV, _wide_block_mask(tab, mask))
+    which = "dkv_blocks" if q.dtype == torch.bfloat16 else "dkv"
+    ptrs, extra, ints = _table_args(tab, which, mask, q, k)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
-    with torch.cuda.device(q.device):
-        err = _attn_fn("bigdl_bs_bwd_dkv", 12)(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-            lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-            *ptrs, *_mask_ints(mask, L, q, k), float(sm_scale),
-            int(bool(causal)), _stream(q.device))
-    if err != 0:
-        raise RuntimeError(
-            f"block_sparse_bwd_dkv launch failed: cudaError {err}")
-    LAUNCHES_DKV.add()
+    _launch_heads("block_sparse_bwd_dkv", (LAUNCHES_DKV,),
+                  _attn_fn("bigdl_bs_bwd_dkv", 14),
+                  [q, k, v, do, lse, delta, dk, dv],
+                  [*ptrs, *extra, *ints, float(sm_scale), int(bool(causal))],
+                  q.shape[0] * q.shape[1])
     return dk, dv
 
 
@@ -498,18 +590,17 @@ def _launch_bs_dq(q, k, v, do, lse, delta, mask: BlockMask, causal: bool,
                   sm_scale: float) -> torch.Tensor:
     """Launch K8 over the same prepared inputs as ``_launch_bs_dkv``."""
     tab = _attention_tables(mask, causal, q.device)
-    ptrs, L = _table_args(tab, "fwd")
+    if _wide(q.shape[-1]):
+        return _wide_dq(q, k, v, do, lse, delta, causal, sm_scale,
+                        LAUNCHES_DQ, _wide_block_mask(tab, mask))
+    which = "dq_blocks" if q.dtype == torch.bfloat16 else "fwd"
+    ptrs, extra, ints = _table_args(tab, which, mask, q, k)
     dq = torch.empty_like(q)
-    with torch.cuda.device(q.device):
-        err = _attn_fn("bigdl_bs_bwd_dq", 11)(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-            lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), *ptrs,
-            *_mask_ints(mask, L, q, k), float(sm_scale), int(bool(causal)),
-            _stream(q.device))
-    if err != 0:
-        raise RuntimeError(
-            f"block_sparse_bwd_dq launch failed: cudaError {err}")
-    LAUNCHES_DQ.add()
+    _launch_heads("block_sparse_bwd_dq", (LAUNCHES_DQ,),
+                  _attn_fn("bigdl_bs_bwd_dq", 13),
+                  [q, k, v, do, lse, delta, dq],
+                  [*ptrs, *extra, *ints, float(sm_scale), int(bool(causal))],
+                  q.shape[0] * q.shape[1])
     return dq
 
 
@@ -517,7 +608,8 @@ def _bs_bwd_cuda(q, k, v, o, lse, d_o, mask: BlockMask, causal: bool,
                  sm_scale: float
                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Launch K7 then K8 on the current stream of q's device (a head dim
-    between the built ones zero-padded, the gradients cut back)."""
+    between the built ones zero-padded, the gradients cut back; above 128
+    the wide route)."""
     _check_kernel_inputs("block_sparse_attention backward", q, k, v)
     check_cuda_input("block_sparse_attention backward lse", lse,
                      (torch.float32,))

@@ -1,0 +1,678 @@
+// The bf16 attention backward for Hopper (sm_90a): the dK/dV and dQ
+// kernels that flash_bwd.cu runs as K2 and K3 and block_sparse.cu as K7 and
+// K8.  Both pairs compute the same math; only the sweep differs, so the body
+// is written once here and templated on a sweep policy.
+//
+// What they compute (the TPU kernels `_dkv_kernel` / `_dq_kernel` of
+// bigdl_tpu/ops/flash_attention.py and `_bs_dkv_kernel` / `_bs_dq_kernel` of
+// bigdl_tpu/ops/block_sparse.py): scores in f32 times sm_scale, P =
+// exp(S - LSE), dP = dO . V^T, dS = P * (dP - delta) with delta from the
+// caller; P cast to v's dtype before dV += P^T . dO, dS cast before dK +=
+// dS^T . Q and dQ += dS . K; f32 accumulators, dK and dQ times sm_scale.
+// Every element that the causal mask, the ragged edge or the block mask
+// kills gets P = 0 and dS = 0 by select, not by a product: a killed element
+// may face a NaN in dP (a dead key row of the block's own V), and 0 * NaN is
+// NaN, so on an edge or partial tile its dP is replaced by delta first.  No
+// atomics: each output row has one owner block, so two launches on the same
+// inputs give the same bits.
+//
+// Design (see flash_bwd.cu for what bounds it).  One block of 384 threads:
+// two consumer warpgroups of 64 output rows each and one producer warpgroup
+// that hands most of its registers to the consumers (setmaxnreg), so each
+// consumer keeps its accumulators in registers.  One producer thread issues
+// the tile loads by TMA through 3-D tensor maps (D, rows, B*H); streamed
+// 64-row tiles go through a ring of stages, each guarded by a full and an
+// empty mbarrier.  Panels, swizzles and descriptors follow
+// hopper_common.cuh.
+//   * dK/dV (bwd_dkv_wgmma_kernel): the block owns 128 key rows; K and V are
+//     loaded once; 64-row Q and dO tiles stream through 3 stages, and the
+//     producer's first warp stages each tile's LSE (times log2 e) and delta
+//     beside them (1e30 and 0 past T).  S^T = K . Q^T and dP^T = V . dO^T on
+//     wgmma; P^T and dS^T packed to bf16 as the register A operand of dV +=
+//     P^T . dO and dK += dS^T . Q, dO and Q read MN-major.
+//   * dQ (bwd_dq_wgmma_kernel): the block owns 128 query rows; Q and dO are
+//     loaded once; 64-row K and V tiles stream through 4 stages.  S = Q . K^T
+//     and dP = dO . V^T, dS packed as the A operand of dQ += dS . K.
+//   * A zero-filled row scores 0 and exp(0 - LSE) is not 0, so the masks
+//     (causal, ragged, block) are applied on edge and partial tiles.
+//
+// The sweep policy says which block owns which rows, which streamed tiles it
+// visits, in which order, and which consumer warpgroup computes each:
+//   * dkv_block(), dq_block(): the owner block's index b (rows 128 b ..);
+//   * dkv_count(b, T), dq_count(b, S): how many tiles it streams;
+//   * dkv_step(b, it), dq_step(b, it): the it-th tile and its flags, bit w
+//     (kVisit << w) when consumer warpgroup w computes it and bit 2 + w
+//     (kPartial << w) when that pair is covered by the block mask in part.
+//     A warpgroup that does not visit a streamed tile only releases it.  A
+//     list sweep's step is read from device memory by the producer, which
+//     stages it in shared memory with the tile; the dense sweep's is
+//     arithmetic, computed where it is needed.
+//   * kList: false for the dense sweep (flash_bwd.cu's DenseSweep); true for
+//     a sweep over tile lists (block_sparse.cu's ListSweep), which also has
+//     keep(q, k) (the block mask of a partial pair), live(b, it) (the
+//     streamed rows that some row of the block attends, one bit a row) and
+//     src_a / src_b (the streamed tensors).  A streamed tile with a partial
+//     pair is staged by the producer's first warp instead of TMA: it copies
+//     the live rows with 16-byte loads into the swizzled panel layout TMA
+//     would give and writes zeros for the rest, so a dead row (NaN in K/V)
+//     never reaches a product.
+//
+// Everything lives in an anonymous namespace, as in tile_common.cuh.
+#pragma once
+
+#include "hopper_common.cuh"
+#include "tile_common.cuh"
+
+namespace {
+
+constexpr int kConsumers = 256;                // two warpgroups of 64 rows
+constexpr int kBwdThreads = kConsumers + 128;  // and one producer warpgroup
+constexpr int kBlockRows = 128;                // output rows per block
+constexpr int kTileRows = 64;                  // rows of a streamed tile
+constexpr float kLog2e = 1.4426950408889634f;
+// registers per thread after the hand-over.  The launch gives 168 to each
+// of the 384, and the consumers can take only what the producer gives
+// back: (168 - P) * 4 warps >= (C - 168) * 8 warps, P + 2 C <= 504 (at
+// 512 setmaxnreg.inc waits for ever).  The dK/dV consumers hold dK and dV
+// (D f32) beside S^T and dP^T, so its producer keeps the least, 24 + 2 *
+// 240; the dQ kernel's as K1's, 40 + 2 * 232.
+constexpr int kDkvProducerRegs = 24;
+constexpr int kDkvConsumerRegs = 240;
+constexpr int kDqProducerRegs = 40;
+constexpr int kDqConsumerRegs = 232;
+
+// flag bits of a sweep step (shifted by the consumer warpgroup, 0 or 1)
+constexpr uint32_t kVisit = 1;
+constexpr uint32_t kPartial = 4;
+constexpr uint32_t kPartialAny = 12;
+
+// one streamed tile of a sweep: its index (rows 64 * tile ..) and flags
+struct Step {
+  int tile;
+  uint32_t flags;
+};
+
+// dK/dV: the block's K and V rows, then the ring of (Q, dO, LSE, delta) tiles
+template <int D>
+struct DkvCfg : Panels<D> {
+  static constexpr int STAGES = 3;
+  static constexpr int KV_BYTES = kBlockRows * D * 2;    // the K or the V rows
+  static constexpr int PANEL_KV = kBlockRows * Panels<D>::RB;
+  static constexpr int TILE_BYTES = kTileRows * D * 2;   // one Q or dO tile
+  static constexpr int PANEL_T = kTileRows * Panels<D>::RB;
+  static constexpr size_t SMEM = 1024 + 2 * KV_BYTES + STAGES * (2 * TILE_BYTES)
+                                 + STAGES * 2 * kTileRows * sizeof(float)
+                                 + sizeof(uint64_t) * (1 + 2 * STAGES)
+                                 + STAGES * sizeof(Step);
+};
+
+// dQ: the block's Q and dO rows, then the ring of (K, V) tiles
+template <int D>
+struct DqCfg : Panels<D> {
+  static constexpr int STAGES = 4;
+  static constexpr int Q_BYTES = kBlockRows * D * 2;     // the Q or the dO rows
+  static constexpr int PANEL_Q = kBlockRows * Panels<D>::RB;
+  static constexpr int TILE_BYTES = kTileRows * D * 2;   // one K or V tile
+  static constexpr int PANEL_T = kTileRows * Panels<D>::RB;
+  static constexpr size_t SMEM = 1024 + 2 * Q_BYTES + STAGES * 2 * TILE_BYTES
+                                 + sizeof(uint64_t) * (1 + 2 * STAGES)
+                                 + STAGES * sizeof(Step);
+};
+
+// acc (m64 x 64 f32, one consumer warpgroup) = A . B^T over D, both
+// operands K-major panels in shared memory: A from 64 rows at `a`, B from
+// 64 rows at `b`, panel pitches kPanelA and kPanelB.  Issued, not waited.
+template <int D, int kPanelA, int kPanelB>
+__device__ __forceinline__ void wgmma_scores(float* acc, const unsigned char* a,
+                                             const unsigned char* b) {
+  using P = Panels<D>;
+#pragma unroll
+  for (int p = 0; p < P::NP; ++p)
+#pragma unroll
+    for (int j = 0; j < P::PW / 16; ++j)
+      wgmma_ss<kTileRows, 0>(acc, smem_desc<P::RB>(a + p * kPanelA + 32 * j),
+                             smem_desc<P::RB>(b + p * kPanelB + 32 * j), p + j > 0);
+}
+
+// acc (m64 x D f32) += A . B with A (64 x 64) packed bf16 in registers and
+// B the 64 x D tile at `b` (panel pitch kPanelB) read MN-major.  Issued,
+// not waited.
+template <int D, int kPanelB>
+__device__ __forceinline__ void wgmma_accumulate(float* acc, const uint32_t* a,
+                                                 const unsigned char* b) {
+  using P = Panels<D>;
+#pragma unroll
+  for (int kk = 0; kk < kTileRows / 16; ++kk)
+#pragma unroll
+    for (int p = 0; p < P::NP; ++p)
+      wgmma_rs<P::PW, 1>(acc + p * (P::PW / 2), a + 4 * kk,
+                         smem_desc<P::RB>(b + p * kPanelB + 16 * P::RB * kk), 1);
+}
+
+// One warp stages rows row0 .. row0 + 63 of a (n_rows, D) bf16 matrix into a
+// 64-row tile of swizzled panels at `dst` (panel pitch kPanel), where TMA
+// would put them: the swizzle xors a row's 16-byte chunk index with address
+// bits 7.. of its panel offset (Swizzle<3,4,3> at 128-byte rows, <2,4,3> at
+// 64, <1,4,3> at 32), so a row keeps its own bytes.  Rows whose bit in `live`
+// is clear, and rows at or past n_rows, are written as zeros, not loaded.
+template <int D, int kPanel>
+__device__ __forceinline__ void stage_live_rows(unsigned char* dst,
+                                                const __nv_bfloat16* __restrict__ src,
+                                                int row0, int n_rows, unsigned long long live,
+                                                int lane) {
+  using P = Panels<D>;
+  constexpr int CPR = D / 8;        // 16-byte chunks per row
+  constexpr int CPP = P::PW / 8;    // 16-byte chunks per panel row
+  constexpr uint32_t SWZ = (P::RB / 16 - 1) << 4;
+  // one load in flight: the producer runs on the few registers it kept
+#pragma unroll 1
+  for (int i = lane; i < kTileRows * CPR; i += 32) {
+    const int r = i / CPR, cc = i % CPR;
+    uint4 val = make_uint4(0u, 0u, 0u, 0u);
+    if (row0 + r < n_rows && ((live >> r) & 1ull))
+      val = *reinterpret_cast<const uint4*>(src + (size_t)(row0 + r) * D + 8 * cc);
+    const uint32_t a = r * P::RB + 16 * (cc % CPP);
+    *reinterpret_cast<uint4*>(dst + (cc / CPP) * kPanel + (a ^ ((a >> 3) & SWZ))) = val;
+  }
+}
+
+// A consumer warpgroup of the dK/dV kernel: key rows k0w .. k0w + 63; this
+// thread holds rows key0 and key0 + 8 of each accumulator
+// (hopper_common.cuh), whose columns are the tile's query rows.
+template <int D, class Sweep>
+__device__ __forceinline__ void dkv_consume(const Sweep& sw, unsigned char* k_s,
+                                            unsigned char* v_s, const unsigned char* q_s,
+                                            const unsigned char* do_s, const float* lse_s,
+                                            const float* delta_s, const Step* step_s,
+                                            uint64_t* kv_full, uint64_t* full, uint64_t* empty,
+                                            __nv_bfloat16* __restrict__ dk,
+                                            __nv_bfloat16* __restrict__ dv, int b, int n,
+                                            int T_len, int S_len, float scale_log2,
+                                            float sm_scale, int causal) {
+  using C = DkvCfg<D>;
+  const int wg = threadIdx.x / 128;
+  const int warp = (threadIdx.x % 128) / 32;
+  const int lane = threadIdx.x % 32;
+  const int t = lane % 4;
+  const int k0w = b * kBlockRows + 64 * wg;
+  const int key0 = k0w + 16 * warp + lane / 4;
+  unsigned char* k_wg = k_s + 64 * wg * C::RB;
+  unsigned char* v_wg = v_s + 64 * wg * C::RB;
+
+  float dk_acc[D / 2], dv_acc[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) {
+    dk_acc[i] = 0.0f;
+    dv_acc[i] = 0.0f;
+  }
+
+  if (n > 0) mbar_wait(kv_full, 0);
+  for (int it = 0; it < n; ++it) {
+    const int s = it % C::STAGES;
+    Step step;
+    if constexpr (!Sweep::kList) step = sw.dkv_step(b, it);
+    mbar_wait(&full[s], (it / C::STAGES) & 1);
+    if constexpr (Sweep::kList) step = step_s[s];   // staged by the producer
+    if (step.flags & (kVisit << wg)) {
+      const int q0 = step.tile * kTileRows;
+      const unsigned char* q_t = q_s + s * C::TILE_BYTES;
+      const unsigned char* do_t = do_s + s * C::TILE_BYTES;
+      const float* lse_t = lse_s + s * kTileRows;
+      const float* delta_t = delta_s + s * kTileRows;
+      float st[kTileRows / 2], dpt[kTileRows / 2];
+      wgmma_fence();
+      wgmma_scores<D, C::PANEL_KV, C::PANEL_T>(st, k_wg, q_t);   // S^T = K . Q^T
+      wgmma_commit();
+      wgmma_scores<D, C::PANEL_KV, C::PANEL_T>(dpt, v_wg, do_t);  // dP^T = V . dO^T
+      wgmma_commit();
+      wgmma_wait<1>();
+#pragma unroll
+      for (int i = 0; i < kTileRows / 2; ++i) fence_regs(st[i]);
+
+      // P^T = exp(S^T * scale - LSE), in base 2; the staged LSE is times
+      // log2 e.  Only a diagonal, ragged or partial tile pays for the mask.
+      const bool part = Sweep::kList && (step.flags & (kPartial << wg));
+      const bool edge = part || q0 + kTileRows > T_len || (causal && q0 < k0w + 63);
+      // The masks run in loops of their own behind branches per tile: a
+      // test inside the exponentials' loop is not predicated but branched
+      // element by element, on every tile.  Element i is query row q0 + c,
+      // c = 8 (i / 4) + 2 t + (i & 1), and key row key0 + 8 ((i >> 1) & 1).
+#pragma unroll
+      for (int i = 0; i < kTileRows / 2; ++i)
+        st[i] = exp2f(fmaf(st[i], scale_log2, -lse_t[8 * (i / 4) + 2 * t + (i & 1)]));
+      if (edge) {
+#pragma unroll
+        for (int i = 0; i < kTileRows / 2; ++i) {
+          const int q = q0 + 8 * (i / 4) + 2 * t + (i & 1);
+          const int key = key0 + 8 * ((i >> 1) & 1);
+          if (q >= T_len || (causal && key > q)) st[i] = 0.0f;
+        }
+        if constexpr (Sweep::kList) {
+          if (part) {
+#pragma unroll
+            for (int i = 0; i < kTileRows / 2; ++i) {
+              const int q = q0 + 8 * (i / 4) + 2 * t + (i & 1);
+              const int key = key0 + 8 * ((i >> 1) & 1);
+              if (q < T_len && (key >= S_len || !sw.keep(q, key))) st[i] = 0.0f;
+            }
+          }
+        }
+      }
+      wgmma_wait<0>();
+#pragma unroll
+      for (int i = 0; i < kTileRows / 2; ++i) fence_regs(dpt[i]);
+      // a killed element's dP^T may be NaN (a dead key row of V): where P^T
+      // is 0, dP^T is replaced by delta, so that dS^T is 0 by select
+      if (edge) {
+#pragma unroll
+        for (int i = 0; i < kTileRows / 2; ++i)
+          dpt[i] = st[i] == 0.0f ? delta_t[8 * (i / 4) + 2 * t + (i & 1)] : dpt[i];
+      }
+      // dS^T = P^T * (dP^T - delta); P^T and dS^T in bf16, wgmma's A layout
+      uint32_t pa[kTileRows / 4], da[kTileRows / 4];
+#pragma unroll
+      for (int i = 0; i < kTileRows / 4; ++i) {
+        const int c = 8 * (i / 2) + 2 * t;
+        pa[i] = pack_bf16x2(st[2 * i], st[2 * i + 1]);
+        da[i] = pack_bf16x2(st[2 * i] * (dpt[2 * i] - delta_t[c]),
+                            st[2 * i + 1] * (dpt[2 * i + 1] - delta_t[c + 1]));
+      }
+      wgmma_fence();
+      wgmma_accumulate<D, C::PANEL_T>(dv_acc, pa, do_t);   // dV += P^T . dO
+      wgmma_accumulate<D, C::PANEL_T>(dk_acc, da, q_t);    // dK += dS^T . Q
+      wgmma_commit();
+      wgmma_wait<0>();
+#pragma unroll
+      for (int i = 0; i < D / 2; ++i) {
+        fence_regs(dk_acc[i]);
+        fence_regs(dv_acc[i]);
+      }
+    }
+    mbar_arrive(&empty[s]);
+  }
+
+  // epilogue: dK * sm_scale and dV in bf16, staged in this warpgroup's own
+  // K and V rows (its products are done; the other warpgroup never reads
+  // them)
+  stage_rows<D, C::PANEL_KV>(k_wg, dk_acc, sm_scale);
+  stage_rows<D, C::PANEL_KV>(v_wg, dv_acc, 1.0f);
+  named_barrier_sync(1 + wg, 128);
+  store_rows<D, C::PANEL_KV>(k_wg, dk, k0w, S_len);
+  store_rows<D, C::PANEL_KV>(v_wg, dv, k0w, S_len);
+}
+
+// dK/dV: grid (B*H, ceil(S / 128)); the sweep maps blockIdx.y to a block.
+template <int D, class Sweep>
+__global__ void __launch_bounds__(kBwdThreads, 1)
+bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
+                     const __grid_constant__ CUtensorMap tm_do,
+                     const __grid_constant__ CUtensorMap tm_k,
+                     const __grid_constant__ CUtensorMap tm_v, const float* __restrict__ lse,
+                     const float* __restrict__ delta, __nv_bfloat16* __restrict__ dk,
+                     __nv_bfloat16* __restrict__ dv, int T_len, int S_len, float scale_log2,
+                     float sm_scale, int causal, const Sweep sw) {
+  using C = DkvCfg<D>;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* k_s = align1024(smem_raw);             // [panel][128 rows]
+  unsigned char* v_s = k_s + C::KV_BYTES;
+  unsigned char* q_s = v_s + C::KV_BYTES;               // [stage][panel][64 rows]
+  unsigned char* do_s = q_s + C::STAGES * C::TILE_BYTES;
+  float* lse_s = reinterpret_cast<float*>(do_s + C::STAGES * C::TILE_BYTES);  // [stage][64]
+  float* delta_s = lse_s + C::STAGES * kTileRows;
+  uint64_t* kv_full = reinterpret_cast<uint64_t*>(delta_s + C::STAGES * kTileRows);
+  uint64_t* full = kv_full + 1;
+  uint64_t* empty = full + C::STAGES;
+  Step* step_s = reinterpret_cast<Step*>(empty + C::STAGES);   // [stage], list sweeps
+
+  const int bh = blockIdx.x;
+  const int b = sw.dkv_block();
+  const int k0 = b * kBlockRows;
+  const int n = sw.dkv_count(b, T_len);   // 0: dK = dV = 0
+
+  if (threadIdx.x == 0) {
+    mbar_init(kv_full, 1);
+    for (int s = 0; s < C::STAGES; ++s) {
+      mbar_init(&full[s], 32);   // the producer's first warp
+      mbar_init(&empty[s], kConsumers);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= kConsumers) {
+    setmaxnreg_dec<kDkvProducerRegs>();
+    // the producer's first warp: lane 0 issues the loads, each lane stages
+    // two rows' LSE and delta of a tile and arrives on its barrier
+    if (threadIdx.x < kConsumers + 32) {
+      const int lane = threadIdx.x % 32;
+      if (lane == 0 && n > 0) {
+        mbar_arrive_expect_tx(kv_full, 2 * C::KV_BYTES);
+        for (int p = 0; p < C::NP; ++p) {
+          tma_load_3d(k_s + p * C::PANEL_KV, &tm_k, kv_full, p * C::PW, k0, bh);
+          tma_load_3d(v_s + p * C::PANEL_KV, &tm_v, kv_full, p * C::PW, k0, bh);
+        }
+      }
+      const float* lse_h = lse + (size_t)bh * T_len;
+      const float* delta_h = delta + (size_t)bh * T_len;
+      for (int it = 0; it < n; ++it) {
+        const int s = it % C::STAGES;
+        const Step step = sw.dkv_step(b, it);
+        const int q0 = step.tile * kTileRows;
+        mbar_wait(&empty[s], ((it / C::STAGES) & 1) ^ 1);   // the first round passes
+        for (int c = lane; c < kTileRows; c += 32) {
+          const bool in = q0 + c < T_len;
+          lse_s[s * kTileRows + c] = (in ? lse_h[q0 + c] : BIG_LSE) * kLog2e;
+          delta_s[s * kTileRows + c] = in ? delta_h[q0 + c] : 0.0f;
+        }
+        if constexpr (Sweep::kList) {
+          if (lane == 0) step_s[s] = step;
+          if (step.flags & kPartialAny) {   // a partial pair: live rows only
+            const unsigned long long live = sw.live(b, it);
+            const size_t head = (size_t)bh * T_len * D;
+            stage_live_rows<D, C::PANEL_T>(q_s + s * C::TILE_BYTES, sw.src_a + head, q0, T_len,
+                                           live, lane);
+            stage_live_rows<D, C::PANEL_T>(do_s + s * C::TILE_BYTES, sw.src_b + head, q0,
+                                           T_len, live, lane);
+            fence_proxy_async();
+            mbar_arrive(&full[s]);
+            continue;
+          }
+        }
+        if (lane == 0) {
+          mbar_arrive_expect_tx(&full[s], 2 * C::TILE_BYTES);
+          for (int p = 0; p < C::NP; ++p) {
+            const int off = s * C::TILE_BYTES + p * C::PANEL_T;
+            tma_load_3d(q_s + off, &tm_q, &full[s], p * C::PW, q0, bh);
+            tma_load_3d(do_s + off, &tm_do, &full[s], p * C::PW, q0, bh);
+          }
+        } else {
+          mbar_arrive(&full[s]);
+        }
+      }
+    }
+  } else {
+    setmaxnreg_inc<kDkvConsumerRegs>();
+    dkv_consume<D>(sw, k_s, v_s, q_s, do_s, lse_s, delta_s, step_s, kv_full, full, empty,
+                   dk + (size_t)bh * S_len * D, dv + (size_t)bh * S_len * D, b, n, T_len, S_len,
+                   scale_log2, sm_scale, causal);
+  }
+}
+
+// A consumer warpgroup of the dQ kernel: query rows q0w .. q0w + 63; this
+// thread holds rows row0 and row0 + 8 of each accumulator.
+template <int D, class Sweep>
+__device__ __forceinline__ void dq_consume(const Sweep& sw, unsigned char* q_s,
+                                           const unsigned char* do_s, const unsigned char* k_s,
+                                           const unsigned char* v_s, const Step* step_s,
+                                           uint64_t* q_full,
+                                           uint64_t* full, uint64_t* empty,
+                                           const float* __restrict__ lse,
+                                           const float* __restrict__ delta,
+                                           __nv_bfloat16* __restrict__ dq, int b, int n,
+                                           int T_len, int S_len, float scale_log2,
+                                           float sm_scale, int causal) {
+  using C = DqCfg<D>;
+  const int wg = threadIdx.x / 128;
+  const int warp = (threadIdx.x % 128) / 32;
+  const int lane = threadIdx.x % 32;
+  const int t = lane % 4;
+  const int q0w = b * kBlockRows + 64 * wg;
+  const int row0 = q0w + 16 * warp + lane / 4;
+  unsigned char* q_wg = q_s + 64 * wg * C::RB;
+  const unsigned char* do_wg = do_s + 64 * wg * C::RB;
+
+  // this thread's two rows: LSE (times log2 e) and delta; rows past T
+  // read LSE = 1e30, so their P is 0
+  float lse_r[2], delta_r[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = row0 + 8 * h;
+    const bool in = row < T_len;
+    lse_r[h] = (in ? lse[row] : BIG_LSE) * kLog2e;
+    delta_r[h] = in ? delta[row] : 0.0f;
+  }
+  float dq_acc[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) dq_acc[i] = 0.0f;
+
+  if (n > 0) mbar_wait(q_full, 0);
+  for (int it = 0; it < n; ++it) {
+    const int s = it % C::STAGES;
+    Step step;
+    if constexpr (!Sweep::kList) step = sw.dq_step(b, it);
+    mbar_wait(&full[s], (it / C::STAGES) & 1);
+    if constexpr (Sweep::kList) step = step_s[s];   // staged by the producer
+    if (step.flags & (kVisit << wg)) {
+      const int k0 = step.tile * kTileRows;
+      const unsigned char* k_t = k_s + s * C::TILE_BYTES;
+      const unsigned char* v_t = v_s + s * C::TILE_BYTES;
+      float sc[kTileRows / 2], dp[kTileRows / 2];
+      wgmma_fence();
+      wgmma_scores<D, C::PANEL_Q, C::PANEL_T>(sc, q_wg, k_t);    // S = Q . K^T
+      wgmma_commit();
+      wgmma_scores<D, C::PANEL_Q, C::PANEL_T>(dp, do_wg, v_t);   // dP = dO . V^T
+      wgmma_commit();
+      wgmma_wait<1>();
+#pragma unroll
+      for (int i = 0; i < kTileRows / 2; ++i) fence_regs(sc[i]);
+
+      // P = exp(S * scale - LSE); a zero-filled key row past S scores 0,
+      // so key columns at or past S are masked with the causal mask
+      const bool part = Sweep::kList && (step.flags & (kPartial << wg));
+      const bool edge =
+          part || k0 + kTileRows > S_len || (causal && k0 + kTileRows - 1 > q0w);
+      // the masks in loops of their own, as in the dK/dV kernel; element i
+      // is query row row0 + 8 ((i >> 1) & 1), key column k0 + 8 (i / 4) +
+      // 2 t + (i & 1)
+#pragma unroll
+      for (int i = 0; i < kTileRows / 2; ++i)
+        sc[i] = exp2f(fmaf(sc[i], scale_log2, -lse_r[(i >> 1) & 1]));
+      if (edge) {
+#pragma unroll
+        for (int i = 0; i < kTileRows / 2; ++i) {
+          const int col = k0 + 8 * (i / 4) + 2 * t + (i & 1);
+          if (col >= S_len || (causal && col > row0 + 8 * ((i >> 1) & 1))) sc[i] = 0.0f;
+        }
+        if constexpr (Sweep::kList) {
+          if (part) {
+#pragma unroll
+            for (int i = 0; i < kTileRows / 2; ++i) {
+              const int col = k0 + 8 * (i / 4) + 2 * t + (i & 1);
+              const int row = row0 + 8 * ((i >> 1) & 1);
+              if (col < S_len && (row >= T_len || !sw.keep(row, col))) sc[i] = 0.0f;
+            }
+          }
+        }
+      }
+      wgmma_wait<0>();
+#pragma unroll
+      for (int i = 0; i < kTileRows / 2; ++i) fence_regs(dp[i]);
+      // where P is 0, dP is replaced by delta, so that dS is 0 by select
+      if (edge) {
+#pragma unroll
+        for (int i = 0; i < kTileRows / 2; ++i)
+          dp[i] = sc[i] == 0.0f ? delta_r[(i >> 1) & 1] : dp[i];
+      }
+      // dS = P * (dP - delta) in bf16, wgmma's A layout
+      uint32_t da[kTileRows / 4];
+#pragma unroll
+      for (int i = 0; i < kTileRows / 4; ++i) {
+        const int h = i & 1;
+        da[i] = pack_bf16x2(sc[2 * i] * (dp[2 * i] - delta_r[h]),
+                            sc[2 * i + 1] * (dp[2 * i + 1] - delta_r[h]));
+      }
+      wgmma_fence();
+      wgmma_accumulate<D, C::PANEL_T>(dq_acc, da, k_t);   // dQ += dS . K
+      wgmma_commit();
+      wgmma_wait<0>();
+#pragma unroll
+      for (int i = 0; i < D / 2; ++i) fence_regs(dq_acc[i]);
+    }
+    mbar_arrive(&empty[s]);
+  }
+
+  // epilogue: dQ * sm_scale in bf16, staged in this warpgroup's own Q rows
+  stage_rows<D, C::PANEL_Q>(q_wg, dq_acc, sm_scale);
+  named_barrier_sync(1 + wg, 128);
+  store_rows<D, C::PANEL_Q>(q_wg, dq, q0w, T_len);
+}
+
+// dQ: grid (B*H, ceil(T / 128)); the sweep maps blockIdx.y to a block.
+template <int D, class Sweep>
+__global__ void __launch_bounds__(kBwdThreads, 1)
+bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
+                    const __grid_constant__ CUtensorMap tm_do,
+                    const __grid_constant__ CUtensorMap tm_k,
+                    const __grid_constant__ CUtensorMap tm_v, const float* __restrict__ lse,
+                    const float* __restrict__ delta, __nv_bfloat16* __restrict__ dq, int T_len,
+                    int S_len, float scale_log2, float sm_scale, int causal, const Sweep sw) {
+  using C = DqCfg<D>;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* q_s = align1024(smem_raw);             // [panel][128 rows]
+  unsigned char* do_s = q_s + C::Q_BYTES;
+  unsigned char* k_s = do_s + C::Q_BYTES;               // [stage][panel][64 rows]
+  unsigned char* v_s = k_s + C::STAGES * C::TILE_BYTES;
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(v_s + C::STAGES * C::TILE_BYTES);
+  uint64_t* full = q_full + 1;
+  uint64_t* empty = full + C::STAGES;
+  Step* step_s = reinterpret_cast<Step*>(empty + C::STAGES);   // [stage], list sweeps
+
+  const int bh = blockIdx.x;
+  const int b = sw.dq_block();
+  const int q0 = b * kBlockRows;
+  const int n = sw.dq_count(b, S_len);   // 0: dQ = 0
+
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    for (int s = 0; s < C::STAGES; ++s) {
+      // one TMA thread, or the first warp where it may stage rows itself
+      mbar_init(&full[s], Sweep::kList ? 32 : 1);
+      mbar_init(&empty[s], kConsumers);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= kConsumers) {
+    setmaxnreg_dec<kDqProducerRegs>();
+    const int lane = threadIdx.x % 32;
+    if (Sweep::kList ? threadIdx.x < kConsumers + 32 : threadIdx.x == kConsumers) {
+      if (lane == 0 && n > 0) {
+        mbar_arrive_expect_tx(q_full, 2 * C::Q_BYTES);
+        for (int p = 0; p < C::NP; ++p) {
+          tma_load_3d(q_s + p * C::PANEL_Q, &tm_q, q_full, p * C::PW, q0, bh);
+          tma_load_3d(do_s + p * C::PANEL_Q, &tm_do, q_full, p * C::PW, q0, bh);
+        }
+      }
+      for (int it = 0; it < n; ++it) {
+        const int s = it % C::STAGES;
+        const Step step = sw.dq_step(b, it);
+        const int k0 = step.tile * kTileRows;
+        mbar_wait(&empty[s], ((it / C::STAGES) & 1) ^ 1);   // the first round passes
+        if constexpr (Sweep::kList) {
+          if (lane == 0) step_s[s] = step;
+          if (step.flags & kPartialAny) {   // a partial pair: live rows only
+            const unsigned long long live = sw.live(b, it);
+            const size_t head = (size_t)bh * S_len * D;
+            stage_live_rows<D, C::PANEL_T>(k_s + s * C::TILE_BYTES, sw.src_a + head, k0, S_len,
+                                           live, lane);
+            stage_live_rows<D, C::PANEL_T>(v_s + s * C::TILE_BYTES, sw.src_b + head, k0, S_len,
+                                           live, lane);
+            fence_proxy_async();
+            mbar_arrive(&full[s]);
+            continue;
+          }
+          if (lane != 0) {
+            mbar_arrive(&full[s]);
+            continue;
+          }
+        }
+        mbar_arrive_expect_tx(&full[s], 2 * C::TILE_BYTES);
+        for (int p = 0; p < C::NP; ++p) {
+          const int off = s * C::TILE_BYTES + p * C::PANEL_T;
+          tma_load_3d(k_s + off, &tm_k, &full[s], p * C::PW, k0, bh);
+          tma_load_3d(v_s + off, &tm_v, &full[s], p * C::PW, k0, bh);
+        }
+      }
+    }
+  } else {
+    setmaxnreg_inc<kDqConsumerRegs>();
+    dq_consume<D>(sw, q_s, do_s, k_s, v_s, step_s, q_full, full, empty, lse + (size_t)bh * T_len,
+                  delta + (size_t)bh * T_len, dq + (size_t)bh * T_len * D, b, n, T_len, S_len,
+                  scale_log2, sm_scale, causal);
+  }
+}
+
+// The arguments of one backward launch.
+struct BwdArgs {
+  const void* q;
+  const void* k;
+  const void* v;
+  const void* dO;
+  const float* lse;
+  const float* delta;
+  void* out0;   // dK or dQ
+  void* out1;   // dV
+  int BH, T_len, S_len;
+  float sm_scale;
+  int causal;
+  cudaStream_t stream;
+};
+
+// the four tensor maps of a launch, encoded per launch and passed by
+// value (a CUDA graph captures them): q and dO in boxes of q_rows rows,
+// k and v in boxes of k_rows rows
+template <int D>
+cudaError_t encode_bwd_maps(const BwdArgs& a, int q_rows, int k_rows, CUtensorMap* tm) {
+  constexpr int PW = Panels<D>::PW;
+  cudaError_t err = encode_bf16_3d(&tm[0], a.q, D, a.T_len, a.BH, PW, q_rows);
+  if (err == cudaSuccess) err = encode_bf16_3d(&tm[1], a.dO, D, a.T_len, a.BH, PW, q_rows);
+  if (err == cudaSuccess) err = encode_bf16_3d(&tm[2], a.k, D, a.S_len, a.BH, PW, k_rows);
+  if (err == cudaSuccess) err = encode_bf16_3d(&tm[3], a.v, D, a.S_len, a.BH, PW, k_rows);
+  return err;
+}
+
+// the dK/dV kernel over `sw` (out0 dK, out1 dV), bf16
+template <int D, class Sweep>
+cudaError_t launch_dkv_wgmma(const BwdArgs& a, const Sweep& sw) {
+  using C = DkvCfg<D>;
+  static_assert(C::SMEM <= kMaxSmemBytes, "bwd_dkv_wgmma tiles do not fit in shared memory");
+  const int n_kb = (a.S_len + kBlockRows - 1) / kBlockRows;
+  if (n_kb > 65535) return cudaErrorInvalidValue;
+  CUtensorMap tm[4];
+  cudaError_t err = encode_bwd_maps<D>(a, kTileRows, kBlockRows, tm);
+  if (err != cudaSuccess) return err;
+  auto kernel = bwd_dkv_wgmma_kernel<D, Sweep>;
+  static std::mutex mu;
+  static bool attr_set[kMaxDevices] = {};
+  err = smem_opt_in_once(kernel, (int)C::SMEM, mu, attr_set);
+  if (err != cudaSuccess) return err;
+  kernel<<<dim3(a.BH, n_kb), kBwdThreads, C::SMEM, a.stream>>>(
+      tm[0], tm[1], tm[2], tm[3], a.lse, a.delta, static_cast<__nv_bfloat16*>(a.out0),
+      static_cast<__nv_bfloat16*>(a.out1), a.T_len, a.S_len, a.sm_scale * kLog2e, a.sm_scale,
+      a.causal, sw);
+  return cudaGetLastError();
+}
+
+// the dQ kernel over `sw` (out0 dQ), bf16
+template <int D, class Sweep>
+cudaError_t launch_dq_wgmma(const BwdArgs& a, const Sweep& sw) {
+  using C = DqCfg<D>;
+  static_assert(C::SMEM <= kMaxSmemBytes, "bwd_dq_wgmma tiles do not fit in shared memory");
+  const int n_qb = (a.T_len + kBlockRows - 1) / kBlockRows;
+  if (n_qb > 65535) return cudaErrorInvalidValue;
+  CUtensorMap tm[4];
+  cudaError_t err = encode_bwd_maps<D>(a, kBlockRows, kTileRows, tm);
+  if (err != cudaSuccess) return err;
+  auto kernel = bwd_dq_wgmma_kernel<D, Sweep>;
+  static std::mutex mu;
+  static bool attr_set[kMaxDevices] = {};
+  err = smem_opt_in_once(kernel, (int)C::SMEM, mu, attr_set);
+  if (err != cudaSuccess) return err;
+  kernel<<<dim3(a.BH, n_qb), kBwdThreads, C::SMEM, a.stream>>>(
+      tm[0], tm[1], tm[2], tm[3], a.lse, a.delta, static_cast<__nv_bfloat16*>(a.out0), a.T_len,
+      a.S_len, a.sm_scale * kLog2e, a.sm_scale, a.causal, sw);
+  return cudaGetLastError();
+}
+
+}  // namespace

@@ -16,7 +16,8 @@
 //
 // Tables.  The TPU grid sweeps mask blocks; these kernels work on 64-row
 // tiles (TILE), so the host (ops/block_sparse.py `_tile_tables`) builds the
-// lists at tile granularity: for each q tile (K6, K8) the k tiles holding
+// lists at tile granularity (and regroups them per 128 rows for the bf16
+// K7/K8, below): for each q tile (K6, K8) the k tiles holding
 // a live element, for each k tile (K7) the q tiles, in ascending order,
 // each with a `partial` flag when the block mask does not cover the whole
 // tile pair.  An all-ones causal mask therefore gives K1's sweep exactly.
@@ -37,9 +38,21 @@
 // block 512) 4,458,496 of the 16.8 M score elements per head are live;
 // each T x S x D product over them is 36.5 GFLOP.  K6 makes two (73.0
 // GFLOP, 0.074 ms at 989 TFLOP/s, against 135 MB, 0.040 ms), K7 four and
-// K8 three: all three are bound by operations.  The design is the flash
-// kernels' simple one (16x16x16 WMMA through shared memory, no TMA, no
-// wgmma, no load overlapped with compute); closing the gap is later work.
+// K8 three: all three are bound by operations.  K6 keeps the flash
+// kernels' first design (16x16x16 WMMA through shared memory, no TMA, no
+// load overlapped with compute); closing its gap is later work.
+//
+// K7 and K8 design.  In bf16 they are K2/K3's Hopper kernels
+// (attn_bwd_hopper.cuh: TMA ring, wgmma, accumulators in registers) with a
+// tile list in place of the dense sweep (ListSweep below): the host
+// regroups the 64-row tile lists per block of 128 own rows, the block's two
+// consumer warpgroups each computing the streamed tiles its own 64 rows
+// visit.  A streamed tile with a partial pair is staged by the producer's
+// first warp, live rows only, so the TMA load of a dead row never happens;
+// inside a partial pair each element is tested against the block mask and
+// P and dS are selected to 0.  In f32 they keep the tile loop of
+// flash_bwd.cu's f32 kernels over the 64-row tables (wgmma has no full-f32
+// product); on an all-ones mask both dtypes give K2/K3's bits.
 //
 // K9 design.  One block (4 warps) per (64 rows of x, up to 64 columns of
 // one output column block); it walks that column block's live K blocks in
@@ -52,7 +65,7 @@
 // density 0.5, block 128) it must do 68.7 GFLOP (0.069 ms) and move about
 // 172 MB (0.051 ms): bound by operations.
 
-#include "tile_common.cuh"
+#include "attn_bwd_hopper.cuh"
 
 namespace {
 
@@ -232,27 +245,25 @@ bs_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restr
 }
 
 // ---------------------------------------------------------------------------
-// K7 and K8: the flash_bwd.cu kernels over the tables.
+// K7 and K8 in f32: the flash_bwd.cu tile loop over the 64-row tile tables.
 // ---------------------------------------------------------------------------
 
-template <typename T, int D>
+template <int D>
 constexpr size_t dkv_smem_bytes() {
-  return sizeof(T) * 4 * TILE * D                           // k, v, q, dO
-         + sizeof(float) * 2 * TILE * TILE                  // S^T, dP^T
-         + sizeof(float) * 2 * TILE * D                     // dK, dV accumulators
-         + (kIsBf16<T> ? sizeof(T) * 2 * TILE * TILE : 0)   // P^T, dS^T
-         + sizeof(float) * 2 * TILE                         // lse, delta
-         + TILE;                                            // live query rows
+  return sizeof(float) * 4 * TILE * D        // k, v, q, dO
+         + sizeof(float) * 2 * TILE * TILE   // S^T, dP^T (then P^T, dS^T in place)
+         + sizeof(float) * 2 * TILE * D      // dK, dV accumulators
+         + sizeof(float) * 2 * TILE          // lse, delta
+         + TILE;                             // live query rows
 }
 
-template <typename T, int D>
+template <int D>
 constexpr size_t dq_smem_bytes() {
-  return sizeof(T) * 4 * TILE * D                       // q, dO, k, v
-         + sizeof(float) * 2 * TILE * TILE              // S, dP
-         + sizeof(float) * TILE * D                     // dQ accumulator
-         + (kIsBf16<T> ? sizeof(T) * TILE * TILE : 0)   // dS
-         + sizeof(float) * 2 * TILE                     // lse, delta
-         + TILE;                                        // live key rows
+  return sizeof(float) * 4 * TILE * D        // q, dO, k, v
+         + sizeof(float) * 2 * TILE * TILE   // S, dP (then dS in place)
+         + sizeof(float) * TILE * D          // dQ accumulator
+         + sizeof(float) * 2 * TILE          // lse, delta
+         + TILE;                             // live key rows
 }
 
 // One (query, key) pair of a score tile: P and dS, both selected to 0 where
@@ -263,34 +274,28 @@ __device__ __forceinline__ void p_and_ds(float s, float dp, float lse, float del
   *ds = keep ? *p * (dp - delta) : 0.0f;
 }
 
-// K7: grid (ceil(S / 64), B*H), one block per k tile.
-template <typename T, int D>
+// K7 in f32: grid (ceil(S / 64), B*H), one block per k tile.  P^T and dS^T
+// overwrite S^T and dP^T in place (each lane rewrites only what it read).
+template <int D>
 __global__ void __launch_bounds__(NTHREADS)
-bs_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-              const T* __restrict__ dO, const float* __restrict__ lse,
-              const float* __restrict__ delta, T* __restrict__ dk, T* __restrict__ dv,
-              Tables tab, Mask mk, float sm_scale) {
+bs_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
+              const float* __restrict__ v, const float* __restrict__ dO,
+              const float* __restrict__ lse, const float* __restrict__ delta,
+              float* __restrict__ dk, float* __restrict__ dv, Tables tab, Mask mk,
+              float sm_scale) {
+  using T = float;
   extern __shared__ __align__(128) unsigned char smem[];
   T* k_s = reinterpret_cast<T*>(smem);
   T* v_s = k_s + TILE * D;
   T* q_s = v_s + TILE * D;
   T* do_s = q_s + TILE * D;
-  float* st_s = reinterpret_cast<float*>(do_s + TILE * D);   // S^T: key rows, query columns
-  float* dpt_s = st_s + TILE * TILE;                          // dP^T
+  float* st_s = do_s + TILE * D;      // S^T: key rows, query columns
+  float* dpt_s = st_s + TILE * TILE;  // dP^T
   float* dk_acc = dpt_s + TILE * TILE;
   float* dv_acc = dk_acc + TILE * D;
-  T* pt_s;
-  T* dst_s;
-  float* lse_s;
-  if constexpr (kIsBf16<T>) {
-    pt_s = reinterpret_cast<T*>(dv_acc + TILE * D);
-    dst_s = pt_s + TILE * TILE;
-    lse_s = reinterpret_cast<float*>(dst_s + TILE * TILE);
-  } else {
-    pt_s = reinterpret_cast<T*>(st_s);    // written over S^T in place
-    dst_s = reinterpret_cast<T*>(dpt_s);  // written over dP^T in place
-    lse_s = dv_acc + TILE * D;
-  }
+  T* pt_s = st_s;     // written over S^T in place
+  T* dst_s = dpt_s;   // written over dP^T in place
+  float* lse_s = dv_acc + TILE * D;
   float* delta_s = lse_s + TILE;
   uint8_t* live_s = reinterpret_cast<uint8_t*>(delta_s + TILE);
 
@@ -353,8 +358,8 @@ bs_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restr
         float p, ds;
         p_and_ds(st_s[r * TILE + c], dpt_s[r * TILE + c], lse_s[c], delta_s[c], keep,
                  sm_scale, &p, &ds);
-        pt_s[r * TILE + c] = from_f32<T>(p);
-        dst_s[r * TILE + c] = from_f32<T>(ds);
+        pt_s[r * TILE + c] = p;
+        dst_s[r * TILE + c] = ds;
       }
     }
     __syncwarp();
@@ -368,36 +373,30 @@ bs_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restr
     const int r = warp * ROWS_PER_WARP + rr;
     if (k0 + r >= S_len) break;
     for (int d = lane; d < D; d += 32) {
-      dk[(size_t)(k0 + r) * D + d] = from_f32<T>(dk_acc[r * D + d] * sm_scale);
-      dv[(size_t)(k0 + r) * D + d] = from_f32<T>(dv_acc[r * D + d]);
+      dk[(size_t)(k0 + r) * D + d] = dk_acc[r * D + d] * sm_scale;
+      dv[(size_t)(k0 + r) * D + d] = dv_acc[r * D + d];
     }
   }
 }
 
-// K8: grid (ceil(T / 64), B*H), one block per q tile, over K6's table.
-template <typename T, int D>
+// K8 in f32: grid (ceil(T / 64), B*H), one block per q tile, over K6's table.
+template <int D>
 __global__ void __launch_bounds__(NTHREADS)
-bs_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-             const T* __restrict__ dO, const float* __restrict__ lse,
-             const float* __restrict__ delta, T* __restrict__ dq, Tables tab, Mask mk,
-             float sm_scale) {
+bs_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
+             const float* __restrict__ v, const float* __restrict__ dO,
+             const float* __restrict__ lse, const float* __restrict__ delta,
+             float* __restrict__ dq, Tables tab, Mask mk, float sm_scale) {
+  using T = float;
   extern __shared__ __align__(128) unsigned char smem[];
   T* q_s = reinterpret_cast<T*>(smem);
   T* do_s = q_s + TILE * D;
   T* k_s = do_s + TILE * D;
   T* v_s = k_s + TILE * D;
-  float* s_s = reinterpret_cast<float*>(v_s + TILE * D);   // S: query rows, key columns
-  float* dp_s = s_s + TILE * TILE;                          // dP
+  float* s_s = v_s + TILE * D;      // S: query rows, key columns
+  float* dp_s = s_s + TILE * TILE;  // dP
   float* dq_acc = dp_s + TILE * TILE;
-  T* ds_s;
-  float* lse_s;
-  if constexpr (kIsBf16<T>) {
-    ds_s = reinterpret_cast<T*>(dq_acc + TILE * D);
-    lse_s = reinterpret_cast<float*>(ds_s + TILE * TILE);
-  } else {
-    ds_s = reinterpret_cast<T*>(dp_s);   // written over dP in place
-    lse_s = dq_acc + TILE * D;
-  }
+  T* ds_s = dp_s;   // written over dP in place
+  float* lse_s = dq_acc + TILE * D;
   float* delta_s = lse_s + TILE;
   uint8_t* live_s = reinterpret_cast<uint8_t*>(delta_s + TILE);
 
@@ -458,7 +457,7 @@ bs_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restri
         float p, ds;
         p_and_ds(s_s[r * TILE + c], dp_s[r * TILE + c], lse_r, delta_r, keep, sm_scale, &p,
                  &ds);
-        ds_s[r * TILE + c] = from_f32<T>(ds);
+        ds_s[r * TILE + c] = ds;
       }
     }
     __syncwarp();
@@ -471,9 +470,47 @@ bs_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restri
     const int r = warp * ROWS_PER_WARP + rr;
     if (q0 + r >= T_len) break;
     for (int d = lane; d < D; d += 32)
-      dq[(size_t)(q0 + r) * D + d] = from_f32<T>(dq_acc[r * D + d] * sm_scale);
+      dq[(size_t)(q0 + r) * D + d] = dq_acc[r * D + d] * sm_scale;
   }
 }
+
+// ---------------------------------------------------------------------------
+// K7 and K8 in bf16: the Hopper body of attn_bwd_hopper.cuh over the tile
+// lists of 128-row blocks.
+// ---------------------------------------------------------------------------
+
+// The lists ops/block_sparse.py builds per block of 128 own rows (key rows
+// in K7, query rows in K8): the ascending union of the lists of its two
+// 64-row tiles, a flag byte per entry (bit w: tile w of the block visits the
+// streamed tile; bit 2 + w: that pair is partial), the streamed rows some
+// row of the block attends (bit r for row r, read at partial entries only),
+// and the blocks in order of their list length, longest first.  On an
+// all-ones causal mask at a 128-multiple block the lists are K2/K3's dense
+// sweep, tile for tile, so the two pairs give the same bits.
+struct ListSweep {
+  static constexpr bool kList = true;
+  const int* tiles;                 // (blocks, L)
+  const uint8_t* flags;             // (blocks, L)
+  const unsigned long long* rows;   // (blocks, L)
+  const int* counts;                // (blocks,)
+  const int* order;                 // (blocks,)
+  int L;
+  Mask mk;
+  const __nv_bfloat16* src_a;       // the streamed tensors: q, dO (K7); k, v (K8)
+  const __nv_bfloat16* src_b;
+
+  __device__ int dkv_block() const { return order[blockIdx.y]; }
+  __device__ int dq_block() const { return order[blockIdx.y]; }
+  __device__ int dkv_count(int b, int) const { return counts[b]; }
+  __device__ int dq_count(int b, int) const { return counts[b]; }
+  __device__ Step dkv_step(int b, int it) const {
+    const size_t e = (size_t)b * L + it;
+    return Step{tiles[e], flags[e]};
+  }
+  __device__ Step dq_step(int b, int it) const { return dkv_step(b, it); }
+  __device__ bool keep(int qp, int kp) const { return mk.block(qp, kp); }
+  __device__ unsigned long long live(int b, int it) const { return rows[(size_t)b * L + it]; }
+};
 
 struct AttnArgs {
   const void* q;
@@ -484,7 +521,9 @@ struct AttnArgs {
   const float* delta;
   void* out0;   // O (K6), dK (K7) or dQ (K8)
   void* out1;   // LSE (K6) or dV (K7)
-  Tables tab;
+  Tables tab;        // f32 K7/K8: 64-row tile tables; bf16: 128-row block lists
+  const int* order;  // bf16 K7/K8: the blocks, longest list first
+  const unsigned long long* rows;   // bf16 K7/K8: live streamed rows
   Mask mk;
   int BH;
   float sm_scale;
@@ -493,40 +532,58 @@ struct AttnArgs {
 
 enum class Which { kFwd, kDkv, kDq };
 
+// K7 (out0 dK, out1 dV) or K8 (out0 dQ) in bf16 over the block lists
+template <Which W, int D>
+cudaError_t launch_bwd_wgmma(const AttnArgs& a) {
+  const BwdArgs b{a.q, a.k, a.v, a.dO, a.lse, a.delta, a.out0, a.out1, a.BH, a.mk.T_len,
+                  a.mk.S_len, a.sm_scale, a.mk.causal, a.stream};
+  const bool dkv = W == Which::kDkv;
+  const ListSweep sw{a.tab.tiles, a.tab.partial, a.rows, a.tab.counts, a.order, a.tab.L, a.mk,
+                     static_cast<const __nv_bfloat16*>(dkv ? a.q : a.k),
+                     static_cast<const __nv_bfloat16*>(dkv ? a.dO : a.v)};
+  if constexpr (W == Which::kDkv) return launch_dkv_wgmma<D>(b, sw);
+  else return launch_dq_wgmma<D>(b, sw);
+}
+
 template <Which W, typename T, int D>
 cudaError_t launch_attn(const AttnArgs& a) {
-  constexpr size_t smem = W == Which::kFwd   ? fwd_smem_bytes<T, D>()
-                          : W == Which::kDkv ? dkv_smem_bytes<T, D>()
-                                             : dq_smem_bytes<T, D>();
-  static_assert(smem <= kMaxSmemBytes, "block-sparse tiles do not fit in shared memory");
   static std::mutex mu;
   static bool attr_set[kMaxDevices] = {};
   const int rows = W == Which::kDkv ? a.mk.S_len : a.mk.T_len;
   dim3 grid((rows + TILE - 1) / TILE, a.BH);
   cudaError_t err;
   if constexpr (W == Which::kFwd) {
+    constexpr size_t smem = fwd_smem_bytes<T, D>();
+    static_assert(smem <= kMaxSmemBytes, "block-sparse tiles do not fit in shared memory");
     auto kernel = bs_fwd_kernel<T, D>;
     err = smem_opt_in_once(kernel, (int)smem, mu, attr_set);
     if (err != cudaSuccess) return err;
     kernel<<<grid, NTHREADS, smem, a.stream>>>(
         static_cast<const T*>(a.q), static_cast<const T*>(a.k), static_cast<const T*>(a.v),
         static_cast<T*>(a.out0), static_cast<float*>(a.out1), a.tab, a.mk, a.sm_scale);
+  } else if constexpr (kIsBf16<T>) {
+    if (a.order == nullptr || a.rows == nullptr) return cudaErrorInvalidValue;
+    return launch_bwd_wgmma<W, D>(a);
   } else if constexpr (W == Which::kDkv) {
-    auto kernel = bs_dkv_kernel<T, D>;
+    constexpr size_t smem = dkv_smem_bytes<D>();
+    static_assert(smem <= kMaxSmemBytes, "block-sparse tiles do not fit in shared memory");
+    auto kernel = bs_dkv_kernel<D>;
     err = smem_opt_in_once(kernel, (int)smem, mu, attr_set);
     if (err != cudaSuccess) return err;
     kernel<<<grid, NTHREADS, smem, a.stream>>>(
-        static_cast<const T*>(a.q), static_cast<const T*>(a.k), static_cast<const T*>(a.v),
-        static_cast<const T*>(a.dO), a.lse, a.delta, static_cast<T*>(a.out0),
-        static_cast<T*>(a.out1), a.tab, a.mk, a.sm_scale);
+        static_cast<const float*>(a.q), static_cast<const float*>(a.k),
+        static_cast<const float*>(a.v), static_cast<const float*>(a.dO), a.lse, a.delta,
+        static_cast<float*>(a.out0), static_cast<float*>(a.out1), a.tab, a.mk, a.sm_scale);
   } else {
-    auto kernel = bs_dq_kernel<T, D>;
+    constexpr size_t smem = dq_smem_bytes<D>();
+    static_assert(smem <= kMaxSmemBytes, "block-sparse tiles do not fit in shared memory");
+    auto kernel = bs_dq_kernel<D>;
     err = smem_opt_in_once(kernel, (int)smem, mu, attr_set);
     if (err != cudaSuccess) return err;
     kernel<<<grid, NTHREADS, smem, a.stream>>>(
-        static_cast<const T*>(a.q), static_cast<const T*>(a.k), static_cast<const T*>(a.v),
-        static_cast<const T*>(a.dO), a.lse, a.delta, static_cast<T*>(a.out0), a.tab, a.mk,
-        a.sm_scale);
+        static_cast<const float*>(a.q), static_cast<const float*>(a.k),
+        static_cast<const float*>(a.v), static_cast<const float*>(a.dO), a.lse, a.delta,
+        static_cast<float*>(a.out0), a.tab, a.mk, a.sm_scale);
   }
   return cudaGetLastError();
 }
@@ -556,15 +613,23 @@ int dispatch_attn(int D, int dtype, const AttnArgs& a) {
 
 AttnArgs make_args(const void* q, const void* k, const void* v, const void* dO, const void* lse,
                    const void* delta, void* out0, void* out1, const void* tiles,
-                   const void* counts, const void* partial, const void* bmask, int L, int nkb,
-                   int bq, int bk, int BH, int T_len, int S_len, float sm_scale, int causal,
-                   void* stream) {
+                   const void* counts, const void* partial, const void* bmask, const void* order,
+                   const void* rows, int L, int nkb, int bq, int bk, int BH, int T_len,
+                   int S_len, float sm_scale, int causal, void* stream) {
   return AttnArgs{q, k, v, dO, static_cast<const float*>(lse), static_cast<const float*>(delta),
                   out0, out1,
                   Tables{static_cast<const int*>(tiles), static_cast<const int*>(counts),
                          static_cast<const uint8_t*>(partial), L},
+                  static_cast<const int*>(order), static_cast<const unsigned long long*>(rows),
                   Mask{static_cast<const uint8_t*>(bmask), nkb, bq, bk, T_len, S_len, causal},
                   BH, sm_scale, static_cast<cudaStream_t>(stream)};
+}
+
+template <int D>
+int smem_of(bool dkv, int dtype) {
+  if (dtype == 1) return (int)(dkv ? DkvCfg<D>::SMEM : DqCfg<D>::SMEM);
+  if (dtype == 0) return (int)(dkv ? dkv_smem_bytes<D>() : dq_smem_bytes<D>());
+  return 0;
 }
 
 // ---------------------------------------------------------------------------
@@ -721,11 +786,14 @@ cudaError_t launch_mm(const void* x, const void* w, void* out, Tables tab, int M
 }  // namespace
 
 // q, dO (BH, T, D) and k, v (BH, S, D) in one dtype (0 = float32,
-// 1 = bfloat16); lse and delta (BH, T) f32; outputs as their inputs.  The
-// tables as ops/block_sparse.py builds them: tiles (rows, L) int32, counts
-// (rows,) int32, partial (rows, L) uint8, bmask (T / bq, S / bk) uint8.  All
-// contiguous and 16-byte aligned.  Each returns the cudaError_t of its
-// launch (0 on success).
+// 1 = bfloat16); lse and delta (BH, T) f32; outputs as their inputs; bmask
+// (T / bq, S / bk) uint8, the runtime block mask.  The tables as
+// ops/block_sparse.py builds them.  K6, and K7/K8 in f32, read 64-row tile
+// tables: tiles (tiles, L) int32, counts (tiles,) int32, partial (tiles, L)
+// uint8.  K7/K8 in bf16 read 128-row block lists: tiles (blocks, L) int32,
+// counts (blocks,) int32, partial the flag bytes (blocks, L) uint8, order
+// (blocks,) int32 and rows (blocks, L) uint64.  All contiguous and 16-byte
+// aligned.  Each returns the cudaError_t of its launch (0 on success).
 
 // K6: o (BH, T, D), lse (BH, T); tables per q tile.
 extern "C" int bigdl_bs_fwd(const void* q, const void* k, const void* v, void* o, void* lse,
@@ -734,31 +802,48 @@ extern "C" int bigdl_bs_fwd(const void* q, const void* k, const void* v, void* o
                             int S_len, int D, int dtype, float sm_scale, int causal,
                             void* stream) {
   const AttnArgs a = make_args(q, k, v, nullptr, nullptr, nullptr, o, lse, tiles, counts, partial,
-                               bmask, L, nkb, bq, bk, BH, T_len, S_len, sm_scale, causal, stream);
+                               bmask, nullptr, nullptr, L, nkb, bq, bk, BH, T_len, S_len,
+                               sm_scale, causal, stream);
   return dispatch_attn<Which::kFwd>(D, dtype, a);
 }
 
-// K7: dk, dv (BH, S, D); tables per k tile.
+// K7: dk, dv (BH, S, D); tables per k tile (f32) or per 128 key rows (bf16).
 extern "C" int bigdl_bs_bwd_dkv(const void* q, const void* k, const void* v, const void* dO,
                                 const void* lse, const void* delta, void* dk, void* dv,
                                 const void* tiles, const void* counts, const void* partial,
-                                const void* bmask, int L, int nkb, int bq, int bk, int BH,
-                                int T_len, int S_len, int D, int dtype, float sm_scale,
-                                int causal, void* stream) {
-  const AttnArgs a = make_args(q, k, v, dO, lse, delta, dk, dv, tiles, counts, partial, bmask, L,
-                               nkb, bq, bk, BH, T_len, S_len, sm_scale, causal, stream);
+                                const void* bmask, const void* order, const void* rows, int L,
+                                int nkb, int bq, int bk, int BH, int T_len, int S_len, int D,
+                                int dtype, float sm_scale, int causal, void* stream) {
+  const AttnArgs a = make_args(q, k, v, dO, lse, delta, dk, dv, tiles, counts, partial, bmask,
+                               order, rows, L, nkb, bq, bk, BH, T_len, S_len, sm_scale, causal,
+                               stream);
   return dispatch_attn<Which::kDkv>(D, dtype, a);
 }
 
-// K8: dq (BH, T, D); tables per q tile (K6's).
+// K8: dq (BH, T, D); tables per q tile (f32) or per 128 query rows (bf16).
 extern "C" int bigdl_bs_bwd_dq(const void* q, const void* k, const void* v, const void* dO,
                                const void* lse, const void* delta, void* dq, const void* tiles,
                                const void* counts, const void* partial, const void* bmask,
-                               int L, int nkb, int bq, int bk, int BH, int T_len, int S_len,
-                               int D, int dtype, float sm_scale, int causal, void* stream) {
+                               const void* order, const void* rows, int L, int nkb, int bq,
+                               int bk, int BH, int T_len, int S_len, int D, int dtype,
+                               float sm_scale, int causal, void* stream) {
   const AttnArgs a = make_args(q, k, v, dO, lse, delta, dq, nullptr, tiles, counts, partial,
-                               bmask, L, nkb, bq, bk, BH, T_len, S_len, sm_scale, causal, stream);
+                               bmask, order, rows, L, nkb, bq, bk, BH, T_len, S_len, sm_scale,
+                               causal, stream);
   return dispatch_attn<Which::kDq>(D, dtype, a);
+}
+
+// Dynamic shared memory per block of the kernel that bigdl_bs_bwd_dkv
+// (dkv = 1) or bigdl_bs_bwd_dq (dkv = 0) launches for head dim D and dtype
+// (as above); 0 for what they do not take.
+extern "C" int bigdl_bs_bwd_smem_bytes(int dkv, int D, int dtype) {
+  switch (D) {
+    case 16: return smem_of<16>(dkv != 0, dtype);
+    case 32: return smem_of<32>(dkv != 0, dtype);
+    case 64: return smem_of<64>(dkv != 0, dtype);
+    case 128: return smem_of<128>(dkv != 0, dtype);
+    default: return 0;
+  }
 }
 
 // K9: out (M, N) = x (M, K) @ W (K, N) over W's live (bk, bn) tiles; tiles

@@ -3,8 +3,9 @@
 // the warpgroup matrix multiply (wgmma), as inline PTX for sm_90a.
 //
 // Written by hand, without CUTLASS or CuTe, so that a library including
-// it builds in seconds.  K1 (flash_fwd.cu), K2 and K3 (flash_bwd.cu) are
-// built on it; it is what a redesign of the other kernels takes up.
+// it builds in seconds.  K1 (flash_fwd.cu) is built on it, and so is
+// attn_bwd_hopper.cuh, the backward body of K2/K3 (flash_bwd.cu) and K7/K8
+// (block_sparse.cu); it is what a redesign of the other kernels takes up.
 //
 // Conventions.
 //   * Tiles land in shared memory by TMA with a swizzle whose span equals
@@ -49,6 +50,12 @@ __device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
 // makes the initialised barriers visible to the other threads and to TMA
 __device__ __forceinline__ void mbar_fence_init() {
   asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// makes this thread's ordinary stores to shared memory visible to the async
+// proxy (TMA, wgmma) of the threads that synchronise with it afterwards
+__device__ __forceinline__ void fence_proxy_async() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 

@@ -1,9 +1,10 @@
-// Tile machinery shared by the port's attention kernels: the backward
-// kernels of flash_bwd.cu (K2, K3), the block-sparse kernels of
-// block_sparse.cu (K6-K9) and the f32 path of flash_fwd.cu (K1); conv3x3.cu
-// (K5) takes its helpers too.  It is the counterpart of the shared tile
-// helpers at the top of bigdl_tpu/ops/flash_attention.py.  K1's bf16 path
-// does not use it: it is built on hopper_common.cuh (TMA, mbarriers, wgmma).
+// Tile machinery shared by the port's attention kernels: the f32 paths of
+// K1-K3 (flash_fwd.cu, flash_bwd.cu) and of K7/K8, K6 and K9
+// (block_sparse.cu); conv3x3.cu (K5), attn_wide.cu and the Hopper kernels
+// take its helpers too.  It is the counterpart of the shared tile helpers
+// at the top of bigdl_tpu/ops/flash_attention.py.  The bf16 K1-K3 and
+// K7/K8 are built on hopper_common.cuh (TMA, mbarriers, wgmma) and
+// attn_bwd_hopper.cuh.
 //
 // Every tile is TILE = 64 rows of a row-major (rows, D) matrix, worked on
 // by one block of four warps.  Each warp owns 16 rows of the tile it

@@ -10,9 +10,13 @@ computes, what bounds it and how:
   softmax in registers, on ``csrc/hopper_common.cuh``), for f32 the FMA
   tile loop of ``csrc/tile_common.cuh``;
 * K2 and K3 ``csrc/flash_bwd.cu`` replace ``_dkv_kernel`` (``:236``)
-  and ``_dq_kernel`` (``:271``): for bf16 warp-specialised Hopper
-  kernels on the same header (TMA ring, wgmma, dK/dV and dQ in
-  registers), for f32 the tile loop.
+  and ``_dq_kernel`` (``:271``): for bf16 the warp-specialised Hopper
+  body of ``csrc/attn_bwd_hopper.cuh`` (TMA ring, wgmma, dK/dV and dQ in
+  registers) over the dense causal sweep, for f32 the tile loop;
+* head dims above 128 take the wide route, ``csrc/attn_wide.cu``: one
+  warp per output row, any D, under the dense mask here and the block
+  mask in ``block_sparse.py``.  A wide launch counts under the counter of
+  the kernel it stands for and under ``LAUNCHES_WIDE``.
 
 ``flash_attention`` and ``flash_forward`` run through one
 ``torch.autograd.Function``, the counterpart of the ``custom_vjp`` of
@@ -22,10 +26,12 @@ launches K2 then K3.  For CPU tensors the same Function runs the plain
 versions (``_flash_plain``, ``_flash_bwd_plain``: the kernels' math in
 PyTorch); for CUDA tensors it launches the kernels or raises, forward
 and backward.  Any T and S (the kernels mask the ragged edge: there is
-no TPU-style block-multiple fallback), any head dim up to 128 (the
-kernels are built for 16/32/64/128; a head dim between them is
-zero-padded to the next, which leaves attention and its gradients as
-they are, and cut back after the launch), float32 or bfloat16.
+no TPU-style block-multiple fallback), any B*H (launched 65535 heads at
+a time), any head dim (the Hopper kernels and tile loops are built for
+16/32/64/128, and a head dim between them is zero-padded to the next,
+which leaves attention and its gradients as they are, and cut back after
+the launch; above 128 the wide route takes it as it is), float32 or
+bfloat16.
 """
 from __future__ import annotations
 
@@ -47,6 +53,12 @@ LAUNCHES = LaunchCounter("flash_fwd")
 #: launches of K2 and K3 (CUDA branch only)
 LAUNCHES_DKV = LaunchCounter("flash_bwd_dkv")
 LAUNCHES_DQ = LaunchCounter("flash_bwd_dq")
+#: launches of the wide route (head dims above 128) of K1-K3 and K6-K8
+LAUNCHES_WIDE = LaunchCounter("attn_wide")
+#: heads a launch takes at most: the limit of a grid's y dimension
+MAX_HEADS = 65535
+#: marks the head count's place among a launch's arguments
+HEADS = object()
 
 
 def _causal_keep(T: int, S: int, device) -> torch.Tensor:
@@ -119,22 +131,23 @@ def _flash_bwd_plain(q, k, v, o, lse, d_o, causal: bool, sm_scale: float
 
 
 def _check_kernel_inputs(what: str, q, k, v):
-    D = q.shape[-1]
-    if not 1 <= D <= HEAD_DIMS[-1]:
-        raise ValueError(f"{what}: head dim {D} is not in 1..{HEAD_DIMS[-1]}, "
-                         f"the head dims the kernels take")
+    if q.shape[-1] < 1:
+        raise ValueError(f"{what}: head dim {q.shape[-1]}")
     if k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"{what}: q, k and v must share a dtype")
     for name, t in (("q", q), ("k", k), ("v", v)):
         check_cuda_input(f"{what} {name}", t, tuple(_DTYPE_CODE))
-    if q.shape[0] * q.shape[1] > 65535:
-        raise ValueError(f"{what}: B*H {q.shape[0] * q.shape[1]} > 65535")
+
+
+def _wide(D: int) -> bool:
+    """Whether head dim D takes the wide route (above the built ones)."""
+    return D > HEAD_DIMS[-1]
 
 
 def _padded_head_dim(D: int) -> int:
-    """The head dim the kernels run for a true head dim D <= 128: the
-    next of ``HEAD_DIMS``."""
-    return next(d for d in HEAD_DIMS if d >= D)
+    """The head dim the kernels run for a true head dim D: the next of
+    ``HEAD_DIMS``, or D itself on the wide route."""
+    return D if _wide(D) else next(d for d in HEAD_DIMS if d >= D)
 
 
 def _pad_head_dim(t: torch.Tensor, Dp: int) -> torch.Tensor:
@@ -156,29 +169,114 @@ def _stream(device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
 
 
+def _launch_heads(name: str, counters, fn, per_head, shared, BH: int):
+    """Launch ``fn`` over B*H heads, at most ``MAX_HEADS`` a launch, on
+    the current stream of the tensors' device: each launch takes the
+    tensors of ``per_head`` (contiguous (B*H, ...) views) from its first
+    head on, then ``shared`` (the arguments every head reads: ints,
+    floats, table pointers) with its head count in place of ``HEADS``,
+    then the stream.  Each launch adds one to each of ``counters``; a
+    launch error raises."""
+    device = per_head[0].device
+    stream = _stream(device)
+    for h0 in range(0, BH, MAX_HEADS):
+        n = min(MAX_HEADS, BH - h0)
+        ptrs = [t.data_ptr() + h0 * (t.numel() // BH) * t.element_size()
+                for t in per_head]
+        args = [n if a is HEADS else a for a in shared]
+        with torch.cuda.device(device):
+            err = fn(*ptrs, *args, stream)
+        if err != 0:
+            raise RuntimeError(f"{name} launch failed: cudaError {err}")
+        for c in counters:
+            c.add()
+
+
+def _wide_fn(name: str, n_ptr: int):
+    fn = getattr(load_cuda_library("attn_wide"), name)
+    fn.argtypes = [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * 8 + [
+        ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _wide_mask(mask):
+    """The wide kernels' mask arguments: the block-sparse wrappers'
+    (runtime block mask uint8 (T / bq, S / bk), bq, bk), or None for the
+    dense mask."""
+    if mask is None:
+        return [None, 0, 1, 1]
+    grid, bq, bk = mask
+    return [grid.data_ptr(), grid.shape[1], bq, bk]
+
+
+def _wide_fwd(q, k, v, causal: bool, sm_scale: float, counter, mask=None
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The wide forward (head dim above 128, taken as it is) under the
+    dense mask or ``mask`` (see ``_wide_mask``); counts under ``counter``
+    and ``LAUNCHES_WIDE``."""
+    B, H, T, D = q.shape
+    o = torch.empty_like(q)
+    lse = torch.empty((B * H, 1, T), dtype=torch.float32, device=q.device)
+    m_ptr, *m_ints = _wide_mask(mask)
+    _launch_heads("attn_wide fwd", (counter, LAUNCHES_WIDE),
+                  _wide_fn("bigdl_wide_fwd", 6), [q, k, v, o, lse],
+                  [m_ptr, *m_ints, HEADS, T, k.shape[2], D,
+                   _DTYPE_CODE[q.dtype], float(sm_scale), int(bool(causal))],
+                  B * H)
+    return o, lse
+
+
+def _wide_dkv(q, k, v, do, lse, delta, causal: bool, sm_scale: float, counter,
+              mask=None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The wide dK/dV over prepared inputs (as ``_launch_dkv``)."""
+    B, H, T, D = q.shape
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    m_ptr, *m_ints = _wide_mask(mask)
+    _launch_heads("attn_wide dkv", (counter, LAUNCHES_WIDE),
+                  _wide_fn("bigdl_wide_bwd_dkv", 9),
+                  [q, k, v, do, lse, delta, dk, dv],
+                  [m_ptr, *m_ints, HEADS, T, k.shape[2], D,
+                   _DTYPE_CODE[q.dtype], float(sm_scale), int(bool(causal))],
+                  B * H)
+    return dk, dv
+
+
+def _wide_dq(q, k, v, do, lse, delta, causal: bool, sm_scale: float, counter,
+             mask=None) -> torch.Tensor:
+    """The wide dQ over prepared inputs (as ``_launch_dq``)."""
+    B, H, T, D = q.shape
+    dq = torch.empty_like(q)
+    m_ptr, *m_ints = _wide_mask(mask)
+    _launch_heads("attn_wide dq", (counter, LAUNCHES_WIDE),
+                  _wide_fn("bigdl_wide_bwd_dq", 8),
+                  [q, k, v, do, lse, delta, dq],
+                  [m_ptr, *m_ints, HEADS, T, k.shape[2], D,
+                   _DTYPE_CODE[q.dtype], float(sm_scale), int(bool(causal))],
+                  B * H)
+    return dq
+
+
 def _flash_cuda(q, k, v, causal: bool, sm_scale: float
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Launch K1 on the current stream of q's device (a head dim between
-    the built ones zero-padded, O cut back)."""
+    the built ones zero-padded, O cut back; above 128 the wide route)."""
     _check_kernel_inputs("flash_attention", q, k, v)
     D_true = q.shape[-1]
+    if _wide(D_true):
+        return _wide_fwd(q, k, v, causal, sm_scale, LAUNCHES)
     Dp = _padded_head_dim(D_true)
     q, k, v = (_pad_head_dim(t, Dp) for t in (q, k, v))
     B, H, T, D = q.shape
-    S = k.shape[2]
     fn = load_cuda_library("flash_fwd").bigdl_flash_fwd
     fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [
         ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     o = torch.empty_like(q)
     lse = torch.empty((B * H, 1, T), dtype=torch.float32, device=q.device)
-    with torch.cuda.device(q.device):
-        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-                 lse.data_ptr(), B * H, T, S, D, _DTYPE_CODE[q.dtype],
-                 float(sm_scale), int(bool(causal)), _stream(q.device))
-    if err != 0:
-        raise RuntimeError(f"flash_fwd launch failed: cudaError {err}")
-    LAUNCHES.add()
+    _launch_heads("flash_fwd", (LAUNCHES,), fn, [q, k, v, o, lse],
+                  [HEADS, T, k.shape[2], D, _DTYPE_CODE[q.dtype],
+                   float(sm_scale), int(bool(causal))], B * H)
     return _cut_head_dim(o, D_true), lse
 
 
@@ -193,18 +291,18 @@ def _bwd_fn(name: str, n_ptr: int):
 def _launch_dkv(q, k, v, do, lse, delta, causal: bool, sm_scale: float
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Launch K2 over prepared inputs: dO in q's dtype and delta
-    (B*H, T) f32, both contiguous.  Returns (dk, dv)."""
+    (B*H, T) f32, both contiguous, at a built head dim or above 128 (the
+    wide route).  Returns (dk, dv)."""
     B, H, T, D = q.shape
+    if _wide(D):
+        return _wide_dkv(q, k, v, do, lse, delta, causal, sm_scale,
+                         LAUNCHES_DKV)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
-    with torch.cuda.device(q.device):
-        err = _bwd_fn("bigdl_flash_bwd_dkv", 8)(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-            lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-            B * H, T, k.shape[2], D, _DTYPE_CODE[q.dtype], float(sm_scale),
-            int(bool(causal)), _stream(q.device))
-    if err != 0:
-        raise RuntimeError(f"flash_bwd_dkv launch failed: cudaError {err}")
-    LAUNCHES_DKV.add()
+    _launch_heads("flash_bwd_dkv", (LAUNCHES_DKV,),
+                  _bwd_fn("bigdl_flash_bwd_dkv", 8),
+                  [q, k, v, do, lse, delta, dk, dv],
+                  [HEADS, T, k.shape[2], D, _DTYPE_CODE[q.dtype],
+                   float(sm_scale), int(bool(causal))], B * H)
     return dk, dv
 
 
@@ -212,16 +310,14 @@ def _launch_dq(q, k, v, do, lse, delta, causal: bool, sm_scale: float
                ) -> torch.Tensor:
     """Launch K3 over the same prepared inputs as ``_launch_dkv``."""
     B, H, T, D = q.shape
+    if _wide(D):
+        return _wide_dq(q, k, v, do, lse, delta, causal, sm_scale, LAUNCHES_DQ)
     dq = torch.empty_like(q)
-    with torch.cuda.device(q.device):
-        err = _bwd_fn("bigdl_flash_bwd_dq", 7)(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-            lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), B * H, T,
-            k.shape[2], D, _DTYPE_CODE[q.dtype], float(sm_scale),
-            int(bool(causal)), _stream(q.device))
-    if err != 0:
-        raise RuntimeError(f"flash_bwd_dq launch failed: cudaError {err}")
-    LAUNCHES_DQ.add()
+    _launch_heads("flash_bwd_dq", (LAUNCHES_DQ,),
+                  _bwd_fn("bigdl_flash_bwd_dq", 7),
+                  [q, k, v, do, lse, delta, dq],
+                  [HEADS, T, k.shape[2], D, _DTYPE_CODE[q.dtype],
+                   float(sm_scale), int(bool(causal))], B * H)
     return dq
 
 
@@ -236,7 +332,8 @@ def _bwd_inputs(q, o, d_o):
 def _flash_bwd_cuda(q, k, v, o, lse, d_o, causal: bool, sm_scale: float
                     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Launch K2 then K3 on the current stream of q's device (a head dim
-    between the built ones zero-padded, the gradients cut back)."""
+    between the built ones zero-padded, the gradients cut back; above 128
+    the wide route)."""
     _check_kernel_inputs("flash_attention backward", q, k, v)
     check_cuda_input("flash_attention backward lse", lse, (torch.float32,))
     do, delta = _bwd_inputs(q, o, d_o)

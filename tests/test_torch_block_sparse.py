@@ -205,6 +205,122 @@ def test_tile_tables_match_the_element_masks():
                                               err_msg=f"{mask} {causal}")
 
 
+def _block_lists_brute(mask, causal, own_q):
+    """Per 128-row block of the own side (queries for K8, keys for K7):
+    [(streamed 64-row tile, flags, live-row bits)] from the element
+    masks, where flags bit w marks own tile w visiting the streamed
+    tile and bit 2 + w that pair partial."""
+    keep = P._elementwise_keep(mask, causal, "cpu").numpy()
+    el = P._runtime_mask(mask, causal).elementwise()
+    if not own_q:
+        keep, el = keep.T, el.T
+    n_own, n_str = keep.shape
+    R, t = P.BLOCK_ROWS, P.TILE
+    out = []
+    for b in range(-(-n_own // R)):
+        entries = []
+        for j in range(-(-n_str // t)):
+            cols = slice(j * t, (j + 1) * t)
+            flags = 0
+            for w in range(2):
+                rows = slice(b * R + w * t, b * R + (w + 1) * t)
+                vis = bool(keep[rows, cols].any())
+                part = vis and not el[rows, cols].all()
+                flags |= (vis << w) | (part << (2 + w))
+            if flags & 3:
+                live = keep[b * R:(b + 1) * R, cols].any(axis=0)
+                bits = sum(1 << int(r) for r in np.nonzero(live)[0])
+                entries.append((j, flags, bits if flags & 12 else 0))
+        out.append(entries)
+    return out
+
+
+def _check_block_lists(got, want, what):
+    rows = got["rows"].view(np.uint64)
+    assert got["counts"].tolist() == [len(e) for e in want], what
+    for b, entries in enumerate(want):
+        n = len(entries)
+        assert got["tiles"][b, :n].tolist() == [e[0] for e in entries], what
+        assert got["flags"][b, :n].tolist() == [e[1] for e in entries], what
+        assert [int(x) for x in rows[b, :n]] == [e[2] for e in entries], what
+    counts = got["counts"]
+    order = got["order"].tolist()
+    assert sorted(order) == list(range(len(counts))), what
+    # heaviest first, ties in block order
+    for a, b in zip(order, order[1:]):
+        assert (counts[a], -a) > (counts[b], -b), what
+
+
+def test_block_lists_match_the_element_masks():
+    """The bf16 K7/K8 tables: per 128-row block, the union of its two
+    64-row tiles' lists, flags per warpgroup (visits, partial), the live
+    streamed rows of each partial entry and the heaviest-first order,
+    against a scan of the element masks, for block sizes above, below
+    and across 64 and 128 and ragged sequence ends."""
+    rng = np.random.RandomState(1)
+    sizes = [1, 3, 8, 16, 32, 64, 96, 100, 128, 200, 256]
+    for _ in range(40):
+        bq, bk = (int(rng.choice(sizes)) for _ in range(2))
+        nq = rng.randint(1, max(2, 520 // bq))
+        nk = rng.randint(1, max(2, 520 // bk))
+        mask = P.BlockMask(rng.rand(nq, nk) < rng.rand(), bq, bk)
+        for causal in (False, True):
+            visited, partial = P._tile_tables(mask, causal)
+            dq, dkv = P._block_tables(mask, causal, visited, partial)
+            what = f"{mask} causal={causal}"
+            _check_block_lists(dq, _block_lists_brute(mask, causal, True),
+                               "K8 " + what)
+            _check_block_lists(dkv, _block_lists_brute(mask, causal, False),
+                               "K7 " + what)
+
+
+def _dense_sweep(T, S, causal, dkv):
+    """K2's (dkv) or K3's sweep in flash_bwd.cu's DenseSweep: per block
+    of 128 own rows, [(streamed tile, per-warpgroup visit bits)], and the
+    blocks in launch order."""
+    R, t = P.BLOCK_ROWS, P.TILE
+    nb = -(-(S if dkv else T) // R)
+    sweeps = []
+    for b in range(nb):
+        if dkv:
+            begin = b * R if causal else 0
+            n = -(-(T - begin) // t) if T > begin else 0
+            tiles = [begin // t + i for i in range(n)]
+            flags = [sum(1 << w for w in range(2)
+                         if not (causal and j * t + t - 1 < b * R + t * w))
+                     for j in tiles]
+        else:
+            k_end = min(S, (b + 1) * R) if causal else S
+            tiles = list(range(-(-k_end // t)))
+            flags = [sum(1 << w for w in range(2)
+                         if not (causal and j * t > b * R + t * w + t - 1))
+                     for j in tiles]
+        sweeps.append(list(zip(tiles, flags)))
+    order = list(range(nb)) if dkv else list(range(nb))[::-1]
+    return sweeps, order
+
+
+@pytest.mark.parametrize("block,n", [(128, 4), (256, 3), (512, 2)])
+@pytest.mark.parametrize("causal", [True, False])
+def test_block_lists_on_all_ones_mask_are_the_dense_sweep(block, n, causal):
+    """On an all-ones mask at a 128-multiple block the bf16 K7/K8 lists
+    are K2/K3's dense sweep, tile for tile and flag for flag (no partial
+    pair), and under causal in K2/K3's block order: K7/K8 then run K2/K3's
+    products in K2/K3's order and give their bits."""
+    mask = P.BlockMask(np.ones((n, n), bool), block, block)
+    T = n * block
+    visited, partial = P._tile_tables(mask, causal)
+    dq, dkv = P._block_tables(mask, causal, visited, partial)
+    for got, is_dkv in ((dkv, True), (dq, False)):
+        sweeps, order = _dense_sweep(T, T, causal, is_dkv)
+        assert got["counts"].tolist() == [len(sw) for sw in sweeps]
+        for b, sw in enumerate(sweeps):
+            assert got["tiles"][b, :len(sw)].tolist() == [j for j, _ in sw]
+            assert got["flags"][b, :len(sw)].tolist() == [f for _, f in sw]
+        if causal:
+            assert got["order"].tolist() == order
+
+
 def test_tile_work_at_the_training_shape():
     # sliding window 2 + 1 global at block 512 over T 4096: 1120 of
     # flash's 2080 64-row tile pairs per head, none partial
@@ -296,6 +412,32 @@ def test_block_sparse_bwd_plain_matches_pallas_interpret(case):
                           _port(mask), causal, scale)
     for name, a, b in zip(("dq", "dk", "dv"), got, want):
         np.testing.assert_allclose(a.numpy(), b, **GRAD_TOL, err_msg=name)
+
+
+@pytest.mark.parametrize("D", [160, 256])
+def test_block_sparse_wide_head_dim_plain_matches_pallas_interpret(D):
+    """What the wide route (head dims above 128) must compute under a
+    block mask: the plain forward and backward at D as it is, against
+    the Pallas kernels in interpret mode."""
+    rng = np.random.RandomState(D)
+    q, k, v, g = ((rng.randn(1, 2, 128, D) * 0.5).astype(np.float32)
+                  for _ in range(4))
+    mask = J.sliding_window_mask(4, 4, 2, 1, True, 32, 32)
+    scale = 1 / math.sqrt(D)
+    jq, jk, jv = jnp.asarray(q), jnp.asarray(k), jnp.asarray(v)
+    o_want, lse_want = J._bs_fwd(jq, jk, jv, mask, True, scale, True)
+    want = J._bs_bwd(jq, jk, jv, o_want, lse_want, jnp.asarray(g), mask,
+                     True, scale, True)
+    t = [torch.from_numpy(a) for a in (q, k, v)]
+    o, lse = P._bs_attention_plain(*t, _port(mask), True, scale)
+    np.testing.assert_allclose(o.numpy(), np.array(o_want), **TOL)
+    np.testing.assert_allclose(lse.numpy(), np.array(lse_want), **TOL)
+    got = P._bs_bwd_plain(*t, torch.from_numpy(np.array(o_want)),
+                          torch.from_numpy(np.array(lse_want)),
+                          torch.from_numpy(g), _port(mask), True, scale)
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        np.testing.assert_allclose(a.numpy(), np.array(b), **GRAD_TOL,
+                                   err_msg=name)
 
 
 @pytest.mark.parametrize("case", ["sliding_causal_block32", "dead_q_block",

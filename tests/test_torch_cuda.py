@@ -9,7 +9,8 @@ conftest (which configures jax):
 
 Each kernel is held against its plain PyTorch version on the same
 inputs, forward and backward, also at head dims the kernels are not
-built for (zero-padded to the next); a small TransformerLM served on
+built for (zero-padded to the next, or above 128 through the wide
+route) and at more heads than one grid takes; a small TransformerLM served on
 the card in f32 (also at head dim 8, through the server), and small
 flash and block-sparse ones, a ResNet-CIFAR on K5 and a LeNet-5 trained
 three steps on the card in f32, are held against the same model on the
@@ -147,12 +148,19 @@ def test_layer_norm_kernel_matches_plain_on_card(cuda_device, rows, F,
 
 
 def test_kernels_reject_what_they_do_not_take(cuda_device):
-    # head dims up to 128 are padded to a built one; past 128 none is
-    q = torch.randn(1, 2, 16, 160, device=cuda_device)
-    with pytest.raises(ValueError, match="head dim 160"):
-        fa.flash_attention(q, q, q)
-    with pytest.raises(ValueError, match="head dim 160"):
-        bs.block_sparse_attention(q, q, q, np.ones((1, 1), bool))
+    # head dims up to 128 are padded to a built one; past 128 the wide
+    # route takes them as they are
+    g = torch.Generator(device=cuda_device).manual_seed(3)
+    q, k, v = (torch.randn(1, 2, 16, 160, device=cuda_device, generator=g)
+               for _ in range(3))
+    before = fa.LAUNCHES_WIDE.count
+    o = fa.flash_attention(q, k, v)
+    ob = bs.block_sparse_attention(q, k, v, np.ones((1, 1), bool))
+    torch.cuda.synchronize()
+    assert fa.LAUNCHES_WIDE.count == before + 2
+    want = fa._flash_plain(q, k, v, False, 1 / math.sqrt(160))[0]
+    assert _row_rel_err(o, want) <= ROW_TOL[torch.float32]
+    assert _row_rel_err(ob, want) <= ROW_TOL[torch.float32]
     q = torch.randn(1, 2, 16, 32, device=cuda_device, dtype=torch.float16)
     with pytest.raises(TypeError):
         fa.flash_attention(q, q, q)
@@ -280,6 +288,100 @@ def test_odd_head_dims_run_the_kernels_on_card(cuda_device, D, dtype, which):
     assert _row_rel_err(o, o_ref) <= ROW_TOL[dtype]
     assert (lse - lse_ref).abs().max().item() <= 1e-3
     _check_attention_grads(got, want, dtype)
+
+
+@pytest.mark.parametrize("D", [160, 200, 256])
+@pytest.mark.parametrize("dtype", [bf16, torch.float32])
+@pytest.mark.parametrize("which", ["flash", "block_sparse"])
+def test_wide_head_dims_run_the_wide_route_on_card(cuda_device, D, dtype,
+                                                   which):
+    """Head dims above 128 take the wide route (``csrc/attn_wide.cu``) as
+    they are, with no padding: forward and backward through the entry
+    points launch it three times, counted under K1-K3 (K6-K8) too, and
+    match the plain versions in the working dtype row by row, LSE within
+    1e-3."""
+    T = 200
+    g = torch.Generator(device=cuda_device).manual_seed(D)
+    q, k, v, d_o = (torch.randn(2, 4, T, D, device=cuda_device,
+                                generator=g).to(dtype) for _ in range(4))
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    scale = 1 / math.sqrt(D)
+    if which == "flash":
+        counters = (fa.LAUNCHES, fa.LAUNCHES_DKV, fa.LAUNCHES_DQ,
+                    fa.LAUNCHES_WIDE)
+        before = [c.count for c in counters]
+        o, lse = fa.flash_forward(*leaves, causal=True)
+        got = torch.autograd.grad(o, leaves, d_o)
+        o_ref, lse_ref = fa._flash_plain(q, k, v, True, scale)
+        want = fa._flash_bwd_plain(q, k, v, o.detach(), lse, d_o, True,
+                                   scale)
+    else:
+        mask = bs.sliding_window_mask(5, 5, 2, 1, True, 40, 40)
+        counters = (bs.LAUNCHES, bs.LAUNCHES_DKV, bs.LAUNCHES_DQ,
+                    fa.LAUNCHES_WIDE)
+        before = [c.count for c in counters]
+        # the Function behind block_sparse_attention, which returns O alone
+        o, lse = bs._BlockSparseAttention.apply(*leaves, mask, True, scale)
+        got = torch.autograd.grad(o, leaves, d_o)
+        o_ref, lse_ref = bs._bs_attention_plain(q, k, v, mask, True, scale)
+        want = bs._bs_bwd_plain(q, k, v, o.detach(), lse, d_o, mask, True,
+                                scale)
+    torch.cuda.synchronize()
+    assert [c.count - n for c, n in zip(counters, before)] == [1, 1, 1, 3]
+    assert o.shape == (2, 4, T, D) and o.dtype == dtype
+    assert _row_rel_err(o, o_ref) <= ROW_TOL[dtype]
+    assert (lse - lse_ref).abs().max().item() <= 1e-3
+    _check_attention_grads(got, want, dtype)
+
+
+def test_more_heads_than_a_grid_takes_on_card(cuda_device):
+    """B*H = 65536 + 8 heads, more than a grid's y dimension (65535): the
+    wrappers launch 65535 heads at a time over the contiguous (B*H, T, D)
+    views, two launches of each kernel.  Heads of both launches equal,
+    bit for bit, the same heads run alone (each head's rows have one
+    owner block, so a head's result does not depend on the others), and
+    those match the plain versions."""
+    B, H, T, D = 8193, 8, 8, 16
+    g = torch.Generator(device=cuda_device).manual_seed(21)
+    q, k, v, d_o = (torch.randn(B, H, T, D, device=cuda_device,
+                                generator=g).to(bf16) for _ in range(4))
+    scale = 1 / math.sqrt(D)
+    mask = bs.BlockMask(np.eye(2, dtype=bool), 4, 4)
+
+    def run(q, k, v, d_o):
+        o, lse = fa._flash_cuda(q, k, v, True, scale)
+        ob, lseb = bs._bs_fwd_cuda(q, k, v, mask, True, scale)
+        return ((o, lse) + fa._flash_bwd_cuda(q, k, v, o, lse, d_o, True,
+                                              scale),
+                (ob, lseb) + bs._bs_bwd_cuda(q, k, v, ob, lseb, d_o, mask,
+                                             True, scale))
+
+    counters = (fa.LAUNCHES, fa.LAUNCHES_DKV, fa.LAUNCHES_DQ, bs.LAUNCHES,
+                bs.LAUNCHES_DKV, bs.LAUNCHES_DQ)
+    before = [c.count for c in counters]
+    big = run(q, k, v, d_o)
+    torch.cuda.synchronize()
+    assert [c.count - n for c, n in zip(counters, before)] == [2] * 6
+    heads = torch.tensor([0, 1, 65534, 65535, 65536, 65543],
+                         device=cuda_device)
+    pick = [t.reshape(B * H, T, -1)[heads].reshape(1, len(heads), T, -1)
+            .contiguous() for t in (q, k, v, d_o)]
+    alone = run(*pick)
+    for got_family, want_family in zip(big, alone):
+        for got, want in zip(got_family, want_family):
+            sel = got.reshape(B * H, T, -1)[heads]
+            assert torch.equal(sel, want.reshape(len(heads), T, -1))
+    (o, lse, *grads), (ob, lseb, *grads_b) = alone
+    o_ref, lse_ref = fa._flash_plain(*pick[:3], True, scale)
+    assert _row_rel_err(o, o_ref) <= ROW_TOL[bf16]
+    assert (lse - lse_ref).abs().max().item() <= 1e-3
+    _check_attention_grads(grads, fa._flash_bwd_plain(
+        *pick[:3], o, lse, pick[3], True, scale), bf16)
+    ob_ref, lseb_ref = bs._bs_attention_plain(*pick[:3], mask, True, scale)
+    assert _row_rel_err(ob, ob_ref) <= ROW_TOL[bf16]
+    assert (lseb - lseb_ref).abs().max().item() <= 1e-3
+    _check_attention_grads(grads_b, bs._bs_bwd_plain(
+        *pick[:3], ob, lseb, pick[3], mask, True, scale), bf16)
 
 
 def test_cuda_gradients_match_the_plain_backward(cuda_device):
@@ -533,13 +635,13 @@ def test_block_sparse_empty_rows_are_exactly_zero_on_card(cuda_device):
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_block_sparse_all_ones_mask_is_the_flash_kernels(cuda_device, dtype):
-    """An all-ones causal mask at a 64-multiple block visits the flash
-    kernels' 64-row tiles in their order with no partial tile.  In f32,
-    K1-K3 keep the FMA tile loop that K6-K8 run over their tile lists:
-    K6 = K1, and K7/K8 = K2/K3 fed the same (O, LSE, dO) from K6, bit for
-    bit.  In bf16, K1-K3 are the Hopper kernels, which round at other
-    points: the forwards and, on the same (O, LSE, dO), the gradients
-    are held row by row, the gradients at one scale for the three."""
+    """An all-ones causal mask at a 128-multiple block visits the flash
+    kernels' tiles in their order with no partial tile.  K7/K8 fed the
+    same (O, LSE, dO) from K6 equal K2/K3 bit for bit in both dtypes: in
+    bf16 both pairs are the one Hopper body of ``attn_bwd_hopper.cuh``
+    over the same tiles, in f32 the one FMA tile loop.  In f32 K6 = K1
+    bit for bit too; in bf16 K1 is the Hopper kernel, which rounds at
+    other points, and the forwards are held row by row."""
     T, D = 512, 128 if dtype == torch.bfloat16 else 64
     mask = bs.BlockMask(np.ones((4, 4), bool), 128, 128)
     q, k, v, d_o = _bs_inputs(T, T, D, dtype, cuda_device, 7)
@@ -553,11 +655,8 @@ def test_block_sparse_all_ones_mask_is_the_flash_kernels(cuda_device, dtype):
         assert (lse1 - lse).abs().max().item() <= 1e-3
     got = bs._bs_bwd_cuda(q, k, v, o, lse, d_o, mask, True, scale)
     want = fa._flash_bwd_cuda(q, k, v, o, lse, d_o, True, scale)
-    if dtype == torch.float32:
-        for a, b in zip(got, want):
-            assert torch.equal(a, b)
-    else:
-        _check_attention_grads(got, want, dtype)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])

@@ -231,6 +231,34 @@ def test_padded_head_dim_leaves_attention_and_grads_unchanged(D, causal):
                                    atol=1e-6)
 
 
+@pytest.mark.parametrize("D", [160, 256])
+@pytest.mark.parametrize("causal", [True, False])
+def test_wide_head_dim_plain_matches_pallas_interpret(D, causal):
+    """What the wide route (head dims above 128, ``csrc/attn_wide.cu``)
+    must compute: the plain forward and backward, taken at D as it is,
+    against the Pallas kernels in interpret mode, which hand D straight
+    to their (1, block, D) blocks."""
+    q, k, v = _qkv(1, 2, 128, 128, D, seed=D)
+    g = np.random.RandomState(D + 1).randn(1, 2, 128, D).astype(np.float32)
+    scale = 1 / math.sqrt(D)
+    jq, jk, jv = jnp.asarray(q), jnp.asarray(k), jnp.asarray(v)
+    o_want, lse_want = _flash_fwd(jq, jk, jv, causal, scale, 64, 64, True)
+    want = _flash_bwd(jq, jk, jv, o_want, lse_want, jnp.asarray(g), causal,
+                      scale, 64, 64, True)
+    t = [torch.from_numpy(a) for a in (q, k, v)]
+    o, lse = fa._flash_plain(*t, causal, scale)
+    np.testing.assert_allclose(o.numpy(), np.asarray(o_want), **TOL)
+    np.testing.assert_allclose(lse.numpy(), np.asarray(lse_want), **TOL)
+    got = fa._flash_bwd_plain(*t, torch.from_numpy(np.array(o_want)),
+                              torch.from_numpy(np.array(lse_want)),
+                              torch.from_numpy(g), causal, scale)
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), **GRAD_TOL,
+                                   err_msg=name)
+    # the wrappers take such a head dim as it is: no padding, no cut
+    assert fa._padded_head_dim(D) == D and fa._wide(D)
+
+
 @pytest.mark.parametrize("shape", [(4, 7, 64), (16, 1000)])
 def test_layer_norm_grad_matches_jax_grad_of_pallas_interpret(shape):
     rng = np.random.RandomState(2)
