@@ -20,10 +20,11 @@ with the causally dead blocks pruned, AND the element-level causal
 mask), and flags the tile pairs the mask covers only in part.  Inside a
 flagged pair the kernels test each element against the block mask and
 zero-fill the rows that no row of the other tile may attend, so a dead
-element never reaches a product.  K7 and K8 in bf16 (K2/K3's Hopper
-body, ``csrc/attn_bwd_hopper.cuh``) own 128 rows a block:
-``_block_lists`` regroups the lists per block, with per-warpgroup flags,
-the live rows of each partial pair and a heaviest-first block order.
+element never reaches a product.  K6-K8 in bf16 (K1's and K2/K3's Hopper
+bodies, ``csrc/attn_fwd_hopper.cuh`` and ``csrc/attn_bwd_hopper.cuh``)
+own 128 rows a block: ``_block_lists`` regroups the lists per block, with
+per-warpgroup flags, the live rows of each partial pair and a
+heaviest-first block order; K6 reads K8's lists.
 The tables go to the card once per (mask, causal, device) and stay
 cached: no launch uploads anything.  Head dims above 128 take the wide
 route of ``flash_attention`` (``csrc/attn_wide.cu``) under the block
@@ -60,7 +61,7 @@ __all__ = ["BlockMask", "block_sparse_attention", "block_sparse_matmul",
            "attention_work", "matmul_work", "pick_block_divisor"]
 
 TILE = 64   # rows of every attention tile the kernels work on
-BLOCK_ROWS = 128   # own rows of a bf16 K7/K8 block: two 64-row tiles
+BLOCK_ROWS = 128   # own rows of a bf16 K6-K8 block: two 64-row tiles
 
 #: launches of K6, K7, K8 and K9 (CUDA branch only)
 LAUNCHES = LaunchCounter("block_sparse_fwd")
@@ -337,7 +338,7 @@ def _tile_lists(visited: np.ndarray, partial: np.ndarray):
 
 
 def _block_lists(visited: np.ndarray, partial: np.ndarray, live) -> dict:
-    """The bf16 K7/K8 sweep of each block of 128 own rows, from the 64-row
+    """The bf16 K6-K8 sweep of each block of 128 own rows, from the 64-row
     tile tables ``visited`` and ``partial`` ((own tiles, streamed tiles)
     bool): the ascending union of its two tiles' lists, a flag byte per
     entry (bit w: own tile w visits the streamed tile; bit 2 + w: that
@@ -375,8 +376,8 @@ def _block_lists(visited: np.ndarray, partial: np.ndarray, live) -> dict:
 
 def _block_tables(mask: BlockMask, causal: bool, visited: np.ndarray,
                   partial: np.ndarray):
-    """``_block_lists`` for K8 (own query blocks, streamed key tiles) and
-    for K7 (own key blocks, streamed query tiles)."""
+    """``_block_lists`` for K6 and K8 (own query blocks, streamed key
+    tiles) and for K7 (own key blocks, streamed query tiles)."""
     run = _runtime_mask(mask, causal).mask
     bq, bk = mask.block_q, mask.block_k
     T, S = run.shape[0] * bq, run.shape[1] * bk
@@ -423,10 +424,10 @@ def _to_device(a: np.ndarray, device) -> torch.Tensor:
 
 def _attention_tables(mask: BlockMask, causal: bool, device):
     """The kernels' tables on ``device``, built once per (mask, causal,
-    device): the 64-row tile lists of K6 and the f32 K8 (per q tile) and
-    of the f32 K7 (per k tile), the 128-row block lists of the bf16 K8
-    (``dq_blocks``) and K7 (``dkv_blocks``), and the runtime block mask
-    (uint8) for partial pairs and the wide route."""
+    device): the 64-row tile lists of the f32 K6 and K8 (per q tile) and
+    of the f32 K7 (per k tile), the 128-row block lists of the bf16 K6
+    and K8 (``dq_blocks``) and K7 (``dkv_blocks``), and the runtime block
+    mask (uint8) for partial pairs and the wide route."""
     def make():
         visited, partial = _tile_tables(mask, causal)
         fwd = _tile_lists(visited, partial)
@@ -520,12 +521,19 @@ def _attn_fn(name: str, n_ptr: int):
     return fn
 
 
+def _query_tables(dtype: torch.dtype) -> str:
+    """The ``_attention_tables`` entry that K6 and K8 sweep (own query
+    rows, streamed key tiles): the 128-row block lists in bf16, the
+    64-row tile lists in f32."""
+    return "dq_blocks" if dtype == torch.bfloat16 else "fwd"
+
+
 def _table_args(tab, which: str, mask: BlockMask, q, k):
-    """The table pointers and ints of a launch: K6 and the f32 K7/K8
-    read the 64-row tile lists (``fwd``, ``dkv``: tiles, counts, partial
-    flags), the bf16 K7/K8 the 128-row block lists (``dq_blocks``,
-    ``dkv_blocks``: tiles, counts, flags, order, rows); then the block
-    mask, L, the mask's shape and the problem's."""
+    """The table pointers and ints of a launch: in f32 the 64-row tile
+    lists (``fwd``, ``dkv``: tiles, counts, partial flags), in bf16 the
+    128-row block lists (``dq_blocks``, ``dkv_blocks``: tiles, counts,
+    flags, order, rows); then the block mask, L, the mask's shape and the
+    problem's."""
     t = tab[which]
     if isinstance(t, dict):
         tiles, counts, flags = t["tiles"], t["counts"], t["flags"]
@@ -558,12 +566,13 @@ def _bs_fwd_cuda(q, k, v, mask: BlockMask, causal: bool, sm_scale: float
     Dp = _padded_head_dim(D_true)
     q, k, v = (_pad_head_dim(t, Dp) for t in (q, k, v))
     B, H, T, D = q.shape
-    ptrs, _, ints = _table_args(tab, "fwd", mask, q, k)
+    ptrs, extra, ints = _table_args(tab, _query_tables(q.dtype), mask, q, k)
     o = torch.empty_like(q)
     lse = torch.empty((B * H, 1, T), dtype=torch.float32, device=q.device)
-    _launch_heads("block_sparse_fwd", (LAUNCHES,), _attn_fn("bigdl_bs_fwd", 9),
+    _launch_heads("block_sparse_fwd", (LAUNCHES,), _attn_fn("bigdl_bs_fwd", 11),
                   [q, k, v, o, lse],
-                  [*ptrs, *ints, float(sm_scale), int(bool(causal))], B * H)
+                  [*ptrs, *extra, *ints, float(sm_scale), int(bool(causal))],
+                  B * H)
     return _cut_head_dim(o, D_true), lse
 
 
@@ -593,8 +602,7 @@ def _launch_bs_dq(q, k, v, do, lse, delta, mask: BlockMask, causal: bool,
     if _wide(q.shape[-1]):
         return _wide_dq(q, k, v, do, lse, delta, causal, sm_scale,
                         LAUNCHES_DQ, _wide_block_mask(tab, mask))
-    which = "dq_blocks" if q.dtype == torch.bfloat16 else "fwd"
-    ptrs, extra, ints = _table_args(tab, which, mask, q, k)
+    ptrs, extra, ints = _table_args(tab, _query_tables(q.dtype), mask, q, k)
     dq = torch.empty_like(q)
     _launch_heads("block_sparse_bwd_dq", (LAUNCHES_DQ,),
                   _attn_fn("bigdl_bs_bwd_dq", 13),

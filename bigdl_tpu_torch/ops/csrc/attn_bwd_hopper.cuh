@@ -23,7 +23,8 @@
 // the tile loads by TMA through 3-D tensor maps (D, rows, B*H); streamed
 // 64-row tiles go through a ring of stages, each guarded by a full and an
 // empty mbarrier.  Panels, swizzles and descriptors follow
-// hopper_common.cuh.
+// hopper_common.cuh, which also holds the sweep's Step, its flag bits and
+// stage_live_rows, shared with the forward body (attn_fwd_hopper.cuh).
 //   * dK/dV (bwd_dkv_wgmma_kernel): the block owns 128 key rows; K and V are
 //     loaded once; 64-row Q and dO tiles stream through 3 stages, and the
 //     producer's first warp stages each tile's LSE (times log2 e) and delta
@@ -65,11 +66,7 @@
 
 namespace {
 
-constexpr int kConsumers = 256;                // two warpgroups of 64 rows
 constexpr int kBwdThreads = kConsumers + 128;  // and one producer warpgroup
-constexpr int kBlockRows = 128;                // output rows per block
-constexpr int kTileRows = 64;                  // rows of a streamed tile
-constexpr float kLog2e = 1.4426950408889634f;
 // registers per thread after the hand-over.  The launch gives 168 to each
 // of the 384, and the consumers can take only what the producer gives
 // back: (168 - P) * 4 warps >= (C - 168) * 8 warps, P + 2 C <= 504 (at
@@ -80,17 +77,6 @@ constexpr int kDkvProducerRegs = 24;
 constexpr int kDkvConsumerRegs = 240;
 constexpr int kDqProducerRegs = 40;
 constexpr int kDqConsumerRegs = 232;
-
-// flag bits of a sweep step (shifted by the consumer warpgroup, 0 or 1)
-constexpr uint32_t kVisit = 1;
-constexpr uint32_t kPartial = 4;
-constexpr uint32_t kPartialAny = 12;
-
-// one streamed tile of a sweep: its index (rows 64 * tile ..) and flags
-struct Step {
-  int tile;
-  uint32_t flags;
-};
 
 // dK/dV: the block's K and V rows, then the ring of (Q, dO, LSE, delta) tiles
 template <int D>
@@ -147,33 +133,6 @@ __device__ __forceinline__ void wgmma_accumulate(float* acc, const uint32_t* a,
     for (int p = 0; p < P::NP; ++p)
       wgmma_rs<P::PW, 1>(acc + p * (P::PW / 2), a + 4 * kk,
                          smem_desc<P::RB>(b + p * kPanelB + 16 * P::RB * kk), 1);
-}
-
-// One warp stages rows row0 .. row0 + 63 of a (n_rows, D) bf16 matrix into a
-// 64-row tile of swizzled panels at `dst` (panel pitch kPanel), where TMA
-// would put them: the swizzle xors a row's 16-byte chunk index with address
-// bits 7.. of its panel offset (Swizzle<3,4,3> at 128-byte rows, <2,4,3> at
-// 64, <1,4,3> at 32), so a row keeps its own bytes.  Rows whose bit in `live`
-// is clear, and rows at or past n_rows, are written as zeros, not loaded.
-template <int D, int kPanel>
-__device__ __forceinline__ void stage_live_rows(unsigned char* dst,
-                                                const __nv_bfloat16* __restrict__ src,
-                                                int row0, int n_rows, unsigned long long live,
-                                                int lane) {
-  using P = Panels<D>;
-  constexpr int CPR = D / 8;        // 16-byte chunks per row
-  constexpr int CPP = P::PW / 8;    // 16-byte chunks per panel row
-  constexpr uint32_t SWZ = (P::RB / 16 - 1) << 4;
-  // one load in flight: the producer runs on the few registers it kept
-#pragma unroll 1
-  for (int i = lane; i < kTileRows * CPR; i += 32) {
-    const int r = i / CPR, cc = i % CPR;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (row0 + r < n_rows && ((live >> r) & 1ull))
-      val = *reinterpret_cast<const uint4*>(src + (size_t)(row0 + r) * D + 8 * cc);
-    const uint32_t a = r * P::RB + 16 * (cc % CPP);
-    *reinterpret_cast<uint4*>(dst + (cc / CPP) * kPanel + (a ^ ((a >> 3) & SWZ))) = val;
-  }
 }
 
 // A consumer warpgroup of the dK/dV kernel: key rows k0w .. k0w + 63; this

@@ -1,0 +1,371 @@
+// The bf16 attention forward for Hopper (sm_90a): the kernel that
+// flash_fwd.cu runs as K1 and block_sparse.cu as K6.  Both compute the same
+// math; only the sweep differs, so the body is written once here and
+// templated on a sweep policy, as attn_bwd_hopper.cuh is for the backward.
+//
+// Replaces the TPU kernels `_fwd_kernel` (bigdl_tpu/ops/flash_attention.py:150)
+// and `_bs_fwd_kernel` (bigdl_tpu/ops/block_sparse.py:292).  It computes
+// exactly what they compute:
+//   * scores q.k in f32 (bf16 products, f32 accumulation) times sm_scale;
+//   * the causal mask top-left aligned: q_pos >= k_pos, both counted from 0;
+//     in K6 also the block mask;
+//   * an online softmax over k tiles with f32 running (m, l, acc), l summed
+//     from the f32 probabilities;
+//   * P cast to v's dtype before the P.V product;
+//   * O = acc / max(l, 1e-30) in q's dtype, and the row log-sum-exp in f32;
+//     a row that attends nothing gives O = 0 and LSE = 1e30.
+//
+// What bounds it on an H100.  Two products of 2 * D FLOP per live score
+// element against q, k, v and o moved once.  At K1's training shape (B 16,
+// H 8, T 1024, D 128, causal) that is 34 GFLOP, 35 us at 989 TFLOP/s,
+// against 134 MB, 40 us at 3.35 TB/s: the two bounds sit together.  At
+// K6's block-sparse training shape (B 4, H 8, T 4096, D 128, sliding window
+// 2 + 1 global at block 512) it is 73.0 GFLOP, 74 us, against 135 MB,
+// 40 us: bound by operations.  So loads must overlap the products, and the
+// products must run on wgmma with the intermediates in registers.
+//
+// Design.  One block of 384 threads per (batch*head, 128 query rows): two
+// consumer warpgroups of 64 rows each and one producer warpgroup, which
+// hands most of its registers to the consumers (setmaxnreg: 40 against 232
+// each), so the f32 S and O accumulators and P of a thread stay in
+// registers.  The producer loads the q tile once by TMA through 3-D tensor
+// maps (D, T or S, B*H), so a tile never reads past its own head and the
+// ragged edge arrives as zeros, then streams K and V tiles into a ring of
+// stages, each guarded by a full and an empty mbarrier.  A consumer
+// warpgroup computes S = Q.K^T with wgmma (both operands K-major in shared
+// memory, 128-byte swizzle), runs the online softmax on the accumulator in
+// registers (a row lives in one quad of threads: two shuffles reduce it),
+// masks only a diagonal, ragged or partial tile, rescales its O accumulator
+// in registers, packs P to bf16 in registers and adds P.V with wgmma taking
+// P as its register A operand and the V tile as a transposed (MN-major) B.
+// O never leaves registers until the epilogue, which scales by 1/l, rounds
+// to bf16, stages the rows in the warpgroup's own part of the q tile and
+// writes them with 16-byte stores.
+//
+// The sweep policy says which 128 query rows a block owns, which key tiles
+// it streams, in which order, and which consumer warpgroup computes each:
+//   * fwd_block(): the owner block's index b (query rows 128 b ..);
+//   * fwd_count(b, S): how many key tiles it streams (0: O = 0, LSE = 1e30);
+//   * fwd_step(b, it): the it-th key tile and its flags (hopper_common.cuh:
+//     bit w when warpgroup w computes it, bit 2 + w when that pair is
+//     covered by the block mask in part).  A warpgroup that does not visit
+//     a tile only releases it.
+//   * kList: false for flash_fwd.cu's DenseSweep (K1: key tiles up to the
+//     causal diagonal, counted by arithmetic, heaviest blocks first, 64-key
+//     tiles in 4 stages at D 128 and 128-key tiles in 3 below); true for
+//     block_sparse.cu's ListSweep (K6: the steps of K8's 128-row lists,
+//     64-key tiles in 4 stages at every D).  A list step is read from device
+//     memory by the producer's first warp, which stages it in shared memory
+//     with the tile.  A tile with a partial pair is staged by that warp, not
+//     by TMA: it copies the key rows some query of the block attends
+//     (live(b, it)) into the swizzled layout TMA would give and writes zeros
+//     for the rest (stage_live_rows), so a dead K or V row (NaN included)
+//     never reaches a product; keep(q, k) is the block mask tested inside a
+//     partial pair.
+// On an all-ones causal mask at a 128-multiple block the list is the dense
+// sweep at D 128, tile for tile, so K6 and K1 give the same bits.
+//
+// Everything lives in an anonymous namespace, as in tile_common.cuh.
+#pragma once
+
+#include "hopper_common.cuh"
+#include "tile_common.cuh"
+
+namespace {
+
+constexpr int kFwdThreads = kConsumers + 128;  // and one producer warpgroup
+// registers per thread after the hand-over (the launch gives 168 to each
+// of the 384): P + 2 C <= 504, as attn_bwd_hopper.cuh derives
+constexpr int kFwdProducerRegs = 40;
+constexpr int kFwdConsumerRegs = 232;
+constexpr float kLn2 = 0.6931471805599453f;
+
+// the block's q rows, then the ring of (K, V) tiles of BK key rows and, for
+// a list sweep, each stage's step
+template <int D, int kKeyRows>
+struct FwdCfg : Panels<D> {
+  static constexpr int BK = kKeyRows;
+  static constexpr int STAGES = BK == 64 ? 4 : 3;
+  static constexpr int Q_BYTES = kBlockRows * D * 2;
+  static constexpr int KV_BYTES = BK * D * 2;  // one K or V tile
+  static constexpr int PANEL_Q = kBlockRows * Panels<D>::RB;
+  static constexpr int PANEL_KV = BK * Panels<D>::RB;
+  static constexpr size_t SMEM = 1024 + Q_BYTES + 2 * STAGES * KV_BYTES +
+                                 sizeof(uint64_t) * (1 + 2 * STAGES) + STAGES * sizeof(Step);
+};
+
+// A consumer warpgroup: rows q0w .. q0w + 63 of block b's q tile; this
+// thread holds rows row0 and row0 + 8 of each accumulator
+// (hopper_common.cuh).  o and lse start at the block's head.
+template <int D, int kKeyRows, class Sweep>
+__device__ __forceinline__ void fwd_consume(const Sweep& sw, unsigned char* q_s,
+                                            const unsigned char* k_s, const unsigned char* v_s,
+                                            const Step* step_s, uint64_t* q_full, uint64_t* full,
+                                            uint64_t* empty, __nv_bfloat16* __restrict__ o,
+                                            float* __restrict__ lse, int b, int n, int T_len,
+                                            int S_len, float scale_log2, int causal) {
+  using C = FwdCfg<D, kKeyRows>;
+  const int wg = threadIdx.x / 128;
+  const int warp = (threadIdx.x % 128) / 32;
+  const int lane = threadIdx.x % 32;
+  const int t = lane % 4;
+  const int q0w = b * kBlockRows + 64 * wg;
+  const int r_wg = 16 * warp + lane / 4;    // row within the warpgroup's 64
+  const int row0 = q0w + r_wg;
+  unsigned char* q_wg = q_s + 64 * wg * C::RB;
+
+  float acc[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.0f;
+  float m_run[2] = {-INFINITY, -INFINITY};
+  float l_run[2] = {0.0f, 0.0f};   // this thread's share of l; the quad sums at the end
+
+  if (n > 0) mbar_wait(q_full, 0);
+  for (int it = 0; it < n; ++it) {
+    const int s = it % C::STAGES;
+    Step step;
+    if constexpr (!Sweep::kList) step = sw.fwd_step(b, it);
+    mbar_wait(&full[s], (it / C::STAGES) & 1);
+    if constexpr (Sweep::kList) step = step_s[s];   // staged by the producer
+    if (step.flags & (kVisit << wg)) {
+      const int k0 = step.tile * C::BK;
+      float sc[C::BK / 2];
+      wgmma_fence();
+#pragma unroll
+      for (int p = 0; p < C::NP; ++p)
+#pragma unroll
+        for (int j = 0; j < C::PW / 16; ++j)
+          wgmma_ss<C::BK, 0>(sc, smem_desc<C::RB>(q_wg + p * C::PANEL_Q + 32 * j),
+                             smem_desc<C::RB>(k_s + (s * C::NP + p) * C::PANEL_KV + 32 * j),
+                             p + j > 0);
+      wgmma_commit();
+      wgmma_wait<0>();
+#pragma unroll
+      for (int i = 0; i < C::BK / 2; ++i) fence_regs(sc[i]);
+
+#pragma unroll
+      for (int i = 0; i < C::BK / 2; ++i) sc[i] *= scale_log2;
+      // Only a diagonal, ragged or partial tile pays for the masks, each in
+      // a loop of its own behind this branch: a test inside the
+      // exponentials' loop is branched element by element on every tile.
+      // Element i is query row row0 + 8 ((i >> 1) & 1), key column k0 +
+      // 8 (i / 4) + 2 t + (i & 1).
+      const bool part = Sweep::kList && (step.flags & (kPartial << wg));
+      if (part || k0 + C::BK > S_len || (causal && k0 + C::BK - 1 > q0w)) {
+#pragma unroll
+        for (int i = 0; i < C::BK / 2; ++i) {
+          const int col = k0 + 8 * (i / 4) + 2 * t + (i & 1);
+          const int row = row0 + 8 * ((i >> 1) & 1);
+          if (col >= S_len || (causal && col > row)) sc[i] = -INFINITY;
+        }
+        if constexpr (Sweep::kList) {
+          if (part) {
+#pragma unroll
+            for (int i = 0; i < C::BK / 2; ++i) {
+              const int col = k0 + 8 * (i / 4) + 2 * t + (i & 1);
+              const int row = row0 + 8 * ((i >> 1) & 1);
+              if (col < S_len && (row >= T_len || !sw.keep(row, col))) sc[i] = -INFINITY;
+            }
+          }
+        }
+      }
+      float m_new[2] = {m_run[0], m_run[1]};
+#pragma unroll
+      for (int i = 0; i < C::BK / 2; ++i) m_new[(i >> 1) & 1] = fmaxf(m_new[(i >> 1) & 1], sc[i]);
+      float m_safe[2], alpha[2];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        m_new[h] = fmaxf(m_new[h], __shfl_xor_sync(0xffffffffu, m_new[h], 1));
+        m_new[h] = fmaxf(m_new[h], __shfl_xor_sync(0xffffffffu, m_new[h], 2));
+        // guard fully masked rows: exp(-inf - -inf) would be nan
+        m_safe[h] = m_new[h] == -INFINITY ? 0.0f : m_new[h];
+        alpha[h] = m_run[h] == -INFINITY ? 0.0f : exp2f(m_run[h] - m_safe[h]);
+        m_run[h] = m_new[h];
+        l_run[h] *= alpha[h];
+      }
+#pragma unroll
+      for (int i = 0; i < C::BK / 2; ++i) {
+        sc[i] = exp2f(sc[i] - m_safe[(i >> 1) & 1]);
+        l_run[(i >> 1) & 1] += sc[i];
+      }
+      uint32_t pa[C::BK / 4];   // P in bf16: 16 columns per k16 step, wgmma's A layout
+#pragma unroll
+      for (int i = 0; i < C::BK / 4; ++i) pa[i] = pack_bf16x2(sc[2 * i], sc[2 * i + 1]);
+#pragma unroll
+      for (int i = 0; i < D / 2; ++i) acc[i] *= alpha[(i >> 1) & 1];
+
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < C::BK / 16; ++kk)
+#pragma unroll
+        for (int p = 0; p < C::NP; ++p)
+          wgmma_rs<C::PW, 1>(acc + p * (C::PW / 2), pa + 4 * kk,
+                             smem_desc<C::RB>(v_s + (s * C::NP + p) * C::PANEL_KV +
+                                              16 * C::RB * kk),
+                             1);
+      wgmma_commit();
+      wgmma_wait<0>();
+#pragma unroll
+      for (int i = 0; i < D / 2; ++i) fence_regs(acc[i]);
+    }
+    mbar_arrive(&empty[s]);
+  }
+
+  // epilogue: O = acc / l in bf16, staged in this warpgroup's rows of the
+  // q tile (its own products are done), then written 16 bytes a thread
+  constexpr int SWZ = C::RB / 16 - 1;   // 16-byte chunks of a panel row, xor'd by row
+  float inv[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    l_run[h] += __shfl_xor_sync(0xffffffffu, l_run[h], 1);
+    l_run[h] += __shfl_xor_sync(0xffffffffu, l_run[h], 2);
+    inv[h] = 1.0f / fmaxf(l_run[h], 1e-30f);
+    const int row = row0 + 8 * h;
+    if (t == 0 && row < T_len)
+      lse[row] = l_run[h] > 0.0f ? (m_run[h] + log2f(fmaxf(l_run[h], 1e-30f))) * kLn2 : BIG_LSE;
+  }
+#pragma unroll
+  for (int p = 0; p < C::NP; ++p)
+#pragma unroll
+    for (int j = 0; j < C::PW / 8; ++j)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int r = r_wg + 8 * h;
+        const float* a = acc + p * (C::PW / 2) + 4 * j + 2 * h;
+        *reinterpret_cast<uint32_t*>(q_wg + p * C::PANEL_Q + r * C::RB + 16 * (j ^ (r & SWZ)) +
+                                     4 * t) = pack_bf16x2(a[0] * inv[h], a[1] * inv[h]);
+      }
+  named_barrier_sync(1 + wg, 128);
+  for (int i = threadIdx.x % 128; i < 64 * (D / 8); i += 128) {
+    const int r = i / (D / 8);
+    const int cc = i % (D / 8);
+    const int p = cc / (C::PW / 8), j = cc % (C::PW / 8);
+    const unsigned char* src = q_wg + p * C::PANEL_Q + r * C::RB + 16 * (j ^ (r & SWZ));
+    if (q0w + r < T_len)
+      *reinterpret_cast<uint4*>(o + ((size_t)q0w + r) * D + 8 * cc) =
+          *reinterpret_cast<const uint4*>(src);
+  }
+}
+
+// grid (B*H, ceil(T / 128)); the sweep maps blockIdx.y to a block.
+template <int D, int kKeyRows, class Sweep>
+__global__ void __launch_bounds__(kFwdThreads, 1)
+attn_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
+                      const __grid_constant__ CUtensorMap tm_k,
+                      const __grid_constant__ CUtensorMap tm_v, __nv_bfloat16* __restrict__ o,
+                      float* __restrict__ lse, int T_len, int S_len, float scale_log2,
+                      int causal, const Sweep sw) {
+  using C = FwdCfg<D, kKeyRows>;
+  static_assert(!Sweep::kList || C::BK == kTileRows, "list sweeps stream 64-row tiles");
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* q_s = align1024(smem_raw);             // [panel][128 rows]
+  unsigned char* k_s = q_s + C::Q_BYTES;                // [stage][panel][BK rows]
+  unsigned char* v_s = k_s + C::STAGES * C::KV_BYTES;
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(v_s + C::STAGES * C::KV_BYTES);
+  uint64_t* full = q_full + 1;
+  uint64_t* empty = full + C::STAGES;
+  Step* step_s = reinterpret_cast<Step*>(empty + C::STAGES);   // [stage], list sweeps
+
+  const int bh = blockIdx.x;
+  const int b = sw.fwd_block();
+  const int q0 = b * kBlockRows;
+  const int n = sw.fwd_count(b, S_len);   // 0: O = 0, LSE = 1e30
+
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    for (int s = 0; s < C::STAGES; ++s) {
+      // one TMA thread, or the first warp where it may stage rows itself
+      mbar_init(&full[s], Sweep::kList ? 32 : 1);
+      mbar_init(&empty[s], kConsumers);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= kConsumers) {
+    setmaxnreg_dec<kFwdProducerRegs>();
+    const int lane = threadIdx.x % 32;
+    if (Sweep::kList ? threadIdx.x < kConsumers + 32 : threadIdx.x == kConsumers) {
+      if (lane == 0 && n > 0) {
+        mbar_arrive_expect_tx(q_full, C::Q_BYTES);
+        for (int p = 0; p < C::NP; ++p)
+          tma_load_3d(q_s + p * C::PANEL_Q, &tm_q, q_full, p * C::PW, q0, bh);
+      }
+      for (int it = 0; it < n; ++it) {
+        const int s = it % C::STAGES;
+        const Step step = sw.fwd_step(b, it);
+        const int k0 = step.tile * C::BK;
+        mbar_wait(&empty[s], ((it / C::STAGES) & 1) ^ 1);   // the first round passes
+        if constexpr (Sweep::kList) {
+          if (lane == 0) step_s[s] = step;
+          if (step.flags & kPartialAny) {   // a partial pair: live rows only
+            const unsigned long long live = sw.live(b, it);
+            const size_t head = (size_t)bh * S_len * D;
+            stage_live_rows<D, C::PANEL_KV>(k_s + s * C::KV_BYTES, sw.src_a + head, k0, S_len,
+                                            live, lane);
+            stage_live_rows<D, C::PANEL_KV>(v_s + s * C::KV_BYTES, sw.src_b + head, k0, S_len,
+                                            live, lane);
+            fence_proxy_async();
+            mbar_arrive(&full[s]);
+            continue;
+          }
+          if (lane != 0) {
+            mbar_arrive(&full[s]);
+            continue;
+          }
+        }
+        mbar_arrive_expect_tx(&full[s], 2 * C::KV_BYTES);
+        for (int p = 0; p < C::NP; ++p) {
+          const int off = (s * C::NP + p) * C::PANEL_KV;
+          tma_load_3d(k_s + off, &tm_k, &full[s], p * C::PW, k0, bh);
+          tma_load_3d(v_s + off, &tm_v, &full[s], p * C::PW, k0, bh);
+        }
+      }
+    }
+  } else {
+    setmaxnreg_inc<kFwdConsumerRegs>();
+    fwd_consume<D, kKeyRows>(sw, q_s, k_s, v_s, step_s, q_full, full, empty,
+                             o + (size_t)bh * T_len * D, lse + (size_t)bh * T_len, b, n, T_len,
+                             S_len, scale_log2, causal);
+  }
+}
+
+// The arguments of one forward launch: q (BH, T, D), k and v (BH, S, D), o
+// as q, lse (BH, T) f32.
+struct FwdArgs {
+  const void* q;
+  const void* k;
+  const void* v;
+  void* o;
+  void* lse;
+  int BH, T_len, S_len;
+  float sm_scale;
+  int causal;
+  cudaStream_t stream;
+};
+
+// the forward over `sw`, key tiles of kKeyRows rows, bf16
+template <int D, int kKeyRows, class Sweep>
+cudaError_t launch_fwd_wgmma(const FwdArgs& a, const Sweep& sw) {
+  using C = FwdCfg<D, kKeyRows>;
+  static_assert(C::SMEM <= kMaxSmemBytes, "attn_fwd_wgmma tiles do not fit in shared memory");
+  const int n_qb = (a.T_len + kBlockRows - 1) / kBlockRows;
+  if (n_qb > 65535) return cudaErrorInvalidValue;
+  // encoded per launch and passed by value: a CUDA graph captures them
+  CUtensorMap tm_q, tm_k, tm_v;
+  cudaError_t err = encode_bf16_3d(&tm_q, a.q, D, a.T_len, a.BH, C::PW, kBlockRows);
+  if (err == cudaSuccess) err = encode_bf16_3d(&tm_k, a.k, D, a.S_len, a.BH, C::PW, C::BK);
+  if (err == cudaSuccess) err = encode_bf16_3d(&tm_v, a.v, D, a.S_len, a.BH, C::PW, C::BK);
+  if (err != cudaSuccess) return err;
+  auto kernel = attn_fwd_wgmma_kernel<D, kKeyRows, Sweep>;
+  static std::mutex mu;
+  static bool attr_set[kMaxDevices] = {};
+  err = smem_opt_in_once(kernel, (int)C::SMEM, mu, attr_set);
+  if (err != cudaSuccess) return err;
+  kernel<<<dim3(a.BH, n_qb), kFwdThreads, C::SMEM, a.stream>>>(
+      tm_q, tm_k, tm_v, static_cast<__nv_bfloat16*>(a.o), static_cast<float*>(a.lse), a.T_len,
+      a.S_len, a.sm_scale * kLog2e, a.causal, sw);
+  return cudaGetLastError();
+}
+
+}  // namespace

@@ -17,7 +17,7 @@
 // Tables.  The TPU grid sweeps mask blocks; these kernels work on 64-row
 // tiles (TILE), so the host (ops/block_sparse.py `_tile_tables`) builds the
 // lists at tile granularity (and regroups them per 128 rows for the bf16
-// K7/K8, below): for each q tile (K6, K8) the k tiles holding
+// K6-K8, below): for each q tile (K6, K8) the k tiles holding
 // a live element, for each k tile (K7) the q tiles, in ascending order,
 // each with a `partial` flag when the block mask does not cover the whole
 // tile pair.  An all-ones causal mask therefore gives K1's sweep exactly.
@@ -38,21 +38,23 @@
 // block 512) 4,458,496 of the 16.8 M score elements per head are live;
 // each T x S x D product over them is 36.5 GFLOP.  K6 makes two (73.0
 // GFLOP, 0.074 ms at 989 TFLOP/s, against 135 MB, 0.040 ms), K7 four and
-// K8 three: all three are bound by operations.  K6 keeps the flash
-// kernels' first design (16x16x16 WMMA through shared memory, no TMA, no
-// load overlapped with compute); closing its gap is later work.
+// K8 three: all three are bound by operations, so the products must run
+// on wgmma, fed by TMA, with the intermediates in registers.
 //
-// K7 and K8 design.  In bf16 they are K2/K3's Hopper kernels
-// (attn_bwd_hopper.cuh: TMA ring, wgmma, accumulators in registers) with a
-// tile list in place of the dense sweep (ListSweep below): the host
-// regroups the 64-row tile lists per block of 128 own rows, the block's two
-// consumer warpgroups each computing the streamed tiles its own 64 rows
-// visit.  A streamed tile with a partial pair is staged by the producer's
-// first warp, live rows only, so the TMA load of a dead row never happens;
-// inside a partial pair each element is tested against the block mask and
-// P and dS are selected to 0.  In f32 they keep the tile loop of
-// flash_bwd.cu's f32 kernels over the 64-row tables (wgmma has no full-f32
-// product); on an all-ones mask both dtypes give K2/K3's bits.
+// K6, K7 and K8 design.  In bf16 they are K1's and K2/K3's Hopper kernels
+// (attn_fwd_hopper.cuh, attn_bwd_hopper.cuh: TMA ring, wgmma,
+// accumulators in registers) with a tile list in place of the dense sweep
+// (ListSweep below): the host regroups the 64-row tile lists per block of
+// 128 own rows, the block's two consumer warpgroups each computing the
+// streamed tiles its own 64 rows visit; K6 reads K8's lists (the same own
+// query rows, the same streamed K and V tiles).  A streamed tile with a
+// partial pair is staged by the producer's first warp, live rows only, so
+// the TMA load of a dead row never happens; inside a partial pair each
+// element is tested against the block mask and its score selected to -inf
+// (K6) or its P and dS to 0 (K7, K8).  In f32 they keep the tile loops of
+// flash_fwd.cu's and flash_bwd.cu's f32 kernels over the 64-row tables
+// (wgmma has no full-f32 product); on an all-ones mask both dtypes give
+// K1-K3's bits.
 //
 // K9 design.  One block (4 warps) per (64 rows of x, up to 64 columns of
 // one output column block); it walks that column block's live K blocks in
@@ -65,7 +67,10 @@
 // density 0.5, block 128) it must do 68.7 GFLOP (0.069 ms) and move about
 // 172 MB (0.051 ms): bound by operations.
 
+#include <mma.h>   // K9's bf16 products (WMMA)
+
 #include "attn_bwd_hopper.cuh"
+#include "attn_fwd_hopper.cuh"
 
 namespace {
 
@@ -129,20 +134,23 @@ __device__ __forceinline__ void load_live_rows(T* dst, const T* src, int row0,
 }
 
 // ---------------------------------------------------------------------------
-// K6: grid (ceil(T / 64), B*H), one block per q tile.
+// K6 in f32: the flash_fwd.cu tile loop over the 64-row tile tables; grid
+// (ceil(T / 64), B*H), one block per q tile.
 // ---------------------------------------------------------------------------
 
-template <typename T, int D>
+template <int D>
 constexpr size_t fwd_smem_bytes() {
-  return sizeof(T) * (TILE * D + 2 * TILE * D + TILE * TILE)   // q, k, v, p
-         + sizeof(float) * (TILE * TILE + TILE * D + 3 * TILE)  // s, acc, m, l, alpha
-         + TILE;                                                // live key rows
+  return sizeof(float) * (TILE * D + 2 * TILE * D + TILE * TILE)   // q, k, v, p
+         + sizeof(float) * (TILE * TILE + TILE * D + 3 * TILE)    // s, acc, m, l, alpha
+         + TILE;                                                  // live key rows
 }
 
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(NTHREADS)
-bs_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-              T* __restrict__ o, float* __restrict__ lse, Tables tab, Mask mk, float sm_scale) {
+bs_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
+              const float* __restrict__ v, float* __restrict__ o, float* __restrict__ lse,
+              Tables tab, Mask mk, float sm_scale) {
+  using T = float;
   extern __shared__ __align__(128) unsigned char smem[];
   T* q_s = reinterpret_cast<T*>(smem);
   T* k_s = q_s + TILE * D;
@@ -192,7 +200,7 @@ bs_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restr
     }
     __syncthreads();
 
-    score_tile<T, D>(q_s, k_s, s_s, warp, lane);
+    score_tile<D>(q_s, k_s, s_s, warp, lane);
     __syncwarp();
 
     for (int rr = 0; rr < ROWS_PER_WARP; ++rr) {
@@ -229,7 +237,7 @@ bs_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restr
     for (int i = lane; i < ROWS_PER_WARP * D; i += 32)
       acc_s[warp * ROWS_PER_WARP * D + i] *= alpha_s[warp * ROWS_PER_WARP + i / D];
     __syncwarp();
-    mma_acc_tile<T, D>(p_s, v_s, acc_s, warp, lane);
+    mma_acc_tile<D>(p_s, v_s, acc_s, warp, lane);
     __syncthreads();   // k_s / v_s / live_s are overwritten by the next tile
   }
 
@@ -344,8 +352,8 @@ bs_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
     }
     __syncthreads();
 
-    score_tile<T, D>(k_s, q_s, st_s, warp, lane);    // S^T = K . Q^T
-    score_tile<T, D>(v_s, do_s, dpt_s, warp, lane);  // dP^T = V . dO^T
+    score_tile<D>(k_s, q_s, st_s, warp, lane);    // S^T = K . Q^T
+    score_tile<D>(v_s, do_s, dpt_s, warp, lane);  // dP^T = V . dO^T
     __syncwarp();
 
     for (int rr = 0; rr < ROWS_PER_WARP; ++rr) {
@@ -364,8 +372,8 @@ bs_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
     }
     __syncwarp();
 
-    mma_acc_tile<T, D>(pt_s, do_s, dv_acc, warp, lane);   // dV += P^T . dO
-    mma_acc_tile<T, D>(dst_s, q_s, dk_acc, warp, lane);   // dK += dS^T . Q
+    mma_acc_tile<D>(pt_s, do_s, dv_acc, warp, lane);   // dV += P^T . dO
+    mma_acc_tile<D>(dst_s, q_s, dk_acc, warp, lane);   // dK += dS^T . Q
   }
   __syncthreads();   // the zero-fill is visible when the sweep ran no tile
 
@@ -441,8 +449,8 @@ bs_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
     }
     __syncthreads();
 
-    score_tile<T, D>(q_s, k_s, s_s, warp, lane);    // S = Q . K^T
-    score_tile<T, D>(do_s, v_s, dp_s, warp, lane);  // dP = dO . V^T
+    score_tile<D>(q_s, k_s, s_s, warp, lane);    // S = Q . K^T
+    score_tile<D>(do_s, v_s, dp_s, warp, lane);  // dP = dO . V^T
     __syncwarp();
 
     for (int rr = 0; rr < ROWS_PER_WARP; ++rr) {
@@ -462,7 +470,7 @@ bs_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
     }
     __syncwarp();
 
-    mma_acc_tile<T, D>(ds_s, k_s, dq_acc, warp, lane);   // dQ += dS . K
+    mma_acc_tile<D>(ds_s, k_s, dq_acc, warp, lane);   // dQ += dS . K
   }
   __syncthreads();   // the zero-fill is visible when the sweep ran no tile
 
@@ -475,18 +483,19 @@ bs_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
 }
 
 // ---------------------------------------------------------------------------
-// K7 and K8 in bf16: the Hopper body of attn_bwd_hopper.cuh over the tile
-// lists of 128-row blocks.
+// K6, K7 and K8 in bf16: the Hopper bodies of attn_fwd_hopper.cuh and
+// attn_bwd_hopper.cuh over the tile lists of 128-row blocks.
 // ---------------------------------------------------------------------------
 
 // The lists ops/block_sparse.py builds per block of 128 own rows (key rows
-// in K7, query rows in K8): the ascending union of the lists of its two
-// 64-row tiles, a flag byte per entry (bit w: tile w of the block visits the
-// streamed tile; bit 2 + w: that pair is partial), the streamed rows some
-// row of the block attends (bit r for row r, read at partial entries only),
-// and the blocks in order of their list length, longest first.  On an
-// all-ones causal mask at a 128-multiple block the lists are K2/K3's dense
-// sweep, tile for tile, so the two pairs give the same bits.
+// in K7, query rows in K6 and K8, which read the same lists): the ascending
+// union of the lists of its two 64-row tiles, a flag byte per entry (bit w:
+// tile w of the block visits the streamed tile; bit 2 + w: that pair is
+// partial), the streamed rows some row of the block attends (bit r for row
+// r, read at partial entries only), and the blocks in order of their list
+// length, longest first.  On an all-ones causal mask at a 128-multiple block
+// the lists are the dense sweeps of K1 (at D 128) and K2/K3, tile for tile,
+// so K6-K8 give K1-K3's bits.
 struct ListSweep {
   static constexpr bool kList = true;
   const int* tiles;                 // (blocks, L)
@@ -508,6 +517,9 @@ struct ListSweep {
     return Step{tiles[e], flags[e]};
   }
   __device__ Step dq_step(int b, int it) const { return dkv_step(b, it); }
+  __device__ int fwd_block() const { return order[blockIdx.y]; }
+  __device__ int fwd_count(int b, int) const { return counts[b]; }
+  __device__ Step fwd_step(int b, int it) const { return dkv_step(b, it); }
   __device__ bool keep(int qp, int kp) const { return mk.block(qp, kp); }
   __device__ unsigned long long live(int b, int it) const { return rows[(size_t)b * L + it]; }
 };
@@ -521,9 +533,9 @@ struct AttnArgs {
   const float* delta;
   void* out0;   // O (K6), dK (K7) or dQ (K8)
   void* out1;   // LSE (K6) or dV (K7)
-  Tables tab;        // f32 K7/K8: 64-row tile tables; bf16: 128-row block lists
-  const int* order;  // bf16 K7/K8: the blocks, longest list first
-  const unsigned long long* rows;   // bf16 K7/K8: live streamed rows
+  Tables tab;        // f32: 64-row tile tables; bf16: 128-row block lists
+  const int* order;  // bf16: the blocks, longest list first
+  const unsigned long long* rows;   // bf16: live streamed rows
   Mask mk;
   int BH;
   float sm_scale;
@@ -532,17 +544,25 @@ struct AttnArgs {
 
 enum class Which { kFwd, kDkv, kDq };
 
-// K7 (out0 dK, out1 dV) or K8 (out0 dQ) in bf16 over the block lists
+// K6 (out0 O, out1 LSE), K7 (out0 dK, out1 dV) or K8 (out0 dQ) in bf16
+// over the block lists
 template <Which W, int D>
-cudaError_t launch_bwd_wgmma(const AttnArgs& a) {
-  const BwdArgs b{a.q, a.k, a.v, a.dO, a.lse, a.delta, a.out0, a.out1, a.BH, a.mk.T_len,
-                  a.mk.S_len, a.sm_scale, a.mk.causal, a.stream};
+cudaError_t launch_wgmma(const AttnArgs& a) {
   const bool dkv = W == Which::kDkv;
   const ListSweep sw{a.tab.tiles, a.tab.partial, a.rows, a.tab.counts, a.order, a.tab.L, a.mk,
                      static_cast<const __nv_bfloat16*>(dkv ? a.q : a.k),
                      static_cast<const __nv_bfloat16*>(dkv ? a.dO : a.v)};
-  if constexpr (W == Which::kDkv) return launch_dkv_wgmma<D>(b, sw);
-  else return launch_dq_wgmma<D>(b, sw);
+  if constexpr (W == Which::kFwd) {
+    return launch_fwd_wgmma<D, kTileRows>(FwdArgs{a.q, a.k, a.v, a.out0, a.out1, a.BH,
+                                                  a.mk.T_len, a.mk.S_len, a.sm_scale,
+                                                  a.mk.causal, a.stream},
+                                          sw);
+  } else {
+    const BwdArgs b{a.q, a.k, a.v, a.dO, a.lse, a.delta, a.out0, a.out1, a.BH, a.mk.T_len,
+                    a.mk.S_len, a.sm_scale, a.mk.causal, a.stream};
+    if constexpr (W == Which::kDkv) return launch_dkv_wgmma<D>(b, sw);
+    else return launch_dq_wgmma<D>(b, sw);
+  }
 }
 
 template <Which W, typename T, int D>
@@ -552,18 +572,19 @@ cudaError_t launch_attn(const AttnArgs& a) {
   const int rows = W == Which::kDkv ? a.mk.S_len : a.mk.T_len;
   dim3 grid((rows + TILE - 1) / TILE, a.BH);
   cudaError_t err;
-  if constexpr (W == Which::kFwd) {
-    constexpr size_t smem = fwd_smem_bytes<T, D>();
+  if constexpr (kIsBf16<T>) {
+    if (a.order == nullptr || a.rows == nullptr) return cudaErrorInvalidValue;
+    return launch_wgmma<W, D>(a);
+  } else if constexpr (W == Which::kFwd) {
+    constexpr size_t smem = fwd_smem_bytes<D>();
     static_assert(smem <= kMaxSmemBytes, "block-sparse tiles do not fit in shared memory");
-    auto kernel = bs_fwd_kernel<T, D>;
+    auto kernel = bs_fwd_kernel<D>;
     err = smem_opt_in_once(kernel, (int)smem, mu, attr_set);
     if (err != cudaSuccess) return err;
     kernel<<<grid, NTHREADS, smem, a.stream>>>(
-        static_cast<const T*>(a.q), static_cast<const T*>(a.k), static_cast<const T*>(a.v),
-        static_cast<T*>(a.out0), static_cast<float*>(a.out1), a.tab, a.mk, a.sm_scale);
-  } else if constexpr (kIsBf16<T>) {
-    if (a.order == nullptr || a.rows == nullptr) return cudaErrorInvalidValue;
-    return launch_bwd_wgmma<W, D>(a);
+        static_cast<const float*>(a.q), static_cast<const float*>(a.k),
+        static_cast<const float*>(a.v), static_cast<float*>(a.out0),
+        static_cast<float*>(a.out1), a.tab, a.mk, a.sm_scale);
   } else if constexpr (W == Which::kDkv) {
     constexpr size_t smem = dkv_smem_bytes<D>();
     static_assert(smem <= kMaxSmemBytes, "block-sparse tiles do not fit in shared memory");
@@ -625,11 +646,28 @@ AttnArgs make_args(const void* q, const void* k, const void* v, const void* dO, 
                   BH, sm_scale, static_cast<cudaStream_t>(stream)};
 }
 
-template <int D>
-int smem_of(bool dkv, int dtype) {
-  if (dtype == 1) return (int)(dkv ? DkvCfg<D>::SMEM : DqCfg<D>::SMEM);
-  if (dtype == 0) return (int)(dkv ? dkv_smem_bytes<D>() : dq_smem_bytes<D>());
+template <Which W, int D>
+int smem_of(int dtype) {
+  if (dtype == 1)
+    return (int)(W == Which::kFwd   ? FwdCfg<D, kTileRows>::SMEM
+                 : W == Which::kDkv ? DkvCfg<D>::SMEM
+                                    : DqCfg<D>::SMEM);
+  if (dtype == 0)
+    return (int)(W == Which::kFwd   ? fwd_smem_bytes<D>()
+                 : W == Which::kDkv ? dkv_smem_bytes<D>()
+                                    : dq_smem_bytes<D>());
   return 0;
+}
+
+template <Which W>
+int smem_of_d(int D, int dtype) {
+  switch (D) {
+    case 16: return smem_of<W, 16>(dtype);
+    case 32: return smem_of<W, 32>(dtype);
+    case 64: return smem_of<W, 64>(dtype);
+    case 128: return smem_of<W, 128>(dtype);
+    default: return 0;
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -788,22 +826,24 @@ cudaError_t launch_mm(const void* x, const void* w, void* out, Tables tab, int M
 // q, dO (BH, T, D) and k, v (BH, S, D) in one dtype (0 = float32,
 // 1 = bfloat16); lse and delta (BH, T) f32; outputs as their inputs; bmask
 // (T / bq, S / bk) uint8, the runtime block mask.  The tables as
-// ops/block_sparse.py builds them.  K6, and K7/K8 in f32, read 64-row tile
+// ops/block_sparse.py builds them.  In f32 the kernels read 64-row tile
 // tables: tiles (tiles, L) int32, counts (tiles,) int32, partial (tiles, L)
-// uint8.  K7/K8 in bf16 read 128-row block lists: tiles (blocks, L) int32,
-// counts (blocks,) int32, partial the flag bytes (blocks, L) uint8, order
-// (blocks,) int32 and rows (blocks, L) uint64.  All contiguous and 16-byte
-// aligned.  Each returns the cudaError_t of its launch (0 on success).
+// uint8; order and rows are not read.  In bf16 they read 128-row block
+// lists: tiles (blocks, L) int32, counts (blocks,) int32, partial the flag
+// bytes (blocks, L) uint8, order (blocks,) int32 and rows (blocks, L)
+// uint64.  All contiguous and 16-byte aligned.  Each returns the
+// cudaError_t of its launch (0 on success).
 
-// K6: o (BH, T, D), lse (BH, T); tables per q tile.
+// K6: o (BH, T, D), lse (BH, T); tables per q tile (f32) or per 128 query
+// rows (bf16: the lists K8 reads).
 extern "C" int bigdl_bs_fwd(const void* q, const void* k, const void* v, void* o, void* lse,
                             const void* tiles, const void* counts, const void* partial,
-                            const void* bmask, int L, int nkb, int bq, int bk, int BH, int T_len,
-                            int S_len, int D, int dtype, float sm_scale, int causal,
-                            void* stream) {
+                            const void* bmask, const void* order, const void* rows, int L,
+                            int nkb, int bq, int bk, int BH, int T_len, int S_len, int D,
+                            int dtype, float sm_scale, int causal, void* stream) {
   const AttnArgs a = make_args(q, k, v, nullptr, nullptr, nullptr, o, lse, tiles, counts, partial,
-                               bmask, nullptr, nullptr, L, nkb, bq, bk, BH, T_len, S_len,
-                               sm_scale, causal, stream);
+                               bmask, order, rows, L, nkb, bq, bk, BH, T_len, S_len, sm_scale,
+                               causal, stream);
   return dispatch_attn<Which::kFwd>(D, dtype, a);
 }
 
@@ -833,17 +873,15 @@ extern "C" int bigdl_bs_bwd_dq(const void* q, const void* k, const void* v, cons
   return dispatch_attn<Which::kDq>(D, dtype, a);
 }
 
-// Dynamic shared memory per block of the kernel that bigdl_bs_bwd_dkv
-// (dkv = 1) or bigdl_bs_bwd_dq (dkv = 0) launches for head dim D and dtype
-// (as above); 0 for what they do not take.
+// Dynamic shared memory per block of the kernel that bigdl_bs_fwd
+// launches for head dim D and dtype (as above); 0 for what it does not take.
+extern "C" int bigdl_bs_fwd_smem_bytes(int D, int dtype) {
+  return smem_of_d<Which::kFwd>(D, dtype);
+}
+
+// The same for bigdl_bs_bwd_dkv (dkv = 1) or bigdl_bs_bwd_dq (dkv = 0).
 extern "C" int bigdl_bs_bwd_smem_bytes(int dkv, int D, int dtype) {
-  switch (D) {
-    case 16: return smem_of<16>(dkv != 0, dtype);
-    case 32: return smem_of<32>(dkv != 0, dtype);
-    case 64: return smem_of<64>(dkv != 0, dtype);
-    case 128: return smem_of<128>(dkv != 0, dtype);
-    default: return 0;
-  }
+  return dkv ? smem_of_d<Which::kDkv>(D, dtype) : smem_of_d<Which::kDq>(D, dtype);
 }
 
 // K9: out (M, N) = x (M, K) @ W (K, N) over W's live (bk, bn) tiles; tiles

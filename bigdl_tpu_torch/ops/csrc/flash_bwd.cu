@@ -182,8 +182,8 @@ flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
     }
     __syncthreads();
 
-    score_tile<T, D>(k_s, q_s, st_s, warp, lane);    // S^T = K . Q^T
-    score_tile<T, D>(v_s, do_s, dpt_s, warp, lane);  // dP^T = V . dO^T
+    score_tile<D>(k_s, q_s, st_s, warp, lane);    // S^T = K . Q^T
+    score_tile<D>(v_s, do_s, dpt_s, warp, lane);  // dP^T = V . dO^T
     __syncwarp();
 
     for (int rr = 0; rr < ROWS_PER_WARP; ++rr) {
@@ -201,8 +201,8 @@ flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
     }
     __syncwarp();
 
-    mma_acc_tile<T, D>(pt_s, do_s, dv_acc, warp, lane);   // dV += P^T . dO
-    mma_acc_tile<T, D>(dst_s, q_s, dk_acc, warp, lane);   // dK += dS^T . Q
+    mma_acc_tile<D>(pt_s, do_s, dv_acc, warp, lane);   // dV += P^T . dO
+    mma_acc_tile<D>(dst_s, q_s, dk_acc, warp, lane);   // dK += dS^T . Q
   }
   __syncthreads();   // the zero-fill is visible when the sweep ran no tile
 
@@ -265,8 +265,8 @@ flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
     load_tile<T, D>(v_s, v, k0, S_len, TILE);
     __syncthreads();
 
-    score_tile<T, D>(q_s, k_s, s_s, warp, lane);    // S = Q . K^T
-    score_tile<T, D>(do_s, v_s, dp_s, warp, lane);  // dP = dO . V^T
+    score_tile<D>(q_s, k_s, s_s, warp, lane);    // S = Q . K^T
+    score_tile<D>(do_s, v_s, dp_s, warp, lane);  // dP = dO . V^T
     __syncwarp();
 
     for (int rr = 0; rr < ROWS_PER_WARP; ++rr) {
@@ -285,7 +285,7 @@ flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
     }
     __syncwarp();
 
-    mma_acc_tile<T, D>(ds_s, k_s, dq_acc, warp, lane);   // dQ += dS . K
+    mma_acc_tile<D>(ds_s, k_s, dq_acc, warp, lane);   // dQ += dS . K
   }
   __syncthreads();   // the zero-fill is visible when the sweep ran no tile
 

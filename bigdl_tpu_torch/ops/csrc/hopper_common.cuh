@@ -3,9 +3,12 @@
 // the warpgroup matrix multiply (wgmma), as inline PTX for sm_90a.
 //
 // Written by hand, without CUTLASS or CuTe, so that a library including
-// it builds in seconds.  K1 (flash_fwd.cu) is built on it, and so is
+// it builds in seconds.  attn_fwd_hopper.cuh, the forward body of K1
+// (flash_fwd.cu) and K6 (block_sparse.cu), is built on it, and so is
 // attn_bwd_hopper.cuh, the backward body of K2/K3 (flash_bwd.cu) and K7/K8
 // (block_sparse.cu); it is what a redesign of the other kernels takes up.
+// Its last section holds what the two attention bodies share: the block
+// shape and the steps of a sweep.
 //
 // Conventions.
 //   * Tiles land in shared memory by TMA with a swizzle whose span equals
@@ -347,6 +350,58 @@ __device__ __forceinline__ void store_rows(const unsigned char* rows, __nv_bfloa
     if (row0 + r < n_rows)
       *reinterpret_cast<uint4*>(out + (size_t)(row0 + r) * D + 8 * cc) =
           *reinterpret_cast<const uint4*>(rows + p * kPanel + r * P::RB + 16 * (j ^ (r & SWZ)));
+  }
+}
+
+// ---- attention sweeps --------------------------------------------------------
+//
+// What the bf16 attention kernels share (the forward of attn_fwd_hopper.cuh,
+// the backward of attn_bwd_hopper.cuh): a block of two consumer warpgroups
+// owns 128 rows and streams 64-row tiles of the other side (or 128 in K1's
+// dense sweep below D 128); each streamed tile is a step of a sweep.
+
+constexpr int kConsumers = 256;                // two warpgroups of 64 rows
+constexpr int kBlockRows = 128;                // output rows per block
+constexpr int kTileRows = 64;                  // rows of a streamed list tile
+constexpr float kLog2e = 1.4426950408889634f;
+
+// flag bits of a sweep step (shifted by the consumer warpgroup, 0 or 1):
+// bit w when warpgroup w computes the tile, bit 2 + w when that pair is
+// covered by the block mask in part
+constexpr uint32_t kVisit = 1;
+constexpr uint32_t kPartial = 4;
+constexpr uint32_t kPartialAny = 12;
+
+// one streamed tile of a sweep: its index (rows tile * tile rows ..) and flags
+struct Step {
+  int tile;
+  uint32_t flags;
+};
+
+// One warp stages rows row0 .. row0 + 63 of a (n_rows, D) bf16 matrix into a
+// 64-row tile of swizzled panels at `dst` (panel pitch kPanel), where TMA
+// would put them: the swizzle xors a row's 16-byte chunk index with address
+// bits 7.. of its panel offset (Swizzle<3,4,3> at 128-byte rows, <2,4,3> at
+// 64, <1,4,3> at 32), so a row keeps its own bytes.  Rows whose bit in `live`
+// is clear, and rows at or past n_rows, are written as zeros, not loaded.
+template <int D, int kPanel>
+__device__ __forceinline__ void stage_live_rows(unsigned char* dst,
+                                                const __nv_bfloat16* __restrict__ src,
+                                                int row0, int n_rows, unsigned long long live,
+                                                int lane) {
+  using P = Panels<D>;
+  constexpr int CPR = D / 8;        // 16-byte chunks per row
+  constexpr int CPP = P::PW / 8;    // 16-byte chunks per panel row
+  constexpr uint32_t SWZ = (P::RB / 16 - 1) << 4;
+  // one load in flight: the producer runs on the few registers it kept
+#pragma unroll 1
+  for (int i = lane; i < kTileRows * CPR; i += 32) {
+    const int r = i / CPR, cc = i % CPR;
+    uint4 val = make_uint4(0u, 0u, 0u, 0u);
+    if (row0 + r < n_rows && ((live >> r) & 1ull))
+      val = *reinterpret_cast<const uint4*>(src + (size_t)(row0 + r) * D + 8 * cc);
+    const uint32_t a = r * P::RB + 16 * (cc % CPP);
+    *reinterpret_cast<uint4*>(dst + (cc / CPP) * kPanel + (a ^ ((a >> 3) & SWZ))) = val;
   }
 }
 

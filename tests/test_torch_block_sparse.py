@@ -332,6 +332,45 @@ def test_tile_work_at_the_training_shape():
     assert int(P._elementwise_keep(mask, True, "cpu").sum()) == 4458496
 
 
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_k6_and_k8_launch_over_one_query_table(monkeypatch, dtype):
+    """K6 and K8 own the same query rows and stream the same key tiles:
+    both launches pass the pointers of the one ``_attention_tables``
+    entry ``_query_tables`` names, the 128-row block lists (``dq_blocks``,
+    with their block order and live rows) in bf16 and the 64-row tile
+    lists (``fwd``) in f32, and the same ints.  The launches are recorded
+    on CPU tensors, not run."""
+    mask = P.sliding_window_mask(8, 8, 2, 1, True, 32, 32)
+    calls = {}
+
+    def record(name, counters, fn, per_head, shared, BH):
+        calls[name] = (fn, len(per_head), shared)
+
+    monkeypatch.setattr(P, "_launch_heads", record)
+    monkeypatch.setattr(P, "_attn_fn", lambda name, n_ptr: (name, n_ptr))
+    q, k, v = (torch.zeros(1, 2, 256, 64, dtype=dtype) for _ in range(3))
+    lse = torch.zeros(2, 1, 256)
+    P._bs_fwd_cuda(q, k, v, mask, True, 0.125)
+    P._launch_bs_dq(q, k, v, q, lse, lse.reshape(2, 256), mask, True, 0.125)
+    which = P._query_tables(dtype)
+    assert which == ("dq_blocks" if dtype == torch.bfloat16 else "fwd")
+    tab = P._attention_tables(mask, True, q.device)
+    if dtype == torch.bfloat16:
+        t = tab[which]
+        want = [t[n].data_ptr() for n in ("tiles", "counts", "flags")]
+        extra = [t["order"].data_ptr(), t["rows"].data_ptr()]
+    else:
+        tiles, flags, counts = tab[which]
+        want = [tiles.data_ptr(), counts.data_ptr(), flags.data_ptr()]
+        extra = [None, None]
+    want += [tab["block_mask"].data_ptr(), *extra]
+    fwd_fn, fwd_n, fwd_args = calls["block_sparse_fwd"]
+    dq_fn, dq_n, dq_args = calls["block_sparse_bwd_dq"]
+    assert fwd_fn == ("bigdl_bs_fwd", fwd_n + 6)
+    assert dq_fn == ("bigdl_bs_bwd_dq", dq_n + 6)
+    assert fwd_args[:6] == want and fwd_args == dq_args
+
+
 # --------------------------------------------------------------------------
 # attention: the plain versions against the Pallas kernels in interpret
 # mode
@@ -350,7 +389,17 @@ def _dead_k_block():
     return J.BlockMask(m, 32, 32)
 
 
-# (mask factory, causal, sm_scale): T = S = 128, D 32, B 1, H 2
+def _dead_half_block():
+    m = J.sliding_window_mask(8, 8, 2, 1, True, 32, 32).mask.copy()
+    m[2:4] = False           # q rows 64..127, the second half of a 128-row
+    return J.BlockMask(m, 32, 32)   # block, attend nothing
+
+
+# (mask factory, causal, sm_scale): T = S from the mask (128 unless the
+# case says otherwise), D 32, B 1, H 2.  The last three are the shapes the
+# bf16 K6 treats specially: a 128-row block one of whose 64-row halves has
+# no live tile, 96-row blocks whose partial pairs straddle 128-row blocks,
+# and a ragged T (200) that ends inside a 64-row tile.
 ATTN_CASES = {
     "full_causal": (lambda: J.BlockMask(np.ones((4, 4), bool), 32, 32),
                     True, None),
@@ -370,16 +419,23 @@ ATTN_CASES = {
     "dead_k_block_causal": (_dead_k_block, True, None),
     "sm_scale": (lambda: J.sliding_window_mask(4, 4, 2, 1, True, 32, 32),
                  True, 0.37),
+    "dead_half_block128_T256": (_dead_half_block, True, None),
+    "block96_T384": (lambda: J.sliding_window_mask(4, 4, 2, 1, True, 96, 96),
+                     True, None),
+    "ragged_T200_block40": (
+        lambda: J.sliding_window_mask(5, 5, 2, 1, True, 40, 40), True, None),
 }
 
 
 def _attn_inputs(case):
-    rng = np.random.RandomState(len(case))
-    q, k, v, g = ((rng.randn(1, 2, 128, 32) * 0.5).astype(np.float32)
-                  for _ in range(4))
     make, causal, sm_scale = ATTN_CASES[case]
+    mask = make()
+    T = mask.mask.shape[0] * mask.block_q
+    rng = np.random.RandomState(len(case))
+    q, k, v, g = ((rng.randn(1, 2, T, 32) * 0.5).astype(np.float32)
+                  for _ in range(4))
     scale = sm_scale if sm_scale is not None else 1 / math.sqrt(32)
-    return q, k, v, g, make(), causal, scale
+    return q, k, v, g, mask, causal, scale
 
 
 @functools.lru_cache(maxsize=None)
@@ -399,7 +455,7 @@ def test_block_sparse_plain_matches_pallas_interpret(case):
     o_want, lse_want, _ = _jax_attention(case)
     o, lse = P._bs_attention_plain(*map(torch.from_numpy, (q, k, v)),
                                    _port(mask), causal, scale)
-    assert lse.shape == (2, 1, 128) and lse.dtype == torch.float32
+    assert lse.shape == (2, 1, q.shape[2]) and lse.dtype == torch.float32
     np.testing.assert_allclose(o.numpy(), o_want, **TOL)
     np.testing.assert_allclose(lse.numpy(), lse_want, **TOL)
 

@@ -633,26 +633,69 @@ def test_block_sparse_empty_rows_are_exactly_zero_on_card(cuda_device):
     assert o[:, :, :128].abs().max() > 0 and dk[:, :, :192].abs().max() > 0
 
 
+def _dead_half_mask():
+    m = bs.sliding_window_mask(8, 8, 2, 1, True, 32, 32).mask.copy()
+    m[2:4] = False   # q rows 64..127: one 64-row half of a 128-row block
+    return bs.BlockMask(m, 32, 32)
+
+
+# (T, D, mask) for the bf16 K6 (the Hopper body over K8's 128-row lists):
+# every built head dim, the list sweep's 64-key tiles being K1's 128 below
+# D 128; a 128-row block with a dead 64-row half, whose warpgroup only
+# releases; ragged T 200 at block 8; block 96, whose partial pairs straddle
+# 128-row blocks
+BS_FWD_CASES = {
+    "D16": (512, 16, lambda: bs.sliding_window_mask(16, 16, 3, 1, True,
+                                                     32, 32)),
+    "D32": (512, 32, lambda: bs.sliding_window_mask(16, 16, 3, 1, True,
+                                                     32, 32)),
+    "D64": (512, 64, lambda: bs.sliding_window_mask(16, 16, 3, 1, True,
+                                                     32, 32)),
+    "D128": (512, 128, lambda: bs.sliding_window_mask(16, 16, 3, 1, True,
+                                                       32, 32)),
+    "dead_half": (256, 128, _dead_half_mask),
+    "ragged_T200_block8": (200, 64, lambda: bs.sliding_window_mask(
+        25, 25, 3, 1, True, 8, 8)),
+    "block96": (384, 128, lambda: bs.sliding_window_mask(4, 4, 2, 1, True,
+                                                          96, 96)),
+}
+
+
+@pytest.mark.parametrize("case", sorted(BS_FWD_CASES))
+def test_block_sparse_bf16_forward_matches_plain_on_card(cuda_device, case):
+    T, D, make_mask = BS_FWD_CASES[case]
+    mask = make_mask()
+    q, k, v, _ = _bs_inputs(T, T, D, torch.bfloat16, cuda_device, 10)
+    before = bs.LAUNCHES.count
+    o, lse = bs._bs_fwd_cuda(q, k, v, mask, True, 1 / math.sqrt(D))
+    torch.cuda.synchronize()
+    assert bs.LAUNCHES.count == before + 1
+    o_ref, lse_ref = bs._bs_attention_plain(q, k, v, mask, True,
+                                            1 / math.sqrt(D))
+    assert torch.isfinite(o.float()).all()
+    assert _row_rel_err(o, o_ref) <= ROW_TOL[torch.bfloat16]
+    assert (lse - lse_ref).abs().max().item() <= 1e-3
+    if case == "dead_half":
+        assert not o[:, :, 64:128].any()
+        assert (lse.reshape(2, 4, T)[:, :, 64:128] == 1e30).all()
+        assert o[:, :, :64].abs().max() > 0 and o[:, :, 128:].abs().max() > 0
+
+
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_block_sparse_all_ones_mask_is_the_flash_kernels(cuda_device, dtype):
     """An all-ones causal mask at a 128-multiple block visits the flash
-    kernels' tiles in their order with no partial tile.  K7/K8 fed the
-    same (O, LSE, dO) from K6 equal K2/K3 bit for bit in both dtypes: in
-    bf16 both pairs are the one Hopper body of ``attn_bwd_hopper.cuh``
-    over the same tiles, in f32 the one FMA tile loop.  In f32 K6 = K1
-    bit for bit too; in bf16 K1 is the Hopper kernel, which rounds at
-    other points, and the forwards are held row by row."""
+    kernels' tiles in their order with no partial tile.  K6 equals K1, and
+    K7/K8 fed the same (O, LSE, dO) from K6 equal K2/K3, bit for bit in
+    both dtypes: in bf16 each pair is one Hopper body
+    (``attn_fwd_hopper.cuh``, ``attn_bwd_hopper.cuh``) over the same
+    tiles, in f32 one FMA tile loop."""
     T, D = 512, 128 if dtype == torch.bfloat16 else 64
     mask = bs.BlockMask(np.ones((4, 4), bool), 128, 128)
     q, k, v, d_o = _bs_inputs(T, T, D, dtype, cuda_device, 7)
     scale = 1 / math.sqrt(D)
     o, lse = bs._bs_fwd_cuda(q, k, v, mask, True, scale)
     o1, lse1 = fa._flash_cuda(q, k, v, True, scale)
-    if dtype == torch.float32:
-        assert torch.equal(o, o1) and torch.equal(lse, lse1)
-    else:
-        assert _row_rel_err(o1, o) <= ROW_TOL[dtype]
-        assert (lse1 - lse).abs().max().item() <= 1e-3
+    assert torch.equal(o, o1) and torch.equal(lse, lse1)
     got = bs._bs_bwd_cuda(q, k, v, o, lse, d_o, mask, True, scale)
     want = fa._flash_bwd_cuda(q, k, v, o, lse, d_o, True, scale)
     for a, b in zip(got, want):
