@@ -6,7 +6,8 @@
 // it builds in seconds.  attn_fwd_hopper.cuh, the forward body of K1
 // (flash_fwd.cu) and K6 (block_sparse.cu), is built on it, and so is
 // attn_bwd_hopper.cuh, the backward body of K2/K3 (flash_bwd.cu) and K7/K8
-// (block_sparse.cu); it is what a redesign of the other kernels takes up.
+// (block_sparse.cu), and so is K5's implicit GEMM (conv3x3.cu); it is what
+// a redesign of the other kernels takes up.
 // Its last section holds what the two attention bodies share: the block
 // shape and the steps of a sweep.
 //
@@ -117,6 +118,19 @@ __device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* tmap, 
       "cp.async.bulk.tensor.3d.shared::cluster.global.tile.mbarrier::complete_tx::bytes"
       " [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_u32(dst)),
       "l"(reinterpret_cast<uint64_t>(tmap)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
+// the same for a 4-D map (c0 innermost .. c3); K5 (conv3x3.cu) reads its
+// pixel boxes so, and its coordinates may be negative: elements before the
+// start of a dimension arrive as zeros too
+__device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* tmap, uint64_t* bar,
+                                            int c0, int c1, int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.tile.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(tmap)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2),
+      "r"(c3)
       : "memory");
 }
 
@@ -431,28 +445,55 @@ inline EncodeTiledFn encode_tiled_fn() {
   return fn;
 }
 
-// A tensor map over a contiguous bf16 array of shape (n2, n1, n0), n0
-// innermost, read in boxes of (1, box1, box0) with the swizzle of box0 *
-// 2-byte rows (32, 64 or 128 bytes).  Out-of-bounds rows read as zeros,
-// and a box never reaches past n1 into the next index of n2.
-inline cudaError_t encode_bf16_3d(CUtensorMap* map, const void* base, uint64_t n0, uint64_t n1,
-                                  uint64_t n2, uint32_t box0, uint32_t box1) {
+// A tensor map over a contiguous bf16 array of `rank` dimensions, dims[0]
+// innermost, read in boxes of `box` elements with the swizzle of box[0] *
+// 2-byte rows (32, 64 or 128 bytes).  Out-of-bounds elements read as zeros.
+// The strides must be multiples of 16 bytes (dims[0] a multiple of 8).
+inline cudaError_t encode_bf16(CUtensorMap* map, const void* base, int rank,
+                               const uint64_t* dims, const uint32_t* box) {
   EncodeTiledFn fn = encode_tiled_fn();
   if (fn == nullptr) return cudaErrorNotSupported;
-  const uint32_t row_bytes = box0 * 2;
+  const uint32_t row_bytes = box[0] * 2;
   CUtensorMapSwizzle swizzle = row_bytes == 128  ? CU_TENSOR_MAP_SWIZZLE_128B
                                : row_bytes == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
                                : row_bytes == 32 ? CU_TENSOR_MAP_SWIZZLE_32B
                                                  : CU_TENSOR_MAP_SWIZZLE_NONE;
-  if (swizzle == CU_TENSOR_MAP_SWIZZLE_NONE) return cudaErrorInvalidValue;
-  const cuuint64_t dims[3] = {n0, n1, n2};
-  const cuuint64_t strides[2] = {n0 * 2, n0 * n1 * 2};   // bytes, dims 1 and 2
-  const cuuint32_t box[3] = {box0, box1, 1};
-  const cuuint32_t elem_strides[3] = {1, 1, 1};
-  CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base), dims,
-                  strides, box, elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+  if (swizzle == CU_TENSOR_MAP_SWIZZLE_NONE || rank < 1 || rank > 5) return cudaErrorInvalidValue;
+  cuuint64_t g_dims[5], strides[4];
+  cuuint32_t g_box[5], elem_strides[5];
+  uint64_t pitch = 2;   // bytes
+  for (int i = 0; i < rank; ++i) {
+    g_dims[i] = dims[i];
+    g_box[i] = box[i];
+    elem_strides[i] = 1;
+    if (i > 0) strides[i - 1] = pitch;
+    pitch *= dims[i];
+  }
+  CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank, const_cast<void*>(base), g_dims,
+                  strides, g_box, elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
                   CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// A tensor map over a contiguous bf16 array of shape (n2, n1, n0), n0
+// innermost, read in boxes of (1, box1, box0): a box never reaches past n1
+// into the next index of n2.
+inline cudaError_t encode_bf16_3d(CUtensorMap* map, const void* base, uint64_t n0, uint64_t n1,
+                                  uint64_t n2, uint32_t box0, uint32_t box1) {
+  const uint64_t dims[3] = {n0, n1, n2};
+  const uint32_t box[3] = {box0, box1, 1};
+  return encode_bf16(map, base, 3, dims, box);
+}
+
+// A tensor map over a contiguous bf16 array of shape (n3, n2, n1, n0), read
+// in boxes of (box3, box2, box1, box0): a box lands in shared memory as
+// box3 * box2 * box1 rows of box0 elements, row-major.
+inline cudaError_t encode_bf16_4d(CUtensorMap* map, const void* base, uint64_t n0, uint64_t n1,
+                                  uint64_t n2, uint64_t n3, uint32_t box0, uint32_t box1,
+                                  uint32_t box2, uint32_t box3) {
+  const uint64_t dims[4] = {n0, n1, n2, n3};
+  const uint32_t box[4] = {box0, box1, box2, box3};
+  return encode_bf16(map, base, 4, dims, box);
 }
 
 }  // namespace

@@ -2,9 +2,9 @@
 // K1-K3 (flash_fwd.cu, flash_bwd.cu) and of K6-K8 (block_sparse.cu);
 // conv3x3.cu (K5), K9, attn_wide.cu and the Hopper kernels take its
 // helpers too.  It is the counterpart of the shared tile helpers at the
-// top of bigdl_tpu/ops/flash_attention.py.  The bf16 K1-K3 and K6-K8 are
-// built on hopper_common.cuh (TMA, mbarriers, wgmma), attn_fwd_hopper.cuh
-// and attn_bwd_hopper.cuh.
+// top of bigdl_tpu/ops/flash_attention.py.  The bf16 K1-K3, K5 and K6-K8
+// are built on hopper_common.cuh (TMA, mbarriers, wgmma), the attention
+// kernels also on attn_fwd_hopper.cuh and attn_bwd_hopper.cuh.
 //
 // Every tile is TILE = 64 rows of a row-major (rows, D) matrix, worked on
 // by one block of four warps.  Each warp owns 16 rows of the tile it
@@ -116,9 +116,12 @@ __device__ __forceinline__ void mma_acc_tile(const float* a_s, const float* b_s,
 // The dynamic shared-memory opt-in of `kernel`, made once per device, not
 // per launch: it is a host call on the launch path and no stream
 // operation, so a launch captured into a CUDA graph must not make it.
-// `mu` and `done` belong to the one kernel instantiation.
+// `mu` and `done` belong to the one kernel instantiation.  With
+// `max_carveout` the SM also gives shared memory all it can of its L1, so
+// that several such blocks fit on it at once.
 template <typename Kernel>
-cudaError_t smem_opt_in_once(Kernel kernel, int bytes, std::mutex& mu, bool* done) {
+cudaError_t smem_opt_in_once(Kernel kernel, int bytes, std::mutex& mu, bool* done,
+                             bool max_carveout = false) {
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
@@ -126,6 +129,9 @@ cudaError_t smem_opt_in_once(Kernel kernel, int bytes, std::mutex& mu, bool* don
   std::lock_guard<std::mutex> lock(mu);
   if (!done[dev]) {
     err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+    if (err == cudaSuccess && max_carveout)
+      err = cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+                                 cudaSharedmemCarveoutMaxShared);
     if (err != cudaSuccess) return err;
     done[dev] = true;
   }

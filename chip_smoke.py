@@ -13,10 +13,12 @@ Phases; any failure exits non-zero:
    route of K1-K3 and K6-K8 for head dims above 128) with one ``nvcc``
    each, started together, into ``.torch_kernels/``; Triton compiles K4
    at first launch.  Print the build seconds, and for each instantiation
-   of K1, K2, K3 and K6-K8 its registers, spills and dynamic shared
-   memory (ptxas) and its wgmma (HGMMA) and TMA (UTMALDG) instructions
-   (``cuobjdump -sass``, where the toolkit has it); each bf16 D 128
-   kernel must not spill and must hold both.
+   of K1, K2, K3, K6-K8 and K5's bf16 kernel (one per KC input channels
+   a step and BN output channels a block) its registers, spills and
+   dynamic shared memory (ptxas) and its wgmma (HGMMA) and TMA (UTMALDG)
+   instructions (``cuobjdump -sass``, where the toolkit has it); each
+   bf16 D 128 kernel and K5 at KC 64 must not spill and must hold both,
+   and two K5 blocks must share an SM.
 3. kernel parity — each kernel against its plain PyTorch version on the
    card at the shapes the served, the training, the block-sparse
    training, the matmul and the ResNet-50 paths give it, with the stated
@@ -26,8 +28,10 @@ Phases; any failure exits non-zero:
    K1-K3 (K6-K8 = K1-K3 bit for bit on the same inputs in both dtypes);
    the attention
    kernels' wide route at head dim 256; K5 forward and dX at ResNet-50's
-   four stage shapes (B 64, bf16), one in f32 and ragged C 3, O 10,
-   H 7, W 5; kernel, plain and library times (SDPA's backward by CUDA
+   four stage shapes (B 64, bf16), one in f32, ResNet-CIFAR's first
+   width (B 128, 32 x 32, C = O = 16) and ragged C 3, O 10, H 7, W 5,
+   with K5's pixel box, its dead rows and the bytes its TMA boxes
+   request; kernel, plain and library times (SDPA's backward by CUDA
    graph replay, with the backend that ran); the bound.
 4. serving path — the flagship TransformerLM (V 32000, D 1024, 8 heads,
    8 layers, max_len 1024; random weights from a seeded generator)
@@ -85,8 +89,8 @@ training step of phase 5, one block-sparse training step of phase 6,
 one flash training step at the same T 4096, B 4, and one bf16 ResNet-50
 step of phase 8 with ``torch.profiler`` (device time by kernel, and for
 ResNet-50 by the op that launched it: K5 forward, K5 dX, the dW
-matmuls, cuDNN, the NCHW/NHWC layout copies; launches, the device's
-busy share) into ``chiprun_out/chip_profile.json``.
+matmuls and pads, cuDNN, the NCHW/NHWC layout copies; launches, the
+device's busy share) into ``chiprun_out/chip_profile.json``.
 """
 import json
 import math
@@ -409,6 +413,62 @@ def kernel_design(torch):
             if not built and (ptxas or sass):
                 failures.append(f"{label} bf16 D 128 missing from the "
                                 f"build's reports")
+    return rows, failures
+
+
+# K5's bf16 kernel by its mangled name: KC (input channels a step), BN
+# (output channels a block)
+CONV_KERNEL = r"conv3x3_kernel_wgmmaILi(\d+)ELi(\d+)E"
+
+
+def conv_design(torch):
+    """Phase 2's report of K5's bf16 build: per instantiation (KC, BN) its
+    registers, spills and dynamic shared memory (ptxas), how many blocks
+    the card runs on one SM at once, and its wgmma (HGMMA) and TMA load
+    (UTMALDG) instructions in SASS.  Fails where KC 64 spills or holds no
+    HGMMA or no UTMALDG, or where two blocks do not share an SM."""
+    import ctypes
+
+    from bigdl_tpu_torch.ops import _support
+
+    lib = _support.load_cuda_library("conv3x3")
+    smem, occ = lib.bigdl_conv3x3_smem_bytes, lib.bigdl_conv3x3_blocks_per_sm
+    smem.argtypes, smem.restype = [ctypes.c_int] * 3, ctypes.c_int
+    occ.argtypes, occ.restype = [ctypes.c_int] * 2, ctypes.c_int
+    ptxas = ptxas_functions(_support.BUILD_INFO["conv3x3"][1])
+    sass = sass_counts(lib._name)
+    rows, failures = [], []
+    for fn in sorted(set(ptxas) | set(sass or {})):
+        m = re.search(CONV_KERNEL, fn)
+        if m is None:
+            continue
+        kc, bn = int(m.group(1)), int(m.group(2))
+        rep = ptxas.get(fn)
+        ops = None if sass is None else sass.get(fn)
+        row = dict(kernel=fn, label="K5", dtype="bfloat16", kc=kc, bn=bn,
+                   dynamic_smem_bytes=smem(kc, bn, 1),
+                   blocks_per_sm=occ(kc, bn), ptxas=rep, sass=ops)
+        rows.append(row)
+        regs = ("not measured (an earlier build was loaded)"
+                if rep is None else
+                f"{rep.get('registers')} registers, spill stores "
+                f"{rep.get('spill_stores')} B, loads "
+                f"{rep.get('spill_loads')} B")
+        print(f"K5 bfloat16 KC {kc:2d} BN {bn:3d}: {regs}, dynamic smem "
+              f"{row['dynamic_smem_bytes']} B, {row['blocks_per_sm']} "
+              f"blocks an SM; SASS "
+              f"{'not measured (no cuobjdump)' if ops is None else ops}")
+        if row["blocks_per_sm"] < 2:
+            failures.append(f"K5 KC {kc} BN {bn}: {row['blocks_per_sm']} "
+                            f"blocks an SM, want 2")
+        if kc == 64:
+            if rep and (rep.get("spill_stores") or rep.get("spill_loads")):
+                failures.append(f"K5 bf16 KC 64 BN {bn} spills: {rep}")
+            if ops is not None and not (ops["HGMMA"] and ops["UTMALDG"]):
+                failures.append(f"K5 bf16 KC 64 BN {bn} holds no HGMMA or no "
+                                f"UTMALDG: {ops}")
+    if (ptxas or sass) and not any(r["kc"] == 64 for r in rows):
+        failures.append("K5 bf16 KC 64 missing from the build's reports")
     return rows, failures
 
 
@@ -948,7 +1008,8 @@ def check_block_sparse_mm(torch):
 
 def conv_cases(torch):
     """(label, B, H, W, C, O, dtype) for K5: ResNet-50's four stage shapes
-    at B 64 (the 13 3x3 stride-1 convs of a step), stage 3 in f32, and a
+    at B 64 (the 13 3x3 stride-1 convs of a step), stage 3 in f32,
+    ResNet-CIFAR's first width (C = O = 16 at 32 x 32, B 128) and a
     ragged case (C 3, O 10, H 7, W 5) in both types."""
     bf16, f32 = torch.bfloat16, torch.float32
     return [("stage1", 64, 56, 56, 64, 64, bf16),
@@ -956,8 +1017,36 @@ def conv_cases(torch):
             ("stage3", 64, 14, 14, 256, 256, bf16),
             ("stage4", 64, 7, 7, 512, 512, bf16),
             ("stage3_f32", 64, 14, 14, 256, 256, f32),
+            ("cifar16", 128, 32, 32, 16, 16, bf16),
             ("ragged", 2, 7, 5, 3, 10, bf16),
             ("ragged_f32", 2, 7, 5, 3, 10, f32)]
+
+
+def conv_boxes(B, H, W, C, O):
+    """What the bf16 K5 reads for one call at these widths (its plan from
+    ``bigdl_conv3x3_plan``): its pixel box (TN, TH, TW), KC and BN, the
+    share of its rows that lie outside the images, and the bytes its TMA
+    boxes request: nine taps of each pixel box per chunk of KC channels
+    and per BN output channels, and each block's weight boxes, which
+    come from L2 where x and the weights fit."""
+    import ctypes
+
+    from bigdl_tpu_torch.ops import _support, conv3x3
+
+    fn = _support.load_cuda_library("conv3x3").bigdl_conv3x3_plan
+    fn.argtypes = [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    c = conv3x3._padded_channels(C)
+    plan = (ctypes.c_int * 5)()
+    n_boxes = fn(B, H, W, c, O, plan)
+    tn, th, tw, kc, bn = plan
+    steps = 9 * -(-c // kc)
+    tiles_o = -(-O // bn)
+    a = n_boxes * tiles_o * steps * tn * th * tw * kc * 2
+    b = -(-n_boxes // 2) * tiles_o * steps * bn * kc * 2
+    return dict(box=[tn, th, tw], n_boxes=n_boxes, kc=kc, bn=bn,
+                dead_rows=1.0 - B * H * W / (n_boxes * 64),
+                tma_bytes=a + b)
 
 
 def check_conv3x3(torch, F):
@@ -1011,11 +1100,19 @@ def check_conv3x3(torch, F):
                          ms=ms, dx_ms=dx_ms, plain_ms=plain_ms,
                          library_ms=lib_ms, library_dx_ms=lib_dx_ms,
                          bound_ms=b_ms, bound_by=b_by))
+        boxes = ""
+        if dt == torch.bfloat16:
+            rows[-1]["boxes"] = cb = conv_boxes(B, H, W, C, O)
+            boxes = (f" | box {cb['box']} x {cb['n_boxes']}, dead rows "
+                     f"{cb['dead_rows']:.3f}, TMA boxes "
+                     f"{cb['tma_bytes'] / 1e6:.1f} MB "
+                     f"({cb['tma_bytes'] / ms / 1e9:.2f} TB/s)")
         print(f"K5 conv3x3 {label:>10} {dname:>8} {B}x{H}x{W}x{C}->{O} row "
               f"err y {rel['y']:.3e} dx {rel['dx']:.3e} (tol {tol:g}) | "
               f"kernel {ms:.4f} ms (dX {dx_ms:.4f}) plain {plain_ms:.4f} ms "
               f"F.conv2d {lib_ms:.4f} ms conv2d_input {lib_dx_ms:.4f} ms "
-              f"bound {b_ms:.4f} ms ({b_by}) {'OK' if ok else 'FAIL'}")
+              f"bound {b_ms:.4f} ms ({b_by}) {'OK' if ok else 'FAIL'}"
+              f"{boxes}")
         del x, w, gy, wk, wk_dx, y, dx, x_cl, gy_cl, w_cl
         torch.cuda.empty_cache()
     return rows
@@ -1873,8 +1970,11 @@ def _resnet_group(kernel: str, ops) -> str:
     gemm = any(t in kernel.lower() for t in ("gemm", "gemv", "nvjet",
                                               "cutlass", "xmma", "sm90_"))
     if under("_Conv3x3Backward"):
-        return ("K5 dW: 9 matmuls a conv (cuBLAS)" if gemm
-                else "K5 dW: operand pad, slice copies, stack")
+        if gemm:
+            return "K5 dW: 9 matmuls a conv over row windows (cuBLAS)"
+        if under("constant_pad_nd"):
+            return "K5 dW: the pads of x and g"
+        return "K5 dX and dW: weight flip, casts, other copies"
     if under("convolution"):
         return "cuDNN conv (stem, 1x1, strided 3x3; forward and backward)"
     if gemm:
@@ -2071,6 +2171,9 @@ def main(argv=None) -> int:
           f"{triton_build_s:.1f} s")
 
     design_rows, design_failures = kernel_design(torch)
+    conv_design_rows, conv_design_failures = conv_design(torch)
+    design_rows += conv_design_rows
+    design_failures += conv_design_failures
 
     out = REPO / "chiprun_out"
     out.mkdir(exist_ok=True)

@@ -111,6 +111,54 @@ def test_conv3x3_grads_match_pallas_interpret(B, H, W, C, O):
         np.testing.assert_allclose(g.numpy(), np.asarray(ref), **GRAD_TOL)
 
 
+def _dw_per_tap(x, g):
+    """dW as nine products of shifted slices of the padded x, one copy
+    each (the formula ``_conv3x3_dw`` replaced), in f32."""
+    B, H, W, C = x.shape
+    xp = torch.nn.functional.pad(x, (0, 0, 1, 1, 1, 1))
+    gf = g.reshape(B * H * W, -1)
+    return torch.stack([xp[:, dy:dy + H, dx:dx + W, :].reshape(-1, C).t()
+                        @ gf for dy in range(3) for dx in range(3)]
+                       ).reshape(3, 3, C, gf.shape[1])
+
+
+@pytest.mark.parametrize("B,H,W,C,O,big", [
+    (3, 5, 4, 6, 7, 1),      # image 1 of 3 at 1e6: no image leaks
+    (2, 1, 1, 5, 3, None),   # H = W = 1: every tap but the centre is pad
+    (2, 7, 5, 3, 10, None)])
+def test_conv3x3_dw_windows_match_the_per_tap_formula(B, H, W, C, O, big):
+    """Each tap of ``_conv3x3_dw`` is one window of the flattened padded
+    x; it must equal the per-tap slices.  The scale term of atol covers
+    sums that cancel (relative error then means nothing); a row of
+    another image meeting a live row of g would miss by 1e6."""
+    x, g = _pair(8, (B, H, W, C), (B, H, W, O), w_scale=1.0)
+    if big is not None:
+        x[big] = 1e6
+    xt, gt = torch.from_numpy(x), torch.from_numpy(g)
+    want = _dw_per_tap(xt, gt)
+    got = conv3x3._conv3x3_dw(xt, gt)
+    assert got.shape == (3, 3, C, O)
+    np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-6,
+                               atol=1e-6 * want.abs().max().item())
+
+
+@pytest.mark.parametrize("C", [3, 12])
+def test_conv3x3_channel_pad_matches_pallas_interpret(C):
+    """The bf16 kernel's channel pad (C to a multiple of 8, at least 16),
+    applied on the CPU to x and the (tap, out, in) weights, leaves the
+    conv unchanged: against the JAX kernel in interpret mode, O 10."""
+    B, H, W, O = 2, 7, 5, 10
+    x, w = _pair(9, (B, H, W, C), (3, 3, C, O))
+    want = np.asarray(jconv3x3(jnp.asarray(x), jnp.asarray(w),
+                               interpret=True))
+    xt, wt = torch.from_numpy(x), torch.from_numpy(w)
+    xp, wkp = conv3x3._pad_channels(xt, wt.permute(0, 1, 3, 2))
+    assert xp.shape == (B, H, W, 16) and wkp.shape == (3, 3, O, 16)
+    assert not xp[..., C:].any() and not wkp[..., C:].any()
+    got = conv3x3._conv3x3_plain(xp, wkp.permute(0, 1, 3, 2))
+    np.testing.assert_allclose(got.numpy(), want, **FWD_TOL)
+
+
 def test_conv3x3_rejects_a_mismatched_weight():
     with pytest.raises(ValueError):
         conv3x3.conv3x3_s1_same(torch.zeros(1, 4, 4, 3),

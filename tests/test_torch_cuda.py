@@ -819,7 +819,13 @@ K5_CASES = [(2, 56, 56, 64, 64, torch.bfloat16),
             (2, 7, 5, 3, 10, torch.bfloat16),
             (2, 7, 5, 3, 10, torch.float32),
             (1, 33, 70, 40, 72, torch.bfloat16),
-            (1, 1, 1, 8, 3, torch.float32)]
+            (1, 1, 1, 8, 3, torch.float32),
+            # ResNetCifar's widths; C 96, a partial 64-channel chunk; C 8
+            # padded to 16 for TMA, one pixel, all nine taps but one in pad
+            (2, 32, 32, 16, 16, torch.bfloat16),
+            (2, 16, 16, 32, 32, torch.bfloat16),
+            (2, 9, 13, 96, 80, torch.bfloat16),
+            (1, 1, 1, 8, 3, torch.bfloat16)]
 
 
 @pytest.mark.parametrize("B,H,W,C,O,dtype", K5_CASES)
@@ -827,8 +833,30 @@ def test_conv3x3_kernel_matches_plain_on_card(cuda_device, B, H, W, C, O,
                                               dtype):
     """Forward and dX (K5 on the flipped weights) row by row over output
     pixels against the plain version; ragged C, O, H and W included."""
+    _check_conv3x3_on_card(cuda_device, B, H, W, C, O, dtype)
+
+
+def test_conv3x3_kernel_takes_a_misaligned_x_on_card(cuda_device):
+    """A bf16 x whose base is not 16-byte aligned (TMA needs one): the
+    wrapper launches on an aligned copy, forward and dX."""
+    copies = conv3x3.X_COPIES.count
+    _check_conv3x3_on_card(cuda_device, 2, 14, 14, 24, 130, torch.bfloat16,
+                           misaligned=True)
+    # x, misaligned; and the dX conv's input gy, 130 channels padded to 136
+    assert conv3x3.X_COPIES.count == copies + 2
+
+
+def _check_conv3x3_on_card(cuda_device, B, H, W, C, O, dtype,
+                           misaligned=False):
     g = torch.Generator(device=cuda_device).manual_seed(3)
-    x = torch.randn(B, H, W, C, device=cuda_device, generator=g).to(dtype)
+    if misaligned:   # one element into a buffer: 2 bytes off in bf16
+        flat = torch.randn(B * H * W * C + 1, device=cuda_device,
+                           generator=g).to(dtype)
+        x = flat[1:].view(B, H, W, C)
+        assert x.data_ptr() % 16
+    else:
+        x = torch.randn(B, H, W, C, device=cuda_device, generator=g
+                        ).to(dtype)
     w = (torch.randn(3, 3, C, O, device=cuda_device, generator=g)
          / (3 * C ** 0.5)).to(dtype)
     gy = torch.randn(B, H, W, O, device=cuda_device, generator=g).to(dtype)
