@@ -37,7 +37,10 @@ versions (``_bs_attention_plain``, ``_bs_bwd_plain``, ``_bs_mm_plain``:
 the kernels' math in PyTorch, masking with a select); for CUDA tensors
 they launch the kernels or raise, forward and backward.  Any block size
 that tiles the sequence (or the weight), any head dim (padded or taken
-wide as ``flash_attention`` does), any B*H, float32 or bfloat16.
+wide as ``flash_attention`` does), any B*H, float32 or bfloat16.  K9
+takes its Hopper route (TMA + wgmma) in bf16 at blocks that are
+multiples of 16 and its tile route otherwise (``_mm_plan``), W in
+either orientation, so dX reads W in place.
 """
 from __future__ import annotations
 
@@ -68,6 +71,12 @@ LAUNCHES = LaunchCounter("block_sparse_fwd")
 LAUNCHES_DKV = LaunchCounter("block_sparse_bwd_dkv")
 LAUNCHES_DQ = LaunchCounter("block_sparse_bwd_dq")
 LAUNCHES_MM = LaunchCounter("block_sparse_mm")
+#: the K9 launches, among those above, that took the tile route
+LAUNCHES_MM_TILE = LaunchCounter("block_sparse_mm_tile")
+#: K9's Hopper route: the K chunks and N tiles it is built for, largest
+#: first
+MM_CHUNKS = (64, 32, 16)
+MM_COL_TILES = (128, 64, 32, 16)
 
 
 # --------------------------------------------------------------------------
@@ -717,43 +726,111 @@ def _bs_mm_plain(x2, w, mask: BlockMask) -> torch.Tensor:
     return torch.matmul(x2.float(), wm).to(x2.dtype)
 
 
-def _bs_mm_cuda(x2, w, mask: BlockMask) -> torch.Tensor:
-    """Launch K9 on the current stream of x's device: for each output
-    column block, the sum over that block's live K blocks only."""
-    if x2.dtype != w.dtype:
-        raise TypeError(f"block_sparse_matmul: x {x2.dtype} and w {w.dtype} "
+def _mm_plan(dtype: torch.dtype, bk: int, bn: int) -> Optional[Tuple[int, int]]:
+    """K9's route, chosen by shape before the launch: (KC, BN) of the
+    Hopper route, which takes bf16 with bk and bn multiples of 16 (so K
+    and N are too, as TMA's 16-byte row pitch needs): KC the largest of
+    ``MM_CHUNKS`` dividing bk, so a K chunk never reaches into a dead
+    block, BN the largest of ``MM_COL_TILES`` dividing bn, so an N tile
+    reads one column block's list.  None: the tile route (f32, and bf16
+    blocks that are not multiples of 16)."""
+    if dtype != torch.bfloat16 or bk % 16 or bn % 16:
+        return None
+    return (next(c for c in MM_CHUNKS if bk % c == 0),
+            next(c for c in MM_COL_TILES if bn % c == 0))
+
+
+def _row_pitch(t: torch.Tensor) -> Optional[int]:
+    """The distance in elements between the rows of 2-D ``t`` when each
+    row is contiguous and no two overlap, else None."""
+    R, C = t.shape
+    if C > 1 and t.stride(1) != 1:
+        return None
+    if R == 1:
+        return C
+    return t.stride(0) if t.stride(0) >= C else None
+
+
+def _mm_operands(x2, b, tma: bool):
+    """x2 (M, K) and the B operand b (K, N) as K9 reads them: (x, ldx, w,
+    ldw, kmajor).  Each is read in place where its rows are contiguous:
+    b MN-major as it stands (the forward's W), or K-major through bᵀ's
+    rows (dX's Wᵀ, W as it stands; a weight stored (out, in) and viewed
+    ``.t()``).  Otherwise, and on the Hopper route (``tma``) where a row
+    pitch is not a multiple of 8 elements or the start not 16-byte
+    aligned, it is copied, contiguous."""
+    def readable(t, ld):
+        return ld is not None and (not tma or (ld % 8 == 0
+                                               and t.data_ptr() % 16 == 0))
+
+    ldx = _row_pitch(x2)
+    if not readable(x2, ldx):
+        x2 = x2.clone(memory_format=torch.contiguous_format)
+        ldx = x2.shape[1]
+    for w, kmajor in ((b, 0), (b.t(), 1)):
+        ldw = _row_pitch(w)
+        if readable(w, ldw):
+            return x2, ldx, w, ldw, kmajor
+    return x2, ldx, b.clone(memory_format=torch.contiguous_format), \
+        b.shape[1], 0
+
+
+def _mm_call(ptrs, ints, device):
+    """``bigdl_bs_mm`` on the current stream of ``device``; raises on a
+    launch error."""
+    fn = load_cuda_library("block_sparse").bigdl_bs_mm
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 12 + [
+        ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    with torch.cuda.device(device):
+        err = fn(*ptrs, *ints, _stream(device))
+    if err != 0:
+        raise RuntimeError(f"block_sparse_mm launch failed: cudaError {err}")
+
+
+def _bs_mm_cuda(x2, b, mask: BlockMask) -> torch.Tensor:
+    """Launch K9 on the current stream of x's device: x2 (M, K) @ b (K, N)
+    over b's live blocks (``mask``), the sum for each output column block
+    over its live K blocks only, on the route ``_mm_plan`` picks.  b is
+    the forward's W or dX's Wᵀ, read in place where its layout allows."""
+    return _launch_mm(x2, b, mask, _mm_plan(x2.dtype, mask.block_q,
+                                            mask.block_k))
+
+
+def _launch_mm(x2, b, mask: BlockMask, plan) -> torch.Tensor:
+    """K9 on route ``plan`` ((KC, BN), or None for the tile route)."""
+    if x2.dtype != b.dtype:
+        raise TypeError(f"block_sparse_matmul: x {x2.dtype} and w {b.dtype} "
                         f"must share a dtype on the card")
-    for name, t in (("x", x2), ("w", w)):
-        check_cuda_input(f"block_sparse_matmul {name}", t,
-                         tuple(_DTYPE_CODE))
+    if x2.dtype not in _DTYPE_CODE:
+        raise TypeError(f"block_sparse_matmul: dtype {x2.dtype} not in "
+                        f"{tuple(_DTYPE_CODE)}")
     M, K = x2.shape
-    N = w.shape[1]
+    N = b.shape[1]
     if M == 0:
         raise ValueError("block_sparse_matmul: x has no rows")
+    x2, ldx, w, ldw, kmajor = _mm_operands(x2, b, plan is not None)
     tiles, counts = _MM_TABLES.get_or_make(
         ("tables", mask, x2.device),
         lambda: tuple(_to_device(a, x2.device)
                       for a in _index_tables(mask.mask.T)[:2]))
     out = torch.empty((M, N), dtype=x2.dtype, device=x2.device)
-    fn = load_cuda_library("block_sparse").bigdl_bs_mm
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [
-        ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    with torch.cuda.device(x2.device):
-        err = fn(x2.data_ptr(), w.data_ptr(), out.data_ptr(),
-                 tiles.data_ptr(), counts.data_ptr(), tiles.shape[1], M, K, N,
-                 mask.block_q, mask.block_k, _DTYPE_CODE[x2.dtype],
-                 _stream(x2.device))
-    if err != 0:
-        raise RuntimeError(f"block_sparse_mm launch failed: cudaError {err}")
+    kc, bn_tile = plan or (0, 0)
+    _mm_call([x2.data_ptr(), w.data_ptr(), out.data_ptr(), tiles.data_ptr(),
+              counts.data_ptr()],
+             [tiles.shape[1], M, K, N, mask.block_q, mask.block_k, ldx, ldw,
+              kmajor, kc, bn_tile, _DTYPE_CODE[x2.dtype]], x2.device)
     LAUNCHES_MM.add()
+    if plan is None:
+        LAUNCHES_MM_TILE.add()
     return out
 
 
 class _BlockSparseMatmul(torch.autograd.Function):
     """The ``custom_vjp`` of the TPU ``_bs_mm``: dX is K9 again on
-    (g, Wᵀ, mask.T); dW = (x2ᵀ · g) ∘ mask is one dense product outside
-    the kernels, as the JAX package leaves it to XLA."""
+    (g, Wᵀ, mask.T), Wᵀ a view that K9 reads in place; dW = (x2ᵀ · g) ∘
+    mask is one dense product outside the kernels, as the JAX package
+    leaves it to XLA."""
 
     @staticmethod
     def forward(ctx, x2, w, mask: BlockMask):
@@ -768,12 +845,8 @@ class _BlockSparseMatmul(torch.autograd.Function):
         mask = ctx.mask
         dx = dw = None
         if ctx.needs_input_grad[0]:
-            wt = w.t().to(g.dtype).contiguous()
-            if on_cpu(x2, w, g):
-                dx = _bs_mm_plain(g, wt, mask.transposed())
-            else:
-                dx = _bs_mm_cuda(g.contiguous(), wt, mask.transposed())
-            dx = dx.to(x2.dtype)
+            mm = _bs_mm_plain if on_cpu(x2, w, g) else _bs_mm_cuda
+            dx = mm(g, w.t().to(g.dtype), mask.transposed()).to(x2.dtype)
         if ctx.needs_input_grad[1]:
             live = _elementwise_weight_mask(mask, w.device)
             dw = torch.matmul(x2.t(), g.to(x2.dtype))
@@ -787,7 +860,9 @@ def block_sparse_matmul(x, w, block_mask) -> torch.Tensor:
     """``x @ w`` where ``w`` [K, N] carries a static :class:`BlockMask`
     (or a raw bool array) over its (K-block, N-block) tiles: masked
     tiles are structural zeros, never read on the card.  ``x`` may carry
-    leading batch dims ([..., K]); returns [..., N]."""
+    leading batch dims ([..., K]); returns [..., N].  Any layout: on the
+    card a strided x or w (a column slice, a ``.t()`` view of a weight
+    stored (N, K)) is read in place where its rows are contiguous."""
     if w.dim() != 2:
         raise ValueError(f"block_sparse_matmul: w must be 2-D, got "
                          f"{tuple(w.shape)}")

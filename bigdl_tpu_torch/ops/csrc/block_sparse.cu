@@ -12,7 +12,8 @@
 //     under the block mask as well;
 //   * K9 `_bs_mm_kernel` (launched by `_bs_mm_fwd`): x[M, K] @ W[K, N] over
 //     the live (K block, N block) tiles of W only, f32 accumulation, out in
-//     x's dtype.  Its backward dX is K9 again on (g, W^T, mask^T).
+//     x's dtype.  Its backward dX is K9 again on (g, W^T, mask^T), W^T read
+//     from W's own bytes.
 //
 // Tables.  The TPU grid sweeps mask blocks; these kernels work on 64-row
 // tiles (TILE), so the host (ops/block_sparse.py `_tile_tables`) builds the
@@ -56,18 +57,34 @@
 // (wgmma has no full-f32 product); on an all-ones mask both dtypes give
 // K1-K3's bits.
 //
-// K9 design.  One block (4 warps) per (64 rows of x, up to 64 columns of
-// one output column block); it walks that column block's live K blocks in
-// chunks of 32, staging x and W chunks in shared memory (W rows past the
-// live block and x columns past it are zero-filled, never loaded), bf16
-// through WMMA with the accumulators in registers, f32 through FMA (a
-// 4 x 8 micro-tile per thread).  Any M (the ragged edge masked), any bk and
-// bn that tile K and N; 16-byte loads when bk and bn allow, else scalar
-// ones.  At the flagship MLP shape (x 16384 x 1024 bf16, W 1024 x 4096 at
-// density 0.5, block 128) it must do 68.7 GFLOP (0.069 ms) and move about
-// 172 MB (0.051 ms): bound by operations.
+// K9 design.  At the flagship MLP shape (x 16384 x 1024 bf16, W 1024 x 4096
+// at density 0.5, block 128) it must do 68.7 GFLOP (0.069 ms) and move about
+// 172 MB (0.051 ms): bound by operations, so in bf16 it is a GEMM on wgmma
+// fed by TMA (bs_mm_kernel_wgmma), the nearest model K5's implicit GEMM
+// (conv3x3.cu).  A block of two consumer warpgroups and one producer warp
+// (288 threads, two blocks an SM) owns 128 rows of x by BN output columns of
+// one column block (BN the largest of 128, 64, 32, 16 that divides bn).  The
+// producer walks the column block's live K blocks in chunks of KC (the
+// largest of 64, 32, 16 that divides bk, so a chunk never reaches into a dead
+// block: NaN there is never loaded) and loads, per chunk, two 64-row x boxes
+// and W's box into a ring of stages (full and empty mbarriers).  W is read in
+// place in either orientation: MN-major (the forward's W) as BN / 64 panels
+// of KC rows, each the transposed B of one n64 product (as K1 reads V), or
+// K-major (dX's W^T, which is W's storage) as one box of BN rows of KC,
+// the plain B of one n-BN product.  TMA zero-fills x's rows past M; the
+// epilogue rounds to bf16, stages the tile in the consumer's own x slots in
+// TMA's swizzled layout and writes it with TMA stores, which clip at M; a
+// column block with no live block writes zeros.  N tiles vary fastest over
+// the grid.  What bounds it on the card is the L2 -> SM traffic of the
+// boxes (64 FLOP a byte at 128 x 128 tiles), not the products (PERF.md).
+// The tile route (bs_mm_kernel_tile: f32 on FMA, bf16 blocks that are not
+// multiples of 16 on WMMA) keeps the first design: one 4-warp block per
+// (64 rows, up to 64 columns of one column block), 32-deep chunks staged in
+// shared memory, zero past the live block and M; 16-byte loads where the
+// layout keeps them aligned.  Both routes take any M and any number of
+// column tiles (a 1-D grid).
 
-#include <mma.h>   // K9's bf16 products (WMMA)
+#include <mma.h>   // the bf16 products of K9's tile route (WMMA)
 
 #include "attn_bwd_hopper.cuh"
 #include "attn_fwd_hopper.cuh"
@@ -671,15 +688,268 @@ int smem_of_d(int D, int dtype) {
 }
 
 // ---------------------------------------------------------------------------
-// K9: grid (ceil(M / 64), number of 64-column chunks of all column blocks).
+// K9.  Both routes compute out (M, N) = x (M, K) . W (K, N) over W's live
+// (bk, bn) blocks: output column block c sums x's K blocks against W's live
+// blocks of c only.  x's rows lie ldx elements apart.  W (the B operand)
+// is read in place: MN-major (element (k, n) at w[k * ldw + n], W as the
+// forward gets it) or K-major (at w[n * ldw + k]: the backward's dX reads
+// W^T so, which is W's own storage).  out is contiguous.
 // ---------------------------------------------------------------------------
+
+// ---- bf16: a block-masked GEMM on TMA and wgmma --------------------------------
+
+constexpr int kMmThreads = kConsumers + 32;   // two consumer warpgroups, a producer warp
+constexpr int kMmBlocksPerSm = 2;
+constexpr int kMmRows = 128;                  // output rows of a block, 64 a warpgroup
+constexpr int kMmRingBytes = 98304;           // the ring of a block: two fit on an SM
+
+// The ring's stages: each holds both consumers' x boxes (64 rows of KC
+// columns, K-major, the swizzle of a KC * 2-byte row) and W's boxes for the
+// block's BN output columns: one box of BN rows of KC (K-major W), or BN /
+// PW panels of KC rows of PW <= 64 columns (MN-major W), so that every
+// wgmma stays within one swizzle panel in N.
+template <int KC, int BN, bool KMAJ>
+struct MmCfg {
+  static constexpr int kChunk = KC;
+  static constexpr int kCols = BN;
+  static constexpr bool kKMajor = KMAJ;
+  static constexpr int RA = KC * 2;                        // bytes of an x box row
+  static constexpr int PW = KMAJ ? KC : (BN < 64 ? BN : 64);   // elements of a W box row
+  static constexpr int RB = PW * 2;                        // its bytes = its swizzle span
+  static constexpr int NP = KMAJ ? 1 : BN / PW;            // W boxes a step
+  static constexpr int PANEL = (KMAJ ? BN : KC) * RB;      // bytes of one W box
+  static constexpr int A_SLOT = 64 * RA;                   // one consumer's x box
+  static constexpr int B_BYTES = KC * BN * 2;              // the step's W boxes
+  static constexpr int B_SLOT = B_BYTES < 1024 ? 1024 : B_BYTES;   // 1024-byte aligned
+  static constexpr int STAGE = 2 * A_SLOT + B_SLOT;
+  static constexpr int STAGES = kMmRingBytes / STAGE < 8 ? kMmRingBytes / STAGE : 8;
+  static constexpr size_t SMEM = 1024 + (size_t)STAGES * STAGE + 2 * STAGES * sizeof(uint64_t);
+  // the epilogue stages a consumer's 64 x BN outputs in its own x slots
+  static_assert(STAGES * A_SLOT >= 64 * BN * 2, "bs_mm: epilogue rows do not fit");
+  static_assert(STAGES >= 2, "bs_mm: the ring needs two stages");
+};
+
+// A consumer's 64 x BN accumulator in bf16 into 64-row panels of PW <= 64
+// columns at `rows` (panel pitch 64 PW 2 bytes), laid out as a TMA box of
+// the panel's swizzle lands: 16-byte chunk j of row r at j xor address bits
+// 7.. (Swizzle<3,4,3> at 128-byte rows, <2,4,3> at 64, <1,4,3> at 32).
+template <int BN>
+__device__ __forceinline__ void stage_out(unsigned char* rows, const float* acc) {
+  using P = Panels<BN>;
+  constexpr uint32_t SWZ = (P::RB / 16 - 1) << 4;
+  const int warp = (threadIdx.x % 128) / 32;
+  const int lane = threadIdx.x % 32;
+#pragma unroll
+  for (int p = 0; p < P::NP; ++p)
+#pragma unroll
+    for (int j = 0; j < P::PW / 8; ++j)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const uint32_t a = (16 * warp + lane / 4 + 8 * h) * P::RB + 16 * j + 4 * (lane % 4);
+        const float* v = acc + p * (P::PW / 2) + 4 * j + 2 * h;
+        *reinterpret_cast<uint32_t*>(rows + p * 64 * P::RB + (a ^ ((a >> 3) & SWZ))) =
+            pack_bf16x2(v[0], v[1]);
+      }
+}
+
+// grid (m_tiles * n_tiles): block i computes rows 128 (i / n_tiles) ..
+// +127 of output columns BN (i % n_tiles) .. +BN-1, which lie in one column
+// block.  N tiles vary fastest: the blocks in flight share their x rows,
+// write whole output rows, and all of W stays in L2 (measured faster than M
+// fastest, PERF.md).
+template <int KC, int BN, bool KMAJ>
+__global__ void __launch_bounds__(kMmThreads, kMmBlocksPerSm)
+bs_mm_kernel_wgmma(const __grid_constant__ CUtensorMap tm_x,
+                   const __grid_constant__ CUtensorMap tm_w,
+                   const __grid_constant__ CUtensorMap tm_out, const int* __restrict__ tiles,
+                   const int* __restrict__ counts, int L, int M, int bk, int bn, int n_tiles) {
+  using C = MmCfg<KC, BN, KMAJ>;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* a_s = align1024(smem_raw);              // [consumer][stage] x boxes
+  unsigned char* b_s = a_s + 2 * C::STAGES * C::A_SLOT;  // [stage] W boxes
+  uint64_t* full = reinterpret_cast<uint64_t*>(b_s + C::STAGES * C::B_SLOT);
+  uint64_t* empty = full + C::STAGES;
+
+  const int m0 = (blockIdx.x / n_tiles) * kMmRows;
+  const int n0 = (blockIdx.x % n_tiles) * BN;
+  const int cb = n0 / bn;              // the output column block
+  const int chunks = bk / KC;          // steps a live K block
+  const int n_steps = counts[cb] * chunks;   // 0: the block writes zeros
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < C::STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], kConsumers);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= kConsumers) {
+    if (threadIdx.x == kConsumers) {
+      // a second x box only where the block has rows past its first 64
+      const bool two = m0 + 64 < M;
+      const uint32_t bytes = (two ? 2 : 1) * C::A_SLOT + C::B_BYTES;
+      const int* kblocks = tiles + (size_t)cb * L;
+      for (int it = 0; it < n_steps; ++it) {
+        const int s = it % C::STAGES;
+        const int k0 = kblocks[it / chunks] * bk + (it % chunks) * KC;
+        mbar_wait(&empty[s], ((it / C::STAGES) & 1) ^ 1);   // the first round passes
+        mbar_arrive_expect_tx(&full[s], bytes);
+        tma_load_2d(a_s + s * C::A_SLOT, &tm_x, &full[s], k0, m0);
+        if (two) tma_load_2d(a_s + (C::STAGES + s) * C::A_SLOT, &tm_x, &full[s], k0, m0 + 64);
+        unsigned char* b = b_s + s * C::B_SLOT;
+        if constexpr (KMAJ) {
+          tma_load_2d(b, &tm_w, &full[s], k0, n0);
+        } else {
+#pragma unroll
+          for (int p = 0; p < C::NP; ++p)
+            tma_load_2d(b + p * C::PANEL, &tm_w, &full[s], n0 + p * C::PW, k0);
+        }
+      }
+    }
+  } else {
+    const int wg = threadIdx.x / 128;
+    const int row0 = m0 + 64 * wg;
+    const bool live = row0 < M;   // else only the barriers, in step
+    unsigned char* a_wg = a_s + wg * C::STAGES * C::A_SLOT;
+
+    float acc[BN / 2];
+#pragma unroll
+    for (int i = 0; i < BN / 2; ++i) acc[i] = 0.0f;
+    for (int it = 0; it < n_steps; ++it) {
+      const int s = it % C::STAGES;
+      mbar_wait(&full[s], (it / C::STAGES) & 1);
+      if (live) {
+        const unsigned char* a = a_wg + s * C::A_SLOT;
+        const unsigned char* b = b_s + s * C::B_SLOT;
+        wgmma_fence();
+#pragma unroll
+        for (int j = 0; j < KC / 16; ++j) {
+          const uint64_t da = smem_desc<C::RA>(a + 32 * j);
+          if constexpr (KMAJ) {
+            // B = W^T's rows, K-major: each k16 step 32 bytes along them
+            wgmma_ss<BN, 0>(acc, da, smem_desc<C::RB>(b + 32 * j), 1);
+          } else {
+            // B = W's rows, MN-major (transposed B): each k16 step 16 rows
+            // further down, one product per 64-column panel
+#pragma unroll
+            for (int p = 0; p < C::NP; ++p)
+              wgmma_ss<C::PW, 1>(acc + p * (C::PW / 2), da,
+                                 smem_desc<C::RB>(b + p * C::PANEL + 16 * C::RB * j), 1);
+          }
+        }
+        wgmma_commit();
+        // the stage is free once its products are done: the other three
+        // warpgroups on the SM keep the tensor cores busy meanwhile
+        wgmma_wait<0>();
+      }
+      mbar_arrive(&empty[s]);
+    }
+#pragma unroll
+    for (int i = 0; i < BN / 2; ++i) fence_regs(acc[i]);
+
+    // epilogue: bf16 into this warpgroup's own x slots (every load into
+    // them has landed and been read), then TMA stores of the rows below M
+    if (live) {
+      using P = Panels<BN>;
+      stage_out<BN>(a_wg, acc);
+      fence_proxy_async();
+      named_barrier_sync(1 + wg, 128);
+      if (threadIdx.x % 128 == 0) {
+#pragma unroll
+        for (int p = 0; p < P::NP; ++p)
+          tma_store_2d(&tm_out, a_wg + p * 64 * P::RB, n0 + p * P::PW, row0);
+        tma_store_flush();
+      }
+    }
+  }
+}
+
+// What one K9 launch reads (bigdl_bs_mm's arguments).
+struct MmArgs {
+  const void* x;
+  const void* w;
+  void* out;
+  const int* tiles;
+  const int* counts;
+  int L, M, K, N, bk, bn, ldx, ldw, kmajor;
+  cudaStream_t stream;
+};
+
+template <int KC, int BN, class R, class F>
+R mm_with_kmajor(int kmajor, F f) {
+  return kmajor ? f(MmCfg<KC, BN, true>{}) : f(MmCfg<KC, BN, false>{});
+}
+
+template <int KC, class R, class F>
+R mm_with_bn(int bn, int kmajor, R none, F f) {
+  switch (bn) {
+    case 16: return mm_with_kmajor<KC, 16, R>(kmajor, f);
+    case 32: return mm_with_kmajor<KC, 32, R>(kmajor, f);
+    case 64: return mm_with_kmajor<KC, 64, R>(kmajor, f);
+    case 128: return mm_with_kmajor<KC, 128, R>(kmajor, f);
+  }
+  return none;
+}
+
+// f(MmCfg<KC, BN, kmajor>{}) for the Hopper route's instantiation at (kc,
+// bn, kmajor), or `none`
+template <class R, class F>
+R with_mm_cfg(int kc, int bn, int kmajor, R none, F f) {
+  switch (kc) {
+    case 16: return mm_with_bn<16>(bn, kmajor, none, f);
+    case 32: return mm_with_bn<32>(bn, kmajor, none, f);
+    case 64: return mm_with_bn<64>(bn, kmajor, none, f);
+  }
+  return none;
+}
+
+// the once-per-device shared-memory opt-in of bs_mm_kernel_wgmma<Cfg>
+template <class Cfg>
+cudaError_t mm_opt_in() {
+  static std::mutex mu;
+  static bool attr_set[kMaxDevices] = {};
+  return smem_opt_in_once(bs_mm_kernel_wgmma<Cfg::kChunk, Cfg::kCols, Cfg::kKMajor>,
+                          (int)Cfg::SMEM, mu, attr_set, true);
+}
+
+template <class Cfg>
+cudaError_t launch_mm_wgmma(const MmArgs& a) {
+  constexpr int KC = Cfg::kChunk, BN = Cfg::kCols;
+  static_assert(kMmBlocksPerSm * (Cfg::SMEM + 1024) <= 233472, "bs_mm: two blocks must share an SM");
+  const bool aligned = (reinterpret_cast<uintptr_t>(a.x) | reinterpret_cast<uintptr_t>(a.w) |
+                        reinterpret_cast<uintptr_t>(a.out)) % 16 == 0;
+  // a K chunk never leaves its K block, an N tile never its column block;
+  // TMA's row pitches are multiples of 16 bytes
+  if (a.bk % KC || a.bn % BN || a.N % 8 || a.ldx % 8 || a.ldw % 8 || !aligned)
+    return cudaErrorInvalidValue;
+  const long long n_tiles = a.N / BN;
+  const long long blocks = (a.M + kMmRows - 1) / kMmRows * n_tiles;
+  if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
+  // encoded per launch and passed by value: a CUDA graph captures them
+  CUtensorMap tm_x, tm_w, tm_out;
+  cudaError_t err = encode_bf16_2d(&tm_x, a.x, a.K, a.M, a.ldx, KC, 64);
+  if (err == cudaSuccess)
+    err = Cfg::kKMajor ? encode_bf16_2d(&tm_w, a.w, a.K, a.N, a.ldw, KC, BN)
+                       : encode_bf16_2d(&tm_w, a.w, a.N, a.K, a.ldw, Cfg::PW, KC);
+  if (err == cudaSuccess)
+    err = encode_bf16_2d(&tm_out, a.out, a.N, a.M, a.N, Panels<BN>::PW, 64);
+  if (err == cudaSuccess) err = mm_opt_in<Cfg>();
+  if (err != cudaSuccess) return err;
+  bs_mm_kernel_wgmma<KC, BN, Cfg::kKMajor><<<(unsigned)blocks, kMmThreads, Cfg::SMEM, a.stream>>>(
+      tm_x, tm_w, tm_out, a.tiles, a.counts, a.L, a.M, a.bk, a.bn, (int)n_tiles);
+  return cudaGetLastError();
+}
+
+// ---- the tile route: f32, and bf16 blocks that are not multiples of 16 -----
 
 constexpr int MM_TILE = 64;   // rows of x and columns of W per block
 constexpr int MM_KC = 32;     // depth of one staged chunk
 
 // Rows [0, 64) x columns [0, MM_KC) of x from (m0, kk); zero past M and kw.
 template <typename T, bool VEC>
-__device__ __forceinline__ void load_x_chunk(T* x_s, const T* x, int m0, int M, int K, int kk,
+__device__ __forceinline__ void load_x_chunk(T* x_s, const T* x, int m0, int M, int ldx, int kk,
                                              int kw) {
   if constexpr (VEC) {
     constexpr int V = 16 / sizeof(T);
@@ -688,52 +958,70 @@ __device__ __forceinline__ void load_x_chunk(T* x_s, const T* x, int m0, int M, 
       const int r = i / VPR, c = (i % VPR) * V;
       uint4 val = make_uint4(0u, 0u, 0u, 0u);
       if (m0 + r < M && c < kw)
-        val = *reinterpret_cast<const uint4*>(x + (size_t)(m0 + r) * K + kk + c);
+        val = *reinterpret_cast<const uint4*>(x + (size_t)(m0 + r) * ldx + kk + c);
       *reinterpret_cast<uint4*>(x_s + r * MM_KC + c) = val;
     }
   } else {
     for (int i = threadIdx.x; i < MM_TILE * MM_KC; i += NTHREADS) {
       const int r = i / MM_KC, c = i % MM_KC;
-      x_s[i] = (m0 + r < M && c < kw) ? x[(size_t)(m0 + r) * K + kk + c] : from_f32<T>(0.0f);
+      x_s[i] = (m0 + r < M && c < kw) ? x[(size_t)(m0 + r) * ldx + kk + c] : from_f32<T>(0.0f);
     }
   }
 }
 
-// Rows [0, MM_KC) x columns [0, 64) of W from (kk, c0); zero past kw and cw.
-template <typename T, bool VEC>
-__device__ __forceinline__ void load_w_chunk(T* w_s, const T* w, int N, int kk, int kw, int c0,
+// Rows [0, MM_KC) x columns [0, 64) of W from (kk, c0), row-major; zero past
+// kw and cw.  16-byte loads run along W's contiguous dim: along a row of an
+// MN-major W, down a column of a K-major one.
+template <typename T, bool VEC, bool KMAJ>
+__device__ __forceinline__ void load_w_chunk(T* w_s, const T* w, int ldw, int kk, int kw, int c0,
                                              int cw) {
-  if constexpr (VEC) {
-    constexpr int V = 16 / sizeof(T);
+  constexpr int V = 16 / sizeof(T);
+  if constexpr (VEC && KMAJ) {
+    constexpr int VPC = MM_KC / V;
+    for (int i = threadIdx.x; i < MM_TILE * VPC; i += NTHREADS) {
+      const int c = i / VPC, r = (i % VPC) * V;
+      uint4 val = make_uint4(0u, 0u, 0u, 0u);
+      if (r < kw && c < cw)
+        val = *reinterpret_cast<const uint4*>(w + (size_t)(c0 + c) * ldw + kk + r);
+      const T* e = reinterpret_cast<const T*>(&val);
+#pragma unroll
+      for (int q = 0; q < V; ++q) w_s[(r + q) * MM_TILE + c] = e[q];
+    }
+  } else if constexpr (VEC) {
     constexpr int VPR = MM_TILE / V;
     for (int i = threadIdx.x; i < MM_KC * VPR; i += NTHREADS) {
       const int r = i / VPR, c = (i % VPR) * V;
       uint4 val = make_uint4(0u, 0u, 0u, 0u);
       if (r < kw && c < cw)
-        val = *reinterpret_cast<const uint4*>(w + (size_t)(kk + r) * N + c0 + c);
+        val = *reinterpret_cast<const uint4*>(w + (size_t)(kk + r) * ldw + c0 + c);
       *reinterpret_cast<uint4*>(w_s + r * MM_TILE + c) = val;
     }
   } else {
     for (int i = threadIdx.x; i < MM_KC * MM_TILE; i += NTHREADS) {
       const int r = i / MM_TILE, c = i % MM_TILE;
-      w_s[i] = (r < kw && c < cw) ? w[(size_t)(kk + r) * N + c0 + c] : from_f32<T>(0.0f);
+      const size_t at = KMAJ ? (size_t)(c0 + c) * ldw + kk + r : (size_t)(kk + r) * ldw + c0 + c;
+      w_s[i] = (r < kw && c < cw) ? w[at] : from_f32<T>(0.0f);
     }
   }
 }
 
-template <typename T, bool VEC>
+// grid (m_tiles * N / bn * chunks): block i computes rows 64 (i % m_tiles)
+// .. of the 64-column chunk i / m_tiles of all column blocks' chunks.
+template <typename T, bool VEC, bool KMAJ>
 __global__ void __launch_bounds__(NTHREADS)
-bs_mm_kernel(const T* __restrict__ x, const T* __restrict__ w, T* __restrict__ out, Tables tab,
-             int M, int K, int N, int bk, int bn, int chunks) {
+bs_mm_kernel_tile(const T* __restrict__ x, const T* __restrict__ w, T* __restrict__ out,
+                  const int* __restrict__ tiles, const int* __restrict__ counts, int L, int M,
+                  int N, int bk, int bn, int ldx, int ldw, int m_tiles, int chunks) {
   __shared__ __align__(128) T x_s[MM_TILE * MM_KC];
   __shared__ __align__(128) T w_s[MM_KC * MM_TILE];
 
-  const int m0 = blockIdx.x * MM_TILE;
-  const int cb = blockIdx.y / chunks;   // output column block
-  const int c0 = cb * bn + (blockIdx.y % chunks) * MM_TILE;
+  const int m0 = (blockIdx.x % m_tiles) * MM_TILE;
+  const int y = blockIdx.x / m_tiles;
+  const int cb = y / chunks;   // output column block
+  const int c0 = cb * bn + (y % chunks) * MM_TILE;
   const int cw = min(MM_TILE, (cb + 1) * bn - c0);
-  const int n_blocks = tab.counts[cb];
-  const int* kblocks = tab.tiles + (size_t)cb * tab.L;
+  const int n_blocks = counts[cb];
+  const int* kblocks = tiles + (size_t)cb * L;
   const int warp = threadIdx.x / 32;
 
   if constexpr (kIsBf16<T>) {
@@ -746,8 +1034,8 @@ bs_mm_kernel(const T* __restrict__ x, const T* __restrict__ w, T* __restrict__ o
       for (int kk = k_beg; kk < k_end; kk += MM_KC) {
         const int kw = min(MM_KC, k_end - kk);
         __syncthreads();   // every warp done with the last chunk
-        load_x_chunk<T, VEC>(x_s, x, m0, M, K, kk, kw);
-        load_w_chunk<T, VEC>(w_s, w, N, kk, kw, c0, cw);
+        load_x_chunk<T, VEC>(x_s, x, m0, M, ldx, kk, kw);
+        load_w_chunk<T, VEC, KMAJ>(w_s, w, ldw, kk, kw, c0, cw);
         __syncthreads();
         for (int ks = 0; ks < MM_KC; ks += 16) {
           wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> a;
@@ -778,8 +1066,8 @@ bs_mm_kernel(const T* __restrict__ x, const T* __restrict__ w, T* __restrict__ o
       for (int kk = k_beg; kk < k_end; kk += MM_KC) {
         const int kw = min(MM_KC, k_end - kk);
         __syncthreads();
-        load_x_chunk<T, VEC>(x_s, x, m0, M, K, kk, kw);
-        load_w_chunk<T, VEC>(w_s, w, N, kk, kw, c0, cw);
+        load_x_chunk<T, VEC>(x_s, x, m0, M, ldx, kk, kw);
+        load_w_chunk<T, VEC, KMAJ>(w_s, w, ldw, kk, kw, c0, cw);
         __syncthreads();
         for (int kc = 0; kc < MM_KC; ++kc) {
           float a[4], b[8];
@@ -801,24 +1089,26 @@ bs_mm_kernel(const T* __restrict__ x, const T* __restrict__ w, T* __restrict__ o
   }
 }
 
-template <typename T>
-cudaError_t launch_mm(const void* x, const void* w, void* out, Tables tab, int M, int K, int N,
-                      int bk, int bn, cudaStream_t stream) {
+template <typename T, bool KMAJ>
+cudaError_t launch_mm_tile(const MmArgs& a) {
   constexpr int V = 16 / sizeof(T);
-  const int chunks = (bn + MM_TILE - 1) / MM_TILE;
-  const long long ny = (long long)(N / bn) * chunks;
-  if (ny > 65535) return cudaErrorInvalidValue;
-  dim3 grid((M + MM_TILE - 1) / MM_TILE, (unsigned)ny);
-  const T* xp = static_cast<const T*>(x);
-  const T* wp = static_cast<const T*>(w);
-  T* op = static_cast<T*>(out);
-  if (bk % V == 0 && bn % V == 0)
-    bs_mm_kernel<T, true><<<grid, NTHREADS, 0, stream>>>(xp, wp, op, tab, M, K, N, bk, bn,
-                                                         chunks);
-  else
-    bs_mm_kernel<T, false><<<grid, NTHREADS, 0, stream>>>(xp, wp, op, tab, M, K, N, bk, bn,
-                                                          chunks);
+  const int chunks = (a.bn + MM_TILE - 1) / MM_TILE;
+  const long long m_tiles = (a.M + MM_TILE - 1) / MM_TILE;
+  const long long blocks = m_tiles * (a.N / a.bn) * chunks;
+  if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
+  // 16-byte loads where every row and block edge keeps them aligned
+  const bool vec = a.bk % V == 0 && a.bn % V == 0 && a.ldx % V == 0 && a.ldw % V == 0 &&
+                   (reinterpret_cast<uintptr_t>(a.x) | reinterpret_cast<uintptr_t>(a.w)) % 16 == 0;
+  auto kernel = vec ? bs_mm_kernel_tile<T, true, KMAJ> : bs_mm_kernel_tile<T, false, KMAJ>;
+  kernel<<<(unsigned)blocks, NTHREADS, 0, a.stream>>>(
+      static_cast<const T*>(a.x), static_cast<const T*>(a.w), static_cast<T*>(a.out), a.tiles,
+      a.counts, a.L, a.M, a.N, a.bk, a.bn, a.ldx, a.ldw, (int)m_tiles, chunks);
   return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t dispatch_mm_tile(const MmArgs& a) {
+  return a.kmajor ? launch_mm_tile<T, true>(a) : launch_mm_tile<T, false>(a);
 }
 
 }  // namespace
@@ -884,17 +1174,51 @@ extern "C" int bigdl_bs_bwd_smem_bytes(int dkv, int D, int dtype) {
   return dkv ? smem_of_d<Which::kDkv>(D, dtype) : smem_of_d<Which::kDq>(D, dtype);
 }
 
-// K9: out (M, N) = x (M, K) @ W (K, N) over W's live (bk, bn) tiles; tiles
+// K9: out (M, N) = x (M, K) @ W (K, N) over W's live (bk, bn) blocks; tiles
 // (N / bn, L) int32 lists each output column block's live K blocks, counts
-// (N / bn,) int32 their number.  x, w, out in one dtype.
+// (N / bn,) int32 their number.  x's rows lie ldx elements apart; W is
+// MN-major (kmajor 0: element (k, n) at w[k * ldw + n]) or K-major (kmajor
+// 1: at w[n * ldw + k]); out (M, N) contiguous; one dtype.  kc > 0 takes
+// the Hopper route (bf16; K chunks of kc, N tiles of bn_tile, the wrapper's
+// choice: kc divides bk, bn_tile divides bn; ldx, ldw and N multiples of 8
+// and x, w, out 16-byte aligned, for TMA); kc = 0 the tile route (any
+// layout the arguments describe).
 extern "C" int bigdl_bs_mm(const void* x, const void* w, void* out, const void* tiles,
                            const void* counts, int L, int M, int K, int N, int bk, int bn,
-                           int dtype, void* stream) {
-  if (M <= 0 || K <= 0 || N <= 0 || bk <= 0 || bn <= 0 || K % bk || N % bn || L <= 0)
+                           int ldx, int ldw, int kmajor, int kc, int bn_tile, int dtype,
+                           void* stream) {
+  if (M <= 0 || K <= 0 || N <= 0 || bk <= 0 || bn <= 0 || K % bk || N % bn || L <= 0 ||
+      ldx < K || ldw < (kmajor ? K : N))
     return (int)cudaErrorInvalidValue;
-  const Tables tab{static_cast<const int*>(tiles), static_cast<const int*>(counts), nullptr, L};
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 1) return (int)launch_mm<__nv_bfloat16>(x, w, out, tab, M, K, N, bk, bn, s);
-  if (dtype == 0) return (int)launch_mm<float>(x, w, out, tab, M, K, N, bk, bn, s);
+  const MmArgs a{x, w, out, static_cast<const int*>(tiles), static_cast<const int*>(counts), L,
+                 M, K, N, bk, bn, ldx, ldw, kmajor, static_cast<cudaStream_t>(stream)};
+  if (kc > 0) {
+    if (dtype != 1) return (int)cudaErrorInvalidValue;
+    return (int)with_mm_cfg(kc, bn_tile, kmajor, (cudaError_t)cudaErrorInvalidValue,
+                            [&](auto cfg) { return launch_mm_wgmma<decltype(cfg)>(a); });
+  }
+  if (dtype == 1) return (int)dispatch_mm_tile<__nv_bfloat16>(a);
+  if (dtype == 0) return (int)dispatch_mm_tile<float>(a);
   return (int)cudaErrorInvalidValue;
+}
+
+// Dynamic shared memory per block of K9's Hopper route at (kc, bn_tile,
+// kmajor), or 0 for what it does not take.
+extern "C" int bigdl_bs_mm_smem_bytes(int kc, int bn_tile, int kmajor) {
+  return with_mm_cfg(kc, bn_tile, kmajor, 0, [](auto cfg) { return (int)decltype(cfg)::SMEM; });
+}
+
+// How many blocks of K9's Hopper route at (kc, bn_tile, kmajor) the current
+// device runs on one SM at once (2 by design), or -1.
+extern "C" int bigdl_bs_mm_blocks_per_sm(int kc, int bn_tile, int kmajor) {
+  return with_mm_cfg(kc, bn_tile, kmajor, -1, [](auto cfg) {
+    using Cfg = decltype(cfg);
+    int n = -1;
+    if (mm_opt_in<Cfg>() != cudaSuccess ||
+        cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+            &n, bs_mm_kernel_wgmma<Cfg::kChunk, Cfg::kCols, Cfg::kKMajor>, kMmThreads,
+            Cfg::SMEM) != cudaSuccess)
+      return -1;
+    return n;
+  });
 }

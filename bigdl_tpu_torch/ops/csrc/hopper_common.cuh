@@ -6,8 +6,8 @@
 // it builds in seconds.  attn_fwd_hopper.cuh, the forward body of K1
 // (flash_fwd.cu) and K6 (block_sparse.cu), is built on it, and so is
 // attn_bwd_hopper.cuh, the backward body of K2/K3 (flash_bwd.cu) and K7/K8
-// (block_sparse.cu), and so is K5's implicit GEMM (conv3x3.cu); it is what
-// a redesign of the other kernels takes up.
+// (block_sparse.cu), and so are K5's implicit GEMM (conv3x3.cu) and K9's
+// block-masked GEMM (block_sparse.cu).
 // Its last section holds what the two attention bodies share: the block
 // shape and the steps of a sweep.
 //
@@ -109,9 +109,38 @@ __device__ __forceinline__ void setmaxnreg_inc() {
 
 // ---- TMA -------------------------------------------------------------------
 
-// box of `tmap` at coordinates (c0 innermost, c1, c2) into shared memory,
+// box of a 2-D `tmap` at coordinates (c0 innermost, c1) into shared memory,
 // completing `bytes` of `bar`'s expected traffic; out-of-bounds elements
-// arrive as zeros
+// arrive as zeros.  K9 (block_sparse.cu) reads x and W so.
+__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* tmap, uint64_t* bar,
+                                            int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.tile.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(tmap)), "r"(smem_u32(bar)), "r"(c0), "r"(c1)
+      : "memory");
+}
+
+// a box of shared memory at `src`, in the layout a load of the same box
+// would give, to a 2-D `tmap` at coordinates (c0 innermost, c1): elements
+// outside the tensor are not written.  One bulk group of this thread; the
+// writers of `src` fence_proxy_async() and synchronise with it first.
+__device__ __forceinline__ void tma_store_2d(const CUtensorMap* tmap, const void* src, int c0,
+                                             int c1) {
+  asm volatile("cp.async.bulk.tensor.2d.global.shared::cta.bulk_group [%0, {%2, %3}], [%1];\n" ::"l"(
+                   reinterpret_cast<uint64_t>(tmap)),
+               "r"(smem_u32(src)), "r"(c0), "r"(c1)
+               : "memory");
+}
+
+// closes this thread's bulk group, then waits until its bulk stores have
+// read their shared memory (it may then be reused or the block may exit)
+__device__ __forceinline__ void tma_store_flush() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+  asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+}
+
+// the same for a 3-D map: coordinates (c0 innermost, c1, c2)
 __device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* tmap, uint64_t* bar,
                                             int c0, int c1, int c2) {
   asm volatile(
@@ -172,6 +201,40 @@ __device__ __forceinline__ uint64_t smem_desc(const void* p) {
 __device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);   // round to nearest even
   return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// D (m64n16, f32) (+)= A . B, A and B bf16 in shared memory (descriptors).
+template <int kTransB>
+__device__ __forceinline__ void wgmma_ss_m64n16k16(float* d, uint64_t desc_a, uint64_t desc_b,
+                                                int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %10, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7"
+      "}, %8, %9, p, 1, 1, 0, %11;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7])
+      : "l"(desc_a), "l"(desc_b), "r"(accumulate), "n"(kTransB));
+}
+
+// D (m64n32, f32) (+)= A . B, A and B bf16 in shared memory (descriptors).
+template <int kTransB>
+__device__ __forceinline__ void wgmma_ss_m64n32k16(float* d, uint64_t desc_a, uint64_t desc_b,
+                                                int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15"
+      "}, %16, %17, p, 1, 1, 0, %19;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15])
+      : "l"(desc_a), "l"(desc_b), "r"(accumulate), "n"(kTransB));
 }
 
 // D (m64n64, f32) (+)= A . B, A and B bf16 in shared memory (descriptors).
@@ -294,7 +357,9 @@ __device__ __forceinline__ void wgmma_rs_m64n64k16(float* d, const uint32_t* a,
 template <int N, int kTransB>
 __device__ __forceinline__ void wgmma_ss(float* d, uint64_t desc_a, uint64_t desc_b,
                                          int accumulate) {
-  static_assert(N == 64 || N == 128, "wgmma_ss: N");
+  static_assert(N == 16 || N == 32 || N == 64 || N == 128, "wgmma_ss: N");
+  if constexpr (N == 16) wgmma_ss_m64n16k16<kTransB>(d, desc_a, desc_b, accumulate);
+  if constexpr (N == 32) wgmma_ss_m64n32k16<kTransB>(d, desc_a, desc_b, accumulate);
   if constexpr (N == 64) wgmma_ss_m64n64k16<kTransB>(d, desc_a, desc_b, accumulate);
   if constexpr (N == 128) wgmma_ss_m64n128k16<kTransB>(d, desc_a, desc_b, accumulate);
 }
@@ -445,12 +510,15 @@ inline EncodeTiledFn encode_tiled_fn() {
   return fn;
 }
 
-// A tensor map over a contiguous bf16 array of `rank` dimensions, dims[0]
-// innermost, read in boxes of `box` elements with the swizzle of box[0] *
-// 2-byte rows (32, 64 or 128 bytes).  Out-of-bounds elements read as zeros.
-// The strides must be multiples of 16 bytes (dims[0] a multiple of 8).
+// A tensor map over a bf16 array of `rank` dimensions, dims[0] innermost,
+// read in boxes of `box` elements with the swizzle of box[0] * 2-byte rows
+// (32, 64 or 128 bytes).  Out-of-bounds elements read as zeros.  The array
+// is contiguous, or dimension i > 0 steps pitches[i - 1] bytes.  The
+// strides must be multiples of 16 bytes (contiguous: dims[0] a multiple of
+// 8), the base 16-byte aligned.
 inline cudaError_t encode_bf16(CUtensorMap* map, const void* base, int rank,
-                               const uint64_t* dims, const uint32_t* box) {
+                               const uint64_t* dims, const uint32_t* box,
+                               const uint64_t* pitches = nullptr) {
   EncodeTiledFn fn = encode_tiled_fn();
   if (fn == nullptr) return cudaErrorNotSupported;
   const uint32_t row_bytes = box[0] * 2;
@@ -466,13 +534,23 @@ inline cudaError_t encode_bf16(CUtensorMap* map, const void* base, int rank,
     g_dims[i] = dims[i];
     g_box[i] = box[i];
     elem_strides[i] = 1;
-    if (i > 0) strides[i - 1] = pitch;
+    if (i > 0) strides[i - 1] = pitches ? pitches[i - 1] : pitch;
     pitch *= dims[i];
   }
   CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank, const_cast<void*>(base), g_dims,
                   strides, g_box, elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
                   CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// A tensor map over a bf16 matrix of n1 rows of n0 elements, row r at
+// `base` + r * `pitch` elements, read in boxes of (box1 rows, box0 columns).
+inline cudaError_t encode_bf16_2d(CUtensorMap* map, const void* base, uint64_t n0, uint64_t n1,
+                                  uint64_t pitch, uint32_t box0, uint32_t box1) {
+  const uint64_t dims[2] = {n0, n1};
+  const uint32_t box[2] = {box0, box1};
+  const uint64_t pitches[1] = {2 * pitch};
+  return encode_bf16(map, base, 2, dims, box, pitches);
 }
 
 // A tensor map over a contiguous bf16 array of shape (n2, n1, n0), n0

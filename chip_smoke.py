@@ -13,12 +13,13 @@ Phases; any failure exits non-zero:
    route of K1-K3 and K6-K8 for head dims above 128) with one ``nvcc``
    each, started together, into ``.torch_kernels/``; Triton compiles K4
    at first launch.  Print the build seconds, and for each instantiation
-   of K1, K2, K3, K6-K8 and K5's bf16 kernel (one per KC input channels
-   a step and BN output channels a block) its registers, spills and
-   dynamic shared memory (ptxas) and its wgmma (HGMMA) and TMA (UTMALDG)
-   instructions (``cuobjdump -sass``, where the toolkit has it); each
-   bf16 D 128 kernel and K5 at KC 64 must not spill and must hold both,
-   and two K5 blocks must share an SM.
+   of K1, K2, K3, K6-K8, K5's bf16 kernel (one per KC input channels
+   a step and BN output channels a block) and K9's Hopper route (one per
+   KC, BN and W orientation) its registers, spills and dynamic shared
+   memory (ptxas) and its wgmma (HGMMA) and TMA (UTMALDG) instructions
+   (``cuobjdump -sass``, where the toolkit has it); each bf16 D 128
+   kernel, K5 at KC 64 and every K9 instantiation must not spill and
+   must hold both, and two K5 or K9 blocks must share an SM.
 3. kernel parity — each kernel against its plain PyTorch version on the
    card at the shapes the served, the training, the block-sparse
    training, the matmul and the ResNet-50 paths give it, with the stated
@@ -31,8 +32,11 @@ Phases; any failure exits non-zero:
    four stage shapes (B 64, bf16), one in f32, ResNet-CIFAR's first
    width (B 128, 32 x 32, C = O = 16) and ragged C 3, O 10, H 7, W 5,
    with K5's pixel box, its dead rows and the bytes its TMA boxes
-   request; kernel, plain and library times (SDPA's backward by CUDA
-   graph replay, with the backend that ran); the bound.
+   request; K9 forward and dX (on W in place) with the route each took,
+   and on its Hopper route the tile route's time on the same inputs and
+   the bytes its TMA boxes request; kernel, plain and library times
+   (SDPA's backward by CUDA graph replay, with the backend that ran);
+   the bound.
 4. serving path — the flagship TransformerLM (V 32000, D 1024, 8 heads,
    8 layers, max_len 1024; random weights from a seeded generator)
    served in bf16 by the port's ``InferenceServer``: a batch of four
@@ -61,8 +65,9 @@ Phases; any failure exits non-zero:
    T 4096), MFU on executed and flash-equivalent work, peak memory.
 7. the block-sparse matmul's entry point — ``block_sparse_matmul`` at
    the flagship MLP shape in bf16 under autograd, 3 forward+backward
-   passes: 2 launches of K9 per pass, dW zero on every dead tile, the
-   forward and dX as phase 3 holds them.
+   passes: 2 launches of K9 per pass, all on its Hopper route (dX reads
+   W in place), dW zero on every dead tile, the forward and dX as phase 3
+   holds them.
 8. ResNet-50 training path — ``bench.py``'s ``conv_impl="pallas"`` leg on
    the port: ``ResNet50(1000)`` with the conv7 stem (random weights from
    a seeded generator), every ``SpatialConvolution`` on ``"pallas"`` (the
@@ -416,60 +421,90 @@ def kernel_design(torch):
     return rows, failures
 
 
-# K5's bf16 kernel by its mangled name: KC (input channels a step), BN
-# (output channels a block)
+# the bf16 wgmma GEMMs by their mangled names: K5 (KC input channels a
+# step, BN output channels a block) and K9's Hopper route (KC, BN, W read
+# K-major)
 CONV_KERNEL = r"conv3x3_kernel_wgmmaILi(\d+)ELi(\d+)E"
+MM_KERNEL = r"bs_mm_kernel_wgmmaILi(\d+)ELi(\d+)ELb([01])E"
 
 
-def conv_design(torch):
-    """Phase 2's report of K5's bf16 build: per instantiation (KC, BN) its
-    registers, spills and dynamic shared memory (ptxas), how many blocks
-    the card runs on one SM at once, and its wgmma (HGMMA) and TMA load
-    (UTMALDG) instructions in SASS.  Fails where KC 64 spills or holds no
-    HGMMA or no UTMALDG, or where two blocks do not share an SM."""
-    import ctypes
-
+def wgmma_design(lib_name, label, pattern, names, smem, occ, checked):
+    """Phase 2's report of a bf16 GEMM on TMA and wgmma (K5, K9): per
+    instantiation (its template arguments, by ``names``) its registers,
+    spills and dynamic shared memory (ptxas), how many blocks the card
+    runs on one SM at once, and its wgmma (HGMMA) and TMA load (UTMALDG)
+    instructions in SASS.  Fails where two blocks do not share an SM,
+    and where an instantiation that ``checked`` takes spills or holds no
+    HGMMA or no UTMALDG."""
     from bigdl_tpu_torch.ops import _support
 
-    lib = _support.load_cuda_library("conv3x3")
-    smem, occ = lib.bigdl_conv3x3_smem_bytes, lib.bigdl_conv3x3_blocks_per_sm
-    smem.argtypes, smem.restype = [ctypes.c_int] * 3, ctypes.c_int
-    occ.argtypes, occ.restype = [ctypes.c_int] * 2, ctypes.c_int
-    ptxas = ptxas_functions(_support.BUILD_INFO["conv3x3"][1])
-    sass = sass_counts(lib._name)
+    ptxas = ptxas_functions(_support.BUILD_INFO[lib_name][1])
+    sass = sass_counts(_support.load_cuda_library(lib_name)._name)
     rows, failures = [], []
     for fn in sorted(set(ptxas) | set(sass or {})):
-        m = re.search(CONV_KERNEL, fn)
+        m = re.search(pattern, fn)
         if m is None:
             continue
-        kc, bn = int(m.group(1)), int(m.group(2))
+        args = tuple(int(v) for v in m.groups())
         rep = ptxas.get(fn)
         ops = None if sass is None else sass.get(fn)
-        row = dict(kernel=fn, label="K5", dtype="bfloat16", kc=kc, bn=bn,
-                   dynamic_smem_bytes=smem(kc, bn, 1),
-                   blocks_per_sm=occ(kc, bn), ptxas=rep, sass=ops)
+        row = dict(kernel=fn, label=label, dtype="bfloat16",
+                   **dict(zip(names, args)), dynamic_smem_bytes=smem(*args),
+                   blocks_per_sm=occ(*args), ptxas=rep, sass=ops)
         rows.append(row)
         regs = ("not measured (an earlier build was loaded)"
                 if rep is None else
                 f"{rep.get('registers')} registers, spill stores "
                 f"{rep.get('spill_stores')} B, loads "
                 f"{rep.get('spill_loads')} B")
-        print(f"K5 bfloat16 KC {kc:2d} BN {bn:3d}: {regs}, dynamic smem "
+        what = " ".join(f"{n.upper()} {v:3d}" for n, v in zip(names, args))
+        print(f"{label} bfloat16 {what}: {regs}, dynamic smem "
               f"{row['dynamic_smem_bytes']} B, {row['blocks_per_sm']} "
               f"blocks an SM; SASS "
               f"{'not measured (no cuobjdump)' if ops is None else ops}")
         if row["blocks_per_sm"] < 2:
-            failures.append(f"K5 KC {kc} BN {bn}: {row['blocks_per_sm']} "
-                            f"blocks an SM, want 2")
-        if kc == 64:
+            failures.append(f"{label} {what}: {row['blocks_per_sm']} blocks "
+                            f"an SM, want 2")
+        if checked(*args):
             if rep and (rep.get("spill_stores") or rep.get("spill_loads")):
-                failures.append(f"K5 bf16 KC 64 BN {bn} spills: {rep}")
+                failures.append(f"{label} bf16 {what} spills: {rep}")
             if ops is not None and not (ops["HGMMA"] and ops["UTMALDG"]):
-                failures.append(f"K5 bf16 KC 64 BN {bn} holds no HGMMA or no "
+                failures.append(f"{label} bf16 {what} holds no HGMMA or no "
                                 f"UTMALDG: {ops}")
-    if (ptxas or sass) and not any(r["kc"] == 64 for r in rows):
-        failures.append("K5 bf16 KC 64 missing from the build's reports")
+    if (ptxas or sass) and not any(checked(*(r[n] for n in names))
+                                   for r in rows):
+        failures.append(f"{label} bf16 kernels missing from the build's "
+                        f"reports")
     return rows, failures
+
+
+def _int_fn(lib_name, name, n):
+    import ctypes
+
+    from bigdl_tpu_torch.ops import _support
+
+    fn = getattr(_support.load_cuda_library(lib_name), name)
+    fn.argtypes, fn.restype = [ctypes.c_int] * n, ctypes.c_int
+    return fn
+
+
+def conv_design(torch):
+    """K5's bf16 build (``wgmma_design``), per (KC, BN); KC 64 must not
+    spill and must hold HGMMA and UTMALDG."""
+    smem = _int_fn("conv3x3", "bigdl_conv3x3_smem_bytes", 3)
+    return wgmma_design("conv3x3", "K5", CONV_KERNEL, ("kc", "bn"),
+                        lambda kc, bn: smem(kc, bn, 1),
+                        _int_fn("conv3x3", "bigdl_conv3x3_blocks_per_sm", 2),
+                        lambda kc, bn: kc == 64)
+
+
+def mm_design(torch):
+    """K9's Hopper route (``wgmma_design``), per (KC, BN, W K-major):
+    none may spill, each must hold HGMMA and UTMALDG."""
+    return wgmma_design("block_sparse", "K9", MM_KERNEL, ("kc", "bn", "kmajor"),
+                        _int_fn("block_sparse", "bigdl_bs_mm_smem_bytes", 3),
+                        _int_fn("block_sparse", "bigdl_bs_mm_blocks_per_sm", 3),
+                        lambda *args: True)
 
 
 def flash_cases(torch):
@@ -583,8 +618,8 @@ def launch_counters():
     return {c.name: c for c in (fa.LAUNCHES, fa.LAUNCHES_DKV,
                                 fa.LAUNCHES_DQ, ln.LAUNCHES, bs.LAUNCHES,
                                 bs.LAUNCHES_DKV, bs.LAUNCHES_DQ,
-                                bs.LAUNCHES_MM, conv3x3.LAUNCHES,
-                                fa.LAUNCHES_WIDE)}
+                                bs.LAUNCHES_MM, bs.LAUNCHES_MM_TILE,
+                                conv3x3.LAUNCHES, fa.LAUNCHES_WIDE)}
 
 
 def want_launches(**counts):
@@ -954,25 +989,47 @@ def mm_inputs(torch, M, K, N, block, dt):
     return x, w, gy, bs.magnitude_block_mask(w, block, block, MM_DENSITY)
 
 
+def mm_boxes(M, K, N, mask):
+    """What K9's Hopper route reads for one call (its plan from
+    ``_mm_plan``): KC, BN, and the bytes its TMA boxes request, per live
+    step of each 128-row tile and BN-column tile: two 64-row x boxes
+    (one where the tile has 64 rows or fewer) and the W box; x and W come
+    from L2 after their first read."""
+    import torch
+
+    from bigdl_tpu_torch.ops import block_sparse as bs
+
+    kc, bn_t = bs._mm_plan(torch.bfloat16, mask.block_q, mask.block_k)
+    steps = mask.nnz * (mask.block_q // kc) * (mask.block_k // bn_t)
+    x_step = -(-M // 64) * 64 * kc * 2
+    w_step = -(-M // 128) * kc * bn_t * 2
+    return dict(kc=kc, bn=bn_t, tma_bytes=steps * (x_step + w_step))
+
+
 def check_block_sparse_mm(torch):
-    """K9 against ``_bs_mm_plain`` (forward, and dX = K9 on (dY, Wᵀ,
-    maskᵀ)) row by row; NaN in every dead W tile; times against
-    ``torch.matmul`` on the masked dense W."""
+    """K9 against ``_bs_mm_plain`` row by row: the forward, and dX = K9 on
+    (dY, Wᵀ, maskᵀ) with Wᵀ a view that K9 reads in place; NaN in every
+    dead W tile; the route each took.  Times against ``torch.matmul`` on
+    the masked dense W, and on the Hopper route the tile route on the same
+    inputs (K9's first design) and the bytes its TMA boxes request."""
     from bigdl_tpu_torch.ops import block_sparse as bs
 
     rows = []
     for label, M, K, N, block, dt in mm_cases(torch):
         x, w, gy, mask = mm_inputs(torch, M, K, N, block, dt)
-        wt = w.t().contiguous()
+        tile_before = bs.LAUNCHES_MM_TILE.count
         y = bs._bs_mm_cuda(x, w, mask)
-        dx = bs._bs_mm_cuda(gy, wt, mask.transposed())
         torch.cuda.synchronize()
+        dx = bs._bs_mm_cuda(gy, w.t(), mask.transposed())
+        torch.cuda.synchronize()
+        route = ("tile" if bs.LAUNCHES_MM_TILE.count > tile_before
+                 else "hopper")
         dname = str(dt).split(".")[-1]
         tol = ROW_TOL[dname]
         y_ref = bs._bs_mm_plain(x, w, mask)
         rel = {"y": row_rel_err(torch, y, y_ref),
                "dx": row_rel_err(torch, dx, bs._bs_mm_plain(
-                   gy, wt, mask.transposed()))}
+                   gy, w.t(), mask.transposed()))}
         err = (y.float() - y_ref.float()).abs().max().item()
         del y_ref
         live = bs._elementwise_weight_mask(mask, "cuda")
@@ -984,24 +1041,38 @@ def check_block_sparse_mm(torch):
         w_dense = torch.where(live, w, torch.zeros((), dtype=dt,
                                                    device="cuda"))
         ms = cuda_ms(lambda: bs._bs_mm_cuda(x, w, mask))
-        dx_ms = cuda_ms(lambda: bs._bs_mm_cuda(gy, wt, mask.transposed()))
+        dx_ms = cuda_ms(lambda: bs._bs_mm_cuda(gy, w.t(), mask.transposed()))
         plain_ms = cuda_ms(lambda: bs._bs_mm_plain(x, w, mask))
         lib_ms = cuda_ms(lambda: torch.matmul(x, w_dense))
         item = x.element_size()
         nnz = mask.nnz * mask.block_q * mask.block_k
         b_ms, b_by = bound(item * (M * K + nnz + M * N), 2.0 * M * nnz, dname)
-        rows.append(dict(case=label, shape=[M, K, N], block=block,
-                         dtype=dname, density=mask.density, row_rel_err=rel,
-                         max_abs_err=err, tol=tol, nan_poison_ok=poison_ok,
-                         ok=ok, ms=ms, dx_ms=dx_ms, plain_ms=plain_ms,
-                         library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by))
-        print(f"K9 block_sparse_mm {label:>12} {dname:>8} row err y "
-              f"{rel['y']:.3e} dx {rel['dx']:.3e} (tol {tol:g}) NaN in dead "
-              f"tiles ignored: {poison_ok} | kernel {ms:.4f} ms (dX "
-              f"{dx_ms:.4f}) plain {plain_ms:.4f} ms matmul(x, W*mask) "
-              f"{lib_ms:.4f} ms bound {b_ms:.4f} ms ({b_by}) "
-              f"{'OK' if ok else 'FAIL'}")
-        del x, w, gy, wt, y, dx, poisoned, w_dense
+        row = dict(case=label, shape=[M, K, N], block=block, dtype=dname,
+                   route=route, density=mask.density, row_rel_err=rel,
+                   max_abs_err=err, tol=tol, nan_poison_ok=poison_ok, ok=ok,
+                   ms=ms, dx_ms=dx_ms, plain_ms=plain_ms, library_ms=lib_ms,
+                   bound_ms=b_ms, bound_by=b_by)
+        extra = ""
+        if route == "hopper":
+            row["tile_route_ms"] = cuda_ms(
+                lambda: bs._launch_mm(x, w, mask, None), iters=5)
+            row["boxes"] = mm_boxes(M, K, N, mask)
+            row["boxes_dx"] = mm_boxes(M, N, K, mask.transposed())
+            extra = (f" tile route {row['tile_route_ms']:.4f} ms; KC "
+                     f"{row['boxes']['kc']} BN {row['boxes']['bn']}, TMA "
+                     f"boxes {row['boxes']['tma_bytes'] / 1e6:.1f} MB "
+                     f"({row['boxes']['tma_bytes'] / ms / 1e9:.2f} TB/s), "
+                     f"dX {row['boxes_dx']['tma_bytes'] / 1e6:.1f} MB "
+                     f"({row['boxes_dx']['tma_bytes'] / dx_ms / 1e9:.2f} "
+                     f"TB/s)")
+        rows.append(row)
+        print(f"K9 block_sparse_mm {label:>12} {dname:>8} {route:>6} route "
+              f"row err y {rel['y']:.3e} dx {rel['dx']:.3e} (tol {tol:g}) "
+              f"NaN in dead tiles ignored: {poison_ok} | kernel {ms:.4f} ms "
+              f"(dX on W in place {dx_ms:.4f}) plain {plain_ms:.4f} ms "
+              f"matmul(x, W*mask) {lib_ms:.4f} ms bound {b_ms:.4f} ms "
+              f"({b_by}){extra} {'OK' if ok else 'FAIL'}")
+        del x, w, gy, y, dx, poisoned, w_dense
         torch.cuda.empty_cache()
     return rows
 
@@ -1615,6 +1686,7 @@ def matmul_entry(torch):
     x, w, gy, mask = mm_inputs(torch, *MM_SHAPE, MM_BLOCK, torch.bfloat16)
     xl, wl = x.clone().requires_grad_(), w.clone().requires_grad_()
     bs.LAUNCHES_MM.reset()
+    bs.LAUNCHES_MM_TILE.reset()
     t0 = time.perf_counter()
     outs = []
     for _ in range(3):
@@ -1623,7 +1695,7 @@ def matmul_entry(torch):
         outs.append((y.detach(), dx, dw))
     torch.cuda.synchronize()
     wall_s = time.perf_counter() - t0
-    launches = bs.LAUNCHES_MM.count
+    launches, tile = bs.LAUNCHES_MM.count, bs.LAUNCHES_MM_TILE.count
     live = bs._elementwise_weight_mask(mask, "cuda")
     dead_zero = all(not bool(o[2][~live].any()) for o in outs)
     same = all(torch.equal(o[0], outs[0][0]) and torch.equal(o[1], outs[0][1])
@@ -1631,16 +1703,18 @@ def matmul_entry(torch):
     y, dx, dw = outs[0]
     rel_y = row_rel_err(torch, y, bs._bs_mm_plain(x, w, mask))
     rel_dx = row_rel_err(torch, dx, bs._bs_mm_plain(
-        gy, w.t().contiguous(), mask.transposed()))
+        gy, w.t(), mask.transposed()))
     tol = ROW_TOL["bfloat16"]
     print(f"matmul path: block_sparse_matmul x {tuple(x.shape)} W "
           f"{tuple(w.shape)} bf16, {mask}: 3 forward+backward passes, "
-          f"{launches} K9 launches (want 6), dW zero on every dead tile: "
-          f"{dead_zero}, passes equal: {same}; row err y {rel_y:.3e} dx "
-          f"{rel_dx:.3e} (tol {tol:g}); {wall_s * 1e3:.1f} ms")
-    if launches != 6:
+          f"{launches} K9 launches (want 6), {tile} on the tile route (want "
+          f"0), dW zero on every dead tile: {dead_zero}, passes equal: "
+          f"{same}; row err y {rel_y:.3e} dx {rel_dx:.3e} (tol {tol:g}); "
+          f"{wall_s * 1e3:.1f} ms")
+    if launches != 6 or tile != 0:
         failures.append(f"block_sparse_matmul launched K9 {launches} times "
-                        f"in 3 passes, want 6")
+                        f"in 3 passes, {tile} on the tile route; want 6, all "
+                        f"on the Hopper route")
     if not (dead_zero and same and rel_y <= tol and rel_dx <= tol):
         failures.append(f"block_sparse_matmul: dead dW zero {dead_zero}, "
                         f"passes equal {same}, row err {rel_y:.3e} / "
@@ -1648,7 +1722,8 @@ def matmul_entry(torch):
     del x, w, gy, xl, wl, outs, y, dx, dw
     torch.cuda.empty_cache()
     return dict(shape=list(MM_SHAPE), block=MM_BLOCK, density=MM_DENSITY,
-                passes=3, launches=launches, dead_tile_dw_zero=dead_zero,
+                passes=3, launches=launches, tile_route_launches=tile,
+                dead_tile_dw_zero=dead_zero,
                 passes_equal=same, row_rel_err_y=rel_y,
                 row_rel_err_dx=rel_dx, wall_ms=wall_s * 1e3), failures
 
@@ -2171,9 +2246,10 @@ def main(argv=None) -> int:
           f"{triton_build_s:.1f} s")
 
     design_rows, design_failures = kernel_design(torch)
-    conv_design_rows, conv_design_failures = conv_design(torch)
-    design_rows += conv_design_rows
-    design_failures += conv_design_failures
+    for design in (conv_design, mm_design):
+        more_rows, more_failures = design(torch)
+        design_rows += more_rows
+        design_failures += more_failures
 
     out = REPO / "chiprun_out"
     out.mkdir(exist_ok=True)
@@ -2241,6 +2317,7 @@ def main(argv=None) -> int:
                 + trained["launches"][n] + bs_trained["launches"][n]
                 + resnet["launches"][n] for n in launch_counters()}
     launches["block_sparse_mm"] += mm_path["launches"]
+    launches["block_sparse_mm_tile"] += mm_path["tile_route_launches"]
     bs_row = bs_rows[0]
     rows = {"flash_fwd": dict(flash_rows[0]),
             "layer_norm_fwd": dict(ln_rows[0]),

@@ -636,6 +636,134 @@ def test_block_sparse_matmul_matches_pallas_interpret(shape):
     assert not gw.numpy()[~mask.elementwise()].any()
 
 
+def _strided(x, w, layout):
+    """(x, w) as torch tensors in ``layout``: W a ``.t()`` view of an
+    (N, K) tensor, x a column slice of a wider tensor, or both."""
+    xt, wt = torch.from_numpy(x), torch.from_numpy(w)
+    if layout in ("w_t_view", "both"):
+        wt = wt.t().contiguous().t()
+    if layout in ("x_column_slice", "both"):
+        wide = torch.zeros(x.shape[0], x.shape[1] + 12)
+        wide[:, 5:5 + x.shape[1]] = xt
+        xt = wide[:, 5:5 + x.shape[1]]
+    return xt, wt
+
+
+@pytest.mark.parametrize("layout", ["w_t_view", "x_column_slice", "both"])
+def test_block_sparse_matmul_strided_layouts_match_pallas_interpret(layout):
+    """A Linear-style weight stored (out, in) and viewed ``.t()``, and a
+    column slice of a wider x, give the JAX kernel's forward and both
+    gradients (the card reads them in place)."""
+    x, w, g, mask = _mm_case(21, 24, 128, 96, 32)
+    want = J.block_sparse_matmul(jnp.asarray(x), jnp.asarray(w), mask,
+                                 interpret=True)
+    jgx, jgw = jax.grad(lambda a, b: jnp.sum(J.block_sparse_matmul(
+        a, b, mask, interpret=True) * jnp.asarray(g)), argnums=(0, 1))(
+        jnp.asarray(x), jnp.asarray(w))
+    xt, wt = _strided(x, w, layout)
+    assert not (xt.is_contiguous() and wt.is_contiguous())
+    xt.requires_grad_()
+    wt.requires_grad_()
+    y = P.block_sparse_matmul(xt, wt, _port(mask))
+    gx, gw = torch.autograd.grad(y, (xt, wt), torch.from_numpy(g))
+    np.testing.assert_allclose(y.detach().numpy(), np.asarray(want), **TOL)
+    np.testing.assert_allclose(gx.numpy(), np.asarray(jgx), **GRAD_TOL)
+    np.testing.assert_allclose(gw.numpy(), np.asarray(jgw), **GRAD_TOL)
+
+
+@pytest.mark.parametrize("dtype,bk,bn,want", [
+    (torch.bfloat16, 128, 128, (64, 128)),   # the flagship MLP's blocks
+    (torch.bfloat16, 32, 32, (32, 32)),
+    (torch.bfloat16, 64, 32, (64, 32)),
+    (torch.bfloat16, 16, 16, (16, 16)),
+    (torch.bfloat16, 48, 80, (16, 16)),      # KC and BN divide the blocks
+    (torch.bfloat16, 96, 192, (32, 64)),
+    (torch.bfloat16, 256, 512, (64, 128)),
+    (torch.bfloat16, 24, 100, None),         # blocks not multiples of 16
+    (torch.bfloat16, 128, 8, None),
+    (torch.float32, 128, 128, None),         # wgmma has no full-f32 product
+])
+def test_mm_plan_picks_the_route_and_tiles(dtype, bk, bn, want):
+    """K9's route by shape: (KC, BN) on the Hopper route, None on the
+    tile route."""
+    assert P._mm_plan(dtype, bk, bn) == want
+
+
+def _record_mm(monkeypatch):
+    """Record each K9 launch's pointers and ints instead of running it."""
+    calls = []
+    monkeypatch.setattr(P, "_mm_call",
+                        lambda ptrs, ints, device: calls.append((ptrs, ints)))
+    return calls
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_bs_mm_autograd_reads_w_in_place(monkeypatch, dtype):
+    """The forward launches K9 on W as it stands (MN-major) and dX on
+    W's own bytes read K-major: no transposed copy of W; a W stored
+    (N, K) and viewed ``.t()`` is read K-major in the forward and
+    MN-major in dX.  The launches are recorded on CPU tensors, not
+    run."""
+    calls = _record_mm(monkeypatch)
+    monkeypatch.setattr(P, "on_cpu", lambda *t: False)
+    mask = P.magnitude_block_mask(np.random.RandomState(3).randn(128, 96),
+                                  32, 32, 0.5)
+    x = torch.randn(24, 128, dtype=dtype, requires_grad=True)
+    route = (0, 0) if dtype == torch.float32 else (32, 32)
+    for w, fwd_kmajor in ((torch.randn(128, 96, dtype=dtype), 0),
+                          (torch.randn(96, 128, dtype=dtype).t(), 1)):
+        calls.clear()
+        w.requires_grad_()
+        before = (P.LAUNCHES_MM.count, P.LAUNCHES_MM_TILE.count)
+        y = P.block_sparse_matmul(x, w, mask)
+        torch.autograd.grad(y, (x, w), torch.ones_like(y))
+        assert (P.LAUNCHES_MM.count - before[0],
+                P.LAUNCHES_MM_TILE.count - before[1]) == (
+                    2, 2 if dtype == torch.float32 else 0)
+        (fwd_ptrs, fwd_ints), (dx_ptrs, dx_ints) = calls
+        assert fwd_ptrs[0] == x.data_ptr() and fwd_ptrs[1] == w.data_ptr()
+        assert dx_ptrs[1] == w.data_ptr()          # W in place, no copy
+        pitch = max(w.stride())
+        # ints: L, M, K, N, bk, bn, ldx, ldw, kmajor, kc, bn_tile, dtype
+        assert fwd_ints[1:4] == [24, 128, 96] and dx_ints[1:4] == [24, 96, 128]
+        assert fwd_ints[6:] == [128, pitch, fwd_kmajor, *route,
+                                P._DTYPE_CODE[dtype]]
+        assert dx_ints[6:] == [96, pitch, 1 - fwd_kmajor, *route,
+                               P._DTYPE_CODE[dtype]]
+
+
+def test_bs_mm_copies_only_what_its_route_cannot_read(monkeypatch):
+    """x and W are read in place where their rows are contiguous: a
+    column slice of x keeps its row pitch.  The Hopper route (TMA) copies
+    an x whose start is not 16-byte aligned or whose row pitch is not a
+    multiple of 8 elements; the tile route reads it as it stands.  A W
+    with neither dim contiguous is copied on either route."""
+    calls = _record_mm(monkeypatch)
+    mask = P.BlockMask(np.ones((2, 2), bool), 32, 32)
+    w = torch.zeros(64, 64, dtype=torch.bfloat16)
+
+    def cols(pitch, start):   # columns start .. start + 63 of (8, pitch)
+        return torch.zeros(8, pitch, dtype=torch.bfloat16)[:, start:start + 64]
+
+    # (x, route, copied, row pitch K9 gets)
+    for x, plan, copied, ldx in ((cols(104, 8), (32, 32), False, 104),
+                                 (cols(100, 8), (32, 32), True, 64),
+                                 (cols(72, 1), (32, 32), True, 64),
+                                 (cols(72, 1), None, False, 72),
+                                 (cols(100, 8), None, False, 100)):
+        calls.clear()
+        P._launch_mm(x, w, mask, plan)
+        ptrs, ints = calls[0]
+        assert (ptrs[0] != x.data_ptr()) == copied
+        assert ints[6] == ldx
+    calls.clear()
+    w_strided = torch.zeros(128, 128, dtype=torch.bfloat16)[::2, ::2]
+    P._launch_mm(torch.zeros(8, 64, dtype=torch.bfloat16), w_strided, mask,
+                 (32, 32))
+    ptrs, ints = calls[0]
+    assert ptrs[1] != w_strided.data_ptr() and ints[7:9] == [64, 0]
+
+
 def test_block_sparse_matmul_ignores_nan_in_dead_tiles():
     x, w, _, mask = _mm_case(9, 8, 64, 64, 32)
     clean = P.block_sparse_matmul(torch.from_numpy(x), torch.from_numpy(w),

@@ -743,41 +743,137 @@ def test_block_sparse_autograd_runs_k6_to_k8(cuda_device):
         assert (a - b).abs().max().item() <= 1e-4 * b.abs().max().item()
 
 
-# (M, K, N, bk, bn, dtype): 16-byte loads (the flagship MLP shape cut in
-# M, the lab shape, ragged M, block 32) and scalar loads (bn 100 in
-# bf16, bk 6 in f32)
+# (M, K, N, bk, bn, dtype, route).  The Hopper route (bf16, blocks that
+# are multiples of 16): the flagship MLP shape cut in M, ragged M, M a
+# multiple of 128 and not, bk/bn of 64, 32 and 16 (KC and BN 16 at 48),
+# K and N 8-multiples that are not 64-multiples, one row.  The tile route:
+# f32 (the MLP shape, the lab shape, block 32) and bf16 blocks that are
+# not multiples of 16, with 16-byte loads and scalar ones (bn 100, bk 6).
 MM_CASES = {
-    "mlp_bf16": (512, 1024, 4096, 128, 128, torch.bfloat16),
-    "mlp_f32": (256, 1024, 4096, 128, 128, torch.float32),
-    "lab_f32": (64, 1024, 1024, 512, 512, torch.float32),
-    "ragged_M100": (100, 256, 192, 32, 32, torch.bfloat16),
-    "block32_f32": (96, 128, 64, 32, 32, torch.float32),
-    "bn100_bf16": (70, 96, 200, 24, 100, torch.bfloat16),
-    "bk6_f32": (33, 96, 60, 6, 20, torch.float32),
+    "mlp_bf16": (512, 1024, 4096, 128, 128, torch.bfloat16, "hopper"),
+    "ragged_M100": (100, 256, 192, 32, 32, torch.bfloat16, "hopper"),
+    "m256_b64": (256, 512, 384, 64, 64, torch.bfloat16, "hopper"),
+    "m200_b16": (200, 160, 240, 16, 16, torch.bfloat16, "hopper"),
+    "m129_b64x32": (129, 192, 160, 64, 32, torch.bfloat16, "hopper"),
+    "m64_b48": (64, 144, 96, 48, 48, torch.bfloat16, "hopper"),
+    "m1_b16": (1, 64, 64, 16, 16, torch.bfloat16, "hopper"),
+    "mlp_f32": (256, 1024, 4096, 128, 128, torch.float32, "tile"),
+    "lab_f32": (64, 1024, 1024, 512, 512, torch.float32, "tile"),
+    "block32_f32": (96, 128, 64, 32, 32, torch.float32, "tile"),
+    "bn100_bf16": (70, 96, 200, 24, 100, torch.bfloat16, "tile"),
+    "bk6_f32": (33, 96, 60, 6, 20, torch.float32, "tile"),
 }
+
+
+def _mm_launches():
+    return bs.LAUNCHES_MM.count, bs.LAUNCHES_MM_TILE.count
+
+
+def _check_mm_on_card(x, w, gy, mask, route):
+    """block_sparse_matmul under autograd on (x, w), as they are laid
+    out: forward and dX row by row against the plain version on
+    contiguous copies, dW zero on every dead tile, 2 launches on
+    ``route``."""
+    xl, wl = x.detach().requires_grad_(), w.detach().requires_grad_()
+    before = _mm_launches()
+    y = bs.block_sparse_matmul(xl, wl, mask)
+    dx, dw = torch.autograd.grad(y, (xl, wl), gy)
+    torch.cuda.synchronize()
+    launches, tile = (a - b for a, b in zip(_mm_launches(), before))
+    assert (launches, tile) == (2, 2 if route == "tile" else 0)
+    dtype = x.dtype
+    assert y.dtype == dtype and dx.dtype == dtype and dw.dtype == dtype
+    tol = ROW_TOL[dtype]
+    xc, wc = x.contiguous(), w.contiguous()
+    assert _row_rel_err(y, bs._bs_mm_plain(xc, wc, mask)) <= tol
+    want_dx = bs._bs_mm_plain(gy, wc.t().contiguous(), mask.transposed())
+    assert _row_rel_err(dx, want_dx) <= tol
+    live = torch.from_numpy(mask.elementwise()).to(x.device)
+    assert not dw[~live].any()
+    return y, dx
 
 
 @pytest.mark.parametrize("case", sorted(MM_CASES))
 def test_block_sparse_matmul_kernel_matches_plain_on_card(cuda_device, case):
-    M, K, N, bk, bn, dtype = MM_CASES[case]
+    M, K, N, bk, bn, dtype, route = MM_CASES[case]
     g = torch.Generator(device=cuda_device).manual_seed(10)
     x = torch.randn(M, K, device=cuda_device, generator=g).to(dtype)
     w = (0.05 * torch.randn(K, N, device=cuda_device, generator=g)).to(dtype)
     gy = torch.randn(M, N, device=cuda_device, generator=g).to(dtype)
     mask = bs.magnitude_block_mask(w, bk, bn, 0.5)
-    xl, wl = x.clone().requires_grad_(), w.clone().requires_grad_()
-    before = bs.LAUNCHES_MM.count
-    y = bs.block_sparse_matmul(xl, wl, mask)
-    dx, dw = torch.autograd.grad(y, (xl, wl), gy)
-    torch.cuda.synchronize()
-    assert bs.LAUNCHES_MM.count == before + 2   # forward, then dX
-    assert y.dtype == dtype and dx.dtype == dtype and dw.dtype == dtype
-    tol = ROW_TOL[dtype]
-    assert _row_rel_err(y, bs._bs_mm_plain(x, w, mask)) <= tol
-    want_dx = bs._bs_mm_plain(gy, w.t().contiguous(), mask.transposed())
-    assert _row_rel_err(dx, want_dx) <= tol
-    live = torch.from_numpy(mask.elementwise()).to(cuda_device)
-    assert not dw[~live].any()
+    _check_mm_on_card(x, w, gy, mask, route)
+
+
+def test_block_sparse_matmul_dead_column_block_writes_zeros_on_card(
+        cuda_device):
+    """An output column block with no live K block is exactly zero, in
+    the forward (a dead column of the mask) and in dX (a dead row)."""
+    g = torch.Generator(device=cuda_device).manual_seed(12)
+    m = np.random.RandomState(12).rand(4, 4) < 0.6
+    m[:, 1] = False
+    m[2, :] = False
+    mask = bs.BlockMask(m, 64, 64)
+    x = torch.randn(200, 256, device=cuda_device, generator=g).bfloat16()
+    w = (0.05 * torch.randn(256, 256, device=cuda_device, generator=g)
+         ).bfloat16()
+    gy = torch.randn(200, 256, device=cuda_device, generator=g).bfloat16()
+    y, dx = _check_mm_on_card(x, w, gy, mask, "hopper")
+    assert not y[:, 64:128].any() and not dx[:, 128:192].any()
+
+
+# the layouts of the reference's any-layout block_sparse_matmul
+# (bigdl_tpu/ops/block_sparse.py:708-742): (M, K, N, block, dtype, route)
+# and how x and W are laid out
+MM_LAYOUTS = {
+    "w_t_view_bf16": (300, 1024, 512, 128, torch.bfloat16, "hopper",
+                      "w_t_view"),
+    "w_t_view_f32": (70, 256, 192, 32, torch.float32, "tile", "w_t_view"),
+    "x_column_slice": (300, 1024, 512, 128, torch.bfloat16, "hopper",
+                       "x_column_slice"),
+    "x_misaligned_columns": (130, 256, 192, 32, torch.bfloat16, "hopper",
+                             "x_misaligned_columns"),
+    "x_misaligned_rows_k100": (71, 100, 60, 20, torch.bfloat16, "tile",
+                               "x_rows_from_1"),
+    "x_rows_from_1_hopper": (129, 256, 192, 32, torch.bfloat16, "hopper",
+                             "x_rows_from_1"),
+}
+
+
+@pytest.mark.parametrize("case", sorted(MM_LAYOUTS))
+def test_block_sparse_matmul_takes_any_layout_on_card(cuda_device, case):
+    """W as a ``.t()`` view of an (N, K) tensor (a Linear-style weight),
+    x as a column slice of a wider tensor (16-byte aligned or not) or as
+    a row slice starting one row in (not 16-byte aligned at K 100 in
+    bf16) each equal the plain version on contiguous copies."""
+    M, K, N, block, dtype, route, layout = MM_LAYOUTS[case]
+    g = torch.Generator(device=cuda_device).manual_seed(14)
+    x = torch.randn(M + 1, K + 24, device=cuda_device, generator=g).to(dtype)
+    w = (0.05 * torch.randn(N, K, device=cuda_device, generator=g)).to(dtype)
+    gy = torch.randn(M, N, device=cuda_device, generator=g).to(dtype)
+    if layout == "w_t_view":
+        x, w = x[:M, :K].contiguous(), w.t()
+    else:
+        w = w.t().contiguous()
+        x = {"x_column_slice": x[:M, 8:8 + K],
+             "x_misaligned_columns": x[:M, 1:1 + K],
+             "x_rows_from_1": x[:, :K].contiguous()[1:]}[layout]
+    mask = bs.magnitude_block_mask(w.float().cpu(), block, block, 0.5)
+    _check_mm_on_card(x, w, gy, mask, route)
+
+
+@pytest.mark.parametrize("dtype,route", [(torch.bfloat16, "hopper"),
+                                         (torch.float32, "tile")])
+def test_block_sparse_matmul_more_column_tiles_than_a_grid_axis_on_card(
+        cuda_device, dtype, route):
+    """N / bn above 65535 at a tiny K: the grid is 1-D."""
+    bk = 16 if dtype == torch.bfloat16 else 8
+    K, N = bk, bk * 66000
+    g = torch.Generator(device=cuda_device).manual_seed(15)
+    x = torch.randn(8, K, device=cuda_device, generator=g).to(dtype)
+    w = (0.1 * torch.randn(K, N, device=cuda_device, generator=g)).to(dtype)
+    gy = torch.randn(8, N, device=cuda_device, generator=g).to(dtype)
+    mask = bs.magnitude_block_mask(w.float().cpu(), bk, bk, 0.5)
+    _check_mm_on_card(x, w, gy, mask, route)
 
 
 def test_block_sparse_matmul_never_reads_dead_tiles_on_card(cuda_device):
@@ -789,6 +885,29 @@ def test_block_sparse_matmul_never_reads_dead_tiles_on_card(cuda_device):
     clean = bs._bs_mm_cuda(x, w, mask)
     poisoned = bs._bs_mm_cuda(x, w.masked_fill(~live, float("nan")), mask)
     assert torch.isfinite(poisoned).all() and torch.equal(poisoned, clean)
+
+
+@pytest.mark.parametrize("w_layout", ["mn_major", "k_major"])
+def test_block_sparse_matmul_hopper_route_never_reads_dead_tiles_on_card(
+        cuda_device, w_layout):
+    """The same on the Hopper route, W read MN-major (the forward's W) and
+    K-major (dX's Wᵀ): NaN in every dead W tile leaves the output
+    bit-identical, and two calls give equal bits."""
+    g = torch.Generator(device=cuda_device).manual_seed(11)
+    x = torch.randn(100, 256, device=cuda_device, generator=g).bfloat16()
+    w = torch.randn(256, 192, device=cuda_device, generator=g).bfloat16()
+    mask = bs.magnitude_block_mask(w, 32, 64, 0.5)
+    live = torch.from_numpy(mask.elementwise()).to(cuda_device)
+    poisoned = w.masked_fill(~live, float("nan"))
+    if w_layout == "k_major":
+        w, poisoned = w.t().contiguous().t(), poisoned.t().contiguous().t()
+    before = _mm_launches()
+    clean = bs._bs_mm_cuda(x, w, mask)
+    dirty = bs._bs_mm_cuda(x, poisoned, mask)
+    again = bs._bs_mm_cuda(x, w, mask)
+    assert _mm_launches() == (before[0] + 3, before[1])
+    assert torch.isfinite(dirty.float()).all()
+    assert torch.equal(dirty, clean) and torch.equal(again, clean)
 
 
 def test_small_blocksparse_lm_trains_on_card_like_cpu(cuda_device):

@@ -1,7 +1,7 @@
 """Guards of the PyTorch/CUDA port (bigdl_tpu_torch).
 
-* The port and ``chip_smoke.py`` import neither jax/jaxlib nor anything
-  of the JAX package.  The scan is static (an AST walk of the sources):
+* The port, ``chip_smoke.py`` and ``k9_variants.py`` import neither
+  jax/jaxlib nor anything of the JAX package.  The scan is static (an AST walk of the sources):
   the interpreter that runs the tests may already hold jax, so an
   import-time check could not tell.
 * The default device is the GPU: with no CUDA device an entry point
@@ -22,7 +22,7 @@ FORBIDDEN = ("jax", "jaxlib", "bigdl_tpu")
 
 def _port_sources():
     files = sorted((REPO / "bigdl_tpu_torch").rglob("*.py"))
-    return files + [REPO / "chip_smoke.py"]
+    return files + [REPO / "chip_smoke.py", REPO / "k9_variants.py"]
 
 
 def forbidden_imports(source: str):
