@@ -154,8 +154,7 @@ def _decode_machinery(model, first, count, T_max):
         vc[:, :, pos:pos + Tq] = v
         if pos == 0:
             # prefill: causal attention over the PROMPT only (K1)
-            o = flash_attention(q.contiguous(), _rep(k).contiguous(),
-                                _rep(v).contiguous(), causal=True)
+            o = flash_attention(q, _rep(k), _rep(v), causal=True)
         else:
             o = _gqa_attend(q, kc, vc, pos, H, Hkv, Dh)
         o = o.transpose(1, 2).reshape(B, Tq, H * Dh)

@@ -139,11 +139,10 @@ class MultiHeadAttention(TensorModule):
     def _attend(self, q, k, v):
         if self.seq_strategy == "blocksparse":
             return block_sparse_attention(
-                q.contiguous(), k.contiguous(), v.contiguous(),
-                self.block_mask(q.shape[2], k.shape[2]), causal=self.causal)
+                q, k, v, self.block_mask(q.shape[2], k.shape[2]),
+                causal=self.causal)
         if self.seq_strategy == "flash":
-            return flash_attention(q.contiguous(), k.contiguous(),
-                                   v.contiguous(), causal=self.causal)
+            return flash_attention(q, k, v, causal=self.causal)
         return attention(q, k, v, causal=self.causal)
 
     def _compute(self, params, x):

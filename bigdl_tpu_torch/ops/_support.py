@@ -1,4 +1,4 @@
-"""What the kernel wrappers share: launch counters, the device checks
+"""What the kernel wrappers share: launch counters, the device check
 and the build of the CUDA C++ sources.
 
 CUDA sources under ``ops/csrc/`` are compiled with ``nvcc`` for
@@ -66,15 +66,6 @@ def on_cpu(*tensors: torch.Tensor) -> bool:
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
     return False
-
-
-def check_cuda_input(what: str, t: torch.Tensor, dtypes):
-    if t.dtype not in dtypes:
-        raise TypeError(f"{what}: dtype {t.dtype} not in {dtypes}")
-    if not t.is_contiguous():
-        raise ValueError(f"{what}: input must be contiguous")
-    if t.data_ptr() % 16:
-        raise ValueError(f"{what}: input must be 16-byte aligned")
 
 
 _LIBS: Dict[str, ctypes.CDLL] = {}

@@ -44,7 +44,6 @@ either orientation, so dX reads W in place.
 """
 from __future__ import annotations
 
-import ctypes
 import math
 from collections import OrderedDict
 from typing import Optional, Tuple
@@ -52,12 +51,14 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from ._support import LaunchCounter, check_cuda_input, load_cuda_library, on_cpu
-from .flash_attention import (_DTYPE_CODE, HEADS, _attn_bwd_plain,
-                              _attn_plain, _bwd_inputs, _causal_keep,
-                              _check_kernel_inputs, _cut_head_dim,
-                              _launch_heads, _pad_head_dim, _padded_head_dim,
-                              _stream, _wide, _wide_dkv, _wide_dq, _wide_fwd)
+from ._support import LaunchCounter, on_cpu
+from .flash_attention import (_DTYPE_CODE, _F, _I, _P, FIRST_HEAD, HEADS,
+                              _attn_bwd_plain, _attn_plain, _bwd_inputs,
+                              _c_fn, _call, _causal_keep, _check_kernel_inputs,
+                              _check_lse, _cut_head_dim, _dq_wide, _empty,
+                              _kernel_operands, _launch_heads, _pad_head_dim,
+                              _padded_head_dim, _strides_arg, _wide,
+                              _wide_dkv, _wide_dq, _wide_fwd)
 
 __all__ = ["BlockMask", "block_sparse_attention", "block_sparse_matmul",
            "sliding_window_mask", "strided_mask", "magnitude_block_mask",
@@ -346,22 +347,25 @@ def _tile_lists(visited: np.ndarray, partial: np.ndarray):
     return tiles, flags, counts
 
 
-def _block_lists(visited: np.ndarray, partial: np.ndarray, live) -> dict:
-    """The bf16 K6-K8 sweep of each block of 128 own rows, from the 64-row
-    tile tables ``visited`` and ``partial`` ((own tiles, streamed tiles)
-    bool): the ascending union of its two tiles' lists, a flag byte per
-    entry (bit w: own tile w visits the streamed tile; bit 2 + w: that
-    pair is partial), at an entry with a partial pair the streamed rows
-    some row of the block attends (``live(b, j)``, 64 bools, as bits of a
-    uint64 held in an int64), the count, and the blocks ordered by count,
-    largest first (stable).  Arrays: tiles int32, flags uint8, rows int64
-    (blocks, L); counts, order int32 (blocks,)."""
+def _block_lists(visited: np.ndarray, partial: np.ndarray, live,
+                 per_block: int = 2) -> dict:
+    """The bf16 K6-K8 sweep of each block of ``per_block`` 64-row own
+    tiles (2: 128 own rows; 1: K7's 64-row blocks at head dims 192 and
+    256), from the tile tables ``visited`` and ``partial`` ((own tiles,
+    streamed tiles) bool): the ascending union of its tiles' lists, a flag
+    byte per entry (bit w: own tile w visits the streamed tile; bit 2 + w:
+    that pair is partial), at an entry with a partial pair the streamed
+    rows some row of the block attends (``live(b, j)``, 64 bools, as bits
+    of a uint64 held in an int64), the count, and the blocks ordered by
+    count, largest first (stable).  Arrays: tiles int32, flags uint8,
+    rows int64 (blocks, L); counts, order int32 (blocks,)."""
     n_own, n_other = visited.shape
-    nb = -(-n_own // 2)
-    v = np.zeros((2 * nb, n_other), bool)
-    p = np.zeros((2 * nb, n_other), bool)
+    nb = -(-n_own // per_block)
+    v = np.zeros((per_block * nb, n_other), bool)
+    p = np.zeros((per_block * nb, n_other), bool)
     v[:n_own], p[:n_own] = visited, partial
-    v, p = v.reshape(nb, 2, n_other), p.reshape(nb, 2, n_other)
+    v = v.reshape(nb, per_block, n_other)
+    p = p.reshape(nb, per_block, n_other)
     union = v.any(axis=1)
     counts = union.sum(axis=1).astype(np.int32)
     L = max(1, int(counts.max()) if nb else 1)
@@ -371,8 +375,10 @@ def _block_lists(visited: np.ndarray, partial: np.ndarray, live) -> dict:
     bits = np.left_shift(np.uint64(1), np.arange(64, dtype=np.uint64))
     for b in range(nb):
         idx = np.nonzero(union[b])[0]
-        f = (v[b, 0, idx] | (v[b, 1, idx] << 1) | (p[b, 0, idx] << 2)
-             | (p[b, 1, idx] << 3))
+        f = np.zeros(idx.size, np.uint8)
+        for w in range(per_block):
+            f |= (v[b, w, idx].astype(np.uint8) << w) \
+                | (p[b, w, idx].astype(np.uint8) << (2 + w))
         tiles[b, :idx.size] = idx
         flags[b, :idx.size] = f
         for e in np.nonzero(f & 12)[0]:
@@ -383,26 +389,36 @@ def _block_lists(visited: np.ndarray, partial: np.ndarray, live) -> dict:
                 counts=counts, order=order)
 
 
-def _block_tables(mask: BlockMask, causal: bool, visited: np.ndarray,
-                  partial: np.ndarray):
-    """``_block_lists`` for K6 and K8 (own query blocks, streamed key
-    tiles) and for K7 (own key blocks, streamed query tiles)."""
+def _own_lists(mask: BlockMask, causal: bool, visited: np.ndarray,
+               partial: np.ndarray, own_queries: bool, rows: int) -> dict:
+    """``_block_lists`` over blocks of ``rows`` own rows (128, or 64):
+    own query rows and streamed key tiles (K6, K8), or own key rows and
+    streamed query tiles (K7)."""
     run = _runtime_mask(mask, causal).mask
     bq, bk = mask.block_q, mask.block_k
     T, S = run.shape[0] * bq, run.shape[1] * bk
 
     def live_keys(b, j):    # keys of tile j some query of block b attends
-        return _keep_sub(run, bq, bk, causal, b * BLOCK_ROWS,
-                         min((b + 1) * BLOCK_ROWS, T), j * TILE,
+        return _keep_sub(run, bq, bk, causal, b * rows,
+                         min((b + 1) * rows, T), j * TILE,
                          min((j + 1) * TILE, S)).any(axis=0)
 
     def live_queries(b, j):   # queries of tile j that attend a key of block b
         return _keep_sub(run, bq, bk, causal, j * TILE, min((j + 1) * TILE, T),
-                         b * BLOCK_ROWS, min((b + 1) * BLOCK_ROWS, S)
-                         ).any(axis=1)
+                         b * rows, min((b + 1) * rows, S)).any(axis=1)
 
-    return (_block_lists(visited, partial, live_keys),
-            _block_lists(visited.T, partial.T, live_queries))
+    if own_queries:
+        return _block_lists(visited, partial, live_keys, rows // TILE)
+    return _block_lists(visited.T, partial.T, live_queries, rows // TILE)
+
+
+def _block_tables(mask: BlockMask, causal: bool, visited: np.ndarray,
+                  partial: np.ndarray):
+    """``_block_lists`` of 128-row blocks for K6 and K8 (own query
+    blocks, streamed key tiles) and for K7 (own key blocks, streamed
+    query tiles)."""
+    return (_own_lists(mask, causal, visited, partial, True, BLOCK_ROWS),
+            _own_lists(mask, causal, visited, partial, False, BLOCK_ROWS))
 
 
 class _LRU(OrderedDict):
@@ -435,20 +451,22 @@ def _attention_tables(mask: BlockMask, causal: bool, device):
     """The kernels' tables on ``device``, built once per (mask, causal,
     device): the 64-row tile lists of the f32 K6 and K8 (per q tile) and
     of the f32 K7 (per k tile), the 128-row block lists of the bf16 K6
-    and K8 (``dq_blocks``) and K7 (``dkv_blocks``), and the runtime block
-    mask (uint8) for partial pairs and the wide route."""
+    and K8 (``dq_blocks``) and K7 (``dkv_blocks``), the 64-row block lists
+    of the bf16 K7 at head dims 192 and 256 (``dkv_tiles``), and the
+    runtime block mask (uint8) for partial pairs and the wide route."""
     def make():
         visited, partial = _tile_tables(mask, causal)
         fwd = _tile_lists(visited, partial)
         dkv = _tile_lists(visited.T, partial.T)
         dq_blocks, dkv_blocks = _block_tables(mask, causal, visited, partial)
+        dkv_tiles = _own_lists(mask, causal, visited, partial, False, TILE)
         run = _runtime_mask(mask, causal).mask.astype(np.uint8)
+        lists = dict(dq_blocks=dq_blocks, dkv_blocks=dkv_blocks,
+                     dkv_tiles=dkv_tiles)
         return dict(fwd=tuple(_to_device(a, device) for a in fwd),
                     dkv=tuple(_to_device(a, device) for a in dkv),
-                    dq_blocks={n: _to_device(a, device)
-                               for n, a in dq_blocks.items()},
-                    dkv_blocks={n: _to_device(a, device)
-                                for n, a in dkv_blocks.items()},
+                    **{k: {n: _to_device(a, device) for n, a in t.items()}
+                       for k, t in lists.items()},
                     block_mask=_to_device(run, device),
                     visited=int(visited.sum()), partial=int(partial.sum()))
 
@@ -523,11 +541,8 @@ def _bs_bwd_plain(q, k, v, o, lse, d_o, mask: BlockMask, causal: bool,
 
 
 def _attn_fn(name: str, n_ptr: int):
-    fn = getattr(load_cuda_library("block_sparse"), name)
-    fn.argtypes = [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * 9 + [
-        ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return fn
+    return _c_fn("block_sparse", name, [_P] * n_ptr + [_I] * 4 + [_P]
+                 + [_I] * 7 + [_F, _I, _P])
 
 
 def _query_tables(dtype: torch.dtype) -> str:
@@ -537,12 +552,22 @@ def _query_tables(dtype: torch.dtype) -> str:
     return "dq_blocks" if dtype == torch.bfloat16 else "fwd"
 
 
-def _table_args(tab, which: str, mask: BlockMask, q, k):
-    """The table pointers and ints of a launch: in f32 the 64-row tile
-    lists (``fwd``, ``dkv``: tiles, counts, partial flags), in bf16 the
-    128-row block lists (``dq_blocks``, ``dkv_blocks``: tiles, counts,
-    flags, order, rows); then the block mask, L, the mask's shape and the
-    problem's."""
+def _key_tables(dtype: torch.dtype, D: int) -> str:
+    """The ``_attention_tables`` entry that K7 sweeps (own key rows,
+    streamed query tiles): in bf16 the 128-row block lists, or the 64-row
+    ones of its 64-row blocks at head dims above 128; the 64-row tile
+    lists in f32."""
+    if dtype != torch.bfloat16:
+        return "dkv"
+    return "dkv_blocks" if D <= 128 else "dkv_tiles"
+
+
+def _table_args(tab, which: str, mask: BlockMask, q, k, operands):
+    """The arguments of a launch after its tensors' pointers: the tables
+    (in f32 the 64-row tile lists ``fwd``, ``dkv``: tiles, counts,
+    partial flags; in bf16 the block lists: tiles, counts, flags, order,
+    rows), the block mask, L, the mask's shape, the operands' strides,
+    then the problem's ints."""
     t = tab[which]
     if isinstance(t, dict):
         tiles, counts, flags = t["tiles"], t["counts"], t["flags"]
@@ -550,11 +575,11 @@ def _table_args(tab, which: str, mask: BlockMask, q, k):
     else:
         (tiles, flags, counts), extra = t, [None, None]
     B, H, T, D = q.shape
-    ptrs = [tiles.data_ptr(), counts.data_ptr(), flags.data_ptr(),
-            tab["block_mask"].data_ptr()]
-    ints = [tiles.shape[1], mask.mask.shape[1], mask.block_q, mask.block_k,
-            HEADS, T, k.shape[2], D, _DTYPE_CODE[q.dtype]]
-    return ptrs, extra, ints
+    return [tiles.data_ptr(), counts.data_ptr(), flags.data_ptr(),
+            tab["block_mask"].data_ptr(), *extra, tiles.shape[1],
+            mask.mask.shape[1], mask.block_q, mask.block_k,
+            _strides_arg(*operands), H, FIRST_HEAD, HEADS, T, k.shape[2], D,
+            _DTYPE_CODE[q.dtype]]
 
 
 def _wide_block_mask(tab, mask: BlockMask):
@@ -565,59 +590,68 @@ def _wide_block_mask(tab, mask: BlockMask):
 def _bs_fwd_cuda(q, k, v, mask: BlockMask, causal: bool, sm_scale: float
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Launch K6 on the current stream of q's device (a head dim between
-    the built ones zero-padded, O cut back; above 128 the wide route)."""
+    the built ones zero-padded, O cut back; above them the wide route).
+    bf16 q, k and v are read at their strides, f32 contiguous."""
     _check_kernel_inputs("block_sparse_attention", q, k, v)
     tab = _attention_tables(mask, causal, q.device)
     D_true = q.shape[-1]
-    if _wide(D_true):
+    Dp = _padded_head_dim(D_true, q.dtype)
+    if _wide(Dp, q.dtype):
         return _wide_fwd(q, k, v, causal, sm_scale, LAUNCHES,
                          _wide_block_mask(tab, mask))
-    Dp = _padded_head_dim(D_true)
-    q, k, v = (_pad_head_dim(t, Dp) for t in (q, k, v))
+    q, k, v = _kernel_operands(*(_pad_head_dim(t, Dp) for t in (q, k, v)),
+                               tma=q.dtype == torch.bfloat16)
     B, H, T, D = q.shape
-    ptrs, extra, ints = _table_args(tab, _query_tables(q.dtype), mask, q, k)
-    o = torch.empty_like(q)
-    lse = torch.empty((B * H, 1, T), dtype=torch.float32, device=q.device)
+    o = _empty(q)
+    lse = _empty(q, (B * H, 1, T), torch.float32)
     _launch_heads("block_sparse_fwd", (LAUNCHES,), _attn_fn("bigdl_bs_fwd", 11),
-                  [q, k, v, o, lse],
-                  [*ptrs, *extra, *ints, float(sm_scale), int(bool(causal))],
-                  B * H)
+                  [*(t.data_ptr() for t in (q, k, v, o, lse)),
+                   *_table_args(tab, _query_tables(q.dtype), mask, q, k,
+                                (q, k, v)),
+                   float(sm_scale), int(bool(causal))], B * H, q.device)
     return _cut_head_dim(o, D_true), lse
 
 
 def _launch_bs_dkv(q, k, v, do, lse, delta, mask: BlockMask, causal: bool,
                    sm_scale: float) -> Tuple[torch.Tensor, torch.Tensor]:
     """Launch K7 over prepared inputs (dO in q's dtype, delta (B*H, T)
-    f32).  Every k tile writes its rows, zeros where no query reads."""
+    f32; read as ``_launch_dkv`` reads them).  Every k tile writes its
+    rows, zeros where no query reads."""
     tab = _attention_tables(mask, causal, q.device)
-    if _wide(q.shape[-1]):
+    B, H, T, D = q.shape
+    if _wide(D, q.dtype):
         return _wide_dkv(q, k, v, do, lse, delta, causal, sm_scale,
                          LAUNCHES_DKV, _wide_block_mask(tab, mask))
-    which = "dkv_blocks" if q.dtype == torch.bfloat16 else "dkv"
-    ptrs, extra, ints = _table_args(tab, which, mask, q, k)
-    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    q, k, v, do = _kernel_operands(q, k, v, do,
+                                   tma=q.dtype == torch.bfloat16)
+    dk, dv = _empty(k), _empty(v)
     _launch_heads("block_sparse_bwd_dkv", (LAUNCHES_DKV,),
                   _attn_fn("bigdl_bs_bwd_dkv", 14),
-                  [q, k, v, do, lse, delta, dk, dv],
-                  [*ptrs, *extra, *ints, float(sm_scale), int(bool(causal))],
-                  q.shape[0] * q.shape[1])
+                  [*(t.data_ptr() for t in (q, k, v, do, lse, delta, dk, dv)),
+                   *_table_args(tab, _key_tables(q.dtype, D), mask, q, k,
+                                (q, k, v, do)),
+                   float(sm_scale), int(bool(causal))], B * H, q.device)
     return dk, dv
 
 
 def _launch_bs_dq(q, k, v, do, lse, delta, mask: BlockMask, causal: bool,
                   sm_scale: float) -> torch.Tensor:
-    """Launch K8 over the same prepared inputs as ``_launch_bs_dkv``."""
+    """Launch K8 over the same prepared inputs as ``_launch_bs_dkv``
+    (above head dim 128 the wide route)."""
     tab = _attention_tables(mask, causal, q.device)
-    if _wide(q.shape[-1]):
+    B, H, T, D = q.shape
+    if _dq_wide(D):
         return _wide_dq(q, k, v, do, lse, delta, causal, sm_scale,
                         LAUNCHES_DQ, _wide_block_mask(tab, mask))
-    ptrs, extra, ints = _table_args(tab, _query_tables(q.dtype), mask, q, k)
-    dq = torch.empty_like(q)
+    q, k, v, do = _kernel_operands(q, k, v, do,
+                                   tma=q.dtype == torch.bfloat16)
+    dq = _empty(q)
     _launch_heads("block_sparse_bwd_dq", (LAUNCHES_DQ,),
                   _attn_fn("bigdl_bs_bwd_dq", 13),
-                  [q, k, v, do, lse, delta, dq],
-                  [*ptrs, *extra, *ints, float(sm_scale), int(bool(causal))],
-                  q.shape[0] * q.shape[1])
+                  [*(t.data_ptr() for t in (q, k, v, do, lse, delta, dq)),
+                   *_table_args(tab, _query_tables(q.dtype), mask, q, k,
+                                (q, k, v, do)),
+                   float(sm_scale), int(bool(causal))], B * H, q.device)
     return dq
 
 
@@ -625,14 +659,13 @@ def _bs_bwd_cuda(q, k, v, o, lse, d_o, mask: BlockMask, causal: bool,
                  sm_scale: float
                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Launch K7 then K8 on the current stream of q's device (a head dim
-    between the built ones zero-padded, the gradients cut back; above 128
-    the wide route)."""
+    between the built ones zero-padded, the gradients cut back; above
+    them the wide route)."""
     _check_kernel_inputs("block_sparse_attention backward", q, k, v)
-    check_cuda_input("block_sparse_attention backward lse", lse,
-                     (torch.float32,))
+    _check_lse("block_sparse_attention backward", lse)
     do, delta = _bwd_inputs(q, o, d_o)
     D = q.shape[-1]
-    Dp = _padded_head_dim(D)
+    Dp = _padded_head_dim(D, q.dtype)
     q, k, v, do = (_pad_head_dim(t, Dp) for t in (q, k, v, do))
     dk, dv = _launch_bs_dkv(q, k, v, do, lse, delta, mask, causal, sm_scale)
     dq = _launch_bs_dq(q, k, v, do, lse, delta, mask, causal, sm_scale)
@@ -778,14 +811,9 @@ def _mm_operands(x2, b, tma: bool):
 def _mm_call(ptrs, ints, device):
     """``bigdl_bs_mm`` on the current stream of ``device``; raises on a
     launch error."""
-    fn = load_cuda_library("block_sparse").bigdl_bs_mm
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 12 + [
-        ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    with torch.cuda.device(device):
-        err = fn(*ptrs, *ints, _stream(device))
-    if err != 0:
-        raise RuntimeError(f"block_sparse_mm launch failed: cudaError {err}")
+    _call("block_sparse_mm",
+          _c_fn("block_sparse", "bigdl_bs_mm", [_P] * 5 + [_I] * 12 + [_P]),
+          [*ptrs, *ints], device)
 
 
 def _bs_mm_cuda(x2, b, mask: BlockMask) -> torch.Tensor:
@@ -798,10 +826,9 @@ def _bs_mm_cuda(x2, b, mask: BlockMask) -> torch.Tensor:
 
 
 def _launch_mm(x2, b, mask: BlockMask, plan) -> torch.Tensor:
-    """K9 on route ``plan`` ((KC, BN), or None for the tile route)."""
-    if x2.dtype != b.dtype:
-        raise TypeError(f"block_sparse_matmul: x {x2.dtype} and w {b.dtype} "
-                        f"must share a dtype on the card")
+    """K9 on route ``plan`` ((KC, BN), or None for the tile route).  A B
+    operand of another dtype than x is cast to x's (the output is in x's
+    dtype, as the plain version's)."""
     if x2.dtype not in _DTYPE_CODE:
         raise TypeError(f"block_sparse_matmul: dtype {x2.dtype} not in "
                         f"{tuple(_DTYPE_CODE)}")
@@ -809,7 +836,8 @@ def _launch_mm(x2, b, mask: BlockMask, plan) -> torch.Tensor:
     N = b.shape[1]
     if M == 0:
         raise ValueError("block_sparse_matmul: x has no rows")
-    x2, ldx, w, ldw, kmajor = _mm_operands(x2, b, plan is not None)
+    x2, ldx, w, ldw, kmajor = _mm_operands(x2, b.to(x2.dtype),
+                                           plan is not None)
     tiles, counts = _MM_TABLES.get_or_make(
         ("tables", mask, x2.device),
         lambda: tuple(_to_device(a, x2.device)

@@ -20,17 +20,25 @@
 // two consumer warpgroups of 64 output rows each and one producer warpgroup
 // that hands most of its registers to the consumers (setmaxnreg), so each
 // consumer keeps its accumulators in registers.  One producer thread issues
-// the tile loads by TMA through 3-D tensor maps (D, rows, B*H); streamed
-// 64-row tiles go through a ring of stages, each guarded by a full and an
-// empty mbarrier.  Panels, swizzles and descriptors follow
-// hopper_common.cuh, which also holds the sweep's Step, its flag bits and
-// stage_live_rows, shared with the forward body (attn_fwd_hopper.cuh).
-//   * dK/dV (bwd_dkv_wgmma_kernel): the block owns 128 key rows; K and V are
-//     loaded once; 64-row Q and dO tiles stream through 3 stages, and the
-//     producer's first warp stages each tile's LSE (times log2 e) and delta
-//     beside them (1e30 and 0 past T).  S^T = K . Q^T and dP^T = V . dO^T on
-//     wgmma; P^T and dS^T packed to bf16 as the register A operand of dV +=
-//     P^T . dO and dK += dS^T . Q, dO and Q read MN-major.
+// the tile loads by TMA through 4-D tensor maps (D, rows, H, B) over the
+// operands' own strides (HeadStrides); streamed 64-row tiles go through a
+// ring of stages, each guarded by a full and an empty mbarrier.  Panels,
+// swizzles and descriptors follow hopper_common.cuh, which also holds the
+// sweep's Step, its flag bits and stage_live_rows, shared with the forward
+// body (attn_fwd_hopper.cuh).
+//   * dK/dV (bwd_dkv_wgmma_kernel) up to D 128: the block owns 128 key rows;
+//     K and V are loaded once; 64-row Q and dO tiles stream through 3
+//     stages, and the producer's first warp stages each tile's LSE (times
+//     log2 e) and delta beside them (1e30 and 0 past T).  S^T = K . Q^T and
+//     dP^T = V . dO^T on wgmma; P^T and dS^T packed to bf16 as the register
+//     A operand of dV += P^T . dO and dK += dS^T . Q, dO and Q read MN-major.
+//   * dK/dV at D 192 and 256 (the same kernel, dkv_split_consume): dK and
+//     dV of 128 rows would take 2 D f32 a consumer thread, more than its
+//     240 registers, so the block owns 64 key rows and splits the work by
+//     output: warpgroup 0 computes S^T and P^T and keeps dV, warpgroup 1
+//     computes dP^T and dS^T and keeps dK (D / 2 f32 a thread each); P^T
+//     passes from 0 to 1 through shared memory in f32, so dS^T rounds as
+//     above.  3 stages at D 192, 2 at D 256.
 //   * dQ (bwd_dq_wgmma_kernel): the block owns 128 query rows; Q and dO are
 //     loaded once; 64-row K and V tiles stream through 4 stages.  S = Q . K^T
 //     and dP = dO . V^T, dS packed as the A operand of dQ += dS . K.
@@ -39,9 +47,11 @@
 //
 // The sweep policy says which block owns which rows, which streamed tiles it
 // visits, in which order, and which consumer warpgroup computes each:
-//   * dkv_block(), dq_block(): the owner block's index b (rows 128 b ..);
-//   * dkv_count(b, T), dq_count(b, S): how many tiles it streams;
-//   * dkv_step(b, it), dq_step(b, it): the it-th tile and its flags, bit w
+//   * dkv_block(), dq_block(): the owner block's index b (rows 128 b .., or
+//     64 b .. for the 64-row dK/dV block);
+//   * dkv_count(b, T, own), dq_count(b, S): how many tiles it streams (own:
+//     the key rows a dK/dV block owns);
+//   * dkv_step(b, it, own), dq_step(b, it): the it-th tile and its flags, bit w
 //     (kVisit << w) when consumer warpgroup w computes it and bit 2 + w
 //     (kPartial << w) when that pair is covered by the block mask in part.
 //     A warpgroup that does not visit a streamed tile only releases it.  A
@@ -78,19 +88,35 @@ constexpr int kDkvConsumerRegs = 240;
 constexpr int kDqProducerRegs = 40;
 constexpr int kDqConsumerRegs = 232;
 
-// dK/dV: the block's K and V rows, then the ring of (Q, dO, LSE, delta) tiles
+// key rows a dK/dV block owns at head dim D: 128 up to D 128 (a consumer
+// warpgroup keeps dK and dV of 64 rows, D f32 a thread), 64 at D 192 and
+// 256 (warpgroup 0 keeps dV of all 64 rows, warpgroup 1 dK: D / 2 f32 a
+// thread each, where dK and dV together, D a thread, would pass the 240
+// registers a consumer has)
+template <int D>
+constexpr int kDkvOwnRows = D <= 128 ? kBlockRows : kTileRows;
+
+// dK/dV: the block's K and V rows, then the ring of (Q, dO, LSE, delta)
+// tiles; at 64 own rows also the P^T tile that warpgroup 0 hands to 1 (f32)
 template <int D>
 struct DkvCfg : Panels<D> {
-  static constexpr int STAGES = 3;
-  static constexpr int KV_BYTES = kBlockRows * D * 2;    // the K or the V rows
-  static constexpr int PANEL_KV = kBlockRows * Panels<D>::RB;
+  static constexpr int OWN = kDkvOwnRows<D>;
+  static constexpr int STAGES = OWN == kBlockRows || D <= 192 ? 3 : 2;
+  static constexpr int KV_BYTES = OWN * D * 2;           // the K or the V rows
+  static constexpr int PANEL_KV = OWN * Panels<D>::RB;
   static constexpr int TILE_BYTES = kTileRows * D * 2;   // one Q or dO tile
   static constexpr int PANEL_T = kTileRows * Panels<D>::RB;
-  static constexpr size_t SMEM = 1024 + 2 * KV_BYTES + STAGES * (2 * TILE_BYTES)
+  static constexpr int PT_BYTES = OWN == kTileRows ? kTileRows * kTileRows * 4 : 0;
+  static constexpr size_t SMEM = 1024 + 2 * KV_BYTES + STAGES * (2 * TILE_BYTES) + PT_BYTES
                                  + STAGES * 2 * kTileRows * sizeof(float)
                                  + sizeof(uint64_t) * (1 + 2 * STAGES)
                                  + STAGES * sizeof(Step);
 };
+
+// named barriers of the 64-row dK/dV block (1 and 2 are the consumers'
+// epilogue barriers): P^T written by warpgroup 0, read by warpgroup 1
+constexpr int kPtFull = 3;
+constexpr int kPtEmpty = 4;
 
 // dQ: the block's Q and dO rows, then the ring of (K, V) tiles
 template <int D>
@@ -169,7 +195,7 @@ __device__ __forceinline__ void dkv_consume(const Sweep& sw, unsigned char* k_s,
   for (int it = 0; it < n; ++it) {
     const int s = it % C::STAGES;
     Step step;
-    if constexpr (!Sweep::kList) step = sw.dkv_step(b, it);
+    if constexpr (!Sweep::kList) step = sw.dkv_step(b, it, kBlockRows);
     mbar_wait(&full[s], (it / C::STAGES) & 1);
     if constexpr (Sweep::kList) step = step_s[s];   // staged by the producer
     if (step.flags & (kVisit << wg)) {
@@ -260,7 +286,140 @@ __device__ __forceinline__ void dkv_consume(const Sweep& sw, unsigned char* k_s,
   store_rows<D, C::PANEL_KV>(v_wg, dv, k0w, S_len);
 }
 
-// dK/dV: grid (B*H, ceil(S / 128)); the sweep maps blockIdx.y to a block.
+// The two consumer warpgroups of the dK/dV kernel at D 192 and 256, over the
+// block's 64 key rows k0 .. k0 + 63 (this thread holds rows key0 and key0 +
+// 8 of each accumulator, whose columns are the tile's query rows).  Each
+// streamed tile takes two products a warpgroup, all on registers as A:
+//   warpgroup 0: S^T = K . Q^T, P^T = exp(S^T - LSE) masked, P^T in f32 to
+//     shared memory for warpgroup 1, then dV += P^T . dO;
+//   warpgroup 1: dP^T = V . dO^T, then, with P^T from warpgroup 0, dS^T =
+//     P^T * (dP^T - delta) as K2's 128-row consumer forms it, and dK +=
+//     dS^T . Q.
+// P^T passes through one f32 tile guarded by two named barriers: kPtFull
+// (warpgroup 0 arrives after writing, 1 syncs before reading) and kPtEmpty
+// (1 arrives after reading, 0 syncs before writing the next; both skip the
+// unmatched end).  Every list entry and dense step is visited by the whole
+// block: a 64-row key tile is one owner, so the step flags' visit bits are
+// not read.  Warpgroup 0 alone reads K and 1 alone V, so each stages its
+// result in that tile for the epilogue.
+template <int D, class Sweep>
+__device__ __forceinline__ void dkv_split_consume(const Sweep& sw, unsigned char* k_s,
+                                                  unsigned char* v_s, const unsigned char* q_s,
+                                                  const unsigned char* do_s, float* pt_s,
+                                                  const float* lse_s, const float* delta_s,
+                                                  const Step* step_s, uint64_t* kv_full,
+                                                  uint64_t* full, uint64_t* empty,
+                                                  __nv_bfloat16* __restrict__ dk,
+                                                  __nv_bfloat16* __restrict__ dv, int b, int n,
+                                                  int T_len, int S_len, float scale_log2,
+                                                  float sm_scale, int causal) {
+  using C = DkvCfg<D>;
+  const int wg = threadIdx.x / 128;
+  const int tid = threadIdx.x % 128;
+  const int warp = tid / 32;
+  const int lane = threadIdx.x % 32;
+  const int t = lane % 4;
+  const int k0 = b * kTileRows;
+  const int key0 = k0 + 16 * warp + lane / 4;
+
+  float acc[D / 2];   // dV (warpgroup 0) or dK (1): 64 x D
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.0f;
+
+  if (n > 0) mbar_wait(kv_full, 0);
+  for (int it = 0; it < n; ++it) {
+    const int s = it % C::STAGES;
+    Step step;
+    if constexpr (!Sweep::kList) step = sw.dkv_step(b, it, kTileRows);
+    mbar_wait(&full[s], (it / C::STAGES) & 1);
+    if constexpr (Sweep::kList) step = step_s[s];   // staged by the producer
+    const int q0 = step.tile * kTileRows;
+    const unsigned char* q_t = q_s + s * C::TILE_BYTES;
+    const unsigned char* do_t = do_s + s * C::TILE_BYTES;
+    const float* lse_t = lse_s + s * kTileRows;
+    const float* delta_t = delta_s + s * kTileRows;
+    const bool part = Sweep::kList && (step.flags & kPartial);
+    const bool edge = part || q0 + kTileRows > T_len || (causal && q0 < k0 + 63);
+    float sc[kTileRows / 2];
+    uint32_t a[kTileRows / 4];
+    // S^T = K . Q^T (warpgroup 0), dP^T = V . dO^T (1).  The products
+    // take their operands by warpgroup, not in branches: a wgmma on a
+    // divergent path is serialised (ptxas C7520).
+    wgmma_fence();
+    wgmma_scores<D, C::PANEL_KV, C::PANEL_T>(sc, wg == 0 ? k_s : v_s, wg == 0 ? q_t : do_t);
+    wgmma_commit();
+    wgmma_wait<0>();
+#pragma unroll
+    for (int i = 0; i < kTileRows / 2; ++i) fence_regs(sc[i]);
+
+    if (wg == 0) {
+      // P^T, masked as K2's consumer masks it (element i: query row q0 + c,
+      // c = 8 (i / 4) + 2 t + (i & 1), key row key0 + 8 ((i >> 1) & 1))
+#pragma unroll
+      for (int i = 0; i < kTileRows / 2; ++i)
+        sc[i] = exp2f(fmaf(sc[i], scale_log2, -lse_t[8 * (i / 4) + 2 * t + (i & 1)]));
+      if (edge) {
+#pragma unroll
+        for (int i = 0; i < kTileRows / 2; ++i) {
+          const int q = q0 + 8 * (i / 4) + 2 * t + (i & 1);
+          const int key = key0 + 8 * ((i >> 1) & 1);
+          if (q >= T_len || (causal && key > q)) sc[i] = 0.0f;
+        }
+        if constexpr (Sweep::kList) {
+          if (part) {
+#pragma unroll
+            for (int i = 0; i < kTileRows / 2; ++i) {
+              const int q = q0 + 8 * (i / 4) + 2 * t + (i & 1);
+              const int key = key0 + 8 * ((i >> 1) & 1);
+              if (q < T_len && (key >= S_len || !sw.keep(q, key))) sc[i] = 0.0f;
+            }
+          }
+        }
+      }
+      if (it > 0) named_barrier_sync(kPtEmpty, kConsumers);
+#pragma unroll
+      for (int i = 0; i < kTileRows / 2; ++i) pt_s[i * 128 + tid] = sc[i];
+      named_barrier_arrive(kPtFull, kConsumers);
+#pragma unroll
+      for (int i = 0; i < kTileRows / 4; ++i) a[i] = pack_bf16x2(sc[2 * i], sc[2 * i + 1]);
+    } else {
+      named_barrier_sync(kPtFull, kConsumers);
+      // dS^T = P^T * (dP^T - delta) in bf16; where P^T is 0 on an edge or
+      // partial tile, dP^T (NaN from a dead key row of V) is replaced by
+      // delta first, so that dS^T is 0 by select
+#pragma unroll
+      for (int i = 0; i < kTileRows / 4; ++i) {
+        const int c = 8 * (i / 2) + 2 * t;
+        float ds[2];
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const float p = pt_s[(2 * i + e) * 128 + tid];
+          const float dp = edge && p == 0.0f ? delta_t[c + e] : sc[2 * i + e];
+          ds[e] = p * (dp - delta_t[c + e]);
+        }
+        a[i] = pack_bf16x2(ds[0], ds[1]);
+      }
+      if (it + 1 < n) named_barrier_arrive(kPtEmpty, kConsumers);
+    }
+    // dV += P^T . dO (warpgroup 0), dK += dS^T . Q (1)
+    wgmma_fence();
+    wgmma_accumulate<D, C::PANEL_T>(acc, a, wg == 0 ? do_t : q_t);
+    wgmma_commit();
+    wgmma_wait<0>();
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) fence_regs(acc[i]);
+    mbar_arrive(&empty[s]);
+  }
+
+  // epilogue: dV (warpgroup 0) in the K rows, dK * sm_scale (1) in the V rows
+  unsigned char* rows = wg == 0 ? k_s : v_s;
+  stage_rows<D, C::PANEL_KV>(rows, acc, wg == 0 ? 1.0f : sm_scale);
+  named_barrier_sync(1 + wg, 128);
+  store_rows<D, C::PANEL_KV>(rows, wg == 0 ? dv : dk, k0, S_len);
+}
+
+// dK/dV: grid (B*H, ceil(S / own rows)); the sweep maps blockIdx.y to a
+// block.
 template <int D, class Sweep>
 __global__ void __launch_bounds__(kBwdThreads, 1)
 bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
@@ -269,24 +428,26 @@ bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
                      const __grid_constant__ CUtensorMap tm_v, const float* __restrict__ lse,
                      const float* __restrict__ delta, __nv_bfloat16* __restrict__ dk,
                      __nv_bfloat16* __restrict__ dv, int T_len, int S_len, float scale_log2,
-                     float sm_scale, int causal, const Sweep sw) {
+                     float sm_scale, int causal, int H, int h0, const Sweep sw) {
   using C = DkvCfg<D>;
   extern __shared__ unsigned char smem_raw[];
-  unsigned char* k_s = align1024(smem_raw);             // [panel][128 rows]
+  unsigned char* k_s = align1024(smem_raw);             // [panel][own rows]
   unsigned char* v_s = k_s + C::KV_BYTES;
   unsigned char* q_s = v_s + C::KV_BYTES;               // [stage][panel][64 rows]
   unsigned char* do_s = q_s + C::STAGES * C::TILE_BYTES;
-  float* lse_s = reinterpret_cast<float*>(do_s + C::STAGES * C::TILE_BYTES);  // [stage][64]
+  float* pt_s = reinterpret_cast<float*>(do_s + C::STAGES * C::TILE_BYTES);  // 64 own rows
+  float* lse_s = pt_s + C::PT_BYTES / 4;                // [stage][64]
   float* delta_s = lse_s + C::STAGES * kTileRows;
   uint64_t* kv_full = reinterpret_cast<uint64_t*>(delta_s + C::STAGES * kTileRows);
   uint64_t* full = kv_full + 1;
   uint64_t* empty = full + C::STAGES;
   Step* step_s = reinterpret_cast<Step*>(empty + C::STAGES);   // [stage], list sweeps
 
-  const int bh = blockIdx.x;
+  const int bh = h0 + blockIdx.x;   // of the B*H heads; TMA reads head h of batch bb
+  const int h = bh % H, bb = bh / H;
   const int b = sw.dkv_block();
-  const int k0 = b * kBlockRows;
-  const int n = sw.dkv_count(b, T_len);   // 0: dK = dV = 0
+  const int k0 = b * C::OWN;
+  const int n = sw.dkv_count(b, T_len, C::OWN);   // 0: dK = dV = 0
 
   if (threadIdx.x == 0) {
     mbar_init(kv_full, 1);
@@ -307,15 +468,15 @@ bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
       if (lane == 0 && n > 0) {
         mbar_arrive_expect_tx(kv_full, 2 * C::KV_BYTES);
         for (int p = 0; p < C::NP; ++p) {
-          tma_load_3d(k_s + p * C::PANEL_KV, &tm_k, kv_full, p * C::PW, k0, bh);
-          tma_load_3d(v_s + p * C::PANEL_KV, &tm_v, kv_full, p * C::PW, k0, bh);
+          tma_load_4d(k_s + p * C::PANEL_KV, &tm_k, kv_full, p * C::PW, k0, h, bb);
+          tma_load_4d(v_s + p * C::PANEL_KV, &tm_v, kv_full, p * C::PW, k0, h, bb);
         }
       }
       const float* lse_h = lse + (size_t)bh * T_len;
       const float* delta_h = delta + (size_t)bh * T_len;
       for (int it = 0; it < n; ++it) {
         const int s = it % C::STAGES;
-        const Step step = sw.dkv_step(b, it);
+        const Step step = sw.dkv_step(b, it, C::OWN);
         const int q0 = step.tile * kTileRows;
         mbar_wait(&empty[s], ((it / C::STAGES) & 1) ^ 1);   // the first round passes
         for (int c = lane; c < kTileRows; c += 32) {
@@ -327,11 +488,12 @@ bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
           if (lane == 0) step_s[s] = step;
           if (step.flags & kPartialAny) {   // a partial pair: live rows only
             const unsigned long long live = sw.live(b, it);
-            const size_t head = (size_t)bh * T_len * D;
-            stage_live_rows<D, C::PANEL_T>(q_s + s * C::TILE_BYTES, sw.src_a + head, q0, T_len,
-                                           live, lane);
-            stage_live_rows<D, C::PANEL_T>(do_s + s * C::TILE_BYTES, sw.src_b + head, q0,
-                                           T_len, live, lane);
+            stage_live_rows<D, C::PANEL_T>(q_s + s * C::TILE_BYTES,
+                                           sw.src_a + sw.stride_a.head(bh, H), sw.stride_a.r,
+                                           q0, T_len, live, lane);
+            stage_live_rows<D, C::PANEL_T>(do_s + s * C::TILE_BYTES,
+                                           sw.src_b + sw.stride_b.head(bh, H), sw.stride_b.r,
+                                           q0, T_len, live, lane);
             fence_proxy_async();
             mbar_arrive(&full[s]);
             continue;
@@ -341,8 +503,8 @@ bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
           mbar_arrive_expect_tx(&full[s], 2 * C::TILE_BYTES);
           for (int p = 0; p < C::NP; ++p) {
             const int off = s * C::TILE_BYTES + p * C::PANEL_T;
-            tma_load_3d(q_s + off, &tm_q, &full[s], p * C::PW, q0, bh);
-            tma_load_3d(do_s + off, &tm_do, &full[s], p * C::PW, q0, bh);
+            tma_load_4d(q_s + off, &tm_q, &full[s], p * C::PW, q0, h, bb);
+            tma_load_4d(do_s + off, &tm_do, &full[s], p * C::PW, q0, h, bb);
           }
         } else {
           mbar_arrive(&full[s]);
@@ -351,9 +513,14 @@ bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
     }
   } else {
     setmaxnreg_inc<kDkvConsumerRegs>();
-    dkv_consume<D>(sw, k_s, v_s, q_s, do_s, lse_s, delta_s, step_s, kv_full, full, empty,
-                   dk + (size_t)bh * S_len * D, dv + (size_t)bh * S_len * D, b, n, T_len, S_len,
-                   scale_log2, sm_scale, causal);
+    if constexpr (C::OWN == kBlockRows)
+      dkv_consume<D>(sw, k_s, v_s, q_s, do_s, lse_s, delta_s, step_s, kv_full, full, empty,
+                     dk + (size_t)bh * S_len * D, dv + (size_t)bh * S_len * D, b, n, T_len,
+                     S_len, scale_log2, sm_scale, causal);
+    else
+      dkv_split_consume<D>(sw, k_s, v_s, q_s, do_s, pt_s, lse_s, delta_s, step_s, kv_full, full,
+                           empty, dk + (size_t)bh * S_len * D, dv + (size_t)bh * S_len * D, b, n,
+                           T_len, S_len, scale_log2, sm_scale, causal);
   }
 }
 
@@ -484,7 +651,8 @@ bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
                     const __grid_constant__ CUtensorMap tm_k,
                     const __grid_constant__ CUtensorMap tm_v, const float* __restrict__ lse,
                     const float* __restrict__ delta, __nv_bfloat16* __restrict__ dq, int T_len,
-                    int S_len, float scale_log2, float sm_scale, int causal, const Sweep sw) {
+                    int S_len, float scale_log2, float sm_scale, int causal, int H, int h0,
+                    const Sweep sw) {
   using C = DqCfg<D>;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* q_s = align1024(smem_raw);             // [panel][128 rows]
@@ -496,7 +664,8 @@ bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
   uint64_t* empty = full + C::STAGES;
   Step* step_s = reinterpret_cast<Step*>(empty + C::STAGES);   // [stage], list sweeps
 
-  const int bh = blockIdx.x;
+  const int bh = h0 + blockIdx.x;
+  const int h = bh % H, bb = bh / H;
   const int b = sw.dq_block();
   const int q0 = b * kBlockRows;
   const int n = sw.dq_count(b, S_len);   // 0: dQ = 0
@@ -519,8 +688,8 @@ bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
       if (lane == 0 && n > 0) {
         mbar_arrive_expect_tx(q_full, 2 * C::Q_BYTES);
         for (int p = 0; p < C::NP; ++p) {
-          tma_load_3d(q_s + p * C::PANEL_Q, &tm_q, q_full, p * C::PW, q0, bh);
-          tma_load_3d(do_s + p * C::PANEL_Q, &tm_do, q_full, p * C::PW, q0, bh);
+          tma_load_4d(q_s + p * C::PANEL_Q, &tm_q, q_full, p * C::PW, q0, h, bb);
+          tma_load_4d(do_s + p * C::PANEL_Q, &tm_do, q_full, p * C::PW, q0, h, bb);
         }
       }
       for (int it = 0; it < n; ++it) {
@@ -532,11 +701,12 @@ bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
           if (lane == 0) step_s[s] = step;
           if (step.flags & kPartialAny) {   // a partial pair: live rows only
             const unsigned long long live = sw.live(b, it);
-            const size_t head = (size_t)bh * S_len * D;
-            stage_live_rows<D, C::PANEL_T>(k_s + s * C::TILE_BYTES, sw.src_a + head, k0, S_len,
-                                           live, lane);
-            stage_live_rows<D, C::PANEL_T>(v_s + s * C::TILE_BYTES, sw.src_b + head, k0, S_len,
-                                           live, lane);
+            stage_live_rows<D, C::PANEL_T>(k_s + s * C::TILE_BYTES,
+                                           sw.src_a + sw.stride_a.head(bh, H), sw.stride_a.r,
+                                           k0, S_len, live, lane);
+            stage_live_rows<D, C::PANEL_T>(v_s + s * C::TILE_BYTES,
+                                           sw.src_b + sw.stride_b.head(bh, H), sw.stride_b.r,
+                                           k0, S_len, live, lane);
             fence_proxy_async();
             mbar_arrive(&full[s]);
             continue;
@@ -549,8 +719,8 @@ bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
         mbar_arrive_expect_tx(&full[s], 2 * C::TILE_BYTES);
         for (int p = 0; p < C::NP; ++p) {
           const int off = s * C::TILE_BYTES + p * C::PANEL_T;
-          tma_load_3d(k_s + off, &tm_k, &full[s], p * C::PW, k0, bh);
-          tma_load_3d(v_s + off, &tm_v, &full[s], p * C::PW, k0, bh);
+          tma_load_4d(k_s + off, &tm_k, &full[s], p * C::PW, k0, h, bb);
+          tma_load_4d(v_s + off, &tm_v, &full[s], p * C::PW, k0, h, bb);
         }
       }
     }
@@ -562,7 +732,10 @@ bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
   }
 }
 
-// The arguments of one backward launch.
+// The arguments of one backward launch over heads h0 .. h0 + BH - 1 of H
+// heads a batch: q, dO (., H, T, D) and k, v (., H, S, D) at their strides;
+// lse, delta (., T) f32 and the outputs contiguous; all from their first
+// head.
 struct BwdArgs {
   const void* q;
   const void* k;
@@ -572,7 +745,8 @@ struct BwdArgs {
   const float* delta;
   void* out0;   // dK or dQ
   void* out1;   // dV
-  int BH, T_len, S_len;
+  HeadStrides sq, sk, sv, sdo;
+  int H, h0, BH, T_len, S_len;
   float sm_scale;
   int causal;
   cudaStream_t stream;
@@ -584,10 +758,14 @@ struct BwdArgs {
 template <int D>
 cudaError_t encode_bwd_maps(const BwdArgs& a, int q_rows, int k_rows, CUtensorMap* tm) {
   constexpr int PW = Panels<D>::PW;
-  cudaError_t err = encode_bf16_3d(&tm[0], a.q, D, a.T_len, a.BH, PW, q_rows);
-  if (err == cudaSuccess) err = encode_bf16_3d(&tm[1], a.dO, D, a.T_len, a.BH, PW, q_rows);
-  if (err == cudaSuccess) err = encode_bf16_3d(&tm[2], a.k, D, a.S_len, a.BH, PW, k_rows);
-  if (err == cudaSuccess) err = encode_bf16_3d(&tm[3], a.v, D, a.S_len, a.BH, PW, k_rows);
+  const int heads = a.h0 + a.BH;
+  cudaError_t err = encode_bf16_heads(&tm[0], a.q, D, a.T_len, a.H, heads, a.sq, PW, q_rows);
+  if (err == cudaSuccess)
+    err = encode_bf16_heads(&tm[1], a.dO, D, a.T_len, a.H, heads, a.sdo, PW, q_rows);
+  if (err == cudaSuccess)
+    err = encode_bf16_heads(&tm[2], a.k, D, a.S_len, a.H, heads, a.sk, PW, k_rows);
+  if (err == cudaSuccess)
+    err = encode_bf16_heads(&tm[3], a.v, D, a.S_len, a.H, heads, a.sv, PW, k_rows);
   return err;
 }
 
@@ -596,10 +774,10 @@ template <int D, class Sweep>
 cudaError_t launch_dkv_wgmma(const BwdArgs& a, const Sweep& sw) {
   using C = DkvCfg<D>;
   static_assert(C::SMEM <= kMaxSmemBytes, "bwd_dkv_wgmma tiles do not fit in shared memory");
-  const int n_kb = (a.S_len + kBlockRows - 1) / kBlockRows;
+  const int n_kb = (a.S_len + C::OWN - 1) / C::OWN;
   if (n_kb > 65535) return cudaErrorInvalidValue;
   CUtensorMap tm[4];
-  cudaError_t err = encode_bwd_maps<D>(a, kTileRows, kBlockRows, tm);
+  cudaError_t err = encode_bwd_maps<D>(a, kTileRows, C::OWN, tm);
   if (err != cudaSuccess) return err;
   auto kernel = bwd_dkv_wgmma_kernel<D, Sweep>;
   static std::mutex mu;
@@ -609,7 +787,7 @@ cudaError_t launch_dkv_wgmma(const BwdArgs& a, const Sweep& sw) {
   kernel<<<dim3(a.BH, n_kb), kBwdThreads, C::SMEM, a.stream>>>(
       tm[0], tm[1], tm[2], tm[3], a.lse, a.delta, static_cast<__nv_bfloat16*>(a.out0),
       static_cast<__nv_bfloat16*>(a.out1), a.T_len, a.S_len, a.sm_scale * kLog2e, a.sm_scale,
-      a.causal, sw);
+      a.causal, a.H, a.h0, sw);
   return cudaGetLastError();
 }
 
@@ -630,7 +808,7 @@ cudaError_t launch_dq_wgmma(const BwdArgs& a, const Sweep& sw) {
   if (err != cudaSuccess) return err;
   kernel<<<dim3(a.BH, n_qb), kBwdThreads, C::SMEM, a.stream>>>(
       tm[0], tm[1], tm[2], tm[3], a.lse, a.delta, static_cast<__nv_bfloat16*>(a.out0), a.T_len,
-      a.S_len, a.sm_scale * kLog2e, a.sm_scale, a.causal, sw);
+      a.S_len, a.sm_scale * kLog2e, a.sm_scale, a.causal, a.H, a.h0, sw);
   return cudaGetLastError();
 }
 

@@ -28,10 +28,12 @@
 // consumer warpgroups of 64 rows each and one producer warpgroup, which
 // hands most of its registers to the consumers (setmaxnreg: 40 against 232
 // each), so the f32 S and O accumulators and P of a thread stay in
-// registers.  The producer loads the q tile once by TMA through 3-D tensor
-// maps (D, T or S, B*H), so a tile never reads past its own head and the
-// ragged edge arrives as zeros, then streams K and V tiles into a ring of
-// stages, each guarded by a full and an empty mbarrier.  A consumer
+// registers.  The producer loads the q tile once by TMA through 4-D tensor
+// maps (D, T or S, H, B) over the operands' own strides (hopper_common.cuh,
+// HeadStrides: the head-strided view an attention layer makes is read in
+// place), so a tile never reads past its own head and the ragged edge
+// arrives as zeros, then streams K and V tiles into a ring of stages, each
+// guarded by a full and an empty mbarrier.  A consumer
 // warpgroup computes S = Q.K^T with wgmma (both operands K-major in shared
 // memory, 128-byte swizzle), runs the online softmax on the accumulator in
 // registers (a row lives in one quad of threads: two shuffles reduce it),
@@ -52,9 +54,11 @@
 //     a tile only releases it.
 //   * kList: false for flash_fwd.cu's DenseSweep (K1: key tiles up to the
 //     causal diagonal, counted by arithmetic, heaviest blocks first, 64-key
-//     tiles in 4 stages at D 128 and 128-key tiles in 3 below); true for
+//     tiles at D 128 and above, 128-key tiles in 3 stages below); true for
 //     block_sparse.cu's ListSweep (K6: the steps of K8's 128-row lists,
-//     64-key tiles in 4 stages at every D).  A list step is read from device
+//     64-key tiles at every D).  64-key tiles run in 4 stages at D up to
+//     128, 3 at D 192 and 2 at D 256 (the q tile grows with D: 192 KB in
+//     all at the two wide head dims).  A list step is read from device
 //     memory by the producer's first warp, which stages it in shared memory
 //     with the tile.  A tile with a partial pair is staged by that warp, not
 //     by TMA: it copies the key rows some query of the block attends
@@ -85,7 +89,7 @@ constexpr float kLn2 = 0.6931471805599453f;
 template <int D, int kKeyRows>
 struct FwdCfg : Panels<D> {
   static constexpr int BK = kKeyRows;
-  static constexpr int STAGES = BK == 64 ? 4 : 3;
+  static constexpr int STAGES = BK == 64 ? (D <= 128 ? 4 : D <= 192 ? 3 : 2) : 3;
   static constexpr int Q_BYTES = kBlockRows * D * 2;
   static constexpr int KV_BYTES = BK * D * 2;  // one K or V tile
   static constexpr int PANEL_Q = kBlockRows * Panels<D>::RB;
@@ -254,7 +258,7 @@ attn_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
                       const __grid_constant__ CUtensorMap tm_k,
                       const __grid_constant__ CUtensorMap tm_v, __nv_bfloat16* __restrict__ o,
                       float* __restrict__ lse, int T_len, int S_len, float scale_log2,
-                      int causal, const Sweep sw) {
+                      int causal, int H, int h0, const Sweep sw) {
   using C = FwdCfg<D, kKeyRows>;
   static_assert(!Sweep::kList || C::BK == kTileRows, "list sweeps stream 64-row tiles");
   extern __shared__ unsigned char smem_raw[];
@@ -266,7 +270,8 @@ attn_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
   uint64_t* empty = full + C::STAGES;
   Step* step_s = reinterpret_cast<Step*>(empty + C::STAGES);   // [stage], list sweeps
 
-  const int bh = blockIdx.x;
+  const int bh = h0 + blockIdx.x;   // of the B*H heads; TMA reads head h of batch bb
+  const int h = bh % H, bb = bh / H;
   const int b = sw.fwd_block();
   const int q0 = b * kBlockRows;
   const int n = sw.fwd_count(b, S_len);   // 0: O = 0, LSE = 1e30
@@ -289,7 +294,7 @@ attn_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
       if (lane == 0 && n > 0) {
         mbar_arrive_expect_tx(q_full, C::Q_BYTES);
         for (int p = 0; p < C::NP; ++p)
-          tma_load_3d(q_s + p * C::PANEL_Q, &tm_q, q_full, p * C::PW, q0, bh);
+          tma_load_4d(q_s + p * C::PANEL_Q, &tm_q, q_full, p * C::PW, q0, h, bb);
       }
       for (int it = 0; it < n; ++it) {
         const int s = it % C::STAGES;
@@ -300,11 +305,12 @@ attn_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
           if (lane == 0) step_s[s] = step;
           if (step.flags & kPartialAny) {   // a partial pair: live rows only
             const unsigned long long live = sw.live(b, it);
-            const size_t head = (size_t)bh * S_len * D;
-            stage_live_rows<D, C::PANEL_KV>(k_s + s * C::KV_BYTES, sw.src_a + head, k0, S_len,
-                                            live, lane);
-            stage_live_rows<D, C::PANEL_KV>(v_s + s * C::KV_BYTES, sw.src_b + head, k0, S_len,
-                                            live, lane);
+            stage_live_rows<D, C::PANEL_KV>(k_s + s * C::KV_BYTES,
+                                            sw.src_a + sw.stride_a.head(bh, H), sw.stride_a.r,
+                                            k0, S_len, live, lane);
+            stage_live_rows<D, C::PANEL_KV>(v_s + s * C::KV_BYTES,
+                                            sw.src_b + sw.stride_b.head(bh, H), sw.stride_b.r,
+                                            k0, S_len, live, lane);
             fence_proxy_async();
             mbar_arrive(&full[s]);
             continue;
@@ -317,8 +323,8 @@ attn_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
         mbar_arrive_expect_tx(&full[s], 2 * C::KV_BYTES);
         for (int p = 0; p < C::NP; ++p) {
           const int off = (s * C::NP + p) * C::PANEL_KV;
-          tma_load_3d(k_s + off, &tm_k, &full[s], p * C::PW, k0, bh);
-          tma_load_3d(v_s + off, &tm_v, &full[s], p * C::PW, k0, bh);
+          tma_load_4d(k_s + off, &tm_k, &full[s], p * C::PW, k0, h, bb);
+          tma_load_4d(v_s + off, &tm_v, &full[s], p * C::PW, k0, h, bb);
         }
       }
     }
@@ -330,15 +336,17 @@ attn_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
   }
 }
 
-// The arguments of one forward launch: q (BH, T, D), k and v (BH, S, D), o
-// as q, lse (BH, T) f32.
+// The arguments of one forward launch over heads h0 .. h0 + BH - 1 of H
+// heads a batch: q (., H, T, D), k and v (., H, S, D) at their strides, o
+// (., T, D) and lse (., T) f32 contiguous, all from their first head.
 struct FwdArgs {
   const void* q;
   const void* k;
   const void* v;
   void* o;
   void* lse;
-  int BH, T_len, S_len;
+  HeadStrides sq, sk, sv;
+  int H, h0, BH, T_len, S_len;
   float sm_scale;
   int causal;
   cudaStream_t stream;
@@ -353,9 +361,13 @@ cudaError_t launch_fwd_wgmma(const FwdArgs& a, const Sweep& sw) {
   if (n_qb > 65535) return cudaErrorInvalidValue;
   // encoded per launch and passed by value: a CUDA graph captures them
   CUtensorMap tm_q, tm_k, tm_v;
-  cudaError_t err = encode_bf16_3d(&tm_q, a.q, D, a.T_len, a.BH, C::PW, kBlockRows);
-  if (err == cudaSuccess) err = encode_bf16_3d(&tm_k, a.k, D, a.S_len, a.BH, C::PW, C::BK);
-  if (err == cudaSuccess) err = encode_bf16_3d(&tm_v, a.v, D, a.S_len, a.BH, C::PW, C::BK);
+  const int heads = a.h0 + a.BH;
+  cudaError_t err =
+      encode_bf16_heads(&tm_q, a.q, D, a.T_len, a.H, heads, a.sq, C::PW, kBlockRows);
+  if (err == cudaSuccess)
+    err = encode_bf16_heads(&tm_k, a.k, D, a.S_len, a.H, heads, a.sk, C::PW, C::BK);
+  if (err == cudaSuccess)
+    err = encode_bf16_heads(&tm_v, a.v, D, a.S_len, a.H, heads, a.sv, C::PW, C::BK);
   if (err != cudaSuccess) return err;
   auto kernel = attn_fwd_wgmma_kernel<D, kKeyRows, Sweep>;
   static std::mutex mu;
@@ -364,7 +376,7 @@ cudaError_t launch_fwd_wgmma(const FwdArgs& a, const Sweep& sw) {
   if (err != cudaSuccess) return err;
   kernel<<<dim3(a.BH, n_qb), kFwdThreads, C::SMEM, a.stream>>>(
       tm_q, tm_k, tm_v, static_cast<__nv_bfloat16*>(a.o), static_cast<float*>(a.lse), a.T_len,
-      a.S_len, a.sm_scale * kLog2e, a.causal, sw);
+      a.S_len, a.sm_scale * kLog2e, a.causal, a.H, a.h0, sw);
   return cudaGetLastError();
 }
 

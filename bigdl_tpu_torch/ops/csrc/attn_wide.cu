@@ -1,8 +1,10 @@
-// Attention for head dims above 128 (sm_90a), bound to Python with ctypes:
-// the "wide" route of K1-K3 and K6-K8.
+// Attention for head dims above the built ones (sm_90a), bound to Python
+// with ctypes: the "wide" route of K1-K3 and K6-K8.
 //
-// The Hopper kernels and the tile loops are built for head dims 16, 32, 64
-// and 128 (a head dim between them is zero-padded to the next).  The TPU
+// The tile loops (f32) are built for head dims 16, 32, 64 and 128, the
+// Hopper kernels (bf16) also for 192 and 256 (K3/K8 only to 128); a head dim
+// between them is zero-padded to the next.  So this route takes f32 above
+// 128, bf16 above 256, and the bf16 dQ (K3, K8) at 192 and 256.  The TPU
 // kernels take any D: `_fwd_kernel`, `_dkv_kernel`, `_dq_kernel` of
 // bigdl_tpu/ops/flash_attention.py and `_bs_fwd_kernel`, `_bs_dkv_kernel`,
 // `_bs_dq_kernel` of bigdl_tpu/ops/block_sparse.py hand D straight to their
@@ -340,52 +342,80 @@ int dispatch_wide(int dtype, const WideArgs& a) {
   return (int)cudaErrorInvalidValue;
 }
 
+// the arguments from head h0 on: every pointer moved to that head's rows
+template <typename T>
 WideArgs make_wide_args(const void* q, const void* k, const void* v, const void* dO,
                         const void* lse, const void* delta, void* out0, void* out1,
-                        const void* bmask, int nkb, int bq, int bk, int BH, int T_len, int S_len,
-                        int D, float sm_scale, int causal, void* stream) {
-  return WideArgs{q, k, v, dO, static_cast<const float*>(lse), static_cast<const float*>(delta),
-                  out0, out1,
+                        const void* bmask, int nkb, int bq, int bk, int h0, int BH, int T_len,
+                        int S_len, int D, float sm_scale, int causal, void* stream, bool dkv) {
+  const size_t qo = (size_t)h0 * T_len, ko = (size_t)h0 * S_len;
+  auto at = [](const void* p, size_t n) -> const T* {
+    return p ? static_cast<const T*>(p) + n : nullptr;
+  };
+  auto out_at = [](void* p, size_t n) -> void* { return p ? static_cast<T*>(p) + n : nullptr; };
+  const float* lse_h = lse ? static_cast<const float*>(lse) + qo : nullptr;
+  const float* delta_h = delta ? static_cast<const float*>(delta) + qo : nullptr;
+  // out0: O, dK or dQ; out1: LSE (f32, the forward) or dV
+  void* o1 = out1 == nullptr ? nullptr
+             : dkv           ? out_at(out1, ko * D)
+                             : static_cast<void*>(static_cast<float*>(out1) + qo);
+  return WideArgs{at(q, qo * D), at(k, ko * D), at(v, ko * D), at(dO, qo * D), lse_h, delta_h,
+                  out_at(out0, (dkv ? ko : qo) * D), o1,
                   Walk{static_cast<const uint8_t*>(bmask), nkb, bq, bk, T_len, S_len, causal},
                   BH, D, sm_scale, static_cast<cudaStream_t>(stream)};
 }
 
+template <Which W>
+int wide_entry(int dtype, const void* q, const void* k, const void* v, const void* dO,
+                  const void* lse, const void* delta, void* out0, void* out1, const void* bmask,
+                  int nkb, int bq, int bk, int h0, int BH, int T_len, int S_len, int D,
+                  float sm_scale, int causal, void* stream) {
+  const bool dkv = W == Which::kDkv;
+  if (h0 < 0) return (int)cudaErrorInvalidValue;
+  if (dtype == 1)
+    return dispatch_wide<W>(dtype, make_wide_args<__nv_bfloat16>(
+                                       q, k, v, dO, lse, delta, out0, out1, bmask, nkb, bq, bk,
+                                       h0, BH, T_len, S_len, D, sm_scale, causal, stream, dkv));
+  return dispatch_wide<W>(dtype, make_wide_args<float>(q, k, v, dO, lse, delta, out0, out1,
+                                                       bmask, nkb, bq, bk, h0, BH, T_len, S_len, D,
+                                                       sm_scale, causal, stream, dkv));
+}
+
 }  // namespace
 
-// q, dO (BH, T, D) and k, v (BH, S, D) in one dtype (0 = float32,
-// 1 = bfloat16), any D; lse and delta (BH, T) f32; outputs as their inputs.
-// bmask: the runtime block mask (T / bq, S / bk) uint8 of the block-sparse
-// wrappers (nkb = S / bk), or null for the dense mask.  All contiguous.
+// Heads h0 .. h0 + BH - 1 of q, dO (., T, D) and k, v (., S, D), contiguous,
+// in one dtype (0 = float32, 1 = bfloat16), any D; lse and delta (., T)
+// f32; outputs as their inputs.  Every pointer is the tensor's start, not
+// its head h0's.  bmask: the runtime block mask (T / bq, S / bk) uint8 of
+// the block-sparse wrappers (nkb = S / bk), or null for the dense mask.
 // Each returns the cudaError_t of its launch (0 on success).
 
-// forward: o (BH, T, D), lse (BH, T)
+// forward: o (., T, D), lse (., T)
 extern "C" int bigdl_wide_fwd(const void* q, const void* k, const void* v, void* o, void* lse,
-                              const void* bmask, int nkb, int bq, int bk, int BH, int T_len,
-                              int S_len, int D, int dtype, float sm_scale, int causal,
+                              const void* bmask, int nkb, int bq, int bk, int h0, int BH,
+                              int T_len, int S_len, int D, int dtype, float sm_scale, int causal,
                               void* stream) {
-  return dispatch_wide<Which::kFwd>(
-      dtype, make_wide_args(q, k, v, nullptr, nullptr, nullptr, o, lse, bmask, nkb, bq, bk, BH,
-                            T_len, S_len, D, sm_scale, causal, stream));
+  return wide_entry<Which::kFwd>(dtype, q, k, v, nullptr, nullptr, nullptr, o, lse, bmask,
+                                    nkb, bq, bk, h0, BH, T_len, S_len, D, sm_scale, causal,
+                                    stream);
 }
 
-// dK, dV (BH, S, D)
+// dK, dV (., S, D)
 extern "C" int bigdl_wide_bwd_dkv(const void* q, const void* k, const void* v, const void* dO,
                                   const void* lse, const void* delta, void* dk, void* dv,
-                                  const void* bmask, int nkb, int bq, int bk, int BH, int T_len,
-                                  int S_len, int D, int dtype, float sm_scale, int causal,
-                                  void* stream) {
-  return dispatch_wide<Which::kDkv>(
-      dtype, make_wide_args(q, k, v, dO, lse, delta, dk, dv, bmask, nkb, bq, bk, BH, T_len,
-                            S_len, D, sm_scale, causal, stream));
+                                  const void* bmask, int nkb, int bq, int bk, int h0, int BH,
+                                  int T_len, int S_len, int D, int dtype, float sm_scale,
+                                  int causal, void* stream) {
+  return wide_entry<Which::kDkv>(dtype, q, k, v, dO, lse, delta, dk, dv, bmask, nkb, bq, bk,
+                                    h0, BH, T_len, S_len, D, sm_scale, causal, stream);
 }
 
-// dQ (BH, T, D)
+// dQ (., T, D)
 extern "C" int bigdl_wide_bwd_dq(const void* q, const void* k, const void* v, const void* dO,
                                  const void* lse, const void* delta, void* dq,
-                                 const void* bmask, int nkb, int bq, int bk, int BH, int T_len,
-                                 int S_len, int D, int dtype, float sm_scale, int causal,
-                                 void* stream) {
-  return dispatch_wide<Which::kDq>(
-      dtype, make_wide_args(q, k, v, dO, lse, delta, dq, nullptr, bmask, nkb, bq, bk, BH, T_len,
-                            S_len, D, sm_scale, causal, stream));
+                                 const void* bmask, int nkb, int bq, int bk, int h0, int BH,
+                                 int T_len, int S_len, int D, int dtype, float sm_scale,
+                                 int causal, void* stream) {
+  return wide_entry<Which::kDq>(dtype, q, k, v, dO, lse, delta, dq, nullptr, bmask, nkb, bq,
+                                   bk, h0, BH, T_len, S_len, D, sm_scale, causal, stream);
 }

@@ -44,8 +44,10 @@
 //
 // K6, K7 and K8 design.  In bf16 they are K1's and K2/K3's Hopper kernels
 // (attn_fwd_hopper.cuh, attn_bwd_hopper.cuh: TMA ring, wgmma,
-// accumulators in registers) with a tile list in place of the dense sweep
-// (ListSweep below): the host regroups the 64-row tile lists per block of
+// accumulators in registers; q, k, v and dO read at their own strides) with
+// a tile list in place of the dense sweep (ListSweep below), at D 16-128 and
+// at 192 and 256, the bf16 route of head dims 129-256 (K8 there is
+// attn_wide.cu's dQ): the host regroups the 64-row tile lists per block of
 // 128 own rows, the block's two consumer warpgroups each computing the
 // streamed tiles its own 64 rows visit; K6 reads K8's lists (the same own
 // query rows, the same streamed K and V tiles).  A streamed tile with a
@@ -512,7 +514,8 @@ bs_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
 // r, read at partial entries only), and the blocks in order of their list
 // length, longest first.  On an all-ones causal mask at a 128-multiple block
 // the lists are the dense sweeps of K1 (at D 128) and K2/K3, tile for tile,
-// so K6-K8 give K1-K3's bits.
+// so K6-K8 give K1-K3's bits.  K7 at D 192 and 256 owns 64 key rows a block
+// and reads the same lists built per 64-row key tile (bit 0 and bit 2 only).
 struct ListSweep {
   static constexpr bool kList = true;
   const int* tiles;                 // (blocks, L)
@@ -524,19 +527,20 @@ struct ListSweep {
   Mask mk;
   const __nv_bfloat16* src_a;       // the streamed tensors: q, dO (K7); k, v (K8)
   const __nv_bfloat16* src_b;
+  HeadStrides stride_a, stride_b;   // at their strides
 
   __device__ int dkv_block() const { return order[blockIdx.y]; }
   __device__ int dq_block() const { return order[blockIdx.y]; }
-  __device__ int dkv_count(int b, int) const { return counts[b]; }
+  __device__ int dkv_count(int b, int, int) const { return counts[b]; }
   __device__ int dq_count(int b, int) const { return counts[b]; }
-  __device__ Step dkv_step(int b, int it) const {
+  __device__ Step dkv_step(int b, int it, int) const { return dq_step(b, it); }
+  __device__ Step dq_step(int b, int it) const {
     const size_t e = (size_t)b * L + it;
     return Step{tiles[e], flags[e]};
   }
-  __device__ Step dq_step(int b, int it) const { return dkv_step(b, it); }
   __device__ int fwd_block() const { return order[blockIdx.y]; }
   __device__ int fwd_count(int b, int) const { return counts[b]; }
-  __device__ Step fwd_step(int b, int it) const { return dkv_step(b, it); }
+  __device__ Step fwd_step(int b, int it) const { return dq_step(b, it); }
   __device__ bool keep(int qp, int kp) const { return mk.block(qp, kp); }
   __device__ unsigned long long live(int b, int it) const { return rows[(size_t)b * L + it]; }
 };
@@ -550,11 +554,12 @@ struct AttnArgs {
   const float* delta;
   void* out0;   // O (K6), dK (K7) or dQ (K8)
   void* out1;   // LSE (K6) or dV (K7)
-  Tables tab;        // f32: 64-row tile tables; bf16: 128-row block lists
+  Tables tab;        // f32: 64-row tile tables; bf16: 128-row (K7 at D > 128: 64-row) block lists
   const int* order;  // bf16: the blocks, longest list first
   const unsigned long long* rows;   // bf16: live streamed rows
   Mask mk;
-  int BH;
+  HeadStrides sq, sk, sv, sdo;   // q, k, v, dO at their strides (f32: contiguous)
+  int H, h0, BH;                 // heads h0 .. h0 + BH - 1, H a batch
   float sm_scale;
   cudaStream_t stream;
 };
@@ -568,31 +573,57 @@ cudaError_t launch_wgmma(const AttnArgs& a) {
   const bool dkv = W == Which::kDkv;
   const ListSweep sw{a.tab.tiles, a.tab.partial, a.rows, a.tab.counts, a.order, a.tab.L, a.mk,
                      static_cast<const __nv_bfloat16*>(dkv ? a.q : a.k),
-                     static_cast<const __nv_bfloat16*>(dkv ? a.dO : a.v)};
+                     static_cast<const __nv_bfloat16*>(dkv ? a.dO : a.v),
+                     dkv ? a.sq : a.sk, dkv ? a.sdo : a.sv};
   if constexpr (W == Which::kFwd) {
-    return launch_fwd_wgmma<D, kTileRows>(FwdArgs{a.q, a.k, a.v, a.out0, a.out1, a.BH,
-                                                  a.mk.T_len, a.mk.S_len, a.sm_scale,
-                                                  a.mk.causal, a.stream},
-                                          sw);
+    return launch_fwd_wgmma<D, kTileRows>(
+        FwdArgs{a.q, a.k, a.v, a.out0, a.out1, a.sq, a.sk, a.sv, a.H, a.h0, a.BH, a.mk.T_len,
+                a.mk.S_len, a.sm_scale, a.mk.causal, a.stream},
+        sw);
   } else {
-    const BwdArgs b{a.q, a.k, a.v, a.dO, a.lse, a.delta, a.out0, a.out1, a.BH, a.mk.T_len,
-                    a.mk.S_len, a.sm_scale, a.mk.causal, a.stream};
+    const BwdArgs b{a.q, a.k, a.v, a.dO, a.lse, a.delta, a.out0, a.out1, a.sq, a.sk, a.sv,
+                    a.sdo, a.H, a.h0, a.BH, a.mk.T_len, a.mk.S_len, a.sm_scale, a.mk.causal,
+                    a.stream};
     if constexpr (W == Which::kDkv) return launch_dkv_wgmma<D>(b, sw);
     else return launch_dq_wgmma<D>(b, sw);
   }
 }
 
-template <Which W, typename T, int D>
-cudaError_t launch_attn(const AttnArgs& a) {
+// the f32 tile loops read contiguous heads: a copy of `a` from head h0 on,
+// or false where an operand is not contiguous
+bool f32_from_h0(int D, AttnArgs* a) {
+  const int T_len = a->mk.T_len, S_len = a->mk.S_len, H = a->H;
+  if (!a->sq.dense(H, T_len, D) || !a->sk.dense(H, S_len, D) || !a->sv.dense(H, S_len, D) ||
+      (a->dO && !a->sdo.dense(H, T_len, D)))
+    return false;
+  const size_t qo = (size_t)a->h0 * T_len, ko = (size_t)a->h0 * S_len;
+  a->q = static_cast<const float*>(a->q) + qo * D;
+  a->k = static_cast<const float*>(a->k) + ko * D;
+  a->v = static_cast<const float*>(a->v) + ko * D;
+  if (a->dO) {   // the backward: lse, delta, then dK, dV (K7) or dQ (K8)
+    a->dO = static_cast<const float*>(a->dO) + qo * D;
+    a->lse += qo;
+    a->delta += qo;
+    a->out0 = static_cast<float*>(a->out0) + (a->out1 ? ko : qo) * D;
+    if (a->out1) a->out1 = static_cast<float*>(a->out1) + ko * D;
+  } else {       // the forward: O, LSE
+    a->out0 = static_cast<float*>(a->out0) + qo * D;
+    a->out1 = static_cast<float*>(a->out1) + qo;
+  }
+  a->h0 = 0;
+  return true;
+}
+
+// K6, K7 or K8 in f32: the tile loops, grid (ceil(rows / 64), heads)
+template <Which W, int D>
+cudaError_t launch_attn_f32(AttnArgs a) {
   static std::mutex mu;
   static bool attr_set[kMaxDevices] = {};
+  if (!f32_from_h0(D, &a)) return cudaErrorInvalidValue;
   const int rows = W == Which::kDkv ? a.mk.S_len : a.mk.T_len;
   dim3 grid((rows + TILE - 1) / TILE, a.BH);
   cudaError_t err;
-  if constexpr (kIsBf16<T>) {
-    if (a.order == nullptr || a.rows == nullptr) return cudaErrorInvalidValue;
-    return launch_wgmma<W, D>(a);
-  } else if constexpr (W == Which::kFwd) {
+  if constexpr (W == Which::kFwd) {
     constexpr size_t smem = fwd_smem_bytes<D>();
     static_assert(smem <= kMaxSmemBytes, "block-sparse tiles do not fit in shared memory");
     auto kernel = bs_fwd_kernel<D>;
@@ -626,6 +657,21 @@ cudaError_t launch_attn(const AttnArgs& a) {
   return cudaGetLastError();
 }
 
+// bf16 at D 16-256 (K8 to 128: above it the wrapper takes attn_wide.cu's
+// dQ), f32 to 128
+template <Which W, typename T, int D>
+cudaError_t launch_attn(const AttnArgs& a) {
+  if constexpr (kIsBf16<T>) {
+    if (a.order == nullptr || a.rows == nullptr) return cudaErrorInvalidValue;
+    if constexpr (D > 128 && W == Which::kDq) return cudaErrorInvalidValue;
+    else return launch_wgmma<W, D>(a);
+  } else if constexpr (D > 128) {
+    return cudaErrorInvalidValue;
+  } else {
+    return launch_attn_f32<W, D>(a);
+  }
+}
+
 template <Which W, typename T>
 cudaError_t dispatch_attn_d(int D, const AttnArgs& a) {
   switch (D) {
@@ -633,6 +679,8 @@ cudaError_t dispatch_attn_d(int D, const AttnArgs& a) {
     case 32: return launch_attn<W, T, 32>(a);
     case 64: return launch_attn<W, T, 64>(a);
     case 128: return launch_attn<W, T, 128>(a);
+    case 192: return launch_attn<W, T, 192>(a);
+    case 256: return launch_attn<W, T, 256>(a);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -640,9 +688,9 @@ cudaError_t dispatch_attn_d(int D, const AttnArgs& a) {
 template <Which W>
 int dispatch_attn(int D, int dtype, const AttnArgs& a) {
   const Mask& mk = a.mk;
-  if (a.BH <= 0 || a.BH > 65535 || mk.T_len <= 0 || mk.S_len <= 0 || mk.bq <= 0 ||
-      mk.bk <= 0 || mk.T_len % mk.bq || mk.S_len % mk.bk || mk.nkb != mk.S_len / mk.bk ||
-      a.tab.L <= 0)
+  if (a.BH <= 0 || a.BH > 65535 || a.H <= 0 || a.h0 < 0 || mk.T_len <= 0 || mk.S_len <= 0 ||
+      mk.bq <= 0 || mk.bk <= 0 || mk.T_len % mk.bq || mk.S_len % mk.bk ||
+      mk.nkb != mk.S_len / mk.bk || a.tab.L <= 0)
     return (int)cudaErrorInvalidValue;
   if (dtype == 1) return (int)dispatch_attn_d<W, __nv_bfloat16>(D, a);
   if (dtype == 0) return (int)dispatch_attn_d<W, float>(D, a);
@@ -652,28 +700,37 @@ int dispatch_attn(int D, int dtype, const AttnArgs& a) {
 AttnArgs make_args(const void* q, const void* k, const void* v, const void* dO, const void* lse,
                    const void* delta, void* out0, void* out1, const void* tiles,
                    const void* counts, const void* partial, const void* bmask, const void* order,
-                   const void* rows, int L, int nkb, int bq, int bk, int BH, int T_len,
-                   int S_len, float sm_scale, int causal, void* stream) {
+                   const void* rows, int L, int nkb, int bq, int bk, const long long* strides,
+                   int H, int h0, int BH, int T_len, int S_len, float sm_scale, int causal,
+                   void* stream) {
+  const HeadStrides none{0, 0, 0};
   return AttnArgs{q, k, v, dO, static_cast<const float*>(lse), static_cast<const float*>(delta),
                   out0, out1,
                   Tables{static_cast<const int*>(tiles), static_cast<const int*>(counts),
                          static_cast<const uint8_t*>(partial), L},
                   static_cast<const int*>(order), static_cast<const unsigned long long*>(rows),
                   Mask{static_cast<const uint8_t*>(bmask), nkb, bq, bk, T_len, S_len, causal},
-                  BH, sm_scale, static_cast<cudaStream_t>(stream)};
+                  head_strides(strides, 0), head_strides(strides, 1), head_strides(strides, 2),
+                  dO ? head_strides(strides, 3) : none, H, h0, BH, sm_scale,
+                  static_cast<cudaStream_t>(stream)};
 }
 
 template <Which W, int D>
 int smem_of(int dtype) {
-  if (dtype == 1)
-    return (int)(W == Which::kFwd   ? FwdCfg<D, kTileRows>::SMEM
-                 : W == Which::kDkv ? DkvCfg<D>::SMEM
-                                    : DqCfg<D>::SMEM);
-  if (dtype == 0)
-    return (int)(W == Which::kFwd   ? fwd_smem_bytes<D>()
-                 : W == Which::kDkv ? dkv_smem_bytes<D>()
-                                    : dq_smem_bytes<D>());
-  return 0;
+  if constexpr (D > 128) {   // bf16 K6 and K7 only
+    if (dtype != 1 || W == Which::kDq) return 0;
+    return (int)(W == Which::kFwd ? FwdCfg<D, kTileRows>::SMEM : DkvCfg<D>::SMEM);
+  } else {
+    if (dtype == 1)
+      return (int)(W == Which::kFwd   ? FwdCfg<D, kTileRows>::SMEM
+                   : W == Which::kDkv ? DkvCfg<D>::SMEM
+                                      : DqCfg<D>::SMEM);
+    if (dtype == 0)
+      return (int)(W == Which::kFwd   ? fwd_smem_bytes<D>()
+                   : W == Which::kDkv ? dkv_smem_bytes<D>()
+                                      : dq_smem_bytes<D>());
+    return 0;
+  }
 }
 
 template <Which W>
@@ -683,6 +740,8 @@ int smem_of_d(int D, int dtype) {
     case 32: return smem_of<W, 32>(dtype);
     case 64: return smem_of<W, 64>(dtype);
     case 128: return smem_of<W, 128>(dtype);
+    case 192: return smem_of<W, 192>(dtype);
+    case 256: return smem_of<W, 256>(dtype);
     default: return 0;
   }
 }
@@ -1113,15 +1172,19 @@ cudaError_t dispatch_mm_tile(const MmArgs& a) {
 
 }  // namespace
 
-// q, dO (BH, T, D) and k, v (BH, S, D) in one dtype (0 = float32,
-// 1 = bfloat16); lse and delta (BH, T) f32; outputs as their inputs; bmask
-// (T / bq, S / bk) uint8, the runtime block mask.  The tables as
-// ops/block_sparse.py builds them.  In f32 the kernels read 64-row tile
-// tables: tiles (tiles, L) int32, counts (tiles,) int32, partial (tiles, L)
-// uint8; order and rows are not read.  In bf16 they read 128-row block
-// lists: tiles (blocks, L) int32, counts (blocks,) int32, partial the flag
-// bytes (blocks, L) uint8, order (blocks,) int32 and rows (blocks, L)
-// uint64.  All contiguous and 16-byte aligned.  Each returns the
+// Heads h0 .. h0 + BH - 1 of q, dO (., H, T, D) and k, v (., H, S, D) in
+// one dtype (0 = float32, 1 = bfloat16), each at its element strides
+// (strides: batch, head and row of q, k, v, then dO; the last dim
+// unit-stride); in bf16 every stride a multiple of 8 and each base 16-byte
+// aligned (TMA), in f32 contiguous.  lse and delta (., T) f32 and the
+// outputs contiguous, in the inputs' dtype; every pointer is the tensor's
+// start, not its head h0's.  bmask (T / bq, S / bk) uint8, the runtime block
+// mask.  The tables as ops/block_sparse.py builds them.  In f32 the kernels
+// read 64-row tile tables: tiles (tiles, L) int32, counts (tiles,) int32,
+// partial (tiles, L) uint8; order and rows are not read.  In bf16 they read
+// block lists (128-row; 64-row for K7 at D 192 and 256): tiles (blocks, L)
+// int32, counts (blocks,) int32, partial the flag bytes (blocks, L) uint8,
+// order (blocks,) int32 and rows (blocks, L) uint64.  Each returns the
 // cudaError_t of its launch (0 on success).
 
 // K6: o (BH, T, D), lse (BH, T); tables per q tile (f32) or per 128 query
@@ -1129,37 +1192,42 @@ cudaError_t dispatch_mm_tile(const MmArgs& a) {
 extern "C" int bigdl_bs_fwd(const void* q, const void* k, const void* v, void* o, void* lse,
                             const void* tiles, const void* counts, const void* partial,
                             const void* bmask, const void* order, const void* rows, int L,
-                            int nkb, int bq, int bk, int BH, int T_len, int S_len, int D,
-                            int dtype, float sm_scale, int causal, void* stream) {
+                            int nkb, int bq, int bk, const long long* strides, int H, int h0,
+                            int BH, int T_len, int S_len, int D, int dtype, float sm_scale,
+                            int causal, void* stream) {
   const AttnArgs a = make_args(q, k, v, nullptr, nullptr, nullptr, o, lse, tiles, counts, partial,
-                               bmask, order, rows, L, nkb, bq, bk, BH, T_len, S_len, sm_scale,
-                               causal, stream);
+                               bmask, order, rows, L, nkb, bq, bk, strides, H, h0, BH, T_len,
+                               S_len, sm_scale, causal, stream);
   return dispatch_attn<Which::kFwd>(D, dtype, a);
 }
 
-// K7: dk, dv (BH, S, D); tables per k tile (f32) or per 128 key rows (bf16).
+// K7: dk, dv (., S, D); tables per k tile (f32) or per 128 key rows (bf16;
+// per 64 at D 192 and 256).
 extern "C" int bigdl_bs_bwd_dkv(const void* q, const void* k, const void* v, const void* dO,
                                 const void* lse, const void* delta, void* dk, void* dv,
                                 const void* tiles, const void* counts, const void* partial,
                                 const void* bmask, const void* order, const void* rows, int L,
-                                int nkb, int bq, int bk, int BH, int T_len, int S_len, int D,
-                                int dtype, float sm_scale, int causal, void* stream) {
+                                int nkb, int bq, int bk, const long long* strides, int H, int h0,
+                                int BH, int T_len, int S_len, int D, int dtype, float sm_scale,
+                                int causal, void* stream) {
   const AttnArgs a = make_args(q, k, v, dO, lse, delta, dk, dv, tiles, counts, partial, bmask,
-                               order, rows, L, nkb, bq, bk, BH, T_len, S_len, sm_scale, causal,
-                               stream);
+                               order, rows, L, nkb, bq, bk, strides, H, h0, BH, T_len, S_len,
+                               sm_scale, causal, stream);
   return dispatch_attn<Which::kDkv>(D, dtype, a);
 }
 
-// K8: dq (BH, T, D); tables per q tile (f32) or per 128 query rows (bf16).
+// K8: dq (., T, D); tables per q tile (f32) or per 128 query rows (bf16);
+// D up to 128 (above, the wrapper takes attn_wide.cu's).
 extern "C" int bigdl_bs_bwd_dq(const void* q, const void* k, const void* v, const void* dO,
                                const void* lse, const void* delta, void* dq, const void* tiles,
                                const void* counts, const void* partial, const void* bmask,
                                const void* order, const void* rows, int L, int nkb, int bq,
-                               int bk, int BH, int T_len, int S_len, int D, int dtype,
-                               float sm_scale, int causal, void* stream) {
+                               int bk, const long long* strides, int H, int h0, int BH,
+                               int T_len, int S_len, int D, int dtype, float sm_scale,
+                               int causal, void* stream) {
   const AttnArgs a = make_args(q, k, v, dO, lse, delta, dq, nullptr, tiles, counts, partial,
-                               bmask, order, rows, L, nkb, bq, bk, BH, T_len, S_len, sm_scale,
-                               causal, stream);
+                               bmask, order, rows, L, nkb, bq, bk, strides, H, h0, BH, T_len,
+                               S_len, sm_scale, causal, stream);
   return dispatch_attn<Which::kDq>(D, dtype, a);
 }
 

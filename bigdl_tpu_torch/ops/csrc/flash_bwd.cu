@@ -44,6 +44,14 @@
 //   * A warpgroup skips a tile that lies wholly above its causal diagonal.
 //     Blocks start with the heaviest causal tiles: low key tiles in K2, high
 //     query tiles in K3.
+//   * K2 at D 192 and 256 (the bf16 route of head dims 129-256, zero-padded
+//     by the wrapper): blocks of 64 key rows, dV in one consumer warpgroup
+//     and dK in the other (attn_bwd_hopper.cuh says why).  At B 2, H 8,
+//     T 1024, D 256, causal its four products are 17.3 GFLOP, 17.5 us at
+//     989 TFLOP/s, against 50.5 MB, 15.1 us.  K3 at those head dims is not
+//     built here: the wrapper takes attn_wide.cu's dQ.
+// q, k, v and dO are read at their own strides (the head-strided view of an
+// attention layer in place); the outputs are contiguous.
 //
 // f32 (flash_bwd_dkv_kernel, flash_bwd_dq_kernel) keeps the tile loop of
 // tile_common.cuh, unchanged: one 4-warp block per 64 key (K2) or query
@@ -71,16 +79,17 @@ struct DenseSweep {
   __device__ int dkv_block() const { return blockIdx.y; }
   __device__ int dq_block() const { return gridDim.y - 1 - blockIdx.y; }
 
-  __device__ int dkv_count(int b, int T_len) const {
-    const int q_begin = causal ? b * kBlockRows : 0;
+  // own: the key rows of a dK/dV block, 128 or 64 (one 64-row tile)
+  __device__ int dkv_count(int b, int T_len, int own) const {
+    const int q_begin = causal ? b * own : 0;
     return T_len > q_begin ? (T_len - q_begin + kTileRows - 1) / kTileRows : 0;
   }
-  __device__ Step dkv_step(int b, int it) const {
-    const int tile = (causal ? 2 * b : 0) + it;
+  __device__ Step dkv_step(int b, int it, int own) const {
+    const int tile = (causal ? b * own / kTileRows : 0) + it;
     const int q_last = tile * kTileRows + kTileRows - 1;
     uint32_t flags = 0;
-    for (int w = 0; w < 2; ++w)
-      if (!(causal && q_last < b * kBlockRows + 64 * w)) flags |= kVisit << w;
+    for (int w = 0; w < own / kTileRows; ++w)
+      if (!(causal && q_last < b * own + 64 * w)) flags |= kVisit << w;
     return Step{tile, flags};
   }
 
@@ -296,6 +305,25 @@ flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
+// the f32 tile loops read contiguous heads: a copy of `a` from head h0 on,
+// or false where an operand is not contiguous
+bool f32_from_h0(int D, BwdArgs* a) {
+  if (!a->sq.dense(a->H, a->T_len, D) || !a->sdo.dense(a->H, a->T_len, D) ||
+      !a->sk.dense(a->H, a->S_len, D) || !a->sv.dense(a->H, a->S_len, D))
+    return false;
+  const size_t qo = (size_t)a->h0 * a->T_len, ko = (size_t)a->h0 * a->S_len;
+  a->q = static_cast<const float*>(a->q) + qo * D;
+  a->dO = static_cast<const float*>(a->dO) + qo * D;
+  a->k = static_cast<const float*>(a->k) + ko * D;
+  a->v = static_cast<const float*>(a->v) + ko * D;
+  a->lse += qo;
+  a->delta += qo;
+  a->out0 = static_cast<float*>(a->out0) + (a->out1 ? ko : qo) * D;   // dK or dQ
+  if (a->out1) a->out1 = static_cast<float*>(a->out1) + ko * D;
+  a->h0 = 0;
+  return true;
+}
+
 template <int D>
 cudaError_t launch_dkv_f32(const BwdArgs& a) {
   constexpr size_t smem = dkv_smem_bytes<D>();
@@ -331,63 +359,83 @@ cudaError_t launch_dq_f32(const BwdArgs& a) {
   return cudaGetLastError();
 }
 
-// dtype: 0 = float32, 1 = bfloat16
+// dtype: 0 = float32, 1 = bfloat16; D 192 and 256 only K2 in bf16
 template <int D>
 cudaError_t launch(bool dkv, int dtype, const BwdArgs& a) {
-  if (dtype == 1) {
-    const DenseSweep sw{a.causal};
-    return dkv ? launch_dkv_wgmma<D>(a, sw) : launch_dq_wgmma<D>(a, sw);
+  const DenseSweep sw{a.causal};
+  if constexpr (D > 128) {
+    return dtype == 1 && dkv ? launch_dkv_wgmma<D>(a, sw) : cudaErrorInvalidValue;
+  } else {
+    if (dtype == 1) return dkv ? launch_dkv_wgmma<D>(a, sw) : launch_dq_wgmma<D>(a, sw);
+    BwdArgs f = a;
+    if (dtype == 0 && f32_from_h0(D, &f)) return dkv ? launch_dkv_f32<D>(f) : launch_dq_f32<D>(f);
+    return cudaErrorInvalidValue;
   }
-  if (dtype == 0) return dkv ? launch_dkv_f32<D>(a) : launch_dq_f32<D>(a);
-  return cudaErrorInvalidValue;
 }
 
 int dispatch(bool dkv, int D, int dtype, const BwdArgs& a) {
-  if (a.BH <= 0 || a.T_len <= 0 || a.S_len <= 0 || a.BH > 65535)
+  if (a.BH <= 0 || a.T_len <= 0 || a.S_len <= 0 || a.BH > 65535 || a.H <= 0 || a.h0 < 0)
     return (int)cudaErrorInvalidValue;
   switch (D) {
     case 16: return (int)launch<16>(dkv, dtype, a);
     case 32: return (int)launch<32>(dkv, dtype, a);
     case 64: return (int)launch<64>(dkv, dtype, a);
     case 128: return (int)launch<128>(dkv, dtype, a);
+    case 192: return (int)launch<192>(dkv, dtype, a);
+    case 256: return (int)launch<256>(dkv, dtype, a);
     default: return (int)cudaErrorInvalidValue;
   }
 }
 
 template <int D>
 int smem_of(bool dkv, int dtype) {
-  if (dtype == 1) return (int)(dkv ? DkvCfg<D>::SMEM : DqCfg<D>::SMEM);
-  if (dtype == 0) return (int)(dkv ? dkv_smem_bytes<D>() : dq_smem_bytes<D>());
-  return 0;
+  if constexpr (D > 128) {
+    return dtype == 1 && dkv ? (int)DkvCfg<D>::SMEM : 0;
+  } else {
+    if (dtype == 1) return (int)(dkv ? DkvCfg<D>::SMEM : DqCfg<D>::SMEM);
+    if (dtype == 0) return (int)(dkv ? dkv_smem_bytes<D>() : dq_smem_bytes<D>());
+    return 0;
+  }
 }
 
 }  // namespace
 
-// q, dO (BH, T, D) and k, v (BH, S, D) in one dtype (0 = float32,
-// 1 = bfloat16); lse and delta (BH, T) f32; outputs as their inputs.  All
-// contiguous and 16-byte aligned.  Each returns the cudaError_t of its
-// launch (0 on success).
+// Heads h0 .. h0 + BH - 1 of q, dO (., H, T, D) and k, v (., H, S, D) in
+// one dtype (0 = float32, 1 = bfloat16), each at its element strides
+// (strides: batch, head and row of q, k, v, then dO; the last dim
+// unit-stride); in bf16 every stride a multiple of 8 and each base 16-byte
+// aligned (TMA), in f32 contiguous.  lse and delta (., T) f32 and the
+// outputs contiguous, in the inputs' dtype.  Every pointer is the tensor's
+// start, not its head h0's.  Each returns the cudaError_t of its launch (0
+// on success).
 
-// K2: dk, dv (BH, S, D).
-extern "C" int bigdl_flash_bwd_dkv(const void* q, const void* k, const void* v, const void* dO,
-                                   const void* lse, const void* delta, void* dk, void* dv,
-                                   int BH, int T_len, int S_len, int D, int dtype,
-                                   float sm_scale, int causal, void* stream) {
-  const BwdArgs a{q, k, v, dO, static_cast<const float*>(lse), static_cast<const float*>(delta),
-                  dk, dv, BH, T_len, S_len, sm_scale, causal,
-                  static_cast<cudaStream_t>(stream)};
-  return dispatch(true, D, dtype, a);
+BwdArgs make_args(const void* q, const void* k, const void* v, const void* dO, const void* lse,
+                  const void* delta, void* out0, void* out1, const long long* strides, int H,
+                  int h0, int BH, int T_len, int S_len, float sm_scale, int causal, void* stream) {
+  return BwdArgs{q, k, v, dO, static_cast<const float*>(lse), static_cast<const float*>(delta),
+                 out0, out1, head_strides(strides, 0), head_strides(strides, 1),
+                 head_strides(strides, 2), head_strides(strides, 3), H, h0, BH, T_len, S_len,
+                 sm_scale, causal, static_cast<cudaStream_t>(stream)};
 }
 
-// K3: dq (BH, T, D).
+// K2: dk, dv (., S, D).
+extern "C" int bigdl_flash_bwd_dkv(const void* q, const void* k, const void* v, const void* dO,
+                                   const void* lse, const void* delta, void* dk, void* dv,
+                                   const long long* strides, int H, int h0, int BH, int T_len,
+                                   int S_len, int D, int dtype, float sm_scale, int causal,
+                                   void* stream) {
+  return dispatch(true, D, dtype, make_args(q, k, v, dO, lse, delta, dk, dv, strides, H, h0, BH,
+                                            T_len, S_len, sm_scale, causal, stream));
+}
+
+// K3: dq (., T, D); D up to 128 (above, the wrapper takes attn_wide.cu's).
 extern "C" int bigdl_flash_bwd_dq(const void* q, const void* k, const void* v, const void* dO,
-                                  const void* lse, const void* delta, void* dq, int BH,
-                                  int T_len, int S_len, int D, int dtype, float sm_scale,
-                                  int causal, void* stream) {
-  const BwdArgs a{q, k, v, dO, static_cast<const float*>(lse), static_cast<const float*>(delta),
-                  dq, nullptr, BH, T_len, S_len, sm_scale, causal,
-                  static_cast<cudaStream_t>(stream)};
-  return dispatch(false, D, dtype, a);
+                                  const void* lse, const void* delta, void* dq,
+                                  const long long* strides, int H, int h0, int BH, int T_len,
+                                  int S_len, int D, int dtype, float sm_scale, int causal,
+                                  void* stream) {
+  return dispatch(false, D, dtype, make_args(q, k, v, dO, lse, delta, dq, nullptr, strides, H,
+                                             h0, BH, T_len, S_len, sm_scale, causal, stream));
 }
 
 // Dynamic shared memory per block of the kernel that bigdl_flash_bwd_dkv
@@ -399,6 +447,8 @@ extern "C" int bigdl_flash_bwd_smem_bytes(int dkv, int D, int dtype) {
     case 32: return smem_of<32>(dkv != 0, dtype);
     case 64: return smem_of<64>(dkv != 0, dtype);
     case 128: return smem_of<128>(dkv != 0, dtype);
+    case 192: return smem_of<192>(dkv != 0, dtype);
+    case 256: return smem_of<256>(dkv != 0, dtype);
     default: return 0;
   }
 }

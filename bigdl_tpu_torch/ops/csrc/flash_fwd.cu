@@ -21,11 +21,18 @@
 // two consumer warpgroups of 64 rows each, whose S, P and O stay in
 // registers, and one producer warpgroup that loads the q tile once and K
 // and V tiles into an mbarrier ring by TMA; S = Q.K^T and O += P.V on
-// wgmma, P as the register A operand.  Key tiles are 64 rows in 4 stages
-// at D 128 (a warpgroup above the diagonal then skips the diagonal tile's
-// second half: measured on the causal main path, PERF.md) and 128 rows in
-// 3 stages below.  Blocks start with the heaviest causal q tiles, so the
-// last wave is short.
+// wgmma, P as the register A operand.  Key tiles are 64 rows at D 128 and
+// above (a warpgroup above the diagonal then skips the diagonal tile's
+// second half: measured on the causal main path, PERF.md; 4 stages at
+// D 128, 3 at D 192, 2 at D 256) and 128 rows in 3 stages below.  Blocks
+// start with the heaviest causal q tiles, so the last wave is short.  q, k
+// and v are read at their own strides (the head-strided view of an
+// attention layer in place); o is contiguous.
+//
+// Head dims 192 and 256 are the bf16 route of head dims 129-256 (the
+// wrapper zero-pads D to the next of them).  There the bound moves: at
+// B 2, H 8, T 1024, D 256, causal, the two products are 8.6 GFLOP, 8.7 us
+// at 989 TFLOP/s, against 33.6 MB, 10.0 us at 3.35 TB/s.
 //
 // f32 (flash_fwd_kernel) keeps the FMA design of tile_common.cuh: one
 // 4-warp block per 64 query rows, tiles and accumulator in shared memory.
@@ -65,14 +72,11 @@ struct DenseSweep {
 
 // key rows per tile at head dim D (see the note at the top)
 template <int D>
-constexpr int kDenseKeyRows = D == 128 ? 64 : 128;
+constexpr int kDenseKeyRows = D >= 128 ? 64 : 128;
 
 template <int D>
-cudaError_t launch_bf16(const void* q, const void* k, const void* v, void* o, void* lse, int BH,
-                        int T_len, int S_len, float sm_scale, int causal, cudaStream_t stream) {
-  return launch_fwd_wgmma<D, kDenseKeyRows<D>>(
-      FwdArgs{q, k, v, o, lse, BH, T_len, S_len, sm_scale, causal, stream},
-      DenseSweep<kDenseKeyRows<D>>{causal});
+cudaError_t launch_bf16(const FwdArgs& a) {
+  return launch_fwd_wgmma<D, kDenseKeyRows<D>>(a, DenseSweep<kDenseKeyRows<D>>{a.causal});
 }
 
 // ---- f32: the FMA tile loop of tile_common.cuh -------------------------------
@@ -192,21 +196,32 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o, void* l
   return cudaGetLastError();
 }
 
-cudaError_t dispatch_bf16(int D, const void* q, const void* k, const void* v, void* o,
-                          void* lse, int BH, int T_len, int S_len, float sm_scale, int causal,
-                          cudaStream_t stream) {
+cudaError_t dispatch_bf16(int D, const FwdArgs& a) {
   switch (D) {
-    case 16: return launch_bf16<16>(q, k, v, o, lse, BH, T_len, S_len, sm_scale, causal, stream);
-    case 32: return launch_bf16<32>(q, k, v, o, lse, BH, T_len, S_len, sm_scale, causal, stream);
-    case 64: return launch_bf16<64>(q, k, v, o, lse, BH, T_len, S_len, sm_scale, causal, stream);
-    case 128: return launch_bf16<128>(q, k, v, o, lse, BH, T_len, S_len, sm_scale, causal, stream);
+    case 16: return launch_bf16<16>(a);
+    case 32: return launch_bf16<32>(a);
+    case 64: return launch_bf16<64>(a);
+    case 128: return launch_bf16<128>(a);
+    case 192: return launch_bf16<192>(a);
+    case 256: return launch_bf16<256>(a);
     default: return cudaErrorInvalidValue;
   }
 }
 
-cudaError_t dispatch_f32(int D, const void* q, const void* k, const void* v, void* o,
-                         void* lse, int BH, int T_len, int S_len, float sm_scale, int causal,
-                         cudaStream_t stream) {
+// the f32 tile loop reads contiguous heads: from head h0 on
+cudaError_t dispatch_f32(int D, const FwdArgs& a) {
+  if (!a.sq.dense(a.H, a.T_len, D) || !a.sk.dense(a.H, a.S_len, D) ||
+      !a.sv.dense(a.H, a.S_len, D))
+    return cudaErrorInvalidValue;
+  const size_t qo = (size_t)a.h0 * a.T_len, kv = (size_t)a.h0 * a.S_len * D;
+  const void* q = static_cast<const float*>(a.q) + qo * D;
+  const void* k = static_cast<const float*>(a.k) + kv;
+  const void* v = static_cast<const float*>(a.v) + kv;
+  void* o = static_cast<float*>(a.o) + qo * D;
+  void* lse = static_cast<float*>(a.lse) + qo;
+  const int BH = a.BH, T_len = a.T_len, S_len = a.S_len, causal = a.causal;
+  const float sm_scale = a.sm_scale;
+  const cudaStream_t stream = a.stream;
   switch (D) {
     case 16: return launch<float, 16>(q, k, v, o, lse, BH, T_len, S_len, sm_scale, causal, stream);
     case 32: return launch<float, 32>(q, k, v, o, lse, BH, T_len, S_len, sm_scale, causal, stream);
@@ -219,18 +234,24 @@ cudaError_t dispatch_f32(int D, const void* q, const void* k, const void* v, voi
 
 }  // namespace
 
-// q (BH, T, D), k/v (BH, S, D), o (BH, T, D) in q's dtype, lse (BH, T) f32;
-// all contiguous and 16-byte aligned.  dtype: 0 = float32, 1 = bfloat16.
-// Returns the cudaError_t of the launch (0 on success).
+// Heads h0 .. h0 + BH - 1 of q (., H, T, D) and k/v (., H, S, D) in one
+// dtype (0 = float32, 1 = bfloat16), each at its element strides (strides:
+// batch, head and row of q, then k, then v; the last dim unit-stride); in
+// bf16 every stride a multiple of 8 and each base 16-byte aligned (TMA), in
+// f32 contiguous.  o (., T, D) in q's dtype and lse (., T) f32 contiguous.
+// Every pointer is the tensor's start, not its head h0's.  Returns the
+// cudaError_t of the launch (0 on success).
 extern "C" int bigdl_flash_fwd(const void* q, const void* k, const void* v, void* o, void* lse,
-                               int BH, int T_len, int S_len, int D, int dtype, float sm_scale,
-                               int causal, void* stream) {
-  if (BH <= 0 || T_len <= 0 || S_len <= 0 || BH > 65535) return (int)cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 1)
-    return (int)dispatch_bf16(D, q, k, v, o, lse, BH, T_len, S_len, sm_scale, causal, s);
-  if (dtype == 0)
-    return (int)dispatch_f32(D, q, k, v, o, lse, BH, T_len, S_len, sm_scale, causal, s);
+                               const long long* strides, int H, int h0, int BH, int T_len,
+                               int S_len, int D, int dtype, float sm_scale, int causal,
+                               void* stream) {
+  if (BH <= 0 || T_len <= 0 || S_len <= 0 || BH > 65535 || H <= 0 || h0 < 0)
+    return (int)cudaErrorInvalidValue;
+  const FwdArgs a{q, k, v, o, lse, head_strides(strides, 0), head_strides(strides, 1),
+                  head_strides(strides, 2), H, h0, BH, T_len, S_len, sm_scale, causal,
+                  static_cast<cudaStream_t>(stream)};
+  if (dtype == 1) return (int)dispatch_bf16(D, a);
+  if (dtype == 0) return (int)dispatch_f32(D, a);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -243,6 +264,8 @@ extern "C" int bigdl_flash_fwd_smem_bytes(int D, int dtype) {
       case 32: return (int)FwdCfg<32, kDenseKeyRows<32>>::SMEM;
       case 64: return (int)FwdCfg<64, kDenseKeyRows<64>>::SMEM;
       case 128: return (int)FwdCfg<128, kDenseKeyRows<128>>::SMEM;
+      case 192: return (int)FwdCfg<192, kDenseKeyRows<192>>::SMEM;
+      case 256: return (int)FwdCfg<256, kDenseKeyRows<256>>::SMEM;
     }
   } else if (dtype == 0) {
     switch (D) {

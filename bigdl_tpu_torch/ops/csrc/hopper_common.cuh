@@ -95,6 +95,13 @@ __device__ __forceinline__ void named_barrier_sync(int id, int nthreads) {
   asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(nthreads) : "memory");
 }
 
+// arrives on named barrier `id` (counted as `nthreads`, whole warps) without
+// waiting: the threads that bar.sync on it wait for these arrivals, and see
+// this thread's earlier writes to shared memory
+__device__ __forceinline__ void named_barrier_arrive(int id, int nthreads) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(nthreads) : "memory");
+}
+
 // moves registers between warpgroups of a warp-specialised block: a
 // producer gives some up, consumers take them; all 128 threads of the
 // warpgroup execute it, once, at the top of a branch the others never enter
@@ -457,17 +464,43 @@ struct Step {
   uint32_t flags;
 };
 
-// One warp stages rows row0 .. row0 + 63 of a (n_rows, D) bf16 matrix into a
-// 64-row tile of swizzled panels at `dst` (panel pitch kPanel), where TMA
-// would put them: the swizzle xors a row's 16-byte chunk index with address
-// bits 7.. of its panel offset (Swizzle<3,4,3> at 128-byte rows, <2,4,3> at
-// 64, <1,4,3> at 32), so a row keeps its own bytes.  Rows whose bit in `live`
-// is clear, and rows at or past n_rows, are written as zeros, not loaded.
+// Where the rows of one attention operand lie: a (B, H, rows, D) bf16 tensor
+// whose last dim is unit-stride, with element strides b, h and r of its
+// batch, head and row dims (contiguous: H rows D, rows D, D).  The attention
+// kernels read q, k, v and dO through such strides, so the view
+// (B, T, H, D).transpose(1, 2) that every attention layer makes is read in
+// place; their outputs are contiguous.
+struct HeadStrides {
+  long long b, h, r;
+
+  __host__ __device__ long long head(int bh, int H) const {
+    return (long long)(bh / H) * b + (long long)(bh % H) * h;
+  }
+  // the strides of a contiguous (., H, rows, D) tensor (the wrappers give a
+  // dim of size 1 these strides)
+  bool dense(int H, int rows, int D) const {
+    return r == D && h == (long long)rows * D && b == (long long)H * rows * D;
+  }
+};
+
+// the three HeadStrides of q, k, v (and dO) from the C entries' flat array
+// (batch, head and row strides of each operand in turn)
+inline HeadStrides head_strides(const long long* s, int i) {
+  return HeadStrides{s[3 * i], s[3 * i + 1], s[3 * i + 2]};
+}
+
+// One warp stages rows row0 .. row0 + 63 of one head's (n_rows, D) bf16
+// matrix, row i at src + i * pitch, into a 64-row tile of swizzled panels at
+// `dst` (panel pitch kPanel), where TMA would put them: the swizzle xors a
+// row's 16-byte chunk index with address bits 7.. of its panel offset
+// (Swizzle<3,4,3> at 128-byte rows, <2,4,3> at 64, <1,4,3> at 32), so a row
+// keeps its own bytes.  Rows whose bit in `live` is clear, and rows at or
+// past n_rows, are written as zeros, not loaded.
 template <int D, int kPanel>
 __device__ __forceinline__ void stage_live_rows(unsigned char* dst,
                                                 const __nv_bfloat16* __restrict__ src,
-                                                int row0, int n_rows, unsigned long long live,
-                                                int lane) {
+                                                long long pitch, int row0, int n_rows,
+                                                unsigned long long live, int lane) {
   using P = Panels<D>;
   constexpr int CPR = D / 8;        // 16-byte chunks per row
   constexpr int CPP = P::PW / 8;    // 16-byte chunks per panel row
@@ -478,7 +511,7 @@ __device__ __forceinline__ void stage_live_rows(unsigned char* dst,
     const int r = i / CPR, cc = i % CPR;
     uint4 val = make_uint4(0u, 0u, 0u, 0u);
     if (row0 + r < n_rows && ((live >> r) & 1ull))
-      val = *reinterpret_cast<const uint4*>(src + (size_t)(row0 + r) * D + 8 * cc);
+      val = *reinterpret_cast<const uint4*>(src + (row0 + r) * pitch + 8 * cc);
     const uint32_t a = r * P::RB + 16 * (cc % CPP);
     *reinterpret_cast<uint4*>(dst + (cc / CPP) * kPanel + (a ^ ((a >> 3) & SWZ))) = val;
   }
@@ -555,12 +588,27 @@ inline cudaError_t encode_bf16_2d(CUtensorMap* map, const void* base, uint64_t n
 
 // A tensor map over a contiguous bf16 array of shape (n2, n1, n0), n0
 // innermost, read in boxes of (1, box1, box0): a box never reaches past n1
-// into the next index of n2.
+// into the next index of n2.  K5 (conv3x3.cu) reads its weights so.
 inline cudaError_t encode_bf16_3d(CUtensorMap* map, const void* base, uint64_t n0, uint64_t n1,
                                   uint64_t n2, uint32_t box0, uint32_t box1) {
   const uint64_t dims[3] = {n0, n1, n2};
   const uint32_t box[3] = {box0, box1, 1};
   return encode_bf16(map, base, 3, dims, box);
+}
+
+// A tensor map over the first n_heads heads of an attention operand (D
+// columns, `rows` rows a head, H heads a batch, strides `s`) as the 4-D
+// array (D, rows, H, B), read in boxes of (1, 1, box1, box0) loaded at
+// (column, row, h, b): a box never reaches past its own head, and rows past
+// `rows` arrive as zeros.  TMA takes strides that are multiples of 16 bytes
+// and a 16-byte-aligned base; the wrappers copy an operand that breaks this.
+inline cudaError_t encode_bf16_heads(CUtensorMap* map, const void* base, int D, int rows, int H,
+                                     int n_heads, HeadStrides s, uint32_t box0, uint32_t box1) {
+  const uint64_t dims[4] = {(uint64_t)D, (uint64_t)rows, (uint64_t)H,
+                            (uint64_t)((n_heads + H - 1) / H)};
+  const uint32_t box[4] = {box0, box1, 1, 1};
+  const uint64_t pitches[3] = {2 * (uint64_t)s.r, 2 * (uint64_t)s.h, 2 * (uint64_t)s.b};
+  return encode_bf16(map, base, 4, dims, box, pitches);
 }
 
 // A tensor map over a contiguous bf16 array of shape (n3, n2, n1, n0), read

@@ -13,10 +13,26 @@ computes, what bounds it and how:
   and ``_dq_kernel`` (``:271``): for bf16 the warp-specialised Hopper
   body of ``csrc/attn_bwd_hopper.cuh`` (TMA ring, wgmma, dK/dV and dQ in
   registers) over the dense causal sweep, for f32 the tile loop;
-* head dims above 128 take the wide route, ``csrc/attn_wide.cu``: one
-  warp per output row, any D, under the dense mask here and the block
-  mask in ``block_sparse.py``.  A wide launch counts under the counter of
-  the kernel it stands for and under ``LAUNCHES_WIDE``.
+* head dims above the built ones take the wide route,
+  ``csrc/attn_wide.cu``: one warp per output row, any D, under the dense
+  mask here and the block mask in ``block_sparse.py``.  A wide launch
+  counts under the counter of the kernel it stands for and under
+  ``LAUNCHES_WIDE``.
+
+Routing by dtype and head dim D: f32 runs the tile loops at 16, 32, 64
+and 128 and the wide route above 128; bf16 runs the Hopper bodies at 16,
+32, 64, 128, 192 and 256 (K3 to 128: its dQ at 192 and 256 is the wide
+route's) and the wide route above 256.  A head dim between the built
+ones is zero-padded to the next (``_padded_head_dim``: bf16 160 runs at
+192, 200 at 256).
+
+Layouts: the Hopper kernels read q, k, v and dO through TMA at their own
+strides, so the (B, T, H, D).transpose(1, 2) view that every attention
+layer makes is read in place; only an operand TMA cannot read (a start
+not 16-byte aligned, a stride not a multiple of 16 bytes, a last dim that
+is not unit-stride) is copied, and the routes without TMA (the f32 tile
+loops, the wide route) copy what is not contiguous (``OPERAND_COPIES``
+counts both).  Outputs are contiguous.
 
 ``flash_attention`` and ``flash_forward`` run through one
 ``torch.autograd.Function``, the counterpart of the ``custom_vjp`` of
@@ -27,11 +43,9 @@ versions (``_flash_plain``, ``_flash_bwd_plain``: the kernels' math in
 PyTorch); for CUDA tensors it launches the kernels or raises, forward
 and backward.  Any T and S (the kernels mask the ragged edge: there is
 no TPU-style block-multiple fallback), any B*H (launched 65535 heads at
-a time), any head dim (the Hopper kernels and tile loops are built for
-16/32/64/128, and a head dim between them is zero-padded to the next,
-which leaves attention and its gradients as they are, and cut back after
-the launch; above 128 the wide route takes it as it is), float32 or
-bfloat16.
+a time), any head dim (zero padding leaves attention and its gradients
+as they are; the outputs are cut back after the launch), any layout,
+float32 or bfloat16.
 """
 from __future__ import annotations
 
@@ -41,11 +55,14 @@ from typing import Optional, Tuple
 
 import torch
 
-from ._support import (LaunchCounter, check_cuda_input, load_cuda_library,
-                       on_cpu)
+from ._support import LaunchCounter, load_cuda_library, on_cpu
 
 _BIG_LSE = 1e30  # lse sentinel for fully-masked rows: exp(s - BIG) == 0
+#: head dims the kernels are built for: the f32 tile loops, and K3/K8 in
+#: every dtype
 HEAD_DIMS = (16, 32, 64, 128)
+#: the bf16 Hopper forward and dK/dV (K1, K2, K6, K7) also take these
+HEAD_DIMS_BF16 = HEAD_DIMS + (192, 256)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 #: launches of K1 (CUDA branch only)
@@ -53,12 +70,19 @@ LAUNCHES = LaunchCounter("flash_fwd")
 #: launches of K2 and K3 (CUDA branch only)
 LAUNCHES_DKV = LaunchCounter("flash_bwd_dkv")
 LAUNCHES_DQ = LaunchCounter("flash_bwd_dq")
-#: launches of the wide route (head dims above 128) of K1-K3 and K6-K8
+#: launches of the wide route (head dims above the built ones) of K1-K3
+#: and K6-K8
 LAUNCHES_WIDE = LaunchCounter("attn_wide")
+#: q, k, v and dO operands the attention wrappers copied because a kernel
+#: could not read them in place (not 16-byte aligned, a stride TMA does
+#: not take, or not contiguous for a route without TMA); padded head dims
+#: are not counted (the pad is the copy)
+OPERAND_COPIES = LaunchCounter("attn_operand_copies")
 #: heads a launch takes at most: the limit of a grid's y dimension
 MAX_HEADS = 65535
-#: marks the head count's place among a launch's arguments
+#: mark the head count and the first head index among a launch's arguments
 HEADS = object()
+FIRST_HEAD = object()
 
 
 def _causal_keep(T: int, S: int, device) -> torch.Tensor:
@@ -135,19 +159,33 @@ def _check_kernel_inputs(what: str, q, k, v):
         raise ValueError(f"{what}: head dim {q.shape[-1]}")
     if k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"{what}: q, k and v must share a dtype")
-    for name, t in (("q", q), ("k", k), ("v", v)):
-        check_cuda_input(f"{what} {name}", t, tuple(_DTYPE_CODE))
+    if q.dtype not in _DTYPE_CODE:
+        raise TypeError(f"{what}: dtype {q.dtype} not in {tuple(_DTYPE_CODE)}")
 
 
-def _wide(D: int) -> bool:
-    """Whether head dim D takes the wide route (above the built ones)."""
+def _head_dims(dtype) -> Tuple[int, ...]:
+    return HEAD_DIMS_BF16 if dtype == torch.bfloat16 else HEAD_DIMS
+
+
+def _wide(D: int, dtype) -> bool:
+    """Whether head dim D takes the wide route in the forward and dK/dV:
+    above the head dims built for ``dtype`` (f32 above 128, bf16 above
+    256)."""
+    return D > _head_dims(dtype)[-1]
+
+
+def _dq_wide(D: int) -> bool:
+    """Whether head dim D takes the wide route in dQ (K3, K8: above 128 in
+    either dtype)."""
     return D > HEAD_DIMS[-1]
 
 
-def _padded_head_dim(D: int) -> int:
-    """The head dim the kernels run for a true head dim D: the next of
-    ``HEAD_DIMS``, or D itself on the wide route."""
-    return D if _wide(D) else next(d for d in HEAD_DIMS if d >= D)
+def _padded_head_dim(D: int, dtype) -> int:
+    """The head dim the kernels run for a true head dim D in ``dtype``:
+    the next built one (bf16 129-256: 192 or 256, the next multiple of
+    64), or D itself on the wide route."""
+    return D if _wide(D, dtype) else next(d for d in _head_dims(dtype)
+                                          if d >= D)
 
 
 def _pad_head_dim(t: torch.Tensor, Dp: int) -> torch.Tensor:
@@ -165,39 +203,89 @@ def _cut_head_dim(t: torch.Tensor, D: int) -> torch.Tensor:
     return t if t.shape[-1] == D else t[..., :D].contiguous()
 
 
+def _head_strides(t: torch.Tensor):
+    """The (batch, head, row) element strides of (B, H, rows, D) ``t``; a
+    dim of size 1 gets the stride a contiguous tensor has there."""
+    B, H, R, D = t.shape
+    dense = (H * R * D, R * D, D)
+    return [s if n > 1 else c
+            for s, n, c in zip(t.stride()[:3], t.shape[:3], dense)]
+
+
+def _readable(t: torch.Tensor, tma: bool) -> bool:
+    """Whether a kernel reads ``t`` in place: through TMA (``tma``) a
+    unit-stride last dim, 16-byte-aligned start and strides that are
+    non-zero multiples of 16 bytes; otherwise contiguous."""
+    if not tma:
+        return t.is_contiguous()
+    item = t.element_size()
+    return (t.stride(-1) == 1 and t.data_ptr() % 16 == 0
+            and all(s > 0 and s * item % 16 == 0 for s in _head_strides(t)))
+
+
+def _kernel_operands(*tensors, tma: bool):
+    """The tensors as a kernel reads them: each in place where
+    ``_readable``, else a contiguous copy (counted in
+    ``OPERAND_COPIES``)."""
+    out = []
+    for t in tensors:
+        if not _readable(t, tma):
+            t = t.contiguous()
+            OPERAND_COPIES.add()
+        out.append(t)
+    return out
+
+
+def _strides_arg(*tensors):
+    """The C entries' strides array: (batch, head, row) of each tensor."""
+    flat = [s for t in tensors for s in _head_strides(t)]
+    return (ctypes.c_longlong * len(flat))(*flat)
+
+
+def _empty(t: torch.Tensor, shape=None, dtype=None) -> torch.Tensor:
+    """A contiguous output like ``t``: the kernels write their outputs
+    contiguous, whatever the layout of their inputs."""
+    return torch.empty(t.shape if shape is None else shape,
+                       dtype=t.dtype if dtype is None else dtype,
+                       device=t.device)
+
+
 def _stream(device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
 
 
-def _launch_heads(name: str, counters, fn, per_head, shared, BH: int):
+def _c_fn(lib: str, name: str, argtypes):
+    """C entry ``name`` of ``csrc/<lib>.cu`` (built at first use)."""
+    fn = getattr(load_cuda_library(lib), name)
+    fn.argtypes, fn.restype = argtypes, ctypes.c_int
+    return fn
+
+
+def _call(name: str, fn, args, device):
+    """``fn(*args, stream)`` on the current stream of ``device``; a launch
+    error raises."""
+    with torch.cuda.device(device):
+        err = fn(*args, _stream(device))
+    if err != 0:
+        raise RuntimeError(f"{name} launch failed: cudaError {err}")
+
+
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+
+
+def _launch_heads(name: str, counters, fn, args, BH: int, device):
     """Launch ``fn`` over B*H heads, at most ``MAX_HEADS`` a launch, on
-    the current stream of the tensors' device: each launch takes the
-    tensors of ``per_head`` (contiguous (B*H, ...) views) from its first
-    head on, then ``shared`` (the arguments every head reads: ints,
-    floats, table pointers) with its head count in place of ``HEADS``,
-    then the stream.  Each launch adds one to each of ``counters``; a
-    launch error raises."""
-    device = per_head[0].device
-    stream = _stream(device)
+    the current stream of ``device``: ``args`` with the launch's head
+    count in place of ``HEADS`` and its first head in place of
+    ``FIRST_HEAD``; every pointer stays the tensor's start (the kernels
+    find a head from its index and the strides).  Each launch adds one to
+    each of ``counters``; a launch error raises."""
     for h0 in range(0, BH, MAX_HEADS):
         n = min(MAX_HEADS, BH - h0)
-        ptrs = [t.data_ptr() + h0 * (t.numel() // BH) * t.element_size()
-                for t in per_head]
-        args = [n if a is HEADS else a for a in shared]
-        with torch.cuda.device(device):
-            err = fn(*ptrs, *args, stream)
-        if err != 0:
-            raise RuntimeError(f"{name} launch failed: cudaError {err}")
+        _call(name, fn, [n if a is HEADS else h0 if a is FIRST_HEAD else a
+                         for a in args], device)
         for c in counters:
             c.add()
-
-
-def _wide_fn(name: str, n_ptr: int):
-    fn = getattr(load_cuda_library("attn_wide"), name)
-    fn.argtypes = [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * 8 + [
-        ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return fn
 
 
 def _wide_mask(mask):
@@ -210,135 +298,149 @@ def _wide_mask(mask):
     return [grid.data_ptr(), grid.shape[1], bq, bk]
 
 
+def _wide_launch(what: str, counter, tensors, outs, causal, sm_scale, mask):
+    """One wide kernel (``bigdl_wide_<what>``) over ``tensors`` (q, k, v
+    and dO copied where they are not contiguous), writing ``outs``;
+    counts under ``counter`` and ``LAUNCHES_WIDE``."""
+    q, k = tensors[0], tensors[1]
+    tensors = _kernel_operands(*tensors[:4], tma=False) + tensors[4:]
+    B, H, T, D = q.shape
+    fn = _c_fn("attn_wide", f"bigdl_wide_{what}",
+               [_P] * (len(tensors) + len(outs) + 1) + [_I] * 9
+               + [_F, _I, _P])
+    _launch_heads(f"attn_wide {what}", (counter, LAUNCHES_WIDE), fn,
+                  [*(t.data_ptr() for t in (*tensors, *outs)),
+                   *_wide_mask(mask), FIRST_HEAD, HEADS, T, k.shape[2], D,
+                   _DTYPE_CODE[q.dtype], float(sm_scale), int(bool(causal))],
+                  B * H, q.device)
+
+
 def _wide_fwd(q, k, v, causal: bool, sm_scale: float, counter, mask=None
               ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The wide forward (head dim above 128, taken as it is) under the
-    dense mask or ``mask`` (see ``_wide_mask``); counts under ``counter``
-    and ``LAUNCHES_WIDE``."""
+    """The wide forward (a head dim above the built ones, taken as it
+    is) under the dense mask or ``mask`` (see ``_wide_mask``); counts
+    under ``counter`` and ``LAUNCHES_WIDE``."""
     B, H, T, D = q.shape
-    o = torch.empty_like(q)
-    lse = torch.empty((B * H, 1, T), dtype=torch.float32, device=q.device)
-    m_ptr, *m_ints = _wide_mask(mask)
-    _launch_heads("attn_wide fwd", (counter, LAUNCHES_WIDE),
-                  _wide_fn("bigdl_wide_fwd", 6), [q, k, v, o, lse],
-                  [m_ptr, *m_ints, HEADS, T, k.shape[2], D,
-                   _DTYPE_CODE[q.dtype], float(sm_scale), int(bool(causal))],
-                  B * H)
+    o = _empty(q)
+    lse = _empty(q, (B * H, 1, T), torch.float32)
+    _wide_launch("fwd", counter, [q, k, v], [o, lse], causal, sm_scale, mask)
     return o, lse
 
 
 def _wide_dkv(q, k, v, do, lse, delta, causal: bool, sm_scale: float, counter,
               mask=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """The wide dK/dV over prepared inputs (as ``_launch_dkv``)."""
-    B, H, T, D = q.shape
-    dk, dv = torch.empty_like(k), torch.empty_like(v)
-    m_ptr, *m_ints = _wide_mask(mask)
-    _launch_heads("attn_wide dkv", (counter, LAUNCHES_WIDE),
-                  _wide_fn("bigdl_wide_bwd_dkv", 9),
-                  [q, k, v, do, lse, delta, dk, dv],
-                  [m_ptr, *m_ints, HEADS, T, k.shape[2], D,
-                   _DTYPE_CODE[q.dtype], float(sm_scale), int(bool(causal))],
-                  B * H)
+    dk, dv = _empty(k), _empty(v)
+    _wide_launch("bwd_dkv", counter, [q, k, v, do, lse, delta], [dk, dv],
+                 causal, sm_scale, mask)
     return dk, dv
 
 
 def _wide_dq(q, k, v, do, lse, delta, causal: bool, sm_scale: float, counter,
              mask=None) -> torch.Tensor:
     """The wide dQ over prepared inputs (as ``_launch_dq``)."""
-    B, H, T, D = q.shape
-    dq = torch.empty_like(q)
-    m_ptr, *m_ints = _wide_mask(mask)
-    _launch_heads("attn_wide dq", (counter, LAUNCHES_WIDE),
-                  _wide_fn("bigdl_wide_bwd_dq", 8),
-                  [q, k, v, do, lse, delta, dq],
-                  [m_ptr, *m_ints, HEADS, T, k.shape[2], D,
-                   _DTYPE_CODE[q.dtype], float(sm_scale), int(bool(causal))],
-                  B * H)
+    dq = _empty(q)
+    _wide_launch("bwd_dq", counter, [q, k, v, do, lse, delta], [dq],
+                 causal, sm_scale, mask)
     return dq
 
 
 def _flash_cuda(q, k, v, causal: bool, sm_scale: float
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Launch K1 on the current stream of q's device (a head dim between
-    the built ones zero-padded, O cut back; above 128 the wide route)."""
+    the built ones zero-padded, O cut back; above them the wide route).
+    bf16 q, k and v are read at their strides (TMA), f32 contiguous."""
     _check_kernel_inputs("flash_attention", q, k, v)
     D_true = q.shape[-1]
-    if _wide(D_true):
+    Dp = _padded_head_dim(D_true, q.dtype)
+    if _wide(Dp, q.dtype):
         return _wide_fwd(q, k, v, causal, sm_scale, LAUNCHES)
-    Dp = _padded_head_dim(D_true)
-    q, k, v = (_pad_head_dim(t, Dp) for t in (q, k, v))
+    q, k, v = _kernel_operands(*(_pad_head_dim(t, Dp) for t in (q, k, v)),
+                               tma=q.dtype == torch.bfloat16)
     B, H, T, D = q.shape
-    fn = load_cuda_library("flash_fwd").bigdl_flash_fwd
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [
-        ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    o = torch.empty_like(q)
-    lse = torch.empty((B * H, 1, T), dtype=torch.float32, device=q.device)
-    _launch_heads("flash_fwd", (LAUNCHES,), fn, [q, k, v, o, lse],
-                  [HEADS, T, k.shape[2], D, _DTYPE_CODE[q.dtype],
-                   float(sm_scale), int(bool(causal))], B * H)
+    fn = _c_fn("flash_fwd", "bigdl_flash_fwd", [_P] * 6 + [_I] * 7
+               + [_F, _I, _P])
+    o = _empty(q)
+    lse = _empty(q, (B * H, 1, T), torch.float32)
+    _launch_heads("flash_fwd", (LAUNCHES,), fn,
+                  [q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                   lse.data_ptr(), _strides_arg(q, k, v), H, FIRST_HEAD,
+                   HEADS, T, k.shape[2], D, _DTYPE_CODE[q.dtype],
+                   float(sm_scale), int(bool(causal))], B * H, q.device)
     return _cut_head_dim(o, D_true), lse
 
 
 def _bwd_fn(name: str, n_ptr: int):
-    fn = getattr(load_cuda_library("flash_bwd"), name)
-    fn.argtypes = [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * 5 + [
-        ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return fn
+    return _c_fn("flash_bwd", name, [_P] * (n_ptr + 1) + [_I] * 7
+                 + [_F, _I, _P])
 
 
 def _launch_dkv(q, k, v, do, lse, delta, causal: bool, sm_scale: float
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Launch K2 over prepared inputs: dO in q's dtype and delta
-    (B*H, T) f32, both contiguous, at a built head dim or above 128 (the
-    wide route).  Returns (dk, dv)."""
+    (B*H, T) f32, at a built head dim or above them (the wide route).
+    q, k, v and dO are read at their strides in bf16 (copied where TMA
+    cannot read them), contiguous in f32.  Returns contiguous (dk, dv)."""
     B, H, T, D = q.shape
-    if _wide(D):
+    if _wide(D, q.dtype):
         return _wide_dkv(q, k, v, do, lse, delta, causal, sm_scale,
                          LAUNCHES_DKV)
-    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    q, k, v, do = _kernel_operands(q, k, v, do,
+                                   tma=q.dtype == torch.bfloat16)
+    dk, dv = _empty(k), _empty(v)
     _launch_heads("flash_bwd_dkv", (LAUNCHES_DKV,),
                   _bwd_fn("bigdl_flash_bwd_dkv", 8),
-                  [q, k, v, do, lse, delta, dk, dv],
-                  [HEADS, T, k.shape[2], D, _DTYPE_CODE[q.dtype],
-                   float(sm_scale), int(bool(causal))], B * H)
+                  [*(t.data_ptr() for t in (q, k, v, do, lse, delta, dk, dv)),
+                   _strides_arg(q, k, v, do), H, FIRST_HEAD, HEADS, T,
+                   k.shape[2], D, _DTYPE_CODE[q.dtype], float(sm_scale),
+                   int(bool(causal))], B * H, q.device)
     return dk, dv
 
 
 def _launch_dq(q, k, v, do, lse, delta, causal: bool, sm_scale: float
                ) -> torch.Tensor:
-    """Launch K3 over the same prepared inputs as ``_launch_dkv``."""
+    """Launch K3 over the same prepared inputs as ``_launch_dkv`` (above
+    head dim 128 the wide route)."""
     B, H, T, D = q.shape
-    if _wide(D):
-        return _wide_dq(q, k, v, do, lse, delta, causal, sm_scale, LAUNCHES_DQ)
-    dq = torch.empty_like(q)
+    if _dq_wide(D):
+        return _wide_dq(q, k, v, do, lse, delta, causal, sm_scale,
+                        LAUNCHES_DQ)
+    q, k, v, do = _kernel_operands(q, k, v, do,
+                                   tma=q.dtype == torch.bfloat16)
+    dq = _empty(q)
     _launch_heads("flash_bwd_dq", (LAUNCHES_DQ,),
                   _bwd_fn("bigdl_flash_bwd_dq", 7),
-                  [q, k, v, do, lse, delta, dq],
-                  [HEADS, T, k.shape[2], D, _DTYPE_CODE[q.dtype],
-                   float(sm_scale), int(bool(causal))], B * H)
+                  [*(t.data_ptr() for t in (q, k, v, do, lse, delta, dq)),
+                   _strides_arg(q, k, v, do), H, FIRST_HEAD, HEADS, T,
+                   k.shape[2], D, _DTYPE_CODE[q.dtype], float(sm_scale),
+                   int(bool(causal))], B * H, q.device)
     return dq
 
 
 def _bwd_inputs(q, o, d_o):
-    """dO in q's dtype and delta = rowsum(dO * O) (B*H, T) in f32 — the
-    plain reduction the JAX package leaves to XLA."""
+    """dO in q's dtype (in its own layout: the kernels read it in place)
+    and delta = rowsum(dO * O) (B*H, T) in f32, contiguous — the plain
+    reduction the JAX package leaves to XLA."""
     B, H, T, _ = q.shape
     delta = (d_o.float() * o.float()).sum(dim=-1).reshape(B * H, T)
-    return d_o.to(q.dtype).contiguous(), delta.contiguous()
+    return d_o.to(q.dtype), delta.contiguous()
+
+
+def _check_lse(what: str, lse):
+    if lse.dtype != torch.float32 or not lse.is_contiguous():
+        raise ValueError(f"{what}: lse must be contiguous f32")
 
 
 def _flash_bwd_cuda(q, k, v, o, lse, d_o, causal: bool, sm_scale: float
                     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Launch K2 then K3 on the current stream of q's device (a head dim
-    between the built ones zero-padded, the gradients cut back; above 128
-    the wide route)."""
+    between the built ones zero-padded, the gradients cut back; above
+    them the wide route)."""
     _check_kernel_inputs("flash_attention backward", q, k, v)
-    check_cuda_input("flash_attention backward lse", lse, (torch.float32,))
+    _check_lse("flash_attention backward", lse)
     do, delta = _bwd_inputs(q, o, d_o)
     D = q.shape[-1]
-    Dp = _padded_head_dim(D)
+    Dp = _padded_head_dim(D, q.dtype)
     q, k, v, do = (_pad_head_dim(t, Dp) for t in (q, k, v, do))
     dk, dv = _launch_dkv(q, k, v, do, lse, delta, causal, sm_scale)
     dq = _launch_dq(q, k, v, do, lse, delta, causal, sm_scale)

@@ -18,8 +18,10 @@ Phases; any failure exits non-zero:
    KC, BN and W orientation) its registers, spills and dynamic shared
    memory (ptxas) and its wgmma (HGMMA) and TMA (UTMALDG) instructions
    (``cuobjdump -sass``, where the toolkit has it); each bf16 D 128
-   kernel, K5 at KC 64 and every K9 instantiation must not spill and
-   must hold both, and two K5 or K9 blocks must share an SM.
+   attention kernel, K1, K2, K6 and K7 at D 192 and 256, K5 at KC 64 and
+   every K9 instantiation must not spill and must hold both (and the
+   attention kernels must not have their wgmma serialised, ptxas C7520),
+   and two K5 or K9 blocks must share an SM.
 3. kernel parity — each kernel against its plain PyTorch version on the
    card at the shapes the served, the training, the block-sparse
    training, the matmul and the ResNet-50 paths give it, with the stated
@@ -27,8 +29,11 @@ Phases; any failure exits non-zero:
    T 200), 96, in f32, non-causal with a dead q block, strided, with NaN
    in the K/V rows no query may attend, and on all-ones masks against
    K1-K3 (K6-K8 = K1-K3 bit for bit on the same inputs in both dtypes);
-   the attention
-   kernels' wide route at head dim 256; K5 forward and dX at ResNet-50's
+   the attention kernels on the head-strided layout of an attention
+   layer at the training shapes (no copy; bit for bit the contiguous
+   launch) and K4 on a column slice; bf16 head dims 192 and 256 (the
+   forward and dK/dV on the Hopper bodies, dQ on the wide route; NaN in
+   dead K/V at 256 too) and 320 (the wide route); K5 forward and dX at ResNet-50's
    four stage shapes (B 64, bf16), one in f32, ResNet-CIFAR's first
    width (B 128, 32 x 32, C = O = 16) and ragged C 3, O 10, H 7, W 5,
    with K5's pixel box, its dead rows and the bytes its TMA boxes
@@ -50,7 +55,8 @@ Phases; any failure exits non-zero:
    True)``, SGD at lr 0.01, bf16 compute over f32 master weights, 8
    iterations over one batch of 16 int32 sequences of 1024 ids.  Every
    loss finite, no step skipped, the last loss below the first,
-   launches per step exactly K1 8, K2 8, K3 8, K4 17; the same 8 steps
+   launches per step exactly K1 8, K2 8, K3 8, K4 17 and no operand
+   copy (the layer's q, k, v are read in place); the same 8 steps
    in f32 on the card give the same first loss and the same decreases
    L_k - L_1; a 2-layer copy at full width trained 3 steps in f32 on the
    card and on the CPU gives the same losses, decreases and parameter
@@ -342,6 +348,13 @@ DESIGN_KERNELS = (
 )
 
 
+# the bf16 head dims phase 2 holds each Hopper attention kernel to: D 128,
+# and 192 and 256 for the forward and dK/dV (K3 and K8 stop at 128)
+CHECKED_HEAD_DIMS = {"K1": (128, 192, 256), "K2": (128, 192, 256),
+                     "K3": (128,), "K6": (128, 192, 256),
+                     "K7": (128, 192, 256), "K8": (128,)}
+
+
 def design_kernel(fn: str):
     """(label, head dim, bf16) of a phase-2 kernel's mangled name, or
     None for the others."""
@@ -358,7 +371,10 @@ def kernel_design(torch):
     of K1, K2, K3 and K6-K8 (dtype, head dim) its registers, spills and
     dynamic shared memory from ptxas, and its count of wgmma (HGMMA) and
     TMA load (UTMALDG) instructions in SASS.  Fails where a bf16 kernel
-    at D 128 spills or holds no HGMMA or no UTMALDG.  A library loaded
+    at D 128, or K1, K2, K6 or K7 at D 192 or 256 (the bf16 route of head
+    dims 129-256; K2 and K7 there are the 64-row dK/dV block), spills,
+    has its wgmma serialised by ptxas, holds no HGMMA or no UTMALDG, or is
+    missing.  A library loaded
     from an earlier build in the same checkout has no ptxas report
     (``_support.BUILD_INFO``): its registers and spills read "not
     measured"."""
@@ -383,7 +399,11 @@ def kernel_design(torch):
             "block_sparse": ("K6", "K7", "K8")}
     rows, failures = [], []
     for lib_name, labels in libs.items():
-        ptxas = ptxas_functions(_support.BUILD_INFO[lib_name][1])
+        report = _support.BUILD_INFO[lib_name][1]
+        ptxas = ptxas_functions(report)
+        # ptxas's remark that a kernel's wgmma are serialised (C7520: a
+        # product on a divergent path)
+        serialised = set(re.findall(r"serialized.*?function '([^']+)'", report))
         sass = sass_counts(_support.load_cuda_library(lib_name)._name)
         for fn in sorted(set(ptxas) | set(sass or {})):
             found = design_kernel(fn)
@@ -406,18 +426,22 @@ def kernel_design(torch):
                   f"{row['dynamic_smem_bytes']} B; SASS "
                   f"{'not measured (no cuobjdump)' if ops is None else ops}")
             spills = rep and (rep.get("spill_stores") or rep.get("spill_loads"))
-            if bf16 and D == 128:
+            if bf16 and D in CHECKED_HEAD_DIMS[label]:
                 if spills:
-                    failures.append(f"{label} bf16 D 128 spills: {rep}")
+                    failures.append(f"{label} bf16 D {D} spills: {rep}")
+                if fn in serialised:
+                    failures.append(f"{label} bf16 D {D}: ptxas serialises "
+                                    f"its wgmma (C7520)")
                 if ops is not None and not (ops["HGMMA"] and ops["UTMALDG"]):
-                    failures.append(f"{label} bf16 D 128 holds no HGMMA or "
+                    failures.append(f"{label} bf16 D {D} holds no HGMMA or "
                                     f"no UTMALDG: {ops}")
         for label in labels:
-            built = any(r["label"] == label and r["head_dim"] == 128
-                        and r["dtype"] == "bfloat16" for r in rows)
-            if not built and (ptxas or sass):
-                failures.append(f"{label} bf16 D 128 missing from the "
-                                f"build's reports")
+            for D in CHECKED_HEAD_DIMS[label]:
+                built = any(r["label"] == label and r["head_dim"] == D
+                            and r["dtype"] == "bfloat16" for r in rows)
+                if not built and (ptxas or sass):
+                    failures.append(f"{label} bf16 D {D} missing from the "
+                                    f"build's reports")
     return rows, failures
 
 
@@ -510,17 +534,41 @@ def mm_design(torch):
 def flash_cases(torch):
     """(label, B, H, T, S, D, dtype, causal): the served prefill, the
     training step, the 200-token batch, causal T > S, f32, narrower
-    heads, and a head dim above 128 (the wide route)."""
+    heads, head dims 192 and 256 (the bf16 Hopper route of 129-256) and
+    320 (the wide route).  A label starting "strided" takes q, k and v in
+    the (B, T, H, D).transpose(1, 2) layout an attention layer makes."""
     bf16, f32 = torch.bfloat16, torch.float32
     return [("served", 4, 8, 512, 512, 128, bf16, True),
             ("train", 16, 8, 1024, 1024, 128, bf16, True),
+            ("strided_train", 16, 8, 1024, 1024, 128, bf16, True),
             ("ragged_T200", 4, 8, 200, 200, 128, bf16, True),
             ("causal_T>S", 2, 8, 300, 200, 128, bf16, True),
             ("f32_causal", 2, 8, 512, 512, 128, f32, True),
             ("f32_noncausal_D64", 2, 4, 200, 333, 64, f32, False),
             ("bf16_noncausal_D32", 2, 4, 96, 130, 32, bf16, False),
             ("bf16_causal_T1_D16", 3, 2, 1, 1, 16, bf16, True),
-            ("wide_D256", 2, 8, 1024, 1024, 256, bf16, True)]
+            ("D192", 2, 8, 1024, 1024, 192, bf16, True),
+            ("D256", 2, 8, 1024, 1024, 256, bf16, True),
+            ("wide_D320", 2, 8, 1024, 1024, 320, bf16, True)]
+
+
+def attn_inputs(torch, label, B, H, rows, D, dt, g, n):
+    """n (B, H, rows, D) tensors from ``g``: contiguous, or for a
+    "strided" label the (B, rows, H, D).transpose(1, 2) views of an
+    attention layer."""
+    if label.startswith("strided"):
+        return [torch.randn(B, rows, H, D, device="cuda", generator=g
+                            ).to(dt).transpose(1, 2) for _ in range(n)]
+    return [torch.randn(B, H, rows, D, device="cuda", generator=g).to(dt)
+            for _ in range(n)]
+
+
+def wide_launches(fa, D, dt, passes):
+    """Wide-route launches a call makes at true head dim D: forward (and
+    dK/dV) where D is above the dtype's built head dims, dQ above 128."""
+    Dp = fa._padded_head_dim(D, dt)
+    return sum(int(fa._dq_wide(Dp) if p == "dq" else fa._wide(Dp, dt))
+               for p in passes)
 
 
 def check_flash(torch, F):
@@ -529,14 +577,15 @@ def check_flash(torch, F):
     rows = []
     for label, B, H, T, S, D, dt, causal in flash_cases(torch):
         g = torch.Generator(device="cuda").manual_seed(7)
-        q = torch.randn(B, H, T, D, device="cuda", generator=g).to(dt)
-        k = torch.randn(B, H, S, D, device="cuda", generator=g).to(dt)
-        v = torch.randn(B, H, S, D, device="cuda", generator=g).to(dt)
+        q, = attn_inputs(torch, label, B, H, T, D, dt, g, 1)
+        k, v = attn_inputs(torch, label, B, H, S, D, dt, g, 2)
         scale = 1.0 / math.sqrt(D)
         wide = fa.LAUNCHES_WIDE.count
+        copies = fa.OPERAND_COPIES.count
         o, lse = fa._flash_cuda(q, k, v, causal, scale)
         torch.cuda.synchronize()
         wide = fa.LAUNCHES_WIDE.count - wide
+        copies = fa.OPERAND_COPIES.count - copies
         o_ref, lse_ref = fa._flash_plain(q, k, v, causal, scale)
         err = (o.float() - o_ref.float()).abs().max().item()
         row_err = row_rel_err(torch, o, o_ref)
@@ -544,7 +593,16 @@ def check_flash(torch, F):
         dname = str(dt).split(".")[-1]
         tol = ROW_TOL[dname]
         ok = row_err <= tol and lse_err <= LSE_TOL and bool(
-            torch.isfinite(o.float()).all()) and wide == int(fa._wide(D))
+            torch.isfinite(o.float()).all()) and wide == wide_launches(
+                fa, D, dt, ("fwd",))
+        same = None
+        if label.startswith("strided"):
+            # in place (no copy), and the contiguous launch's bits
+            c = fa._flash_cuda(q.contiguous(), k.contiguous(), v.contiguous(),
+                               causal, scale)
+            same = bool(torch.equal(o, c[0]) and torch.equal(lse, c[1]))
+            ok = ok and same and copies == 0
+            del c
         ms = cuda_ms(lambda: fa._flash_cuda(q, k, v, causal, scale))
         plain_ms = cuda_ms(lambda: fa._flash_plain(q, k, v, causal, scale))
         lib_ms = None
@@ -558,11 +616,14 @@ def check_flash(torch, F):
         rows.append(dict(case=label, shape=[B, H, T, S, D], dtype=dname,
                          causal=causal, max_abs_err=err, row_rel_err=row_err,
                          lse_err=lse_err, tol=tol, ok=ok, wide_launches=wide,
+                         operand_copies=copies, equals_contiguous=same,
                          ms=ms,
                          plain_ms=plain_ms, library_ms=lib_ms,
                          bound_ms=bound_ms, bound_by=bound_by))
         print(f"K1 flash_fwd {label:>20} {dname:>8} row err {row_err:.3e} "
               f"(tol {tol:g}) max abs err {err:.3e} lse_err {lse_err:.3e} "
+              f"wide {wide} copies {copies}"
+              f"{'' if same is None else f' = contiguous bitwise {same}'} "
               f"| kernel {ms:.4f} ms "
               f"plain {plain_ms:.4f} ms sdpa {lib_ms} ms (kernel / sdpa "
               f"{ms / lib_ms if lib_ms else None}) bound "
@@ -578,18 +639,29 @@ def check_layer_norm(torch, F):
                                ("train", 16384, 1024, torch.bfloat16),
                                ("f32", 2048, 1024, torch.float32),
                                ("decode_step", 4, 1024, torch.bfloat16),
-                               ("ragged_F", 300, 1000, torch.bfloat16)):
+                               ("ragged_F", 300, 1000, torch.bfloat16),
+                               ("column_slice", 16384, 1024, torch.bfloat16)):
         g = torch.Generator(device="cuda").manual_seed(11)
-        x = torch.randn(R, Fdim, device="cuda", generator=g).to(dt)
+        if label == "column_slice":   # rows 1536 apart, read in place
+            x = torch.randn(R, 1536, device="cuda", generator=g).to(dt)[
+                :, 256:256 + Fdim]
+        else:
+            x = torch.randn(R, Fdim, device="cuda", generator=g).to(dt)
         gamma = (1 + 0.1 * torch.randn(Fdim, device="cuda", generator=g)).to(dt)
         beta = (0.1 * torch.randn(Fdim, device="cuda", generator=g)).to(dt)
+        copies = ln.X_COPIES.count
         y = ln._layer_norm_cuda(x, gamma, beta, 1e-5)
         torch.cuda.synchronize()
+        copies = ln.X_COPIES.count - copies
         y_ref = ln._layer_norm_plain(x, gamma, beta, 1e-5)
         err = (y.float() - y_ref.float()).abs().max().item()
         dname = str(dt).split(".")[-1]
         tol = TOL[("layer_norm_fwd", dname)]
-        ok = err <= tol and bool(torch.isfinite(y.float()).all())
+        ok = err <= tol and bool(torch.isfinite(y.float()).all()) \
+            and copies == 0
+        if label == "column_slice":
+            ok = ok and bool(torch.equal(y, ln._layer_norm_cuda(
+                x.contiguous(), gamma, beta, 1e-5)))
         ms = cuda_ms(lambda: ln._layer_norm_cuda(x, gamma, beta, 1e-5))
         plain_ms = cuda_ms(lambda: ln._layer_norm_plain(x, gamma, beta, 1e-5))
         lib_ms = cuda_ms(lambda: F.layer_norm(x, (Fdim,), gamma, beta, 1e-5))
@@ -609,7 +681,9 @@ def check_layer_norm(torch, F):
 
 
 def launch_counters():
-    """Every kernel's launch counter, by the kernel's name."""
+    """Every kernel's launch counter, by the kernel's name, and the
+    attention and LayerNorm wrappers' counts of operand copies, which the
+    bf16 main paths hold at 0."""
     from bigdl_tpu_torch.ops import block_sparse as bs
     from bigdl_tpu_torch.ops import conv3x3
     from bigdl_tpu_torch.ops import flash_attention as fa
@@ -619,7 +693,8 @@ def launch_counters():
                                 fa.LAUNCHES_DQ, ln.LAUNCHES, bs.LAUNCHES,
                                 bs.LAUNCHES_DKV, bs.LAUNCHES_DQ,
                                 bs.LAUNCHES_MM, bs.LAUNCHES_MM_TILE,
-                                conv3x3.LAUNCHES, fa.LAUNCHES_WIDE)}
+                                conv3x3.LAUNCHES, fa.LAUNCHES_WIDE,
+                                fa.OPERAND_COPIES, ln.X_COPIES)}
 
 
 def want_launches(**counts):
@@ -629,17 +704,23 @@ def want_launches(**counts):
 
 def bwd_cases(torch):
     """(label, B, H, T, S, D, dtype, causal) for K2/K3: the training
-    step, a ragged T, causal T > S and S > T, f32, narrower heads, and a
-    head dim above 128 (the wide route)."""
+    step (also head-strided, as ``flash_cases``), a ragged T, causal
+    T > S and S > T, f32, narrower heads, head dims 192 and 256 (K2 on
+    the 64-row Hopper block, K3 on the wide route) and 320 (the wide
+    route)."""
     bf16, f32 = torch.bfloat16, torch.float32
     return [("train", 16, 8, 1024, 1024, 128, bf16, True),
+            ("strided_train", 16, 8, 1024, 1024, 128, bf16, True),
             ("ragged_T200", 4, 8, 200, 200, 128, bf16, True),
             ("causal_T>S", 2, 8, 300, 200, 128, bf16, True),
             ("causal_S>T", 2, 8, 200, 300, 64, bf16, True),
             ("f32_causal", 2, 8, 512, 512, 128, f32, True),
             ("f32_noncausal_D64", 2, 4, 200, 333, 64, f32, False),
             ("bf16_noncausal_D32", 2, 4, 96, 130, 32, bf16, False),
-            ("wide_D256", 2, 8, 1024, 1024, 256, bf16, True)]
+            ("D192", 2, 8, 1024, 1024, 192, bf16, True),
+            ("D256", 2, 8, 1024, 1024, 256, bf16, True),
+            ("ragged_D256", 2, 8, 200, 300, 256, bf16, True),
+            ("wide_D320", 2, 8, 1024, 1024, 320, bf16, True)]
 
 
 def sdpa_bwd_ms(torch, F, q, k, v, d_o, iters: int = 10, reps: int = 5,
@@ -687,15 +768,15 @@ def check_flash_bwd(torch, F):
     rows = []
     for label, B, H, T, S, D, dt, causal in bwd_cases(torch):
         g = torch.Generator(device="cuda").manual_seed(13)
-        q = torch.randn(B, H, T, D, device="cuda", generator=g).to(dt)
-        k = torch.randn(B, H, S, D, device="cuda", generator=g).to(dt)
-        v = torch.randn(B, H, S, D, device="cuda", generator=g).to(dt)
-        d_o = torch.randn(B, H, T, D, device="cuda", generator=g).to(dt)
+        q, = attn_inputs(torch, label, B, H, T, D, dt, g, 1)
+        k, v = attn_inputs(torch, label, B, H, S, D, dt, g, 2)
+        d_o, = attn_inputs(torch, label, B, H, T, D, dt, g, 1)
         scale = 1.0 / math.sqrt(D)
         o, lse = fa._flash_cuda(q, k, v, causal, scale)
         do, delta = fa._bwd_inputs(q, o, d_o)
         wide = fa.LAUNCHES_WIDE.count
         dk, dv = fa._launch_dkv(q, k, v, do, lse, delta, causal, scale)
+        torch.cuda.synchronize()   # one kernel per synchronise
         dq = fa._launch_dq(q, k, v, do, lse, delta, causal, scale)
         torch.cuda.synchronize()
         wide = fa.LAUNCHES_WIDE.count - wide
@@ -706,14 +787,25 @@ def check_flash_bwd(torch, F):
         outs = (("dq", dq, dq_ref), ("dk", dk, dk_ref), ("dv", dv, dv_ref))
         # one scale for the three: at T = S = 1 dq and dk vanish in exact
         # arithmetic and both sides hold rounding noise
-        scale = max(max_row_norm(torch, b) for _, _, b in outs)
-        rel = {n: row_rel_err(torch, a, b, scale) for n, a, b in outs}
+        norm = max(max_row_norm(torch, b) for _, _, b in outs)
+        rel = {n: row_rel_err(torch, a, b, norm) for n, a, b in outs}
         err = {n: (a.float() - b.float()).abs().max().item()
                for n, a, b in outs}
         finite = all(bool(torch.isfinite(t.float()).all())
                      for t in (dq, dk, dv))
-        ok = finite and max(rel.values()) <= tol and wide == 2 * int(
-            fa._wide(D))
+        ok = finite and max(rel.values()) <= tol and wide == wide_launches(
+            fa, D, dt, ("dkv", "dq"))
+        same = None
+        if label.startswith("strided"):
+            # dO read in place too; the contiguous launches' bits
+            qc, kc, vc, doc = (t.contiguous() for t in (q, k, v, do))
+            same = bool(all(torch.equal(a, b) for a, b in zip(
+                (dk, dv, dq),
+                fa._launch_dkv(qc, kc, vc, doc, lse, delta, causal, scale)
+                + (fa._launch_dq(qc, kc, vc, doc, lse, delta, causal,
+                                 scale),))))
+            ok = ok and same
+            del qc, kc, vc, doc
         big = B * H * T * S >= 1 << 26
         ms_dkv = cuda_ms(lambda: fa._launch_dkv(q, k, v, do, lse, delta,
                                                 causal, scale))
@@ -737,7 +829,8 @@ def check_flash_bwd(torch, F):
         rows.append(dict(
             case=label, shape=[B, H, T, S, D], dtype=dname, causal=causal,
             row_rel_err=rel, max_abs_err=err, tol=tol, ok=ok,
-            wide_launches=wide, plain_ms=plain_ms, library_ms=lib_ms,
+            wide_launches=wide, equals_contiguous=same, plain_ms=plain_ms,
+            library_ms=lib_ms,
             library_backend=lib_backend,
             dkv=dict(ms=ms_dkv, bound_ms=b_dkv, bound_by=by_dkv,
                      max_abs_err=max(err["dk"], err["dv"])),
@@ -745,7 +838,9 @@ def check_flash_bwd(torch, F):
                     max_abs_err=err["dq"])))
         print(f"K2/K3 flash_bwd {label:>18} {dname:>8} row err dq "
               f"{rel['dq']:.3e} dk {rel['dk']:.3e} dv {rel['dv']:.3e} (tol "
-              f"{tol:g}) | K2 {ms_dkv:.4f} ms (bound {b_dkv:.4f}, {by_dkv}) "
+              f"{tol:g}) wide {wide}"
+              f"{'' if same is None else f' = contiguous bitwise {same}'} "
+              f"| K2 {ms_dkv:.4f} ms (bound {b_dkv:.4f}, {by_dkv}) "
               f"K3 {ms_dq:.4f} ms (bound {b_dq:.4f}, {by_dq}) plain "
               f"{plain_ms:.4f} ms sdpa bwd {lib_ms} ms ({lib_backend}) "
               f"{'OK' if ok else 'FAIL'}")
@@ -757,7 +852,9 @@ def bs_cases(torch):
     training step, block 32 (partly live 64-row tiles), ragged T 200 at
     block 8 (a 25 x 25 mask), block 96, f32, non-causal with a dead q
     block, strided, all-ones masks in bf16 and f32 (held against K1-K3 as
-    well), and a head dim above 128 (the wide route)."""
+    well), the training step head-strided (as ``flash_cases``), head dims
+    192 and 256 (the bf16 Hopper route of 129-256: K7 on 64-row blocks,
+    K8 on the wide route) and 320 (the wide route)."""
     import numpy as np
 
     from bigdl_tpu_torch.ops import block_sparse as bs
@@ -766,6 +863,8 @@ def bs_cases(torch):
     dead = bs.sliding_window_mask(8, 8, 2, causal=False).mask.copy()
     dead[3, :] = False
     return [("train", 4, 8, 4096, 128, bf16, True,
+             bs.sliding_window_mask(8, 8, 2, 1, True, 512, 512)),
+            ("strided_train", 4, 8, 4096, 128, bf16, True,
              bs.sliding_window_mask(8, 8, 2, 1, True, 512, 512)),
             ("block32", 2, 8, 1024, 128, bf16, True,
              bs.sliding_window_mask(32, 32, 2, 1, True, 32, 32)),
@@ -783,7 +882,13 @@ def bs_cases(torch):
              bs.BlockMask(np.ones((8, 8), bool), 512, 512)),
             ("all_ones_f32", 2, 8, 1024, 128, f32, True,
              bs.BlockMask(np.ones((8, 8), bool), 128, 128)),
-            ("wide_D256", 2, 8, 1024, 256, bf16, True,
+            ("D192", 2, 8, 1024, 192, bf16, True,
+             bs.sliding_window_mask(8, 8, 2, 1, True, 128, 128)),
+            ("D256", 2, 8, 1024, 256, bf16, True,
+             bs.sliding_window_mask(8, 8, 2, 1, True, 128, 128)),
+            ("block32_D256", 2, 8, 1024, 256, bf16, True,
+             bs.sliding_window_mask(32, 32, 2, 1, True, 32, 32)),
+            ("wide_D320", 2, 8, 1024, 320, bf16, True,
              bs.sliding_window_mask(8, 8, 2, 1, True, 128, 128))]
 
 
@@ -815,17 +920,20 @@ def check_block_sparse(torch, F):
     rows = []
     for label, B, H, T, D, dt, causal, mask in bs_cases(torch):
         g = torch.Generator(device="cuda").manual_seed(17)
-        q, k, v, d_o = (torch.randn(B, H, T, D, device="cuda", generator=g
-                                    ).to(dt) for _ in range(4))
+        q, k, v, d_o = attn_inputs(torch, label, B, H, T, D, dt, g, 4)
         scale = 1.0 / math.sqrt(D)
         wide = fa.LAUNCHES_WIDE.count
+        copies = fa.OPERAND_COPIES.count
         o, lse = bs._bs_fwd_cuda(q, k, v, mask, causal, scale)
+        torch.cuda.synchronize()   # one kernel per synchronise
         do, delta = fa._bwd_inputs(q, o, d_o)
         dk, dv = bs._launch_bs_dkv(q, k, v, do, lse, delta, mask, causal,
                                    scale)
+        torch.cuda.synchronize()
         dq = bs._launch_bs_dq(q, k, v, do, lse, delta, mask, causal, scale)
         torch.cuda.synchronize()
         wide = fa.LAUNCHES_WIDE.count - wide
+        copies = fa.OPERAND_COPIES.count - copies
         o_ref, lse_ref = bs._bs_attention_plain(q, k, v, mask, causal, scale)
         grads_ref = bs._bs_bwd_plain(q, k, v, o, lse, d_o, mask, causal,
                                      scale)
@@ -842,7 +950,7 @@ def check_block_sparse(torch, F):
         finite = all(bool(torch.isfinite(t.float()).all())
                      for _, t, _ in outs)
         ok = (finite and max(rel.values()) <= tol and lse_err <= LSE_TOL
-              and wide == 3 * int(fa._wide(D)))
+              and wide == wide_launches(fa, D, dt, ("fwd", "dkv", "dq")))
         del o_ref, lse_ref, grads_ref
         keep = bs._elementwise_keep(mask, causal, "cuda")
         live = int(keep.sum().item())
@@ -850,7 +958,27 @@ def check_block_sparse(torch, F):
                    causal=causal, mask=repr(mask), live_per_head=live,
                    tiles=bs.tile_work(mask, causal), row_rel_err=rel,
                    max_abs_err=err, lse_err=lse_err, tol=tol,
-                   wide_launches=wide)
+                   wide_launches=wide, operand_copies=copies)
+        if label.startswith("strided"):
+            # read in place (no copy); the contiguous launches' bits
+            qc, kc, vc, doc = (t.contiguous() for t in (q, k, v, do))
+            oc, lsec = bs._bs_fwd_cuda(qc, kc, vc, mask, causal, scale)
+            got = bs._launch_bs_dkv(qc, kc, vc, doc, lse, delta, mask,
+                                    causal, scale) + (bs._launch_bs_dq(
+                                        qc, kc, vc, doc, lse, delta, mask,
+                                        causal, scale),)
+            same = {n: bool(torch.equal(a, b)) for n, a, b in zip(
+                ("o", "lse", "dk", "dv", "dq"), (o, lse, dk, dv, dq),
+                (oc, lsec) + got)}
+            row.update(equals_contiguous=same, ok=ok and all(same.values())
+                       and copies == 0)
+            rows.append(row)
+            print(f"K6-K8 block_sparse {label}: row err o {rel['o']:.3e} dq "
+                  f"{rel['dq']:.3e} dk {rel['dk']:.3e} dv {rel['dv']:.3e} "
+                  f"(tol {tol:g}) copies {copies}, equal to the contiguous "
+                  f"launches {same} {'OK' if row['ok'] else 'FAIL'}")
+            del qc, kc, vc, doc, oc, lsec, got
+            continue
         if label.startswith("all_ones"):
             o1, lse1 = fa._flash_cuda(q, k, v, causal, scale)
             dk1, dv1 = fa._launch_dkv(q, k, v, do, lse, delta, causal, scale)
@@ -915,7 +1043,8 @@ def check_block_sparse(torch, F):
         rows.append(row)
         print(f"K6-K8 block_sparse {label:>21} {dname:>8} row err o "
               f"{rel['o']:.3e} dq {rel['dq']:.3e} dk {rel['dk']:.3e} dv "
-              f"{rel['dv']:.3e} lse {lse_err:.3e} (tol {tol:g}) | K6 "
+              f"{rel['dv']:.3e} lse {lse_err:.3e} (tol {tol:g}) wide {wide} "
+              f"| K6 "
               f"{ms:.4f} ms (bound {b_f:.4f}, {by_f}) K7 {ms_dkv:.4f} ms "
               f"(bound {b_dkv:.4f}) K8 {ms_dq:.4f} ms (bound {b_dq:.4f}) "
               f"plain {plain_ms:.4f} / {plain_bwd_ms:.4f} ms sdpa "
@@ -923,15 +1052,15 @@ def check_block_sparse(torch, F):
               f"{'OK' if ok else 'FAIL'}")
         del q, k, v, d_o, o, lse, do, delta, dk, dv, dq
         torch.cuda.empty_cache()
-    rows.append(check_bs_poison(torch))
+    rows += [check_bs_poison(torch, D) for D in (128, 256)]
     return rows
 
 
-def check_bs_poison(torch):
+def check_bs_poison(torch, D):
     """The skip proof on the card (``tests/test_block_sparse.py``'s, at
-    T 1024, block 32): NaN in every K/V row that no query may attend;
-    O, LSE and the three gradients finite and equal to the clean run's
-    bit for bit."""
+    T 1024, block 32, head dim D): NaN in every K/V row that no query may
+    attend; O, LSE and the three gradients finite and equal to the clean
+    run's bit for bit."""
     import numpy as np
 
     from bigdl_tpu_torch.ops import block_sparse as bs
@@ -941,7 +1070,7 @@ def check_bs_poison(torch):
     m[16, 16] = False     # k block 16 is now read by no query
     mask = bs.BlockMask(m, 32, 32)
     g = torch.Generator(device="cuda").manual_seed(19)
-    q, k, v, d_o = (torch.randn(2, 8, 1024, 128, device="cuda", generator=g
+    q, k, v, d_o = (torch.randn(2, 8, 1024, D, device="cuda", generator=g
                                 ).bfloat16() for _ in range(4))
     dead = ~bs._elementwise_keep(mask, True, "cuda").any(dim=0)
     kp, vp = k.clone(), v.clone()
@@ -960,9 +1089,9 @@ def check_bs_poison(torch):
             for n, a, b in zip(names, runs[1], runs[0])}
     ok = all(finite.values()) and all(same.values())
     print(f"K6-K8 NaN-poisoned dead K/V ({int(dead.sum())} rows of 1024, "
-          f"block 32): finite {finite} equal to the clean run {same} "
+          f"block 32, D {D}): finite {finite} equal to the clean run {same} "
           f"{'OK' if ok else 'FAIL'}")
-    return dict(case="nan_poison_block32", dead_rows=int(dead.sum()),
+    return dict(case=f"nan_poison_block32_D{D}", dead_rows=int(dead.sum()),
                 finite=finite, equals_clean_bitwise=same, ok=ok)
 
 
@@ -2231,7 +2360,8 @@ def main(argv=None) -> int:
     cuda_build_s = time.perf_counter() - t0
     for lib in libs:
         for line in _support.BUILD_INFO[lib][1].splitlines():
-            if "registers" in line or "spill" in line or "Compiling" in line:
+            if any(w in line for w in ("registers", "spill", "Compiling",
+                                       "Performance")):
                 print(f"ptxas {lib}: {line.strip()}")
     t0 = time.perf_counter()
     x = torch.ones(4, 1024, device="cuda", dtype=torch.bfloat16)

@@ -205,8 +205,8 @@ def test_tile_tables_match_the_element_masks():
                                               err_msg=f"{mask} {causal}")
 
 
-def _block_lists_brute(mask, causal, own_q):
-    """Per 128-row block of the own side (queries for K8, keys for K7):
+def _block_lists_brute(mask, causal, own_q, R=P.BLOCK_ROWS):
+    """Per R-row block of the own side (queries for K8, keys for K7):
     [(streamed 64-row tile, flags, live-row bits)] from the element
     masks, where flags bit w marks own tile w visiting the streamed
     tile and bit 2 + w that pair partial."""
@@ -215,14 +215,14 @@ def _block_lists_brute(mask, causal, own_q):
     if not own_q:
         keep, el = keep.T, el.T
     n_own, n_str = keep.shape
-    R, t = P.BLOCK_ROWS, P.TILE
+    t = P.TILE
     out = []
     for b in range(-(-n_own // R)):
         entries = []
         for j in range(-(-n_str // t)):
             cols = slice(j * t, (j + 1) * t)
             flags = 0
-            for w in range(2):
+            for w in range(R // t):
                 rows = slice(b * R + w * t, b * R + (w + 1) * t)
                 vis = bool(keep[rows, cols].any())
                 part = vis and not el[rows, cols].all()
@@ -272,6 +272,28 @@ def test_block_lists_match_the_element_masks():
                                "K8 " + what)
             _check_block_lists(dkv, _block_lists_brute(mask, causal, False),
                                "K7 " + what)
+
+
+def test_key_lists_of_64_row_blocks_match_the_element_masks():
+    """The bf16 K7 at head dims 192 and 256 owns 64 key rows a block: its
+    lists (``dkv_tiles``) are one 64-row tile's list, flags bit 0 (visit)
+    and bit 2 (partial), the live query rows of each partial entry and
+    the heaviest-first order, against a scan of the element masks."""
+    rng = np.random.RandomState(2)
+    sizes = [1, 8, 32, 64, 96, 128, 200]
+    for _ in range(20):
+        bq, bk = (int(rng.choice(sizes)) for _ in range(2))
+        nq = rng.randint(1, max(2, 400 // bq))
+        nk = rng.randint(1, max(2, 400 // bk))
+        mask = P.BlockMask(rng.rand(nq, nk) < rng.rand(), bq, bk)
+        for causal in (False, True):
+            visited, partial = P._tile_tables(mask, causal)
+            got = P._own_lists(mask, causal, visited, partial, False, P.TILE)
+            _check_block_lists(got, _block_lists_brute(mask, causal, False,
+                                                       P.TILE),
+                               f"K7 64-row {mask} causal={causal}")
+    tab = P._attention_tables(mask, True, "cpu")
+    assert tab["dkv_tiles"]["tiles"].shape[0] == -(-nk * bk // P.TILE)
 
 
 def _dense_sweep(T, S, causal, dkv):
@@ -343,8 +365,8 @@ def test_k6_and_k8_launch_over_one_query_table(monkeypatch, dtype):
     mask = P.sliding_window_mask(8, 8, 2, 1, True, 32, 32)
     calls = {}
 
-    def record(name, counters, fn, per_head, shared, BH):
-        calls[name] = (fn, len(per_head), shared)
+    def record(name, counters, fn, args, BH, device):
+        calls[name] = (fn, args)
 
     monkeypatch.setattr(P, "_launch_heads", record)
     monkeypatch.setattr(P, "_attn_fn", lambda name, n_ptr: (name, n_ptr))
@@ -364,11 +386,17 @@ def test_k6_and_k8_launch_over_one_query_table(monkeypatch, dtype):
         want = [tiles.data_ptr(), counts.data_ptr(), flags.data_ptr()]
         extra = [None, None]
     want += [tab["block_mask"].data_ptr(), *extra]
-    fwd_fn, fwd_n, fwd_args = calls["block_sparse_fwd"]
-    dq_fn, dq_n, dq_args = calls["block_sparse_bwd_dq"]
-    assert fwd_fn == ("bigdl_bs_fwd", fwd_n + 6)
-    assert dq_fn == ("bigdl_bs_bwd_dq", dq_n + 6)
-    assert fwd_args[:6] == want and fwd_args == dq_args
+    fwd_fn, fwd_args = calls["block_sparse_fwd"]
+    dq_fn, dq_args = calls["block_sparse_bwd_dq"]
+    # after the tensors (5 and 7): the tables, then L, the mask's shape,
+    # the strides (q, k, v; and dO) and the problem's ints
+    assert fwd_fn == ("bigdl_bs_fwd", 5 + 6)
+    assert dq_fn == ("bigdl_bs_bwd_dq", 7 + 6)
+    fwd_args, dq_args = fwd_args[5:], dq_args[7:]
+    assert fwd_args[:6] == want and dq_args[:6] == want
+    assert fwd_args[6:10] == dq_args[6:10]
+    assert list(fwd_args[10]) == list(dq_args[10])[:9]
+    assert fwd_args[11:] == dq_args[11:]
 
 
 # --------------------------------------------------------------------------
@@ -762,6 +790,102 @@ def test_bs_mm_copies_only_what_its_route_cannot_read(monkeypatch):
                  (32, 32))
     ptrs, ints = calls[0]
     assert ptrs[1] != w_strided.data_ptr() and ints[7:9] == [64, 0]
+
+
+def _record_attention(monkeypatch):
+    """Record each attention launch (C entry name, arguments) instead of
+    building and running it."""
+    from bigdl_tpu_torch.ops import flash_attention as fa
+    calls = []
+    for mod in (fa, P):
+        monkeypatch.setattr(mod, "_c_fn", lambda lib, name, argtypes: name)
+    monkeypatch.setattr(fa, "_call", lambda name, fn, args, device:
+                        calls.append((fn, args)))
+    return calls
+
+
+def test_head_strided_operands_reach_the_block_sparse_kernels_in_place(
+        monkeypatch):
+    """bf16 q, k, v and dO in the (B, T, H, D).transpose(1, 2) layout
+    reach K6, K7 and K8 as they stand (the same data pointers, their own
+    strides), with K7 on the 128-row lists; the outputs are
+    contiguous."""
+    calls = _record_attention(monkeypatch)
+    B, T, H, D = 2, 128, 4, 64
+    q, k, v, d_o = (torch.randn(B, T, H, D).bfloat16().transpose(1, 2)
+                    for _ in range(4))
+    mask = P.sliding_window_mask(4, 4, 2, 1, True, 32, 32)
+    o, lse = P._bs_fwd_cuda(q, k, v, mask, True, 0.125)
+    grads = P._bs_bwd_cuda(q, k, v, o, lse, d_o, mask, True, 0.125)
+    assert [c[0] for c in calls] == ["bigdl_bs_fwd", "bigdl_bs_bwd_dkv",
+                                     "bigdl_bs_bwd_dq"]
+    want = [T * H * D, D, H * D]
+    (_, fwd), (_, dkv), (_, dq) = calls
+    assert fwd[:3] == [t.data_ptr() for t in (q, k, v)]
+    assert list(fwd[15]) == want * 3
+    for args, n in ((dkv, 8), (dq, 7)):
+        assert args[:4] == [t.data_ptr() for t in (q, k, v, d_o)]
+        assert list(args[n + 10]) == want * 4
+    tab = P._attention_tables(mask, True, q.device)
+    assert dkv[8] == tab["dkv_blocks"]["tiles"].data_ptr()
+    for t in (o, *grads):
+        assert t.shape == (B, H, T, D) and t.is_contiguous()
+
+
+@pytest.mark.parametrize("D,runs", [(160, 192), (200, 256), (256, 256)])
+def test_wide_bf16_head_dims_run_k6_k7_on_64_row_key_lists(monkeypatch, D,
+                                                          runs):
+    """bf16 head dims 129-256 pad to 192 or 256: K6 over the 128-row query
+    lists, K7 over the 64-row key lists (``dkv_tiles``) of its 64-row
+    blocks, and the wide route's dQ under the block mask."""
+    calls = _record_attention(monkeypatch)
+    q, k, v, d_o = (torch.zeros(1, 2, 128, D, dtype=torch.bfloat16)
+                    for _ in range(4))
+    mask = P.sliding_window_mask(4, 4, 2, 1, True, 32, 32)
+    o, lse = P._bs_fwd_cuda(q, k, v, mask, True, 0.1)
+    grads = P._bs_bwd_cuda(q, k, v, o, lse, d_o, mask, True, 0.1)
+    assert [c[0] for c in calls] == ["bigdl_bs_fwd", "bigdl_bs_bwd_dkv",
+                                     "bigdl_wide_bwd_dq"]
+    assert [c[1][-4] for c in calls] == [runs] * 3
+    tab = P._attention_tables(mask, True, q.device)
+    assert calls[0][1][5] == tab["dq_blocks"]["tiles"].data_ptr()
+    assert calls[1][1][8] == tab["dkv_tiles"]["tiles"].data_ptr()
+    assert calls[2][1][7] == tab["block_mask"].data_ptr()
+    for t in (o, *grads):
+        assert t.shape == (1, 2, 128, D)
+
+
+def test_bs_mm_casts_w_to_x_dtype_on_the_card(monkeypatch):
+    """x bf16 with W f32: K9 gets W cast to bf16 (the bf16 Hopper route,
+    out in x's dtype), as the plain version returns x's dtype."""
+    calls = _record_mm(monkeypatch)
+    mask = P.BlockMask(np.ones((2, 2), bool), 32, 32)
+    x = torch.randn(16, 64).bfloat16()
+    w = torch.randn(64, 64)
+    y = P._bs_mm_cuda(x, w, mask)
+    (ptrs, ints), = calls
+    assert y.dtype == torch.bfloat16 and ptrs[0] == x.data_ptr()
+    assert ptrs[1] != w.data_ptr() and ints[-1] == P._DTYPE_CODE[x.dtype]
+    assert ints[9:11] == [32, 32]      # the Hopper route's KC, BN
+
+
+def test_block_sparse_matmul_mixed_dtypes_match_pallas_interpret():
+    """x bf16 (16, 64) with W f32 (64, 64) under an all-ones 2 x 2 mask:
+    the port's CPU path against the reference's kernel path in interpret
+    mode, both in x's dtype."""
+    rng = np.random.RandomState(12)
+    x = rng.randn(16, 64).astype(np.float32)
+    w = rng.randn(64, 64).astype(np.float32)
+    mask = J.BlockMask(np.ones((2, 2), bool), 32, 32)
+    want = J.block_sparse_matmul(jnp.asarray(x).astype(jnp.bfloat16),
+                                 jnp.asarray(w), mask, interpret=True)
+    assert want.dtype == jnp.bfloat16
+    got = P.block_sparse_matmul(torch.from_numpy(x).bfloat16(),
+                                torch.from_numpy(w), _port(mask))
+    assert got.dtype == torch.bfloat16
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(want.astype(jnp.float32)),
+                               rtol=2 ** -7, atol=1e-6)
 
 
 def test_block_sparse_matmul_ignores_nan_in_dead_tiles():

@@ -148,7 +148,7 @@ def test_layer_norm_kernel_matches_plain_on_card(cuda_device, rows, F,
 
 
 def test_kernels_reject_what_they_do_not_take(cuda_device):
-    # head dims up to 128 are padded to a built one; past 128 the wide
+    # f32 head dims up to 128 are padded to a built one; past 128 the wide
     # route takes them as they are
     g = torch.Generator(device=cuda_device).manual_seed(3)
     q, k, v = (torch.randn(1, 2, 16, 160, device=cuda_device, generator=g)
@@ -164,9 +164,22 @@ def test_kernels_reject_what_they_do_not_take(cuda_device):
     q = torch.randn(1, 2, 16, 32, device=cuda_device, dtype=torch.float16)
     with pytest.raises(TypeError):
         fa.flash_attention(q, q, q)
-    q = torch.randn(1, 16, 2, 32, device=cuda_device).transpose(1, 2)
-    with pytest.raises(ValueError, match="contiguous"):
-        fa.flash_attention(q, q, q)
+    # the (B, T, H, D).transpose(1, 2) layout every attention layer makes
+    # is taken (it raised before): bf16 read in place, f32 copied for the
+    # tile loop; the plain version's result, and the contiguous launch's
+    # bits
+    for dtype in (bf16, torch.float32):
+        q = torch.randn(1, 16, 2, 32, device=cuda_device,
+                        generator=g).to(dtype).transpose(1, 2)
+        copies = fa.OPERAND_COPIES.count
+        o = fa.flash_attention(q, q, q)
+        torch.cuda.synchronize()
+        assert fa.OPERAND_COPIES.count - copies == (
+            0 if dtype == bf16 else 3)
+        want = fa._flash_plain(q, q, q, False, 1 / math.sqrt(32))[0]
+        assert _row_rel_err(o, want) <= ROW_TOL[dtype]
+        qc = q.contiguous()
+        assert torch.equal(o, fa.flash_attention(qc, qc, qc))
 
 
 @pytest.mark.parametrize("T,S,D,dtype,causal,B,H", [
@@ -290,16 +303,18 @@ def test_odd_head_dims_run_the_kernels_on_card(cuda_device, D, dtype, which):
     _check_attention_grads(got, want, dtype)
 
 
-@pytest.mark.parametrize("D", [160, 200, 256])
+@pytest.mark.parametrize("D", [160, 200, 256, 320])
 @pytest.mark.parametrize("dtype", [bf16, torch.float32])
 @pytest.mark.parametrize("which", ["flash", "block_sparse"])
 def test_wide_head_dims_run_the_wide_route_on_card(cuda_device, D, dtype,
                                                    which):
-    """Head dims above 128 take the wide route (``csrc/attn_wide.cu``) as
-    they are, with no padding: forward and backward through the entry
-    points launch it three times, counted under K1-K3 (K6-K8) too, and
-    match the plain versions in the working dtype row by row, LSE within
-    1e-3."""
+    """Head dims above 128: bf16 up to 256 is zero-padded to 192 or 256
+    and runs the Hopper forward and dK/dV, with dQ on the wide route
+    (``csrc/attn_wide.cu``: one wide launch); f32, and bf16 above 256,
+    take the wide route as they are for all three (three wide launches).
+    Forward and backward through the entry points launch K1-K3 (K6-K8)
+    once each and match the plain versions in the working dtype row by
+    row, LSE within 1e-3."""
     T = 200
     g = torch.Generator(device=cuda_device).manual_seed(D)
     q, k, v, d_o = (torch.randn(2, 4, T, D, device=cuda_device,
@@ -327,11 +342,100 @@ def test_wide_head_dims_run_the_wide_route_on_card(cuda_device, D, dtype,
         want = bs._bs_bwd_plain(q, k, v, o.detach(), lse, d_o, mask, True,
                                 scale)
     torch.cuda.synchronize()
-    assert [c.count - n for c, n in zip(counters, before)] == [1, 1, 1, 3]
+    wide = 1 if dtype == bf16 and D <= 256 else 3
+    assert [c.count - n for c, n in zip(counters, before)] == [1, 1, 1, wide]
     assert o.shape == (2, 4, T, D) and o.dtype == dtype
     assert _row_rel_err(o, o_ref) <= ROW_TOL[dtype]
     assert (lse - lse_ref).abs().max().item() <= 1e-3
     _check_attention_grads(got, want, dtype)
+
+
+@pytest.mark.parametrize("D", [64, 128, 256])
+@pytest.mark.parametrize("which", ["flash", "block_sparse"])
+def test_head_strided_layout_is_read_in_place_on_card(cuda_device, D, which):
+    """bf16 q, k, v and dO in the (B, T, H, D).transpose(1, 2) layout an
+    attention layer makes: forward and backward through the entry points
+    read them in place (no copy, up to D 128; at D 256 the wide dQ copies
+    its four operands) and give, bit for bit, what the same values
+    contiguous give, which match the plain versions row by row."""
+    B, T, H = 2, 200, 4
+    g = torch.Generator(device=cuda_device).manual_seed(D + 1)
+    q, k, v, d_o = (torch.randn(B, T, H, D, device=cuda_device,
+                                generator=g).to(bf16).transpose(1, 2)
+                    for _ in range(4))
+    scale = 1 / math.sqrt(D)
+    mask = bs.sliding_window_mask(5, 5, 2, 1, True, 40, 40)
+
+    def run(q, k, v, d_o):
+        leaves = [t.detach().clone(memory_format=torch.preserve_format)
+                  .requires_grad_() for t in (q, k, v)]
+        if which == "flash":
+            o, lse = fa.flash_forward(*leaves, causal=True)
+        else:
+            o, lse = bs._BlockSparseAttention.apply(*leaves, mask, True,
+                                                    scale)
+        return (o, lse) + torch.autograd.grad(o, leaves, d_o)
+
+    copies = fa.OPERAND_COPIES.count
+    strided = run(q, k, v, d_o)
+    torch.cuda.synchronize()
+    assert fa.OPERAND_COPIES.count - copies == (0 if D <= 128 else 4)
+    contiguous = run(*(t.contiguous() for t in (q, k, v, d_o)))
+    for a, b in zip(strided, contiguous):
+        assert a.is_contiguous() and torch.equal(a, b)
+    o, lse, *grads = strided
+    if which == "flash":
+        o_ref, lse_ref = fa._flash_plain(q, k, v, True, scale)
+        want = fa._flash_bwd_plain(q, k, v, o.detach(), lse, d_o, True,
+                                   scale)
+    else:
+        o_ref, lse_ref = bs._bs_attention_plain(q, k, v, mask, True, scale)
+        want = bs._bs_bwd_plain(q, k, v, o.detach(), lse, d_o, mask, True,
+                                scale)
+    assert _row_rel_err(o, o_ref) <= ROW_TOL[bf16]
+    assert (lse - lse_ref).abs().max().item() <= 1e-3
+    _check_attention_grads(grads, want, bf16)
+
+
+def test_layer_norm_reads_a_column_slice_in_place_on_card(cuda_device):
+    """K4 on a column slice (rows 1000 apart, under a leading dim) reads
+    it in place and matches the plain version and the contiguous launch
+    bit for bit; a transposed x is copied first."""
+    g = torch.Generator(device=cuda_device).manual_seed(12)
+    base = torch.randn(3, 50, 1000, device=cuda_device, generator=g).to(bf16)
+    gamma = (1 + 0.1 * torch.randn(768, device=cuda_device,
+                                   generator=g)).to(bf16)
+    beta = (0.1 * torch.randn(768, device=cuda_device, generator=g)).to(bf16)
+    for x, copied in ((base[:, :, 16:784], False),
+                      (base[0, :768, :50].t(), True)):
+        copies, before = ln.X_COPIES.count, ln.LAUNCHES.count
+        y = ln.fused_layer_norm(x, gamma[:x.shape[-1]], beta[:x.shape[-1]])
+        torch.cuda.synchronize()
+        assert (ln.X_COPIES.count - copies, ln.LAUNCHES.count - before) == (
+            int(copied), 1)
+        assert y.is_contiguous() and y.shape == x.shape
+        ref = ln._layer_norm_plain(x, gamma[:x.shape[-1]], beta[:x.shape[-1]],
+                                   1e-5)
+        assert (y.float() - ref.float()).abs().max().item() <= 4e-2
+        xc = x.contiguous()
+        assert torch.equal(y, ln.fused_layer_norm(xc, gamma[:x.shape[-1]],
+                                                  beta[:x.shape[-1]]))
+
+
+def test_block_sparse_matmul_takes_mixed_dtypes_on_card(cuda_device):
+    """x bf16 with W f32 (fault F5: it raised): K9 casts W to x's dtype
+    and returns bf16 within the bf16 row limit of the port's CPU path."""
+    g = torch.Generator(device=cuda_device).manual_seed(13)
+    x = torch.randn(256, 256, device=cuda_device, generator=g).to(bf16)
+    w = 0.05 * torch.randn(256, 128, device=cuda_device, generator=g)
+    mask = bs.magnitude_block_mask(w, 32, 32, 0.5)
+    before = bs.LAUNCHES_MM.count
+    y = bs.block_sparse_matmul(x, w, mask)
+    torch.cuda.synchronize()
+    assert bs.LAUNCHES_MM.count == before + 1 and y.dtype == bf16
+    want = bs.block_sparse_matmul(x.cpu(), w.cpu(), mask)
+    assert want.dtype == bf16
+    assert _row_rel_err(y.cpu(), want) <= ROW_TOL[bf16]
 
 
 def test_more_heads_than_a_grid_takes_on_card(cuda_device):

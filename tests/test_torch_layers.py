@@ -90,6 +90,44 @@ def test_multi_head_attention(strategy, rope, kv_heads):
     np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-4)
 
 
+@pytest.mark.parametrize("strategy", ["flash", "blocksparse"])
+def test_multi_head_attention_hands_the_op_head_strided_views(strategy,
+                                                              monkeypatch):
+    """The layer hands the attention op q, k and v as the (B, T, H, D)
+    .transpose(1, 2) views of its projections, with no copy (the kernels
+    read them in place on the card), and the layer's output and its
+    gradient with respect to x match the JAX layer on the same
+    transferred parameters."""
+    from bigdl_tpu_torch.nn import attention as tattn
+
+    seen = []
+    name = "flash_attention" if strategy == "flash" else \
+        "block_sparse_attention"
+    op = getattr(tattn, name)
+
+    def spy(q, k, v, *args, **kw):
+        seen.append([t.stride() for t in (q, k, v)])
+        return op(q, k, v, *args, **kw)
+
+    monkeypatch.setattr(tattn, name, spy)
+    B, T, E, H = 2, 24, 32, 4
+    x = np.random.RandomState(4).randn(B, T, E).astype(np.float32)
+    w = np.random.RandomState(5).randn(B, T, E).astype(np.float32)
+    kw = dict(causal=True, seq_strategy=strategy)
+    jm = jnn.MultiHeadAttention(E, H, **kw)
+    tm = tnn.MultiHeadAttention(E, H, device="cpu", **kw)
+    got, want = _pair(jm, tm, x)
+    np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-4)
+    D = E // H
+    assert seen == [[(T * E, D, E, 1)] * 3]
+    want_dx = jax.grad(lambda a: jnp.sum(jm.forward(a) * jnp.asarray(w)))(
+        jnp.asarray(x))
+    xt = torch.from_numpy(x).requires_grad_()
+    (dx,) = torch.autograd.grad(tm.evaluate()(xt), xt, torch.from_numpy(w))
+    np.testing.assert_allclose(dx.numpy(), np.asarray(want_dx), rtol=1e-4,
+                               atol=1e-4)
+
+
 def test_unported_strategies_raise():
     with pytest.raises(NotImplementedError):
         tnn.MultiHeadAttention(32, 4, seq_strategy="ring", device="cpu")

@@ -215,7 +215,7 @@ def test_padded_head_dim_leaves_attention_and_grads_unchanged(D, causal):
     g = torch.from_numpy(np.random.RandomState(D + 1).randn(
         2, 2, 40, D).astype(np.float32))
     scale = 1 / math.sqrt(D)
-    Dp = fa._padded_head_dim(D)
+    Dp = fa._padded_head_dim(D, q.dtype)
     assert Dp == {6: 16, 8: 16, 48: 64, 96: 128}[D]
     qp, kp, vp, gp = (fa._pad_head_dim(t, Dp) for t in (q, k, v, g))
     assert qp.shape[-1] == Dp and not qp[..., D:].any()
@@ -255,8 +255,143 @@ def test_wide_head_dim_plain_matches_pallas_interpret(D, causal):
     for name, a, b in zip(("dq", "dk", "dv"), got, want):
         np.testing.assert_allclose(a.numpy(), np.asarray(b), **GRAD_TOL,
                                    err_msg=name)
-    # the wrappers take such a head dim as it is: no padding, no cut
-    assert fa._padded_head_dim(D) == D and fa._wide(D)
+    # f32 takes such a head dim as it is on the wide route; bf16 pads it
+    # to 192 or 256 for the Hopper forward and dK/dV (dQ stays wide)
+    f32, bf16 = torch.float32, torch.bfloat16
+    assert fa._padded_head_dim(D, f32) == D and fa._wide(D, f32)
+    Dp = fa._padded_head_dim(D, bf16)
+    assert Dp == {160: 192, 256: 256}[D]
+    assert not fa._wide(Dp, bf16) and fa._dq_wide(Dp)
+
+
+# --------------------------------------------------------------------------
+# what the CUDA wrappers hand the kernels: their launches recorded on CPU
+# tensors, not run
+# --------------------------------------------------------------------------
+
+def _record_launches(monkeypatch):
+    """Record each attention launch (C entry name, arguments) instead of
+    building and running it."""
+    calls = []
+    monkeypatch.setattr(fa, "_c_fn", lambda lib, name, argtypes: name)
+    monkeypatch.setattr(fa, "_call", lambda name, fn, args, device:
+                        calls.append((fn, args)))
+    return calls
+
+
+def _strides(args):
+    """The (batch, head, row) strides a launch passed, per operand."""
+    flat = list(next(a for a in args if not isinstance(a, (int, float))
+                     and a is not None and hasattr(a, "_length_")))
+    return [flat[i:i + 3] for i in range(0, len(flat), 3)]
+
+
+def _head_strided(B, T, H, D, dtype, seed):
+    """(B, H, T, D) views of (B, T, H, D) tensors: an attention layer's
+    layout."""
+    g = torch.Generator().manual_seed(seed)
+    return torch.randn(B, T, H, D, generator=g).to(dtype).transpose(1, 2)
+
+
+def test_head_strided_operands_reach_the_attention_kernels_in_place(
+        monkeypatch):
+    """bf16 q, k, v and dO in the (B, T, H, D).transpose(1, 2) layout
+    reach K1, K2 and K3 as they stand: the same data pointers, their own
+    strides (T H D, D, H D), no copy; O, dQ, dK and dV come out
+    contiguous."""
+    calls = _record_launches(monkeypatch)
+    B, T, H, D = 2, 40, 4, 64
+    q, k, v, d_o = (_head_strided(B, T, H, D, torch.bfloat16, s)
+                    for s in range(4))
+    copies = fa.OPERAND_COPIES.count
+    o, lse = fa._flash_cuda(q, k, v, True, 0.125)
+    grads = fa._flash_bwd_cuda(q, k, v, o, lse, d_o, True, 0.125)
+    assert fa.OPERAND_COPIES.count == copies
+    assert [c[0] for c in calls] == ["bigdl_flash_fwd", "bigdl_flash_bwd_dkv",
+                                     "bigdl_flash_bwd_dq"]
+    want = [T * H * D, D, H * D]
+    fwd, dkv, dq = (c[1] for c in calls)
+    assert fwd[:3] == [t.data_ptr() for t in (q, k, v)]
+    assert _strides(fwd) == [want] * 3
+    for args in (dkv, dq):
+        assert args[:4] == [t.data_ptr() for t in (q, k, v, d_o)]
+        assert _strides(args) == [want] * 4
+    # H, the first head, the head count
+    assert fwd[6:9] == [H, 0, B * H] and dkv[9:12] == [H, 0, B * H]
+    for t in (o, *grads):
+        assert t.shape == (B, H, T, D) and t.is_contiguous()
+
+
+def test_attention_wrappers_copy_only_what_the_kernels_cannot_read(
+        monkeypatch):
+    """Through TMA (bf16) an operand is read in place unless its start is
+    not 16-byte aligned, a stride is not a multiple of 16 bytes, or its
+    last dim is not unit-stride: those are copied, contiguous, and
+    counted.  The f32 tile loops copy anything that is not contiguous."""
+    calls = _record_launches(monkeypatch)
+    bf16, f32 = torch.bfloat16, torch.float32
+    B, H, T, D = 1, 2, 16, 64
+
+    def wide(pad, start, dtype=bf16):   # columns start .. start + D - 1
+        return torch.zeros(B, H, T, D + pad, dtype=dtype)[..., start:start + D]
+
+    cases = [(wide(8, 0), False),                    # row pitch 72: read
+             (wide(8, 1), True),                     # start misaligned
+             (wide(4, 0), True),                     # row pitch 68 elements
+             (torch.zeros(B, H, D, T, dtype=bf16).transpose(-1, -2), True),
+             (_head_strided(B, T, H, D, f32, 0), True),   # f32: contiguous
+             (torch.zeros(B, H, T, D, dtype=f32), False)]
+    for q, copied in cases:
+        k, v = (torch.zeros(B, H, T, D, dtype=q.dtype) for _ in range(2))
+        calls.clear()
+        copies = fa.OPERAND_COPIES.count
+        fa._flash_cuda(q, k, v, False, 0.125)
+        args = calls[0][1]
+        assert (args[0] != q.data_ptr()) == copied
+        assert fa.OPERAND_COPIES.count - copies == int(copied)
+        if copied:
+            assert _strides(args)[0] == [H * T * D, T * D, D]
+
+
+@pytest.mark.parametrize("D,dtype,runs", [
+    (160, torch.bfloat16, 192), (200, torch.bfloat16, 256),
+    (256, torch.bfloat16, 256), (160, torch.float32, None),
+    (320, torch.bfloat16, None)])
+def test_wide_head_dims_route_by_dtype(monkeypatch, D, dtype, runs):
+    """bf16 head dims 129-256 are zero-padded to 192 or 256 and run the
+    Hopper forward (K1) and dK/dV (K2), with dQ on the wide route; f32
+    above 128 and bf16 above 256 take the wide route as they are.  The
+    outputs are cut back to D."""
+    calls = _record_launches(monkeypatch)
+    q, k, v, d_o = (torch.zeros(1, 2, 16, D, dtype=dtype) for _ in range(4))
+    o, lse = fa._flash_cuda(q, k, v, True, 0.1)
+    grads = fa._flash_bwd_cuda(q, k, v, o, lse, d_o, True, 0.1)
+    names = [c[0] for c in calls]
+    if runs is None:
+        assert names == ["bigdl_wide_fwd", "bigdl_wide_bwd_dkv",
+                         "bigdl_wide_bwd_dq"]
+    else:
+        assert names == ["bigdl_flash_fwd", "bigdl_flash_bwd_dkv",
+                         "bigdl_wide_bwd_dq"]
+    # every entry ends (..., D, dtype, sm_scale, causal)
+    assert [c[1][-4] for c in calls] == [runs or D] * 3
+    for t in (o, *grads):
+        assert t.shape == (1, 2, 16, D)
+
+
+def test_more_heads_than_a_grid_launch_from_their_first_head(monkeypatch):
+    """Heads beyond one grid's limit launch in chunks: every chunk gets
+    the tensors' own pointers, its first head and its head count (the
+    kernels find a head from its index and the strides, so a chunk of a
+    head-strided tensor is read where it lies)."""
+    calls = _record_launches(monkeypatch)
+    monkeypatch.setattr(fa, "MAX_HEADS", 3)
+    q, k, v = (_head_strided(2, 8, 4, 16, torch.bfloat16, s)
+               for s in range(3))
+    fa._flash_cuda(q, k, v, True, 0.25)
+    assert [c[1][:3] for c in calls] == [[q.data_ptr(), k.data_ptr(),
+                                          v.data_ptr()]] * 3
+    assert [c[1][7:9] for c in calls] == [[0, 3], [3, 3], [6, 2]]
 
 
 @pytest.mark.parametrize("shape", [(4, 7, 64), (16, 1000)])
@@ -279,6 +414,26 @@ def test_layer_norm_grad_matches_jax_grad_of_pallas_interpret(shape):
     got = torch.autograd.grad(y, (xt, gt, bt), torch.from_numpy(w))
     for a, b in zip(got, want):
         np.testing.assert_allclose(a.numpy(), np.asarray(b), **GRAD_TOL)
+
+
+def test_layer_norm_reads_rows_at_their_pitch():
+    """K4's wrapper hands the kernel x in place with its row pitch where
+    the rows are unit-stride and one pitch apart (a column slice, also
+    under leading dims); a transposed x, or leading dims that share no
+    pitch, are copied contiguous (``X_COPIES``)."""
+    base = torch.randn(3, 4, 100)
+    for x, pitch in ((base[0, :, 8:72], 100), (base[:, :, 8:72], 100),
+                     (base[0], 100), (torch.randn(1, 64), 64),
+                     (base[0, :, :64].t(), None),
+                     (base[:, 1:, :64], None)):
+        copies = ln.X_COPIES.count
+        got, got_pitch = ln._rows(x)
+        if pitch is None:
+            assert ln.X_COPIES.count == copies + 1 and got.is_contiguous()
+            assert got_pitch == x.shape[-1] and torch.equal(got, x)
+        else:
+            assert ln.X_COPIES.count == copies and got is x
+            assert got_pitch == pitch
 
 
 def test_layer_norm_grad_keeps_input_dtypes():
