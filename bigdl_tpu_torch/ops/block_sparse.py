@@ -24,11 +24,12 @@ element never reaches a product.  K6-K8 in bf16 (K1's and K2/K3's Hopper
 bodies, ``csrc/attn_fwd_hopper.cuh`` and ``csrc/attn_bwd_hopper.cuh``)
 own 128 rows a block: ``_block_lists`` regroups the lists per block, with
 per-warpgroup flags, the live rows of each partial pair and a
-heaviest-first block order; K6 reads K8's lists.
+heaviest-first block order; K6 reads K8's lists.  K7 and K8 at head dims
+192 and 256 own 64 rows a block and read the lists per 64-row tile.
 The tables go to the card once per (mask, causal, device) and stay
-cached: no launch uploads anything.  Head dims above 128 take the wide
-route of ``flash_attention`` (``csrc/attn_wide.cu``) under the block
-mask.
+cached: no launch uploads anything.  Head dims above the built ones (f32
+128, bf16 256) take the wide route of ``flash_attention``
+(``csrc/attn_wide.cu``) under the block mask.
 
 ``block_sparse_attention`` and ``block_sparse_matmul`` are
 ``torch.autograd.Function``s, the counterparts of the ``custom_vjp``s
@@ -55,7 +56,7 @@ from ._support import LaunchCounter, on_cpu
 from .flash_attention import (_DTYPE_CODE, _F, _I, _P, FIRST_HEAD, HEADS,
                               _attn_bwd_plain, _attn_plain, _bwd_inputs,
                               _c_fn, _call, _causal_keep, _check_kernel_inputs,
-                              _check_lse, _cut_head_dim, _dq_wide, _empty,
+                              _check_lse, _cut_head_dim, _empty,
                               _kernel_operands, _launch_heads, _pad_head_dim,
                               _padded_head_dim, _strides_arg, _wide,
                               _wide_dkv, _wide_dq, _wide_fwd)
@@ -452,17 +453,19 @@ def _attention_tables(mask: BlockMask, causal: bool, device):
     device): the 64-row tile lists of the f32 K6 and K8 (per q tile) and
     of the f32 K7 (per k tile), the 128-row block lists of the bf16 K6
     and K8 (``dq_blocks``) and K7 (``dkv_blocks``), the 64-row block lists
-    of the bf16 K7 at head dims 192 and 256 (``dkv_tiles``), and the
-    runtime block mask (uint8) for partial pairs and the wide route."""
+    of the bf16 K8 and K7 at head dims 192 and 256 (``dq_tiles``,
+    ``dkv_tiles``), and the runtime block mask (uint8) for partial pairs
+    and the wide route."""
     def make():
         visited, partial = _tile_tables(mask, causal)
         fwd = _tile_lists(visited, partial)
         dkv = _tile_lists(visited.T, partial.T)
         dq_blocks, dkv_blocks = _block_tables(mask, causal, visited, partial)
+        dq_tiles = _own_lists(mask, causal, visited, partial, True, TILE)
         dkv_tiles = _own_lists(mask, causal, visited, partial, False, TILE)
         run = _runtime_mask(mask, causal).mask.astype(np.uint8)
         lists = dict(dq_blocks=dq_blocks, dkv_blocks=dkv_blocks,
-                     dkv_tiles=dkv_tiles)
+                     dq_tiles=dq_tiles, dkv_tiles=dkv_tiles)
         return dict(fwd=tuple(_to_device(a, device) for a in fwd),
                     dkv=tuple(_to_device(a, device) for a in dkv),
                     **{k: {n: _to_device(a, device) for n, a in t.items()}
@@ -545,11 +548,15 @@ def _attn_fn(name: str, n_ptr: int):
                  + [_I] * 7 + [_F, _I, _P])
 
 
-def _query_tables(dtype: torch.dtype) -> str:
-    """The ``_attention_tables`` entry that K6 and K8 sweep (own query
-    rows, streamed key tiles): the 128-row block lists in bf16, the
-    64-row tile lists in f32."""
-    return "dq_blocks" if dtype == torch.bfloat16 else "fwd"
+def _query_tables(dtype: torch.dtype, D: int) -> str:
+    """The ``_attention_tables`` entry that K8 sweeps (own query rows,
+    streamed key tiles): in bf16 the 128-row block lists, or the 64-row
+    ones of its 64-row blocks at head dims above 128; the 64-row tile
+    lists in f32.  K6 owns 128 query rows at every head dim and sweeps
+    what K8 sweeps at D 128."""
+    if dtype != torch.bfloat16:
+        return "fwd"
+    return "dq_blocks" if D <= 128 else "dq_tiles"
 
 
 def _key_tables(dtype: torch.dtype, D: int) -> str:
@@ -606,7 +613,8 @@ def _bs_fwd_cuda(q, k, v, mask: BlockMask, causal: bool, sm_scale: float
     lse = _empty(q, (B * H, 1, T), torch.float32)
     _launch_heads("block_sparse_fwd", (LAUNCHES,), _attn_fn("bigdl_bs_fwd", 11),
                   [*(t.data_ptr() for t in (q, k, v, o, lse)),
-                   *_table_args(tab, _query_tables(q.dtype), mask, q, k,
+                   # K6 owns 128 query rows at every head dim
+                   *_table_args(tab, _query_tables(q.dtype, 128), mask, q, k,
                                 (q, k, v)),
                    float(sm_scale), int(bool(causal))], B * H, q.device)
     return _cut_head_dim(o, D_true), lse
@@ -636,11 +644,10 @@ def _launch_bs_dkv(q, k, v, do, lse, delta, mask: BlockMask, causal: bool,
 
 def _launch_bs_dq(q, k, v, do, lse, delta, mask: BlockMask, causal: bool,
                   sm_scale: float) -> torch.Tensor:
-    """Launch K8 over the same prepared inputs as ``_launch_bs_dkv``
-    (above head dim 128 the wide route)."""
+    """Launch K8 over the same prepared inputs as ``_launch_bs_dkv``."""
     tab = _attention_tables(mask, causal, q.device)
     B, H, T, D = q.shape
-    if _dq_wide(D):
+    if _wide(D, q.dtype):
         return _wide_dq(q, k, v, do, lse, delta, causal, sm_scale,
                         LAUNCHES_DQ, _wide_block_mask(tab, mask))
     q, k, v, do = _kernel_operands(q, k, v, do,
@@ -649,7 +656,7 @@ def _launch_bs_dq(q, k, v, do, lse, delta, mask: BlockMask, causal: bool,
     _launch_heads("block_sparse_bwd_dq", (LAUNCHES_DQ,),
                   _attn_fn("bigdl_bs_bwd_dq", 13),
                   [*(t.data_ptr() for t in (q, k, v, do, lse, delta, dq)),
-                   *_table_args(tab, _query_tables(q.dtype), mask, q, k,
+                   *_table_args(tab, _query_tables(q.dtype, D), mask, q, k,
                                 (q, k, v, do)),
                    float(sm_scale), int(bool(causal))], B * H, q.device)
     return dq

@@ -39,19 +39,28 @@
 //     computes dP^T and dS^T and keeps dK (D / 2 f32 a thread each); P^T
 //     passes from 0 to 1 through shared memory in f32, so dS^T rounds as
 //     above.  3 stages at D 192, 2 at D 256.
-//   * dQ (bwd_dq_wgmma_kernel): the block owns 128 query rows; Q and dO are
-//     loaded once; 64-row K and V tiles stream through 4 stages.  S = Q . K^T
-//     and dP = dO . V^T, dS packed as the A operand of dQ += dS . K.
+//   * dQ (bwd_dq_wgmma_kernel) up to D 128: the block owns 128 query rows;
+//     Q and dO are loaded once; 64-row K and V tiles stream through 4
+//     stages.  S = Q . K^T and dP = dO . V^T, dS packed as the A operand of
+//     dQ += dS . K.
+//   * dQ at D 192 and 256 (the same kernel, dq_split_consume): dQ of 128
+//     rows would take D f32 a consumer thread, and Q and dO of 128 rows
+//     with two K/V stages 256 KB of shared memory, so the block owns 64
+//     query rows: warpgroup 0 computes S and P, warpgroup 1 dP and dS (P
+//     passes from 0 to 1 in f32, so dS rounds as above), dS goes to shared
+//     memory in bf16, and each warpgroup adds dS . K over half of the
+//     tile's keys to its own D / 2 f32; the two halves are summed once, at
+//     the end.  3 stages at D 192, 2 at D 256.
 //   * A zero-filled row scores 0 and exp(0 - LSE) is not 0, so the masks
 //     (causal, ragged, block) are applied on edge and partial tiles.
 //
 // The sweep policy says which block owns which rows, which streamed tiles it
 // visits, in which order, and which consumer warpgroup computes each:
 //   * dkv_block(), dq_block(): the owner block's index b (rows 128 b .., or
-//     64 b .. for the 64-row dK/dV block);
-//   * dkv_count(b, T, own), dq_count(b, S): how many tiles it streams (own:
-//     the key rows a dK/dV block owns);
-//   * dkv_step(b, it, own), dq_step(b, it): the it-th tile and its flags, bit w
+//     64 b .. for the 64-row blocks);
+//   * dkv_count(b, T, own), dq_count(b, S, own): how many tiles it streams
+//     (own: the rows a block owns, 128 or 64);
+//   * dkv_step(b, it, own), dq_step(b, it, own): the it-th tile and its flags, bit w
 //     (kVisit << w) when consumer warpgroup w computes it and bit 2 + w
 //     (kPartial << w) when that pair is covered by the block mask in part.
 //     A warpgroup that does not visit a streamed tile only releases it.  A
@@ -82,7 +91,8 @@ constexpr int kBwdThreads = kConsumers + 128;  // and one producer warpgroup
 // back: (168 - P) * 4 warps >= (C - 168) * 8 warps, P + 2 C <= 504 (at
 // 512 setmaxnreg.inc waits for ever).  The dK/dV consumers hold dK and dV
 // (D f32) beside S^T and dP^T, so its producer keeps the least, 24 + 2 *
-// 240; the dQ kernel's as K1's, 40 + 2 * 232.
+// 240, as does the 64-row dQ block's (D / 2 f32 of dQ beside S or dP);
+// the 128-row dQ kernel's as K1's, 40 + 2 * 232.
 constexpr int kDkvProducerRegs = 24;
 constexpr int kDkvConsumerRegs = 240;
 constexpr int kDqProducerRegs = 40;
@@ -118,18 +128,37 @@ struct DkvCfg : Panels<D> {
 constexpr int kPtFull = 3;
 constexpr int kPtEmpty = 4;
 
-// dQ: the block's Q and dO rows, then the ring of (K, V) tiles
+// query rows a dQ block owns at head dim D: 128 up to D 128, 64 at D 192
+// and 256 (dQ of 128 rows would take D f32 a consumer thread, and Q and dO
+// of 128 rows beside two K/V stages more shared memory than a block has)
+template <int D>
+constexpr int kDqOwnRows = D <= 128 ? kBlockRows : kTileRows;
+
+// dQ: the block's Q and dO rows, then the ring of (K, V) tiles; at 64 own
+// rows also the dS panel that warpgroup 1 hands to both (bf16, swizzled
+// as TMA would load it) and the P tile that warpgroup 0 hands to 1 (f32)
 template <int D>
 struct DqCfg : Panels<D> {
-  static constexpr int STAGES = 4;
-  static constexpr int Q_BYTES = kBlockRows * D * 2;     // the Q or the dO rows
-  static constexpr int PANEL_Q = kBlockRows * Panels<D>::RB;
+  static constexpr int OWN = kDqOwnRows<D>;
+  static constexpr int STAGES = OWN == kBlockRows ? 4 : D <= 192 ? 3 : 2;
+  static constexpr int Q_BYTES = OWN * D * 2;            // the Q or the dO rows
+  static constexpr int PANEL_Q = OWN * Panels<D>::RB;
   static constexpr int TILE_BYTES = kTileRows * D * 2;   // one K or V tile
   static constexpr int PANEL_T = kTileRows * Panels<D>::RB;
-  static constexpr size_t SMEM = 1024 + 2 * Q_BYTES + STAGES * 2 * TILE_BYTES
-                                 + sizeof(uint64_t) * (1 + 2 * STAGES)
+  static constexpr int DS_BYTES = OWN == kTileRows ? kTileRows * kTileRows * 2 : 0;
+  static constexpr int PT_BYTES = OWN == kTileRows ? kTileRows * kTileRows * 4 : 0;
+  static constexpr int PRODUCER_REGS = OWN == kBlockRows ? kDqProducerRegs : kDkvProducerRegs;
+  static constexpr int CONSUMER_REGS = OWN == kBlockRows ? kDqConsumerRegs : kDkvConsumerRegs;
+  static constexpr size_t SMEM = 1024 + 2 * Q_BYTES + STAGES * 2 * TILE_BYTES + DS_BYTES
+                                 + PT_BYTES + sizeof(uint64_t) * (1 + 2 * STAGES)
                                  + STAGES * sizeof(Step);
 };
+
+// named barriers of the 64-row dQ block (1 is warpgroup 0's epilogue
+// barrier; kPtFull as above): dS written by warpgroup 1, read by both;
+// both warpgroups' sums of dQ meet
+constexpr int kDsFull = 5;
+constexpr int kDqSum = 6;
 
 // acc (m64 x 64 f32, one consumer warpgroup) = A . B^T over D, both
 // operands K-major panels in shared memory: A from 64 rows at `a`, B from
@@ -158,6 +187,22 @@ __device__ __forceinline__ void wgmma_accumulate(float* acc, const uint32_t* a,
 #pragma unroll
     for (int p = 0; p < P::NP; ++p)
       wgmma_rs<P::PW, 1>(acc + p * (P::PW / 2), a + 4 * kk,
+                         smem_desc<P::RB>(b + p * kPanelB + 16 * P::RB * kk), 1);
+}
+
+// acc (m64 x D f32) += A . B over kSteps k16 steps, A from a 64 x 64 bf16
+// K-major panel at `a` (128-byte rows, as TMA swizzles them) and B the
+// tile at `b` (panel pitch kPanelB) read MN-major, both in shared memory:
+// `a` and `b` sit at the first step's keys.  Issued, not waited.
+template <int D, int kPanelB, int kSteps>
+__device__ __forceinline__ void wgmma_accumulate_ss(float* acc, const unsigned char* a,
+                                                    const unsigned char* b) {
+  using P = Panels<D>;
+#pragma unroll
+  for (int kk = 0; kk < kSteps; ++kk)
+#pragma unroll
+    for (int p = 0; p < P::NP; ++p)
+      wgmma_ss<P::PW, 1>(acc + p * (P::PW / 2), smem_desc<128>(a + 32 * kk),
                          smem_desc<P::RB>(b + p * kPanelB + 16 * P::RB * kk), 1);
 }
 
@@ -565,7 +610,7 @@ __device__ __forceinline__ void dq_consume(const Sweep& sw, unsigned char* q_s,
   for (int it = 0; it < n; ++it) {
     const int s = it % C::STAGES;
     Step step;
-    if constexpr (!Sweep::kList) step = sw.dq_step(b, it);
+    if constexpr (!Sweep::kList) step = sw.dq_step(b, it, kBlockRows);
     mbar_wait(&full[s], (it / C::STAGES) & 1);
     if constexpr (Sweep::kList) step = step_s[s];   // staged by the producer
     if (step.flags & (kVisit << wg)) {
@@ -643,7 +688,159 @@ __device__ __forceinline__ void dq_consume(const Sweep& sw, unsigned char* q_s,
   store_rows<D, C::PANEL_Q>(q_wg, dq, q0w, T_len);
 }
 
-// dQ: grid (B*H, ceil(T / 128)); the sweep maps blockIdx.y to a block.
+// The two consumer warpgroups of the dQ kernel at D 192 and 256, over the
+// block's 64 query rows q0 .. q0 + 63 (this thread holds rows row0 and
+// row0 + 8 of each accumulator).  Each streamed K/V tile takes two
+// products a warpgroup, both issued with operands chosen by warpgroup (a
+// wgmma on a divergent path is serialised, ptxas C7520):
+//   warpgroup 0: S = Q . K^T, P = exp(S - LSE) masked as K3's 128-row
+//     consumer masks it, P in f32 to shared memory for warpgroup 1;
+//   warpgroup 1: dP = dO . V^T, then, with P from warpgroup 0, dS = P *
+//     (dP - delta) as K3's 128-row consumer forms it, in bf16 into a
+//     swizzled 64 x 64 panel;
+//   both: dQ += dS . K over half of the tile's keys, warpgroup w keys
+//     32 w .. 32 w + 31, dS read from the panel.
+// Split by keys, both warpgroups keep D / 2 f32 of dQ (all of its columns)
+// and issue the same products; split by columns, D 192 would not halve
+// into 64-column panels.  The two sums meet once, at the end, in the
+// drained ring.  Two named barriers order the hand-overs: kPtFull (0
+// arrives after writing P, 1 syncs before reading it) and kDsFull (1
+// arrives after writing dS, 0 syncs before its product).  Each also frees
+// the other buffer: 0 writes the next P only after kDsFull, which 1
+// passes after reading P, and 1 writes the next dS only after the next
+// kPtFull, which 0 passes after its product has read dS.  Every list
+// entry and dense step is visited by the whole block (one 64-row query
+// tile), so the step flags' visit bits are not read.
+template <int D, class Sweep>
+__device__ __forceinline__ void dq_split_consume(const Sweep& sw, unsigned char* q_s,
+                                                 const unsigned char* do_s, unsigned char* k_s,
+                                                 const unsigned char* v_s, unsigned char* ds_s,
+                                                 float* pt_s, const Step* step_s,
+                                                 uint64_t* q_full, uint64_t* full,
+                                                 uint64_t* empty, const float* __restrict__ lse,
+                                                 const float* __restrict__ delta,
+                                                 __nv_bfloat16* __restrict__ dq, int b, int n,
+                                                 int T_len, int S_len, float scale_log2,
+                                                 float sm_scale, int causal) {
+  using C = DqCfg<D>;
+  const int wg = threadIdx.x / 128;
+  const int tid = threadIdx.x % 128;
+  const int warp = tid / 32;
+  const int lane = threadIdx.x % 32;
+  const int t = lane % 4;
+  const int q0 = b * kTileRows;
+  const int row0 = q0 + 16 * warp + lane / 4;
+
+  // this thread's two rows: LSE (times log2 e) and delta; rows past T
+  // read LSE = 1e30, so their P is 0
+  float lse_r[2], delta_r[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = row0 + 8 * h;
+    const bool in = row < T_len;
+    lse_r[h] = (in ? lse[row] : BIG_LSE) * kLog2e;
+    delta_r[h] = in ? delta[row] : 0.0f;
+  }
+  float acc[D / 2];   // this warpgroup's keys' share of dQ: 64 x D
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.0f;
+
+  if (n > 0) mbar_wait(q_full, 0);
+  for (int it = 0; it < n; ++it) {
+    const int s = it % C::STAGES;
+    Step step;
+    if constexpr (!Sweep::kList) step = sw.dq_step(b, it, kTileRows);
+    mbar_wait(&full[s], (it / C::STAGES) & 1);
+    if constexpr (Sweep::kList) step = step_s[s];   // staged by the producer
+    const int k0 = step.tile * kTileRows;
+    const unsigned char* k_t = k_s + s * C::TILE_BYTES;
+    const unsigned char* v_t = v_s + s * C::TILE_BYTES;
+    const bool part = Sweep::kList && (step.flags & kPartial);
+    const bool edge =
+        part || k0 + kTileRows > S_len || (causal && k0 + kTileRows - 1 > q0);
+    float sc[kTileRows / 2];
+    // S = Q . K^T (warpgroup 0), dP = dO . V^T (1)
+    wgmma_fence();
+    wgmma_scores<D, C::PANEL_Q, C::PANEL_T>(sc, wg == 0 ? q_s : do_s, wg == 0 ? k_t : v_t);
+    wgmma_commit();
+    wgmma_wait<0>();
+#pragma unroll
+    for (int i = 0; i < kTileRows / 2; ++i) fence_regs(sc[i]);
+
+    if (wg == 0) {
+      // P = exp(S * scale - LSE), the masks in loops of their own; element
+      // i is query row row0 + 8 ((i >> 1) & 1), key column k0 + 8 (i / 4) +
+      // 2 t + (i & 1)
+#pragma unroll
+      for (int i = 0; i < kTileRows / 2; ++i)
+        sc[i] = exp2f(fmaf(sc[i], scale_log2, -lse_r[(i >> 1) & 1]));
+      if (edge) {
+#pragma unroll
+        for (int i = 0; i < kTileRows / 2; ++i) {
+          const int col = k0 + 8 * (i / 4) + 2 * t + (i & 1);
+          if (col >= S_len || (causal && col > row0 + 8 * ((i >> 1) & 1))) sc[i] = 0.0f;
+        }
+        if constexpr (Sweep::kList) {
+          if (part) {
+#pragma unroll
+            for (int i = 0; i < kTileRows / 2; ++i) {
+              const int col = k0 + 8 * (i / 4) + 2 * t + (i & 1);
+              const int row = row0 + 8 * ((i >> 1) & 1);
+              if (col < S_len && (row >= T_len || !sw.keep(row, col))) sc[i] = 0.0f;
+            }
+          }
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < kTileRows / 2; ++i) pt_s[i * 128 + tid] = sc[i];
+      named_barrier_arrive(kPtFull, kConsumers);
+      named_barrier_sync(kDsFull, kConsumers);
+    } else {
+      named_barrier_sync(kPtFull, kConsumers);
+      // dS = P * (dP - delta); where P is 0 on an edge or partial tile, dP
+      // (NaN from a dead key row of V) is replaced by delta first, so that
+      // dS is 0 by select
+#pragma unroll
+      for (int i = 0; i < kTileRows / 2; ++i) {
+        const float p = pt_s[i * 128 + tid];
+        const float d = delta_r[(i >> 1) & 1];
+        sc[i] = p * ((edge && p == 0.0f ? d : sc[i]) - d);
+      }
+      stage_rows<kTileRows, 0>(ds_s, sc, 1.0f);   // bf16, TMA's swizzle
+      fence_proxy_async();   // for the wgmma of both warpgroups
+      named_barrier_arrive(kDsFull, kConsumers);
+    }
+    // dQ += dS . K over keys 32 wg .. 32 wg + 31
+    wgmma_fence();
+    wgmma_accumulate_ss<D, C::PANEL_T, 2>(acc, ds_s + 64 * wg, k_t + 32 * wg * C::RB);
+    wgmma_commit();
+    wgmma_wait<0>();
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) fence_regs(acc[i]);
+    mbar_arrive(&empty[s]);
+  }
+
+  // epilogue: warpgroup 1's share into the ring (both warpgroups' products
+  // are done, and no load is left to land there), added to warpgroup 0's
+  // in the same order for every element; dQ * sm_scale in bf16, staged in
+  // the block's Q rows
+  float* share = reinterpret_cast<float*>(k_s);
+  named_barrier_sync(kDqSum, kConsumers);
+  if (wg == 1) {
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) share[i * 128 + tid] = acc[i];
+  }
+  named_barrier_sync(kDqSum, kConsumers);
+  if (wg == 0) {
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) acc[i] += share[i * 128 + tid];
+    stage_rows<D, C::PANEL_Q>(q_s, acc, sm_scale);
+    named_barrier_sync(1, 128);
+    store_rows<D, C::PANEL_Q>(q_s, dq, q0, T_len);
+  }
+}
+
+// dQ: grid (B*H, ceil(T / own rows)); the sweep maps blockIdx.y to a block.
 template <int D, class Sweep>
 __global__ void __launch_bounds__(kBwdThreads, 1)
 bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
@@ -655,11 +852,13 @@ bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
                     const Sweep sw) {
   using C = DqCfg<D>;
   extern __shared__ unsigned char smem_raw[];
-  unsigned char* q_s = align1024(smem_raw);             // [panel][128 rows]
+  unsigned char* q_s = align1024(smem_raw);             // [panel][own rows]
   unsigned char* do_s = q_s + C::Q_BYTES;
   unsigned char* k_s = do_s + C::Q_BYTES;               // [stage][panel][64 rows]
   unsigned char* v_s = k_s + C::STAGES * C::TILE_BYTES;
-  uint64_t* q_full = reinterpret_cast<uint64_t*>(v_s + C::STAGES * C::TILE_BYTES);
+  unsigned char* ds_s = v_s + C::STAGES * C::TILE_BYTES;   // 64 own rows: dS
+  float* pt_s = reinterpret_cast<float*>(ds_s + C::DS_BYTES);   // and P
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(pt_s + C::PT_BYTES / 4);
   uint64_t* full = q_full + 1;
   uint64_t* empty = full + C::STAGES;
   Step* step_s = reinterpret_cast<Step*>(empty + C::STAGES);   // [stage], list sweeps
@@ -667,8 +866,8 @@ bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
   const int bh = h0 + blockIdx.x;
   const int h = bh % H, bb = bh / H;
   const int b = sw.dq_block();
-  const int q0 = b * kBlockRows;
-  const int n = sw.dq_count(b, S_len);   // 0: dQ = 0
+  const int q0 = b * C::OWN;
+  const int n = sw.dq_count(b, S_len, C::OWN);   // 0: dQ = 0
 
   if (threadIdx.x == 0) {
     mbar_init(q_full, 1);
@@ -682,7 +881,7 @@ bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
   __syncthreads();
 
   if (threadIdx.x >= kConsumers) {
-    setmaxnreg_dec<kDqProducerRegs>();
+    setmaxnreg_dec<C::PRODUCER_REGS>();
     const int lane = threadIdx.x % 32;
     if (Sweep::kList ? threadIdx.x < kConsumers + 32 : threadIdx.x == kConsumers) {
       if (lane == 0 && n > 0) {
@@ -694,7 +893,7 @@ bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
       }
       for (int it = 0; it < n; ++it) {
         const int s = it % C::STAGES;
-        const Step step = sw.dq_step(b, it);
+        const Step step = sw.dq_step(b, it, C::OWN);
         const int k0 = step.tile * kTileRows;
         mbar_wait(&empty[s], ((it / C::STAGES) & 1) ^ 1);   // the first round passes
         if constexpr (Sweep::kList) {
@@ -725,10 +924,16 @@ bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
       }
     }
   } else {
-    setmaxnreg_inc<kDqConsumerRegs>();
-    dq_consume<D>(sw, q_s, do_s, k_s, v_s, step_s, q_full, full, empty, lse + (size_t)bh * T_len,
-                  delta + (size_t)bh * T_len, dq + (size_t)bh * T_len * D, b, n, T_len, S_len,
-                  scale_log2, sm_scale, causal);
+    setmaxnreg_inc<C::CONSUMER_REGS>();
+    if constexpr (C::OWN == kBlockRows)
+      dq_consume<D>(sw, q_s, do_s, k_s, v_s, step_s, q_full, full, empty,
+                    lse + (size_t)bh * T_len, delta + (size_t)bh * T_len,
+                    dq + (size_t)bh * T_len * D, b, n, T_len, S_len, scale_log2, sm_scale, causal);
+    else
+      dq_split_consume<D>(sw, q_s, do_s, k_s, v_s, ds_s, pt_s, step_s, q_full, full, empty,
+                          lse + (size_t)bh * T_len, delta + (size_t)bh * T_len,
+                          dq + (size_t)bh * T_len * D, b, n, T_len, S_len, scale_log2, sm_scale,
+                          causal);
   }
 }
 
@@ -796,10 +1001,10 @@ template <int D, class Sweep>
 cudaError_t launch_dq_wgmma(const BwdArgs& a, const Sweep& sw) {
   using C = DqCfg<D>;
   static_assert(C::SMEM <= kMaxSmemBytes, "bwd_dq_wgmma tiles do not fit in shared memory");
-  const int n_qb = (a.T_len + kBlockRows - 1) / kBlockRows;
+  const int n_qb = (a.T_len + C::OWN - 1) / C::OWN;
   if (n_qb > 65535) return cudaErrorInvalidValue;
   CUtensorMap tm[4];
-  cudaError_t err = encode_bwd_maps<D>(a, kBlockRows, kTileRows, tm);
+  cudaError_t err = encode_bwd_maps<D>(a, C::OWN, kTileRows, tm);
   if (err != cudaSuccess) return err;
   auto kernel = bwd_dq_wgmma_kernel<D, Sweep>;
   static std::mutex mu;

@@ -2,9 +2,9 @@
 // with ctypes: the "wide" route of K1-K3 and K6-K8.
 //
 // The tile loops (f32) are built for head dims 16, 32, 64 and 128, the
-// Hopper kernels (bf16) also for 192 and 256 (K3/K8 only to 128); a head dim
-// between them is zero-padded to the next.  So this route takes f32 above
-// 128, bf16 above 256, and the bf16 dQ (K3, K8) at 192 and 256.  The TPU
+// Hopper kernels (bf16) also for 192 and 256; a head dim between them is
+// zero-padded to the next.  So this route takes f32 above 128 and bf16
+// above 256.  The TPU
 // kernels take any D: `_fwd_kernel`, `_dkv_kernel`, `_dq_kernel` of
 // bigdl_tpu/ops/flash_attention.py and `_bs_fwd_kernel`, `_bs_dkv_kernel`,
 // `_bs_dq_kernel` of bigdl_tpu/ops/block_sparse.py hand D straight to their

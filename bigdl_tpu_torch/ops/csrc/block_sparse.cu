@@ -46,11 +46,12 @@
 // (attn_fwd_hopper.cuh, attn_bwd_hopper.cuh: TMA ring, wgmma,
 // accumulators in registers; q, k, v and dO read at their own strides) with
 // a tile list in place of the dense sweep (ListSweep below), at D 16-128 and
-// at 192 and 256, the bf16 route of head dims 129-256 (K8 there is
-// attn_wide.cu's dQ): the host regroups the 64-row tile lists per block of
-// 128 own rows, the block's two consumer warpgroups each computing the
-// streamed tiles its own 64 rows visit; K6 reads K8's lists (the same own
-// query rows, the same streamed K and V tiles).  A streamed tile with a
+// at 192 and 256, the bf16 route of head dims 129-256: the host regroups the
+// 64-row tile lists per block of 128 own rows, the block's two consumer
+// warpgroups each computing the streamed tiles its own 64 rows visit (K7
+// and K8 at D 192 and 256 own 64 rows a block and read the 64-row tile
+// lists); K6 reads K8's 128-row lists (the same own query rows, the same
+// streamed K and V tiles).  A streamed tile with a
 // partial pair is staged by the producer's first warp, live rows only, so
 // the TMA load of a dead row never happens; inside a partial pair each
 // element is tested against the block mask and its score selected to -inf
@@ -514,8 +515,9 @@ bs_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
 // r, read at partial entries only), and the blocks in order of their list
 // length, longest first.  On an all-ones causal mask at a 128-multiple block
 // the lists are the dense sweeps of K1 (at D 128) and K2/K3, tile for tile,
-// so K6-K8 give K1-K3's bits.  K7 at D 192 and 256 owns 64 key rows a block
-// and reads the same lists built per 64-row key tile (bit 0 and bit 2 only).
+// so K6-K8 give K1-K3's bits.  K7 and K8 at D 192 and 256 own 64 rows a
+// block and read the same lists built per 64-row key (K7) or query (K8)
+// tile (bit 0 and bit 2 only).
 struct ListSweep {
   static constexpr bool kList = true;
   const int* tiles;                 // (blocks, L)
@@ -532,15 +534,15 @@ struct ListSweep {
   __device__ int dkv_block() const { return order[blockIdx.y]; }
   __device__ int dq_block() const { return order[blockIdx.y]; }
   __device__ int dkv_count(int b, int, int) const { return counts[b]; }
-  __device__ int dq_count(int b, int) const { return counts[b]; }
-  __device__ Step dkv_step(int b, int it, int) const { return dq_step(b, it); }
-  __device__ Step dq_step(int b, int it) const {
+  __device__ int dq_count(int b, int, int) const { return counts[b]; }
+  __device__ Step dkv_step(int b, int it, int) const { return fwd_step(b, it); }
+  __device__ Step dq_step(int b, int it, int) const { return fwd_step(b, it); }
+  __device__ int fwd_block() const { return order[blockIdx.y]; }
+  __device__ int fwd_count(int b, int) const { return counts[b]; }
+  __device__ Step fwd_step(int b, int it) const {
     const size_t e = (size_t)b * L + it;
     return Step{tiles[e], flags[e]};
   }
-  __device__ int fwd_block() const { return order[blockIdx.y]; }
-  __device__ int fwd_count(int b, int) const { return counts[b]; }
-  __device__ Step fwd_step(int b, int it) const { return dq_step(b, it); }
   __device__ bool keep(int qp, int kp) const { return mk.block(qp, kp); }
   __device__ unsigned long long live(int b, int it) const { return rows[(size_t)b * L + it]; }
 };
@@ -554,7 +556,7 @@ struct AttnArgs {
   const float* delta;
   void* out0;   // O (K6), dK (K7) or dQ (K8)
   void* out1;   // LSE (K6) or dV (K7)
-  Tables tab;        // f32: 64-row tile tables; bf16: 128-row (K7 at D > 128: 64-row) block lists
+  Tables tab;        // f32: 64-row tile tables; bf16: 128-row (K7, K8 at D > 128: 64-row) block lists
   const int* order;  // bf16: the blocks, longest list first
   const unsigned long long* rows;   // bf16: live streamed rows
   Mask mk;
@@ -657,14 +659,12 @@ cudaError_t launch_attn_f32(AttnArgs a) {
   return cudaGetLastError();
 }
 
-// bf16 at D 16-256 (K8 to 128: above it the wrapper takes attn_wide.cu's
-// dQ), f32 to 128
+// bf16 at D 16-256, f32 to 128
 template <Which W, typename T, int D>
 cudaError_t launch_attn(const AttnArgs& a) {
   if constexpr (kIsBf16<T>) {
     if (a.order == nullptr || a.rows == nullptr) return cudaErrorInvalidValue;
-    if constexpr (D > 128 && W == Which::kDq) return cudaErrorInvalidValue;
-    else return launch_wgmma<W, D>(a);
+    return launch_wgmma<W, D>(a);
   } else if constexpr (D > 128) {
     return cudaErrorInvalidValue;
   } else {
@@ -717,20 +717,17 @@ AttnArgs make_args(const void* q, const void* k, const void* v, const void* dO, 
 
 template <Which W, int D>
 int smem_of(int dtype) {
-  if constexpr (D > 128) {   // bf16 K6 and K7 only
-    if (dtype != 1 || W == Which::kDq) return 0;
-    return (int)(W == Which::kFwd ? FwdCfg<D, kTileRows>::SMEM : DkvCfg<D>::SMEM);
-  } else {
-    if (dtype == 1)
-      return (int)(W == Which::kFwd   ? FwdCfg<D, kTileRows>::SMEM
-                   : W == Which::kDkv ? DkvCfg<D>::SMEM
-                                      : DqCfg<D>::SMEM);
+  if (dtype == 1)
+    return (int)(W == Which::kFwd   ? FwdCfg<D, kTileRows>::SMEM
+                 : W == Which::kDkv ? DkvCfg<D>::SMEM
+                                    : DqCfg<D>::SMEM);
+  if constexpr (D <= 128) {   // f32
     if (dtype == 0)
       return (int)(W == Which::kFwd   ? fwd_smem_bytes<D>()
                    : W == Which::kDkv ? dkv_smem_bytes<D>()
                                       : dq_smem_bytes<D>());
-    return 0;
   }
+  return 0;
 }
 
 template <Which W>
@@ -1182,7 +1179,7 @@ cudaError_t dispatch_mm_tile(const MmArgs& a) {
 // mask.  The tables as ops/block_sparse.py builds them.  In f32 the kernels
 // read 64-row tile tables: tiles (tiles, L) int32, counts (tiles,) int32,
 // partial (tiles, L) uint8; order and rows are not read.  In bf16 they read
-// block lists (128-row; 64-row for K7 at D 192 and 256): tiles (blocks, L)
+// block lists (128-row; 64-row for K7 and K8 at D 192 and 256): tiles (blocks, L)
 // int32, counts (blocks,) int32, partial the flag bytes (blocks, L) uint8,
 // order (blocks,) int32 and rows (blocks, L) uint64.  Each returns the
 // cudaError_t of its launch (0 on success).
@@ -1216,8 +1213,8 @@ extern "C" int bigdl_bs_bwd_dkv(const void* q, const void* k, const void* v, con
   return dispatch_attn<Which::kDkv>(D, dtype, a);
 }
 
-// K8: dq (., T, D); tables per q tile (f32) or per 128 query rows (bf16);
-// D up to 128 (above, the wrapper takes attn_wide.cu's).
+// K8: dq (., T, D); tables per q tile (f32) or per 128 query rows (bf16;
+// per 64 at D 192 and 256).
 extern "C" int bigdl_bs_bwd_dq(const void* q, const void* k, const void* v, const void* dO,
                                const void* lse, const void* delta, void* dq, const void* tiles,
                                const void* counts, const void* partial, const void* bmask,

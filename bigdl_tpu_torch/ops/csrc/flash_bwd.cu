@@ -44,12 +44,14 @@
 //   * A warpgroup skips a tile that lies wholly above its causal diagonal.
 //     Blocks start with the heaviest causal tiles: low key tiles in K2, high
 //     query tiles in K3.
-//   * K2 at D 192 and 256 (the bf16 route of head dims 129-256, zero-padded
-//     by the wrapper): blocks of 64 key rows, dV in one consumer warpgroup
-//     and dK in the other (attn_bwd_hopper.cuh says why).  At B 2, H 8,
-//     T 1024, D 256, causal its four products are 17.3 GFLOP, 17.5 us at
-//     989 TFLOP/s, against 50.5 MB, 15.1 us.  K3 at those head dims is not
-//     built here: the wrapper takes attn_wide.cu's dQ.
+//   * K2 and K3 at D 192 and 256 (the bf16 route of head dims 129-256,
+//     zero-padded by the wrapper): blocks of 64 own rows.  K2 keeps dV in
+//     one consumer warpgroup and dK in the other; K3 forms P in one and dS
+//     in the other, and each adds dS . K over half of every key tile
+//     (attn_bwd_hopper.cuh says why).  At B 2, H 8, T 1024, D 256, causal
+//     K2's four products are 17.3 GFLOP, 17.5 us at 989 TFLOP/s, against
+//     50.5 MB, 15.1 us; K3's three 12.9 GFLOP, 13.0 us, against 42.1 MB,
+//     12.6 us.
 // q, k, v and dO are read at their own strides (the head-strided view of an
 // attention layer in place); the outputs are contiguous.
 //
@@ -67,11 +69,11 @@ namespace {
 
 // ---- bf16: the Hopper body of attn_bwd_hopper.cuh over the dense sweep ------
 
-// K2 sweeps the 64-row query tiles of its 128 key rows from the causal
-// diagonal (row k0) to T; K3 the key tiles of its 128 query rows from 0 up
-// to the diagonal.  A consumer warpgroup skips a tile wholly above its own
-// diagonal.  Blocks start with the heaviest causal tiles: low key blocks in
-// K2, high query blocks in K3.
+// K2 sweeps the 64-row query tiles of its 128 (or 64) key rows from the
+// causal diagonal (row k0) to T; K3 the key tiles of its 128 (or 64) query
+// rows from 0 up to the diagonal.  A consumer warpgroup of a 128-row block
+// skips a tile wholly above its own diagonal.  Blocks start with the
+// heaviest causal tiles: low key blocks in K2, high query blocks in K3.
 struct DenseSweep {
   static constexpr bool kList = false;
   int causal;
@@ -93,14 +95,15 @@ struct DenseSweep {
     return Step{tile, flags};
   }
 
-  __device__ int dq_count(int b, int S_len) const {
-    const int k_end = causal ? min(S_len, (b + 1) * kBlockRows) : S_len;
+  // own: the query rows of a dQ block, 128 or 64
+  __device__ int dq_count(int b, int S_len, int own) const {
+    const int k_end = causal ? min(S_len, (b + 1) * own) : S_len;
     return (k_end + kTileRows - 1) / kTileRows;
   }
-  __device__ Step dq_step(int b, int it) const {
+  __device__ Step dq_step(int b, int it, int own) const {
     uint32_t flags = 0;
-    for (int w = 0; w < 2; ++w)
-      if (!(causal && it * kTileRows > b * kBlockRows + 64 * w + 63)) flags |= kVisit << w;
+    for (int w = 0; w < own / kTileRows; ++w)
+      if (!(causal && it * kTileRows > b * own + 64 * w + 63)) flags |= kVisit << w;
     return Step{it, flags};
   }
 };
@@ -359,18 +362,16 @@ cudaError_t launch_dq_f32(const BwdArgs& a) {
   return cudaGetLastError();
 }
 
-// dtype: 0 = float32, 1 = bfloat16; D 192 and 256 only K2 in bf16
+// dtype: 0 = float32, 1 = bfloat16; D 192 and 256 in bf16 only
 template <int D>
 cudaError_t launch(bool dkv, int dtype, const BwdArgs& a) {
   const DenseSweep sw{a.causal};
-  if constexpr (D > 128) {
-    return dtype == 1 && dkv ? launch_dkv_wgmma<D>(a, sw) : cudaErrorInvalidValue;
-  } else {
-    if (dtype == 1) return dkv ? launch_dkv_wgmma<D>(a, sw) : launch_dq_wgmma<D>(a, sw);
+  if (dtype == 1) return dkv ? launch_dkv_wgmma<D>(a, sw) : launch_dq_wgmma<D>(a, sw);
+  if constexpr (D <= 128) {
     BwdArgs f = a;
     if (dtype == 0 && f32_from_h0(D, &f)) return dkv ? launch_dkv_f32<D>(f) : launch_dq_f32<D>(f);
-    return cudaErrorInvalidValue;
   }
+  return cudaErrorInvalidValue;
 }
 
 int dispatch(bool dkv, int D, int dtype, const BwdArgs& a) {
@@ -389,13 +390,11 @@ int dispatch(bool dkv, int D, int dtype, const BwdArgs& a) {
 
 template <int D>
 int smem_of(bool dkv, int dtype) {
-  if constexpr (D > 128) {
-    return dtype == 1 && dkv ? (int)DkvCfg<D>::SMEM : 0;
-  } else {
-    if (dtype == 1) return (int)(dkv ? DkvCfg<D>::SMEM : DqCfg<D>::SMEM);
+  if (dtype == 1) return (int)(dkv ? DkvCfg<D>::SMEM : DqCfg<D>::SMEM);
+  if constexpr (D <= 128) {
     if (dtype == 0) return (int)(dkv ? dkv_smem_bytes<D>() : dq_smem_bytes<D>());
-    return 0;
   }
+  return 0;
 }
 
 }  // namespace
@@ -428,7 +427,7 @@ extern "C" int bigdl_flash_bwd_dkv(const void* q, const void* k, const void* v, 
                                             T_len, S_len, sm_scale, causal, stream));
 }
 
-// K3: dq (., T, D); D up to 128 (above, the wrapper takes attn_wide.cu's).
+// K3: dq (., T, D).
 extern "C" int bigdl_flash_bwd_dq(const void* q, const void* k, const void* v, const void* dO,
                                   const void* lse, const void* delta, void* dq,
                                   const long long* strides, int H, int h0, int BH, int T_len,

@@ -19,12 +19,12 @@ computes, what bounds it and how:
   counts under the counter of the kernel it stands for and under
   ``LAUNCHES_WIDE``.
 
-Routing by dtype and head dim D: f32 runs the tile loops at 16, 32, 64
-and 128 and the wide route above 128; bf16 runs the Hopper bodies at 16,
-32, 64, 128, 192 and 256 (K3 to 128: its dQ at 192 and 256 is the wide
-route's) and the wide route above 256.  A head dim between the built
-ones is zero-padded to the next (``_padded_head_dim``: bf16 160 runs at
-192, 200 at 256).
+Routing by dtype and head dim D, the same for the forward, dK/dV and
+dQ: f32 runs the tile loops at 16, 32, 64 and 128 and the wide route
+above 128; bf16 runs the Hopper bodies at 16, 32, 64, 128, 192 and 256
+and the wide route above 256.  A head dim between the built ones is
+zero-padded to the next (``_padded_head_dim``: bf16 160 runs at 192,
+200 at 256).
 
 Layouts: the Hopper kernels read q, k, v and dO through TMA at their own
 strides, so the (B, T, H, D).transpose(1, 2) view that every attention
@@ -58,10 +58,9 @@ import torch
 from ._support import LaunchCounter, load_cuda_library, on_cpu
 
 _BIG_LSE = 1e30  # lse sentinel for fully-masked rows: exp(s - BIG) == 0
-#: head dims the kernels are built for: the f32 tile loops, and K3/K8 in
-#: every dtype
+#: head dims the kernels are built for: the f32 tile loops
 HEAD_DIMS = (16, 32, 64, 128)
-#: the bf16 Hopper forward and dK/dV (K1, K2, K6, K7) also take these
+#: the bf16 Hopper bodies (K1-K3, K6-K8) also take these
 HEAD_DIMS_BF16 = HEAD_DIMS + (192, 256)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -168,16 +167,10 @@ def _head_dims(dtype) -> Tuple[int, ...]:
 
 
 def _wide(D: int, dtype) -> bool:
-    """Whether head dim D takes the wide route in the forward and dK/dV:
+    """Whether head dim D takes the wide route (forward, dK/dV and dQ):
     above the head dims built for ``dtype`` (f32 above 128, bf16 above
     256)."""
     return D > _head_dims(dtype)[-1]
-
-
-def _dq_wide(D: int) -> bool:
-    """Whether head dim D takes the wide route in dQ (K3, K8: above 128 in
-    either dtype)."""
-    return D > HEAD_DIMS[-1]
 
 
 def _padded_head_dim(D: int, dtype) -> int:
@@ -399,10 +392,9 @@ def _launch_dkv(q, k, v, do, lse, delta, causal: bool, sm_scale: float
 
 def _launch_dq(q, k, v, do, lse, delta, causal: bool, sm_scale: float
                ) -> torch.Tensor:
-    """Launch K3 over the same prepared inputs as ``_launch_dkv`` (above
-    head dim 128 the wide route)."""
+    """Launch K3 over the same prepared inputs as ``_launch_dkv``."""
     B, H, T, D = q.shape
-    if _dq_wide(D):
+    if _wide(D, q.dtype):
         return _wide_dq(q, k, v, do, lse, delta, causal, sm_scale,
                         LAUNCHES_DQ)
     q, k, v, do = _kernel_operands(q, k, v, do,

@@ -10,15 +10,16 @@ Phases; any failure exits non-zero:
 2. build — compile the kernels from this checkout's sources: the five
    CUDA libraries (``flash_fwd.cu``: K1; ``flash_bwd.cu``: K2 and K3;
    ``block_sparse.cu``: K6-K9; ``conv3x3.cu``: K5; ``attn_wide.cu``: the
-   route of K1-K3 and K6-K8 for head dims above 128) with one ``nvcc``
+   route of K1-K3 and K6-K8 for head dims above the built ones, f32 128
+   and bf16 256) with one ``nvcc``
    each, started together, into ``.torch_kernels/``; Triton compiles K4
    at first launch.  Print the build seconds, and for each instantiation
    of K1, K2, K3, K6-K8, K5's bf16 kernel (one per KC input channels
    a step and BN output channels a block) and K9's Hopper route (one per
    KC, BN and W orientation) its registers, spills and dynamic shared
    memory (ptxas) and its wgmma (HGMMA) and TMA (UTMALDG) instructions
-   (``cuobjdump -sass``, where the toolkit has it); each bf16 D 128
-   attention kernel, K1, K2, K6 and K7 at D 192 and 256, K5 at KC 64 and
+   (``cuobjdump -sass``, where the toolkit has it); each bf16 attention
+   kernel at D 128, 192 and 256, K5 at KC 64 and
    every K9 instantiation must not spill and must hold both (and the
    attention kernels must not have their wgmma serialised, ptxas C7520),
    and two K5 or K9 blocks must share an SM.
@@ -32,8 +33,8 @@ Phases; any failure exits non-zero:
    the attention kernels on the head-strided layout of an attention
    layer at the training shapes (no copy; bit for bit the contiguous
    launch) and K4 on a column slice; bf16 head dims 192 and 256 (the
-   forward and dK/dV on the Hopper bodies, dQ on the wide route; NaN in
-   dead K/V at 256 too) and 320 (the wide route); K5 forward and dX at ResNet-50's
+   Hopper bodies in all three passes, dK/dV and dQ on 64-row blocks; NaN
+   in dead K/V at 256 too) and 320 (the wide route); K5 forward and dX at ResNet-50's
    four stage shapes (B 64, bf16), one in f32, ResNet-CIFAR's first
    width (B 128, 32 x 32, C = O = 16) and ragged C 3, O 10, H 7, W 5,
    with K5's pixel box, its dead rows and the bytes its TMA boxes
@@ -349,10 +350,9 @@ DESIGN_KERNELS = (
 
 
 # the bf16 head dims phase 2 holds each Hopper attention kernel to: D 128,
-# and 192 and 256 for the forward and dK/dV (K3 and K8 stop at 128)
-CHECKED_HEAD_DIMS = {"K1": (128, 192, 256), "K2": (128, 192, 256),
-                     "K3": (128,), "K6": (128, 192, 256),
-                     "K7": (128, 192, 256), "K8": (128,)}
+# 192 and 256 (K2, K3, K7 and K8 there are the 64-row blocks)
+CHECKED_HEAD_DIMS = {label: (128, 192, 256)
+                     for label in ("K1", "K2", "K3", "K6", "K7", "K8")}
 
 
 def design_kernel(fn: str):
@@ -371,9 +371,9 @@ def kernel_design(torch):
     of K1, K2, K3 and K6-K8 (dtype, head dim) its registers, spills and
     dynamic shared memory from ptxas, and its count of wgmma (HGMMA) and
     TMA load (UTMALDG) instructions in SASS.  Fails where a bf16 kernel
-    at D 128, or K1, K2, K6 or K7 at D 192 or 256 (the bf16 route of head
-    dims 129-256; K2 and K7 there are the 64-row dK/dV block), spills,
-    has its wgmma serialised by ptxas, holds no HGMMA or no UTMALDG, or is
+    at D 128, 192 or 256 (the bf16 route of head dims 129-256; K2, K3, K7
+    and K8 there are the 64-row dK/dV and dQ blocks) spills, has its
+    wgmma serialised by ptxas, holds no HGMMA or no UTMALDG, or is
     missing.  A library loaded
     from an earlier build in the same checkout has no ptxas report
     (``_support.BUILD_INFO``): its registers and spills read "not
@@ -564,11 +564,9 @@ def attn_inputs(torch, label, B, H, rows, D, dt, g, n):
 
 
 def wide_launches(fa, D, dt, passes):
-    """Wide-route launches a call makes at true head dim D: forward (and
-    dK/dV) where D is above the dtype's built head dims, dQ above 128."""
-    Dp = fa._padded_head_dim(D, dt)
-    return sum(int(fa._dq_wide(Dp) if p == "dq" else fa._wide(Dp, dt))
-               for p in passes)
+    """Wide-route launches a call makes at true head dim D: one a pass
+    where D is above the dtype's built head dims (f32 128, bf16 256)."""
+    return len(passes) * int(fa._wide(fa._padded_head_dim(D, dt), dt))
 
 
 def check_flash(torch, F):
@@ -705,9 +703,8 @@ def want_launches(**counts):
 def bwd_cases(torch):
     """(label, B, H, T, S, D, dtype, causal) for K2/K3: the training
     step (also head-strided, as ``flash_cases``), a ragged T, causal
-    T > S and S > T, f32, narrower heads, head dims 192 and 256 (K2 on
-    the 64-row Hopper block, K3 on the wide route) and 320 (the wide
-    route)."""
+    T > S and S > T, f32, narrower heads, head dims 192 and 256 (K2 and
+    K3 on the 64-row Hopper blocks) and 320 (the wide route)."""
     bf16, f32 = torch.bfloat16, torch.float32
     return [("train", 16, 8, 1024, 1024, 128, bf16, True),
             ("strided_train", 16, 8, 1024, 1024, 128, bf16, True),
@@ -755,6 +752,26 @@ def sdpa_bwd_ms(torch, F, q, k, v, d_o, iters: int = 10, reps: int = 5,
     backend = type(out.grad_fn).__name__
     del graph, out, leaves
     return ms, backend
+
+
+def bwd_tma_bytes(BH, T, S, D, causal, dkv):
+    """The bytes the TMA loads of the bf16 K2 (``dkv``) or K3 request
+    on the dense sweep (``flash_bwd.cu``'s ``DenseSweep``): per block of
+    128 own rows (64 at D 192 and 256) its two own tensors once and two
+    streamed 64-row tiles a step, from the causal diagonal on (K2) or up
+    to it (K3).  Streamed tiles are read from L2 once a block, however
+    many blocks of a head read them."""
+    own = 128 if D <= 128 else 64
+    rows, other = (S, T) if dkv else (T, S)
+    boxes = 0   # rows of each of the two tensors, in boxes
+    for b in range(-(-rows // own)):
+        if dkv:
+            begin = b * own if causal else 0
+            n = -(-(other - begin) // 64) if other > begin else 0
+        else:
+            n = -(-(min(other, (b + 1) * own) if causal else other) // 64)
+        boxes += own + 64 * n if n else 0   # a block with no step loads nothing
+    return BH * 2 * D * 2 * boxes
 
 
 def check_flash_bwd(torch, F):
@@ -826,6 +843,11 @@ def check_flash_bwd(torch, F):
                               + stats, 8.0 * BH * pairs * D, dname)
         b_dq, by_dq = bound(item * (3 * BH * T * D + 2 * BH * S * D)
                             + stats, 6.0 * BH * pairs * D, dname)
+        # the Hopper route's TMA traffic and its rate (bf16 up to D 256)
+        tma = {}
+        if dname == "bfloat16" and not wide:
+            tma = {p: bwd_tma_bytes(BH, T, S, D, causal, p == "dkv")
+                   for p in ("dkv", "dq")}
         rows.append(dict(
             case=label, shape=[B, H, T, S, D], dtype=dname, causal=causal,
             row_rel_err=rel, max_abs_err=err, tol=tol, ok=ok,
@@ -833,16 +855,19 @@ def check_flash_bwd(torch, F):
             library_ms=lib_ms,
             library_backend=lib_backend,
             dkv=dict(ms=ms_dkv, bound_ms=b_dkv, bound_by=by_dkv,
-                     max_abs_err=max(err["dk"], err["dv"])),
+                     max_abs_err=max(err["dk"], err["dv"]),
+                     tma_bytes=tma.get("dkv")),
             dq=dict(ms=ms_dq, bound_ms=b_dq, bound_by=by_dq,
-                    max_abs_err=err["dq"])))
+                    max_abs_err=err["dq"], tma_bytes=tma.get("dq"))))
+        rates = "".join(f" {k} TMA {n / 1e6:.1f} MB ({n / ms / 1e9:.2f} TB/s)"
+                        for (k, n), ms in zip(tma.items(), (ms_dkv, ms_dq)))
         print(f"K2/K3 flash_bwd {label:>18} {dname:>8} row err dq "
               f"{rel['dq']:.3e} dk {rel['dk']:.3e} dv {rel['dv']:.3e} (tol "
               f"{tol:g}) wide {wide}"
               f"{'' if same is None else f' = contiguous bitwise {same}'} "
               f"| K2 {ms_dkv:.4f} ms (bound {b_dkv:.4f}, {by_dkv}) "
               f"K3 {ms_dq:.4f} ms (bound {b_dq:.4f}, {by_dq}) plain "
-              f"{plain_ms:.4f} ms sdpa bwd {lib_ms} ms ({lib_backend}) "
+              f"{plain_ms:.4f} ms sdpa bwd {lib_ms} ms ({lib_backend}){rates} "
               f"{'OK' if ok else 'FAIL'}")
     return rows
 
@@ -853,8 +878,8 @@ def bs_cases(torch):
     block 8 (a 25 x 25 mask), block 96, f32, non-causal with a dead q
     block, strided, all-ones masks in bf16 and f32 (held against K1-K3 as
     well), the training step head-strided (as ``flash_cases``), head dims
-    192 and 256 (the bf16 Hopper route of 129-256: K7 on 64-row blocks,
-    K8 on the wide route) and 320 (the wide route)."""
+    192 and 256 (the bf16 Hopper route of 129-256: K7 and K8 on 64-row
+    blocks) and 320 (the wide route)."""
     import numpy as np
 
     from bigdl_tpu_torch.ops import block_sparse as bs
@@ -2092,7 +2117,7 @@ def train_resnet50(torch):
 
 def _kernel_group(name: str) -> str:
     if "wide_" in name:
-        return "wide route (head dims above 128)"
+        return "wide route (head dims above the built ones)"
     if "bs_fwd_kernel" in name or ("fwd_wgmma" in name
                                    and "ListSweep" in name):
         return "K6 block_sparse_fwd"

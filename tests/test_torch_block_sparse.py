@@ -274,13 +274,14 @@ def test_block_lists_match_the_element_masks():
                                "K7 " + what)
 
 
-def test_key_lists_of_64_row_blocks_match_the_element_masks():
-    """The bf16 K7 at head dims 192 and 256 owns 64 key rows a block: its
-    lists (``dkv_tiles``) are one 64-row tile's list, flags bit 0 (visit)
-    and bit 2 (partial), the live query rows of each partial entry and
-    the heaviest-first order, against a scan of the element masks."""
-    rng = np.random.RandomState(2)
+def _check_64_row_lists(own_q: bool, seed: int):
+    """``_own_lists`` of 64-row blocks (own query rows for K8, own key
+    rows for K7) against a scan of the element masks, for random masks
+    at block sizes above, below and across 64; and the row count of the
+    cached table."""
+    rng = np.random.RandomState(seed)
     sizes = [1, 8, 32, 64, 96, 128, 200]
+    what = "K8" if own_q else "K7"
     for _ in range(20):
         bq, bk = (int(rng.choice(sizes)) for _ in range(2))
         nq = rng.randint(1, max(2, 400 // bq))
@@ -288,12 +289,30 @@ def test_key_lists_of_64_row_blocks_match_the_element_masks():
         mask = P.BlockMask(rng.rand(nq, nk) < rng.rand(), bq, bk)
         for causal in (False, True):
             visited, partial = P._tile_tables(mask, causal)
-            got = P._own_lists(mask, causal, visited, partial, False, P.TILE)
-            _check_block_lists(got, _block_lists_brute(mask, causal, False,
+            got = P._own_lists(mask, causal, visited, partial, own_q, P.TILE)
+            _check_block_lists(got, _block_lists_brute(mask, causal, own_q,
                                                        P.TILE),
-                               f"K7 64-row {mask} causal={causal}")
+                               f"{what} 64-row {mask} causal={causal}")
     tab = P._attention_tables(mask, True, "cpu")
-    assert tab["dkv_tiles"]["tiles"].shape[0] == -(-nk * bk // P.TILE)
+    rows = nq * bq if own_q else nk * bk
+    assert tab["dq_tiles" if own_q else "dkv_tiles"]["tiles"].shape[0] \
+        == -(-rows // P.TILE)
+
+
+def test_key_lists_of_64_row_blocks_match_the_element_masks():
+    """The bf16 K7 at head dims 192 and 256 owns 64 key rows a block: its
+    lists (``dkv_tiles``) are one 64-row tile's list, flags bit 0 (visit)
+    and bit 2 (partial), the live query rows of each partial entry and
+    the heaviest-first order, against a scan of the element masks."""
+    _check_64_row_lists(False, 2)
+
+
+def test_query_lists_of_64_row_blocks_match_the_element_masks():
+    """The bf16 K8 at head dims 192 and 256 owns 64 query rows a block:
+    its lists (``dq_tiles``) are one 64-row tile's list, flags bit 0
+    (visit) and bit 2 (partial), the live key rows of each partial entry
+    and the heaviest-first order, against a scan of the element masks."""
+    _check_64_row_lists(True, 3)
 
 
 def _dense_sweep(T, S, causal, dkv):
@@ -374,7 +393,7 @@ def test_k6_and_k8_launch_over_one_query_table(monkeypatch, dtype):
     lse = torch.zeros(2, 1, 256)
     P._bs_fwd_cuda(q, k, v, mask, True, 0.125)
     P._launch_bs_dq(q, k, v, q, lse, lse.reshape(2, 256), mask, True, 0.125)
-    which = P._query_tables(dtype)
+    which = P._query_tables(dtype, 64)
     assert which == ("dq_blocks" if dtype == torch.bfloat16 else "fwd")
     tab = P._attention_tables(mask, True, q.device)
     if dtype == torch.bfloat16:
@@ -837,7 +856,9 @@ def test_wide_bf16_head_dims_run_k6_k7_on_64_row_key_lists(monkeypatch, D,
                                                           runs):
     """bf16 head dims 129-256 pad to 192 or 256: K6 over the 128-row query
     lists, K7 over the 64-row key lists (``dkv_tiles``) of its 64-row
-    blocks, and the wide route's dQ under the block mask."""
+    blocks, and K8 over the 64-row query lists (``dq_tiles``) of its
+    64-row blocks, each with its lists' order and live rows; no launch
+    takes the wide route."""
     calls = _record_attention(monkeypatch)
     q, k, v, d_o = (torch.zeros(1, 2, 128, D, dtype=torch.bfloat16)
                     for _ in range(4))
@@ -845,12 +866,19 @@ def test_wide_bf16_head_dims_run_k6_k7_on_64_row_key_lists(monkeypatch, D,
     o, lse = P._bs_fwd_cuda(q, k, v, mask, True, 0.1)
     grads = P._bs_bwd_cuda(q, k, v, o, lse, d_o, mask, True, 0.1)
     assert [c[0] for c in calls] == ["bigdl_bs_fwd", "bigdl_bs_bwd_dkv",
-                                     "bigdl_wide_bwd_dq"]
+                                     "bigdl_bs_bwd_dq"]
     assert [c[1][-4] for c in calls] == [runs] * 3
     tab = P._attention_tables(mask, True, q.device)
-    assert calls[0][1][5] == tab["dq_blocks"]["tiles"].data_ptr()
-    assert calls[1][1][8] == tab["dkv_tiles"]["tiles"].data_ptr()
-    assert calls[2][1][7] == tab["block_mask"].data_ptr()
+    # after the tensors (5, 8 and 7): tiles, counts, flags, the block
+    # mask, order, rows
+    for (_, args), n, which in zip(calls, (5, 8, 7),
+                                   ("dq_blocks", "dkv_tiles", "dq_tiles")):
+        t = tab[which]
+        assert args[n:n + 6] == [t["tiles"].data_ptr(),
+                                 t["counts"].data_ptr(),
+                                 t["flags"].data_ptr(),
+                                 tab["block_mask"].data_ptr(),
+                                 t["order"].data_ptr(), t["rows"].data_ptr()]
     for t in (o, *grads):
         assert t.shape == (1, 2, 128, D)
 

@@ -9,8 +9,8 @@ conftest (which configures jax):
 
 Each kernel is held against its plain PyTorch version on the same
 inputs, forward and backward, also at head dims the kernels are not
-built for (zero-padded to the next, or above 128 through the wide
-route) and at more heads than one grid takes; a small TransformerLM served on
+built for (zero-padded to the next, or above them, f32 128 and bf16
+256, through the wide route) and at more heads than one grid takes; a small TransformerLM served on
 the card in f32 (also at head dim 8, through the server), and small
 flash and block-sparse ones, a ResNet-CIFAR on K5 and a LeNet-5 trained
 three steps on the card in f32, are held against the same model on the
@@ -309,12 +309,11 @@ def test_odd_head_dims_run_the_kernels_on_card(cuda_device, D, dtype, which):
 def test_wide_head_dims_run_the_wide_route_on_card(cuda_device, D, dtype,
                                                    which):
     """Head dims above 128: bf16 up to 256 is zero-padded to 192 or 256
-    and runs the Hopper forward and dK/dV, with dQ on the wide route
-    (``csrc/attn_wide.cu``: one wide launch); f32, and bf16 above 256,
-    take the wide route as they are for all three (three wide launches).
-    Forward and backward through the entry points launch K1-K3 (K6-K8)
-    once each and match the plain versions in the working dtype row by
-    row, LSE within 1e-3."""
+    and runs the Hopper forward, dK/dV and dQ (no wide launch); f32, and
+    bf16 above 256, take the wide route (``csrc/attn_wide.cu``) as they
+    are for all three (three wide launches).  Forward and backward
+    through the entry points launch K1-K3 (K6-K8) once each and match the
+    plain versions in the working dtype row by row, LSE within 1e-3."""
     T = 200
     g = torch.Generator(device=cuda_device).manual_seed(D)
     q, k, v, d_o = (torch.randn(2, 4, T, D, device=cuda_device,
@@ -342,7 +341,7 @@ def test_wide_head_dims_run_the_wide_route_on_card(cuda_device, D, dtype,
         want = bs._bs_bwd_plain(q, k, v, o.detach(), lse, d_o, mask, True,
                                 scale)
     torch.cuda.synchronize()
-    wide = 1 if dtype == bf16 and D <= 256 else 3
+    wide = 0 if dtype == bf16 and D <= 256 else 3
     assert [c.count - n for c, n in zip(counters, before)] == [1, 1, 1, wide]
     assert o.shape == (2, 4, T, D) and o.dtype == dtype
     assert _row_rel_err(o, o_ref) <= ROW_TOL[dtype]
@@ -355,9 +354,9 @@ def test_wide_head_dims_run_the_wide_route_on_card(cuda_device, D, dtype,
 def test_head_strided_layout_is_read_in_place_on_card(cuda_device, D, which):
     """bf16 q, k, v and dO in the (B, T, H, D).transpose(1, 2) layout an
     attention layer makes: forward and backward through the entry points
-    read them in place (no copy, up to D 128; at D 256 the wide dQ copies
-    its four operands) and give, bit for bit, what the same values
-    contiguous give, which match the plain versions row by row."""
+    read them in place (no copy, at D 256 too) and give, bit for bit,
+    what the same values contiguous give, which match the plain versions
+    row by row."""
     B, T, H = 2, 200, 4
     g = torch.Generator(device=cuda_device).manual_seed(D + 1)
     q, k, v, d_o = (torch.randn(B, T, H, D, device=cuda_device,
@@ -379,7 +378,7 @@ def test_head_strided_layout_is_read_in_place_on_card(cuda_device, D, which):
     copies = fa.OPERAND_COPIES.count
     strided = run(q, k, v, d_o)
     torch.cuda.synchronize()
-    assert fa.OPERAND_COPIES.count - copies == (0 if D <= 128 else 4)
+    assert fa.OPERAND_COPIES.count - copies == 0
     contiguous = run(*(t.contiguous() for t in (q, k, v, d_o)))
     for a, b in zip(strided, contiguous):
         assert a.is_contiguous() and torch.equal(a, b)
@@ -395,6 +394,64 @@ def test_head_strided_layout_is_read_in_place_on_card(cuda_device, D, which):
     assert _row_rel_err(o, o_ref) <= ROW_TOL[bf16]
     assert (lse - lse_ref).abs().max().item() <= 1e-3
     _check_attention_grads(grads, want, bf16)
+
+
+@pytest.mark.parametrize("D", [192, 256])
+@pytest.mark.parametrize("block", [None, 128, 32])
+def test_bf16_dq_of_64_row_blocks_repeats_its_bits_on_card(cuda_device, D,
+                                                            block):
+    """K3 (block None) and K8 (block-sparse at block 128, whole tiles, and
+    at block 32, partial pairs staged) at D 192 and 256, on the 64-row dQ
+    block: two launches on the same inputs give the same bits, no launch
+    takes the wide route, and dQ matches the plain version row by row.
+    Under the block mask, NaN in every K/V row that no query may attend
+    changes no bit of O, LSE, dQ, dK or dV: such a row is never loaded,
+    or zero-filled where a partial pair is staged."""
+    T = 512
+    g = torch.Generator(device=cuda_device).manual_seed(D + (block or 0))
+    q, k, v, d_o = (torch.randn(2, 4, T, D, device=cuda_device,
+                                generator=g).to(bf16) for _ in range(4))
+    scale = 1 / math.sqrt(D)
+    wide = fa.LAUNCHES_WIDE.count
+    if block is None:
+        o, lse = fa._flash_cuda(q, k, v, True, scale)
+        do, delta = fa._bwd_inputs(q, o, d_o)
+        before = fa.LAUNCHES_DQ.count
+        runs = [fa._launch_dq(q, k, v, do, lse, delta, True, scale)
+                for _ in range(2)]
+        torch.cuda.synchronize()
+        assert fa.LAUNCHES_DQ.count - before == 2
+        want = fa._flash_bwd_plain(q, k, v, o, lse, d_o, True, scale)
+    else:
+        n = T // block
+        m = np.eye(n, dtype=bool)
+        m[:, 0] = True
+        m[n // 2, n // 2] = False   # k block n / 2 is read by no query
+        mask = bs.BlockMask(m, block, block)
+        dead = ~bs._elementwise_keep(mask, True, cuda_device).any(dim=0)
+        kp, vp = k.clone(), v.clone()
+        kp[:, :, dead] = float("nan")
+        vp[:, :, dead] = float("nan")
+        before = bs.LAUNCHES_DQ.count
+        outs = []
+        for kk, vv in ((k, v), (k, v), (kp, vp)):
+            o, lse = bs._bs_fwd_cuda(q, kk, vv, mask, True, scale)
+            outs.append((o, lse) + bs._bs_bwd_cuda(q, kk, vv, o, lse, d_o,
+                                                    mask, True, scale))
+        torch.cuda.synchronize()
+        assert bs.LAUNCHES_DQ.count - before == 3
+        assert int(dead.sum()) == block
+        for a, b in zip(outs[0], outs[2]):   # clean and poisoned
+            assert torch.equal(a, b)
+        runs = [r[2] for r in outs[:2]]
+        o, lse = outs[0][:2]
+        want = bs._bs_bwd_plain(q, k, v, o, lse, d_o, mask, True, scale)
+    assert fa.LAUNCHES_WIDE.count == wide
+    assert torch.equal(runs[0], runs[1])
+    largest = max(torch.linalg.vector_norm(b.float(), dim=-1).max().item()
+                  for b in want)
+    assert torch.isfinite(runs[0].float()).all()
+    assert _row_rel_err(runs[0], want[0], largest) <= ROW_TOL[bf16]
 
 
 def test_layer_norm_reads_a_column_slice_in_place_on_card(cuda_device):

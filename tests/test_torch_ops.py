@@ -255,13 +255,15 @@ def test_wide_head_dim_plain_matches_pallas_interpret(D, causal):
     for name, a, b in zip(("dq", "dk", "dv"), got, want):
         np.testing.assert_allclose(a.numpy(), np.asarray(b), **GRAD_TOL,
                                    err_msg=name)
-    # f32 takes such a head dim as it is on the wide route; bf16 pads it
-    # to 192 or 256 for the Hopper forward and dK/dV (dQ stays wide)
+    # f32 takes such a head dim as it is on the wide route, in all three
+    # passes; bf16 pads it to 192 or 256 for the Hopper forward, dK/dV and
+    # dQ, and takes the wide route only above 256
     f32, bf16 = torch.float32, torch.bfloat16
     assert fa._padded_head_dim(D, f32) == D and fa._wide(D, f32)
     Dp = fa._padded_head_dim(D, bf16)
     assert Dp == {160: 192, 256: 256}[D]
-    assert not fa._wide(Dp, bf16) and fa._dq_wide(Dp)
+    assert not fa._wide(Dp, bf16)
+    assert fa._wide(fa._padded_head_dim(D + 64, bf16), bf16) == (D > 192)
 
 
 # --------------------------------------------------------------------------
@@ -359,8 +361,8 @@ def test_attention_wrappers_copy_only_what_the_kernels_cannot_read(
     (320, torch.bfloat16, None)])
 def test_wide_head_dims_route_by_dtype(monkeypatch, D, dtype, runs):
     """bf16 head dims 129-256 are zero-padded to 192 or 256 and run the
-    Hopper forward (K1) and dK/dV (K2), with dQ on the wide route; f32
-    above 128 and bf16 above 256 take the wide route as they are.  The
+    Hopper forward (K1), dK/dV (K2) and dQ (K3); f32 above 128 and bf16
+    above 256 take the wide route as they are, in all three passes.  The
     outputs are cut back to D."""
     calls = _record_launches(monkeypatch)
     q, k, v, d_o = (torch.zeros(1, 2, 16, D, dtype=dtype) for _ in range(4))
@@ -372,11 +374,38 @@ def test_wide_head_dims_route_by_dtype(monkeypatch, D, dtype, runs):
                          "bigdl_wide_bwd_dq"]
     else:
         assert names == ["bigdl_flash_fwd", "bigdl_flash_bwd_dkv",
-                         "bigdl_wide_bwd_dq"]
+                         "bigdl_flash_bwd_dq"]
     # every entry ends (..., D, dtype, sm_scale, causal)
     assert [c[1][-4] for c in calls] == [runs or D] * 3
     for t in (o, *grads):
         assert t.shape == (1, 2, 16, D)
+
+
+@pytest.mark.parametrize("D,runs", [(160, 192), (200, 256), (256, 256)])
+def test_bf16_dq_runs_k3_on_the_padded_operands(monkeypatch, D, runs):
+    """bf16 dQ at head dims 129-256 launches K3 (``bigdl_flash_bwd_dq``)
+    at 192 or 256 on the operands K2 gets: q, k, v and dO zero-padded to
+    that head dim (the originals, in place, where no pad is needed), at the
+    padded tensors' strides, with a dQ of the padded width that comes back
+    cut to D."""
+    calls = _record_launches(monkeypatch)
+    B, H, T = 1, 2, 24
+    q, k, v, d_o = (_head_strided(B, T, H, D, torch.bfloat16, s)
+                    for s in range(4))
+    o, lse = fa._flash_cuda(q, k, v, True, 0.1)
+    calls.clear()
+    dq, dk, dv = fa._flash_bwd_cuda(q, k, v, o, lse, d_o, True, 0.1)
+    (dkv_fn, dkv), (dq_fn, dq_args) = calls
+    assert (dkv_fn, dq_fn) == ("bigdl_flash_bwd_dkv", "bigdl_flash_bwd_dq")
+    assert dq_args[:4] == dkv[:4]
+    if D == runs:
+        assert dq_args[:4] == [t.data_ptr() for t in (q, k, v, d_o)]
+        assert _strides(dq_args) == [[T * H * D, D, H * D]] * 4
+    else:
+        assert _strides(dq_args) == [[H * T * runs, T * runs, runs]] * 4
+    # H, the first head, the head count, T, S, D, dtype, sm_scale, causal
+    assert dq_args[8:] == [H, 0, B * H, T, T, runs, 1, 0.1, 1]
+    assert dq.shape == (B, H, T, D) and dq.is_contiguous()
 
 
 def test_more_heads_than_a_grid_launch_from_their_first_head(monkeypatch):
