@@ -25,7 +25,10 @@ bodies, ``csrc/attn_fwd_hopper.cuh`` and ``csrc/attn_bwd_hopper.cuh``)
 own 128 rows a block: ``_block_lists`` regroups the lists per block, with
 per-warpgroup flags, the live rows of each partial pair and a
 heaviest-first block order; K6 reads K8's lists.  K7 and K8 at head dims
-192 and 256 own 64 rows a block and read the lists per 64-row tile.
+192 and 256, and K7 in f32 (K2's f32 body: each f32 product formed from
+bf16 wgmma products on three bf16 pieces of its operands), own 64 rows a
+block and read the lists per 64-row tile; K6 and K8 in f32 run tile
+loops over the 64-row tile tables.
 The tables go to the card once per (mask, causal, device) and stay
 cached: no launch uploads anything.  Head dims above the built ones (f32
 128, bf16 256) take the wide route of ``flash_attention``
@@ -450,16 +453,15 @@ def _to_device(a: np.ndarray, device) -> torch.Tensor:
 
 def _attention_tables(mask: BlockMask, causal: bool, device):
     """The kernels' tables on ``device``, built once per (mask, causal,
-    device): the 64-row tile lists of the f32 K6 and K8 (per q tile) and
-    of the f32 K7 (per k tile), the 128-row block lists of the bf16 K6
-    and K8 (``dq_blocks``) and K7 (``dkv_blocks``), the 64-row block lists
-    of the bf16 K8 and K7 at head dims 192 and 256 (``dq_tiles``,
-    ``dkv_tiles``), and the runtime block mask (uint8) for partial pairs
+    device): the 64-row tile lists of the f32 K6 and K8 (``fwd``, per q
+    tile), the 128-row block lists of the bf16 K6 and K8 (``dq_blocks``)
+    and K7 (``dkv_blocks``), the 64-row block lists of the bf16 K8 at head
+    dims 192 and 256 (``dq_tiles``) and of K7 there and in f32
+    (``dkv_tiles``), and the runtime block mask (uint8) for partial pairs
     and the wide route."""
     def make():
         visited, partial = _tile_tables(mask, causal)
         fwd = _tile_lists(visited, partial)
-        dkv = _tile_lists(visited.T, partial.T)
         dq_blocks, dkv_blocks = _block_tables(mask, causal, visited, partial)
         dq_tiles = _own_lists(mask, causal, visited, partial, True, TILE)
         dkv_tiles = _own_lists(mask, causal, visited, partial, False, TILE)
@@ -467,7 +469,6 @@ def _attention_tables(mask: BlockMask, causal: bool, device):
         lists = dict(dq_blocks=dq_blocks, dkv_blocks=dkv_blocks,
                      dq_tiles=dq_tiles, dkv_tiles=dkv_tiles)
         return dict(fwd=tuple(_to_device(a, device) for a in fwd),
-                    dkv=tuple(_to_device(a, device) for a in dkv),
                     **{k: {n: _to_device(a, device) for n, a in t.items()}
                        for k, t in lists.items()},
                     block_mask=_to_device(run, device),
@@ -562,19 +563,18 @@ def _query_tables(dtype: torch.dtype, D: int) -> str:
 def _key_tables(dtype: torch.dtype, D: int) -> str:
     """The ``_attention_tables`` entry that K7 sweeps (own key rows,
     streamed query tiles): in bf16 the 128-row block lists, or the 64-row
-    ones of its 64-row blocks at head dims above 128; the 64-row tile
-    lists in f32."""
-    if dtype != torch.bfloat16:
-        return "dkv"
-    return "dkv_blocks" if D <= 128 else "dkv_tiles"
+    ones of its 64-row blocks at head dims above 128; in f32 the 64-row
+    ones at every head dim (its blocks own 64 key rows)."""
+    return ("dkv_blocks" if dtype == torch.bfloat16 and D <= 128
+            else "dkv_tiles")
 
 
 def _table_args(tab, which: str, mask: BlockMask, q, k, operands):
     """The arguments of a launch after its tensors' pointers: the tables
-    (in f32 the 64-row tile lists ``fwd``, ``dkv``: tiles, counts,
-    partial flags; in bf16 the block lists: tiles, counts, flags, order,
-    rows), the block mask, L, the mask's shape, the operands' strides,
-    then the problem's ints."""
+    (the f32 K6 and K8's 64-row tile lists ``fwd``: tiles, counts,
+    partial flags; the block lists: tiles, counts, flags, order, rows),
+    the block mask, L, the mask's shape, the operands' strides, then the
+    problem's ints."""
     t = tab[which]
     if isinstance(t, dict):
         tiles, counts, flags = t["tiles"], t["counts"], t["flags"]
@@ -623,15 +623,15 @@ def _bs_fwd_cuda(q, k, v, mask: BlockMask, causal: bool, sm_scale: float
 def _launch_bs_dkv(q, k, v, do, lse, delta, mask: BlockMask, causal: bool,
                    sm_scale: float) -> Tuple[torch.Tensor, torch.Tensor]:
     """Launch K7 over prepared inputs (dO in q's dtype, delta (B*H, T)
-    f32; read as ``_launch_dkv`` reads them).  Every k tile writes its
-    rows, zeros where no query reads."""
+    f32; read as ``_launch_dkv`` reads them, through TMA in both
+    dtypes).  Every k tile writes its rows, zeros where no query
+    reads."""
     tab = _attention_tables(mask, causal, q.device)
     B, H, T, D = q.shape
     if _wide(D, q.dtype):
         return _wide_dkv(q, k, v, do, lse, delta, causal, sm_scale,
                          LAUNCHES_DKV, _wide_block_mask(tab, mask))
-    q, k, v, do = _kernel_operands(q, k, v, do,
-                                   tma=q.dtype == torch.bfloat16)
+    q, k, v, do = _kernel_operands(q, k, v, do, tma=True)
     dk, dv = _empty(k), _empty(v)
     _launch_heads("block_sparse_bwd_dkv", (LAUNCHES_DKV,),
                   _attn_fn("bigdl_bs_bwd_dkv", 14),

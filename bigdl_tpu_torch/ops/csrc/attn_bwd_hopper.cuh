@@ -1,14 +1,16 @@
-// The bf16 attention backward for Hopper (sm_90a): the dK/dV and dQ
-// kernels that flash_bwd.cu runs as K2 and K3 and block_sparse.cu as K7 and
-// K8.  Both pairs compute the same math; only the sweep differs, so the body
-// is written once here and templated on a sweep policy.
+// The attention backward for Hopper (sm_90a): the dK/dV and dQ kernels
+// that flash_bwd.cu runs as K2 and K3 and block_sparse.cu as K7 and K8, in
+// bf16, and the dK/dV kernel in f32 too.  Both pairs compute the same
+// math; only the sweep differs, so the body is written once here and
+// templated on a sweep policy.
 //
 // What they compute (the TPU kernels `_dkv_kernel` / `_dq_kernel` of
 // bigdl_tpu/ops/flash_attention.py and `_bs_dkv_kernel` / `_bs_dq_kernel` of
 // bigdl_tpu/ops/block_sparse.py): scores in f32 times sm_scale, P =
 // exp(S - LSE), dP = dO . V^T, dS = P * (dP - delta) with delta from the
 // caller; P cast to v's dtype before dV += P^T . dO, dS cast before dK +=
-// dS^T . Q and dQ += dS . K; f32 accumulators, dK and dQ times sm_scale.
+// dS^T . Q and dQ += dS . K (in f32 neither is cast); f32 accumulators, dK
+// and dQ times sm_scale.
 // Every element that the causal mask, the ragged edge or the block mask
 // kills gets P = 0 and dS = 0 by select, not by a product: a killed element
 // may face a NaN in dP (a dead key row of the block's own V), and 0 * NaN is
@@ -39,6 +41,18 @@
 //     computes dP^T and dS^T and keeps dK (D / 2 f32 a thread each); P^T
 //     passes from 0 to 1 through shared memory in f32, so dS^T rounds as
 //     above.  3 stages at D 192, 2 at D 256.
+//   * dK/dV in f32 (bwd_dkv_split_kernel, D 16-128; dkv_f32_consume): wgmma
+//     has no f32 product, so each product of f32 operands is formed from
+//     bf16 products on the operands' three bf16 pieces (hopper_common.cuh:
+//     a1 = bf16(a), a2 = bf16(a - a1), a3 = bf16(a - a1 - a2)), small terms
+//     first: six for S^T and dP^T, five for dV and dK (dO and Q in two
+//     pieces there).  Three products on two pieces a side missed the f32
+//     limit on the card (PERF.md).  The block is the 64-row block above:
+//     the f32 tiles land by TMA in panels of 32 columns and are split in
+//     place, each by the warpgroup whose scores read it first (K and each
+//     Q tile by warpgroup 0, V and each dO tile by 1); P^T and dS^T are
+//     split in registers; dK and dV leave in f32.  A tile takes 6 bytes an
+//     element, so 3 stages below D 128 and 1 at D 128 (209 KB).
 //   * dQ (bwd_dq_wgmma_kernel) up to D 128: the block owns 128 query rows;
 //     Q and dO are loaded once; 64-row K and V tiles stream through 4
 //     stages.  S = Q . K^T and dP = dO . V^T, dS packed as the A operand of
@@ -102,20 +116,35 @@ constexpr int kDqConsumerRegs = 232;
 // warpgroup keeps dK and dV of 64 rows, D f32 a thread), 64 at D 192 and
 // 256 (warpgroup 0 keeps dV of all 64 rows, warpgroup 1 dK: D / 2 f32 a
 // thread each, where dK and dV together, D a thread, would pass the 240
-// registers a consumer has)
-template <int D>
-constexpr int kDkvOwnRows = D <= 128 ? kBlockRows : kTileRows;
+// registers a consumer has); in f32 64 at every D (dkv_f32_consume): its
+// operands' three bf16 pieces take the bytes of bf16 at three times the
+// head dim
+template <int D, typename T = __nv_bfloat16>
+constexpr int kDkvOwnRows = kIsBf16<T> && D <= 128 ? kBlockRows : kTileRows;
 
 // dK/dV: the block's K and V rows, then the ring of (Q, dO, LSE, delta)
-// tiles; at 64 own rows also the P^T tile that warpgroup 0 hands to 1 (f32)
-template <int D>
+// tiles; at 64 own rows also the P^T tile that warpgroup 0 hands to 1 (f32).
+// T is the operands' type.  TMA lands them in panels L (Panels<D, 4> in
+// f32: *_LOAD bytes a tile), which the f32 kernel splits in place into
+// three bf16 pieces (split_tile: pieces 1 and 2 where the f32 bytes lay,
+// piece 3 after them; panels of the bf16 geometry, PANEL_KV and PANEL_T
+// bytes each), so an f32 tile takes 6 bytes an element.  In f32 one stage
+// at D 128 (209 KB), three below.
+template <int D, typename T = __nv_bfloat16>
 struct DkvCfg : Panels<D> {
-  static constexpr int OWN = kDkvOwnRows<D>;
-  static constexpr int STAGES = OWN == kBlockRows || D <= 192 ? 3 : 2;
-  static constexpr int KV_BYTES = OWN * D * 2;           // the K or the V rows
+  using L = Panels<D, sizeof(T)>;
+  static constexpr int OWN = kDkvOwnRows<D, T>;
+  static constexpr int ELEM = kIsBf16<T> ? 2 : 6;   // bytes an element takes in shared memory
+  static constexpr int STAGES = !kIsBf16<T> ? (D <= 64 ? 3 : 1)
+                                : OWN == kBlockRows || D <= 192 ? 3 : 2;
+  static constexpr int KV_LOAD = OWN * D * (int)sizeof(T);   // the K or the V rows
+  static constexpr int KV_BYTES = OWN * D * ELEM;
   static constexpr int PANEL_KV = OWN * Panels<D>::RB;
-  static constexpr int TILE_BYTES = kTileRows * D * 2;   // one Q or dO tile
+  static constexpr int LPANEL_KV = OWN * L::RB;
+  static constexpr int TILE_LOAD = kTileRows * D * (int)sizeof(T);   // one Q or dO tile
+  static constexpr int TILE_BYTES = kTileRows * D * ELEM;
   static constexpr int PANEL_T = kTileRows * Panels<D>::RB;
+  static constexpr int LPANEL_T = kTileRows * L::RB;
   static constexpr int PT_BYTES = OWN == kTileRows ? kTileRows * kTileRows * 4 : 0;
   static constexpr size_t SMEM = 1024 + 2 * KV_BYTES + STAGES * (2 * TILE_BYTES) + PT_BYTES
                                  + STAGES * 2 * kTileRows * sizeof(float)
@@ -124,9 +153,12 @@ struct DkvCfg : Panels<D> {
 };
 
 // named barriers of the 64-row dK/dV block (1 and 2 are the consumers'
-// epilogue barriers): P^T written by warpgroup 0, read by warpgroup 1
+// epilogue barriers, and in f32 each warpgroup's barrier of its splits):
+// P^T written by warpgroup 0, read by warpgroup 1; in f32 also dO split by
+// warpgroup 1, read by warpgroup 0
 constexpr int kPtFull = 3;
 constexpr int kPtEmpty = 4;
+constexpr int kDoSplit = 7;
 
 // query rows a dQ block owns at head dim D: 128 up to D 128, 64 at D 192
 // and 256 (dQ of 128 rows would take D f32 a consumer thread, and Q and dO
@@ -160,10 +192,11 @@ struct DqCfg : Panels<D> {
 constexpr int kDsFull = 5;
 constexpr int kDqSum = 6;
 
-// acc (m64 x 64 f32, one consumer warpgroup) = A . B^T over D, both
-// operands K-major panels in shared memory: A from 64 rows at `a`, B from
-// 64 rows at `b`, panel pitches kPanelA and kPanelB.  Issued, not waited.
-template <int D, int kPanelA, int kPanelB>
+// acc (m64 x 64 f32, one consumer warpgroup) = A . B^T over D (kAcc: acc
+// +=), both operands K-major panels in shared memory: A from 64 rows at
+// `a`, B from 64 rows at `b`, panel pitches kPanelA and kPanelB.  Issued,
+// not waited.
+template <int D, int kPanelA, int kPanelB, bool kAcc = false>
 __device__ __forceinline__ void wgmma_scores(float* acc, const unsigned char* a,
                                              const unsigned char* b) {
   using P = Panels<D>;
@@ -172,7 +205,23 @@ __device__ __forceinline__ void wgmma_scores(float* acc, const unsigned char* a,
 #pragma unroll
     for (int j = 0; j < P::PW / 16; ++j)
       wgmma_ss<kTileRows, 0>(acc, smem_desc<P::RB>(a + p * kPanelA + 32 * j),
-                             smem_desc<P::RB>(b + p * kPanelB + 32 * j), p + j > 0);
+                             smem_desc<P::RB>(b + p * kPanelB + 32 * j), kAcc || p + j > 0);
+}
+
+// wgmma_scores of f32 tiles split in place into three pieces (split_tile:
+// pieces 1 and 2 in panels at pitch 2 kSpan, piece 2 kSpan after piece 1,
+// piece 3 at kThird in panels at pitch kSpan) as a1 b3 + a2 b2 + a3 b1,
+// then a1 b2 + a2 b1, then a1 b1.  Issued, not waited.
+template <int D, int kSpanA, int kSpanB, int kThird>
+__device__ __forceinline__ void wgmma_scores_split(float* acc, const unsigned char* a,
+                                                   const unsigned char* b) {
+  constexpr int PA = 2 * kSpanA, PB = 2 * kSpanB;
+  wgmma_scores<D, PA, kSpanB>(acc, a, b + kThird);
+  wgmma_scores<D, PA, PB, true>(acc, a + kSpanA, b + kSpanB);
+  wgmma_scores<D, kSpanA, PB, true>(acc, a + kThird, b);
+  wgmma_scores<D, PA, PB, true>(acc, a, b + kSpanB);
+  wgmma_scores<D, PA, PB, true>(acc, a + kSpanA, b);
+  wgmma_scores<D, PA, PB, true>(acc, a, b);
 }
 
 // acc (m64 x D f32) += A . B with A (64 x 64) packed bf16 in registers and
@@ -188,6 +237,22 @@ __device__ __forceinline__ void wgmma_accumulate(float* acc, const uint32_t* a,
     for (int p = 0; p < P::NP; ++p)
       wgmma_rs<P::PW, 1>(acc + p * (P::PW / 2), a + 4 * kk,
                          smem_desc<P::RB>(b + p * kPanelB + 16 * P::RB * kk), 1);
+}
+
+// wgmma_accumulate of an f32 A split in registers into three pieces
+// (split_bf16x3: a1, a2, a3) and an f32 tile split in place at `b` (pieces
+// 1 and 2, as in wgmma_scores_split), as a2 b2 + a3 b1, then a1 b2 + a2 b1,
+// then a1 b1.  Issued, not waited.
+template <int D, int kSpanB>
+__device__ __forceinline__ void wgmma_accumulate_split(float* acc, const uint32_t* a1,
+                                                       const uint32_t* a2, const uint32_t* a3,
+                                                       const unsigned char* b) {
+  constexpr int PB = 2 * kSpanB;
+  wgmma_accumulate<D, PB>(acc, a2, b + kSpanB);
+  wgmma_accumulate<D, PB>(acc, a3, b);
+  wgmma_accumulate<D, PB>(acc, a1, b + kSpanB);
+  wgmma_accumulate<D, PB>(acc, a2, b);
+  wgmma_accumulate<D, PB>(acc, a1, b);
 }
 
 // acc (m64 x D f32) += A . B over kSteps k16 steps, A from a 64 x 64 bf16
@@ -463,18 +528,174 @@ __device__ __forceinline__ void dkv_split_consume(const Sweep& sw, unsigned char
   store_rows<D, C::PANEL_KV>(rows, wg == 0 ? dv : dk, k0, S_len);
 }
 
-// dK/dV: grid (B*H, ceil(S / own rows)); the sweep maps blockIdx.y to a
-// block.
+// The two consumer warpgroups of the f32 dK/dV kernel (D 16-128), over the
+// block's 64 key rows: dkv_split_consume's split of the work (warpgroup 0
+// S^T, P^T and dV; warpgroup 1 dP^T, dS^T and dK; P^T handed over in f32),
+// every product of f32 operands formed from bf16 products on the operands'
+// bf16 pieces (hopper_common.cuh): six for S^T and dP^T (three pieces a
+// side), five for dV and dK (P^T and dS^T in three pieces, dO and Q in
+// their first two).  The f32 tiles are split in place, each by the
+// warpgroup whose scores read it first: warpgroup 0 splits K once and each
+// Q tile, warpgroup 1 V and each dO tile.  P^T and dS^T are split in
+// registers.  Besides kPtFull and kPtEmpty one named barrier orders the
+// splits between warpgroups: kDoSplit (warpgroup 1 arrives after it has
+// read P^T, 0 syncs before dV += P^T . dO); Q, split by warpgroup 0 before
+// it hands P^T over, is ready when warpgroup 1 passes kPtFull.  Arriving
+// only after kPtFull, warpgroup 1 cannot arrive twice on kDoSplit before
+// warpgroup 0 has synced once.  dK and dV leave in f32 straight from the
+// accumulators.
 template <int D, class Sweep>
-__global__ void __launch_bounds__(kBwdThreads, 1)
-bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
-                     const __grid_constant__ CUtensorMap tm_do,
-                     const __grid_constant__ CUtensorMap tm_k,
-                     const __grid_constant__ CUtensorMap tm_v, const float* __restrict__ lse,
-                     const float* __restrict__ delta, __nv_bfloat16* __restrict__ dk,
-                     __nv_bfloat16* __restrict__ dv, int T_len, int S_len, float scale_log2,
-                     float sm_scale, int causal, int H, int h0, const Sweep sw) {
-  using C = DkvCfg<D>;
+__device__ __forceinline__ void dkv_f32_consume(const Sweep& sw, unsigned char* k_s,
+                                                unsigned char* v_s, unsigned char* q_s,
+                                                unsigned char* do_s, float* pt_s,
+                                                const float* lse_s, const float* delta_s,
+                                                const Step* step_s, uint64_t* kv_full,
+                                                uint64_t* full, uint64_t* empty,
+                                                float* __restrict__ dk, float* __restrict__ dv,
+                                                int b, int n, int T_len, int S_len,
+                                                float scale_log2, float sm_scale, int causal) {
+  using C = DkvCfg<D, float>;
+  const int wg = threadIdx.x / 128;
+  const int tid = threadIdx.x % 128;
+  const int warp = tid / 32;
+  const int lane = threadIdx.x % 32;
+  const int t = lane % 4;
+  const int k0 = b * kTileRows;
+  const int key0 = k0 + 16 * warp + lane / 4;
+
+  float acc[D / 2];   // dV (warpgroup 0) or dK (1): 64 x D
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.0f;
+
+  if (n > 0) {
+    mbar_wait(kv_full, 0);
+    split_tile<D>(wg == 0 ? k_s : v_s, 1 + wg);   // each warpgroup's own operand
+    fence_proxy_async();
+    named_barrier_sync(1 + wg, 128);
+  }
+  for (int it = 0; it < n; ++it) {
+    const int s = it % C::STAGES;
+    Step step;
+    if constexpr (!Sweep::kList) step = sw.dkv_step(b, it, kTileRows);
+    mbar_wait(&full[s], (it / C::STAGES) & 1);
+    if constexpr (Sweep::kList) step = step_s[s];   // staged by the producer
+    const int q0 = step.tile * kTileRows;
+    unsigned char* q_t = q_s + s * C::TILE_BYTES;
+    unsigned char* do_t = do_s + s * C::TILE_BYTES;
+    const float* lse_t = lse_s + s * kTileRows;
+    const float* delta_t = delta_s + s * kTileRows;
+    const bool part = Sweep::kList && (step.flags & kPartial);
+    const bool edge = part || q0 + kTileRows > T_len || (causal && q0 < k0 + 63);
+    split_tile<D>(wg == 0 ? q_t : do_t, 1 + wg);
+    fence_proxy_async();
+    named_barrier_sync(1 + wg, 128);
+    float sc[kTileRows / 2];
+    uint32_t a1[kTileRows / 4], a2[kTileRows / 4], a3[kTileRows / 4];
+    // S^T = K . Q^T (warpgroup 0), dP^T = V . dO^T (1), operands chosen by
+    // warpgroup, as in dkv_split_consume
+    wgmma_fence();
+    wgmma_scores_split<D, C::PANEL_KV, C::PANEL_T, kTileRows * D * 4>(
+        sc, wg == 0 ? k_s : v_s, wg == 0 ? q_t : do_t);
+    wgmma_commit();
+    wgmma_wait<0>();
+#pragma unroll
+    for (int i = 0; i < kTileRows / 2; ++i) fence_regs(sc[i]);
+
+    if (wg == 0) {
+      // P^T, masked as dkv_split_consume masks it
+#pragma unroll
+      for (int i = 0; i < kTileRows / 2; ++i)
+        sc[i] = exp2f(fmaf(sc[i], scale_log2, -lse_t[8 * (i / 4) + 2 * t + (i & 1)]));
+      if (edge) {
+#pragma unroll
+        for (int i = 0; i < kTileRows / 2; ++i) {
+          const int q = q0 + 8 * (i / 4) + 2 * t + (i & 1);
+          const int key = key0 + 8 * ((i >> 1) & 1);
+          if (q >= T_len || (causal && key > q)) sc[i] = 0.0f;
+        }
+        if constexpr (Sweep::kList) {
+          if (part) {
+#pragma unroll
+            for (int i = 0; i < kTileRows / 2; ++i) {
+              const int q = q0 + 8 * (i / 4) + 2 * t + (i & 1);
+              const int key = key0 + 8 * ((i >> 1) & 1);
+              if (q < T_len && (key >= S_len || !sw.keep(q, key))) sc[i] = 0.0f;
+            }
+          }
+        }
+      }
+      if (it > 0) named_barrier_sync(kPtEmpty, kConsumers);
+#pragma unroll
+      for (int i = 0; i < kTileRows / 2; ++i) pt_s[i * 128 + tid] = sc[i];
+      named_barrier_arrive(kPtFull, kConsumers);
+#pragma unroll
+      for (int i = 0; i < kTileRows / 4; ++i)
+        split_bf16x3(sc[2 * i], sc[2 * i + 1], a1[i], a2[i], a3[i]);
+      named_barrier_sync(kDoSplit, kConsumers);
+    } else {
+      named_barrier_sync(kPtFull, kConsumers);
+      named_barrier_arrive(kDoSplit, kConsumers);
+      // dS^T = P^T * (dP^T - delta); where P^T is 0 on an edge or partial
+      // tile, dP^T (NaN from a dead key row of V) is replaced by delta
+      // first, so that dS^T is 0 by select
+#pragma unroll
+      for (int i = 0; i < kTileRows / 4; ++i) {
+        const int c = 8 * (i / 2) + 2 * t;
+        float ds[2];
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const float p = pt_s[(2 * i + e) * 128 + tid];
+          const float dp = edge && p == 0.0f ? delta_t[c + e] : sc[2 * i + e];
+          ds[e] = p * (dp - delta_t[c + e]);
+        }
+        split_bf16x3(ds[0], ds[1], a1[i], a2[i], a3[i]);
+      }
+      if (it + 1 < n) named_barrier_arrive(kPtEmpty, kConsumers);
+    }
+    // dV += P^T . dO (warpgroup 0), dK += dS^T . Q (1)
+    wgmma_fence();
+    wgmma_accumulate_split<D, C::PANEL_T>(acc, a1, a2, a3, wg == 0 ? do_t : q_t);
+    wgmma_commit();
+    wgmma_wait<0>();
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) fence_regs(acc[i]);
+    mbar_arrive(&empty[s]);
+  }
+
+  // epilogue: dV (warpgroup 0) or dK * sm_scale (1) in f32, two columns a
+  // store (element 4 j + 2 h of panel p: row key0 + 8 h, column p PW + 8 j
+  // + 2 t)
+  using P = Panels<D>;
+  float* out = wg == 0 ? dv : dk;
+  const float scale = wg == 0 ? 1.0f : sm_scale;
+#pragma unroll
+  for (int p = 0; p < P::NP; ++p)
+#pragma unroll
+    for (int j = 0; j < P::PW / 8; ++j)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int row = key0 + 8 * h;
+        const float* a = acc + p * (P::PW / 2) + 4 * j + 2 * h;
+        if (row < S_len)
+          *reinterpret_cast<float2*>(out + (size_t)row * D + p * P::PW + 8 * j + 2 * t) =
+              make_float2(a[0] * scale, a[1] * scale);
+      }
+}
+
+// The dK/dV block over operands of type T (bf16, or f32 on the split
+// products of dkv_f32_consume): grid (B*H, ceil(S / own rows)); the sweep
+// maps blockIdx.y to a block.  The kernels below pass their tensor maps'
+// addresses.
+template <int D, class Sweep, typename T>
+__device__ __forceinline__ void bwd_dkv_body(const CUtensorMap* tm_q, const CUtensorMap* tm_do,
+                                             const CUtensorMap* tm_k, const CUtensorMap* tm_v,
+                                             const float* __restrict__ lse,
+                                             const float* __restrict__ delta, T* __restrict__ dk,
+                                             T* __restrict__ dv, int T_len, int S_len,
+                                             float scale_log2, float sm_scale, int causal, int H,
+                                             int h0, const Sweep& sw) {
+  using C = DkvCfg<D, T>;
+  using L = typename C::L;   // TMA's panels
   extern __shared__ unsigned char smem_raw[];
   unsigned char* k_s = align1024(smem_raw);             // [panel][own rows]
   unsigned char* v_s = k_s + C::KV_BYTES;
@@ -511,10 +732,10 @@ bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
     if (threadIdx.x < kConsumers + 32) {
       const int lane = threadIdx.x % 32;
       if (lane == 0 && n > 0) {
-        mbar_arrive_expect_tx(kv_full, 2 * C::KV_BYTES);
-        for (int p = 0; p < C::NP; ++p) {
-          tma_load_4d(k_s + p * C::PANEL_KV, &tm_k, kv_full, p * C::PW, k0, h, bb);
-          tma_load_4d(v_s + p * C::PANEL_KV, &tm_v, kv_full, p * C::PW, k0, h, bb);
+        mbar_arrive_expect_tx(kv_full, 2 * C::KV_LOAD);
+        for (int p = 0; p < L::NP; ++p) {
+          tma_load_4d(k_s + p * C::LPANEL_KV, tm_k, kv_full, p * L::PW, k0, h, bb);
+          tma_load_4d(v_s + p * C::LPANEL_KV, tm_v, kv_full, p * L::PW, k0, h, bb);
         }
       }
       const float* lse_h = lse + (size_t)bh * T_len;
@@ -533,23 +754,23 @@ bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
           if (lane == 0) step_s[s] = step;
           if (step.flags & kPartialAny) {   // a partial pair: live rows only
             const unsigned long long live = sw.live(b, it);
-            stage_live_rows<D, C::PANEL_T>(q_s + s * C::TILE_BYTES,
-                                           sw.src_a + sw.stride_a.head(bh, H), sw.stride_a.r,
-                                           q0, T_len, live, lane);
-            stage_live_rows<D, C::PANEL_T>(do_s + s * C::TILE_BYTES,
-                                           sw.src_b + sw.stride_b.head(bh, H), sw.stride_b.r,
-                                           q0, T_len, live, lane);
+            stage_live_rows<D, C::LPANEL_T>(q_s + s * C::TILE_BYTES,
+                                            sw.src_a + sw.stride_a.head(bh, H), sw.stride_a.r,
+                                            q0, T_len, live, lane);
+            stage_live_rows<D, C::LPANEL_T>(do_s + s * C::TILE_BYTES,
+                                            sw.src_b + sw.stride_b.head(bh, H), sw.stride_b.r,
+                                            q0, T_len, live, lane);
             fence_proxy_async();
             mbar_arrive(&full[s]);
             continue;
           }
         }
         if (lane == 0) {
-          mbar_arrive_expect_tx(&full[s], 2 * C::TILE_BYTES);
-          for (int p = 0; p < C::NP; ++p) {
-            const int off = s * C::TILE_BYTES + p * C::PANEL_T;
-            tma_load_4d(q_s + off, &tm_q, &full[s], p * C::PW, q0, h, bb);
-            tma_load_4d(do_s + off, &tm_do, &full[s], p * C::PW, q0, h, bb);
+          mbar_arrive_expect_tx(&full[s], 2 * C::TILE_LOAD);
+          for (int p = 0; p < L::NP; ++p) {
+            const int off = s * C::TILE_BYTES + p * C::LPANEL_T;
+            tma_load_4d(q_s + off, tm_q, &full[s], p * L::PW, q0, h, bb);
+            tma_load_4d(do_s + off, tm_do, &full[s], p * L::PW, q0, h, bb);
           }
         } else {
           mbar_arrive(&full[s]);
@@ -558,15 +779,47 @@ bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
     }
   } else {
     setmaxnreg_inc<kDkvConsumerRegs>();
-    if constexpr (C::OWN == kBlockRows)
+    T* dk_h = dk + (size_t)bh * S_len * D;
+    T* dv_h = dv + (size_t)bh * S_len * D;
+    if constexpr (!kIsBf16<T>)
+      dkv_f32_consume<D>(sw, k_s, v_s, q_s, do_s, pt_s, lse_s, delta_s, step_s, kv_full, full,
+                         empty, dk_h, dv_h, b, n, T_len, S_len, scale_log2, sm_scale, causal);
+    else if constexpr (C::OWN == kBlockRows)
       dkv_consume<D>(sw, k_s, v_s, q_s, do_s, lse_s, delta_s, step_s, kv_full, full, empty,
-                     dk + (size_t)bh * S_len * D, dv + (size_t)bh * S_len * D, b, n, T_len,
-                     S_len, scale_log2, sm_scale, causal);
+                     dk_h, dv_h, b, n, T_len, S_len, scale_log2, sm_scale, causal);
     else
       dkv_split_consume<D>(sw, k_s, v_s, q_s, do_s, pt_s, lse_s, delta_s, step_s, kv_full, full,
-                           empty, dk + (size_t)bh * S_len * D, dv + (size_t)bh * S_len * D, b, n,
-                           T_len, S_len, scale_log2, sm_scale, causal);
+                           empty, dk_h, dv_h, b, n, T_len, S_len, scale_log2, sm_scale, causal);
   }
+}
+
+// dK/dV in bf16 (K2, K7)
+template <int D, class Sweep>
+__global__ void __launch_bounds__(kBwdThreads, 1)
+bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
+                     const __grid_constant__ CUtensorMap tm_do,
+                     const __grid_constant__ CUtensorMap tm_k,
+                     const __grid_constant__ CUtensorMap tm_v, const float* __restrict__ lse,
+                     const float* __restrict__ delta, __nv_bfloat16* __restrict__ dk,
+                     __nv_bfloat16* __restrict__ dv, int T_len, int S_len, float scale_log2,
+                     float sm_scale, int causal, int H, int h0, const Sweep sw) {
+  bwd_dkv_body<D>(&tm_q, &tm_do, &tm_k, &tm_v, lse, delta, dk, dv, T_len, S_len, scale_log2,
+                  sm_scale, causal, H, h0, sw);
+}
+
+// dK/dV in f32 (K2, K7 at D 16-128), each product from bf16 products on
+// three bf16 pieces of its operands
+template <int D, class Sweep>
+__global__ void __launch_bounds__(kBwdThreads, 1)
+bwd_dkv_split_kernel(const __grid_constant__ CUtensorMap tm_q,
+                     const __grid_constant__ CUtensorMap tm_do,
+                     const __grid_constant__ CUtensorMap tm_k,
+                     const __grid_constant__ CUtensorMap tm_v, const float* __restrict__ lse,
+                     const float* __restrict__ delta, float* __restrict__ dk,
+                     float* __restrict__ dv, int T_len, int S_len, float scale_log2,
+                     float sm_scale, int causal, int H, int h0, const Sweep sw) {
+  bwd_dkv_body<D>(&tm_q, &tm_do, &tm_k, &tm_v, lse, delta, dk, dv, T_len, S_len, scale_log2,
+                  sm_scale, causal, H, h0, sw);
 }
 
 // A consumer warpgroup of the dQ kernel: query rows q0w .. q0w + 63; this
@@ -959,40 +1212,44 @@ struct BwdArgs {
 
 // the four tensor maps of a launch, encoded per launch and passed by
 // value (a CUDA graph captures them): q and dO in boxes of q_rows rows,
-// k and v in boxes of k_rows rows
-template <int D>
+// k and v in boxes of k_rows rows, of TMA's panel width for T
+template <int D, typename T = __nv_bfloat16>
 cudaError_t encode_bwd_maps(const BwdArgs& a, int q_rows, int k_rows, CUtensorMap* tm) {
-  constexpr int PW = Panels<D>::PW;
+  constexpr int PW = Panels<D, sizeof(T)>::PW;
   const int heads = a.h0 + a.BH;
-  cudaError_t err = encode_bf16_heads(&tm[0], a.q, D, a.T_len, a.H, heads, a.sq, PW, q_rows);
+  cudaError_t err = encode_heads<T>(&tm[0], a.q, D, a.T_len, a.H, heads, a.sq, PW, q_rows);
   if (err == cudaSuccess)
-    err = encode_bf16_heads(&tm[1], a.dO, D, a.T_len, a.H, heads, a.sdo, PW, q_rows);
+    err = encode_heads<T>(&tm[1], a.dO, D, a.T_len, a.H, heads, a.sdo, PW, q_rows);
   if (err == cudaSuccess)
-    err = encode_bf16_heads(&tm[2], a.k, D, a.S_len, a.H, heads, a.sk, PW, k_rows);
+    err = encode_heads<T>(&tm[2], a.k, D, a.S_len, a.H, heads, a.sk, PW, k_rows);
   if (err == cudaSuccess)
-    err = encode_bf16_heads(&tm[3], a.v, D, a.S_len, a.H, heads, a.sv, PW, k_rows);
+    err = encode_heads<T>(&tm[3], a.v, D, a.S_len, a.H, heads, a.sv, PW, k_rows);
   return err;
 }
 
-// the dK/dV kernel over `sw` (out0 dK, out1 dV), bf16
-template <int D, class Sweep>
+// the dK/dV kernel over `sw` (out0 dK, out1 dV): bf16 (bwd_dkv_wgmma_kernel)
+// or f32 (bwd_dkv_split_kernel, D <= 128)
+template <int D, typename T = __nv_bfloat16, class Sweep>
 cudaError_t launch_dkv_wgmma(const BwdArgs& a, const Sweep& sw) {
-  using C = DkvCfg<D>;
+  using C = DkvCfg<D, T>;
   static_assert(C::SMEM <= kMaxSmemBytes, "bwd_dkv_wgmma tiles do not fit in shared memory");
   const int n_kb = (a.S_len + C::OWN - 1) / C::OWN;
   if (n_kb > 65535) return cudaErrorInvalidValue;
   CUtensorMap tm[4];
-  cudaError_t err = encode_bwd_maps<D>(a, kTileRows, C::OWN, tm);
+  cudaError_t err = encode_bwd_maps<D, T>(a, kTileRows, C::OWN, tm);
   if (err != cudaSuccess) return err;
-  auto kernel = bwd_dkv_wgmma_kernel<D, Sweep>;
+  auto kernel = [] {
+    if constexpr (kIsBf16<T>) return bwd_dkv_wgmma_kernel<D, Sweep>;
+    else return bwd_dkv_split_kernel<D, Sweep>;
+  }();
   static std::mutex mu;
   static bool attr_set[kMaxDevices] = {};
   err = smem_opt_in_once(kernel, (int)C::SMEM, mu, attr_set);
   if (err != cudaSuccess) return err;
   kernel<<<dim3(a.BH, n_kb), kBwdThreads, C::SMEM, a.stream>>>(
-      tm[0], tm[1], tm[2], tm[3], a.lse, a.delta, static_cast<__nv_bfloat16*>(a.out0),
-      static_cast<__nv_bfloat16*>(a.out1), a.T_len, a.S_len, a.sm_scale * kLog2e, a.sm_scale,
-      a.causal, a.H, a.h0, sw);
+      tm[0], tm[1], tm[2], tm[3], a.lse, a.delta, static_cast<T*>(a.out0),
+      static_cast<T*>(a.out1), a.T_len, a.S_len, a.sm_scale * kLog2e, a.sm_scale, a.causal, a.H,
+      a.h0, sw);
   return cudaGetLastError();
 }
 

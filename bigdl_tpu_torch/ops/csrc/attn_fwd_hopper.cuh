@@ -363,11 +363,11 @@ cudaError_t launch_fwd_wgmma(const FwdArgs& a, const Sweep& sw) {
   CUtensorMap tm_q, tm_k, tm_v;
   const int heads = a.h0 + a.BH;
   cudaError_t err =
-      encode_bf16_heads(&tm_q, a.q, D, a.T_len, a.H, heads, a.sq, C::PW, kBlockRows);
+      encode_heads<__nv_bfloat16>(&tm_q, a.q, D, a.T_len, a.H, heads, a.sq, C::PW, kBlockRows);
   if (err == cudaSuccess)
-    err = encode_bf16_heads(&tm_k, a.k, D, a.S_len, a.H, heads, a.sk, C::PW, C::BK);
+    err = encode_heads<__nv_bfloat16>(&tm_k, a.k, D, a.S_len, a.H, heads, a.sk, C::PW, C::BK);
   if (err == cudaSuccess)
-    err = encode_bf16_heads(&tm_v, a.v, D, a.S_len, a.H, heads, a.sv, C::PW, C::BK);
+    err = encode_heads<__nv_bfloat16>(&tm_v, a.v, D, a.S_len, a.H, heads, a.sv, C::PW, C::BK);
   if (err != cudaSuccess) return err;
   auto kernel = attn_fwd_wgmma_kernel<D, kKeyRows, Sweep>;
   static std::mutex mu;

@@ -17,11 +17,11 @@
 //
 // Tables.  The TPU grid sweeps mask blocks; these kernels work on 64-row
 // tiles (TILE), so the host (ops/block_sparse.py `_tile_tables`) builds the
-// lists at tile granularity (and regroups them per 128 rows for the bf16
-// K6-K8, below): for each q tile (K6, K8) the k tiles holding
-// a live element, for each k tile (K7) the q tiles, in ascending order,
-// each with a `partial` flag when the block mask does not cover the whole
-// tile pair.  An all-ones causal mask therefore gives K1's sweep exactly.
+// lists at tile granularity (and regroups them per 128 or 64 own rows for
+// the Hopper bodies, below): for each q tile (K6, K8) the k tiles holding a
+// live element, for each k tile (K7) the q tiles, in ascending order, each
+// with a `partial` flag when the block mask does not cover the whole tile
+// pair.  An all-ones causal mask therefore gives K1's sweep exactly.
 // In a partial pair the kernel tests every element against the block mask
 // (a uint8 (T / bq, S / bk) grid, causal blocks pruned) beside the causal
 // test, and zero-fills, instead of loading, the rows of the other side's
@@ -55,10 +55,13 @@
 // partial pair is staged by the producer's first warp, live rows only, so
 // the TMA load of a dead row never happens; inside a partial pair each
 // element is tested against the block mask and its score selected to -inf
-// (K6) or its P and dS to 0 (K7, K8).  In f32 they keep the tile loops of
-// flash_fwd.cu's and flash_bwd.cu's f32 kernels over the 64-row tables
-// (wgmma has no full-f32 product); on an all-ones mask both dtypes give
-// K1-K3's bits.
+// (K6) or its P and dS to 0 (K7, K8).  In f32, K7 at D 16-128 is K2's f32
+// dK/dV block (attn_bwd_hopper.cuh's bwd_dkv_split_kernel: 64 key rows a
+// block, each f32 product formed from bf16 wgmma products on three bf16
+// pieces of its operands) over the 64-row key lists K7 reads at D 192 and
+// 256; K6 and K8 keep the tile loops of flash_fwd.cu's and flash_bwd.cu's
+// f32 kernels over the 64-row tables.  On an all-ones mask both dtypes
+// give K1-K3's bits.
 //
 // K9 design.  At the flagship MLP shape (x 16384 x 1024 bf16, W 1024 x 4096
 // at density 0.5, block 128) it must do 68.7 GFLOP (0.069 ms) and move about
@@ -121,18 +124,6 @@ struct Mask {
     for (int qb = q0 / bq; qb * bq < q_end; ++qb) {
       if (!m[qb * nkb + kb]) continue;
       if (!causal || min((qb + 1) * bq, q_end) - 1 >= kp) return true;
-    }
-    return false;
-  }
-
-  // Query qp may attend some key of [k0, k0 + TILE).
-  __device__ bool query_live(int qp, int k0) const {
-    if (qp >= T_len) return false;
-    const int k_end = min(k0 + TILE, S_len);
-    const int qb = qp / bq;
-    for (int kb = k0 / bk; kb * bk < k_end; ++kb) {
-      if (!m[qb * nkb + kb]) continue;
-      if (!causal || max(kb * bk, k0) <= qp) return true;
     }
     return false;
   }
@@ -273,17 +264,8 @@ bs_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
 }
 
 // ---------------------------------------------------------------------------
-// K7 and K8 in f32: the flash_bwd.cu tile loop over the 64-row tile tables.
+// K8 in f32: the flash_bwd.cu tile loop over the 64-row tile tables.
 // ---------------------------------------------------------------------------
-
-template <int D>
-constexpr size_t dkv_smem_bytes() {
-  return sizeof(float) * 4 * TILE * D        // k, v, q, dO
-         + sizeof(float) * 2 * TILE * TILE   // S^T, dP^T (then P^T, dS^T in place)
-         + sizeof(float) * 2 * TILE * D      // dK, dV accumulators
-         + sizeof(float) * 2 * TILE          // lse, delta
-         + TILE;                             // live query rows
-}
 
 template <int D>
 constexpr size_t dq_smem_bytes() {
@@ -300,111 +282,6 @@ __device__ __forceinline__ void p_and_ds(float s, float dp, float lse, float del
                                          float sm_scale, float* p, float* ds) {
   *p = keep ? expf(s * sm_scale - lse) : 0.0f;
   *ds = keep ? *p * (dp - delta) : 0.0f;
-}
-
-// K7 in f32: grid (ceil(S / 64), B*H), one block per k tile.  P^T and dS^T
-// overwrite S^T and dP^T in place (each lane rewrites only what it read).
-template <int D>
-__global__ void __launch_bounds__(NTHREADS)
-bs_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
-              const float* __restrict__ v, const float* __restrict__ dO,
-              const float* __restrict__ lse, const float* __restrict__ delta,
-              float* __restrict__ dk, float* __restrict__ dv, Tables tab, Mask mk,
-              float sm_scale) {
-  using T = float;
-  extern __shared__ __align__(128) unsigned char smem[];
-  T* k_s = reinterpret_cast<T*>(smem);
-  T* v_s = k_s + TILE * D;
-  T* q_s = v_s + TILE * D;
-  T* do_s = q_s + TILE * D;
-  float* st_s = do_s + TILE * D;      // S^T: key rows, query columns
-  float* dpt_s = st_s + TILE * TILE;  // dP^T
-  float* dk_acc = dpt_s + TILE * TILE;
-  float* dv_acc = dk_acc + TILE * D;
-  T* pt_s = st_s;     // written over S^T in place
-  T* dst_s = dpt_s;   // written over dP^T in place
-  float* lse_s = dv_acc + TILE * D;
-  float* delta_s = lse_s + TILE;
-  uint8_t* live_s = reinterpret_cast<uint8_t*>(delta_s + TILE);
-
-  const int T_len = mk.T_len, S_len = mk.S_len, causal = mk.causal;
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int bh = blockIdx.y;
-  const int kt = blockIdx.x;
-  const int k0 = kt * TILE;
-  q += (size_t)bh * T_len * D;
-  dO += (size_t)bh * T_len * D;
-  lse += (size_t)bh * T_len;
-  delta += (size_t)bh * T_len;
-  k += (size_t)bh * S_len * D;
-  v += (size_t)bh * S_len * D;
-  dk += (size_t)bh * S_len * D;
-  dv += (size_t)bh * S_len * D;
-  const int n_tiles = tab.counts[kt];
-  const int* tiles = tab.tiles + (size_t)kt * tab.L;
-  const uint8_t* partial = tab.partial + (size_t)kt * tab.L;
-
-  load_tile<T, D>(k_s, k, k0, S_len, TILE);
-  load_tile<T, D>(v_s, v, k0, S_len, TILE);
-  for (int i = threadIdx.x; i < TILE * D; i += NTHREADS) {
-    dk_acc[i] = 0.0f;
-    dv_acc[i] = 0.0f;
-  }
-
-  for (int it = 0; it < n_tiles; ++it) {
-    const int q0 = tiles[it] * TILE;
-    const bool part = partial[it] != 0;
-    __syncthreads();   // k/v/accumulators ready; every warp done with the last q/dO tile
-    if (part) {
-      for (int r = threadIdx.x; r < TILE; r += NTHREADS) live_s[r] = mk.query_live(q0 + r, k0);
-      __syncthreads();
-      load_live_rows<T, D>(q_s, q, q0, live_s);
-      load_live_rows<T, D>(do_s, dO, q0, live_s);
-    } else {
-      load_tile<T, D>(q_s, q, q0, T_len, TILE);
-      load_tile<T, D>(do_s, dO, q0, T_len, TILE);
-    }
-    for (int i = threadIdx.x; i < TILE; i += NTHREADS) {
-      const bool in = q0 + i < T_len;
-      lse_s[i] = in ? lse[q0 + i] : BIG_LSE;
-      delta_s[i] = in ? delta[q0 + i] : 0.0f;
-    }
-    __syncthreads();
-
-    score_tile<D>(k_s, q_s, st_s, warp, lane);    // S^T = K . Q^T
-    score_tile<D>(v_s, do_s, dpt_s, warp, lane);  // dP^T = V . dO^T
-    __syncwarp();
-
-    for (int rr = 0; rr < ROWS_PER_WARP; ++rr) {
-      const int r = warp * ROWS_PER_WARP + rr;
-      const int k_pos = k0 + r;
-      for (int c = lane; c < TILE; c += 32) {
-        const int q_pos = q0 + c;
-        const bool keep = k_pos < S_len && q_pos < T_len && !(causal && k_pos > q_pos) &&
-                          (!part || mk.block(q_pos, k_pos));
-        float p, ds;
-        p_and_ds(st_s[r * TILE + c], dpt_s[r * TILE + c], lse_s[c], delta_s[c], keep,
-                 sm_scale, &p, &ds);
-        pt_s[r * TILE + c] = p;
-        dst_s[r * TILE + c] = ds;
-      }
-    }
-    __syncwarp();
-
-    mma_acc_tile<D>(pt_s, do_s, dv_acc, warp, lane);   // dV += P^T . dO
-    mma_acc_tile<D>(dst_s, q_s, dk_acc, warp, lane);   // dK += dS^T . Q
-  }
-  __syncthreads();   // the zero-fill is visible when the sweep ran no tile
-
-  for (int rr = 0; rr < ROWS_PER_WARP; ++rr) {
-    const int r = warp * ROWS_PER_WARP + rr;
-    if (k0 + r >= S_len) break;
-    for (int d = lane; d < D; d += 32) {
-      dk[(size_t)(k0 + r) * D + d] = dk_acc[r * D + d] * sm_scale;
-      dv[(size_t)(k0 + r) * D + d] = dv_acc[r * D + d];
-    }
-  }
 }
 
 // K8 in f32: grid (ceil(T / 64), B*H), one block per q tile, over K6's table.
@@ -503,8 +380,9 @@ bs_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
 }
 
 // ---------------------------------------------------------------------------
-// K6, K7 and K8 in bf16: the Hopper bodies of attn_fwd_hopper.cuh and
-// attn_bwd_hopper.cuh over the tile lists of 128-row blocks.
+// K6, K7 and K8 in bf16, and K7 in f32: the Hopper bodies of
+// attn_fwd_hopper.cuh and attn_bwd_hopper.cuh over the tile lists of
+// 128-row (or 64-row) blocks.
 // ---------------------------------------------------------------------------
 
 // The lists ops/block_sparse.py builds per block of 128 own rows (key rows
@@ -517,7 +395,9 @@ bs_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
 // the lists are the dense sweeps of K1 (at D 128) and K2/K3, tile for tile,
 // so K6-K8 give K1-K3's bits.  K7 and K8 at D 192 and 256 own 64 rows a
 // block and read the same lists built per 64-row key (K7) or query (K8)
-// tile (bit 0 and bit 2 only).
+// tile (bit 0 and bit 2 only), as does the f32 K7 at every D.  T is the
+// streamed tensors' type (bf16, or f32 in K7's f32 kernel).
+template <typename T = __nv_bfloat16>
 struct ListSweep {
   static constexpr bool kList = true;
   const int* tiles;                 // (blocks, L)
@@ -527,8 +407,8 @@ struct ListSweep {
   const int* order;                 // (blocks,)
   int L;
   Mask mk;
-  const __nv_bfloat16* src_a;       // the streamed tensors: q, dO (K7); k, v (K8)
-  const __nv_bfloat16* src_b;
+  const T* src_a;                   // the streamed tensors: q, dO (K7); k, v (K8)
+  const T* src_b;
   HeadStrides stride_a, stride_b;   // at their strides
 
   __device__ int dkv_block() const { return order[blockIdx.y]; }
@@ -556,11 +436,13 @@ struct AttnArgs {
   const float* delta;
   void* out0;   // O (K6), dK (K7) or dQ (K8)
   void* out1;   // LSE (K6) or dV (K7)
-  Tables tab;        // f32: 64-row tile tables; bf16: 128-row (K7, K8 at D > 128: 64-row) block lists
-  const int* order;  // bf16: the blocks, longest list first
-  const unsigned long long* rows;   // bf16: live streamed rows
+  // the bf16 K6-K8 and the f32 K7: 128-row block lists (K7, K8 at D > 128
+  // and the f32 K7: 64-row); the f32 K6 and K8: 64-row tile tables
+  Tables tab;
+  const int* order;  // block lists: the blocks, longest list first
+  const unsigned long long* rows;   // block lists: live streamed rows
   Mask mk;
-  HeadStrides sq, sk, sv, sdo;   // q, k, v, dO at their strides (f32: contiguous)
+  HeadStrides sq, sk, sv, sdo;   // q, k, v, dO at their strides (f32 K6, K8: contiguous)
   int H, h0, BH;                 // heads h0 .. h0 + BH - 1, H a batch
   float sm_scale;
   cudaStream_t stream;
@@ -568,15 +450,15 @@ struct AttnArgs {
 
 enum class Which { kFwd, kDkv, kDq };
 
-// K6 (out0 O, out1 LSE), K7 (out0 dK, out1 dV) or K8 (out0 dQ) in bf16
-// over the block lists
-template <Which W, int D>
+// K6 (out0 O, out1 LSE), K7 (out0 dK, out1 dV) or K8 (out0 dQ) over the
+// block lists: in bf16, or K7 in f32 (T)
+template <Which W, int D, typename T = __nv_bfloat16>
 cudaError_t launch_wgmma(const AttnArgs& a) {
   const bool dkv = W == Which::kDkv;
-  const ListSweep sw{a.tab.tiles, a.tab.partial, a.rows, a.tab.counts, a.order, a.tab.L, a.mk,
-                     static_cast<const __nv_bfloat16*>(dkv ? a.q : a.k),
-                     static_cast<const __nv_bfloat16*>(dkv ? a.dO : a.v),
-                     dkv ? a.sq : a.sk, dkv ? a.sdo : a.sv};
+  const ListSweep<T> sw{a.tab.tiles, a.tab.partial, a.rows, a.tab.counts, a.order, a.tab.L, a.mk,
+                        static_cast<const T*>(dkv ? a.q : a.k),
+                        static_cast<const T*>(dkv ? a.dO : a.v),
+                        dkv ? a.sq : a.sk, dkv ? a.sdo : a.sv};
   if constexpr (W == Which::kFwd) {
     return launch_fwd_wgmma<D, kTileRows>(
         FwdArgs{a.q, a.k, a.v, a.out0, a.out1, a.sq, a.sk, a.sv, a.H, a.h0, a.BH, a.mk.T_len,
@@ -586,7 +468,7 @@ cudaError_t launch_wgmma(const AttnArgs& a) {
     const BwdArgs b{a.q, a.k, a.v, a.dO, a.lse, a.delta, a.out0, a.out1, a.sq, a.sk, a.sv,
                     a.sdo, a.H, a.h0, a.BH, a.mk.T_len, a.mk.S_len, a.sm_scale, a.mk.causal,
                     a.stream};
-    if constexpr (W == Which::kDkv) return launch_dkv_wgmma<D>(b, sw);
+    if constexpr (W == Which::kDkv) return launch_dkv_wgmma<D, T>(b, sw);
     else return launch_dq_wgmma<D>(b, sw);
   }
 }
@@ -602,12 +484,11 @@ bool f32_from_h0(int D, AttnArgs* a) {
   a->q = static_cast<const float*>(a->q) + qo * D;
   a->k = static_cast<const float*>(a->k) + ko * D;
   a->v = static_cast<const float*>(a->v) + ko * D;
-  if (a->dO) {   // the backward: lse, delta, then dK, dV (K7) or dQ (K8)
+  if (a->dO) {   // the backward (K8): lse, delta, dQ
     a->dO = static_cast<const float*>(a->dO) + qo * D;
     a->lse += qo;
     a->delta += qo;
-    a->out0 = static_cast<float*>(a->out0) + (a->out1 ? ko : qo) * D;
-    if (a->out1) a->out1 = static_cast<float*>(a->out1) + ko * D;
+    a->out0 = static_cast<float*>(a->out0) + qo * D;
   } else {       // the forward: O, LSE
     a->out0 = static_cast<float*>(a->out0) + qo * D;
     a->out1 = static_cast<float*>(a->out1) + qo;
@@ -616,14 +497,13 @@ bool f32_from_h0(int D, AttnArgs* a) {
   return true;
 }
 
-// K6, K7 or K8 in f32: the tile loops, grid (ceil(rows / 64), heads)
+// K6 or K8 in f32: the tile loops, grid (ceil(T / 64), heads)
 template <Which W, int D>
 cudaError_t launch_attn_f32(AttnArgs a) {
   static std::mutex mu;
   static bool attr_set[kMaxDevices] = {};
   if (!f32_from_h0(D, &a)) return cudaErrorInvalidValue;
-  const int rows = W == Which::kDkv ? a.mk.S_len : a.mk.T_len;
-  dim3 grid((rows + TILE - 1) / TILE, a.BH);
+  dim3 grid((a.mk.T_len + TILE - 1) / TILE, a.BH);
   cudaError_t err;
   if constexpr (W == Which::kFwd) {
     constexpr size_t smem = fwd_smem_bytes<D>();
@@ -635,16 +515,6 @@ cudaError_t launch_attn_f32(AttnArgs a) {
         static_cast<const float*>(a.q), static_cast<const float*>(a.k),
         static_cast<const float*>(a.v), static_cast<float*>(a.out0),
         static_cast<float*>(a.out1), a.tab, a.mk, a.sm_scale);
-  } else if constexpr (W == Which::kDkv) {
-    constexpr size_t smem = dkv_smem_bytes<D>();
-    static_assert(smem <= kMaxSmemBytes, "block-sparse tiles do not fit in shared memory");
-    auto kernel = bs_dkv_kernel<D>;
-    err = smem_opt_in_once(kernel, (int)smem, mu, attr_set);
-    if (err != cudaSuccess) return err;
-    kernel<<<grid, NTHREADS, smem, a.stream>>>(
-        static_cast<const float*>(a.q), static_cast<const float*>(a.k),
-        static_cast<const float*>(a.v), static_cast<const float*>(a.dO), a.lse, a.delta,
-        static_cast<float*>(a.out0), static_cast<float*>(a.out1), a.tab, a.mk, a.sm_scale);
   } else {
     constexpr size_t smem = dq_smem_bytes<D>();
     static_assert(smem <= kMaxSmemBytes, "block-sparse tiles do not fit in shared memory");
@@ -659,14 +529,16 @@ cudaError_t launch_attn_f32(AttnArgs a) {
   return cudaGetLastError();
 }
 
-// bf16 at D 16-256, f32 to 128
+// bf16 at D 16-256, f32 to 128: over the block lists (order and rows
+// given) in bf16 and the f32 K7, over the tile tables in the f32 K6 and K8
 template <Which W, typename T, int D>
 cudaError_t launch_attn(const AttnArgs& a) {
-  if constexpr (kIsBf16<T>) {
-    if (a.order == nullptr || a.rows == nullptr) return cudaErrorInvalidValue;
-    return launch_wgmma<W, D>(a);
-  } else if constexpr (D > 128) {
+  constexpr bool lists = kIsBf16<T> || W == Which::kDkv;
+  if constexpr (!kIsBf16<T> && D > 128) {
     return cudaErrorInvalidValue;
+  } else if constexpr (lists) {
+    if (a.order == nullptr || a.rows == nullptr) return cudaErrorInvalidValue;
+    return launch_wgmma<W, D, T>(a);
   } else {
     return launch_attn_f32<W, D>(a);
   }
@@ -724,7 +596,7 @@ int smem_of(int dtype) {
   if constexpr (D <= 128) {   // f32
     if (dtype == 0)
       return (int)(W == Which::kFwd   ? fwd_smem_bytes<D>()
-                   : W == Which::kDkv ? dkv_smem_bytes<D>()
+                   : W == Which::kDkv ? DkvCfg<D, float>::SMEM
                                       : dq_smem_bytes<D>());
   }
   return 0;
@@ -1172,17 +1044,18 @@ cudaError_t dispatch_mm_tile(const MmArgs& a) {
 // Heads h0 .. h0 + BH - 1 of q, dO (., H, T, D) and k, v (., H, S, D) in
 // one dtype (0 = float32, 1 = bfloat16), each at its element strides
 // (strides: batch, head and row of q, k, v, then dO; the last dim
-// unit-stride); in bf16 every stride a multiple of 8 and each base 16-byte
-// aligned (TMA), in f32 contiguous.  lse and delta (., T) f32 and the
-// outputs contiguous, in the inputs' dtype; every pointer is the tensor's
-// start, not its head h0's.  bmask (T / bq, S / bk) uint8, the runtime block
-// mask.  The tables as ops/block_sparse.py builds them.  In f32 the kernels
-// read 64-row tile tables: tiles (tiles, L) int32, counts (tiles,) int32,
-// partial (tiles, L) uint8; order and rows are not read.  In bf16 they read
-// block lists (128-row; 64-row for K7 and K8 at D 192 and 256): tiles (blocks, L)
-// int32, counts (blocks,) int32, partial the flag bytes (blocks, L) uint8,
-// order (blocks,) int32 and rows (blocks, L) uint64.  Each returns the
-// cudaError_t of its launch (0 on success).
+// unit-stride); through TMA (bf16, and the f32 K7) every stride a multiple
+// of 16 bytes and each base 16-byte aligned, for the f32 K6 and K8
+// contiguous.  lse and delta (., T) f32 and the outputs contiguous, in the
+// inputs' dtype; every pointer is the tensor's start, not its head h0's.
+// bmask (T / bq, S / bk) uint8, the runtime block mask.  The tables as
+// ops/block_sparse.py builds them.  The f32 K6 and K8 read 64-row tile
+// tables: tiles (tiles, L) int32, counts (tiles,) int32, partial (tiles, L)
+// uint8; order and rows are not read.  The bf16 kernels and the f32 K7
+// read block lists (128-row; 64-row for K7 and K8 at D 192 and 256 and for
+// the f32 K7): tiles (blocks, L) int32, counts (blocks,) int32, partial the
+// flag bytes (blocks, L) uint8, order (blocks,) int32 and rows (blocks, L)
+// uint64.  Each returns the cudaError_t of its launch (0 on success).
 
 // K6: o (BH, T, D), lse (BH, T); tables per q tile (f32) or per 128 query
 // rows (bf16: the lists K8 reads).
@@ -1198,8 +1071,8 @@ extern "C" int bigdl_bs_fwd(const void* q, const void* k, const void* v, void* o
   return dispatch_attn<Which::kFwd>(D, dtype, a);
 }
 
-// K7: dk, dv (., S, D); tables per k tile (f32) or per 128 key rows (bf16;
-// per 64 at D 192 and 256).
+// K7: dk, dv (., S, D); lists per 128 key rows (bf16 to D 128) or per 64
+// (bf16 at D 192 and 256, f32).
 extern "C" int bigdl_bs_bwd_dkv(const void* q, const void* k, const void* v, const void* dO,
                                 const void* lse, const void* delta, void* dk, void* dv,
                                 const void* tiles, const void* counts, const void* partial,

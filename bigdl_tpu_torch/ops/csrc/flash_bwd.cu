@@ -55,13 +55,18 @@
 // q, k, v and dO are read at their own strides (the head-strided view of an
 // attention layer in place); the outputs are contiguous.
 //
-// f32 (flash_bwd_dkv_kernel, flash_bwd_dq_kernel) keeps the tile loop of
-// tile_common.cuh, unchanged: one 4-warp block per 64 key (K2) or query
-// (K3) rows, FMA products through shared memory.  wgmma has no full-f32
-// product, and no bf16 main path runs it: it serves the f32 comparisons
-// of training, and K7/K8 (block_sparse.cu) run the same f32 loop over
-// their tile lists, so on an all-ones mask the two pairs agree bit for bit
-// in f32.
+// f32.  K2 (D 16-128) runs the same body's f32 dK/dV block
+// (attn_bwd_hopper.cuh: bwd_dkv_split_kernel, 64 key rows a block), whose
+// f32 products are formed from bf16 wgmma products on three bf16 pieces of
+// each operand (six for the scores, five for dV and dK), and reads q, k, v
+// and dO at their strides as the bf16 kernels do.  At the phase-3 shape (B
+// 2, H 8, T 512, D 128, causal) its four products are 2.15 GFLOP as f32
+// and 11.8 as bf16: 11.96 us at 989 TFLOP/s, against 25.2 MB, 7.5 us.  K3
+// (flash_bwd_dq_kernel) keeps the tile loop of tile_common.cuh: one 4-warp
+// block per 64 query rows, FMA products through shared memory, contiguous
+// heads.  K7 and K8 (block_sparse.cu) run the same f32 kernels over their
+// tile lists, so on an all-ones mask the two pairs agree bit for bit in
+// f32.
 
 #include "attn_bwd_hopper.cuh"
 
@@ -111,14 +116,6 @@ struct DenseSweep {
 // ---- f32: the FMA tile loop of tile_common.cuh -------------------------------
 
 template <int D>
-constexpr size_t dkv_smem_bytes() {
-  return sizeof(float) * 4 * TILE * D        // k, v, q, dO
-         + sizeof(float) * 2 * TILE * TILE   // S^T, dP^T (then P^T, dS^T in place)
-         + sizeof(float) * 2 * TILE * D      // dK, dV accumulators
-         + sizeof(float) * 2 * TILE;         // lse, delta
-}
-
-template <int D>
 constexpr size_t dq_smem_bytes() {
   return sizeof(float) * 4 * TILE * D        // q, dO, k, v
          + sizeof(float) * 2 * TILE * TILE   // S, dP (then dS in place)
@@ -132,100 +129,6 @@ __device__ __forceinline__ void p_and_ds(float s, float dp, float lse, float del
                                          float sm_scale, float* p, float* ds) {
   *p = keep ? expf(s * sm_scale - lse) : 0.0f;
   *ds = *p * (dp - delta);
-}
-
-// K2 in f32: grid (ceil(S / 64), B*H).  Each warp owns 16 key rows of the
-// tile; P^T and dS^T overwrite S^T and dP^T in place (each lane rewrites
-// only what it read), so D 128 fits in 224.5 KB.
-template <int D>
-__global__ void __launch_bounds__(NTHREADS)
-flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                     const float* __restrict__ v, const float* __restrict__ dO,
-                     const float* __restrict__ lse, const float* __restrict__ delta,
-                     float* __restrict__ dk, float* __restrict__ dv, int T_len, int S_len,
-                     float sm_scale, int causal) {
-  using T = float;
-  extern __shared__ __align__(128) unsigned char smem[];
-  T* k_s = reinterpret_cast<T*>(smem);
-  T* v_s = k_s + TILE * D;
-  T* q_s = v_s + TILE * D;
-  T* do_s = q_s + TILE * D;
-  float* st_s = do_s + TILE * D;   // S^T: key rows, query columns
-  float* dpt_s = st_s + TILE * TILE;                          // dP^T
-  float* dk_acc = dpt_s + TILE * TILE;
-  float* dv_acc = dk_acc + TILE * D;
-  T* pt_s = st_s;      // written over S^T in place
-  T* dst_s = dpt_s;    // written over dP^T in place
-  float* lse_s = dv_acc + TILE * D;
-  float* delta_s = lse_s + TILE;
-
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int bh = blockIdx.y;
-  const int k0 = blockIdx.x * TILE;
-  q += (size_t)bh * T_len * D;
-  dO += (size_t)bh * T_len * D;
-  lse += (size_t)bh * T_len;
-  delta += (size_t)bh * T_len;
-  k += (size_t)bh * S_len * D;
-  v += (size_t)bh * S_len * D;
-  dk += (size_t)bh * S_len * D;
-  dv += (size_t)bh * S_len * D;
-
-  load_tile<T, D>(k_s, k, k0, S_len, TILE);
-  load_tile<T, D>(v_s, v, k0, S_len, TILE);
-  for (int i = threadIdx.x; i < TILE * D; i += NTHREADS) {
-    dk_acc[i] = 0.0f;
-    dv_acc[i] = 0.0f;
-  }
-
-  // Top-left causal alignment: query rows before k0 attend to no key of
-  // this tile, so the sweep starts at the q tile holding row k0 (and runs
-  // no tile at all when k0 >= T).
-  const int q_begin = causal ? (k0 / TILE) * TILE : 0;
-  for (int q0 = q_begin; q0 < T_len; q0 += TILE) {
-    __syncthreads();   // k/v/accumulators ready; every warp done with the last q/dO tile
-    load_tile<T, D>(q_s, q, q0, T_len, TILE);
-    load_tile<T, D>(do_s, dO, q0, T_len, TILE);
-    for (int i = threadIdx.x; i < TILE; i += NTHREADS) {
-      const bool in = q0 + i < T_len;
-      lse_s[i] = in ? lse[q0 + i] : BIG_LSE;
-      delta_s[i] = in ? delta[q0 + i] : 0.0f;
-    }
-    __syncthreads();
-
-    score_tile<D>(k_s, q_s, st_s, warp, lane);    // S^T = K . Q^T
-    score_tile<D>(v_s, do_s, dpt_s, warp, lane);  // dP^T = V . dO^T
-    __syncwarp();
-
-    for (int rr = 0; rr < ROWS_PER_WARP; ++rr) {
-      const int r = warp * ROWS_PER_WARP + rr;
-      const int k_pos = k0 + r;
-      for (int c = lane; c < TILE; c += 32) {
-        const int q_pos = q0 + c;
-        const bool keep = k_pos < S_len && q_pos < T_len && !(causal && k_pos > q_pos);
-        float p, ds;
-        p_and_ds(st_s[r * TILE + c], dpt_s[r * TILE + c], lse_s[c], delta_s[c], keep,
-                 sm_scale, &p, &ds);
-        pt_s[r * TILE + c] = p;
-        dst_s[r * TILE + c] = ds;
-      }
-    }
-    __syncwarp();
-
-    mma_acc_tile<D>(pt_s, do_s, dv_acc, warp, lane);   // dV += P^T . dO
-    mma_acc_tile<D>(dst_s, q_s, dk_acc, warp, lane);   // dK += dS^T . Q
-  }
-  __syncthreads();   // the zero-fill is visible when the sweep ran no tile
-
-  for (int rr = 0; rr < ROWS_PER_WARP; ++rr) {
-    const int r = warp * ROWS_PER_WARP + rr;
-    if (k0 + r >= S_len) break;
-    for (int d = lane; d < D; d += 32) {
-      dk[(size_t)(k0 + r) * D + d] = dk_acc[r * D + d] * sm_scale;
-      dv[(size_t)(k0 + r) * D + d] = dv_acc[r * D + d];
-    }
-  }
 }
 
 // K3 in f32: grid (ceil(T / 64), B*H).
@@ -308,8 +211,8 @@ flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
-// the f32 tile loops read contiguous heads: a copy of `a` from head h0 on,
-// or false where an operand is not contiguous
+// the f32 dQ tile loop reads contiguous heads: a copy of `a` from head h0
+// on, or false where an operand is not contiguous
 bool f32_from_h0(int D, BwdArgs* a) {
   if (!a->sq.dense(a->H, a->T_len, D) || !a->sdo.dense(a->H, a->T_len, D) ||
       !a->sk.dense(a->H, a->S_len, D) || !a->sv.dense(a->H, a->S_len, D))
@@ -321,28 +224,9 @@ bool f32_from_h0(int D, BwdArgs* a) {
   a->v = static_cast<const float*>(a->v) + ko * D;
   a->lse += qo;
   a->delta += qo;
-  a->out0 = static_cast<float*>(a->out0) + (a->out1 ? ko : qo) * D;   // dK or dQ
-  if (a->out1) a->out1 = static_cast<float*>(a->out1) + ko * D;
+  a->out0 = static_cast<float*>(a->out0) + qo * D;   // dQ
   a->h0 = 0;
   return true;
-}
-
-template <int D>
-cudaError_t launch_dkv_f32(const BwdArgs& a) {
-  constexpr size_t smem = dkv_smem_bytes<D>();
-  static_assert(smem <= kMaxSmemBytes, "flash_bwd_dkv tiles do not fit in shared memory");
-  auto kernel = flash_bwd_dkv_kernel<D>;
-  static std::mutex mu;
-  static bool attr_set[kMaxDevices] = {};
-  cudaError_t err = smem_opt_in_once(kernel, (int)smem, mu, attr_set);
-  if (err != cudaSuccess) return err;
-  dim3 grid((a.S_len + TILE - 1) / TILE, a.BH);
-  kernel<<<grid, NTHREADS, smem, a.stream>>>(
-      static_cast<const float*>(a.q), static_cast<const float*>(a.k),
-      static_cast<const float*>(a.v), static_cast<const float*>(a.dO), a.lse, a.delta,
-      static_cast<float*>(a.out0), static_cast<float*>(a.out1), a.T_len, a.S_len, a.sm_scale,
-      a.causal);
-  return cudaGetLastError();
 }
 
 template <int D>
@@ -368,8 +252,9 @@ cudaError_t launch(bool dkv, int dtype, const BwdArgs& a) {
   const DenseSweep sw{a.causal};
   if (dtype == 1) return dkv ? launch_dkv_wgmma<D>(a, sw) : launch_dq_wgmma<D>(a, sw);
   if constexpr (D <= 128) {
+    if (dtype == 0 && dkv) return launch_dkv_wgmma<D, float>(a, sw);
     BwdArgs f = a;
-    if (dtype == 0 && f32_from_h0(D, &f)) return dkv ? launch_dkv_f32<D>(f) : launch_dq_f32<D>(f);
+    if (dtype == 0 && f32_from_h0(D, &f)) return launch_dq_f32<D>(f);
   }
   return cudaErrorInvalidValue;
 }
@@ -392,7 +277,7 @@ template <int D>
 int smem_of(bool dkv, int dtype) {
   if (dtype == 1) return (int)(dkv ? DkvCfg<D>::SMEM : DqCfg<D>::SMEM);
   if constexpr (D <= 128) {
-    if (dtype == 0) return (int)(dkv ? dkv_smem_bytes<D>() : dq_smem_bytes<D>());
+    if (dtype == 0) return (int)(dkv ? DkvCfg<D, float>::SMEM : dq_smem_bytes<D>());
   }
   return 0;
 }
@@ -402,11 +287,11 @@ int smem_of(bool dkv, int dtype) {
 // Heads h0 .. h0 + BH - 1 of q, dO (., H, T, D) and k, v (., H, S, D) in
 // one dtype (0 = float32, 1 = bfloat16), each at its element strides
 // (strides: batch, head and row of q, k, v, then dO; the last dim
-// unit-stride); in bf16 every stride a multiple of 8 and each base 16-byte
-// aligned (TMA), in f32 contiguous.  lse and delta (., T) f32 and the
-// outputs contiguous, in the inputs' dtype.  Every pointer is the tensor's
-// start, not its head h0's.  Each returns the cudaError_t of its launch (0
-// on success).
+// unit-stride); through TMA (bf16, and the f32 dK/dV) every stride a
+// multiple of 16 bytes and each base 16-byte aligned, for the f32 dQ
+// contiguous.  lse and delta (., T) f32 and the outputs contiguous, in the
+// inputs' dtype.  Every pointer is the tensor's start, not its head h0's.
+// Each returns the cudaError_t of its launch (0 on success).
 
 BwdArgs make_args(const void* q, const void* k, const void* v, const void* dO, const void* lse,
                   const void* delta, void* out0, void* out1, const long long* strides, int H,

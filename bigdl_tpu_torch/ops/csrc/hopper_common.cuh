@@ -8,8 +8,9 @@
 // attn_bwd_hopper.cuh, the backward body of K2/K3 (flash_bwd.cu) and K7/K8
 // (block_sparse.cu), and so are K5's implicit GEMM (conv3x3.cu) and K9's
 // block-masked GEMM (block_sparse.cu).
-// Its last section holds what the two attention bodies share: the block
-// shape and the steps of a sweep.
+// Its last sections hold what the two attention bodies share: the block
+// shape and the steps of a sweep, and the split of f32 operands into bf16
+// pieces on which the f32 dK/dV forms its products.
 //
 // Conventions.
 //   * Tiles land in shared memory by TMA with a swizzle whose span equals
@@ -17,7 +18,9 @@
 //     bytes) wide, so a (rows, D) tile is D / 64 panels of (rows, 64) at
 //     D >= 64, or one panel of (rows, D) at D 16 or 32 (32- or 64-byte
 //     rows, 32- or 64-byte swizzle).  Each panel starts on a 1024-byte
-//     boundary.
+//     boundary.  An f32 tile lands the same way in panels of at most 32
+//     columns, and is split in place into bf16 panels for wgmma
+//     (split_tile, below).
 //   * wgmma reads such a panel through a shared-memory descriptor of the
 //     same swizzle: rows at the panel's row pitch, groups of 8 rows at 8
 //     pitches (the stride byte offset), each k16 step 32 bytes further
@@ -383,12 +386,14 @@ __device__ __forceinline__ void wgmma_rs(float* d, const uint32_t* a, uint64_t d
 
 // ---- panels and the consumer epilogue ----------------------------------------
 
-// the panel split of a (rows, D) bf16 tile (see the conventions above)
-template <int D>
+// the panel split of a (rows, D) tile of kElem-byte elements (see the
+// conventions above): bf16 panels of at most 64 columns; f32 ones, as TMA
+// lands an f32 tile, of at most 32
+template <int D, int kElem = 2>
 struct Panels {
-  static constexpr int PW = D < 64 ? D : 64;   // panel width, columns
-  static constexpr int NP = D / PW;            // panels per row
-  static constexpr int RB = PW * 2;            // bytes per panel row = swizzle span
+  static constexpr int PW = D * kElem < 128 ? D : 128 / kElem;   // panel width, columns
+  static constexpr int NP = D / PW;                              // panels per row
+  static constexpr int RB = PW * kElem;   // bytes per panel row = swizzle span
 };
 
 // TMA's swizzle and the wgmma descriptors assume 1024-byte-aligned panels
@@ -489,21 +494,22 @@ inline HeadStrides head_strides(const long long* s, int i) {
   return HeadStrides{s[3 * i], s[3 * i + 1], s[3 * i + 2]};
 }
 
-// One warp stages rows row0 .. row0 + 63 of one head's (n_rows, D) bf16
-// matrix, row i at src + i * pitch, into a 64-row tile of swizzled panels at
-// `dst` (panel pitch kPanel), where TMA would put them: the swizzle xors a
-// row's 16-byte chunk index with address bits 7.. of its panel offset
-// (Swizzle<3,4,3> at 128-byte rows, <2,4,3> at 64, <1,4,3> at 32), so a row
-// keeps its own bytes.  Rows whose bit in `live` is clear, and rows at or
-// past n_rows, are written as zeros, not loaded.
-template <int D, int kPanel>
-__device__ __forceinline__ void stage_live_rows(unsigned char* dst,
-                                                const __nv_bfloat16* __restrict__ src,
+// One warp stages rows row0 .. row0 + 63 of one head's (n_rows, D) bf16 or
+// f32 matrix, row i at src + i * pitch, into a 64-row tile of swizzled
+// panels (Panels<D, sizeof(T)>) at `dst` (panel pitch kPanel), where TMA
+// would put them: the swizzle xors a row's 16-byte chunk index with address
+// bits 7.. of its panel offset (Swizzle<3,4,3> at 128-byte rows, <2,4,3> at
+// 64, <1,4,3> at 32), so a row keeps its own bytes.  Rows whose bit in
+// `live` is clear, and rows at or past n_rows, are written as zeros, not
+// loaded.
+template <int D, int kPanel, typename T>
+__device__ __forceinline__ void stage_live_rows(unsigned char* dst, const T* __restrict__ src,
                                                 long long pitch, int row0, int n_rows,
                                                 unsigned long long live, int lane) {
-  using P = Panels<D>;
-  constexpr int CPR = D / 8;        // 16-byte chunks per row
-  constexpr int CPP = P::PW / 8;    // 16-byte chunks per panel row
+  using P = Panels<D, sizeof(T)>;
+  constexpr int CPR = D * sizeof(T) / 16;   // 16-byte chunks per row
+  constexpr int CPP = P::RB / 16;           // 16-byte chunks per panel row
+  constexpr int EPC = 16 / sizeof(T);       // elements per chunk
   constexpr uint32_t SWZ = (P::RB / 16 - 1) << 4;
   // one load in flight: the producer runs on the few registers it kept
 #pragma unroll 1
@@ -511,9 +517,96 @@ __device__ __forceinline__ void stage_live_rows(unsigned char* dst,
     const int r = i / CPR, cc = i % CPR;
     uint4 val = make_uint4(0u, 0u, 0u, 0u);
     if (row0 + r < n_rows && ((live >> r) & 1ull))
-      val = *reinterpret_cast<const uint4*>(src + (row0 + r) * pitch + 8 * cc);
+      val = *reinterpret_cast<const uint4*>(src + (row0 + r) * pitch + EPC * cc);
     const uint32_t a = r * P::RB + 16 * (cc % CPP);
     *reinterpret_cast<uint4*>(dst + (cc / CPP) * kPanel + (a ^ ((a >> 3) & SWZ))) = val;
+  }
+}
+
+// ---- f32 products as bf16 products -------------------------------------------
+//
+// wgmma has no full-f32 product.  An f32 operand a is split into bf16
+// pieces a1 = bf16(a), a2 = bf16(a - a1) and a3 = bf16(a - a1 - a2) (each
+// difference exact in f32), so that a1 + a2 + a3 = a exactly (for |a| above
+// 2^-102, where a3 is a normal number), and a product a . b is formed from
+// bf16 wgmma products with f32 accumulation, small terms first: with three
+// pieces on both sides a1 b3 + a2 b2 + a3 b1, then a1 b2 + a2 b1, then a1
+// b1 (six products; the terms left out are 2^-24 of the product); with two
+// pieces of b, a2 b2 + a3 b1, a1 b2 + a2 b1, a1 b1 (five; b's own
+// rounding, 2^-17 of |b| at most, stays).  Two pieces a side, three
+// products, miss the f32 limits of the attention backward on the card
+// (PERF.md).  Operands in registers are split where they are packed
+// (split_bf16x3); a tile in shared memory is split in place (split_tile):
+// the bytes of an f32 tile are those of its a1 and a2 panels, and a3 goes
+// beside them.
+
+// the three pieces of two f32 values, each pair packed as in pack_bf16x2
+__device__ __forceinline__ void split_bf16x3(float x0, float x1, uint32_t& p1, uint32_t& p2,
+                                             uint32_t& p3) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);   // round to nearest even
+  const float2 b1 = __bfloat1622float2(h);
+  const float r0 = x0 - b1.x, r1 = x1 - b1.y;
+  const __nv_bfloat162 m = __floats2bfloat162_rn(r0, r1);
+  const float2 b2 = __bfloat1622float2(m);
+  p1 = *reinterpret_cast<const uint32_t*>(&h);
+  p2 = *reinterpret_cast<const uint32_t*>(&m);
+  p3 = pack_bf16x2(r0 - b2.x, r1 - b2.y);
+}
+
+// One warpgroup splits the 64-row f32 tile at `t`, which TMA landed as
+// Panels<D, 4> (panels of 32 f32 columns, 128-byte rows, 8 KB apart; D 16
+// one panel of 64-byte rows), in place into its three bf16 pieces, each in
+// panels of Panels<D> (the swizzle of their rows; SPAN = 64 rows of one):
+// the first and second pieces of 64-column group g at t + 2 g SPAN and t +
+// (2 g + 1) SPAN, where the f32 panels 2 g and 2 g + 1 lay (so at D 128
+// each group is split on its own), and the third piece's panel g at t +
+// 64 D 4 + g SPAN, after the f32 bytes.  A thread takes 8 columns of a
+// row a step; the warpgroup reads a whole group before it writes it (named
+// barrier `bar`, its 128 threads).  The caller fences the writes to the
+// async proxy and synchronises before a wgmma reads them.
+template <int D>
+__device__ __forceinline__ void split_tile(unsigned char* t, int bar) {
+  using F = Panels<D, 4>;
+  using P = Panels<D>;
+  constexpr int SPAN = kTileRows * P::RB;          // one bf16 panel
+  constexpr int FPANEL = kTileRows * F::RB;        // one f32 panel
+  constexpr int THIRD = kTileRows * D * 4;         // the third pieces, after the f32 bytes
+  constexpr int CB = P::PW / 8;                    // 8-column blocks of a group's row
+  constexpr int N = kTileRows * CB / 128;          // blocks a thread
+  constexpr uint32_t SWZ_F = (F::RB / 16 - 1) << 4;
+  constexpr uint32_t SWZ_B = (P::RB / 16 - 1) << 4;
+  const int tid = threadIdx.x % 128;
+#pragma unroll
+  for (int g = 0; g < P::NP; ++g) {
+    unsigned char* grp = t + 2 * g * SPAN;
+    float4 v[2 * N];
+#pragma unroll
+    for (int i = 0; i < N; ++i) {
+      const int u = tid + 128 * i, r = u / CB, c = 8 * (u % CB);
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int cc = c + 4 * e;   // a 16-byte chunk of f32 columns
+        const uint32_t a = r * F::RB + 4 * (cc % F::PW);
+        v[2 * i + e] = *reinterpret_cast<const float4*>(grp + (cc / F::PW) * FPANEL +
+                                                        (a ^ ((a >> 3) & SWZ_F)));
+      }
+    }
+    named_barrier_sync(bar, 128);
+#pragma unroll
+    for (int i = 0; i < N; ++i) {
+      const int u = tid + 128 * i, r = u / CB, c = 8 * (u % CB);
+      const float4 x = v[2 * i], y = v[2 * i + 1];
+      uint4 p1, p2, p3;
+      split_bf16x3(x.x, x.y, p1.x, p2.x, p3.x);
+      split_bf16x3(x.z, x.w, p1.y, p2.y, p3.y);
+      split_bf16x3(y.x, y.y, p1.z, p2.z, p3.z);
+      split_bf16x3(y.z, y.w, p1.w, p2.w, p3.w);
+      const uint32_t a = r * P::RB + 2 * c;
+      const uint32_t off = a ^ ((a >> 3) & SWZ_B);
+      *reinterpret_cast<uint4*>(grp + off) = p1;
+      *reinterpret_cast<uint4*>(grp + SPAN + off) = p2;
+      *reinterpret_cast<uint4*>(t + THIRD + g * SPAN + off) = p3;
+    }
   }
 }
 
@@ -543,18 +636,21 @@ inline EncodeTiledFn encode_tiled_fn() {
   return fn;
 }
 
-// A tensor map over a bf16 array of `rank` dimensions, dims[0] innermost,
-// read in boxes of `box` elements with the swizzle of box[0] * 2-byte rows
-// (32, 64 or 128 bytes).  Out-of-bounds elements read as zeros.  The array
-// is contiguous, or dimension i > 0 steps pitches[i - 1] bytes.  The
-// strides must be multiples of 16 bytes (contiguous: dims[0] a multiple of
-// 8), the base 16-byte aligned.
-inline cudaError_t encode_bf16(CUtensorMap* map, const void* base, int rank,
-                               const uint64_t* dims, const uint32_t* box,
-                               const uint64_t* pitches = nullptr) {
+// A tensor map over an array of `rank` dimensions of bf16 (kElem 2) or f32
+// (kElem 4) elements, dims[0] innermost, read in boxes of `box` elements
+// with the swizzle of box[0] * kElem-byte rows (32, 64 or 128 bytes).
+// Out-of-bounds elements read as zeros.  The array is contiguous, or
+// dimension i > 0 steps pitches[i - 1] bytes.  The strides must be
+// multiples of 16 bytes (contiguous: dims[0] * kElem a multiple of 16),
+// the base 16-byte aligned.
+template <int kElem = 2>
+inline cudaError_t encode_tiled(CUtensorMap* map, const void* base, int rank,
+                                const uint64_t* dims, const uint32_t* box,
+                                const uint64_t* pitches = nullptr) {
+  static_assert(kElem == 2 || kElem == 4, "encode_tiled: bf16 or f32");
   EncodeTiledFn fn = encode_tiled_fn();
   if (fn == nullptr) return cudaErrorNotSupported;
-  const uint32_t row_bytes = box[0] * 2;
+  const uint32_t row_bytes = box[0] * kElem;
   CUtensorMapSwizzle swizzle = row_bytes == 128  ? CU_TENSOR_MAP_SWIZZLE_128B
                                : row_bytes == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
                                : row_bytes == 32 ? CU_TENSOR_MAP_SWIZZLE_32B
@@ -562,7 +658,7 @@ inline cudaError_t encode_bf16(CUtensorMap* map, const void* base, int rank,
   if (swizzle == CU_TENSOR_MAP_SWIZZLE_NONE || rank < 1 || rank > 5) return cudaErrorInvalidValue;
   cuuint64_t g_dims[5], strides[4];
   cuuint32_t g_box[5], elem_strides[5];
-  uint64_t pitch = 2;   // bytes
+  uint64_t pitch = kElem;   // bytes
   for (int i = 0; i < rank; ++i) {
     g_dims[i] = dims[i];
     g_box[i] = box[i];
@@ -570,8 +666,10 @@ inline cudaError_t encode_bf16(CUtensorMap* map, const void* base, int rank,
     if (i > 0) strides[i - 1] = pitches ? pitches[i - 1] : pitch;
     pitch *= dims[i];
   }
-  CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank, const_cast<void*>(base), g_dims,
-                  strides, g_box, elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+  const CUtensorMapDataType type =
+      kElem == 2 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16 : CU_TENSOR_MAP_DATA_TYPE_FLOAT32;
+  CUresult r = fn(map, type, rank, const_cast<void*>(base), g_dims, strides, g_box,
+                  elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
                   CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
@@ -583,7 +681,7 @@ inline cudaError_t encode_bf16_2d(CUtensorMap* map, const void* base, uint64_t n
   const uint64_t dims[2] = {n0, n1};
   const uint32_t box[2] = {box0, box1};
   const uint64_t pitches[1] = {2 * pitch};
-  return encode_bf16(map, base, 2, dims, box, pitches);
+  return encode_tiled(map, base, 2, dims, box, pitches);
 }
 
 // A tensor map over a contiguous bf16 array of shape (n2, n1, n0), n0
@@ -593,22 +691,25 @@ inline cudaError_t encode_bf16_3d(CUtensorMap* map, const void* base, uint64_t n
                                   uint64_t n2, uint32_t box0, uint32_t box1) {
   const uint64_t dims[3] = {n0, n1, n2};
   const uint32_t box[3] = {box0, box1, 1};
-  return encode_bf16(map, base, 3, dims, box);
+  return encode_tiled(map, base, 3, dims, box);
 }
 
-// A tensor map over the first n_heads heads of an attention operand (D
-// columns, `rows` rows a head, H heads a batch, strides `s`) as the 4-D
-// array (D, rows, H, B), read in boxes of (1, 1, box1, box0) loaded at
-// (column, row, h, b): a box never reaches past its own head, and rows past
-// `rows` arrive as zeros.  TMA takes strides that are multiples of 16 bytes
-// and a 16-byte-aligned base; the wrappers copy an operand that breaks this.
-inline cudaError_t encode_bf16_heads(CUtensorMap* map, const void* base, int D, int rows, int H,
-                                     int n_heads, HeadStrides s, uint32_t box0, uint32_t box1) {
+// A tensor map over the first n_heads heads of an attention operand of
+// element type T (bf16 or f32; D columns, `rows` rows a head, H heads a
+// batch, strides `s`) as the 4-D array (D, rows, H, B), read in boxes of
+// (1, 1, box1, box0) loaded at (column, row, h, b): a box never reaches
+// past its own head, and rows past `rows` arrive as zeros.  TMA takes
+// strides that are multiples of 16 bytes and a 16-byte-aligned base; the
+// wrappers copy an operand that breaks this.
+template <typename T>
+inline cudaError_t encode_heads(CUtensorMap* map, const void* base, int D, int rows, int H,
+                                int n_heads, HeadStrides s, uint32_t box0, uint32_t box1) {
+  constexpr uint64_t E = sizeof(T);
   const uint64_t dims[4] = {(uint64_t)D, (uint64_t)rows, (uint64_t)H,
                             (uint64_t)((n_heads + H - 1) / H)};
   const uint32_t box[4] = {box0, box1, 1, 1};
-  const uint64_t pitches[3] = {2 * (uint64_t)s.r, 2 * (uint64_t)s.h, 2 * (uint64_t)s.b};
-  return encode_bf16(map, base, 4, dims, box, pitches);
+  const uint64_t pitches[3] = {E * (uint64_t)s.r, E * (uint64_t)s.h, E * (uint64_t)s.b};
+  return encode_tiled<(int)E>(map, base, 4, dims, box, pitches);
 }
 
 // A tensor map over a contiguous bf16 array of shape (n3, n2, n1, n0), read
@@ -619,7 +720,7 @@ inline cudaError_t encode_bf16_4d(CUtensorMap* map, const void* base, uint64_t n
                                   uint32_t box2, uint32_t box3) {
   const uint64_t dims[4] = {n0, n1, n2, n3};
   const uint32_t box[4] = {box0, box1, box2, box3};
-  return encode_bf16(map, base, 4, dims, box);
+  return encode_tiled(map, base, 4, dims, box);
 }
 
 }  // namespace

@@ -12,7 +12,9 @@ computes, what bounds it and how:
 * K2 and K3 ``csrc/flash_bwd.cu`` replace ``_dkv_kernel`` (``:236``)
   and ``_dq_kernel`` (``:271``): for bf16 the warp-specialised Hopper
   body of ``csrc/attn_bwd_hopper.cuh`` (TMA ring, wgmma, dK/dV and dQ in
-  registers) over the dense causal sweep, for f32 the tile loop;
+  registers) over the dense causal sweep; for f32, K2 runs the same body
+  with each f32 product formed from bf16 wgmma products on three bf16
+  pieces of its operands (split in place), and K3 the tile loop;
 * head dims above the built ones take the wide route,
   ``csrc/attn_wide.cu``: one warp per output row, any D, under the dense
   mask here and the block mask in ``block_sparse.py``.  A wide launch
@@ -20,19 +22,20 @@ computes, what bounds it and how:
   ``LAUNCHES_WIDE``.
 
 Routing by dtype and head dim D, the same for the forward, dK/dV and
-dQ: f32 runs the tile loops at 16, 32, 64 and 128 and the wide route
-above 128; bf16 runs the Hopper bodies at 16, 32, 64, 128, 192 and 256
-and the wide route above 256.  A head dim between the built ones is
-zero-padded to the next (``_padded_head_dim``: bf16 160 runs at 192,
-200 at 256).
+dQ: f32 runs its kernels (the tile loops, K2's split products) at 16,
+32, 64 and 128 and the wide route above 128; bf16 runs the Hopper bodies
+at 16, 32, 64, 128, 192 and 256 and the wide route above 256.  A head
+dim between the built ones is zero-padded to the next
+(``_padded_head_dim``: bf16 160 runs at 192, 200 at 256).
 
-Layouts: the Hopper kernels read q, k, v and dO through TMA at their own
-strides, so the (B, T, H, D).transpose(1, 2) view that every attention
-layer makes is read in place; only an operand TMA cannot read (a start
-not 16-byte aligned, a stride not a multiple of 16 bytes, a last dim that
-is not unit-stride) is copied, and the routes without TMA (the f32 tile
-loops, the wide route) copy what is not contiguous (``OPERAND_COPIES``
-counts both).  Outputs are contiguous.
+Layouts: the Hopper kernels (every bf16 kernel and the f32 K2) read q,
+k, v and dO through TMA at their own strides, so the (B, T, H,
+D).transpose(1, 2) view that every attention layer makes is read in
+place; only an operand TMA cannot read (a start not 16-byte aligned, a
+stride not a multiple of 16 bytes, a last dim that is not unit-stride) is
+copied, and the routes without TMA (the f32 tile loops, the wide route)
+copy what is not contiguous (``OPERAND_COPIES`` counts both).  Outputs
+are contiguous.
 
 ``flash_attention`` and ``flash_forward`` run through one
 ``torch.autograd.Function``, the counterpart of the ``custom_vjp`` of
@@ -58,7 +61,7 @@ import torch
 from ._support import LaunchCounter, load_cuda_library, on_cpu
 
 _BIG_LSE = 1e30  # lse sentinel for fully-masked rows: exp(s - BIG) == 0
-#: head dims the kernels are built for: the f32 tile loops
+#: head dims the kernels are built for: the f32 ones
 HEAD_DIMS = (16, 32, 64, 128)
 #: the bf16 Hopper bodies (K1-K3, K6-K8) also take these
 HEAD_DIMS_BF16 = HEAD_DIMS + (192, 256)
@@ -372,14 +375,13 @@ def _launch_dkv(q, k, v, do, lse, delta, causal: bool, sm_scale: float
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Launch K2 over prepared inputs: dO in q's dtype and delta
     (B*H, T) f32, at a built head dim or above them (the wide route).
-    q, k, v and dO are read at their strides in bf16 (copied where TMA
-    cannot read them), contiguous in f32.  Returns contiguous (dk, dv)."""
+    q, k, v and dO are read at their strides through TMA in both dtypes
+    (copied where TMA cannot read them).  Returns contiguous (dk, dv)."""
     B, H, T, D = q.shape
     if _wide(D, q.dtype):
         return _wide_dkv(q, k, v, do, lse, delta, causal, sm_scale,
                          LAUNCHES_DKV)
-    q, k, v, do = _kernel_operands(q, k, v, do,
-                                   tma=q.dtype == torch.bfloat16)
+    q, k, v, do = _kernel_operands(q, k, v, do, tma=True)
     dk, dv = _empty(k), _empty(v)
     _launch_heads("flash_bwd_dkv", (LAUNCHES_DKV,),
                   _bwd_fn("bigdl_flash_bwd_dkv", 8),
@@ -392,7 +394,8 @@ def _launch_dkv(q, k, v, do, lse, delta, causal: bool, sm_scale: float
 
 def _launch_dq(q, k, v, do, lse, delta, causal: bool, sm_scale: float
                ) -> torch.Tensor:
-    """Launch K3 over the same prepared inputs as ``_launch_dkv``."""
+    """Launch K3 over the same prepared inputs as ``_launch_dkv``; the
+    f32 tile loop reads them contiguous (copied where they are not)."""
     B, H, T, D = q.shape
     if _wide(D, q.dtype):
         return _wide_dq(q, k, v, do, lse, delta, causal, sm_scale,

@@ -19,7 +19,8 @@ Phases; any failure exits non-zero:
    KC, BN and W orientation) its registers, spills and dynamic shared
    memory (ptxas) and its wgmma (HGMMA) and TMA (UTMALDG) instructions
    (``cuobjdump -sass``, where the toolkit has it); each bf16 attention
-   kernel at D 128, 192 and 256, K5 at KC 64 and
+   kernel at D 128, 192 and 256, the f32 K2 and K7 (bf16 products on
+   three bf16 pieces of each f32 operand) at D 16-128, K5 at KC 64 and
    every K9 instantiation must not spill and must hold both (and the
    attention kernels must not have their wgmma serialised, ptxas C7520),
    and two K5 or K9 blocks must share an SM.
@@ -61,7 +62,8 @@ Phases; any failure exits non-zero:
    in f32 on the card give the same first loss and the same decreases
    L_k - L_1; a 2-layer copy at full width trained 3 steps in f32 on the
    card and on the CPU gives the same losses, decreases and parameter
-   updates.  Step ms, tokens/s, MFU and peak memory.
+   updates.  Step ms, tokens/s, MFU and peak memory; the f32 run's step
+   ms, tokens/s and launches per step.
 6. block-sparse training path — the flagship with max_len 4096 and
    ``seq_strategy="blocksparse"`` (sliding window 2 + 1 global at block
    512), trained as in phase 5 over one batch of 4 sequences of 4096
@@ -69,7 +71,8 @@ Phases; any failure exits non-zero:
    K4 17 and K1-K3 0; a 2-layer copy (T 512, block 64) card vs CPU;
    the flash flagship at T 4096 against an all-ones block-sparse mask,
    3 steps each, losses within BS_FIRST_REL_TOL.  Step ms, tokens/s (also for flash at
-   T 4096), MFU on executed and flash-equivalent work, peak memory.
+   T 4096, and for the f32 run with its launches per step), MFU on
+   executed and flash-equivalent work, peak memory.
 7. the block-sparse matmul's entry point — ``block_sparse_matmul`` at
    the flagship MLP shape in bf16 under autograd, 3 forward+backward
    passes: 2 launches of K9 per pass, all on its Hopper route (dX reads
@@ -117,8 +120,12 @@ from pathlib import Path
 REPO = Path(__file__).resolve().parent
 T_START = time.perf_counter()
 
-# H100 SXM data-sheet peaks (dense) and memory rate
-PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
+# H100 SXM data-sheet peaks (dense) and memory rate.  "float32" is the
+# rate of the FMA loops; "float32_split" the f32 rate of the f32 K2 and K7,
+# which form their four f32 products from 22 bf16 products on the tensor
+# cores (six for each score product, five for dV and dK)
+PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12,
+              "float32_split": 989e12 * 4 / 22}
 MEM_BYTES_PER_S = 3.35e12
 
 FLAGSHIP = dict(vocab=32000, embed_dim=1024, num_heads=8, num_layers=8,
@@ -336,33 +343,38 @@ def sass_counts(so_path):
 
 
 # phase 2's kernels, by their mangled names: (pattern, labels by its first
-# group, bf16)
+# group, dtype)
 DESIGN_KERNELS = (
     (r"attn_(fwd)_wgmma_kernelILi(\d+)E.*?(Dense|List)Sweep",
-     {"fwdDense": "K1", "fwdList": "K6"}, True),
-    (r"(flash_fwd)_kernelIfLi(\d+)E", {"flash_fwd": "K1"}, False),
+     {"fwdDense": "K1", "fwdList": "K6"}, "bfloat16"),
+    (r"(flash_fwd)_kernelIfLi(\d+)E", {"flash_fwd": "K1"}, "float32"),
     (r"bwd_(dkv|dq)_wgmma_kernelILi(\d+)E.*?(Dense|List)Sweep",
-     {"dkvDense": "K2", "dqDense": "K3", "dkvList": "K7", "dqList": "K8"}, True),
-    (r"flash_bwd_(dkv|dq)_kernelILi(\d+)E", {"dkv": "K2", "dq": "K3"}, False),
-    (r"bs_(fwd|dkv|dq)_kernelILi(\d+)E",
-     {"fwd": "K6", "dkv": "K7", "dq": "K8"}, False),
+     {"dkvDense": "K2", "dqDense": "K3", "dkvList": "K7", "dqList": "K8"},
+     "bfloat16"),
+    (r"bwd_(dkv)_split_kernelILi(\d+)E.*?(Dense|List)Sweep",
+     {"dkvDense": "K2", "dkvList": "K7"}, "float32"),
+    (r"flash_bwd_(dq)_kernelILi(\d+)E", {"dq": "K3"}, "float32"),
+    (r"bs_(fwd|dq)_kernelILi(\d+)E", {"fwd": "K6", "dq": "K8"}, "float32"),
 )
 
 
-# the bf16 head dims phase 2 holds each Hopper attention kernel to: D 128,
-# 192 and 256 (K2, K3, K7 and K8 there are the 64-row blocks)
-CHECKED_HEAD_DIMS = {label: (128, 192, 256)
-                     for label in ("K1", "K2", "K3", "K6", "K7", "K8")}
+# the head dims phase 2 holds each Hopper attention kernel to: in bf16 D
+# 128, 192 and 256 (K2, K3, K7 and K8 there are the 64-row blocks); the f32
+# K2 and K7 (the 64-row dK/dV block on split products) at every head dim
+CHECKED_HEAD_DIMS = {
+    **{(label, "bfloat16"): (128, 192, 256)
+       for label in ("K1", "K2", "K3", "K6", "K7", "K8")},
+    ("K2", "float32"): (16, 32, 64, 128), ("K7", "float32"): (16, 32, 64, 128)}
 
 
 def design_kernel(fn: str):
-    """(label, head dim, bf16) of a phase-2 kernel's mangled name, or
+    """(label, head dim, dtype) of a phase-2 kernel's mangled name, or
     None for the others."""
-    for pattern, labels, bf16 in DESIGN_KERNELS:
+    for pattern, labels, dtype in DESIGN_KERNELS:
         m = re.search(pattern, fn)
         if m:
             key = m.group(1) + (m.group(3) if m.lastindex == 3 else "")
-            return labels[key], int(m.group(2)), bf16
+            return labels[key], int(m.group(2)), dtype
     return None
 
 
@@ -372,9 +384,9 @@ def kernel_design(torch):
     dynamic shared memory from ptxas, and its count of wgmma (HGMMA) and
     TMA load (UTMALDG) instructions in SASS.  Fails where a bf16 kernel
     at D 128, 192 or 256 (the bf16 route of head dims 129-256; K2, K3, K7
-    and K8 there are the 64-row dK/dV and dQ blocks) spills, has its
-    wgmma serialised by ptxas, holds no HGMMA or no UTMALDG, or is
-    missing.  A library loaded
+    and K8 there are the 64-row dK/dV and dQ blocks), or the f32 K2 or K7
+    (split products) at D 16-128, spills, has its wgmma serialised by
+    ptxas, holds no HGMMA or no UTMALDG, or is missing.  A library loaded
     from an earlier build in the same checkout has no ptxas report
     (``_support.BUILD_INFO``): its registers and spills read "not
     measured"."""
@@ -409,12 +421,12 @@ def kernel_design(torch):
             found = design_kernel(fn)
             if found is None or found[0] not in labels:
                 continue
-            label, D, bf16 = found
-            dtype = "bfloat16" if bf16 else "float32"
+            label, D, dtype = found
             rep = ptxas.get(fn)
             ops = None if sass is None else sass.get(fn)
             row = dict(kernel=fn, label=label, dtype=dtype, head_dim=D,
-                       dynamic_smem_bytes=smem_of[label](D, int(bf16)),
+                       dynamic_smem_bytes=smem_of[label](
+                           D, int(dtype == "bfloat16")),
                        ptxas=rep, sass=ops)
             rows.append(row)
             regs = ("not measured (an earlier build was loaded)"
@@ -426,22 +438,24 @@ def kernel_design(torch):
                   f"{row['dynamic_smem_bytes']} B; SASS "
                   f"{'not measured (no cuobjdump)' if ops is None else ops}")
             spills = rep and (rep.get("spill_stores") or rep.get("spill_loads"))
-            if bf16 and D in CHECKED_HEAD_DIMS[label]:
+            if D in CHECKED_HEAD_DIMS.get((label, dtype), ()):
                 if spills:
-                    failures.append(f"{label} bf16 D {D} spills: {rep}")
+                    failures.append(f"{label} {dtype} D {D} spills: {rep}")
                 if fn in serialised:
-                    failures.append(f"{label} bf16 D {D}: ptxas serialises "
-                                    f"its wgmma (C7520)")
+                    failures.append(f"{label} {dtype} D {D}: ptxas "
+                                    f"serialises its wgmma (C7520)")
                 if ops is not None and not (ops["HGMMA"] and ops["UTMALDG"]):
-                    failures.append(f"{label} bf16 D {D} holds no HGMMA or "
-                                    f"no UTMALDG: {ops}")
-        for label in labels:
-            for D in CHECKED_HEAD_DIMS[label]:
+                    failures.append(f"{label} {dtype} D {D} holds no HGMMA "
+                                    f"or no UTMALDG: {ops}")
+        for (label, dtype), dims in CHECKED_HEAD_DIMS.items():
+            if label not in labels:
+                continue
+            for D in dims:
                 built = any(r["label"] == label and r["head_dim"] == D
-                            and r["dtype"] == "bfloat16" for r in rows)
+                            and r["dtype"] == dtype for r in rows)
                 if not built and (ptxas or sass):
-                    failures.append(f"{label} bf16 D {D} missing from the "
-                                    f"build's reports")
+                    failures.append(f"{label} {dtype} D {D} missing from "
+                                    f"the build's reports")
     return rows, failures
 
 
@@ -839,8 +853,11 @@ def check_flash_bwd(torch, F):
         item = q.element_size()
         BH = B * H
         stats = 8 * BH * T
+        # the f32 K2 forms its products from bf16 products on the tensor
+        # cores (the wide route on FMA)
         b_dkv, by_dkv = bound(item * (2 * BH * T * D + 4 * BH * S * D)
-                              + stats, 8.0 * BH * pairs * D, dname)
+                              + stats, 8.0 * BH * pairs * D,
+                              split_rate(dname, wide))
         b_dq, by_dq = bound(item * (3 * BH * T * D + 2 * BH * S * D)
                             + stats, 6.0 * BH * pairs * D, dname)
         # the Hopper route's TMA traffic and its rate (bf16 up to D 256)
@@ -917,14 +934,22 @@ def bs_cases(torch):
              bs.sliding_window_mask(8, 8, 2, 1, True, 128, 128))]
 
 
-def _bs_bounds(B, H, T, D, item, live, dname):
+def split_rate(dname: str, wide: int) -> str:
+    """The ``PEAK_FLOPS`` key of a dK/dV launch (K2, K7) in ``dname``:
+    in f32 its split products on the tensor cores, unless it took the
+    wide route (``wide`` launches), which runs on FMA."""
+    return "float32_split" if dname == "float32" and not wide else dname
+
+
+def _bs_bounds(B, H, T, D, item, live, dname, wide):
     """(ms, by) of K6, K7 and K8 over ``live`` score elements per head:
-    2, 4 and 3 products of 2 * live * D FLOP; bytes as K1-K3 move them."""
+    2, 4 and 3 products of 2 * live * D FLOP; bytes as K1-K3 move them;
+    K7 at ``split_rate``."""
     BH = B * H
     return (bound(item * 4 * BH * T * D + 4 * BH * T, 4.0 * BH * live * D,
                   dname),
             bound(item * 6 * BH * T * D + 8 * BH * T, 8.0 * BH * live * D,
-                  dname),
+                  split_rate(dname, wide)),
             bound(item * 5 * BH * T * D + 8 * BH * T, 6.0 * BH * live * D,
                   dname))
 
@@ -934,8 +959,9 @@ def check_block_sparse(torch, F):
     on the same inputs (O and LSE from K6), row by row.  The all-ones
     cases also against K1-K3, fed the same (O, LSE, dO, delta) from K6:
     K6-K8 equal K1-K3 bit for bit in both dtypes (one Hopper body over
-    the same tiles in bf16, one FMA tile loop in f32), and in bf16 each
-    pair is timed on those same tiles.  Times: each kernel
+    the same tiles in bf16 and for the f32 dK/dV, one FMA tile loop for
+    the f32 forward and dQ), and each pair is timed on those same tiles.
+    Times: each kernel
     alone (graph replay), the plain forward and backward, and
     ``scaled_dot_product_attention`` with the elementwise boolean mask,
     forward and backward (``sdpa_bwd_ms``), both by graph replay."""
@@ -1014,25 +1040,24 @@ def check_block_sparse(torch, F):
             row["equals_flash_bitwise"] = same
             said = f"bitwise equal {same}"
             ok = ok and all(same.values())
-            if dname == "bfloat16":
-                # the same tiles through each body's two sweeps: what the
-                # lists cost over the dense sweep, per kernel
-                times = {
-                    "K6": lambda: bs._bs_fwd_cuda(q, k, v, mask, causal,
-                                                  scale),
-                    "K1": lambda: fa._flash_cuda(q, k, v, causal, scale),
-                    "K7": lambda: bs._launch_bs_dkv(q, k, v, do, lse, delta,
-                                                    mask, causal, scale),
-                    "K2": lambda: fa._launch_dkv(q, k, v, do, lse, delta,
-                                                 causal, scale),
-                    "K8": lambda: bs._launch_bs_dq(q, k, v, do, lse, delta,
-                                                   mask, causal, scale),
-                    "K3": lambda: fa._launch_dq(q, k, v, do, lse, delta,
-                                                causal, scale)}
-                row["same_tiles_ms"] = {n: cuda_ms(f, iters=10, reps=4)
-                                        for n, f in times.items()}
-                said += "; same tiles ms " + ", ".join(
-                    f"{n} {t:.4f}" for n, t in row["same_tiles_ms"].items())
+            # the same tiles through each body's two sweeps: what the
+            # lists cost over the dense sweep, per kernel
+            times = {
+                "K6": lambda: bs._bs_fwd_cuda(q, k, v, mask, causal,
+                                              scale),
+                "K1": lambda: fa._flash_cuda(q, k, v, causal, scale),
+                "K7": lambda: bs._launch_bs_dkv(q, k, v, do, lse, delta,
+                                                mask, causal, scale),
+                "K2": lambda: fa._launch_dkv(q, k, v, do, lse, delta,
+                                             causal, scale),
+                "K8": lambda: bs._launch_bs_dq(q, k, v, do, lse, delta,
+                                               mask, causal, scale),
+                "K3": lambda: fa._launch_dq(q, k, v, do, lse, delta,
+                                            causal, scale)}
+            row["same_tiles_ms"] = {n: cuda_ms(f, iters=10, reps=4)
+                                    for n, f in times.items()}
+            said += "; same tiles ms " + ", ".join(
+                f"{n} {t:.4f}" for n, t in row["same_tiles_ms"].items())
             row["ok"] = ok
             rows.append(row)
             print(f"K6-K8 vs K1-K3 {label}: {said} "
@@ -1055,7 +1080,7 @@ def check_block_sparse(torch, F):
                                               attn_mask=keep)
         del keep
         (b_f, by_f), (b_dkv, by_dkv), (b_dq, by_dq) = _bs_bounds(
-            B, H, T, D, q.element_size(), live, dname)
+            B, H, T, D, q.element_size(), live, dname, wide)
         row.update(ok=ok, plain_ms=plain_ms, plain_bwd_ms=plain_bwd_ms,
                    library_ms=lib_ms, library_bwd_ms=lib_bwd_ms,
                    library_backend=lib_backend,
@@ -1595,10 +1620,17 @@ def train_flagship(torch):
           f"{mfu:.4f} (6ND only {mfu_6nd:.4f}), peak memory "
           f"{peak_gb:.2f} GB")
 
-    # the same 8 steps in f32 on the card, same weights and batch
+    # the same 8 steps in f32 on the card, same weights and batch: the
+    # framework's default precision, timed as the bf16 run
     f32 = run_training(torch, _lm(torch, "cuda", L), B, T, TRAIN_ITERS, None)
     torch.cuda.empty_cache()
     ref = f32["losses"]
+    f32_steady = f32["step_s"][2:]
+    f32_step_ms = 1e3 * sum(f32_steady) / len(f32_steady)
+    f32_tokens_per_s = B * T / (f32_step_ms / 1e3)
+    print(f"training path: f32, B {B} T {T}: step {f32_step_ms:.2f} ms "
+          f"(iterations 3-{TRAIN_ITERS}), {f32_tokens_per_s:.0f} tokens/s; "
+          f"launches per step {f32['launches_per_step'][0]}")
     first_rel = abs(losses[0] - ref[0]) / abs(ref[0])
     dec_rel = decrease_rel_err(losses, ref)
     print(f"training path: bf16 vs f32 on the card: first loss "
@@ -1650,7 +1682,10 @@ def train_flagship(torch):
         mfu_6nd=mfu_6nd, peak_memory_gb=peak_gb,
         timing="host clock between loop iterations 3-8, each ending in "
                "the loss read-back (a device sync)",
-        f32_losses=ref, bf16_vs_f32_first_rel=first_rel,
+        f32_losses=ref, f32_step_s=f32["step_s"], f32_step_ms=f32_step_ms,
+        f32_tokens_per_s=f32_tokens_per_s,
+        f32_launches_per_step=f32["launches_per_step"][0],
+        bf16_vs_f32_first_rel=first_rel,
         bf16_vs_f32_decrease_rel=dec_rel,
         small_f32=dict(layers=SMALL_LAYERS, batch=SMALL_BATCH, seq_len=SMALL_T,
                        card_losses=card, cpu_losses=cpu, max_rel=traj_rel,
@@ -1714,11 +1749,15 @@ def train_blocksparse(torch):
           f" tokens/s, MFU {mfu:.4f} executed ({mfu_flash_eq:.4f} on the "
           f"flash-equivalent basis), peak memory {peak_gb:.2f} GB")
 
-    # the same 8 steps in f32 on the card
+    # the same 8 steps in f32 on the card, timed as the bf16 run
     f32 = run_training(torch, _lm(torch, "cuda", L, **lm_kw), B, T,
                        TRAIN_ITERS, None)
     torch.cuda.empty_cache()
     ref = f32["losses"]
+    f32_step_ms, f32_tokens_per_s = speed(f32["step_s"])
+    print(f"block-sparse path: f32, B {B} T {T}: step {f32_step_ms:.2f} ms "
+          f"(iterations 3-{TRAIN_ITERS}), {f32_tokens_per_s:.0f} tokens/s; "
+          f"launches per step {f32['launches_per_step'][0]}")
     first_rel = abs(losses[0] - ref[0]) / abs(ref[0])
     dec_rel = decrease_rel_err(losses, ref)
     print(f"block-sparse path: bf16 vs f32 on the card: first loss "
@@ -1815,7 +1854,10 @@ def train_blocksparse(torch):
         launches=run["launches"], skipped_steps=run["skipped_steps"],
         step_ms=step_ms, tokens_per_s=tokens_per_s, mfu=mfu,
         mfu_flash_equivalent=mfu_flash_eq, peak_memory_gb=peak_gb,
-        f32_losses=ref, bf16_vs_f32_first_rel=first_rel,
+        f32_losses=ref, f32_step_s=f32["step_s"], f32_step_ms=f32_step_ms,
+        f32_tokens_per_s=f32_tokens_per_s,
+        f32_launches_per_step=f32["launches_per_step"][0],
+        bf16_vs_f32_first_rel=first_rel,
         bf16_vs_f32_decrease_rel=dec_rel,
         small_f32=dict(layers=SMALL_LAYERS, batch=BS_SMALL_BATCH,
                        seq_len=BS_SMALL_T, blocksparse=BS_SMALL_CFG,
@@ -2121,8 +2163,7 @@ def _kernel_group(name: str) -> str:
     if "bs_fwd_kernel" in name or ("fwd_wgmma" in name
                                    and "ListSweep" in name):
         return "K6 block_sparse_fwd"
-    if "bs_dkv_kernel" in name or ("bwd_dkv_wgmma" in name
-                                   and "ListSweep" in name):
+    if "bwd_dkv_" in name and "ListSweep" in name:   # bf16 and f32
         return "K7 block_sparse_bwd_dkv"
     if "bs_dq_kernel" in name or ("bwd_dq_wgmma" in name
                                   and "ListSweep" in name):
@@ -2131,7 +2172,7 @@ def _kernel_group(name: str) -> str:
         return "K9 block_sparse_mm"
     if "flash_fwd" in name or "fwd_wgmma" in name:
         return "K1 flash_fwd"
-    if "flash_bwd_dkv" in name or "bwd_dkv_wgmma" in name:
+    if "bwd_dkv_" in name:
         return "K2 flash_bwd_dkv"
     if "flash_bwd_dq" in name or "bwd_dq_wgmma" in name:
         return "K3 flash_bwd_dq"

@@ -1,0 +1,95 @@
+#!/usr/bin/env python3
+"""The f32 training steps of ``chip_smoke.py``'s phases 5 and 6, and the
+f32 dK/dV launch (K2, K7) at each step's shape, on one GPU.
+
+    python3 f32_steps.py [CHECKOUT]
+
+runs the port package of CHECKOUT (default: this one) with this
+checkout's ``chip_smoke.py`` helpers, so two checkouts (a parent and a
+change) are measured the same way: the flagship TransformerLM trained 8
+f32 steps at T 1024, B 16 (phase 5) and, block-sparse, at T 4096, B 4
+(phase 6), the step time over iterations 3-8; then K2 (flash) or K7
+(block-sparse, the flagship's mask) alone at that step's layer shape (8
+heads of 128), by CUDA-graph replay.  Prints a line per phase and, last,
+the JSON record.  Run parent, change, change, parent in one call to
+compare two versions.
+"""
+import importlib.util
+import json
+import math
+import sys
+from pathlib import Path
+
+HERE = Path(__file__).resolve().parent
+
+
+def main(argv=None) -> int:
+    argv = sys.argv[1:] if argv is None else argv
+    repo = Path(argv[0] if argv else HERE).resolve()
+    import torch
+
+    if not torch.cuda.is_available():
+        print("f32_steps: a CUDA card is required", file=sys.stderr)
+        return 1
+    sys.path.insert(0, str(repo))
+    spec = importlib.util.spec_from_file_location("chip_smoke_helpers",
+                                                  HERE / "chip_smoke.py")
+    cs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cs)
+    from bigdl_tpu_torch.ops import block_sparse as bs
+    from bigdl_tpu_torch.ops import flash_attention as fa
+
+    if not Path(fa.__file__).resolve().is_relative_to(repo):
+        print(f"f32_steps: {fa.__file__} is not {repo}'s", file=sys.stderr)
+        return 1
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    L, heads = cs.FLAGSHIP["num_layers"], cs.FLAGSHIP["num_heads"]
+    D = cs.FLAGSHIP["embed_dim"] // heads
+    out = {}
+    for name, B, T, kw in (("phase5", cs.TRAIN_BATCH, cs.TRAIN_T, {}),
+                           ("phase6", cs.BS_BATCH, cs.BS_T,
+                            dict(max_len=cs.BS_T, seq_strategy="blocksparse",
+                                 blocksparse=cs.BS_CFG))):
+        run = cs.run_training(torch, cs._lm(torch, "cuda", L, **kw), B, T,
+                              cs.TRAIN_ITERS, None)
+        torch.cuda.empty_cache()
+        steady = run["step_s"][2:]
+        g = torch.Generator(device="cuda").manual_seed(5)
+        q, k, v, d_o = (torch.randn(B, heads, T, D, device="cuda",
+                                    generator=g) for _ in range(4))
+        scale = 1 / math.sqrt(D)
+        if kw:
+            block = cs.BS_CFG["block"]
+            mask = bs.sliding_window_mask(T // block, T // block,
+                                          cs.BS_CFG["window"],
+                                          cs.BS_CFG["globals"], True, block,
+                                          block)
+            o, lse = bs._bs_fwd_cuda(q, k, v, mask, True, scale)
+            do, delta = fa._bwd_inputs(q, o, d_o)
+
+            def dkv():
+                return bs._launch_bs_dkv(q, k, v, do, lse, delta, mask, True,
+                                         scale)
+        else:
+            o, lse = fa._flash_cuda(q, k, v, True, scale)
+            do, delta = fa._bwd_inputs(q, o, d_o)
+
+            def dkv():
+                return fa._launch_dkv(q, k, v, do, lse, delta, True, scale)
+        out[name] = dict(batch=B, seq_len=T,
+                         step_ms=1e3 * sum(steady) / len(steady),
+                         step_s=run["step_s"], losses=run["losses"],
+                         dkv_ms=cs.cuda_ms(dkv, iters=3, reps=2))
+        print(f"{repo} {name}: f32 step {out[name]['step_ms']:.2f} ms "
+              f"(iterations 3-{cs.TRAIN_ITERS}, B {B}, T {T}); dK/dV at "
+              f"its shape {out[name]['dkv_ms']:.4f} ms", flush=True)
+        del q, k, v, d_o, o, lse, do, delta
+        torch.cuda.empty_cache()
+    print(json.dumps(dict(checkout=str(repo),
+                          device=torch.cuda.get_device_name(0), **out)))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

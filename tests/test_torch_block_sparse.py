@@ -851,6 +851,42 @@ def test_head_strided_operands_reach_the_block_sparse_kernels_in_place(
         assert t.shape == (B, H, T, D) and t.is_contiguous()
 
 
+def test_f32_k7_reads_64_row_key_lists_and_its_operands_in_place(
+        monkeypatch):
+    """In f32, K7 runs K2's f32 body over the 64-row key lists
+    (``dkv_tiles``, with their block order and live rows) and reads a
+    head-strided q, k, v and dO in place, no copy; K8 keeps the 64-row
+    tile tables (``fwd``) and copies what is not contiguous (four
+    copies)."""
+    from bigdl_tpu_torch.ops import flash_attention as fa
+    calls = _record_attention(monkeypatch)
+    B, T, H, D = 2, 128, 4, 64
+    q, k, v, d_o = (torch.randn(B, T, H, D).transpose(1, 2)
+                    for _ in range(4))
+    mask = P.sliding_window_mask(4, 4, 2, 1, True, 32, 32)
+    o, lse = torch.zeros(B, H, T, D), torch.zeros(B * H, 1, T)
+    copies = fa.OPERAND_COPIES.count
+    grads = P._bs_bwd_cuda(q, k, v, o, lse, d_o, mask, True, 0.125)
+    assert fa.OPERAND_COPIES.count - copies == 4
+    (dkv_fn, dkv), (dq_fn, dq) = calls
+    assert (dkv_fn, dq_fn) == ("bigdl_bs_bwd_dkv", "bigdl_bs_bwd_dq")
+    assert dkv[:4] == [t.data_ptr() for t in (q, k, v, d_o)]
+    tab = P._attention_tables(mask, True, q.device)
+    t = tab["dkv_tiles"]
+    # after the tensors (8 and 7): tiles, counts, flags, the block mask,
+    # order, rows; the strides after L and the mask's shape
+    assert dkv[8:14] == [t["tiles"].data_ptr(), t["counts"].data_ptr(),
+                         t["flags"].data_ptr(), tab["block_mask"].data_ptr(),
+                         t["order"].data_ptr(), t["rows"].data_ptr()]
+    assert list(dkv[18]) == [T * H * D, D, H * D] * 4
+    tiles, flags, counts = tab["fwd"]
+    assert dq[7:13] == [tiles.data_ptr(), counts.data_ptr(),
+                        flags.data_ptr(), tab["block_mask"].data_ptr(),
+                        None, None]
+    for g in grads:
+        assert g.shape == (B, H, T, D) and g.is_contiguous()
+
+
 @pytest.mark.parametrize("D,runs", [(160, 192), (200, 256), (256, 256)])
 def test_wide_bf16_head_dims_run_k6_k7_on_64_row_key_lists(monkeypatch, D,
                                                           runs):

@@ -8,7 +8,9 @@ conftest (which configures jax):
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q
 
 Each kernel is held against its plain PyTorch version on the same
-inputs, forward and backward, also at head dims the kernels are not
+inputs, forward and backward (the f32 dK/dV, K2 and K7, on its three
+bf16 products an f32 one at every head dim it is built for), also at
+head dims the kernels are not
 built for (zero-padded to the next, or above them, f32 128 and bf16
 256, through the wide route) and at more heads than one grid takes; a small TransformerLM served on
 the card in f32 (also at head dim 8, through the server), and small
@@ -454,6 +456,130 @@ def test_bf16_dq_of_64_row_blocks_repeats_its_bits_on_card(cuda_device, D,
     assert _row_rel_err(runs[0], want[0], largest) <= ROW_TOL[bf16]
 
 
+# (T, S, D, causal, layout, bq, bk): the f32 dK/dV (K2, and K7 under a
+# block mask of bq x bk blocks) at every head dim it is built for, causal
+# and not, ragged T != S, and q, k, v and dO in the head-strided layout of
+# an attention layer
+F32_DKV_CASES = {
+    "D16_causal": (200, 200, 16, True, "contiguous", 40, 40),
+    "D32_noncausal_T130_S96": (130, 96, 32, False, "contiguous", 26, 32),
+    "D64_causal_T264_S136": (264, 136, 64, True, "contiguous", 24, 8),
+    "D128_causal": (512, 512, 128, True, "contiguous", 32, 32),
+    "D128_causal_T200_S300": (200, 300, 128, True, "contiguous", 40, 60),
+    "D64_strided_causal": (200, 200, 64, True, "strided", 40, 40),
+    "D128_strided_noncausal_T136_S264": (136, 264, 128, False, "strided", 8,
+                                         24),
+}
+
+
+def _f32_dkv_mask(T, S, bq, bk):
+    """A random block mask (density 0.6) over (T / bq, S / bk) blocks with
+    the first key block live for every query block and the last key
+    block read by no query."""
+    m = np.random.RandomState(T + S).rand(T // bq, S // bk) < 0.6
+    m[:, 0] = True
+    m[:, -1] = False
+    return bs.BlockMask(m, bq, bk)
+
+
+@pytest.mark.parametrize("case", sorted(F32_DKV_CASES))
+@pytest.mark.parametrize("which", ["flash", "block_sparse"])
+def test_f32_dkv_runs_the_split_products_on_card(cuda_device, case, which):
+    """The f32 K2 (flash) and K7 (block-sparse) on the Hopper dK/dV block
+    whose f32 products are formed from bf16 products on three bf16 pieces
+    of their operands: one launch per call,
+    no wide launch, q, k, v and dO read where they lie (no operand copy,
+    the head-strided layout too), dK and dV row by row within the f32
+    limit of the plain backward, and two launches give the same bits."""
+    T, S, D, causal, layout, bq, bk = F32_DKV_CASES[case]
+    g = torch.Generator(device=cuda_device).manual_seed(T * 7 + D)
+
+    def make(rows):
+        if layout == "strided":
+            return torch.randn(2, rows, 4, D, device=cuda_device,
+                               generator=g).transpose(1, 2)
+        return torch.randn(2, 4, rows, D, device=cuda_device, generator=g)
+
+    q, k, v, d_o = make(T), make(S), make(S), make(T)
+    scale = 1 / math.sqrt(D)
+    mask = _f32_dkv_mask(T, S, bq, bk) if which == "block_sparse" else None
+    if mask is None:
+        o, lse = fa._flash_cuda(q, k, v, causal, scale)
+        counter = fa.LAUNCHES_DKV
+
+        def launch():
+            return fa._launch_dkv(q, k, v, do, lse, delta, causal, scale)
+    else:
+        o, lse = bs._bs_fwd_cuda(q, k, v, mask, causal, scale)
+        counter = bs.LAUNCHES_DKV
+
+        def launch():
+            return bs._launch_bs_dkv(q, k, v, do, lse, delta, mask, causal,
+                                     scale)
+    do, delta = fa._bwd_inputs(q, o, d_o)
+    counts = (counter.count, fa.OPERAND_COPIES.count, fa.LAUNCHES_WIDE.count)
+    runs = [launch(), launch()]
+    torch.cuda.synchronize()
+    assert (counter.count, fa.OPERAND_COPIES.count, fa.LAUNCHES_WIDE.count) \
+        == (counts[0] + 2, counts[1], counts[2])
+    for a, b in zip(*runs):
+        assert a.dtype == torch.float32 and a.is_contiguous()
+        assert torch.equal(a, b)
+    if mask is None:
+        want = fa._flash_bwd_plain(q, k, v, o, lse, d_o, causal, scale)[1:]
+    else:
+        want = bs._bs_bwd_plain(q, k, v, o, lse, d_o, mask, causal,
+                                scale)[1:]
+    largest = max(torch.linalg.vector_norm(b, dim=-1).max().item()
+                  for b in want)
+    for a, b in zip(runs[0], want):
+        assert torch.isfinite(a).all()
+        assert _row_rel_err(a, b, largest) <= ROW_TOL[torch.float32]
+    if mask is not None:   # the dead key block's rows are exactly zero
+        assert not runs[0][0][:, :, S - bk:].any()
+        assert not runs[0][1][:, :, S - bk:].any()
+
+
+@pytest.mark.parametrize("D", [16, 32, 64, 128])
+def test_f32_dkv_of_k7_is_k2s_and_never_reads_dead_kv_on_card(cuda_device,
+                                                               D):
+    """The f32 K7 runs K2's body over its 64-row key lists: on an
+    all-ones causal mask at block 128 they visit the same query tiles in
+    the same order, so K7 = K2 bit for bit (fed the same O, LSE, dO and
+    delta).  Under a mask at block 32 with NaN in every K/V row that no
+    query may attend, O, LSE, dQ, dK and dV equal the clean run's bit for
+    bit: such a row is never loaded, or zero-filled where a partial pair
+    is staged, and a dead row of the block's own K or V is selected
+    away."""
+    q, k, v, d_o = _bs_inputs(512, 512, D, torch.float32, cuda_device, D)
+    scale = 1 / math.sqrt(D)
+    ones = bs.BlockMask(np.ones((4, 4), bool), 128, 128)
+    o, lse = bs._bs_fwd_cuda(q, k, v, ones, True, scale)
+    do, delta = fa._bwd_inputs(q, o, d_o)
+    got = bs._launch_bs_dkv(q, k, v, do, lse, delta, ones, True, scale)
+    want = fa._launch_dkv(q, k, v, do, lse, delta, True, scale)
+    torch.cuda.synchronize()
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    m = np.eye(16, dtype=bool)
+    m[:, 0] = True
+    m[9, 9] = False   # k block 9 is read by no query
+    mask = bs.BlockMask(m, 32, 32)
+    dead = ~bs._elementwise_keep(mask, True, cuda_device).any(dim=0)
+    assert int(dead.sum()) == 32
+    kp, vp = k.clone(), v.clone()
+    kp[:, :, dead] = float("nan")
+    vp[:, :, dead] = float("nan")
+    runs = []
+    for kk, vv in ((k, v), (kp, vp)):
+        o, lse = bs._bs_fwd_cuda(q, kk, vv, mask, True, scale)
+        runs.append((o, lse) + bs._bs_bwd_cuda(q, kk, vv, o, lse, d_o, mask,
+                                                True, scale))
+    torch.cuda.synchronize()
+    for a, b in zip(*runs):
+        assert torch.isfinite(b).all() and torch.equal(a, b)
+
+
 def test_layer_norm_reads_a_column_slice_in_place_on_card(cuda_device):
     """K4 on a column slice (rows 1000 apart, under a leading dim) reads
     it in place and matches the plain version and the contiguous launch
@@ -849,7 +975,8 @@ def test_block_sparse_all_ones_mask_is_the_flash_kernels(cuda_device, dtype):
     K7/K8 fed the same (O, LSE, dO) from K6 equal K2/K3, bit for bit in
     both dtypes: in bf16 each pair is one Hopper body
     (``attn_fwd_hopper.cuh``, ``attn_bwd_hopper.cuh``) over the same
-    tiles, in f32 one FMA tile loop."""
+    tiles; in f32 K7 and K2 are one Hopper body too (its split products),
+    K6/K1 and K8/K3 one FMA tile loop."""
     T, D = 512, 128 if dtype == torch.bfloat16 else 64
     mask = bs.BlockMask(np.ones((4, 4), bool), 128, 128)
     q, k, v, d_o = _bs_inputs(T, T, D, dtype, cuda_device, 7)
