@@ -24,11 +24,12 @@ element never reaches a product.  K6-K8 in bf16 (K1's and K2/K3's Hopper
 bodies, ``csrc/attn_fwd_hopper.cuh`` and ``csrc/attn_bwd_hopper.cuh``)
 own 128 rows a block: ``_block_lists`` regroups the lists per block, with
 per-warpgroup flags, the live rows of each partial pair and a
-heaviest-first block order; K6 reads K8's lists.  K7 and K8 at head dims
-192 and 256, and K7 in f32 (K2's f32 body: each f32 product formed from
-bf16 wgmma products on three bf16 pieces of its operands), own 64 rows a
-block and read the lists per 64-row tile; K6 and K8 in f32 run tile
-loops over the 64-row tile tables.
+heaviest-first block order; K6 reads the 128-row query lists
+(``dq_blocks``) in both dtypes, in f32 on K1's f32 body (each f32 product
+formed from bf16 wgmma products on bf16 pieces of its operands).  K7 and
+K8 at head dims 192 and 256, and K7 in f32 (K2's f32 body, split products
+too), own 64 rows a block and read the lists per 64-row tile; K8 in f32
+runs a tile loop over the 64-row tile tables.
 The tables go to the card once per (mask, causal, device) and stay
 cached: no launch uploads anything.  Head dims above the built ones (f32
 128, bf16 256) take the wide route of ``flash_attention``
@@ -453,12 +454,12 @@ def _to_device(a: np.ndarray, device) -> torch.Tensor:
 
 def _attention_tables(mask: BlockMask, causal: bool, device):
     """The kernels' tables on ``device``, built once per (mask, causal,
-    device): the 64-row tile lists of the f32 K6 and K8 (``fwd``, per q
-    tile), the 128-row block lists of the bf16 K6 and K8 (``dq_blocks``)
-    and K7 (``dkv_blocks``), the 64-row block lists of the bf16 K8 at head
-    dims 192 and 256 (``dq_tiles``) and of K7 there and in f32
-    (``dkv_tiles``), and the runtime block mask (uint8) for partial pairs
-    and the wide route."""
+    device): the 64-row tile lists of the f32 K8 (``fwd``, per q tile),
+    the 128-row block lists of K6 in both dtypes and of the bf16 K8
+    (``dq_blocks``) and of the bf16 K7 (``dkv_blocks``), the 64-row block
+    lists of the bf16 K8 at head dims 192 and 256 (``dq_tiles``) and of K7
+    there and in f32 (``dkv_tiles``), and the runtime block mask (uint8)
+    for partial pairs and the wide route."""
     def make():
         visited, partial = _tile_tables(mask, causal)
         fwd = _tile_lists(visited, partial)
@@ -549,12 +550,17 @@ def _attn_fn(name: str, n_ptr: int):
                  + [_I] * 7 + [_F, _I, _P])
 
 
+#: the ``_attention_tables`` entry K6 sweeps: it owns 128 query rows at
+#: every head dim, in both dtypes, and sweeps what the bf16 K8 sweeps at
+#: D 128
+_FWD_TABLES = "dq_blocks"
+
+
 def _query_tables(dtype: torch.dtype, D: int) -> str:
     """The ``_attention_tables`` entry that K8 sweeps (own query rows,
     streamed key tiles): in bf16 the 128-row block lists, or the 64-row
     ones of its 64-row blocks at head dims above 128; the 64-row tile
-    lists in f32.  K6 owns 128 query rows at every head dim and sweeps
-    what K8 sweeps at D 128."""
+    lists in f32."""
     if dtype != torch.bfloat16:
         return "fwd"
     return "dq_blocks" if D <= 128 else "dq_tiles"
@@ -571,7 +577,7 @@ def _key_tables(dtype: torch.dtype, D: int) -> str:
 
 def _table_args(tab, which: str, mask: BlockMask, q, k, operands):
     """The arguments of a launch after its tensors' pointers: the tables
-    (the f32 K6 and K8's 64-row tile lists ``fwd``: tiles, counts,
+    (the f32 K8's 64-row tile lists ``fwd``: tiles, counts,
     partial flags; the block lists: tiles, counts, flags, order, rows),
     the block mask, L, the mask's shape, the operands' strides, then the
     problem's ints."""
@@ -598,7 +604,8 @@ def _bs_fwd_cuda(q, k, v, mask: BlockMask, causal: bool, sm_scale: float
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Launch K6 on the current stream of q's device (a head dim between
     the built ones zero-padded, O cut back; above them the wide route).
-    bf16 q, k and v are read at their strides, f32 contiguous."""
+    q, k and v are read at their strides through TMA in both dtypes
+    (copied where TMA cannot read them)."""
     _check_kernel_inputs("block_sparse_attention", q, k, v)
     tab = _attention_tables(mask, causal, q.device)
     D_true = q.shape[-1]
@@ -607,15 +614,13 @@ def _bs_fwd_cuda(q, k, v, mask: BlockMask, causal: bool, sm_scale: float
         return _wide_fwd(q, k, v, causal, sm_scale, LAUNCHES,
                          _wide_block_mask(tab, mask))
     q, k, v = _kernel_operands(*(_pad_head_dim(t, Dp) for t in (q, k, v)),
-                               tma=q.dtype == torch.bfloat16)
+                               tma=True)
     B, H, T, D = q.shape
     o = _empty(q)
     lse = _empty(q, (B * H, 1, T), torch.float32)
     _launch_heads("block_sparse_fwd", (LAUNCHES,), _attn_fn("bigdl_bs_fwd", 11),
                   [*(t.data_ptr() for t in (q, k, v, o, lse)),
-                   # K6 owns 128 query rows at every head dim
-                   *_table_args(tab, _query_tables(q.dtype, 128), mask, q, k,
-                                (q, k, v)),
+                   *_table_args(tab, _FWD_TABLES, mask, q, k, (q, k, v)),
                    float(sm_scale), int(bool(causal))], B * H, q.device)
     return _cut_head_dim(o, D_true), lse
 

@@ -192,69 +192,6 @@ struct DqCfg : Panels<D> {
 constexpr int kDsFull = 5;
 constexpr int kDqSum = 6;
 
-// acc (m64 x 64 f32, one consumer warpgroup) = A . B^T over D (kAcc: acc
-// +=), both operands K-major panels in shared memory: A from 64 rows at
-// `a`, B from 64 rows at `b`, panel pitches kPanelA and kPanelB.  Issued,
-// not waited.
-template <int D, int kPanelA, int kPanelB, bool kAcc = false>
-__device__ __forceinline__ void wgmma_scores(float* acc, const unsigned char* a,
-                                             const unsigned char* b) {
-  using P = Panels<D>;
-#pragma unroll
-  for (int p = 0; p < P::NP; ++p)
-#pragma unroll
-    for (int j = 0; j < P::PW / 16; ++j)
-      wgmma_ss<kTileRows, 0>(acc, smem_desc<P::RB>(a + p * kPanelA + 32 * j),
-                             smem_desc<P::RB>(b + p * kPanelB + 32 * j), kAcc || p + j > 0);
-}
-
-// wgmma_scores of f32 tiles split in place into three pieces (split_tile:
-// pieces 1 and 2 in panels at pitch 2 kSpan, piece 2 kSpan after piece 1,
-// piece 3 at kThird in panels at pitch kSpan) as a1 b3 + a2 b2 + a3 b1,
-// then a1 b2 + a2 b1, then a1 b1.  Issued, not waited.
-template <int D, int kSpanA, int kSpanB, int kThird>
-__device__ __forceinline__ void wgmma_scores_split(float* acc, const unsigned char* a,
-                                                   const unsigned char* b) {
-  constexpr int PA = 2 * kSpanA, PB = 2 * kSpanB;
-  wgmma_scores<D, PA, kSpanB>(acc, a, b + kThird);
-  wgmma_scores<D, PA, PB, true>(acc, a + kSpanA, b + kSpanB);
-  wgmma_scores<D, kSpanA, PB, true>(acc, a + kThird, b);
-  wgmma_scores<D, PA, PB, true>(acc, a, b + kSpanB);
-  wgmma_scores<D, PA, PB, true>(acc, a + kSpanA, b);
-  wgmma_scores<D, PA, PB, true>(acc, a, b);
-}
-
-// acc (m64 x D f32) += A . B with A (64 x 64) packed bf16 in registers and
-// B the 64 x D tile at `b` (panel pitch kPanelB) read MN-major.  Issued,
-// not waited.
-template <int D, int kPanelB>
-__device__ __forceinline__ void wgmma_accumulate(float* acc, const uint32_t* a,
-                                                 const unsigned char* b) {
-  using P = Panels<D>;
-#pragma unroll
-  for (int kk = 0; kk < kTileRows / 16; ++kk)
-#pragma unroll
-    for (int p = 0; p < P::NP; ++p)
-      wgmma_rs<P::PW, 1>(acc + p * (P::PW / 2), a + 4 * kk,
-                         smem_desc<P::RB>(b + p * kPanelB + 16 * P::RB * kk), 1);
-}
-
-// wgmma_accumulate of an f32 A split in registers into three pieces
-// (split_bf16x3: a1, a2, a3) and an f32 tile split in place at `b` (pieces
-// 1 and 2, as in wgmma_scores_split), as a2 b2 + a3 b1, then a1 b2 + a2 b1,
-// then a1 b1.  Issued, not waited.
-template <int D, int kSpanB>
-__device__ __forceinline__ void wgmma_accumulate_split(float* acc, const uint32_t* a1,
-                                                       const uint32_t* a2, const uint32_t* a3,
-                                                       const unsigned char* b) {
-  constexpr int PB = 2 * kSpanB;
-  wgmma_accumulate<D, PB>(acc, a2, b + kSpanB);
-  wgmma_accumulate<D, PB>(acc, a3, b);
-  wgmma_accumulate<D, PB>(acc, a1, b + kSpanB);
-  wgmma_accumulate<D, PB>(acc, a2, b);
-  wgmma_accumulate<D, PB>(acc, a1, b);
-}
-
 // acc (m64 x D f32) += A . B over kSteps k16 steps, A from a 64 x 64 bf16
 // K-major panel at `a` (128-byte rows, as TMA swizzles them) and B the
 // tile at `b` (panel pitch kPanelB) read MN-major, both in shared memory:

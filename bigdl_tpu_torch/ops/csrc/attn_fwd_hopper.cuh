@@ -1,34 +1,40 @@
-// The bf16 attention forward for Hopper (sm_90a): the kernel that
-// flash_fwd.cu runs as K1 and block_sparse.cu as K6.  Both compute the same
-// math; only the sweep differs, so the body is written once here and
-// templated on a sweep policy, as attn_bwd_hopper.cuh is for the backward.
+// The attention forward for Hopper (sm_90a): the kernel that flash_fwd.cu
+// runs as K1 and block_sparse.cu as K6, in bf16 and in f32.  Both compute
+// the same math; only the sweep differs, so the body is written once here
+// and templated on a sweep policy, as attn_bwd_hopper.cuh is for the
+// backward.
 //
 // Replaces the TPU kernels `_fwd_kernel` (bigdl_tpu/ops/flash_attention.py:150)
 // and `_bs_fwd_kernel` (bigdl_tpu/ops/block_sparse.py:292).  It computes
 // exactly what they compute:
-//   * scores q.k in f32 (bf16 products, f32 accumulation) times sm_scale;
+//   * scores q.k in f32 (f32 accumulation) times sm_scale;
 //   * the causal mask top-left aligned: q_pos >= k_pos, both counted from 0;
 //     in K6 also the block mask;
 //   * an online softmax over k tiles with f32 running (m, l, acc), l summed
 //     from the f32 probabilities;
-//   * P cast to v's dtype before the P.V product;
+//   * P cast to v's dtype before the P.V product (in f32 P is not rounded);
 //   * O = acc / max(l, 1e-30) in q's dtype, and the row log-sum-exp in f32;
 //     a row that attends nothing gives O = 0 and LSE = 1e30.
 //
 // What bounds it on an H100.  Two products of 2 * D FLOP per live score
 // element against q, k, v and o moved once.  At K1's training shape (B 16,
-// H 8, T 1024, D 128, causal) that is 34 GFLOP, 35 us at 989 TFLOP/s,
-// against 134 MB, 40 us at 3.35 TB/s: the two bounds sit together.  At
-// K6's block-sparse training shape (B 4, H 8, T 4096, D 128, sliding window
-// 2 + 1 global at block 512) it is 73.0 GFLOP, 74 us, against 135 MB,
-// 40 us: bound by operations.  So loads must overlap the products, and the
-// products must run on wgmma with the intermediates in registers.
+// H 8, T 1024, D 128, causal, bf16) that is 34 GFLOP, 35 us at 989
+// TFLOP/s, against 134 MB, 40 us at 3.35 TB/s: the two bounds sit
+// together.  At K6's block-sparse training shape (B 4, H 8, T 4096, D 128,
+// sliding window 2 + 1 global at block 512) it is 73.0 GFLOP, 74 us,
+// against 135 MB, 40 us: bound by operations.  So loads must overlap the
+// products, and the products must run on wgmma with the intermediates in
+// registers.  In f32 each f32 product is formed from bf16 products (below):
+// twelve bf16 products for the two f32 ones, so the tensor cores give 989
+// * 2 / 12 = 164.8 TFLOP/s of f32 work; at B 2, H 8, T 512, D 128,
+// causal, 1.08 GFLOP take 6.5 us at that rate against 16.8 MB, 5.0 us:
+// bound by operations.
 //
 // Design.  One block of 384 threads per (batch*head, 128 query rows): two
 // consumer warpgroups of 64 rows each and one producer warpgroup, which
 // hands most of its registers to the consumers (setmaxnreg: 40 against 232
 // each), so the f32 S and O accumulators and P of a thread stay in
-// registers.  The producer loads the q tile once by TMA through 4-D tensor
+// registers.  The producer loads the q rows once by TMA through 4-D tensor
 // maps (D, T or S, H, B) over the operands' own strides (hopper_common.cuh,
 // HeadStrides: the head-strided view an attention layer makes is read in
 // place), so a tile never reads past its own head and the ragged edge
@@ -38,11 +44,33 @@
 // memory, 128-byte swizzle), runs the online softmax on the accumulator in
 // registers (a row lives in one quad of threads: two shuffles reduce it),
 // masks only a diagonal, ragged or partial tile, rescales its O accumulator
-// in registers, packs P to bf16 in registers and adds P.V with wgmma taking
-// P as its register A operand and the V tile as a transposed (MN-major) B.
-// O never leaves registers until the epilogue, which scales by 1/l, rounds
-// to bf16, stages the rows in the warpgroup's own part of the q tile and
-// writes them with 16-byte stores.
+// in registers and adds P.V with wgmma taking P from registers as its A
+// operand and the V tile as a transposed (MN-major) B.  O never leaves
+// registers until the epilogue.
+//   * bf16 (attn_fwd_wgmma_kernel, fwd_consume): P is packed to bf16; the
+//     epilogue scales by 1/l, rounds to bf16, stages the rows in the
+//     warpgroup's own part of the q tile and writes them with 16-byte
+//     stores.
+//   * f32 (attn_fwd_split_kernel, fwd_f32_consume; D 16-128): wgmma has no
+//     f32 product, so each f32 operand is split into bf16 pieces
+//     (hopper_common.cuh: a1 = bf16(a), a2 = bf16(a - a1), a3 = bf16(a - a1
+//     - a2)) and each product is a sum of bf16 products with f32
+//     accumulation, small terms first: S from six (three pieces of Q and
+//     of K), P.V from six (three pieces of P, split in registers, and of
+//     V).  O is held to f32 rounding, not only to the 1e-4 limit: the
+//     backward's delta = rowsum(dO O) must match its own recomputed P.V,
+//     or the gradient of a key bias (zero in exact arithmetic) grows 20x
+//     (PERF.md), which two pieces of V, or of P, allow.  The f32 tiles
+//     land by TMA in panels of 32 columns and are split in place: each
+//     warpgroup splits its own 64 q rows once (the q rows arrive as two
+//     64-row boxes); both warpgroups split each K tile, then each V tile,
+//     together (named barrier kKvSplit), even one whose products only one
+//     of them computes.  K and V have barriers of their own: K is released
+//     once S is formed, so the next K lands during the softmax and P.V,
+//     and V during the next split of K and S, with one stage at D 128.
+//     64-key tiles at every head dim; Q, K and V take 6 bytes an element,
+//     so 4 stages up to D 32, 3 at D 64 and one at D 128 (193 KB).  O
+//     leaves in f32 straight from the accumulators.
 //
 // The sweep policy says which 128 query rows a block owns, which key tiles
 // it streams, in which order, and which consumer warpgroup computes each:
@@ -53,21 +81,22 @@
 //     covered by the block mask in part).  A warpgroup that does not visit
 //     a tile only releases it.
 //   * kList: false for flash_fwd.cu's DenseSweep (K1: key tiles up to the
-//     causal diagonal, counted by arithmetic, heaviest blocks first, 64-key
-//     tiles at D 128 and above, 128-key tiles in 3 stages below); true for
-//     block_sparse.cu's ListSweep (K6: the steps of K8's 128-row lists,
-//     64-key tiles at every D).  64-key tiles run in 4 stages at D up to
-//     128, 3 at D 192 and 2 at D 256 (the q tile grows with D: 192 KB in
-//     all at the two wide head dims).  A list step is read from device
-//     memory by the producer's first warp, which stages it in shared memory
-//     with the tile.  A tile with a partial pair is staged by that warp, not
-//     by TMA: it copies the key rows some query of the block attends
-//     (live(b, it)) into the swizzled layout TMA would give and writes zeros
-//     for the rest (stage_live_rows), so a dead K or V row (NaN included)
-//     never reaches a product; keep(q, k) is the block mask tested inside a
-//     partial pair.
+//     causal diagonal, counted by arithmetic, heaviest blocks first; in
+//     bf16 64-key tiles at D 128 and above, 128-key tiles in 3 stages below;
+//     in f32 64-key tiles); true for block_sparse.cu's ListSweep (K6: the
+//     steps of K8's 128-row lists, 64-key tiles at every D).  bf16 64-key
+//     tiles run in 4 stages at D up to 128, 3 at D 192 and 2 at D 256 (the
+//     q tile grows with D: 192 KB in all at the two wide head dims).  A
+//     list step is read from device memory by the producer's first warp,
+//     which stages it in shared memory with the tile.  A tile with a
+//     partial pair is staged by that warp, not by TMA: it copies the key
+//     rows some query of the block attends (live(b, it)) into the swizzled
+//     layout TMA would give and writes zeros for the rest
+//     (stage_live_rows), so a dead K or V row (NaN included) never reaches
+//     a product; keep(q, k) is the block mask tested inside a partial pair.
 // On an all-ones causal mask at a 128-multiple block the list is the dense
-// sweep at D 128, tile for tile, so K6 and K1 give the same bits.
+// sweep of 64-key tiles (bf16 at D 128, f32 at every D), tile for tile, so
+// K6 and K1 give the same bits.
 //
 // Everything lives in an anonymous namespace, as in tile_common.cuh.
 #pragma once
@@ -83,23 +112,120 @@ constexpr int kFwdThreads = kConsumers + 128;  // and one producer warpgroup
 constexpr int kFwdProducerRegs = 40;
 constexpr int kFwdConsumerRegs = 232;
 constexpr float kLn2 = 0.6931471805599453f;
+// named barrier of the f32 forward: each K and V tile split by both
+// consumer warpgroups together, read by both (1 and 2 are each
+// warpgroup's own, for its q rows)
+constexpr int kKvSplit = 3;
 
-// the block's q rows, then the ring of (K, V) tiles of BK key rows and, for
-// a list sweep, each stage's step
-template <int D, int kKeyRows>
+// The block's q rows, then the ring of (K, V) tiles of BK key rows and, for
+// a list sweep, each stage's step.  T is the operands' type: in bf16 the q
+// rows land as one 128-row tile, and a stage's K and V share one full and
+// one empty barrier; in f32 as two 64-row tiles (one a consumer
+// warpgroup) in TMA's panels L (Panels<D, 4>, *_LOAD bytes), each split in
+// place into three bf16 pieces (split_tile: pieces 1 and 2 where the f32
+// bytes lay, piece 3 after them, in panels of the bf16 geometry, PANEL_Q
+// and PANEL_KV bytes), so Q, K and V take 6 bytes an element; and K and V
+// have barriers of their own (KV_BARS), so the next K lands while the
+// consumers still read V.
+template <int D, int kKeyRows, typename T = __nv_bfloat16>
 struct FwdCfg : Panels<D> {
+  using L = Panels<D, sizeof(T)>;
+  static constexpr bool F32 = !kIsBf16<T>;
   static constexpr int BK = kKeyRows;
-  static constexpr int STAGES = BK == 64 ? (D <= 128 ? 4 : D <= 192 ? 3 : 2) : 3;
-  static constexpr int Q_BYTES = kBlockRows * D * 2;
-  static constexpr int KV_BYTES = BK * D * 2;  // one K or V tile
-  static constexpr int PANEL_Q = kBlockRows * Panels<D>::RB;
+  static constexpr int STAGES = F32 ? (D <= 32 ? 4 : D <= 64 ? 3 : 1)
+                                     : BK == 64 ? (D <= 128 ? 4 : D <= 192 ? 3 : 2) : 3;
+  static constexpr int Q_ROWS = F32 ? kTileRows : kBlockRows;   // rows of a q tile
+  static constexpr int Q_TILE = Q_ROWS * D * (F32 ? 6 : 2);
+  static constexpr int Q_BYTES = kBlockRows * D * (F32 ? 6 : 2);
+  static constexpr int Q_LOAD = Q_ROWS * D * (int)sizeof(T);   // one q tile's TMA bytes
+  static constexpr int KV_BYTES = BK * D * (F32 ? 6 : 2);      // one K or V tile
+  static constexpr int KV_LOAD = BK * D * (int)sizeof(T);      // a K or V tile's TMA bytes
+  static constexpr int PANEL_Q = Q_ROWS * Panels<D>::RB;
   static constexpr int PANEL_KV = BK * Panels<D>::RB;
+  static constexpr int LPANEL_Q = Q_ROWS * L::RB;
+  static constexpr int LPANEL_KV = BK * L::RB;
+  static constexpr int KV_BARS = F32 ? 2 : 1;   // (full, empty) pairs a stage
   static constexpr size_t SMEM = 1024 + Q_BYTES + 2 * STAGES * KV_BYTES +
-                                 sizeof(uint64_t) * (1 + 2 * STAGES) + STAGES * sizeof(Step);
+                                 sizeof(uint64_t) * (1 + 2 * KV_BARS * STAGES) +
+                                 STAGES * sizeof(Step);
+  static_assert(!F32 || (BK == kTileRows && D <= 128), "f32: 64-key tiles, D up to 128");
 };
 
-// A consumer warpgroup: rows q0w .. q0w + 63 of block b's q tile; this
-// thread holds rows row0 and row0 + 8 of each accumulator
+// One key tile's scores (this thread's BK / 2 of rows row0 and row0 + 8
+// of the warpgroup's 64, query rows from q0w) made unnormalised
+// probabilities in place: times scale_log2 (base-2 exponentials), masked
+// (causal, ragged, partial pair), exp2 against the running max m_run,
+// whose old value rescales l_run and, by the factors left in alpha, the
+// caller's accumulator.  Only a diagonal, ragged or partial tile pays for
+// the masks, each in a loop of its own behind one branch: a test inside
+// the exponentials' loop is branched element by element on every tile.
+// Element i is query row row0 + 8 ((i >> 1) & 1), key column k0 + 8 (i /
+// 4) + 2 t + (i & 1).
+template <int BK, class Sweep>
+__device__ __forceinline__ void online_softmax(const Sweep& sw, float* sc, float* m_run,
+                                               float* l_run, float* alpha, bool part, int k0,
+                                               int q0w, int row0, int t, int T_len, int S_len,
+                                               float scale_log2, int causal) {
+#pragma unroll
+  for (int i = 0; i < BK / 2; ++i) sc[i] *= scale_log2;
+  if (part || k0 + BK > S_len || (causal && k0 + BK - 1 > q0w)) {
+#pragma unroll
+    for (int i = 0; i < BK / 2; ++i) {
+      const int col = k0 + 8 * (i / 4) + 2 * t + (i & 1);
+      const int row = row0 + 8 * ((i >> 1) & 1);
+      if (col >= S_len || (causal && col > row)) sc[i] = -INFINITY;
+    }
+    if constexpr (Sweep::kList) {
+      if (part) {
+#pragma unroll
+        for (int i = 0; i < BK / 2; ++i) {
+          const int col = k0 + 8 * (i / 4) + 2 * t + (i & 1);
+          const int row = row0 + 8 * ((i >> 1) & 1);
+          if (col < S_len && (row >= T_len || !sw.keep(row, col))) sc[i] = -INFINITY;
+        }
+      }
+    }
+  }
+  float m_new[2] = {m_run[0], m_run[1]};
+#pragma unroll
+  for (int i = 0; i < BK / 2; ++i) m_new[(i >> 1) & 1] = fmaxf(m_new[(i >> 1) & 1], sc[i]);
+  float m_safe[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    m_new[h] = fmaxf(m_new[h], __shfl_xor_sync(0xffffffffu, m_new[h], 1));
+    m_new[h] = fmaxf(m_new[h], __shfl_xor_sync(0xffffffffu, m_new[h], 2));
+    // guard fully masked rows: exp(-inf - -inf) would be nan
+    m_safe[h] = m_new[h] == -INFINITY ? 0.0f : m_new[h];
+    alpha[h] = m_run[h] == -INFINITY ? 0.0f : exp2f(m_run[h] - m_safe[h]);
+    m_run[h] = m_new[h];
+    l_run[h] *= alpha[h];
+  }
+#pragma unroll
+  for (int i = 0; i < BK / 2; ++i) {
+    sc[i] = exp2f(sc[i] - m_safe[(i >> 1) & 1]);
+    l_run[(i >> 1) & 1] += sc[i];
+  }
+}
+
+// The rows' totals after the last tile: l summed over the quad, 1 / l into
+// inv, and the LSE of rows row0 and row0 + 8 (1e30 where l is 0), written
+// by the quad's first thread for the rows below T_len.
+__device__ __forceinline__ void finish_rows(float* l_run, const float* m_run, float* inv,
+                                            float* __restrict__ lse, int row0, int t,
+                                            int T_len) {
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    l_run[h] += __shfl_xor_sync(0xffffffffu, l_run[h], 1);
+    l_run[h] += __shfl_xor_sync(0xffffffffu, l_run[h], 2);
+    inv[h] = 1.0f / fmaxf(l_run[h], 1e-30f);
+    const int row = row0 + 8 * h;
+    if (t == 0 && row < T_len)
+      lse[row] = l_run[h] > 0.0f ? (m_run[h] + log2f(fmaxf(l_run[h], 1e-30f))) * kLn2 : BIG_LSE;
+  }
+}
+
+// A bf16 consumer warpgroup: rows q0w .. q0w + 63 of block b's q tile;
+// this thread holds rows row0 and row0 + 8 of each accumulator
 // (hopper_common.cuh).  o and lse start at the block's head.
 template <int D, int kKeyRows, class Sweep>
 __device__ __forceinline__ void fwd_consume(const Sweep& sw, unsigned char* q_s,
@@ -147,51 +273,10 @@ __device__ __forceinline__ void fwd_consume(const Sweep& sw, unsigned char* q_s,
 #pragma unroll
       for (int i = 0; i < C::BK / 2; ++i) fence_regs(sc[i]);
 
-#pragma unroll
-      for (int i = 0; i < C::BK / 2; ++i) sc[i] *= scale_log2;
-      // Only a diagonal, ragged or partial tile pays for the masks, each in
-      // a loop of its own behind this branch: a test inside the
-      // exponentials' loop is branched element by element on every tile.
-      // Element i is query row row0 + 8 ((i >> 1) & 1), key column k0 +
-      // 8 (i / 4) + 2 t + (i & 1).
-      const bool part = Sweep::kList && (step.flags & (kPartial << wg));
-      if (part || k0 + C::BK > S_len || (causal && k0 + C::BK - 1 > q0w)) {
-#pragma unroll
-        for (int i = 0; i < C::BK / 2; ++i) {
-          const int col = k0 + 8 * (i / 4) + 2 * t + (i & 1);
-          const int row = row0 + 8 * ((i >> 1) & 1);
-          if (col >= S_len || (causal && col > row)) sc[i] = -INFINITY;
-        }
-        if constexpr (Sweep::kList) {
-          if (part) {
-#pragma unroll
-            for (int i = 0; i < C::BK / 2; ++i) {
-              const int col = k0 + 8 * (i / 4) + 2 * t + (i & 1);
-              const int row = row0 + 8 * ((i >> 1) & 1);
-              if (col < S_len && (row >= T_len || !sw.keep(row, col))) sc[i] = -INFINITY;
-            }
-          }
-        }
-      }
-      float m_new[2] = {m_run[0], m_run[1]};
-#pragma unroll
-      for (int i = 0; i < C::BK / 2; ++i) m_new[(i >> 1) & 1] = fmaxf(m_new[(i >> 1) & 1], sc[i]);
-      float m_safe[2], alpha[2];
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        m_new[h] = fmaxf(m_new[h], __shfl_xor_sync(0xffffffffu, m_new[h], 1));
-        m_new[h] = fmaxf(m_new[h], __shfl_xor_sync(0xffffffffu, m_new[h], 2));
-        // guard fully masked rows: exp(-inf - -inf) would be nan
-        m_safe[h] = m_new[h] == -INFINITY ? 0.0f : m_new[h];
-        alpha[h] = m_run[h] == -INFINITY ? 0.0f : exp2f(m_run[h] - m_safe[h]);
-        m_run[h] = m_new[h];
-        l_run[h] *= alpha[h];
-      }
-#pragma unroll
-      for (int i = 0; i < C::BK / 2; ++i) {
-        sc[i] = exp2f(sc[i] - m_safe[(i >> 1) & 1]);
-        l_run[(i >> 1) & 1] += sc[i];
-      }
+      float alpha[2];
+      online_softmax<C::BK>(sw, sc, m_run, l_run, alpha,
+                            Sweep::kList && (step.flags & (kPartial << wg)), k0, q0w, row0, t,
+                            T_len, S_len, scale_log2, causal);
       uint32_t pa[C::BK / 4];   // P in bf16: 16 columns per k16 step, wgmma's A layout
 #pragma unroll
       for (int i = 0; i < C::BK / 4; ++i) pa[i] = pack_bf16x2(sc[2 * i], sc[2 * i + 1]);
@@ -219,15 +304,7 @@ __device__ __forceinline__ void fwd_consume(const Sweep& sw, unsigned char* q_s,
   // q tile (its own products are done), then written 16 bytes a thread
   constexpr int SWZ = C::RB / 16 - 1;   // 16-byte chunks of a panel row, xor'd by row
   float inv[2];
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    l_run[h] += __shfl_xor_sync(0xffffffffu, l_run[h], 1);
-    l_run[h] += __shfl_xor_sync(0xffffffffu, l_run[h], 2);
-    inv[h] = 1.0f / fmaxf(l_run[h], 1e-30f);
-    const int row = row0 + 8 * h;
-    if (t == 0 && row < T_len)
-      lse[row] = l_run[h] > 0.0f ? (m_run[h] + log2f(fmaxf(l_run[h], 1e-30f))) * kLn2 : BIG_LSE;
-  }
+  finish_rows(l_run, m_run, inv, lse, row0, t, T_len);
 #pragma unroll
   for (int p = 0; p < C::NP; ++p)
 #pragma unroll
@@ -251,24 +328,139 @@ __device__ __forceinline__ void fwd_consume(const Sweep& sw, unsigned char* q_s,
   }
 }
 
-// grid (B*H, ceil(T / 128)); the sweep maps blockIdx.y to a block.
-template <int D, int kKeyRows, class Sweep>
-__global__ void __launch_bounds__(kFwdThreads, 1)
-attn_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
-                      const __grid_constant__ CUtensorMap tm_k,
-                      const __grid_constant__ CUtensorMap tm_v, __nv_bfloat16* __restrict__ o,
-                      float* __restrict__ lse, int T_len, int S_len, float scale_log2,
-                      int causal, int H, int h0, const Sweep sw) {
-  using C = FwdCfg<D, kKeyRows>;
+// An f32 consumer warpgroup (D 16-128, 64-key tiles): rows q0w .. q0w + 63,
+// its own 64-row q tile at q_s + wg Q_TILE; every product of f32 operands
+// formed from bf16 products on their pieces (see the note at the top).  A
+// stage's K tile arrives on full[s] and is released on empty[s] once S is
+// formed; its V tile on full_v[s], released on empty_v[s] after P . V.  o
+// and lse start at the block's head; O leaves in f32 straight from the
+// accumulators.
+template <int D, class Sweep>
+__device__ __forceinline__ void fwd_f32_consume(const Sweep& sw, unsigned char* q_s,
+                                                unsigned char* k_s, unsigned char* v_s,
+                                                const Step* step_s, uint64_t* q_full,
+                                                uint64_t* full, uint64_t* empty,
+                                                uint64_t* full_v, uint64_t* empty_v,
+                                                float* __restrict__ o, float* __restrict__ lse,
+                                                int b, int n, int T_len, int S_len,
+                                                float scale_log2, int causal) {
+  using C = FwdCfg<D, kTileRows, float>;
+  using P = Panels<D>;
+  constexpr int THIRD = kTileRows * D * 4;   // a 64-row tile's third pieces, after its f32 bytes
+  const int wg = threadIdx.x / 128;
+  const int warp = (threadIdx.x % 128) / 32;
+  const int lane = threadIdx.x % 32;
+  const int t = lane % 4;
+  const int q0w = b * kBlockRows + 64 * wg;
+  const int row0 = q0w + 16 * warp + lane / 4;
+  unsigned char* q_wg = q_s + wg * C::Q_TILE;
+
+  float acc[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.0f;
+  float m_run[2] = {-INFINITY, -INFINITY};
+  float l_run[2] = {0.0f, 0.0f};   // this thread's share of l; the quad sums at the end
+
+  if (n > 0) {
+    mbar_wait(q_full, 0);
+    split_tile<D>(q_wg, 1 + wg);   // the warpgroup's own rows, once
+    fence_proxy_async();
+    named_barrier_sync(1 + wg, 128);
+  }
+  for (int it = 0; it < n; ++it) {
+    const int s = it % C::STAGES;
+    const uint32_t parity = (it / C::STAGES) & 1;
+    Step step;
+    if constexpr (!Sweep::kList) step = sw.fwd_step(b, it);
+    mbar_wait(&full[s], parity);
+    if constexpr (Sweep::kList) step = step_s[s];   // staged by the producer
+    const bool visit = step.flags & (kVisit << wg);
+    unsigned char* k_t = k_s + s * C::KV_BYTES;
+    unsigned char* v_t = v_s + s * C::KV_BYTES;
+    // K, then V, in three pieces, by both warpgroups, whichever of them
+    // computes the tile
+    split_tile<D, kConsumers>(k_t, kKvSplit);
+    fence_proxy_async();
+    named_barrier_sync(kKvSplit, kConsumers);
+    float sc[kTileRows / 2];
+    if (visit) {
+      wgmma_fence();
+      wgmma_scores_split<D, C::PANEL_Q, C::PANEL_KV, THIRD>(sc, q_wg, k_t);   // S = Q . K^T
+      wgmma_commit();
+      wgmma_wait<0>();
+#pragma unroll
+      for (int i = 0; i < kTileRows / 2; ++i) fence_regs(sc[i]);
+    }
+    mbar_arrive(&empty[s]);   // K is read: the next K may land
+    uint32_t a1[kTileRows / 4], a2[kTileRows / 4], a3[kTileRows / 4];   // P's pieces
+    if (visit) {
+      float alpha[2];
+      online_softmax<kTileRows>(sw, sc, m_run, l_run, alpha,
+                                Sweep::kList && (step.flags & (kPartial << wg)),
+                                step.tile * kTileRows, q0w, row0, t, T_len, S_len, scale_log2,
+                                causal);
+#pragma unroll
+      for (int i = 0; i < kTileRows / 4; ++i)
+        split_bf16x3(sc[2 * i], sc[2 * i + 1], a1[i], a2[i], a3[i]);
+#pragma unroll
+      for (int i = 0; i < D / 2; ++i) acc[i] *= alpha[(i >> 1) & 1];
+    }
+    mbar_wait(&full_v[s], parity);
+    split_tile<D, kConsumers>(v_t, kKvSplit);
+    fence_proxy_async();
+    named_barrier_sync(kKvSplit, kConsumers);
+    if (visit) {
+      wgmma_fence();
+      wgmma_accumulate_split<D, C::PANEL_KV, THIRD>(acc, a1, a2, a3, v_t);   // O += P . V
+      wgmma_commit();
+      wgmma_wait<0>();
+#pragma unroll
+      for (int i = 0; i < D / 2; ++i) fence_regs(acc[i]);
+    }
+    mbar_arrive(&empty_v[s]);
+  }
+
+  // epilogue: O = acc / l in f32, two columns a store (element 4 j + 2 h
+  // of panel p: row row0 + 8 h, column p PW + 8 j + 2 t)
+  float inv[2];
+  finish_rows(l_run, m_run, inv, lse, row0, t, T_len);
+#pragma unroll
+  for (int p = 0; p < P::NP; ++p)
+#pragma unroll
+    for (int j = 0; j < P::PW / 8; ++j)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int row = row0 + 8 * h;
+        const float* a = acc + p * (P::PW / 2) + 4 * j + 2 * h;
+        if (row < T_len)
+          *reinterpret_cast<float2*>(o + (size_t)row * D + p * P::PW + 8 * j + 2 * t) =
+              make_float2(a[0] * inv[h], a[1] * inv[h]);
+      }
+}
+
+// The forward block over operands of type T (bf16, or f32 on the split
+// products of fwd_f32_consume): grid (B*H, ceil(T / 128)); the sweep maps
+// blockIdx.y to a block.  The kernels below pass their tensor maps'
+// addresses.
+template <int D, int kKeyRows, class Sweep, typename T>
+__device__ __forceinline__ void attn_fwd_body(const CUtensorMap* tm_q, const CUtensorMap* tm_k,
+                                              const CUtensorMap* tm_v, T* __restrict__ o,
+                                              float* __restrict__ lse, int T_len, int S_len,
+                                              float scale_log2, int causal, int H, int h0,
+                                              const Sweep& sw) {
+  using C = FwdCfg<D, kKeyRows, T>;
+  using L = typename C::L;   // TMA's panels
   static_assert(!Sweep::kList || C::BK == kTileRows, "list sweeps stream 64-row tiles");
   extern __shared__ unsigned char smem_raw[];
-  unsigned char* q_s = align1024(smem_raw);             // [panel][128 rows]
+  unsigned char* q_s = align1024(smem_raw);             // [q tile][panel][rows]
   unsigned char* k_s = q_s + C::Q_BYTES;                // [stage][panel][BK rows]
   unsigned char* v_s = k_s + C::STAGES * C::KV_BYTES;
   uint64_t* q_full = reinterpret_cast<uint64_t*>(v_s + C::STAGES * C::KV_BYTES);
-  uint64_t* full = q_full + 1;
+  uint64_t* full = q_full + 1;          // K's (and, in bf16, V's)
   uint64_t* empty = full + C::STAGES;
-  Step* step_s = reinterpret_cast<Step*>(empty + C::STAGES);   // [stage], list sweeps
+  uint64_t* full_v = empty + C::STAGES;   // f32: V's own (in bf16 past the barriers, unused)
+  uint64_t* empty_v = full_v + C::STAGES;
+  Step* step_s = reinterpret_cast<Step*>(full + 2 * C::KV_BARS * C::STAGES);   // list sweeps
 
   const int bh = h0 + blockIdx.x;   // of the B*H heads; TMA reads head h of batch bb
   const int h = bh % H, bb = bh / H;
@@ -278,10 +470,15 @@ attn_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
 
   if (threadIdx.x == 0) {
     mbar_init(q_full, 1);
+    // one TMA thread, or the first warp where it may stage rows itself
+    const uint32_t loaders = Sweep::kList ? 32 : 1;
     for (int s = 0; s < C::STAGES; ++s) {
-      // one TMA thread, or the first warp where it may stage rows itself
-      mbar_init(&full[s], Sweep::kList ? 32 : 1);
+      mbar_init(&full[s], loaders);
       mbar_init(&empty[s], kConsumers);
+      if constexpr (C::F32) {
+        mbar_init(&full_v[s], loaders);
+        mbar_init(&empty_v[s], kConsumers);
+      }
     }
     mbar_fence_init();
   }
@@ -292,48 +489,99 @@ attn_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
     const int lane = threadIdx.x % 32;
     if (Sweep::kList ? threadIdx.x < kConsumers + 32 : threadIdx.x == kConsumers) {
       if (lane == 0 && n > 0) {
-        mbar_arrive_expect_tx(q_full, C::Q_BYTES);
-        for (int p = 0; p < C::NP; ++p)
-          tma_load_4d(q_s + p * C::PANEL_Q, &tm_q, q_full, p * C::PW, q0, h, bb);
+        // the q tiles (f32: a second 64-row tile only where a row of it
+        // is below T; rows past T arrive as zeros)
+        const int tiles =
+            C::Q_ROWS == kBlockRows || q0 + C::Q_ROWS < T_len ? kBlockRows / C::Q_ROWS : 1;
+        mbar_arrive_expect_tx(q_full, tiles * C::Q_LOAD);
+        for (int w = 0; w < tiles; ++w)
+          for (int p = 0; p < L::NP; ++p)
+            tma_load_4d(q_s + w * C::Q_TILE + p * C::LPANEL_Q, tm_q, q_full, p * L::PW,
+                        q0 + w * C::Q_ROWS, h, bb);
       }
       for (int it = 0; it < n; ++it) {
         const int s = it % C::STAGES;
         const Step step = sw.fwd_step(b, it);
         const int k0 = step.tile * C::BK;
-        mbar_wait(&empty[s], ((it / C::STAGES) & 1) ^ 1);   // the first round passes
+        const uint32_t parity = ((it / C::STAGES) & 1) ^ 1;   // the first round passes
+        mbar_wait(&empty[s], parity);
         if constexpr (Sweep::kList) {
           if (lane == 0) step_s[s] = step;
-          if (step.flags & kPartialAny) {   // a partial pair: live rows only
-            const unsigned long long live = sw.live(b, it);
-            stage_live_rows<D, C::PANEL_KV>(k_s + s * C::KV_BYTES,
-                                            sw.src_a + sw.stride_a.head(bh, H), sw.stride_a.r,
-                                            k0, S_len, live, lane);
-            stage_live_rows<D, C::PANEL_KV>(v_s + s * C::KV_BYTES,
-                                            sw.src_b + sw.stride_b.head(bh, H), sw.stride_b.r,
-                                            k0, S_len, live, lane);
-            fence_proxy_async();
-            mbar_arrive(&full[s]);
-            continue;
-          }
-          if (lane != 0) {
-            mbar_arrive(&full[s]);
-            continue;
-          }
         }
-        mbar_arrive_expect_tx(&full[s], 2 * C::KV_BYTES);
-        for (int p = 0; p < C::NP; ++p) {
-          const int off = (s * C::NP + p) * C::PANEL_KV;
-          tma_load_4d(k_s + off, &tm_k, &full[s], p * C::PW, k0, h, bb);
-          tma_load_4d(v_s + off, &tm_v, &full[s], p * C::PW, k0, h, bb);
+        // f32: K on full[s], then V on full_v[s] once the consumers have
+        // read the stage's V; bf16: both on full[s]
+        for (int kv = 0; kv < C::KV_BARS; ++kv) {
+          const bool with_k = kv == 0, with_v = !C::F32 || kv == 1;
+          uint64_t* bar = kv == 0 ? &full[s] : &full_v[s];
+          if (kv == 1) mbar_wait(&empty_v[s], parity);
+          if constexpr (Sweep::kList) {
+            if (step.flags & kPartialAny) {   // a partial pair: live rows only
+              const unsigned long long live = sw.live(b, it);
+              if (with_k)
+                stage_live_rows<D, C::LPANEL_KV>(k_s + s * C::KV_BYTES,
+                                                 sw.src_a + sw.stride_a.head(bh, H),
+                                                 sw.stride_a.r, k0, S_len, live, lane);
+              if (with_v)
+                stage_live_rows<D, C::LPANEL_KV>(v_s + s * C::KV_BYTES,
+                                                 sw.src_b + sw.stride_b.head(bh, H),
+                                                 sw.stride_b.r, k0, S_len, live, lane);
+              fence_proxy_async();
+              mbar_arrive(bar);
+              continue;
+            }
+            if (lane != 0) {
+              mbar_arrive(bar);
+              continue;
+            }
+          }
+          mbar_arrive_expect_tx(bar, (with_k + with_v) * C::KV_LOAD);
+          for (int p = 0; p < L::NP; ++p) {
+            if (with_k)
+              tma_load_4d(k_s + s * C::KV_BYTES + p * C::LPANEL_KV, tm_k, bar, p * L::PW, k0,
+                          h, bb);
+            if (with_v)
+              tma_load_4d(v_s + s * C::KV_BYTES + p * C::LPANEL_KV, tm_v, bar, p * L::PW, k0,
+                          h, bb);
+          }
         }
       }
     }
   } else {
     setmaxnreg_inc<kFwdConsumerRegs>();
-    fwd_consume<D, kKeyRows>(sw, q_s, k_s, v_s, step_s, q_full, full, empty,
-                             o + (size_t)bh * T_len * D, lse + (size_t)bh * T_len, b, n, T_len,
-                             S_len, scale_log2, causal);
+    T* o_h = o + (size_t)bh * T_len * D;
+    float* lse_h = lse + (size_t)bh * T_len;
+    if constexpr (C::F32)
+      fwd_f32_consume<D>(sw, q_s, k_s, v_s, step_s, q_full, full, empty, full_v, empty_v, o_h,
+                         lse_h, b, n, T_len, S_len, scale_log2, causal);
+    else
+      fwd_consume<D, kKeyRows>(sw, q_s, k_s, v_s, step_s, q_full, full, empty, o_h, lse_h, b,
+                               n, T_len, S_len, scale_log2, causal);
   }
+}
+
+// the forward in bf16 (K1, K6)
+template <int D, int kKeyRows, class Sweep>
+__global__ void __launch_bounds__(kFwdThreads, 1)
+attn_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
+                      const __grid_constant__ CUtensorMap tm_k,
+                      const __grid_constant__ CUtensorMap tm_v, __nv_bfloat16* __restrict__ o,
+                      float* __restrict__ lse, int T_len, int S_len, float scale_log2,
+                      int causal, int H, int h0, const Sweep sw) {
+  attn_fwd_body<D, kKeyRows>(&tm_q, &tm_k, &tm_v, o, lse, T_len, S_len, scale_log2, causal, H,
+                             h0, sw);
+}
+
+// the forward in f32 (K1, K6 at D 16-128), each product from bf16 products
+// on bf16 pieces of its operands
+template <int D, int kKeyRows, class Sweep>
+__global__ void __launch_bounds__(kFwdThreads, 1)
+attn_fwd_split_kernel(const __grid_constant__ CUtensorMap tm_q,
+                      const __grid_constant__ CUtensorMap tm_k,
+                      const __grid_constant__ CUtensorMap tm_v, float* __restrict__ o,
+                      float* __restrict__ lse, int T_len, int S_len, float scale_log2,
+                      int causal, int H, int h0, const Sweep sw) {
+  attn_fwd_body<D, kKeyRows>(&tm_q, &tm_k, &tm_v, o, lse, T_len, S_len, scale_log2, causal, H,
+                             h0, sw);
 }
 
 // The arguments of one forward launch over heads h0 .. h0 + BH - 1 of H
@@ -352,31 +600,35 @@ struct FwdArgs {
   cudaStream_t stream;
 };
 
-// the forward over `sw`, key tiles of kKeyRows rows, bf16
-template <int D, int kKeyRows, class Sweep>
+// the forward over `sw`, key tiles of kKeyRows rows: bf16
+// (attn_fwd_wgmma_kernel) or f32 (attn_fwd_split_kernel, D <= 128)
+template <int D, int kKeyRows, typename T = __nv_bfloat16, class Sweep>
 cudaError_t launch_fwd_wgmma(const FwdArgs& a, const Sweep& sw) {
-  using C = FwdCfg<D, kKeyRows>;
+  using C = FwdCfg<D, kKeyRows, T>;
   static_assert(C::SMEM <= kMaxSmemBytes, "attn_fwd_wgmma tiles do not fit in shared memory");
   const int n_qb = (a.T_len + kBlockRows - 1) / kBlockRows;
   if (n_qb > 65535) return cudaErrorInvalidValue;
   // encoded per launch and passed by value: a CUDA graph captures them
   CUtensorMap tm_q, tm_k, tm_v;
   const int heads = a.h0 + a.BH;
-  cudaError_t err =
-      encode_heads<__nv_bfloat16>(&tm_q, a.q, D, a.T_len, a.H, heads, a.sq, C::PW, kBlockRows);
+  constexpr int PW = C::L::PW;
+  cudaError_t err = encode_heads<T>(&tm_q, a.q, D, a.T_len, a.H, heads, a.sq, PW, C::Q_ROWS);
   if (err == cudaSuccess)
-    err = encode_heads<__nv_bfloat16>(&tm_k, a.k, D, a.S_len, a.H, heads, a.sk, C::PW, C::BK);
+    err = encode_heads<T>(&tm_k, a.k, D, a.S_len, a.H, heads, a.sk, PW, C::BK);
   if (err == cudaSuccess)
-    err = encode_heads<__nv_bfloat16>(&tm_v, a.v, D, a.S_len, a.H, heads, a.sv, C::PW, C::BK);
+    err = encode_heads<T>(&tm_v, a.v, D, a.S_len, a.H, heads, a.sv, PW, C::BK);
   if (err != cudaSuccess) return err;
-  auto kernel = attn_fwd_wgmma_kernel<D, kKeyRows, Sweep>;
+  auto kernel = [] {
+    if constexpr (kIsBf16<T>) return attn_fwd_wgmma_kernel<D, kKeyRows, Sweep>;
+    else return attn_fwd_split_kernel<D, kKeyRows, Sweep>;
+  }();
   static std::mutex mu;
   static bool attr_set[kMaxDevices] = {};
   err = smem_opt_in_once(kernel, (int)C::SMEM, mu, attr_set);
   if (err != cudaSuccess) return err;
   kernel<<<dim3(a.BH, n_qb), kFwdThreads, C::SMEM, a.stream>>>(
-      tm_q, tm_k, tm_v, static_cast<__nv_bfloat16*>(a.o), static_cast<float*>(a.lse), a.T_len,
-      a.S_len, a.sm_scale * kLog2e, a.causal, a.H, a.h0, sw);
+      tm_q, tm_k, tm_v, static_cast<T*>(a.o), static_cast<float*>(a.lse), a.T_len, a.S_len,
+      a.sm_scale * kLog2e, a.causal, a.H, a.h0, sw);
   return cudaGetLastError();
 }
 

@@ -55,13 +55,14 @@
 // partial pair is staged by the producer's first warp, live rows only, so
 // the TMA load of a dead row never happens; inside a partial pair each
 // element is tested against the block mask and its score selected to -inf
-// (K6) or its P and dS to 0 (K7, K8).  In f32, K7 at D 16-128 is K2's f32
-// dK/dV block (attn_bwd_hopper.cuh's bwd_dkv_split_kernel: 64 key rows a
-// block, each f32 product formed from bf16 wgmma products on three bf16
-// pieces of its operands) over the 64-row key lists K7 reads at D 192 and
-// 256; K6 and K8 keep the tile loops of flash_fwd.cu's and flash_bwd.cu's
-// f32 kernels over the 64-row tables.  On an all-ones mask both dtypes
-// give K1-K3's bits.
+// (K6) or its P and dS to 0 (K7, K8).  In f32, at D 16-128, each f32
+// product is formed from bf16 wgmma products on bf16 pieces of its
+// operands: K6 is K1's f32 forward (attn_fwd_hopper.cuh's
+// attn_fwd_split_kernel) over the same 128-row query lists as in bf16, and
+// K7 is K2's f32 dK/dV block (attn_bwd_hopper.cuh's bwd_dkv_split_kernel:
+// 64 key rows a block) over the 64-row key lists K7 reads at D 192 and
+// 256; K8 keeps the tile loop of flash_bwd.cu's f32 kernel over the 64-row
+// tables.  On an all-ones mask both dtypes give K1-K3's bits.
 //
 // K9 design.  At the flagship MLP shape (x 16384 x 1024 bf16, W 1024 x 4096
 // at density 0.5, block 128) it must do 68.7 GFLOP (0.069 ms) and move about
@@ -145,125 +146,6 @@ __device__ __forceinline__ void load_live_rows(T* dst, const T* src, int row0,
 }
 
 // ---------------------------------------------------------------------------
-// K6 in f32: the flash_fwd.cu tile loop over the 64-row tile tables; grid
-// (ceil(T / 64), B*H), one block per q tile.
-// ---------------------------------------------------------------------------
-
-template <int D>
-constexpr size_t fwd_smem_bytes() {
-  return sizeof(float) * (TILE * D + 2 * TILE * D + TILE * TILE)   // q, k, v, p
-         + sizeof(float) * (TILE * TILE + TILE * D + 3 * TILE)    // s, acc, m, l, alpha
-         + TILE;                                                  // live key rows
-}
-
-template <int D>
-__global__ void __launch_bounds__(NTHREADS)
-bs_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
-              const float* __restrict__ v, float* __restrict__ o, float* __restrict__ lse,
-              Tables tab, Mask mk, float sm_scale) {
-  using T = float;
-  extern __shared__ __align__(128) unsigned char smem[];
-  T* q_s = reinterpret_cast<T*>(smem);
-  T* k_s = q_s + TILE * D;
-  T* v_s = k_s + TILE * D;
-  T* p_s = v_s + TILE * D;
-  float* s_s = reinterpret_cast<float*>(p_s + TILE * TILE);
-  float* acc_s = s_s + TILE * TILE;
-  float* m_s = acc_s + TILE * D;
-  float* l_s = m_s + TILE;
-  float* alpha_s = l_s + TILE;
-  uint8_t* live_s = reinterpret_cast<uint8_t*>(alpha_s + TILE);
-
-  const int T_len = mk.T_len, S_len = mk.S_len, causal = mk.causal;
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int bh = blockIdx.y;
-  const int qt = blockIdx.x;
-  const int q0 = qt * TILE;
-  q += (size_t)bh * T_len * D;
-  k += (size_t)bh * S_len * D;
-  v += (size_t)bh * S_len * D;
-  o += (size_t)bh * T_len * D;
-  lse += (size_t)bh * T_len;
-  const int n_tiles = tab.counts[qt];
-  const int* tiles = tab.tiles + (size_t)qt * tab.L;
-  const uint8_t* partial = tab.partial + (size_t)qt * tab.L;
-
-  load_tile<T, D>(q_s, q, q0, T_len, TILE);
-  for (int i = threadIdx.x; i < TILE * D; i += NTHREADS) acc_s[i] = 0.0f;
-  for (int i = threadIdx.x; i < TILE; i += NTHREADS) {
-    m_s[i] = -INFINITY;
-    l_s[i] = 0.0f;
-  }
-  __syncthreads();
-
-  for (int it = 0; it < n_tiles; ++it) {
-    const int k0 = tiles[it] * TILE;
-    const bool part = partial[it] != 0;
-    if (part) {
-      for (int r = threadIdx.x; r < TILE; r += NTHREADS) live_s[r] = mk.key_live(k0 + r, q0);
-      __syncthreads();
-      load_live_rows<T, D>(k_s, k, k0, live_s);
-      load_live_rows<T, D>(v_s, v, k0, live_s);
-    } else {
-      load_tile<T, D>(k_s, k, k0, S_len, TILE);
-      load_tile<T, D>(v_s, v, k0, S_len, TILE);
-    }
-    __syncthreads();
-
-    score_tile<D>(q_s, k_s, s_s, warp, lane);
-    __syncwarp();
-
-    for (int rr = 0; rr < ROWS_PER_WARP; ++rr) {
-      const int r = warp * ROWS_PER_WARP + rr;
-      const int q_pos = q0 + r;
-      float s0 = s_s[r * TILE + lane] * sm_scale;
-      float s1 = s_s[r * TILE + lane + 32] * sm_scale;
-      const int k_pos0 = k0 + lane, k_pos1 = k0 + lane + 32;
-      if (k_pos0 >= S_len || (causal && k_pos0 > q_pos) ||
-          (part && !(q_pos < T_len && mk.block(q_pos, k_pos0))))
-        s0 = -INFINITY;
-      if (k_pos1 >= S_len || (causal && k_pos1 > q_pos) ||
-          (part && !(q_pos < T_len && mk.block(q_pos, k_pos1))))
-        s1 = -INFINITY;
-      const float m_old = m_s[r];
-      const float m_new = fmaxf(m_old, warp_max(fmaxf(s0, s1)));
-      // guard fully masked rows: exp(-inf - -inf) would be nan
-      const float m_safe = m_new == -INFINITY ? 0.0f : m_new;
-      const float p0 = expf(s0 - m_safe);
-      const float p1 = expf(s1 - m_safe);
-      const float scale = m_old == -INFINITY ? 0.0f : expf(m_old - m_safe);
-      const float psum = warp_sum(p0 + p1);
-      p_s[r * TILE + lane] = from_f32<T>(p0);
-      p_s[r * TILE + lane + 32] = from_f32<T>(p1);
-      if (lane == 0) {
-        m_s[r] = m_new;
-        l_s[r] = l_s[r] * scale + psum;
-        alpha_s[r] = scale;
-      }
-    }
-    __syncwarp();
-
-    // acc = acc * alpha + P.V over this warp's rows
-    for (int i = lane; i < ROWS_PER_WARP * D; i += 32)
-      acc_s[warp * ROWS_PER_WARP * D + i] *= alpha_s[warp * ROWS_PER_WARP + i / D];
-    __syncwarp();
-    mma_acc_tile<D>(p_s, v_s, acc_s, warp, lane);
-    __syncthreads();   // k_s / v_s / live_s are overwritten by the next tile
-  }
-
-  for (int rr = 0; rr < ROWS_PER_WARP; ++rr) {
-    const int r = warp * ROWS_PER_WARP + rr;
-    if (q0 + r >= T_len) break;
-    const float l = l_s[r];
-    const float inv = 1.0f / fmaxf(l, 1e-30f);
-    for (int d = lane; d < D; d += 32)
-      o[(size_t)(q0 + r) * D + d] = from_f32<T>(acc_s[r * D + d] * inv);
-    if (lane == 0) lse[q0 + r] = l > 0.0f ? m_s[r] + logf(fmaxf(l, 1e-30f)) : BIG_LSE;
-  }
-}
-
-// ---------------------------------------------------------------------------
 // K8 in f32: the flash_bwd.cu tile loop over the 64-row tile tables.
 // ---------------------------------------------------------------------------
 
@@ -284,7 +166,8 @@ __device__ __forceinline__ void p_and_ds(float s, float dp, float lse, float del
   *ds = keep ? *p * (dp - delta) : 0.0f;
 }
 
-// K8 in f32: grid (ceil(T / 64), B*H), one block per q tile, over K6's table.
+// K8 in f32: grid (ceil(T / 64), B*H), one block per q tile, over the 64-row
+// tile tables.
 template <int D>
 __global__ void __launch_bounds__(NTHREADS)
 bs_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
@@ -380,7 +263,7 @@ bs_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
 }
 
 // ---------------------------------------------------------------------------
-// K6, K7 and K8 in bf16, and K7 in f32: the Hopper bodies of
+// K6, K7 and K8 in bf16, and K6 and K7 in f32: the Hopper bodies of
 // attn_fwd_hopper.cuh and attn_bwd_hopper.cuh over the tile lists of
 // 128-row (or 64-row) blocks.
 // ---------------------------------------------------------------------------
@@ -395,8 +278,9 @@ bs_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
 // the lists are the dense sweeps of K1 (at D 128) and K2/K3, tile for tile,
 // so K6-K8 give K1-K3's bits.  K7 and K8 at D 192 and 256 own 64 rows a
 // block and read the same lists built per 64-row key (K7) or query (K8)
-// tile (bit 0 and bit 2 only), as does the f32 K7 at every D.  T is the
-// streamed tensors' type (bf16, or f32 in K7's f32 kernel).
+// tile (bit 0 and bit 2 only), as does the f32 K7 at every D; the f32 K6
+// reads the 128-row lists, as in bf16.  T is the streamed tensors' type
+// (bf16, or f32 in the f32 K6 and K7).
 template <typename T = __nv_bfloat16>
 struct ListSweep {
   static constexpr bool kList = true;
@@ -436,13 +320,13 @@ struct AttnArgs {
   const float* delta;
   void* out0;   // O (K6), dK (K7) or dQ (K8)
   void* out1;   // LSE (K6) or dV (K7)
-  // the bf16 K6-K8 and the f32 K7: 128-row block lists (K7, K8 at D > 128
-  // and the f32 K7: 64-row); the f32 K6 and K8: 64-row tile tables
+  // the bf16 K6-K8 and the f32 K6 and K7: 128-row block lists (K7, K8 at
+  // D > 128 and the f32 K7: 64-row); the f32 K8: 64-row tile tables
   Tables tab;
   const int* order;  // block lists: the blocks, longest list first
   const unsigned long long* rows;   // block lists: live streamed rows
   Mask mk;
-  HeadStrides sq, sk, sv, sdo;   // q, k, v, dO at their strides (f32 K6, K8: contiguous)
+  HeadStrides sq, sk, sv, sdo;   // q, k, v, dO at their strides (f32 K8: contiguous)
   int H, h0, BH;                 // heads h0 .. h0 + BH - 1, H a batch
   float sm_scale;
   cudaStream_t stream;
@@ -451,7 +335,7 @@ struct AttnArgs {
 enum class Which { kFwd, kDkv, kDq };
 
 // K6 (out0 O, out1 LSE), K7 (out0 dK, out1 dV) or K8 (out0 dQ) over the
-// block lists: in bf16, or K7 in f32 (T)
+// block lists: in bf16, or K6 and K7 in f32 (T)
 template <Which W, int D, typename T = __nv_bfloat16>
 cudaError_t launch_wgmma(const AttnArgs& a) {
   const bool dkv = W == Which::kDkv;
@@ -460,7 +344,7 @@ cudaError_t launch_wgmma(const AttnArgs& a) {
                         static_cast<const T*>(dkv ? a.dO : a.v),
                         dkv ? a.sq : a.sk, dkv ? a.sdo : a.sv};
   if constexpr (W == Which::kFwd) {
-    return launch_fwd_wgmma<D, kTileRows>(
+    return launch_fwd_wgmma<D, kTileRows, T>(
         FwdArgs{a.q, a.k, a.v, a.out0, a.out1, a.sq, a.sk, a.sv, a.H, a.h0, a.BH, a.mk.T_len,
                 a.mk.S_len, a.sm_scale, a.mk.causal, a.stream},
         sw);
@@ -473,74 +357,55 @@ cudaError_t launch_wgmma(const AttnArgs& a) {
   }
 }
 
-// the f32 tile loops read contiguous heads: a copy of `a` from head h0 on,
-// or false where an operand is not contiguous
+// the f32 K8 tile loop reads contiguous heads: a copy of `a` from head h0
+// on, or false where an operand is not contiguous
 bool f32_from_h0(int D, AttnArgs* a) {
   const int T_len = a->mk.T_len, S_len = a->mk.S_len, H = a->H;
   if (!a->sq.dense(H, T_len, D) || !a->sk.dense(H, S_len, D) || !a->sv.dense(H, S_len, D) ||
-      (a->dO && !a->sdo.dense(H, T_len, D)))
+      !a->sdo.dense(H, T_len, D))
     return false;
   const size_t qo = (size_t)a->h0 * T_len, ko = (size_t)a->h0 * S_len;
   a->q = static_cast<const float*>(a->q) + qo * D;
   a->k = static_cast<const float*>(a->k) + ko * D;
   a->v = static_cast<const float*>(a->v) + ko * D;
-  if (a->dO) {   // the backward (K8): lse, delta, dQ
-    a->dO = static_cast<const float*>(a->dO) + qo * D;
-    a->lse += qo;
-    a->delta += qo;
-    a->out0 = static_cast<float*>(a->out0) + qo * D;
-  } else {       // the forward: O, LSE
-    a->out0 = static_cast<float*>(a->out0) + qo * D;
-    a->out1 = static_cast<float*>(a->out1) + qo;
-  }
+  a->dO = static_cast<const float*>(a->dO) + qo * D;
+  a->lse += qo;
+  a->delta += qo;
+  a->out0 = static_cast<float*>(a->out0) + qo * D;
   a->h0 = 0;
   return true;
 }
 
-// K6 or K8 in f32: the tile loops, grid (ceil(T / 64), heads)
-template <Which W, int D>
-cudaError_t launch_attn_f32(AttnArgs a) {
+// K8 in f32: the tile loop, grid (ceil(T / 64), heads)
+template <int D>
+cudaError_t launch_dq_f32(AttnArgs a) {
   static std::mutex mu;
   static bool attr_set[kMaxDevices] = {};
   if (!f32_from_h0(D, &a)) return cudaErrorInvalidValue;
-  dim3 grid((a.mk.T_len + TILE - 1) / TILE, a.BH);
-  cudaError_t err;
-  if constexpr (W == Which::kFwd) {
-    constexpr size_t smem = fwd_smem_bytes<D>();
-    static_assert(smem <= kMaxSmemBytes, "block-sparse tiles do not fit in shared memory");
-    auto kernel = bs_fwd_kernel<D>;
-    err = smem_opt_in_once(kernel, (int)smem, mu, attr_set);
-    if (err != cudaSuccess) return err;
-    kernel<<<grid, NTHREADS, smem, a.stream>>>(
-        static_cast<const float*>(a.q), static_cast<const float*>(a.k),
-        static_cast<const float*>(a.v), static_cast<float*>(a.out0),
-        static_cast<float*>(a.out1), a.tab, a.mk, a.sm_scale);
-  } else {
-    constexpr size_t smem = dq_smem_bytes<D>();
-    static_assert(smem <= kMaxSmemBytes, "block-sparse tiles do not fit in shared memory");
-    auto kernel = bs_dq_kernel<D>;
-    err = smem_opt_in_once(kernel, (int)smem, mu, attr_set);
-    if (err != cudaSuccess) return err;
-    kernel<<<grid, NTHREADS, smem, a.stream>>>(
-        static_cast<const float*>(a.q), static_cast<const float*>(a.k),
-        static_cast<const float*>(a.v), static_cast<const float*>(a.dO), a.lse, a.delta,
-        static_cast<float*>(a.out0), a.tab, a.mk, a.sm_scale);
-  }
+  constexpr size_t smem = dq_smem_bytes<D>();
+  static_assert(smem <= kMaxSmemBytes, "block-sparse tiles do not fit in shared memory");
+  auto kernel = bs_dq_kernel<D>;
+  cudaError_t err = smem_opt_in_once(kernel, (int)smem, mu, attr_set);
+  if (err != cudaSuccess) return err;
+  kernel<<<dim3((a.mk.T_len + TILE - 1) / TILE, a.BH), NTHREADS, smem, a.stream>>>(
+      static_cast<const float*>(a.q), static_cast<const float*>(a.k),
+      static_cast<const float*>(a.v), static_cast<const float*>(a.dO), a.lse, a.delta,
+      static_cast<float*>(a.out0), a.tab, a.mk, a.sm_scale);
   return cudaGetLastError();
 }
 
 // bf16 at D 16-256, f32 to 128: over the block lists (order and rows
-// given) in bf16 and the f32 K7, over the tile tables in the f32 K6 and K8
+// given) in bf16 and the f32 K6 and K7, over the tile tables in the f32 K8
 template <Which W, typename T, int D>
 cudaError_t launch_attn(const AttnArgs& a) {
-  constexpr bool lists = kIsBf16<T> || W == Which::kDkv;
+  constexpr bool lists = kIsBf16<T> || W != Which::kDq;
   if constexpr (!kIsBf16<T> && D > 128) {
     return cudaErrorInvalidValue;
   } else if constexpr (lists) {
     if (a.order == nullptr || a.rows == nullptr) return cudaErrorInvalidValue;
     return launch_wgmma<W, D, T>(a);
   } else {
-    return launch_attn_f32<W, D>(a);
+    return launch_dq_f32<D>(a);
   }
 }
 
@@ -595,7 +460,7 @@ int smem_of(int dtype) {
                                     : DqCfg<D>::SMEM);
   if constexpr (D <= 128) {   // f32
     if (dtype == 0)
-      return (int)(W == Which::kFwd   ? fwd_smem_bytes<D>()
+      return (int)(W == Which::kFwd   ? FwdCfg<D, kTileRows, float>::SMEM
                    : W == Which::kDkv ? DkvCfg<D, float>::SMEM
                                       : dq_smem_bytes<D>());
   }
@@ -1044,21 +909,21 @@ cudaError_t dispatch_mm_tile(const MmArgs& a) {
 // Heads h0 .. h0 + BH - 1 of q, dO (., H, T, D) and k, v (., H, S, D) in
 // one dtype (0 = float32, 1 = bfloat16), each at its element strides
 // (strides: batch, head and row of q, k, v, then dO; the last dim
-// unit-stride); through TMA (bf16, and the f32 K7) every stride a multiple
-// of 16 bytes and each base 16-byte aligned, for the f32 K6 and K8
+// unit-stride); through TMA (bf16, and the f32 K6 and K7) every stride a
+// multiple of 16 bytes and each base 16-byte aligned, for the f32 K8
 // contiguous.  lse and delta (., T) f32 and the outputs contiguous, in the
 // inputs' dtype; every pointer is the tensor's start, not its head h0's.
 // bmask (T / bq, S / bk) uint8, the runtime block mask.  The tables as
-// ops/block_sparse.py builds them.  The f32 K6 and K8 read 64-row tile
-// tables: tiles (tiles, L) int32, counts (tiles,) int32, partial (tiles, L)
-// uint8; order and rows are not read.  The bf16 kernels and the f32 K7
+// ops/block_sparse.py builds them.  The f32 K8 reads 64-row tile tables:
+// tiles (tiles, L) int32, counts (tiles,) int32, partial (tiles, L) uint8;
+// order and rows are not read.  The bf16 kernels and the f32 K6 and K7
 // read block lists (128-row; 64-row for K7 and K8 at D 192 and 256 and for
 // the f32 K7): tiles (blocks, L) int32, counts (blocks,) int32, partial the
 // flag bytes (blocks, L) uint8, order (blocks,) int32 and rows (blocks, L)
 // uint64.  Each returns the cudaError_t of its launch (0 on success).
 
-// K6: o (BH, T, D), lse (BH, T); tables per q tile (f32) or per 128 query
-// rows (bf16: the lists K8 reads).
+// K6: o (BH, T, D), lse (BH, T); lists per 128 query rows (the lists the
+// bf16 K8 reads up to D 128), in both dtypes.
 extern "C" int bigdl_bs_fwd(const void* q, const void* k, const void* v, void* o, void* lse,
                             const void* tiles, const void* counts, const void* partial,
                             const void* bmask, const void* order, const void* rows, int L,

@@ -9,8 +9,9 @@
 // (block_sparse.cu), and so are K5's implicit GEMM (conv3x3.cu) and K9's
 // block-masked GEMM (block_sparse.cu).
 // Its last sections hold what the two attention bodies share: the block
-// shape and the steps of a sweep, and the split of f32 operands into bf16
-// pieces on which the f32 dK/dV forms its products.
+// shape and the steps of a sweep, the split of f32 operands into bf16
+// pieces on which the f32 forward and dK/dV form their products, and the
+// products themselves.
 //
 // Conventions.
 //   * Tiles land in shared memory by TMA with a swizzle whose span equals
@@ -534,7 +535,10 @@ __device__ __forceinline__ void stage_live_rows(unsigned char* dst, const T* __r
 // b1 (six products; the terms left out are 2^-24 of the product); with two
 // pieces of b, a2 b2 + a3 b1, a1 b2 + a2 b1, a1 b1 (five; b's own
 // rounding, 2^-17 of |b| at most, stays).  Two pieces a side, three
-// products, miss the f32 limits of the attention backward on the card
+// products, miss the f32 limits of the attention backward on the card,
+// and the forward's O needs three pieces of V too: the backward's delta =
+// rowsum(dO O) must match its own recomputed P . V to f32 rounding, or
+// the gradient of a key bias (zero in exact arithmetic) grows 20x
 // (PERF.md).  Operands in registers are split where they are packed
 // (split_bf16x3); a tile in shared memory is split in place (split_tile):
 // the bytes of an f32 tile are those of its a1 and a2 panels, and a3 goes
@@ -553,18 +557,20 @@ __device__ __forceinline__ void split_bf16x3(float x0, float x1, uint32_t& p1, u
   p3 = pack_bf16x2(r0 - b2.x, r1 - b2.y);
 }
 
-// One warpgroup splits the 64-row f32 tile at `t`, which TMA landed as
+// kThreads threads (a warpgroup, or both consumer warpgroups) split the
+// 64-row f32 tile at `t`, which TMA landed as
 // Panels<D, 4> (panels of 32 f32 columns, 128-byte rows, 8 KB apart; D 16
 // one panel of 64-byte rows), in place into its three bf16 pieces, each in
 // panels of Panels<D> (the swizzle of their rows; SPAN = 64 rows of one):
 // the first and second pieces of 64-column group g at t + 2 g SPAN and t +
 // (2 g + 1) SPAN, where the f32 panels 2 g and 2 g + 1 lay (so at D 128
 // each group is split on its own), and the third piece's panel g at t +
-// 64 D 4 + g SPAN, after the f32 bytes.  A thread takes 8 columns of a
-// row a step; the warpgroup reads a whole group before it writes it (named
-// barrier `bar`, its 128 threads).  The caller fences the writes to the
-// async proxy and synchronises before a wgmma reads them.
-template <int D>
+// 64 D 4 + g SPAN, after the f32 bytes.  A thread takes 8 columns of a row
+// a step; the threads read a whole group before they write it (named
+// barrier `bar`, the kThreads threads, ranked by threadIdx.x % kThreads).
+// The caller fences the writes to the async proxy and synchronises before
+// a wgmma reads them.
+template <int D, int kThreads = 128>
 __device__ __forceinline__ void split_tile(unsigned char* t, int bar) {
   using F = Panels<D, 4>;
   using P = Panels<D>;
@@ -572,17 +578,19 @@ __device__ __forceinline__ void split_tile(unsigned char* t, int bar) {
   constexpr int FPANEL = kTileRows * F::RB;        // one f32 panel
   constexpr int THIRD = kTileRows * D * 4;         // the third pieces, after the f32 bytes
   constexpr int CB = P::PW / 8;                    // 8-column blocks of a group's row
-  constexpr int N = kTileRows * CB / 128;          // blocks a thread
+  constexpr int BLOCKS = kTileRows * CB;           // of a group
+  constexpr int N = (BLOCKS + kThreads - 1) / kThreads;   // blocks a thread
   constexpr uint32_t SWZ_F = (F::RB / 16 - 1) << 4;
   constexpr uint32_t SWZ_B = (P::RB / 16 - 1) << 4;
-  const int tid = threadIdx.x % 128;
+  const int tid = threadIdx.x % kThreads;
 #pragma unroll
   for (int g = 0; g < P::NP; ++g) {
     unsigned char* grp = t + 2 * g * SPAN;
     float4 v[2 * N];
 #pragma unroll
     for (int i = 0; i < N; ++i) {
-      const int u = tid + 128 * i, r = u / CB, c = 8 * (u % CB);
+      const int u = tid + kThreads * i, r = u / CB, c = 8 * (u % CB);
+      if (BLOCKS % kThreads != 0 && u >= BLOCKS) break;
 #pragma unroll
       for (int e = 0; e < 2; ++e) {
         const int cc = c + 4 * e;   // a 16-byte chunk of f32 columns
@@ -591,10 +599,11 @@ __device__ __forceinline__ void split_tile(unsigned char* t, int bar) {
                                                         (a ^ ((a >> 3) & SWZ_F)));
       }
     }
-    named_barrier_sync(bar, 128);
+    named_barrier_sync(bar, kThreads);
 #pragma unroll
     for (int i = 0; i < N; ++i) {
-      const int u = tid + 128 * i, r = u / CB, c = 8 * (u % CB);
+      const int u = tid + kThreads * i, r = u / CB, c = 8 * (u % CB);
+      if (BLOCKS % kThreads != 0 && u >= BLOCKS) break;
       const float4 x = v[2 * i], y = v[2 * i + 1];
       uint4 p1, p2, p3;
       split_bf16x3(x.x, x.y, p1.x, p2.x, p3.x);
@@ -609,6 +618,74 @@ __device__ __forceinline__ void split_tile(unsigned char* t, int bar) {
     }
   }
 }
+
+// ---- the attention bodies' products ------------------------------------------
+
+// acc (m64 x 64 f32, one consumer warpgroup) = A . B^T over D (kAcc: acc
+// +=), both operands K-major panels in shared memory: A from 64 rows at
+// `a`, B from 64 rows at `b`, panel pitches kPanelA and kPanelB.  Issued,
+// not waited.
+template <int D, int kPanelA, int kPanelB, bool kAcc = false>
+__device__ __forceinline__ void wgmma_scores(float* acc, const unsigned char* a,
+                                             const unsigned char* b) {
+  using P = Panels<D>;
+#pragma unroll
+  for (int p = 0; p < P::NP; ++p)
+#pragma unroll
+    for (int j = 0; j < P::PW / 16; ++j)
+      wgmma_ss<kTileRows, 0>(acc, smem_desc<P::RB>(a + p * kPanelA + 32 * j),
+                             smem_desc<P::RB>(b + p * kPanelB + 32 * j), kAcc || p + j > 0);
+}
+
+// wgmma_scores of f32 tiles split in place into three pieces (split_tile:
+// pieces 1 and 2 in panels at pitch 2 kSpan, piece 2 kSpan after piece 1,
+// piece 3 at kThird in panels at pitch kSpan) as a1 b3 + a2 b2 + a3 b1,
+// then a1 b2 + a2 b1, then a1 b1.  Issued, not waited.
+template <int D, int kSpanA, int kSpanB, int kThird>
+__device__ __forceinline__ void wgmma_scores_split(float* acc, const unsigned char* a,
+                                                   const unsigned char* b) {
+  constexpr int PA = 2 * kSpanA, PB = 2 * kSpanB;
+  wgmma_scores<D, PA, kSpanB>(acc, a, b + kThird);
+  wgmma_scores<D, PA, PB, true>(acc, a + kSpanA, b + kSpanB);
+  wgmma_scores<D, kSpanA, PB, true>(acc, a + kThird, b);
+  wgmma_scores<D, PA, PB, true>(acc, a, b + kSpanB);
+  wgmma_scores<D, PA, PB, true>(acc, a + kSpanA, b);
+  wgmma_scores<D, PA, PB, true>(acc, a, b);
+}
+
+// acc (m64 x D f32) += A . B with A (64 x 64) packed bf16 in registers and
+// B the 64 x D tile at `b` (panel pitch kPanelB) read MN-major.  Issued,
+// not waited.
+template <int D, int kPanelB>
+__device__ __forceinline__ void wgmma_accumulate(float* acc, const uint32_t* a,
+                                                 const unsigned char* b) {
+  using P = Panels<D>;
+#pragma unroll
+  for (int kk = 0; kk < kTileRows / 16; ++kk)
+#pragma unroll
+    for (int p = 0; p < P::NP; ++p)
+      wgmma_rs<P::PW, 1>(acc + p * (P::PW / 2), a + 4 * kk,
+                         smem_desc<P::RB>(b + p * kPanelB + 16 * P::RB * kk), 1);
+}
+
+// wgmma_accumulate of an f32 A split in registers into three pieces
+// (split_bf16x3: a1, a2, a3) and an f32 tile split in place at `b` (as in
+// wgmma_scores_split), as a1 b3 + a2 b2 + a3 b1 (a1 b3 only where kThird
+// places b's third piece; with two, b's own rounding stays), then a1 b2 +
+// a2 b1, then a1 b1.  Issued, not waited.
+template <int D, int kSpanB, int kThird = 0>
+__device__ __forceinline__ void wgmma_accumulate_split(float* acc, const uint32_t* a1,
+                                                       const uint32_t* a2, const uint32_t* a3,
+                                                       const unsigned char* b) {
+  constexpr int PB = 2 * kSpanB;
+  if constexpr (kThird != 0) wgmma_accumulate<D, kSpanB>(acc, a1, b + kThird);
+  wgmma_accumulate<D, PB>(acc, a2, b + kSpanB);
+  wgmma_accumulate<D, PB>(acc, a3, b);
+  wgmma_accumulate<D, PB>(acc, a1, b + kSpanB);
+  wgmma_accumulate<D, PB>(acc, a2, b);
+  wgmma_accumulate<D, PB>(acc, a1, b);
+}
+
 
 // ---- tensor maps (host) ----------------------------------------------------
 

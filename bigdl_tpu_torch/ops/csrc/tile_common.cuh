@@ -1,9 +1,9 @@
 // Tile machinery shared by the port's attention kernels: the f32 paths of
-// K1, K3 (flash_fwd.cu, flash_bwd.cu), K6 and K8 (block_sparse.cu);
-// conv3x3.cu (K5), K9, attn_wide.cu and the Hopper kernels take its
-// helpers too.  It is the counterpart of the shared tile helpers at the
-// top of bigdl_tpu/ops/flash_attention.py.  The bf16 K1-K3, K5 and K6-K8
-// and the f32 K2 and K7 are built on hopper_common.cuh (TMA, mbarriers,
+// K3 (flash_bwd.cu) and K8 (block_sparse.cu); conv3x3.cu (K5), K9,
+// attn_wide.cu and the Hopper kernels take its helpers too.  It is the
+// counterpart of the shared tile helpers at the top of
+// bigdl_tpu/ops/flash_attention.py.  The bf16 K1-K3, K5 and K6-K8 and the
+// f32 K1, K2, K6 and K7 are built on hopper_common.cuh (TMA, mbarriers,
 // wgmma), the attention kernels also on attn_fwd_hopper.cuh and
 // attn_bwd_hopper.cuh.
 //
@@ -12,8 +12,8 @@
 // produces: it computes those rows of a score tile and then consumes the
 // same rows as the A operand of its own accumulation, so only loads of
 // shared tiles need a block-wide barrier.  The products are f32 FMA;
-// wgmma has no f32 product, and the f32 K2 and K7 form each of theirs from
-// bf16 products on three bf16 pieces of its operands instead
+// wgmma has no f32 product, and the f32 K1, K2, K6 and K7 form each of
+// theirs from bf16 products on bf16 pieces of its operands instead
 // (hopper_common.cuh), a design the kernels here have not taken yet.
 //
 // The header is included by one .cu file per shared library; everything

@@ -5,10 +5,11 @@ Kernels, CUDA C++ for ``sm_90a``; each source's header says what it
 computes, what bounds it and how:
 
 * K1 ``csrc/flash_fwd.cu`` replaces ``_fwd_kernel``
-  (``bigdl_tpu/ops/flash_attention.py:150``): for bf16 a warp-specialised
-  Hopper kernel (TMA loads into an mbarrier ring, wgmma products, the
-  softmax in registers, on ``csrc/hopper_common.cuh``), for f32 the FMA
-  tile loop of ``csrc/tile_common.cuh``;
+  (``bigdl_tpu/ops/flash_attention.py:150``): the warp-specialised Hopper
+  body of ``csrc/attn_fwd_hopper.cuh`` (TMA loads into an mbarrier ring,
+  wgmma products, the softmax in registers, on
+  ``csrc/hopper_common.cuh``); in f32 each f32 product is formed from
+  bf16 wgmma products on bf16 pieces of its operands (split in place);
 * K2 and K3 ``csrc/flash_bwd.cu`` replace ``_dkv_kernel`` (``:236``)
   and ``_dq_kernel`` (``:271``): for bf16 the warp-specialised Hopper
   body of ``csrc/attn_bwd_hopper.cuh`` (TMA ring, wgmma, dK/dV and dQ in
@@ -22,18 +23,18 @@ computes, what bounds it and how:
   ``LAUNCHES_WIDE``.
 
 Routing by dtype and head dim D, the same for the forward, dK/dV and
-dQ: f32 runs its kernels (the tile loops, K2's split products) at 16,
-32, 64 and 128 and the wide route above 128; bf16 runs the Hopper bodies
-at 16, 32, 64, 128, 192 and 256 and the wide route above 256.  A head
-dim between the built ones is zero-padded to the next
+dQ: f32 runs its kernels (K1's and K2's split products, K3's tile loop)
+at 16, 32, 64 and 128 and the wide route above 128; bf16 runs the Hopper
+bodies at 16, 32, 64, 128, 192 and 256 and the wide route above 256.  A
+head dim between the built ones is zero-padded to the next
 (``_padded_head_dim``: bf16 160 runs at 192, 200 at 256).
 
-Layouts: the Hopper kernels (every bf16 kernel and the f32 K2) read q,
-k, v and dO through TMA at their own strides, so the (B, T, H,
+Layouts: the Hopper kernels (every bf16 kernel, the f32 K1 and K2) read
+q, k, v and dO through TMA at their own strides, so the (B, T, H,
 D).transpose(1, 2) view that every attention layer makes is read in
 place; only an operand TMA cannot read (a start not 16-byte aligned, a
 stride not a multiple of 16 bytes, a last dim that is not unit-stride) is
-copied, and the routes without TMA (the f32 tile loops, the wide route)
+copied, and the routes without TMA (the f32 K3 tile loop, the wide route)
 copy what is not contiguous (``OPERAND_COPIES`` counts both).  Outputs
 are contiguous.
 
@@ -345,14 +346,15 @@ def _flash_cuda(q, k, v, causal: bool, sm_scale: float
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Launch K1 on the current stream of q's device (a head dim between
     the built ones zero-padded, O cut back; above them the wide route).
-    bf16 q, k and v are read at their strides (TMA), f32 contiguous."""
+    q, k and v are read at their strides through TMA in both dtypes
+    (copied where TMA cannot read them)."""
     _check_kernel_inputs("flash_attention", q, k, v)
     D_true = q.shape[-1]
     Dp = _padded_head_dim(D_true, q.dtype)
     if _wide(Dp, q.dtype):
         return _wide_fwd(q, k, v, causal, sm_scale, LAUNCHES)
     q, k, v = _kernel_operands(*(_pad_head_dim(t, Dp) for t in (q, k, v)),
-                               tma=q.dtype == torch.bfloat16)
+                               tma=True)
     B, H, T, D = q.shape
     fn = _c_fn("flash_fwd", "bigdl_flash_fwd", [_P] * 6 + [_I] * 7
                + [_F, _I, _P])

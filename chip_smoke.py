@@ -19,8 +19,8 @@ Phases; any failure exits non-zero:
    KC, BN and W orientation) its registers, spills and dynamic shared
    memory (ptxas) and its wgmma (HGMMA) and TMA (UTMALDG) instructions
    (``cuobjdump -sass``, where the toolkit has it); each bf16 attention
-   kernel at D 128, 192 and 256, the f32 K2 and K7 (bf16 products on
-   three bf16 pieces of each f32 operand) at D 16-128, K5 at KC 64 and
+   kernel at D 128, 192 and 256, the f32 K1, K2, K6 and K7 (bf16 products
+   on bf16 pieces of each f32 operand) at D 16-128, K5 at KC 64 and
    every K9 instantiation must not spill and must hold both (and the
    attention kernels must not have their wgmma serialised, ptxas C7520),
    and two K5 or K9 blocks must share an SM.
@@ -29,11 +29,12 @@ Phases; any failure exits non-zero:
    training, the matmul and the ResNet-50 paths give it, with the stated
    tolerance; the block-sparse kernels also at block 32, 8 (ragged
    T 200), 96, in f32, non-causal with a dead q block, strided, with NaN
-   in the K/V rows no query may attend, and on all-ones masks against
+   in the K/V rows no query may attend (bf16 D 128 and 256, f32 D 128),
+   and on all-ones masks against
    K1-K3 (K6-K8 = K1-K3 bit for bit on the same inputs in both dtypes);
    the attention kernels on the head-strided layout of an attention
-   layer at the training shapes (no copy; bit for bit the contiguous
-   launch) and K4 on a column slice; bf16 head dims 192 and 256 (the
+   layer at the training shapes and K1 also in f32 (no copy; bit for bit
+   the contiguous launch) and K4 on a column slice; bf16 head dims 192 and 256 (the
    Hopper bodies in all three passes, dK/dV and dQ on 64-row blocks; NaN
    in dead K/V at 256 too) and 320 (the wide route); K5 forward and dX at ResNet-50's
    four stage shapes (B 64, bf16), one in f32, ResNet-CIFAR's first
@@ -123,9 +124,12 @@ T_START = time.perf_counter()
 # H100 SXM data-sheet peaks (dense) and memory rate.  "float32" is the
 # rate of the FMA loops; "float32_split" the f32 rate of the f32 K2 and K7,
 # which form their four f32 products from 22 bf16 products on the tensor
-# cores (six for each score product, five for dV and dK)
+# cores (six for each score product, five for dV and dK);
+# "float32_split_fwd" that of the f32 K1 and K6: 12 bf16 products for
+# their two (six for S, six for P.V)
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12,
-              "float32_split": 989e12 * 4 / 22}
+              "float32_split": 989e12 * 4 / 22,
+              "float32_split_fwd": 989e12 * 2 / 12}
 MEM_BYTES_PER_S = 3.35e12
 
 FLAGSHIP = dict(vocab=32000, embed_dim=1024, num_heads=8, num_layers=8,
@@ -347,24 +351,27 @@ def sass_counts(so_path):
 DESIGN_KERNELS = (
     (r"attn_(fwd)_wgmma_kernelILi(\d+)E.*?(Dense|List)Sweep",
      {"fwdDense": "K1", "fwdList": "K6"}, "bfloat16"),
-    (r"(flash_fwd)_kernelIfLi(\d+)E", {"flash_fwd": "K1"}, "float32"),
+    (r"attn_(fwd)_split_kernelILi(\d+)E.*?(Dense|List)Sweep",
+     {"fwdDense": "K1", "fwdList": "K6"}, "float32"),
     (r"bwd_(dkv|dq)_wgmma_kernelILi(\d+)E.*?(Dense|List)Sweep",
      {"dkvDense": "K2", "dqDense": "K3", "dkvList": "K7", "dqList": "K8"},
      "bfloat16"),
     (r"bwd_(dkv)_split_kernelILi(\d+)E.*?(Dense|List)Sweep",
      {"dkvDense": "K2", "dkvList": "K7"}, "float32"),
     (r"flash_bwd_(dq)_kernelILi(\d+)E", {"dq": "K3"}, "float32"),
-    (r"bs_(fwd|dq)_kernelILi(\d+)E", {"fwd": "K6", "dq": "K8"}, "float32"),
+    (r"bs_(dq)_kernelILi(\d+)E", {"dq": "K8"}, "float32"),
 )
 
 
 # the head dims phase 2 holds each Hopper attention kernel to: in bf16 D
 # 128, 192 and 256 (K2, K3, K7 and K8 there are the 64-row blocks); the f32
-# K2 and K7 (the 64-row dK/dV block on split products) at every head dim
+# K1 and K6 (the forward on split products) and K2 and K7 (the 64-row
+# dK/dV block on split products) at every head dim
 CHECKED_HEAD_DIMS = {
     **{(label, "bfloat16"): (128, 192, 256)
        for label in ("K1", "K2", "K3", "K6", "K7", "K8")},
-    ("K2", "float32"): (16, 32, 64, 128), ("K7", "float32"): (16, 32, 64, 128)}
+    **{(label, "float32"): (16, 32, 64, 128)
+       for label in ("K1", "K2", "K6", "K7")}}
 
 
 def design_kernel(fn: str):
@@ -384,8 +391,8 @@ def kernel_design(torch):
     dynamic shared memory from ptxas, and its count of wgmma (HGMMA) and
     TMA load (UTMALDG) instructions in SASS.  Fails where a bf16 kernel
     at D 128, 192 or 256 (the bf16 route of head dims 129-256; K2, K3, K7
-    and K8 there are the 64-row dK/dV and dQ blocks), or the f32 K2 or K7
-    (split products) at D 16-128, spills, has its wgmma serialised by
+    and K8 there are the 64-row dK/dV and dQ blocks), or the f32 K1, K2,
+    K6 or K7 (split products) at D 16-128, spills, has its wgmma serialised by
     ptxas, holds no HGMMA or no UTMALDG, or is missing.  A library loaded
     from an earlier build in the same checkout has no ptxas report
     (``_support.BUILD_INFO``): its registers and spills read "not
@@ -547,8 +554,8 @@ def mm_design(torch):
 
 def flash_cases(torch):
     """(label, B, H, T, S, D, dtype, causal): the served prefill, the
-    training step, the 200-token batch, causal T > S, f32, narrower
-    heads, head dims 192 and 256 (the bf16 Hopper route of 129-256) and
+    training step, the 200-token batch, causal T > S, f32 (also
+    head-strided), narrower heads, head dims 192 and 256 (the bf16 Hopper route of 129-256) and
     320 (the wide route).  A label starting "strided" takes q, k and v in
     the (B, T, H, D).transpose(1, 2) layout an attention layer makes."""
     bf16, f32 = torch.bfloat16, torch.float32
@@ -558,6 +565,7 @@ def flash_cases(torch):
             ("ragged_T200", 4, 8, 200, 200, 128, bf16, True),
             ("causal_T>S", 2, 8, 300, 200, 128, bf16, True),
             ("f32_causal", 2, 8, 512, 512, 128, f32, True),
+            ("strided_f32_causal", 2, 8, 512, 512, 128, f32, True),
             ("f32_noncausal_D64", 2, 4, 200, 333, 64, f32, False),
             ("bf16_noncausal_D32", 2, 4, 96, 130, 32, bf16, False),
             ("bf16_causal_T1_D16", 3, 2, 1, 1, 16, bf16, True),
@@ -624,7 +632,10 @@ def check_flash(torch, F):
         pairs = sum(min(S, t + 1) for t in range(T)) if causal else T * S
         item = q.element_size()
         nbytes = item * (2 * B * H * T * D + 2 * B * H * S * D) + 4 * B * H * T
-        bound_ms, bound_by = bound(nbytes, 4.0 * B * H * pairs * D, dname)
+        # the f32 K1 forms its products from bf16 products on the tensor
+        # cores (the wide route on FMA)
+        bound_ms, bound_by = bound(nbytes, 4.0 * B * H * pairs * D,
+                                   split_rate(dname, wide, fwd=True))
         rows.append(dict(case=label, shape=[B, H, T, S, D], dtype=dname,
                          causal=causal, max_abs_err=err, row_rel_err=row_err,
                          lse_err=lse_err, tol=tol, ok=ok, wide_launches=wide,
@@ -934,20 +945,23 @@ def bs_cases(torch):
              bs.sliding_window_mask(8, 8, 2, 1, True, 128, 128))]
 
 
-def split_rate(dname: str, wide: int) -> str:
-    """The ``PEAK_FLOPS`` key of a dK/dV launch (K2, K7) in ``dname``:
-    in f32 its split products on the tensor cores, unless it took the
-    wide route (``wide`` launches), which runs on FMA."""
-    return "float32_split" if dname == "float32" and not wide else dname
+def split_rate(dname: str, wide: int, fwd: bool = False) -> str:
+    """The ``PEAK_FLOPS`` key of a dK/dV launch (K2, K7) or, with
+    ``fwd``, a forward launch (K1, K6) in ``dname``: in f32 its split
+    products on the tensor cores, unless it took the wide route (``wide``
+    launches), which runs on FMA."""
+    if dname != "float32" or wide:
+        return dname
+    return "float32_split_fwd" if fwd else "float32_split"
 
 
 def _bs_bounds(B, H, T, D, item, live, dname, wide):
     """(ms, by) of K6, K7 and K8 over ``live`` score elements per head:
     2, 4 and 3 products of 2 * live * D FLOP; bytes as K1-K3 move them;
-    K7 at ``split_rate``."""
+    K6 and K7 at ``split_rate``."""
     BH = B * H
     return (bound(item * 4 * BH * T * D + 4 * BH * T, 4.0 * BH * live * D,
-                  dname),
+                  split_rate(dname, wide, fwd=True)),
             bound(item * 6 * BH * T * D + 8 * BH * T, 8.0 * BH * live * D,
                   split_rate(dname, wide)),
             bound(item * 5 * BH * T * D + 8 * BH * T, 6.0 * BH * live * D,
@@ -959,8 +973,8 @@ def check_block_sparse(torch, F):
     on the same inputs (O and LSE from K6), row by row.  The all-ones
     cases also against K1-K3, fed the same (O, LSE, dO, delta) from K6:
     K6-K8 equal K1-K3 bit for bit in both dtypes (one Hopper body over
-    the same tiles in bf16 and for the f32 dK/dV, one FMA tile loop for
-    the f32 forward and dQ), and each pair is timed on those same tiles.
+    the same tiles in bf16 and for the f32 forward and dK/dV, one FMA
+    tile loop for the f32 dQ), and each pair is timed on those same tiles.
     Times: each kernel
     alone (graph replay), the plain forward and backward, and
     ``scaled_dot_product_attention`` with the elementwise boolean mask,
@@ -1102,15 +1116,16 @@ def check_block_sparse(torch, F):
               f"{'OK' if ok else 'FAIL'}")
         del q, k, v, d_o, o, lse, do, delta, dk, dv, dq
         torch.cuda.empty_cache()
-    rows += [check_bs_poison(torch, D) for D in (128, 256)]
+    rows += [check_bs_poison(torch, D, dt) for D, dt in (
+        (128, torch.bfloat16), (256, torch.bfloat16), (128, torch.float32))]
     return rows
 
 
-def check_bs_poison(torch, D):
+def check_bs_poison(torch, D, dt):
     """The skip proof on the card (``tests/test_block_sparse.py``'s, at
-    T 1024, block 32, head dim D): NaN in every K/V row that no query may
-    attend; O, LSE and the three gradients finite and equal to the clean
-    run's bit for bit."""
+    T 1024, block 32, head dim D, dtype ``dt``): NaN in every K/V row that
+    no query may attend; O, LSE and the three gradients finite and equal
+    to the clean run's bit for bit."""
     import numpy as np
 
     from bigdl_tpu_torch.ops import block_sparse as bs
@@ -1121,7 +1136,7 @@ def check_bs_poison(torch, D):
     mask = bs.BlockMask(m, 32, 32)
     g = torch.Generator(device="cuda").manual_seed(19)
     q, k, v, d_o = (torch.randn(2, 8, 1024, D, device="cuda", generator=g
-                                ).bfloat16() for _ in range(4))
+                                ).to(dt) for _ in range(4))
     dead = ~bs._elementwise_keep(mask, True, "cuda").any(dim=0)
     kp, vp = k.clone(), v.clone()
     kp[:, :, dead] = float("nan")
@@ -1138,11 +1153,13 @@ def check_bs_poison(torch, D):
     same = {n: bool(torch.equal(a, b))
             for n, a, b in zip(names, runs[1], runs[0])}
     ok = all(finite.values()) and all(same.values())
+    dname = str(dt).split(".")[-1]
     print(f"K6-K8 NaN-poisoned dead K/V ({int(dead.sum())} rows of 1024, "
-          f"block 32, D {D}): finite {finite} equal to the clean run {same} "
-          f"{'OK' if ok else 'FAIL'}")
-    return dict(case=f"nan_poison_block32_D{D}", dead_rows=int(dead.sum()),
-                finite=finite, equals_clean_bitwise=same, ok=ok)
+          f"block 32, D {D}, {dname}): finite {finite} equal to the clean "
+          f"run {same} {'OK' if ok else 'FAIL'}")
+    return dict(case=f"nan_poison_block32_D{D}_{dname}",
+                dead_rows=int(dead.sum()), finite=finite,
+                equals_clean_bitwise=same, ok=ok)
 
 
 def mm_cases(torch):
@@ -2160,8 +2177,7 @@ def train_resnet50(torch):
 def _kernel_group(name: str) -> str:
     if "wide_" in name:
         return "wide route (head dims above the built ones)"
-    if "bs_fwd_kernel" in name or ("fwd_wgmma" in name
-                                   and "ListSweep" in name):
+    if "attn_fwd_" in name and "ListSweep" in name:   # bf16 and f32
         return "K6 block_sparse_fwd"
     if "bwd_dkv_" in name and "ListSweep" in name:   # bf16 and f32
         return "K7 block_sparse_bwd_dkv"
@@ -2170,7 +2186,7 @@ def _kernel_group(name: str) -> str:
         return "K8 block_sparse_bwd_dq"
     if "bs_mm_kernel" in name:
         return "K9 block_sparse_mm"
-    if "flash_fwd" in name or "fwd_wgmma" in name:
+    if "attn_fwd_" in name:
         return "K1 flash_fwd"
     if "bwd_dkv_" in name:
         return "K2 flash_bwd_dkv"

@@ -376,11 +376,13 @@ def test_tile_work_at_the_training_shape():
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_k6_and_k8_launch_over_one_query_table(monkeypatch, dtype):
     """K6 and K8 own the same query rows and stream the same key tiles:
-    both launches pass the pointers of the one ``_attention_tables``
-    entry ``_query_tables`` names, the 128-row block lists (``dq_blocks``,
-    with their block order and live rows) in bf16 and the 64-row tile
-    lists (``fwd``) in f32, and the same ints.  The launches are recorded
-    on CPU tensors, not run."""
+    in bf16 both launches pass the pointers of the one
+    ``_attention_tables`` entry ``_query_tables`` names, the 128-row block
+    lists (``dq_blocks``, with their block order and live rows), and the
+    same ints.  In f32 K6 reads those same 128-row lists (its body is
+    bf16's) while K8, still a tile loop, reads the 64-row tile lists
+    (``fwd``): the block mask and the ints are shared.  The launches are
+    recorded on CPU tensors, not run."""
     mask = P.sliding_window_mask(8, 8, 2, 1, True, 32, 32)
     calls = {}
 
@@ -396,15 +398,16 @@ def test_k6_and_k8_launch_over_one_query_table(monkeypatch, dtype):
     which = P._query_tables(dtype, 64)
     assert which == ("dq_blocks" if dtype == torch.bfloat16 else "fwd")
     tab = P._attention_tables(mask, True, q.device)
+    t = tab["dq_blocks"]
+    lists = [t[n].data_ptr() for n in ("tiles", "counts", "flags")]
+    lists += [tab["block_mask"].data_ptr(), t["order"].data_ptr(),
+              t["rows"].data_ptr()]
     if dtype == torch.bfloat16:
-        t = tab[which]
-        want = [t[n].data_ptr() for n in ("tiles", "counts", "flags")]
-        extra = [t["order"].data_ptr(), t["rows"].data_ptr()]
+        want = lists
     else:
         tiles, flags, counts = tab[which]
-        want = [tiles.data_ptr(), counts.data_ptr(), flags.data_ptr()]
-        extra = [None, None]
-    want += [tab["block_mask"].data_ptr(), *extra]
+        want = [tiles.data_ptr(), counts.data_ptr(), flags.data_ptr(),
+                tab["block_mask"].data_ptr(), None, None]
     fwd_fn, fwd_args = calls["block_sparse_fwd"]
     dq_fn, dq_args = calls["block_sparse_bwd_dq"]
     # after the tensors (5 and 7): the tables, then L, the mask's shape,
@@ -412,8 +415,9 @@ def test_k6_and_k8_launch_over_one_query_table(monkeypatch, dtype):
     assert fwd_fn == ("bigdl_bs_fwd", 5 + 6)
     assert dq_fn == ("bigdl_bs_bwd_dq", 7 + 6)
     fwd_args, dq_args = fwd_args[5:], dq_args[7:]
-    assert fwd_args[:6] == want and dq_args[:6] == want
-    assert fwd_args[6:10] == dq_args[6:10]
+    assert fwd_args[:6] == lists and dq_args[:6] == want
+    assert fwd_args[6] == t["tiles"].shape[1]
+    assert fwd_args[7:10] == dq_args[7:10]
     assert list(fwd_args[10]) == list(dq_args[10])[:9]
     assert fwd_args[11:] == dq_args[11:]
 

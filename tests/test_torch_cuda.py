@@ -8,8 +8,9 @@ conftest (which configures jax):
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q
 
 Each kernel is held against its plain PyTorch version on the same
-inputs, forward and backward (the f32 dK/dV, K2 and K7, on its three
-bf16 products an f32 one at every head dim it is built for), also at
+inputs, forward and backward (the f32 forward, K1 and K6, and dK/dV, K2
+and K7, on bf16 products an f32 one at every head dim they are built
+for), also at
 head dims the kernels are not
 built for (zero-padded to the next, or above them, f32 128 and bf16
 256, through the wide route) and at more heads than one grid takes; a small TransformerLM served on
@@ -167,17 +168,15 @@ def test_kernels_reject_what_they_do_not_take(cuda_device):
     with pytest.raises(TypeError):
         fa.flash_attention(q, q, q)
     # the (B, T, H, D).transpose(1, 2) layout every attention layer makes
-    # is taken (it raised before): bf16 read in place, f32 copied for the
-    # tile loop; the plain version's result, and the contiguous launch's
-    # bits
+    # is taken (it raised before): read in place in both dtypes; the plain
+    # version's result, and the contiguous launch's bits
     for dtype in (bf16, torch.float32):
         q = torch.randn(1, 16, 2, 32, device=cuda_device,
                         generator=g).to(dtype).transpose(1, 2)
         copies = fa.OPERAND_COPIES.count
         o = fa.flash_attention(q, q, q)
         torch.cuda.synchronize()
-        assert fa.OPERAND_COPIES.count - copies == (
-            0 if dtype == bf16 else 3)
+        assert fa.OPERAND_COPIES.count == copies
         want = fa._flash_plain(q, q, q, False, 1 / math.sqrt(32))[0]
         assert _row_rel_err(o, want) <= ROW_TOL[dtype]
         qc = q.contiguous()
@@ -538,6 +537,109 @@ def test_f32_dkv_runs_the_split_products_on_card(cuda_device, case, which):
     if mask is not None:   # the dead key block's rows are exactly zero
         assert not runs[0][0][:, :, S - bk:].any()
         assert not runs[0][1][:, :, S - bk:].any()
+
+
+# (T, S, D, causal, layout, bq, bk): the f32 forward (K1, and K6 under a
+# block mask of bq x bk blocks): the dK/dV cases, one query row, and the
+# edges of a 128-row block (the second 64-row q tile partly or wholly past
+# T)
+F32_FWD_CASES = dict(
+    F32_DKV_CASES,
+    D16_causal_T1=(1, 1, 16, True, "contiguous", 1, 1),
+    D128_causal_T64=(64, 64, 128, True, "contiguous", 32, 32),
+    D32_noncausal_T65_S130=(65, 130, 32, False, "contiguous", 13, 26),
+    D128_strided_causal_T264=(264, 264, 128, True, "strided", 24, 24))
+
+
+@pytest.mark.parametrize("case", sorted(F32_FWD_CASES))
+@pytest.mark.parametrize("which", ["flash", "block_sparse"])
+def test_f32_forward_runs_the_split_products_on_card(cuda_device, case,
+                                                     which):
+    """The f32 K1 (flash) and K6 (block-sparse) on the Hopper forward
+    body whose f32 products are formed from bf16 products on bf16 pieces
+    of their operands: one launch per call, no wide launch, q, k and v
+    read where they lie (no operand copy, the head-strided layout too,
+    whose O and LSE are the contiguous launch's bits), O row by row
+    within the f32 limit of the plain forward and LSE within 1e-3, and
+    two launches give the same bits."""
+    T, S, D, causal, layout, bq, bk = F32_FWD_CASES[case]
+    g = torch.Generator(device=cuda_device).manual_seed(T * 5 + D)
+
+    def make(rows):
+        if layout == "strided":
+            return torch.randn(2, rows, 4, D, device=cuda_device,
+                               generator=g).transpose(1, 2)
+        return torch.randn(2, 4, rows, D, device=cuda_device, generator=g)
+
+    q, k, v = make(T), make(S), make(S)
+    scale = 1 / math.sqrt(D)
+    if which == "flash":
+        counter = fa.LAUNCHES
+
+        def launch(*t):
+            return fa._flash_cuda(*t, causal, scale)
+
+        want = fa._flash_plain(q, k, v, causal, scale)
+    else:
+        mask = _f32_dkv_mask(T, S, bq, bk) if T > 1 else bs.BlockMask(
+            np.ones((1, 1), bool), 1, 1)
+        counter = bs.LAUNCHES
+
+        def launch(*t):
+            return bs._bs_fwd_cuda(*t, mask, causal, scale)
+
+        want = bs._bs_attention_plain(q, k, v, mask, causal, scale)
+    counts = (counter.count, fa.OPERAND_COPIES.count, fa.LAUNCHES_WIDE.count)
+    runs = [launch(q, k, v), launch(q, k, v)]
+    torch.cuda.synchronize()
+    assert (counter.count, fa.OPERAND_COPIES.count, fa.LAUNCHES_WIDE.count) \
+        == (counts[0] + 2, counts[1], counts[2])
+    for a, b in zip(*runs):
+        assert a.dtype == torch.float32 and a.is_contiguous()
+        assert torch.equal(a, b)
+    o, lse = runs[0]
+    assert torch.isfinite(o).all()
+    assert _row_rel_err(o, want[0]) <= ROW_TOL[torch.float32]
+    assert (lse - want[1]).abs().max().item() <= 1e-3
+    if layout == "strided":
+        same = launch(q.contiguous(), k.contiguous(), v.contiguous())
+        assert torch.equal(o, same[0]) and torch.equal(lse, same[1])
+
+
+@pytest.mark.parametrize("D", [16, 32, 64, 128])
+def test_f32_forward_of_k6_is_k1s_and_never_reads_dead_kv_on_card(
+        cuda_device, D):
+    """The f32 K6 runs K1's f32 body over the 128-row query lists: on an
+    all-ones causal mask at block 128 they visit the same 64-key tiles in
+    the same order with the same flags, so O and LSE are K1's bits, also
+    at a ragged T 200 (block 40).  Under a mask at block 32 with NaN in
+    every K/V row that no query may attend, O and LSE equal the clean
+    run's bit for bit."""
+    q, k, v, _ = _bs_inputs(512, 512, D, torch.float32, cuda_device, D + 1)
+    scale = 1 / math.sqrt(D)
+    for T, block in ((512, 128), (200, 40)):
+        n = T // block
+        ones = bs.BlockMask(np.ones((n, n), bool), block, block)
+        got = bs._bs_fwd_cuda(q[:, :, :T], k[:, :, :T], v[:, :, :T], ones,
+                              True, scale)
+        want = fa._flash_cuda(q[:, :, :T], k[:, :, :T], v[:, :, :T], True,
+                              scale)
+        torch.cuda.synchronize()
+        for a, b in zip(got, want):
+            assert torch.equal(a, b)
+    m = np.eye(16, dtype=bool)
+    m[:, 0] = True
+    m[9, 9] = False   # k block 9 is read by no query
+    mask = bs.BlockMask(m, 32, 32)
+    dead = ~bs._elementwise_keep(mask, True, cuda_device).any(dim=0)
+    kp, vp = k.clone(), v.clone()
+    kp[:, :, dead] = float("nan")
+    vp[:, :, dead] = float("nan")
+    runs = [bs._bs_fwd_cuda(q, kk, vv, mask, True, scale)
+            for kk, vv in ((k, v), (kp, vp))]
+    torch.cuda.synchronize()
+    for a, b in zip(*runs):
+        assert torch.isfinite(b).all() and torch.equal(a, b)
 
 
 @pytest.mark.parametrize("D", [16, 32, 64, 128])
@@ -975,8 +1077,8 @@ def test_block_sparse_all_ones_mask_is_the_flash_kernels(cuda_device, dtype):
     K7/K8 fed the same (O, LSE, dO) from K6 equal K2/K3, bit for bit in
     both dtypes: in bf16 each pair is one Hopper body
     (``attn_fwd_hopper.cuh``, ``attn_bwd_hopper.cuh``) over the same
-    tiles; in f32 K7 and K2 are one Hopper body too (its split products),
-    K6/K1 and K8/K3 one FMA tile loop."""
+    tiles; in f32 K6/K1 and K7/K2 are one Hopper body too (their split
+    products), K8/K3 one FMA tile loop."""
     T, D = 512, 128 if dtype == torch.bfloat16 else 64
     mask = bs.BlockMask(np.ones((4, 4), bool), 128, 128)
     q, k, v, d_o = _bs_inputs(T, T, D, dtype, cuda_device, 7)

@@ -1,23 +1,27 @@
-"""The arithmetic of the f32 dK/dV kernel (K2 and K7 in f32) on the CPU.
+"""The arithmetic of the f32 forward (K1 and K6 in f32) and dK/dV (K2
+and K7 in f32) kernels on the CPU.
 
-The kernel forms every f32 product from bf16 products on the tensor
+The kernels form every f32 product from bf16 products on the tensor
 cores: each f32 operand a is split into bf16 pieces a1 = bf16(a), a2 =
 bf16(a - a1), a3 = bf16(a - a1 - a2), and a product a . b is a sum of
 bf16 products with f32 accumulation, small terms first: a1 b3 + a2 b2 +
-a3 b1, a1 b2 + a2 b1, a1 b1 for the scores S^T = K . Q^T and dP^T = V .
-dO^T (six), a2 b2 + a3 b1, a1 b2 + a2 b1, a1 b1 for dV = P^T . dO and dK
-= dS^T . Q with dO and Q in two pieces (five) (``csrc/hopper_common.cuh``,
-``split_tile`` and ``split_bf16x3``; ``csrc/attn_bwd_hopper.cuh``,
-``dkv_f32_consume``).  ``_dkv_split`` below forms dK and dV that way from
-seeded numpy inputs, and the results are held row by row, at the f32
-limit the card holds the kernel to (1e-4), against the dK and dV that
-``jax.vjp`` takes through the JAX package's ``flash_attention`` and
-``block_sparse_attention`` with ``interpret=True``: the Pallas kernels
-``_flash_bwd`` and ``_bs_bwd`` in interpret mode where the shapes reach
-them, the JAX package's plain reference where they do not (T 130).
+a3 b1, a1 b2 + a2 b1, a1 b1 for the scores S = Q . K^T, S^T = K . Q^T
+and dP^T = V . dO^T and for O += P . V (six), a2 b2 + a3 b1, a1 b2 + a2
+b1, a1 b1 for dV = P^T . dO and dK = dS^T . Q with dO and Q in two
+pieces (five) (``csrc/hopper_common.cuh``, ``split_tile`` and
+``split_bf16x3``; ``csrc/attn_fwd_hopper.cuh``, ``fwd_f32_consume``;
+``csrc/attn_bwd_hopper.cuh``, ``dkv_f32_consume``).  ``_fwd_split`` and
+``_dkv_split`` below form O and LSE, and dK and dV, that way from seeded
+numpy inputs, and the results are held row by row, at the f32 limit the
+card holds the kernels to (1e-4; LSE 1e-3), against the JAX package's
+``flash_attention`` and ``block_sparse_attention`` with
+``interpret=True`` (the forward's O and LSE, and the dK and dV that
+``jax.vjp`` takes): the Pallas kernels in interpret mode where the
+shapes reach them, the JAX package's plain reference where they do not
+(T 130).
 
-The kernel itself is held against the port's plain backward on the
-card by ``tests/test_torch_cuda.py`` and ``chip_smoke.py``.
+The kernels themselves are held against the port's plain versions on
+the card by ``tests/test_torch_cuda.py`` and ``chip_smoke.py``.
 """
 import math
 
@@ -29,6 +33,7 @@ import jax
 import jax.numpy as jnp
 
 from bigdl_tpu.ops import block_sparse as J
+from bigdl_tpu.ops.flash_attention import _attention_reference, _flash_fwd
 from bigdl_tpu.ops.flash_attention import flash_attention as jax_flash
 from bigdl_tpu_torch.ops import block_sparse as P
 from bigdl_tpu_torch.ops import flash_attention as fa
@@ -40,7 +45,10 @@ torch.set_num_threads(1)
 # the f32 limit of the attention kernels, row by row (chip_smoke.py
 # ROW_TOL["float32"])
 ROW_TOL = 1e-4
+LSE_TOL = 1e-3
 LOG2E = 1.4426950408889634
+LN2 = math.log(2)
+KEY_TILE = 64   # the key rows of a tile the f32 forward sweeps
 
 
 def _row_rel_err(got, ref):
@@ -78,8 +86,11 @@ def _mm(a, b, na, nb):
     return acc
 
 
-#: the kernel's products: (pieces of A, of B) for the scores and for dV, dK
+#: the dK/dV kernel's products: (pieces of A, of B) for the scores and for
+#: dV, dK
 KERNEL = dict(scores=(3, 3), acc=(3, 2))
+#: the forward kernel's: three pieces a side for S and for P . V
+FORWARD = dict(scores=(3, 3), acc=(3, 3))
 #: the first design: three bf16 products of two pieces for every product
 #: (it read 1.4e-4 on the card, PERF.md)
 TWO_PIECES = dict(scores=(2, 2), acc=(2, 2))
@@ -106,6 +117,36 @@ def _dkv_split(q, k, v, o, lse, d_o, keep, scale, design=KERNEL):
     dst = torch.where(keep.T, pt * (dpt - delta), torch.zeros(()))
     return (_mm(dst, q, *design["acc"]) * scale,
             _mm(pt, d_o, *design["acc"]))
+
+
+def _fwd_split(q, k, v, keep, scale, design=FORWARD):
+    """O (B, H, T, D) and LSE (B * H, 1, T) as the f32 K1/K6 compute them:
+    over 64-key tiles, S = Q . K^T, scaled to base 2 (scale log2 e) and
+    masked to -inf where ``keep`` ((T, S) bool) is false, the running max
+    m, the factor alpha = exp2(m_old - m) that rescales the running sum l
+    and the accumulator, P = exp2(S - m), l summed from the unrounded P,
+    O += P . V; O = acc / max(l, 1e-30) and LSE = (m + log2 l) ln 2, 1e30
+    where l is 0; every product by ``_mm`` with the pieces ``design``
+    gives."""
+    B, H, T, D = q.shape
+    m = torch.full((B, H, T, 1), -math.inf)
+    l = torch.zeros(B, H, T, 1)
+    acc = torch.zeros(B, H, T, D)
+    zero = torch.zeros(())
+    for k0 in range(0, k.shape[2], KEY_TILE):
+        kt, vt = (t[:, :, k0:k0 + KEY_TILE] for t in (k, v))
+        s = _mm(q, kt.transpose(-1, -2), *design["scores"]) * (scale * LOG2E)
+        s = s.masked_fill(~keep[:, k0:k0 + KEY_TILE], -math.inf)
+        m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
+        m_safe = torch.where(m_new == -math.inf, zero, m_new)
+        alpha = torch.where(m == -math.inf, zero, torch.exp2(m - m_safe))
+        p = torch.exp2(s - m_safe)
+        l = l * alpha + p.sum(dim=-1, keepdim=True)
+        acc = acc * alpha + _mm(p, vt, *design["acc"])
+        m = m_new
+    lse = torch.where(l > 0, (m + torch.log2(l.clamp_min(1e-30))) * LN2,
+                      torch.full_like(l, 1e30))
+    return acc / l.clamp_min(1e-30), lse.reshape(B * H, 1, T)
 
 
 def _inputs(B, H, T, S, D, seed):
@@ -146,6 +187,129 @@ def test_split_products_match_the_jax_flash_backward(case):
     got = _dkv_split(t[0], t[1], t[2], o, lse, t[3], keep, scale)
     for name, a, b in zip(("dk", "dv"), got, want):
         assert _row_rel_err(a, b) <= ROW_TOL, name
+
+
+def _lse_ref(q, k, keep, scale):
+    """The row log-sum-exp of the masked scores in f64 (1e30 for a row
+    with no kept key), (B * H, 1, T): the reference where the JAX
+    package's Pallas forward is not reached."""
+    s = np.einsum("bhtd,bhsd->bhts", q.astype(np.float64),
+                  k.astype(np.float64)) * scale
+    s = np.where(keep, s, -np.inf)
+    m = s.max(axis=-1, keepdims=True)
+    live = np.isfinite(m)
+    m = np.where(live, m, 0.0)
+    lse = np.where(live, m + np.log(np.exp(s - m).sum(-1, keepdims=True)),
+                   1e30)
+    B, H, T, _ = q.shape
+    return torch.from_numpy(lse.reshape(B * H, 1, T))
+
+
+@pytest.mark.parametrize("case", sorted(FLASH_CASES))
+def test_split_forward_matches_the_jax_flash_forward(case):
+    """The split products' O and LSE against the JAX package's flash
+    forward: ``_flash_fwd`` (the Pallas kernel in interpret mode) where
+    the shapes reach it, its plain reference (O; LSE in f64) at T 130."""
+    B, H, T, S, D, causal = FLASH_CASES[case]
+    q, k, v, _ = _inputs(B, H, T, S, D, seed=2 * len(case))
+    scale = 1 / math.sqrt(D)
+    keep = (fa._causal_keep(T, S, "cpu") if causal
+            else torch.ones(T, S, dtype=torch.bool))
+    j = [jnp.asarray(a) for a in (q, k, v)]
+    if T % 128 == 0 and S % 128 == 0:
+        o_want, lse_want = _flash_fwd(*j, causal, scale, 128, 128, True)
+        lse_want = torch.from_numpy(np.array(lse_want))
+    else:
+        o_want = _attention_reference(*j, causal, scale)
+        lse_want = _lse_ref(q, k, keep.numpy(), scale)
+    o, lse = _fwd_split(*(torch.from_numpy(a) for a in (q, k, v)), keep,
+                        scale)
+    assert _row_rel_err(o, torch.from_numpy(np.array(o_want))) <= ROW_TOL
+    assert (lse.double() - lse_want.double()).abs().max().item() <= LSE_TOL
+
+
+def test_split_forward_matches_the_jax_block_sparse_forward():
+    """Under a block mask with a dead query block: the split products' O
+    and LSE against ``_bs_fwd`` (the Pallas kernel in interpret mode);
+    the dead block's rows are O = 0 and LSE = 1e30 on both sides."""
+    m = J.sliding_window_mask(8, 8, 2, 1, True, 32, 32).mask.copy()
+    m[3, :] = False
+    mask = J.BlockMask(m, 32, 32)
+    q, k, v, _ = _inputs(1, 2, 256, 256, 32, seed=13)
+    scale = 1 / math.sqrt(32)
+    o_want, lse_want = J._bs_fwd(*(jnp.asarray(a) for a in (q, k, v)), mask,
+                                 True, scale, True)
+    o_want, lse_want = (torch.from_numpy(np.array(a))
+                        for a in (o_want, lse_want))
+    port = P.BlockMask(mask.mask, mask.block_q, mask.block_k)
+    keep = P._elementwise_keep(port, True, "cpu")
+    o, lse = _fwd_split(*(torch.from_numpy(a) for a in (q, k, v)), keep,
+                        scale)
+    assert _row_rel_err(o, o_want) <= ROW_TOL
+    assert (lse - lse_want).abs().max().item() <= LSE_TOL
+    for a, b in ((o, o_want), (lse[:, :, :, None], lse_want[:, :, :, None])):
+        dead = a.reshape(2, 256, -1)[:, 96:128]
+        assert torch.equal(dead, b.reshape(2, 256, -1)[:, 96:128])
+    assert not o[:, :, 96:128].any() and (lse[:, :, 96:128] == 1e30).all()
+
+
+@pytest.mark.parametrize("case", ["causal_D128", "causal_D16"])
+def test_the_forwards_pieces_leave_the_f32_limit_room(case):
+    """The forward's designs against the f32 plain forward: one bf16
+    product per f32 product misses 1e-4 (and LSE 1e-3) by far; three
+    products on two pieces a side pass, within a third of the limit, and
+    five for P . V (V in two pieces, the dK/dV kernel's plan) read less;
+    the kernel's six products on three pieces a side, for S and for P .
+    V, read a tenth of the limit or less and less than either."""
+    B, H, T, S, D, causal = FLASH_CASES[case]
+    q, k, v, _ = _inputs(B, H, T, S, D, seed=3)
+    scale = 1 / math.sqrt(D)
+    t = [torch.from_numpy(a) for a in (q, k, v)]
+    want = fa._flash_plain(*t, causal, scale)
+    keep = fa._causal_keep(T, S, "cpu")
+    err = {}
+    for name, design in (("kernel", FORWARD), ("five", KERNEL),
+                         ("two", TWO_PIECES), ("one", ONE_PIECE)):
+        o, lse = _fwd_split(*t, keep, scale, design)
+        err[name] = _row_rel_err(o, want[0])
+        lse_err = (lse - want[1]).abs().max().item()
+        assert (lse_err > LSE_TOL) == (name == "one")
+    assert err["one"] > 10 * ROW_TOL
+    assert err["two"] <= ROW_TOL / 3
+    assert err["kernel"] <= ROW_TOL / 10
+    assert err["kernel"] < err["five"] < err["two"]
+
+
+def test_the_forwards_o_keeps_the_key_bias_gradient_at_rounding_level():
+    """A key bias adds the same q . b to every score of a row, which the
+    softmax ignores: its gradient, the sum of dK over the key rows, is 0
+    in exact arithmetic and rounding noise in f32.  The backward's delta =
+    rowsum(dO O) takes O from the forward and its own P . dP from
+    recomputed products, so that noise grows with O's error: O from P . V
+    on two pieces of V (five products, or three on two pieces of P too)
+    leaves V's rounding in O and the sum 10x the plain f32 pipeline's; the
+    kernel's six products on three pieces of P and of V, with the f32
+    dK/dV's products, keep it at that level.  (The f32 training test on
+    the card holds this sum, a key bias's update, against the CPU's.)
+    The shape is that test's attention: B 3, 4 heads of 16, T 20,
+    causal."""
+    rng = np.random.RandomState(0)
+    q, k, v, g = (torch.from_numpy(rng.randn(3, 4, 20, 16)
+                                   .astype(np.float32)) for _ in range(4))
+    scale = 1 / math.sqrt(16)
+    keep = fa._causal_keep(20, 20, "cpu")
+    o, lse = fa._flash_plain(q, k, v, True, scale)
+    plain = fa._flash_bwd_plain(q, k, v, o, lse, g, True, scale)[1]
+    noise = plain.sum(dim=2).norm().item()
+    sums = {}
+    for name, acc in (("kernel", (3, 3)), ("five", (3, 2)),
+                      ("three", (2, 2))):
+        o, lse = _fwd_split(q, k, v, keep, scale, dict(scores=(3, 3),
+                                                       acc=acc))
+        dk, _ = _dkv_split(q, k, v, o, lse, g, keep, scale)
+        sums[name] = dk.sum(dim=2).norm().item()
+    assert sums["kernel"] <= 2 * noise
+    assert min(sums["five"], sums["three"]) > 10 * noise
 
 
 def _dead_block_mask():

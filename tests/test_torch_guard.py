@@ -1,9 +1,10 @@
 """Guards of the PyTorch/CUDA port (bigdl_tpu_torch).
 
-* The port, ``chip_smoke.py``, ``k9_variants.py`` and ``f32_steps.py``
-  import neither jax/jaxlib nor anything of the JAX package.  The scan
-  is static (an AST walk of the sources): the interpreter that runs the
-  tests may already hold jax, so an import-time check could not tell.
+* The port, ``chip_smoke.py``, ``k1_variants.py``, ``k9_variants.py``
+  and ``f32_steps.py`` import neither jax/jaxlib nor anything of the JAX
+  package.  The scan is static (an AST walk of the sources): the
+  interpreter that runs the tests may already hold jax, so an
+  import-time check could not tell.
 * The default device is the GPU: with no CUDA device an entry point
   raises instead of running on the CPU; only ``device="cpu"`` runs
   there.
@@ -22,8 +23,8 @@ FORBIDDEN = ("jax", "jaxlib", "bigdl_tpu")
 
 def _port_sources():
     files = sorted((REPO / "bigdl_tpu_torch").rglob("*.py"))
-    return files + [REPO / "chip_smoke.py", REPO / "k9_variants.py",
-                    REPO / "f32_steps.py"]
+    return files + [REPO / "chip_smoke.py", REPO / "k1_variants.py",
+                    REPO / "k9_variants.py", REPO / "f32_steps.py"]
 
 
 def forbidden_imports(source: str):

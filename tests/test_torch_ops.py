@@ -326,10 +326,11 @@ def test_head_strided_operands_reach_the_attention_kernels_in_place(
 
 def test_attention_wrappers_copy_only_what_the_kernels_cannot_read(
         monkeypatch):
-    """Through TMA (bf16) an operand is read in place unless its start is
-    not 16-byte aligned, a stride is not a multiple of 16 bytes, or its
-    last dim is not unit-stride: those are copied, contiguous, and
-    counted.  The f32 tile loops copy anything that is not contiguous."""
+    """Through TMA (K1 in both dtypes) an operand is read in place unless
+    its start is not 16-byte aligned, a stride is not a multiple of 16
+    bytes, or its last dim is not unit-stride: those are copied,
+    contiguous, and counted.  The f32 head-strided layout is read in
+    place too."""
     calls = _record_launches(monkeypatch)
     bf16, f32 = torch.bfloat16, torch.float32
     B, H, T, D = 1, 2, 16, 64
@@ -341,7 +342,7 @@ def test_attention_wrappers_copy_only_what_the_kernels_cannot_read(
              (wide(8, 1), True),                     # start misaligned
              (wide(4, 0), True),                     # row pitch 68 elements
              (torch.zeros(B, H, D, T, dtype=bf16).transpose(-1, -2), True),
-             (_head_strided(B, T, H, D, f32, 0), True),   # f32: contiguous
+             (_head_strided(B, T, H, D, f32, 0), False),  # f32: TMA too
              (torch.zeros(B, H, T, D, dtype=f32), False)]
     for q, copied in cases:
         k, v = (torch.zeros(B, H, T, D, dtype=q.dtype) for _ in range(2))
@@ -376,6 +377,38 @@ def test_f32_dkv_reads_head_strided_operands_in_place(monkeypatch):
     # ..., D, dtype (0: f32), sm_scale, causal
     assert dkv[-4:] == [D, 0, 0.125, 1]
     for t in (dq, dk, dv):
+        assert t.dtype == torch.float32 and t.is_contiguous()
+
+
+@pytest.mark.parametrize("which", ["flash", "block_sparse"])
+def test_f32_forward_reads_head_strided_operands_in_place(monkeypatch,
+                                                          which):
+    """f32 K1 (flash) and K6 (block-sparse) read q, k and v through TMA,
+    as bf16 does: the head-strided layout reaches ``bigdl_flash_fwd`` and
+    ``bigdl_bs_fwd`` as it stands (the same pointers, their own strides,
+    no copy), with dtype code 0; O and LSE come out contiguous f32."""
+    from bigdl_tpu_torch.ops import block_sparse as bs
+    calls = _record_launches(monkeypatch)
+    monkeypatch.setattr(bs, "_c_fn", lambda lib, name, argtypes: name)
+    B, T, H, D = 2, 128, 4, 64
+    q, k, v = (_head_strided(B, T, H, D, torch.float32, s) for s in range(3))
+    copies = fa.OPERAND_COPIES.count
+    if which == "flash":
+        o, lse = fa._flash_cuda(q, k, v, True, 0.125)
+        name = "bigdl_flash_fwd"
+    else:
+        mask = bs.sliding_window_mask(4, 4, 2, 1, True, 32, 32)
+        o, lse = bs._bs_fwd_cuda(q, k, v, mask, True, 0.125)
+        name = "bigdl_bs_fwd"
+    assert fa.OPERAND_COPIES.count == copies
+    (fn, args), = calls
+    assert fn == name
+    assert args[:3] == [t.data_ptr() for t in (q, k, v)]
+    assert _strides(args) == [[T * H * D, D, H * D]] * 3
+    # ..., D, dtype (0: f32), sm_scale, causal
+    assert args[-4:] == [D, 0, 0.125, 1]
+    assert o.shape == (B, H, T, D) and lse.shape == (B * H, 1, T)
+    for t in (o, lse):
         assert t.dtype == torch.float32 and t.is_contiguous()
 
 
