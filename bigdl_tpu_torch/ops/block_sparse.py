@@ -27,9 +27,8 @@ per-warpgroup flags, the live rows of each partial pair and a
 heaviest-first block order; K6 reads the 128-row query lists
 (``dq_blocks``) in both dtypes, in f32 on K1's f32 body (each f32 product
 formed from bf16 wgmma products on bf16 pieces of its operands).  K7 and
-K8 at head dims 192 and 256, and K7 in f32 (K2's f32 body, split products
-too), own 64 rows a block and read the lists per 64-row tile; K8 in f32
-runs a tile loop over the 64-row tile tables.
+K8 at head dims 192 and 256, and in f32 (K2's and K3's f32 bodies, split
+products too), own 64 rows a block and read the lists per 64-row tile.
 The tables go to the card once per (mask, causal, device) and stay
 cached: no launch uploads anything.  Head dims above the built ones (f32
 128, bf16 256) take the wide route of ``flash_attention``
@@ -336,22 +335,6 @@ def _tile_tables(mask: BlockMask, causal: bool
     return visited, visited & (live_blocks < area)
 
 
-def _tile_lists(visited: np.ndarray, partial: np.ndarray):
-    """Per row of ``visited``: its visited columns in ascending order
-    (the flash kernels' sweep order), their partial flags, and the
-    count.  Returns (tiles int32 (rows, L), flags uint8 (rows, L),
-    counts int32 (rows,))."""
-    counts = visited.sum(axis=1).astype(np.int32)
-    L = max(1, int(counts.max()) if counts.size else 1)
-    tiles = np.zeros((visited.shape[0], L), np.int32)
-    flags = np.zeros((visited.shape[0], L), np.uint8)
-    for r in range(visited.shape[0]):
-        idx = np.nonzero(visited[r])[0]
-        tiles[r, :idx.size] = idx
-        flags[r, :idx.size] = partial[r, idx]
-    return tiles, flags, counts
-
-
 def _block_lists(visited: np.ndarray, partial: np.ndarray, live,
                  per_block: int = 2) -> dict:
     """The bf16 K6-K8 sweep of each block of ``per_block`` 64-row own
@@ -454,23 +437,20 @@ def _to_device(a: np.ndarray, device) -> torch.Tensor:
 
 def _attention_tables(mask: BlockMask, causal: bool, device):
     """The kernels' tables on ``device``, built once per (mask, causal,
-    device): the 64-row tile lists of the f32 K8 (``fwd``, per q tile),
-    the 128-row block lists of K6 in both dtypes and of the bf16 K8
-    (``dq_blocks``) and of the bf16 K7 (``dkv_blocks``), the 64-row block
-    lists of the bf16 K8 at head dims 192 and 256 (``dq_tiles``) and of K7
-    there and in f32 (``dkv_tiles``), and the runtime block mask (uint8)
-    for partial pairs and the wide route."""
+    device): the 128-row block lists of K6 in both dtypes and of the bf16
+    K8 (``dq_blocks``) and of the bf16 K7 (``dkv_blocks``), the 64-row
+    block lists of K8 (``dq_tiles``) and K7 (``dkv_tiles``) at bf16 head
+    dims 192 and 256 and in f32, and the runtime block mask (uint8) for
+    partial pairs and the wide route."""
     def make():
         visited, partial = _tile_tables(mask, causal)
-        fwd = _tile_lists(visited, partial)
         dq_blocks, dkv_blocks = _block_tables(mask, causal, visited, partial)
         dq_tiles = _own_lists(mask, causal, visited, partial, True, TILE)
         dkv_tiles = _own_lists(mask, causal, visited, partial, False, TILE)
         run = _runtime_mask(mask, causal).mask.astype(np.uint8)
         lists = dict(dq_blocks=dq_blocks, dkv_blocks=dkv_blocks,
                      dq_tiles=dq_tiles, dkv_tiles=dkv_tiles)
-        return dict(fwd=tuple(_to_device(a, device) for a in fwd),
-                    **{k: {n: _to_device(a, device) for n, a in t.items()}
+        return dict(**{k: {n: _to_device(a, device) for n, a in t.items()}
                        for k, t in lists.items()},
                     block_mask=_to_device(run, device),
                     visited=int(visited.sum()), partial=int(partial.sum()))
@@ -559,11 +539,10 @@ _FWD_TABLES = "dq_blocks"
 def _query_tables(dtype: torch.dtype, D: int) -> str:
     """The ``_attention_tables`` entry that K8 sweeps (own query rows,
     streamed key tiles): in bf16 the 128-row block lists, or the 64-row
-    ones of its 64-row blocks at head dims above 128; the 64-row tile
-    lists in f32."""
-    if dtype != torch.bfloat16:
-        return "fwd"
-    return "dq_blocks" if D <= 128 else "dq_tiles"
+    ones of its 64-row blocks at head dims above 128; in f32 the 64-row
+    ones at every head dim (its blocks own 64 query rows)."""
+    return ("dq_blocks" if dtype == torch.bfloat16 and D <= 128
+            else "dq_tiles")
 
 
 def _key_tables(dtype: torch.dtype, D: int) -> str:
@@ -576,20 +555,16 @@ def _key_tables(dtype: torch.dtype, D: int) -> str:
 
 
 def _table_args(tab, which: str, mask: BlockMask, q, k, operands):
-    """The arguments of a launch after its tensors' pointers: the tables
-    (the f32 K8's 64-row tile lists ``fwd``: tiles, counts,
-    partial flags; the block lists: tiles, counts, flags, order, rows),
-    the block mask, L, the mask's shape, the operands' strides, then the
-    problem's ints."""
+    """The arguments of a launch after its tensors' pointers: the block
+    lists ``which`` names (tiles, counts, flags), the block mask, the
+    lists' order and rows, L, the mask's shape, the operands' strides,
+    then the problem's ints."""
     t = tab[which]
-    if isinstance(t, dict):
-        tiles, counts, flags = t["tiles"], t["counts"], t["flags"]
-        extra = [t["order"].data_ptr(), t["rows"].data_ptr()]
-    else:
-        (tiles, flags, counts), extra = t, [None, None]
+    tiles = t["tiles"]
     B, H, T, D = q.shape
-    return [tiles.data_ptr(), counts.data_ptr(), flags.data_ptr(),
-            tab["block_mask"].data_ptr(), *extra, tiles.shape[1],
+    return [tiles.data_ptr(), t["counts"].data_ptr(), t["flags"].data_ptr(),
+            tab["block_mask"].data_ptr(), t["order"].data_ptr(),
+            t["rows"].data_ptr(), tiles.shape[1],
             mask.mask.shape[1], mask.block_q, mask.block_k,
             _strides_arg(*operands), H, FIRST_HEAD, HEADS, T, k.shape[2], D,
             _DTYPE_CODE[q.dtype]]
@@ -649,14 +624,14 @@ def _launch_bs_dkv(q, k, v, do, lse, delta, mask: BlockMask, causal: bool,
 
 def _launch_bs_dq(q, k, v, do, lse, delta, mask: BlockMask, causal: bool,
                   sm_scale: float) -> torch.Tensor:
-    """Launch K8 over the same prepared inputs as ``_launch_bs_dkv``."""
+    """Launch K8 over the same prepared inputs as ``_launch_bs_dkv``,
+    read as it reads them."""
     tab = _attention_tables(mask, causal, q.device)
     B, H, T, D = q.shape
     if _wide(D, q.dtype):
         return _wide_dq(q, k, v, do, lse, delta, causal, sm_scale,
                         LAUNCHES_DQ, _wide_block_mask(tab, mask))
-    q, k, v, do = _kernel_operands(q, k, v, do,
-                                   tma=q.dtype == torch.bfloat16)
+    q, k, v, do = _kernel_operands(q, k, v, do, tma=True)
     dq = _empty(q)
     _launch_heads("block_sparse_bwd_dq", (LAUNCHES_DQ,),
                   _attn_fn("bigdl_bs_bwd_dq", 13),

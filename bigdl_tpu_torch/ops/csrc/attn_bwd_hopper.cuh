@@ -1,6 +1,6 @@
 // The attention backward for Hopper (sm_90a): the dK/dV and dQ kernels
 // that flash_bwd.cu runs as K2 and K3 and block_sparse.cu as K7 and K8, in
-// bf16, and the dK/dV kernel in f32 too.  Both pairs compute the same
+// bf16 and in f32 (D 16-128).  Both pairs compute the same
 // math; only the sweep differs, so the body is written once here and
 // templated on a sweep policy.
 //
@@ -65,6 +65,17 @@
 //     memory in bf16, and each warpgroup adds dS . K over half of the
 //     tile's keys to its own D / 2 f32; the two halves are summed once, at
 //     the end.  3 stages at D 192, 2 at D 256.
+//   * dQ in f32 (bwd_dq_split_kernel, D 16-128; dq_f32_consume): the block
+//     owns 64 query rows, as at D 192, but splits each tile by keys
+//     instead: warpgroup w forms S, P, dP and dS over keys 32 w .. 32 w +
+//     31 in its own registers (m64n32 products) and adds dS . K over them,
+//     so nothing crosses between the warpgroups per tile; the halves meet
+//     once, at the end.  Six bf16 products for each of S, dP and dQ, on
+//     three pieces a side (two pieces of K leave K's rounding in dQ, which
+//     a common shift of the key rows then shows; PERF.md).  Q and dO land
+//     once, K and V tiles on barriers of their own (V released once dP is
+//     formed, K after dS . K), split in place by both warpgroups together.
+//     4 stages to D 32, 3 at D 64, 1 at D 128 (197,680 B).
 //   * A zero-filled row scores 0 and exp(0 - LSE) is not 0, so the masks
 //     (causal, ragged, block) are applied on edge and partial tiles.
 //
@@ -162,35 +173,54 @@ constexpr int kDoSplit = 7;
 
 // query rows a dQ block owns at head dim D: 128 up to D 128, 64 at D 192
 // and 256 (dQ of 128 rows would take D f32 a consumer thread, and Q and dO
-// of 128 rows beside two K/V stages more shared memory than a block has)
-template <int D>
-constexpr int kDqOwnRows = D <= 128 ? kBlockRows : kTileRows;
+// of 128 rows beside two K/V stages more shared memory than a block has);
+// in f32 64 at every D (dq_f32_consume), as for dK/dV
+template <int D, typename T = __nv_bfloat16>
+constexpr int kDqOwnRows = kIsBf16<T> && D <= 128 ? kBlockRows : kTileRows;
 
 // dQ: the block's Q and dO rows, then the ring of (K, V) tiles; at 64 own
-// rows also the dS panel that warpgroup 1 hands to both (bf16, swizzled
-// as TMA would load it) and the P tile that warpgroup 0 hands to 1 (f32)
-template <int D>
+// rows in bf16 also the dS panel that warpgroup 1 hands to both (bf16,
+// swizzled as TMA would load it) and the P tile that warpgroup 0 hands to 1
+// (f32).  T is the operands' type: in f32 TMA lands them in panels L
+// (Panels<D, 4>, *_LOAD bytes), split in place into three bf16 pieces as
+// in DkvCfg (6 bytes an element), and K and V have barriers of their own
+// (KV_BARS), so the next V lands while dS . K still reads K.  In f32 one
+// stage at D 128 (197,680 B), three at D 64, four below.
+template <int D, typename T = __nv_bfloat16>
 struct DqCfg : Panels<D> {
-  static constexpr int OWN = kDqOwnRows<D>;
-  static constexpr int STAGES = OWN == kBlockRows ? 4 : D <= 192 ? 3 : 2;
-  static constexpr int Q_BYTES = OWN * D * 2;            // the Q or the dO rows
+  using L = Panels<D, sizeof(T)>;
+  static constexpr bool F32 = !kIsBf16<T>;
+  static constexpr int OWN = kDqOwnRows<D, T>;
+  static constexpr int ELEM = F32 ? 6 : 2;   // bytes an element takes in shared memory
+  static constexpr int STAGES = F32 ? (D <= 32 ? 4 : D <= 64 ? 3 : 1)
+                                : OWN == kBlockRows ? 4 : D <= 192 ? 3 : 2;
+  static constexpr int Q_BYTES = OWN * D * ELEM;          // the Q or the dO rows
+  static constexpr int Q_LOAD = OWN * D * (int)sizeof(T);
   static constexpr int PANEL_Q = OWN * Panels<D>::RB;
-  static constexpr int TILE_BYTES = kTileRows * D * 2;   // one K or V tile
+  static constexpr int LPANEL_Q = OWN * L::RB;
+  static constexpr int TILE_BYTES = kTileRows * D * ELEM;  // one K or V tile
+  static constexpr int TILE_LOAD = kTileRows * D * (int)sizeof(T);
   static constexpr int PANEL_T = kTileRows * Panels<D>::RB;
-  static constexpr int DS_BYTES = OWN == kTileRows ? kTileRows * kTileRows * 2 : 0;
-  static constexpr int PT_BYTES = OWN == kTileRows ? kTileRows * kTileRows * 4 : 0;
+  static constexpr int LPANEL_T = kTileRows * L::RB;
+  static constexpr bool HANDOVER = !F32 && OWN == kTileRows;   // dq_split_consume's P and dS
+  static constexpr int DS_BYTES = HANDOVER ? kTileRows * kTileRows * 2 : 0;
+  static constexpr int PT_BYTES = HANDOVER ? kTileRows * kTileRows * 4 : 0;
+  static constexpr int KV_BARS = F32 ? 2 : 1;   // (full, empty) pairs a stage
   static constexpr int PRODUCER_REGS = OWN == kBlockRows ? kDqProducerRegs : kDkvProducerRegs;
   static constexpr int CONSUMER_REGS = OWN == kBlockRows ? kDqConsumerRegs : kDkvConsumerRegs;
   static constexpr size_t SMEM = 1024 + 2 * Q_BYTES + STAGES * 2 * TILE_BYTES + DS_BYTES
-                                 + PT_BYTES + sizeof(uint64_t) * (1 + 2 * STAGES)
+                                 + PT_BYTES + sizeof(uint64_t) * (1 + 2 * KV_BARS * STAGES)
                                  + STAGES * sizeof(Step);
 };
 
 // named barriers of the 64-row dQ block (1 is warpgroup 0's epilogue
 // barrier; kPtFull as above): dS written by warpgroup 1, read by both;
-// both warpgroups' sums of dQ meet
+// both warpgroups' sums of dQ meet; in f32 each K and V tile split by both
+// warpgroups together (1 and 2 are then each warpgroup's barrier of its
+// Q or dO split)
 constexpr int kDsFull = 5;
 constexpr int kDqSum = 6;
+constexpr int kDqSplit = 8;
 
 // acc (m64 x D f32) += A . B over kSteps k16 steps, A from a 64 x 64 bf16
 // K-major panel at `a` (128-byte rows, as TMA swizzles them) and B the
@@ -1030,28 +1060,208 @@ __device__ __forceinline__ void dq_split_consume(const Sweep& sw, unsigned char*
   }
 }
 
-// dQ: grid (B*H, ceil(T / own rows)); the sweep maps blockIdx.y to a block.
+// The two consumer warpgroups of the f32 dQ kernel (D 16-128), over the
+// block's 64 query rows q0 .. q0 + 63 (this thread holds rows row0 and row0
+// + 8 of each accumulator).  They split each 64-key tile by keys: warpgroup
+// w takes keys 32 w .. 32 w + 31 of it, and forms S = Q . K^T and dP = dO .
+// V^T over them (m64n32 products), P and dS = P * (dP - delta) in its own
+// registers (masked as dq_split_consume masks them), and dQ += dS . K over
+// the same keys, into its own D / 2 f32 of all 64 rows; nothing crosses
+// between the warpgroups per tile.  Every product of f32 operands is formed
+// from bf16 products on three bf16 pieces a side (hopper_common.cuh), six a
+// product: Q and dO are split once, warpgroup 0 splitting Q and 1 dO;
+// each K and V tile by both warpgroups together (256 threads, named barrier
+// kDqSplit), K before S is issued and V while S runs; dS in registers.  K
+// arrives on full[s] and is released on empty[s] after dS . K; V on
+// full_v[s], released on empty_v[s] once dP is formed.  The two sums meet
+// once, at the end, in the drained ring (barrier kDqSum), added in one
+// order for every element, and dQ * sm_scale leaves in f32 from warpgroup
+// 0's accumulators.
 template <int D, class Sweep>
-__global__ void __launch_bounds__(kBwdThreads, 1)
-bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
-                    const __grid_constant__ CUtensorMap tm_do,
-                    const __grid_constant__ CUtensorMap tm_k,
-                    const __grid_constant__ CUtensorMap tm_v, const float* __restrict__ lse,
-                    const float* __restrict__ delta, __nv_bfloat16* __restrict__ dq, int T_len,
-                    int S_len, float scale_log2, float sm_scale, int causal, int H, int h0,
-                    const Sweep sw) {
-  using C = DqCfg<D>;
+__device__ __forceinline__ void dq_f32_consume(const Sweep& sw, unsigned char* q_s,
+                                               unsigned char* do_s, unsigned char* k_s,
+                                               unsigned char* v_s, const Step* step_s,
+                                               uint64_t* q_full, uint64_t* full, uint64_t* empty,
+                                               uint64_t* full_v, uint64_t* empty_v,
+                                               const float* __restrict__ lse,
+                                               const float* __restrict__ delta,
+                                               float* __restrict__ dq, int b, int n, int T_len,
+                                               int S_len, float scale_log2, float sm_scale,
+                                               int causal) {
+  using C = DqCfg<D, float>;
+  using P = Panels<D>;
+  constexpr int THIRD = kTileRows * D * 4;   // a 64-row tile's third pieces, after its f32 bytes
+  constexpr int KH = kTileRows / 2;          // the keys of a warpgroup's half of a tile
+  const int wg = threadIdx.x / 128;
+  const int tid = threadIdx.x % 128;
+  const int warp = tid / 32;
+  const int lane = threadIdx.x % 32;
+  const int t = lane % 4;
+  const int q0 = b * kTileRows;
+  const int row0 = q0 + 16 * warp + lane / 4;
+
+  // this thread's two rows: LSE (times log2 e) and delta; rows past T
+  // read LSE = 1e30, so their P is 0
+  float lse_r[2], delta_r[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = row0 + 8 * h;
+    const bool in = row < T_len;
+    lse_r[h] = (in ? lse[row] : BIG_LSE) * kLog2e;
+    delta_r[h] = in ? delta[row] : 0.0f;
+  }
+  float acc[D / 2];   // this warpgroup's keys' share of dQ: 64 x D
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.0f;
+
+  if (n > 0) {
+    mbar_wait(q_full, 0);
+    split_tile<D>(wg == 0 ? q_s : do_s, 1 + wg);
+    fence_proxy_async();
+    named_barrier_sync(kDqSplit, kConsumers);   // both warpgroups read both
+  }
+  for (int it = 0; it < n; ++it) {
+    const int s = it % C::STAGES;
+    const uint32_t parity = (it / C::STAGES) & 1;
+    Step step;
+    if constexpr (!Sweep::kList) step = sw.dq_step(b, it, kTileRows);
+    mbar_wait(&full[s], parity);
+    if constexpr (Sweep::kList) step = step_s[s];   // staged by the producer
+    unsigned char* k_t = k_s + s * C::TILE_BYTES;
+    unsigned char* v_t = v_s + s * C::TILE_BYTES;
+    const int kw = step.tile * kTileRows + KH * wg;   // this warpgroup's first key
+    const bool part = Sweep::kList && (step.flags & kPartial);
+    const bool edge = part || kw + KH > S_len || (causal && kw + KH - 1 > q0);
+    split_tile<D, kConsumers>(k_t, kDqSplit);
+    fence_proxy_async();
+    named_barrier_sync(kDqSplit, kConsumers);
+    // S = Q . K^T over this warpgroup's keys; the products take their keys
+    // by warpgroup, not in branches (a wgmma on a divergent path is
+    // serialised, ptxas C7520)
+    float sc[KH / 2], dp[KH / 2];
+    wgmma_fence();
+    wgmma_scores_split<D, C::PANEL_Q, C::PANEL_T, THIRD, KH>(sc, q_s, k_t + KH * wg * P::RB);
+    wgmma_commit();
+    mbar_wait(&full_v[s], parity);
+    split_tile<D, kConsumers>(v_t, kDqSplit);   // while S runs
+    fence_proxy_async();
+    named_barrier_sync(kDqSplit, kConsumers);
+    wgmma_fence();
+    wgmma_scores_split<D, C::PANEL_Q, C::PANEL_T, THIRD, KH>(dp, do_s, v_t + KH * wg * P::RB);
+    wgmma_commit();
+    wgmma_wait<1>();
+#pragma unroll
+    for (int i = 0; i < KH / 2; ++i) fence_regs(sc[i]);
+
+    // P = exp(S * scale - LSE), the masks first, in loops of their own (a
+    // killed score to -inf, so its P is 0); element i is query row row0 + 8
+    // ((i >> 1) & 1), key column kw + 8 (i / 4) + 2 t + (i & 1)
+    if (edge) {
+#pragma unroll
+      for (int i = 0; i < KH / 2; ++i) {
+        const int col = kw + 8 * (i / 4) + 2 * t + (i & 1);
+        if (col >= S_len || (causal && col > row0 + 8 * ((i >> 1) & 1))) sc[i] = -INFINITY;
+      }
+      if constexpr (Sweep::kList) {
+        if (part) {
+#pragma unroll
+          for (int i = 0; i < KH / 2; ++i) {
+            const int col = kw + 8 * (i / 4) + 2 * t + (i & 1);
+            const int row = row0 + 8 * ((i >> 1) & 1);
+            if (col < S_len && (row >= T_len || !sw.keep(row, col))) sc[i] = -INFINITY;
+          }
+        }
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < KH / 2; ++i)
+      sc[i] = exp2f(fmaf(sc[i], scale_log2, -lse_r[(i >> 1) & 1]));
+    wgmma_wait<0>();
+#pragma unroll
+    for (int i = 0; i < KH / 2; ++i) fence_regs(dp[i]);
+    mbar_arrive(&empty_v[s]);   // V is read: the next V may land
+    // dS = P * (dP - delta); where P is 0 on an edge or partial tile, dP
+    // (NaN from a dead key row of V) is replaced by delta first, so that dS
+    // is 0 by select; its three pieces are dQ's A operand
+    uint32_t a1[KH / 4], a2[KH / 4], a3[KH / 4];
+#pragma unroll
+    for (int i = 0; i < KH / 4; ++i) {
+      float ds[2];
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const float p = sc[2 * i + e];
+        const float d = delta_r[i & 1];
+        ds[e] = p * ((edge && p == 0.0f ? d : dp[2 * i + e]) - d);
+      }
+      split_bf16x3(ds[0], ds[1], a1[i], a2[i], a3[i]);
+    }
+    // dQ += dS . K over this warpgroup's keys
+    wgmma_fence();
+    wgmma_accumulate_split<D, C::PANEL_T, THIRD, KH / 16>(acc, a1, a2, a3,
+                                                          k_t + KH * wg * P::RB);
+    wgmma_commit();
+    wgmma_wait<0>();
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) fence_regs(acc[i]);
+    mbar_arrive(&empty[s]);   // K is read
+  }
+
+  // epilogue: warpgroup 1's share into the ring (both warpgroups'
+  // products are done, and no load is left to land there), added to
+  // warpgroup 0's
+  float* share = reinterpret_cast<float*>(k_s);
+  named_barrier_sync(kDqSum, kConsumers);
+  if (wg == 1) {
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) share[i * 128 + tid] = acc[i];
+  }
+  named_barrier_sync(kDqSum, kConsumers);
+  if (wg != 0) return;
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) acc[i] += share[i * 128 + tid];
+  // dQ * sm_scale in f32, two columns a store (element 4 j + 2 h of panel
+  // p: row row0 + 8 h, column p PW + 8 j + 2 t)
+#pragma unroll
+  for (int p = 0; p < P::NP; ++p)
+#pragma unroll
+    for (int j = 0; j < P::PW / 8; ++j)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int row = row0 + 8 * h;
+        const float* a = acc + p * (P::PW / 2) + 4 * j + 2 * h;
+        if (row < T_len)
+          *reinterpret_cast<float2*>(dq + (size_t)row * D + p * P::PW + 8 * j + 2 * t) =
+              make_float2(a[0] * sm_scale, a[1] * sm_scale);
+      }
+}
+
+// The dQ block over operands of type T (bf16, or f32 on the split products
+// of dq_f32_consume): grid (B*H, ceil(T / own rows)); the sweep maps
+// blockIdx.y to a block.  The kernels below pass their tensor maps'
+// addresses.
+template <int D, class Sweep, typename T>
+__device__ __forceinline__ void bwd_dq_body(const CUtensorMap* tm_q, const CUtensorMap* tm_do,
+                                            const CUtensorMap* tm_k, const CUtensorMap* tm_v,
+                                            const float* __restrict__ lse,
+                                            const float* __restrict__ delta, T* __restrict__ dq,
+                                            int T_len, int S_len, float scale_log2,
+                                            float sm_scale, int causal, int H, int h0,
+                                            const Sweep& sw) {
+  using C = DqCfg<D, T>;
+  using L = typename C::L;   // TMA's panels
   extern __shared__ unsigned char smem_raw[];
   unsigned char* q_s = align1024(smem_raw);             // [panel][own rows]
   unsigned char* do_s = q_s + C::Q_BYTES;
   unsigned char* k_s = do_s + C::Q_BYTES;               // [stage][panel][64 rows]
   unsigned char* v_s = k_s + C::STAGES * C::TILE_BYTES;
-  unsigned char* ds_s = v_s + C::STAGES * C::TILE_BYTES;   // 64 own rows: dS
+  unsigned char* ds_s = v_s + C::STAGES * C::TILE_BYTES;   // bf16, 64 own rows: dS
   float* pt_s = reinterpret_cast<float*>(ds_s + C::DS_BYTES);   // and P
   uint64_t* q_full = reinterpret_cast<uint64_t*>(pt_s + C::PT_BYTES / 4);
-  uint64_t* full = q_full + 1;
+  uint64_t* full = q_full + 1;          // K's (and, in bf16, V's)
   uint64_t* empty = full + C::STAGES;
-  Step* step_s = reinterpret_cast<Step*>(empty + C::STAGES);   // [stage], list sweeps
+  uint64_t* full_v = empty + C::STAGES;   // f32: V's own (in bf16 past the barriers, unused)
+  uint64_t* empty_v = full_v + C::STAGES;
+  Step* step_s = reinterpret_cast<Step*>(full + 2 * C::KV_BARS * C::STAGES);   // list sweeps
 
   const int bh = h0 + blockIdx.x;
   const int h = bh % H, bb = bh / H;
@@ -1061,10 +1271,15 @@ bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
 
   if (threadIdx.x == 0) {
     mbar_init(q_full, 1);
+    // one TMA thread, or the first warp where it may stage rows itself
+    const uint32_t loaders = Sweep::kList ? 32 : 1;
     for (int s = 0; s < C::STAGES; ++s) {
-      // one TMA thread, or the first warp where it may stage rows itself
-      mbar_init(&full[s], Sweep::kList ? 32 : 1);
+      mbar_init(&full[s], loaders);
       mbar_init(&empty[s], kConsumers);
+      if constexpr (C::F32) {
+        mbar_init(&full_v[s], loaders);
+        mbar_init(&empty_v[s], kConsumers);
+      }
     }
     mbar_fence_init();
   }
@@ -1075,16 +1290,55 @@ bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
     const int lane = threadIdx.x % 32;
     if (Sweep::kList ? threadIdx.x < kConsumers + 32 : threadIdx.x == kConsumers) {
       if (lane == 0 && n > 0) {
-        mbar_arrive_expect_tx(q_full, 2 * C::Q_BYTES);
-        for (int p = 0; p < C::NP; ++p) {
-          tma_load_4d(q_s + p * C::PANEL_Q, &tm_q, q_full, p * C::PW, q0, h, bb);
-          tma_load_4d(do_s + p * C::PANEL_Q, &tm_do, q_full, p * C::PW, q0, h, bb);
+        mbar_arrive_expect_tx(q_full, 2 * C::Q_LOAD);
+        for (int p = 0; p < L::NP; ++p) {
+          tma_load_4d(q_s + p * C::LPANEL_Q, tm_q, q_full, p * L::PW, q0, h, bb);
+          tma_load_4d(do_s + p * C::LPANEL_Q, tm_do, q_full, p * L::PW, q0, h, bb);
         }
       }
       for (int it = 0; it < n; ++it) {
         const int s = it % C::STAGES;
         const Step step = sw.dq_step(b, it, C::OWN);
         const int k0 = step.tile * kTileRows;
+        if constexpr (C::F32) {
+          // V on full_v[s] (the consumers release it first, once dP is
+          // formed), then K on full[s] once they have released the stage's
+          // K
+          const uint32_t parity = ((it / C::STAGES) & 1) ^ 1;   // the first round passes
+          for (int kv = 0; kv < 2; ++kv) {
+            const bool with_v = kv == 0;
+            uint64_t* bar = with_v ? &full_v[s] : &full[s];
+            mbar_wait(with_v ? &empty_v[s] : &empty[s], parity);
+            if constexpr (Sweep::kList) {
+              if (with_v && lane == 0) step_s[s] = step;
+              if (step.flags & kPartialAny) {   // a partial pair: live rows only
+                const unsigned long long live = sw.live(b, it);
+                if (with_v)
+                  stage_live_rows<D, C::LPANEL_T>(v_s + s * C::TILE_BYTES,
+                                                  sw.src_b + sw.stride_b.head(bh, H),
+                                                  sw.stride_b.r, k0, S_len, live, lane);
+                else
+                  stage_live_rows<D, C::LPANEL_T>(k_s + s * C::TILE_BYTES,
+                                                  sw.src_a + sw.stride_a.head(bh, H),
+                                                  sw.stride_a.r, k0, S_len, live, lane);
+                fence_proxy_async();
+                mbar_arrive(bar);
+                continue;
+              }
+              if (lane != 0) {
+                mbar_arrive(bar);
+                continue;
+              }
+            }
+            mbar_arrive_expect_tx(bar, C::TILE_LOAD);
+            for (int p = 0; p < L::NP; ++p) {
+              const int off = s * C::TILE_BYTES + p * C::LPANEL_T;
+              if (with_v) tma_load_4d(v_s + off, tm_v, bar, p * L::PW, k0, h, bb);
+              else tma_load_4d(k_s + off, tm_k, bar, p * L::PW, k0, h, bb);
+            }
+          }
+          continue;
+        }
         mbar_wait(&empty[s], ((it / C::STAGES) & 1) ^ 1);   // the first round passes
         if constexpr (Sweep::kList) {
           if (lane == 0) step_s[s] = step;
@@ -1108,23 +1362,56 @@ bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
         mbar_arrive_expect_tx(&full[s], 2 * C::TILE_BYTES);
         for (int p = 0; p < C::NP; ++p) {
           const int off = s * C::TILE_BYTES + p * C::PANEL_T;
-          tma_load_4d(k_s + off, &tm_k, &full[s], p * C::PW, k0, h, bb);
-          tma_load_4d(v_s + off, &tm_v, &full[s], p * C::PW, k0, h, bb);
+          tma_load_4d(k_s + off, tm_k, &full[s], p * C::PW, k0, h, bb);
+          tma_load_4d(v_s + off, tm_v, &full[s], p * C::PW, k0, h, bb);
         }
       }
     }
   } else {
     setmaxnreg_inc<C::CONSUMER_REGS>();
-    if constexpr (C::OWN == kBlockRows)
-      dq_consume<D>(sw, q_s, do_s, k_s, v_s, step_s, q_full, full, empty,
-                    lse + (size_t)bh * T_len, delta + (size_t)bh * T_len,
-                    dq + (size_t)bh * T_len * D, b, n, T_len, S_len, scale_log2, sm_scale, causal);
+    const float* lse_h = lse + (size_t)bh * T_len;
+    const float* delta_h = delta + (size_t)bh * T_len;
+    T* dq_h = dq + (size_t)bh * T_len * D;
+    if constexpr (C::F32)
+      dq_f32_consume<D>(sw, q_s, do_s, k_s, v_s, step_s, q_full, full, empty, full_v, empty_v,
+                        lse_h, delta_h, dq_h, b, n, T_len, S_len, scale_log2, sm_scale, causal);
+    else if constexpr (C::OWN == kBlockRows)
+      dq_consume<D>(sw, q_s, do_s, k_s, v_s, step_s, q_full, full, empty, lse_h, delta_h, dq_h,
+                    b, n, T_len, S_len, scale_log2, sm_scale, causal);
     else
       dq_split_consume<D>(sw, q_s, do_s, k_s, v_s, ds_s, pt_s, step_s, q_full, full, empty,
-                          lse + (size_t)bh * T_len, delta + (size_t)bh * T_len,
-                          dq + (size_t)bh * T_len * D, b, n, T_len, S_len, scale_log2, sm_scale,
+                          lse_h, delta_h, dq_h, b, n, T_len, S_len, scale_log2, sm_scale,
                           causal);
   }
+}
+
+// dQ in bf16 (K3, K8)
+template <int D, class Sweep>
+__global__ void __launch_bounds__(kBwdThreads, 1)
+bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
+                    const __grid_constant__ CUtensorMap tm_do,
+                    const __grid_constant__ CUtensorMap tm_k,
+                    const __grid_constant__ CUtensorMap tm_v, const float* __restrict__ lse,
+                    const float* __restrict__ delta, __nv_bfloat16* __restrict__ dq, int T_len,
+                    int S_len, float scale_log2, float sm_scale, int causal, int H, int h0,
+                    const Sweep sw) {
+  bwd_dq_body<D>(&tm_q, &tm_do, &tm_k, &tm_v, lse, delta, dq, T_len, S_len, scale_log2,
+                 sm_scale, causal, H, h0, sw);
+}
+
+// dQ in f32 (K3, K8 at D 16-128), each product from bf16 products on three
+// bf16 pieces of its operands
+template <int D, class Sweep>
+__global__ void __launch_bounds__(kBwdThreads, 1)
+bwd_dq_split_kernel(const __grid_constant__ CUtensorMap tm_q,
+                    const __grid_constant__ CUtensorMap tm_do,
+                    const __grid_constant__ CUtensorMap tm_k,
+                    const __grid_constant__ CUtensorMap tm_v, const float* __restrict__ lse,
+                    const float* __restrict__ delta, float* __restrict__ dq, int T_len,
+                    int S_len, float scale_log2, float sm_scale, int causal, int H, int h0,
+                    const Sweep sw) {
+  bwd_dq_body<D>(&tm_q, &tm_do, &tm_k, &tm_v, lse, delta, dq, T_len, S_len, scale_log2,
+                 sm_scale, causal, H, h0, sw);
 }
 
 // The arguments of one backward launch over heads h0 .. h0 + BH - 1 of H
@@ -1190,24 +1477,28 @@ cudaError_t launch_dkv_wgmma(const BwdArgs& a, const Sweep& sw) {
   return cudaGetLastError();
 }
 
-// the dQ kernel over `sw` (out0 dQ), bf16
-template <int D, class Sweep>
+// the dQ kernel over `sw` (out0 dQ): bf16 (bwd_dq_wgmma_kernel) or f32
+// (bwd_dq_split_kernel, D <= 128)
+template <int D, typename T = __nv_bfloat16, class Sweep>
 cudaError_t launch_dq_wgmma(const BwdArgs& a, const Sweep& sw) {
-  using C = DqCfg<D>;
+  using C = DqCfg<D, T>;
   static_assert(C::SMEM <= kMaxSmemBytes, "bwd_dq_wgmma tiles do not fit in shared memory");
   const int n_qb = (a.T_len + C::OWN - 1) / C::OWN;
   if (n_qb > 65535) return cudaErrorInvalidValue;
   CUtensorMap tm[4];
-  cudaError_t err = encode_bwd_maps<D>(a, C::OWN, kTileRows, tm);
+  cudaError_t err = encode_bwd_maps<D, T>(a, C::OWN, kTileRows, tm);
   if (err != cudaSuccess) return err;
-  auto kernel = bwd_dq_wgmma_kernel<D, Sweep>;
+  auto kernel = [] {
+    if constexpr (kIsBf16<T>) return bwd_dq_wgmma_kernel<D, Sweep>;
+    else return bwd_dq_split_kernel<D, Sweep>;
+  }();
   static std::mutex mu;
   static bool attr_set[kMaxDevices] = {};
   err = smem_opt_in_once(kernel, (int)C::SMEM, mu, attr_set);
   if (err != cudaSuccess) return err;
   kernel<<<dim3(a.BH, n_qb), kBwdThreads, C::SMEM, a.stream>>>(
-      tm[0], tm[1], tm[2], tm[3], a.lse, a.delta, static_cast<__nv_bfloat16*>(a.out0), a.T_len,
-      a.S_len, a.sm_scale * kLog2e, a.sm_scale, a.causal, a.H, a.h0, sw);
+      tm[0], tm[1], tm[2], tm[3], a.lse, a.delta, static_cast<T*>(a.out0), a.T_len, a.S_len,
+      a.sm_scale * kLog2e, a.sm_scale, a.causal, a.H, a.h0, sw);
   return cudaGetLastError();
 }
 

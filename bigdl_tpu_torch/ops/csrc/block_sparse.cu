@@ -16,7 +16,7 @@
 //     from W's own bytes.
 //
 // Tables.  The TPU grid sweeps mask blocks; these kernels work on 64-row
-// tiles (TILE), so the host (ops/block_sparse.py `_tile_tables`) builds the
+// tiles, so the host (ops/block_sparse.py `_tile_tables`) builds the
 // lists at tile granularity (and regroups them per 128 or 64 own rows for
 // the Hopper bodies, below): for each q tile (K6, K8) the k tiles holding a
 // live element, for each k tile (K7) the q tiles, in ascending order, each
@@ -58,11 +58,12 @@
 // (K6) or its P and dS to 0 (K7, K8).  In f32, at D 16-128, each f32
 // product is formed from bf16 wgmma products on bf16 pieces of its
 // operands: K6 is K1's f32 forward (attn_fwd_hopper.cuh's
-// attn_fwd_split_kernel) over the same 128-row query lists as in bf16, and
-// K7 is K2's f32 dK/dV block (attn_bwd_hopper.cuh's bwd_dkv_split_kernel:
-// 64 key rows a block) over the 64-row key lists K7 reads at D 192 and
-// 256; K8 keeps the tile loop of flash_bwd.cu's f32 kernel over the 64-row
-// tables.  On an all-ones mask both dtypes give K1-K3's bits.
+// attn_fwd_split_kernel) over the same 128-row query lists as in bf16, K7
+// is K2's f32 dK/dV block (attn_bwd_hopper.cuh's bwd_dkv_split_kernel: 64
+// key rows a block) over the 64-row key lists K7 reads at D 192 and 256,
+// and K8 is K3's f32 dQ block (bwd_dq_split_kernel: 64 query rows a block)
+// over the 64-row query lists K8 reads there.  On an all-ones mask both
+// dtypes give K1-K3's bits.
 //
 // K9 design.  At the flagship MLP shape (x 16384 x 1024 bf16, W 1024 x 4096
 // at density 0.5, block 128) it must do 68.7 GFLOP (0.069 ms) and move about
@@ -98,12 +99,12 @@
 
 namespace {
 
-// One row per tile of the block's own side: the tiles of the other side
-// to visit.  Row r's first counts[r] entries of tiles / partial are live.
+// One row per block of the own side: the tiles of the other side to visit.
+// Row r's first counts[r] entries of tiles / partial are live.
 struct Tables {
   const int* tiles;        // (rows, L)
   const int* counts;       // (rows,)
-  const uint8_t* partial;  // (rows, L): 1 where the block mask covers the pair in part
+  const uint8_t* partial;  // (rows, L): the flag bytes of ListSweep below
   int L;
 };
 
@@ -116,156 +117,11 @@ struct Mask {
   __device__ __forceinline__ bool block(int qp, int kp) const {
     return m[(qp / bq) * nkb + kp / bk] != 0;
   }
-
-  // Some query of [q0, q0 + TILE) may attend key kp.
-  __device__ bool key_live(int kp, int q0) const {
-    if (kp >= S_len) return false;
-    const int q_end = min(q0 + TILE, T_len);
-    const int kb = kp / bk;
-    for (int qb = q0 / bq; qb * bq < q_end; ++qb) {
-      if (!m[qb * nkb + kb]) continue;
-      if (!causal || min((qb + 1) * bq, q_end) - 1 >= kp) return true;
-    }
-    return false;
-  }
 };
 
-// A (TILE, D) tile whose rows come from row0 on where live[r], else zero.
-template <typename T, int D>
-__device__ __forceinline__ void load_live_rows(T* dst, const T* src, int row0,
-                                               const uint8_t* live) {
-  constexpr int VEC = 16 / sizeof(T);
-  constexpr int VPR = D / VEC;
-  for (int i = threadIdx.x; i < TILE * VPR; i += NTHREADS) {
-    const int r = i / VPR;
-    const int c = (i % VPR) * VEC;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (live[r]) val = *reinterpret_cast<const uint4*>(src + (size_t)(row0 + r) * D + c);
-    *reinterpret_cast<uint4*>(dst + r * D + c) = val;
-  }
-}
-
 // ---------------------------------------------------------------------------
-// K8 in f32: the flash_bwd.cu tile loop over the 64-row tile tables.
-// ---------------------------------------------------------------------------
-
-template <int D>
-constexpr size_t dq_smem_bytes() {
-  return sizeof(float) * 4 * TILE * D        // q, dO, k, v
-         + sizeof(float) * 2 * TILE * TILE   // S, dP (then dS in place)
-         + sizeof(float) * TILE * D          // dQ accumulator
-         + sizeof(float) * 2 * TILE          // lse, delta
-         + TILE;                             // live key rows
-}
-
-// One (query, key) pair of a score tile: P and dS, both selected to 0 where
-// the pair is masked (a masked dP may hold anything).
-__device__ __forceinline__ void p_and_ds(float s, float dp, float lse, float delta, bool keep,
-                                         float sm_scale, float* p, float* ds) {
-  *p = keep ? expf(s * sm_scale - lse) : 0.0f;
-  *ds = keep ? *p * (dp - delta) : 0.0f;
-}
-
-// K8 in f32: grid (ceil(T / 64), B*H), one block per q tile, over the 64-row
-// tile tables.
-template <int D>
-__global__ void __launch_bounds__(NTHREADS)
-bs_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
-             const float* __restrict__ v, const float* __restrict__ dO,
-             const float* __restrict__ lse, const float* __restrict__ delta,
-             float* __restrict__ dq, Tables tab, Mask mk, float sm_scale) {
-  using T = float;
-  extern __shared__ __align__(128) unsigned char smem[];
-  T* q_s = reinterpret_cast<T*>(smem);
-  T* do_s = q_s + TILE * D;
-  T* k_s = do_s + TILE * D;
-  T* v_s = k_s + TILE * D;
-  float* s_s = v_s + TILE * D;      // S: query rows, key columns
-  float* dp_s = s_s + TILE * TILE;  // dP
-  float* dq_acc = dp_s + TILE * TILE;
-  T* ds_s = dp_s;   // written over dP in place
-  float* lse_s = dq_acc + TILE * D;
-  float* delta_s = lse_s + TILE;
-  uint8_t* live_s = reinterpret_cast<uint8_t*>(delta_s + TILE);
-
-  const int T_len = mk.T_len, S_len = mk.S_len, causal = mk.causal;
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int bh = blockIdx.y;
-  const int qt = blockIdx.x;
-  const int q0 = qt * TILE;
-  q += (size_t)bh * T_len * D;
-  dO += (size_t)bh * T_len * D;
-  lse += (size_t)bh * T_len;
-  delta += (size_t)bh * T_len;
-  k += (size_t)bh * S_len * D;
-  v += (size_t)bh * S_len * D;
-  dq += (size_t)bh * T_len * D;
-  const int n_tiles = tab.counts[qt];
-  const int* tiles = tab.tiles + (size_t)qt * tab.L;
-  const uint8_t* partial = tab.partial + (size_t)qt * tab.L;
-
-  load_tile<T, D>(q_s, q, q0, T_len, TILE);
-  load_tile<T, D>(do_s, dO, q0, T_len, TILE);
-  for (int i = threadIdx.x; i < TILE; i += NTHREADS) {
-    const bool in = q0 + i < T_len;
-    lse_s[i] = in ? lse[q0 + i] : BIG_LSE;
-    delta_s[i] = in ? delta[q0 + i] : 0.0f;
-  }
-  for (int i = threadIdx.x; i < TILE * D; i += NTHREADS) dq_acc[i] = 0.0f;
-
-  for (int it = 0; it < n_tiles; ++it) {
-    const int k0 = tiles[it] * TILE;
-    const bool part = partial[it] != 0;
-    __syncthreads();   // q/dO/stats ready; every warp done with the last k/v tile
-    if (part) {
-      for (int r = threadIdx.x; r < TILE; r += NTHREADS) live_s[r] = mk.key_live(k0 + r, q0);
-      __syncthreads();
-      load_live_rows<T, D>(k_s, k, k0, live_s);
-      load_live_rows<T, D>(v_s, v, k0, live_s);
-    } else {
-      load_tile<T, D>(k_s, k, k0, S_len, TILE);
-      load_tile<T, D>(v_s, v, k0, S_len, TILE);
-    }
-    __syncthreads();
-
-    score_tile<D>(q_s, k_s, s_s, warp, lane);    // S = Q . K^T
-    score_tile<D>(do_s, v_s, dp_s, warp, lane);  // dP = dO . V^T
-    __syncwarp();
-
-    for (int rr = 0; rr < ROWS_PER_WARP; ++rr) {
-      const int r = warp * ROWS_PER_WARP + rr;
-      const int q_pos = q0 + r;
-      const float lse_r = lse_s[r];
-      const float delta_r = delta_s[r];
-      for (int c = lane; c < TILE; c += 32) {
-        const int k_pos = k0 + c;
-        const bool keep = k_pos < S_len && q_pos < T_len && !(causal && k_pos > q_pos) &&
-                          (!part || mk.block(q_pos, k_pos));
-        float p, ds;
-        p_and_ds(s_s[r * TILE + c], dp_s[r * TILE + c], lse_r, delta_r, keep, sm_scale, &p,
-                 &ds);
-        ds_s[r * TILE + c] = ds;
-      }
-    }
-    __syncwarp();
-
-    mma_acc_tile<D>(ds_s, k_s, dq_acc, warp, lane);   // dQ += dS . K
-  }
-  __syncthreads();   // the zero-fill is visible when the sweep ran no tile
-
-  for (int rr = 0; rr < ROWS_PER_WARP; ++rr) {
-    const int r = warp * ROWS_PER_WARP + rr;
-    if (q0 + r >= T_len) break;
-    for (int d = lane; d < D; d += 32)
-      dq[(size_t)(q0 + r) * D + d] = dq_acc[r * D + d] * sm_scale;
-  }
-}
-
-// ---------------------------------------------------------------------------
-// K6, K7 and K8 in bf16, and K6 and K7 in f32: the Hopper bodies of
-// attn_fwd_hopper.cuh and attn_bwd_hopper.cuh over the tile lists of
-// 128-row (or 64-row) blocks.
+// K6, K7 and K8 in both dtypes: the Hopper bodies of attn_fwd_hopper.cuh and
+// attn_bwd_hopper.cuh over the tile lists of 128-row (or 64-row) blocks.
 // ---------------------------------------------------------------------------
 
 // The lists ops/block_sparse.py builds per block of 128 own rows (key rows
@@ -278,9 +134,9 @@ bs_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
 // the lists are the dense sweeps of K1 (at D 128) and K2/K3, tile for tile,
 // so K6-K8 give K1-K3's bits.  K7 and K8 at D 192 and 256 own 64 rows a
 // block and read the same lists built per 64-row key (K7) or query (K8)
-// tile (bit 0 and bit 2 only), as does the f32 K7 at every D; the f32 K6
-// reads the 128-row lists, as in bf16.  T is the streamed tensors' type
-// (bf16, or f32 in the f32 K6 and K7).
+// tile (bit 0 and bit 2 only), as do the f32 K7 and K8 at every D; the f32
+// K6 reads the 128-row lists, as in bf16.  T is the streamed tensors' type
+// (bf16 or f32).
 template <typename T = __nv_bfloat16>
 struct ListSweep {
   static constexpr bool kList = true;
@@ -320,13 +176,13 @@ struct AttnArgs {
   const float* delta;
   void* out0;   // O (K6), dK (K7) or dQ (K8)
   void* out1;   // LSE (K6) or dV (K7)
-  // the bf16 K6-K8 and the f32 K6 and K7: 128-row block lists (K7, K8 at
-  // D > 128 and the f32 K7: 64-row); the f32 K8: 64-row tile tables
+  // the block lists: per 128 own rows (K7 and K8 at bf16 D > 128 and in
+  // f32: per 64)
   Tables tab;
-  const int* order;  // block lists: the blocks, longest list first
-  const unsigned long long* rows;   // block lists: live streamed rows
+  const int* order;  // the blocks, longest list first
+  const unsigned long long* rows;   // live streamed rows
   Mask mk;
-  HeadStrides sq, sk, sv, sdo;   // q, k, v, dO at their strides (f32 K8: contiguous)
+  HeadStrides sq, sk, sv, sdo;   // q, k, v, dO at their strides
   int H, h0, BH;                 // heads h0 .. h0 + BH - 1, H a batch
   float sm_scale;
   cudaStream_t stream;
@@ -335,7 +191,7 @@ struct AttnArgs {
 enum class Which { kFwd, kDkv, kDq };
 
 // K6 (out0 O, out1 LSE), K7 (out0 dK, out1 dV) or K8 (out0 dQ) over the
-// block lists: in bf16, or K6 and K7 in f32 (T)
+// block lists, in bf16 or f32 (T)
 template <Which W, int D, typename T = __nv_bfloat16>
 cudaError_t launch_wgmma(const AttnArgs& a) {
   const bool dkv = W == Which::kDkv;
@@ -353,59 +209,18 @@ cudaError_t launch_wgmma(const AttnArgs& a) {
                     a.sdo, a.H, a.h0, a.BH, a.mk.T_len, a.mk.S_len, a.sm_scale, a.mk.causal,
                     a.stream};
     if constexpr (W == Which::kDkv) return launch_dkv_wgmma<D, T>(b, sw);
-    else return launch_dq_wgmma<D>(b, sw);
+    else return launch_dq_wgmma<D, T>(b, sw);
   }
 }
 
-// the f32 K8 tile loop reads contiguous heads: a copy of `a` from head h0
-// on, or false where an operand is not contiguous
-bool f32_from_h0(int D, AttnArgs* a) {
-  const int T_len = a->mk.T_len, S_len = a->mk.S_len, H = a->H;
-  if (!a->sq.dense(H, T_len, D) || !a->sk.dense(H, S_len, D) || !a->sv.dense(H, S_len, D) ||
-      !a->sdo.dense(H, T_len, D))
-    return false;
-  const size_t qo = (size_t)a->h0 * T_len, ko = (size_t)a->h0 * S_len;
-  a->q = static_cast<const float*>(a->q) + qo * D;
-  a->k = static_cast<const float*>(a->k) + ko * D;
-  a->v = static_cast<const float*>(a->v) + ko * D;
-  a->dO = static_cast<const float*>(a->dO) + qo * D;
-  a->lse += qo;
-  a->delta += qo;
-  a->out0 = static_cast<float*>(a->out0) + qo * D;
-  a->h0 = 0;
-  return true;
-}
-
-// K8 in f32: the tile loop, grid (ceil(T / 64), heads)
-template <int D>
-cudaError_t launch_dq_f32(AttnArgs a) {
-  static std::mutex mu;
-  static bool attr_set[kMaxDevices] = {};
-  if (!f32_from_h0(D, &a)) return cudaErrorInvalidValue;
-  constexpr size_t smem = dq_smem_bytes<D>();
-  static_assert(smem <= kMaxSmemBytes, "block-sparse tiles do not fit in shared memory");
-  auto kernel = bs_dq_kernel<D>;
-  cudaError_t err = smem_opt_in_once(kernel, (int)smem, mu, attr_set);
-  if (err != cudaSuccess) return err;
-  kernel<<<dim3((a.mk.T_len + TILE - 1) / TILE, a.BH), NTHREADS, smem, a.stream>>>(
-      static_cast<const float*>(a.q), static_cast<const float*>(a.k),
-      static_cast<const float*>(a.v), static_cast<const float*>(a.dO), a.lse, a.delta,
-      static_cast<float*>(a.out0), a.tab, a.mk, a.sm_scale);
-  return cudaGetLastError();
-}
-
-// bf16 at D 16-256, f32 to 128: over the block lists (order and rows
-// given) in bf16 and the f32 K6 and K7, over the tile tables in the f32 K8
+// bf16 at D 16-256, f32 to 128, over the block lists (order and rows given)
 template <Which W, typename T, int D>
 cudaError_t launch_attn(const AttnArgs& a) {
-  constexpr bool lists = kIsBf16<T> || W != Which::kDq;
   if constexpr (!kIsBf16<T> && D > 128) {
     return cudaErrorInvalidValue;
-  } else if constexpr (lists) {
+  } else {
     if (a.order == nullptr || a.rows == nullptr) return cudaErrorInvalidValue;
     return launch_wgmma<W, D, T>(a);
-  } else {
-    return launch_dq_f32<D>(a);
   }
 }
 
@@ -462,7 +277,7 @@ int smem_of(int dtype) {
     if (dtype == 0)
       return (int)(W == Which::kFwd   ? FwdCfg<D, kTileRows, float>::SMEM
                    : W == Which::kDkv ? DkvCfg<D, float>::SMEM
-                                      : dq_smem_bytes<D>());
+                                      : DqCfg<D, float>::SMEM);
   }
   return 0;
 }
@@ -909,18 +724,15 @@ cudaError_t dispatch_mm_tile(const MmArgs& a) {
 // Heads h0 .. h0 + BH - 1 of q, dO (., H, T, D) and k, v (., H, S, D) in
 // one dtype (0 = float32, 1 = bfloat16), each at its element strides
 // (strides: batch, head and row of q, k, v, then dO; the last dim
-// unit-stride); through TMA (bf16, and the f32 K6 and K7) every stride a
-// multiple of 16 bytes and each base 16-byte aligned, for the f32 K8
-// contiguous.  lse and delta (., T) f32 and the outputs contiguous, in the
-// inputs' dtype; every pointer is the tensor's start, not its head h0's.
-// bmask (T / bq, S / bk) uint8, the runtime block mask.  The tables as
-// ops/block_sparse.py builds them.  The f32 K8 reads 64-row tile tables:
-// tiles (tiles, L) int32, counts (tiles,) int32, partial (tiles, L) uint8;
-// order and rows are not read.  The bf16 kernels and the f32 K6 and K7
-// read block lists (128-row; 64-row for K7 and K8 at D 192 and 256 and for
-// the f32 K7): tiles (blocks, L) int32, counts (blocks,) int32, partial the
-// flag bytes (blocks, L) uint8, order (blocks,) int32 and rows (blocks, L)
-// uint64.  Each returns the cudaError_t of its launch (0 on success).
+// unit-stride), read through TMA: every stride a multiple of 16 bytes and
+// each base 16-byte aligned.  lse and delta (., T) f32 and the outputs
+// contiguous, in the inputs' dtype; every pointer is the tensor's start, not
+// its head h0's.  bmask (T / bq, S / bk) uint8, the runtime block mask.  The
+// tables as ops/block_sparse.py builds them, block lists (128-row; 64-row
+// for K7 and K8 at bf16 D 192 and 256 and in f32): tiles (blocks, L) int32,
+// counts (blocks,) int32, partial the flag bytes (blocks, L) uint8, order
+// (blocks,) int32 and rows (blocks, L) uint64.  Each returns the
+// cudaError_t of its launch (0 on success).
 
 // K6: o (BH, T, D), lse (BH, T); lists per 128 query rows (the lists the
 // bf16 K8 reads up to D 128), in both dtypes.
@@ -951,8 +763,8 @@ extern "C" int bigdl_bs_bwd_dkv(const void* q, const void* k, const void* v, con
   return dispatch_attn<Which::kDkv>(D, dtype, a);
 }
 
-// K8: dq (., T, D); tables per q tile (f32) or per 128 query rows (bf16;
-// per 64 at D 192 and 256).
+// K8: dq (., T, D); lists per 128 query rows (bf16 to D 128) or per 64
+// (bf16 at D 192 and 256, f32).
 extern "C" int bigdl_bs_bwd_dq(const void* q, const void* k, const void* v, const void* dO,
                                const void* lse, const void* delta, void* dq, const void* tiles,
                                const void* counts, const void* partial, const void* bmask,

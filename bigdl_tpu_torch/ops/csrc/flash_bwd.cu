@@ -55,16 +55,17 @@
 // q, k, v and dO are read at their own strides (the head-strided view of an
 // attention layer in place); the outputs are contiguous.
 //
-// f32.  K2 (D 16-128) runs the same body's f32 dK/dV block
-// (attn_bwd_hopper.cuh: bwd_dkv_split_kernel, 64 key rows a block), whose
-// f32 products are formed from bf16 wgmma products on three bf16 pieces of
-// each operand (six for the scores, five for dV and dK), and reads q, k, v
-// and dO at their strides as the bf16 kernels do.  At the phase-3 shape (B
-// 2, H 8, T 512, D 128, causal) its four products are 2.15 GFLOP as f32
-// and 11.8 as bf16: 11.96 us at 989 TFLOP/s, against 25.2 MB, 7.5 us.  K3
-// (flash_bwd_dq_kernel) keeps the tile loop of tile_common.cuh: one 4-warp
-// block per 64 query rows, FMA products through shared memory, contiguous
-// heads.  K7 and K8 (block_sparse.cu) run the same f32 kernels over their
+// f32 (D 16-128): the same body's 64-row f32 blocks, whose f32 products are
+// formed from bf16 wgmma products on three bf16 pieces of each operand, and
+// which read q, k, v and dO at their strides as the bf16 kernels do.  K2
+// (bwd_dkv_split_kernel, 64 key rows a block) makes six bf16 products for
+// each score product and five for dV and dK; K3 (bwd_dq_split_kernel, 64
+// query rows a block, each 64-key tile split by keys between the two
+// consumer warpgroups) six for S, dP and dQ alike.  At the phase-3 shape
+// (B 2, H 8, T 512, D 128, causal) K2's four products are 2.15 GFLOP as
+// f32 and 11.8 as bf16: 11.96 us at 989 TFLOP/s, against 25.2 MB, 7.5 us;
+// K3's three are 1.61 GFLOP as f32, 9.7 as bf16: 9.8 us, against 21.0 MB,
+// 6.3 us.  K7 and K8 (block_sparse.cu) run the same f32 kernels over their
 // tile lists, so on an all-ones mask the two pairs agree bit for bit in
 // f32.
 
@@ -113,148 +114,14 @@ struct DenseSweep {
   }
 };
 
-// ---- f32: the FMA tile loop of tile_common.cuh -------------------------------
-
-template <int D>
-constexpr size_t dq_smem_bytes() {
-  return sizeof(float) * 4 * TILE * D        // q, dO, k, v
-         + sizeof(float) * 2 * TILE * TILE   // S, dP (then dS in place)
-         + sizeof(float) * TILE * D          // dQ accumulator
-         + sizeof(float) * 2 * TILE;         // lse, delta
-}
-
-// One (query, key) pair of a score tile: the masked-or-recomputed P and
-// dS = P * (dP - delta), both in f32.
-__device__ __forceinline__ void p_and_ds(float s, float dp, float lse, float delta, bool keep,
-                                         float sm_scale, float* p, float* ds) {
-  *p = keep ? expf(s * sm_scale - lse) : 0.0f;
-  *ds = *p * (dp - delta);
-}
-
-// K3 in f32: grid (ceil(T / 64), B*H).
-template <int D>
-__global__ void __launch_bounds__(NTHREADS)
-flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                    const float* __restrict__ v, const float* __restrict__ dO,
-                    const float* __restrict__ lse, const float* __restrict__ delta,
-                    float* __restrict__ dq, int T_len, int S_len, float sm_scale, int causal) {
-  using T = float;
-  extern __shared__ __align__(128) unsigned char smem[];
-  T* q_s = reinterpret_cast<T*>(smem);
-  T* do_s = q_s + TILE * D;
-  T* k_s = do_s + TILE * D;
-  T* v_s = k_s + TILE * D;
-  float* s_s = v_s + TILE * D;   // S: query rows, key columns
-  float* dp_s = s_s + TILE * TILE;                          // dP
-  float* dq_acc = dp_s + TILE * TILE;
-  T* ds_s = dp_s;   // written over dP in place
-  float* lse_s = dq_acc + TILE * D;
-  float* delta_s = lse_s + TILE;
-
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int bh = blockIdx.y;
-  const int q0 = blockIdx.x * TILE;
-  q += (size_t)bh * T_len * D;
-  dO += (size_t)bh * T_len * D;
-  lse += (size_t)bh * T_len;
-  delta += (size_t)bh * T_len;
-  k += (size_t)bh * S_len * D;
-  v += (size_t)bh * S_len * D;
-  dq += (size_t)bh * T_len * D;
-
-  load_tile<T, D>(q_s, q, q0, T_len, TILE);
-  load_tile<T, D>(do_s, dO, q0, T_len, TILE);
-  for (int i = threadIdx.x; i < TILE; i += NTHREADS) {
-    const bool in = q0 + i < T_len;
-    lse_s[i] = in ? lse[q0 + i] : BIG_LSE;
-    delta_s[i] = in ? delta[q0 + i] : 0.0f;
-  }
-  for (int i = threadIdx.x; i < TILE * D; i += NTHREADS) dq_acc[i] = 0.0f;
-
-  // key tiles strictly above the causal diagonal contribute nothing
-  const int k_end = causal ? min(S_len, q0 + TILE) : S_len;
-  for (int k0 = 0; k0 < k_end; k0 += TILE) {
-    __syncthreads();   // q/dO/stats ready; every warp done with the last k/v tile
-    load_tile<T, D>(k_s, k, k0, S_len, TILE);
-    load_tile<T, D>(v_s, v, k0, S_len, TILE);
-    __syncthreads();
-
-    score_tile<D>(q_s, k_s, s_s, warp, lane);    // S = Q . K^T
-    score_tile<D>(do_s, v_s, dp_s, warp, lane);  // dP = dO . V^T
-    __syncwarp();
-
-    for (int rr = 0; rr < ROWS_PER_WARP; ++rr) {
-      const int r = warp * ROWS_PER_WARP + rr;
-      const int q_pos = q0 + r;
-      const float lse_r = lse_s[r];
-      const float delta_r = delta_s[r];
-      for (int c = lane; c < TILE; c += 32) {
-        const int k_pos = k0 + c;
-        const bool keep = k_pos < S_len && q_pos < T_len && !(causal && k_pos > q_pos);
-        float p, ds;
-        p_and_ds(s_s[r * TILE + c], dp_s[r * TILE + c], lse_r, delta_r, keep, sm_scale, &p,
-                 &ds);
-        ds_s[r * TILE + c] = ds;
-      }
-    }
-    __syncwarp();
-
-    mma_acc_tile<D>(ds_s, k_s, dq_acc, warp, lane);   // dQ += dS . K
-  }
-  __syncthreads();   // the zero-fill is visible when the sweep ran no tile
-
-  for (int rr = 0; rr < ROWS_PER_WARP; ++rr) {
-    const int r = warp * ROWS_PER_WARP + rr;
-    if (q0 + r >= T_len) break;
-    for (int d = lane; d < D; d += 32) dq[(size_t)(q0 + r) * D + d] = dq_acc[r * D + d] * sm_scale;
-  }
-}
-
-// the f32 dQ tile loop reads contiguous heads: a copy of `a` from head h0
-// on, or false where an operand is not contiguous
-bool f32_from_h0(int D, BwdArgs* a) {
-  if (!a->sq.dense(a->H, a->T_len, D) || !a->sdo.dense(a->H, a->T_len, D) ||
-      !a->sk.dense(a->H, a->S_len, D) || !a->sv.dense(a->H, a->S_len, D))
-    return false;
-  const size_t qo = (size_t)a->h0 * a->T_len, ko = (size_t)a->h0 * a->S_len;
-  a->q = static_cast<const float*>(a->q) + qo * D;
-  a->dO = static_cast<const float*>(a->dO) + qo * D;
-  a->k = static_cast<const float*>(a->k) + ko * D;
-  a->v = static_cast<const float*>(a->v) + ko * D;
-  a->lse += qo;
-  a->delta += qo;
-  a->out0 = static_cast<float*>(a->out0) + qo * D;   // dQ
-  a->h0 = 0;
-  return true;
-}
-
-template <int D>
-cudaError_t launch_dq_f32(const BwdArgs& a) {
-  constexpr size_t smem = dq_smem_bytes<D>();
-  static_assert(smem <= kMaxSmemBytes, "flash_bwd_dq tiles do not fit in shared memory");
-  auto kernel = flash_bwd_dq_kernel<D>;
-  static std::mutex mu;
-  static bool attr_set[kMaxDevices] = {};
-  cudaError_t err = smem_opt_in_once(kernel, (int)smem, mu, attr_set);
-  if (err != cudaSuccess) return err;
-  dim3 grid((a.T_len + TILE - 1) / TILE, a.BH);
-  kernel<<<grid, NTHREADS, smem, a.stream>>>(
-      static_cast<const float*>(a.q), static_cast<const float*>(a.k),
-      static_cast<const float*>(a.v), static_cast<const float*>(a.dO), a.lse, a.delta,
-      static_cast<float*>(a.out0), a.T_len, a.S_len, a.sm_scale, a.causal);
-  return cudaGetLastError();
-}
-
 // dtype: 0 = float32, 1 = bfloat16; D 192 and 256 in bf16 only
 template <int D>
 cudaError_t launch(bool dkv, int dtype, const BwdArgs& a) {
   const DenseSweep sw{a.causal};
   if (dtype == 1) return dkv ? launch_dkv_wgmma<D>(a, sw) : launch_dq_wgmma<D>(a, sw);
   if constexpr (D <= 128) {
-    if (dtype == 0 && dkv) return launch_dkv_wgmma<D, float>(a, sw);
-    BwdArgs f = a;
-    if (dtype == 0 && f32_from_h0(D, &f)) return launch_dq_f32<D>(f);
+    if (dtype == 0)
+      return dkv ? launch_dkv_wgmma<D, float>(a, sw) : launch_dq_wgmma<D, float>(a, sw);
   }
   return cudaErrorInvalidValue;
 }
@@ -277,7 +144,7 @@ template <int D>
 int smem_of(bool dkv, int dtype) {
   if (dtype == 1) return (int)(dkv ? DkvCfg<D>::SMEM : DqCfg<D>::SMEM);
   if constexpr (D <= 128) {
-    if (dtype == 0) return (int)(dkv ? DkvCfg<D, float>::SMEM : dq_smem_bytes<D>());
+    if (dtype == 0) return (int)(dkv ? DkvCfg<D, float>::SMEM : DqCfg<D, float>::SMEM);
   }
   return 0;
 }
@@ -287,10 +154,9 @@ int smem_of(bool dkv, int dtype) {
 // Heads h0 .. h0 + BH - 1 of q, dO (., H, T, D) and k, v (., H, S, D) in
 // one dtype (0 = float32, 1 = bfloat16), each at its element strides
 // (strides: batch, head and row of q, k, v, then dO; the last dim
-// unit-stride); through TMA (bf16, and the f32 dK/dV) every stride a
-// multiple of 16 bytes and each base 16-byte aligned, for the f32 dQ
-// contiguous.  lse and delta (., T) f32 and the outputs contiguous, in the
-// inputs' dtype.  Every pointer is the tensor's start, not its head h0's.
+// unit-stride), read through TMA: every stride a multiple of 16 bytes and
+// each base 16-byte aligned.  lse and delta (., T) f32 and the outputs
+// contiguous, in the inputs' dtype.  Every pointer is the tensor's start, not its head h0's.
 // Each returns the cudaError_t of its launch (0 on success).
 
 BwdArgs make_args(const void* q, const void* k, const void* v, const void* dO, const void* lse,

@@ -10,8 +10,8 @@
 // block-masked GEMM (block_sparse.cu).
 // Its last sections hold what the two attention bodies share: the block
 // shape and the steps of a sweep, the split of f32 operands into bf16
-// pieces on which the f32 forward and dK/dV form their products, and the
-// products themselves.
+// pieces on which the f32 forward, dK/dV and dQ form their products, and
+// the products themselves.
 //
 // Conventions.
 //   * Tiles land in shared memory by TMA with a swizzle whose span equals
@@ -482,11 +482,6 @@ struct HeadStrides {
   __host__ __device__ long long head(int bh, int H) const {
     return (long long)(bh / H) * b + (long long)(bh % H) * h;
   }
-  // the strides of a contiguous (., H, rows, D) tensor (the wrappers give a
-  // dim of size 1 these strides)
-  bool dense(int H, int rows, int D) const {
-    return r == D && h == (long long)rows * D && b == (long long)H * rows * D;
-  }
 };
 
 // the three HeadStrides of q, k, v (and dO) from the C entries' flat array
@@ -621,11 +616,11 @@ __device__ __forceinline__ void split_tile(unsigned char* t, int bar) {
 
 // ---- the attention bodies' products ------------------------------------------
 
-// acc (m64 x 64 f32, one consumer warpgroup) = A . B^T over D (kAcc: acc
+// acc (m64 x N f32, one consumer warpgroup) = A . B^T over D (kAcc: acc
 // +=), both operands K-major panels in shared memory: A from 64 rows at
-// `a`, B from 64 rows at `b`, panel pitches kPanelA and kPanelB.  Issued,
-// not waited.
-template <int D, int kPanelA, int kPanelB, bool kAcc = false>
+// `a`, B from N rows (64, or a tile's 32-row half) at `b`, panel pitches
+// kPanelA and kPanelB.  Issued, not waited.
+template <int D, int kPanelA, int kPanelB, bool kAcc = false, int N = kTileRows>
 __device__ __forceinline__ void wgmma_scores(float* acc, const unsigned char* a,
                                              const unsigned char* b) {
   using P = Panels<D>;
@@ -633,35 +628,35 @@ __device__ __forceinline__ void wgmma_scores(float* acc, const unsigned char* a,
   for (int p = 0; p < P::NP; ++p)
 #pragma unroll
     for (int j = 0; j < P::PW / 16; ++j)
-      wgmma_ss<kTileRows, 0>(acc, smem_desc<P::RB>(a + p * kPanelA + 32 * j),
-                             smem_desc<P::RB>(b + p * kPanelB + 32 * j), kAcc || p + j > 0);
+      wgmma_ss<N, 0>(acc, smem_desc<P::RB>(a + p * kPanelA + 32 * j),
+                     smem_desc<P::RB>(b + p * kPanelB + 32 * j), kAcc || p + j > 0);
 }
 
 // wgmma_scores of f32 tiles split in place into three pieces (split_tile:
 // pieces 1 and 2 in panels at pitch 2 kSpan, piece 2 kSpan after piece 1,
 // piece 3 at kThird in panels at pitch kSpan) as a1 b3 + a2 b2 + a3 b1,
 // then a1 b2 + a2 b1, then a1 b1.  Issued, not waited.
-template <int D, int kSpanA, int kSpanB, int kThird>
+template <int D, int kSpanA, int kSpanB, int kThird, int N = kTileRows>
 __device__ __forceinline__ void wgmma_scores_split(float* acc, const unsigned char* a,
                                                    const unsigned char* b) {
   constexpr int PA = 2 * kSpanA, PB = 2 * kSpanB;
-  wgmma_scores<D, PA, kSpanB>(acc, a, b + kThird);
-  wgmma_scores<D, PA, PB, true>(acc, a + kSpanA, b + kSpanB);
-  wgmma_scores<D, kSpanA, PB, true>(acc, a + kThird, b);
-  wgmma_scores<D, PA, PB, true>(acc, a, b + kSpanB);
-  wgmma_scores<D, PA, PB, true>(acc, a + kSpanA, b);
-  wgmma_scores<D, PA, PB, true>(acc, a, b);
+  wgmma_scores<D, PA, kSpanB, false, N>(acc, a, b + kThird);
+  wgmma_scores<D, PA, PB, true, N>(acc, a + kSpanA, b + kSpanB);
+  wgmma_scores<D, kSpanA, PB, true, N>(acc, a + kThird, b);
+  wgmma_scores<D, PA, PB, true, N>(acc, a, b + kSpanB);
+  wgmma_scores<D, PA, PB, true, N>(acc, a + kSpanA, b);
+  wgmma_scores<D, PA, PB, true, N>(acc, a, b);
 }
 
-// acc (m64 x D f32) += A . B with A (64 x 64) packed bf16 in registers and
-// B the 64 x D tile at `b` (panel pitch kPanelB) read MN-major.  Issued,
-// not waited.
-template <int D, int kPanelB>
+// acc (m64 x D f32) += A . B with A (64 x 16 kSteps) packed bf16 in
+// registers and B the 16 kSteps x D rows at `b` (panel pitch kPanelB)
+// read MN-major.  Issued, not waited.
+template <int D, int kPanelB, int kSteps = kTileRows / 16>
 __device__ __forceinline__ void wgmma_accumulate(float* acc, const uint32_t* a,
                                                  const unsigned char* b) {
   using P = Panels<D>;
 #pragma unroll
-  for (int kk = 0; kk < kTileRows / 16; ++kk)
+  for (int kk = 0; kk < kSteps; ++kk)
 #pragma unroll
     for (int p = 0; p < P::NP; ++p)
       wgmma_rs<P::PW, 1>(acc + p * (P::PW / 2), a + 4 * kk,
@@ -673,17 +668,17 @@ __device__ __forceinline__ void wgmma_accumulate(float* acc, const uint32_t* a,
 // wgmma_scores_split), as a1 b3 + a2 b2 + a3 b1 (a1 b3 only where kThird
 // places b's third piece; with two, b's own rounding stays), then a1 b2 +
 // a2 b1, then a1 b1.  Issued, not waited.
-template <int D, int kSpanB, int kThird = 0>
+template <int D, int kSpanB, int kThird = 0, int kSteps = kTileRows / 16>
 __device__ __forceinline__ void wgmma_accumulate_split(float* acc, const uint32_t* a1,
                                                        const uint32_t* a2, const uint32_t* a3,
                                                        const unsigned char* b) {
   constexpr int PB = 2 * kSpanB;
-  if constexpr (kThird != 0) wgmma_accumulate<D, kSpanB>(acc, a1, b + kThird);
-  wgmma_accumulate<D, PB>(acc, a2, b + kSpanB);
-  wgmma_accumulate<D, PB>(acc, a3, b);
-  wgmma_accumulate<D, PB>(acc, a1, b + kSpanB);
-  wgmma_accumulate<D, PB>(acc, a2, b);
-  wgmma_accumulate<D, PB>(acc, a1, b);
+  if constexpr (kThird != 0) wgmma_accumulate<D, kSpanB, kSteps>(acc, a1, b + kThird);
+  wgmma_accumulate<D, PB, kSteps>(acc, a2, b + kSpanB);
+  wgmma_accumulate<D, PB, kSteps>(acc, a3, b);
+  wgmma_accumulate<D, PB, kSteps>(acc, a1, b + kSpanB);
+  wgmma_accumulate<D, PB, kSteps>(acc, a2, b);
+  wgmma_accumulate<D, PB, kSteps>(acc, a1, b);
 }
 
 

@@ -11,11 +11,11 @@ computes, what bounds it and how:
   ``csrc/hopper_common.cuh``); in f32 each f32 product is formed from
   bf16 wgmma products on bf16 pieces of its operands (split in place);
 * K2 and K3 ``csrc/flash_bwd.cu`` replace ``_dkv_kernel`` (``:236``)
-  and ``_dq_kernel`` (``:271``): for bf16 the warp-specialised Hopper
-  body of ``csrc/attn_bwd_hopper.cuh`` (TMA ring, wgmma, dK/dV and dQ in
-  registers) over the dense causal sweep; for f32, K2 runs the same body
-  with each f32 product formed from bf16 wgmma products on three bf16
-  pieces of its operands (split in place), and K3 the tile loop;
+  and ``_dq_kernel`` (``:271``): the warp-specialised Hopper body of
+  ``csrc/attn_bwd_hopper.cuh`` (TMA ring, wgmma, dK/dV and dQ in
+  registers) over the dense causal sweep; in f32 each f32 product is
+  formed from bf16 wgmma products on three bf16 pieces of its operands
+  (split in place);
 * head dims above the built ones take the wide route,
   ``csrc/attn_wide.cu``: one warp per output row, any D, under the dense
   mask here and the block mask in ``block_sparse.py``.  A wide launch
@@ -23,20 +23,19 @@ computes, what bounds it and how:
   ``LAUNCHES_WIDE``.
 
 Routing by dtype and head dim D, the same for the forward, dK/dV and
-dQ: f32 runs its kernels (K1's and K2's split products, K3's tile loop)
-at 16, 32, 64 and 128 and the wide route above 128; bf16 runs the Hopper
+dQ: f32 runs the Hopper bodies on split products at 16, 32, 64 and 128
+and the wide route above 128; bf16 runs the Hopper
 bodies at 16, 32, 64, 128, 192 and 256 and the wide route above 256.  A
 head dim between the built ones is zero-padded to the next
 (``_padded_head_dim``: bf16 160 runs at 192, 200 at 256).
 
-Layouts: the Hopper kernels (every bf16 kernel, the f32 K1 and K2) read
-q, k, v and dO through TMA at their own strides, so the (B, T, H,
-D).transpose(1, 2) view that every attention layer makes is read in
-place; only an operand TMA cannot read (a start not 16-byte aligned, a
-stride not a multiple of 16 bytes, a last dim that is not unit-stride) is
-copied, and the routes without TMA (the f32 K3 tile loop, the wide route)
-copy what is not contiguous (``OPERAND_COPIES`` counts both).  Outputs
-are contiguous.
+Layouts: the Hopper kernels (K1-K3 in both dtypes) read q, k, v and dO
+through TMA at their own strides, so the (B, T, H, D).transpose(1, 2)
+view that every attention layer makes is read in place; only an operand
+TMA cannot read (a start not 16-byte aligned, a stride not a multiple of
+16 bytes, a last dim that is not unit-stride) is copied, and the wide
+route, which has no TMA, copies what is not contiguous
+(``OPERAND_COPIES`` counts both).  Outputs are contiguous.
 
 ``flash_attention`` and ``flash_forward`` run through one
 ``torch.autograd.Function``, the counterpart of the ``custom_vjp`` of
@@ -78,7 +77,7 @@ LAUNCHES_DQ = LaunchCounter("flash_bwd_dq")
 LAUNCHES_WIDE = LaunchCounter("attn_wide")
 #: q, k, v and dO operands the attention wrappers copied because a kernel
 #: could not read them in place (not 16-byte aligned, a stride TMA does
-#: not take, or not contiguous for a route without TMA); padded head dims
+#: not take, or not contiguous for the wide route); padded head dims
 #: are not counted (the pad is the copy)
 OPERAND_COPIES = LaunchCounter("attn_operand_copies")
 #: heads a launch takes at most: the limit of a grid's y dimension
@@ -396,14 +395,13 @@ def _launch_dkv(q, k, v, do, lse, delta, causal: bool, sm_scale: float
 
 def _launch_dq(q, k, v, do, lse, delta, causal: bool, sm_scale: float
                ) -> torch.Tensor:
-    """Launch K3 over the same prepared inputs as ``_launch_dkv``; the
-    f32 tile loop reads them contiguous (copied where they are not)."""
+    """Launch K3 over the same prepared inputs as ``_launch_dkv``, read
+    as ``_launch_dkv`` reads them (through TMA in both dtypes)."""
     B, H, T, D = q.shape
     if _wide(D, q.dtype):
         return _wide_dq(q, k, v, do, lse, delta, causal, sm_scale,
                         LAUNCHES_DQ)
-    q, k, v, do = _kernel_operands(q, k, v, do,
-                                   tma=q.dtype == torch.bfloat16)
+    q, k, v, do = _kernel_operands(q, k, v, do, tma=True)
     dq = _empty(q)
     _launch_heads("flash_bwd_dq", (LAUNCHES_DQ,),
                   _bwd_fn("bigdl_flash_bwd_dq", 7),

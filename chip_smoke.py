@@ -19,11 +19,12 @@ Phases; any failure exits non-zero:
    KC, BN and W orientation) its registers, spills and dynamic shared
    memory (ptxas) and its wgmma (HGMMA) and TMA (UTMALDG) instructions
    (``cuobjdump -sass``, where the toolkit has it); each bf16 attention
-   kernel at D 128, 192 and 256, the f32 K1, K2, K6 and K7 (bf16 products
+   kernel at D 128, 192 and 256, the f32 K1-K3 and K6-K8 (bf16 products
    on bf16 pieces of each f32 operand) at D 16-128, K5 at KC 64 and
    every K9 instantiation must not spill and must hold both (and the
    attention kernels must not have their wgmma serialised, ptxas C7520),
-   and two K5 or K9 blocks must share an SM.
+   two K5 or K9 blocks must share an SM, and no library may still hold
+   the f32 dQ's retired FMA loops.
 3. kernel parity — each kernel against its plain PyTorch version on the
    card at the shapes the served, the training, the block-sparse
    training, the matmul and the ResNet-50 paths give it, with the stated
@@ -33,8 +34,8 @@ Phases; any failure exits non-zero:
    and on all-ones masks against
    K1-K3 (K6-K8 = K1-K3 bit for bit on the same inputs in both dtypes);
    the attention kernels on the head-strided layout of an attention
-   layer at the training shapes and K1 also in f32 (no copy; bit for bit
-   the contiguous launch) and K4 on a column slice; bf16 head dims 192 and 256 (the
+   layer at the training shapes and in f32 (no copy; bit for bit the
+   contiguous launch) and K4 on a column slice; bf16 head dims 192 and 256 (the
    Hopper bodies in all three passes, dK/dV and dQ on 64-row blocks; NaN
    in dead K/V at 256 too) and 320 (the wide route); K5 forward and dX at ResNet-50's
    four stage shapes (B 64, bf16), one in f32, ResNet-CIFAR's first
@@ -64,7 +65,7 @@ Phases; any failure exits non-zero:
    L_k - L_1; a 2-layer copy at full width trained 3 steps in f32 on the
    card and on the CPU gives the same losses, decreases and parameter
    updates.  Step ms, tokens/s, MFU and peak memory; the f32 run's step
-   ms, tokens/s and launches per step.
+   ms, tokens/s and launches per step, with no operand copy either.
 6. block-sparse training path — the flagship with max_len 4096 and
    ``seq_strategy="blocksparse"`` (sliding window 2 + 1 global at block
    512), trained as in phase 5 over one batch of 4 sequences of 4096
@@ -72,7 +73,8 @@ Phases; any failure exits non-zero:
    K4 17 and K1-K3 0; a 2-layer copy (T 512, block 64) card vs CPU;
    the flash flagship at T 4096 against an all-ones block-sparse mask,
    3 steps each, losses within BS_FIRST_REL_TOL.  Step ms, tokens/s (also for flash at
-   T 4096, and for the f32 run with its launches per step), MFU on
+   T 4096, and for the f32 run with its launches per step, no operand
+   copy), MFU on
    executed and flash-equivalent work, peak memory.
 7. the block-sparse matmul's entry point — ``block_sparse_matmul`` at
    the flagship MLP shape in bf16 under autograd, 3 forward+backward
@@ -126,10 +128,12 @@ T_START = time.perf_counter()
 # which form their four f32 products from 22 bf16 products on the tensor
 # cores (six for each score product, five for dV and dK);
 # "float32_split_fwd" that of the f32 K1 and K6: 12 bf16 products for
-# their two (six for S, six for P.V)
+# their two (six for S, six for P.V); "float32_split_dq" that of the f32
+# K3 and K8: 18 for their three (six each for S, dP and dQ)
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12,
               "float32_split": 989e12 * 4 / 22,
-              "float32_split_fwd": 989e12 * 2 / 12}
+              "float32_split_fwd": 989e12 * 2 / 12,
+              "float32_split_dq": 989e12 * 3 / 18}
 MEM_BYTES_PER_S = 3.35e12
 
 FLAGSHIP = dict(vocab=32000, embed_dim=1024, num_heads=8, num_layers=8,
@@ -155,7 +159,8 @@ TOL = {("layer_norm_fwd", "bfloat16"): 4e-2,
 LSE_TOL = 1e-3
 # a row whose norm is below this share of the largest row's (keys that no
 # query sees, gradients that vanish in exact arithmetic) is held to an
-# absolute limit of ROW_TOL times that floor
+# absolute limit of ROW_TOL times that floor; a dQ row with one live key
+# is read against its terms' size instead (dq_row_err)
 ROW_FLOOR = 1e-4
 # last-position logits, bf16 on the card vs f32 on the CPU, relative to
 # the largest |logit|: bf16 activations carry ~2^-8 relative error
@@ -288,6 +293,31 @@ def row_rel_err(torch, got, ref, scale=None) -> float:
     return (d / (r + ROW_FLOOR * scale)).max().item()
 
 
+def dq_row_err(torch, got, ref, keep, k, v, d_o, sm_scale, scale) -> float:
+    """dQ's ``row_rel_err`` at ``scale``, except on a query row with one
+    live key j under ``keep`` ((T, S) bool): there dQ = P (dP - delta)
+    k_j sm_scale is 0 in exact arithmetic (delta = dO . O and O = v_j),
+    both sides hold only the rounding of dP - delta, which two summation
+    orders do not share, and no f32 arithmetic meets a floor set against
+    the largest row; such a row is read against the size of its terms
+    before they cancel, sm_scale ||dO_i|| ||v_j|| ||k_j||."""
+    one = keep.sum(dim=-1) == 1
+    err = row_rel_err(torch, got[..., ~one, :], ref[..., ~one, :],
+                      scale) if not bool(one.all()) else 0.0
+    if bool(one.any()):
+        i = torch.nonzero(one).flatten()
+        j = keep[i].int().argmax(dim=-1)
+
+        def norm(t):
+            return torch.linalg.vector_norm(t.float(), dim=-1)
+
+        size = sm_scale * norm(d_o[..., i, :]) * norm(v[..., j, :]) * norm(
+            k[..., j, :])
+        err = max(err, (norm(got[..., i, :].float() - ref[..., i, :].float())
+                        / size).max().item())
+    return err
+
+
 def bound(nbytes: float, flops: float, dtype: str):
     t_mem = nbytes / MEM_BYTES_PER_S
     t_ops = flops / PEAK_FLOPS[dtype]
@@ -356,22 +386,23 @@ DESIGN_KERNELS = (
     (r"bwd_(dkv|dq)_wgmma_kernelILi(\d+)E.*?(Dense|List)Sweep",
      {"dkvDense": "K2", "dqDense": "K3", "dkvList": "K7", "dqList": "K8"},
      "bfloat16"),
-    (r"bwd_(dkv)_split_kernelILi(\d+)E.*?(Dense|List)Sweep",
-     {"dkvDense": "K2", "dkvList": "K7"}, "float32"),
-    (r"flash_bwd_(dq)_kernelILi(\d+)E", {"dq": "K3"}, "float32"),
-    (r"bs_(dq)_kernelILi(\d+)E", {"dq": "K8"}, "float32"),
+    (r"bwd_(dkv|dq)_split_kernelILi(\d+)E.*?(Dense|List)Sweep",
+     {"dkvDense": "K2", "dqDense": "K3", "dkvList": "K7", "dqList": "K8"},
+     "float32"),
 )
+# the FMA tile loops the f32 K3 and K8 ran before their split products:
+# phase 2 fails if a built library still holds one
+RETIRED_KERNELS = r"flash_bwd_dq_kernel|bs_dq_kernel"
 
 
 # the head dims phase 2 holds each Hopper attention kernel to: in bf16 D
-# 128, 192 and 256 (K2, K3, K7 and K8 there are the 64-row blocks); the f32
-# K1 and K6 (the forward on split products) and K2 and K7 (the 64-row
-# dK/dV block on split products) at every head dim
+# 128, 192 and 256 (K2, K3, K7 and K8 there are the 64-row blocks); in f32
+# (split products; K2, K3, K7 and K8 on 64-row blocks) at every head dim
 CHECKED_HEAD_DIMS = {
     **{(label, "bfloat16"): (128, 192, 256)
        for label in ("K1", "K2", "K3", "K6", "K7", "K8")},
     **{(label, "float32"): (16, 32, 64, 128)
-       for label in ("K1", "K2", "K6", "K7")}}
+       for label in ("K1", "K2", "K3", "K6", "K7", "K8")}}
 
 
 def design_kernel(fn: str):
@@ -391,9 +422,10 @@ def kernel_design(torch):
     dynamic shared memory from ptxas, and its count of wgmma (HGMMA) and
     TMA load (UTMALDG) instructions in SASS.  Fails where a bf16 kernel
     at D 128, 192 or 256 (the bf16 route of head dims 129-256; K2, K3, K7
-    and K8 there are the 64-row dK/dV and dQ blocks), or the f32 K1, K2,
-    K6 or K7 (split products) at D 16-128, spills, has its wgmma serialised by
-    ptxas, holds no HGMMA or no UTMALDG, or is missing.  A library loaded
+    and K8 there are the 64-row dK/dV and dQ blocks), or an f32 one (split
+    products) at D 16-128, spills, has its wgmma serialised by ptxas,
+    holds no HGMMA or no UTMALDG, or is missing, and where a library still
+    holds a retired FMA loop (``RETIRED_KERNELS``).  A library loaded
     from an earlier build in the same checkout has no ptxas report
     (``_support.BUILD_INFO``): its registers and spills read "not
     measured"."""
@@ -425,6 +457,8 @@ def kernel_design(torch):
         serialised = set(re.findall(r"serialized.*?function '([^']+)'", report))
         sass = sass_counts(_support.load_cuda_library(lib_name)._name)
         for fn in sorted(set(ptxas) | set(sass or {})):
+            if re.search(RETIRED_KERNELS, fn):
+                failures.append(f"{lib_name} still holds {fn}")
             found = design_kernel(fn)
             if found is None or found[0] not in labels:
                 continue
@@ -635,7 +669,7 @@ def check_flash(torch, F):
         # the f32 K1 forms its products from bf16 products on the tensor
         # cores (the wide route on FMA)
         bound_ms, bound_by = bound(nbytes, 4.0 * B * H * pairs * D,
-                                   split_rate(dname, wide, fwd=True))
+                                   split_rate(dname, wide, "fwd"))
         rows.append(dict(case=label, shape=[B, H, T, S, D], dtype=dname,
                          causal=causal, max_abs_err=err, row_rel_err=row_err,
                          lse_err=lse_err, tol=tol, ok=ok, wide_launches=wide,
@@ -728,8 +762,9 @@ def want_launches(**counts):
 def bwd_cases(torch):
     """(label, B, H, T, S, D, dtype, causal) for K2/K3: the training
     step (also head-strided, as ``flash_cases``), a ragged T, causal
-    T > S and S > T, f32, narrower heads, head dims 192 and 256 (K2 and
-    K3 on the 64-row Hopper blocks) and 320 (the wide route)."""
+    T > S and S > T, f32 (also head-strided), narrower heads, head dims
+    192 and 256 (K2 and K3 on the 64-row Hopper blocks) and 320 (the
+    wide route)."""
     bf16, f32 = torch.bfloat16, torch.float32
     return [("train", 16, 8, 1024, 1024, 128, bf16, True),
             ("strided_train", 16, 8, 1024, 1024, 128, bf16, True),
@@ -737,6 +772,7 @@ def bwd_cases(torch):
             ("causal_T>S", 2, 8, 300, 200, 128, bf16, True),
             ("causal_S>T", 2, 8, 200, 300, 64, bf16, True),
             ("f32_causal", 2, 8, 512, 512, 128, f32, True),
+            ("strided_f32_causal", 2, 8, 512, 512, 128, f32, True),
             ("f32_noncausal_D64", 2, 4, 200, 333, 64, f32, False),
             ("bf16_noncausal_D32", 2, 4, 96, 130, 32, bf16, False),
             ("D192", 2, 8, 1024, 1024, 192, bf16, True),
@@ -801,10 +837,11 @@ def bwd_tma_bytes(BH, T, S, D, causal, dkv):
 
 def check_flash_bwd(torch, F):
     """K2 and K3 against ``_flash_bwd_plain`` on the same (q, k, v, O,
-    LSE, dO), O and LSE from K1.  Times: each kernel alone (graph
-    replay), the whole plain backward, and the backward of one
-    ``scaled_dot_product_attention`` call (``sdpa_bwd_ms``: graph replay
-    too)."""
+    LSE, dO), O and LSE from K1; no operand copied, and a head-strided
+    launch equal to the contiguous one bit for bit.  Times: each kernel
+    alone (graph replay), the whole plain backward, and the backward of
+    one ``scaled_dot_product_attention`` call (``sdpa_bwd_ms``: graph
+    replay too)."""
     from bigdl_tpu_torch.ops import flash_attention as fa
 
     rows = []
@@ -817,26 +854,33 @@ def check_flash_bwd(torch, F):
         o, lse = fa._flash_cuda(q, k, v, causal, scale)
         do, delta = fa._bwd_inputs(q, o, d_o)
         wide = fa.LAUNCHES_WIDE.count
+        copies = fa.OPERAND_COPIES.count
         dk, dv = fa._launch_dkv(q, k, v, do, lse, delta, causal, scale)
         torch.cuda.synchronize()   # one kernel per synchronise
         dq = fa._launch_dq(q, k, v, do, lse, delta, causal, scale)
         torch.cuda.synchronize()
         wide = fa.LAUNCHES_WIDE.count - wide
+        copies = fa.OPERAND_COPIES.count - copies
         dq_ref, dk_ref, dv_ref = fa._flash_bwd_plain(q, k, v, o, lse, d_o,
                                                      causal, scale)
         dname = str(dt).split(".")[-1]
         tol = ROW_TOL[dname]
         outs = (("dq", dq, dq_ref), ("dk", dk, dk_ref), ("dv", dv, dv_ref))
         # one scale for the three: at T = S = 1 dq and dk vanish in exact
-        # arithmetic and both sides hold rounding noise
+        # arithmetic and both sides hold rounding noise; dQ's rows with one
+        # live key (the first causal row) against their terms' size
         norm = max(max_row_norm(torch, b) for _, _, b in outs)
-        rel = {n: row_rel_err(torch, a, b, norm) for n, a, b in outs}
+        rel = {n: row_rel_err(torch, a, b, norm) for n, a, b in outs[1:]}
+        keep = (fa._causal_keep(T, S, "cuda") if causal
+                else torch.ones(T, S, dtype=torch.bool, device="cuda"))
+        rel["dq"] = dq_row_err(torch, dq, dq_ref, keep, k, v, d_o, scale,
+                               norm)
         err = {n: (a.float() - b.float()).abs().max().item()
                for n, a, b in outs}
         finite = all(bool(torch.isfinite(t.float()).all())
                      for t in (dq, dk, dv))
-        ok = finite and max(rel.values()) <= tol and wide == wide_launches(
-            fa, D, dt, ("dkv", "dq"))
+        ok = (finite and max(rel.values()) <= tol and copies == 0
+              and wide == wide_launches(fa, D, dt, ("dkv", "dq")))
         same = None
         if label.startswith("strided"):
             # dO read in place too; the contiguous launches' bits
@@ -864,13 +908,14 @@ def check_flash_bwd(torch, F):
         item = q.element_size()
         BH = B * H
         stats = 8 * BH * T
-        # the f32 K2 forms its products from bf16 products on the tensor
-        # cores (the wide route on FMA)
+        # the f32 K2 and K3 form their products from bf16 products on the
+        # tensor cores (the wide route on FMA)
         b_dkv, by_dkv = bound(item * (2 * BH * T * D + 4 * BH * S * D)
                               + stats, 8.0 * BH * pairs * D,
-                              split_rate(dname, wide))
+                              split_rate(dname, wide, "dkv"))
         b_dq, by_dq = bound(item * (3 * BH * T * D + 2 * BH * S * D)
-                            + stats, 6.0 * BH * pairs * D, dname)
+                            + stats, 6.0 * BH * pairs * D,
+                            split_rate(dname, wide, "dq"))
         # the Hopper route's TMA traffic and its rate (bf16 up to D 256)
         tma = {}
         if dname == "bfloat16" and not wide:
@@ -879,7 +924,8 @@ def check_flash_bwd(torch, F):
         rows.append(dict(
             case=label, shape=[B, H, T, S, D], dtype=dname, causal=causal,
             row_rel_err=rel, max_abs_err=err, tol=tol, ok=ok,
-            wide_launches=wide, equals_contiguous=same, plain_ms=plain_ms,
+            wide_launches=wide, operand_copies=copies,
+            equals_contiguous=same, plain_ms=plain_ms,
             library_ms=lib_ms,
             library_backend=lib_backend,
             dkv=dict(ms=ms_dkv, bound_ms=b_dkv, bound_by=by_dkv,
@@ -891,7 +937,7 @@ def check_flash_bwd(torch, F):
                         for (k, n), ms in zip(tma.items(), (ms_dkv, ms_dq)))
         print(f"K2/K3 flash_bwd {label:>18} {dname:>8} row err dq "
               f"{rel['dq']:.3e} dk {rel['dk']:.3e} dv {rel['dv']:.3e} (tol "
-              f"{tol:g}) wide {wide}"
+              f"{tol:g}) wide {wide} copies {copies}"
               f"{'' if same is None else f' = contiguous bitwise {same}'} "
               f"| K2 {ms_dkv:.4f} ms (bound {b_dkv:.4f}, {by_dkv}) "
               f"K3 {ms_dq:.4f} ms (bound {b_dq:.4f}, {by_dq}) plain "
@@ -905,7 +951,8 @@ def bs_cases(torch):
     training step, block 32 (partly live 64-row tiles), ragged T 200 at
     block 8 (a 25 x 25 mask), block 96, f32, non-causal with a dead q
     block, strided, all-ones masks in bf16 and f32 (held against K1-K3 as
-    well), the training step head-strided (as ``flash_cases``), head dims
+    well), the training step and the f32 case head-strided (as
+    ``flash_cases``), head dims
     192 and 256 (the bf16 Hopper route of 129-256: K7 and K8 on 64-row
     blocks) and 320 (the wide route)."""
     import numpy as np
@@ -927,6 +974,8 @@ def bs_cases(torch):
              bs.sliding_window_mask(8, 8, 2, 1, True, 96, 96)),
             ("f32_block128", 2, 8, 1024, 128, f32, True,
              bs.sliding_window_mask(8, 8, 2, 1, True, 128, 128)),
+            ("strided_f32_block128", 2, 8, 1024, 128, f32, True,
+             bs.sliding_window_mask(8, 8, 2, 1, True, 128, 128)),
             ("noncausal_dead_qblock", 2, 8, 1024, 64, bf16, False,
              bs.BlockMask(dead, 128, 128)),
             ("strided_block128", 2, 8, 2048, 128, bf16, True,
@@ -945,27 +994,28 @@ def bs_cases(torch):
              bs.sliding_window_mask(8, 8, 2, 1, True, 128, 128))]
 
 
-def split_rate(dname: str, wide: int, fwd: bool = False) -> str:
-    """The ``PEAK_FLOPS`` key of a dK/dV launch (K2, K7) or, with
-    ``fwd``, a forward launch (K1, K6) in ``dname``: in f32 its split
-    products on the tensor cores, unless it took the wide route (``wide``
-    launches), which runs on FMA."""
+def split_rate(dname: str, wide: int, kind: str) -> str:
+    """The ``PEAK_FLOPS`` key of a forward (``kind`` "fwd": K1, K6), dK/dV
+    ("dkv": K2, K7) or dQ ("dq": K3, K8) launch in ``dname``: in f32 its
+    split products on the tensor cores, unless it took the wide route
+    (``wide`` launches), which runs on FMA."""
     if dname != "float32" or wide:
         return dname
-    return "float32_split_fwd" if fwd else "float32_split"
+    return {"fwd": "float32_split_fwd", "dkv": "float32_split",
+            "dq": "float32_split_dq"}[kind]
 
 
 def _bs_bounds(B, H, T, D, item, live, dname, wide):
     """(ms, by) of K6, K7 and K8 over ``live`` score elements per head:
     2, 4 and 3 products of 2 * live * D FLOP; bytes as K1-K3 move them;
-    K6 and K7 at ``split_rate``."""
+    each at ``split_rate``."""
     BH = B * H
     return (bound(item * 4 * BH * T * D + 4 * BH * T, 4.0 * BH * live * D,
-                  split_rate(dname, wide, fwd=True)),
+                  split_rate(dname, wide, "fwd")),
             bound(item * 6 * BH * T * D + 8 * BH * T, 8.0 * BH * live * D,
-                  split_rate(dname, wide)),
+                  split_rate(dname, wide, "dkv")),
             bound(item * 5 * BH * T * D + 8 * BH * T, 6.0 * BH * live * D,
-                  dname))
+                  split_rate(dname, wide, "dq")))
 
 
 def check_block_sparse(torch, F):
@@ -973,8 +1023,7 @@ def check_block_sparse(torch, F):
     on the same inputs (O and LSE from K6), row by row.  The all-ones
     cases also against K1-K3, fed the same (O, LSE, dO, delta) from K6:
     K6-K8 equal K1-K3 bit for bit in both dtypes (one Hopper body over
-    the same tiles in bf16 and for the f32 forward and dK/dV, one FMA
-    tile loop for the f32 dQ), and each pair is timed on those same tiles.
+    the same tiles), and each pair is timed on those same tiles.
     Times: each kernel
     alone (graph replay), the plain forward and backward, and
     ``scaled_dot_product_attention`` with the elementwise boolean mask,
@@ -1008,7 +1057,10 @@ def check_block_sparse(torch, F):
                 ("dk", dk, grads_ref[1]), ("dv", dv, grads_ref[2]))
         gscale = max(max_row_norm(torch, b) for _, _, b in outs[1:])
         rel = {n: row_rel_err(torch, a, b, None if n == "o" else gscale)
-               for n, a, b in outs}
+               for n, a, b in outs if n != "dq"}
+        keep = bs._elementwise_keep(mask, causal, "cuda")
+        rel["dq"] = dq_row_err(torch, dq, grads_ref[0], keep, k, v, d_o,
+                               scale, gscale)
         err = {n: (a.float() - b.float()).abs().max().item()
                for n, a, b in outs}
         lse_err = (lse - lse_ref).abs().max().item()
@@ -1017,7 +1069,6 @@ def check_block_sparse(torch, F):
         ok = (finite and max(rel.values()) <= tol and lse_err <= LSE_TOL
               and wide == wide_launches(fa, D, dt, ("fwd", "dkv", "dq")))
         del o_ref, lse_ref, grads_ref
-        keep = bs._elementwise_keep(mask, causal, "cuda")
         live = int(keep.sum().item())
         row = dict(case=label, shape=[B, H, T, D], dtype=dname,
                    causal=causal, mask=repr(mask), live_per_head=live,
@@ -1648,6 +1699,10 @@ def train_flagship(torch):
     print(f"training path: f32, B {B} T {T}: step {f32_step_ms:.2f} ms "
           f"(iterations 3-{TRAIN_ITERS}), {f32_tokens_per_s:.0f} tokens/s; "
           f"launches per step {f32['launches_per_step'][0]}")
+    # the f32 kernels read every operand in place too
+    if any(st["attn_operand_copies"] for st in f32["launches_per_step"]):
+        failures.append(f"f32 steps copied attention operands: "
+                        f"{f32['launches_per_step']}")
     first_rel = abs(losses[0] - ref[0]) / abs(ref[0])
     dec_rel = decrease_rel_err(losses, ref)
     print(f"training path: bf16 vs f32 on the card: first loss "
@@ -1775,6 +1830,9 @@ def train_blocksparse(torch):
     print(f"block-sparse path: f32, B {B} T {T}: step {f32_step_ms:.2f} ms "
           f"(iterations 3-{TRAIN_ITERS}), {f32_tokens_per_s:.0f} tokens/s; "
           f"launches per step {f32['launches_per_step'][0]}")
+    if any(st["attn_operand_copies"] for st in f32["launches_per_step"]):
+        failures.append(f"block-sparse f32 steps copied attention operands: "
+                        f"{f32['launches_per_step']}")
     first_rel = abs(losses[0] - ref[0]) / abs(ref[0])
     dec_rel = decrease_rel_err(losses, ref)
     print(f"block-sparse path: bf16 vs f32 on the card: first loss "
@@ -2181,8 +2239,7 @@ def _kernel_group(name: str) -> str:
         return "K6 block_sparse_fwd"
     if "bwd_dkv_" in name and "ListSweep" in name:   # bf16 and f32
         return "K7 block_sparse_bwd_dkv"
-    if "bs_dq_kernel" in name or ("bwd_dq_wgmma" in name
-                                  and "ListSweep" in name):
+    if "bwd_dq_" in name and "ListSweep" in name:   # bf16 and f32
         return "K8 block_sparse_bwd_dq"
     if "bs_mm_kernel" in name:
         return "K9 block_sparse_mm"
@@ -2190,7 +2247,7 @@ def _kernel_group(name: str) -> str:
         return "K1 flash_fwd"
     if "bwd_dkv_" in name:
         return "K2 flash_bwd_dkv"
-    if "flash_bwd_dq" in name or "bwd_dq_wgmma" in name:
+    if "bwd_dq_" in name:
         return "K3 flash_bwd_dq"
     if "_ln_fwd" in name:
         return "K4 layer_norm_fwd"

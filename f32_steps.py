@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """The f32 training steps of ``chip_smoke.py``'s phases 5 and 6, and the
-f32 forward (K1, K6) and dK/dV (K2, K7) launches at each step's shape,
-on one GPU.
+f32 forward (K1, K6), dK/dV (K2, K7) and dQ (K3, K8) launches at each
+step's shape, on one GPU.
 
     python3 f32_steps.py [CHECKOUT]
 
@@ -10,9 +10,9 @@ checkout's ``chip_smoke.py`` helpers, so two checkouts (a parent and a
 change) are measured the same way: the flagship TransformerLM trained 8
 f32 steps at T 1024, B 16 (phase 5) and, block-sparse, at T 4096, B 4
 (phase 6), the step time over iterations 3-8 and the operand copies and
-kernel launches of a step; then K1 and K2 (flash) or K6 and K7
-(block-sparse, the flagship's mask) alone at that step's layer shape (8
-heads of 128), by CUDA-graph replay.  Prints a line per phase and, last,
+kernel launches of a step; then K1-K3 (flash) or K6-K8 (block-sparse,
+the flagship's mask) alone at that step's layer shape (8 heads of 128),
+by CUDA-graph replay.  Prints a line per phase and, last,
 the JSON record.  Run parent, change, change, parent in one call to
 compare two versions.
 """
@@ -76,6 +76,10 @@ def main(argv=None) -> int:
             def dkv():
                 return bs._launch_bs_dkv(q, k, v, do, lse, delta, mask, True,
                                          scale)
+
+            def dq():
+                return bs._launch_bs_dq(q, k, v, do, lse, delta, mask, True,
+                                        scale)
         else:
             def fwd():
                 return fa._flash_cuda(q, k, v, True, scale)
@@ -85,6 +89,9 @@ def main(argv=None) -> int:
 
             def dkv():
                 return fa._launch_dkv(q, k, v, do, lse, delta, True, scale)
+
+            def dq():
+                return fa._launch_dq(q, k, v, do, lse, delta, True, scale)
         per_step = run["launches_per_step"][0]
         out[name] = dict(batch=B, seq_len=T,
                          step_ms=1e3 * sum(steady) / len(steady),
@@ -92,12 +99,14 @@ def main(argv=None) -> int:
                          launches_per_step=per_step,
                          operand_copies=per_step["attn_operand_copies"],
                          fwd_ms=cs.cuda_ms(fwd, iters=3, reps=2),
-                         dkv_ms=cs.cuda_ms(dkv, iters=3, reps=2))
+                         dkv_ms=cs.cuda_ms(dkv, iters=3, reps=2),
+                         dq_ms=cs.cuda_ms(dq, iters=3, reps=2))
         print(f"{repo} {name}: f32 step {out[name]['step_ms']:.2f} ms "
               f"(iterations 3-{cs.TRAIN_ITERS}, B {B}, T {T}), operand "
               f"copies {out[name]['operand_copies']} a step; at its shape "
               f"forward {out[name]['fwd_ms']:.4f} ms, dK/dV "
-              f"{out[name]['dkv_ms']:.4f} ms", flush=True)
+              f"{out[name]['dkv_ms']:.4f} ms, dQ {out[name]['dq_ms']:.4f} "
+              f"ms", flush=True)
         del q, k, v, d_o, o, lse, do, delta
         torch.cuda.empty_cache()
     print(json.dumps(dict(checkout=str(repo),

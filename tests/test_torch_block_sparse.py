@@ -380,9 +380,9 @@ def test_k6_and_k8_launch_over_one_query_table(monkeypatch, dtype):
     ``_attention_tables`` entry ``_query_tables`` names, the 128-row block
     lists (``dq_blocks``, with their block order and live rows), and the
     same ints.  In f32 K6 reads those same 128-row lists (its body is
-    bf16's) while K8, still a tile loop, reads the 64-row tile lists
-    (``fwd``): the block mask and the ints are shared.  The launches are
-    recorded on CPU tensors, not run."""
+    bf16's) while K8, whose f32 blocks own 64 query rows, reads the 64-row
+    lists (``dq_tiles``, with theirs): the block mask and the ints are
+    shared.  The launches are recorded on CPU tensors, not run."""
     mask = P.sliding_window_mask(8, 8, 2, 1, True, 32, 32)
     calls = {}
 
@@ -396,18 +396,17 @@ def test_k6_and_k8_launch_over_one_query_table(monkeypatch, dtype):
     P._bs_fwd_cuda(q, k, v, mask, True, 0.125)
     P._launch_bs_dq(q, k, v, q, lse, lse.reshape(2, 256), mask, True, 0.125)
     which = P._query_tables(dtype, 64)
-    assert which == ("dq_blocks" if dtype == torch.bfloat16 else "fwd")
+    assert which == ("dq_blocks" if dtype == torch.bfloat16 else "dq_tiles")
     tab = P._attention_tables(mask, True, q.device)
+
+    def pointers(t):
+        return [t["tiles"].data_ptr(), t["counts"].data_ptr(),
+                t["flags"].data_ptr(), tab["block_mask"].data_ptr(),
+                t["order"].data_ptr(), t["rows"].data_ptr()]
+
     t = tab["dq_blocks"]
-    lists = [t[n].data_ptr() for n in ("tiles", "counts", "flags")]
-    lists += [tab["block_mask"].data_ptr(), t["order"].data_ptr(),
-              t["rows"].data_ptr()]
-    if dtype == torch.bfloat16:
-        want = lists
-    else:
-        tiles, flags, counts = tab[which]
-        want = [tiles.data_ptr(), counts.data_ptr(), flags.data_ptr(),
-                tab["block_mask"].data_ptr(), None, None]
+    lists = pointers(t)
+    want = pointers(tab[which])
     fwd_fn, fwd_args = calls["block_sparse_fwd"]
     dq_fn, dq_args = calls["block_sparse_bwd_dq"]
     # after the tensors (5 and 7): the tables, then L, the mask's shape,
@@ -858,10 +857,9 @@ def test_head_strided_operands_reach_the_block_sparse_kernels_in_place(
 def test_f32_k7_reads_64_row_key_lists_and_its_operands_in_place(
         monkeypatch):
     """In f32, K7 runs K2's f32 body over the 64-row key lists
-    (``dkv_tiles``, with their block order and live rows) and reads a
-    head-strided q, k, v and dO in place, no copy; K8 keeps the 64-row
-    tile tables (``fwd``) and copies what is not contiguous (four
-    copies)."""
+    (``dkv_tiles``, with their block order and live rows) and K8 K3's f32
+    body over the 64-row query lists (``dq_tiles``, with theirs); both
+    read a head-strided q, k, v and dO in place, no copy."""
     from bigdl_tpu_torch.ops import flash_attention as fa
     calls = _record_attention(monkeypatch)
     B, T, H, D = 2, 128, 4, 64
@@ -871,22 +869,20 @@ def test_f32_k7_reads_64_row_key_lists_and_its_operands_in_place(
     o, lse = torch.zeros(B, H, T, D), torch.zeros(B * H, 1, T)
     copies = fa.OPERAND_COPIES.count
     grads = P._bs_bwd_cuda(q, k, v, o, lse, d_o, mask, True, 0.125)
-    assert fa.OPERAND_COPIES.count - copies == 4
+    assert fa.OPERAND_COPIES.count == copies
     (dkv_fn, dkv), (dq_fn, dq) = calls
     assert (dkv_fn, dq_fn) == ("bigdl_bs_bwd_dkv", "bigdl_bs_bwd_dq")
-    assert dkv[:4] == [t.data_ptr() for t in (q, k, v, d_o)]
     tab = P._attention_tables(mask, True, q.device)
-    t = tab["dkv_tiles"]
     # after the tensors (8 and 7): tiles, counts, flags, the block mask,
     # order, rows; the strides after L and the mask's shape
-    assert dkv[8:14] == [t["tiles"].data_ptr(), t["counts"].data_ptr(),
-                         t["flags"].data_ptr(), tab["block_mask"].data_ptr(),
-                         t["order"].data_ptr(), t["rows"].data_ptr()]
-    assert list(dkv[18]) == [T * H * D, D, H * D] * 4
-    tiles, flags, counts = tab["fwd"]
-    assert dq[7:13] == [tiles.data_ptr(), counts.data_ptr(),
-                        flags.data_ptr(), tab["block_mask"].data_ptr(),
-                        None, None]
+    for args, n, name in ((dkv, 8, "dkv_tiles"), (dq, 7, "dq_tiles")):
+        t = tab[name]
+        assert args[:4] == [t_.data_ptr() for t_ in (q, k, v, d_o)]
+        assert args[n:n + 6] == [
+            t["tiles"].data_ptr(), t["counts"].data_ptr(),
+            t["flags"].data_ptr(), tab["block_mask"].data_ptr(),
+            t["order"].data_ptr(), t["rows"].data_ptr()]
+        assert list(args[n + 10]) == [T * H * D, D, H * D] * 4
     for g in grads:
         assert g.shape == (B, H, T, D) and g.is_contiguous()
 

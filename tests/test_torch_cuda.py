@@ -8,9 +8,9 @@ conftest (which configures jax):
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q
 
 Each kernel is held against its plain PyTorch version on the same
-inputs, forward and backward (the f32 forward, K1 and K6, and dK/dV, K2
-and K7, on bf16 products an f32 one at every head dim they are built
-for), also at
+inputs, forward and backward (the f32 forward, K1 and K6, dK/dV, K2 and
+K7, and dQ, K3 and K8, on bf16 products an f32 one at every head dim
+they are built for), also at
 head dims the kernels are not
 built for (zero-padded to the next, or above them, f32 128 and bf16
 256, through the wide route) and at more heads than one grid takes; a small TransformerLM served on
@@ -55,6 +55,39 @@ def _row_rel_err(got, ref, scale=None):
     if scale is None:
         scale = r.max().item()
     return (d / (r + 1e-4 * scale)).max().item()
+
+
+def _keep(T, S, causal, device, mask=None):
+    """(T, S) bool: the keys each query row attends, under ``mask`` (a
+    ``BlockMask``) or the dense mask, top-left causal under ``causal``."""
+    if mask is not None:
+        return bs._elementwise_keep(mask, causal, device)
+    if causal:
+        return fa._causal_keep(T, S, device)
+    return torch.ones(T, S, dtype=torch.bool, device=device)
+
+
+def _dq_row_err(got, ref, keep, k, v, d_o, sm_scale, scale):
+    """dQ's ``_row_rel_err`` at ``scale``, but a query row with one live
+    key j under ``keep`` ((T, S) bool), whose dQ is 0 in exact arithmetic
+    and holds only the rounding of dP - delta on both sides, against the
+    size of its terms before they cancel, sm_scale ||dO_i|| ||v_j||
+    ||k_j|| (chip_smoke.py, ``dq_row_err``)."""
+    one = keep.sum(dim=-1) == 1
+    err = _row_rel_err(got[..., ~one, :], ref[..., ~one, :], scale) \
+        if not one.all() else 0.0
+    if one.any():
+        i = torch.nonzero(one).flatten()
+        j = keep[i].int().argmax(dim=-1)
+
+        def norm(t):
+            return torch.linalg.vector_norm(t.float(), dim=-1)
+
+        size = sm_scale * norm(d_o[..., i, :]) * norm(v[..., j, :]) * \
+            norm(k[..., j, :])
+        err = max(err, (norm(got[..., i, :] - ref[..., i, :]) / size)
+                  .max().item())
+    return err
 
 
 @pytest.fixture
@@ -231,23 +264,24 @@ def test_flash_bwd_kernels_match_plain_on_card(cuda_device, T, S, D, dtype,
     want = fa._flash_bwd_plain(q, k, v, o, lse, d_o, causal, scale)
     # one scale for the three: at T = S = 1 dq and dk vanish in exact
     # arithmetic and both sides hold rounding noise
-    largest = max(torch.linalg.vector_norm(b.float(), dim=-1).max().item()
-                  for b in want)
-    for a, b in zip(got, want):
-        assert a.dtype == dtype and torch.isfinite(a.float()).all()
-        assert _row_rel_err(a, b, largest) <= ROW_TOL[dtype]
+    _check_attention_grads(got, want, dtype, _keep(T, S, causal, q.device),
+                           k, v, d_o, scale)
     if causal and S > T:   # keys no query attends get exactly zero
         assert not got[1][:, :, T:].any() and not got[2][:, :, T:].any()
 
 
-def _check_attention_grads(got, want, dtype):
+def _check_attention_grads(got, want, dtype, keep, k, v, d_o, sm_scale):
     """Each of (dq, dk, dv) row by row against the plain version's, at
-    one scale for the three."""
+    one scale for the three; dQ by ``_dq_row_err`` under ``keep`` ((T,
+    S) bool), of inputs k, v and dO at ``sm_scale``."""
     largest = max(torch.linalg.vector_norm(b.float(), dim=-1).max().item()
                   for b in want)
     for a, b in zip(got, want):
         assert a.dtype == dtype and a.shape == b.shape
         assert torch.isfinite(a.float()).all()
+    assert _dq_row_err(got[0], want[0], keep, k, v, d_o, sm_scale,
+                       largest) <= ROW_TOL[dtype]
+    for a, b in zip(got[1:], want[1:]):
         assert _row_rel_err(a, b, largest) <= ROW_TOL[dtype]
 
 
@@ -301,7 +335,9 @@ def test_odd_head_dims_run_the_kernels_on_card(cuda_device, D, dtype, which):
     assert o_ref.dtype == torch.float32
     assert _row_rel_err(o, o_ref) <= ROW_TOL[dtype]
     assert (lse - lse_ref).abs().max().item() <= 1e-3
-    _check_attention_grads(got, want, dtype)
+    _check_attention_grads(got, want, dtype, _keep(
+        T, T, True, q.device, None if which == "flash" else mask), k, v, d_o,
+        scale)
 
 
 @pytest.mark.parametrize("D", [160, 200, 256, 320])
@@ -347,7 +383,9 @@ def test_wide_head_dims_run_the_wide_route_on_card(cuda_device, D, dtype,
     assert o.shape == (2, 4, T, D) and o.dtype == dtype
     assert _row_rel_err(o, o_ref) <= ROW_TOL[dtype]
     assert (lse - lse_ref).abs().max().item() <= 1e-3
-    _check_attention_grads(got, want, dtype)
+    _check_attention_grads(got, want, dtype, _keep(
+        T, T, True, q.device, None if which == "flash" else mask), k, v, d_o,
+        scale)
 
 
 @pytest.mark.parametrize("D", [64, 128, 256])
@@ -394,7 +432,9 @@ def test_head_strided_layout_is_read_in_place_on_card(cuda_device, D, which):
                                 scale)
     assert _row_rel_err(o, o_ref) <= ROW_TOL[bf16]
     assert (lse - lse_ref).abs().max().item() <= 1e-3
-    _check_attention_grads(grads, want, bf16)
+    _check_attention_grads(grads, want, bf16, _keep(
+        T, T, True, q.device, None if which == "flash" else mask), k, v, d_o,
+        scale)
 
 
 @pytest.mark.parametrize("D", [192, 256])
@@ -682,6 +722,160 @@ def test_f32_dkv_of_k7_is_k2s_and_never_reads_dead_kv_on_card(cuda_device,
         assert torch.isfinite(b).all() and torch.equal(a, b)
 
 
+# (T, S, D, causal, layout, bq, bk): the f32 dQ (K3, and K8 under a block
+# mask of bq x bk blocks): the dK/dV cases, one query row, the edge of a
+# 64-row block and keys past it
+F32_DQ_CASES = dict(
+    F32_DKV_CASES,
+    D16_causal_T1=(1, 1, 16, True, "contiguous", 1, 1),
+    D128_causal_T64=(64, 64, 128, True, "contiguous", 32, 32),
+    D32_noncausal_T65_S130=(65, 130, 32, False, "contiguous", 13, 26),
+    D128_strided_causal_T264=(264, 264, 128, True, "strided", 24, 24))
+
+
+@pytest.mark.parametrize("case", sorted(F32_DQ_CASES))
+@pytest.mark.parametrize("which", ["flash", "block_sparse"])
+def test_f32_dq_runs_the_split_products_on_card(cuda_device, case, which):
+    """The f32 K3 (flash) and K8 (block-sparse) on the 64-row Hopper dQ
+    block whose f32 products are formed from bf16 products on three bf16
+    pieces of their operands: one launch per call, no wide launch, q, k,
+    v and dO read where they lie (no operand copy, the head-strided layout
+    too, whose dQ is the contiguous launch's bits), dQ row by row within
+    the f32 limit of the plain backward (one scale for dQ, dK and dV; a
+    row with one live key against its terms' size, ``_dq_row_err``), and
+    two launches give the same bits."""
+    T, S, D, causal, layout, bq, bk = F32_DQ_CASES[case]
+    g = torch.Generator(device=cuda_device).manual_seed(T * 3 + D)
+
+    def make(rows):
+        if layout == "strided":
+            return torch.randn(2, rows, 4, D, device=cuda_device,
+                               generator=g).transpose(1, 2)
+        return torch.randn(2, 4, rows, D, device=cuda_device, generator=g)
+
+    q, k, v, d_o = make(T), make(S), make(S), make(T)
+    scale = 1 / math.sqrt(D)
+    if which == "flash":
+        o, lse = fa._flash_cuda(q, k, v, causal, scale)
+        counter = fa.LAUNCHES_DQ
+
+        def launch(*t):
+            return fa._launch_dq(*t, lse, delta, causal, scale)
+
+        want = None
+    else:
+        mask = _f32_dkv_mask(T, S, bq, bk) if T > 1 else bs.BlockMask(
+            np.ones((1, 1), bool), 1, 1)
+        o, lse = bs._bs_fwd_cuda(q, k, v, mask, causal, scale)
+        counter = bs.LAUNCHES_DQ
+
+        def launch(*t):
+            return bs._launch_bs_dq(*t, lse, delta, mask, causal, scale)
+
+    do, delta = fa._bwd_inputs(q, o, d_o)
+    counts = (counter.count, fa.OPERAND_COPIES.count, fa.LAUNCHES_WIDE.count)
+    runs = [launch(q, k, v, do), launch(q, k, v, do)]
+    torch.cuda.synchronize()
+    assert (counter.count, fa.OPERAND_COPIES.count, fa.LAUNCHES_WIDE.count) \
+        == (counts[0] + 2, counts[1], counts[2])
+    assert runs[0].dtype == torch.float32 and runs[0].is_contiguous()
+    assert torch.equal(runs[0], runs[1])
+    if which == "flash":
+        want = fa._flash_bwd_plain(q, k, v, o, lse, d_o, causal, scale)
+        keep = _keep(T, S, causal, cuda_device)
+    else:
+        want = bs._bs_bwd_plain(q, k, v, o, lse, d_o, mask, causal, scale)
+        keep = _keep(T, S, causal, cuda_device, mask)
+    largest = max(torch.linalg.vector_norm(b, dim=-1).max().item()
+                  for b in want)
+    assert torch.isfinite(runs[0]).all()
+    assert _dq_row_err(runs[0], want[0], keep, k, v, d_o, scale,
+                       largest) <= ROW_TOL[torch.float32]
+    if layout == "strided":
+        same = launch(*(t.contiguous() for t in (q, k, v, do)))
+        assert torch.equal(runs[0], same)
+
+
+@pytest.mark.parametrize("D", [16, 32, 64, 128])
+def test_f32_dq_of_k8_is_k3s_and_never_reads_dead_kv_on_card(cuda_device,
+                                                             D):
+    """The f32 K8 runs K3's f32 body over its 64-row query lists: on an
+    all-ones causal mask at block 128 (and at a ragged T 200, block 40)
+    they visit the same key tiles in the same order, so K8 = K3 bit for
+    bit (fed the same O, LSE, dO and delta).  Under a mask at block 32
+    with NaN in every K/V row that no query may attend, dQ (and O, LSE,
+    dK, dV) equal the clean run's bit for bit."""
+    q, k, v, d_o = _bs_inputs(512, 512, D, torch.float32, cuda_device,
+                              D + 2)
+    scale = 1 / math.sqrt(D)
+    for T, block in ((512, 128), (200, 40)):
+        n = T // block
+        ones = bs.BlockMask(np.ones((n, n), bool), block, block)
+        qt, kt, vt, dt = (t[:, :, :T] for t in (q, k, v, d_o))
+        o, lse = bs._bs_fwd_cuda(qt, kt, vt, ones, True, scale)
+        do, delta = fa._bwd_inputs(qt, o, dt)
+        got = bs._launch_bs_dq(qt, kt, vt, do, lse, delta, ones, True, scale)
+        want = fa._launch_dq(qt, kt, vt, do, lse, delta, True, scale)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want)
+    m = np.eye(16, dtype=bool)
+    m[:, 0] = True
+    m[9, 9] = False   # k block 9 is read by no query
+    mask = bs.BlockMask(m, 32, 32)
+    dead = ~bs._elementwise_keep(mask, True, cuda_device).any(dim=0)
+    kp, vp = k.clone(), v.clone()
+    kp[:, :, dead] = float("nan")
+    vp[:, :, dead] = float("nan")
+    runs = []
+    for kk, vv in ((k, v), (kp, vp)):
+        o, lse = bs._bs_fwd_cuda(q, kk, vv, mask, True, scale)
+        runs.append((o, lse) + bs._bs_bwd_cuda(q, kk, vv, o, lse, d_o, mask,
+                                                True, scale))
+    torch.cuda.synchronize()
+    for a, b in zip(*runs):
+        assert torch.isfinite(b).all() and torch.equal(a, b)
+
+
+def test_f32_dq_raises_where_its_kernel_refuses_on_card(cuda_device):
+    """The f32 K3 and K8 launch their split-product kernel or raise: no
+    route falls back to a tile loop or to the plain version.  The C
+    entries refuse an f32 head dim above 128 (K3) and an f32 K8 launch
+    without its block lists' order and rows (the tile tables the retired
+    loop read had none); each raises, counts no launch and writes
+    nothing."""
+    g = torch.Generator(device=cuda_device).manual_seed(11)
+    q, k, v, d_o = (torch.randn(1, 2, 64, 192, device=cuda_device,
+                                generator=g) for _ in range(4))
+    lse = torch.zeros(2, 1, 64, device=cuda_device)
+    delta = torch.zeros(2, 64, device=cuda_device)
+    dq = torch.full_like(q, float("nan"))
+    before = fa.LAUNCHES_DQ.count
+    with pytest.raises(RuntimeError, match="cudaError"):
+        fa._launch_heads(
+            "flash_bwd_dq", (fa.LAUNCHES_DQ,),
+            fa._bwd_fn("bigdl_flash_bwd_dq", 7),
+            [*(t.data_ptr() for t in (q, k, v, d_o, lse, delta, dq)),
+             fa._strides_arg(q, k, v, d_o), 2, fa.FIRST_HEAD, fa.HEADS, 64,
+             64, 192, 0, 0.125, 1], 2, q.device)
+    torch.cuda.synchronize()
+    assert fa.LAUNCHES_DQ.count == before and dq.isnan().all()
+    q, k, v, d_o = (t[..., :64].contiguous() for t in (q, k, v, d_o))
+    dq = torch.full_like(q, float("nan"))
+    mask = bs.sliding_window_mask(2, 2, 1, 0, True, 32, 32)
+    tab = bs._attention_tables(mask, True, q.device)
+    args = bs._table_args(tab, "dq_tiles", mask, q, k, (q, k, v, d_o))
+    args[4:6] = [None, None]   # no order, no rows
+    before = bs.LAUNCHES_DQ.count
+    with pytest.raises(RuntimeError, match="cudaError"):
+        fa._launch_heads(
+            "block_sparse_bwd_dq", (bs.LAUNCHES_DQ,),
+            bs._attn_fn("bigdl_bs_bwd_dq", 13),
+            [*(t.data_ptr() for t in (q, k, v, d_o, lse, delta, dq)), *args,
+             0.125, 1], 2, q.device)
+    torch.cuda.synchronize()
+    assert bs.LAUNCHES_DQ.count == before and dq.isnan().all()
+
+
 def test_layer_norm_reads_a_column_slice_in_place_on_card(cuda_device):
     """K4 on a column slice (rows 1000 apart, under a leading dim) reads
     it in place and matches the plain version and the contiguous launch
@@ -765,12 +959,14 @@ def test_more_heads_than_a_grid_takes_on_card(cuda_device):
     assert _row_rel_err(o, o_ref) <= ROW_TOL[bf16]
     assert (lse - lse_ref).abs().max().item() <= 1e-3
     _check_attention_grads(grads, fa._flash_bwd_plain(
-        *pick[:3], o, lse, pick[3], True, scale), bf16)
+        *pick[:3], o, lse, pick[3], True, scale), bf16,
+        _keep(T, T, True, q.device), *pick[1:], scale)
     ob_ref, lseb_ref = bs._bs_attention_plain(*pick[:3], mask, True, scale)
     assert _row_rel_err(ob, ob_ref) <= ROW_TOL[bf16]
     assert (lseb - lseb_ref).abs().max().item() <= 1e-3
     _check_attention_grads(grads_b, bs._bs_bwd_plain(
-        *pick[:3], ob, lseb, pick[3], mask, True, scale), bf16)
+        *pick[:3], ob, lseb, pick[3], mask, True, scale), bf16,
+        _keep(T, T, True, q.device, mask), *pick[1:], scale)
 
 
 def test_cuda_gradients_match_the_plain_backward(cuda_device):
@@ -1003,11 +1199,9 @@ def test_block_sparse_kernels_match_plain_on_card(cuda_device, case):
     assert _row_rel_err(o, o_ref) <= ROW_TOL[dtype]
     assert (lse - lse_ref).abs().max().item() <= 1e-3
     want = bs._bs_bwd_plain(q, k, v, o, lse, d_o, mask, causal, scale)
-    largest = max(torch.linalg.vector_norm(b.float(), dim=-1).max().item()
-                  for b in want)
-    for a, b in zip(got, want):
-        assert a.dtype == dtype and torch.isfinite(a.float()).all()
-        assert _row_rel_err(a, b, largest) <= ROW_TOL[dtype]
+    _check_attention_grads(got, want, dtype,
+                           _keep(T, S, causal, q.device, mask), k, v, d_o,
+                           scale)
 
 
 def test_block_sparse_empty_rows_are_exactly_zero_on_card(cuda_device):
@@ -1077,8 +1271,8 @@ def test_block_sparse_all_ones_mask_is_the_flash_kernels(cuda_device, dtype):
     K7/K8 fed the same (O, LSE, dO) from K6 equal K2/K3, bit for bit in
     both dtypes: in bf16 each pair is one Hopper body
     (``attn_fwd_hopper.cuh``, ``attn_bwd_hopper.cuh``) over the same
-    tiles; in f32 K6/K1 and K7/K2 are one Hopper body too (their split
-    products), K8/K3 one FMA tile loop."""
+    tiles; in f32 each pair is one Hopper body too (their split
+    products)."""
     T, D = 512, 128 if dtype == torch.bfloat16 else 64
     mask = bs.BlockMask(np.ones((4, 4), bool), 128, 128)
     q, k, v, d_o = _bs_inputs(T, T, D, dtype, cuda_device, 7)

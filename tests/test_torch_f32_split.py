@@ -1,5 +1,5 @@
-"""The arithmetic of the f32 forward (K1 and K6 in f32) and dK/dV (K2
-and K7 in f32) kernels on the CPU.
+"""The arithmetic of the f32 forward (K1 and K6 in f32), dK/dV (K2 and
+K7 in f32) and dQ (K3 and K8 in f32) kernels on the CPU.
 
 The kernels form every f32 product from bf16 products on the tensor
 cores: each f32 operand a is split into bf16 pieces a1 = bf16(a), a2 =
@@ -8,14 +8,16 @@ bf16 products with f32 accumulation, small terms first: a1 b3 + a2 b2 +
 a3 b1, a1 b2 + a2 b1, a1 b1 for the scores S = Q . K^T, S^T = K . Q^T
 and dP^T = V . dO^T and for O += P . V (six), a2 b2 + a3 b1, a1 b2 + a2
 b1, a1 b1 for dV = P^T . dO and dK = dS^T . Q with dO and Q in two
-pieces (five) (``csrc/hopper_common.cuh``, ``split_tile`` and
-``split_bf16x3``; ``csrc/attn_fwd_hopper.cuh``, ``fwd_f32_consume``;
-``csrc/attn_bwd_hopper.cuh``, ``dkv_f32_consume``).  ``_fwd_split`` and
-``_dkv_split`` below form O and LSE, and dK and dV, that way from seeded
-numpy inputs, and the results are held row by row, at the f32 limit the
-card holds the kernels to (1e-4; LSE 1e-3), against the JAX package's
+pieces (five), six again for dQ's S, dP and dS . K
+(``csrc/hopper_common.cuh``, ``split_tile`` and ``split_bf16x3``;
+``csrc/attn_fwd_hopper.cuh``, ``fwd_f32_consume``;
+``csrc/attn_bwd_hopper.cuh``, ``dkv_f32_consume`` and
+``dq_f32_consume``).  ``_fwd_split``, ``_dkv_split`` and ``_dq_split``
+below form O and LSE, dK and dV, and dQ that way from seeded numpy
+inputs, and the results are held row by row, at the f32 limit the card
+holds the kernels to (1e-4; LSE 1e-3), against the JAX package's
 ``flash_attention`` and ``block_sparse_attention`` with
-``interpret=True`` (the forward's O and LSE, and the dK and dV that
+``interpret=True`` (the forward's O and LSE, and the gradients that
 ``jax.vjp`` takes): the Pallas kernels in interpret mode where the
 shapes reach them, the JAX package's plain reference where they do not
 (T 130).
@@ -119,6 +121,28 @@ def _dkv_split(q, k, v, o, lse, d_o, keep, scale, design=KERNEL):
             _mm(pt, d_o, *design["acc"]))
 
 
+#: the dQ kernel's: three pieces a side for S, dP and dQ (six products
+#: each)
+DQ = dict(scores=(3, 3), acc=(3, 3))
+
+
+def _dq_split(q, k, v, o, lse, d_o, keep, scale, design=DQ):
+    """dQ (B, H, T, D) as the f32 K3/K8 compute it from (q, k, v, O, LSE,
+    dO): delta = rowsum(dO * O), S = Q . K^T, P = exp2(S scale log2 e -
+    LSE log2 e), dP = dO . V^T, dS = P (dP - delta), P and dS 0 by select
+    where ``keep`` ((T, S) bool) is false, dQ = dS . K times scale; every
+    product by ``_mm`` with the pieces ``design`` gives."""
+    B, H, T, _ = q.shape
+    delta = (d_o * o).sum(dim=-1, keepdim=True)
+    lse = lse.reshape(B, H, T, 1)
+    s = _mm(q, k.transpose(-1, -2), *design["scores"])
+    p = torch.exp2(s * (scale * LOG2E) - lse * LOG2E)
+    p = torch.where(keep, p, torch.zeros(()))
+    dp = _mm(d_o, v.transpose(-1, -2), *design["scores"])
+    ds = torch.where(keep, p * (dp - delta), torch.zeros(()))
+    return _mm(ds, k, *design["acc"]) * scale
+
+
 def _fwd_split(q, k, v, keep, scale, design=FORWARD):
     """O (B, H, T, D) and LSE (B * H, 1, T) as the f32 K1/K6 compute them:
     over 64-key tiles, S = Q . K^T, scaled to base 2 (scale log2 e) and
@@ -187,6 +211,176 @@ def test_split_products_match_the_jax_flash_backward(case):
     got = _dkv_split(t[0], t[1], t[2], o, lse, t[3], keep, scale)
     for name, a, b in zip(("dk", "dv"), got, want):
         assert _row_rel_err(a, b) <= ROW_TOL, name
+
+
+def _jax_grads(fn, q, k, v, g):
+    """dQ, dK, dV of ``fn`` (q, k, v -> O) by ``jax.vjp`` at output
+    gradient g, as torch tensors."""
+    _, vjp = jax.vjp(fn, jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    return tuple(torch.from_numpy(np.array(a)) for a in vjp(jnp.asarray(g)))
+
+
+def _scaled_row_err(got, ref, scale):
+    """``_row_rel_err`` with ``scale`` in place of ref's largest row norm
+    (one scale for dQ, dK and dV, as chip_smoke.py takes it: a row whose
+    exact value is 0 reads against it)."""
+    d = torch.linalg.vector_norm(got.double() - ref.double(), dim=-1)
+    r = torch.linalg.vector_norm(ref.double(), dim=-1)
+    return (d / (r + 1e-4 * scale)).max().item()
+
+
+def _one_key_err(got, ref, keep, k, v, d_o, sm_scale):
+    """The worst ||got_i - ref_i|| / (sm_scale ||dO_i|| ||v_j|| ||k_j||)
+    over the query rows i with one live key j under ``keep`` ((T, S)
+    bool), 0 where there is none: there dQ = P (dP - delta) k_j sm_scale
+    is 0 in exact arithmetic (delta = dO . O and O = v_j), each side holds
+    only the rounding of its dP - delta, and the row reads against the
+    size of its terms before they cancel (chip_smoke.py,
+    ``dq_row_err``)."""
+    one = keep.sum(dim=-1) == 1
+    if not one.any():
+        return 0.0
+    i = torch.nonzero(one).flatten()
+    j = keep[i].int().argmax(dim=-1)
+
+    def norm(t):
+        return torch.linalg.vector_norm(t.double(), dim=-1)
+
+    size = sm_scale * norm(d_o[..., i, :]) * norm(v[..., j, :]) * \
+        norm(k[..., j, :])
+    return (norm(got[..., i, :] - ref[..., i, :]) / size).max().item()
+
+
+def _dq_err(got, ref, keep, k, v, d_o, sm_scale, scale):
+    """dQ's ``_scaled_row_err`` at ``scale`` over the rows with other than
+    one live key, and ``_one_key_err`` over the rest: the worse."""
+    many = keep.sum(dim=-1) != 1
+    err = _scaled_row_err(got[..., many, :], ref[..., many, :], scale) \
+        if many.any() else 0.0
+    return max(err, _one_key_err(got, ref, keep, k, v, d_o, sm_scale))
+
+
+def _check_dq(got, want, keep, k, v, d_o, sm_scale, scale):
+    """dQ from the split products against the JAX package's ``want`` row
+    by row at ROW_TOL (``_dq_err``); JAX's own rows with one live key
+    hold only rounding against their terms' size."""
+    assert _dq_err(got, want, keep, k, v, d_o, sm_scale, scale) <= ROW_TOL
+    assert _one_key_err(want, torch.zeros_like(want), keep, k, v, d_o,
+                        sm_scale) <= ROW_TOL
+
+
+@pytest.mark.parametrize("case", sorted(FLASH_CASES))
+def test_split_dq_matches_the_jax_flash_backward(case):
+    """The f32 dQ's split products (six a product, three pieces a side)
+    against the dQ that ``jax.vjp`` takes through the JAX flash attention
+    (the Pallas kernels in interpret mode; the plain reference at T 130),
+    row by row at the f32 limit, one scale for dQ, dK and dV."""
+    B, H, T, S, D, causal = FLASH_CASES[case]
+    q, k, v, g = _inputs(B, H, T, S, D, seed=3 * len(case))
+    scale = 1 / math.sqrt(D)
+    want = _jax_grads(lambda a, b, c: jax_flash(a, b, c, causal=causal,
+                                                sm_scale=scale,
+                                                interpret=True), q, k, v, g)
+    t = [torch.from_numpy(a) for a in (q, k, v, g)]
+    o, lse = fa._flash_plain(*t[:3], causal, scale)
+    keep = (fa._causal_keep(T, S, "cpu") if causal
+            else torch.ones(T, S, dtype=torch.bool))
+    got = _dq_split(t[0], t[1], t[2], o, lse, t[3], keep, scale)
+    largest = max(torch.linalg.vector_norm(w, dim=-1).max().item()
+                  for w in want)
+    _check_dq(got, want[0], keep, t[1], t[2], t[3], scale, largest)
+
+
+def test_split_dq_matches_the_jax_block_sparse_backward():
+    """Under a block mask with a dead key block, a dead query block and a
+    query row whose one live key is its own: the split products' dQ
+    against ``jax.vjp`` of ``block_sparse_attention`` through the Pallas
+    kernels in interpret mode; the dead block's rows are 0 on both
+    sides."""
+    m = J.sliding_window_mask(8, 8, 2, 1, True, 32, 32).mask.copy()
+    m[:, 5] = False     # k block 5: read by no query
+    m[6, :] = False     # q block 6: reads nothing
+    m[4, :4] = False    # q block 4: its own block alone, so row 128 has one key
+    mask = J.BlockMask(m, 32, 32)
+    q, k, v, g = _inputs(1, 2, 256, 256, 64, seed=23)
+    scale = 1 / math.sqrt(64)
+    want = _jax_grads(lambda a, b, c: J.block_sparse_attention(
+        a, b, c, mask, causal=True, sm_scale=scale, interpret=True),
+        q, k, v, g)
+    port = P.BlockMask(mask.mask, mask.block_q, mask.block_k)
+    t = [torch.from_numpy(a) for a in (q, k, v, g)]
+    o, lse = P._bs_attention_plain(*t[:3], port, True, scale)
+    keep = P._elementwise_keep(port, True, "cpu")
+    got = _dq_split(t[0], t[1], t[2], o, lse, t[3], keep, scale)
+    one = keep.sum(dim=1) == 1
+    assert one[0] and one[128] and int(one.sum()) == 2
+    largest = max(torch.linalg.vector_norm(w, dim=-1).max().item()
+                  for w in want)
+    _check_dq(got, want[0], keep, t[1], t[2], t[3], scale, largest)
+    assert not got[:, :, 192:224].any() and not want[0][:, :, 192:224].any()
+
+
+@pytest.mark.parametrize("case", ["causal_D128", "causal_D16"])
+def test_the_dq_pieces_leave_the_f32_limit_room(case):
+    """The dQ designs against the f32 plain backward (one scale for dQ,
+    dK and dV): one bf16 product per f32 product misses 1e-4 by far;
+    three products on two pieces a side pass within the limit at D 128
+    only; the kernel's six products on three pieces a side read a
+    twentieth of the limit or less (the card's error tail ran about 3x
+    the emulation's for dK/dV), below five (K in two pieces) and below
+    three pieces for the scores alone."""
+    B, H, T, S, D, causal = FLASH_CASES[case]
+    q, k, v, g = _inputs(B, H, T, S, D, seed=3)
+    scale = 1 / math.sqrt(D)
+    t = [torch.from_numpy(a) for a in (q, k, v, g)]
+    o, lse = fa._flash_plain(*t[:3], causal, scale)
+    keep = fa._causal_keep(T, S, "cpu")
+    want = fa._flash_bwd_plain(*t[:3], o, lse, t[3], causal, scale)
+    largest = max(torch.linalg.vector_norm(w, dim=-1).max().item()
+                  for w in want)
+    err = {}
+    for name, design in (("kernel", DQ), ("five", KERNEL),
+                         ("scores", SCORES_ONLY), ("two", TWO_PIECES),
+                         ("one", ONE_PIECE)):
+        got = _dq_split(t[0], t[1], t[2], o, lse, t[3], keep, scale, design)
+        err[name] = _dq_err(got, want[0], keep, t[1], t[2], t[3], scale,
+                            largest)
+    assert err["one"] > 10 * ROW_TOL
+    assert err["kernel"] <= ROW_TOL / 20
+    assert err["kernel"] < err["five"] < err["scores"] < err["two"]
+    assert err["two"] >= 5 * err["kernel"]
+
+
+def test_the_dq_keeps_a_key_shift_at_rounding_level():
+    """A common shift b of every key row adds q . b to each score of a
+    row, which the softmax ignores, and (sum_j dS_ij) b to dQ, which is 0
+    in exact arithmetic: dQ under the shift equals dQ without it.  The
+    plain f32 pipeline moves it by rounding only; the kernel's six
+    products (three pieces of K) stay within twice that, while K in two
+    pieces (five products) or two pieces of dS and K (three) leave K's
+    rounding, 2^-17 of the shifted rows, in dQ: eight times the plain
+    pipeline's or more.  The shape is the f32 training test's attention
+    on the card: B 3, 4 heads of 16, T 20, causal."""
+    rng = np.random.RandomState(0)
+    q, k, v, g = (torch.from_numpy(rng.randn(3, 4, 20, 16)
+                                   .astype(np.float32)) for _ in range(4))
+    b = torch.from_numpy(np.random.RandomState(1).randn(1, 4, 1, 16)
+                         .astype(np.float32))
+    scale = 1 / math.sqrt(16)
+    keep = fa._causal_keep(20, 20, "cpu")
+    o, lse = fa._flash_plain(q, k, v, True, scale)
+    exact = fa._flash_bwd_plain(q, k, v, o, lse, g, True, scale)[0]
+    o, lse = fa._flash_plain(q, k + b, v, True, scale)
+    plain = fa._flash_bwd_plain(q, k + b, v, o, lse, g, True, scale)[0]
+    noise = (plain - exact).norm().item()
+    moved = {}
+    for name, acc in (("kernel", (3, 3)), ("five", (3, 2)),
+                      ("three", (2, 2))):
+        got = _dq_split(q, k + b, v, o, lse, g, keep, scale,
+                        dict(scores=(3, 3), acc=acc))
+        moved[name] = (got - exact).norm().item()
+    assert moved["kernel"] <= 2 * noise
+    assert min(moved["five"], moved["three"]) > 8 * noise
 
 
 def _lse_ref(q, k, keep, scale):

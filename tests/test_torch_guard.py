@@ -1,8 +1,8 @@
 """Guards of the PyTorch/CUDA port (bigdl_tpu_torch).
 
-* The port, ``chip_smoke.py``, ``k1_variants.py``, ``k9_variants.py``
-  and ``f32_steps.py`` import neither jax/jaxlib nor anything of the JAX
-  package.  The scan is static (an AST walk of the sources): the
+* The port, ``chip_smoke.py``, ``k1_variants.py``, ``k9_variants.py``,
+  ``f32_steps.py`` and ``sass_diff.py`` import neither jax/jaxlib nor
+  anything of the JAX package.  The scan is static (an AST walk of the sources): the
   interpreter that runs the tests may already hold jax, so an
   import-time check could not tell.
 * The default device is the GPU: with no CUDA device an entry point
@@ -24,7 +24,8 @@ FORBIDDEN = ("jax", "jaxlib", "bigdl_tpu")
 def _port_sources():
     files = sorted((REPO / "bigdl_tpu_torch").rglob("*.py"))
     return files + [REPO / "chip_smoke.py", REPO / "k1_variants.py",
-                    REPO / "k9_variants.py", REPO / "f32_steps.py"]
+                    REPO / "k9_variants.py", REPO / "f32_steps.py",
+                    REPO / "sass_diff.py"]
 
 
 def forbidden_imports(source: str):

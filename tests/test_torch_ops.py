@@ -357,10 +357,10 @@ def test_attention_wrappers_copy_only_what_the_kernels_cannot_read(
 
 
 def test_f32_dkv_reads_head_strided_operands_in_place(monkeypatch):
-    """f32 K2 reads q, k, v and dO through TMA, as bf16 does: the
-    head-strided layout reaches ``bigdl_flash_bwd_dkv`` as it stands (the
-    same pointers, their own strides, no copy); K3's f32 tile loop still
-    reads them contiguous (four copies, counted)."""
+    """f32 K2 and K3 read q, k, v and dO through TMA, as bf16 does: the
+    head-strided layout reaches ``bigdl_flash_bwd_dkv`` and
+    ``bigdl_flash_bwd_dq`` as it stands (the same pointers, their own
+    strides, no copy), with dtype code 0."""
     calls = _record_launches(monkeypatch)
     B, T, H, D = 2, 40, 4, 64
     q, k, v, d_o = (_head_strided(B, T, H, D, torch.float32, s)
@@ -368,14 +368,14 @@ def test_f32_dkv_reads_head_strided_operands_in_place(monkeypatch):
     o, lse = torch.zeros(B, H, T, D), torch.zeros(B * H, 1, T)
     copies = fa.OPERAND_COPIES.count
     dq, dk, dv = fa._flash_bwd_cuda(q, k, v, o, lse, d_o, True, 0.125)
-    assert fa.OPERAND_COPIES.count - copies == 4
+    assert fa.OPERAND_COPIES.count == copies
     (dkv_fn, dkv), (dq_fn, dq_args) = calls
     assert (dkv_fn, dq_fn) == ("bigdl_flash_bwd_dkv", "bigdl_flash_bwd_dq")
-    assert dkv[:4] == [t.data_ptr() for t in (q, k, v, d_o)]
-    assert _strides(dkv) == [[T * H * D, D, H * D]] * 4
-    assert _strides(dq_args) == [[H * T * D, T * D, D]] * 4
-    # ..., D, dtype (0: f32), sm_scale, causal
-    assert dkv[-4:] == [D, 0, 0.125, 1]
+    for args in (dkv, dq_args):
+        assert args[:4] == [t.data_ptr() for t in (q, k, v, d_o)]
+        assert _strides(args) == [[T * H * D, D, H * D]] * 4
+        # ..., D, dtype (0: f32), sm_scale, causal
+        assert args[-4:] == [D, 0, 0.125, 1]
     for t in (dq, dk, dv):
         assert t.dtype == torch.float32 and t.is_contiguous()
 
