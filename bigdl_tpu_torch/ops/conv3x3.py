@@ -4,8 +4,10 @@ nothing here is Pallas).
 
 Kernel K5, CUDA C++ for ``sm_90a`` (``csrc/conv3x3.cu``, whose header
 says what it computes, what bounds it and how), replaces ``_kernel``
-(``bigdl_tpu/ops/conv3x3_pallas.py:60``): in bf16 an implicit GEMM on TMA
-and wgmma, in f32 an FMA tile loop.
+(``bigdl_tpu/ops/conv3x3_pallas.py:60``): an implicit GEMM on TMA and
+wgmma, in bf16 on the operands as they are, in f32 with every f32
+product formed from six bf16 products on three bf16 pieces of each
+operand (a1 = bf16(a), a2 = bf16(a − a1), a3 = bf16(a − a1 − a2)).
 
 ``conv3x3_s1_same(x, w)`` takes NHWC ``x`` and HWIO ``w``, as the JAX
 entry point does, and runs one ``torch.autograd.Function``, the
@@ -22,11 +24,14 @@ counterpart of that module's ``custom_vjp``:
 For CPU tensors the same Function runs the plain version,
 ``_conv3x3_plain`` (the nine shifted products of ``ops/conv_gemm.py``
 with f32 accumulation), forward and dX; a CUDA tensor launches K5 or
-raises.  Any B, H, W, C and O, bfloat16 or float32.  The bf16 kernel
-reads x through TMA, which needs C a multiple of 8 (at least 16 here)
-and a 16-byte-aligned base: where x falls short, the wrapper hands the
-kernel a zero-padded (``_pad_channels``) or aligned copy and counts it in
-``X_COPIES``.
+raises.  Any B, H, W, C and O, bfloat16 or float32.  The kernel reads x
+through TMA, which needs a 16-byte row stride (C a multiple of 8 in
+bf16, of 4 in f32; at least 16 here) and a 16-byte-aligned base: where
+x falls short, the wrapper hands the kernel a zero-padded
+(``_pad_channels``) or aligned copy and counts it in ``X_COPIES``.  In
+f32 the wrapper also splits the (tap, out, in) weights into their three
+bf16 pieces once per call (``_weight_pieces``), which the kernel reads
+through TMA beside the f32 pixel boxes it splits itself.
 """
 from __future__ import annotations
 
@@ -42,8 +47,8 @@ _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 #: launches of K5, forward and dX alike (CUDA branch only)
 LAUNCHES = LaunchCounter("conv3x3")
-#: copies of x the bf16 CUDA branch makes for TMA: a channel pad or an
-#: aligned copy
+#: copies of x the CUDA branch makes for TMA: a channel pad or an aligned
+#: copy
 X_COPIES = LaunchCounter("conv3x3_x_copies")
 
 
@@ -53,26 +58,68 @@ def _conv3x3_plain(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return conv2d_gemm_nhwc(x, w.to(x.dtype), stride=(1, 1), padding=(1, 1))
 
 
-def _padded_channels(c: int) -> int:
-    """The channel count the bf16 kernel takes for ``c``: the next
-    multiple of 8 (TMA's 16-byte row stride), at least 16."""
-    return max(16, -(-c // 8) * 8)
+def _padded_channels(c: int, dtype: torch.dtype) -> int:
+    """The channel count the kernel takes for ``c`` in ``dtype``: the
+    next multiple of 8 in bf16, of 4 in f32 (TMA's 16-byte row stride),
+    at least 16."""
+    step = 4 if dtype == torch.float32 else 8
+    return max(16, -(-c // step) * step)
 
 
 def _pad_channels(x: torch.Tensor, wk: torch.Tensor):
     """NHWC ``x`` and (3, 3, out, in) ``wk`` with their input channels
-    zero-padded to ``_padded_channels``: the zero channels add nothing,
-    so the conv is unchanged.  Returns them as they are where no pad is
-    needed."""
-    pad = _padded_channels(x.shape[-1]) - x.shape[-1]
+    zero-padded to ``_padded_channels`` (of x's dtype): the zero channels
+    add nothing, so the conv is unchanged.  Returns them as they are
+    where no pad is needed."""
+    pad = _padded_channels(x.shape[-1], x.dtype) - x.shape[-1]
     if pad == 0:
         return x, wk
     return F.pad(x, (0, pad)), F.pad(wk, (0, pad))
 
 
+def _weight_pieces(wk: torch.Tensor, c8: int) -> torch.Tensor:
+    """The f32 kernel's weights: the three bf16 pieces of the f32 (3, 3,
+    out, in) ``wk`` (any strides), p1 = bf16(w), p2 = bf16(w − p1), p3 =
+    bf16(w − p1 − p2), each rounded to nearest even (the differences are
+    exact in f32), as one (3, 9, out, c8) tensor, input channels
+    zero-padded to ``c8``.  p1 + p2 + p3 = w exactly (for |w| above
+    2^-102)."""
+    O, C = wk.shape[2], wk.shape[3]
+    w = wk.reshape(9, O, C)
+    pieces = torch.empty((3, 9, O, c8), dtype=torch.bfloat16,
+                         device=wk.device)
+    pieces[..., C:].zero_()
+    live = pieces[..., :C]
+    live[0].copy_(w)
+    rest = w - live[0]
+    live[1].copy_(rest)
+    rest -= live[1]
+    live[2].copy_(rest)
+    return pieces
+
+
+def _launch(x: torch.Tensor, wk: torch.Tensor, y: torch.Tensor) -> None:
+    """K5 on the current stream of x's device: ``x`` and ``y`` NHWC and
+    ``wk`` as ``bigdl_conv3x3`` takes them (``_conv3x3_cuda`` makes
+    them)."""
+    B, H, W, C = x.shape
+    fn = load_cuda_library("conv3x3").bigdl_conv3x3
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6 + [
+        ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    with torch.cuda.device(x.device):
+        err = fn(x.data_ptr(), wk.data_ptr(), y.data_ptr(), B, H, W, C,
+                 y.shape[-1], _DTYPE_CODE[x.dtype],
+                 torch.cuda.current_stream(x.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"conv3x3 launch failed: cudaError {err}")
+    LAUNCHES.add()
+
+
 def _conv3x3_cuda(x: torch.Tensor, wk: torch.Tensor) -> torch.Tensor:
     """Launch K5 on the current stream of x's device: NHWC ``x`` and
-    weights ``wk`` as (3, 3, out, in), both contiguous in one dtype."""
+    weights ``wk`` as (3, 3, out, in), both contiguous in one dtype.  In
+    f32 the weights are split into their bf16 pieces first."""
     if x.dtype not in _DTYPE_CODE or wk.dtype != x.dtype:
         raise TypeError(f"conv3x3: x {x.dtype} and weights {wk.dtype} must "
                         f"share a dtype in {tuple(_DTYPE_CODE)}")
@@ -88,24 +135,14 @@ def _conv3x3_cuda(x: torch.Tensor, wk: torch.Tensor) -> torch.Tensor:
     y = torch.empty((B, H, W, O), dtype=x.dtype, device=x.device)
     if y.numel() == 0:
         return y
-    if x.dtype == torch.bfloat16 and (_padded_channels(C) != C
-                                      or x.data_ptr() % 16):
+    if _padded_channels(C, x.dtype) != C or x.data_ptr() % 16:
         x, wk = _pad_channels(x, wk)
         if x.data_ptr() % 16:
             x = x.clone()
-        C = x.shape[-1]
         X_COPIES.add()
-    fn = load_cuda_library("conv3x3").bigdl_conv3x3
-    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 7 + [
-        ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    with torch.cuda.device(x.device):
-        err = fn(x.data_ptr(), wk.data_ptr(), y.data_ptr(), B, H, W, C, O,
-                 _DTYPE_CODE[x.dtype], int(x.data_ptr() % 16 == 0),
-                 torch.cuda.current_stream(x.device).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"conv3x3 launch failed: cudaError {err}")
-    LAUNCHES.add()
+    if x.dtype == torch.float32:
+        wk = _weight_pieces(wk, -(-x.shape[-1] // 8) * 8)
+    _launch(x, wk, y)
     return y
 
 

@@ -10,8 +10,8 @@
 // call (ops/conv3x3.py).  The backward's dX is this kernel again, on the
 // output gradient with the spatially flipped weights.
 //
-// What bounds it on an H100.  At ResNet-50's stage-1 shape (B 64, 56 x 56,
-// C = O = 64, bf16) one call moves x, w and y, 51.5 MB, 15.4 us at
+// What bounds it on an H100 in bf16.  At ResNet-50's stage-1 shape (B 64,
+// 56 x 56, C = O = 64) one call moves x, w and y, 51.5 MB, 15.4 us at
 // 3.35 TB/s, against 14.8 GFLOP, 15.0 us at 989 TFLOP/s: it sits at the
 // ridge; the deeper stages (C = O up to 512) are bound by operations.  So
 // the loads must overlap the products, and the products must run on wgmma.
@@ -48,12 +48,38 @@
 // on the wrapper: C a multiple of 8 and at least 16 (it zero-pads x's and
 // the weights' channels), x, the weights and y 16-byte aligned.
 //
-// f32 (conv3x3_kernel_f32) keeps the FMA design: wgmma has no full-f32
-// product.  One 4-warp block owns TH x TW <= 64 output pixels of one image
-// and 64 output channels; for each chunk of 32 input channels it loads the
-// haloed patch, (TH + 2) x (TW + 2) pixels, and the nine taps' weights into
-// shared memory once, zero outside the image and past C and O, and all nine
-// taps read their shifted windows from that one patch.
+// f32 design (conv3x3_kernel_split): the same implicit GEMM, grid, boxes
+// and producer, with every f32 product formed from bf16 products on the
+// tensor cores (wgmma has no f32 product).  Each f32 operand a is split
+// into three bf16 pieces, a1 = bf16(a), a2 = bf16(a - a1), a3 = bf16(a -
+// a1 - a2), and each step adds six bf16 products, small terms first: a1 w3
+// + a2 w2 + a3 w1, then a1 w2 + a2 w1, then a1 w1 (hopper_common.cuh, "f32
+// products as bf16 products").  The weights are split once per call by the
+// wrapper, (3, 9, O, C8) bf16 read through a 3-D map (C8, O, 27), three
+// boxes a step.  The pixel boxes land in f32 through a 4-D f32 map (KC =
+// 16 or 32 channels: 64- or 128-byte rows), TMA's zero fill again making
+// the halo, and each consumer warpgroup reads its own box straight into
+// wgmma's register operand, split there into its three pieces
+// (load_split_a), the next step's while a step's products run.  Shared
+// memory's 128 bytes a cycle is what the design spares: a product with
+// both operands in shared memory reads 128 bytes a cycle at n64 (96 at
+// n128), which with the TMA writes and a split of the boxes in shared
+// memory came to 1.7x the tensor cores' time at BN 64; with A in
+// registers a step moves about 120 bytes a cycle of the tensor cores'
+// time (the weight pieces' reads 64, the TMA writes 37, the box reads
+// 21).  wgmma rounds the sums it accumulates toward zero: on an H100, six
+// products a k16 step into one accumulator shrank the output by 3.3e-5 at
+// K = 9 x 512 (every output, the same way).  So each step's products go to
+// a fresh partial sum, added to the f32 total (round to nearest) once they
+// are done.  The partial, the total and two split boxes (48 registers at
+// KC 32) fit the 168-register cap of a 288-thread block alone on its SM at
+// BN 64, not at BN 128, so BN is 64 at every O; the ring is 168 KB at KC
+// 32 (6 stages), 112 KB at KC 16 (8).  Six products make the bound 6 x the
+// bf16 one: 14.8 GFLOP at 989 / 6 TFLOP/s is 0.090 ms at every ResNet-50
+// stage, so every stage is bound by operations.  The epilogue stores f32
+// straight from the total, a warp writing whole 32-byte sectors.  TMA's
+// limits fall on the wrapper: C a multiple of 4 and at least 16 (it
+// zero-pads x), x and y 16-byte aligned.
 
 #include "hopper_common.cuh"
 #include "tile_common.cuh"
@@ -236,6 +262,21 @@ int pick_box(int B, int H, int W, int* TN, int* TH, int* TW) {
   return best > 0x7fffffffL ? -1 : (int)best;
 }
 
+// What a launch's blocks share at x (B, H, W, C), O output channels and KC
+// channels a step: the pixel box (pick_box) and the counts over it
+cudaError_t conv_shape(int B, int H, int W, int C, int O, int KC, ConvShape* sh) {
+  sh->B = B;
+  sh->H = H;
+  sh->W = W;
+  sh->O = O;
+  sh->n_tiles = pick_box(B, H, W, &sh->TN, &sh->TH, &sh->TW);
+  if (sh->n_tiles <= 0) return cudaErrorInvalidValue;
+  sh->tiles_w = (W + sh->TW - 1) / sh->TW;
+  sh->tiles_h = (H + sh->TH - 1) / sh->TH;
+  sh->n_chunks = (C + KC - 1) / KC;
+  return cudaSuccess;
+}
+
 // KC (the smallest of 16, 32, 64 that holds C, at most 64) and BN (64 at
 // O <= 64, else 128) of the bf16 kernel
 int chunk_channels(int C) { return C <= 16 ? 16 : C <= 32 ? 32 : 64; }
@@ -271,18 +312,11 @@ cudaError_t launch_wgmma(const void* x, const void* wk, void* y, int B, int H, i
   static_assert(kConvBlocksPerSm * (Cfg::SMEM + 1024) <= 233472,
                 "conv3x3: two blocks must share an SM");
   ConvShape sh;
-  sh.B = B;
-  sh.H = H;
-  sh.W = W;
-  sh.O = O;
-  sh.n_tiles = pick_box(B, H, W, &sh.TN, &sh.TH, &sh.TW);
-  if (sh.n_tiles <= 0) return cudaErrorInvalidValue;
-  sh.tiles_w = (W + sh.TW - 1) / sh.TW;
-  sh.tiles_h = (H + sh.TH - 1) / sh.TH;
-  sh.n_chunks = (C + KC - 1) / KC;
+  cudaError_t err = conv_shape(B, H, W, C, O, KC, &sh);
+  if (err != cudaSuccess) return err;
   // encoded per launch and passed by value: a CUDA graph captures them
   CUtensorMap tm_x, tm_w;
-  cudaError_t err = encode_bf16_4d(&tm_x, x, C, W, H, B, KC, sh.TW, sh.TH, sh.TN);
+  err = encode_bf16_4d(&tm_x, x, C, W, H, B, KC, sh.TW, sh.TH, sh.TN);
   if (err == cudaSuccess) err = encode_bf16_3d(&tm_w, wk, C, O, 9, KC, BN);
   if (err == cudaSuccess) err = wgmma_opt_in<Cfg>();
   if (err != cudaSuccess) return err;
@@ -303,206 +337,346 @@ cudaError_t dispatch_bf16(const void* x, const void* wk, void* y, int B, int H, 
                   });
 }
 
-// ---- f32: the FMA tile loop --------------------------------------------------
+// ---- f32: the implicit GEMM on bf16 pieces -----------------------------------
 
-constexpr int BM = 64;          // output pixel slots per block
-constexpr int BN32 = 64;        // output channels per block
-constexpr int KC32 = 32;        // input channels per chunk
-constexpr int PATCH_MAX = 200;  // (TH + 2) * (TW + 2) <= 198 when TH * TW <= 64
-constexpr int OUT_STRIDE = BN32 + 4;
-constexpr int kRow = KC32 + 1;  // 33 words a row: one k spreads over all banks
-constexpr int kVec = 4;         // floats in one 16-byte load
-constexpr size_t kF32Smem =
-    sizeof(float) * (size_t)(PATCH_MAX + 9 * BN32) * kRow > sizeof(float) * BM * OUT_STRIDE
-        ? sizeof(float) * (size_t)(PATCH_MAX + 9 * BN32) * kRow
-        : sizeof(float) * BM * OUT_STRIDE;
+constexpr int kSplitBlocksPerSm = 1;
+constexpr int kSplitRingBytes = 196608;   // the ring of a block alone on its SM
 
-// Elements [c, c + kVec) of a channel chunk that has `count` channels left
-// in its row (`src` points at the chunk's first channel) into dst; zero
-// past `count` and when !valid.  `vec` allows one 16-byte load (the row
-// length is a multiple of kVec and the base is aligned).
-__device__ __forceinline__ void load_vec(float* dst, const float* src, int c, int count, bool vec,
-                                         bool valid) {
-  if (valid && vec && c < count) {
-    const float4 val = *reinterpret_cast<const float4*>(src + c);
-    dst[0] = val.x;
-    dst[1] = val.y;
-    dst[2] = val.z;
-    dst[3] = val.w;
-  } else {
-    for (int j = 0; j < kVec; ++j) dst[j] = (valid && c + j < count) ? src[c + j] : 0.0f;
+// The ring's stages of the f32 kernel: each holds both consumers' pixel
+// boxes as TMA lands them in f32 (64 rows of KC channels), and the three
+// bf16 pieces of the weight box (BN rows of KC channels each), which the
+// wrapper split once per call.
+template <int KC, int BN>
+struct ConvSplitCfg {
+  static constexpr int kChunk = KC;             // input channels a step
+  static constexpr int kOut = BN;               // output channels a block
+  static constexpr int kSteps = KC / 16;        // k16 steps of a product
+  static constexpr int FRB = KC * 4;            // bytes of an f32 box row = its swizzle span
+  static constexpr int RB = KC * 2;             // bytes of a bf16 piece's row = its swizzle span
+  static constexpr int A_SLOT = kBoxRows * FRB; // one consumer's f32 pixel box
+  static constexpr int W_PIECE = BN * RB;       // one bf16 piece of the weight box
+  static constexpr int B_SLOT = 3 * W_PIECE;
+  static constexpr int STAGE = 2 * A_SLOT + B_SLOT;
+  static constexpr int STAGES =
+      kSplitRingBytes / STAGE < 8 ? kSplitRingBytes / STAGE : 8;
+  static constexpr size_t SMEM = 1024 + (size_t)STAGES * STAGE + 2 * STAGES * sizeof(uint64_t);
+  static_assert(KC == 16 || KC == 32, "conv3x3: f32 chunks of 16 or 32 channels");
+  static_assert(STAGES >= 2, "conv3x3: the ring needs two stages");
+};
+
+// A consumer warpgroup's pixel box as wgmma's register operand: the three
+// bf16 pieces (split_bf16x3) of its 64 rows by KC f32 channels, per piece
+// and k16 step the four packed pairs of an m64k16 A fragment (those of an
+// m64 accumulator's 16 columns: thread t of warp w holds rows 16w + t/4
+// and + 8, columns 2(t%4) + {0, 1} and + 8), read from the f32 box at `box`
+// as TMA landed it (rows of KC * 4 bytes, their 16-byte chunks xor'd by
+// address bits 7..).
+template <class C>
+__device__ __forceinline__ void load_split_a(uint32_t (&a)[3][C::kSteps][4],
+                                             const unsigned char* box) {
+  constexpr uint32_t SWZ = (C::FRB / 16 - 1) << 4;
+  const int warp = (threadIdx.x % 128) / 32, lane = threadIdx.x % 32;
+#pragma unroll
+  for (int j = 0; j < C::kSteps; ++j)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {   // i = 2 * (column half) + row half
+      const uint32_t r = 16 * warp + lane / 4 + 8 * (i & 1);
+      const uint32_t o = r * C::FRB + 4 * (16 * j + 8 * (i >> 1) + 2 * (lane % 4));
+      const float2 v = *reinterpret_cast<const float2*>(box + (o ^ ((o >> 3) & SWZ)));
+      split_bf16x3(v.x, v.y, a[0][j][i], a[1][j][i], a[2][j][i]);
+    }
+}
+
+// acc (m64 x BN) = the f32 product of a pixel box split into registers (a)
+// and the weight pieces at `b` (W_PIECE apart), as six bf16 products,
+// small terms first: a1 w3 + a2 w2 + a3 w1, then a1 w2 + a2 w1, then a1 w1;
+// the first overwrites acc.  Issued, not waited.
+template <class C>
+__device__ __forceinline__ void wgmma_conv_split(float* acc,
+                                                 const uint32_t (&a)[3][C::kSteps][4],
+                                                 const unsigned char* b) {
+#pragma unroll
+  for (int t = 0; t < 6; ++t) {
+    // the pieces (0-based) of term t: (0, 2) (1, 1) (2, 0) (0, 1) (1, 0) (0, 0)
+    const int pa = t < 3 ? t : t < 5 ? t - 3 : 0;
+    const int pw = t < 3 ? 2 - t : t == 3 ? 1 : 0;
+#pragma unroll
+    for (int j = 0; j < C::kSteps; ++j)
+      wgmma_rs<C::kOut, 0>(acc, a[pa][j], smem_desc<C::RB>(b + pw * C::W_PIECE + 32 * j),
+                           t + j > 0);
   }
 }
 
-// The patch position of output slot m at tap (0, 0); slots past TH * TW
-// read position 0 and are never stored.
-__device__ __forceinline__ int slot_pos(int m, int slots, int TW, int PW) {
-  return m < slots ? (m / TW) * PW + m % TW : 0;
+// Step `it` of a live consumer warpgroup of the f32 kernel, its box split
+// into a[kA] already: issue the step's products into `part`, split the
+// next step's box into a[1 - kA] while they run, then add them to the
+// total (round to nearest) and free the step's stage.
+template <class C, int kA>
+__device__ __forceinline__ void split_step(uint32_t (&a)[2][3][C::kSteps][4],
+                                           float (&part)[C::kOut / 2],
+                                           float (&total)[C::kOut / 2], const unsigned char* a_wg,
+                                           const unsigned char* b_s, uint64_t* full,
+                                           uint64_t* empty, int it, int n_steps) {
+  const int s = it % C::STAGES;
+  wgmma_fence();
+  wgmma_conv_split<C>(part, a[kA], b_s + s * C::B_SLOT);
+  wgmma_commit();
+  if (it + 1 < n_steps) {
+    const int s1 = (it + 1) % C::STAGES;
+    mbar_wait(&full[s1], ((it + 1) / C::STAGES) & 1);
+    load_split_a<C>(a[1 - kA], a_wg + s1 * C::A_SLOT);
+  }
+  wgmma_wait<0>();
+  mbar_arrive(&empty[s]);
+#pragma unroll
+  for (int i = 0; i < C::kOut / 2; ++i) {
+    fence_regs(part[i]);
+    total[i] += part[i];
+  }
 }
 
-// thread (tm, tn) owns slots tm + 8 i (i < 8) and channels tn + 16 j (j < 4)
-__global__ void __launch_bounds__(NTHREADS)
-conv3x3_kernel_f32(const float* __restrict__ x, const float* __restrict__ wk,
-                   float* __restrict__ y, int H, int W, int C, int O, int TH, int TW,
-                   int tiles_w, int x_aligned) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  constexpr int VPR = KC32 / kVec;   // 16-byte vectors per patch or weight row
-  float* patch_s = reinterpret_cast<float*>(smem);
-  float* w_s = patch_s + PATCH_MAX * kRow;
-  float* out_s = reinterpret_cast<float*>(smem);   // reused after the last chunk
-
-  const int h0 = (blockIdx.x / tiles_w) * TH;
-  const int w0 = (blockIdx.x % tiles_w) * TW;
-  const int o0 = blockIdx.z * BN32;
-  const int PW = TW + 2;
-  const int npos = (TH + 2) * PW;
-  const int slots = TH * TW;
-  const bool vec_x = x_aligned && C % kVec == 0;
-  const bool vec_w = C % kVec == 0;
-  x += (size_t)blockIdx.y * H * W * C;
-  y += (size_t)blockIdx.y * H * W * O;
-
-  const int tn = threadIdx.x & 15;
-  const int tm = threadIdx.x >> 4;
-  int pos[8];
-  float acc[8][4];
+// The accumulator of a consumer warpgroup (its box's 64 pixels by output
+// channels o0 .. o0 + BN - 1, f32) to y: each thread stores its two rows'
+// pairs of channels, 8 bytes at a time (element by element where O is
+// odd), so a warp writes whole 32-byte sectors; rows past the box, pixels
+// outside the image and channels at or past O are not written.
+template <int BN>
+__device__ __forceinline__ void store_acc_f32(const float* acc, float* __restrict__ y,
+                                              const ConvShape& sh, int3 p, int o0) {
+  const int box_rows = sh.TN * sh.TH * sh.TW;
+  const int warp = (threadIdx.x % 128) / 32, lane = threadIdx.x % 32;
+  const bool pairs = sh.O % 2 == 0;
 #pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    pos[i] = slot_pos(tm + 8 * i, slots, TW, PW);
+  for (int h = 0; h < 2; ++h) {
+    const int r = 16 * warp + lane / 4 + 8 * h;
+    const int n = p.z + r / (sh.TH * sh.TW);
+    const int hh = p.y + (r / sh.TW) % sh.TH;
+    const int ww = p.x + r % sh.TW;
+    if (r >= box_rows || n >= sh.B || hh >= sh.H || ww >= sh.W) continue;
+    float* dst = y + (((size_t)n * sh.H + hh) * sh.W + ww) * sh.O;
 #pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.0f;
-  }
-  for (int c0 = 0; c0 < C; c0 += KC32) {
-    // the haloed patch: image rows h0 - 1 .. h0 + TH, columns w0 - 1 .. w0 + TW
-    for (int i = threadIdx.x; i < npos * VPR; i += NTHREADS) {
-      const int p = i / VPR, v = i % VPR;
-      const int h = h0 + p / PW - 1, w = w0 + p % PW - 1;
-      const bool inside = h >= 0 && h < H && w >= 0 && w < W;
-      const float* src = x + ((size_t)(inside ? h : 0) * W + (inside ? w : 0)) * C + c0;
-      load_vec(patch_s + p * kRow + v * kVec, src, v * kVec, C - c0, vec_x, inside);
-    }
-    // the nine taps' weights for output channels o0 .. o0 + BN32
-    for (int i = threadIdx.x; i < 9 * BN32 * VPR; i += NTHREADS) {
-      const int row = i / VPR, v = i % VPR;   // row = tap * BN32 + n
-      const int o = o0 + row % BN32;
-      const bool valid = o < O;
-      const float* src = wk + ((size_t)(row / BN32) * O + (valid ? o : 0)) * C + c0;
-      load_vec(w_s + row * kRow + v * kVec, src, v * kVec, C - c0, vec_w, valid);
-    }
-    __syncthreads();
-    for (int tap = 0; tap < 9; ++tap) {
-      const int off = (tap / 3) * PW + tap % 3;
-      const float* wt = w_s + (tap * BN32 + tn) * kRow;
-#pragma unroll
-      for (int k = 0; k < KC32; ++k) {
-        float a[8], b[4];
-#pragma unroll
-        for (int i = 0; i < 8; ++i) a[i] = patch_s[(pos[i] + off) * kRow + k];
-#pragma unroll
-        for (int j = 0; j < 4; ++j) b[j] = wt[16 * j * kRow + k];
-#pragma unroll
-        for (int i = 0; i < 8; ++i)
-#pragma unroll
-          for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
+    for (int j = 0; j < BN / 8; ++j) {
+      const int o = o0 + 8 * j + 2 * (lane % 4);
+      const float* e = acc + 4 * j + 2 * h;
+      if (pairs) {
+        if (o < sh.O) *reinterpret_cast<float2*>(dst + o) = make_float2(e[0], e[1]);
+      } else {
+        if (o < sh.O) dst[o] = e[0];
+        if (o + 1 < sh.O) dst[o + 1] = e[1];
       }
     }
-    __syncthreads();   // the next chunk overwrites the patch and weights
-  }
-#pragma unroll
-  for (int i = 0; i < 8; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) out_s[(tm + 8 * i) * OUT_STRIDE + tn + 16 * j] = acc[i][j];
-  __syncthreads();
-  for (int i = threadIdx.x; i < slots * BN32; i += NTHREADS) {
-    const int m = i / BN32, n = i % BN32;
-    const int h = h0 + m / TW, w = w0 + m % TW, o = o0 + n;
-    if (h < H && w < W && o < O) y[((size_t)h * W + w) * O + o] = out_s[m * OUT_STRIDE + n];
   }
 }
 
-// The pixel tile: TH x TW <= BM slots, the fewest blocks over the image,
-// then the smallest patch.
-void pick_tile(int H, int W, int* TH, int* TW) {
-  long best = -1;
-  int best_patch = 0;
-  for (int tw = 1; tw <= (W < BM ? W : BM); ++tw) {
-    const int th = BM / tw < H ? BM / tw : H;
-    const long count = (long)((H + th - 1) / th) * ((W + tw - 1) / tw);
-    const int patch = (th + 2) * (tw + 2);
-    if (best < 0 || count < best || (count == best && patch < best_patch)) {
-      best = count;
-      best_patch = patch;
-      *TH = th;
-      *TW = tw;
+// The f32 kernel: the bf16 kernel's grid, boxes and producer, on f32 pixel
+// boxes and the weights' three bf16 pieces.  grid (ceil(n_tiles / 2),
+// ceil(O / BN)): block (i, j) computes pixel boxes 2 i and 2 i + 1
+// (consumer warpgroups 0 and 1) by output channels j BN .. j BN + BN - 1.
+// tm_w maps the pieces as (C8, O, 27): piece p of tap t at index 9 p + t.
+template <int KC, int BN>
+__global__ void __launch_bounds__(kConvThreads, kSplitBlocksPerSm)
+conv3x3_kernel_split(const __grid_constant__ CUtensorMap tm_x,
+                     const __grid_constant__ CUtensorMap tm_w, float* __restrict__ y,
+                     const ConvShape sh) {
+  using C = ConvSplitCfg<KC, BN>;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* a_s = align1024(smem_raw);              // [consumer][stage] pixel boxes
+  unsigned char* b_s = a_s + 2 * C::STAGES * C::A_SLOT;  // [stage] weight pieces
+  uint64_t* full = reinterpret_cast<uint64_t*>(b_s + C::STAGES * C::B_SLOT);
+  uint64_t* empty = full + C::STAGES;
+
+  const int n_steps = 9 * sh.n_chunks;
+  const int o0 = blockIdx.y * BN;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < C::STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], kConsumers);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= kConsumers) {
+    if (threadIdx.x == kConsumers) {
+      // the block's boxes; a missing second box (an odd count) loads nothing
+      const int t0 = 2 * blockIdx.x;
+      const bool two = t0 + 1 < sh.n_tiles;
+      const int3 p0 = box_origin(sh, t0);
+      const int3 p1 = box_origin(sh, two ? t0 + 1 : t0);
+      const uint32_t bytes =
+          (two ? 2 : 1) * sh.TN * sh.TH * sh.TW * C::FRB + (uint32_t)C::B_SLOT;
+      for (int it = 0; it < n_steps; ++it) {
+        const int s = it % C::STAGES;
+        const int tap = it / sh.n_chunks;
+        const int c0 = (it - tap * sh.n_chunks) * KC;
+        const int dy = tap / 3 - 1, dx = tap % 3 - 1;
+        mbar_wait(&empty[s], ((it / C::STAGES) & 1) ^ 1);   // the first round passes
+        mbar_arrive_expect_tx(&full[s], bytes);
+        tma_load_4d(a_s + s * C::A_SLOT, &tm_x, &full[s], c0, p0.x + dx, p0.y + dy, p0.z);
+        if (two)
+          tma_load_4d(a_s + (C::STAGES + s) * C::A_SLOT, &tm_x, &full[s], c0, p1.x + dx,
+                      p1.y + dy, p1.z);
+#pragma unroll
+        for (int p = 0; p < 3; ++p)
+          tma_load_3d(b_s + s * C::B_SLOT + p * C::W_PIECE, &tm_w, &full[s], c0, o0,
+                      9 * p + tap);
+      }
+    }
+  } else {
+    const int wg = threadIdx.x / 128;
+    const int tile = 2 * blockIdx.x + wg;
+    const bool live = tile < sh.n_tiles;   // else only the barriers, in step
+    unsigned char* a_wg = a_s + wg * C::STAGES * C::A_SLOT;
+
+    // each step's products go to a fresh partial sum, added to the total
+    // in f32 (round to nearest) once done: wgmma rounds its sums toward
+    // zero, which over all the steps' products in one accumulator shrank
+    // the output by ~3e-5 at K = 4608.  The box splits into registers
+    // alternate, so that the next step's split runs beside a step's
+    // products.
+    float part[BN / 2], total[BN / 2];
+#pragma unroll
+    for (int i = 0; i < BN / 2; ++i) part[i] = total[i] = 0.0f;
+    if (live) {
+      uint32_t a[2][3][C::kSteps][4];
+      mbar_wait(&full[0], 0);
+      load_split_a<C>(a[0], a_wg);
+      for (int it = 0; it < n_steps; it += 2) {
+        split_step<C, 0>(a, part, total, a_wg, b_s, full, empty, it, n_steps);
+        if (it + 1 < n_steps)
+          split_step<C, 1>(a, part, total, a_wg, b_s, full, empty, it + 1, n_steps);
+      }
+      store_acc_f32<BN>(total, y, sh, box_origin(sh, tile), o0);
+    } else {
+      for (int it = 0; it < n_steps; ++it) {
+        const int s = it % C::STAGES;
+        mbar_wait(&full[s], (it / C::STAGES) & 1);
+        mbar_arrive(&empty[s]);
+      }
     }
   }
 }
 
-cudaError_t launch_f32(const void* x, const void* wk, void* y, int B, int H, int W, int C, int O,
-                       int x_aligned, cudaStream_t stream) {
-  static_assert(kF32Smem <= kMaxSmemBytes, "conv3x3 tile does not fit in shared memory");
-  if (B > 65535 || (O + BN32 - 1) / BN32 > 65535) return cudaErrorInvalidValue;
+// KC of the f32 kernel: 16 channels at C <= 16, else 32 (64- and 128-byte
+// f32 rows); its BN is 64 at every O (three accumulators of BN / 2
+// registers a thread)
+int split_chunk_channels(int C) { return C <= 16 ? 16 : 32; }
+constexpr int kSplitOut = 64;
+
+// f(ConvSplitCfg<KC, BN>{}) for the f32 instantiation at (kc, bn), or `none`
+template <class R, class F>
+R with_split_cfg(int kc, int bn, R none, F f) {
+  switch (kc * 1000 + bn) {
+    case 16064: return f(ConvSplitCfg<16, 64>{});
+    case 32064: return f(ConvSplitCfg<32, 64>{});
+  }
+  return none;
+}
+
+// the once-per-device shared-memory opt-in of conv3x3_kernel_split<KC, BN>
+template <class Cfg>
+cudaError_t split_opt_in() {
   static std::mutex mu;
   static bool attr_set[kMaxDevices] = {};
-  cudaError_t err = smem_opt_in_once(conv3x3_kernel_f32, (int)kF32Smem, mu, attr_set);
+  return smem_opt_in_once(conv3x3_kernel_split<Cfg::kChunk, Cfg::kOut>, (int)Cfg::SMEM, mu,
+                          attr_set);
+}
+
+template <class Cfg>
+cudaError_t launch_split(const void* x, const void* wk, void* y, int B, int H, int W, int C,
+                         int O, cudaStream_t stream) {
+  constexpr int KC = Cfg::kChunk, BN = Cfg::kOut;
+  static_assert(Cfg::SMEM <= kMaxSmemBytes, "conv3x3: the f32 ring does not fit");
+  ConvShape sh;
+  cudaError_t err = conv_shape(B, H, W, C, O, KC, &sh);
   if (err != cudaSuccess) return err;
-  int TH = 1, TW = 1;
-  pick_tile(H, W, &TH, &TW);
-  const int tiles_w = (W + TW - 1) / TW;
-  dim3 grid(((H + TH - 1) / TH) * tiles_w, B, (O + BN32 - 1) / BN32);
-  conv3x3_kernel_f32<<<grid, NTHREADS, kF32Smem, stream>>>(
-      static_cast<const float*>(x), static_cast<const float*>(wk), static_cast<float*>(y), H, W,
-      C, O, TH, TW, tiles_w, x_aligned);
+  // x as (C, W, H, B) in f32 boxes (KC, TW, TH, TN); the pieces as (C8, O,
+  // 27) in bf16 boxes (KC, BN, 1); encoded per launch, passed by value
+  CUtensorMap tm_x, tm_w;
+  const uint64_t x_dims[4] = {(uint64_t)C, (uint64_t)W, (uint64_t)H, (uint64_t)B};
+  const uint32_t x_box[4] = {(uint32_t)KC, (uint32_t)sh.TW, (uint32_t)sh.TH, (uint32_t)sh.TN};
+  err = encode_tiled<4>(&tm_x, x, 4, x_dims, x_box);
+  if (err == cudaSuccess) err = encode_bf16_3d(&tm_w, wk, (C + 7) / 8 * 8, O, 27, KC, BN);
+  if (err == cudaSuccess) err = split_opt_in<Cfg>();
+  if (err != cudaSuccess) return err;
+  const dim3 grid((sh.n_tiles + 1) / 2, (O + BN - 1) / BN);
+  conv3x3_kernel_split<KC, BN><<<grid, kConvThreads, Cfg::SMEM, stream>>>(
+      tm_x, tm_w, static_cast<float*>(y), sh);
   return cudaGetLastError();
+}
+
+cudaError_t dispatch_f32(const void* x, const void* wk, void* y, int B, int H, int W, int C,
+                         int O, cudaStream_t stream) {
+  const bool aligned = (reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(wk) |
+                        reinterpret_cast<uintptr_t>(y)) % 16 == 0;
+  if (C % 4 != 0 || C < 16 || !aligned) return cudaErrorInvalidValue;
+  return with_split_cfg(split_chunk_channels(C), kSplitOut,
+                        (cudaError_t)cudaErrorInvalidValue, [&](auto cfg) {
+                          return launch_split<decltype(cfg)>(x, wk, y, B, H, W, C, O, stream);
+                        });
 }
 
 }  // namespace
 
-// x (B, H, W, C) and y (B, H, W, O) NHWC, wk (3, 3, O, C) = (tap, out, in),
-// one dtype, all contiguous.  dtype 0 = float32: wk and y 16-byte aligned,
-// x_aligned says whether x is.  dtype 1 = bfloat16: x, wk and y 16-byte
-// aligned and C a multiple of 8, at least 16 (TMA's limits; the wrapper
-// pads).  Returns the cudaError_t of the launch (0 on success).
+// x (B, H, W, C) and y (B, H, W, O) NHWC, contiguous, 16-byte aligned.
+// dtype 1 = bfloat16: wk (3, 3, O, C) = (tap, out, in), 16-byte aligned, and
+// C a multiple of 8, at least 16.  dtype 0 = float32: wk the three bf16
+// pieces of the f32 (tap, out, in) weights, (3, 9, O, C8) with C8 = C
+// rounded up to a multiple of 8 and zeros past C, and C a multiple of 4, at
+// least 16 (TMA's limits; the wrapper pads and splits).  Returns the
+// cudaError_t of the launch (0 on success).
 extern "C" int bigdl_conv3x3(const void* x, const void* wk, void* y, int B, int H, int W, int C,
-                             int O, int dtype, int x_aligned, void* stream) {
+                             int O, int dtype, void* stream) {
   if (B <= 0 || H <= 0 || W <= 0 || C <= 0 || O <= 0) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 1) return (int)dispatch_bf16(x, wk, y, B, H, W, C, O, s);
-  if (dtype == 0) return (int)launch_f32(x, wk, y, B, H, W, C, O, x_aligned, s);
+  if (dtype == 0) return (int)dispatch_f32(x, wk, y, B, H, W, C, O, s);
   return (int)cudaErrorInvalidValue;
 }
 
-// Dynamic shared memory per block of the bf16 kernel at KC input channels
-// a step and BN output channels a block (dtype 1), or of the f32 kernel
-// (dtype 0, kc and bn ignored); 0 for what it does not take.
+// Dynamic shared memory per block of the kernel at KC input channels a step
+// and BN output channels a block, in bf16 (dtype 1) or f32 (dtype 0); 0 for
+// what it does not take.
 extern "C" int bigdl_conv3x3_smem_bytes(int kc, int bn, int dtype) {
-  if (dtype == 0) return (int)kF32Smem;
+  if (dtype == 0)
+    return with_split_cfg(kc, bn, 0, [](auto cfg) { return (int)decltype(cfg)::SMEM; });
   if (dtype != 1) return 0;
   return with_cfg(kc, bn, 0, [](auto cfg) { return (int)decltype(cfg)::SMEM; });
 }
 
-// How many blocks of the bf16 kernel at (kc, bn) the current device runs on
-// one SM at once (2 by design), or -1.
-extern "C" int bigdl_conv3x3_blocks_per_sm(int kc, int bn) {
-  return with_cfg(kc, bn, -1, [](auto cfg) {
-    using Cfg = decltype(cfg);
+// How many blocks of the kernel at (kc, bn) in bf16 (dtype 1: 2 by design)
+// or f32 (dtype 0: 1) the current device runs on one SM at once, or -1.
+extern "C" int bigdl_conv3x3_blocks_per_sm(int kc, int bn, int dtype) {
+  auto occupancy = [](auto kernel, cudaError_t opt_in, int smem) {
     int n = -1;
-    if (wgmma_opt_in<Cfg>() != cudaSuccess ||
-        cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-            &n, conv3x3_kernel_wgmma<Cfg::kChunk, Cfg::kOut>, kConvThreads, Cfg::SMEM) !=
+    if (opt_in != cudaSuccess ||
+        cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, kernel, kConvThreads, smem) !=
             cudaSuccess)
       return -1;
     return n;
+  };
+  if (dtype == 0)
+    return with_split_cfg(kc, bn, -1, [&](auto cfg) {
+      using Cfg = decltype(cfg);
+      return occupancy(conv3x3_kernel_split<Cfg::kChunk, Cfg::kOut>, split_opt_in<Cfg>(),
+                       (int)Cfg::SMEM);
+    });
+  if (dtype != 1) return -1;
+  return with_cfg(kc, bn, -1, [&](auto cfg) {
+    using Cfg = decltype(cfg);
+    return occupancy(conv3x3_kernel_wgmma<Cfg::kChunk, Cfg::kOut>, wgmma_opt_in<Cfg>(),
+                     (int)Cfg::SMEM);
   });
 }
 
-// What the bf16 kernel does at x (B, H, W, C) and O output channels, C as
-// the kernel takes it (a multiple of 8, at least 16): plan = (TN, TH, TW)
-// of its pixel box, KC, BN.  Returns the number of boxes (two a block), or
-// -1.
-extern "C" int bigdl_conv3x3_plan(int B, int H, int W, int C, int O, int* plan) {
-  if (B <= 0 || H <= 0 || W <= 0 || C <= 0 || O <= 0) return -1;
-  plan[3] = chunk_channels(C);
-  plan[4] = block_channels(O);
+// What the kernel does at x (B, H, W, C) and O output channels in bf16
+// (dtype 1) or f32 (dtype 0), C as the kernel takes it (bf16: a multiple of
+// 8, f32: of 4; at least 16): plan = (TN, TH, TW) of its pixel box, KC, BN.
+// Returns the number of boxes (two a block), or -1.
+extern "C" int bigdl_conv3x3_plan(int B, int H, int W, int C, int O, int dtype, int* plan) {
+  if (B <= 0 || H <= 0 || W <= 0 || C <= 0 || O <= 0 || (dtype != 0 && dtype != 1)) return -1;
+  plan[3] = dtype == 1 ? chunk_channels(C) : split_chunk_channels(C);
+  plan[4] = dtype == 1 ? block_channels(O) : kSplitOut;
   return pick_box(B, H, W, plan, plan + 1, plan + 2);
 }

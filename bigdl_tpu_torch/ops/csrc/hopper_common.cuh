@@ -10,8 +10,8 @@
 // block-masked GEMM (block_sparse.cu).
 // Its last sections hold what the two attention bodies share: the block
 // shape and the steps of a sweep, the split of f32 operands into bf16
-// pieces on which the f32 forward, dK/dV and dQ form their products, and
-// the products themselves.
+// pieces on which the f32 forward, dK/dV and dQ (and K5 in f32) form
+// their products, and the products themselves.
 //
 // Conventions.
 //   * Tiles land in shared memory by TMA with a swizzle whose span equals

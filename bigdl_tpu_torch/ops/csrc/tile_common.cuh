@@ -1,13 +1,12 @@
 // Helpers shared by the port's kernels: the block shape of the FMA tile
-// loops left, K5's f32 path (conv3x3.cu) and K9's tile route
-// (block_sparse.cu), one block of four warps each; element conversions,
-// warp reductions (attn_wide.cu), the LSE sentinel and the shared-memory
-// opt-in that every kernel takes.  The attention kernels K1-K3 and K6-K8,
-// K5 in bf16 and K9's Hopper route are built on hopper_common.cuh (TMA,
-// mbarriers, wgmma), the attention kernels also on attn_fwd_hopper.cuh and
-// attn_bwd_hopper.cuh; in f32 those form each product from bf16 products
-// on bf16 pieces of its operands, a design the loops here have not taken
-// yet.
+// loop left, K9's tile route (block_sparse.cu), one block of four warps;
+// element conversions, warp reductions (attn_wide.cu), the LSE sentinel
+// and the shared-memory opt-in that every kernel takes.  The attention
+// kernels K1-K3 and K6-K8, K5 and K9's Hopper route are built on
+// hopper_common.cuh (TMA, mbarriers, wgmma), the attention kernels also on
+// attn_fwd_hopper.cuh and attn_bwd_hopper.cuh; in f32 the attention
+// kernels and K5 form each product from bf16 products on bf16 pieces of
+// its operands, a design K9's tile loop has not taken yet.
 //
 // The header is included by one .cu file per shared library; everything
 // lives in an anonymous namespace, so each library keeps its own copy.

@@ -14,17 +14,19 @@ Phases; any failure exits non-zero:
    and bf16 256) with one ``nvcc``
    each, started together, into ``.torch_kernels/``; Triton compiles K4
    at first launch.  Print the build seconds, and for each instantiation
-   of K1, K2, K3, K6-K8, K5's bf16 kernel (one per KC input channels
-   a step and BN output channels a block) and K9's Hopper route (one per
-   KC, BN and W orientation) its registers, spills and dynamic shared
-   memory (ptxas) and its wgmma (HGMMA) and TMA (UTMALDG) instructions
-   (``cuobjdump -sass``, where the toolkit has it); each bf16 attention
-   kernel at D 128, 192 and 256, the f32 K1-K3 and K6-K8 (bf16 products
-   on bf16 pieces of each f32 operand) at D 16-128, K5 at KC 64 and
-   every K9 instantiation must not spill and must hold both (and the
-   attention kernels must not have their wgmma serialised, ptxas C7520),
-   two K5 or K9 blocks must share an SM, and no library may still hold
-   the f32 dQ's retired FMA loops.
+   of K1, K2, K3, K6-K8, K5's bf16 and f32 kernels (one per KC input
+   channels a step and BN output channels a block) and K9's Hopper route
+   (one per KC, BN and W orientation) its registers, spills and dynamic
+   shared memory (ptxas) and its wgmma (HGMMA) and TMA (UTMALDG)
+   instructions (``cuobjdump -sass``, where the toolkit has it); each
+   bf16 attention kernel at D 128, 192 and 256, the f32 K1-K3 and K6-K8
+   (bf16 products on bf16 pieces of each f32 operand) at D 16-128, the
+   bf16 K5 at KC 64, every f32 K5 (split products too) and every K9
+   instantiation must not spill and must hold both (and the attention
+   kernels must not have their wgmma serialised, ptxas C7520), two bf16
+   K5 or K9 blocks must share an SM (an f32 K5 block is alone on its
+   SM), and no library may still hold the f32 dQ's or the f32 K5's
+   retired FMA loops.
 3. kernel parity — each kernel against its plain PyTorch version on the
    card at the shapes the served, the training, the block-sparse
    training, the matmul and the ResNet-50 paths give it, with the stated
@@ -37,11 +39,13 @@ Phases; any failure exits non-zero:
    layer at the training shapes and in f32 (no copy; bit for bit the
    contiguous launch) and K4 on a column slice; bf16 head dims 192 and 256 (the
    Hopper bodies in all three passes, dK/dV and dQ on 64-row blocks; NaN
-   in dead K/V at 256 too) and 320 (the wide route); K5 forward and dX at ResNet-50's
-   four stage shapes (B 64, bf16), one in f32, ResNet-CIFAR's first
+   in dead K/V at 256 too) and 320 (the wide route), and f32 head dims
+   192 and 256 (the wide route); K5 forward and dX at ResNet-50's
+   four stage shapes (B 64) in bf16 and in f32, ResNet-CIFAR's first
    width (B 128, 32 x 32, C = O = 16) and ragged C 3, O 10, H 7, W 5,
    with K5's pixel box, its dead rows and the bytes its TMA boxes
-   request; K9 forward and dX (on W in place) with the route each took,
+   request, and the wrapper's whole call (in f32 with its weight split);
+   K9 forward and dX (on W in place) with the route each took,
    and on its Hopper route the tile route's time on the same inputs and
    the bytes its TMA boxes request; kernel, plain and library times
    (SDPA's backward by CUDA graph replay, with the backend that ran);
@@ -89,7 +93,9 @@ Phases; any failure exits non-zero:
    one batch of 64 random 224x224 images.  Every loss finite, no step
    skipped, the last loss below the first, launches per step exactly K5
    26 (13 forward, 13 dX) and no other kernel; the same 8 steps in f32 on
-   the card give the same first loss and decreases; ``"pallas"`` against
+   the card give the same first loss and decreases, with K5 26 a step on
+   its split-product route, timed beside the ``"xla"`` impl's f32 steps
+   (cuDNN, TF32 off); ``"pallas"`` against
    ``"xla"`` (cuDNN) in f32 at B 8, 3 steps: losses, decreases and every
    parameter update; the card against the CPU in f32 at B 2, 3 steps:
    the same plus BatchNorm's running statistics, then one eval-mode
@@ -129,11 +135,13 @@ T_START = time.perf_counter()
 # cores (six for each score product, five for dV and dK);
 # "float32_split_fwd" that of the f32 K1 and K6: 12 bf16 products for
 # their two (six for S, six for P.V); "float32_split_dq" that of the f32
-# K3 and K8: 18 for their three (six each for S, dP and dQ)
+# K3 and K8: 18 for their three (six each for S, dP and dQ);
+# "float32_split_conv" that of the f32 K5: six for its one
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12,
               "float32_split": 989e12 * 4 / 22,
               "float32_split_fwd": 989e12 * 2 / 12,
-              "float32_split_dq": 989e12 * 3 / 18}
+              "float32_split_dq": 989e12 * 3 / 18,
+              "float32_split_conv": 989e12 / 6}
 MEM_BYTES_PER_S = 3.35e12
 
 FLAGSHIP = dict(vocab=32000, embed_dim=1024, num_heads=8, num_layers=8,
@@ -390,9 +398,9 @@ DESIGN_KERNELS = (
      {"dkvDense": "K2", "dqDense": "K3", "dkvList": "K7", "dqList": "K8"},
      "float32"),
 )
-# the FMA tile loops the f32 K3 and K8 ran before their split products:
-# phase 2 fails if a built library still holds one
-RETIRED_KERNELS = r"flash_bwd_dq_kernel|bs_dq_kernel"
+# the FMA tile loops the f32 K3, K8 and K5 ran before their split
+# products: phase 2 fails if a built library still holds one
+RETIRED_KERNELS = r"flash_bwd_dq_kernel|bs_dq_kernel|conv3x3_kernel_f32"
 
 
 # the head dims phase 2 holds each Hopper attention kernel to: in bf16 D
@@ -446,8 +454,10 @@ def kernel_design(torch):
                "K3": lambda D, dt: bwd(0, D, dt), "K6": bs_fwd,
                "K7": lambda D, dt: bs_bwd(1, D, dt),
                "K8": lambda D, dt: bs_bwd(0, D, dt)}
+    # conv3x3's kernels are reported by conv_design; it is scanned here
+    # for a retired loop only
     libs = {"flash_fwd": ("K1",), "flash_bwd": ("K2", "K3"),
-            "block_sparse": ("K6", "K7", "K8")}
+            "block_sparse": ("K6", "K7", "K8"), "conv3x3": ()}
     rows, failures = [], []
     for lib_name, labels in libs.items():
         report = _support.BUILD_INFO[lib_name][1]
@@ -500,24 +510,30 @@ def kernel_design(torch):
     return rows, failures
 
 
-# the bf16 wgmma GEMMs by their mangled names: K5 (KC input channels a
-# step, BN output channels a block) and K9's Hopper route (KC, BN, W read
-# K-major)
+# the wgmma GEMMs by their mangled names: K5 in bf16 and in f32 (split
+# products; KC input channels a step, BN output channels a block) and
+# K9's Hopper route (KC, BN, W read K-major)
 CONV_KERNEL = r"conv3x3_kernel_wgmmaILi(\d+)ELi(\d+)E"
+CONV_SPLIT_KERNEL = r"conv3x3_kernel_splitILi(\d+)ELi(\d+)E"
 MM_KERNEL = r"bs_mm_kernel_wgmmaILi(\d+)ELi(\d+)ELb([01])E"
 
 
-def wgmma_design(lib_name, label, pattern, names, smem, occ, checked):
-    """Phase 2's report of a bf16 GEMM on TMA and wgmma (K5, K9): per
-    instantiation (its template arguments, by ``names``) its registers,
-    spills and dynamic shared memory (ptxas), how many blocks the card
-    runs on one SM at once, and its wgmma (HGMMA) and TMA load (UTMALDG)
-    instructions in SASS.  Fails where two blocks do not share an SM,
-    and where an instantiation that ``checked`` takes spills or holds no
-    HGMMA or no UTMALDG."""
+def wgmma_design(lib_name, label, pattern, names, smem, occ, checked,
+                 dtype="bfloat16", blocks=2, serial_check=False):
+    """Phase 2's report of a GEMM on TMA and wgmma (K5, K9) in ``dtype``:
+    per instantiation (its template arguments, by ``names``) its
+    registers, spills and dynamic shared memory (ptxas), how many blocks
+    the card runs on one SM at once, and its wgmma (HGMMA) and TMA load
+    (UTMALDG) instructions in SASS.  Fails where fewer than ``blocks``
+    blocks share an SM, and where an instantiation that ``checked`` takes
+    spills or holds no HGMMA or no UTMALDG, or, with ``serial_check``,
+    has its wgmma serialised by ptxas (any "serialized" remark: C7514,
+    C7520)."""
     from bigdl_tpu_torch.ops import _support
 
-    ptxas = ptxas_functions(_support.BUILD_INFO[lib_name][1])
+    report = _support.BUILD_INFO[lib_name][1]
+    ptxas = ptxas_functions(report)
+    serialised = set(re.findall(r"serialized.*?function '([^']+)'", report))
     sass = sass_counts(_support.load_cuda_library(lib_name)._name)
     rows, failures = [], []
     for fn in sorted(set(ptxas) | set(sass or {})):
@@ -527,7 +543,7 @@ def wgmma_design(lib_name, label, pattern, names, smem, occ, checked):
         args = tuple(int(v) for v in m.groups())
         rep = ptxas.get(fn)
         ops = None if sass is None else sass.get(fn)
-        row = dict(kernel=fn, label=label, dtype="bfloat16",
+        row = dict(kernel=fn, label=label, dtype=dtype,
                    **dict(zip(names, args)), dynamic_smem_bytes=smem(*args),
                    blocks_per_sm=occ(*args), ptxas=rep, sass=ops)
         rows.append(row)
@@ -537,22 +553,25 @@ def wgmma_design(lib_name, label, pattern, names, smem, occ, checked):
                 f"{rep.get('spill_stores')} B, loads "
                 f"{rep.get('spill_loads')} B")
         what = " ".join(f"{n.upper()} {v:3d}" for n, v in zip(names, args))
-        print(f"{label} bfloat16 {what}: {regs}, dynamic smem "
+        print(f"{label} {dtype} {what}: {regs}, dynamic smem "
               f"{row['dynamic_smem_bytes']} B, {row['blocks_per_sm']} "
               f"blocks an SM; SASS "
               f"{'not measured (no cuobjdump)' if ops is None else ops}")
-        if row["blocks_per_sm"] < 2:
-            failures.append(f"{label} {what}: {row['blocks_per_sm']} blocks "
-                            f"an SM, want 2")
+        if row["blocks_per_sm"] < blocks:
+            failures.append(f"{label} {dtype} {what}: {row['blocks_per_sm']} "
+                            f"blocks an SM, want {blocks}")
         if checked(*args):
             if rep and (rep.get("spill_stores") or rep.get("spill_loads")):
-                failures.append(f"{label} bf16 {what} spills: {rep}")
+                failures.append(f"{label} {dtype} {what} spills: {rep}")
             if ops is not None and not (ops["HGMMA"] and ops["UTMALDG"]):
-                failures.append(f"{label} bf16 {what} holds no HGMMA or no "
-                                f"UTMALDG: {ops}")
+                failures.append(f"{label} {dtype} {what} holds no HGMMA or "
+                                f"no UTMALDG: {ops}")
+            if serial_check and fn in serialised:
+                failures.append(f"{label} {dtype} {what}: ptxas serialises "
+                                f"its wgmma")
     if (ptxas or sass) and not any(checked(*(r[n] for n in names))
                                    for r in rows):
-        failures.append(f"{label} bf16 kernels missing from the build's "
+        failures.append(f"{label} {dtype} kernels missing from the build's "
                         f"reports")
     return rows, failures
 
@@ -568,13 +587,22 @@ def _int_fn(lib_name, name, n):
 
 
 def conv_design(torch):
-    """K5's bf16 build (``wgmma_design``), per (KC, BN); KC 64 must not
-    spill and must hold HGMMA and UTMALDG."""
+    """K5's build (``wgmma_design``), per (KC, BN): in bf16 two blocks an
+    SM, KC 64 must not spill, must hold HGMMA and UTMALDG and must not
+    have its wgmma serialised; in f32 (split products) a block alone on
+    its SM, and no instantiation may spill, lack HGMMA or UTMALDG, or
+    have its wgmma serialised."""
     smem = _int_fn("conv3x3", "bigdl_conv3x3_smem_bytes", 3)
-    return wgmma_design("conv3x3", "K5", CONV_KERNEL, ("kc", "bn"),
-                        lambda kc, bn: smem(kc, bn, 1),
-                        _int_fn("conv3x3", "bigdl_conv3x3_blocks_per_sm", 2),
-                        lambda kc, bn: kc == 64)
+    occ = _int_fn("conv3x3", "bigdl_conv3x3_blocks_per_sm", 3)
+    rows, failures = wgmma_design(
+        "conv3x3", "K5", CONV_KERNEL, ("kc", "bn"),
+        lambda kc, bn: smem(kc, bn, 1), lambda kc, bn: occ(kc, bn, 1),
+        lambda kc, bn: kc == 64, serial_check=True)
+    more_rows, more_failures = wgmma_design(
+        "conv3x3", "K5", CONV_SPLIT_KERNEL, ("kc", "bn"),
+        lambda kc, bn: smem(kc, bn, 0), lambda kc, bn: occ(kc, bn, 0),
+        lambda kc, bn: True, dtype="float32", blocks=1, serial_check=True)
+    return rows + more_rows, failures + more_failures
 
 
 def mm_design(torch):
@@ -590,8 +618,9 @@ def flash_cases(torch):
     """(label, B, H, T, S, D, dtype, causal): the served prefill, the
     training step, the 200-token batch, causal T > S, f32 (also
     head-strided), narrower heads, head dims 192 and 256 (the bf16 Hopper route of 129-256) and
-    320 (the wide route).  A label starting "strided" takes q, k and v in
-    the (B, T, H, D).transpose(1, 2) layout an attention layer makes."""
+    320 (the wide route), and f32 at 192 and 256 (the wide route).  A
+    label starting "strided" takes q, k and v in the (B, T, H,
+    D).transpose(1, 2) layout an attention layer makes."""
     bf16, f32 = torch.bfloat16, torch.float32
     return [("served", 4, 8, 512, 512, 128, bf16, True),
             ("train", 16, 8, 1024, 1024, 128, bf16, True),
@@ -605,7 +634,9 @@ def flash_cases(torch):
             ("bf16_causal_T1_D16", 3, 2, 1, 1, 16, bf16, True),
             ("D192", 2, 8, 1024, 1024, 192, bf16, True),
             ("D256", 2, 8, 1024, 1024, 256, bf16, True),
-            ("wide_D320", 2, 8, 1024, 1024, 320, bf16, True)]
+            ("wide_D320", 2, 8, 1024, 1024, 320, bf16, True),
+            ("wide_f32_D192", 2, 8, 1024, 1024, 192, f32, True),
+            ("wide_f32_D256", 2, 8, 1024, 1024, 256, f32, True)]
 
 
 def attn_inputs(torch, label, B, H, rows, D, dt, g, n):
@@ -764,7 +795,7 @@ def bwd_cases(torch):
     step (also head-strided, as ``flash_cases``), a ragged T, causal
     T > S and S > T, f32 (also head-strided), narrower heads, head dims
     192 and 256 (K2 and K3 on the 64-row Hopper blocks) and 320 (the
-    wide route)."""
+    wide route), and f32 at 192 and 256 (the wide route)."""
     bf16, f32 = torch.bfloat16, torch.float32
     return [("train", 16, 8, 1024, 1024, 128, bf16, True),
             ("strided_train", 16, 8, 1024, 1024, 128, bf16, True),
@@ -778,7 +809,9 @@ def bwd_cases(torch):
             ("D192", 2, 8, 1024, 1024, 192, bf16, True),
             ("D256", 2, 8, 1024, 1024, 256, bf16, True),
             ("ragged_D256", 2, 8, 200, 300, 256, bf16, True),
-            ("wide_D320", 2, 8, 1024, 1024, 320, bf16, True)]
+            ("wide_D320", 2, 8, 1024, 1024, 320, bf16, True),
+            ("wide_f32_D192", 2, 8, 1024, 1024, 192, f32, True),
+            ("wide_f32_D256", 2, 8, 1024, 1024, 256, f32, True)]
 
 
 def sdpa_bwd_ms(torch, F, q, k, v, d_o, iters: int = 10, reps: int = 5,
@@ -1326,42 +1359,45 @@ def check_block_sparse_mm(torch):
 
 def conv_cases(torch):
     """(label, B, H, W, C, O, dtype) for K5: ResNet-50's four stage shapes
-    at B 64 (the 13 3x3 stride-1 convs of a step), stage 3 in f32,
+    at B 64 (the 13 3x3 stride-1 convs of a step) in both types,
     ResNet-CIFAR's first width (C = O = 16 at 32 x 32, B 128) and a
     ragged case (C 3, O 10, H 7, W 5) in both types."""
     bf16, f32 = torch.bfloat16, torch.float32
-    return [("stage1", 64, 56, 56, 64, 64, bf16),
-            ("stage2", 64, 28, 28, 128, 128, bf16),
-            ("stage3", 64, 14, 14, 256, 256, bf16),
-            ("stage4", 64, 7, 7, 512, 512, bf16),
-            ("stage3_f32", 64, 14, 14, 256, 256, f32),
-            ("cifar16", 128, 32, 32, 16, 16, bf16),
-            ("ragged", 2, 7, 5, 3, 10, bf16),
-            ("ragged_f32", 2, 7, 5, 3, 10, f32)]
+    stages = [("stage1", 64, 56, 56, 64, 64), ("stage2", 64, 28, 28, 128, 128),
+              ("stage3", 64, 14, 14, 256, 256), ("stage4", 64, 7, 7, 512, 512)]
+    return ([(*st, bf16) for st in stages]
+            + [(st[0] + "_f32", *st[1:], f32) for st in stages]
+            + [("cifar16", 128, 32, 32, 16, 16, bf16),
+               ("ragged", 2, 7, 5, 3, 10, bf16),
+               ("ragged_f32", 2, 7, 5, 3, 10, f32)])
 
 
-def conv_boxes(B, H, W, C, O):
-    """What the bf16 K5 reads for one call at these widths (its plan from
-    ``bigdl_conv3x3_plan``): its pixel box (TN, TH, TW), KC and BN, the
-    share of its rows that lie outside the images, and the bytes its TMA
-    boxes request: nine taps of each pixel box per chunk of KC channels
-    and per BN output channels, and each block's weight boxes, which
-    come from L2 where x and the weights fit."""
+def conv_boxes(B, H, W, C, O, dtype):
+    """What K5 reads for one call at these widths in ``dtype`` (its plan
+    from ``bigdl_conv3x3_plan``): its pixel box (TN, TH, TW), KC and BN,
+    the share of its rows that lie outside the images, and the bytes its
+    TMA boxes request: nine taps of each pixel box per chunk of KC
+    channels and per BN output channels (bf16, or f32 for the split
+    kernel), and each block's weight boxes (bf16; three pieces in f32),
+    which come from L2 where x and the weights fit."""
     import ctypes
+
+    import torch
 
     from bigdl_tpu_torch.ops import _support, conv3x3
 
     fn = _support.load_cuda_library("conv3x3").bigdl_conv3x3_plan
-    fn.argtypes = [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_int] * 6 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    c = conv3x3._padded_channels(C)
+    c = conv3x3._padded_channels(C, dtype)
+    f32 = dtype == torch.float32
     plan = (ctypes.c_int * 5)()
-    n_boxes = fn(B, H, W, c, O, plan)
+    n_boxes = fn(B, H, W, c, O, int(not f32), plan)
     tn, th, tw, kc, bn = plan
     steps = 9 * -(-c // kc)
     tiles_o = -(-O // bn)
-    a = n_boxes * tiles_o * steps * tn * th * tw * kc * 2
-    b = -(-n_boxes // 2) * tiles_o * steps * bn * kc * 2
+    a = n_boxes * tiles_o * steps * tn * th * tw * kc * (4 if f32 else 2)
+    b = -(-n_boxes // 2) * tiles_o * steps * bn * kc * (6 if f32 else 2)
     return dict(box=[tn, th, tw], n_boxes=n_boxes, kc=kc, bn=bn,
                 dead_rows=1.0 - B * H * W / (n_boxes * 64),
                 tma_bytes=a + b)
@@ -1370,9 +1406,11 @@ def conv_boxes(B, H, W, C, O):
 def check_conv3x3(torch, F):
     """K5 against ``_conv3x3_plain``, forward and dX (K5 on the flipped,
     in/out-transposed weights), row by row over output pixels.  Times:
-    each launch alone (graph replay), the plain forward, and the library
+    each launch alone on the operands the wrapper hands it (graph
+    replay), the wrapper's whole forward call (in f32 with its split of
+    the weights into bf16 pieces), the plain forward, and the library
     yardsticks: ``F.conv2d`` on channels-last tensors for the forward,
-    ``torch.nn.grad.conv2d_input`` for dX."""
+    ``torch.nn.grad.conv2d_input`` for dX (TF32 off)."""
     from bigdl_tpu_torch.ops import conv3x3
 
     rows = []
@@ -1399,8 +1437,22 @@ def check_conv3x3(torch, F):
             torch.isfinite(dx.float()).all())
         ok = finite and max(rel.values()) <= tol
         del y_ref, dx_ref
-        ms = cuda_ms(lambda: conv3x3._conv3x3_cuda(x, wk))
-        dx_ms = cuda_ms(lambda: conv3x3._conv3x3_cuda(gy, wk_dx))
+
+        def operands(a, k):
+            # what _conv3x3_cuda hands the kernel: x padded where TMA
+            # needs it, the f32 weights as their bf16 pieces
+            a, k = conv3x3._pad_channels(a, k)
+            if a.dtype == torch.float32:
+                k = conv3x3._weight_pieces(k, -(-a.shape[-1] // 8) * 8)
+            return a, k, torch.empty(a.shape[:3] + (k.shape[2],),
+                                     dtype=a.dtype, device="cuda")
+
+        launch_args = operands(x, wk)
+        ms = cuda_ms(lambda: conv3x3._launch(*launch_args))
+        launch_args = operands(gy, wk_dx)
+        dx_ms = cuda_ms(lambda: conv3x3._launch(*launch_args))
+        del launch_args
+        call_ms = cuda_ms(lambda: conv3x3._conv3x3_cuda(x, wk))
         plain_ms = cuda_ms(lambda: conv3x3._conv3x3_plain(x, w),
                            iters=5, reps=3)
         # the library on the same NHWC memory: NCHW-shaped channels-last
@@ -1411,26 +1463,31 @@ def check_conv3x3(torch, F):
         lib_dx_ms = cuda_ms(lambda: torch.nn.grad.conv2d_input(
             x_cl.shape, w_cl, gy_cl, padding=1))
         item = x.element_size()
+        # the f32 K5 forms its product from six bf16 products on the
+        # tensor cores
         b_ms, b_by = bound(item * (B * H * W * (C + O) + 9 * C * O),
-                           2.0 * 9 * B * H * W * C * O, dname)
+                           2.0 * 9 * B * H * W * C * O,
+                           "float32_split_conv" if dname == "float32"
+                           else dname)
+        cb = conv_boxes(B, H, W, C, O, dt)
         rows.append(dict(case=label, shape=[B, H, W, C, O], dtype=dname,
                          row_rel_err=rel, max_abs_err=err, tol=tol, ok=ok,
-                         ms=ms, dx_ms=dx_ms, plain_ms=plain_ms,
-                         library_ms=lib_ms, library_dx_ms=lib_dx_ms,
-                         bound_ms=b_ms, bound_by=b_by))
-        boxes = ""
-        if dt == torch.bfloat16:
-            rows[-1]["boxes"] = cb = conv_boxes(B, H, W, C, O)
-            boxes = (f" | box {cb['box']} x {cb['n_boxes']}, dead rows "
-                     f"{cb['dead_rows']:.3f}, TMA boxes "
-                     f"{cb['tma_bytes'] / 1e6:.1f} MB "
-                     f"({cb['tma_bytes'] / ms / 1e9:.2f} TB/s)")
+                         ms=ms, dx_ms=dx_ms, call_ms=call_ms,
+                         plain_ms=plain_ms, library_ms=lib_ms,
+                         library_dx_ms=lib_dx_ms, bound_ms=b_ms,
+                         bound_by=b_by, boxes=cb))
         print(f"K5 conv3x3 {label:>10} {dname:>8} {B}x{H}x{W}x{C}->{O} row "
               f"err y {rel['y']:.3e} dx {rel['dx']:.3e} (tol {tol:g}) | "
-              f"kernel {ms:.4f} ms (dX {dx_ms:.4f}) plain {plain_ms:.4f} ms "
+              f"kernel {ms:.4f} ms (dX {dx_ms:.4f}; the wrapper's call "
+              f"{call_ms:.4f}) plain {plain_ms:.4f} ms "
               f"F.conv2d {lib_ms:.4f} ms conv2d_input {lib_dx_ms:.4f} ms "
-              f"bound {b_ms:.4f} ms ({b_by}) {'OK' if ok else 'FAIL'}"
-              f"{boxes}")
+              f"bound {b_ms:.4f} ms ({b_by}; kernel / bound "
+              f"{ms / b_ms:.2f}, / F.conv2d {ms / lib_ms:.2f}) "
+              f"{'OK' if ok else 'FAIL'} | box {cb['box']} x "
+              f"{cb['n_boxes']}, KC {cb['kc']} BN {cb['bn']}, dead rows "
+              f"{cb['dead_rows']:.3f}, TMA boxes "
+              f"{cb['tma_bytes'] / 1e6:.1f} MB "
+              f"({cb['tma_bytes'] / ms / 1e9:.2f} TB/s)")
         del x, w, gy, wk, wk_dx, y, dx, x_cl, gy_cl, w_cl
         torch.cuda.empty_cache()
     return rows
@@ -2144,9 +2201,27 @@ def train_resnet50(torch):
           f"memory {peak_gb:.2f} GB | xla impl: step {xla_ms:.2f} ms, "
           f"{xla_ips:.1f} images/s, MFU {xla_mfu:.4f}")
 
-    # the same 8 steps in f32 on the card, same weights and batch
+    # the same 8 steps in f32 on the card, same weights and batch (K5's
+    # split-product route), timed, and beside them the "xla" impl's f32
+    # steps (cuDNN, TF32 off)
     _, f32 = _train_resnet(torch, "cuda", "pallas", B, iters, None)
     torch.cuda.empty_cache()
+    f32_ms, f32_ips, _ = speed(f32["step_s"])
+    _, xla32 = _train_resnet(torch, "cuda", "xla", B, iters, None)
+    torch.cuda.empty_cache()
+    xla32_ms, xla32_ips, _ = speed(xla32["step_s"])
+    bad = [st for st in f32["launches_per_step"] if st != want]
+    if bad:
+        failures.append(f"resnet50 f32 launches per step {bad[0]}, want "
+                        f"{want}")
+    if xla32["launches"]["conv3x3"]:
+        failures.append(f"the xla impl launched K5 in f32 "
+                        f"{xla32['launches']}")
+    print(f"resnet50 path: f32, B {B}, pallas: step {f32_ms:.2f} ms "
+          f"(iterations 3-{iters}), {f32_ips:.1f} images/s, K5 launches "
+          f"per step {f32['launches_per_step'][0]['conv3x3']} | xla impl "
+          f"(cuDNN, TF32 off): step {xla32_ms:.2f} ms, {xla32_ips:.1f} "
+          f"images/s")
     ref = f32["losses"]
     first_rel = abs(losses[0] - ref[0]) / abs(ref[0])
     dec_rel = decrease_rel_err(losses, ref)
@@ -2227,6 +2302,11 @@ def train_resnet50(torch):
                "loss read-back (a device sync)",
         xla=dict(losses=xla["losses"], step_ms=xla_ms, images_per_s=xla_ips,
                  mfu=xla_mfu),
+        f32=dict(losses=ref, step_s=f32["step_s"], step_ms=f32_ms,
+                 images_per_s=f32_ips,
+                 launches_per_step=f32["launches_per_step"][0],
+                 xla=dict(losses=xla32["losses"], step_s=xla32["step_s"],
+                          step_ms=xla32_ms, images_per_s=xla32_ips)),
         f32_losses=ref, bf16_vs_f32_first_rel=first_rel,
         bf16_vs_f32_decrease_rel=dec_rel, pallas_vs_xla_f32=cmp,
         card_vs_cpu_f32=vs_cpu, eval_forward_rel=eval_rel), failures

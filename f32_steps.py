@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
-"""The f32 training steps of ``chip_smoke.py``'s phases 5 and 6, and the
+"""The f32 training steps of ``chip_smoke.py``'s phases 5, 6 and 8, the
 f32 forward (K1, K6), dK/dV (K2, K7) and dQ (K3, K8) launches at each
-step's shape, on one GPU.
+LM step's shape, K5 in f32 at ResNet-50's four stage shapes, and the f32
+wide attention route, on one GPU.
 
     python3 f32_steps.py [CHECKOUT]
 
@@ -12,9 +13,13 @@ f32 steps at T 1024, B 16 (phase 5) and, block-sparse, at T 4096, B 4
 (phase 6), the step time over iterations 3-8 and the operand copies and
 kernel launches of a step; then K1-K3 (flash) or K6-K8 (block-sparse,
 the flagship's mask) alone at that step's layer shape (8 heads of 128),
-by CUDA-graph replay.  Prints a line per phase and, last,
-the JSON record.  Run parent, change, change, parent in one call to
-compare two versions.
+by CUDA-graph replay.  Then ResNet-50 trained 8 f32 steps at B 64 on
+``"pallas"`` (phase 8's f32 run: step time, K5 launches a step) and the
+wrapper's K5 call (forward, and dX on the flipped weights) alone at the
+four stage shapes; then K1-K3 in f32 at head dims 192 and 256 (B 2, H 8,
+T 1024, causal: the wide route).  Prints a line per leg and, last, the
+JSON record.  Run parent, change, change, parent in one call to compare
+two versions.
 """
 import importlib.util
 import json
@@ -38,6 +43,7 @@ def main(argv=None) -> int:
                                                   HERE / "chip_smoke.py")
     cs = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(cs)
+    from bigdl_tpu_torch.ops import _support, conv3x3
     from bigdl_tpu_torch.ops import block_sparse as bs
     from bigdl_tpu_torch.ops import flash_attention as fa
 
@@ -46,6 +52,8 @@ def main(argv=None) -> int:
         return 1
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    _support.load_cuda_libraries("flash_fwd", "flash_bwd", "block_sparse",
+                                 "conv3x3", "attn_wide")
     L, heads = cs.FLAGSHIP["num_layers"], cs.FLAGSHIP["num_heads"]
     D = cs.FLAGSHIP["embed_dim"] // heads
     out = {}
@@ -109,9 +117,70 @@ def main(argv=None) -> int:
               f"ms", flush=True)
         del q, k, v, d_o, o, lse, do, delta
         torch.cuda.empty_cache()
+    out["phase8"] = resnet_leg(torch, cs, conv3x3, repo)
+    out["wide"] = wide_leg(torch, cs, fa, repo)
     print(json.dumps(dict(checkout=str(repo),
                           device=torch.cuda.get_device_name(0), **out)))
     return 0
+
+
+def resnet_leg(torch, cs, conv3x3, repo):
+    """Phase 8's f32 run (ResNet-50, B 64, 8 steps on "pallas") and the
+    K5 call at the four stage shapes, forward and dX."""
+    B = cs.RESNET_BATCH
+    _, run = cs._train_resnet(torch, "cuda", "pallas", B, cs.TRAIN_ITERS,
+                              None)
+    torch.cuda.empty_cache()
+    steady = run["step_s"][2:]
+    rec = dict(batch=B, step_ms=1e3 * sum(steady) / len(steady),
+               step_s=run["step_s"], losses=run["losses"],
+               k5_launches_per_step=run["launches_per_step"][0]["conv3x3"],
+               k5={})
+    print(f"{repo} phase8: f32 step {rec['step_ms']:.2f} ms (iterations "
+          f"3-{cs.TRAIN_ITERS}, B {B}), K5 {rec['k5_launches_per_step']} a "
+          f"step", flush=True)
+    for label, b, h, w, c, o, dt in cs.conv_cases(torch):
+        if dt != torch.float32 or not label.startswith("stage"):
+            continue
+        g = torch.Generator(device="cuda").manual_seed(29)
+        x = torch.randn(b, h, w, c, device="cuda", generator=g)
+        wt = torch.randn(3, 3, c, o, device="cuda", generator=g) / (
+            3 * math.sqrt(c))
+        gy = torch.randn(b, h, w, o, device="cuda", generator=g)
+        wk = wt.permute(0, 1, 3, 2).contiguous()
+        wk_dx = wt.flip(0, 1).contiguous()
+        rec["k5"][label] = dict(
+            ms=cs.cuda_ms(lambda: conv3x3._conv3x3_cuda(x, wk)),
+            dx_ms=cs.cuda_ms(lambda: conv3x3._conv3x3_cuda(gy, wk_dx)))
+        print(f"{repo} K5 {label}: the wrapper's call {rec['k5'][label]['ms']:.4f}"
+              f" ms, dX {rec['k5'][label]['dx_ms']:.4f} ms", flush=True)
+        del x, wt, gy, wk, wk_dx
+        torch.cuda.empty_cache()
+    return rec
+
+
+def wide_leg(torch, cs, fa, repo):
+    """K1, K2 and K3 in f32 at head dims 192 and 256 (B 2, H 8, T 1024,
+    causal), which take the wide route."""
+    rec = {}
+    for D in (192, 256):
+        g = torch.Generator(device="cuda").manual_seed(7)
+        q, k, v, d_o = (torch.randn(2, 8, 1024, D, device="cuda",
+                                    generator=g) for _ in range(4))
+        scale = 1 / math.sqrt(D)
+        o, lse = fa._flash_cuda(q, k, v, True, scale)
+        do, delta = fa._bwd_inputs(q, o, d_o)
+        rec[f"D{D}"] = dict(
+            fwd_ms=cs.cuda_ms(lambda: fa._flash_cuda(q, k, v, True, scale),
+                              iters=3, reps=2),
+            dkv_ms=cs.cuda_ms(lambda: fa._launch_dkv(
+                q, k, v, do, lse, delta, True, scale), iters=3, reps=2),
+            dq_ms=cs.cuda_ms(lambda: fa._launch_dq(
+                q, k, v, do, lse, delta, True, scale), iters=3, reps=2))
+        print(f"{repo} wide f32 D {D}: {rec[f'D{D}']}", flush=True)
+        del q, k, v, d_o, o, lse, do, delta
+        torch.cuda.empty_cache()
+    return rec
 
 
 if __name__ == "__main__":

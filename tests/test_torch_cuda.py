@@ -1528,7 +1528,13 @@ K5_CASES = [(2, 56, 56, 64, 64, torch.bfloat16),
             (2, 32, 32, 16, 16, torch.bfloat16),
             (2, 16, 16, 32, 32, torch.bfloat16),
             (2, 9, 13, 96, 80, torch.bfloat16),
-            (1, 1, 1, 8, 3, torch.bfloat16)]
+            (1, 1, 1, 8, 3, torch.bfloat16),
+            # the f32 route (split products): ResNet-50's stage 1 and 3
+            # widths; C 30, not a multiple of 4 (padded to 32 for TMA),
+            # with a ragged O
+            (2, 56, 56, 64, 64, torch.float32),
+            (2, 14, 14, 256, 256, torch.float32),
+            (2, 9, 13, 30, 70, torch.float32)]
 
 
 @pytest.mark.parametrize("B,H,W,C,O,dtype", K5_CASES)
@@ -1549,10 +1555,20 @@ def test_conv3x3_kernel_takes_a_misaligned_x_on_card(cuda_device):
     assert conv3x3.X_COPIES.count == copies + 2
 
 
+def test_conv3x3_kernel_takes_a_misaligned_f32_x_on_card(cuda_device):
+    """An f32 x whose base is not 16-byte aligned: the wrapper launches
+    on an aligned copy, forward and dX."""
+    copies = conv3x3.X_COPIES.count
+    _check_conv3x3_on_card(cuda_device, 2, 14, 14, 24, 130, torch.float32,
+                           misaligned=True)
+    # x, misaligned; and the dX conv's input gy, 130 channels padded to 132
+    assert conv3x3.X_COPIES.count == copies + 2
+
+
 def _check_conv3x3_on_card(cuda_device, B, H, W, C, O, dtype,
                            misaligned=False):
     g = torch.Generator(device=cuda_device).manual_seed(3)
-    if misaligned:   # one element into a buffer: 2 bytes off in bf16
+    if misaligned:   # one element into a buffer: 2 or 4 bytes off
         flat = torch.randn(B * H * W * C + 1, device=cuda_device,
                            generator=g).to(dtype)
         x = flat[1:].view(B, H, W, C)

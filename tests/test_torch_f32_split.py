@@ -1,5 +1,6 @@
 """The arithmetic of the f32 forward (K1 and K6 in f32), dK/dV (K2 and
-K7 in f32) and dQ (K3 and K8 in f32) kernels on the CPU.
+K7 in f32), dQ (K3 and K8 in f32) and 3x3 conv (K5 in f32, forward and
+dX) kernels on the CPU.
 
 The kernels form every f32 product from bf16 products on the tensor
 cores: each f32 operand a is split into bf16 pieces a1 = bf16(a), a2 =
@@ -12,15 +13,17 @@ pieces (five), six again for dQ's S, dP and dS . K
 (``csrc/hopper_common.cuh``, ``split_tile`` and ``split_bf16x3``;
 ``csrc/attn_fwd_hopper.cuh``, ``fwd_f32_consume``;
 ``csrc/attn_bwd_hopper.cuh``, ``dkv_f32_consume`` and
-``dq_f32_consume``).  ``_fwd_split``, ``_dkv_split`` and ``_dq_split``
-below form O and LSE, dK and dV, and dQ that way from seeded numpy
-inputs, and the results are held row by row, at the f32 limit the card
-holds the kernels to (1e-4; LSE 1e-3), against the JAX package's
-``flash_attention`` and ``block_sparse_attention`` with
-``interpret=True`` (the forward's O and LSE, and the gradients that
-``jax.vjp`` takes): the Pallas kernels in interpret mode where the
-shapes reach them, the JAX package's plain reference where they do not
-(T 130).
+``dq_f32_consume``; ``csrc/conv3x3.cu``, ``conv3x3_kernel_split``: six
+for each tap's product of the shifted pixels and the weights).
+``_fwd_split``, ``_dkv_split``, ``_dq_split`` and ``_conv_split`` below
+form O and LSE, dK and dV, dQ, and the conv's output that way from
+seeded numpy inputs, and the results are held row by row, at the f32
+limit the card holds the kernels to (1e-4; LSE 1e-3), against the JAX
+package's ``flash_attention``, ``block_sparse_attention`` and
+``conv3x3_s1_same`` with ``interpret=True`` (the forward's O and LSE or
+y, and the gradients that ``jax.vjp`` takes): the Pallas kernels in
+interpret mode where the shapes reach them, the JAX package's plain
+reference where they do not (T 130).
 
 The kernels themselves are held against the port's plain versions on
 the card by ``tests/test_torch_cuda.py`` and ``chip_smoke.py``.
@@ -35,9 +38,11 @@ import jax
 import jax.numpy as jnp
 
 from bigdl_tpu.ops import block_sparse as J
+from bigdl_tpu.ops.conv3x3_pallas import conv3x3_s1_same as jconv3x3
 from bigdl_tpu.ops.flash_attention import _attention_reference, _flash_fwd
 from bigdl_tpu.ops.flash_attention import flash_attention as jax_flash
 from bigdl_tpu_torch.ops import block_sparse as P
+from bigdl_tpu_torch.ops import conv3x3
 from bigdl_tpu_torch.ops import flash_attention as fa
 
 # The suite runs in several processes at once: one intra-op thread each
@@ -579,3 +584,147 @@ def test_split_gives_back_the_f32_tensor():
     assert (r.abs() <= 2.0 ** -17 * a.double().abs()).all()
     exact = a.to(torch.bfloat16).float()
     assert not any(p.any() for p in _pieces(exact, 3)[1:])
+
+
+# ----------------------------------------------------------------------
+# the f32 K5: the 3x3 conv's forward and dX on split products
+# ----------------------------------------------------------------------
+
+#: the f32 K5's products: three pieces of the pixels and of the weights
+CONV = (3, 3)
+#: the cheaper designs: the weights in two pieces (five products), both
+#: sides in two (three)
+CONV_FIVE = (3, 2)
+CONV_THREE = (2, 2)
+#: input channels a step of the f32 K5 (``split_chunk_channels``: 16 at C
+#: <= 16, else 32)
+CONV_CHUNK = 32
+#: (B, H, W, C, O): a small stage; the deepest stage's channels at 7 x 7
+#: (K = 9 * 512 = 4608 terms a sum); the ragged conv of phase 3
+CONV_CASES = {"small": (2, 6, 7, 32, 48), "deep": (1, 7, 7, 512, 512),
+              "ragged": (2, 7, 5, 3, 10)}
+
+
+def _conv_split(x, w, design=CONV):
+    """y (B, H, W, O) as the f32 K5 forms it from NHWC x and HWIO w: one
+    f32 sum over the steps (tap, chunk of ``CONV_CHUNK`` channels) in the
+    kernel's order, each step adding the products of the chunk of the
+    shifted pixels (zero outside the image) and of w[dy, dx] that
+    ``_mm`` forms with the pieces ``design`` gives."""
+    B, H, W, C = x.shape
+    xp = torch.nn.functional.pad(x, (0, 0, 1, 1, 1, 1))
+    acc = torch.zeros(B * H * W, w.shape[-1])
+    for dy in range(3):
+        for dx in range(3):
+            xs = xp[:, dy:dy + H, dx:dx + W].reshape(-1, C)
+            for c0 in range(0, C, CONV_CHUNK):
+                c1 = c0 + CONV_CHUNK
+                acc = acc + _mm(xs[:, c0:c1], w[dy, dx, c0:c1], *design)
+    return acc.reshape(B, H, W, -1)
+
+
+def _conv_inputs(B, H, W, C, O, seed):
+    """x, w (scaled 1 / (3 sqrt C), so y is of order 1) and an output
+    gradient g, f32 numpy arrays."""
+    rng = np.random.RandomState(seed)
+    x = rng.randn(B, H, W, C).astype(np.float32)
+    w = (rng.randn(3, 3, C, O) / (3 * math.sqrt(C))).astype(np.float32)
+    g = rng.randn(B, H, W, O).astype(np.float32)
+    return x, w, g
+
+
+def _dx_weights(w):
+    """The dX conv's HWIO weights: w spatially flipped, in and out
+    swapped (``_Conv3x3.backward``)."""
+    return torch.flip(w, (0, 1)).transpose(2, 3)
+
+
+@pytest.mark.parametrize("case", sorted(CONV_CASES))
+def test_split_conv_matches_the_jax_kernel(case):
+    """The f32 K5's split products, forward and dX, row by row over
+    output pixels against ``conv3x3_s1_same`` with ``interpret=True``
+    (the Pallas kernel in interpret mode) and ``jax.vjp`` through it, at
+    a third of the f32 limit."""
+    x, w, g = _conv_inputs(*CONV_CASES[case], seed=17)
+    y, vjp = jax.vjp(lambda a, b: jconv3x3(a, b, interpret=True),
+                     jnp.asarray(x), jnp.asarray(w))
+    dx_want = torch.from_numpy(np.array(vjp(jnp.asarray(g))[0]))
+    xt, wt, gt = (torch.from_numpy(a) for a in (x, w, g))
+    assert _row_rel_err(_conv_split(xt, wt),
+                        torch.from_numpy(np.array(y))) <= ROW_TOL / 3
+    assert _row_rel_err(_conv_split(gt, _dx_weights(wt)),
+                        dx_want) <= ROW_TOL / 3
+
+
+def test_the_conv_pieces_keep_f32_rounding():
+    """The designs at the deepest stage's channels (K = 4608), forward
+    and dX, against the conv in f64: the kernel's six products on three
+    pieces a side read what the plain f32 conv reads (within 2x; both of
+    the order of 2e-7).  Five products (the weights in two pieces) and
+    three (two pieces a side) read 8x and 15x the kernel's or more: they
+    would pass the 1e-4 row limit, but leave bf16's rounding of an
+    operand (2^-17 of it) in every output, as the f32 forward's O on two
+    pieces of V did before it failed a training test."""
+    x, w, g = (torch.from_numpy(a) for a in _conv_inputs(
+        *CONV_CASES["deep"], seed=19))
+    for a, k in ((x, w), (g, _dx_weights(w))):
+        want = conv3x3._conv3x3_plain(a.double(), k.double())
+        plain = _row_rel_err(conv3x3._conv3x3_plain(a, k), want)
+        err = {name: _row_rel_err(_conv_split(a, k, design), want)
+               for name, design in (("kernel", CONV), ("five", CONV_FIVE),
+                                    ("three", CONV_THREE))}
+        assert plain <= 1e-6
+        assert err["kernel"] <= 2 * plain
+        assert err["five"] >= 8 * err["kernel"]
+        assert err["three"] >= 15 * err["kernel"]
+        assert err["three"] <= ROW_TOL
+
+
+def test_the_wrappers_weight_pieces_are_the_split():
+    """The f32 K5's weights as the wrapper hands them over: the (tap,
+    out, in) weights' three pieces, bit for bit ``_pieces``, in a (3, 9,
+    out, c8) bf16 tensor with zeros past the channels, summing back to
+    the f32 weights exactly; from a permuted view (the layout the
+    Function reads HWIO weights in) the same bits."""
+    w = torch.from_numpy(_conv_inputs(1, 1, 1, 30, 20, seed=23)[1])
+    wk = w.permute(0, 1, 3, 2).contiguous()
+    got = conv3x3._weight_pieces(wk, 32)
+    assert got.shape == (3, 9, 20, 32) and got.dtype == torch.bfloat16
+    assert not got[..., 30:].any()
+    for have, want in zip(got[..., :30], _pieces(wk.reshape(9, 20, 30), 3)):
+        assert torch.equal(have.float(), want)
+    total = sum(p.double() for p in got[..., :30])
+    assert torch.equal(total, wk.reshape(9, 20, 30).double())
+    assert torch.equal(conv3x3._weight_pieces(w.permute(0, 1, 3, 2), 32),
+                       got)
+
+
+@pytest.mark.parametrize("C,misaligned,copies",
+                         [(64, False, 0), (64, True, 1), (30, False, 1),
+                          (3, False, 1)])
+def test_the_f32_wrapper_hands_the_kernel_its_operands(monkeypatch, C,
+                                                       misaligned, copies):
+    """What ``_conv3x3_cuda`` launches the f32 K5 on (recorded, not run):
+    x as it is where its channels are a multiple of 4, at least 16, and
+    its base 16-byte aligned, else one zero-padded or aligned copy (counted
+    in ``X_COPIES``); the weights as their three bf16 pieces, channels
+    zero-padded to a multiple of 8; y allocated f32."""
+    calls = []
+    monkeypatch.setattr(conv3x3, "_launch",
+                        lambda *args: calls.append(args))
+    x, w, _ = (torch.from_numpy(a) for a in _conv_inputs(2, 5, 4, C, 12,
+                                                         seed=29))
+    if misaligned:   # one element into a buffer: 4 bytes off
+        x = torch.cat([torch.zeros(1), x.reshape(-1)])[1:].view(x.shape)
+        assert x.data_ptr() % 16
+    wk = w.permute(0, 1, 3, 2).contiguous()
+    before = conv3x3.X_COPIES.count
+    y = conv3x3._conv3x3_cuda(x, wk)
+    (xa, wa, ya), = calls
+    c = max(16, -(-C // 4) * 4)
+    assert conv3x3.X_COPIES.count - before == copies
+    assert (xa is x) == (copies == 0) and xa.data_ptr() % 16 == 0
+    assert xa.shape == (2, 5, 4, c) and torch.equal(xa[..., :C], x)
+    assert not xa[..., C:].any()
+    assert torch.equal(wa, conv3x3._weight_pieces(wk, -(-c // 8) * 8))
+    assert ya is y and y.shape == (2, 5, 4, 12) and y.dtype == torch.float32
