@@ -29,10 +29,11 @@ heaviest-first block order; K6 reads the 128-row query lists
 formed from bf16 wgmma products on bf16 pieces of its operands).  K7 and
 K8 at head dims 192 and 256, and in f32 (K2's and K3's f32 bodies, split
 products too), own 64 rows a block and read the lists per 64-row tile.
-The tables go to the card once per (mask, causal, device) and stay
-cached: no launch uploads anything.  Head dims above the built ones (f32
-128, bf16 256) take the wide route of ``flash_attention``
-(``csrc/attn_wide.cu``) under the block mask.
+The f32 K6 at head dims 192 and 256 streams each 64-key list step as
+two 32-key tiles.  The tables go to the card once per (mask, causal,
+device) and stay cached: no launch uploads anything.  Head dims above a
+pass's built ones (256; 128 for the f32 K7 and K8) take the wide route
+of ``flash_attention`` (``csrc/attn_wide.cu``) under the block mask.
 
 ``block_sparse_attention`` and ``block_sparse_matmul`` are
 ``torch.autograd.Function``s, the counterparts of the ``custom_vjp``s
@@ -59,7 +60,7 @@ from ._support import LaunchCounter, on_cpu
 from .flash_attention import (_DTYPE_CODE, _F, _I, _P, FIRST_HEAD, HEADS,
                               _attn_bwd_plain, _attn_plain, _bwd_inputs,
                               _c_fn, _call, _causal_keep, _check_kernel_inputs,
-                              _check_lse, _cut_head_dim, _empty,
+                              _check_lse, _cut_head_dim, _empty, _f32_counter,
                               _kernel_operands, _launch_heads, _pad_head_dim,
                               _padded_head_dim, _strides_arg, _wide,
                               _wide_dkv, _wide_dq, _wide_fwd)
@@ -73,6 +74,10 @@ BLOCK_ROWS = 128   # own rows of a bf16 K6-K8 block: two 64-row tiles
 
 #: launches of K6, K7, K8 and K9 (CUDA branch only)
 LAUNCHES = LaunchCounter("block_sparse_fwd")
+#: the launches of K6, among those above, in f32 at the built head dims
+#: on which the f32 forward takes 32-key tiles (no model path runs them)
+LAUNCHES_F32 = {D: LaunchCounter(f"block_sparse_fwd f32 D {D}")
+                for D in (192, 256)}
 LAUNCHES_DKV = LaunchCounter("block_sparse_bwd_dkv")
 LAUNCHES_DQ = LaunchCounter("block_sparse_bwd_dq")
 LAUNCHES_MM = LaunchCounter("block_sparse_mm")
@@ -578,14 +583,14 @@ def _wide_block_mask(tab, mask: BlockMask):
 def _bs_fwd_cuda(q, k, v, mask: BlockMask, causal: bool, sm_scale: float
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Launch K6 on the current stream of q's device (a head dim between
-    the built ones zero-padded, O cut back; above them the wide route).
-    q, k and v are read at their strides through TMA in both dtypes
-    (copied where TMA cannot read them)."""
+    the forward's built ones zero-padded, O cut back; above 256 the wide
+    route).  q, k and v are read at their strides through TMA in both
+    dtypes (copied where TMA cannot read them)."""
     _check_kernel_inputs("block_sparse_attention", q, k, v)
     tab = _attention_tables(mask, causal, q.device)
     D_true = q.shape[-1]
-    Dp = _padded_head_dim(D_true, q.dtype)
-    if _wide(Dp, q.dtype):
+    Dp = _padded_head_dim(D_true, q.dtype, forward=True)
+    if _wide(Dp, q.dtype, forward=True):
         return _wide_fwd(q, k, v, causal, sm_scale, LAUNCHES,
                          _wide_block_mask(tab, mask))
     q, k, v = _kernel_operands(*(_pad_head_dim(t, Dp) for t in (q, k, v)),
@@ -593,7 +598,9 @@ def _bs_fwd_cuda(q, k, v, mask: BlockMask, causal: bool, sm_scale: float
     B, H, T, D = q.shape
     o = _empty(q)
     lse = _empty(q, (B * H, 1, T), torch.float32)
-    _launch_heads("block_sparse_fwd", (LAUNCHES,), _attn_fn("bigdl_bs_fwd", 11),
+    _launch_heads("block_sparse_fwd",
+                  (LAUNCHES, *_f32_counter(LAUNCHES_F32, q)),
+                  _attn_fn("bigdl_bs_fwd", 11),
                   [*(t.data_ptr() for t in (q, k, v, o, lse)),
                    *_table_args(tab, _FWD_TABLES, mask, q, k, (q, k, v)),
                    float(sm_scale), int(bool(causal))], B * H, q.device)
@@ -647,7 +654,7 @@ def _bs_bwd_cuda(q, k, v, o, lse, d_o, mask: BlockMask, causal: bool,
                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Launch K7 then K8 on the current stream of q's device (a head dim
     between the built ones zero-padded, the gradients cut back; above
-    them the wide route)."""
+    them the wide route, at f32 129-256 too, whose forward runs K6)."""
     _check_kernel_inputs("block_sparse_attention backward", q, k, v)
     _check_lse("block_sparse_attention backward", lse)
     do, delta = _bwd_inputs(q, o, d_o)

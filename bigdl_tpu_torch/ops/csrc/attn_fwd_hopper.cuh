@@ -71,6 +71,27 @@
 //     64-key tiles at every head dim; Q, K and V take 6 bytes an element,
 //     so 4 stages up to D 32, 3 at D 64 and one at D 128 (193 KB).  O
 //     leaves in f32 straight from the accumulators.
+//   * f32 at D 192 and 256 (attn_fwd_split_kernel, fwd_f32_consume WIDE):
+//     the same products on a layout of its own, since Q, K and V in three
+//     pieces no longer fit (D 256: 384 KB).  The q rows stay in f32 (4
+//     bytes an element, 128 KB at D 256) and each consumer warpgroup
+//     splits them into wgmma's register A operand 32 columns (one TMA
+//     panel, two k16 steps) at a time, for every key tile (wide_scores).
+//     K and V come as 32-key tiles split in place as above (48 KB each at
+//     D 256: one stage, 225 KB in all), so S is 16 registers a thread
+//     beside O's 128 and P's three pieces 24; the producer keeps 24
+//     registers so that the consumers get 240.  wgmma rounds the sums it
+//     accumulates toward zero (PERF.md): S over all of D 256 in one
+//     accumulator (96 roundings) shrinks the scores enough that LSE and
+//     the wide backward's recomputed P disagree, and a key bias's
+//     gradient (zero in exact arithmetic) reads over 3x the plain f32
+//     pipeline's; so each q panel's twelve products go to a fresh partial,
+//     added to S in f32 once done (within 2x; tests/test_torch_f32_split.py).
+//     At D 192 the panels are unrolled and the next one is split while
+//     the last one's products run; at D 256 that spills, so the panels run
+//     as a loop, a k16 step at a time (k1_variants.py --wide).  K6's list
+//     steps are 64-key tiles: the producer streams each as two 32-key
+//     halves (a partial pair's live rows split with it).
 //
 // The sweep policy says which 128 query rows a block owns, which key tiles
 // it streams, in which order, and which consumer warpgroup computes each:
@@ -117,6 +138,12 @@ constexpr float kLn2 = 0.6931471805599453f;
 // warpgroup's own, for its q rows)
 constexpr int kKvSplit = 3;
 
+// key rows of a tile of the f32 forward at D 192 and 256, and whether
+// its score products run as a loop over q panels (wide_scores)
+constexpr int kWideKeyRows = 32;
+template <int D>
+constexpr bool kWideRolled = D > 192;
+
 // The block's q rows, then the ring of (K, V) tiles of BK key rows and, for
 // a list sweep, each stage's step.  T is the operands' type: in bf16 the q
 // rows land as one 128-row tile, and a stage's K and V share one full and
@@ -124,19 +151,22 @@ constexpr int kKvSplit = 3;
 // warpgroup) in TMA's panels L (Panels<D, 4>, *_LOAD bytes), each split in
 // place into three bf16 pieces (split_tile: pieces 1 and 2 where the f32
 // bytes lay, piece 3 after them, in panels of the bf16 geometry, PANEL_Q
-// and PANEL_KV bytes), so Q, K and V take 6 bytes an element; and K and V
+// and PANEL_KV bytes), so Q, K and V take 6 bytes an element, or at D 192
+// and 256 (WIDE) q stays in f32 and only K and V are split; and K and V
 // have barriers of their own (KV_BARS), so the next K lands while the
 // consumers still read V.
 template <int D, int kKeyRows, typename T = __nv_bfloat16>
 struct FwdCfg : Panels<D> {
   using L = Panels<D, sizeof(T)>;
   static constexpr bool F32 = !kIsBf16<T>;
+  static constexpr bool WIDE = F32 && D > 128;   // q split into registers, not in place
   static constexpr int BK = kKeyRows;
   static constexpr int STAGES = F32 ? (D <= 32 ? 4 : D <= 64 ? 3 : 1)
                                      : BK == 64 ? (D <= 128 ? 4 : D <= 192 ? 3 : 2) : 3;
   static constexpr int Q_ROWS = F32 ? kTileRows : kBlockRows;   // rows of a q tile
-  static constexpr int Q_TILE = Q_ROWS * D * (F32 ? 6 : 2);
-  static constexpr int Q_BYTES = kBlockRows * D * (F32 ? 6 : 2);
+  static constexpr int Q_ELEM = F32 ? (WIDE ? 4 : 6) : 2;       // bytes a q element takes
+  static constexpr int Q_TILE = Q_ROWS * D * Q_ELEM;
+  static constexpr int Q_BYTES = kBlockRows * D * Q_ELEM;
   static constexpr int Q_LOAD = Q_ROWS * D * (int)sizeof(T);   // one q tile's TMA bytes
   static constexpr int KV_BYTES = BK * D * (F32 ? 6 : 2);      // one K or V tile
   static constexpr int KV_LOAD = BK * D * (int)sizeof(T);      // a K or V tile's TMA bytes
@@ -145,11 +175,23 @@ struct FwdCfg : Panels<D> {
   static constexpr int LPANEL_Q = Q_ROWS * L::RB;
   static constexpr int LPANEL_KV = BK * L::RB;
   static constexpr int KV_BARS = F32 ? 2 : 1;   // (full, empty) pairs a stage
+  // registers a thread after the hand-over (P + 2 C <= 504): a wide f32
+  // consumer holds O (D / 2), S and its partial (16 each) and q's pieces
+  // (48 at D 192, 12 at D 256), so its producer keeps only 24, as K2's does
+  static constexpr int PRODUCER_REGS = WIDE ? 24 : kFwdProducerRegs;
+  static constexpr int CONSUMER_REGS = WIDE ? 240 : kFwdConsumerRegs;
   static constexpr size_t SMEM = 1024 + Q_BYTES + 2 * STAGES * KV_BYTES +
                                  sizeof(uint64_t) * (1 + 2 * KV_BARS * STAGES) +
                                  STAGES * sizeof(Step);
-  static_assert(!F32 || (BK == kTileRows && D <= 128), "f32: 64-key tiles, D up to 128");
+  static_assert(!F32 || (WIDE ? BK == kWideKeyRows && D <= 256 : BK == kTileRows),
+                "f32: 64-key tiles to D 128, 32-key tiles at D 192 and 256");
 };
+
+// the key rows of the forward's tiles in T over a list sweep (whose steps
+// are 64-row tiles), and in f32 over the dense sweep too: 64, or 32 in f32
+// at D 192 and 256
+template <int D, typename T>
+constexpr int kFwdTileRows = !kIsBf16<T> && D > 128 ? kWideKeyRows : kTileRows;
 
 // One key tile's scores (this thread's BK / 2 of rows row0 and row0 + 8
 // of the warpgroup's 64, query rows from q0w) made unnormalised
@@ -328,13 +370,102 @@ __device__ __forceinline__ void fwd_consume(const Sweep& sw, unsigned char* q_s,
   }
 }
 
-// An f32 consumer warpgroup (D 16-128, 64-key tiles): rows q0w .. q0w + 63,
-// its own 64-row q tile at q_s + wg Q_TILE; every product of f32 operands
-// formed from bf16 products on their pieces (see the note at the top).  A
-// stage's K tile arrives on full[s] and is released on empty[s] once S is
-// formed; its V tile on full_v[s], released on empty_v[s] after P . V.  o
-// and lse start at the block's head; O leaves in f32 straight from the
-// accumulators.
+// The products of q panel g's k16 steps j0 .. j0 + kSteps - 1 (their
+// pieces in a: piece, step, fragment) and the matching columns of a 32-key
+// tile split in place at k (split_tile<D, ., 32>), six a step, small terms
+// first (a1 b3 + a2 b2 + a3 b1, a1 b2 + a2 b1, a1 b1), into part; the
+// panel's first product overwrites it.  Issued, not waited.
+template <int D, int kSteps>
+__device__ __forceinline__ void wide_products(float (&part)[kWideKeyRows / 2],
+                                              const uint32_t (&a)[3][kSteps][4],
+                                              const unsigned char* k, int g, int j0) {
+  using P = Panels<D>;   // K's pieces
+  constexpr int SPAN = kWideKeyRows * P::RB;
+  constexpr int THIRD = kWideKeyRows * D * 4;
+#pragma unroll
+  for (int j = 0; j < kSteps; ++j) {
+    const int c = 32 * g + 16 * (j0 + j);   // the k16 step's first column
+    const int p = c / P::PW;                // K's 64-column group
+#pragma unroll
+    for (int t = 0; t < 6; ++t) {
+      // the pieces (0-based) of term t: (0, 2) (1, 1) (2, 0) (0, 1) (1, 0) (0, 0)
+      const int pa = t < 3 ? t : t < 5 ? t - 3 : 0;
+      const int pb = t < 3 ? 2 - t : t == 3 ? 1 : 0;
+      const unsigned char* b = k + (pb == 2 ? THIRD + p * SPAN : (2 * p + pb) * SPAN);
+      wgmma_rs<kWideKeyRows, 0>(part, a[pa][j], smem_desc<P::RB>(b + 2 * (c % P::PW)),
+                                j0 + j + t > 0);
+    }
+  }
+}
+
+// The partial of a panel, once its products are done, added to S (round
+// to nearest).
+__device__ __forceinline__ void add_partial(float (&sc)[kWideKeyRows / 2],
+                                            float (&part)[kWideKeyRows / 2]) {
+#pragma unroll
+  for (int i = 0; i < kWideKeyRows / 2; ++i) {
+    fence_regs(part[i]);
+    sc[i] += part[i];
+  }
+}
+
+// S (m64 x 32 keys, this thread's 16) = Q . K^T of a consumer warpgroup's
+// 64 f32 q rows at q (TMA's 32-column panels of 64 rows) and a 32-key tile
+// split in place at k: per q panel, its k16 steps split into registers
+// (load_split_rows) and its twelve products (wide_products) into a fresh
+// partial (add_partial).  The order of the products is the same at every
+// D; only how much of q is held split differs: at D 192 the panels are
+// unrolled and the next one is split while the last one's products run; at
+// D 256 that spills (the 96 products' operands outgrow the consumers' 240
+// registers, as do a second buffer in a loop and, in K6, a whole panel),
+// so the panels run as a loop, a k16 step split before its products.
+// Waited.
+template <int D>
+__device__ __forceinline__ void wide_scores(float (&sc)[kWideKeyRows / 2],
+                                            const unsigned char* q, const unsigned char* k) {
+  using F = Panels<D, 4>;
+  constexpr int FPANEL = kTileRows * F::RB;
+  float part[kWideKeyRows / 2];
+#pragma unroll
+  for (int i = 0; i < kWideKeyRows / 2; ++i) sc[i] = 0.0f;
+  if constexpr (!kWideRolled<D>) {
+    uint32_t a[2][3][2][4];   // two panels' pieces
+    load_split_rows<F::RB, 2>(a[0], q);
+#pragma unroll
+    for (int g = 0; g < F::NP; ++g) {
+      wgmma_fence();
+      wide_products<D, 2>(part, a[g & 1], k, g, 0);
+      wgmma_commit();
+      if (g + 1 < F::NP) load_split_rows<F::RB, 2>(a[(g + 1) & 1], q + (g + 1) * FPANEL);
+      wgmma_wait<0>();
+      add_partial(sc, part);
+    }
+  } else {
+    uint32_t a[3][1][4];   // one k16 step's pieces
+#pragma unroll 1
+    for (int g = 0; g < F::NP; ++g) {
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        load_split_rows<F::RB, 1>(a, q + g * FPANEL, j);
+        wgmma_fence();
+        wide_products<D, 1>(part, a, k, g, j);
+        wgmma_commit();
+        wgmma_wait<0>();
+      }
+      add_partial(sc, part);
+    }
+  }
+}
+
+// An f32 consumer warpgroup: rows q0w .. q0w + 63, its own 64 q rows at
+// q_s + wg Q_TILE; every product of f32 operands formed from bf16 products
+// on their pieces (see the note at the top).  Up to D 128 (64-key tiles) it
+// splits its q rows in place once; at D 192 and 256 (WIDE, 32-key tiles)
+// they stay in f32 and are split into registers for every key tile
+// (wide_scores).  A stage's K tile arrives on full[s] and is released on
+// empty[s] once S is formed; its V tile on full_v[s], released on
+// empty_v[s] after P . V.  o and lse start at the block's head; O leaves in
+// f32 straight from the accumulators.
 template <int D, class Sweep>
 __device__ __forceinline__ void fwd_f32_consume(const Sweep& sw, unsigned char* q_s,
                                                 unsigned char* k_s, unsigned char* v_s,
@@ -344,9 +475,10 @@ __device__ __forceinline__ void fwd_f32_consume(const Sweep& sw, unsigned char* 
                                                 float* __restrict__ o, float* __restrict__ lse,
                                                 int b, int n, int T_len, int S_len,
                                                 float scale_log2, int causal) {
-  using C = FwdCfg<D, kTileRows, float>;
+  using C = FwdCfg<D, kFwdTileRows<D, float>, float>;
   using P = Panels<D>;
-  constexpr int THIRD = kTileRows * D * 4;   // a 64-row tile's third pieces, after its f32 bytes
+  constexpr int BK = C::BK;
+  constexpr int THIRD = BK * D * 4;   // a tile's third pieces, after its f32 bytes
   const int wg = threadIdx.x / 128;
   const int warp = (threadIdx.x % 128) / 32;
   const int lane = threadIdx.x % 32;
@@ -363,9 +495,11 @@ __device__ __forceinline__ void fwd_f32_consume(const Sweep& sw, unsigned char* 
 
   if (n > 0) {
     mbar_wait(q_full, 0);
-    split_tile<D>(q_wg, 1 + wg);   // the warpgroup's own rows, once
-    fence_proxy_async();
-    named_barrier_sync(1 + wg, 128);
+    if constexpr (!C::WIDE) {
+      split_tile<D>(q_wg, 1 + wg);   // the warpgroup's own rows, once
+      fence_proxy_async();
+      named_barrier_sync(1 + wg, 128);
+    }
   }
   for (int it = 0; it < n; ++it) {
     const int s = it % C::STAGES;
@@ -379,39 +513,41 @@ __device__ __forceinline__ void fwd_f32_consume(const Sweep& sw, unsigned char* 
     unsigned char* v_t = v_s + s * C::KV_BYTES;
     // K, then V, in three pieces, by both warpgroups, whichever of them
     // computes the tile
-    split_tile<D, kConsumers>(k_t, kKvSplit);
+    split_tile<D, kConsumers, BK>(k_t, kKvSplit);
     fence_proxy_async();
     named_barrier_sync(kKvSplit, kConsumers);
-    float sc[kTileRows / 2];
-    if (visit) {
-      wgmma_fence();
-      wgmma_scores_split<D, C::PANEL_Q, C::PANEL_KV, THIRD>(sc, q_wg, k_t);   // S = Q . K^T
-      wgmma_commit();
-      wgmma_wait<0>();
+    float sc[BK / 2];
+    if (visit) {   // S = Q . K^T
+      if constexpr (C::WIDE) {
+        wide_scores<D>(sc, q_wg, k_t);
+      } else {
+        wgmma_fence();
+        wgmma_scores_split<D, C::PANEL_Q, C::PANEL_KV, THIRD>(sc, q_wg, k_t);
+        wgmma_commit();
+        wgmma_wait<0>();
 #pragma unroll
-      for (int i = 0; i < kTileRows / 2; ++i) fence_regs(sc[i]);
+        for (int i = 0; i < BK / 2; ++i) fence_regs(sc[i]);
+      }
     }
     mbar_arrive(&empty[s]);   // K is read: the next K may land
-    uint32_t a1[kTileRows / 4], a2[kTileRows / 4], a3[kTileRows / 4];   // P's pieces
+    uint32_t a1[BK / 4], a2[BK / 4], a3[BK / 4];   // P's pieces
     if (visit) {
       float alpha[2];
-      online_softmax<kTileRows>(sw, sc, m_run, l_run, alpha,
-                                Sweep::kList && (step.flags & (kPartial << wg)),
-                                step.tile * kTileRows, q0w, row0, t, T_len, S_len, scale_log2,
-                                causal);
+      online_softmax<BK>(sw, sc, m_run, l_run, alpha,
+                         Sweep::kList && (step.flags & (kPartial << wg)), step.tile * BK, q0w,
+                         row0, t, T_len, S_len, scale_log2, causal);
 #pragma unroll
-      for (int i = 0; i < kTileRows / 4; ++i)
-        split_bf16x3(sc[2 * i], sc[2 * i + 1], a1[i], a2[i], a3[i]);
+      for (int i = 0; i < BK / 4; ++i) split_bf16x3(sc[2 * i], sc[2 * i + 1], a1[i], a2[i], a3[i]);
 #pragma unroll
       for (int i = 0; i < D / 2; ++i) acc[i] *= alpha[(i >> 1) & 1];
     }
     mbar_wait(&full_v[s], parity);
-    split_tile<D, kConsumers>(v_t, kKvSplit);
+    split_tile<D, kConsumers, BK>(v_t, kKvSplit);
     fence_proxy_async();
     named_barrier_sync(kKvSplit, kConsumers);
     if (visit) {
       wgmma_fence();
-      wgmma_accumulate_split<D, C::PANEL_KV, THIRD>(acc, a1, a2, a3, v_t);   // O += P . V
+      wgmma_accumulate_split<D, C::PANEL_KV, THIRD, BK / 16>(acc, a1, a2, a3, v_t);   // O += P . V
       wgmma_commit();
       wgmma_wait<0>();
 #pragma unroll
@@ -440,8 +576,9 @@ __device__ __forceinline__ void fwd_f32_consume(const Sweep& sw, unsigned char* 
 
 // The forward block over operands of type T (bf16, or f32 on the split
 // products of fwd_f32_consume): grid (B*H, ceil(T / 128)); the sweep maps
-// blockIdx.y to a block.  The kernels below pass their tensor maps'
-// addresses.
+// blockIdx.y to a block.  A list sweep's
+// steps are 64-key tiles, streamed as kSub tiles of BK rows each.  The
+// kernels below pass their tensor maps' addresses.
 template <int D, int kKeyRows, class Sweep, typename T>
 __device__ __forceinline__ void attn_fwd_body(const CUtensorMap* tm_q, const CUtensorMap* tm_k,
                                               const CUtensorMap* tm_v, T* __restrict__ o,
@@ -450,7 +587,8 @@ __device__ __forceinline__ void attn_fwd_body(const CUtensorMap* tm_q, const CUt
                                               const Sweep& sw) {
   using C = FwdCfg<D, kKeyRows, T>;
   using L = typename C::L;   // TMA's panels
-  static_assert(!Sweep::kList || C::BK == kTileRows, "list sweeps stream 64-row tiles");
+  constexpr int kSub = Sweep::kList ? kTileRows / C::BK : 1;   // tiles a list step
+  static_assert(!Sweep::kList || C::BK * kSub == kTileRows, "list sweeps stream 64-row tiles");
   extern __shared__ unsigned char smem_raw[];
   unsigned char* q_s = align1024(smem_raw);             // [q tile][panel][rows]
   unsigned char* k_s = q_s + C::Q_BYTES;                // [stage][panel][BK rows]
@@ -466,7 +604,7 @@ __device__ __forceinline__ void attn_fwd_body(const CUtensorMap* tm_q, const CUt
   const int h = bh % H, bb = bh / H;
   const int b = sw.fwd_block();
   const int q0 = b * kBlockRows;
-  const int n = sw.fwd_count(b, S_len);   // 0: O = 0, LSE = 1e30
+  const int n = sw.fwd_count(b, S_len) * kSub;   // 0: O = 0, LSE = 1e30
 
   if (threadIdx.x == 0) {
     mbar_init(q_full, 1);
@@ -485,7 +623,7 @@ __device__ __forceinline__ void attn_fwd_body(const CUtensorMap* tm_q, const CUt
   __syncthreads();
 
   if (threadIdx.x >= kConsumers) {
-    setmaxnreg_dec<kFwdProducerRegs>();
+    setmaxnreg_dec<C::PRODUCER_REGS>();
     const int lane = threadIdx.x % 32;
     if (Sweep::kList ? threadIdx.x < kConsumers + 32 : threadIdx.x == kConsumers) {
       if (lane == 0 && n > 0) {
@@ -501,7 +639,8 @@ __device__ __forceinline__ void attn_fwd_body(const CUtensorMap* tm_q, const CUt
       }
       for (int it = 0; it < n; ++it) {
         const int s = it % C::STAGES;
-        const Step step = sw.fwd_step(b, it);
+        Step step = sw.fwd_step(b, it / kSub);
+        if constexpr (kSub > 1) step.tile = step.tile * kSub + it % kSub;
         const int k0 = step.tile * C::BK;
         const uint32_t parity = ((it / C::STAGES) & 1) ^ 1;   // the first round passes
         mbar_wait(&empty[s], parity);
@@ -516,15 +655,16 @@ __device__ __forceinline__ void attn_fwd_body(const CUtensorMap* tm_q, const CUt
           if (kv == 1) mbar_wait(&empty_v[s], parity);
           if constexpr (Sweep::kList) {
             if (step.flags & kPartialAny) {   // a partial pair: live rows only
-              const unsigned long long live = sw.live(b, it);
+              unsigned long long live = sw.live(b, it / kSub);
+              if constexpr (kSub > 1) live >>= C::BK * (it % kSub);
               if (with_k)
-                stage_live_rows<D, C::LPANEL_KV>(k_s + s * C::KV_BYTES,
-                                                 sw.src_a + sw.stride_a.head(bh, H),
-                                                 sw.stride_a.r, k0, S_len, live, lane);
+                stage_live_rows<D, C::LPANEL_KV, T, C::BK>(k_s + s * C::KV_BYTES,
+                                                           sw.src_a + sw.stride_a.head(bh, H),
+                                                           sw.stride_a.r, k0, S_len, live, lane);
               if (with_v)
-                stage_live_rows<D, C::LPANEL_KV>(v_s + s * C::KV_BYTES,
-                                                 sw.src_b + sw.stride_b.head(bh, H),
-                                                 sw.stride_b.r, k0, S_len, live, lane);
+                stage_live_rows<D, C::LPANEL_KV, T, C::BK>(v_s + s * C::KV_BYTES,
+                                                           sw.src_b + sw.stride_b.head(bh, H),
+                                                           sw.stride_b.r, k0, S_len, live, lane);
               fence_proxy_async();
               mbar_arrive(bar);
               continue;
@@ -547,7 +687,7 @@ __device__ __forceinline__ void attn_fwd_body(const CUtensorMap* tm_q, const CUt
       }
     }
   } else {
-    setmaxnreg_inc<kFwdConsumerRegs>();
+    setmaxnreg_inc<C::CONSUMER_REGS>();
     T* o_h = o + (size_t)bh * T_len * D;
     float* lse_h = lse + (size_t)bh * T_len;
     if constexpr (C::F32)
@@ -571,8 +711,8 @@ attn_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
                              h0, sw);
 }
 
-// the forward in f32 (K1, K6 at D 16-128), each product from bf16 products
-// on bf16 pieces of its operands
+// the forward in f32 (K1, K6 at D 16-128, 192 and 256), each product from
+// bf16 products on bf16 pieces of its operands
 template <int D, int kKeyRows, class Sweep>
 __global__ void __launch_bounds__(kFwdThreads, 1)
 attn_fwd_split_kernel(const __grid_constant__ CUtensorMap tm_q,
@@ -601,7 +741,7 @@ struct FwdArgs {
 };
 
 // the forward over `sw`, key tiles of kKeyRows rows: bf16
-// (attn_fwd_wgmma_kernel) or f32 (attn_fwd_split_kernel, D <= 128)
+// (attn_fwd_wgmma_kernel) or f32 (attn_fwd_split_kernel)
 template <int D, int kKeyRows, typename T = __nv_bfloat16, class Sweep>
 cudaError_t launch_fwd_wgmma(const FwdArgs& a, const Sweep& sw) {
   using C = FwdCfg<D, kKeyRows, T>;

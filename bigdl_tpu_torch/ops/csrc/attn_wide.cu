@@ -1,11 +1,12 @@
 // Attention for head dims above the built ones (sm_90a), bound to Python
 // with ctypes: the "wide" route of K1-K3 and K6-K8.
 //
-// The tile loops (f32) are built for head dims 16, 32, 64 and 128, the
-// Hopper kernels (bf16) also for 192 and 256; a head dim between them is
-// zero-padded to the next.  So this route takes f32 above 128 and bf16
-// above 256.  The TPU
-// kernels take any D: `_fwd_kernel`, `_dkv_kernel`, `_dq_kernel` of
+// The Hopper kernels are built for head dims 16, 32, 64 and 128, and for
+// 192 and 256 (the forward in both dtypes, dK/dV and dQ in bf16); a head
+// dim between them is zero-padded to the next.  So this route takes the
+// forward above 256, and dK/dV and dQ above 256 in bf16 and above 128 in
+// f32 (at the true D: the forward's padding is not the backward's).  The
+// TPU kernels take any D: `_fwd_kernel`, `_dkv_kernel`, `_dq_kernel` of
 // bigdl_tpu/ops/flash_attention.py and `_bs_fwd_kernel`, `_bs_dkv_kernel`,
 // `_bs_dq_kernel` of bigdl_tpu/ops/block_sparse.py hand D straight to their
 // (1, block, D) blocks.  These three kernels take any D above 128 as it is,

@@ -27,19 +27,21 @@
 // registers.  In bf16 key tiles are 64 rows at D 128 and above (a
 // warpgroup above the diagonal then skips the diagonal tile's second half:
 // measured on the causal main path, PERF.md; 4 stages at D 128, 3 at
-// D 192, 2 at D 256) and 128 rows in 3 stages below.  In f32 (D 16-128)
-// each f32 product is a sum of bf16 products on bf16 pieces of its
-// operands (attn_fwd_split_kernel), over 64-key tiles at every head dim.
+// D 192, 2 at D 256) and 128 rows in 3 stages below.  In f32 each f32
+// product is a sum of bf16 products on bf16 pieces of its operands
+// (attn_fwd_split_kernel), over 64-key tiles at D 16-128 and 32-key tiles
+// at 192 and 256, where q stays in f32 and is split into registers.
 // Blocks start with the heaviest causal q tiles, so the last wave is
 // short.  q, k and v are read at their own strides (the head-strided view
 // of an attention layer in place); o is contiguous.
 //
-// Head dims 192 and 256 are the bf16 route of head dims 129-256 (the
-// wrapper zero-pads D to the next of them).  There the bound moves: at
+// Head dims 192 and 256 are the route of head dims 129-256 in both dtypes
+// (the wrapper zero-pads D to the next of them).  There the bound moves: at
 // B 2, H 8, T 1024, D 256, causal, the two products are 8.6 GFLOP, 8.7 us
-// at 989 TFLOP/s, against 33.6 MB, 10.0 us at 3.35 TB/s.  On an all-ones
-// causal mask at a 128-multiple block K6 sweeps the same 64-key tiles as
-// K1 at bf16 D 128 and at every f32 D, so the two give the same bits.
+// at 989 TFLOP/s in bf16 (52 us at the f32 split rate), against 33.6 MB,
+// 10.0 us at 3.35 TB/s (20 us in f32).  On an all-ones causal mask at a
+// 128-multiple block K6 sweeps the same key tiles as K1 at bf16 D 128 and
+// at every f32 D, so the two give the same bits.
 
 #include "attn_fwd_hopper.cuh"
 
@@ -70,7 +72,7 @@ struct DenseSweep {
 };
 
 // key rows per bf16 tile at head dim D (see the note at the top); f32 runs
-// 64-key tiles
+// 64-key tiles, 32 at D 192 and 256 (kFwdTileRows)
 template <int D>
 constexpr int kDenseKeyRows = D >= 128 ? 64 : 128;
 
@@ -81,7 +83,8 @@ cudaError_t launch_bf16(const FwdArgs& a) {
 
 template <int D>
 cudaError_t launch_f32(const FwdArgs& a) {
-  return launch_fwd_wgmma<D, kTileRows, float>(a, DenseSweep<kTileRows>{a.causal});
+  constexpr int BK = kFwdTileRows<D, float>;
+  return launch_fwd_wgmma<D, BK, float>(a, DenseSweep<BK>{a.causal});
 }
 
 cudaError_t dispatch_bf16(int D, const FwdArgs& a) {
@@ -102,6 +105,8 @@ cudaError_t dispatch_f32(int D, const FwdArgs& a) {
     case 32: return launch_f32<32>(a);
     case 64: return launch_f32<64>(a);
     case 128: return launch_f32<128>(a);
+    case 192: return launch_f32<192>(a);
+    case 256: return launch_f32<256>(a);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -147,6 +152,8 @@ extern "C" int bigdl_flash_fwd_smem_bytes(int D, int dtype) {
       case 32: return (int)FwdCfg<32, kTileRows, float>::SMEM;
       case 64: return (int)FwdCfg<64, kTileRows, float>::SMEM;
       case 128: return (int)FwdCfg<128, kTileRows, float>::SMEM;
+      case 192: return (int)FwdCfg<192, kFwdTileRows<192, float>, float>::SMEM;
+      case 256: return (int)FwdCfg<256, kFwdTileRows<256, float>, float>::SMEM;
     }
   }
   return 0;

@@ -490,15 +490,15 @@ inline HeadStrides head_strides(const long long* s, int i) {
   return HeadStrides{s[3 * i], s[3 * i + 1], s[3 * i + 2]};
 }
 
-// One warp stages rows row0 .. row0 + 63 of one head's (n_rows, D) bf16 or
-// f32 matrix, row i at src + i * pitch, into a 64-row tile of swizzled
-// panels (Panels<D, sizeof(T)>) at `dst` (panel pitch kPanel), where TMA
-// would put them: the swizzle xors a row's 16-byte chunk index with address
-// bits 7.. of its panel offset (Swizzle<3,4,3> at 128-byte rows, <2,4,3> at
-// 64, <1,4,3> at 32), so a row keeps its own bytes.  Rows whose bit in
-// `live` is clear, and rows at or past n_rows, are written as zeros, not
-// loaded.
-template <int D, int kPanel, typename T>
+// One warp stages rows row0 .. row0 + kRows - 1 of one head's (n_rows, D)
+// bf16 or f32 matrix, row i at src + i * pitch, into a kRows-row tile of
+// swizzled panels (Panels<D, sizeof(T)>) at `dst` (panel pitch kPanel),
+// where TMA would put them: the swizzle xors a row's 16-byte chunk index
+// with address bits 7.. of its panel offset (Swizzle<3,4,3> at 128-byte
+// rows, <2,4,3> at 64, <1,4,3> at 32), so a row keeps its own bytes.  Rows
+// whose bit in `live` is clear, and rows at or past n_rows, are written as
+// zeros, not loaded.
+template <int D, int kPanel, typename T, int kRows = kTileRows>
 __device__ __forceinline__ void stage_live_rows(unsigned char* dst, const T* __restrict__ src,
                                                 long long pitch, int row0, int n_rows,
                                                 unsigned long long live, int lane) {
@@ -509,7 +509,7 @@ __device__ __forceinline__ void stage_live_rows(unsigned char* dst, const T* __r
   constexpr uint32_t SWZ = (P::RB / 16 - 1) << 4;
   // one load in flight: the producer runs on the few registers it kept
 #pragma unroll 1
-  for (int i = lane; i < kTileRows * CPR; i += 32) {
+  for (int i = lane; i < kRows * CPR; i += 32) {
     const int r = i / CPR, cc = i % CPR;
     uint4 val = make_uint4(0u, 0u, 0u, 0u);
     if (row0 + r < n_rows && ((live >> r) & 1ull))
@@ -553,27 +553,28 @@ __device__ __forceinline__ void split_bf16x3(float x0, float x1, uint32_t& p1, u
 }
 
 // kThreads threads (a warpgroup, or both consumer warpgroups) split the
-// 64-row f32 tile at `t`, which TMA landed as
-// Panels<D, 4> (panels of 32 f32 columns, 128-byte rows, 8 KB apart; D 16
-// one panel of 64-byte rows), in place into its three bf16 pieces, each in
-// panels of Panels<D> (the swizzle of their rows; SPAN = 64 rows of one):
-// the first and second pieces of 64-column group g at t + 2 g SPAN and t +
-// (2 g + 1) SPAN, where the f32 panels 2 g and 2 g + 1 lay (so at D 128
-// each group is split on its own), and the third piece's panel g at t +
-// 64 D 4 + g SPAN, after the f32 bytes.  A thread takes 8 columns of a row
-// a step; the threads read a whole group before they write it (named
-// barrier `bar`, the kThreads threads, ranked by threadIdx.x % kThreads).
-// The caller fences the writes to the async proxy and synchronises before
-// a wgmma reads them.
-template <int D, int kThreads = 128>
+// kRows-row f32 tile at `t` (64 rows, or the f32 forward's 32-key tiles at
+// D 192 and 256), which TMA landed as
+// Panels<D, 4> (panels of 32 f32 columns, 128-byte rows, kRows * 128 bytes
+// apart; D 16 one panel of 64-byte rows), in place into its three bf16
+// pieces, each in panels of Panels<D> (the swizzle of their rows; SPAN =
+// kRows rows of one): the first and second pieces of 64-column group g at
+// t + 2 g SPAN and t + (2 g + 1) SPAN, where the f32 panels 2 g and 2 g + 1
+// lay (so at D 128 each group is split on its own), and the third piece's
+// panel g at t + kRows D 4 + g SPAN, after the f32 bytes.  A thread takes 8
+// columns of a row a step; the threads read a whole group before they
+// write it (named barrier `bar`, the kThreads threads, ranked by
+// threadIdx.x % kThreads).  The caller fences the writes to the async
+// proxy and synchronises before a wgmma reads them.
+template <int D, int kThreads = 128, int kRows = kTileRows>
 __device__ __forceinline__ void split_tile(unsigned char* t, int bar) {
   using F = Panels<D, 4>;
   using P = Panels<D>;
-  constexpr int SPAN = kTileRows * P::RB;          // one bf16 panel
-  constexpr int FPANEL = kTileRows * F::RB;        // one f32 panel
-  constexpr int THIRD = kTileRows * D * 4;         // the third pieces, after the f32 bytes
+  constexpr int SPAN = kRows * P::RB;              // one bf16 panel
+  constexpr int FPANEL = kRows * F::RB;            // one f32 panel
+  constexpr int THIRD = kRows * D * 4;             // the third pieces, after the f32 bytes
   constexpr int CB = P::PW / 8;                    // 8-column blocks of a group's row
-  constexpr int BLOCKS = kTileRows * CB;           // of a group
+  constexpr int BLOCKS = kRows * CB;               // of a group
   constexpr int N = (BLOCKS + kThreads - 1) / kThreads;   // blocks a thread
   constexpr uint32_t SWZ_F = (F::RB / 16 - 1) << 4;
   constexpr uint32_t SWZ_B = (P::RB / 16 - 1) << 4;
@@ -612,6 +613,30 @@ __device__ __forceinline__ void split_tile(unsigned char* t, int bar) {
       *reinterpret_cast<uint4*>(t + THIRD + g * SPAN + off) = p3;
     }
   }
+}
+
+// A consumer warpgroup's 64 rows of k16 steps j0 .. j0 + kSteps - 1 of an
+// f32 tile at `src` (rows of kRowBytes bytes as TMA lands them: 16-byte
+// chunks xor'd by address bits 7..) as wgmma's register A operand: the
+// three bf16 pieces (split_bf16x3), per piece and step the four packed
+// pairs of an m64k16 A fragment, those of an m64 accumulator's 16 columns
+// (thread t of warp w holds rows 16w + t/4 and + 8, columns 2(t%4) + {0,
+// 1} and + 8).
+template <int kRowBytes, int kSteps>
+__device__ __forceinline__ void load_split_rows(uint32_t (&a)[3][kSteps][4],
+                                                const unsigned char* src, int j0 = 0) {
+  constexpr uint32_t SWZ = (kRowBytes / 16 - 1) << 4;
+  const int warp = (threadIdx.x % 128) / 32, lane = threadIdx.x % 32;
+#pragma unroll
+  for (int j = 0; j < kSteps; ++j)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {   // i = 2 * (column half) + row half
+      const uint32_t r = 16 * warp + lane / 4 + 8 * (i & 1);
+      const uint32_t o =
+          r * kRowBytes + 4 * (16 * (j0 + j) + 8 * (i >> 1) + 2 * (lane % 4));
+      const float2 v = *reinterpret_cast<const float2*>(src + (o ^ ((o >> 3) & SWZ)));
+      split_bf16x3(v.x, v.y, a[0][j][i], a[1][j][i], a[2][j][i]);
+    }
 }
 
 // ---- the attention bodies' products ------------------------------------------

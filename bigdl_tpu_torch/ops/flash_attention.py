@@ -9,7 +9,8 @@ computes, what bounds it and how:
   body of ``csrc/attn_fwd_hopper.cuh`` (TMA loads into an mbarrier ring,
   wgmma products, the softmax in registers, on
   ``csrc/hopper_common.cuh``); in f32 each f32 product is formed from
-  bf16 wgmma products on bf16 pieces of its operands (split in place);
+  bf16 wgmma products on three bf16 pieces of its operands (K and V
+  split in place; q too up to D 128, into registers at 192 and 256);
 * K2 and K3 ``csrc/flash_bwd.cu`` replace ``_dkv_kernel`` (``:236``)
   and ``_dq_kernel`` (``:271``): the warp-specialised Hopper body of
   ``csrc/attn_bwd_hopper.cuh`` (TMA ring, wgmma, dK/dV and dQ in
@@ -22,12 +23,14 @@ computes, what bounds it and how:
   counts under the counter of the kernel it stands for and under
   ``LAUNCHES_WIDE``.
 
-Routing by dtype and head dim D, the same for the forward, dK/dV and
-dQ: f32 runs the Hopper bodies on split products at 16, 32, 64 and 128
-and the wide route above 128; bf16 runs the Hopper
-bodies at 16, 32, 64, 128, 192 and 256 and the wide route above 256.  A
-head dim between the built ones is zero-padded to the next
-(``_padded_head_dim``: bf16 160 runs at 192, 200 at 256).
+Routing by dtype, head dim D and pass: the forward runs the Hopper body
+at 16, 32, 64, 128, 192 and 256 in both dtypes (f32 on split products)
+and the wide route above 256; bf16 dK/dV and dQ run the Hopper bodies at
+the same head dims, f32 dK/dV and dQ at 16-128 and the wide route above
+128.  A head dim between a pass's built ones is zero-padded to the next
+(``_padded_head_dim``: 160 runs the forward at 192, 200 at 256), each
+pass by its own rule: f32 160 runs the forward at 192 and the wide dK/dV
+and dQ at 160, as it is.
 
 Layouts: the Hopper kernels (K1-K3 in both dtypes) read q, k, v and dO
 through TMA at their own strides, so the (B, T, H, D).transpose(1, 2)
@@ -61,14 +64,19 @@ import torch
 from ._support import LaunchCounter, load_cuda_library, on_cpu
 
 _BIG_LSE = 1e30  # lse sentinel for fully-masked rows: exp(s - BIG) == 0
-#: head dims the kernels are built for: the f32 ones
+#: head dims the kernels are built for: the f32 dK/dV and dQ ones
 HEAD_DIMS = (16, 32, 64, 128)
-#: the bf16 Hopper bodies (K1-K3, K6-K8) also take these
-HEAD_DIMS_BF16 = HEAD_DIMS + (192, 256)
+#: the forward (K1, K6) in both dtypes and the bf16 dK/dV and dQ (K2, K3,
+#: K7, K8) also take these
+HEAD_DIMS_256 = HEAD_DIMS + (192, 256)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 #: launches of K1 (CUDA branch only)
 LAUNCHES = LaunchCounter("flash_fwd")
+#: the launches of K1, among those above, in f32 at the built head dims
+#: on which the f32 forward takes 32-key tiles (no model path runs them)
+LAUNCHES_F32 = {D: LaunchCounter(f"flash_fwd f32 D {D}")
+                for D in (192, 256)}
 #: launches of K2 and K3 (CUDA branch only)
 LAUNCHES_DKV = LaunchCounter("flash_bwd_dkv")
 LAUNCHES_DQ = LaunchCounter("flash_bwd_dq")
@@ -165,23 +173,32 @@ def _check_kernel_inputs(what: str, q, k, v):
         raise TypeError(f"{what}: dtype {q.dtype} not in {tuple(_DTYPE_CODE)}")
 
 
-def _head_dims(dtype) -> Tuple[int, ...]:
-    return HEAD_DIMS_BF16 if dtype == torch.bfloat16 else HEAD_DIMS
+def _head_dims(dtype, forward: bool = False) -> Tuple[int, ...]:
+    return (HEAD_DIMS_256 if forward or dtype == torch.bfloat16
+            else HEAD_DIMS)
 
 
-def _wide(D: int, dtype) -> bool:
-    """Whether head dim D takes the wide route (forward, dK/dV and dQ):
-    above the head dims built for ``dtype`` (f32 above 128, bf16 above
-    256)."""
-    return D > _head_dims(dtype)[-1]
+def _wide(D: int, dtype, forward: bool = False) -> bool:
+    """Whether head dim D takes the wide route in the dK/dV and dQ passes
+    (or the forward, ``forward``): above the head dims built for the pass
+    in ``dtype`` (above 256, or 128 for the f32 dK/dV and dQ)."""
+    return D > _head_dims(dtype, forward)[-1]
 
 
-def _padded_head_dim(D: int, dtype) -> int:
-    """The head dim the kernels run for a true head dim D in ``dtype``:
-    the next built one (bf16 129-256: 192 or 256, the next multiple of
-    64), or D itself on the wide route."""
-    return D if _wide(D, dtype) else next(d for d in _head_dims(dtype)
-                                          if d >= D)
+def _padded_head_dim(D: int, dtype, forward: bool = False) -> int:
+    """The head dim the dK/dV and dQ kernels (or the forward's,
+    ``forward``) run for a true head dim D in ``dtype``: the next built
+    one (129-256: 192 or 256, the next multiple of 64), or D itself on
+    the wide route."""
+    return D if _wide(D, dtype, forward) else next(
+        d for d in _head_dims(dtype, forward) if d >= D)
+
+
+def _f32_counter(counters, q: torch.Tensor) -> Tuple[LaunchCounter, ...]:
+    """The counter of ``counters`` (by built head dim) for a launch on
+    the padded operand ``q`` in f32, if one is kept for its head dim."""
+    c = counters.get(q.shape[-1]) if q.dtype == torch.float32 else None
+    return () if c is None else (c,)
 
 
 def _pad_head_dim(t: torch.Tensor, Dp: int) -> torch.Tensor:
@@ -344,13 +361,13 @@ def _wide_dq(q, k, v, do, lse, delta, causal: bool, sm_scale: float, counter,
 def _flash_cuda(q, k, v, causal: bool, sm_scale: float
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Launch K1 on the current stream of q's device (a head dim between
-    the built ones zero-padded, O cut back; above them the wide route).
-    q, k and v are read at their strides through TMA in both dtypes
-    (copied where TMA cannot read them)."""
+    the forward's built ones zero-padded, O cut back; above 256 the wide
+    route).  q, k and v are read at their strides through TMA in both
+    dtypes (copied where TMA cannot read them)."""
     _check_kernel_inputs("flash_attention", q, k, v)
     D_true = q.shape[-1]
-    Dp = _padded_head_dim(D_true, q.dtype)
-    if _wide(Dp, q.dtype):
+    Dp = _padded_head_dim(D_true, q.dtype, forward=True)
+    if _wide(Dp, q.dtype, forward=True):
         return _wide_fwd(q, k, v, causal, sm_scale, LAUNCHES)
     q, k, v = _kernel_operands(*(_pad_head_dim(t, Dp) for t in (q, k, v)),
                                tma=True)
@@ -359,7 +376,8 @@ def _flash_cuda(q, k, v, causal: bool, sm_scale: float
                + [_F, _I, _P])
     o = _empty(q)
     lse = _empty(q, (B * H, 1, T), torch.float32)
-    _launch_heads("flash_fwd", (LAUNCHES,), fn,
+    _launch_heads("flash_fwd", (LAUNCHES, *_f32_counter(LAUNCHES_F32, q)),
+                  fn,
                   [q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
                    lse.data_ptr(), _strides_arg(q, k, v), H, FIRST_HEAD,
                    HEADS, T, k.shape[2], D, _DTYPE_CODE[q.dtype],
@@ -430,7 +448,7 @@ def _flash_bwd_cuda(q, k, v, o, lse, d_o, causal: bool, sm_scale: float
                     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Launch K2 then K3 on the current stream of q's device (a head dim
     between the built ones zero-padded, the gradients cut back; above
-    them the wide route)."""
+    them the wide route, at f32 129-256 too, whose forward runs K1)."""
     _check_kernel_inputs("flash_attention backward", q, k, v)
     _check_lse("flash_attention backward", lse)
     do, delta = _bwd_inputs(q, o, d_o)

@@ -10,8 +10,8 @@ Phases; any failure exits non-zero:
 2. build — compile the kernels from this checkout's sources: the five
    CUDA libraries (``flash_fwd.cu``: K1; ``flash_bwd.cu``: K2 and K3;
    ``block_sparse.cu``: K6-K9; ``conv3x3.cu``: K5; ``attn_wide.cu``: the
-   route of K1-K3 and K6-K8 for head dims above the built ones, f32 128
-   and bf16 256) with one ``nvcc``
+   route of K1-K3 and K6-K8 for head dims above the built ones: 256, and
+   128 for the f32 dK/dV and dQ) with one ``nvcc``
    each, started together, into ``.torch_kernels/``; Triton compiles K4
    at first launch.  Print the build seconds, and for each instantiation
    of K1, K2, K3, K6-K8, K5's bf16 and f32 kernels (one per KC input
@@ -20,10 +20,11 @@ Phases; any failure exits non-zero:
    shared memory (ptxas) and its wgmma (HGMMA) and TMA (UTMALDG)
    instructions (``cuobjdump -sass``, where the toolkit has it); each
    bf16 attention kernel at D 128, 192 and 256, the f32 K1-K3 and K6-K8
-   (bf16 products on bf16 pieces of each f32 operand) at D 16-128, the
+   (bf16 products on bf16 pieces of each f32 operand) at D 16-128 and
+   the f32 K1 and K6 at 192 and 256 too, the
    bf16 K5 at KC 64, every f32 K5 (split products too) and every K9
    instantiation must not spill and must hold both (and the attention
-   kernels must not have their wgmma serialised, ptxas C7520), two bf16
+   kernels must not have their wgmma serialised, ptxas C7520 or C7514), two bf16
    K5 or K9 blocks must share an SM (an f32 K5 block is alone on its
    SM), and no library may still hold the f32 dQ's or the f32 K5's
    retired FMA loops.
@@ -32,15 +33,18 @@ Phases; any failure exits non-zero:
    training, the matmul and the ResNet-50 paths give it, with the stated
    tolerance; the block-sparse kernels also at block 32, 8 (ragged
    T 200), 96, in f32, non-causal with a dead q block, strided, with NaN
-   in the K/V rows no query may attend (bf16 D 128 and 256, f32 D 128),
-   and on all-ones masks against
-   K1-K3 (K6-K8 = K1-K3 bit for bit on the same inputs in both dtypes);
+   in the K/V rows no query may attend (bf16 D 128 and 256, f32 D 128
+   and 256), and on all-ones masks against
+   K1-K3 (K6-K8 = K1-K3 bit for bit on the same inputs in both dtypes,
+   in f32 at D 128 and 256);
    the attention kernels on the head-strided layout of an attention
    layer at the training shapes and in f32 (no copy; bit for bit the
    contiguous launch) and K4 on a column slice; bf16 head dims 192 and 256 (the
    Hopper bodies in all three passes, dK/dV and dQ on 64-row blocks; NaN
    in dead K/V at 256 too) and 320 (the wide route), and f32 head dims
-   192 and 256 (the wide route); K5 forward and dX at ResNet-50's
+   192 and 256 (the forward on the Hopper body's split products, dK/dV
+   and dQ on the wide route) and 320 (the wide route); K5 forward and dX
+   at ResNet-50's
    four stage shapes (B 64) in bf16 and in f32, ResNet-CIFAR's first
    width (B 128, 32 x 32, C = O = 16) and ragged C 3, O 10, H 7, W 5,
    with K5's pixel box, its dead rows and the bytes its TMA boxes
@@ -405,12 +409,16 @@ RETIRED_KERNELS = r"flash_bwd_dq_kernel|bs_dq_kernel|conv3x3_kernel_f32"
 
 # the head dims phase 2 holds each Hopper attention kernel to: in bf16 D
 # 128, 192 and 256 (K2, K3, K7 and K8 there are the 64-row blocks); in f32
-# (split products; K2, K3, K7 and K8 on 64-row blocks) at every head dim
+# (split products; K2, K3, K7 and K8 on 64-row blocks) at every head dim,
+# the forward (K1, K6) at 192 and 256 too (32-key tiles, q split into
+# registers)
 CHECKED_HEAD_DIMS = {
     **{(label, "bfloat16"): (128, 192, 256)
        for label in ("K1", "K2", "K3", "K6", "K7", "K8")},
     **{(label, "float32"): (16, 32, 64, 128)
-       for label in ("K1", "K2", "K3", "K6", "K7", "K8")}}
+       for label in ("K2", "K3", "K7", "K8")},
+    **{(label, "float32"): (16, 32, 64, 128, 192, 256)
+       for label in ("K1", "K6")}}
 
 
 def design_kernel(fn: str):
@@ -431,7 +439,8 @@ def kernel_design(torch):
     TMA load (UTMALDG) instructions in SASS.  Fails where a bf16 kernel
     at D 128, 192 or 256 (the bf16 route of head dims 129-256; K2, K3, K7
     and K8 there are the 64-row dK/dV and dQ blocks), or an f32 one (split
-    products) at D 16-128, spills, has its wgmma serialised by ptxas,
+    products) at D 16-128 (K1 and K6 at 192 and 256 too), spills, has its
+    wgmma serialised by ptxas (C7520, C7514),
     holds no HGMMA or no UTMALDG, or is missing, and where a library still
     holds a retired FMA loop (``RETIRED_KERNELS``).  A library loaded
     from an earlier build in the same checkout has no ptxas report
@@ -494,7 +503,7 @@ def kernel_design(torch):
                     failures.append(f"{label} {dtype} D {D} spills: {rep}")
                 if fn in serialised:
                     failures.append(f"{label} {dtype} D {D}: ptxas "
-                                    f"serialises its wgmma (C7520)")
+                                    f"serialises its wgmma (C7520, C7514)")
                 if ops is not None and not (ops["HGMMA"] and ops["UTMALDG"]):
                     failures.append(f"{label} {dtype} D {D} holds no HGMMA "
                                     f"or no UTMALDG: {ops}")
@@ -617,10 +626,10 @@ def mm_design(torch):
 def flash_cases(torch):
     """(label, B, H, T, S, D, dtype, causal): the served prefill, the
     training step, the 200-token batch, causal T > S, f32 (also
-    head-strided), narrower heads, head dims 192 and 256 (the bf16 Hopper route of 129-256) and
-    320 (the wide route), and f32 at 192 and 256 (the wide route).  A
-    label starting "strided" takes q, k and v in the (B, T, H,
-    D).transpose(1, 2) layout an attention layer makes."""
+    head-strided), narrower heads, head dims 192 and 256 (the Hopper
+    route of 129-256, in f32 on split products) and 320 (the wide route,
+    in both dtypes).  A label starting "strided" takes q, k and v in the
+    (B, T, H, D).transpose(1, 2) layout an attention layer makes."""
     bf16, f32 = torch.bfloat16, torch.float32
     return [("served", 4, 8, 512, 512, 128, bf16, True),
             ("train", 16, 8, 1024, 1024, 128, bf16, True),
@@ -635,8 +644,9 @@ def flash_cases(torch):
             ("D192", 2, 8, 1024, 1024, 192, bf16, True),
             ("D256", 2, 8, 1024, 1024, 256, bf16, True),
             ("wide_D320", 2, 8, 1024, 1024, 320, bf16, True),
-            ("wide_f32_D192", 2, 8, 1024, 1024, 192, f32, True),
-            ("wide_f32_D256", 2, 8, 1024, 1024, 256, f32, True)]
+            ("f32_D192", 2, 8, 1024, 1024, 192, f32, True),
+            ("f32_D256", 2, 8, 1024, 1024, 256, f32, True),
+            ("wide_f32_D320", 2, 8, 1024, 1024, 320, f32, True)]
 
 
 def attn_inputs(torch, label, B, H, rows, D, dt, g, n):
@@ -652,8 +662,10 @@ def attn_inputs(torch, label, B, H, rows, D, dt, g, n):
 
 def wide_launches(fa, D, dt, passes):
     """Wide-route launches a call makes at true head dim D: one a pass
-    where D is above the dtype's built head dims (f32 128, bf16 256)."""
-    return len(passes) * int(fa._wide(fa._padded_head_dim(D, dt), dt))
+    ("fwd", "dkv", "dq") where D is above that pass's built head dims in
+    the dtype (256; 128 for the f32 dK/dV and dQ)."""
+    return sum(int(fa._wide(fa._padded_head_dim(D, dt, p == "fwd"), dt,
+                            p == "fwd")) for p in passes)
 
 
 def check_flash(torch, F):
@@ -769,9 +781,10 @@ def check_layer_norm(torch, F):
 
 
 def launch_counters():
-    """Every kernel's launch counter, by the kernel's name, and the
-    attention and LayerNorm wrappers' counts of operand copies, which the
-    bf16 main paths hold at 0."""
+    """Every kernel's launch counter, by the kernel's name (K1 and K6
+    also by f32 head dim 192 and 256, the ``variants`` of the ``kernels``
+    line), and the attention and LayerNorm wrappers' counts of operand
+    copies, which the bf16 main paths hold at 0."""
     from bigdl_tpu_torch.ops import block_sparse as bs
     from bigdl_tpu_torch.ops import conv3x3
     from bigdl_tpu_torch.ops import flash_attention as fa
@@ -782,6 +795,8 @@ def launch_counters():
                                 bs.LAUNCHES_DKV, bs.LAUNCHES_DQ,
                                 bs.LAUNCHES_MM, bs.LAUNCHES_MM_TILE,
                                 conv3x3.LAUNCHES, fa.LAUNCHES_WIDE,
+                                *fa.LAUNCHES_F32.values(),
+                                *bs.LAUNCHES_F32.values(),
                                 fa.OPERAND_COPIES, ln.X_COPIES)}
 
 
@@ -795,7 +810,7 @@ def bwd_cases(torch):
     step (also head-strided, as ``flash_cases``), a ragged T, causal
     T > S and S > T, f32 (also head-strided), narrower heads, head dims
     192 and 256 (K2 and K3 on the 64-row Hopper blocks) and 320 (the
-    wide route), and f32 at 192 and 256 (the wide route)."""
+    wide route), and f32 at 192, 256 and 320 (the wide route)."""
     bf16, f32 = torch.bfloat16, torch.float32
     return [("train", 16, 8, 1024, 1024, 128, bf16, True),
             ("strided_train", 16, 8, 1024, 1024, 128, bf16, True),
@@ -811,7 +826,8 @@ def bwd_cases(torch):
             ("ragged_D256", 2, 8, 200, 300, 256, bf16, True),
             ("wide_D320", 2, 8, 1024, 1024, 320, bf16, True),
             ("wide_f32_D192", 2, 8, 1024, 1024, 192, f32, True),
-            ("wide_f32_D256", 2, 8, 1024, 1024, 256, f32, True)]
+            ("wide_f32_D256", 2, 8, 1024, 1024, 256, f32, True),
+            ("wide_f32_D320", 2, 8, 1024, 1024, 320, f32, True)]
 
 
 def sdpa_bwd_ms(torch, F, q, k, v, d_o, iters: int = 10, reps: int = 5,
@@ -987,7 +1003,8 @@ def bs_cases(torch):
     well), the training step and the f32 case head-strided (as
     ``flash_cases``), head dims
     192 and 256 (the bf16 Hopper route of 129-256: K7 and K8 on 64-row
-    blocks) and 320 (the wide route)."""
+    blocks; in f32 K6 on split products, K7 and K8 on the wide route,
+    also on an all-ones mask at 256) and 320 (the wide route)."""
     import numpy as np
 
     from bigdl_tpu_torch.ops import block_sparse as bs
@@ -1023,6 +1040,12 @@ def bs_cases(torch):
              bs.sliding_window_mask(8, 8, 2, 1, True, 128, 128)),
             ("block32_D256", 2, 8, 1024, 256, bf16, True,
              bs.sliding_window_mask(32, 32, 2, 1, True, 32, 32)),
+            ("f32_D192", 2, 8, 1024, 192, f32, True,
+             bs.sliding_window_mask(8, 8, 2, 1, True, 128, 128)),
+            ("f32_D256", 2, 8, 1024, 256, f32, True,
+             bs.sliding_window_mask(8, 8, 2, 1, True, 128, 128)),
+            ("all_ones_f32_D256", 2, 8, 1024, 256, f32, True,
+             bs.BlockMask(np.ones((8, 8), bool), 128, 128)),
             ("wide_D320", 2, 8, 1024, 320, bf16, True,
              bs.sliding_window_mask(8, 8, 2, 1, True, 128, 128))]
 
@@ -1041,14 +1064,15 @@ def split_rate(dname: str, wide: int, kind: str) -> str:
 def _bs_bounds(B, H, T, D, item, live, dname, wide):
     """(ms, by) of K6, K7 and K8 over ``live`` score elements per head:
     2, 4 and 3 products of 2 * live * D FLOP; bytes as K1-K3 move them;
-    each at ``split_rate``."""
+    each at ``split_rate`` (``wide``: the wide launches of the forward
+    and of the backward)."""
     BH = B * H
     return (bound(item * 4 * BH * T * D + 4 * BH * T, 4.0 * BH * live * D,
-                  split_rate(dname, wide, "fwd")),
+                  split_rate(dname, wide[0], "fwd")),
             bound(item * 6 * BH * T * D + 8 * BH * T, 8.0 * BH * live * D,
-                  split_rate(dname, wide, "dkv")),
+                  split_rate(dname, wide[1], "dkv")),
             bound(item * 5 * BH * T * D + 8 * BH * T, 6.0 * BH * live * D,
-                  split_rate(dname, wide, "dq")))
+                  split_rate(dname, wide[1], "dq")))
 
 
 def check_block_sparse(torch, F):
@@ -1073,6 +1097,7 @@ def check_block_sparse(torch, F):
         copies = fa.OPERAND_COPIES.count
         o, lse = bs._bs_fwd_cuda(q, k, v, mask, causal, scale)
         torch.cuda.synchronize()   # one kernel per synchronise
+        wide_fwd = fa.LAUNCHES_WIDE.count - wide
         do, delta = fa._bwd_inputs(q, o, d_o)
         dk, dv = bs._launch_bs_dkv(q, k, v, do, lse, delta, mask, causal,
                                    scale)
@@ -1178,7 +1203,8 @@ def check_block_sparse(torch, F):
                                               attn_mask=keep)
         del keep
         (b_f, by_f), (b_dkv, by_dkv), (b_dq, by_dq) = _bs_bounds(
-            B, H, T, D, q.element_size(), live, dname, wide)
+            B, H, T, D, q.element_size(), live, dname,
+            (wide_fwd, wide - wide_fwd))
         row.update(ok=ok, plain_ms=plain_ms, plain_bwd_ms=plain_bwd_ms,
                    library_ms=lib_ms, library_bwd_ms=lib_bwd_ms,
                    library_backend=lib_backend,
@@ -1201,7 +1227,8 @@ def check_block_sparse(torch, F):
         del q, k, v, d_o, o, lse, do, delta, dk, dv, dq
         torch.cuda.empty_cache()
     rows += [check_bs_poison(torch, D, dt) for D, dt in (
-        (128, torch.bfloat16), (256, torch.bfloat16), (128, torch.float32))]
+        (128, torch.bfloat16), (256, torch.bfloat16), (128, torch.float32),
+        (256, torch.float32))]
     return rows
 
 
@@ -2711,6 +2738,19 @@ def main(argv=None) -> int:
             library_ms=row["library_ms"]))
         if launches[name] == 0:
             failures.append(f"{name} was never launched on the main paths")
+    # the f32 forward's instantiations at D 192 and 256, on no main path
+    # (B 2, H 8, T 1024, causal; K6 under phase 3's window 2 + 1 global):
+    # their launches on the main paths, by their own counters
+    for kernel, cases in ((kernels[0], flash_rows), (kernels[4], [
+            dict(r, **r["fwd"]) for r in bs_rows if "fwd" in r])):
+        kernel["variants"] = [dict(
+            name=name, route="cuda", source=kernel["source"],
+            replaces=kernel["replaces"], launches=launches[name],
+            max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
+            bound_ms=r["bound_ms"], bound_by=r["bound_by"],
+            library_ms=r["library_ms"])
+            for r in cases if r["case"] in ("f32_D192", "f32_D256")
+            for name in [f"{kernel['name']} f32 D {r['shape'][-1]}"]]
 
     (out / "chip_smoke.json").write_text(json.dumps(dict(
         device=kind, nvidia_smi=smi, torch=torch.__version__,

@@ -2,7 +2,7 @@
 """The f32 training steps of ``chip_smoke.py``'s phases 5, 6 and 8, the
 f32 forward (K1, K6), dK/dV (K2, K7) and dQ (K3, K8) launches at each
 LM step's shape, K5 in f32 at ResNet-50's four stage shapes, and the f32
-wide attention route, on one GPU.
+attention kernels at head dims 192 and 256, on one GPU.
 
     python3 f32_steps.py [CHECKOUT]
 
@@ -16,8 +16,11 @@ the flagship's mask) alone at that step's layer shape (8 heads of 128),
 by CUDA-graph replay.  Then ResNet-50 trained 8 f32 steps at B 64 on
 ``"pallas"`` (phase 8's f32 run: step time, K5 launches a step) and the
 wrapper's K5 call (forward, and dX on the flipped weights) alone at the
-four stage shapes; then K1-K3 in f32 at head dims 192 and 256 (B 2, H 8,
-T 1024, causal: the wide route).  Prints a line per leg and, last, the
+four stage shapes; then K1-K3 and K6-K8 in f32 at head dims 192 and 256
+(B 2, H 8, T 1024, causal; K6-K8 under phase 3's sliding window 2 + 1
+global at block 128): the forward on its Hopper route (the wide route
+before it had one), dK/dV and dQ on the wide route.  Prints a line per
+leg and, last, the
 JSON record.  Run parent, change, change, parent in one call to compare
 two versions.
 """
@@ -118,7 +121,7 @@ def main(argv=None) -> int:
         del q, k, v, d_o, o, lse, do, delta
         torch.cuda.empty_cache()
     out["phase8"] = resnet_leg(torch, cs, conv3x3, repo)
-    out["wide"] = wide_leg(torch, cs, fa, repo)
+    out["wide"] = wide_leg(torch, cs, fa, bs, repo)
     print(json.dumps(dict(checkout=str(repo),
                           device=torch.cuda.get_device_name(0), **out)))
     return 0
@@ -159,26 +162,41 @@ def resnet_leg(torch, cs, conv3x3, repo):
     return rec
 
 
-def wide_leg(torch, cs, fa, repo):
-    """K1, K2 and K3 in f32 at head dims 192 and 256 (B 2, H 8, T 1024,
-    causal), which take the wide route."""
+def wide_leg(torch, cs, fa, bs, repo):
+    """K1, K2 and K3, then K6, K7 and K8 (phase 3's window 2 + 1 global at
+    block 128), in f32 at head dims 192 and 256 (B 2, H 8, T 1024,
+    causal), and the wide launches of each pass."""
     rec = {}
+    mask = bs.sliding_window_mask(8, 8, 2, 1, True, 128, 128)
     for D in (192, 256):
         g = torch.Generator(device="cuda").manual_seed(7)
         q, k, v, d_o = (torch.randn(2, 8, 1024, D, device="cuda",
                                     generator=g) for _ in range(4))
         scale = 1 / math.sqrt(D)
-        o, lse = fa._flash_cuda(q, k, v, True, scale)
-        do, delta = fa._bwd_inputs(q, o, d_o)
-        rec[f"D{D}"] = dict(
-            fwd_ms=cs.cuda_ms(lambda: fa._flash_cuda(q, k, v, True, scale),
-                              iters=3, reps=2),
-            dkv_ms=cs.cuda_ms(lambda: fa._launch_dkv(
-                q, k, v, do, lse, delta, True, scale), iters=3, reps=2),
-            dq_ms=cs.cuda_ms(lambda: fa._launch_dq(
-                q, k, v, do, lse, delta, True, scale), iters=3, reps=2))
-        print(f"{repo} wide f32 D {D}: {rec[f'D{D}']}", flush=True)
-        del q, k, v, d_o, o, lse, do, delta
+        for name, fwd, dkv, dq in (
+                ("flash", lambda: fa._flash_cuda(q, k, v, True, scale),
+                 fa._launch_dkv, fa._launch_dq),
+                ("block_sparse",
+                 lambda: bs._bs_fwd_cuda(q, k, v, mask, True, scale),
+                 lambda *a: bs._launch_bs_dkv(*a[:6], mask, *a[6:]),
+                 lambda *a: bs._launch_bs_dq(*a[:6], mask, *a[6:]))):
+            wide = fa.LAUNCHES_WIDE.count
+            o, lse = fwd()
+            wide_fwd = fa.LAUNCHES_WIDE.count - wide
+            do, delta = fa._bwd_inputs(q, o, d_o)
+            args = (q, k, v, do, lse, delta, True, scale)
+            dkv(*args)
+            dq(*args)
+            rec[f"{name}_D{D}"] = dict(
+                wide_launches=dict(fwd=wide_fwd, bwd=fa.LAUNCHES_WIDE.count
+                                   - wide - wide_fwd),
+                fwd_ms=cs.cuda_ms(fwd, iters=3, reps=2),
+                dkv_ms=cs.cuda_ms(lambda: dkv(*args), iters=3, reps=2),
+                dq_ms=cs.cuda_ms(lambda: dq(*args), iters=3, reps=2))
+            print(f"{repo} f32 {name} D {D}: {rec[f'{name}_D{D}']}",
+                  flush=True)
+            del o, lse, do, delta
+        del q, k, v, d_o
         torch.cuda.empty_cache()
     return rec
 

@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Where the f32 forward (K1 in f32) spends its time, on one GPU.
 
-    python3 k1_variants.py
+    python3 k1_variants.py           # D 128 (fwd_f32_consume)
+    python3 k1_variants.py --wide    # D 192 and 256 (fwd_f32_consume, WIDE)
 
 Builds ``bigdl_tpu_torch/ops/csrc/flash_fwd.cu`` as it stands and
 variants of it, each a text patch of ``attn_fwd_hopper.cuh``'s f32
@@ -25,18 +26,37 @@ Both P . V variants stay within the f32 limit but leave O's error at
 V's (or P's) rounding, which the backward's key-bias gradient does not
 take (``tests/test_torch_f32_split.py``).
 
+With ``--wide`` the patches are of the consumer at D 192 and 256
+(``fwd_f32_consume`` with ``WIDE``, ``wide_scores``), timed at B 2, H 8, T 1024,
+causal:
+
+* ``no_score_products``, ``no_pv_products``, ``no_products``: as above;
+* ``one_accumulator``: S over all of D in one wgmma accumulator (96
+  roundings toward zero at D 256) instead of a fresh partial per q panel
+  of 32 columns (12), added in f32;
+* ``unrolled``: the score products' loop over q panels unrolled with the
+  next panel split while the last one's products run at D 256 too (as at
+  D 192), which spills there;
+* ``rolled``: the loop kept at D 192 too, a k16 step split before its
+  products (as at D 256).
+
+and each build's ptxas report (registers, spills, "Performance"
+remarks) for those kernels is printed beside its times.
+
 Then it times each at the f32 shape of ``chip_smoke.py`` phase 3 (B 2,
 H 8, T 512, D 128, causal: 64 blocks) and at phase 5's layer shape (B 16,
 H 8, T 1024: 1024 blocks) by CUDA-graph replay (``chip_smoke.cuda_ms``),
 the unpatched build first and last.  A variant that leaves work out is
-wrong by construction; the unpatched build and the P . V variants are
-held against the plain version (row by row, the f32 limit).  Prints
-the times, a JSON line of them (also written to
-``chiprun_out/k1_variants.json``) and the card's name and power limit;
-exits non-zero without a CUDA device.
+wrong by construction; the unpatched build and the P . V variants (with
+``--wide``: every build that does all the work) are held against the
+plain version (row by row, the f32 limit).  Prints the times, a JSON
+line of them (also written to ``chiprun_out/k1_variants.json``, or
+``k1_variants_wide.json``) and the card's name and power limit; exits
+non-zero without a CUDA device.
 """
 import ctypes
 import json
+import re
 import subprocess
 import sys
 from concurrent.futures import ThreadPoolExecutor
@@ -46,18 +66,18 @@ REPO = Path(__file__).resolve().parent
 
 SCORES = ("wgmma_scores_split<D, C::PANEL_Q, C::PANEL_KV, THIRD>"
           "(sc, q_wg, k_t);")
-PV = ("wgmma_accumulate_split<D, C::PANEL_KV, THIRD>"
+PV = ("wgmma_accumulate_split<D, C::PANEL_KV, THIRD, BK / 16>"
       "(acc, a1, a2, a3, v_t);")
-SPLIT_K = "split_tile<D, kConsumers>(k_t, kKvSplit);"
-SPLIT_V = "split_tile<D, kConsumers>(v_t, kKvSplit);"
+SPLIT_K = "split_tile<D, kConsumers, BK>(k_t, kKvSplit);"
+SPLIT_V = "split_tile<D, kConsumers, BK>(v_t, kKvSplit);"
 NO_SCORES = (SCORES, "for (int i = 0; i < kTileRows / 2; ++i) sc[i] = 0.0f;")
 NO_PV = (PV, "")
 NO_SPLITS = [(SPLIT_K, ";"), (SPLIT_V, ";")]
-PV_FIVE = (PV, PV.replace(", THIRD>", ">"))
-PV_THREE = (PV, "wgmma_accumulate<D, 2 * C::PANEL_KV>(acc, a2, v_t);\n"
-                "      wgmma_accumulate<D, 2 * C::PANEL_KV>(acc, a1, v_t + "
+PV_FIVE = (PV, PV.replace("THIRD, ", "0, "))
+PV_THREE = (PV, "wgmma_accumulate<D, 2 * C::PANEL_KV, BK / 16>(acc, a2, v_t);\n"
+                "      wgmma_accumulate<D, 2 * C::PANEL_KV, BK / 16>(acc, a1, v_t + "
                 "C::PANEL_KV);\n"
-                "      wgmma_accumulate<D, 2 * C::PANEL_KV>(acc, a1, v_t);")
+                "      wgmma_accumulate<D, 2 * C::PANEL_KV, BK / 16>(acc, a1, v_t);")
 VARIANTS = {"no_score_products": [NO_SCORES], "no_pv_products": [NO_PV],
             "no_products": [NO_SCORES, NO_PV], "no_tile_splits": NO_SPLITS,
             "pv_five_products": [PV_FIVE], "pv_three_products": [PV_THREE]}
@@ -66,10 +86,28 @@ CHECKED = ("as_shipped", "pv_five_products", "pv_three_products")
 #: (label, B, H, T, D): phase 3's f32 case, phase 5's layer shape
 SHAPES = (("phase3_f32", 2, 8, 512, 128), ("phase5_layer", 16, 8, 1024, 128))
 
+# --wide: the consumer at D 192 and 256
+W_SCORES = ("wgmma_rs<kWideKeyRows, 0>(part, a[pa][j], smem_desc<P::RB>"
+            "(b + 2 * (c % P::PW)),\n                                j0 + j + t > 0);")
+W_NO_SCORES = (W_SCORES, "(void)b; part[0] = 0.0f;")
+W_ONE_ACC = [(W_SCORES, W_SCORES.replace("j0 + j + t > 0", "g + j0 + j + t > 0")),
+             ("wide_products<D, 2>(part,", "wide_products<D, 2>(sc,"),
+             ("wide_products<D, 1>(part,", "wide_products<D, 1>(sc,"),
+             ("      add_partial(sc, part);", "")]
+W_ROLLED = "constexpr bool kWideRolled = D > 192;"
+WIDE_VARIANTS = {
+    "no_score_products": [W_NO_SCORES], "no_pv_products": [NO_PV],
+    "no_products": [W_NO_SCORES, NO_PV], "one_accumulator": W_ONE_ACC,
+    "unrolled": [(W_ROLLED, "constexpr bool kWideRolled = false;")],
+    "rolled": [(W_ROLLED, "constexpr bool kWideRolled = true;")]}
+WIDE_CHECKED = ("as_shipped", "one_accumulator", "unrolled", "rolled")
+WIDE_SHAPES = (("D192", 2, 8, 1024, 192), ("D256", 2, 8, 1024, 256))
+
 
 def build(name, patches):
     """flash_fwd.cu beside the patched header, which its quoted include
-    finds first; the other headers from the shipped sources."""
+    finds first; the other headers from the shipped sources.  Returns
+    the library and nvcc's ptxas report."""
     from bigdl_tpu_torch.ops import _support
 
     src = (_support.CSRC / "attn_fwd_hopper.cuh").read_text()
@@ -88,11 +126,36 @@ def build(name, patches):
                           capture_output=True, text=True)
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed for {name}:\n{proc.stderr[-4000:]}")
-    return ctypes.CDLL(str(so))
+    return ctypes.CDLL(str(so)), proc.stderr
 
 
-def main() -> int:
+def wide_ptxas(report: str) -> dict:
+    """Registers, spills and "Performance" remarks of the f32 K1 at D 192
+    and 256 from a ptxas report."""
+    import chip_smoke as cs
+
+    out = {}
+    for fn, rep in cs.ptxas_functions(report).items():
+        m = re.search(r"attn_fwd_split_kernelILi(192|256)E", fn)
+        if m:
+            out[f"D{m.group(1)}"] = dict(rep, remarks=[
+                line.strip() for line in report.splitlines()
+                if "Performance" in line and fn in line])
+    return out
+
+
+def main(argv=None) -> int:
+    import argparse
+
     import torch
+
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--wide", action="store_true",
+                    help="the consumer at D 192 and 256 instead of D 128")
+    wide = ap.parse_args(argv).wide
+    variants = WIDE_VARIANTS if wide else VARIANTS
+    checked = WIDE_CHECKED if wide else CHECKED
+    shapes = WIDE_SHAPES if wide else SHAPES
 
     if not torch.cuda.is_available():
         print("k1_variants: FAIL: a CUDA card is required", file=sys.stderr)
@@ -111,25 +174,31 @@ def main() -> int:
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
     torch.backends.cuda.matmul.allow_tf32 = False
-    libs = {"as_shipped": _support.load_cuda_library("flash_fwd")}
-    with ThreadPoolExecutor(max_workers=len(VARIANTS)) as pool:
-        built = {n: pool.submit(build, n, p) for n, p in VARIANTS.items()}
-        libs.update({n: f.result() for n, f in built.items()})
+    with ThreadPoolExecutor(max_workers=len(variants) + 1) as pool:
+        built = {n: pool.submit(build, n, p) for n, p in
+                 {"as_shipped": [], **variants}.items()}
+        built = {n: f.result() for n, f in built.items()}
+    libs = {n: lib for n, (lib, _) in built.items()}
+    ptxas = {}
+    if wide:
+        ptxas = {n: wide_ptxas(report) for n, (_, report) in built.items()}
+        for n, rep in ptxas.items():
+            print(f"K1 f32 {n:>18}: ptxas {rep}", flush=True)
 
     g = torch.Generator(device="cuda").manual_seed(23)
     inputs = {label: [torch.randn(B, H, T, D, device="cuda", generator=g)
-                      for _ in range(3)] for label, B, H, T, D in SHAPES}
+                      for _ in range(3)] for label, B, H, T, D in shapes}
     errs, times = {}, {}
+    before = _support._LIBS.get("flash_fwd")
     try:
-        for name in ["as_shipped", *VARIANTS, "as_shipped"]:
+        for name in ["as_shipped", *variants, "as_shipped"]:
             _support._LIBS["flash_fwd"] = libs[name]
             row = {}
-            for label, *_, D in SHAPES:
+            for label, *_, D in shapes:
                 q, k, v = inputs[label]
                 scale = D ** -0.5
-                if name in CHECKED \
-                        and label == SHAPES[0][0]:
-                    errs[name] = cs.row_rel_err(
+                if name in checked and (wide or label == shapes[0][0]):
+                    errs.setdefault(name, {})[label] = cs.row_rel_err(
                         torch, fa._flash_cuda(q, k, v, True, scale)[0],
                         fa._flash_plain(q, k, v, True, scale)[0])
                 row[label] = cs.cuda_ms(lambda: fa._flash_cuda(
@@ -138,15 +207,20 @@ def main() -> int:
             print(f"K1 f32 {name:>18}: " + ", ".join(
                 f"{n} {t:.4f} ms" for n, t in row.items()), flush=True)
     finally:
-        _support._LIBS["flash_fwd"] = libs["as_shipped"]
+        if before is None:
+            _support._LIBS.pop("flash_fwd", None)
+        else:
+            _support._LIBS["flash_fwd"] = before
     print(f"row errors {errs}")
-    bad = {n: e for n, e in errs.items() if not e <= cs.ROW_TOL["float32"]}
+    bad = {n: e for n, e in errs.items()
+           if not max(e.values()) <= cs.ROW_TOL["float32"]}
     report = dict(device=torch.cuda.get_device_name(0), nvidia_smi=smi,
-                  shapes=[list(s) for s in SHAPES], row_rel_err=errs,
-                  times=times)
+                  shapes=[list(s) for s in shapes], row_rel_err=errs,
+                  times=times, ptxas=ptxas)
     out = REPO / "chiprun_out"
     out.mkdir(exist_ok=True)
-    (out / "k1_variants.json").write_text(json.dumps(report, indent=1))
+    name = "k1_variants_wide.json" if wide else "k1_variants.json"
+    (out / name).write_text(json.dumps(report, indent=1))
     print(json.dumps(times))
     print(smi)
     if bad:

@@ -12,8 +12,9 @@ inputs, forward and backward (the f32 forward, K1 and K6, dK/dV, K2 and
 K7, and dQ, K3 and K8, on bf16 products an f32 one at every head dim
 they are built for), also at
 head dims the kernels are not
-built for (zero-padded to the next, or above them, f32 128 and bf16
-256, through the wide route) and at more heads than one grid takes; a small TransformerLM served on
+built for (zero-padded to the next, or above a pass's built ones, 256 and
+128 for the f32 dK/dV and dQ, through the wide route) and at more heads
+than one grid takes; a small TransformerLM served on
 the card in f32 (also at head dim 8, through the server), and small
 flash and block-sparse ones, a ResNet-CIFAR on K5 and a LeNet-5 trained
 three steps on the card in f32, are held against the same model on the
@@ -184,16 +185,17 @@ def test_layer_norm_kernel_matches_plain_on_card(cuda_device, rows, F,
 
 
 def test_kernels_reject_what_they_do_not_take(cuda_device):
-    # f32 head dims up to 128 are padded to a built one; past 128 the wide
-    # route takes them as they are
+    # an f32 forward at a head dim up to 256 is padded to a built one (160
+    # runs K1 and K6 at 192); past 256 the wide route takes it as it is
     g = torch.Generator(device=cuda_device).manual_seed(3)
     q, k, v = (torch.randn(1, 2, 16, 160, device=cuda_device, generator=g)
                for _ in range(3))
-    before = fa.LAUNCHES_WIDE.count
+    counters = (fa.LAUNCHES, bs.LAUNCHES, fa.LAUNCHES_WIDE)
+    before = [c.count for c in counters]
     o = fa.flash_attention(q, k, v)
     ob = bs.block_sparse_attention(q, k, v, np.ones((1, 1), bool))
     torch.cuda.synchronize()
-    assert fa.LAUNCHES_WIDE.count == before + 2
+    assert [c.count - n for c, n in zip(counters, before)] == [1, 1, 0]
     want = fa._flash_plain(q, k, v, False, 1 / math.sqrt(160))[0]
     assert _row_rel_err(o, want) <= ROW_TOL[torch.float32]
     assert _row_rel_err(ob, want) <= ROW_TOL[torch.float32]
@@ -345,12 +347,14 @@ def test_odd_head_dims_run_the_kernels_on_card(cuda_device, D, dtype, which):
 @pytest.mark.parametrize("which", ["flash", "block_sparse"])
 def test_wide_head_dims_run_the_wide_route_on_card(cuda_device, D, dtype,
                                                    which):
-    """Head dims above 128: bf16 up to 256 is zero-padded to 192 or 256
-    and runs the Hopper forward, dK/dV and dQ (no wide launch); f32, and
-    bf16 above 256, take the wide route (``csrc/attn_wide.cu``) as they
-    are for all three (three wide launches).  Forward and backward
-    through the entry points launch K1-K3 (K6-K8) once each and match the
-    plain versions in the working dtype row by row, LSE within 1e-3."""
+    """Head dims above 128: up to 256 the forward is zero-padded to 192
+    or 256 and runs the Hopper body in both dtypes (in f32 on split
+    products), and so do the bf16 dK/dV and dQ (no wide launch); the f32
+    dK/dV and dQ there take the wide route (``csrc/attn_wide.cu``) at the
+    true D (two wide launches), and above 256 all three passes do (three).
+    Forward and backward through the entry points launch K1-K3 (K6-K8)
+    once each and match the plain versions in the working dtype row by
+    row, LSE within 1e-3."""
     T = 200
     g = torch.Generator(device=cuda_device).manual_seed(D)
     q, k, v, d_o = (torch.randn(2, 4, T, D, device=cuda_device,
@@ -378,7 +382,7 @@ def test_wide_head_dims_run_the_wide_route_on_card(cuda_device, D, dtype,
         want = bs._bs_bwd_plain(q, k, v, o.detach(), lse, d_o, mask, True,
                                 scale)
     torch.cuda.synchronize()
-    wide = 0 if dtype == bf16 and D <= 256 else 3
+    wide = 3 if D > 256 else 0 if dtype == bf16 else 2
     assert [c.count - n for c, n in zip(counters, before)] == [1, 1, 1, wide]
     assert o.shape == (2, 4, T, D) and o.dtype == dtype
     assert _row_rel_err(o, o_ref) <= ROW_TOL[dtype]
@@ -582,13 +586,25 @@ def test_f32_dkv_runs_the_split_products_on_card(cuda_device, case, which):
 # (T, S, D, causal, layout, bq, bk): the f32 forward (K1, and K6 under a
 # block mask of bq x bk blocks): the dK/dV cases, one query row, and the
 # edges of a 128-row block (the second 64-row q tile partly or wholly past
-# T)
+# T); at D 192 and 256 (q split into registers, 32-key tiles) the same
+# edges, causal T = S, and the head-strided layout at a ragged T
 F32_FWD_CASES = dict(
     F32_DKV_CASES,
     D16_causal_T1=(1, 1, 16, True, "contiguous", 1, 1),
     D128_causal_T64=(64, 64, 128, True, "contiguous", 32, 32),
     D32_noncausal_T65_S130=(65, 130, 32, False, "contiguous", 13, 26),
-    D128_strided_causal_T264=(264, 264, 128, True, "strided", 24, 24))
+    D128_strided_causal_T264=(264, 264, 128, True, "strided", 24, 24),
+    D192_causal=(512, 512, 192, True, "contiguous", 32, 32),
+    D256_causal=(512, 512, 256, True, "contiguous", 32, 32),
+    D192_causal_T1=(1, 1, 192, True, "contiguous", 1, 1),
+    D256_causal_T1=(1, 1, 256, True, "contiguous", 1, 1),
+    D192_causal_T64=(64, 64, 192, True, "contiguous", 32, 32),
+    D256_causal_T64=(64, 64, 256, True, "contiguous", 32, 32),
+    D192_noncausal_T65_S130=(65, 130, 192, False, "contiguous", 13, 26),
+    D256_noncausal_T65_S130=(65, 130, 256, False, "contiguous", 13, 26),
+    D192_strided_causal_T264=(264, 264, 192, True, "strided", 24, 24),
+    D256_strided_noncausal_T136_S264=(136, 264, 256, False, "strided", 8,
+                                      24))
 
 
 @pytest.mark.parametrize("case", sorted(F32_FWD_CASES))
@@ -601,7 +617,8 @@ def test_f32_forward_runs_the_split_products_on_card(cuda_device, case,
     read where they lie (no operand copy, the head-strided layout too,
     whose O and LSE are the contiguous launch's bits), O row by row
     within the f32 limit of the plain forward and LSE within 1e-3, and
-    two launches give the same bits."""
+    two launches give the same bits.  At D 192 and 256 each launch also
+    counts under that head dim's counter."""
     T, S, D, causal, layout, bq, bk = F32_FWD_CASES[case]
     g = torch.Generator(device=cuda_device).manual_seed(T * 5 + D)
 
@@ -629,11 +646,17 @@ def test_f32_forward_runs_the_split_products_on_card(cuda_device, case,
             return bs._bs_fwd_cuda(*t, mask, causal, scale)
 
         want = bs._bs_attention_plain(q, k, v, mask, causal, scale)
-    counts = (counter.count, fa.OPERAND_COPIES.count, fa.LAUNCHES_WIDE.count)
+    by_dim = (fa if which == "flash" else bs).LAUNCHES_F32.get(D)
+
+    def tally():
+        return (counter.count, fa.OPERAND_COPIES.count,
+                fa.LAUNCHES_WIDE.count, by_dim.count if by_dim else 0)
+
+    counts = tally()
     runs = [launch(q, k, v), launch(q, k, v)]
     torch.cuda.synchronize()
-    assert (counter.count, fa.OPERAND_COPIES.count, fa.LAUNCHES_WIDE.count) \
-        == (counts[0] + 2, counts[1], counts[2])
+    assert tally() == (counts[0] + 2, counts[1], counts[2],
+                       counts[3] + (2 if by_dim else 0))
     for a, b in zip(*runs):
         assert a.dtype == torch.float32 and a.is_contiguous()
         assert torch.equal(a, b)
@@ -646,11 +669,12 @@ def test_f32_forward_runs_the_split_products_on_card(cuda_device, case,
         assert torch.equal(o, same[0]) and torch.equal(lse, same[1])
 
 
-@pytest.mark.parametrize("D", [16, 32, 64, 128])
+@pytest.mark.parametrize("D", [16, 32, 64, 128, 192, 256])
 def test_f32_forward_of_k6_is_k1s_and_never_reads_dead_kv_on_card(
         cuda_device, D):
     """The f32 K6 runs K1's f32 body over the 128-row query lists: on an
-    all-ones causal mask at block 128 they visit the same 64-key tiles in
+    all-ones causal mask at block 128 they visit the same key tiles (64
+    keys; at D 192 and 256 32, each list step streamed as two halves) in
     the same order with the same flags, so O and LSE are K1's bits, also
     at a ragged T 200 (block 40).  Under a mask at block 32 with NaN in
     every K/V row that no query may attend, O and LSE equal the clean

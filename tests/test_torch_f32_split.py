@@ -17,9 +17,13 @@ pieces (five), six again for dQ's S, dP and dS . K
 for each tap's product of the shifted pixels and the weights).
 ``_fwd_split``, ``_dkv_split``, ``_dq_split`` and ``_conv_split`` below
 form O and LSE, dK and dV, dQ, and the conv's output that way from
-seeded numpy inputs, and the results are held row by row, at the f32
-limit the card holds the kernels to (1e-4; LSE 1e-3), against the JAX
-package's ``flash_attention``, ``block_sparse_attention`` and
+seeded numpy inputs; ``_fwd_wide_split`` forms O and LSE as the f32
+forward does at D 192 and 256 (``fwd_f32_wide_consume``: 32-key tiles,
+q split into registers per 32-column panel, a fresh partial of S per
+panel), with wgmma's truncation toward zero modelled, k16 step by step.
+The results are held row by row, at the f32 limit the card holds the
+kernels to (1e-4; LSE 1e-3; the wide forward at a third of it), against
+the JAX package's ``flash_attention``, ``block_sparse_attention`` and
 ``conv3x3_s1_same`` with ``interpret=True`` (the forward's O and LSE or
 y, and the gradients that ``jax.vjp`` takes): the Pallas kernels in
 interpret mode where the shapes reach them, the JAX package's plain
@@ -584,6 +588,232 @@ def test_split_gives_back_the_f32_tensor():
     assert (r.abs() <= 2.0 ** -17 * a.double().abs()).all()
     exact = a.to(torch.bfloat16).float()
     assert not any(p.any() for p in _pieces(exact, 3)[1:])
+
+
+# ----------------------------------------------------------------------
+# the f32 forward at head dims 129-256: K1 and K6 at D 192 and 256
+# ----------------------------------------------------------------------
+
+#: key rows of a tile the f32 forward sweeps at D 192 and 256
+WIDE_KEY_TILE = 32
+#: q columns a consumer warpgroup splits into wgmma's register operand
+#: at a time (one TMA panel of 32 f32 columns: two k16 steps)
+WIDE_Q_PANEL = 32
+#: the six bf16 products of an f32 product in the kernels' order, small
+#: terms first: (piece of A, piece of B), 0-based
+TERMS = ((0, 2), (1, 1), (2, 0), (0, 1), (1, 0), (0, 0))
+
+
+def _round_toward_zero(x):
+    """f64 ``x`` to f32, rounded toward zero."""
+    r = x.float()
+    over = r.double().abs() > x.abs()
+    return torch.where(over, torch.nextafter(r, torch.zeros_like(r)), r)
+
+
+def _wgmma_add(acc, a, b, truncate):
+    """``acc`` plus one k16 step's bf16 product a . b (a's 16 columns, b's
+    16 rows, each product of two bf16 values exact) as wgmma adds it to its
+    f32 accumulator: rounded toward zero (``truncate``, as the card rounds
+    the sums it accumulates: PERF.md) or to nearest."""
+    x = acc.double() + a.double() @ b.double()
+    return _round_toward_zero(x) if truncate else x.float()
+
+
+def _wide_scores(q, kt, truncate=True, partial=WIDE_Q_PANEL):
+    """S = Q . K^T of a warpgroup's 64 q rows and a 32-key tile as the f32
+    K1/K6 form it at D 192 and 256: for each 32-column panel of q, split
+    into registers, the six products of each of its two k16 steps (steps
+    outer) into a fresh partial, added to S in f32 once they are done;
+    ``partial``: the columns a partial spans (None: one accumulator over
+    all of D, a design not taken)."""
+    A, B = _pieces(q, 3), _pieces(kt.transpose(-1, -2), 3)
+    D = q.shape[-1]
+    total = torch.zeros(*q.shape[:-1], kt.shape[-2])
+    part = torch.zeros_like(total)
+    for g in range(0, D, WIDE_Q_PANEL):
+        for c in range(g, g + WIDE_Q_PANEL, 16):
+            for i, j in TERMS:
+                part = _wgmma_add(part, A[i][..., c:c + 16],
+                                  B[j][..., c:c + 16, :], truncate)
+        if partial and (g + WIDE_Q_PANEL) % partial == 0:
+            total, part = total + part, torch.zeros_like(total)
+    return total + part
+
+
+def _wide_pv(acc, p, vt, truncate=True):
+    """acc + P . V over a 32-key tile: the six products of each of its two
+    k16 steps, terms outer, into the accumulator."""
+    A, B = _pieces(p, 3), _pieces(vt, 3)
+    for i, j in TERMS:
+        for c in range(0, vt.shape[-2], 16):
+            acc = _wgmma_add(acc, A[i][..., c:c + 16], B[j][..., c:c + 16, :],
+                             truncate)
+    return acc
+
+
+def _fwd_wide_split(q, k, v, keep, scale, truncate=True,
+                    partial=WIDE_Q_PANEL):
+    """O (B, H, T, D) and LSE (B * H, 1, T) as the f32 K1/K6 compute them
+    at D 192 and 256: blocks of 128 query rows, each consumer warpgroup's
+    64 rows over the 32-key tiles where one of them attends a key (K1's
+    dense sweep skips a tile above the warpgroup's diagonal, K6's lists a
+    dead pair), S by ``_wide_scores``, the online softmax of
+    ``_fwd_split``, O += P . V by ``_wide_pv``, O = acc / max(l, 1e-30)
+    and LSE as there; wgmma's sums rounded toward zero where
+    ``truncate``, S's partials spanning ``partial`` columns."""
+    B, H, T, D = q.shape
+    o = torch.zeros(B, H, T, D)
+    lse = torch.zeros(B, H, T, 1)
+    zero = torch.zeros(())
+    for r0 in range(0, T, 64):
+        rows = slice(r0, min(T, r0 + 64))
+        n = rows.stop - r0
+        m = torch.full((B, H, n, 1), -math.inf)
+        l = torch.zeros(B, H, n, 1)
+        acc = torch.zeros(B, H, n, D)
+        for k0 in range(0, k.shape[2], WIDE_KEY_TILE):
+            cols = slice(k0, k0 + WIDE_KEY_TILE)
+            if not keep[rows, cols].any():
+                continue
+            s = _wide_scores(q[:, :, rows], k[:, :, cols], truncate,
+                             partial) * (scale * LOG2E)
+            s = s.masked_fill(~keep[rows, cols], -math.inf)
+            m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
+            m_safe = torch.where(m_new == -math.inf, zero, m_new)
+            alpha = torch.where(m == -math.inf, zero, torch.exp2(m - m_safe))
+            p = torch.exp2(s - m_safe)
+            l = l * alpha + p.sum(dim=-1, keepdim=True)
+            acc = _wide_pv(acc * alpha, p, v[:, :, cols], truncate)
+            m = m_new
+        o[:, :, rows] = acc / l.clamp_min(1e-30)
+        lse[:, :, rows] = torch.where(
+            l > 0, (m + torch.log2(l.clamp_min(1e-30))) * LN2,
+            torch.full_like(l, 1e30))
+    return o, lse.reshape(B * H, 1, T)
+
+
+#: the shipped design's limit: a third of the f32 limit, the margin kept
+#: for split-product designs (the card's error tail ran about 3x the
+#: emulation's, PERF.md)
+WIDE_ROW_TOL = ROW_TOL / 3
+
+# (B, H, T, S, D, causal): T 130 and the ragged non-causal case take the
+# JAX package's plain reference, T 256 its Pallas forward in interpret mode
+WIDE_CASES = {
+    "causal_T130_D192": (1, 2, 130, 130, 192, True),
+    "causal_T256_D256": (1, 2, 256, 256, 256, True),
+    "ragged_T130_S200_noncausal_D256": (1, 2, 130, 200, 256, False),
+}
+
+
+@pytest.mark.parametrize("case", sorted(WIDE_CASES))
+def test_wide_split_forward_matches_the_jax_flash_forward(case):
+    """The f32 forward at D 192 and 256 (32-key tiles, q split into
+    registers a panel at a time, a fresh S partial per 32-column q panel
+    added to S in f32, wgmma's truncation toward zero modelled) against
+    the JAX flash forward: O row by row within a third of the f32 limit,
+    LSE within 1e-3."""
+    B, H, T, S, D, causal = WIDE_CASES[case]
+    q, k, v, _ = _inputs(B, H, T, S, D, seed=5 * len(case))
+    scale = 1 / math.sqrt(D)
+    keep = (fa._causal_keep(T, S, "cpu") if causal
+            else torch.ones(T, S, dtype=torch.bool))
+    j = [jnp.asarray(a) for a in (q, k, v)]
+    if T % 128 == 0 and S % 128 == 0:
+        o_want, lse_want = _flash_fwd(*j, causal, scale, 128, 128, True)
+        lse_want = torch.from_numpy(np.array(lse_want))
+    else:
+        o_want = _attention_reference(*j, causal, scale)
+        lse_want = _lse_ref(q, k, keep.numpy(), scale)
+    o, lse = _fwd_wide_split(*(torch.from_numpy(a) for a in (q, k, v)), keep,
+                             scale)
+    assert _row_rel_err(o, torch.from_numpy(np.array(o_want))) \
+        <= WIDE_ROW_TOL
+    assert (lse.double() - lse_want.double()).abs().max().item() <= LSE_TOL
+
+
+@pytest.mark.parametrize("D", [192, 256])
+def test_wide_split_forward_matches_the_jax_block_sparse_forward(D):
+    """Under a block mask with a dead query block and partly live 64-key
+    tiles (block 32): the f32 forward at D 192 and 256 against ``_bs_fwd``
+    (the Pallas kernel in interpret mode); the dead block's rows are O = 0
+    and LSE = 1e30 on both sides."""
+    m = J.sliding_window_mask(8, 8, 2, 1, True, 32, 32).mask.copy()
+    m[3, :] = False
+    mask = J.BlockMask(m, 32, 32)
+    q, k, v, _ = _inputs(1, 2, 256, 256, D, seed=D)
+    scale = 1 / math.sqrt(D)
+    o_want, lse_want = J._bs_fwd(*(jnp.asarray(a) for a in (q, k, v)), mask,
+                                 True, scale, True)
+    o_want, lse_want = (torch.from_numpy(np.array(a))
+                        for a in (o_want, lse_want))
+    port = P.BlockMask(mask.mask, mask.block_q, mask.block_k)
+    keep = P._elementwise_keep(port, True, "cpu")
+    o, lse = _fwd_wide_split(*(torch.from_numpy(a) for a in (q, k, v)), keep,
+                             scale)
+    assert _row_rel_err(o, o_want) <= WIDE_ROW_TOL
+    assert (lse - lse_want).abs().max().item() <= LSE_TOL
+    assert not o[:, :, 96:128].any() and (lse[:, :, 96:128] == 1e30).all()
+    assert not o_want[:, :, 96:128].any()
+
+
+@pytest.mark.parametrize("D", [192, 256])
+def test_the_wide_forward_models_wgmmas_truncation(D):
+    """Against attention in f64 at T 256: the wide forward's products
+    rounding to nearest read about the plain f32 forward's error; with
+    the card's truncation toward zero they read three times that or more,
+    within the design's limit still.  One S accumulator over all of D (96
+    roundings at D 256) reads more than the design's fresh partial per
+    32 columns (12), added in f32: the truncation of S's sums is modelled,
+    not only that of P . V."""
+    q, k, v, _ = (torch.from_numpy(a) for a in _inputs(1, 2, 256, 256, D,
+                                                       seed=31))
+    scale = 1 / math.sqrt(D)
+    keep = fa._causal_keep(256, 256, "cpu")
+    s = (q.double() @ k.double().transpose(-1, -2) * scale).masked_fill(
+        ~keep, -math.inf)
+    want = torch.softmax(s, dim=-1) @ v.double()
+    plain = _row_rel_err(fa._flash_plain(q, k, v, True, scale)[0], want)
+    err = {name: _row_rel_err(_fwd_wide_split(q, k, v, keep, scale, **kw)[0],
+                              want)
+           for name, kw in (("kernel", {}), ("nearest", dict(truncate=False)),
+                            ("one", dict(partial=None)))}
+    assert err["nearest"] <= 2 * plain
+    assert err["kernel"] >= 3 * err["nearest"]
+    assert err["one"] > 1.5 * err["kernel"]
+    assert err["kernel"] <= WIDE_ROW_TOL
+
+
+def test_the_wide_forwards_o_keeps_the_key_bias_gradient_at_rounding_level():
+    """The key-bias check of ``test_the_forwards_o_keeps_the_key_bias_
+    gradient_at_rounding_level`` at D 256, where the f32 backward takes
+    the wide route (``csrc/attn_wide.cu``: the plain f32 math) at the true
+    head dim: O and LSE from the wide forward's products (truncation
+    modelled) keep the sum of dK over the key rows within twice the plain
+    f32 pipeline's.  One S accumulator over all of D shrinks the scores by
+    its 96 truncations, so LSE and the backward's recomputed P disagree:
+    three times the plain pipeline's or more; O from P . V on two pieces
+    of V five times it or more."""
+    rng = np.random.RandomState(0)
+    q, k, v, g = (torch.from_numpy(rng.randn(3, 4, 20, 256)
+                                   .astype(np.float32)) for _ in range(4))
+    scale = 1 / math.sqrt(256)
+    keep = fa._causal_keep(20, 20, "cpu")
+    o, lse = fa._flash_plain(q, k, v, True, scale)
+    noise = fa._flash_bwd_plain(q, k, v, o, lse, g, True, scale)[1] \
+        .sum(dim=2).norm().item()
+    sums = {}
+    for name, (o, lse) in (
+            ("kernel", _fwd_wide_split(q, k, v, keep, scale)),
+            ("one", _fwd_wide_split(q, k, v, keep, scale, partial=None)),
+            ("five", _fwd_split(q, k, v, keep, scale,
+                                dict(scores=(3, 3), acc=(3, 2))))):
+        dk = fa._flash_bwd_plain(q, k, v, o, lse, g, True, scale)[1]
+        sums[name] = dk.sum(dim=2).norm().item()
+    assert sums["kernel"] <= 2 * noise
+    assert sums["one"] > 3 * noise
+    assert sums["five"] > 5 * noise
 
 
 # ----------------------------------------------------------------------

@@ -255,15 +255,19 @@ def test_wide_head_dim_plain_matches_pallas_interpret(D, causal):
     for name, a, b in zip(("dq", "dk", "dv"), got, want):
         np.testing.assert_allclose(a.numpy(), np.asarray(b), **GRAD_TOL,
                                    err_msg=name)
-    # f32 takes such a head dim as it is on the wide route, in all three
-    # passes; bf16 pads it to 192 or 256 for the Hopper forward, dK/dV and
-    # dQ, and takes the wide route only above 256
+    # f32 takes such a head dim as it is on the wide route in dK/dV and
+    # dQ, and pads it to 192 or 256 for the Hopper forward; bf16 pads it
+    # for all three passes, and takes the wide route only above 256
     f32, bf16 = torch.float32, torch.bfloat16
     assert fa._padded_head_dim(D, f32) == D and fa._wide(D, f32)
     Dp = fa._padded_head_dim(D, bf16)
     assert Dp == {160: 192, 256: 256}[D]
     assert not fa._wide(Dp, bf16)
+    assert fa._padded_head_dim(D, f32, forward=True) == Dp
+    assert not fa._wide(Dp, f32, forward=True)
     assert fa._wide(fa._padded_head_dim(D + 64, bf16), bf16) == (D > 192)
+    assert fa._wide(fa._padded_head_dim(D + 64, f32, forward=True), f32,
+                    forward=True) == (D > 192)
 
 
 # --------------------------------------------------------------------------
@@ -412,28 +416,33 @@ def test_f32_forward_reads_head_strided_operands_in_place(monkeypatch,
         assert t.dtype == torch.float32 and t.is_contiguous()
 
 
-@pytest.mark.parametrize("D,dtype,runs", [
-    (160, torch.bfloat16, 192), (200, torch.bfloat16, 256),
-    (256, torch.bfloat16, 256), (160, torch.float32, None),
-    (320, torch.bfloat16, None)])
-def test_wide_head_dims_route_by_dtype(monkeypatch, D, dtype, runs):
-    """bf16 head dims 129-256 are zero-padded to 192 or 256 and run the
-    Hopper forward (K1), dK/dV (K2) and dQ (K3); f32 above 128 and bf16
-    above 256 take the wide route as they are, in all three passes.  The
-    outputs are cut back to D."""
+@pytest.mark.parametrize("D,dtype,fwd,bwd", [
+    (160, torch.bfloat16, 192, 192), (200, torch.bfloat16, 256, 256),
+    (256, torch.bfloat16, 256, 256), (160, torch.float32, 192, None),
+    (200, torch.float32, 256, None), (256, torch.float32, 256, None),
+    (320, torch.float32, None, None), (320, torch.bfloat16, None, None)])
+def test_wide_head_dims_route_by_dtype(monkeypatch, D, dtype, fwd, bwd):
+    """Each pass routes by its own built head dims: head dims 129-256 are
+    zero-padded to 192 or 256 and run the Hopper forward (K1) in both
+    dtypes, and the Hopper dK/dV (K2) and dQ (K3) in bf16; the f32 dK/dV
+    and dQ there take the wide route at the true D, and every pass above
+    256 does.  ``fwd`` and ``bwd`` are the head dims the Hopper kernels run
+    at (None: the wide route).  The outputs are cut back to D.  An f32
+    forward at 192 or 256 also counts under that head dim's counter."""
     calls = _record_launches(monkeypatch)
     q, k, v, d_o = (torch.zeros(1, 2, 16, D, dtype=dtype) for _ in range(4))
+    per_dim = {d: c.count for d, c in fa.LAUNCHES_F32.items()}
     o, lse = fa._flash_cuda(q, k, v, True, 0.1)
     grads = fa._flash_bwd_cuda(q, k, v, o, lse, d_o, True, 0.1)
+    assert {d: c.count - per_dim[d] for d, c in fa.LAUNCHES_F32.items()} == {
+        d: int(dtype == torch.float32 and d == fwd) for d in per_dim}
     names = [c[0] for c in calls]
-    if runs is None:
-        assert names == ["bigdl_wide_fwd", "bigdl_wide_bwd_dkv",
-                         "bigdl_wide_bwd_dq"]
-    else:
-        assert names == ["bigdl_flash_fwd", "bigdl_flash_bwd_dkv",
-                         "bigdl_flash_bwd_dq"]
+    assert names == [
+        "bigdl_wide_fwd" if fwd is None else "bigdl_flash_fwd",
+        *(["bigdl_wide_bwd_dkv", "bigdl_wide_bwd_dq"] if bwd is None
+          else ["bigdl_flash_bwd_dkv", "bigdl_flash_bwd_dq"])]
     # every entry ends (..., D, dtype, sm_scale, causal)
-    assert [c[1][-4] for c in calls] == [runs or D] * 3
+    assert [c[1][-4] for c in calls] == [fwd or D] + [bwd or D] * 2
     for t in (o, *grads):
         assert t.shape == (1, 2, 16, D)
 
