@@ -29,11 +29,11 @@ heaviest-first block order; K6 reads the 128-row query lists
 formed from bf16 wgmma products on bf16 pieces of its operands).  K7 and
 K8 at head dims 192 and 256, and in f32 (K2's and K3's f32 bodies, split
 products too), own 64 rows a block and read the lists per 64-row tile.
-The f32 K6 at head dims 192 and 256 streams each 64-key list step as
-two 32-key tiles.  The tables go to the card once per (mask, causal,
-device) and stay cached: no launch uploads anything.  Head dims above a
-pass's built ones (256; 128 for the f32 K7 and K8) take the wide route
-of ``flash_attention`` (``csrc/attn_wide.cu``) under the block mask.
+The f32 K6-K8 at head dims 192 and 256 stream each 64-row list step as
+two 32-row tiles.  The tables go to the card once per (mask, causal,
+device) and stay cached: no launch uploads anything.  Head dims above
+the built ones (256) take the wide route of ``flash_attention``
+(``csrc/attn_wide.cu``) under the block mask.
 
 ``block_sparse_attention`` and ``block_sparse_matmul`` are
 ``torch.autograd.Function``s, the counterparts of the ``custom_vjp``s
@@ -58,7 +58,8 @@ import torch
 
 from ._support import LaunchCounter, on_cpu
 from .flash_attention import (_DTYPE_CODE, _F, _I, _P, FIRST_HEAD, HEADS,
-                              _attn_bwd_plain, _attn_plain, _bwd_inputs,
+                              WIDE_F32_DIMS, _attn_bwd_plain, _attn_plain,
+                              _bwd_inputs,
                               _c_fn, _call, _causal_keep, _check_kernel_inputs,
                               _check_lse, _cut_head_dim, _empty, _f32_counter,
                               _kernel_operands, _launch_heads, _pad_head_dim,
@@ -74,12 +75,17 @@ BLOCK_ROWS = 128   # own rows of a bf16 K6-K8 block: two 64-row tiles
 
 #: launches of K6, K7, K8 and K9 (CUDA branch only)
 LAUNCHES = LaunchCounter("block_sparse_fwd")
-#: the launches of K6, among those above, in f32 at the built head dims
-#: on which the f32 forward takes 32-key tiles (no model path runs them)
-LAUNCHES_F32 = {D: LaunchCounter(f"block_sparse_fwd f32 D {D}")
-                for D in (192, 256)}
 LAUNCHES_DKV = LaunchCounter("block_sparse_bwd_dkv")
 LAUNCHES_DQ = LaunchCounter("block_sparse_bwd_dq")
+#: the launches of K6, K7 and K8, among those above, in f32 at the built
+#: head dims on which the f32 kernels stream 32-row tiles (no model path
+#: runs them)
+LAUNCHES_F32 = {D: LaunchCounter(f"block_sparse_fwd f32 D {D}")
+                for D in WIDE_F32_DIMS}
+LAUNCHES_DKV_F32 = {D: LaunchCounter(f"block_sparse_bwd_dkv f32 D {D}")
+                    for D in WIDE_F32_DIMS}
+LAUNCHES_DQ_F32 = {D: LaunchCounter(f"block_sparse_bwd_dq f32 D {D}")
+                   for D in WIDE_F32_DIMS}
 LAUNCHES_MM = LaunchCounter("block_sparse_mm")
 #: the K9 launches, among those above, that took the tile route
 LAUNCHES_MM_TILE = LaunchCounter("block_sparse_mm_tile")
@@ -589,8 +595,8 @@ def _bs_fwd_cuda(q, k, v, mask: BlockMask, causal: bool, sm_scale: float
     _check_kernel_inputs("block_sparse_attention", q, k, v)
     tab = _attention_tables(mask, causal, q.device)
     D_true = q.shape[-1]
-    Dp = _padded_head_dim(D_true, q.dtype, forward=True)
-    if _wide(Dp, q.dtype, forward=True):
+    Dp = _padded_head_dim(D_true)
+    if _wide(Dp):
         return _wide_fwd(q, k, v, causal, sm_scale, LAUNCHES,
                          _wide_block_mask(tab, mask))
     q, k, v = _kernel_operands(*(_pad_head_dim(t, Dp) for t in (q, k, v)),
@@ -615,12 +621,13 @@ def _launch_bs_dkv(q, k, v, do, lse, delta, mask: BlockMask, causal: bool,
     reads."""
     tab = _attention_tables(mask, causal, q.device)
     B, H, T, D = q.shape
-    if _wide(D, q.dtype):
+    if _wide(D):
         return _wide_dkv(q, k, v, do, lse, delta, causal, sm_scale,
                          LAUNCHES_DKV, _wide_block_mask(tab, mask))
     q, k, v, do = _kernel_operands(q, k, v, do, tma=True)
     dk, dv = _empty(k), _empty(v)
-    _launch_heads("block_sparse_bwd_dkv", (LAUNCHES_DKV,),
+    _launch_heads("block_sparse_bwd_dkv",
+                  (LAUNCHES_DKV, *_f32_counter(LAUNCHES_DKV_F32, q)),
                   _attn_fn("bigdl_bs_bwd_dkv", 14),
                   [*(t.data_ptr() for t in (q, k, v, do, lse, delta, dk, dv)),
                    *_table_args(tab, _key_tables(q.dtype, D), mask, q, k,
@@ -635,12 +642,13 @@ def _launch_bs_dq(q, k, v, do, lse, delta, mask: BlockMask, causal: bool,
     read as it reads them."""
     tab = _attention_tables(mask, causal, q.device)
     B, H, T, D = q.shape
-    if _wide(D, q.dtype):
+    if _wide(D):
         return _wide_dq(q, k, v, do, lse, delta, causal, sm_scale,
                         LAUNCHES_DQ, _wide_block_mask(tab, mask))
     q, k, v, do = _kernel_operands(q, k, v, do, tma=True)
     dq = _empty(q)
-    _launch_heads("block_sparse_bwd_dq", (LAUNCHES_DQ,),
+    _launch_heads("block_sparse_bwd_dq",
+                  (LAUNCHES_DQ, *_f32_counter(LAUNCHES_DQ_F32, q)),
                   _attn_fn("bigdl_bs_bwd_dq", 13),
                   [*(t.data_ptr() for t in (q, k, v, do, lse, delta, dq)),
                    *_table_args(tab, _query_tables(q.dtype, D), mask, q, k,
@@ -654,12 +662,12 @@ def _bs_bwd_cuda(q, k, v, o, lse, d_o, mask: BlockMask, causal: bool,
                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Launch K7 then K8 on the current stream of q's device (a head dim
     between the built ones zero-padded, the gradients cut back; above
-    them the wide route, at f32 129-256 too, whose forward runs K6)."""
+    them the wide route)."""
     _check_kernel_inputs("block_sparse_attention backward", q, k, v)
     _check_lse("block_sparse_attention backward", lse)
     do, delta = _bwd_inputs(q, o, d_o)
     D = q.shape[-1]
-    Dp = _padded_head_dim(D, q.dtype)
+    Dp = _padded_head_dim(D)
     q, k, v, do = (_pad_head_dim(t, Dp) for t in (q, k, v, do))
     dk, dv = _launch_bs_dkv(q, k, v, do, lse, delta, mask, causal, sm_scale)
     dq = _launch_bs_dq(q, k, v, do, lse, delta, mask, causal, sm_scale)

@@ -1,6 +1,6 @@
 // The attention backward for Hopper (sm_90a): the dK/dV and dQ kernels
 // that flash_bwd.cu runs as K2 and K3 and block_sparse.cu as K7 and K8, in
-// bf16 and in f32 (D 16-128).  Both pairs compute the same
+// bf16 and in f32 (D 16-256).  Both pairs compute the same
 // math; only the sweep differs, so the body is written once here and
 // templated on a sweep policy.
 //
@@ -53,6 +53,17 @@
 //     Q tile by warpgroup 0, V and each dO tile by 1); P^T and dS^T are
 //     split in registers; dK and dV leave in f32.  A tile takes 6 bytes an
 //     element, so 3 stages below D 128 and 1 at D 128 (209 KB).
+//   * dK/dV in f32 at D 192 and 256 (the same kernel, DkvCfg::WIDE): K, V
+//     and 64-row Q and dO tiles in three pieces would take 384 KB at D 256,
+//     so K and V stay f32 (128 KB) and each warpgroup splits its own
+//     operand into wgmma's register A operand 32 columns at a time, for
+//     every Q or dO tile, S^T and dP^T summed from a fresh partial per k16
+//     step (hopper_common.cuh, wide_scores with kStep: wgmma truncates
+//     what it accumulates).  Q and dO stream as 32-row tiles split in
+//     place (48 KB each at D 256, one stage), each 64-row step of a sweep
+//     as two, and P^T passes from warpgroup 0 to 1 in the Q tile's third
+//     pieces, which only S^T reads, so no buffer of its own: 230,688 B at
+//     D 256.
 //   * dQ (bwd_dq_wgmma_kernel) up to D 128: the block owns 128 query rows;
 //     Q and dO are loaded once; 64-row K and V tiles stream through 4
 //     stages.  S = Q . K^T and dP = dO . V^T, dS packed as the A operand of
@@ -76,6 +87,12 @@
 //     once, K and V tiles on barriers of their own (V released once dP is
 //     formed, K after dS . K), split in place by both warpgroups together.
 //     4 stages to D 32, 3 at D 64, 1 at D 128 (197,680 B).
+//   * dQ in f32 at D 192 and 256 (the same kernel, DqCfg::WIDE): Q and dO
+//     stay f32, split into registers 32 columns at a time for every K or V
+//     tile (wide_scores, a partial per k16 step), and the K and V tiles
+//     are of 32 keys, 16 a warpgroup (m64n16 products), split in place:
+//     one stage, 230,448 B at D 256.  Each warpgroup keeps all of dQ (D /
+//     2 f32) beside one k16 step's pieces of its A operand.
 //   * A zero-filled row scores 0 and exp(0 - LSE) is not 0, so the masks
 //     (causal, ragged, block) are applied on edge and partial tiles.
 //
@@ -140,27 +157,35 @@ constexpr int kDkvOwnRows = kIsBf16<T> && D <= 128 ? kBlockRows : kTileRows;
 // three bf16 pieces (split_tile: pieces 1 and 2 where the f32 bytes lay,
 // piece 3 after them; panels of the bf16 geometry, PANEL_KV and PANEL_T
 // bytes each), so an f32 tile takes 6 bytes an element.  In f32 one stage
-// at D 128 (209 KB), three below.
+// at D 128 (209 KB), three below.  In f32 at D 192 and 256 (WIDE) the K
+// and V rows stay f32 (4 bytes an element; split into registers per panel,
+// wide_scores), the Q and dO tiles are of kWideRows rows, one stage, and
+// P^T passes in the Q tile's third pieces, which only S^T reads (230,688 B
+// at D 256).
 template <int D, typename T = __nv_bfloat16>
 struct DkvCfg : Panels<D> {
   using L = Panels<D, sizeof(T)>;
+  static constexpr bool WIDE = !kIsBf16<T> && D > 128;
   static constexpr int OWN = kDkvOwnRows<D, T>;
   static constexpr int ELEM = kIsBf16<T> ? 2 : 6;   // bytes an element takes in shared memory
+  static constexpr int TILE_ROWS = WIDE ? kWideRows : kTileRows;   // rows of a Q or dO tile
   static constexpr int STAGES = !kIsBf16<T> ? (D <= 64 ? 3 : 1)
                                 : OWN == kBlockRows || D <= 192 ? 3 : 2;
   static constexpr int KV_LOAD = OWN * D * (int)sizeof(T);   // the K or the V rows
-  static constexpr int KV_BYTES = OWN * D * ELEM;
+  static constexpr int KV_BYTES = OWN * D * (WIDE ? 4 : ELEM);
   static constexpr int PANEL_KV = OWN * Panels<D>::RB;
   static constexpr int LPANEL_KV = OWN * L::RB;
-  static constexpr int TILE_LOAD = kTileRows * D * (int)sizeof(T);   // one Q or dO tile
-  static constexpr int TILE_BYTES = kTileRows * D * ELEM;
-  static constexpr int PANEL_T = kTileRows * Panels<D>::RB;
-  static constexpr int LPANEL_T = kTileRows * L::RB;
-  static constexpr int PT_BYTES = OWN == kTileRows ? kTileRows * kTileRows * 4 : 0;
+  static constexpr int TILE_LOAD = TILE_ROWS * D * (int)sizeof(T);   // one Q or dO tile
+  static constexpr int TILE_BYTES = TILE_ROWS * D * ELEM;
+  static constexpr int PANEL_T = TILE_ROWS * Panels<D>::RB;
+  static constexpr int LPANEL_T = TILE_ROWS * L::RB;
+  static constexpr int PT_BYTES = OWN == kTileRows && !WIDE ? kTileRows * kTileRows * 4 : 0;
   static constexpr size_t SMEM = 1024 + 2 * KV_BYTES + STAGES * (2 * TILE_BYTES) + PT_BYTES
-                                 + STAGES * 2 * kTileRows * sizeof(float)
+                                 + STAGES * 2 * TILE_ROWS * sizeof(float)
                                  + sizeof(uint64_t) * (1 + 2 * STAGES)
                                  + STAGES * sizeof(Step);
+  static_assert(!WIDE || (D <= 256 && kTileRows * TILE_ROWS * 4 <= TILE_ROWS * D * 2),
+                "the wide f32 dK/dV hands P^T over in a Q tile's third pieces");
 };
 
 // named barriers of the 64-row dK/dV block (1 and 2 are the consumers'
@@ -185,23 +210,28 @@ constexpr int kDqOwnRows = kIsBf16<T> && D <= 128 ? kBlockRows : kTileRows;
 // (Panels<D, 4>, *_LOAD bytes), split in place into three bf16 pieces as
 // in DkvCfg (6 bytes an element), and K and V have barriers of their own
 // (KV_BARS), so the next V lands while dS . K still reads K.  In f32 one
-// stage at D 128 (197,680 B), three at D 64, four below.
+// stage at D 128 (197,680 B), three at D 64, four below.  In f32 at D 192
+// and 256 (WIDE) the Q and dO rows stay f32 (split into registers per
+// panel, wide_scores) and the K and V tiles are of kWideRows rows, one
+// stage (230,448 B at D 256).
 template <int D, typename T = __nv_bfloat16>
 struct DqCfg : Panels<D> {
   using L = Panels<D, sizeof(T)>;
   static constexpr bool F32 = !kIsBf16<T>;
+  static constexpr bool WIDE = F32 && D > 128;
   static constexpr int OWN = kDqOwnRows<D, T>;
   static constexpr int ELEM = F32 ? 6 : 2;   // bytes an element takes in shared memory
+  static constexpr int TILE_ROWS = WIDE ? kWideRows : kTileRows;   // rows of a K or V tile
   static constexpr int STAGES = F32 ? (D <= 32 ? 4 : D <= 64 ? 3 : 1)
                                 : OWN == kBlockRows ? 4 : D <= 192 ? 3 : 2;
-  static constexpr int Q_BYTES = OWN * D * ELEM;          // the Q or the dO rows
+  static constexpr int Q_BYTES = OWN * D * (WIDE ? 4 : ELEM);   // the Q or the dO rows
   static constexpr int Q_LOAD = OWN * D * (int)sizeof(T);
   static constexpr int PANEL_Q = OWN * Panels<D>::RB;
   static constexpr int LPANEL_Q = OWN * L::RB;
-  static constexpr int TILE_BYTES = kTileRows * D * ELEM;  // one K or V tile
-  static constexpr int TILE_LOAD = kTileRows * D * (int)sizeof(T);
-  static constexpr int PANEL_T = kTileRows * Panels<D>::RB;
-  static constexpr int LPANEL_T = kTileRows * L::RB;
+  static constexpr int TILE_BYTES = TILE_ROWS * D * ELEM;  // one K or V tile
+  static constexpr int TILE_LOAD = TILE_ROWS * D * (int)sizeof(T);
+  static constexpr int PANEL_T = TILE_ROWS * Panels<D>::RB;
+  static constexpr int LPANEL_T = TILE_ROWS * L::RB;
   static constexpr bool HANDOVER = !F32 && OWN == kTileRows;   // dq_split_consume's P and dS
   static constexpr int DS_BYTES = HANDOVER ? kTileRows * kTileRows * 2 : 0;
   static constexpr int PT_BYTES = HANDOVER ? kTileRows * kTileRows * 4 : 0;
@@ -495,22 +525,37 @@ __device__ __forceinline__ void dkv_split_consume(const Sweep& sw, unsigned char
   store_rows<D, C::PANEL_KV>(rows, wg == 0 ? dv : dk, k0, S_len);
 }
 
-// The two consumer warpgroups of the f32 dK/dV kernel (D 16-128), over the
-// block's 64 key rows: dkv_split_consume's split of the work (warpgroup 0
-// S^T, P^T and dV; warpgroup 1 dP^T, dS^T and dK; P^T handed over in f32),
-// every product of f32 operands formed from bf16 products on the operands'
-// bf16 pieces (hopper_common.cuh): six for S^T and dP^T (three pieces a
-// side), five for dV and dK (P^T and dS^T in three pieces, dO and Q in
-// their first two).  The f32 tiles are split in place, each by the
-// warpgroup whose scores read it first: warpgroup 0 splits K once and each
-// Q tile, warpgroup 1 V and each dO tile.  P^T and dS^T are split in
-// registers.  Besides kPtFull and kPtEmpty one named barrier orders the
-// splits between warpgroups: kDoSplit (warpgroup 1 arrives after it has
-// read P^T, 0 syncs before dV += P^T . dO); Q, split by warpgroup 0 before
-// it hands P^T over, is ready when warpgroup 1 passes kPtFull.  Arriving
-// only after kPtFull, warpgroup 1 cannot arrive twice on kDoSplit before
-// warpgroup 0 has synced once.  dK and dV leave in f32 straight from the
-// accumulators.
+// The it-th streamed tile of a sweep whose steps are 64-row tiles, each
+// streamed as kSub tiles of 64 / kSub rows (the wide f32 blocks' 32-row
+// tiles: kSub 2), from the step of its 64-row tile: its index among the
+// streamed tiles, its flags those of the step.
+template <int kSub>
+__device__ __forceinline__ Step sub_step(Step step, int it) {
+  if constexpr (kSub > 1) step.tile = step.tile * kSub + it % kSub;
+  return step;
+}
+
+// The two consumer warpgroups of the f32 dK/dV kernel, over the block's 64
+// key rows: dkv_split_consume's split of the work (warpgroup 0 S^T, P^T
+// and dV; warpgroup 1 dP^T, dS^T and dK; P^T handed over in f32), every
+// product of f32 operands formed from bf16 products on the operands' bf16
+// pieces (hopper_common.cuh): six for S^T and dP^T (three pieces a side),
+// five for dV and dK (P^T and dS^T in three pieces, dO and Q in their
+// first two).  The f32 tiles are split in place, each by the warpgroup
+// whose scores read it first: warpgroup 0 splits K once and each Q tile,
+// warpgroup 1 V and each dO tile.  P^T and dS^T are split in registers.
+// Besides kPtFull and kPtEmpty one named barrier orders the splits between
+// warpgroups: kDoSplit (warpgroup 1 arrives after it has read P^T, 0 syncs
+// before dV += P^T . dO); Q, split by warpgroup 0 before it hands P^T
+// over, is ready when warpgroup 1 passes kPtFull.  Arriving only after
+// kPtFull, warpgroup 1 cannot arrive twice on kDoSplit before warpgroup 0
+// has synced once.  dK and dV leave in f32 straight from the accumulators.
+// At D 192 and 256 (C::WIDE) K and V stay f32: each warpgroup splits its
+// own operand into registers 32 columns at a time for every 32-row Q or dO
+// tile, a fresh partial of S^T or dP^T per k16 step (wide_scores); P^T passes
+// in the Q tile's third pieces, which S^T alone reads and warpgroup 0's
+// split of the next Q tile overwrites only after the stage's release (one
+// stage), so kPtEmpty is not used.
 template <int D, class Sweep>
 __device__ __forceinline__ void dkv_f32_consume(const Sweep& sw, unsigned char* k_s,
                                                 unsigned char* v_s, unsigned char* q_s,
@@ -522,6 +567,7 @@ __device__ __forceinline__ void dkv_f32_consume(const Sweep& sw, unsigned char* 
                                                 int b, int n, int T_len, int S_len,
                                                 float scale_log2, float sm_scale, int causal) {
   using C = DkvCfg<D, float>;
+  constexpr int TR = C::TILE_ROWS;
   const int wg = threadIdx.x / 128;
   const int tid = threadIdx.x % 128;
   const int warp = tid / 32;
@@ -536,46 +582,56 @@ __device__ __forceinline__ void dkv_f32_consume(const Sweep& sw, unsigned char* 
 
   if (n > 0) {
     mbar_wait(kv_full, 0);
-    split_tile<D>(wg == 0 ? k_s : v_s, 1 + wg);   // each warpgroup's own operand
-    fence_proxy_async();
-    named_barrier_sync(1 + wg, 128);
+    if constexpr (!C::WIDE) {
+      split_tile<D>(wg == 0 ? k_s : v_s, 1 + wg);   // each warpgroup's own operand
+      fence_proxy_async();
+      named_barrier_sync(1 + wg, 128);
+    }
   }
   for (int it = 0; it < n; ++it) {
     const int s = it % C::STAGES;
     Step step;
-    if constexpr (!Sweep::kList) step = sw.dkv_step(b, it, kTileRows);
+    if constexpr (!Sweep::kList)
+      step = sub_step<kTileRows / TR>(sw.dkv_step(b, it / (kTileRows / TR), kTileRows), it);
     mbar_wait(&full[s], (it / C::STAGES) & 1);
     if constexpr (Sweep::kList) step = step_s[s];   // staged by the producer
-    const int q0 = step.tile * kTileRows;
+    const int q0 = step.tile * TR;
     unsigned char* q_t = q_s + s * C::TILE_BYTES;
     unsigned char* do_t = do_s + s * C::TILE_BYTES;
-    const float* lse_t = lse_s + s * kTileRows;
-    const float* delta_t = delta_s + s * kTileRows;
+    const float* lse_t = lse_s + s * TR;
+    const float* delta_t = delta_s + s * TR;
     const bool part = Sweep::kList && (step.flags & kPartial);
-    const bool edge = part || q0 + kTileRows > T_len || (causal && q0 < k0 + 63);
-    split_tile<D>(wg == 0 ? q_t : do_t, 1 + wg);
+    const bool edge = part || q0 + TR > T_len || (causal && q0 < k0 + 63);
+    split_tile<D, 128, TR>(wg == 0 ? q_t : do_t, 1 + wg);
     fence_proxy_async();
     named_barrier_sync(1 + wg, 128);
-    float sc[kTileRows / 2];
-    uint32_t a1[kTileRows / 4], a2[kTileRows / 4], a3[kTileRows / 4];
+    float sc[TR / 2];
+    uint32_t a1[TR / 4], a2[TR / 4], a3[TR / 4];
     // S^T = K . Q^T (warpgroup 0), dP^T = V . dO^T (1), operands chosen by
     // warpgroup, as in dkv_split_consume
-    wgmma_fence();
-    wgmma_scores_split<D, C::PANEL_KV, C::PANEL_T, kTileRows * D * 4>(
-        sc, wg == 0 ? k_s : v_s, wg == 0 ? q_t : do_t);
-    wgmma_commit();
-    wgmma_wait<0>();
+    if constexpr (C::WIDE) {
+      wide_scores<D, kWideRows, true>(sc, wg == 0 ? k_s : v_s, wg == 0 ? q_t : do_t);
+    } else {
+      wgmma_fence();
+      wgmma_scores_split<D, C::PANEL_KV, C::PANEL_T, kTileRows * D * 4>(
+          sc, wg == 0 ? k_s : v_s, wg == 0 ? q_t : do_t);
+      wgmma_commit();
+      wgmma_wait<0>();
 #pragma unroll
-    for (int i = 0; i < kTileRows / 2; ++i) fence_regs(sc[i]);
+      for (int i = 0; i < kTileRows / 2; ++i) fence_regs(sc[i]);
+    }
+    // P^T in f32 for warpgroup 1: its own buffer, or at D 192 and 256 the
+    // Q tile's third pieces (S^T has read them)
+    float* pt = C::WIDE ? reinterpret_cast<float*>(q_t + TR * D * 4) : pt_s;
 
     if (wg == 0) {
       // P^T, masked as dkv_split_consume masks it
 #pragma unroll
-      for (int i = 0; i < kTileRows / 2; ++i)
+      for (int i = 0; i < TR / 2; ++i)
         sc[i] = exp2f(fmaf(sc[i], scale_log2, -lse_t[8 * (i / 4) + 2 * t + (i & 1)]));
       if (edge) {
 #pragma unroll
-        for (int i = 0; i < kTileRows / 2; ++i) {
+        for (int i = 0; i < TR / 2; ++i) {
           const int q = q0 + 8 * (i / 4) + 2 * t + (i & 1);
           const int key = key0 + 8 * ((i >> 1) & 1);
           if (q >= T_len || (causal && key > q)) sc[i] = 0.0f;
@@ -583,7 +639,7 @@ __device__ __forceinline__ void dkv_f32_consume(const Sweep& sw, unsigned char* 
         if constexpr (Sweep::kList) {
           if (part) {
 #pragma unroll
-            for (int i = 0; i < kTileRows / 2; ++i) {
+            for (int i = 0; i < TR / 2; ++i) {
               const int q = q0 + 8 * (i / 4) + 2 * t + (i & 1);
               const int key = key0 + 8 * ((i >> 1) & 1);
               if (q < T_len && (key >= S_len || !sw.keep(q, key))) sc[i] = 0.0f;
@@ -591,12 +647,14 @@ __device__ __forceinline__ void dkv_f32_consume(const Sweep& sw, unsigned char* 
           }
         }
       }
-      if (it > 0) named_barrier_sync(kPtEmpty, kConsumers);
+      if constexpr (!C::WIDE) {
+        if (it > 0) named_barrier_sync(kPtEmpty, kConsumers);
+      }
 #pragma unroll
-      for (int i = 0; i < kTileRows / 2; ++i) pt_s[i * 128 + tid] = sc[i];
+      for (int i = 0; i < TR / 2; ++i) pt[i * 128 + tid] = sc[i];
       named_barrier_arrive(kPtFull, kConsumers);
 #pragma unroll
-      for (int i = 0; i < kTileRows / 4; ++i)
+      for (int i = 0; i < TR / 4; ++i)
         split_bf16x3(sc[2 * i], sc[2 * i + 1], a1[i], a2[i], a3[i]);
       named_barrier_sync(kDoSplit, kConsumers);
     } else {
@@ -606,22 +664,24 @@ __device__ __forceinline__ void dkv_f32_consume(const Sweep& sw, unsigned char* 
       // tile, dP^T (NaN from a dead key row of V) is replaced by delta
       // first, so that dS^T is 0 by select
 #pragma unroll
-      for (int i = 0; i < kTileRows / 4; ++i) {
+      for (int i = 0; i < TR / 4; ++i) {
         const int c = 8 * (i / 2) + 2 * t;
         float ds[2];
 #pragma unroll
         for (int e = 0; e < 2; ++e) {
-          const float p = pt_s[(2 * i + e) * 128 + tid];
+          const float p = pt[(2 * i + e) * 128 + tid];
           const float dp = edge && p == 0.0f ? delta_t[c + e] : sc[2 * i + e];
           ds[e] = p * (dp - delta_t[c + e]);
         }
         split_bf16x3(ds[0], ds[1], a1[i], a2[i], a3[i]);
       }
-      if (it + 1 < n) named_barrier_arrive(kPtEmpty, kConsumers);
+      if constexpr (!C::WIDE) {
+        if (it + 1 < n) named_barrier_arrive(kPtEmpty, kConsumers);
+      }
     }
     // dV += P^T . dO (warpgroup 0), dK += dS^T . Q (1)
     wgmma_fence();
-    wgmma_accumulate_split<D, C::PANEL_T>(acc, a1, a2, a3, wg == 0 ? do_t : q_t);
+    wgmma_accumulate_split<D, C::PANEL_T, 0, TR / 16>(acc, a1, a2, a3, wg == 0 ? do_t : q_t);
     wgmma_commit();
     wgmma_wait<0>();
 #pragma unroll
@@ -651,8 +711,9 @@ __device__ __forceinline__ void dkv_f32_consume(const Sweep& sw, unsigned char* 
 
 // The dK/dV block over operands of type T (bf16, or f32 on the split
 // products of dkv_f32_consume): grid (B*H, ceil(S / own rows)); the sweep
-// maps blockIdx.y to a block.  The kernels below pass their tensor maps'
-// addresses.
+// maps blockIdx.y to a block.  The sweep's steps are 64-row tiles, streamed
+// as kSub tiles of C::TILE_ROWS rows each (2 in f32 at D 192 and 256).  The
+// kernels below pass their tensor maps' addresses.
 template <int D, class Sweep, typename T>
 __device__ __forceinline__ void bwd_dkv_body(const CUtensorMap* tm_q, const CUtensorMap* tm_do,
                                              const CUtensorMap* tm_k, const CUtensorMap* tm_v,
@@ -663,15 +724,17 @@ __device__ __forceinline__ void bwd_dkv_body(const CUtensorMap* tm_q, const CUte
                                              int h0, const Sweep& sw) {
   using C = DkvCfg<D, T>;
   using L = typename C::L;   // TMA's panels
+  constexpr int TR = C::TILE_ROWS;
+  constexpr int kSub = kTileRows / TR;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* k_s = align1024(smem_raw);             // [panel][own rows]
   unsigned char* v_s = k_s + C::KV_BYTES;
-  unsigned char* q_s = v_s + C::KV_BYTES;               // [stage][panel][64 rows]
+  unsigned char* q_s = v_s + C::KV_BYTES;               // [stage][panel][TR rows]
   unsigned char* do_s = q_s + C::STAGES * C::TILE_BYTES;
   float* pt_s = reinterpret_cast<float*>(do_s + C::STAGES * C::TILE_BYTES);  // 64 own rows
-  float* lse_s = pt_s + C::PT_BYTES / 4;                // [stage][64]
-  float* delta_s = lse_s + C::STAGES * kTileRows;
-  uint64_t* kv_full = reinterpret_cast<uint64_t*>(delta_s + C::STAGES * kTileRows);
+  float* lse_s = pt_s + C::PT_BYTES / 4;                // [stage][TR]
+  float* delta_s = lse_s + C::STAGES * TR;
+  uint64_t* kv_full = reinterpret_cast<uint64_t*>(delta_s + C::STAGES * TR);
   uint64_t* full = kv_full + 1;
   uint64_t* empty = full + C::STAGES;
   Step* step_s = reinterpret_cast<Step*>(empty + C::STAGES);   // [stage], list sweeps
@@ -680,7 +743,7 @@ __device__ __forceinline__ void bwd_dkv_body(const CUtensorMap* tm_q, const CUte
   const int h = bh % H, bb = bh / H;
   const int b = sw.dkv_block();
   const int k0 = b * C::OWN;
-  const int n = sw.dkv_count(b, T_len, C::OWN);   // 0: dK = dV = 0
+  const int n = sw.dkv_count(b, T_len, C::OWN) * kSub;   // 0: dK = dV = 0
 
   if (threadIdx.x == 0) {
     mbar_init(kv_full, 1);
@@ -709,24 +772,24 @@ __device__ __forceinline__ void bwd_dkv_body(const CUtensorMap* tm_q, const CUte
       const float* delta_h = delta + (size_t)bh * T_len;
       for (int it = 0; it < n; ++it) {
         const int s = it % C::STAGES;
-        const Step step = sw.dkv_step(b, it, C::OWN);
-        const int q0 = step.tile * kTileRows;
+        const Step step = sub_step<kSub>(sw.dkv_step(b, it / kSub, C::OWN), it);
+        const int q0 = step.tile * TR;
         mbar_wait(&empty[s], ((it / C::STAGES) & 1) ^ 1);   // the first round passes
-        for (int c = lane; c < kTileRows; c += 32) {
+        for (int c = lane; c < TR; c += 32) {
           const bool in = q0 + c < T_len;
-          lse_s[s * kTileRows + c] = (in ? lse_h[q0 + c] : BIG_LSE) * kLog2e;
-          delta_s[s * kTileRows + c] = in ? delta_h[q0 + c] : 0.0f;
+          lse_s[s * TR + c] = (in ? lse_h[q0 + c] : BIG_LSE) * kLog2e;
+          delta_s[s * TR + c] = in ? delta_h[q0 + c] : 0.0f;
         }
         if constexpr (Sweep::kList) {
           if (lane == 0) step_s[s] = step;
           if (step.flags & kPartialAny) {   // a partial pair: live rows only
-            const unsigned long long live = sw.live(b, it);
-            stage_live_rows<D, C::LPANEL_T>(q_s + s * C::TILE_BYTES,
-                                            sw.src_a + sw.stride_a.head(bh, H), sw.stride_a.r,
-                                            q0, T_len, live, lane);
-            stage_live_rows<D, C::LPANEL_T>(do_s + s * C::TILE_BYTES,
-                                            sw.src_b + sw.stride_b.head(bh, H), sw.stride_b.r,
-                                            q0, T_len, live, lane);
+            const unsigned long long live = sw.live(b, it / kSub) >> (TR * (it % kSub));
+            stage_live_rows<D, C::LPANEL_T, T, TR>(q_s + s * C::TILE_BYTES,
+                                                   sw.src_a + sw.stride_a.head(bh, H),
+                                                   sw.stride_a.r, q0, T_len, live, lane);
+            stage_live_rows<D, C::LPANEL_T, T, TR>(do_s + s * C::TILE_BYTES,
+                                                   sw.src_b + sw.stride_b.head(bh, H),
+                                                   sw.stride_b.r, q0, T_len, live, lane);
             fence_proxy_async();
             mbar_arrive(&full[s]);
             continue;
@@ -774,8 +837,8 @@ bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
                   sm_scale, causal, H, h0, sw);
 }
 
-// dK/dV in f32 (K2, K7 at D 16-128), each product from bf16 products on
-// three bf16 pieces of its operands
+// dK/dV in f32 (K2, K7), each product from bf16 products on three bf16
+// pieces of its operands
 template <int D, class Sweep>
 __global__ void __launch_bounds__(kBwdThreads, 1)
 bwd_dkv_split_kernel(const __grid_constant__ CUtensorMap tm_q,
@@ -1060,10 +1123,10 @@ __device__ __forceinline__ void dq_split_consume(const Sweep& sw, unsigned char*
   }
 }
 
-// The two consumer warpgroups of the f32 dQ kernel (D 16-128), over the
-// block's 64 query rows q0 .. q0 + 63 (this thread holds rows row0 and row0
-// + 8 of each accumulator).  They split each 64-key tile by keys: warpgroup
-// w takes keys 32 w .. 32 w + 31 of it, and forms S = Q . K^T and dP = dO .
+// The two consumer warpgroups of the f32 dQ kernel, over the block's 64
+// query rows q0 .. q0 + 63 (this thread holds rows row0 and row0 + 8 of
+// each accumulator).  They split each 64-key tile by keys: warpgroup w
+// takes keys 32 w .. 32 w + 31 of it, and forms S = Q . K^T and dP = dO .
 // V^T over them (m64n32 products), P and dS = P * (dP - delta) in its own
 // registers (masked as dq_split_consume masks them), and dQ += dS . K over
 // the same keys, into its own D / 2 f32 of all 64 rows; nothing crosses
@@ -1076,7 +1139,11 @@ __device__ __forceinline__ void dq_split_consume(const Sweep& sw, unsigned char*
 // full_v[s], released on empty_v[s] once dP is formed.  The two sums meet
 // once, at the end, in the drained ring (barrier kDqSum), added in one
 // order for every element, and dQ * sm_scale leaves in f32 from warpgroup
-// 0's accumulators.
+// 0's accumulators.  At D 192 and 256 (C::WIDE) Q and dO stay f32 and the
+// K and V tiles are of 32 keys, 16 a warpgroup (m64n16 products): each
+// warpgroup splits Q, then dO, into registers 32 columns at a time for
+// every tile, a fresh partial of S or dP per k16 step (wide_scores), V
+// split once S is formed.
 template <int D, class Sweep>
 __device__ __forceinline__ void dq_f32_consume(const Sweep& sw, unsigned char* q_s,
                                                unsigned char* do_s, unsigned char* k_s,
@@ -1090,8 +1157,9 @@ __device__ __forceinline__ void dq_f32_consume(const Sweep& sw, unsigned char* q
                                                int causal) {
   using C = DqCfg<D, float>;
   using P = Panels<D>;
-  constexpr int THIRD = kTileRows * D * 4;   // a 64-row tile's third pieces, after its f32 bytes
-  constexpr int KH = kTileRows / 2;          // the keys of a warpgroup's half of a tile
+  constexpr int TR = C::TILE_ROWS;
+  constexpr int THIRD = TR * D * 4;   // a tile's third pieces, after its f32 bytes
+  constexpr int KH = TR / 2;          // the keys of a warpgroup's half of a tile
   const int wg = threadIdx.x / 128;
   const int tid = threadIdx.x % 128;
   const int warp = tid / 32;
@@ -1116,42 +1184,54 @@ __device__ __forceinline__ void dq_f32_consume(const Sweep& sw, unsigned char* q
 
   if (n > 0) {
     mbar_wait(q_full, 0);
-    split_tile<D>(wg == 0 ? q_s : do_s, 1 + wg);
-    fence_proxy_async();
-    named_barrier_sync(kDqSplit, kConsumers);   // both warpgroups read both
+    if constexpr (!C::WIDE) {
+      split_tile<D>(wg == 0 ? q_s : do_s, 1 + wg);
+      fence_proxy_async();
+      named_barrier_sync(kDqSplit, kConsumers);   // both warpgroups read both
+    }
   }
   for (int it = 0; it < n; ++it) {
     const int s = it % C::STAGES;
     const uint32_t parity = (it / C::STAGES) & 1;
     Step step;
-    if constexpr (!Sweep::kList) step = sw.dq_step(b, it, kTileRows);
+    if constexpr (!Sweep::kList)
+      step = sub_step<kTileRows / TR>(sw.dq_step(b, it / (kTileRows / TR), kTileRows), it);
     mbar_wait(&full[s], parity);
     if constexpr (Sweep::kList) step = step_s[s];   // staged by the producer
     unsigned char* k_t = k_s + s * C::TILE_BYTES;
     unsigned char* v_t = v_s + s * C::TILE_BYTES;
-    const int kw = step.tile * kTileRows + KH * wg;   // this warpgroup's first key
+    const int kw = step.tile * TR + KH * wg;   // this warpgroup's first key
     const bool part = Sweep::kList && (step.flags & kPartial);
     const bool edge = part || kw + KH > S_len || (causal && kw + KH - 1 > q0);
-    split_tile<D, kConsumers>(k_t, kDqSplit);
+    split_tile<D, kConsumers, TR>(k_t, kDqSplit);
     fence_proxy_async();
     named_barrier_sync(kDqSplit, kConsumers);
     // S = Q . K^T over this warpgroup's keys; the products take their keys
     // by warpgroup, not in branches (a wgmma on a divergent path is
     // serialised, ptxas C7520)
     float sc[KH / 2], dp[KH / 2];
-    wgmma_fence();
-    wgmma_scores_split<D, C::PANEL_Q, C::PANEL_T, THIRD, KH>(sc, q_s, k_t + KH * wg * P::RB);
-    wgmma_commit();
-    mbar_wait(&full_v[s], parity);
-    split_tile<D, kConsumers>(v_t, kDqSplit);   // while S runs
-    fence_proxy_async();
-    named_barrier_sync(kDqSplit, kConsumers);
-    wgmma_fence();
-    wgmma_scores_split<D, C::PANEL_Q, C::PANEL_T, THIRD, KH>(dp, do_s, v_t + KH * wg * P::RB);
-    wgmma_commit();
-    wgmma_wait<1>();
+    if constexpr (C::WIDE) {
+      wide_scores<D, KH, true>(sc, q_s, k_t + KH * wg * P::RB);
+      mbar_wait(&full_v[s], parity);
+      split_tile<D, kConsumers, TR>(v_t, kDqSplit);
+      fence_proxy_async();
+      named_barrier_sync(kDqSplit, kConsumers);
+      wide_scores<D, KH, true>(dp, do_s, v_t + KH * wg * P::RB);
+    } else {
+      wgmma_fence();
+      wgmma_scores_split<D, C::PANEL_Q, C::PANEL_T, THIRD, KH>(sc, q_s, k_t + KH * wg * P::RB);
+      wgmma_commit();
+      mbar_wait(&full_v[s], parity);
+      split_tile<D, kConsumers>(v_t, kDqSplit);   // while S runs
+      fence_proxy_async();
+      named_barrier_sync(kDqSplit, kConsumers);
+      wgmma_fence();
+      wgmma_scores_split<D, C::PANEL_Q, C::PANEL_T, THIRD, KH>(dp, do_s, v_t + KH * wg * P::RB);
+      wgmma_commit();
+      wgmma_wait<1>();
 #pragma unroll
-    for (int i = 0; i < KH / 2; ++i) fence_regs(sc[i]);
+      for (int i = 0; i < KH / 2; ++i) fence_regs(sc[i]);
+    }
 
     // P = exp(S * scale - LSE), the masks first, in loops of their own (a
     // killed score to -inf, so its P is 0); element i is query row row0 + 8
@@ -1176,9 +1256,11 @@ __device__ __forceinline__ void dq_f32_consume(const Sweep& sw, unsigned char* q
 #pragma unroll
     for (int i = 0; i < KH / 2; ++i)
       sc[i] = exp2f(fmaf(sc[i], scale_log2, -lse_r[(i >> 1) & 1]));
-    wgmma_wait<0>();
+    if constexpr (!C::WIDE) {
+      wgmma_wait<0>();
 #pragma unroll
-    for (int i = 0; i < KH / 2; ++i) fence_regs(dp[i]);
+      for (int i = 0; i < KH / 2; ++i) fence_regs(dp[i]);
+    }
     mbar_arrive(&empty_v[s]);   // V is read: the next V may land
     // dS = P * (dP - delta); where P is 0 on an edge or partial tile, dP
     // (NaN from a dead key row of V) is replaced by delta first, so that dS
@@ -1237,8 +1319,9 @@ __device__ __forceinline__ void dq_f32_consume(const Sweep& sw, unsigned char* q
 
 // The dQ block over operands of type T (bf16, or f32 on the split products
 // of dq_f32_consume): grid (B*H, ceil(T / own rows)); the sweep maps
-// blockIdx.y to a block.  The kernels below pass their tensor maps'
-// addresses.
+// blockIdx.y to a block.  The sweep's steps are 64-row tiles, streamed as
+// kSub tiles of C::TILE_ROWS rows each (2 in f32 at D 192 and 256).  The
+// kernels below pass their tensor maps' addresses.
 template <int D, class Sweep, typename T>
 __device__ __forceinline__ void bwd_dq_body(const CUtensorMap* tm_q, const CUtensorMap* tm_do,
                                             const CUtensorMap* tm_k, const CUtensorMap* tm_v,
@@ -1249,10 +1332,11 @@ __device__ __forceinline__ void bwd_dq_body(const CUtensorMap* tm_q, const CUten
                                             const Sweep& sw) {
   using C = DqCfg<D, T>;
   using L = typename C::L;   // TMA's panels
+  constexpr int kSub = kTileRows / C::TILE_ROWS;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* q_s = align1024(smem_raw);             // [panel][own rows]
   unsigned char* do_s = q_s + C::Q_BYTES;
-  unsigned char* k_s = do_s + C::Q_BYTES;               // [stage][panel][64 rows]
+  unsigned char* k_s = do_s + C::Q_BYTES;               // [stage][panel][TILE_ROWS rows]
   unsigned char* v_s = k_s + C::STAGES * C::TILE_BYTES;
   unsigned char* ds_s = v_s + C::STAGES * C::TILE_BYTES;   // bf16, 64 own rows: dS
   float* pt_s = reinterpret_cast<float*>(ds_s + C::DS_BYTES);   // and P
@@ -1267,7 +1351,7 @@ __device__ __forceinline__ void bwd_dq_body(const CUtensorMap* tm_q, const CUten
   const int h = bh % H, bb = bh / H;
   const int b = sw.dq_block();
   const int q0 = b * C::OWN;
-  const int n = sw.dq_count(b, S_len, C::OWN);   // 0: dQ = 0
+  const int n = sw.dq_count(b, S_len, C::OWN) * kSub;   // 0: dQ = 0
 
   if (threadIdx.x == 0) {
     mbar_init(q_full, 1);
@@ -1298,8 +1382,8 @@ __device__ __forceinline__ void bwd_dq_body(const CUtensorMap* tm_q, const CUten
       }
       for (int it = 0; it < n; ++it) {
         const int s = it % C::STAGES;
-        const Step step = sw.dq_step(b, it, C::OWN);
-        const int k0 = step.tile * kTileRows;
+        const Step step = sub_step<kSub>(sw.dq_step(b, it / kSub, C::OWN), it);
+        const int k0 = step.tile * C::TILE_ROWS;
         if constexpr (C::F32) {
           // V on full_v[s] (the consumers release it first, once dP is
           // formed), then K on full[s] once they have released the stage's
@@ -1312,15 +1396,16 @@ __device__ __forceinline__ void bwd_dq_body(const CUtensorMap* tm_q, const CUten
             if constexpr (Sweep::kList) {
               if (with_v && lane == 0) step_s[s] = step;
               if (step.flags & kPartialAny) {   // a partial pair: live rows only
-                const unsigned long long live = sw.live(b, it);
+                constexpr int TR = C::TILE_ROWS;
+                const unsigned long long live = sw.live(b, it / kSub) >> (TR * (it % kSub));
                 if (with_v)
-                  stage_live_rows<D, C::LPANEL_T>(v_s + s * C::TILE_BYTES,
-                                                  sw.src_b + sw.stride_b.head(bh, H),
-                                                  sw.stride_b.r, k0, S_len, live, lane);
+                  stage_live_rows<D, C::LPANEL_T, T, TR>(v_s + s * C::TILE_BYTES,
+                                                         sw.src_b + sw.stride_b.head(bh, H),
+                                                         sw.stride_b.r, k0, S_len, live, lane);
                 else
-                  stage_live_rows<D, C::LPANEL_T>(k_s + s * C::TILE_BYTES,
-                                                  sw.src_a + sw.stride_a.head(bh, H),
-                                                  sw.stride_a.r, k0, S_len, live, lane);
+                  stage_live_rows<D, C::LPANEL_T, T, TR>(k_s + s * C::TILE_BYTES,
+                                                         sw.src_a + sw.stride_a.head(bh, H),
+                                                         sw.stride_a.r, k0, S_len, live, lane);
                 fence_proxy_async();
                 mbar_arrive(bar);
                 continue;
@@ -1343,7 +1428,7 @@ __device__ __forceinline__ void bwd_dq_body(const CUtensorMap* tm_q, const CUten
         if constexpr (Sweep::kList) {
           if (lane == 0) step_s[s] = step;
           if (step.flags & kPartialAny) {   // a partial pair: live rows only
-            const unsigned long long live = sw.live(b, it);
+            const unsigned long long live = sw.live(b, it / kSub);
             stage_live_rows<D, C::PANEL_T>(k_s + s * C::TILE_BYTES,
                                            sw.src_a + sw.stride_a.head(bh, H), sw.stride_a.r,
                                            k0, S_len, live, lane);
@@ -1399,8 +1484,8 @@ bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
                  sm_scale, causal, H, h0, sw);
 }
 
-// dQ in f32 (K3, K8 at D 16-128), each product from bf16 products on three
-// bf16 pieces of its operands
+// dQ in f32 (K3, K8), each product from bf16 products on three bf16
+// pieces of its operands
 template <int D, class Sweep>
 __global__ void __launch_bounds__(kBwdThreads, 1)
 bwd_dq_split_kernel(const __grid_constant__ CUtensorMap tm_q,
@@ -1452,7 +1537,7 @@ cudaError_t encode_bwd_maps(const BwdArgs& a, int q_rows, int k_rows, CUtensorMa
 }
 
 // the dK/dV kernel over `sw` (out0 dK, out1 dV): bf16 (bwd_dkv_wgmma_kernel)
-// or f32 (bwd_dkv_split_kernel, D <= 128)
+// or f32 (bwd_dkv_split_kernel)
 template <int D, typename T = __nv_bfloat16, class Sweep>
 cudaError_t launch_dkv_wgmma(const BwdArgs& a, const Sweep& sw) {
   using C = DkvCfg<D, T>;
@@ -1460,7 +1545,7 @@ cudaError_t launch_dkv_wgmma(const BwdArgs& a, const Sweep& sw) {
   const int n_kb = (a.S_len + C::OWN - 1) / C::OWN;
   if (n_kb > 65535) return cudaErrorInvalidValue;
   CUtensorMap tm[4];
-  cudaError_t err = encode_bwd_maps<D, T>(a, kTileRows, C::OWN, tm);
+  cudaError_t err = encode_bwd_maps<D, T>(a, C::TILE_ROWS, C::OWN, tm);
   if (err != cudaSuccess) return err;
   auto kernel = [] {
     if constexpr (kIsBf16<T>) return bwd_dkv_wgmma_kernel<D, Sweep>;
@@ -1478,7 +1563,7 @@ cudaError_t launch_dkv_wgmma(const BwdArgs& a, const Sweep& sw) {
 }
 
 // the dQ kernel over `sw` (out0 dQ): bf16 (bwd_dq_wgmma_kernel) or f32
-// (bwd_dq_split_kernel, D <= 128)
+// (bwd_dq_split_kernel)
 template <int D, typename T = __nv_bfloat16, class Sweep>
 cudaError_t launch_dq_wgmma(const BwdArgs& a, const Sweep& sw) {
   using C = DqCfg<D, T>;
@@ -1486,7 +1571,7 @@ cudaError_t launch_dq_wgmma(const BwdArgs& a, const Sweep& sw) {
   const int n_qb = (a.T_len + C::OWN - 1) / C::OWN;
   if (n_qb > 65535) return cudaErrorInvalidValue;
   CUtensorMap tm[4];
-  cudaError_t err = encode_bwd_maps<D, T>(a, C::OWN, kTileRows, tm);
+  cudaError_t err = encode_bwd_maps<D, T>(a, C::OWN, C::TILE_ROWS, tm);
   if (err != cudaSuccess) return err;
   auto kernel = [] {
     if constexpr (kIsBf16<T>) return bwd_dq_wgmma_kernel<D, Sweep>;

@@ -76,14 +76,15 @@
 //     pieces no longer fit (D 256: 384 KB).  The q rows stay in f32 (4
 //     bytes an element, 128 KB at D 256) and each consumer warpgroup
 //     splits them into wgmma's register A operand 32 columns (one TMA
-//     panel, two k16 steps) at a time, for every key tile (wide_scores).
+//     panel, two k16 steps) at a time, for every key tile (wide_scores,
+//     hopper_common.cuh, which the f32 dK/dV and dQ share at these D).
 //     K and V come as 32-key tiles split in place as above (48 KB each at
 //     D 256: one stage, 225 KB in all), so S is 16 registers a thread
 //     beside O's 128 and P's three pieces 24; the producer keeps 24
 //     registers so that the consumers get 240.  wgmma rounds the sums it
 //     accumulates toward zero (PERF.md): S over all of D 256 in one
 //     accumulator (96 roundings) shrinks the scores enough that LSE and
-//     the wide backward's recomputed P disagree, and a key bias's
+//     the backward's recomputed P disagree, and a key bias's
 //     gradient (zero in exact arithmetic) reads over 3x the plain f32
 //     pipeline's; so each q panel's twelve products go to a fresh partial,
 //     added to S in f32 once done (within 2x; tests/test_torch_f32_split.py).
@@ -138,12 +139,6 @@ constexpr float kLn2 = 0.6931471805599453f;
 // warpgroup's own, for its q rows)
 constexpr int kKvSplit = 3;
 
-// key rows of a tile of the f32 forward at D 192 and 256, and whether
-// its score products run as a loop over q panels (wide_scores)
-constexpr int kWideKeyRows = 32;
-template <int D>
-constexpr bool kWideRolled = D > 192;
-
 // The block's q rows, then the ring of (K, V) tiles of BK key rows and, for
 // a list sweep, each stage's step.  T is the operands' type: in bf16 the q
 // rows land as one 128-row tile, and a stage's K and V share one full and
@@ -183,7 +178,7 @@ struct FwdCfg : Panels<D> {
   static constexpr size_t SMEM = 1024 + Q_BYTES + 2 * STAGES * KV_BYTES +
                                  sizeof(uint64_t) * (1 + 2 * KV_BARS * STAGES) +
                                  STAGES * sizeof(Step);
-  static_assert(!F32 || (WIDE ? BK == kWideKeyRows && D <= 256 : BK == kTileRows),
+  static_assert(!F32 || (WIDE ? BK == kWideRows && D <= 256 : BK == kTileRows),
                 "f32: 64-key tiles to D 128, 32-key tiles at D 192 and 256");
 };
 
@@ -191,7 +186,7 @@ struct FwdCfg : Panels<D> {
 // are 64-row tiles), and in f32 over the dense sweep too: 64, or 32 in f32
 // at D 192 and 256
 template <int D, typename T>
-constexpr int kFwdTileRows = !kIsBf16<T> && D > 128 ? kWideKeyRows : kTileRows;
+constexpr int kFwdTileRows = !kIsBf16<T> && D > 128 ? kWideRows : kTileRows;
 
 // One key tile's scores (this thread's BK / 2 of rows row0 and row0 + 8
 // of the warpgroup's 64, query rows from q0w) made unnormalised
@@ -367,93 +362,6 @@ __device__ __forceinline__ void fwd_consume(const Sweep& sw, unsigned char* q_s,
     if (q0w + r < T_len)
       *reinterpret_cast<uint4*>(o + ((size_t)q0w + r) * D + 8 * cc) =
           *reinterpret_cast<const uint4*>(src);
-  }
-}
-
-// The products of q panel g's k16 steps j0 .. j0 + kSteps - 1 (their
-// pieces in a: piece, step, fragment) and the matching columns of a 32-key
-// tile split in place at k (split_tile<D, ., 32>), six a step, small terms
-// first (a1 b3 + a2 b2 + a3 b1, a1 b2 + a2 b1, a1 b1), into part; the
-// panel's first product overwrites it.  Issued, not waited.
-template <int D, int kSteps>
-__device__ __forceinline__ void wide_products(float (&part)[kWideKeyRows / 2],
-                                              const uint32_t (&a)[3][kSteps][4],
-                                              const unsigned char* k, int g, int j0) {
-  using P = Panels<D>;   // K's pieces
-  constexpr int SPAN = kWideKeyRows * P::RB;
-  constexpr int THIRD = kWideKeyRows * D * 4;
-#pragma unroll
-  for (int j = 0; j < kSteps; ++j) {
-    const int c = 32 * g + 16 * (j0 + j);   // the k16 step's first column
-    const int p = c / P::PW;                // K's 64-column group
-#pragma unroll
-    for (int t = 0; t < 6; ++t) {
-      // the pieces (0-based) of term t: (0, 2) (1, 1) (2, 0) (0, 1) (1, 0) (0, 0)
-      const int pa = t < 3 ? t : t < 5 ? t - 3 : 0;
-      const int pb = t < 3 ? 2 - t : t == 3 ? 1 : 0;
-      const unsigned char* b = k + (pb == 2 ? THIRD + p * SPAN : (2 * p + pb) * SPAN);
-      wgmma_rs<kWideKeyRows, 0>(part, a[pa][j], smem_desc<P::RB>(b + 2 * (c % P::PW)),
-                                j0 + j + t > 0);
-    }
-  }
-}
-
-// The partial of a panel, once its products are done, added to S (round
-// to nearest).
-__device__ __forceinline__ void add_partial(float (&sc)[kWideKeyRows / 2],
-                                            float (&part)[kWideKeyRows / 2]) {
-#pragma unroll
-  for (int i = 0; i < kWideKeyRows / 2; ++i) {
-    fence_regs(part[i]);
-    sc[i] += part[i];
-  }
-}
-
-// S (m64 x 32 keys, this thread's 16) = Q . K^T of a consumer warpgroup's
-// 64 f32 q rows at q (TMA's 32-column panels of 64 rows) and a 32-key tile
-// split in place at k: per q panel, its k16 steps split into registers
-// (load_split_rows) and its twelve products (wide_products) into a fresh
-// partial (add_partial).  The order of the products is the same at every
-// D; only how much of q is held split differs: at D 192 the panels are
-// unrolled and the next one is split while the last one's products run; at
-// D 256 that spills (the 96 products' operands outgrow the consumers' 240
-// registers, as do a second buffer in a loop and, in K6, a whole panel),
-// so the panels run as a loop, a k16 step split before its products.
-// Waited.
-template <int D>
-__device__ __forceinline__ void wide_scores(float (&sc)[kWideKeyRows / 2],
-                                            const unsigned char* q, const unsigned char* k) {
-  using F = Panels<D, 4>;
-  constexpr int FPANEL = kTileRows * F::RB;
-  float part[kWideKeyRows / 2];
-#pragma unroll
-  for (int i = 0; i < kWideKeyRows / 2; ++i) sc[i] = 0.0f;
-  if constexpr (!kWideRolled<D>) {
-    uint32_t a[2][3][2][4];   // two panels' pieces
-    load_split_rows<F::RB, 2>(a[0], q);
-#pragma unroll
-    for (int g = 0; g < F::NP; ++g) {
-      wgmma_fence();
-      wide_products<D, 2>(part, a[g & 1], k, g, 0);
-      wgmma_commit();
-      if (g + 1 < F::NP) load_split_rows<F::RB, 2>(a[(g + 1) & 1], q + (g + 1) * FPANEL);
-      wgmma_wait<0>();
-      add_partial(sc, part);
-    }
-  } else {
-    uint32_t a[3][1][4];   // one k16 step's pieces
-#pragma unroll 1
-    for (int g = 0; g < F::NP; ++g) {
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        load_split_rows<F::RB, 1>(a, q + g * FPANEL, j);
-        wgmma_fence();
-        wide_products<D, 1>(part, a, k, g, j);
-        wgmma_commit();
-        wgmma_wait<0>();
-      }
-      add_partial(sc, part);
-    }
   }
 }
 

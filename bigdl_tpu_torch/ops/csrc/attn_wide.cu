@@ -1,19 +1,18 @@
 // Attention for head dims above the built ones (sm_90a), bound to Python
 // with ctypes: the "wide" route of K1-K3 and K6-K8.
 //
-// The Hopper kernels are built for head dims 16, 32, 64 and 128, and for
-// 192 and 256 (the forward in both dtypes, dK/dV and dQ in bf16); a head
-// dim between them is zero-padded to the next.  So this route takes the
-// forward above 256, and dK/dV and dQ above 256 in bf16 and above 128 in
-// f32 (at the true D: the forward's padding is not the backward's).  The
-// TPU kernels take any D: `_fwd_kernel`, `_dkv_kernel`, `_dq_kernel` of
-// bigdl_tpu/ops/flash_attention.py and `_bs_fwd_kernel`, `_bs_dkv_kernel`,
-// `_bs_dq_kernel` of bigdl_tpu/ops/block_sparse.py hand D straight to their
-// (1, block, D) blocks.  These three kernels take any D above 128 as it is,
-// under a dense mask (top-left causal or none) or a block mask (the runtime
-// (T / bq, S / bk) grid the block-sparse wrappers upload, causal blocks
-// pruned, and the causal test), and compute exactly what the plain versions
-// `_attn_plain` / `_attn_bwd_plain` of ops/flash_attention.py compute:
+// The Hopper kernels are built for head dims 16, 32, 64, 128, 192 and 256
+// in both dtypes and all three passes; a head dim between them is
+// zero-padded to the next.  So this route takes every pass above 256, in
+// both dtypes.  The TPU kernels take any D: `_fwd_kernel`, `_dkv_kernel`,
+// `_dq_kernel` of bigdl_tpu/ops/flash_attention.py and `_bs_fwd_kernel`,
+// `_bs_dkv_kernel`, `_bs_dq_kernel` of bigdl_tpu/ops/block_sparse.py hand D
+// straight to their (1, block, D) blocks.  These three kernels take any D
+// as it is, under a dense mask (top-left causal or none) or a block mask
+// (the runtime (T / bq, S / bk) grid the block-sparse wrappers upload,
+// causal blocks pruned, and the causal test), and compute exactly what the
+// plain versions `_attn_plain` / `_attn_bwd_plain` of ops/flash_attention.py
+// compute:
 //   * forward: f32 scores times sm_scale; the row's max m and sum l of
 //     exp(s - m) in a first pass over its keys, then O = sum of P . V with P
 //     = exp(s - m) cast to v's dtype, over max(l, 1e-30), in q's dtype; LSE

@@ -57,14 +57,14 @@
 // element is tested against the block mask and its score selected to -inf
 // (K6) or its P and dS to 0 (K7, K8).  In f32 each f32 product is formed
 // from bf16 wgmma products on bf16 pieces of its operands: K6 is K1's f32
-// forward (attn_fwd_hopper.cuh's attn_fwd_split_kernel, at D 16-128 and at
-// 192 and 256, where it streams each 64-key list step as two 32-key tiles)
-// over the same 128-row query lists as in bf16; at D 16-128 K7 is K2's f32
-// dK/dV block (attn_bwd_hopper.cuh's bwd_dkv_split_kernel: 64 key rows a
-// block) over the 64-row key lists K7 reads at D 192 and 256, and K8 is
-// K3's f32 dQ block (bwd_dq_split_kernel: 64 query rows a block) over the
-// 64-row query lists K8 reads there.  On an all-ones mask both dtypes give
-// K1-K3's bits.
+// forward (attn_fwd_hopper.cuh's attn_fwd_split_kernel) over the same
+// 128-row query lists as in bf16; K7 is K2's f32 dK/dV block
+// (attn_bwd_hopper.cuh's bwd_dkv_split_kernel: 64 key rows a block) over
+// the 64-row key lists K7 reads at bf16 D 192 and 256, and K8 is K3's f32
+// dQ block (bwd_dq_split_kernel: 64 query rows a block) over the 64-row
+// query lists K8 reads there.  At f32 D 192 and 256 all three stream each
+// 64-row list step as two 32-row tiles (a partial pair's live rows split
+// with it).  On an all-ones mask both dtypes give K1-K3's bits.
 //
 // K9 design.  At the flagship MLP shape (x 16384 x 1024 bf16, W 1024 x 4096
 // at density 0.5, block 128) it must do 68.7 GFLOP (0.069 ms) and move about
@@ -214,16 +214,11 @@ cudaError_t launch_wgmma(const AttnArgs& a) {
   }
 }
 
-// bf16 at D 16-256, f32 to 128 (the forward to 256), over the block lists
-// (order and rows given)
+// both dtypes at D 16-256, over the block lists (order and rows given)
 template <Which W, typename T, int D>
 cudaError_t launch_attn(const AttnArgs& a) {
-  if constexpr (!kIsBf16<T> && D > 128 && W != Which::kFwd) {
-    return cudaErrorInvalidValue;
-  } else {
-    if (a.order == nullptr || a.rows == nullptr) return cudaErrorInvalidValue;
-    return launch_wgmma<W, D, T>(a);
-  }
+  if (a.order == nullptr || a.rows == nullptr) return cudaErrorInvalidValue;
+  return launch_wgmma<W, D, T>(a);
 }
 
 template <Which W, typename T>
@@ -275,14 +270,10 @@ int smem_of(int dtype) {
     return (int)(W == Which::kFwd   ? FwdCfg<D, kTileRows>::SMEM
                  : W == Which::kDkv ? DkvCfg<D>::SMEM
                                     : DqCfg<D>::SMEM);
-  if constexpr (D <= 128) {   // f32
-    if (dtype == 0)
-      return (int)(W == Which::kFwd   ? FwdCfg<D, kTileRows, float>::SMEM
-                   : W == Which::kDkv ? DkvCfg<D, float>::SMEM
-                                      : DqCfg<D, float>::SMEM);
-  } else if (W == Which::kFwd && dtype == 0) {
-    return (int)FwdCfg<D, kFwdTileRows<D, float>, float>::SMEM;
-  }
+  if (dtype == 0)
+    return (int)(W == Which::kFwd   ? FwdCfg<D, kFwdTileRows<D, float>, float>::SMEM
+                 : W == Which::kDkv ? DkvCfg<D, float>::SMEM
+                                    : DqCfg<D, float>::SMEM);
   return 0;
 }
 

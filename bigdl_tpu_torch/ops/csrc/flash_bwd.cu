@@ -55,19 +55,23 @@
 // q, k, v and dO are read at their own strides (the head-strided view of an
 // attention layer in place); the outputs are contiguous.
 //
-// f32 (D 16-128): the same body's 64-row f32 blocks, whose f32 products are
-// formed from bf16 wgmma products on three bf16 pieces of each operand, and
-// which read q, k, v and dO at their strides as the bf16 kernels do.  K2
+// f32: the same body's 64-row f32 blocks, whose f32 products are formed
+// from bf16 wgmma products on three bf16 pieces of each operand, and which
+// read q, k, v and dO at their strides as the bf16 kernels do.  K2
 // (bwd_dkv_split_kernel, 64 key rows a block) makes six bf16 products for
 // each score product and five for dV and dK; K3 (bwd_dq_split_kernel, 64
-// query rows a block, each 64-key tile split by keys between the two
-// consumer warpgroups) six for S, dP and dQ alike.  At the phase-3 shape
-// (B 2, H 8, T 512, D 128, causal) K2's four products are 2.15 GFLOP as
-// f32 and 11.8 as bf16: 11.96 us at 989 TFLOP/s, against 25.2 MB, 7.5 us;
-// K3's three are 1.61 GFLOP as f32, 9.7 as bf16: 9.8 us, against 21.0 MB,
-// 6.3 us.  K7 and K8 (block_sparse.cu) run the same f32 kernels over their
-// tile lists, so on an all-ones mask the two pairs agree bit for bit in
-// f32.
+// query rows a block, each key tile split by keys between the two consumer
+// warpgroups) six for S, dP and dQ alike.  At D 192 and 256 (head dims
+// 129-256, zero-padded as in bf16) the block's own rows stay f32 and are
+// split into registers for every 32-row streamed tile (attn_bwd_hopper.cuh
+// says why).  At the phase-3 shape (B 2, H 8, T 512, D 128, causal) K2's
+// four products are 2.15 GFLOP as f32 and 11.8 as bf16: 11.96 us at 989
+// TFLOP/s, against 25.2 MB, 7.5 us; K3's three are 1.61 GFLOP as f32, 9.7
+// as bf16: 9.8 us, against 21.0 MB, 6.3 us.  At B 2, H 8, T 1024, D 256,
+// causal K2's are 17.3 GFLOP as f32, 95 us at 989 * 4 / 22 TFLOP/s, and
+// K3's 12.9 GFLOP, 78 us at 989 * 3 / 18: bound by operations.  K7 and K8
+// (block_sparse.cu) run the same f32 kernels over their tile lists, so on
+// an all-ones mask the two pairs agree bit for bit in f32.
 
 #include "attn_bwd_hopper.cuh"
 
@@ -114,15 +118,13 @@ struct DenseSweep {
   }
 };
 
-// dtype: 0 = float32, 1 = bfloat16; D 192 and 256 in bf16 only
+// dtype: 0 = float32, 1 = bfloat16
 template <int D>
 cudaError_t launch(bool dkv, int dtype, const BwdArgs& a) {
   const DenseSweep sw{a.causal};
   if (dtype == 1) return dkv ? launch_dkv_wgmma<D>(a, sw) : launch_dq_wgmma<D>(a, sw);
-  if constexpr (D <= 128) {
-    if (dtype == 0)
-      return dkv ? launch_dkv_wgmma<D, float>(a, sw) : launch_dq_wgmma<D, float>(a, sw);
-  }
+  if (dtype == 0)
+    return dkv ? launch_dkv_wgmma<D, float>(a, sw) : launch_dq_wgmma<D, float>(a, sw);
   return cudaErrorInvalidValue;
 }
 
@@ -143,9 +145,7 @@ int dispatch(bool dkv, int D, int dtype, const BwdArgs& a) {
 template <int D>
 int smem_of(bool dkv, int dtype) {
   if (dtype == 1) return (int)(dkv ? DkvCfg<D>::SMEM : DqCfg<D>::SMEM);
-  if constexpr (D <= 128) {
-    if (dtype == 0) return (int)(dkv ? DkvCfg<D, float>::SMEM : DqCfg<D, float>::SMEM);
-  }
+  if (dtype == 0) return (int)(dkv ? DkvCfg<D, float>::SMEM : DqCfg<D, float>::SMEM);
   return 0;
 }
 

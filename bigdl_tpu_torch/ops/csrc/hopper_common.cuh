@@ -706,6 +706,123 @@ __device__ __forceinline__ void wgmma_accumulate_split(float* acc, const uint32_
   wgmma_accumulate<D, PB, kSteps>(acc, a1, b);
 }
 
+// ---- the wide f32 products (head dims 192 and 256) ---------------------------
+//
+// At D 192 and 256 the f32 attention kernels cannot hold both sides of a
+// score product in three bf16 pieces: the block's own 64 rows stay in f32
+// (q in the forward, K and V in dK/dV, Q and dO in dQ) and are split into
+// wgmma's register A operand 32 columns (one TMA panel, two k16 steps) at a
+// time, against a streamed tile of kWideRows rows split in place
+// (split_tile<D, ., kWideRows>).  wgmma rounds the sums it accumulates
+// toward zero (PERF.md): a score over all of D 256 in one accumulator (96
+// roundings) shrinks enough that the forward's LSE and the backward's
+// recomputed P disagree, and a key bias's gradient (zero in exact
+// arithmetic) reads several times the plain f32 pipeline's; so each panel's
+// twelve products go to a fresh partial, added to the score in f32 once
+// done (tests/test_torch_f32_split.py).
+
+// rows of a streamed tile at D 192 and 256 (key rows in the forward and in
+// dQ, query rows in dK/dV), and whether the score products run as a loop
+// over the A operand's panels (wide_scores)
+constexpr int kWideRows = 32;
+template <int D>
+constexpr bool kWideRolled = D > 192;
+
+// The products of panel g's k16 steps j0 .. j0 + kSteps - 1 (their pieces
+// in a: piece, step, fragment) and the matching columns of N rows of a
+// kWideRows-row tile split in place at k (N = 16 from the tile's row 16 on:
+// the caller offsets k), six a step, small terms first (a1 b3 + a2 b2 + a3
+// b1, a1 b2 + a2 b1, a1 b1), into part; the panel's first product
+// overwrites it, or with kStep each step's first.  Issued, not waited.
+template <int D, int kSteps, int N = kWideRows, bool kStep = false>
+__device__ __forceinline__ void wide_products(float (&part)[N / 2],
+                                              const uint32_t (&a)[3][kSteps][4],
+                                              const unsigned char* k, int g, int j0) {
+  using P = Panels<D>;   // the tile's pieces
+  constexpr int SPAN = kWideRows * P::RB;
+  constexpr int THIRD = kWideRows * D * 4;
+#pragma unroll
+  for (int j = 0; j < kSteps; ++j) {
+    const int c = 32 * g + 16 * (j0 + j);   // the k16 step's first column
+    const int p = c / P::PW;                // the tile's 64-column group
+#pragma unroll
+    for (int t = 0; t < 6; ++t) {
+      // the pieces (0-based) of term t: (0, 2) (1, 1) (2, 0) (0, 1) (1, 0) (0, 0)
+      const int pa = t < 3 ? t : t < 5 ? t - 3 : 0;
+      const int pb = t < 3 ? 2 - t : t == 3 ? 1 : 0;
+      const unsigned char* b = k + (pb == 2 ? THIRD + p * SPAN : (2 * p + pb) * SPAN);
+      wgmma_rs<N, 0>(part, a[pa][j], smem_desc<P::RB>(b + 2 * (c % P::PW)),
+                     kStep ? t > 0 : j0 + j + t > 0);
+    }
+  }
+}
+
+// The partial of a panel, once its products are done, added to the score
+// (round to nearest).
+template <int N>
+__device__ __forceinline__ void add_partial(float (&sc)[N / 2], float (&part)[N / 2]) {
+#pragma unroll
+  for (int i = 0; i < N / 2; ++i) {
+    fence_regs(part[i]);
+    sc[i] += part[i];
+  }
+}
+
+// S (m64 x N, this thread's N / 2) = A . B^T of a consumer warpgroup's 64
+// f32 rows at q (TMA's 32-column panels of 64 rows) and N rows of a
+// kWideRows-row tile split in place at k: per panel of q, its k16 steps
+// split into registers (load_split_rows) and its twelve products
+// (wide_products) into a fresh partial (add_partial).  The order of the
+// products is the same at every D; only how much of q is held split
+// differs: at D 192 the panels are unrolled and the next one is split while
+// the last one's products run; at D 256 that spills (the 96 products'
+// operands outgrow the consumers' 240 registers, as do a second buffer in
+// a loop and, in K6, a whole panel), so the panels run as a loop, a k16
+// step split before its products.  With kStep (the backward's scores) each
+// k16 step's six products go to a fresh partial, a loop at every D: wgmma
+// aligns the products of an instruction to its largest term, accumulator
+// included, and truncates the rest, so the small terms added to a partial
+// that already holds a step's sum lose their low bits, and the backward's
+// dS = P (dP - delta) cancels those errors up to the row's cancellation
+// (PERF.md).  Waited.
+template <int D, int N = kWideRows, bool kStep = false>
+__device__ __forceinline__ void wide_scores(float (&sc)[N / 2], const unsigned char* q,
+                                            const unsigned char* k) {
+  using F = Panels<D, 4>;
+  constexpr int FPANEL = kTileRows * F::RB;
+  float part[N / 2];
+#pragma unroll
+  for (int i = 0; i < N / 2; ++i) sc[i] = 0.0f;
+  if constexpr (!kStep && !kWideRolled<D>) {
+    uint32_t a[2][3][2][4];   // two panels' pieces
+    load_split_rows<F::RB, 2>(a[0], q);
+#pragma unroll
+    for (int g = 0; g < F::NP; ++g) {
+      wgmma_fence();
+      wide_products<D, 2, N>(part, a[g & 1], k, g, 0);
+      wgmma_commit();
+      if (g + 1 < F::NP) load_split_rows<F::RB, 2>(a[(g + 1) & 1], q + (g + 1) * FPANEL);
+      wgmma_wait<0>();
+      add_partial<N>(sc, part);
+    }
+  } else {
+    uint32_t a[3][1][4];   // one k16 step's pieces
+#pragma unroll 1
+    for (int g = 0; g < F::NP; ++g) {
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        load_split_rows<F::RB, 1>(a, q + g * FPANEL, j);
+        wgmma_fence();
+        wide_products<D, 1, N, kStep>(part, a, k, g, j);
+        wgmma_commit();
+        wgmma_wait<0>();
+        if constexpr (kStep) add_partial<N>(sc, part);
+      }
+      if constexpr (!kStep) add_partial<N>(sc, part);
+    }
+  }
+}
+
 
 // ---- tensor maps (host) ----------------------------------------------------
 

@@ -16,21 +16,19 @@ computes, what bounds it and how:
   ``csrc/attn_bwd_hopper.cuh`` (TMA ring, wgmma, dK/dV and dQ in
   registers) over the dense causal sweep; in f32 each f32 product is
   formed from bf16 wgmma products on three bf16 pieces of its operands
-  (split in place);
+  (the streamed tiles split in place; the block's own rows too up to
+  D 128, into registers at 192 and 256);
 * head dims above the built ones take the wide route,
   ``csrc/attn_wide.cu``: one warp per output row, any D, under the dense
   mask here and the block mask in ``block_sparse.py``.  A wide launch
   counts under the counter of the kernel it stands for and under
   ``LAUNCHES_WIDE``.
 
-Routing by dtype, head dim D and pass: the forward runs the Hopper body
-at 16, 32, 64, 128, 192 and 256 in both dtypes (f32 on split products)
-and the wide route above 256; bf16 dK/dV and dQ run the Hopper bodies at
-the same head dims, f32 dK/dV and dQ at 16-128 and the wide route above
-128.  A head dim between a pass's built ones is zero-padded to the next
-(``_padded_head_dim``: 160 runs the forward at 192, 200 at 256), each
-pass by its own rule: f32 160 runs the forward at 192 and the wide dK/dV
-and dQ at 160, as it is.
+Routing by head dim D, the same in both dtypes and all three passes:
+the Hopper bodies at 16, 32, 64, 128, 192 and 256 (f32 on split
+products), the wide route above 256.  A head dim between the built ones
+is zero-padded to the next (``_padded_head_dim``: 160 runs at 192, 200
+at 256).
 
 Layouts: the Hopper kernels (K1-K3 in both dtypes) read q, k, v and dO
 through TMA at their own strides, so the (B, T, H, D).transpose(1, 2)
@@ -64,22 +62,26 @@ import torch
 from ._support import LaunchCounter, load_cuda_library, on_cpu
 
 _BIG_LSE = 1e30  # lse sentinel for fully-masked rows: exp(s - BIG) == 0
-#: head dims the kernels are built for: the f32 dK/dV and dQ ones
-HEAD_DIMS = (16, 32, 64, 128)
-#: the forward (K1, K6) in both dtypes and the bf16 dK/dV and dQ (K2, K3,
-#: K7, K8) also take these
-HEAD_DIMS_256 = HEAD_DIMS + (192, 256)
+#: head dims the kernels are built for, in both dtypes and all passes
+HEAD_DIMS = (16, 32, 64, 128, 192, 256)
+#: the built head dims on which the f32 kernels keep the block's own rows
+#: in f32 and stream 32-row tiles (no model path runs them)
+WIDE_F32_DIMS = (192, 256)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 #: launches of K1 (CUDA branch only)
 LAUNCHES = LaunchCounter("flash_fwd")
-#: the launches of K1, among those above, in f32 at the built head dims
-#: on which the f32 forward takes 32-key tiles (no model path runs them)
-LAUNCHES_F32 = {D: LaunchCounter(f"flash_fwd f32 D {D}")
-                for D in (192, 256)}
 #: launches of K2 and K3 (CUDA branch only)
 LAUNCHES_DKV = LaunchCounter("flash_bwd_dkv")
 LAUNCHES_DQ = LaunchCounter("flash_bwd_dq")
+#: the launches of K1, K2 and K3, among those above, in f32 at
+#: ``WIDE_F32_DIMS``
+LAUNCHES_F32 = {D: LaunchCounter(f"flash_fwd f32 D {D}")
+                for D in WIDE_F32_DIMS}
+LAUNCHES_DKV_F32 = {D: LaunchCounter(f"flash_bwd_dkv f32 D {D}")
+                    for D in WIDE_F32_DIMS}
+LAUNCHES_DQ_F32 = {D: LaunchCounter(f"flash_bwd_dq f32 D {D}")
+                   for D in WIDE_F32_DIMS}
 #: launches of the wide route (head dims above the built ones) of K1-K3
 #: and K6-K8
 LAUNCHES_WIDE = LaunchCounter("attn_wide")
@@ -130,6 +132,13 @@ def _flash_plain(q, k, v, causal: bool, sm_scale: float
     return _attn_plain(q, k, v, keep, sm_scale)
 
 
+def _upcast(t: torch.Tensor) -> torch.Tensor:
+    """``t`` in the plain backward's arithmetic: f32, or f64 where ``t``
+    is f64 (the yardstick of the f32 kernels on the card carries their
+    math in f64)."""
+    return t if t.dtype == torch.float64 else t.float()
+
+
 def _attn_bwd_plain(q, k, v, o, lse, d_o, keep: Optional[torch.Tensor],
                     sm_scale: float
                     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
@@ -139,20 +148,20 @@ def _attn_bwd_plain(q, k, v, o, lse, d_o, keep: Optional[torch.Tensor],
     from f32 scores, dP = dO . V^T, dS = P * (dP - delta); P cast to v's
     dtype before dV = P^T . dO, dS cast to q's (k's) dtype before dK =
     dS^T . Q (dQ = dS . K), both times sm_scale.  Returns (dq, dk, dv)
-    in the inputs' dtypes."""
+    in the inputs' dtypes.  On f64 inputs the same math runs in f64."""
     B, H, T, _ = q.shape
+    f = _upcast
     do = d_o.to(q.dtype)
-    delta = (d_o.float() * o.float()).sum(dim=-1, keepdim=True)
-    s = torch.matmul(q.float(), k.float().transpose(-1, -2)) * sm_scale
+    delta = (f(d_o) * f(o)).sum(dim=-1, keepdim=True)
+    s = torch.matmul(f(q), f(k).transpose(-1, -2)) * sm_scale
     if keep is not None:
         s = s.masked_fill(~keep, float("-inf"))
     p = torch.exp(s - lse.reshape(B, H, T, 1))
-    dp = torch.matmul(do.float(), v.float().transpose(-1, -2))
+    dp = torch.matmul(f(do), f(v).transpose(-1, -2))
     ds = p * (dp - delta)
-    dv = torch.matmul(p.to(v.dtype).float().transpose(-1, -2), do.float())
-    dk = torch.matmul(ds.to(q.dtype).float().transpose(-1, -2),
-                      q.float()) * sm_scale
-    dq = torch.matmul(ds.to(k.dtype).float(), k.float()) * sm_scale
+    dv = torch.matmul(f(p.to(v.dtype)).transpose(-1, -2), f(do))
+    dk = torch.matmul(f(ds.to(q.dtype)).transpose(-1, -2), f(q)) * sm_scale
+    dq = torch.matmul(f(ds.to(k.dtype)), f(k)) * sm_scale
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
@@ -173,25 +182,16 @@ def _check_kernel_inputs(what: str, q, k, v):
         raise TypeError(f"{what}: dtype {q.dtype} not in {tuple(_DTYPE_CODE)}")
 
 
-def _head_dims(dtype, forward: bool = False) -> Tuple[int, ...]:
-    return (HEAD_DIMS_256 if forward or dtype == torch.bfloat16
-            else HEAD_DIMS)
+def _wide(D: int) -> bool:
+    """Whether head dim D takes the wide route: above the built ones."""
+    return D > HEAD_DIMS[-1]
 
 
-def _wide(D: int, dtype, forward: bool = False) -> bool:
-    """Whether head dim D takes the wide route in the dK/dV and dQ passes
-    (or the forward, ``forward``): above the head dims built for the pass
-    in ``dtype`` (above 256, or 128 for the f32 dK/dV and dQ)."""
-    return D > _head_dims(dtype, forward)[-1]
-
-
-def _padded_head_dim(D: int, dtype, forward: bool = False) -> int:
-    """The head dim the dK/dV and dQ kernels (or the forward's,
-    ``forward``) run for a true head dim D in ``dtype``: the next built
-    one (129-256: 192 or 256, the next multiple of 64), or D itself on
-    the wide route."""
-    return D if _wide(D, dtype, forward) else next(
-        d for d in _head_dims(dtype, forward) if d >= D)
+def _padded_head_dim(D: int) -> int:
+    """The head dim the kernels run for a true head dim D: the next
+    built one (129-256: 192 or 256, the next multiple of 64), or D
+    itself on the wide route."""
+    return D if _wide(D) else next(d for d in HEAD_DIMS if d >= D)
 
 
 def _f32_counter(counters, q: torch.Tensor) -> Tuple[LaunchCounter, ...]:
@@ -366,8 +366,8 @@ def _flash_cuda(q, k, v, causal: bool, sm_scale: float
     dtypes (copied where TMA cannot read them)."""
     _check_kernel_inputs("flash_attention", q, k, v)
     D_true = q.shape[-1]
-    Dp = _padded_head_dim(D_true, q.dtype, forward=True)
-    if _wide(Dp, q.dtype, forward=True):
+    Dp = _padded_head_dim(D_true)
+    if _wide(Dp):
         return _wide_fwd(q, k, v, causal, sm_scale, LAUNCHES)
     q, k, v = _kernel_operands(*(_pad_head_dim(t, Dp) for t in (q, k, v)),
                                tma=True)
@@ -397,12 +397,13 @@ def _launch_dkv(q, k, v, do, lse, delta, causal: bool, sm_scale: float
     q, k, v and dO are read at their strides through TMA in both dtypes
     (copied where TMA cannot read them).  Returns contiguous (dk, dv)."""
     B, H, T, D = q.shape
-    if _wide(D, q.dtype):
+    if _wide(D):
         return _wide_dkv(q, k, v, do, lse, delta, causal, sm_scale,
                          LAUNCHES_DKV)
     q, k, v, do = _kernel_operands(q, k, v, do, tma=True)
     dk, dv = _empty(k), _empty(v)
-    _launch_heads("flash_bwd_dkv", (LAUNCHES_DKV,),
+    _launch_heads("flash_bwd_dkv",
+                  (LAUNCHES_DKV, *_f32_counter(LAUNCHES_DKV_F32, q)),
                   _bwd_fn("bigdl_flash_bwd_dkv", 8),
                   [*(t.data_ptr() for t in (q, k, v, do, lse, delta, dk, dv)),
                    _strides_arg(q, k, v, do), H, FIRST_HEAD, HEADS, T,
@@ -416,12 +417,13 @@ def _launch_dq(q, k, v, do, lse, delta, causal: bool, sm_scale: float
     """Launch K3 over the same prepared inputs as ``_launch_dkv``, read
     as ``_launch_dkv`` reads them (through TMA in both dtypes)."""
     B, H, T, D = q.shape
-    if _wide(D, q.dtype):
+    if _wide(D):
         return _wide_dq(q, k, v, do, lse, delta, causal, sm_scale,
                         LAUNCHES_DQ)
     q, k, v, do = _kernel_operands(q, k, v, do, tma=True)
     dq = _empty(q)
-    _launch_heads("flash_bwd_dq", (LAUNCHES_DQ,),
+    _launch_heads("flash_bwd_dq",
+                  (LAUNCHES_DQ, *_f32_counter(LAUNCHES_DQ_F32, q)),
                   _bwd_fn("bigdl_flash_bwd_dq", 7),
                   [*(t.data_ptr() for t in (q, k, v, do, lse, delta, dq)),
                    _strides_arg(q, k, v, do), H, FIRST_HEAD, HEADS, T,
@@ -448,12 +450,12 @@ def _flash_bwd_cuda(q, k, v, o, lse, d_o, causal: bool, sm_scale: float
                     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Launch K2 then K3 on the current stream of q's device (a head dim
     between the built ones zero-padded, the gradients cut back; above
-    them the wide route, at f32 129-256 too, whose forward runs K1)."""
+    them the wide route)."""
     _check_kernel_inputs("flash_attention backward", q, k, v)
     _check_lse("flash_attention backward", lse)
     do, delta = _bwd_inputs(q, o, d_o)
     D = q.shape[-1]
-    Dp = _padded_head_dim(D, q.dtype)
+    Dp = _padded_head_dim(D)
     q, k, v, do = (_pad_head_dim(t, Dp) for t in (q, k, v, do))
     dk, dv = _launch_dkv(q, k, v, do, lse, delta, causal, sm_scale)
     dq = _launch_dq(q, k, v, do, lse, delta, causal, sm_scale)

@@ -10,8 +10,8 @@ Phases; any failure exits non-zero:
 2. build — compile the kernels from this checkout's sources: the five
    CUDA libraries (``flash_fwd.cu``: K1; ``flash_bwd.cu``: K2 and K3;
    ``block_sparse.cu``: K6-K9; ``conv3x3.cu``: K5; ``attn_wide.cu``: the
-   route of K1-K3 and K6-K8 for head dims above the built ones: 256, and
-   128 for the f32 dK/dV and dQ) with one ``nvcc``
+   route of K1-K3 and K6-K8 for head dims above the built ones, 256)
+   with one ``nvcc``
    each, started together, into ``.torch_kernels/``; Triton compiles K4
    at first launch.  Print the build seconds, and for each instantiation
    of K1, K2, K3, K6-K8, K5's bf16 and f32 kernels (one per KC input
@@ -20,8 +20,7 @@ Phases; any failure exits non-zero:
    shared memory (ptxas) and its wgmma (HGMMA) and TMA (UTMALDG)
    instructions (``cuobjdump -sass``, where the toolkit has it); each
    bf16 attention kernel at D 128, 192 and 256, the f32 K1-K3 and K6-K8
-   (bf16 products on bf16 pieces of each f32 operand) at D 16-128 and
-   the f32 K1 and K6 at 192 and 256 too, the
+   (bf16 products on bf16 pieces of each f32 operand) at D 16-256, the
    bf16 K5 at KC 64, every f32 K5 (split products too) and every K9
    instantiation must not spill and must hold both (and the attention
    kernels must not have their wgmma serialised, ptxas C7520 or C7514), two bf16
@@ -31,7 +30,9 @@ Phases; any failure exits non-zero:
 3. kernel parity — each kernel against its plain PyTorch version on the
    card at the shapes the served, the training, the block-sparse
    training, the matmul and the ResNet-50 paths give it, with the stated
-   tolerance; the block-sparse kernels also at block 32, 8 (ragged
+   tolerance (the f32 dK/dV and dQ on split products against the plain
+   version's math carried in f64); the block-sparse kernels also at
+   block 32, 8 (ragged
    T 200), 96, in f32, non-causal with a dead q block, strided, with NaN
    in the K/V rows no query may attend (bf16 D 128 and 256, f32 D 128
    and 256), and on all-ones masks against
@@ -42,8 +43,8 @@ Phases; any failure exits non-zero:
    contiguous launch) and K4 on a column slice; bf16 head dims 192 and 256 (the
    Hopper bodies in all three passes, dK/dV and dQ on 64-row blocks; NaN
    in dead K/V at 256 too) and 320 (the wide route), and f32 head dims
-   192 and 256 (the forward on the Hopper body's split products, dK/dV
-   and dQ on the wide route) and 320 (the wide route); K5 forward and dX
+   192 and 256 (the Hopper bodies' split products in all three passes,
+   32-row streamed tiles) and 320 (the wide route); K5 forward and dX
    at ResNet-50's
    four stage shapes (B 64) in bf16 and in f32, ResNet-CIFAR's first
    width (B 128, 32 x 32, C = O = 16) and ragged C 3, O 10, H 7, W 5,
@@ -330,6 +331,19 @@ def dq_row_err(torch, got, ref, keep, k, v, d_o, sm_scale, scale) -> float:
     return err
 
 
+def bwd_yardstick(torch, fa, D, dt, tensors):
+    """The inputs of the plain backward that a backward kernel is held to:
+    for the f32 kernels on split products (head dims up to 256) the
+    tensors in f64, so the plain version's math runs in f64 (its own f32
+    rounding, which dS = P (dP - delta) amplifies on a row whose dP and
+    delta nearly cancel, would read as the kernel's error); the tensors as
+    they are for bf16, whose kernels round where the plain version does,
+    and for the wide route, which rounds as the f32 plain version does."""
+    if dt != torch.float32 or fa._wide(D):
+        return tensors
+    return [t.double() for t in tensors]
+
+
 def bound(nbytes: float, flops: float, dtype: str):
     t_mem = nbytes / MEM_BYTES_PER_S
     t_ops = flops / PEAK_FLOPS[dtype]
@@ -409,16 +423,14 @@ RETIRED_KERNELS = r"flash_bwd_dq_kernel|bs_dq_kernel|conv3x3_kernel_f32"
 
 # the head dims phase 2 holds each Hopper attention kernel to: in bf16 D
 # 128, 192 and 256 (K2, K3, K7 and K8 there are the 64-row blocks); in f32
-# (split products; K2, K3, K7 and K8 on 64-row blocks) at every head dim,
-# the forward (K1, K6) at 192 and 256 too (32-key tiles, q split into
+# (split products; K2, K3, K7 and K8 on 64-row blocks) at every head dim
+# (at 192 and 256 on 32-row streamed tiles, the own rows split into
 # registers)
 CHECKED_HEAD_DIMS = {
-    **{(label, "bfloat16"): (128, 192, 256)
-       for label in ("K1", "K2", "K3", "K6", "K7", "K8")},
-    **{(label, "float32"): (16, 32, 64, 128)
-       for label in ("K2", "K3", "K7", "K8")},
-    **{(label, "float32"): (16, 32, 64, 128, 192, 256)
-       for label in ("K1", "K6")}}
+    **{(label, dtype): dims
+       for label in ("K1", "K2", "K3", "K6", "K7", "K8")
+       for dtype, dims in (("bfloat16", (128, 192, 256)),
+                           ("float32", (16, 32, 64, 128, 192, 256)))}}
 
 
 def design_kernel(fn: str):
@@ -439,7 +451,7 @@ def kernel_design(torch):
     TMA load (UTMALDG) instructions in SASS.  Fails where a bf16 kernel
     at D 128, 192 or 256 (the bf16 route of head dims 129-256; K2, K3, K7
     and K8 there are the 64-row dK/dV and dQ blocks), or an f32 one (split
-    products) at D 16-128 (K1 and K6 at 192 and 256 too), spills, has its
+    products) at D 16-256, spills, has its
     wgmma serialised by ptxas (C7520, C7514),
     holds no HGMMA or no UTMALDG, or is missing, and where a library still
     holds a retired FMA loop (``RETIRED_KERNELS``).  A library loaded
@@ -660,12 +672,11 @@ def attn_inputs(torch, label, B, H, rows, D, dt, g, n):
             for _ in range(n)]
 
 
-def wide_launches(fa, D, dt, passes):
+def wide_launches(fa, D, passes):
     """Wide-route launches a call makes at true head dim D: one a pass
-    ("fwd", "dkv", "dq") where D is above that pass's built head dims in
-    the dtype (256; 128 for the f32 dK/dV and dQ)."""
-    return sum(int(fa._wide(fa._padded_head_dim(D, dt, p == "fwd"), dt,
-                            p == "fwd")) for p in passes)
+    ("fwd", "dkv", "dq") where D is above the built head dims (256), in
+    either dtype; none at D 129-256, in f32 too."""
+    return len(passes) * int(fa._wide(D))
 
 
 def check_flash(torch, F):
@@ -691,7 +702,7 @@ def check_flash(torch, F):
         tol = ROW_TOL[dname]
         ok = row_err <= tol and lse_err <= LSE_TOL and bool(
             torch.isfinite(o.float()).all()) and wide == wide_launches(
-                fa, D, dt, ("fwd",))
+                fa, D, ("fwd",))
         same = None
         if label.startswith("strided"):
             # in place (no copy), and the contiguous launch's bits
@@ -781,22 +792,25 @@ def check_layer_norm(torch, F):
 
 
 def launch_counters():
-    """Every kernel's launch counter, by the kernel's name (K1 and K6
-    also by f32 head dim 192 and 256, the ``variants`` of the ``kernels``
-    line), and the attention and LayerNorm wrappers' counts of operand
-    copies, which the bf16 main paths hold at 0."""
+    """Every kernel's launch counter, by the kernel's name (K1-K3 and
+    K6-K8 also by f32 head dim 192 and 256, the ``variants`` of the
+    ``kernels`` line), and the attention and LayerNorm wrappers' counts
+    of operand copies, which the bf16 main paths hold at 0.  A checkout
+    without some per-head-dim counters (``f32_steps.py`` runs these
+    helpers on an earlier one) lists those it has."""
     from bigdl_tpu_torch.ops import block_sparse as bs
     from bigdl_tpu_torch.ops import conv3x3
     from bigdl_tpu_torch.ops import flash_attention as fa
     from bigdl_tpu_torch.ops import layer_norm as ln
 
+    by_dim = [c for m in (fa, bs) for n in ("LAUNCHES_F32", "LAUNCHES_DKV_F32",
+                                            "LAUNCHES_DQ_F32")
+              for c in getattr(m, n, {}).values()]
     return {c.name: c for c in (fa.LAUNCHES, fa.LAUNCHES_DKV,
                                 fa.LAUNCHES_DQ, ln.LAUNCHES, bs.LAUNCHES,
                                 bs.LAUNCHES_DKV, bs.LAUNCHES_DQ,
                                 bs.LAUNCHES_MM, bs.LAUNCHES_MM_TILE,
-                                conv3x3.LAUNCHES, fa.LAUNCHES_WIDE,
-                                *fa.LAUNCHES_F32.values(),
-                                *bs.LAUNCHES_F32.values(),
+                                conv3x3.LAUNCHES, fa.LAUNCHES_WIDE, *by_dim,
                                 fa.OPERAND_COPIES, ln.X_COPIES)}
 
 
@@ -809,8 +823,8 @@ def bwd_cases(torch):
     """(label, B, H, T, S, D, dtype, causal) for K2/K3: the training
     step (also head-strided, as ``flash_cases``), a ragged T, causal
     T > S and S > T, f32 (also head-strided), narrower heads, head dims
-    192 and 256 (K2 and K3 on the 64-row Hopper blocks) and 320 (the
-    wide route), and f32 at 192, 256 and 320 (the wide route)."""
+    192 and 256 (K2 and K3 on the 64-row Hopper blocks, in f32 too, on
+    split products) and 320 (the wide route, in both dtypes)."""
     bf16, f32 = torch.bfloat16, torch.float32
     return [("train", 16, 8, 1024, 1024, 128, bf16, True),
             ("strided_train", 16, 8, 1024, 1024, 128, bf16, True),
@@ -825,8 +839,8 @@ def bwd_cases(torch):
             ("D256", 2, 8, 1024, 1024, 256, bf16, True),
             ("ragged_D256", 2, 8, 200, 300, 256, bf16, True),
             ("wide_D320", 2, 8, 1024, 1024, 320, bf16, True),
-            ("wide_f32_D192", 2, 8, 1024, 1024, 192, f32, True),
-            ("wide_f32_D256", 2, 8, 1024, 1024, 256, f32, True),
+            ("f32_D192", 2, 8, 1024, 1024, 192, f32, True),
+            ("f32_D256", 2, 8, 1024, 1024, 256, f32, True),
             ("wide_f32_D320", 2, 8, 1024, 1024, 320, f32, True)]
 
 
@@ -886,7 +900,8 @@ def bwd_tma_bytes(BH, T, S, D, causal, dkv):
 
 def check_flash_bwd(torch, F):
     """K2 and K3 against ``_flash_bwd_plain`` on the same (q, k, v, O,
-    LSE, dO), O and LSE from K1; no operand copied, and a head-strided
+    LSE, dO), O and LSE from K1 (for the f32 split-product kernels its math
+    in f64, ``bwd_yardstick``); no operand copied, and a head-strided
     launch equal to the contiguous one bit for bit.  Times: each kernel
     alone (graph replay), the whole plain backward, and the backward of
     one ``scaled_dot_product_attention`` call (``sdpa_bwd_ms``: graph
@@ -910,8 +925,9 @@ def check_flash_bwd(torch, F):
         torch.cuda.synchronize()
         wide = fa.LAUNCHES_WIDE.count - wide
         copies = fa.OPERAND_COPIES.count - copies
-        dq_ref, dk_ref, dv_ref = fa._flash_bwd_plain(q, k, v, o, lse, d_o,
-                                                     causal, scale)
+        dq_ref, dk_ref, dv_ref = fa._flash_bwd_plain(
+            *bwd_yardstick(torch, fa, D, dt, [q, k, v, o, lse, d_o]), causal,
+            scale)
         dname = str(dt).split(".")[-1]
         tol = ROW_TOL[dname]
         outs = (("dq", dq, dq_ref), ("dk", dk, dk_ref), ("dv", dv, dv_ref))
@@ -929,7 +945,7 @@ def check_flash_bwd(torch, F):
         finite = all(bool(torch.isfinite(t.float()).all())
                      for t in (dq, dk, dv))
         ok = (finite and max(rel.values()) <= tol and copies == 0
-              and wide == wide_launches(fa, D, dt, ("dkv", "dq")))
+              and wide == wide_launches(fa, D, ("dkv", "dq")))
         same = None
         if label.startswith("strided"):
             # dO read in place too; the contiguous launches' bits
@@ -1002,9 +1018,9 @@ def bs_cases(torch):
     block, strided, all-ones masks in bf16 and f32 (held against K1-K3 as
     well), the training step and the f32 case head-strided (as
     ``flash_cases``), head dims
-    192 and 256 (the bf16 Hopper route of 129-256: K7 and K8 on 64-row
-    blocks; in f32 K6 on split products, K7 and K8 on the wide route,
-    also on an all-ones mask at 256) and 320 (the wide route)."""
+    192 and 256 (the Hopper route of 129-256: K7 and K8 on 64-row
+    blocks; in f32 all three on split products, also on an all-ones mask
+    at 256) and 320 (the wide route)."""
     import numpy as np
 
     from bigdl_tpu_torch.ops import block_sparse as bs
@@ -1077,7 +1093,9 @@ def _bs_bounds(B, H, T, D, item, live, dname, wide):
 
 def check_block_sparse(torch, F):
     """K6, K7 and K8 against ``_bs_attention_plain`` / ``_bs_bwd_plain``
-    on the same inputs (O and LSE from K6), row by row.  The all-ones
+    on the same inputs (O and LSE from K6; the f32 split-product K7 and K8
+    against ``_bs_bwd_plain``'s math in f64, ``bwd_yardstick``), row by
+    row.  The all-ones
     cases also against K1-K3, fed the same (O, LSE, dO, delta) from K6:
     K6-K8 equal K1-K3 bit for bit in both dtypes (one Hopper body over
     the same tiles), and each pair is timed on those same tiles.
@@ -1107,8 +1125,9 @@ def check_block_sparse(torch, F):
         wide = fa.LAUNCHES_WIDE.count - wide
         copies = fa.OPERAND_COPIES.count - copies
         o_ref, lse_ref = bs._bs_attention_plain(q, k, v, mask, causal, scale)
-        grads_ref = bs._bs_bwd_plain(q, k, v, o, lse, d_o, mask, causal,
-                                     scale)
+        grads_ref = bs._bs_bwd_plain(
+            *bwd_yardstick(torch, fa, D, dt, [q, k, v, o, lse, d_o]), mask,
+            causal, scale)
         dname = str(dt).split(".")[-1]
         tol = ROW_TOL[dname]
         outs = (("o", o, o_ref), ("dq", dq, grads_ref[0]),
@@ -1125,7 +1144,7 @@ def check_block_sparse(torch, F):
         finite = all(bool(torch.isfinite(t.float()).all())
                      for _, t, _ in outs)
         ok = (finite and max(rel.values()) <= tol and lse_err <= LSE_TOL
-              and wide == wide_launches(fa, D, dt, ("fwd", "dkv", "dq")))
+              and wide == wide_launches(fa, D, ("fwd", "dkv", "dq")))
         del o_ref, lse_ref, grads_ref
         live = int(keep.sum().item())
         row = dict(case=label, shape=[B, H, T, D], dtype=dname,
@@ -2738,11 +2757,19 @@ def main(argv=None) -> int:
             library_ms=row["library_ms"]))
         if launches[name] == 0:
             failures.append(f"{name} was never launched on the main paths")
-    # the f32 forward's instantiations at D 192 and 256, on no main path
-    # (B 2, H 8, T 1024, causal; K6 under phase 3's window 2 + 1 global):
-    # their launches on the main paths, by their own counters
-    for kernel, cases in ((kernels[0], flash_rows), (kernels[4], [
-            dict(r, **r["fwd"]) for r in bs_rows if "fwd" in r])):
+    # the f32 instantiations at D 192 and 256, on no main path (B 2, H 8,
+    # T 1024, causal; K6-K8 under phase 3's window 2 + 1 global): their
+    # launches on the main paths, by their own counters
+    def bs_pass(r, p):
+        return dict(r, **r[p], **({} if p == "fwd" else dict(
+            plain_ms=r["plain_bwd_ms"], library_ms=r["library_bwd_ms"])))
+
+    for kernel, cases in (
+            (kernels[0], flash_rows),
+            (kernels[1], [dict(r, **r["dkv"]) for r in bwd_rows]),
+            (kernels[2], [dict(r, **r["dq"]) for r in bwd_rows]),
+            *((kernels[i], [bs_pass(r, p) for r in bs_rows if p in r])
+              for i, p in ((4, "fwd"), (5, "dkv"), (6, "dq")))):
         kernel["variants"] = [dict(
             name=name, route="cuda", source=kernel["source"],
             replaces=kernel["replaces"], launches=launches[name],

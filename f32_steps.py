@@ -18,9 +18,10 @@ by CUDA-graph replay.  Then ResNet-50 trained 8 f32 steps at B 64 on
 wrapper's K5 call (forward, and dX on the flipped weights) alone at the
 four stage shapes; then K1-K3 and K6-K8 in f32 at head dims 192 and 256
 (B 2, H 8, T 1024, causal; K6-K8 under phase 3's sliding window 2 + 1
-global at block 128): the forward on its Hopper route (the wide route
-before it had one), dK/dV and dQ on the wide route.  Prints a line per
-leg and, last, the
+global at block 128), each pass on the route the checkout gives it (the
+Hopper bodies' split products, or the wide route where a checkout has no
+Hopper kernel for it), with the wide launches each makes.  Prints a line
+per leg and, last, the
 JSON record.  Run parent, change, change, parent in one call to compare
 two versions.
 """

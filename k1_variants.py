@@ -6,7 +6,9 @@
 
 Builds ``bigdl_tpu_torch/ops/csrc/flash_fwd.cu`` as it stands and
 variants of it, each a text patch of ``attn_fwd_hopper.cuh``'s f32
-consumer (``fwd_f32_consume``) that leaves one part out or changes it
+consumer (``fwd_f32_consume``) or of the wide products it shares with
+the backward (``hopper_common.cuh``'s ``wide_scores``) that leaves one
+part out or changes it
 (one ``nvcc`` each, all started together, into the git-ignored
 ``.torch_kernels/variants/``):
 
@@ -87,13 +89,13 @@ CHECKED = ("as_shipped", "pv_five_products", "pv_three_products")
 SHAPES = (("phase3_f32", 2, 8, 512, 128), ("phase5_layer", 16, 8, 1024, 128))
 
 # --wide: the consumer at D 192 and 256
-W_SCORES = ("wgmma_rs<kWideKeyRows, 0>(part, a[pa][j], smem_desc<P::RB>"
-            "(b + 2 * (c % P::PW)),\n                                j0 + j + t > 0);")
+W_SCORES = ("wgmma_rs<N, 0>(part, a[pa][j], smem_desc<P::RB>"
+            "(b + 2 * (c % P::PW)), j0 + j + t > 0);")
 W_NO_SCORES = (W_SCORES, "(void)b; part[0] = 0.0f;")
 W_ONE_ACC = [(W_SCORES, W_SCORES.replace("j0 + j + t > 0", "g + j0 + j + t > 0")),
-             ("wide_products<D, 2>(part,", "wide_products<D, 2>(sc,"),
-             ("wide_products<D, 1>(part,", "wide_products<D, 1>(sc,"),
-             ("      add_partial(sc, part);", "")]
+             ("wide_products<D, 2, N>(part,", "wide_products<D, 2, N>(sc,"),
+             ("wide_products<D, 1, N>(part,", "wide_products<D, 1, N>(sc,"),
+             ("      add_partial<N>(sc, part);", "")]
 W_ROLLED = "constexpr bool kWideRolled = D > 192;"
 WIDE_VARIANTS = {
     "no_score_products": [W_NO_SCORES], "no_pv_products": [NO_PV],
@@ -105,20 +107,23 @@ WIDE_SHAPES = (("D192", 2, 8, 1024, 192), ("D256", 2, 8, 1024, 256))
 
 
 def build(name, patches):
-    """flash_fwd.cu beside the patched header, which its quoted include
-    finds first; the other headers from the shipped sources.  Returns
+    """flash_fwd.cu beside the patched headers, which its quoted includes
+    find first; the other headers from the shipped sources.  Returns
     the library and nvcc's ptxas report."""
     from bigdl_tpu_torch.ops import _support
 
-    src = (_support.CSRC / "attn_fwd_hopper.cuh").read_text()
+    headers = ("attn_fwd_hopper.cuh", "hopper_common.cuh")
+    src = {h: (_support.CSRC / h).read_text() for h in headers}
     for old, new in patches:
-        if old not in src:
-            raise RuntimeError(f"{name}: attn_fwd_hopper.cuh no longer "
-                               f"holds {old!r}")
-        src = src.replace(old, new)
+        held = [h for h in headers if old in src[h]]
+        if not held:
+            raise RuntimeError(f"{name}: no header holds {old!r}")
+        for h in held:
+            src[h] = src[h].replace(old, new)
     out = _support.BUILD_DIR / "variants" / f"k1_{name}"
     out.mkdir(parents=True, exist_ok=True)
-    (out / "attn_fwd_hopper.cuh").write_text(src)
+    for h in headers:
+        (out / h).write_text(src[h])
     cu, so = out / "flash_fwd.cu", out / f"lib{name}.so"
     cu.write_text((_support.CSRC / "flash_fwd.cu").read_text())
     proc = subprocess.run([_support._nvcc(), *_support.NVCC_FLAGS, "-I",

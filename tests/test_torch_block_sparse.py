@@ -920,47 +920,53 @@ def test_wide_bf16_head_dims_run_k6_k7_on_64_row_key_lists(monkeypatch, D,
 
 
 @pytest.mark.parametrize("D,dtype,fwd,bwd", [
-    (160, torch.float32, 192, None), (200, torch.float32, 256, None),
-    (256, torch.float32, 256, None), (320, torch.float32, None, None),
+    (160, torch.float32, 192, 192), (200, torch.float32, 256, 256),
+    (256, torch.float32, 256, 256), (320, torch.float32, None, None),
     (320, torch.bfloat16, None, None)])
 def test_wide_head_dims_route_the_block_sparse_passes(monkeypatch, D, dtype,
                                                       fwd, bwd):
-    """Each pass routes by its own built head dims, as in
+    """All three passes route by the same built head dims, as in
     ``flash_attention``: f32 head dims 129-256 pad to 192 or 256 for K6
-    (over the 128-row query lists, with their order and live rows), and
-    K7 and K8 take the wide route at the true D under the block mask
-    (its grid, bq, bk); every pass above 256 does.  ``fwd`` and ``bwd``
-    are the head dims the Hopper kernels run at (None: the wide
-    route).  K6 at 192 or 256 also counts under that head dim's
-    counter."""
+    (over the 128-row query lists, with their order and live rows), K7
+    (over the 64-row key lists) and K8 (over the 64-row query lists), and
+    every pass above 256 takes the wide route under the block mask (its
+    grid, bq, bk).  ``fwd`` and ``bwd`` are the head dims the Hopper
+    kernels run at (None: the wide route).  An f32 launch of each pass at
+    192 or 256 also counts under that pass's counter for the head dim."""
     calls = _record_attention(monkeypatch)
     q, k, v, d_o = (torch.zeros(1, 2, 128, D, dtype=dtype)
                     for _ in range(4))
     mask = P.sliding_window_mask(4, 4, 2, 1, True, 32, 32)
-    per_dim = {d: c.count for d, c in P.LAUNCHES_F32.items()}
+    counters = (P.LAUNCHES_F32, P.LAUNCHES_DKV_F32, P.LAUNCHES_DQ_F32)
+    per_dim = [{d: c.count for d, c in by.items()} for by in counters]
     o, lse = P._bs_fwd_cuda(q, k, v, mask, True, 0.1)
     grads = P._bs_bwd_cuda(q, k, v, o, lse, d_o, mask, True, 0.1)
-    assert {d: c.count - per_dim[d] for d, c in P.LAUNCHES_F32.items()} == {
-        d: int(d == fwd) for d in per_dim}
+    for by, before, at in zip(counters, per_dim, (fwd, bwd, bwd)):
+        assert {d: c.count - before[d] for d, c in by.items()} == {
+            d: int(d == at) for d in before}
     assert [c[0] for c in calls] == [
         "bigdl_wide_fwd" if fwd is None else "bigdl_bs_fwd",
         *(["bigdl_wide_bwd_dkv", "bigdl_wide_bwd_dq"] if bwd is None
           else ["bigdl_bs_bwd_dkv", "bigdl_bs_bwd_dq"])]
     tab = P._attention_tables(mask, True, q.device)
     grid = tab["block_mask"].data_ptr()
-    for (name, args), at in zip(calls, (fwd, bwd, bwd)):
+    # after the tensors (5, 8 and 7): tiles, counts, flags, the block
+    # mask, order, rows
+    for (name, args), at, n, which in zip(
+            calls, (fwd, bwd, bwd), (5, 8, 7),
+            ("dq_blocks", "dkv_tiles", "dq_tiles")):
         if name.startswith("bigdl_wide"):
             # ..., block mask, nkb, bq, bk, first head, heads, T, S, D
             i = args.index(grid)
             assert args[i:i + 4] == [grid, 4, 32, 32]
             assert args[i + 6:i + 9] == [128, 128, D]
         else:
-            t = tab["dq_blocks"]
-            assert args[5:11] == [t["tiles"].data_ptr(),
-                                  t["counts"].data_ptr(),
-                                  t["flags"].data_ptr(), grid,
-                                  t["order"].data_ptr(),
-                                  t["rows"].data_ptr()]
+            t = tab[which]
+            assert args[n:n + 6] == [t["tiles"].data_ptr(),
+                                     t["counts"].data_ptr(),
+                                     t["flags"].data_ptr(), grid,
+                                     t["order"].data_ptr(),
+                                     t["rows"].data_ptr()]
             assert args[-4] == at
     for t in (o, *grads):
         assert t.shape == (1, 2, 128, D)

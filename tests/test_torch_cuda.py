@@ -10,11 +10,10 @@ conftest (which configures jax):
 Each kernel is held against its plain PyTorch version on the same
 inputs, forward and backward (the f32 forward, K1 and K6, dK/dV, K2 and
 K7, and dQ, K3 and K8, on bf16 products an f32 one at every head dim
-they are built for), also at
-head dims the kernels are not
-built for (zero-padded to the next, or above a pass's built ones, 256 and
-128 for the f32 dK/dV and dQ, through the wide route) and at more heads
-than one grid takes; a small TransformerLM served on
+they are built for), also at head dims the kernels are not built for
+(zero-padded to the next, or above the built ones, 256, through the
+wide route) and at more heads than one grid takes; a small
+TransformerLM served on
 the card in f32 (also at head dim 8, through the server), and small
 flash and block-sparse ones, a ResNet-CIFAR on K5 and a LeNet-5 trained
 three steps on the card in f32, are held against the same model on the
@@ -87,6 +86,30 @@ def _dq_row_err(got, ref, keep, k, v, d_o, sm_scale, scale):
         size = sm_scale * norm(d_o[..., i, :]) * norm(v[..., j, :]) * \
             norm(k[..., j, :])
         err = max(err, (norm(got[..., i, :] - ref[..., i, :]) / size)
+                  .max().item())
+    return err
+
+
+def _dk_row_err(got, ref, keep, q, v, d_o, sm_scale, scale):
+    """dK's ``_row_rel_err`` at ``scale``, but a key row j whose every
+    live query i under ``keep`` ((T, S) bool) has j as its one live key,
+    whose dK is 0 in exact arithmetic (dS_ij = P_ij (dP_ij - delta_i)
+    with O_i = v_j) and holds only the rounding of dP - delta on both
+    sides, against the size of its terms before they cancel, sm_scale
+    ||v_j|| sum_i ||dO_i|| ||q_i||, as ``_dq_row_err`` reads dQ's rows
+    with one live key."""
+    one = keep.sum(dim=-1) == 1      # query rows with one live key
+    gone = keep.any(dim=0) & ~(keep & ~one[:, None]).any(dim=0)
+    err = _row_rel_err(got[..., ~gone, :], ref[..., ~gone, :], scale) \
+        if not gone.all() else 0.0
+    if gone.any():
+        def norm(t):
+            return torch.linalg.vector_norm(t.float(), dim=-1)
+
+        j = torch.nonzero(gone).flatten()
+        terms = (norm(d_o) * norm(q))[..., None, :] @ keep[:, j].float()
+        size = sm_scale * norm(v[..., j, :]) * terms[..., 0, :]
+        err = max(err, (norm(got[..., j, :] - ref[..., j, :]) / size)
                   .max().item())
     return err
 
@@ -347,11 +370,10 @@ def test_odd_head_dims_run_the_kernels_on_card(cuda_device, D, dtype, which):
 @pytest.mark.parametrize("which", ["flash", "block_sparse"])
 def test_wide_head_dims_run_the_wide_route_on_card(cuda_device, D, dtype,
                                                    which):
-    """Head dims above 128: up to 256 the forward is zero-padded to 192
-    or 256 and runs the Hopper body in both dtypes (in f32 on split
-    products), and so do the bf16 dK/dV and dQ (no wide launch); the f32
-    dK/dV and dQ there take the wide route (``csrc/attn_wide.cu``) at the
-    true D (two wide launches), and above 256 all three passes do (three).
+    """Head dims above 128: up to 256 all three passes are zero-padded to
+    192 or 256 and run the Hopper bodies in both dtypes (in f32 on split
+    products; no wide launch), and above 256 all three take the wide
+    route (``csrc/attn_wide.cu``) at the true D (three wide launches).
     Forward and backward through the entry points launch K1-K3 (K6-K8)
     once each and match the plain versions in the working dtype row by
     row, LSE within 1e-3."""
@@ -382,7 +404,7 @@ def test_wide_head_dims_run_the_wide_route_on_card(cuda_device, D, dtype,
         want = bs._bs_bwd_plain(q, k, v, o.detach(), lse, d_o, mask, True,
                                 scale)
     torch.cuda.synchronize()
-    wide = 3 if D > 256 else 0 if dtype == bf16 else 2
+    wide = 3 if D > 256 else 0
     assert [c.count - n for c, n in zip(counters, before)] == [1, 1, 1, wide]
     assert o.shape == (2, 4, T, D) and o.dtype == dtype
     assert _row_rel_err(o, o_ref) <= ROW_TOL[dtype]
@@ -502,7 +524,10 @@ def test_bf16_dq_of_64_row_blocks_repeats_its_bits_on_card(cuda_device, D,
 # (T, S, D, causal, layout, bq, bk): the f32 dK/dV (K2, and K7 under a
 # block mask of bq x bk blocks) at every head dim it is built for, causal
 # and not, ragged T != S, and q, k, v and dO in the head-strided layout of
-# an attention layer
+# an attention layer; at D 192 and 256 (the block's own rows split into
+# registers, 32-row streamed tiles) causal T = S, one query row, one
+# 64-row block, a ragged edge past it, and the head-strided layout at a
+# ragged T
 F32_DKV_CASES = {
     "D16_causal": (200, 200, 16, True, "contiguous", 40, 40),
     "D32_noncausal_T130_S96": (130, 96, 32, False, "contiguous", 26, 32),
@@ -511,6 +536,17 @@ F32_DKV_CASES = {
     "D128_causal_T200_S300": (200, 300, 128, True, "contiguous", 40, 60),
     "D64_strided_causal": (200, 200, 64, True, "strided", 40, 40),
     "D128_strided_noncausal_T136_S264": (136, 264, 128, False, "strided", 8,
+                                         24),
+    "D192_causal": (512, 512, 192, True, "contiguous", 32, 32),
+    "D256_causal": (512, 512, 256, True, "contiguous", 32, 32),
+    "D192_causal_T1": (1, 1, 192, True, "contiguous", 1, 1),
+    "D256_causal_T1": (1, 1, 256, True, "contiguous", 1, 1),
+    "D192_causal_T64": (64, 64, 192, True, "contiguous", 32, 32),
+    "D256_causal_T64": (64, 64, 256, True, "contiguous", 32, 32),
+    "D192_noncausal_T65_S130": (65, 130, 192, False, "contiguous", 13, 26),
+    "D256_noncausal_T65_S130": (65, 130, 256, False, "contiguous", 13, 26),
+    "D192_strided_causal_T264": (264, 264, 192, True, "strided", 24, 24),
+    "D256_strided_noncausal_T136_S264": (136, 264, 256, False, "strided", 8,
                                          24),
 }
 
@@ -533,7 +569,11 @@ def test_f32_dkv_runs_the_split_products_on_card(cuda_device, case, which):
     of their operands: one launch per call,
     no wide launch, q, k, v and dO read where they lie (no operand copy,
     the head-strided layout too), dK and dV row by row within the f32
-    limit of the plain backward, and two launches give the same bits."""
+    limit of the plain backward (one scale for both; a key row whose
+    queries attend it alone, 0 in exact arithmetic, against its terms'
+    size, ``_dk_row_err``), and two launches give the same bits.  At D
+    192 and 256 each launch also counts under that head dim's
+    counter."""
     T, S, D, causal, layout, bq, bk = F32_DKV_CASES[case]
     g = torch.Generator(device=cuda_device).manual_seed(T * 7 + D)
 
@@ -545,7 +585,10 @@ def test_f32_dkv_runs_the_split_products_on_card(cuda_device, case, which):
 
     q, k, v, d_o = make(T), make(S), make(S), make(T)
     scale = 1 / math.sqrt(D)
-    mask = _f32_dkv_mask(T, S, bq, bk) if which == "block_sparse" else None
+    mask = None
+    if which == "block_sparse":
+        mask = _f32_dkv_mask(T, S, bq, bk) if T > 1 else bs.BlockMask(
+            np.ones((1, 1), bool), 1, 1)
     if mask is None:
         o, lse = fa._flash_cuda(q, k, v, causal, scale)
         counter = fa.LAUNCHES_DKV
@@ -560,11 +603,17 @@ def test_f32_dkv_runs_the_split_products_on_card(cuda_device, case, which):
             return bs._launch_bs_dkv(q, k, v, do, lse, delta, mask, causal,
                                      scale)
     do, delta = fa._bwd_inputs(q, o, d_o)
-    counts = (counter.count, fa.OPERAND_COPIES.count, fa.LAUNCHES_WIDE.count)
+    by_dim = (fa if mask is None else bs).LAUNCHES_DKV_F32.get(D)
+
+    def tally():
+        return (counter.count, fa.OPERAND_COPIES.count,
+                fa.LAUNCHES_WIDE.count, by_dim.count if by_dim else 0)
+
+    counts = tally()
     runs = [launch(), launch()]
     torch.cuda.synchronize()
-    assert (counter.count, fa.OPERAND_COPIES.count, fa.LAUNCHES_WIDE.count) \
-        == (counts[0] + 2, counts[1], counts[2])
+    assert tally() == (counts[0] + 2, counts[1], counts[2],
+                       counts[3] + (2 if by_dim else 0))
     for a, b in zip(*runs):
         assert a.dtype == torch.float32 and a.is_contiguous()
         assert torch.equal(a, b)
@@ -575,36 +624,30 @@ def test_f32_dkv_runs_the_split_products_on_card(cuda_device, case, which):
                                 scale)[1:]
     largest = max(torch.linalg.vector_norm(b, dim=-1).max().item()
                   for b in want)
-    for a, b in zip(runs[0], want):
+    for a in runs[0]:
         assert torch.isfinite(a).all()
-        assert _row_rel_err(a, b, largest) <= ROW_TOL[torch.float32]
-    if mask is not None:   # the dead key block's rows are exactly zero
+    # a key row whose queries attend it alone (one query row at T 1) reads
+    # against its terms' size (``_dk_row_err``)
+    keep = _keep(T, S, causal, cuda_device, mask)
+    assert _dk_row_err(runs[0][0], want[0], keep, q, v, d_o, scale,
+                       largest) <= ROW_TOL[torch.float32]
+    assert _row_rel_err(runs[0][1], want[1], largest) \
+        <= ROW_TOL[torch.float32]
+    if mask is not None and T > 1:   # the dead key block's rows are zero
         assert not runs[0][0][:, :, S - bk:].any()
         assert not runs[0][1][:, :, S - bk:].any()
 
 
 # (T, S, D, causal, layout, bq, bk): the f32 forward (K1, and K6 under a
-# block mask of bq x bk blocks): the dK/dV cases, one query row, and the
-# edges of a 128-row block (the second 64-row q tile partly or wholly past
-# T); at D 192 and 256 (q split into registers, 32-key tiles) the same
-# edges, causal T = S, and the head-strided layout at a ragged T
+# block mask of bq x bk blocks): the dK/dV cases (at D 192 and 256, q split
+# into registers, 32-key tiles), one query row, and the edges of a
+# 128-row block (the second 64-row q tile partly or wholly past T)
 F32_FWD_CASES = dict(
     F32_DKV_CASES,
     D16_causal_T1=(1, 1, 16, True, "contiguous", 1, 1),
     D128_causal_T64=(64, 64, 128, True, "contiguous", 32, 32),
     D32_noncausal_T65_S130=(65, 130, 32, False, "contiguous", 13, 26),
-    D128_strided_causal_T264=(264, 264, 128, True, "strided", 24, 24),
-    D192_causal=(512, 512, 192, True, "contiguous", 32, 32),
-    D256_causal=(512, 512, 256, True, "contiguous", 32, 32),
-    D192_causal_T1=(1, 1, 192, True, "contiguous", 1, 1),
-    D256_causal_T1=(1, 1, 256, True, "contiguous", 1, 1),
-    D192_causal_T64=(64, 64, 192, True, "contiguous", 32, 32),
-    D256_causal_T64=(64, 64, 256, True, "contiguous", 32, 32),
-    D192_noncausal_T65_S130=(65, 130, 192, False, "contiguous", 13, 26),
-    D256_noncausal_T65_S130=(65, 130, 256, False, "contiguous", 13, 26),
-    D192_strided_causal_T264=(264, 264, 192, True, "strided", 24, 24),
-    D256_strided_noncausal_T136_S264=(136, 264, 256, False, "strided", 8,
-                                      24))
+    D128_strided_causal_T264=(264, 264, 128, True, "strided", 24, 24))
 
 
 @pytest.mark.parametrize("case", sorted(F32_FWD_CASES))
@@ -706,12 +749,13 @@ def test_f32_forward_of_k6_is_k1s_and_never_reads_dead_kv_on_card(
         assert torch.isfinite(b).all() and torch.equal(a, b)
 
 
-@pytest.mark.parametrize("D", [16, 32, 64, 128])
+@pytest.mark.parametrize("D", [16, 32, 64, 128, 192, 256])
 def test_f32_dkv_of_k7_is_k2s_and_never_reads_dead_kv_on_card(cuda_device,
                                                                D):
     """The f32 K7 runs K2's body over its 64-row key lists: on an
     all-ones causal mask at block 128 they visit the same query tiles in
-    the same order, so K7 = K2 bit for bit (fed the same O, LSE, dO and
+    the same order (at D 192 and 256 each list step streamed as two
+    32-row halves), so K7 = K2 bit for bit (fed the same O, LSE, dO and
     delta).  Under a mask at block 32 with NaN in every K/V row that no
     query may attend, O, LSE, dQ, dK and dV equal the clean run's bit for
     bit: such a row is never loaded, or zero-filled where a partial pair
@@ -747,7 +791,8 @@ def test_f32_dkv_of_k7_is_k2s_and_never_reads_dead_kv_on_card(cuda_device,
 
 
 # (T, S, D, causal, layout, bq, bk): the f32 dQ (K3, and K8 under a block
-# mask of bq x bk blocks): the dK/dV cases, one query row, the edge of a
+# mask of bq x bk blocks): the dK/dV cases (at D 192 and 256, Q and dO
+# split into registers, 32-key tiles), one query row, the edge of a
 # 64-row block and keys past it
 F32_DQ_CASES = dict(
     F32_DKV_CASES,
@@ -767,7 +812,8 @@ def test_f32_dq_runs_the_split_products_on_card(cuda_device, case, which):
     too, whose dQ is the contiguous launch's bits), dQ row by row within
     the f32 limit of the plain backward (one scale for dQ, dK and dV; a
     row with one live key against its terms' size, ``_dq_row_err``), and
-    two launches give the same bits."""
+    two launches give the same bits.  At D 192 and 256 each launch also
+    counts under that head dim's counter."""
     T, S, D, causal, layout, bq, bk = F32_DQ_CASES[case]
     g = torch.Generator(device=cuda_device).manual_seed(T * 3 + D)
 
@@ -797,11 +843,17 @@ def test_f32_dq_runs_the_split_products_on_card(cuda_device, case, which):
             return bs._launch_bs_dq(*t, lse, delta, mask, causal, scale)
 
     do, delta = fa._bwd_inputs(q, o, d_o)
-    counts = (counter.count, fa.OPERAND_COPIES.count, fa.LAUNCHES_WIDE.count)
+    by_dim = (fa if which == "flash" else bs).LAUNCHES_DQ_F32.get(D)
+
+    def tally():
+        return (counter.count, fa.OPERAND_COPIES.count,
+                fa.LAUNCHES_WIDE.count, by_dim.count if by_dim else 0)
+
+    counts = tally()
     runs = [launch(q, k, v, do), launch(q, k, v, do)]
     torch.cuda.synchronize()
-    assert (counter.count, fa.OPERAND_COPIES.count, fa.LAUNCHES_WIDE.count) \
-        == (counts[0] + 2, counts[1], counts[2])
+    assert tally() == (counts[0] + 2, counts[1], counts[2],
+                       counts[3] + (2 if by_dim else 0))
     assert runs[0].dtype == torch.float32 and runs[0].is_contiguous()
     assert torch.equal(runs[0], runs[1])
     if which == "flash":
@@ -820,12 +872,13 @@ def test_f32_dq_runs_the_split_products_on_card(cuda_device, case, which):
         assert torch.equal(runs[0], same)
 
 
-@pytest.mark.parametrize("D", [16, 32, 64, 128])
+@pytest.mark.parametrize("D", [16, 32, 64, 128, 192, 256])
 def test_f32_dq_of_k8_is_k3s_and_never_reads_dead_kv_on_card(cuda_device,
                                                              D):
     """The f32 K8 runs K3's f32 body over its 64-row query lists: on an
     all-ones causal mask at block 128 (and at a ragged T 200, block 40)
-    they visit the same key tiles in the same order, so K8 = K3 bit for
+    they visit the same key tiles in the same order (at D 192 and 256
+    each list step streamed as two 32-key halves), so K8 = K3 bit for
     bit (fed the same O, LSE, dO and delta).  Under a mask at block 32
     with NaN in every K/V row that no query may attend, dQ (and O, LSE,
     dK, dV) equal the clean run's bit for bit."""
@@ -863,12 +916,12 @@ def test_f32_dq_of_k8_is_k3s_and_never_reads_dead_kv_on_card(cuda_device,
 def test_f32_dq_raises_where_its_kernel_refuses_on_card(cuda_device):
     """The f32 K3 and K8 launch their split-product kernel or raise: no
     route falls back to a tile loop or to the plain version.  The C
-    entries refuse an f32 head dim above 128 (K3) and an f32 K8 launch
-    without its block lists' order and rows (the tile tables the retired
-    loop read had none); each raises, counts no launch and writes
-    nothing."""
+    entries refuse a head dim they are not built for (K3 at 320) and an
+    f32 K8 launch without its block lists' order and rows (the tile
+    tables the retired loop read had none); each raises, counts no
+    launch and writes nothing."""
     g = torch.Generator(device=cuda_device).manual_seed(11)
-    q, k, v, d_o = (torch.randn(1, 2, 64, 192, device=cuda_device,
+    q, k, v, d_o = (torch.randn(1, 2, 64, 320, device=cuda_device,
                                 generator=g) for _ in range(4))
     lse = torch.zeros(2, 1, 64, device=cuda_device)
     delta = torch.zeros(2, 64, device=cuda_device)
@@ -880,7 +933,7 @@ def test_f32_dq_raises_where_its_kernel_refuses_on_card(cuda_device):
             fa._bwd_fn("bigdl_flash_bwd_dq", 7),
             [*(t.data_ptr() for t in (q, k, v, d_o, lse, delta, dq)),
              fa._strides_arg(q, k, v, d_o), 2, fa.FIRST_HEAD, fa.HEADS, 64,
-             64, 192, 0, 0.125, 1], 2, q.device)
+             64, 320, 0, 0.125, 1], 2, q.device)
     torch.cuda.synchronize()
     assert fa.LAUNCHES_DQ.count == before and dq.isnan().all()
     q, k, v, d_o = (t[..., :64].contiguous() for t in (q, k, v, d_o))

@@ -17,10 +17,13 @@ pieces (five), six again for dQ's S, dP and dS . K
 for each tap's product of the shifted pixels and the weights).
 ``_fwd_split``, ``_dkv_split``, ``_dq_split`` and ``_conv_split`` below
 form O and LSE, dK and dV, dQ, and the conv's output that way from
-seeded numpy inputs; ``_fwd_wide_split`` forms O and LSE as the f32
-forward does at D 192 and 256 (``fwd_f32_wide_consume``: 32-key tiles,
-q split into registers per 32-column panel, a fresh partial of S per
-panel), with wgmma's truncation toward zero modelled, k16 step by step.
+seeded numpy inputs; ``_fwd_wide_split``, ``_dkv_wide_split`` and
+``_dq_wide_split`` form O and LSE, dK and dV, and dQ as the f32 kernels
+do at D 192 and 256 (``WIDE`` in ``fwd_f32_consume``,
+``dkv_f32_consume`` and ``dq_f32_consume``: 32-row streamed tiles, the
+block's own rows split into registers per 32-column panel, a fresh
+partial of each score per panel), with wgmma's truncation toward zero
+modelled, k16 step by step.
 The results are held row by row, at the f32 limit the card holds the
 kernels to (1e-4; LSE 1e-3; the wide forward at a third of it), against
 the JAX package's ``flash_attention``, ``block_sparse_attention`` and
@@ -625,27 +628,29 @@ def _wide_scores(q, kt, truncate=True, partial=WIDE_Q_PANEL):
     K1/K6 form it at D 192 and 256: for each 32-column panel of q, split
     into registers, the six products of each of its two k16 steps (steps
     outer) into a fresh partial, added to S in f32 once they are done;
-    ``partial``: the columns a partial spans (None: one accumulator over
-    all of D, a design not taken)."""
+    ``partial``: the columns a partial spans (16: one a k16 step, as the
+    f32 dK/dV and dQ form their scores; None: one accumulator over all of
+    D, a design not taken)."""
     A, B = _pieces(q, 3), _pieces(kt.transpose(-1, -2), 3)
     D = q.shape[-1]
     total = torch.zeros(*q.shape[:-1], kt.shape[-2])
     part = torch.zeros_like(total)
-    for g in range(0, D, WIDE_Q_PANEL):
-        for c in range(g, g + WIDE_Q_PANEL, 16):
-            for i, j in TERMS:
-                part = _wgmma_add(part, A[i][..., c:c + 16],
-                                  B[j][..., c:c + 16, :], truncate)
-        if partial and (g + WIDE_Q_PANEL) % partial == 0:
+    for c in range(0, D, 16):
+        for i, j in TERMS:
+            part = _wgmma_add(part, A[i][..., c:c + 16],
+                              B[j][..., c:c + 16, :], truncate)
+        if partial and (c + 16) % partial == 0:
             total, part = total + part, torch.zeros_like(total)
     return total + part
 
 
-def _wide_pv(acc, p, vt, truncate=True):
-    """acc + P . V over a 32-key tile: the six products of each of its two
-    k16 steps, terms outer, into the accumulator."""
+def _wide_pv(acc, p, vt, truncate=True, terms=TERMS):
+    """acc + P . V over a tile of 16 or 32 keys: the products ``terms``
+    (pieces of P, of V) of each of its k16 steps, terms outer, into the
+    accumulator; six (``TERMS``), or five on two pieces of V
+    (``TERMS[1:]``)."""
     A, B = _pieces(p, 3), _pieces(vt, 3)
-    for i, j in TERMS:
+    for i, j in terms:
         for c in range(0, vt.shape[-2], 16):
             acc = _wgmma_add(acc, A[i][..., c:c + 16], B[j][..., c:c + 16, :],
                              truncate)
@@ -787,11 +792,12 @@ def test_the_wide_forward_models_wgmmas_truncation(D):
 
 def test_the_wide_forwards_o_keeps_the_key_bias_gradient_at_rounding_level():
     """The key-bias check of ``test_the_forwards_o_keeps_the_key_bias_
-    gradient_at_rounding_level`` at D 256, where the f32 backward takes
-    the wide route (``csrc/attn_wide.cu``: the plain f32 math) at the true
-    head dim: O and LSE from the wide forward's products (truncation
-    modelled) keep the sum of dK over the key rows within twice the plain
-    f32 pipeline's.  One S accumulator over all of D shrinks the scores by
+    gradient_at_rounding_level`` at D 256 with the plain f32 backward (the
+    math the f32 backward at D 129-256 ran before it had Hopper kernels;
+    ``test_the_wide_backward_keeps_the_key_bias_gradient_at_rounding_
+    level`` holds the kernels' own): O and LSE from the wide forward's
+    products (truncation modelled) keep the sum of dK over the key rows
+    within twice the plain f32 pipeline's.  One S accumulator over all of D shrinks the scores by
     its 96 truncations, so LSE and the backward's recomputed P disagree:
     three times the plain pipeline's or more; O from P . V on two pieces
     of V five times it or more."""
@@ -814,6 +820,201 @@ def test_the_wide_forwards_o_keeps_the_key_bias_gradient_at_rounding_level():
     assert sums["kernel"] <= 2 * noise
     assert sums["one"] > 3 * noise
     assert sums["five"] > 5 * noise
+
+
+# ----------------------------------------------------------------------
+# the f32 backward at head dims 129-256: K2/K7 and K3/K8 at D 192 and 256
+# ----------------------------------------------------------------------
+
+#: the rows of a tile the f32 dK/dV (query rows) and dQ (key rows) stream
+#: at D 192 and 256; each dQ warpgroup takes half of a key tile's
+WIDE_TILE = 32
+#: the columns of a partial of the backward's scores at D 192 and 256: a
+#: fresh one a k16 step (``wide_scores`` with ``kStep``)
+WIDE_STEP = 16
+
+
+def _dkv_wide_split(q, k, v, o, lse, d_o, keep, scale, truncate=True,
+                    partial=WIDE_STEP):
+    """dK and dV (B, H, S, D) as the f32 K2/K7 compute them at D 192 and
+    256 (``dkv_f32_consume`` with ``WIDE``): S^T = K . Q^T and dP^T = V .
+    dO^T by ``_wide_scores`` (K and V, the block's own rows, split into
+    registers a 32-column panel at a time, a fresh partial per k16 step;
+    ``partial`` as there), P^T, dP^T and dS^T as ``_dkv_split`` forms them,
+    then over the 32-row query tiles in order dV += P^T . dO and dK +=
+    dS^T . Q, five products each (dO and Q in two pieces), terms outer,
+    k16 steps inner, in one accumulator a row; wgmma's sums rounded toward
+    zero where ``truncate``.  A tile whose pairs are all masked adds zeros,
+    which leave the accumulator as it is, as the sweep's skipping it
+    does."""
+    B, H, T, D = q.shape
+    delta = (d_o * o).sum(dim=-1)[:, :, None, :]
+    lse = lse.reshape(B, H, 1, T)
+    zero = torch.zeros(())
+    st = _wide_scores(k, q, truncate, partial)
+    pt = torch.where(keep.T, torch.exp2(st * (scale * LOG2E) - lse * LOG2E),
+                     zero)
+    dpt = _wide_scores(v, d_o, truncate, partial)
+    dst = torch.where(keep.T, pt * (dpt - delta), zero)
+    dk = torch.zeros(B, H, k.shape[2], D)
+    dv = torch.zeros_like(dk)
+    for r0 in range(0, T, WIDE_TILE):
+        rows = slice(r0, r0 + WIDE_TILE)
+        dv = _wide_pv(dv, pt[..., rows], d_o[:, :, rows], truncate, TERMS[1:])
+        dk = _wide_pv(dk, dst[..., rows], q[:, :, rows], truncate, TERMS[1:])
+    return dk * scale, dv
+
+
+def _dq_wide_split(q, k, v, o, lse, d_o, keep, scale, truncate=True,
+                   partial=WIDE_STEP, terms=TERMS):
+    """dQ (B, H, T, D) as the f32 K3/K8 compute it at D 192 and 256
+    (``dq_f32_consume`` with ``WIDE``): S = Q . K^T and dP = dO . V^T by
+    ``_wide_scores`` (Q and dO split into registers a panel at a time, a
+    fresh partial per k16 step),
+    P and dS as ``_dq_split`` forms them, then over the 32-key tiles in
+    order, warpgroup w adding dS . K over keys 16 w .. 16 w + 15 of each
+    (six products, ``terms``) into its own accumulator; the two meet
+    once, in f32, at the end."""
+    B, H, T, D = q.shape
+    S = k.shape[2]
+    delta = (d_o * o).sum(dim=-1, keepdim=True)
+    lse = lse.reshape(B, H, T, 1)
+    zero = torch.zeros(())
+    s = _wide_scores(q, k, truncate, partial)
+    p = torch.where(keep, torch.exp2(s * (scale * LOG2E) - lse * LOG2E),
+                    zero)
+    dp = _wide_scores(d_o, v, truncate, partial)
+    ds = torch.where(keep, p * (dp - delta), zero)
+    half = WIDE_TILE // 2
+    acc = [torch.zeros(B, H, T, D), torch.zeros(B, H, T, D)]
+    for k0 in range(0, S, WIDE_TILE):
+        for w in range(2):
+            keys = slice(k0 + half * w, min(S, k0 + half * (w + 1)))
+            if keys.start < S:
+                acc[w] = _wide_pv(acc[w], ds[..., keys], k[:, :, keys],
+                                  truncate, terms)
+    return (acc[0] + acc[1]) * scale
+
+
+def _wide_backward(q, k, v, g, keep, scale):
+    """dQ, dK and dV of the f32 slice at D 192 and 256 on the card: O and
+    LSE from the wide forward's products (``_fwd_wide_split``), then the
+    wide dK/dV and dQ on them."""
+    o, lse = _fwd_wide_split(q, k, v, keep, scale)
+    return (_dq_wide_split(q, k, v, o, lse, g, keep, scale),
+            *_dkv_wide_split(q, k, v, o, lse, g, keep, scale))
+
+
+def _check_wide_grads(got, want, keep, k, v, d_o, sm_scale):
+    """dQ, dK and dV against ``want`` row by row within a third of the f32
+    limit, one scale for the three (dQ's rows with one live key against
+    their terms' size, ``_dq_err``)."""
+    largest = max(torch.linalg.vector_norm(w, dim=-1).max().item()
+                  for w in want)
+    assert _dq_err(got[0], want[0], keep, k, v, d_o, sm_scale,
+                   largest) <= WIDE_ROW_TOL
+    for name, a, b in zip(("dk", "dv"), got[1:], want[1:]):
+        assert _scaled_row_err(a, b, largest) <= WIDE_ROW_TOL, name
+
+
+@pytest.mark.parametrize("case", sorted(WIDE_CASES))
+def test_wide_split_backward_matches_the_jax_flash_backward(case):
+    """The f32 slice at D 192 and 256 (the wide forward's O and LSE, then
+    the wide dK/dV and dQ, wgmma's truncation toward zero modelled)
+    against the gradients ``jax.vjp`` takes through the JAX flash
+    attention (the Pallas kernels in interpret mode; the plain reference
+    at T 130), row by row within a third of the f32 limit."""
+    B, H, T, S, D, causal = WIDE_CASES[case]
+    q, k, v, g = _inputs(B, H, T, S, D, seed=7 * len(case))
+    scale = 1 / math.sqrt(D)
+    want = _jax_grads(lambda a, b, c: jax_flash(a, b, c, causal=causal,
+                                                sm_scale=scale,
+                                                interpret=True), q, k, v, g)
+    t = [torch.from_numpy(a) for a in (q, k, v, g)]
+    keep = (fa._causal_keep(T, S, "cpu") if causal
+            else torch.ones(T, S, dtype=torch.bool))
+    got = _wide_backward(*t[:3], t[3], keep, scale)
+    _check_wide_grads(got, want, keep, t[1], t[2], t[3], scale)
+
+
+@pytest.mark.parametrize("D", [192, 256])
+def test_wide_split_backward_matches_the_jax_block_sparse_backward(D):
+    """Under a block mask with a dead key block, a dead query block, a
+    query row whose one live key is its own and partly live 32-row tiles
+    (block 32): the f32 slice at D 192 and 256 against ``jax.vjp`` of
+    ``block_sparse_attention`` through the Pallas kernels in interpret
+    mode; the dead blocks' rows are 0 on both sides."""
+    m = J.sliding_window_mask(8, 8, 2, 1, True, 32, 32).mask.copy()
+    m[:, 5] = False     # k block 5: read by no query
+    m[6, :] = False     # q block 6: reads nothing
+    m[4, :4] = False    # q block 4: its own block alone, so row 128 has one key
+    mask = J.BlockMask(m, 32, 32)
+    q, k, v, g = _inputs(1, 2, 256, 256, D, seed=23)
+    scale = 1 / math.sqrt(D)
+    want = _jax_grads(lambda a, b, c: J.block_sparse_attention(
+        a, b, c, mask, causal=True, sm_scale=scale, interpret=True),
+        q, k, v, g)
+    port = P.BlockMask(mask.mask, mask.block_q, mask.block_k)
+    t = [torch.from_numpy(a) for a in (q, k, v, g)]
+    keep = P._elementwise_keep(port, True, "cpu")
+    got = _wide_backward(*t[:3], t[3], keep, scale)
+    _check_wide_grads(got, want, keep, t[1], t[2], t[3], scale)
+    assert not got[0][:, :, 192:224].any() and not want[0][:, :, 192:224].any()
+    for a, b in zip(got[1:], want[1:]):
+        assert not a[:, :, 160:192].any() and not b[:, :, 160:192].any()
+
+
+@pytest.mark.parametrize("D", [192, 256])
+def test_the_wide_backward_keeps_the_key_bias_gradient_at_rounding_level(D):
+    """The key-bias check of ``test_the_wide_forwards_o_keeps_the_key_bias_
+    gradient_at_rounding_level`` with the wide dK/dV in place of the plain
+    f32 backward: O and LSE from the wide forward's products, S^T and
+    dP^T from a fresh partial per k16 step (truncation modelled), keep
+    the sum of dK over the key rows within twice the
+    plain f32 pipeline's.  S^T and dP^T over all of D in one accumulator
+    (96 truncations at D 256) shrink the recomputed P against LSE: three
+    times the plain pipeline's or more."""
+    rng = np.random.RandomState(0)
+    q, k, v, g = (torch.from_numpy(rng.randn(3, 4, 20, D)
+                                   .astype(np.float32)) for _ in range(4))
+    scale = 1 / math.sqrt(D)
+    keep = fa._causal_keep(20, 20, "cpu")
+    o, lse = fa._flash_plain(q, k, v, True, scale)
+    noise = fa._flash_bwd_plain(q, k, v, o, lse, g, True, scale)[1] \
+        .sum(dim=2).norm().item()
+    o, lse = _fwd_wide_split(q, k, v, keep, scale)
+    sums = {name: _dkv_wide_split(q, k, v, o, lse, g, keep, scale, **kw)[0]
+            .sum(dim=2).norm().item()
+            for name, kw in (("kernel", {}), ("one", dict(partial=None)))}
+    assert sums["kernel"] <= 2 * noise
+    assert sums["one"] > 3 * noise
+
+
+@pytest.mark.parametrize("D", [192, 256])
+def test_the_wide_dq_keeps_a_key_shift_at_rounding_level(D):
+    """The property of ``test_the_dq_keeps_a_key_shift_at_rounding_level``
+    at D 192 and 256 (truncation modelled): a common shift of the key rows
+    moves the wide dQ within twice what it moves the plain f32 pipeline's,
+    while K in two pieces (five products for dS . K) or S and dP over all
+    of D in one accumulator move it four times that or more."""
+    rng = np.random.RandomState(0)
+    q, k, v, g = (torch.from_numpy(rng.randn(3, 4, 20, D)
+                                   .astype(np.float32)) for _ in range(4))
+    b = torch.from_numpy(np.random.RandomState(1).randn(1, 4, 1, D)
+                         .astype(np.float32))
+    scale = 1 / math.sqrt(D)
+    keep = fa._causal_keep(20, 20, "cpu")
+    o, lse = fa._flash_plain(q, k, v, True, scale)
+    exact = fa._flash_bwd_plain(q, k, v, o, lse, g, True, scale)[0]
+    o, lse = fa._flash_plain(q, k + b, v, True, scale)
+    plain = fa._flash_bwd_plain(q, k + b, v, o, lse, g, True, scale)[0]
+    noise = (plain - exact).norm().item()
+    moved = {name: (_dq_wide_split(q, k + b, v, o, lse, g, keep, scale, **kw)
+                    - exact).norm().item()
+             for name, kw in (("kernel", {}), ("five", dict(terms=TERMS[1:])),
+                              ("one", dict(partial=None)))}
+    assert moved["kernel"] <= 2 * noise
+    assert min(moved["five"], moved["one"]) > 4 * noise
 
 
 # ----------------------------------------------------------------------

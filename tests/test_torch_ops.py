@@ -204,6 +204,31 @@ def test_flash_bwd_fully_masked_rows_give_zero_gradients():
     assert torch.equal(dv[:, :, 8:], torch.zeros_like(dv[:, :, 8:]))
 
 
+def test_the_plain_backward_carries_f64_inputs_in_f64():
+    """The f32 kernels' yardstick on the card: ``_flash_bwd_plain`` on f64
+    copies of f32 inputs runs its math in f64 (the same math written out
+    in f64 here, to f64 rounding) and returns f64 gradients within f32
+    rounding of the f32 run's; f32 inputs keep f32."""
+    q, k, v = (torch.from_numpy(a) for a in _qkv(1, 2, 40, 40, 32, seed=9))
+    g = torch.from_numpy(np.random.RandomState(10).randn(1, 2, 40, 32)
+                         .astype(np.float32))
+    o, lse = fa._flash_plain(q, k, v, True, 0.2)
+    f32 = fa._flash_bwd_plain(q, k, v, o, lse, g, True, 0.2)
+    f64 = fa._flash_bwd_plain(*(t.double() for t in (q, k, v, o, lse, g)),
+                              True, 0.2)
+    keep = fa._causal_keep(40, 40, "cpu")
+    qd, kd, vd, od, gd = (t.double() for t in (q, k, v, o, g))
+    p = torch.exp((qd @ kd.transpose(-1, -2) * 0.2).masked_fill(
+        ~keep, float("-inf")) - lse.double().reshape(1, 2, 40, 1))
+    ds = p * (gd @ vd.transpose(-1, -2) - (gd * od).sum(-1, keepdim=True))
+    exact = (ds @ kd * 0.2, ds.transpose(-1, -2) @ qd * 0.2,
+             p.transpose(-1, -2) @ gd)
+    for a, b, e in zip(f32, f64, exact):
+        assert a.dtype == torch.float32 and b.dtype == torch.float64
+        torch.testing.assert_close(b, e, rtol=1e-12, atol=1e-12)
+        torch.testing.assert_close(a, b.float(), rtol=1e-5, atol=1e-5)
+
+
 @pytest.mark.parametrize("D", [6, 8, 48, 96])
 @pytest.mark.parametrize("causal", [True, False])
 def test_padded_head_dim_leaves_attention_and_grads_unchanged(D, causal):
@@ -215,7 +240,7 @@ def test_padded_head_dim_leaves_attention_and_grads_unchanged(D, causal):
     g = torch.from_numpy(np.random.RandomState(D + 1).randn(
         2, 2, 40, D).astype(np.float32))
     scale = 1 / math.sqrt(D)
-    Dp = fa._padded_head_dim(D, q.dtype)
+    Dp = fa._padded_head_dim(D)
     assert Dp == {6: 16, 8: 16, 48: 64, 96: 128}[D]
     qp, kp, vp, gp = (fa._pad_head_dim(t, Dp) for t in (q, k, v, g))
     assert qp.shape[-1] == Dp and not qp[..., D:].any()
@@ -255,19 +280,13 @@ def test_wide_head_dim_plain_matches_pallas_interpret(D, causal):
     for name, a, b in zip(("dq", "dk", "dv"), got, want):
         np.testing.assert_allclose(a.numpy(), np.asarray(b), **GRAD_TOL,
                                    err_msg=name)
-    # f32 takes such a head dim as it is on the wide route in dK/dV and
-    # dQ, and pads it to 192 or 256 for the Hopper forward; bf16 pads it
-    # for all three passes, and takes the wide route only above 256
-    f32, bf16 = torch.float32, torch.bfloat16
-    assert fa._padded_head_dim(D, f32) == D and fa._wide(D, f32)
-    Dp = fa._padded_head_dim(D, bf16)
+    # both dtypes pad such a head dim to 192 or 256 for all three passes,
+    # and take the wide route only above 256
+    Dp = fa._padded_head_dim(D)
     assert Dp == {160: 192, 256: 256}[D]
-    assert not fa._wide(Dp, bf16)
-    assert fa._padded_head_dim(D, f32, forward=True) == Dp
-    assert not fa._wide(Dp, f32, forward=True)
-    assert fa._wide(fa._padded_head_dim(D + 64, bf16), bf16) == (D > 192)
-    assert fa._wide(fa._padded_head_dim(D + 64, f32, forward=True), f32,
-                    forward=True) == (D > 192)
+    assert not fa._wide(Dp) and fa._wide(D) == (D > 256)
+    assert fa._padded_head_dim(D + 64) == (D + 64 if D > 192 else 256)
+    assert fa._wide(fa._padded_head_dim(D + 64)) == (D > 192)
 
 
 # --------------------------------------------------------------------------
@@ -418,24 +437,26 @@ def test_f32_forward_reads_head_strided_operands_in_place(monkeypatch,
 
 @pytest.mark.parametrize("D,dtype,fwd,bwd", [
     (160, torch.bfloat16, 192, 192), (200, torch.bfloat16, 256, 256),
-    (256, torch.bfloat16, 256, 256), (160, torch.float32, 192, None),
-    (200, torch.float32, 256, None), (256, torch.float32, 256, None),
+    (256, torch.bfloat16, 256, 256), (160, torch.float32, 192, 192),
+    (200, torch.float32, 256, 256), (256, torch.float32, 256, 256),
     (320, torch.float32, None, None), (320, torch.bfloat16, None, None)])
 def test_wide_head_dims_route_by_dtype(monkeypatch, D, dtype, fwd, bwd):
-    """Each pass routes by its own built head dims: head dims 129-256 are
-    zero-padded to 192 or 256 and run the Hopper forward (K1) in both
-    dtypes, and the Hopper dK/dV (K2) and dQ (K3) in bf16; the f32 dK/dV
-    and dQ there take the wide route at the true D, and every pass above
-    256 does.  ``fwd`` and ``bwd`` are the head dims the Hopper kernels run
-    at (None: the wide route).  The outputs are cut back to D.  An f32
-    forward at 192 or 256 also counts under that head dim's counter."""
+    """All three passes route by the same built head dims in both
+    dtypes: head dims 129-256 are zero-padded to 192 or 256 and run the
+    Hopper forward (K1), dK/dV (K2) and dQ (K3), and every pass above 256
+    takes the wide route.  ``fwd`` and ``bwd`` are the head dims the
+    Hopper kernels run at (None: the wide route).  The outputs are cut
+    back to D.  An f32 launch of each pass at 192 or 256 also counts
+    under that pass's counter for the head dim."""
     calls = _record_launches(monkeypatch)
     q, k, v, d_o = (torch.zeros(1, 2, 16, D, dtype=dtype) for _ in range(4))
-    per_dim = {d: c.count for d, c in fa.LAUNCHES_F32.items()}
+    counters = (fa.LAUNCHES_F32, fa.LAUNCHES_DKV_F32, fa.LAUNCHES_DQ_F32)
+    per_dim = [{d: c.count for d, c in by.items()} for by in counters]
     o, lse = fa._flash_cuda(q, k, v, True, 0.1)
     grads = fa._flash_bwd_cuda(q, k, v, o, lse, d_o, True, 0.1)
-    assert {d: c.count - per_dim[d] for d, c in fa.LAUNCHES_F32.items()} == {
-        d: int(dtype == torch.float32 and d == fwd) for d in per_dim}
+    for by, before, at in zip(counters, per_dim, (fwd, bwd, bwd)):
+        assert {d: c.count - before[d] for d, c in by.items()} == {
+            d: int(dtype == torch.float32 and d == at) for d in before}
     names = [c[0] for c in calls]
     assert names == [
         "bigdl_wide_fwd" if fwd is None else "bigdl_flash_fwd",
