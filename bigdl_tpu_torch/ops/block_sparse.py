@@ -31,9 +31,13 @@ K8 at head dims 192 and 256, and in f32 (K2's and K3's f32 bodies, split
 products too), own 64 rows a block and read the lists per 64-row tile.
 The f32 K6-K8 at head dims 192 and 256 stream each 64-row list step as
 two 32-row tiles.  The tables go to the card once per (mask, causal,
-device) and stay cached: no launch uploads anything.  Head dims above
-the built ones (256) take the wide route of ``flash_attention``
-(``csrc/attn_wide.cu``) under the block mask.
+device) and stay cached: no launch uploads anything.  Above the built
+head dims (256) the forward and the backward route apart: K6 runs the
+chunked forward of ``csrc/attn_fwd_hopper.cuh`` over the same 128-row
+query lists (D zero-padded to a multiple of 64, q and K streamed in
+64-column panels, O kept 256 columns a block; a partial pair's live
+rows staged for every panel), and K7 and K8 take the wide route of
+``flash_attention`` (``csrc/attn_wide.cu``) under the block mask.
 
 ``block_sparse_attention`` and ``block_sparse_matmul`` are
 ``torch.autograd.Function``s, the counterparts of the ``custom_vjp``s
@@ -41,11 +45,11 @@ the built ones (256) take the wide route of ``flash_attention``
 versions (``_bs_attention_plain``, ``_bs_bwd_plain``, ``_bs_mm_plain``:
 the kernels' math in PyTorch, masking with a select); for CUDA tensors
 they launch the kernels or raise, forward and backward.  Any block size
-that tiles the sequence (or the weight), any head dim (padded or taken
-wide as ``flash_attention`` does), any B*H, float32 or bfloat16.  K9
-takes its Hopper route (TMA + wgmma) in bf16 at blocks that are
-multiples of 16 and its tile route otherwise (``_mm_plan``), W in
-either orientation, so dX reads W in place.
+that tiles the sequence (or the weight), any head dim (padded, or the
+backward taken wide, as ``flash_attention`` does), any B*H, float32 or
+bfloat16.  K9 takes its Hopper route (TMA + wgmma) in bf16 at blocks
+that are multiples of 16 and its tile route otherwise (``_mm_plan``), W
+in either orientation, so dX reads W in place.
 """
 from __future__ import annotations
 
@@ -61,10 +65,11 @@ from .flash_attention import (_DTYPE_CODE, _F, _I, _P, FIRST_HEAD, HEADS,
                               WIDE_F32_DIMS, _attn_bwd_plain, _attn_plain,
                               _bwd_inputs,
                               _c_fn, _call, _causal_keep, _check_kernel_inputs,
-                              _check_lse, _cut_head_dim, _empty, _f32_counter,
+                              _check_lse, _chunked_counter, _cut_head_dim,
+                              _empty, _f32_counter, _fwd_head_dim,
                               _kernel_operands, _launch_heads, _pad_head_dim,
                               _padded_head_dim, _strides_arg, _wide,
-                              _wide_dkv, _wide_dq, _wide_fwd)
+                              _wide_dkv, _wide_dq)
 
 __all__ = ["BlockMask", "block_sparse_attention", "block_sparse_matmul",
            "sliding_window_mask", "strided_mask", "magnitude_block_mask",
@@ -86,6 +91,11 @@ LAUNCHES_DKV_F32 = {D: LaunchCounter(f"block_sparse_bwd_dkv f32 D {D}")
                     for D in WIDE_F32_DIMS}
 LAUNCHES_DQ_F32 = {D: LaunchCounter(f"block_sparse_bwd_dq f32 D {D}")
                    for D in WIDE_F32_DIMS}
+#: the launches of K6, among those above, at head dims above 256 (the
+#: chunked forward), by dtype (no model path runs them)
+LAUNCHES_CHUNKED = {dt: LaunchCounter(f"block_sparse_fwd {name} D > 256")
+                    for dt, name in ((torch.bfloat16, "bf16"),
+                                     (torch.float32, "f32"))}
 LAUNCHES_MM = LaunchCounter("block_sparse_mm")
 #: the K9 launches, among those above, that took the tile route
 LAUNCHES_MM_TILE = LaunchCounter("block_sparse_mm_tile")
@@ -589,23 +599,22 @@ def _wide_block_mask(tab, mask: BlockMask):
 def _bs_fwd_cuda(q, k, v, mask: BlockMask, causal: bool, sm_scale: float
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Launch K6 on the current stream of q's device (a head dim between
-    the forward's built ones zero-padded, O cut back; above 256 the wide
-    route).  q, k and v are read at their strides through TMA in both
-    dtypes (copied where TMA cannot read them)."""
+    the built ones zero-padded, above 256 padded to a multiple of 64 for
+    the chunked forward; O cut back).  q, k and v are read at their
+    strides through TMA in both dtypes (copied where TMA cannot read
+    them)."""
     _check_kernel_inputs("block_sparse_attention", q, k, v)
     tab = _attention_tables(mask, causal, q.device)
     D_true = q.shape[-1]
-    Dp = _padded_head_dim(D_true)
-    if _wide(Dp):
-        return _wide_fwd(q, k, v, causal, sm_scale, LAUNCHES,
-                         _wide_block_mask(tab, mask))
+    Dp = _fwd_head_dim(D_true)
     q, k, v = _kernel_operands(*(_pad_head_dim(t, Dp) for t in (q, k, v)),
                                tma=True)
     B, H, T, D = q.shape
     o = _empty(q)
     lse = _empty(q, (B * H, 1, T), torch.float32)
     _launch_heads("block_sparse_fwd",
-                  (LAUNCHES, *_f32_counter(LAUNCHES_F32, q)),
+                  (LAUNCHES, *_f32_counter(LAUNCHES_F32, q),
+                   *_chunked_counter(LAUNCHES_CHUNKED, q)),
                   _attn_fn("bigdl_bs_fwd", 11),
                   [*(t.data_ptr() for t in (q, k, v, o, lse)),
                    *_table_args(tab, _FWD_TABLES, mask, q, k, (q, k, v)),

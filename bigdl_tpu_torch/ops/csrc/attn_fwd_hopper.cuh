@@ -93,6 +93,50 @@
 //     as a loop, a k16 step at a time (k1_variants.py --wide).  K6's list
 //     steps are 64-key tiles: the producer streams each as two 32-key
 //     halves (a partial pair's live rows split with it).
+//   * above D 256, both dtypes (attn_fwd_chunk_kernel, chunk_consume): the
+//     layout above stops fitting: 128 q rows by D no longer stay resident
+//     (80 KB in bf16 at D 320, 160 KB in f32), an O accumulator over all
+//     of D outgrows the registers (D / 2 a thread), and one wgmma or TMA
+//     box spans at most 256 columns.  So D is chunked.  The scores are
+//     summed over panels of 64 columns: the producer streams panel p of
+//     the block's q rows beside panel p of the key tile through a ring of
+//     stages (bf16: 24 KB, 6 stages; f32: 44 KB, 4 stages), so every head
+//     dim takes the same shared memory and the panel count is a run-time
+//     argument: one instantiation per dtype and sweep serves every D
+//     above 256 (a multiple of 64; the wrappers zero-pad to one, exactly:
+//     zero q and k columns add 0 to a score, zero v columns only fill
+//     columns that are cut off).  O is kept kChunkCols = 256 columns a
+//     block (128 registers a thread, as at D 256), the chunks of a head in
+//     blocks of their own (grid x = head * chunks + chunk, so they run
+//     side by side and read the same q and K panels from L2), and each
+//     block forms S anew over all of D: a chunk's own code before its
+//     epilogue differs only in V's columns, so every chunk forms the same
+//     S, m and l, bit for bit, and chunk 0 writes LSE.  A chunk's columns
+//     lie inside D: the last one starts at D - 256 and writes only what
+//     its neighbour does not.  The V chunk streams through a ring of its
+//     own (bf16: two 32 KB tiles; f32: one 48 KB tile).  bf16 keeps one S
+//     accumulator over the panels (64-key tiles), each stage's products
+//     chained behind the last's and the stage released once they are
+//     done (wgmma_wait<1>).  f32 keeps the products of D 192 and 256:
+//     32-key tiles, each K panel and V tile split in place by both
+//     warpgroups, q split into wgmma's register operand a k16 step at a
+//     time, and each 32-column q panel's twelve products into a fresh
+//     partial added to S in f32 (one accumulator over 10 or more panels
+//     would shrink the scores until LSE and the backward's recomputed P
+//     disagree; tests/test_torch_f32_split.py).
+//     In a list sweep's partial pair the producer's first warp stages the
+//     live rows of every K panel and of the V chunk, so a dead row (NaN
+//     included) never reaches a product.  What bounds it: each chunk's
+//     block forms S over all of D, so at D 320 the products are (2 * 320
+//     + 2 * 256) / (2 * 320) = 1.8x the minimal work (the second chunk
+//     forms 256 columns to write 64), at D 512 1.5x; and every key tile
+//     brings the block's q rows again from L2 (twice the K bytes in bf16,
+//     four times in f32).  Neither is what holds it back on an H100
+//     (k1_variants.py --chunked, PERF.md): keeping q resident where it
+//     fits would save 1-6 % of the time and forming S once a row block
+//     (the most that handing P to the other chunks' warpgroups could
+//     gain) 9-16 %; the kernel runs at 3.5-4.7x its bound in bf16 and
+//     5.3-7.9x in f32.
 //
 // The sweep policy says which 128 query rows a block owns, which key tiles
 // it streams, in which order, and which consumer warpgroup computes each:
@@ -677,6 +721,436 @@ cudaError_t launch_fwd_wgmma(const FwdArgs& a, const Sweep& sw) {
   kernel<<<dim3(a.BH, n_qb), kFwdThreads, C::SMEM, a.stream>>>(
       tm_q, tm_k, tm_v, static_cast<T*>(a.o), static_cast<float*>(a.lse), a.T_len, a.S_len,
       a.sm_scale * kLog2e, a.causal, a.H, a.h0, sw);
+  return cudaGetLastError();
+}
+
+// ---- the forward above head dim 256 (attn_fwd_chunk_kernel) ----------------
+//
+// See the note at the top.  Panels of kChunkPanel columns of q and K stream
+// through a ring (the producer loads panel p of the q rows and of the key
+// tile into one stage); a block keeps kChunkCols columns of O.
+
+constexpr int kChunkPanel = 64;    // columns of q and K a ring stage holds
+constexpr int kChunkCols = 256;   // columns of O a block keeps
+
+// The ring of (q panel, K panel) stages, the ring of V chunk tiles and,
+// for a list sweep, each stage's step, in operands of type T.  A q panel is
+// the block's 128 rows by kChunkPanel columns (bf16: one TMA box; f32: two
+// boxes of 32 columns, LPANEL_Q apart, each warpgroup's 64 rows 8 KB into
+// a box); a K panel BK keys by kChunkPanel columns and a V tile BK keys by
+// kChunkCols columns, in TMA's boxes of L::PW columns, LPANEL_KV apart.  In
+// f32 the K panel and the V tile are split in place into three bf16 pieces
+// (split_tile: the third piece after the f32 bytes), and q is split into
+// wgmma's register operand as it is read (as at D 192 and 256).
+template <typename T>
+struct ChunkCfg {
+  using L = Panels<kChunkPanel, sizeof(T)>;   // TMA's boxes: 64 bf16 or 32 f32 columns
+  static constexpr bool F32 = !kIsBf16<T>;
+  static constexpr int BK = F32 ? kWideRows : kTileRows;   // key rows a tile
+  static constexpr int Q_LOAD = kBlockRows * kChunkPanel * (int)sizeof(T);
+  static constexpr int K_LOAD = BK * kChunkPanel * (int)sizeof(T);
+  static constexpr int K_BYTES = K_LOAD + (F32 ? BK * kChunkPanel * 2 : 0);
+  static constexpr int STAGE = Q_LOAD + K_BYTES;
+  static constexpr int V_LOAD = BK * kChunkCols * (int)sizeof(T);
+  static constexpr int V_BYTES = V_LOAD + (F32 ? BK * kChunkCols * 2 : 0);
+  static constexpr int LPANEL_Q = kBlockRows * L::RB;
+  static constexpr int LPANEL_KV = BK * L::RB;
+  // bf16: 6 stages of 24 KB and two V tiles of 32 KB; f32: 4 of 44 KB and
+  // one of 48 KB
+  static constexpr int STAGES = F32 ? 4 : 6;
+  static constexpr int V_STAGES = F32 ? 1 : 2;
+  static constexpr size_t SMEM = 1024 + (size_t)STAGES * STAGE + (size_t)V_STAGES * V_BYTES +
+                                 sizeof(uint64_t) * 2 * (STAGES + V_STAGES) +
+                                 STAGES * sizeof(Step);
+  static_assert(STAGE % 1024 == 0 && V_BYTES % 1024 == 0, "panels start on 1024-byte bounds");
+};
+
+// The columns of chunk c of a head dim D (a multiple of kChunkPanel above
+// kChunkCols): it writes O's columns lo .. hi - 1 (each column by one
+// chunk) and forms them within the kChunkCols columns from col0, which stay
+// inside D (the last chunk reaches back into its neighbour's).
+struct Chunk {
+  int col0, lo, hi;
+};
+
+__host__ __device__ inline Chunk chunk_of(int c, int D) {
+  const int lo = c * kChunkCols;
+  const bool whole = lo + kChunkCols <= D;
+  return Chunk{whole ? lo : D - kChunkCols, lo, whole ? lo + kChunkCols : D};
+}
+
+__host__ __device__ inline int chunk_count(int D) { return (D + kChunkCols - 1) / kChunkCols; }
+
+// The producer warp (lane 0 alone over a dense sweep) of the chunked
+// forward: for each of the n key tiles of block b, its np panels of q and
+// K into the stage ring, then its chunk of V (columns col0 ..) into the V
+// ring.  A list step's partial pair is staged by the warp, live rows only,
+// a K panel and the V chunk alike.
+template <class Sweep, typename T>
+__device__ __forceinline__ void chunk_produce(const Sweep& sw, const CUtensorMap* tm_q,
+                                              const CUtensorMap* tm_k, const CUtensorMap* tm_v,
+                                              unsigned char* stages, unsigned char* vbuf,
+                                              Step* step_s, uint64_t* full, uint64_t* empty,
+                                              uint64_t* full_v, uint64_t* empty_v, int b, int n,
+                                              int np, int col0, int S_len, int h, int bb, int bh,
+                                              int H) {
+  using C = ChunkCfg<T>;
+  using L = typename C::L;
+  constexpr int kSub = Sweep::kList ? kTileRows / C::BK : 1;   // tiles a list step
+  const int lane = threadIdx.x % 32;
+  int si = 0;   // stages filled
+  for (int it = 0; it < n; ++it) {
+    Step step = sw.fwd_step(b, it / kSub);
+    if constexpr (kSub > 1) step.tile = step.tile * kSub + it % kSub;
+    const int k0 = step.tile * C::BK;
+    bool part = false;
+    unsigned long long live = 0;
+    if constexpr (Sweep::kList) {
+      part = step.flags & kPartialAny;
+      if (part) {
+        live = sw.live(b, it / kSub);
+        if constexpr (kSub > 1) live >>= C::BK * (it % kSub);
+      }
+    }
+    for (int p = 0; p < np; ++p, ++si) {
+      const int s = si % C::STAGES;
+      mbar_wait(&empty[s], ((si / C::STAGES) & 1) ^ 1);   // the first round passes
+      unsigned char* q_st = stages + s * C::STAGE;
+      unsigned char* k_st = q_st + C::Q_LOAD;
+      if constexpr (Sweep::kList) {
+        if (p == 0 && lane == 0) step_s[s] = step;
+        if (part) {   // a partial pair: the K panel's live rows only
+          stage_live_rows<kChunkPanel, C::LPANEL_KV, T, C::BK>(
+              k_st, sw.src_a + sw.stride_a.head(bh, H) + p * kChunkPanel, sw.stride_a.r, k0,
+              S_len, live, lane);
+          fence_proxy_async();
+        }
+        if (lane != 0) {
+          mbar_arrive(&full[s]);
+          continue;
+        }
+      }
+      mbar_arrive_expect_tx(&full[s], C::Q_LOAD + (part ? 0 : C::K_LOAD));
+      for (int g = 0; g < L::NP; ++g) {
+        const int col = p * kChunkPanel + g * L::PW;
+        tma_load_4d(q_st + g * C::LPANEL_Q, tm_q, &full[s], col, b * kBlockRows, h, bb);
+        if (!part) tma_load_4d(k_st + g * C::LPANEL_KV, tm_k, &full[s], col, k0, h, bb);
+      }
+    }
+    const int vs = it % C::V_STAGES;
+    mbar_wait(&empty_v[vs], ((it / C::V_STAGES) & 1) ^ 1);
+    unsigned char* v_st = vbuf + vs * C::V_BYTES;
+    if constexpr (Sweep::kList) {
+      if (part) {
+        stage_live_rows<kChunkCols, C::LPANEL_KV, T, C::BK>(
+            v_st, sw.src_b + sw.stride_b.head(bh, H) + col0, sw.stride_b.r, k0, S_len, live,
+            lane);
+        fence_proxy_async();
+        mbar_arrive(&full_v[vs]);
+        continue;
+      }
+      if (lane != 0) {
+        mbar_arrive(&full_v[vs]);
+        continue;
+      }
+    }
+    mbar_arrive_expect_tx(&full_v[vs], C::V_LOAD);
+    for (int g = 0; g < kChunkCols / L::PW; ++g)
+      tma_load_4d(v_st + g * C::LPANEL_KV, tm_v, &full_v[vs], col0 + g * L::PW, k0, h, bb);
+  }
+}
+
+// wgmma's products of S (this warpgroup's 64 rows, 64 keys) over one
+// bf16 ring stage: q rows at q, K's 64 rows at k, both one panel of
+// 128-byte rows; the first of them overwrites S where first.  Issued, not
+// waited.
+__device__ __forceinline__ void chunk_scores_bf16(float* sc, const unsigned char* q,
+                                                  const unsigned char* k, bool first) {
+#pragma unroll
+  for (int j = 0; j < kChunkPanel / 16; ++j)
+    wgmma_ss<kTileRows, 0>(sc, smem_desc<128>(q + 32 * j), smem_desc<128>(k + 32 * j),
+                           !first || j > 0);
+}
+
+// S += Q . K^T over one f32 ring stage: the stage's two 32-column panels of
+// this warpgroup's 64 q rows (f32, TMA's layout, LPANEL_Q apart) each split
+// into wgmma's register operand a k16 step at a time, against the 32 keys
+// of the K panel split in place at k; each q panel's twelve products into
+// a fresh partial added to S in f32 (the order of wide_scores at D 256).
+// Waited.
+__device__ __forceinline__ void chunk_scores_f32(float (&sc)[kWideRows / 2],
+                                                 const unsigned char* q, const unsigned char* k) {
+  using C = ChunkCfg<float>;
+  float part[kWideRows / 2];
+#pragma unroll 1
+  for (int g = 0; g < C::L::NP; ++g) {
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      uint32_t a[3][1][4];   // one k16 step's pieces
+      load_split_rows<C::L::RB, 1>(a, q + g * C::LPANEL_Q, j);
+      wgmma_fence();
+      wide_products<kChunkPanel, 1, kWideRows>(part, a, k, g, j);
+      wgmma_commit();
+      wgmma_wait<0>();
+    }
+    add_partial<kWideRows>(sc, part);
+  }
+}
+
+// A consumer warpgroup of the chunked forward: rows q0w .. q0w + 63 of
+// block b, the columns col0 .. col0 + kChunkCols - 1 of O of chunk
+// `chunk` (chunk_of) in registers, of which it writes lo .. hi - 1; LSE
+// in chunk 0 (every chunk forms the same S and l, bit for bit, since
+// nothing before the epilogue depends on the chunk but V's columns).
+// bf16: S over the np stages of a key tile in one accumulator (wgmma
+// groups chained, each stage released once the next stage's products are
+// issued and its own are done); f32: both warpgroups split each stage's K
+// panel, then the tile's V chunk, in place (named barrier kKvSplit), S
+// from chunk_scores_f32.  o (rows of D = np panels) and lse are the
+// tensors' starts; head bh's rows and the chunk's columns are worked out
+// in the epilogue, which keeps them out of the loop's registers.
+template <typename T, class Sweep>
+__device__ __forceinline__ void chunk_consume(const Sweep& sw, unsigned char* stages,
+                                              unsigned char* vbuf, const Step* step_s,
+                                              uint64_t* full, uint64_t* empty, uint64_t* full_v,
+                                              uint64_t* empty_v, T* __restrict__ o,
+                                              float* __restrict__ lse, int bh, int b, int n,
+                                              int np, int chunk, int T_len, int S_len,
+                                              float scale_log2, int causal) {
+  using C = ChunkCfg<T>;
+  using P = Panels<kChunkCols>;   // O's panels (and V's bf16 pieces)
+  constexpr int BK = C::BK;
+  const int wg = threadIdx.x / 128;
+  const int warp = (threadIdx.x % 128) / 32;
+  const int lane = threadIdx.x % 32;
+  const int t = lane % 4;
+  const int q0w = b * kBlockRows + 64 * wg;
+  const int row0 = q0w + 16 * warp + lane / 4;
+  const int q_off = 64 * wg * C::L::RB;   // this warpgroup's rows in a q box
+
+  float acc[kChunkCols / 2];
+#pragma unroll
+  for (int i = 0; i < kChunkCols / 2; ++i) acc[i] = 0.0f;
+  float m_run[2] = {-INFINITY, -INFINITY};
+  float l_run[2] = {0.0f, 0.0f};   // this thread's share of l; the quad sums at the end
+
+  for (int it = 0; it < n; ++it) {
+    const int si = it * np;   // the tile's first stage, counted from the first
+    Step step;
+    if constexpr (!Sweep::kList) step = sw.fwd_step(b, it);
+    mbar_wait(&full[si % C::STAGES], (si / C::STAGES) & 1);
+    if constexpr (Sweep::kList) step = step_s[si % C::STAGES];   // staged by the producer
+    const bool visit = step.flags & (kVisit << wg);
+    float sc[BK / 2];
+    if constexpr (C::F32) {
+#pragma unroll
+      for (int i = 0; i < BK / 2; ++i) sc[i] = 0.0f;
+#pragma unroll 1
+      for (int p = 0; p < np; ++p) {
+        const int s = (si + p) % C::STAGES;
+        if (p > 0) mbar_wait(&full[s], ((si + p) / C::STAGES) & 1);
+        unsigned char* k_st = stages + s * C::STAGE + C::Q_LOAD;
+        split_tile<kChunkPanel, kConsumers, BK>(k_st, kKvSplit);
+        fence_proxy_async();
+        named_barrier_sync(kKvSplit, kConsumers);
+        if (visit) chunk_scores_f32(sc, stages + s * C::STAGE + q_off, k_st);
+        mbar_arrive(&empty[s]);
+      }
+    } else if (visit) {
+      const unsigned char* st = stages + (si % C::STAGES) * C::STAGE;
+      wgmma_fence();
+      chunk_scores_bf16(sc, st + q_off, st + C::Q_LOAD, true);
+      wgmma_commit();
+#pragma unroll 1
+      for (int p = 1; p < np; ++p) {
+        const int s = (si + p) % C::STAGES;
+        mbar_wait(&full[s], ((si + p) / C::STAGES) & 1);
+        st = stages + s * C::STAGE;
+        wgmma_fence();
+        chunk_scores_bf16(sc, st + q_off, st + C::Q_LOAD, false);
+        wgmma_commit();
+        wgmma_wait<1>();   // the stage before is read
+        mbar_arrive(&empty[(si + p - 1) % C::STAGES]);
+      }
+      wgmma_wait<0>();
+      mbar_arrive(&empty[(si + np - 1) % C::STAGES]);
+#pragma unroll
+      for (int i = 0; i < BK / 2; ++i) fence_regs(sc[i]);
+    } else {
+      mbar_arrive(&empty[si % C::STAGES]);
+#pragma unroll 1
+      for (int p = 1; p < np; ++p) {
+        const int s = (si + p) % C::STAGES;
+        mbar_wait(&full[s], ((si + p) / C::STAGES) & 1);
+        mbar_arrive(&empty[s]);
+      }
+    }
+
+    uint32_t a1[BK / 4], a2[BK / 4], a3[BK / 4];   // P in bf16; f32: its three pieces
+    if (visit) {
+      float alpha[2];
+      online_softmax<BK>(sw, sc, m_run, l_run, alpha,
+                         Sweep::kList && (step.flags & (kPartial << wg)), step.tile * BK, q0w,
+                         row0, t, T_len, S_len, scale_log2, causal);
+#pragma unroll
+      for (int i = 0; i < BK / 4; ++i) {
+        if constexpr (C::F32) split_bf16x3(sc[2 * i], sc[2 * i + 1], a1[i], a2[i], a3[i]);
+        else a1[i] = pack_bf16x2(sc[2 * i], sc[2 * i + 1]);
+      }
+#pragma unroll
+      for (int i = 0; i < kChunkCols / 2; ++i) acc[i] *= alpha[(i >> 1) & 1];
+    }
+    const int vs = it % C::V_STAGES;
+    unsigned char* v_st = vbuf + vs * C::V_BYTES;
+    mbar_wait(&full_v[vs], (it / C::V_STAGES) & 1);
+    if constexpr (C::F32) {
+      split_tile<kChunkCols, kConsumers, BK>(v_st, kKvSplit);
+      fence_proxy_async();
+      named_barrier_sync(kKvSplit, kConsumers);
+    }
+    if (visit) {   // O += P . V
+      wgmma_fence();
+      if constexpr (C::F32)
+        wgmma_accumulate_split<kChunkCols, BK * P::RB, BK * kChunkCols * 4, BK / 16>(
+            acc, a1, a2, a3, v_st);
+      else
+        wgmma_accumulate<kChunkCols, C::LPANEL_KV, BK / 16>(acc, a1, v_st);
+      wgmma_commit();
+      wgmma_wait<0>();
+#pragma unroll
+      for (int i = 0; i < kChunkCols / 2; ++i) fence_regs(acc[i]);
+    }
+    mbar_arrive(&empty_v[vs]);
+  }
+
+  // epilogue: O = acc / l in T, two columns a store (element 4 j + 2 h of
+  // panel p: row row0 + 8 h, column col0 + p PW + 8 j + 2 t), the chunk's
+  // own columns only
+  const int D = np * kChunkPanel;
+  const Chunk ch = chunk_of(chunk, D);
+  o += (size_t)bh * T_len * D;
+  float inv[2];
+  finish_rows(l_run, m_run, inv, lse + (size_t)bh * T_len, row0, t, chunk == 0 ? T_len : 0);
+#pragma unroll
+  for (int p = 0; p < P::NP; ++p)
+#pragma unroll
+    for (int j = 0; j < P::PW / 8; ++j)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int row = row0 + 8 * h;
+        const int col = ch.col0 + p * P::PW + 8 * j + 2 * t;
+        const float* a = acc + p * (P::PW / 2) + 4 * j + 2 * h;
+        if (row < T_len && col >= ch.lo && col < ch.hi) {
+          if constexpr (C::F32)
+            *reinterpret_cast<float2*>(o + (size_t)row * D + col) =
+                make_float2(a[0] * inv[h], a[1] * inv[h]);
+          else
+            *reinterpret_cast<uint32_t*>(o + (size_t)row * D + col) =
+                pack_bf16x2(a[0] * inv[h], a[1] * inv[h]);
+        }
+      }
+}
+
+// The forward above head dim 256 in T (bf16, or f32 on split products):
+// grid (chunk_count(D) chunks of each of B*H heads, ceil(T / 128)); the
+// sweep maps blockIdx.y to a block, blockIdx.x is head * chunks + chunk,
+// so a head's chunks run side by side and share q and K in L2.  D is a
+// multiple of kChunkPanel above kChunkCols, the same instantiation at every
+// such D.
+template <typename T, class Sweep>
+__global__ void __launch_bounds__(kFwdThreads, 1)
+attn_fwd_chunk_kernel(const __grid_constant__ CUtensorMap tm_q,
+                      const __grid_constant__ CUtensorMap tm_k,
+                      const __grid_constant__ CUtensorMap tm_v, T* __restrict__ o,
+                      float* __restrict__ lse, int T_len, int S_len, int D, float scale_log2,
+                      int causal, int H, int h0, int chunks, const Sweep sw) {
+  using C = ChunkCfg<T>;
+  constexpr int kSub = Sweep::kList ? kTileRows / C::BK : 1;
+  static_assert(!Sweep::kList || C::BK * kSub == kTileRows, "list sweeps stream 64-row tiles");
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* stages = align1024(smem_raw);
+  unsigned char* vbuf = stages + C::STAGES * C::STAGE;
+  uint64_t* full = reinterpret_cast<uint64_t*>(vbuf + C::V_STAGES * C::V_BYTES);
+  uint64_t* empty = full + C::STAGES;
+  uint64_t* full_v = empty + C::STAGES;
+  uint64_t* empty_v = full_v + C::V_STAGES;
+  Step* step_s = reinterpret_cast<Step*>(empty_v + C::V_STAGES);   // list sweeps
+
+  // the block's chunk, head (of the B*H; TMA reads head h of batch bb),
+  // query rows and key tiles (n = 0: O = 0, LSE = 1e30), worked out by the
+  // producer and the consumers each after their setmaxnreg: values live
+  // across it are spilled
+  const auto where = [&](int& chunk, int& bh, int& b, int& n) {
+    chunk = blockIdx.x % chunks;
+    bh = h0 + blockIdx.x / chunks;
+    b = sw.fwd_block();
+    n = sw.fwd_count(b, S_len) * kSub;
+  };
+  const int np = D / kChunkPanel;
+
+  if (threadIdx.x == 0) {
+    // one TMA thread, or the first warp where it may stage rows itself
+    const uint32_t loaders = Sweep::kList ? 32 : 1;
+    for (int s = 0; s < C::STAGES; ++s) {
+      mbar_init(&full[s], loaders);
+      mbar_init(&empty[s], kConsumers);
+    }
+    for (int s = 0; s < C::V_STAGES; ++s) {
+      mbar_init(&full_v[s], loaders);
+      mbar_init(&empty_v[s], kConsumers);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  int chunk, bh, b, n;
+  // 40 and 232 registers in both dtypes: the f32 consumer's O chunk (128
+  // registers a thread) and one k16 step of q's pieces fit in 232, and
+  // the list producer, which stages rows, spills in 24
+  if (threadIdx.x >= kConsumers) {
+    setmaxnreg_dec<kFwdProducerRegs>();
+    if (Sweep::kList ? threadIdx.x < kConsumers + 32 : threadIdx.x == kConsumers) {
+      where(chunk, bh, b, n);
+      chunk_produce<Sweep, T>(sw, &tm_q, &tm_k, &tm_v, stages, vbuf, step_s, full, empty, full_v,
+                              empty_v, b, n, np, chunk_of(chunk, D).col0, S_len, bh % H, bh / H,
+                              bh, H);
+    }
+  } else {
+    setmaxnreg_inc<kFwdConsumerRegs>();
+    where(chunk, bh, b, n);
+    chunk_consume<T>(sw, stages, vbuf, step_s, full, empty, full_v, empty_v, o, lse, bh, b,
+                     n, np, chunk, T_len, S_len, scale_log2, causal);
+  }
+}
+
+// the forward over `sw` at a head dim D above 256 (a multiple of
+// kChunkPanel; the wrappers zero-pad to one), in bf16 or f32
+template <typename T, class Sweep>
+cudaError_t launch_fwd_chunked(const FwdArgs& a, int D, const Sweep& sw) {
+  using C = ChunkCfg<T>;
+  static_assert(C::SMEM <= kMaxSmemBytes, "attn_fwd_chunk tiles do not fit in shared memory");
+  if (D <= kChunkCols || D % kChunkPanel) return cudaErrorInvalidValue;
+  const int n_qb = (a.T_len + kBlockRows - 1) / kBlockRows;
+  const int chunks = chunk_count(D);
+  if (n_qb > 65535 || (long long)a.BH * chunks > 0x7fffffffLL) return cudaErrorInvalidValue;
+  // encoded per launch and passed by value: a CUDA graph captures them
+  CUtensorMap tm_q, tm_k, tm_v;
+  const int heads = a.h0 + a.BH;
+  constexpr int PW = C::L::PW;
+  cudaError_t err = encode_heads<T>(&tm_q, a.q, D, a.T_len, a.H, heads, a.sq, PW, kBlockRows);
+  if (err == cudaSuccess)
+    err = encode_heads<T>(&tm_k, a.k, D, a.S_len, a.H, heads, a.sk, PW, C::BK);
+  if (err == cudaSuccess)
+    err = encode_heads<T>(&tm_v, a.v, D, a.S_len, a.H, heads, a.sv, PW, C::BK);
+  if (err != cudaSuccess) return err;
+  auto kernel = attn_fwd_chunk_kernel<T, Sweep>;
+  static std::mutex mu;
+  static bool attr_set[kMaxDevices] = {};
+  err = smem_opt_in_once(kernel, (int)C::SMEM, mu, attr_set);
+  if (err != cudaSuccess) return err;
+  kernel<<<dim3(a.BH * chunks, n_qb), kFwdThreads, C::SMEM, a.stream>>>(
+      tm_q, tm_k, tm_v, static_cast<T*>(a.o), static_cast<float*>(a.lse), a.T_len, a.S_len, D,
+      a.sm_scale * kLog2e, a.causal, a.H, a.h0, chunks, sw);
   return cudaGetLastError();
 }
 

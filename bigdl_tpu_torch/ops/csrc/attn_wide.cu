@@ -1,22 +1,19 @@
-// Attention for head dims above the built ones (sm_90a), bound to Python
-// with ctypes: the "wide" route of K1-K3 and K6-K8.
+// The attention backward for head dims above the built ones (sm_90a),
+// bound to Python with ctypes: the "wide" route of K2/K3 and K7/K8.
 //
-// The Hopper kernels are built for head dims 16, 32, 64, 128, 192 and 256
-// in both dtypes and all three passes; a head dim between them is
-// zero-padded to the next.  So this route takes every pass above 256, in
-// both dtypes.  The TPU kernels take any D: `_fwd_kernel`, `_dkv_kernel`,
-// `_dq_kernel` of bigdl_tpu/ops/flash_attention.py and `_bs_fwd_kernel`,
-// `_bs_dkv_kernel`, `_bs_dq_kernel` of bigdl_tpu/ops/block_sparse.py hand D
-// straight to their (1, block, D) blocks.  These three kernels take any D
-// as it is, under a dense mask (top-left causal or none) or a block mask
-// (the runtime (T / bq, S / bk) grid the block-sparse wrappers upload,
-// causal blocks pruned, and the causal test), and compute exactly what the
-// plain versions `_attn_plain` / `_attn_bwd_plain` of ops/flash_attention.py
-// compute:
-//   * forward: f32 scores times sm_scale; the row's max m and sum l of
-//     exp(s - m) in a first pass over its keys, then O = sum of P . V with P
-//     = exp(s - m) cast to v's dtype, over max(l, 1e-30), in q's dtype; LSE
-//     = m + log l, or 1e30 for a row with no key;
+// The Hopper backward kernels are built for head dims 16, 32, 64, 128, 192
+// and 256 in both dtypes; a head dim between them is zero-padded to the
+// next.  So this route takes dK/dV and dQ above 256, in both dtypes; K1
+// and K6 above 256 run attn_fwd_hopper.cuh's chunked forward
+// (attn_fwd_chunk_kernel).  The TPU
+// kernels take any D: `_dkv_kernel`, `_dq_kernel` of
+// bigdl_tpu/ops/flash_attention.py and `_bs_dkv_kernel`, `_bs_dq_kernel` of
+// bigdl_tpu/ops/block_sparse.py hand D straight to their (1, block, D)
+// blocks.  These two kernels take any D as it is, under a dense mask
+// (top-left causal or none) or a block mask (the runtime (T / bq, S / bk)
+// grid the block-sparse wrappers upload, causal blocks pruned, and the
+// causal test), and compute exactly what the plain version
+// `_attn_bwd_plain` of ops/flash_attention.py computes:
 //   * dK/dV: P = exp(s - LSE), dP = dO . v, dS = P * (dP - delta) (delta from
 //     the caller); dV += P (in v's dtype) * dO and dK += dS (in q's dtype) *
 //     q over the queries that attend the key; dK times sm_scale;
@@ -24,20 +21,20 @@
 //   * f32 accumulation; outputs in the inputs' dtype (float32, bfloat16).
 //
 // Design: simple and right.  One warp owns one output row (a query row for
-// the forward and dQ, a key row for dK/dV) and walks only the keys (or
-// queries) the mask keeps, 32 at a time, so a row that no output row
-// attends (NaN in dead K/V included) is never read.  Each lane scores one
-// of the 32: its dot products run over d in order with one FMA per term,
-// and the steps after them are rounded one at a time (no contraction),
-// which is how the plain versions' matrix products and elementwise steps
-// round on the card; so a row where dP and delta cancel exactly (the
-// first causal row of dQ) cancels here as it does there.  Then lane l adds
-// the 32 rows, in order, into columns l, l + 32, ... of the warp's f32
-// workspace: the own row (and dO's, for dQ; v's, for dK/dV) and the
-// accumulators, 2 to 4 rows of D f32 a warp, all in shared memory; a block
-// runs up to 4 warps, fewer when their workspace would pass 227 KB (one
-// warp takes D up to 14,528).  No atomics: every output row has one owner
-// warp, and two launches give the same bits.
+// dQ, a key row for dK/dV) and walks only the keys (or queries) the mask
+// keeps, 32 at a time, so a row that no output row attends (NaN in dead
+// K/V included) is never read.  Each lane scores one of the 32: its dot
+// products run over d in order with one FMA per term, and the steps after
+// them are rounded one at a time (no contraction), which is how the plain
+// version's matrix products and elementwise steps round on the card; so a
+// row where dP and delta cancel exactly (the first causal row of dQ)
+// cancels here as it does there.  Then lane l adds the 32 rows, in order,
+// into columns l, l + 32, ... of the warp's f32 workspace: the own row (and
+// dO's, for dQ; v's, for dK/dV) and the accumulators, 3 or 4 rows of D f32
+// a warp, all in shared memory; a block runs up to 4 warps, fewer when
+// their workspace would pass 227 KB (one warp takes D up to 14,528).  No
+// atomics: every output row has one owner warp, and two launches give the
+// same bits.
 //
 // What bounds it: nothing it does is fast.  It reads each key row once per
 // query row that attends it, from L2, a row a lane (16 bytes a load where
@@ -123,53 +120,6 @@ __device__ __forceinline__ void add_rows(float* acc, float w, const T* __restric
     const T* r = rows + (size_t)j * D;
     for (int d = lane; d < D; d += 32) acc[d] = fmaf(wj, to_f32(r[d]), acc[d]);
   }
-}
-
-// Forward: one warp per query row, grid (T / warps, B*H); workspace 2 D
-// f32 a warp (the q row, the O accumulator).  A first pass finds the row's
-// max, a second sums l and P . V.
-template <typename T>
-__global__ void wide_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                                const T* __restrict__ v, T* __restrict__ o,
-                                float* __restrict__ lse, Walk w, int D, float sm_scale) {
-  extern __shared__ float ws[];
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int qp = blockIdx.x * (blockDim.x / 32) + warp;
-  if (qp >= w.T_len) return;
-  const int bh = blockIdx.y;
-  const size_t row = (size_t)bh * w.T_len + qp;
-  float* q_s = ws + (size_t)warp * 2 * D;
-  float* acc = q_s + D;
-  const T* kh = k + (size_t)bh * w.S_len * D;
-  const T* vh = v + (size_t)bh * w.S_len * D;
-  for (int d = lane; d < D; d += 32) {
-    q_s[d] = to_f32(q[(size_t)row * D + d]);
-    acc[d] = 0.0f;
-  }
-  __syncwarp();
-
-  auto score = [&](int kp) { return __fmul_rn(lane_dot(q_s, kh + (size_t)kp * D, D), sm_scale); };
-  float m = -INFINITY;
-  w.keys(qp, [&](int lo, int hi) {
-    for (int k0 = lo + lane; k0 < hi; k0 += 32) m = fmaxf(m, score(k0));
-  });
-  m = warp_max(m);
-  float l = 0.0f;
-  w.keys(qp, [&](int lo, int hi) {
-    for (int k0 = lo; k0 < hi; k0 += 32) {
-      float p = 0.0f;
-      if (k0 + lane < hi) {
-        p = expf(__fsub_rn(score(k0 + lane), m));
-        l += p;
-      }
-      add_rows(acc, rounded<T>(p), vh + (size_t)k0 * D, min(32, hi - k0), D, lane);
-    }
-  });
-  l = warp_sum(l);
-
-  const float l_safe = fmaxf(l, 1e-30f);
-  for (int d = lane; d < D; d += 32) o[row * D + d] = from_f32<T>(acc[d] / l_safe);
-  if (lane == 0) lse[row] = l > 0.0f ? m + logf(l_safe) : BIG_LSE;
 }
 
 // dK/dV: one warp per key row, grid (S / warps, B*H); workspace 4 D f32 a
@@ -275,19 +225,19 @@ struct WideArgs {
   const void* dO;
   const float* lse;
   const float* delta;
-  void* out0;   // O, dK or dQ
-  void* out1;   // LSE or dV
+  void* out0;   // dK or dQ
+  void* out1;   // dV
   Walk w;
   int BH, D;
   float sm_scale;
   cudaStream_t stream;
 };
 
-enum class Which { kFwd, kDkv, kDq };
+enum class Which { kDkv, kDq };
 
 // f32 workspace columns a warp holds
 template <Which W>
-constexpr int kWorkspaceRows = W == Which::kFwd ? 2 : W == Which::kDkv ? 4 : 3;
+constexpr int kWorkspaceRows = W == Which::kDkv ? 4 : 3;
 
 template <Which W, typename T>
 cudaError_t launch_wide(const WideArgs& a) {
@@ -304,14 +254,7 @@ cudaError_t launch_wide(const WideArgs& a) {
   const T* k = static_cast<const T*>(a.k);
   const T* v = static_cast<const T*>(a.v);
   cudaError_t err;
-  if constexpr (W == Which::kFwd) {
-    auto kernel = wide_fwd_kernel<T>;
-    err = smem_opt_in_once(kernel, (int)kMaxSmemBytes, mu, attr_set);
-    if (err != cudaSuccess) return err;
-    kernel<<<grid, 32 * warps, smem, a.stream>>>(q, k, v, static_cast<T*>(a.out0),
-                                                 static_cast<float*>(a.out1), a.w, a.D,
-                                                 a.sm_scale);
-  } else if constexpr (W == Which::kDkv) {
+  if constexpr (W == Which::kDkv) {
     auto kernel = wide_dkv_kernel<T>;
     err = smem_opt_in_once(kernel, (int)kMaxSmemBytes, mu, attr_set);
     if (err != cudaSuccess) return err;
@@ -353,14 +296,10 @@ WideArgs make_wide_args(const void* q, const void* k, const void* v, const void*
     return p ? static_cast<const T*>(p) + n : nullptr;
   };
   auto out_at = [](void* p, size_t n) -> void* { return p ? static_cast<T*>(p) + n : nullptr; };
-  const float* lse_h = lse ? static_cast<const float*>(lse) + qo : nullptr;
-  const float* delta_h = delta ? static_cast<const float*>(delta) + qo : nullptr;
-  // out0: O, dK or dQ; out1: LSE (f32, the forward) or dV
-  void* o1 = out1 == nullptr ? nullptr
-             : dkv           ? out_at(out1, ko * D)
-                             : static_cast<void*>(static_cast<float*>(out1) + qo);
-  return WideArgs{at(q, qo * D), at(k, ko * D), at(v, ko * D), at(dO, qo * D), lse_h, delta_h,
-                  out_at(out0, (dkv ? ko : qo) * D), o1,
+  // out0: dK or dQ; out1: dV
+  return WideArgs{at(q, qo * D), at(k, ko * D), at(v, ko * D), at(dO, qo * D),
+                  static_cast<const float*>(lse) + qo, static_cast<const float*>(delta) + qo,
+                  out_at(out0, (dkv ? ko : qo) * D), out_at(out1, ko * D),
                   Walk{static_cast<const uint8_t*>(bmask), nkb, bq, bk, T_len, S_len, causal},
                   BH, D, sm_scale, static_cast<cudaStream_t>(stream)};
 }
@@ -385,20 +324,10 @@ int wide_entry(int dtype, const void* q, const void* k, const void* v, const voi
 
 // Heads h0 .. h0 + BH - 1 of q, dO (., T, D) and k, v (., S, D), contiguous,
 // in one dtype (0 = float32, 1 = bfloat16), any D; lse and delta (., T)
-// f32; outputs as their inputs.  Every pointer is the tensor's start, not
+// f32; dK, dV and dQ as their inputs.  Every pointer is the tensor's start, not
 // its head h0's.  bmask: the runtime block mask (T / bq, S / bk) uint8 of
 // the block-sparse wrappers (nkb = S / bk), or null for the dense mask.
 // Each returns the cudaError_t of its launch (0 on success).
-
-// forward: o (., T, D), lse (., T)
-extern "C" int bigdl_wide_fwd(const void* q, const void* k, const void* v, void* o, void* lse,
-                              const void* bmask, int nkb, int bq, int bk, int h0, int BH,
-                              int T_len, int S_len, int D, int dtype, float sm_scale, int causal,
-                              void* stream) {
-  return wide_entry<Which::kFwd>(dtype, q, k, v, nullptr, nullptr, nullptr, o, lse, bmask,
-                                    nkb, bq, bk, h0, BH, T_len, S_len, D, sm_scale, causal,
-                                    stream);
-}
 
 // dK, dV (., S, D)
 extern "C" int bigdl_wide_bwd_dkv(const void* q, const void* k, const void* v, const void* dO,

@@ -64,7 +64,12 @@
 // dQ block (bwd_dq_split_kernel: 64 query rows a block) over the 64-row
 // query lists K8 reads there.  At f32 D 192 and 256 all three stream each
 // 64-row list step as two 32-row tiles (a partial pair's live rows split
-// with it).  On an all-ones mask both dtypes give K1-K3's bits.
+// with it).  Above D 256 K6 is K1's chunked forward (attn_fwd_hopper.cuh's
+// attn_fwd_chunk_kernel, one instantiation per dtype for every head dim)
+// over the same 128-row query lists, a partial pair's live rows staged for
+// every 64-column panel of K and for V's 256-column chunk; K7 and K8 take
+// the wide route (attn_wide.cu).  On an all-ones mask both dtypes give
+// K1-K3's bits.
 //
 // K9 design.  At the flagship MLP shape (x 16384 x 1024 bf16, W 1024 x 4096
 // at density 0.5, block 128) it must do 68.7 GFLOP (0.069 ms) and move about
@@ -191,20 +196,29 @@ struct AttnArgs {
 
 enum class Which { kFwd, kDkv, kDq };
 
+// the sweep over the block lists of `a`, streaming q and dO (K7, dkv) or
+// k and v (K6, K8) at their strides
+template <typename T>
+ListSweep<T> list_sweep(const AttnArgs& a, bool dkv) {
+  return ListSweep<T>{a.tab.tiles, a.tab.partial, a.rows, a.tab.counts, a.order, a.tab.L, a.mk,
+                      static_cast<const T*>(dkv ? a.q : a.k),
+                      static_cast<const T*>(dkv ? a.dO : a.v),
+                      dkv ? a.sq : a.sk, dkv ? a.sdo : a.sv};
+}
+
+// K6's arguments: out0 O, out1 LSE
+inline FwdArgs fwd_args(const AttnArgs& a) {
+  return FwdArgs{a.q, a.k, a.v, a.out0, a.out1, a.sq, a.sk, a.sv, a.H, a.h0, a.BH, a.mk.T_len,
+                 a.mk.S_len, a.sm_scale, a.mk.causal, a.stream};
+}
+
 // K6 (out0 O, out1 LSE), K7 (out0 dK, out1 dV) or K8 (out0 dQ) over the
 // block lists, in bf16 or f32 (T)
 template <Which W, int D, typename T = __nv_bfloat16>
 cudaError_t launch_wgmma(const AttnArgs& a) {
-  const bool dkv = W == Which::kDkv;
-  const ListSweep<T> sw{a.tab.tiles, a.tab.partial, a.rows, a.tab.counts, a.order, a.tab.L, a.mk,
-                        static_cast<const T*>(dkv ? a.q : a.k),
-                        static_cast<const T*>(dkv ? a.dO : a.v),
-                        dkv ? a.sq : a.sk, dkv ? a.sdo : a.sv};
+  const ListSweep<T> sw = list_sweep<T>(a, W == Which::kDkv);
   if constexpr (W == Which::kFwd) {
-    return launch_fwd_wgmma<D, kFwdTileRows<D, T>, T>(
-        FwdArgs{a.q, a.k, a.v, a.out0, a.out1, a.sq, a.sk, a.sv, a.H, a.h0, a.BH, a.mk.T_len,
-                a.mk.S_len, a.sm_scale, a.mk.causal, a.stream},
-        sw);
+    return launch_fwd_wgmma<D, kFwdTileRows<D, T>, T>(fwd_args(a), sw);
   } else {
     const BwdArgs b{a.q, a.k, a.v, a.dO, a.lse, a.delta, a.out0, a.out1, a.sq, a.sk, a.sv,
                     a.sdo, a.H, a.h0, a.BH, a.mk.T_len, a.mk.S_len, a.sm_scale, a.mk.causal,
@@ -221,6 +235,14 @@ cudaError_t launch_attn(const AttnArgs& a) {
   return launch_wgmma<W, D, T>(a);
 }
 
+// K6 above head dim 256 (a multiple of 64), either dtype: the chunked
+// forward over the 128-row query lists, one instantiation for every D
+template <typename T>
+cudaError_t launch_fwd_chunked_list(int D, const AttnArgs& a) {
+  if (a.order == nullptr || a.rows == nullptr) return cudaErrorInvalidValue;
+  return launch_fwd_chunked<T>(fwd_args(a), D, list_sweep<T>(a, false));
+}
+
 template <Which W, typename T>
 cudaError_t dispatch_attn_d(int D, const AttnArgs& a) {
   switch (D) {
@@ -230,7 +252,9 @@ cudaError_t dispatch_attn_d(int D, const AttnArgs& a) {
     case 128: return launch_attn<W, T, 128>(a);
     case 192: return launch_attn<W, T, 192>(a);
     case 256: return launch_attn<W, T, 256>(a);
-    default: return cudaErrorInvalidValue;
+    default:
+      if constexpr (W == Which::kFwd) return launch_fwd_chunked_list<T>(D, a);
+      else return cudaErrorInvalidValue;
   }
 }
 
@@ -286,8 +310,10 @@ int smem_of_d(int D, int dtype) {
     case 128: return smem_of<W, 128>(dtype);
     case 192: return smem_of<W, 192>(dtype);
     case 256: return smem_of<W, 256>(dtype);
-    default: return 0;
   }
+  if (W != Which::kFwd || D <= kChunkCols || D % kChunkPanel) return 0;
+  return dtype == 1 ? (int)ChunkCfg<__nv_bfloat16>::SMEM
+                    : dtype == 0 ? (int)ChunkCfg<float>::SMEM : 0;
 }
 
 // ---------------------------------------------------------------------------

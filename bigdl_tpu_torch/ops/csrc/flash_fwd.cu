@@ -39,9 +39,16 @@
 // (the wrapper zero-pads D to the next of them).  There the bound moves: at
 // B 2, H 8, T 1024, D 256, causal, the two products are 8.6 GFLOP, 8.7 us
 // at 989 TFLOP/s in bf16 (52 us at the f32 split rate), against 33.6 MB,
-// 10.0 us at 3.35 TB/s (20 us in f32).  On an all-ones causal mask at a
-// 128-multiple block K6 sweeps the same key tiles as K1 at bf16 D 128 and
-// at every f32 D, so the two give the same bits.
+// 10.0 us at 3.35 TB/s (20 us in f32).  Above 256 both dtypes run the
+// chunked forward of attn_fwd_hopper.cuh (attn_fwd_chunk_kernel: the
+// scores summed over 64-column panels of q and K streamed through the
+// ring, O kept 256 columns a block, the chunks of a head in blocks of
+// their own), one instantiation for every head dim, the wrapper
+// zero-padding D to a multiple of 64: at D 320 the two products are 10.7
+// GFLOP, 10.9 us in bf16 (65 us in f32), against 42 MB, 12.5 us (25 us in
+// f32).  On an all-ones causal mask at a 128-multiple block K6 sweeps the
+// same key tiles as K1 at bf16 D 128 and above 256 and at every f32 D, so
+// the two give the same bits.
 
 #include "attn_fwd_hopper.cuh"
 
@@ -87,6 +94,13 @@ cudaError_t launch_f32(const FwdArgs& a) {
   return launch_fwd_wgmma<D, BK, float>(a, DenseSweep<BK>{a.causal});
 }
 
+// above head dim 256, either dtype: the chunked forward, one instantiation
+// for every D (a multiple of 64)
+template <typename T>
+cudaError_t launch_chunked(int D, const FwdArgs& a) {
+  return launch_fwd_chunked<T>(a, D, DenseSweep<ChunkCfg<T>::BK>{a.causal});
+}
+
 cudaError_t dispatch_bf16(int D, const FwdArgs& a) {
   switch (D) {
     case 16: return launch_bf16<16>(a);
@@ -95,7 +109,7 @@ cudaError_t dispatch_bf16(int D, const FwdArgs& a) {
     case 128: return launch_bf16<128>(a);
     case 192: return launch_bf16<192>(a);
     case 256: return launch_bf16<256>(a);
-    default: return cudaErrorInvalidValue;
+    default: return launch_chunked<__nv_bfloat16>(D, a);
   }
 }
 
@@ -107,7 +121,7 @@ cudaError_t dispatch_f32(int D, const FwdArgs& a) {
     case 128: return launch_f32<128>(a);
     case 192: return launch_f32<192>(a);
     case 256: return launch_f32<256>(a);
-    default: return cudaErrorInvalidValue;
+    default: return launch_chunked<float>(D, a);
   }
 }
 
@@ -146,6 +160,7 @@ extern "C" int bigdl_flash_fwd_smem_bytes(int D, int dtype) {
       case 192: return (int)FwdCfg<192, kDenseKeyRows<192>>::SMEM;
       case 256: return (int)FwdCfg<256, kDenseKeyRows<256>>::SMEM;
     }
+    if (D > kChunkCols && D % kChunkPanel == 0) return (int)ChunkCfg<__nv_bfloat16>::SMEM;
   } else if (dtype == 0) {
     switch (D) {
       case 16: return (int)FwdCfg<16, kTileRows, float>::SMEM;
@@ -155,6 +170,7 @@ extern "C" int bigdl_flash_fwd_smem_bytes(int D, int dtype) {
       case 192: return (int)FwdCfg<192, kFwdTileRows<192, float>, float>::SMEM;
       case 256: return (int)FwdCfg<256, kFwdTileRows<256, float>, float>::SMEM;
     }
+    if (D > kChunkCols && D % kChunkPanel == 0) return (int)ChunkCfg<float>::SMEM;
   }
   return 0;
 }

@@ -10,7 +10,11 @@ computes, what bounds it and how:
   wgmma products, the softmax in registers, on
   ``csrc/hopper_common.cuh``); in f32 each f32 product is formed from
   bf16 wgmma products on three bf16 pieces of its operands (K and V
-  split in place; q too up to D 128, into registers at 192 and 256);
+  split in place; q too up to D 128, into registers above); above head
+  dim 256 the chunked forward of the same header
+  (``attn_fwd_chunk_kernel``): the scores summed over 64-column panels
+  of q and K streamed through the ring, O kept 256 columns a block, the
+  chunks of a head in blocks of their own;
 * K2 and K3 ``csrc/flash_bwd.cu`` replace ``_dkv_kernel`` (``:236``)
   and ``_dq_kernel`` (``:271``): the warp-specialised Hopper body of
   ``csrc/attn_bwd_hopper.cuh`` (TMA ring, wgmma, dK/dV and dQ in
@@ -18,25 +22,29 @@ computes, what bounds it and how:
   formed from bf16 wgmma products on three bf16 pieces of its operands
   (the streamed tiles split in place; the block's own rows too up to
   D 128, into registers at 192 and 256);
-* head dims above the built ones take the wide route,
+* dK/dV and dQ above the built head dims take the wide route,
   ``csrc/attn_wide.cu``: one warp per output row, any D, under the dense
   mask here and the block mask in ``block_sparse.py``.  A wide launch
   counts under the counter of the kernel it stands for and under
   ``LAUNCHES_WIDE``.
 
-Routing by head dim D, the same in both dtypes and all three passes:
-the Hopper bodies at 16, 32, 64, 128, 192 and 256 (f32 on split
-products), the wide route above 256.  A head dim between the built ones
-is zero-padded to the next (``_padded_head_dim``: 160 runs at 192, 200
-at 256).
+Routing by head dim D, the same in both dtypes: the forward runs the
+Hopper bodies at 16, 32, 64, 128, 192 and 256 (f32 on split products)
+and the chunked forward above 256, at D zero-padded to a multiple of 64
+(``_fwd_head_dim``: 300 runs at 320), counted under ``LAUNCHES_CHUNKED``
+too; dK/dV and dQ run the Hopper bodies at the same built head dims and
+the wide route above 256, at D as it is (``_padded_head_dim``).  A head
+dim between the built ones is zero-padded to the next (160 runs at 192,
+200 at 256) in every pass.
 
-Layouts: the Hopper kernels (K1-K3 in both dtypes) read q, k, v and dO
-through TMA at their own strides, so the (B, T, H, D).transpose(1, 2)
-view that every attention layer makes is read in place; only an operand
-TMA cannot read (a start not 16-byte aligned, a stride not a multiple of
-16 bytes, a last dim that is not unit-stride) is copied, and the wide
-route, which has no TMA, copies what is not contiguous
-(``OPERAND_COPIES`` counts both).  Outputs are contiguous.
+Layouts: the Hopper kernels (K1-K3 in both dtypes, the chunked forward
+too) read q, k, v and dO through TMA at their own strides, so the
+(B, T, H, D).transpose(1, 2) view that every attention layer makes is
+read in place; only an operand TMA cannot read (a start not 16-byte
+aligned, a stride not a multiple of 16 bytes, a last dim that is not
+unit-stride) is copied, and the wide route, which has no TMA, copies
+what is not contiguous (``OPERAND_COPIES`` counts both).  Outputs are
+contiguous.
 
 ``flash_attention`` and ``flash_forward`` run through one
 ``torch.autograd.Function``, the counterpart of the ``custom_vjp`` of
@@ -67,6 +75,11 @@ HEAD_DIMS = (16, 32, 64, 128, 192, 256)
 #: the built head dims on which the f32 kernels keep the block's own rows
 #: in f32 and stream 32-row tiles (no model path runs them)
 WIDE_F32_DIMS = (192, 256)
+#: the chunked forward above the built head dims: q and K stream in
+#: panels of ``CHUNK_PANEL`` columns (D is zero-padded to a multiple of
+#: it), and a block keeps ``CHUNK_COLS`` columns of O
+CHUNK_PANEL = 64
+CHUNK_COLS = 256
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 #: launches of K1 (CUDA branch only)
@@ -82,8 +95,13 @@ LAUNCHES_DKV_F32 = {D: LaunchCounter(f"flash_bwd_dkv f32 D {D}")
                     for D in WIDE_F32_DIMS}
 LAUNCHES_DQ_F32 = {D: LaunchCounter(f"flash_bwd_dq f32 D {D}")
                    for D in WIDE_F32_DIMS}
-#: launches of the wide route (head dims above the built ones) of K1-K3
-#: and K6-K8
+#: the launches of K1, among those above, at head dims above 256 (the
+#: chunked forward), by dtype (no model path runs them)
+LAUNCHES_CHUNKED = {dt: LaunchCounter(f"flash_fwd {name} D > 256")
+                    for dt, name in ((torch.bfloat16, "bf16"),
+                                     (torch.float32, "f32"))}
+#: launches of the wide route (head dims above the built ones) of K2/K3
+#: and K7/K8
 LAUNCHES_WIDE = LaunchCounter("attn_wide")
 #: q, k, v and dO operands the attention wrappers copied because a kernel
 #: could not read them in place (not 16-byte aligned, a stride TMA does
@@ -183,15 +201,44 @@ def _check_kernel_inputs(what: str, q, k, v):
 
 
 def _wide(D: int) -> bool:
-    """Whether head dim D takes the wide route: above the built ones."""
+    """Whether head dim D is above the built ones: the chunked forward,
+    and the wide route of dK/dV and dQ."""
     return D > HEAD_DIMS[-1]
 
 
 def _padded_head_dim(D: int) -> int:
-    """The head dim the kernels run for a true head dim D: the next
+    """The head dim dK/dV and dQ run for a true head dim D: the next
     built one (129-256: 192 or 256, the next multiple of 64), or D
     itself on the wide route."""
     return D if _wide(D) else next(d for d in HEAD_DIMS if d >= D)
+
+
+def _fwd_head_dim(D: int) -> int:
+    """The head dim the forward (K1, K6) runs for a true head dim D: the
+    next built one, or above them the next multiple of ``CHUNK_PANEL``
+    (the chunked forward)."""
+    return -(-D // CHUNK_PANEL) * CHUNK_PANEL if _wide(D) \
+        else _padded_head_dim(D)
+
+
+def _fwd_chunks(D: int):
+    """The chunked forward's blocks over the columns of O at a head dim D
+    above 256 (a multiple of ``CHUNK_PANEL``), as ``chunk_of`` in
+    ``csrc/attn_fwd_hopper.cuh`` computes them: for each chunk (col0,
+    lo, hi), the ``CHUNK_COLS`` columns from col0 it forms (inside D) and
+    the columns lo .. hi - 1 it writes."""
+    out = []
+    for lo in range(0, D, CHUNK_COLS):
+        whole = lo + CHUNK_COLS <= D
+        out.append((lo if whole else D - CHUNK_COLS, lo,
+                    lo + CHUNK_COLS if whole else D))
+    return out
+
+
+def _chunked_counter(counters, q: torch.Tensor) -> Tuple[LaunchCounter, ...]:
+    """The counter of ``counters`` (by dtype) for a forward launch on the
+    padded operand ``q``, if it runs the chunked forward."""
+    return (counters[q.dtype],) if _wide(q.shape[-1]) else ()
 
 
 def _f32_counter(counters, q: torch.Tensor) -> Tuple[LaunchCounter, ...]:
@@ -328,18 +375,6 @@ def _wide_launch(what: str, counter, tensors, outs, causal, sm_scale, mask):
                   B * H, q.device)
 
 
-def _wide_fwd(q, k, v, causal: bool, sm_scale: float, counter, mask=None
-              ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The wide forward (a head dim above the built ones, taken as it
-    is) under the dense mask or ``mask`` (see ``_wide_mask``); counts
-    under ``counter`` and ``LAUNCHES_WIDE``."""
-    B, H, T, D = q.shape
-    o = _empty(q)
-    lse = _empty(q, (B * H, 1, T), torch.float32)
-    _wide_launch("fwd", counter, [q, k, v], [o, lse], causal, sm_scale, mask)
-    return o, lse
-
-
 def _wide_dkv(q, k, v, do, lse, delta, causal: bool, sm_scale: float, counter,
               mask=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """The wide dK/dV over prepared inputs (as ``_launch_dkv``)."""
@@ -361,14 +396,13 @@ def _wide_dq(q, k, v, do, lse, delta, causal: bool, sm_scale: float, counter,
 def _flash_cuda(q, k, v, causal: bool, sm_scale: float
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Launch K1 on the current stream of q's device (a head dim between
-    the forward's built ones zero-padded, O cut back; above 256 the wide
-    route).  q, k and v are read at their strides through TMA in both
-    dtypes (copied where TMA cannot read them)."""
+    the built ones zero-padded, above 256 padded to a multiple of 64 for
+    the chunked forward; O cut back).  q, k and v are read at their
+    strides through TMA in both dtypes (copied where TMA cannot read
+    them)."""
     _check_kernel_inputs("flash_attention", q, k, v)
     D_true = q.shape[-1]
-    Dp = _padded_head_dim(D_true)
-    if _wide(Dp):
-        return _wide_fwd(q, k, v, causal, sm_scale, LAUNCHES)
+    Dp = _fwd_head_dim(D_true)
     q, k, v = _kernel_operands(*(_pad_head_dim(t, Dp) for t in (q, k, v)),
                                tma=True)
     B, H, T, D = q.shape
@@ -376,7 +410,8 @@ def _flash_cuda(q, k, v, causal: bool, sm_scale: float
                + [_F, _I, _P])
     o = _empty(q)
     lse = _empty(q, (B * H, 1, T), torch.float32)
-    _launch_heads("flash_fwd", (LAUNCHES, *_f32_counter(LAUNCHES_F32, q)),
+    _launch_heads("flash_fwd", (LAUNCHES, *_f32_counter(LAUNCHES_F32, q),
+                                *_chunked_counter(LAUNCHES_CHUNKED, q)),
                   fn,
                   [q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
                    lse.data_ptr(), _strides_arg(q, k, v), H, FIRST_HEAD,

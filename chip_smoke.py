@@ -10,7 +10,7 @@ Phases; any failure exits non-zero:
 2. build — compile the kernels from this checkout's sources: the five
    CUDA libraries (``flash_fwd.cu``: K1; ``flash_bwd.cu``: K2 and K3;
    ``block_sparse.cu``: K6-K9; ``conv3x3.cu``: K5; ``attn_wide.cu``: the
-   route of K1-K3 and K6-K8 for head dims above the built ones, 256)
+   route of K2/K3 and K7/K8 for head dims above the built ones, 256)
    with one ``nvcc``
    each, started together, into ``.torch_kernels/``; Triton compiles K4
    at first launch.  Print the build seconds, and for each instantiation
@@ -21,12 +21,14 @@ Phases; any failure exits non-zero:
    instructions (``cuobjdump -sass``, where the toolkit has it); each
    bf16 attention kernel at D 128, 192 and 256, the f32 K1-K3 and K6-K8
    (bf16 products on bf16 pieces of each f32 operand) at D 16-256, the
+   chunked K1 and K6 above 256 in both dtypes (one instantiation each for
+   every head dim), the
    bf16 K5 at KC 64, every f32 K5 (split products too) and every K9
    instantiation must not spill and must hold both (and the attention
    kernels must not have their wgmma serialised, ptxas C7520 or C7514), two bf16
    K5 or K9 blocks must share an SM (an f32 K5 block is alone on its
    SM), and no library may still hold the f32 dQ's or the f32 K5's
-   retired FMA loops.
+   retired FMA loops, or the wide route's retired forward.
 3. kernel parity — each kernel against its plain PyTorch version on the
    card at the shapes the served, the training, the block-sparse
    training, the matmul and the ResNet-50 paths give it, with the stated
@@ -34,17 +36,19 @@ Phases; any failure exits non-zero:
    version's math carried in f64); the block-sparse kernels also at
    block 32, 8 (ragged
    T 200), 96, in f32, non-causal with a dead q block, strided, with NaN
-   in the K/V rows no query may attend (bf16 D 128 and 256, f32 D 128
-   and 256), and on all-ones masks against
+   in the K/V rows no query may attend (bf16 and f32 D 128, 256 and
+   320), and on all-ones masks against
    K1-K3 (K6-K8 = K1-K3 bit for bit on the same inputs in both dtypes,
-   in f32 at D 128 and 256);
+   in f32 at D 128 and 256, in both at D 320);
    the attention kernels on the head-strided layout of an attention
    layer at the training shapes and in f32 (no copy; bit for bit the
    contiguous launch) and K4 on a column slice; bf16 head dims 192 and 256 (the
    Hopper bodies in all three passes, dK/dV and dQ on 64-row blocks; NaN
-   in dead K/V at 256 too) and 320 (the wide route), and f32 head dims
-   192 and 256 (the Hopper bodies' split products in all three passes,
-   32-row streamed tiles) and 320 (the wide route); K5 forward and dX
+   in dead K/V at 256 too), f32 head dims 192 and 256 (the Hopper
+   bodies' split products in all three passes, 32-row streamed tiles),
+   and in both dtypes head dims above 256 (the chunked forward at 300,
+   320, 384 and 512, also head-strided at 320 with no operand copy; dK/dV
+   and dQ the wide route); K5 forward and dX
    at ResNet-50's
    four stage shapes (B 64) in bf16 and in f32, ResNet-CIFAR's first
    width (B 128, 32 x 32, C = O = 16) and ragged C 3, O 10, H 7, W 5,
@@ -416,9 +420,17 @@ DESIGN_KERNELS = (
      {"dkvDense": "K2", "dqDense": "K3", "dkvList": "K7", "dqList": "K8"},
      "float32"),
 )
-# the FMA tile loops the f32 K3, K8 and K5 ran before their split
-# products: phase 2 fails if a built library still holds one
-RETIRED_KERNELS = r"flash_bwd_dq_kernel|bs_dq_kernel|conv3x3_kernel_f32"
+# the chunked forward above head dim 256 (K1, K6), one instantiation per
+# dtype and sweep for every such head dim: (dtype by its mangled
+# argument, sweep)
+CHUNK_KERNEL = r"attn_fwd_chunk_kernelI(13__nv_bfloat16|f)NS_\d+(Dense|List)Sweep"
+#: the head dim phase 2 reports the chunked forward under
+CHUNKED = "above 256"
+# the FMA loops the f32 K3, K8 and K5 ran before their split products,
+# and the wide route's forward (a warp per query row) K1 and K6 ran above
+# head dim 256: phase 2 fails if a built library still holds one
+RETIRED_KERNELS = (r"flash_bwd_dq_kernel|bs_dq_kernel|conv3x3_kernel_f32"
+                   r"|wide_fwd_kernel")
 
 
 # the head dims phase 2 holds each Hopper attention kernel to: in bf16 D
@@ -427,7 +439,7 @@ RETIRED_KERNELS = r"flash_bwd_dq_kernel|bs_dq_kernel|conv3x3_kernel_f32"
 # (at 192 and 256 on 32-row streamed tiles, the own rows split into
 # registers)
 CHECKED_HEAD_DIMS = {
-    **{(label, dtype): dims
+    **{(label, dtype): dims + ((CHUNKED,) if label in ("K1", "K6") else ())
        for label in ("K1", "K2", "K3", "K6", "K7", "K8")
        for dtype, dims in (("bfloat16", (128, 192, 256)),
                            ("float32", (16, 32, 64, 128, 192, 256)))}}
@@ -435,12 +447,17 @@ CHECKED_HEAD_DIMS = {
 
 def design_kernel(fn: str):
     """(label, head dim, dtype) of a phase-2 kernel's mangled name, or
-    None for the others."""
+    None for the others; the chunked forward's head dim is
+    ``CHUNKED``."""
     for pattern, labels, dtype in DESIGN_KERNELS:
         m = re.search(pattern, fn)
         if m:
             key = m.group(1) + (m.group(3) if m.lastindex == 3 else "")
             return labels[key], int(m.group(2)), dtype
+    m = re.search(CHUNK_KERNEL, fn)
+    if m:
+        return ({"Dense": "K1", "List": "K6"}[m.group(2)], CHUNKED,
+                "float32" if m.group(1) == "f" else "bfloat16")
     return None
 
 
@@ -451,7 +468,8 @@ def kernel_design(torch):
     TMA load (UTMALDG) instructions in SASS.  Fails where a bf16 kernel
     at D 128, 192 or 256 (the bf16 route of head dims 129-256; K2, K3, K7
     and K8 there are the 64-row dK/dV and dQ blocks), or an f32 one (split
-    products) at D 16-256, spills, has its
+    products) at D 16-256, or the chunked forward above 256 (K1, K6, one
+    instantiation per dtype for every head dim), spills, has its
     wgmma serialised by ptxas (C7520, C7514),
     holds no HGMMA or no UTMALDG, or is missing, and where a library still
     holds a retired FMA loop (``RETIRED_KERNELS``).  A library loaded
@@ -475,10 +493,11 @@ def kernel_design(torch):
                "K3": lambda D, dt: bwd(0, D, dt), "K6": bs_fwd,
                "K7": lambda D, dt: bs_bwd(1, D, dt),
                "K8": lambda D, dt: bs_bwd(0, D, dt)}
-    # conv3x3's kernels are reported by conv_design; it is scanned here
-    # for a retired loop only
+    # conv3x3's kernels are reported by conv_design; it and attn_wide are
+    # scanned here for a retired loop only
     libs = {"flash_fwd": ("K1",), "flash_bwd": ("K2", "K3"),
-            "block_sparse": ("K6", "K7", "K8"), "conv3x3": ()}
+            "block_sparse": ("K6", "K7", "K8"), "conv3x3": (),
+            "attn_wide": ()}
     rows, failures = [], []
     for lib_name, labels in libs.items():
         report = _support.BUILD_INFO[lib_name][1]
@@ -498,7 +517,8 @@ def kernel_design(torch):
             ops = None if sass is None else sass.get(fn)
             row = dict(kernel=fn, label=label, dtype=dtype, head_dim=D,
                        dynamic_smem_bytes=smem_of[label](
-                           D, int(dtype == "bfloat16")),
+                           320 if D == CHUNKED else D,
+                           int(dtype == "bfloat16")),
                        ptxas=rep, sass=ops)
             rows.append(row)
             regs = ("not measured (an earlier build was loaded)"
@@ -506,7 +526,7 @@ def kernel_design(torch):
                     f"{rep.get('registers')} registers, spill stores "
                     f"{rep.get('spill_stores')} B, loads "
                     f"{rep.get('spill_loads')} B")
-            print(f"{label} {dtype:>8} D {D:3d}: {regs}, dynamic smem "
+            print(f"{label} {dtype:>8} D {D!s:>3}: {regs}, dynamic smem "
                   f"{row['dynamic_smem_bytes']} B; SASS "
                   f"{'not measured (no cuobjdump)' if ops is None else ops}")
             spills = rep and (rep.get("spill_stores") or rep.get("spill_loads"))
@@ -639,9 +659,11 @@ def flash_cases(torch):
     """(label, B, H, T, S, D, dtype, causal): the served prefill, the
     training step, the 200-token batch, causal T > S, f32 (also
     head-strided), narrower heads, head dims 192 and 256 (the Hopper
-    route of 129-256, in f32 on split products) and 320 (the wide route,
-    in both dtypes).  A label starting "strided" takes q, k and v in the
-    (B, T, H, D).transpose(1, 2) layout an attention layer makes."""
+    route of 129-256, in f32 on split products) and above 256 (the
+    chunked forward, in both dtypes: 300 padded to 320, 320 also
+    head-strided, 384, 512).  A label starting "strided" takes q, k and v
+    in the (B, T, H, D).transpose(1, 2) layout an attention layer
+    makes."""
     bf16, f32 = torch.bfloat16, torch.float32
     return [("served", 4, 8, 512, 512, 128, bf16, True),
             ("train", 16, 8, 1024, 1024, 128, bf16, True),
@@ -658,7 +680,15 @@ def flash_cases(torch):
             ("wide_D320", 2, 8, 1024, 1024, 320, bf16, True),
             ("f32_D192", 2, 8, 1024, 1024, 192, f32, True),
             ("f32_D256", 2, 8, 1024, 1024, 256, f32, True),
-            ("wide_f32_D320", 2, 8, 1024, 1024, 320, f32, True)]
+            ("wide_f32_D320", 2, 8, 1024, 1024, 320, f32, True),
+            ("wide_D512", 2, 8, 1024, 1024, 512, bf16, True),
+            ("wide_f32_D512", 2, 8, 1024, 1024, 512, f32, True),
+            ("wide_D300", 1, 4, 512, 512, 300, bf16, True),
+            ("wide_f32_D300", 1, 4, 512, 512, 300, f32, True),
+            ("wide_D384", 1, 4, 384, 500, 384, bf16, False),
+            ("wide_f32_D384", 1, 4, 384, 500, 384, f32, False),
+            ("strided_D320", 1, 4, 300, 300, 320, bf16, True),
+            ("strided_f32_D320", 1, 4, 300, 300, 320, f32, True)]
 
 
 def attn_inputs(torch, label, B, H, rows, D, dt, g, n):
@@ -673,10 +703,12 @@ def attn_inputs(torch, label, B, H, rows, D, dt, g, n):
 
 
 def wide_launches(fa, D, passes):
-    """Wide-route launches a call makes at true head dim D: one a pass
-    ("fwd", "dkv", "dq") where D is above the built head dims (256), in
-    either dtype; none at D 129-256, in f32 too."""
-    return len(passes) * int(fa._wide(D))
+    """Wide-route launches a call makes at true head dim D: one a
+    backward pass ("dkv", "dq") where D is above the built head dims
+    (256), in either dtype; none at D 129-256, in f32 too, and none for
+    the forward ("fwd"), which runs the chunked forward above 256."""
+    return sum(p != "fwd" for p in passes) * int(fa._wide(D))
+
 
 
 def check_flash(torch, F):
@@ -690,10 +722,12 @@ def check_flash(torch, F):
         scale = 1.0 / math.sqrt(D)
         wide = fa.LAUNCHES_WIDE.count
         copies = fa.OPERAND_COPIES.count
+        chunked = fa.LAUNCHES_CHUNKED[dt].count
         o, lse = fa._flash_cuda(q, k, v, causal, scale)
         torch.cuda.synchronize()
         wide = fa.LAUNCHES_WIDE.count - wide
         copies = fa.OPERAND_COPIES.count - copies
+        chunked = fa.LAUNCHES_CHUNKED[dt].count - chunked
         o_ref, lse_ref = fa._flash_plain(q, k, v, causal, scale)
         err = (o.float() - o_ref.float()).abs().max().item()
         row_err = row_rel_err(torch, o, o_ref)
@@ -702,7 +736,7 @@ def check_flash(torch, F):
         tol = ROW_TOL[dname]
         ok = row_err <= tol and lse_err <= LSE_TOL and bool(
             torch.isfinite(o.float()).all()) and wide == wide_launches(
-                fa, D, ("fwd",))
+                fa, D, ("fwd",)) and chunked == int(fa._wide(D))
         same = None
         if label.startswith("strided"):
             # in place (no copy), and the contiguous launch's bits
@@ -727,13 +761,14 @@ def check_flash(torch, F):
         rows.append(dict(case=label, shape=[B, H, T, S, D], dtype=dname,
                          causal=causal, max_abs_err=err, row_rel_err=row_err,
                          lse_err=lse_err, tol=tol, ok=ok, wide_launches=wide,
+                         chunked_launches=chunked,
                          operand_copies=copies, equals_contiguous=same,
                          ms=ms,
                          plain_ms=plain_ms, library_ms=lib_ms,
                          bound_ms=bound_ms, bound_by=bound_by))
         print(f"K1 flash_fwd {label:>20} {dname:>8} row err {row_err:.3e} "
               f"(tol {tol:g}) max abs err {err:.3e} lse_err {lse_err:.3e} "
-              f"wide {wide} copies {copies}"
+              f"wide {wide} chunked {chunked} copies {copies}"
               f"{'' if same is None else f' = contiguous bitwise {same}'} "
               f"| kernel {ms:.4f} ms "
               f"plain {plain_ms:.4f} ms sdpa {lib_ms} ms (kernel / sdpa "
@@ -793,8 +828,9 @@ def check_layer_norm(torch, F):
 
 def launch_counters():
     """Every kernel's launch counter, by the kernel's name (K1-K3 and
-    K6-K8 also by f32 head dim 192 and 256, the ``variants`` of the
-    ``kernels`` line), and the attention and LayerNorm wrappers' counts
+    K6-K8 also by f32 head dim 192 and 256, and K1 and K6 above 256 by
+    dtype: the ``variants`` of the ``kernels`` line), and the attention
+    and LayerNorm wrappers' counts
     of operand copies, which the bf16 main paths hold at 0.  A checkout
     without some per-head-dim counters (``f32_steps.py`` runs these
     helpers on an earlier one) lists those it has."""
@@ -804,7 +840,8 @@ def launch_counters():
     from bigdl_tpu_torch.ops import layer_norm as ln
 
     by_dim = [c for m in (fa, bs) for n in ("LAUNCHES_F32", "LAUNCHES_DKV_F32",
-                                            "LAUNCHES_DQ_F32")
+                                            "LAUNCHES_DQ_F32",
+                                            "LAUNCHES_CHUNKED")
               for c in getattr(m, n, {}).values()]
     return {c.name: c for c in (fa.LAUNCHES, fa.LAUNCHES_DKV,
                                 fa.LAUNCHES_DQ, ln.LAUNCHES, bs.LAUNCHES,
@@ -1020,7 +1057,9 @@ def bs_cases(torch):
     ``flash_cases``), head dims
     192 and 256 (the Hopper route of 129-256: K7 and K8 on 64-row
     blocks; in f32 all three on split products, also on an all-ones mask
-    at 256) and 320 (the wide route)."""
+    at 256) and above 256 in both dtypes (K6 the chunked forward, K7 and
+    K8 the wide route: 320, also head-strided and on an all-ones mask,
+    300 padded to 320, 384, 512)."""
     import numpy as np
 
     from bigdl_tpu_torch.ops import block_sparse as bs
@@ -1063,7 +1102,19 @@ def bs_cases(torch):
             ("all_ones_f32_D256", 2, 8, 1024, 256, f32, True,
              bs.BlockMask(np.ones((8, 8), bool), 128, 128)),
             ("wide_D320", 2, 8, 1024, 320, bf16, True,
-             bs.sliding_window_mask(8, 8, 2, 1, True, 128, 128))]
+             bs.sliding_window_mask(8, 8, 2, 1, True, 128, 128)),
+            ("wide_f32_D320", 2, 8, 1024, 320, f32, True,
+             bs.sliding_window_mask(8, 8, 2, 1, True, 128, 128)),
+            *((f"{pre}D{D}", 1, 4, 512, D, dt, True,
+               bs.sliding_window_mask(16, 16, 2, 1, True, 32, 32))
+              for pre, dt in (("wide_", bf16), ("wide_f32_", f32))
+              for D in (300, 384, 512)),
+            *((f"strided_{pre}D320", 1, 4, 512, 320, dt, True,
+               bs.sliding_window_mask(4, 4, 2, 1, True, 128, 128))
+              for pre, dt in (("", bf16), ("f32_", f32))),
+            *((f"all_ones_{pre}D320", 1, 4, 512, 320, dt, True,
+               bs.BlockMask(np.ones((4, 4), bool), 128, 128))
+              for pre, dt in (("", bf16), ("f32_", f32)))]
 
 
 def split_rate(dname: str, wide: int, kind: str) -> str:
@@ -1113,9 +1164,11 @@ def check_block_sparse(torch, F):
         scale = 1.0 / math.sqrt(D)
         wide = fa.LAUNCHES_WIDE.count
         copies = fa.OPERAND_COPIES.count
+        chunked = bs.LAUNCHES_CHUNKED[dt].count
         o, lse = bs._bs_fwd_cuda(q, k, v, mask, causal, scale)
         torch.cuda.synchronize()   # one kernel per synchronise
         wide_fwd = fa.LAUNCHES_WIDE.count - wide
+        chunked = bs.LAUNCHES_CHUNKED[dt].count - chunked
         do, delta = fa._bwd_inputs(q, o, d_o)
         dk, dv = bs._launch_bs_dkv(q, k, v, do, lse, delta, mask, causal,
                                    scale)
@@ -1144,16 +1197,21 @@ def check_block_sparse(torch, F):
         finite = all(bool(torch.isfinite(t.float()).all())
                      for _, t, _ in outs)
         ok = (finite and max(rel.values()) <= tol and lse_err <= LSE_TOL
-              and wide == wide_launches(fa, D, ("fwd", "dkv", "dq")))
+              and wide == wide_launches(fa, D, ("fwd", "dkv", "dq"))
+              and chunked == int(fa._wide(D)))
         del o_ref, lse_ref, grads_ref
         live = int(keep.sum().item())
         row = dict(case=label, shape=[B, H, T, D], dtype=dname,
                    causal=causal, mask=repr(mask), live_per_head=live,
                    tiles=bs.tile_work(mask, causal), row_rel_err=rel,
                    max_abs_err=err, lse_err=lse_err, tol=tol,
-                   wide_launches=wide, operand_copies=copies)
+                   wide_launches=wide, chunked_launches=chunked,
+                   operand_copies=copies)
         if label.startswith("strided"):
-            # read in place (no copy); the contiguous launches' bits
+            # read in place (no copy) by K6-K8, above 256 by K6's chunked
+            # forward, while the wide dK/dV and dQ copy the four operands,
+            # which are not contiguous, once a launch; the contiguous
+            # launches' bits
             qc, kc, vc, doc = (t.contiguous() for t in (q, k, v, do))
             oc, lsec = bs._bs_fwd_cuda(qc, kc, vc, mask, causal, scale)
             got = bs._launch_bs_dkv(qc, kc, vc, doc, lse, delta, mask,
@@ -1164,7 +1222,7 @@ def check_block_sparse(torch, F):
                 ("o", "lse", "dk", "dv", "dq"), (o, lse, dk, dv, dq),
                 (oc, lsec) + got)}
             row.update(equals_contiguous=same, ok=ok and all(same.values())
-                       and copies == 0)
+                       and copies == 4 * wide)
             rows.append(row)
             print(f"K6-K8 block_sparse {label}: row err o {rel['o']:.3e} dq "
                   f"{rel['dq']:.3e} dk {rel['dk']:.3e} dv {rel['dv']:.3e} "
@@ -1247,7 +1305,7 @@ def check_block_sparse(torch, F):
         torch.cuda.empty_cache()
     rows += [check_bs_poison(torch, D, dt) for D, dt in (
         (128, torch.bfloat16), (256, torch.bfloat16), (128, torch.float32),
-        (256, torch.float32))]
+        (256, torch.float32), (320, torch.bfloat16), (320, torch.float32))]
     return rows
 
 
@@ -2583,6 +2641,12 @@ def profile_resnet(torch):
     return rep
 
 
+# the phase-3 cases the ``kernels`` line's variants read, and the tag of
+# their counters (a kernel's name, then the tag)
+VARIANT_CASES = {"f32_D192": "f32 D 192", "f32_D256": "f32 D 256",
+                 "wide_D320": "bf16 D > 256", "wide_f32_D320": "f32 D > 256"}
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -2757,9 +2821,10 @@ def main(argv=None) -> int:
             library_ms=row["library_ms"]))
         if launches[name] == 0:
             failures.append(f"{name} was never launched on the main paths")
-    # the f32 instantiations at D 192 and 256, on no main path (B 2, H 8,
-    # T 1024, causal; K6-K8 under phase 3's window 2 + 1 global): their
-    # launches on the main paths, by their own counters
+    # the f32 instantiations at D 192 and 256 and the chunked forward
+    # above 256 (D 320) in each dtype, on no main path (B 2, H 8, T 1024,
+    # causal; K6-K8 under phase 3's window 2 + 1 global): their launches
+    # on the main paths, by their own counters
     def bs_pass(r, p):
         return dict(r, **r[p], **({} if p == "fwd" else dict(
             plain_ms=r["plain_bwd_ms"], library_ms=r["library_bwd_ms"])))
@@ -2776,8 +2841,9 @@ def main(argv=None) -> int:
             max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
             bound_ms=r["bound_ms"], bound_by=r["bound_by"],
             library_ms=r["library_ms"])
-            for r in cases if r["case"] in ("f32_D192", "f32_D256")
-            for name in [f"{kernel['name']} f32 D {r['shape'][-1]}"]]
+            for r in cases if r["case"] in VARIANT_CASES
+            for name in [f"{kernel['name']} {VARIANT_CASES[r['case']]}"]
+            if name in launches]
 
     (out / "chip_smoke.json").write_text(json.dumps(dict(
         device=kind, nvidia_smi=smi, torch=torch.__version__,

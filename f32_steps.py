@@ -20,8 +20,11 @@ four stage shapes; then K1-K3 and K6-K8 in f32 at head dims 192 and 256
 (B 2, H 8, T 1024, causal; K6-K8 under phase 3's sliding window 2 + 1
 global at block 128), each pass on the route the checkout gives it (the
 Hopper bodies' split products, or the wide route where a checkout has no
-Hopper kernel for it), with the wide launches each makes.  Prints a line
-per leg and, last, the
+Hopper kernel for it), with the wide launches each makes; then the
+forward above head dim 256 in bf16 and f32 (K1 and K6 at D 320, K1 at
+D 512, the same shape and mask), on the checkout's route (the chunked
+forward, or the wide route), with its wide launches.  Prints a line per
+leg and, last, the
 JSON record.  Run parent, change, change, parent in one call to compare
 two versions.
 """
@@ -123,6 +126,7 @@ def main(argv=None) -> int:
         torch.cuda.empty_cache()
     out["phase8"] = resnet_leg(torch, cs, conv3x3, repo)
     out["wide"] = wide_leg(torch, cs, fa, bs, repo)
+    out["above_256"] = above_256_leg(torch, cs, fa, bs, repo)
     print(json.dumps(dict(checkout=str(repo),
                           device=torch.cuda.get_device_name(0), **out)))
     return 0
@@ -199,6 +203,39 @@ def wide_leg(torch, cs, fa, bs, repo):
             del o, lse, do, delta
         del q, k, v, d_o
         torch.cuda.empty_cache()
+    return rec
+
+
+def above_256_leg(torch, cs, fa, bs, repo):
+    """K1 and K6 (phase 3's window 2 + 1 global at block 128) at head dim
+    320 and K1 at 512, in bf16 and f32 (B 2, H 8, T 1024, causal), each
+    on the route the checkout gives the forward there, with the wide
+    launches it makes."""
+    rec = {}
+    mask = bs.sliding_window_mask(8, 8, 2, 1, True, 128, 128)
+    for dt in (torch.bfloat16, torch.float32):
+        for D, kinds in ((320, ("flash", "block_sparse")), (512, ("flash",))):
+            g = torch.Generator(device="cuda").manual_seed(7)
+            q, k, v = (torch.randn(2, 8, 1024, D, device="cuda",
+                                   generator=g).to(dt) for _ in range(3))
+            scale = 1 / math.sqrt(D)
+            for name in kinds:
+                if name == "flash":
+                    def fwd():
+                        return fa._flash_cuda(q, k, v, True, scale)
+                else:
+                    def fwd():
+                        return bs._bs_fwd_cuda(q, k, v, mask, True, scale)
+                wide = fa.LAUNCHES_WIDE.count
+                fwd()
+                wide = fa.LAUNCHES_WIDE.count - wide
+                # the wide route takes milliseconds a call
+                it = dict(iters=3, reps=2) if wide else dict(iters=20, reps=5)
+                key = f"{name}_{str(dt)[6:]}_D{D}"
+                rec[key] = dict(wide_launches=wide, fwd_ms=cs.cuda_ms(fwd, **it))
+                print(f"{repo} {key}: {rec[key]}", flush=True)
+            del q, k, v
+            torch.cuda.empty_cache()
     return rec
 
 

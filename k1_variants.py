@@ -3,6 +3,7 @@
 
     python3 k1_variants.py           # D 128 (fwd_f32_consume)
     python3 k1_variants.py --wide    # D 192 and 256 (fwd_f32_consume, WIDE)
+    python3 k1_variants.py --chunked # above 256, bf16 and f32 (chunk_consume)
 
 Builds ``bigdl_tpu_torch/ops/csrc/flash_fwd.cu`` as it stands and
 variants of it, each a text patch of ``attn_fwd_hopper.cuh``'s f32
@@ -44,6 +45,19 @@ causal:
 
 and each build's ptxas report (registers, spills, "Performance"
 remarks) for those kernels is printed beside its times.
+
+With ``--chunked`` the patches are of the chunked forward above head
+dim 256 (``attn_fwd_chunk_kernel``), in bf16 and in f32, timed at B 2,
+H 8, T 1024, causal, D 320 and 512, with their ptxas reports:
+
+* ``no_score_products``, ``no_pv_products``: as above;
+* ``q_loaded_once``: each stage's q panel loaded for the first key tile
+  only (later tiles read what the stage last held): what keeping the
+  block's q rows in shared memory would save, their room aside;
+* ``one_chunk``: one block a row block and head, forming O's first 256
+  columns only: S formed once where the shipped grid forms it in every
+  chunk, which bounds what handing P to the blocks of the other chunks
+  (instead of each forming S anew) could save.
 
 Then it times each at the f32 shape of ``chip_smoke.py`` phase 3 (B 2,
 H 8, T 512, D 128, causal: 64 blocks) and at phase 5's layer shape (B 16,
@@ -105,6 +119,32 @@ WIDE_VARIANTS = {
 WIDE_CHECKED = ("as_shipped", "one_accumulator", "unrolled", "rolled")
 WIDE_SHAPES = (("D192", 2, 8, 1024, 192), ("D256", 2, 8, 1024, 256))
 
+# --chunked: the forward above head dim 256, both dtypes
+C_SCORES = [("wgmma_ss<kTileRows, 0>(sc, smem_desc<128>(q + 32 * j), "
+             "smem_desc<128>(k + 32 * j),\n                           "
+             "!first || j > 0);", "(void)q; (void)k; (void)first;"),
+            ("wide_products<kChunkPanel, 1, kWideRows>(part, a, k, g, j);",
+             "part[0] = 0.0f;")]
+C_PV = [("wgmma_accumulate<kChunkCols, C::LPANEL_KV, BK / 16>(acc, a1, v_st);",
+         ";"),
+        ("wgmma_accumulate_split<kChunkCols, BK * P::RB, BK * kChunkCols * 4, "
+         "BK / 16>(\n            acc, a1, a2, a3, v_st);", ";")]
+C_Q_ONCE = [("mbar_arrive_expect_tx(&full[s], C::Q_LOAD + (part ? 0 : "
+             "C::K_LOAD));",
+             "mbar_arrive_expect_tx(&full[s], (it == 0 ? C::Q_LOAD : 0) + "
+             "(part ? 0 : C::K_LOAD));"),
+            ("tma_load_4d(q_st + g * C::LPANEL_Q, tm_q, &full[s], col, "
+             "b * kBlockRows, h, bb);",
+             "if (it == 0) tma_load_4d(q_st + g * C::LPANEL_Q, tm_q, "
+             "&full[s], col, b * kBlockRows, h, bb);")]
+C_ONE_CHUNK = [("inline int chunk_count(int D) { return (D + kChunkCols - 1) "
+                "/ kChunkCols; }", "inline int chunk_count(int) { return 1; }")]
+CHUNKED_VARIANTS = {"no_score_products": C_SCORES, "no_pv_products": C_PV,
+                    "q_loaded_once": C_Q_ONCE, "one_chunk": C_ONE_CHUNK}
+CHUNKED_CHECKED = ("as_shipped",)
+CHUNKED_SHAPES = tuple((f"{dt}_D{D}", 2, 8, 1024, D, dt)
+                       for dt in ("bf16", "f32") for D in (320, 512))
+
 
 def build(name, patches):
     """flash_fwd.cu beside the patched headers, which its quoted includes
@@ -134,16 +174,21 @@ def build(name, patches):
     return ctypes.CDLL(str(so)), proc.stderr
 
 
-def wide_ptxas(report: str) -> dict:
+def wide_ptxas(report: str, chunked: bool = False) -> dict:
     """Registers, spills and "Performance" remarks of the f32 K1 at D 192
-    and 256 from a ptxas report."""
+    and 256 (``chunked``: K1's chunked forward in each dtype) from a
+    ptxas report."""
     import chip_smoke as cs
 
+    pattern = (r"attn_fwd_chunk_kernelI(13__nv_bfloat16|f)NS_" if chunked
+               else r"attn_fwd_split_kernelILi(192|256)E")
     out = {}
     for fn, rep in cs.ptxas_functions(report).items():
-        m = re.search(r"attn_fwd_split_kernelILi(192|256)E", fn)
+        m = re.search(pattern, fn)
         if m:
-            out[f"D{m.group(1)}"] = dict(rep, remarks=[
+            key = ({"f": "f32"}.get(m.group(1), "bf16") if chunked
+                   else f"D{m.group(1)}")
+            out[key] = dict(rep, remarks=[
                 line.strip() for line in report.splitlines()
                 if "Performance" in line and fn in line])
     return out
@@ -157,10 +202,14 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--wide", action="store_true",
                     help="the consumer at D 192 and 256 instead of D 128")
-    wide = ap.parse_args(argv).wide
-    variants = WIDE_VARIANTS if wide else VARIANTS
-    checked = WIDE_CHECKED if wide else CHECKED
-    shapes = WIDE_SHAPES if wide else SHAPES
+    ap.add_argument("--chunked", action="store_true",
+                    help="the chunked forward above D 256, bf16 and f32")
+    args = ap.parse_args(argv)
+    wide, chunked = args.wide, args.chunked
+    variants, checked, shapes = (
+        (CHUNKED_VARIANTS, CHUNKED_CHECKED, CHUNKED_SHAPES) if chunked
+        else (WIDE_VARIANTS, WIDE_CHECKED, WIDE_SHAPES) if wide
+        else (VARIANTS, CHECKED, SHAPES))
 
     if not torch.cuda.is_available():
         print("k1_variants: FAIL: a CUDA card is required", file=sys.stderr)
@@ -185,31 +234,36 @@ def main(argv=None) -> int:
         built = {n: f.result() for n, f in built.items()}
     libs = {n: lib for n, (lib, _) in built.items()}
     ptxas = {}
-    if wide:
-        ptxas = {n: wide_ptxas(report) for n, (_, report) in built.items()}
+    if wide or chunked:
+        ptxas = {n: wide_ptxas(report, chunked)
+                 for n, (_, report) in built.items()}
         for n, rep in ptxas.items():
-            print(f"K1 f32 {n:>18}: ptxas {rep}", flush=True)
+            print(f"K1 {n:>18}: ptxas {rep}", flush=True)
 
     g = torch.Generator(device="cuda").manual_seed(23)
+    dtypes = {"bf16": torch.bfloat16, "f32": torch.float32}
     inputs = {label: [torch.randn(B, H, T, D, device="cuda", generator=g)
-                      for _ in range(3)] for label, B, H, T, D in shapes}
+                      .to(dtypes[dt[0]] if dt else torch.float32)
+                      for _ in range(3)]
+              for label, B, H, T, D, *dt in shapes}
     errs, times = {}, {}
     before = _support._LIBS.get("flash_fwd")
     try:
         for name in ["as_shipped", *variants, "as_shipped"]:
             _support._LIBS["flash_fwd"] = libs[name]
             row = {}
-            for label, *_, D in shapes:
+            for label, _, _, _, D, *_ in shapes:
                 q, k, v = inputs[label]
                 scale = D ** -0.5
-                if name in checked and (wide or label == shapes[0][0]):
+                if name in checked and (wide or chunked
+                                        or label == shapes[0][0]):
                     errs.setdefault(name, {})[label] = cs.row_rel_err(
                         torch, fa._flash_cuda(q, k, v, True, scale)[0],
                         fa._flash_plain(q, k, v, True, scale)[0])
                 row[label] = cs.cuda_ms(lambda: fa._flash_cuda(
                     q, k, v, True, scale))
             times.setdefault(name, []).append(row)
-            print(f"K1 f32 {name:>18}: " + ", ".join(
+            print(f"K1 {name:>18}: " + ", ".join(
                 f"{n} {t:.4f} ms" for n, t in row.items()), flush=True)
     finally:
         if before is None:
@@ -218,13 +272,16 @@ def main(argv=None) -> int:
             _support._LIBS["flash_fwd"] = before
     print(f"row errors {errs}")
     bad = {n: e for n, e in errs.items()
-           if not max(e.values()) <= cs.ROW_TOL["float32"]}
+           if not all(err <= cs.ROW_TOL["bfloat16" if label.startswith("bf16")
+                                        else "float32"]
+                      for label, err in e.items())}
     report = dict(device=torch.cuda.get_device_name(0), nvidia_smi=smi,
                   shapes=[list(s) for s in shapes], row_rel_err=errs,
                   times=times, ptxas=ptxas)
     out = REPO / "chiprun_out"
     out.mkdir(exist_ok=True)
-    name = "k1_variants_wide.json" if wide else "k1_variants.json"
+    name = ("k1_variants_chunked.json" if chunked else
+            "k1_variants_wide.json" if wide else "k1_variants.json")
     (out / name).write_text(json.dumps(report, indent=1))
     print(json.dumps(times))
     print(smi)

@@ -11,8 +11,9 @@ Each kernel is held against its plain PyTorch version on the same
 inputs, forward and backward (the f32 forward, K1 and K6, dK/dV, K2 and
 K7, and dQ, K3 and K8, on bf16 products an f32 one at every head dim
 they are built for), also at head dims the kernels are not built for
-(zero-padded to the next, or above the built ones, 256, through the
-wide route) and at more heads than one grid takes; a small
+(zero-padded to the next, or above the built ones, 256: the chunked
+forward at D padded to a multiple of 64, dK/dV and dQ through the wide
+route) and at more heads than one grid takes; a small
 TransformerLM served on
 the card in f32 (also at head dim 8, through the server), and small
 flash and block-sparse ones, a ResNet-CIFAR on K5 and a LeNet-5 trained
@@ -365,18 +366,20 @@ def test_odd_head_dims_run_the_kernels_on_card(cuda_device, D, dtype, which):
         scale)
 
 
-@pytest.mark.parametrize("D", [160, 200, 256, 320])
+@pytest.mark.parametrize("D", [160, 200, 256, 320, 300, 384, 512, 1024])
 @pytest.mark.parametrize("dtype", [bf16, torch.float32])
 @pytest.mark.parametrize("which", ["flash", "block_sparse"])
 def test_wide_head_dims_run_the_wide_route_on_card(cuda_device, D, dtype,
                                                    which):
     """Head dims above 128: up to 256 all three passes are zero-padded to
     192 or 256 and run the Hopper bodies in both dtypes (in f32 on split
-    products; no wide launch), and above 256 all three take the wide
-    route (``csrc/attn_wide.cu``) at the true D (three wide launches).
-    Forward and backward through the entry points launch K1-K3 (K6-K8)
-    once each and match the plain versions in the working dtype row by
-    row, LSE within 1e-3."""
+    products; no wide launch); above 256 the forward runs the chunked
+    forward (D zero-padded to a multiple of 64, one launch under its
+    dtype's ``LAUNCHES_CHUNKED``) and dK/dV and dQ take the wide route
+    (``csrc/attn_wide.cu``) at the true D (two wide launches).  Forward
+    and backward through the entry points launch K1-K3 (K6-K8) once each
+    and match the plain versions in the working dtype row by row, LSE
+    within 1e-3."""
     T = 200
     g = torch.Generator(device=cuda_device).manual_seed(D)
     q, k, v, d_o = (torch.randn(2, 4, T, D, device=cuda_device,
@@ -385,7 +388,7 @@ def test_wide_head_dims_run_the_wide_route_on_card(cuda_device, D, dtype,
     scale = 1 / math.sqrt(D)
     if which == "flash":
         counters = (fa.LAUNCHES, fa.LAUNCHES_DKV, fa.LAUNCHES_DQ,
-                    fa.LAUNCHES_WIDE)
+                    fa.LAUNCHES_WIDE, fa.LAUNCHES_CHUNKED[dtype])
         before = [c.count for c in counters]
         o, lse = fa.flash_forward(*leaves, causal=True)
         got = torch.autograd.grad(o, leaves, d_o)
@@ -395,7 +398,7 @@ def test_wide_head_dims_run_the_wide_route_on_card(cuda_device, D, dtype,
     else:
         mask = bs.sliding_window_mask(5, 5, 2, 1, True, 40, 40)
         counters = (bs.LAUNCHES, bs.LAUNCHES_DKV, bs.LAUNCHES_DQ,
-                    fa.LAUNCHES_WIDE)
+                    fa.LAUNCHES_WIDE, bs.LAUNCHES_CHUNKED[dtype])
         before = [c.count for c in counters]
         # the Function behind block_sparse_attention, which returns O alone
         o, lse = bs._BlockSparseAttention.apply(*leaves, mask, True, scale)
@@ -404,14 +407,137 @@ def test_wide_head_dims_run_the_wide_route_on_card(cuda_device, D, dtype,
         want = bs._bs_bwd_plain(q, k, v, o.detach(), lse, d_o, mask, True,
                                 scale)
     torch.cuda.synchronize()
-    wide = 3 if D > 256 else 0
-    assert [c.count - n for c, n in zip(counters, before)] == [1, 1, 1, wide]
+    above = int(D > 256)
+    assert [c.count - n for c, n in zip(counters, before)] == [
+        1, 1, 1, 2 * above, above]
     assert o.shape == (2, 4, T, D) and o.dtype == dtype
     assert _row_rel_err(o, o_ref) <= ROW_TOL[dtype]
     assert (lse - lse_ref).abs().max().item() <= 1e-3
     _check_attention_grads(got, want, dtype, _keep(
         T, T, True, q.device, None if which == "flash" else mask), k, v, d_o,
         scale)
+
+
+@pytest.mark.parametrize("D", [320, 512])
+@pytest.mark.parametrize("dtype", [bf16, torch.float32])
+def test_chunked_forward_of_k6_is_k1s_and_never_reads_dead_kv_on_card(
+        cuda_device, D, dtype):
+    """Above head dim 256 K6 runs K1's chunked forward over the 128-row
+    query lists: on an all-ones causal mask at block 128 they visit the
+    same key tiles in the same order with the same flags, so O and LSE
+    are K1's bits, also at a ragged T 200 (block 40).  Under a mask at
+    block 32 (partly live 64-key tiles, whose live rows the producer
+    stages for every panel of K and for V's chunk) with NaN in every K/V
+    row that no query may attend, O and LSE are finite and equal the
+    clean run's bit for bit, and match the plain forward."""
+    q, k, v, _ = _bs_inputs(512, 512, D, dtype, cuda_device, D + 3)
+    scale = 1 / math.sqrt(D)
+    for T, block in ((512, 128), (200, 40)):
+        n = T // block
+        ones = bs.BlockMask(np.ones((n, n), bool), block, block)
+        got = bs._bs_fwd_cuda(q[:, :, :T], k[:, :, :T], v[:, :, :T], ones,
+                              True, scale)
+        want = fa._flash_cuda(q[:, :, :T], k[:, :, :T], v[:, :, :T], True,
+                              scale)
+        torch.cuda.synchronize()
+        for a, b in zip(got, want):
+            assert torch.equal(a, b)
+    m = np.eye(16, dtype=bool)
+    m[:, 0] = True
+    m[9, 9] = False   # k block 9 is read by no query
+    mask = bs.BlockMask(m, 32, 32)
+    dead = ~bs._elementwise_keep(mask, True, cuda_device).any(dim=0)
+    kp, vp = k.clone(), v.clone()
+    kp[:, :, dead] = float("nan")
+    vp[:, :, dead] = float("nan")
+    runs = [bs._bs_fwd_cuda(q, kk, vv, mask, True, scale)
+            for kk, vv in ((k, v), (kp, vp))]
+    torch.cuda.synchronize()
+    for a, b in zip(*runs):
+        assert torch.isfinite(b).all() and torch.equal(a, b)
+    o_ref, lse_ref = bs._bs_attention_plain(q, k, v, mask, True, scale)
+    assert _row_rel_err(runs[1][0], o_ref) <= ROW_TOL[dtype]
+    assert (runs[1][1] - lse_ref).abs().max().item() <= 1e-3
+
+
+@pytest.mark.parametrize("dtype", [bf16, torch.float32])
+@pytest.mark.parametrize("which", ["flash", "block_sparse"])
+def test_chunked_forward_reads_head_strided_operands_in_place_on_card(
+        cuda_device, dtype, which):
+    """q, k and v at head dim 320 in the (B, T, H, D).transpose(1, 2)
+    layout an attention layer makes: the chunked forward reads them in
+    place through its tensor maps (no operand copy) and gives, bit for
+    bit, what the same values contiguous give, which match the plain
+    forward row by row, LSE within 1e-3."""
+    B, T, H, D = 2, 200, 4, 320
+    g = torch.Generator(device=cuda_device).manual_seed(321)
+    q, k, v = (torch.randn(B, T, H, D, device=cuda_device,
+                           generator=g).to(dtype).transpose(1, 2)
+               for _ in range(3))
+    scale = 1 / math.sqrt(D)
+    mask = bs.sliding_window_mask(5, 5, 2, 1, True, 40, 40)
+
+    def run(*t):
+        if which == "flash":
+            return fa._flash_cuda(*t, True, scale)
+        return bs._bs_fwd_cuda(*t, mask, True, scale)
+
+    copies = fa.OPERAND_COPIES.count
+    strided = run(q, k, v)
+    torch.cuda.synchronize()
+    assert fa.OPERAND_COPIES.count - copies == 0
+    contiguous = run(q.contiguous(), k.contiguous(), v.contiguous())
+    for a, b in zip(strided, contiguous):
+        assert a.is_contiguous() and torch.equal(a, b)
+    if which == "flash":
+        o_ref, lse_ref = fa._flash_plain(q, k, v, True, scale)
+    else:
+        o_ref, lse_ref = bs._bs_attention_plain(q, k, v, mask, True, scale)
+    assert _row_rel_err(strided[0], o_ref) <= ROW_TOL[dtype]
+    assert (strided[1] - lse_ref).abs().max().item() <= 1e-3
+
+
+def test_f32_chunked_forward_and_wide_backward_through_autograd_on_card(
+        cuda_device):
+    """f32 at head dim 320 through ``flash_attention``'s autograd: the
+    chunked forward (one K1 launch, under ``LAUNCHES_CHUNKED``) and the
+    wide dK/dV and dQ (two wide launches), O, LSE and the gradients
+    against the CPU plain version row by row within the f32 limit.  The
+    gradient of a key bias, the sum of dK over the key rows (0 in exact
+    arithmetic), stays at rounding level: within twice what the same
+    wide backward reads from the plain forward's O and LSE on the card,
+    or the CPU plain pipeline's, whichever is larger (the split
+    products' O must agree with the backward's recomputed P . V to f32
+    rounding, ``tests/test_torch_f32_split.py``)."""
+    B, H, T, D = 2, 4, 130, 320
+    g = torch.Generator().manual_seed(320)
+    q, k, v, d_o = (torch.randn(B, H, T, D, generator=g) for _ in range(4))
+    scale = 1 / math.sqrt(D)
+    counters = (fa.LAUNCHES, fa.LAUNCHES_DKV, fa.LAUNCHES_DQ,
+                fa.LAUNCHES_WIDE, fa.LAUNCHES_CHUNKED[torch.float32])
+    before = [c.count for c in counters]
+    leaves = [t.to(cuda_device).requires_grad_() for t in (q, k, v)]
+    o, lse = fa.flash_forward(*leaves, causal=True)
+    got = torch.autograd.grad(o, leaves, d_o.to(cuda_device))
+    torch.cuda.synchronize()
+    assert [c.count - n for c, n in zip(counters, before)] == [1, 1, 1, 2, 1]
+    cpu = [t.clone().requires_grad_() for t in (q, k, v)]
+    o_cpu, lse_cpu = fa.flash_forward(*cpu, causal=True)
+    want = torch.autograd.grad(o_cpu, cpu, d_o)
+    assert _row_rel_err(o.cpu(), o_cpu) <= ROW_TOL[torch.float32]
+    assert (lse.cpu() - lse_cpu).abs().max().item() <= 1e-3
+    _check_attention_grads([a.cpu() for a in got], want, torch.float32,
+                           _keep(T, T, True, "cpu"), k, v, d_o, scale)
+    qd, kd, vd = (t.detach() for t in leaves)
+    o_plain, lse_plain = fa._flash_plain(qd, kd, vd, True, scale)
+    dk_plain = fa._flash_bwd_cuda(qd, kd, vd, o_plain, lse_plain,
+                                  d_o.to(cuda_device), True, scale)[1]
+
+    def bias(dk):
+        return dk.double().sum(dim=2).norm().item()
+
+    level = max(bias(dk_plain), bias(want[1]))
+    assert bias(got[1]) <= 2 * level, (bias(got[1]), level)
 
 
 @pytest.mark.parametrize("D", [64, 128, 256])

@@ -23,7 +23,10 @@ do at D 192 and 256 (``WIDE`` in ``fwd_f32_consume``,
 ``dkv_f32_consume`` and ``dq_f32_consume``: 32-row streamed tiles, the
 block's own rows split into registers per 32-column panel, a fresh
 partial of each score per panel), with wgmma's truncation toward zero
-modelled, k16 step by step.
+modelled, k16 step by step; ``_fwd_chunked_split`` forms O and LSE as
+the f32 forward above D 256 does (``attn_fwd_chunk_kernel``: D padded to
+a multiple of 64, O in chunks of 256 columns, each chunk forming S anew
+as at D 256), and the chunks' column plan is checked for D 257-1024.
 The results are held row by row, at the f32 limit the card holds the
 kernels to (1e-4; LSE 1e-3; the wide forward at a third of it), against
 the JAX package's ``flash_attention``, ``block_sparse_attention`` and
@@ -667,7 +670,8 @@ def _fwd_wide_split(q, k, v, keep, scale, truncate=True,
     ``_fwd_split``, O += P . V by ``_wide_pv``, O = acc / max(l, 1e-30)
     and LSE as there; wgmma's sums rounded toward zero where
     ``truncate``, S's partials spanning ``partial`` columns."""
-    B, H, T, D = q.shape
+    B, H, T, _ = q.shape
+    D = v.shape[-1]   # O's columns (the chunked forward: a chunk of them)
     o = torch.zeros(B, H, T, D)
     lse = torch.zeros(B, H, T, 1)
     zero = torch.zeros(())
@@ -820,6 +824,142 @@ def test_the_wide_forwards_o_keeps_the_key_bias_gradient_at_rounding_level():
     assert sums["kernel"] <= 2 * noise
     assert sums["one"] > 3 * noise
     assert sums["five"] > 5 * noise
+
+
+# ----------------------------------------------------------------------
+# the f32 forward above head dim 256: K1 and K6, the chunked forward
+# ----------------------------------------------------------------------
+
+def _fwd_chunked_split(q, k, v, keep, scale, **kw):
+    """O and LSE as the f32 K1/K6 compute them above head dim 256 (the
+    chunked forward, ``attn_fwd_chunk_kernel``): q, k and v zero-padded
+    to a multiple of 64 columns (``fa._fwd_head_dim``); for each chunk of
+    O (``fa._fwd_chunks``) a block of its own forms S over every
+    64-column panel of q and K as ``_wide_scores`` does (the stage's two
+    32-column q panels split into registers, each a fresh partial added
+    to S in f32), the online softmax, and P . V over the chunk's 256
+    columns of V (``_wide_pv``), by ``_fwd_wide_split`` with ``kw``; it
+    writes its own columns of O.  Every chunk forms the same S, l and
+    LSE, bit for bit (checked here), and chunk 0 writes LSE.  O is cut
+    back to D."""
+    D = q.shape[-1]
+    Dp = fa._fwd_head_dim(D)
+    qp, kp, vp = (fa._pad_head_dim(t, Dp) for t in (q, k, v))
+    o = torch.zeros(*q.shape[:-1], Dp)
+    lses = []
+    for col0, lo, hi in fa._fwd_chunks(Dp):
+        oc, lse = _fwd_wide_split(qp, kp, vp[..., col0:col0 + fa.CHUNK_COLS],
+                                  keep, scale, **kw)
+        o[..., lo:hi] = oc[..., lo - col0:hi - col0]
+        lses.append(lse)
+    assert all(torch.equal(lse, lses[0]) for lse in lses)
+    return o[..., :D], lses[0]
+
+
+# (B, H, T, S, D, causal): T 256 takes the JAX package's Pallas forward in
+# interpret mode, T 130 and the ragged non-causal case its plain reference
+CHUNKED_CASES = {
+    "causal_T256_D320": (1, 2, 256, 256, 320, True),
+    "causal_T256_D512": (1, 2, 256, 256, 512, True),
+    "causal_T130_D512": (1, 2, 130, 130, 512, True),
+    "causal_T130_D300": (1, 2, 130, 130, 300, True),
+    "ragged_T130_S200_noncausal_D320": (1, 2, 130, 200, 320, False),
+}
+
+
+@pytest.mark.parametrize("case", sorted(CHUNKED_CASES))
+def test_chunked_split_forward_matches_the_jax_flash_forward(case):
+    """The f32 forward above head dim 256 (the chunked forward: S over
+    64-column panels, a fresh partial per 32-column q panel, O in chunks
+    of 256 columns, each chunk forming S anew; wgmma's truncation toward
+    zero modelled) against the JAX flash forward, which takes D as it
+    is: O row by row within a third of the f32 limit, LSE within 1e-3."""
+    B, H, T, S, D, causal = CHUNKED_CASES[case]
+    q, k, v, _ = _inputs(B, H, T, S, D, seed=7 * len(case))
+    scale = 1 / math.sqrt(D)
+    keep = (fa._causal_keep(T, S, "cpu") if causal
+            else torch.ones(T, S, dtype=torch.bool))
+    j = [jnp.asarray(a) for a in (q, k, v)]
+    if T % 128 == 0 and S % 128 == 0:
+        o_want, lse_want = _flash_fwd(*j, causal, scale, 128, 128, True)
+        lse_want = torch.from_numpy(np.array(lse_want))
+    else:
+        o_want = _attention_reference(*j, causal, scale)
+        lse_want = _lse_ref(q, k, keep.numpy(), scale)
+    o, lse = _fwd_chunked_split(*(torch.from_numpy(a) for a in (q, k, v)),
+                                keep, scale)
+    assert o.shape == (B, H, T, D)
+    assert _row_rel_err(o, torch.from_numpy(np.array(o_want))) \
+        <= WIDE_ROW_TOL
+    assert (lse.double() - lse_want.double()).abs().max().item() <= LSE_TOL
+
+
+def test_chunked_split_forward_matches_the_jax_block_sparse_forward():
+    """Under a block mask with a dead query block and partly live 64-key
+    tiles (block 32), at D 320: the f32 chunked forward against
+    ``_bs_fwd`` (the Pallas kernel in interpret mode); the dead block's
+    rows are O = 0 and LSE = 1e30 on both sides."""
+    m = J.sliding_window_mask(8, 8, 2, 1, True, 32, 32).mask.copy()
+    m[3, :] = False
+    mask = J.BlockMask(m, 32, 32)
+    q, k, v, _ = _inputs(1, 2, 256, 256, 320, seed=320)
+    scale = 1 / math.sqrt(320)
+    o_want, lse_want = J._bs_fwd(*(jnp.asarray(a) for a in (q, k, v)), mask,
+                                 True, scale, True)
+    o_want, lse_want = (torch.from_numpy(np.array(a))
+                        for a in (o_want, lse_want))
+    port = P.BlockMask(mask.mask, mask.block_q, mask.block_k)
+    keep = P._elementwise_keep(port, True, "cpu")
+    o, lse = _fwd_chunked_split(*(torch.from_numpy(a) for a in (q, k, v)),
+                                keep, scale)
+    assert _row_rel_err(o, o_want) <= WIDE_ROW_TOL
+    assert (lse - lse_want).abs().max().item() <= LSE_TOL
+    assert not o[:, :, 96:128].any() and (lse[:, :, 96:128] == 1e30).all()
+    assert not o_want[:, :, 96:128].any()
+
+
+def test_the_chunked_forwards_o_keeps_the_key_bias_gradient_at_rounding_level():
+    """The key-bias check of ``test_the_wide_forwards_o_keeps_the_key_bias_
+    gradient_at_rounding_level`` at D 320 (two chunks of O): O and LSE
+    from the chunked forward's products (truncation modelled) keep the sum
+    of dK over the key rows, under the plain f32 backward, within twice
+    the plain f32 pipeline's; one S accumulator over all of D (120
+    roundings) three times it or more."""
+    rng = np.random.RandomState(1)
+    q, k, v, g = (torch.from_numpy(rng.randn(3, 4, 20, 320)
+                                   .astype(np.float32)) for _ in range(4))
+    scale = 1 / math.sqrt(320)
+    keep = fa._causal_keep(20, 20, "cpu")
+    o, lse = fa._flash_plain(q, k, v, True, scale)
+    noise = fa._flash_bwd_plain(q, k, v, o, lse, g, True, scale)[1] \
+        .sum(dim=2).norm().item()
+    sums = {}
+    for name, kw in (("kernel", {}), ("one", dict(partial=None))):
+        o, lse = _fwd_chunked_split(q, k, v, keep, scale, **kw)
+        dk = fa._flash_bwd_plain(q, k, v, o, lse, g, True, scale)[1]
+        sums[name] = dk.sum(dim=2).norm().item()
+    assert sums["kernel"] <= 2 * noise
+    assert sums["one"] > 3 * noise
+
+
+def test_the_chunked_forwards_plan_covers_each_column_once():
+    """Every head dim from 257 to 1024: the forward runs at D padded to
+    the next multiple of 64 (``_fwd_head_dim``), whose 64-column panels
+    the scores sum over, in ceil(Dp / 256) chunks of O; each chunk forms
+    256 columns from a panel's first column, inside Dp, and writes its
+    own columns, which together are each of Dp's columns once, in order
+    (the true D's among them)."""
+    for D in range(257, 1025):
+        Dp = fa._fwd_head_dim(D)
+        assert Dp % fa.CHUNK_PANEL == 0 and D <= Dp < D + fa.CHUNK_PANEL
+        chunks = fa._fwd_chunks(Dp)
+        assert len(chunks) == -(-Dp // fa.CHUNK_COLS)
+        written = []
+        for col0, lo, hi in chunks:
+            assert col0 % fa.CHUNK_PANEL == 0
+            assert 0 <= col0 <= lo < hi <= col0 + fa.CHUNK_COLS <= Dp
+            written += range(lo, hi)
+        assert written == list(range(Dp)), D
 
 
 # ----------------------------------------------------------------------

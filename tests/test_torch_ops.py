@@ -439,31 +439,40 @@ def test_f32_forward_reads_head_strided_operands_in_place(monkeypatch,
     (160, torch.bfloat16, 192, 192), (200, torch.bfloat16, 256, 256),
     (256, torch.bfloat16, 256, 256), (160, torch.float32, 192, 192),
     (200, torch.float32, 256, 256), (256, torch.float32, 256, 256),
-    (320, torch.float32, None, None), (320, torch.bfloat16, None, None)])
+    (320, torch.float32, None, None), (320, torch.bfloat16, None, None),
+    (300, torch.float32, None, None), (300, torch.bfloat16, None, None),
+    (1000, torch.bfloat16, None, None)])
 def test_wide_head_dims_route_by_dtype(monkeypatch, D, dtype, fwd, bwd):
-    """All three passes route by the same built head dims in both
-    dtypes: head dims 129-256 are zero-padded to 192 or 256 and run the
-    Hopper forward (K1), dK/dV (K2) and dQ (K3), and every pass above 256
-    takes the wide route.  ``fwd`` and ``bwd`` are the head dims the
-    Hopper kernels run at (None: the wide route).  The outputs are cut
-    back to D.  An f32 launch of each pass at 192 or 256 also counts
-    under that pass's counter for the head dim."""
+    """The passes route by the same built head dims in both dtypes: head
+    dims 129-256 are zero-padded to 192 or 256 and run the Hopper forward
+    (K1), dK/dV (K2) and dQ (K3); above 256 the forward runs the chunked
+    forward (``bigdl_flash_fwd`` at D zero-padded to a multiple of 64,
+    counted under ``LAUNCHES_CHUNKED`` for its dtype) and dK/dV and dQ
+    take the wide route at D as it is.  ``fwd`` and ``bwd`` are the head
+    dims the Hopper kernels run at (None: above the built ones).  The
+    outputs are cut back to D.  An f32 launch of each pass at 192 or 256
+    also counts under that pass's counter for the head dim."""
     calls = _record_launches(monkeypatch)
     q, k, v, d_o = (torch.zeros(1, 2, 16, D, dtype=dtype) for _ in range(4))
     counters = (fa.LAUNCHES_F32, fa.LAUNCHES_DKV_F32, fa.LAUNCHES_DQ_F32)
     per_dim = [{d: c.count for d, c in by.items()} for by in counters]
+    chunked = {dt: c.count for dt, c in fa.LAUNCHES_CHUNKED.items()}
     o, lse = fa._flash_cuda(q, k, v, True, 0.1)
     grads = fa._flash_bwd_cuda(q, k, v, o, lse, d_o, True, 0.1)
     for by, before, at in zip(counters, per_dim, (fwd, bwd, bwd)):
         assert {d: c.count - before[d] for d, c in by.items()} == {
             d: int(dtype == torch.float32 and d == at) for d in before}
+    assert {dt: c.count - chunked[dt]
+            for dt, c in fa.LAUNCHES_CHUNKED.items()} == {
+        dt: int(dt == dtype and fwd is None) for dt in chunked}
     names = [c[0] for c in calls]
     assert names == [
-        "bigdl_wide_fwd" if fwd is None else "bigdl_flash_fwd",
+        "bigdl_flash_fwd",
         *(["bigdl_wide_bwd_dkv", "bigdl_wide_bwd_dq"] if bwd is None
           else ["bigdl_flash_bwd_dkv", "bigdl_flash_bwd_dq"])]
     # every entry ends (..., D, dtype, sm_scale, causal)
-    assert [c[1][-4] for c in calls] == [fwd or D] + [bwd or D] * 2
+    assert [c[1][-4] for c in calls] == [fwd or -(-D // 64) * 64] \
+        + [bwd or D] * 2
     for t in (o, *grads):
         assert t.shape == (1, 2, 16, D)
 
