@@ -32,12 +32,16 @@ products too), own 64 rows a block and read the lists per 64-row tile.
 The f32 K6-K8 at head dims 192 and 256 stream each 64-row list step as
 two 32-row tiles.  The tables go to the card once per (mask, causal,
 device) and stay cached: no launch uploads anything.  Above the built
-head dims (256) the forward and the backward route apart: K6 runs the
-chunked forward of ``csrc/attn_fwd_hopper.cuh`` over the same 128-row
-query lists (D zero-padded to a multiple of 64, q and K streamed in
-64-column panels, O kept 256 columns a block; a partial pair's live
-rows staged for every panel), and K7 and K8 take the wide route of
-``flash_attention`` (``csrc/attn_wide.cu``) under the block mask.
+head dims (256) K6 runs the chunked forward of ``csrc/attn_fwd_hopper.cuh``
+over the same 128-row query lists (D zero-padded to a multiple of 64,
+q and K streamed in 64-column panels, O kept 256 columns a block; a
+partial pair's live rows staged for every panel), and in f32 K7 and K8
+the chunked backward of ``csrc/attn_bwd_hopper.cuh`` over the 64-row
+key and query lists (at the forward's padded D, the scores summed over
+64-column panels, dK/dV and dQ kept 256 columns a block; a partial
+pair's live rows staged for every panel and chunk operand); in bf16 K7
+and K8 take the wide route of ``flash_attention``
+(``csrc/attn_wide.cu``) under the block mask.
 
 ``block_sparse_attention`` and ``block_sparse_matmul`` are
 ``torch.autograd.Function``s, the counterparts of the ``custom_vjp``s
@@ -66,10 +70,10 @@ from .flash_attention import (_DTYPE_CODE, _F, _I, _P, FIRST_HEAD, HEADS,
                               _bwd_inputs,
                               _c_fn, _call, _causal_keep, _check_kernel_inputs,
                               _check_lse, _chunked_counter, _cut_head_dim,
-                              _empty, _f32_counter, _fwd_head_dim,
-                              _kernel_operands, _launch_heads, _pad_head_dim,
-                              _padded_head_dim, _strides_arg, _wide,
-                              _wide_dkv, _wide_dq)
+                              _bwd_head_dim, _bwd_operands, _empty,
+                              _f32_counter, _fwd_head_dim, _kernel_operands,
+                              _launch_heads, _pad_head_dim, _strides_arg,
+                              _takes_wide_route, _wide_dkv, _wide_dq)
 
 __all__ = ["BlockMask", "block_sparse_attention", "block_sparse_matmul",
            "sliding_window_mask", "strided_mask", "magnitude_block_mask",
@@ -96,6 +100,12 @@ LAUNCHES_DQ_F32 = {D: LaunchCounter(f"block_sparse_bwd_dq f32 D {D}")
 LAUNCHES_CHUNKED = {dt: LaunchCounter(f"block_sparse_fwd {name} D > 256")
                     for dt, name in ((torch.bfloat16, "bf16"),
                                      (torch.float32, "f32"))}
+#: the launches of K7 and K8, among those above, at head dims above 256
+#: on the chunked backward, by dtype (f32; no model path runs them)
+LAUNCHES_DKV_CHUNKED = {torch.float32: LaunchCounter(
+    "block_sparse_bwd_dkv f32 D > 256")}
+LAUNCHES_DQ_CHUNKED = {torch.float32: LaunchCounter(
+    "block_sparse_bwd_dq f32 D > 256")}
 LAUNCHES_MM = LaunchCounter("block_sparse_mm")
 #: the K9 launches, among those above, that took the tile route
 LAUNCHES_MM_TILE = LaunchCounter("block_sparse_mm_tile")
@@ -625,24 +635,25 @@ def _bs_fwd_cuda(q, k, v, mask: BlockMask, causal: bool, sm_scale: float
 def _launch_bs_dkv(q, k, v, do, lse, delta, mask: BlockMask, causal: bool,
                    sm_scale: float) -> Tuple[torch.Tensor, torch.Tensor]:
     """Launch K7 over prepared inputs (dO in q's dtype, delta (B*H, T)
-    f32; read as ``_launch_dkv`` reads them, through TMA in both
-    dtypes).  Every k tile writes its rows, zeros where no query
-    reads."""
+    f32; at any head dim and read as ``_launch_dkv`` reads them, through
+    TMA in both dtypes).  Every k tile writes its rows, zeros where no
+    query reads."""
     tab = _attention_tables(mask, causal, q.device)
     B, H, T, D = q.shape
-    if _wide(D):
+    if _takes_wide_route(D, q.dtype):
         return _wide_dkv(q, k, v, do, lse, delta, causal, sm_scale,
                          LAUNCHES_DKV, _wide_block_mask(tab, mask))
-    q, k, v, do = _kernel_operands(q, k, v, do, tma=True)
+    q, k, v, do = _bwd_operands(q, k, v, do)
     dk, dv = _empty(k), _empty(v)
     _launch_heads("block_sparse_bwd_dkv",
-                  (LAUNCHES_DKV, *_f32_counter(LAUNCHES_DKV_F32, q)),
+                  (LAUNCHES_DKV, *_f32_counter(LAUNCHES_DKV_F32, q),
+                   *_chunked_counter(LAUNCHES_DKV_CHUNKED, q)),
                   _attn_fn("bigdl_bs_bwd_dkv", 14),
                   [*(t.data_ptr() for t in (q, k, v, do, lse, delta, dk, dv)),
-                   *_table_args(tab, _key_tables(q.dtype, D), mask, q, k,
-                                (q, k, v, do)),
+                   *_table_args(tab, _key_tables(q.dtype, q.shape[-1]), mask,
+                                q, k, (q, k, v, do)),
                    float(sm_scale), int(bool(causal))], B * H, q.device)
-    return dk, dv
+    return _cut_head_dim(dk, D), _cut_head_dim(dv, D)
 
 
 def _launch_bs_dq(q, k, v, do, lse, delta, mask: BlockMask, causal: bool,
@@ -651,32 +662,34 @@ def _launch_bs_dq(q, k, v, do, lse, delta, mask: BlockMask, causal: bool,
     read as it reads them."""
     tab = _attention_tables(mask, causal, q.device)
     B, H, T, D = q.shape
-    if _wide(D):
+    if _takes_wide_route(D, q.dtype):
         return _wide_dq(q, k, v, do, lse, delta, causal, sm_scale,
                         LAUNCHES_DQ, _wide_block_mask(tab, mask))
-    q, k, v, do = _kernel_operands(q, k, v, do, tma=True)
+    q, k, v, do = _bwd_operands(q, k, v, do)
     dq = _empty(q)
     _launch_heads("block_sparse_bwd_dq",
-                  (LAUNCHES_DQ, *_f32_counter(LAUNCHES_DQ_F32, q)),
+                  (LAUNCHES_DQ, *_f32_counter(LAUNCHES_DQ_F32, q),
+                   *_chunked_counter(LAUNCHES_DQ_CHUNKED, q)),
                   _attn_fn("bigdl_bs_bwd_dq", 13),
                   [*(t.data_ptr() for t in (q, k, v, do, lse, delta, dq)),
-                   *_table_args(tab, _query_tables(q.dtype, D), mask, q, k,
-                                (q, k, v, do)),
+                   *_table_args(tab, _query_tables(q.dtype, q.shape[-1]),
+                                mask, q, k, (q, k, v, do)),
                    float(sm_scale), int(bool(causal))], B * H, q.device)
-    return dq
+    return _cut_head_dim(dq, D)
 
 
 def _bs_bwd_cuda(q, k, v, o, lse, d_o, mask: BlockMask, causal: bool,
                  sm_scale: float
                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Launch K7 then K8 on the current stream of q's device (a head dim
-    between the built ones zero-padded, the gradients cut back; above
-    them the wide route)."""
+    between the built ones zero-padded, above them in f32 padded to a
+    multiple of 64 for the chunked backward, the gradients cut back; in
+    bf16 above them the wide route)."""
     _check_kernel_inputs("block_sparse_attention backward", q, k, v)
     _check_lse("block_sparse_attention backward", lse)
     do, delta = _bwd_inputs(q, o, d_o)
     D = q.shape[-1]
-    Dp = _padded_head_dim(D)
+    Dp = _bwd_head_dim(D, q.dtype)
     q, k, v, do = (_pad_head_dim(t, Dp) for t in (q, k, v, do))
     dk, dv = _launch_bs_dkv(q, k, v, do, lse, delta, mask, causal, sm_scale)
     dq = _launch_bs_dq(q, k, v, do, lse, delta, mask, causal, sm_scale)

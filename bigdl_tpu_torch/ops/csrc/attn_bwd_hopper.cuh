@@ -1,6 +1,6 @@
 // The attention backward for Hopper (sm_90a): the dK/dV and dQ kernels
 // that flash_bwd.cu runs as K2 and K3 and block_sparse.cu as K7 and K8, in
-// bf16 and in f32 (D 16-256).  Both pairs compute the same
+// bf16 and in f32 (D 16-256; in f32 above 256 too).  Both pairs compute the same
 // math; only the sweep differs, so the body is written once here and
 // templated on a sweep policy.
 //
@@ -93,6 +93,17 @@
 //     are of 32 keys, 16 a warpgroup (m64n16 products), split in place:
 //     one stage, 230,448 B at D 256.  Each warpgroup keeps all of dQ (D /
 //     2 f32) beside one k16 step's pieces of its A operand.
+//   * dK/dV and dQ in f32 above D 256 (bwd_dkv_chunk_kernel,
+//     bwd_dq_chunk_kernel): design (a) of the chunked forward
+//     (attn_fwd_hopper.cuh) carried to the 64-row WIDE blocks above.  Own
+//     rows at D 512 would take 256 KB, so they stream with each 32-row
+//     tile in 64-column panels through a ring; S^T and dP^T (or S and dP)
+//     are summed over the panels, a fresh partial per k16 step as at D
+//     256, and a block keeps 256 columns of its output (dV in warpgroup 0
+//     and dK in 1, or dQ in both: D / 2 = 128 f32 a thread, the D 256
+//     budget), the chunks of a head in blocks of their own, each forming
+//     the scores anew.  The tile's chunk operands land in a slot of their
+//     own.  One instantiation per pass and sweep for every D.
 //   * A zero-filled row scores 0 and exp(0 - LSE) is not 0, so the masks
 //     (causal, ragged, block) are applied on edge and partial tiles.
 //
@@ -1499,6 +1510,625 @@ bwd_dq_split_kernel(const __grid_constant__ CUtensorMap tm_q,
                  sm_scale, causal, H, h0, sw);
 }
 
+// ---- the f32 backward above head dim 256 --------------------------------------
+//
+// See the note at the top.  A block owns 64 rows (key rows for dK/dV,
+// query rows for dQ) and keeps kChunkCols columns of its output, the chunk
+// chunk_of gives it (hopper_common.cuh); the chunks of a head are blocks of
+// their own.  For each 32-row streamed tile (query rows for dK/dV, key rows
+// for dQ) it forms the scores anew over all of D from kChunkPanel-column
+// panels that stream through a ring: a stage holds panel p of the two own
+// operands (K and V, or Q and dO; f32, split into wgmma's register operand
+// as they are read, as wide_scores does) and of the tile's two (Q and dO,
+// or K and V; split in place, split_tile), 56 KB.  Then the tile's chunk operands
+// (dO and Q for dV and dK, K for dQ: 32 rows by the chunk's 256 columns,
+// split in place, 48 KB each) land in a slot of their own.  So one
+// instantiation per pass and sweep serves every D above 256 (the panel
+// count is an argument), and every chunk forms the same scores bit for
+// bit: up to the epilogue a chunk's code differs only in which columns of
+// its chunk operands it reads.
+
+// The ring and the chunk slot of the chunked dK/dV (kDkv) or dQ over
+// operands of type T (the chunk plan, the producer and the launch take
+// either; the consumers are f32's).  TMA lands a panel in boxes of TMA's
+// panel width (L: 32 f32 columns, 128-byte rows): an own panel as boxes of
+// 64 rows (LPANEL_OWN apart), a tile panel as boxes of 32 rows (LPANEL_T
+// apart), a chunk operand as boxes of 32 rows; in f32 with room after the
+// tile panel and the chunk operand for their third pieces.  f32 dK/dV: 2
+// stages, the dO and Q chunk operands and P^T (222,520 B); f32 dQ: 3
+// stages and the K chunk operand (222,536 B).
+template <bool kDkv, typename T = float>
+struct BwdChunkCfg {
+  using L = Panels<kChunkPanel, sizeof(T)>;
+  static constexpr int E = sizeof(T);
+  static constexpr int THIRD = kIsBf16<T> ? 0 : 2;   // bytes of a third piece an element
+  static constexpr int TR = kWideRows;                          // rows of a streamed tile
+  static constexpr int OWN_PANEL = kTileRows * kChunkPanel * E;    // an own panel
+  static constexpr int TILE_LOAD = TR * kChunkPanel * E;           // a tile panel's bytes
+  static constexpr int TILE_PANEL = TR * kChunkPanel * (E + THIRD);   // and its third pieces
+  static constexpr int STAGE = 2 * OWN_PANEL + 2 * TILE_PANEL;
+  static constexpr int STAGES = kDkv ? 2 : 3;
+  static constexpr int CHUNK_LOAD = TR * kChunkCols * E;
+  static constexpr int CHUNK_BYTES = TR * kChunkCols * (E + THIRD);
+  static constexpr int CHUNKS = kDkv ? 2 : 1;                      // chunk operands
+  static constexpr int PT_BYTES = kDkv ? kTileRows * TR * 4 : 0;   // P^T, 0 to 1
+  static constexpr int LPANEL_OWN = kTileRows * L::RB;
+  static constexpr int LPANEL_T = TR * L::RB;
+  static constexpr size_t SMEM = 1024 + (size_t)STAGES * STAGE + (size_t)CHUNKS * CHUNK_BYTES +
+                                 PT_BYTES + 2 * TR * sizeof(float) +
+                                 sizeof(uint64_t) * 2 * (STAGES + 1) + sizeof(Step);
+  static_assert(STAGE % 1024 == 0 && CHUNK_BYTES % 1024 == 0, "panels on 1024-byte bounds");
+  // the producer issues a tile's chunk operands after its first STAGES
+  // panels: every D above 256 has more panels than that
+  static_assert(STAGES < (kChunkCols + kChunkPanel) / kChunkPanel, "a tile has more panels");
+};
+
+// registers after the hand-over: the consumers keep 128 f32 of their
+// chunk beside a tile's scores and one k16 step's pieces; the producer
+// warp stages rows (list sweeps) and LSE and delta (dK/dV), and the list
+// dK/dV's spills in 40
+constexpr int kChunkBwdProducerRegs = 56;
+constexpr int kChunkBwdConsumerRegs = 224;
+
+// The producer warp of the chunked dK/dV (kDkv) or dQ: for each of the n
+// 32-row tiles of block b, its np panels into the stage ring (own rows
+// own0 .. of own_a and own_b, the tile's rows of tile_a and tile_b), and
+// after the first STAGES of them its chunk operands (columns col0 ..) into
+// the chunk slot: dO and Q (tile_b, tile_a) for dK/dV, with the tile's LSE
+// (times log2 e) and delta (head bh's rows at lse, delta), or K (tile_a)
+// for dQ.  Lane 0 issues the TMA loads; a list step's partial pair is
+// staged by the warp, the tile's live rows only, in every panel and chunk
+// operand.
+template <bool kDkv, typename T, class Sweep>
+__device__ __forceinline__ void bwd_chunk_produce(
+    const Sweep& sw, const CUtensorMap* tm_own_a, const CUtensorMap* tm_own_b,
+    const CUtensorMap* tm_tile_a, const CUtensorMap* tm_tile_b, unsigned char* stages,
+    unsigned char* chunk_s, float* lse_s, float* delta_s, Step* step_s, uint64_t* full,
+    uint64_t* empty, uint64_t* full_c, uint64_t* empty_c, const float* __restrict__ lse,
+    const float* __restrict__ delta, int b, int n, int np, int col0, int tile_len, int h,
+    int bb, int bh, int H) {
+  using C = BwdChunkCfg<kDkv, T>;
+  using L = typename C::L;
+  constexpr int TR = C::TR;
+  constexpr int kSub = kTileRows / TR;   // a sweep step's 64-row tile as two tiles
+  const int lane = threadIdx.x % 32;
+  const int own0 = b * kTileRows;
+  int si = 0;   // stages filled
+  for (int it = 0; it < n; ++it) {
+    Step step;
+    if constexpr (kDkv) step = sub_step<kSub>(sw.dkv_step(b, it / kSub, kTileRows), it);
+    else step = sub_step<kSub>(sw.dq_step(b, it / kSub, kTileRows), it);
+    const int r0 = step.tile * TR;
+    bool part = false;
+    unsigned long long live = 0;
+    if constexpr (Sweep::kList) {
+      part = step.flags & kPartialAny;
+      if (part) live = sw.live(b, it / kSub) >> (TR * (it % kSub));
+    }
+    for (int p = 0; p < np; ++p, ++si) {
+      if (p == C::STAGES) {   // the tile's chunk operands
+        mbar_wait(empty_c, (it & 1) ^ 1);   // the first round passes
+        if constexpr (kDkv) {
+          const bool in = r0 + lane < tile_len;
+          lse_s[lane] = (in ? lse[r0 + lane] : BIG_LSE) * kLog2e;
+          delta_s[lane] = in ? delta[r0 + lane] : 0.0f;
+        }
+        bool staged = false;
+        if constexpr (Sweep::kList) {
+          if (lane == 0) *step_s = step;
+          if (part) {
+#pragma unroll 1
+            for (int i = 0; i < C::CHUNKS; ++i) {
+              const bool from_b = kDkv && i == 0;   // dO; else Q or K
+              const T* src = from_b ? sw.src_b + sw.stride_b.head(bh, H)
+                                    : sw.src_a + sw.stride_a.head(bh, H);
+              stage_live_rows<kChunkCols, C::LPANEL_T, T, TR>(
+                  chunk_s + i * C::CHUNK_BYTES, src + col0,
+                  from_b ? sw.stride_b.r : sw.stride_a.r, r0, tile_len, live, lane);
+            }
+            fence_proxy_async();
+            staged = true;
+          }
+        }
+        if (staged || lane != 0) {
+          mbar_arrive(full_c);
+        } else {
+          mbar_arrive_expect_tx(full_c, C::CHUNKS * C::CHUNK_LOAD);
+          for (int i = 0; i < C::CHUNKS; ++i)
+            for (int g = 0; g < kChunkCols / L::PW; ++g)
+              tma_load_4d(chunk_s + i * C::CHUNK_BYTES + g * C::LPANEL_T,
+                          kDkv && i == 0 ? tm_tile_b : tm_tile_a, full_c, col0 + g * L::PW, r0,
+                          h, bb);
+        }
+      }
+      const int s = si % C::STAGES;
+      mbar_wait(&empty[s], ((si / C::STAGES) & 1) ^ 1);   // the first round passes
+      unsigned char* st = stages + s * C::STAGE;
+      unsigned char* ta = st + 2 * C::OWN_PANEL;
+      unsigned char* tb = ta + C::TILE_PANEL;
+      if constexpr (Sweep::kList) {
+        if (part) {   // a partial pair: the tile panels' live rows only
+          stage_live_rows<kChunkPanel, C::LPANEL_T, T, TR>(
+              ta, sw.src_a + sw.stride_a.head(bh, H) + p * kChunkPanel, sw.stride_a.r, r0,
+              tile_len, live, lane);
+          stage_live_rows<kChunkPanel, C::LPANEL_T, T, TR>(
+              tb, sw.src_b + sw.stride_b.head(bh, H) + p * kChunkPanel, sw.stride_b.r, r0,
+              tile_len, live, lane);
+          fence_proxy_async();
+        }
+      }
+      if (lane != 0) {
+        mbar_arrive(&full[s]);
+        continue;
+      }
+      mbar_arrive_expect_tx(&full[s], 2 * C::OWN_PANEL + (part ? 0 : 2 * C::TILE_LOAD));
+      for (int g = 0; g < L::NP; ++g) {
+        const int col = p * kChunkPanel + g * L::PW;
+        tma_load_4d(st + g * C::LPANEL_OWN, tm_own_a, &full[s], col, own0, h, bb);
+        tma_load_4d(st + C::OWN_PANEL + g * C::LPANEL_OWN, tm_own_b, &full[s], col, own0, h, bb);
+        if (!part) {
+          tma_load_4d(ta + g * C::LPANEL_T, tm_tile_a, &full[s], col, r0, h, bb);
+          tma_load_4d(tb + g * C::LPANEL_T, tm_tile_b, &full[s], col, r0, h, bb);
+        }
+      }
+    }
+  }
+}
+
+// The two consumer warpgroups of the chunked f32 dK/dV, over the block's 64
+// key rows k0 .. k0 + 63 (this thread holds rows key0 and key0 + 8 of each
+// accumulator): dkv_f32_consume's split of the work at D 192 and 256, with
+// D in panels.  Per panel warpgroup 0 splits the stage's Q panel in place
+// and adds its products to S^T = K . Q^T (K split into registers, a fresh
+// partial per k16 step, wide_scores), warpgroup 1 the dO panel's to dP^T
+// = V . dO^T; then, from the chunk slot, warpgroup 0 forms P^T, hands it to 1
+// in f32 (pt_s, kPtFull and kPtEmpty as in dkv_f32_consume), splits the dO
+// chunk operand and adds P^T . dO to dV's chunk; warpgroup 1 forms dS^T =
+// P^T * (dP^T - delta) (a dead key row's NaN in dP^T replaced by delta
+// first), splits the Q chunk operand and adds dS^T . Q to dK's: five
+// products each (dO and Q in two pieces).  Each warpgroup splits only what
+// it reads, so besides P^T nothing crosses between them.  The epilogue
+// writes the chunk's own columns of dV (0) or dK * sm_scale (1), in f32.
+template <class Sweep>
+__device__ __forceinline__ void dkv_chunk_consume(const Sweep& sw, unsigned char* stages,
+                                                  unsigned char* chunk_s, float* pt_s,
+                                                  const float* lse_s, const float* delta_s,
+                                                  const Step* step_s, uint64_t* full,
+                                                  uint64_t* empty, uint64_t* full_c,
+                                                  uint64_t* empty_c, float* __restrict__ dk,
+                                                  float* __restrict__ dv, int bh, int b, int n,
+                                                  int np, int chunk, int T_len, int S_len,
+                                                  float scale_log2, float sm_scale, int causal) {
+  using C = BwdChunkCfg<true>;
+  using P = Panels<kChunkCols>;   // the chunk's panels
+  constexpr int TR = C::TR;
+  const int wg = threadIdx.x / 128;
+  const int tid = threadIdx.x % 128;
+  const int warp = tid / 32;
+  const int lane = threadIdx.x % 32;
+  const int t = lane % 4;
+  const int k0 = b * kTileRows;
+  const int key0 = k0 + 16 * warp + lane / 4;
+  // this warpgroup's operands: K and the Q panel (0), V and the dO panel
+  // (1) in a stage; the dO (0) or Q (1) chunk operand
+  const int own_off = wg * C::OWN_PANEL;
+  const int tile_off = 2 * C::OWN_PANEL + wg * C::TILE_PANEL;
+  unsigned char* ct = chunk_s + wg * C::CHUNK_BYTES;
+
+  float acc[kChunkCols / 2];   // dV (warpgroup 0) or dK (1): 64 x the chunk
+#pragma unroll
+  for (int i = 0; i < kChunkCols / 2; ++i) acc[i] = 0.0f;
+
+  int si = 0;   // stages read
+  for (int it = 0; it < n; ++it) {
+    float sc[TR / 2];   // S^T (warpgroup 0) or dP^T (1)
+#pragma unroll
+    for (int i = 0; i < TR / 2; ++i) sc[i] = 0.0f;
+#pragma unroll 1
+    for (int p = 0; p < np; ++p, ++si) {
+      const int s = si % C::STAGES;
+      mbar_wait(&full[s], (si / C::STAGES) & 1);
+      unsigned char* st = stages + s * C::STAGE;
+      split_tile<kChunkPanel, 128, TR>(st + tile_off, 1 + wg);
+      fence_proxy_async();
+      named_barrier_sync(1 + wg, 128);
+      wide_scores<kChunkPanel, TR, true, true>(sc, st + own_off, st + tile_off);
+      mbar_arrive(&empty[s]);
+    }
+
+    mbar_wait(full_c, it & 1);
+    Step step;
+    if constexpr (Sweep::kList) step = *step_s;   // staged by the producer
+    else step = sub_step<kTileRows / TR>(sw.dkv_step(b, it / (kTileRows / TR), kTileRows), it);
+    const int q0 = step.tile * TR;
+    const bool part = Sweep::kList && (step.flags & kPartial);
+    const bool edge = part || q0 + TR > T_len || (causal && q0 < k0 + 63);
+    split_tile<kChunkCols, 128, TR>(ct, 1 + wg);
+    fence_proxy_async();
+    named_barrier_sync(1 + wg, 128);
+    uint32_t a1[TR / 4], a2[TR / 4], a3[TR / 4];
+    if (wg == 0) {
+      // P^T, masked as dkv_split_consume masks it (element i: query row q0
+      // + c, c = 8 (i / 4) + 2 t + (i & 1), key row key0 + 8 ((i >> 1) & 1))
+#pragma unroll
+      for (int i = 0; i < TR / 2; ++i)
+        sc[i] = exp2f(fmaf(sc[i], scale_log2, -lse_s[8 * (i / 4) + 2 * t + (i & 1)]));
+      if (edge) {
+#pragma unroll
+        for (int i = 0; i < TR / 2; ++i) {
+          const int q = q0 + 8 * (i / 4) + 2 * t + (i & 1);
+          const int key = key0 + 8 * ((i >> 1) & 1);
+          if (q >= T_len || (causal && key > q)) sc[i] = 0.0f;
+        }
+        if constexpr (Sweep::kList) {
+          if (part) {
+#pragma unroll
+            for (int i = 0; i < TR / 2; ++i) {
+              const int q = q0 + 8 * (i / 4) + 2 * t + (i & 1);
+              const int key = key0 + 8 * ((i >> 1) & 1);
+              if (q < T_len && (key >= S_len || !sw.keep(q, key))) sc[i] = 0.0f;
+            }
+          }
+        }
+      }
+      if (it > 0) named_barrier_sync(kPtEmpty, kConsumers);
+#pragma unroll
+      for (int i = 0; i < TR / 2; ++i) pt_s[i * 128 + tid] = sc[i];
+      named_barrier_arrive(kPtFull, kConsumers);
+#pragma unroll
+      for (int i = 0; i < TR / 4; ++i)
+        split_bf16x3(sc[2 * i], sc[2 * i + 1], a1[i], a2[i], a3[i]);
+    } else {
+      named_barrier_sync(kPtFull, kConsumers);
+      // dS^T = P^T * (dP^T - delta); where P^T is 0 on an edge or partial
+      // tile, dP^T (NaN from a dead key row of V) is replaced by delta
+      // first, so that dS^T is 0 by select
+#pragma unroll
+      for (int i = 0; i < TR / 4; ++i) {
+        const int c = 8 * (i / 2) + 2 * t;
+        float ds[2];
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const float pv = pt_s[(2 * i + e) * 128 + tid];
+          const float dp = edge && pv == 0.0f ? delta_s[c + e] : sc[2 * i + e];
+          ds[e] = pv * (dp - delta_s[c + e]);
+        }
+        split_bf16x3(ds[0], ds[1], a1[i], a2[i], a3[i]);
+      }
+      if (it + 1 < n) named_barrier_arrive(kPtEmpty, kConsumers);
+    }
+    // dV += P^T . dO (warpgroup 0), dK += dS^T . Q (1), over the chunk
+    wgmma_fence();
+    wgmma_accumulate_split<kChunkCols, TR * P::RB, 0, TR / 16>(acc, a1, a2, a3, ct);
+    wgmma_commit();
+    wgmma_wait<0>();
+#pragma unroll
+    for (int i = 0; i < kChunkCols / 2; ++i) fence_regs(acc[i]);
+    mbar_arrive(empty_c);
+  }
+
+  // epilogue: dV (warpgroup 0) or dK * sm_scale (1) in f32, the chunk's own
+  // columns, two a store (element 4 j + 2 h of panel p: row key0 + 8 h,
+  // column col0 + p PW + 8 j + 2 t)
+  const int D = np * kChunkPanel;
+  const Chunk ch = chunk_of(chunk, D);
+  float* out = (wg == 0 ? dv : dk) + (size_t)bh * S_len * D;
+  const float scale = wg == 0 ? 1.0f : sm_scale;
+#pragma unroll
+  for (int p = 0; p < P::NP; ++p)
+#pragma unroll
+    for (int j = 0; j < P::PW / 8; ++j)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int row = key0 + 8 * h;
+        const int col = ch.col0 + p * P::PW + 8 * j + 2 * t;
+        const float* a = acc + p * (P::PW / 2) + 4 * j + 2 * h;
+        if (row < S_len && col >= ch.lo && col < ch.hi)
+          *reinterpret_cast<float2*>(out + (size_t)row * D + col) =
+              make_float2(a[0] * scale, a[1] * scale);
+      }
+}
+
+// The two consumer warpgroups of the chunked f32 dQ, over the block's 64
+// query rows q0 .. q0 + 63 (this thread holds rows row0 and row0 + 8 of
+// each accumulator): dq_f32_consume's split of the work at D 192 and 256,
+// with D in panels.  Per panel both warpgroups split the stage's K and V
+// panels in place together (kDqSplit), and warpgroup w adds the products
+// over keys 16 w .. 16 w + 15 of the tile to S = Q . K^T and dP = dO . V^T
+// (Q and dO split into registers, a fresh partial per k16 step,
+// wide_scores); then, from the chunk slot, both split the K chunk operand,
+// and each forms P and dS over its keys and adds dS . K to its own sum of
+// dQ's chunk (six products).  The two sums meet once, at the end, in the
+// drained ring (kDqSum), and warpgroup 0 writes the chunk's own columns of
+// dQ * sm_scale in f32.
+template <class Sweep>
+__device__ __forceinline__ void dq_chunk_consume(const Sweep& sw, unsigned char* stages,
+                                                 unsigned char* chunk_s, const Step* step_s,
+                                                 uint64_t* full, uint64_t* empty,
+                                                 uint64_t* full_c, uint64_t* empty_c,
+                                                 const float* __restrict__ lse,
+                                                 const float* __restrict__ delta,
+                                                 float* __restrict__ dq, int bh, int b, int n,
+                                                 int np, int chunk, int T_len, int S_len,
+                                                 float scale_log2, float sm_scale, int causal) {
+  using C = BwdChunkCfg<false>;
+  using P = Panels<kChunkCols>;   // the chunk's panels
+  constexpr int TR = C::TR;
+  constexpr int KH = TR / 2;      // the keys of a warpgroup's half of a tile
+  const int wg = threadIdx.x / 128;
+  const int tid = threadIdx.x % 128;
+  const int warp = tid / 32;
+  const int lane = threadIdx.x % 32;
+  const int t = lane % 4;
+  const int q0 = b * kTileRows;
+  const int row0 = q0 + 16 * warp + lane / 4;
+  // this warpgroup's keys in a tile panel and in the chunk operand
+  const int key_off = KH * wg * Panels<kChunkPanel>::RB;
+
+  // this thread's two rows: LSE (times log2 e) and delta; rows past T
+  // read LSE = 1e30, so their P is 0
+  float lse_r[2], delta_r[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = row0 + 8 * h;
+    const bool in = row < T_len;
+    lse_r[h] = (in ? lse[(size_t)bh * T_len + row] : BIG_LSE) * kLog2e;
+    delta_r[h] = in ? delta[(size_t)bh * T_len + row] : 0.0f;
+  }
+  float acc[kChunkCols / 2];   // this warpgroup's keys' share of dQ's chunk
+#pragma unroll
+  for (int i = 0; i < kChunkCols / 2; ++i) acc[i] = 0.0f;
+
+  int si = 0;   // stages read
+  for (int it = 0; it < n; ++it) {
+    float sc[KH / 2], dp[KH / 2];
+#pragma unroll
+    for (int i = 0; i < KH / 2; ++i) {
+      sc[i] = 0.0f;
+      dp[i] = 0.0f;
+    }
+#pragma unroll 1
+    for (int p = 0; p < np; ++p, ++si) {
+      const int s = si % C::STAGES;
+      mbar_wait(&full[s], (si / C::STAGES) & 1);
+      unsigned char* st = stages + s * C::STAGE;
+      unsigned char* kp = st + 2 * C::OWN_PANEL;
+      unsigned char* vp = kp + C::TILE_PANEL;
+      split_tile<kChunkPanel, kConsumers, TR>(kp, kDqSplit);
+      split_tile<kChunkPanel, kConsumers, TR>(vp, kDqSplit);
+      fence_proxy_async();
+      named_barrier_sync(kDqSplit, kConsumers);
+      wide_scores<kChunkPanel, KH, true, true>(sc, st, kp + key_off);
+      wide_scores<kChunkPanel, KH, true, true>(dp, st + C::OWN_PANEL, vp + key_off);
+      mbar_arrive(&empty[s]);
+    }
+
+    mbar_wait(full_c, it & 1);
+    Step step;
+    if constexpr (Sweep::kList) step = *step_s;   // staged by the producer
+    else step = sub_step<kTileRows / TR>(sw.dq_step(b, it / (kTileRows / TR), kTileRows), it);
+    const int kw = step.tile * TR + KH * wg;   // this warpgroup's first key
+    const bool part = Sweep::kList && (step.flags & kPartial);
+    const bool edge = part || kw + KH > S_len || (causal && kw + KH - 1 > q0);
+    split_tile<kChunkCols, kConsumers, TR>(chunk_s, kDqSplit);
+    fence_proxy_async();
+    named_barrier_sync(kDqSplit, kConsumers);
+
+    // P = exp(S * scale - LSE), the masks first (a killed score to -inf);
+    // element i is query row row0 + 8 ((i >> 1) & 1), key column kw + 8
+    // (i / 4) + 2 t + (i & 1)
+    if (edge) {
+#pragma unroll
+      for (int i = 0; i < KH / 2; ++i) {
+        const int col = kw + 8 * (i / 4) + 2 * t + (i & 1);
+        if (col >= S_len || (causal && col > row0 + 8 * ((i >> 1) & 1))) sc[i] = -INFINITY;
+      }
+      if constexpr (Sweep::kList) {
+        if (part) {
+#pragma unroll
+          for (int i = 0; i < KH / 2; ++i) {
+            const int col = kw + 8 * (i / 4) + 2 * t + (i & 1);
+            const int row = row0 + 8 * ((i >> 1) & 1);
+            if (col < S_len && (row >= T_len || !sw.keep(row, col))) sc[i] = -INFINITY;
+          }
+        }
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < KH / 2; ++i) sc[i] = exp2f(fmaf(sc[i], scale_log2, -lse_r[(i >> 1) & 1]));
+    // dS = P * (dP - delta); where P is 0 on an edge or partial tile, dP
+    // (NaN from a dead key row of V) is replaced by delta first
+    uint32_t a1[KH / 4], a2[KH / 4], a3[KH / 4];
+#pragma unroll
+    for (int i = 0; i < KH / 4; ++i) {
+      float ds[2];
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const float pv = sc[2 * i + e];
+        const float d = delta_r[i & 1];
+        ds[e] = pv * ((edge && pv == 0.0f ? d : dp[2 * i + e]) - d);
+      }
+      split_bf16x3(ds[0], ds[1], a1[i], a2[i], a3[i]);
+    }
+    // dQ += dS . K over this warpgroup's keys, the chunk's columns
+    wgmma_fence();
+    wgmma_accumulate_split<kChunkCols, TR * P::RB, TR * kChunkCols * 4, KH / 16>(
+        acc, a1, a2, a3, chunk_s + key_off);
+    wgmma_commit();
+    wgmma_wait<0>();
+#pragma unroll
+    for (int i = 0; i < kChunkCols / 2; ++i) fence_regs(acc[i]);
+    mbar_arrive(empty_c);
+  }
+
+  // epilogue: warpgroup 1's share into the drained ring, added to
+  // warpgroup 0's; dQ * sm_scale in f32, the chunk's own columns
+  float* share = reinterpret_cast<float*>(stages);
+  named_barrier_sync(kDqSum, kConsumers);
+  if (wg == 1) {
+#pragma unroll
+    for (int i = 0; i < kChunkCols / 2; ++i) share[i * 128 + tid] = acc[i];
+  }
+  named_barrier_sync(kDqSum, kConsumers);
+  if (wg != 0) return;
+#pragma unroll
+  for (int i = 0; i < kChunkCols / 2; ++i) acc[i] += share[i * 128 + tid];
+  const int D = np * kChunkPanel;
+  const Chunk ch = chunk_of(chunk, D);
+  float* out = dq + (size_t)bh * T_len * D;
+#pragma unroll
+  for (int p = 0; p < P::NP; ++p)
+#pragma unroll
+    for (int j = 0; j < P::PW / 8; ++j)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int row = row0 + 8 * h;
+        const int col = ch.col0 + p * P::PW + 8 * j + 2 * t;
+        const float* a = acc + p * (P::PW / 2) + 4 * j + 2 * h;
+        if (row < T_len && col >= ch.lo && col < ch.hi)
+          *reinterpret_cast<float2*>(out + (size_t)row * D + col) =
+              make_float2(a[0] * sm_scale, a[1] * sm_scale);
+      }
+}
+
+// The shared memory of the chunked dK/dV (kDkv) or dQ: the stage ring, the
+// chunk slot, P^T (dK/dV), the tile's LSE and delta (dK/dV), the ring's
+// and the slot's barriers and, for a list sweep, the slot's step.  The
+// producer and the consumers each lay it out after their setmaxnreg
+// (pointers live across it are spilled); init() comes first, in every
+// thread.
+template <bool kDkv, typename T>
+struct BwdChunkSmem {
+  unsigned char* stages;
+  unsigned char* chunk_s;
+  float* pt_s;
+  float* lse_s;
+  float* delta_s;
+  uint64_t* full;
+  uint64_t* empty;
+  uint64_t* full_c;
+  uint64_t* empty_c;
+  Step* step_s;
+
+  __device__ explicit BwdChunkSmem(unsigned char* raw) {
+    using C = BwdChunkCfg<kDkv, T>;
+    stages = align1024(raw);
+    chunk_s = stages + C::STAGES * C::STAGE;
+    pt_s = reinterpret_cast<float*>(chunk_s + C::CHUNKS * C::CHUNK_BYTES);
+    lse_s = pt_s + C::PT_BYTES / 4;
+    delta_s = lse_s + C::TR;
+    full = reinterpret_cast<uint64_t*>(delta_s + C::TR);
+    empty = full + C::STAGES;
+    full_c = empty + C::STAGES;
+    empty_c = full_c + 1;
+    step_s = reinterpret_cast<Step*>(empty_c + 1);
+  }
+
+  // thread 0 initialises the barriers (the producer's warp arrives on
+  // every full barrier), and the block synchronises
+  __device__ void init() const {
+    if (threadIdx.x == 0) {
+      for (int s = 0; s < BwdChunkCfg<kDkv, T>::STAGES; ++s) {
+        mbar_init(&full[s], 32);
+        mbar_init(&empty[s], kConsumers);
+      }
+      mbar_init(full_c, 32);
+      mbar_init(empty_c, kConsumers);
+      mbar_fence_init();
+    }
+    __syncthreads();
+  }
+};
+
+// dK/dV in f32 above head dim 256 (K2, K7): grid (chunk_count(D) chunks of
+// each of B*H heads, ceil(S / 64)); the sweep maps blockIdx.y to a block,
+// blockIdx.x is head * chunks + chunk, so a head's chunks run side by side
+// and share its operands in L2.  D is a multiple of kChunkPanel above
+// kChunkCols, the same instantiation at every such D.  The block's chunk,
+// head and tiles are worked out by the producer and the consumers each
+// after their setmaxnreg: values live across it are spilled.  T is the
+// operands' type; only f32 has its consumers.
+template <typename T, class Sweep>
+__global__ void __launch_bounds__(kBwdThreads, 1)
+bwd_dkv_chunk_kernel(const __grid_constant__ CUtensorMap tm_q,
+                     const __grid_constant__ CUtensorMap tm_do,
+                     const __grid_constant__ CUtensorMap tm_k,
+                     const __grid_constant__ CUtensorMap tm_v, const float* __restrict__ lse,
+                     const float* __restrict__ delta, T* __restrict__ dk, T* __restrict__ dv,
+                     int T_len, int S_len, int D, float scale_log2, float sm_scale, int causal,
+                     int H, int h0, int chunks, const Sweep sw) {
+  static_assert(!kIsBf16<T>, "the chunked backward's consumers are f32's");
+  extern __shared__ unsigned char smem_raw[];
+  BwdChunkSmem<true, T>(smem_raw).init();
+  const auto where = [&](int& chunk, int& bh, int& b, int& n) {
+    chunk = blockIdx.x % chunks;
+    bh = h0 + blockIdx.x / chunks;
+    b = sw.dkv_block();
+    n = sw.dkv_count(b, T_len, kTileRows) * (kTileRows / kWideRows);   // 0: dK = dV = 0
+  };
+  int chunk, bh, b, n;
+  if (threadIdx.x >= kConsumers) {
+    setmaxnreg_dec<kChunkBwdProducerRegs>();
+    if (threadIdx.x < kConsumers + 32) {
+      const BwdChunkSmem<true, T> m(smem_raw);
+      where(chunk, bh, b, n);
+      bwd_chunk_produce<true, T>(sw, &tm_k, &tm_v, &tm_q, &tm_do, m.stages, m.chunk_s,
+                                 m.lse_s, m.delta_s, m.step_s, m.full, m.empty, m.full_c,
+                                 m.empty_c, lse + (size_t)bh * T_len,
+                                 delta + (size_t)bh * T_len, b, n, D / kChunkPanel,
+                                 chunk_of(chunk, D).col0, T_len, bh % H, bh / H, bh, H);
+    }
+  } else {
+    setmaxnreg_inc<kChunkBwdConsumerRegs>();
+    const BwdChunkSmem<true, T> m(smem_raw);
+    where(chunk, bh, b, n);
+    dkv_chunk_consume(sw, m.stages, m.chunk_s, m.pt_s, m.lse_s, m.delta_s, m.step_s, m.full,
+                      m.empty, m.full_c, m.empty_c, dk, dv, bh, b, n, D / kChunkPanel, chunk,
+                      T_len, S_len, scale_log2, sm_scale, causal);
+  }
+}
+
+// dQ in f32 above head dim 256 (K3, K8): grid (chunks of each of B*H
+// heads, ceil(T / 64)), as bwd_dkv_chunk_kernel.
+template <typename T, class Sweep>
+__global__ void __launch_bounds__(kBwdThreads, 1)
+bwd_dq_chunk_kernel(const __grid_constant__ CUtensorMap tm_q,
+                    const __grid_constant__ CUtensorMap tm_do,
+                    const __grid_constant__ CUtensorMap tm_k,
+                    const __grid_constant__ CUtensorMap tm_v, const float* __restrict__ lse,
+                    const float* __restrict__ delta, T* __restrict__ dq, int T_len,
+                    int S_len, int D, float scale_log2, float sm_scale, int causal, int H,
+                    int h0, int chunks, const Sweep sw) {
+  static_assert(!kIsBf16<T>, "the chunked backward's consumers are f32's");
+  extern __shared__ unsigned char smem_raw[];
+  BwdChunkSmem<false, T>(smem_raw).init();
+  const auto where = [&](int& chunk, int& bh, int& b, int& n) {
+    chunk = blockIdx.x % chunks;
+    bh = h0 + blockIdx.x / chunks;
+    b = sw.dq_block();
+    n = sw.dq_count(b, S_len, kTileRows) * (kTileRows / kWideRows);   // 0: dQ = 0
+  };
+  int chunk, bh, b, n;
+  if (threadIdx.x >= kConsumers) {
+    setmaxnreg_dec<kChunkBwdProducerRegs>();
+    if (threadIdx.x < kConsumers + 32) {
+      const BwdChunkSmem<false, T> m(smem_raw);
+      where(chunk, bh, b, n);
+      bwd_chunk_produce<false, T>(sw, &tm_q, &tm_do, &tm_k, &tm_v, m.stages, m.chunk_s,
+                                  m.lse_s, m.delta_s, m.step_s, m.full, m.empty, m.full_c,
+                                  m.empty_c, lse, delta, b, n, D / kChunkPanel,
+                                  chunk_of(chunk, D).col0, S_len, bh % H, bh / H, bh, H);
+    }
+  } else {
+    setmaxnreg_inc<kChunkBwdConsumerRegs>();
+    const BwdChunkSmem<false, T> m(smem_raw);
+    where(chunk, bh, b, n);
+    dq_chunk_consume(sw, m.stages, m.chunk_s, m.step_s, m.full, m.empty, m.full_c, m.empty_c,
+                     lse, delta, dq, bh, b, n, D / kChunkPanel, chunk, T_len, S_len, scale_log2,
+                     sm_scale, causal);
+  }
+}
+
 // The arguments of one backward launch over heads h0 .. h0 + BH - 1 of H
 // heads a batch: q, dO (., H, T, D) and k, v (., H, S, D) at their strides;
 // lse, delta (., T) f32 and the outputs contiguous; all from their first
@@ -1519,12 +2149,12 @@ struct BwdArgs {
   cudaStream_t stream;
 };
 
-// the four tensor maps of a launch, encoded per launch and passed by
-// value (a CUDA graph captures them): q and dO in boxes of q_rows rows,
-// k and v in boxes of k_rows rows, of TMA's panel width for T
-template <int D, typename T = __nv_bfloat16>
-cudaError_t encode_bwd_maps(const BwdArgs& a, int q_rows, int k_rows, CUtensorMap* tm) {
-  constexpr int PW = Panels<D, sizeof(T)>::PW;
+// the four tensor maps of a launch at head dim D, encoded per launch and
+// passed by value (a CUDA graph captures them): q and dO in boxes of
+// q_rows rows, k and v in boxes of k_rows rows, PW columns wide
+template <typename T>
+cudaError_t encode_bwd_maps(const BwdArgs& a, int D, int PW, int q_rows, int k_rows,
+                            CUtensorMap* tm) {
   const int heads = a.h0 + a.BH;
   cudaError_t err = encode_heads<T>(&tm[0], a.q, D, a.T_len, a.H, heads, a.sq, PW, q_rows);
   if (err == cudaSuccess)
@@ -1545,7 +2175,7 @@ cudaError_t launch_dkv_wgmma(const BwdArgs& a, const Sweep& sw) {
   const int n_kb = (a.S_len + C::OWN - 1) / C::OWN;
   if (n_kb > 65535) return cudaErrorInvalidValue;
   CUtensorMap tm[4];
-  cudaError_t err = encode_bwd_maps<D, T>(a, C::TILE_ROWS, C::OWN, tm);
+  cudaError_t err = encode_bwd_maps<T>(a, D, Panels<D, sizeof(T)>::PW, C::TILE_ROWS, C::OWN, tm);
   if (err != cudaSuccess) return err;
   auto kernel = [] {
     if constexpr (kIsBf16<T>) return bwd_dkv_wgmma_kernel<D, Sweep>;
@@ -1571,7 +2201,7 @@ cudaError_t launch_dq_wgmma(const BwdArgs& a, const Sweep& sw) {
   const int n_qb = (a.T_len + C::OWN - 1) / C::OWN;
   if (n_qb > 65535) return cudaErrorInvalidValue;
   CUtensorMap tm[4];
-  cudaError_t err = encode_bwd_maps<D, T>(a, C::OWN, C::TILE_ROWS, tm);
+  cudaError_t err = encode_bwd_maps<T>(a, D, Panels<D, sizeof(T)>::PW, C::OWN, C::TILE_ROWS, tm);
   if (err != cudaSuccess) return err;
   auto kernel = [] {
     if constexpr (kIsBf16<T>) return bwd_dq_wgmma_kernel<D, Sweep>;
@@ -1584,6 +2214,44 @@ cudaError_t launch_dq_wgmma(const BwdArgs& a, const Sweep& sw) {
   kernel<<<dim3(a.BH, n_qb), kBwdThreads, C::SMEM, a.stream>>>(
       tm[0], tm[1], tm[2], tm[3], a.lse, a.delta, static_cast<T*>(a.out0), a.T_len, a.S_len,
       a.sm_scale * kLog2e, a.sm_scale, a.causal, a.H, a.h0, sw);
+  return cudaGetLastError();
+}
+
+// the chunked dK/dV (kDkv: out0 dK, out1 dV) or dQ (out0 dQ) over `sw` at a
+// head dim D above 256 (a multiple of kChunkPanel; the wrappers zero-pad
+// to one), operands of type T (f32)
+template <bool kDkv, typename T, class Sweep>
+cudaError_t launch_bwd_chunked(const BwdArgs& a, int D, const Sweep& sw) {
+  using C = BwdChunkCfg<kDkv, T>;
+  static_assert(C::SMEM <= kMaxSmemBytes, "bwd_chunk tiles do not fit in shared memory");
+  if (D <= kChunkCols || D % kChunkPanel) return cudaErrorInvalidValue;
+  const int n_b = ((kDkv ? a.S_len : a.T_len) + kTileRows - 1) / kTileRows;
+  const int chunks = chunk_count(D);
+  if (n_b > 65535 || (long long)a.BH * chunks > 0x7fffffffLL) return cudaErrorInvalidValue;
+  CUtensorMap tm[4];
+  cudaError_t err = encode_bwd_maps<T>(a, D, C::L::PW, kDkv ? C::TR : kTileRows,
+                                       kDkv ? kTileRows : C::TR, tm);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(a.BH * chunks, n_b);
+  const float scale_log2 = a.sm_scale * kLog2e;
+  static std::mutex mu;
+  static bool attr_set[kMaxDevices] = {};
+  if constexpr (kDkv) {
+    auto kernel = bwd_dkv_chunk_kernel<T, Sweep>;
+    err = smem_opt_in_once(kernel, (int)C::SMEM, mu, attr_set);
+    if (err != cudaSuccess) return err;
+    kernel<<<grid, kBwdThreads, C::SMEM, a.stream>>>(
+        tm[0], tm[1], tm[2], tm[3], a.lse, a.delta, static_cast<T*>(a.out0),
+        static_cast<T*>(a.out1), a.T_len, a.S_len, D, scale_log2, a.sm_scale, a.causal, a.H,
+        a.h0, chunks, sw);
+  } else {
+    auto kernel = bwd_dq_chunk_kernel<T, Sweep>;
+    err = smem_opt_in_once(kernel, (int)C::SMEM, mu, attr_set);
+    if (err != cudaSuccess) return err;
+    kernel<<<grid, kBwdThreads, C::SMEM, a.stream>>>(
+        tm[0], tm[1], tm[2], tm[3], a.lse, a.delta, static_cast<T*>(a.out0), a.T_len,
+        a.S_len, D, scale_log2, a.sm_scale, a.causal, a.H, a.h0, chunks, sw);
+  }
   return cudaGetLastError();
 }
 

@@ -728,10 +728,8 @@ cudaError_t launch_fwd_wgmma(const FwdArgs& a, const Sweep& sw) {
 //
 // See the note at the top.  Panels of kChunkPanel columns of q and K stream
 // through a ring (the producer loads panel p of the q rows and of the key
-// tile into one stage); a block keeps kChunkCols columns of O.
-
-constexpr int kChunkPanel = 64;    // columns of q and K a ring stage holds
-constexpr int kChunkCols = 256;   // columns of O a block keeps
+// tile into one stage); a block keeps kChunkCols columns of O, the chunk
+// chunk_of gives it (hopper_common.cuh).
 
 // The ring of (q panel, K panel) stages, the ring of V chunk tiles and,
 // for a list sweep, each stage's step, in operands of type T.  A q panel is
@@ -764,22 +762,6 @@ struct ChunkCfg {
                                  STAGES * sizeof(Step);
   static_assert(STAGE % 1024 == 0 && V_BYTES % 1024 == 0, "panels start on 1024-byte bounds");
 };
-
-// The columns of chunk c of a head dim D (a multiple of kChunkPanel above
-// kChunkCols): it writes O's columns lo .. hi - 1 (each column by one
-// chunk) and forms them within the kChunkCols columns from col0, which stay
-// inside D (the last chunk reaches back into its neighbour's).
-struct Chunk {
-  int col0, lo, hi;
-};
-
-__host__ __device__ inline Chunk chunk_of(int c, int D) {
-  const int lo = c * kChunkCols;
-  const bool whole = lo + kChunkCols <= D;
-  return Chunk{whole ? lo : D - kChunkCols, lo, whole ? lo + kChunkCols : D};
-}
-
-__host__ __device__ inline int chunk_count(int D) { return (D + kChunkCols - 1) / kChunkCols; }
 
 // The producer warp (lane 0 alone over a dense sweep) of the chunked
 // forward: for each of the n key tiles of block b, its np panels of q and

@@ -3,9 +3,10 @@
 //
 // The Hopper backward kernels are built for head dims 16, 32, 64, 128, 192
 // and 256 in both dtypes; a head dim between them is zero-padded to the
-// next.  So this route takes dK/dV and dQ above 256, in both dtypes; K1
-// and K6 above 256 run attn_fwd_hopper.cuh's chunked forward
-// (attn_fwd_chunk_kernel).  The TPU
+// next.  So this route takes dK/dV and dQ above 256 in bf16; in f32 they
+// run attn_bwd_hopper.cuh's chunked backward (bwd_dkv_chunk_kernel,
+// bwd_dq_chunk_kernel), and K1 and K6 above 256 its chunked forward
+// (attn_fwd_chunk_kernel), in both dtypes.  The TPU
 // kernels take any D: `_dkv_kernel`, `_dq_kernel` of
 // bigdl_tpu/ops/flash_attention.py and `_bs_dkv_kernel`, `_bs_dq_kernel` of
 // bigdl_tpu/ops/block_sparse.py hand D straight to their (1, block, D)
@@ -18,7 +19,7 @@
 //     the caller); dV += P (in v's dtype) * dO and dK += dS (in q's dtype) *
 //     q over the queries that attend the key; dK times sm_scale;
 //   * dQ: dQ += dS (in k's dtype) * k over the row's keys, times sm_scale;
-//   * f32 accumulation; outputs in the inputs' dtype (float32, bfloat16).
+//   * f32 accumulation; outputs in bf16.
 //
 // Design: simple and right.  One warp owns one output row (a query row for
 // dQ, a key row for dK/dV) and walks only the keys (or queries) the mask
@@ -273,16 +274,14 @@ cudaError_t launch_wide(const WideArgs& a) {
 }
 
 template <Which W>
-int dispatch_wide(int dtype, const WideArgs& a) {
+int dispatch_wide(const WideArgs& a) {
   const Walk& w = a.w;
   if (a.BH <= 0 || a.BH > 65535 || w.T_len <= 0 || w.S_len <= 0 || a.D <= 0)
     return (int)cudaErrorInvalidValue;
   if (w.m != nullptr && (w.bq <= 0 || w.bk <= 0 || w.T_len % w.bq || w.S_len % w.bk ||
                          w.nkb != w.S_len / w.bk))
     return (int)cudaErrorInvalidValue;
-  if (dtype == 1) return (int)launch_wide<W, __nv_bfloat16>(a);
-  if (dtype == 0) return (int)launch_wide<W, float>(a);
-  return (int)cudaErrorInvalidValue;
+  return (int)launch_wide<W, __nv_bfloat16>(a);
 }
 
 // the arguments from head h0 on: every pointer moved to that head's rows
@@ -309,21 +308,17 @@ int wide_entry(int dtype, const void* q, const void* k, const void* v, const voi
                   const void* lse, const void* delta, void* out0, void* out1, const void* bmask,
                   int nkb, int bq, int bk, int h0, int BH, int T_len, int S_len, int D,
                   float sm_scale, int causal, void* stream) {
-  const bool dkv = W == Which::kDkv;
-  if (h0 < 0) return (int)cudaErrorInvalidValue;
-  if (dtype == 1)
-    return dispatch_wide<W>(dtype, make_wide_args<__nv_bfloat16>(
-                                       q, k, v, dO, lse, delta, out0, out1, bmask, nkb, bq, bk,
-                                       h0, BH, T_len, S_len, D, sm_scale, causal, stream, dkv));
-  return dispatch_wide<W>(dtype, make_wide_args<float>(q, k, v, dO, lse, delta, out0, out1,
-                                                       bmask, nkb, bq, bk, h0, BH, T_len, S_len, D,
-                                                       sm_scale, causal, stream, dkv));
+  if (h0 < 0 || dtype != 1) return (int)cudaErrorInvalidValue;
+  return dispatch_wide<W>(make_wide_args<__nv_bfloat16>(q, k, v, dO, lse, delta, out0, out1,
+                                                        bmask, nkb, bq, bk, h0, BH, T_len, S_len,
+                                                        D, sm_scale, causal, stream,
+                                                        W == Which::kDkv));
 }
 
 }  // namespace
 
 // Heads h0 .. h0 + BH - 1 of q, dO (., T, D) and k, v (., S, D), contiguous,
-// in one dtype (0 = float32, 1 = bfloat16), any D; lse and delta (., T)
+// in bf16 (dtype 1; any other code is refused), any D; lse and delta (., T)
 // f32; dK, dV and dQ as their inputs.  Every pointer is the tensor's start, not
 // its head h0's.  bmask: the runtime block mask (T / bq, S / bk) uint8 of
 // the block-sparse wrappers (nkb = S / bk), or null for the dense mask.

@@ -67,9 +67,12 @@
 // with it).  Above D 256 K6 is K1's chunked forward (attn_fwd_hopper.cuh's
 // attn_fwd_chunk_kernel, one instantiation per dtype for every head dim)
 // over the same 128-row query lists, a partial pair's live rows staged for
-// every 64-column panel of K and for V's 256-column chunk; K7 and K8 take
-// the wide route (attn_wide.cu).  On an all-ones mask both dtypes give
-// K1-K3's bits.
+// every 64-column panel of K and for V's 256-column chunk; in f32 K7 and
+// K8 are K2's and K3's chunked backward (attn_bwd_hopper.cuh's
+// bwd_dkv_chunk_kernel, bwd_dq_chunk_kernel) over the 64-row key and
+// query lists, a partial pair's live rows staged for every panel and
+// chunk operand; in bf16 they take the wide route (attn_wide.cu).  On an
+// all-ones mask both dtypes give K1-K3's bits.
 //
 // K9 design.  At the flagship MLP shape (x 16384 x 1024 bf16, W 1024 x 4096
 // at density 0.5, block 128) it must do 68.7 GFLOP (0.069 ms) and move about
@@ -212,20 +215,21 @@ inline FwdArgs fwd_args(const AttnArgs& a) {
                  a.mk.S_len, a.sm_scale, a.mk.causal, a.stream};
 }
 
+// K7's and K8's arguments: out0 dK or dQ, out1 dV
+inline BwdArgs bwd_args(const AttnArgs& a) {
+  return BwdArgs{a.q, a.k, a.v, a.dO, a.lse, a.delta, a.out0, a.out1, a.sq, a.sk, a.sv, a.sdo,
+                 a.H, a.h0, a.BH, a.mk.T_len, a.mk.S_len, a.sm_scale, a.mk.causal, a.stream};
+}
+
 // K6 (out0 O, out1 LSE), K7 (out0 dK, out1 dV) or K8 (out0 dQ) over the
 // block lists, in bf16 or f32 (T)
 template <Which W, int D, typename T = __nv_bfloat16>
 cudaError_t launch_wgmma(const AttnArgs& a) {
   const ListSweep<T> sw = list_sweep<T>(a, W == Which::kDkv);
-  if constexpr (W == Which::kFwd) {
+  if constexpr (W == Which::kFwd)
     return launch_fwd_wgmma<D, kFwdTileRows<D, T>, T>(fwd_args(a), sw);
-  } else {
-    const BwdArgs b{a.q, a.k, a.v, a.dO, a.lse, a.delta, a.out0, a.out1, a.sq, a.sk, a.sv,
-                    a.sdo, a.H, a.h0, a.BH, a.mk.T_len, a.mk.S_len, a.sm_scale, a.mk.causal,
-                    a.stream};
-    if constexpr (W == Which::kDkv) return launch_dkv_wgmma<D, T>(b, sw);
-    else return launch_dq_wgmma<D, T>(b, sw);
-  }
+  else if constexpr (W == Which::kDkv) return launch_dkv_wgmma<D, T>(bwd_args(a), sw);
+  else return launch_dq_wgmma<D, T>(bwd_args(a), sw);
 }
 
 // both dtypes at D 16-256, over the block lists (order and rows given)
@@ -235,12 +239,21 @@ cudaError_t launch_attn(const AttnArgs& a) {
   return launch_wgmma<W, D, T>(a);
 }
 
-// K6 above head dim 256 (a multiple of 64), either dtype: the chunked
-// forward over the 128-row query lists, one instantiation for every D
-template <typename T>
-cudaError_t launch_fwd_chunked_list(int D, const AttnArgs& a) {
+// Above head dim 256 (a multiple of 64): K6 in either dtype, the chunked
+// forward over the 128-row query lists, and K7 and K8 in f32, the chunked
+// backward over the 64-row key and query lists; one instantiation for
+// every D.  bf16 K7 and K8 take attn_wide.cu.
+template <Which W, typename T>
+cudaError_t launch_chunked_list(int D, const AttnArgs& a) {
   if (a.order == nullptr || a.rows == nullptr) return cudaErrorInvalidValue;
-  return launch_fwd_chunked<T>(fwd_args(a), D, list_sweep<T>(a, false));
+  const ListSweep<T> sw = list_sweep<T>(a, W == Which::kDkv);
+  if constexpr (W == Which::kFwd) {
+    return launch_fwd_chunked<T>(fwd_args(a), D, sw);
+  } else if constexpr (kIsBf16<T>) {
+    return cudaErrorInvalidValue;
+  } else {
+    return launch_bwd_chunked<W == Which::kDkv, T>(bwd_args(a), D, sw);
+  }
 }
 
 template <Which W, typename T>
@@ -252,9 +265,7 @@ cudaError_t dispatch_attn_d(int D, const AttnArgs& a) {
     case 128: return launch_attn<W, T, 128>(a);
     case 192: return launch_attn<W, T, 192>(a);
     case 256: return launch_attn<W, T, 256>(a);
-    default:
-      if constexpr (W == Which::kFwd) return launch_fwd_chunked_list<T>(D, a);
-      else return cudaErrorInvalidValue;
+    default: return launch_chunked_list<W, T>(D, a);
   }
 }
 
@@ -311,9 +322,13 @@ int smem_of_d(int D, int dtype) {
     case 192: return smem_of<W, 192>(dtype);
     case 256: return smem_of<W, 256>(dtype);
   }
-  if (W != Which::kFwd || D <= kChunkCols || D % kChunkPanel) return 0;
-  return dtype == 1 ? (int)ChunkCfg<__nv_bfloat16>::SMEM
-                    : dtype == 0 ? (int)ChunkCfg<float>::SMEM : 0;
+  if (D <= kChunkCols || D % kChunkPanel) return 0;
+  if (W == Which::kFwd)
+    return dtype == 1 ? (int)ChunkCfg<__nv_bfloat16>::SMEM
+                      : dtype == 0 ? (int)ChunkCfg<float>::SMEM : 0;
+  if (dtype != 0) return 0;
+  return (int)(W == Which::kDkv ? BwdChunkCfg<true, float>::SMEM
+                                : BwdChunkCfg<false, float>::SMEM);
 }
 
 // ---------------------------------------------------------------------------

@@ -69,7 +69,14 @@
 // TFLOP/s, against 25.2 MB, 7.5 us; K3's three are 1.61 GFLOP as f32, 9.7
 // as bf16: 9.8 us, against 21.0 MB, 6.3 us.  At B 2, H 8, T 1024, D 256,
 // causal K2's are 17.3 GFLOP as f32, 95 us at 989 * 4 / 22 TFLOP/s, and
-// K3's 12.9 GFLOP, 78 us at 989 * 3 / 18: bound by operations.  K7 and K8
+// K3's 12.9 GFLOP, 78 us at 989 * 3 / 18: bound by operations.  Above D
+// 256 (zero-padded to a multiple of 64) f32 K2 and K3 run the chunked
+// backward (bwd_dkv_chunk_kernel, bwd_dq_chunk_kernel): the own rows and
+// the 32-row tiles stream in 64-column panels, the scores summed over
+// them, and a block keeps 256 columns of dK/dV or dQ, the chunks of a head
+// in blocks of their own; at D 320 (same shape) K2's four products are
+// 21.5 GFLOP as f32, 0.120 ms at 989 * 4 / 22, K3's 16.1, 0.098 ms.  bf16
+// above 256 takes attn_wide.cu.  K7 and K8
 // (block_sparse.cu) run the same f32 kernels over their tile lists, so on
 // an all-ones mask the two pairs agree bit for bit in f32.
 
@@ -138,8 +145,13 @@ int dispatch(bool dkv, int D, int dtype, const BwdArgs& a) {
     case 128: return (int)launch<128>(dkv, dtype, a);
     case 192: return (int)launch<192>(dkv, dtype, a);
     case 256: return (int)launch<256>(dkv, dtype, a);
-    default: return (int)cudaErrorInvalidValue;
   }
+  // above head dim 256 in f32: the chunked backward, one instantiation
+  // per pass for every D (a multiple of 64); bf16 takes attn_wide.cu
+  if (dtype != 0) return (int)cudaErrorInvalidValue;
+  const DenseSweep sw{a.causal};
+  return (int)(dkv ? launch_bwd_chunked<true, float>(a, D, sw)
+                   : launch_bwd_chunked<false, float>(a, D, sw));
 }
 
 template <int D>
@@ -199,6 +211,7 @@ extern "C" int bigdl_flash_bwd_smem_bytes(int dkv, int D, int dtype) {
     case 128: return smem_of<128>(dkv != 0, dtype);
     case 192: return smem_of<192>(dkv != 0, dtype);
     case 256: return smem_of<256>(dkv != 0, dtype);
-    default: return 0;
   }
+  if (dtype != 0 || D <= kChunkCols || D % kChunkPanel) return 0;
+  return (int)(dkv ? BwdChunkCfg<true, float>::SMEM : BwdChunkCfg<false, float>::SMEM);
 }

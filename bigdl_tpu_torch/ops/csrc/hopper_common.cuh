@@ -784,15 +784,19 @@ __device__ __forceinline__ void add_partial(float (&sc)[N / 2], float (&part)[N 
 // included, and truncates the rest, so the small terms added to a partial
 // that already holds a step's sum lose their low bits, and the backward's
 // dS = P (dP - delta) cancels those errors up to the row's cancellation
-// (PERF.md).  Waited.
-template <int D, int N = kWideRows, bool kStep = false>
+// (PERF.md).  With kAcc the products are added to sc as it stands: the
+// f32 backward above D 256 sums its scores over the D panels of a ring, a
+// call a panel.  Waited.
+template <int D, int N = kWideRows, bool kStep = false, bool kAcc = false>
 __device__ __forceinline__ void wide_scores(float (&sc)[N / 2], const unsigned char* q,
                                             const unsigned char* k) {
   using F = Panels<D, 4>;
   constexpr int FPANEL = kTileRows * F::RB;
   float part[N / 2];
+  if constexpr (!kAcc) {
 #pragma unroll
-  for (int i = 0; i < N / 2; ++i) sc[i] = 0.0f;
+    for (int i = 0; i < N / 2; ++i) sc[i] = 0.0f;
+  }
   if constexpr (!kStep && !kWideRolled<D>) {
     uint32_t a[2][3][2][4];   // two panels' pieces
     load_split_rows<F::RB, 2>(a[0], q);
@@ -822,6 +826,33 @@ __device__ __forceinline__ void wide_scores(float (&sc)[N / 2], const unsigned c
     }
   }
 }
+
+// ---- head dims above 256: panels and chunks --------------------------------
+//
+// Above head dim 256 the attention kernels (attn_fwd_chunk_kernel in
+// attn_fwd_hopper.cuh, the f32 bwd_dkv_chunk_kernel and bwd_dq_chunk_kernel
+// in attn_bwd_hopper.cuh) stream the operands whose products sum over D in
+// panels of kChunkPanel columns, and a block keeps kChunkCols columns of
+// its output: the chunks of a head are blocks of their own.
+
+constexpr int kChunkPanel = 64;    // columns of the summed operands a ring stage holds
+constexpr int kChunkCols = 256;   // output columns a block keeps
+
+// The columns of chunk c of a head dim D (a multiple of kChunkPanel above
+// kChunkCols): it writes the output's columns lo .. hi - 1 (each column by
+// one chunk) and forms them within the kChunkCols columns from col0, which
+// stay inside D (the last chunk reaches back into its neighbour's).
+struct Chunk {
+  int col0, lo, hi;
+};
+
+__host__ __device__ inline Chunk chunk_of(int c, int D) {
+  const int lo = c * kChunkCols;
+  const bool whole = lo + kChunkCols <= D;
+  return Chunk{whole ? lo : D - kChunkCols, lo, whole ? lo + kChunkCols : D};
+}
+
+__host__ __device__ inline int chunk_count(int D) { return (D + kChunkCols - 1) / kChunkCols; }
 
 
 // ---- tensor maps (host) ----------------------------------------------------

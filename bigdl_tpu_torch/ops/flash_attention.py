@@ -21,26 +21,32 @@ computes, what bounds it and how:
   registers) over the dense causal sweep; in f32 each f32 product is
   formed from bf16 wgmma products on three bf16 pieces of its operands
   (the streamed tiles split in place; the block's own rows too up to
-  D 128, into registers at 192 and 256);
-* dK/dV and dQ above the built head dims take the wide route,
+  D 128, into registers at 192 and 256); in f32 above head dim 256 the
+  chunked backward of the same header (``bwd_dkv_chunk_kernel``,
+  ``bwd_dq_chunk_kernel``): the scores summed over 64-column panels of
+  the own rows and the streamed tile through a ring, dK/dV or dQ kept
+  256 columns a block, the chunks of a head in blocks of their own;
+* bf16 dK/dV and dQ above the built head dims take the wide route,
   ``csrc/attn_wide.cu``: one warp per output row, any D, under the dense
   mask here and the block mask in ``block_sparse.py``.  A wide launch
   counts under the counter of the kernel it stands for and under
   ``LAUNCHES_WIDE``.
 
-Routing by head dim D, the same in both dtypes: the forward runs the
-Hopper bodies at 16, 32, 64, 128, 192 and 256 (f32 on split products)
-and the chunked forward above 256, at D zero-padded to a multiple of 64
-(``_fwd_head_dim``: 300 runs at 320), counted under ``LAUNCHES_CHUNKED``
-too; dK/dV and dQ run the Hopper bodies at the same built head dims and
-the wide route above 256, at D as it is (``_padded_head_dim``).  A head
-dim between the built ones is zero-padded to the next (160 runs at 192,
-200 at 256) in every pass.
+Routing by head dim D: the forward runs the Hopper bodies at 16, 32, 64,
+128, 192 and 256 (f32 on split products) and the chunked forward above
+256, at D zero-padded to a multiple of 64 (``_fwd_head_dim``: 300 runs
+at 320), counted under ``LAUNCHES_CHUNKED`` too; dK/dV and dQ run the
+Hopper bodies at the same built head dims and above 256 in f32 the
+chunked backward at the forward's padded D (counted under
+``LAUNCHES_DKV_CHUNKED`` and ``LAUNCHES_DQ_CHUNKED`` too), in bf16 the
+wide route at D as it is (``_bwd_head_dim``).  A head dim between the
+built ones is zero-padded to the next (160 runs at 192, 200 at 256) in
+every pass.
 
 Layouts: the Hopper kernels (K1-K3 in both dtypes, the chunked forward
-too) read q, k, v and dO through TMA at their own strides, so the
-(B, T, H, D).transpose(1, 2) view that every attention layer makes is
-read in place; only an operand TMA cannot read (a start not 16-byte
+and backward too) read q, k, v and dO through TMA at their own strides,
+so the (B, T, H, D).transpose(1, 2) view that every attention layer
+makes is read in place; only an operand TMA cannot read (a start not 16-byte
 aligned, a stride not a multiple of 16 bytes, a last dim that is not
 unit-stride) is copied, and the wide route, which has no TMA, copies
 what is not contiguous (``OPERAND_COPIES`` counts both).  Outputs are
@@ -100,8 +106,14 @@ LAUNCHES_DQ_F32 = {D: LaunchCounter(f"flash_bwd_dq f32 D {D}")
 LAUNCHES_CHUNKED = {dt: LaunchCounter(f"flash_fwd {name} D > 256")
                     for dt, name in ((torch.bfloat16, "bf16"),
                                      (torch.float32, "f32"))}
-#: launches of the wide route (head dims above the built ones) of K2/K3
-#: and K7/K8
+#: the launches of K2 and K3, among those above, at head dims above 256 on
+#: the chunked backward, by dtype (f32; no model path runs them)
+LAUNCHES_DKV_CHUNKED = {torch.float32: LaunchCounter(
+    "flash_bwd_dkv f32 D > 256")}
+LAUNCHES_DQ_CHUNKED = {torch.float32: LaunchCounter(
+    "flash_bwd_dq f32 D > 256")}
+#: launches of the wide route (bf16 head dims above the built ones) of
+#: K2/K3 and K7/K8
 LAUNCHES_WIDE = LaunchCounter("attn_wide")
 #: q, k, v and dO operands the attention wrappers copied because a kernel
 #: could not read them in place (not 16-byte aligned, a stride TMA does
@@ -201,15 +213,15 @@ def _check_kernel_inputs(what: str, q, k, v):
 
 
 def _wide(D: int) -> bool:
-    """Whether head dim D is above the built ones: the chunked forward,
-    and the wide route of dK/dV and dQ."""
+    """Whether head dim D is above the built ones: the chunked forward
+    and, in f32, the chunked backward; in bf16 the wide route of dK/dV
+    and dQ."""
     return D > HEAD_DIMS[-1]
 
 
 def _padded_head_dim(D: int) -> int:
-    """The head dim dK/dV and dQ run for a true head dim D: the next
-    built one (129-256: 192 or 256, the next multiple of 64), or D
-    itself on the wide route."""
+    """The next built head dim at or above D (129-256: 192 or 256, the
+    next multiple of 64), or D itself above them."""
     return D if _wide(D) else next(d for d in HEAD_DIMS if d >= D)
 
 
@@ -221,12 +233,27 @@ def _fwd_head_dim(D: int) -> int:
         else _padded_head_dim(D)
 
 
+def _takes_wide_route(D: int, dtype: torch.dtype) -> bool:
+    """Whether dK/dV and dQ at head dim D in ``dtype`` take the wide route
+    (bf16 above the built head dims); f32 there takes the chunked
+    backward."""
+    return _wide(D) and dtype != torch.float32
+
+
+def _bwd_head_dim(D: int, dtype: torch.dtype) -> int:
+    """The head dim dK/dV and dQ run for a true head dim D in ``dtype``:
+    the forward's (``_fwd_head_dim``; the chunked backward above 256 in
+    f32), or D itself on the wide route."""
+    return D if _takes_wide_route(D, dtype) else _fwd_head_dim(D)
+
+
 def _fwd_chunks(D: int):
-    """The chunked forward's blocks over the columns of O at a head dim D
-    above 256 (a multiple of ``CHUNK_PANEL``), as ``chunk_of`` in
-    ``csrc/attn_fwd_hopper.cuh`` computes them: for each chunk (col0,
-    lo, hi), the ``CHUNK_COLS`` columns from col0 it forms (inside D) and
-    the columns lo .. hi - 1 it writes."""
+    """The blocks of the chunked forward and backward over the columns of
+    their output at a head dim D above 256 (a multiple of
+    ``CHUNK_PANEL``), as ``chunk_of`` in ``csrc/hopper_common.cuh``
+    computes them: for each chunk (col0, lo, hi), the ``CHUNK_COLS``
+    columns from col0 it forms (inside D) and the columns lo .. hi - 1 it
+    writes."""
     out = []
     for lo in range(0, D, CHUNK_COLS):
         whole = lo + CHUNK_COLS <= D
@@ -236,8 +263,8 @@ def _fwd_chunks(D: int):
 
 
 def _chunked_counter(counters, q: torch.Tensor) -> Tuple[LaunchCounter, ...]:
-    """The counter of ``counters`` (by dtype) for a forward launch on the
-    padded operand ``q``, if it runs the chunked forward."""
+    """The counter of ``counters`` (by dtype) for a launch on the padded
+    operand ``q``, if it runs a chunked kernel."""
     return (counters[q.dtype],) if _wide(q.shape[-1]) else ()
 
 
@@ -425,26 +452,38 @@ def _bwd_fn(name: str, n_ptr: int):
                  + [_F, _I, _P])
 
 
+def _bwd_operands(q, k, v, do):
+    """q, k, v and dO as the Hopper dK/dV and dQ read them: zero-padded to
+    the head dim they run (``_bwd_head_dim``; as they are where they have
+    it), in place where TMA reads them, else copied."""
+    Dp = _bwd_head_dim(q.shape[-1], q.dtype)
+    return _kernel_operands(*(_pad_head_dim(t, Dp) for t in (q, k, v, do)),
+                            tma=True)
+
+
 def _launch_dkv(q, k, v, do, lse, delta, causal: bool, sm_scale: float
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Launch K2 over prepared inputs: dO in q's dtype and delta
-    (B*H, T) f32, at a built head dim or above them (the wide route).
-    q, k, v and dO are read at their strides through TMA in both dtypes
-    (copied where TMA cannot read them).  Returns contiguous (dk, dv)."""
+    (B*H, T) f32, at any head dim (zero-padded to the one it runs,
+    ``_bwd_head_dim``, the gradients cut back; bf16 above the built head
+    dims on the wide route).  q, k, v and dO are read at their strides
+    through TMA in both dtypes (copied where TMA cannot read them).
+    Returns contiguous (dk, dv)."""
     B, H, T, D = q.shape
-    if _wide(D):
+    if _takes_wide_route(D, q.dtype):
         return _wide_dkv(q, k, v, do, lse, delta, causal, sm_scale,
                          LAUNCHES_DKV)
-    q, k, v, do = _kernel_operands(q, k, v, do, tma=True)
+    q, k, v, do = _bwd_operands(q, k, v, do)
     dk, dv = _empty(k), _empty(v)
     _launch_heads("flash_bwd_dkv",
-                  (LAUNCHES_DKV, *_f32_counter(LAUNCHES_DKV_F32, q)),
+                  (LAUNCHES_DKV, *_f32_counter(LAUNCHES_DKV_F32, q),
+                   *_chunked_counter(LAUNCHES_DKV_CHUNKED, q)),
                   _bwd_fn("bigdl_flash_bwd_dkv", 8),
                   [*(t.data_ptr() for t in (q, k, v, do, lse, delta, dk, dv)),
                    _strides_arg(q, k, v, do), H, FIRST_HEAD, HEADS, T,
-                   k.shape[2], D, _DTYPE_CODE[q.dtype], float(sm_scale),
-                   int(bool(causal))], B * H, q.device)
-    return dk, dv
+                   k.shape[2], q.shape[-1], _DTYPE_CODE[q.dtype],
+                   float(sm_scale), int(bool(causal))], B * H, q.device)
+    return _cut_head_dim(dk, D), _cut_head_dim(dv, D)
 
 
 def _launch_dq(q, k, v, do, lse, delta, causal: bool, sm_scale: float
@@ -452,19 +491,20 @@ def _launch_dq(q, k, v, do, lse, delta, causal: bool, sm_scale: float
     """Launch K3 over the same prepared inputs as ``_launch_dkv``, read
     as ``_launch_dkv`` reads them (through TMA in both dtypes)."""
     B, H, T, D = q.shape
-    if _wide(D):
+    if _takes_wide_route(D, q.dtype):
         return _wide_dq(q, k, v, do, lse, delta, causal, sm_scale,
                         LAUNCHES_DQ)
-    q, k, v, do = _kernel_operands(q, k, v, do, tma=True)
+    q, k, v, do = _bwd_operands(q, k, v, do)
     dq = _empty(q)
     _launch_heads("flash_bwd_dq",
-                  (LAUNCHES_DQ, *_f32_counter(LAUNCHES_DQ_F32, q)),
+                  (LAUNCHES_DQ, *_f32_counter(LAUNCHES_DQ_F32, q),
+                   *_chunked_counter(LAUNCHES_DQ_CHUNKED, q)),
                   _bwd_fn("bigdl_flash_bwd_dq", 7),
                   [*(t.data_ptr() for t in (q, k, v, do, lse, delta, dq)),
                    _strides_arg(q, k, v, do), H, FIRST_HEAD, HEADS, T,
-                   k.shape[2], D, _DTYPE_CODE[q.dtype], float(sm_scale),
-                   int(bool(causal))], B * H, q.device)
-    return dq
+                   k.shape[2], q.shape[-1], _DTYPE_CODE[q.dtype],
+                   float(sm_scale), int(bool(causal))], B * H, q.device)
+    return _cut_head_dim(dq, D)
 
 
 def _bwd_inputs(q, o, d_o):
@@ -484,13 +524,14 @@ def _check_lse(what: str, lse):
 def _flash_bwd_cuda(q, k, v, o, lse, d_o, causal: bool, sm_scale: float
                     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Launch K2 then K3 on the current stream of q's device (a head dim
-    between the built ones zero-padded, the gradients cut back; above
-    them the wide route)."""
+    between the built ones zero-padded, above them in f32 padded to a
+    multiple of 64 for the chunked backward, the gradients cut back; in
+    bf16 above them the wide route)."""
     _check_kernel_inputs("flash_attention backward", q, k, v)
     _check_lse("flash_attention backward", lse)
     do, delta = _bwd_inputs(q, o, d_o)
     D = q.shape[-1]
-    Dp = _padded_head_dim(D)
+    Dp = _bwd_head_dim(D, q.dtype)
     q, k, v, do = (_pad_head_dim(t, Dp) for t in (q, k, v, do))
     dk, dv = _launch_dkv(q, k, v, do, lse, delta, causal, sm_scale)
     dq = _launch_dq(q, k, v, do, lse, delta, causal, sm_scale)

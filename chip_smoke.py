@@ -10,7 +10,7 @@ Phases; any failure exits non-zero:
 2. build — compile the kernels from this checkout's sources: the five
    CUDA libraries (``flash_fwd.cu``: K1; ``flash_bwd.cu``: K2 and K3;
    ``block_sparse.cu``: K6-K9; ``conv3x3.cu``: K5; ``attn_wide.cu``: the
-   route of K2/K3 and K7/K8 for head dims above the built ones, 256)
+   route of bf16 K2/K3 and K7/K8 for head dims above the built ones, 256)
    with one ``nvcc``
    each, started together, into ``.torch_kernels/``; Triton compiles K4
    at first launch.  Print the build seconds, and for each instantiation
@@ -21,19 +21,21 @@ Phases; any failure exits non-zero:
    instructions (``cuobjdump -sass``, where the toolkit has it); each
    bf16 attention kernel at D 128, 192 and 256, the f32 K1-K3 and K6-K8
    (bf16 products on bf16 pieces of each f32 operand) at D 16-256, the
-   chunked K1 and K6 above 256 in both dtypes (one instantiation each for
-   every head dim), the
+   chunked K1 and K6 above 256 in both dtypes and the chunked f32 K2, K3,
+   K7 and K8 above 256 (one instantiation each for every head dim), the
    bf16 K5 at KC 64, every f32 K5 (split products too) and every K9
    instantiation must not spill and must hold both (and the attention
    kernels must not have their wgmma serialised, ptxas C7520 or C7514), two bf16
    K5 or K9 blocks must share an SM (an f32 K5 block is alone on its
    SM), and no library may still hold the f32 dQ's or the f32 K5's
-   retired FMA loops, or the wide route's retired forward.
+   retired FMA loops, or the wide route's retired forward or f32
+   dK/dV and dQ.
 3. kernel parity — each kernel against its plain PyTorch version on the
    card at the shapes the served, the training, the block-sparse
    training, the matmul and the ResNet-50 paths give it, with the stated
-   tolerance (the f32 dK/dV and dQ on split products against the plain
-   version's math carried in f64); the block-sparse kernels also at
+   tolerance (the f32 dK/dV and dQ on split products, at every head dim,
+   against the plain version's math carried in f64); the block-sparse
+   kernels also at
    block 32, 8 (ragged
    T 200), 96, in f32, non-causal with a dead q block, strided, with NaN
    in the K/V rows no query may attend (bf16 and f32 D 128, 256 and
@@ -48,7 +50,8 @@ Phases; any failure exits non-zero:
    bodies' split products in all three passes, 32-row streamed tiles),
    and in both dtypes head dims above 256 (the chunked forward at 300,
    320, 384 and 512, also head-strided at 320 with no operand copy; dK/dV
-   and dQ the wide route); K5 forward and dX
+   and dQ in f32 the chunked backward, also head-strided at 320 with no
+   operand copy, in bf16 the wide route); K5 forward and dX
    at ResNet-50's
    four stage shapes (B 64) in bf16 and in f32, ResNet-CIFAR's first
    width (B 128, 32 x 32, C = O = 16) and ragged C 3, O 10, H 7, W 5,
@@ -337,13 +340,13 @@ def dq_row_err(torch, got, ref, keep, k, v, d_o, sm_scale, scale) -> float:
 
 def bwd_yardstick(torch, fa, D, dt, tensors):
     """The inputs of the plain backward that a backward kernel is held to:
-    for the f32 kernels on split products (head dims up to 256) the
-    tensors in f64, so the plain version's math runs in f64 (its own f32
-    rounding, which dS = P (dP - delta) amplifies on a row whose dP and
-    delta nearly cancel, would read as the kernel's error); the tensors as
-    they are for bf16, whose kernels round where the plain version does,
-    and for the wide route, which rounds as the f32 plain version does."""
-    if dt != torch.float32 or fa._wide(D):
+    for the f32 kernels on split products (every head dim: the chunked
+    backward above 256) the tensors in f64, so the plain version's math
+    runs in f64 (its own f32 rounding, which dS = P (dP - delta) amplifies
+    on a row whose dP and delta nearly cancel, would read as the kernel's
+    error); the tensors as they are for bf16, whose kernels (the wide
+    route above 256 too) round where the plain version does."""
+    if dt != torch.float32:
         return tensors
     return [t.double() for t in tensors]
 
@@ -424,22 +427,30 @@ DESIGN_KERNELS = (
 # dtype and sweep for every such head dim: (dtype by its mangled
 # argument, sweep)
 CHUNK_KERNEL = r"attn_fwd_chunk_kernelI(13__nv_bfloat16|f)NS_\d+(Dense|List)Sweep"
+# the chunked dK/dV and dQ above head dim 256 (K2, K3, K7, K8; f32), one
+# instantiation per pass, dtype and sweep for every such head dim: (pass,
+# dtype by its mangled argument, sweep)
+CHUNK_BWD_KERNEL = (r"bwd_(dkv|dq)_chunk_kernelI(13__nv_bfloat16|f)NS_\d+"
+                    r"(Dense|List)Sweep")
 #: the head dim phase 2 reports the chunked forward under
 CHUNKED = "above 256"
 # the FMA loops the f32 K3, K8 and K5 ran before their split products,
-# and the wide route's forward (a warp per query row) K1 and K6 ran above
-# head dim 256: phase 2 fails if a built library still holds one
+# the wide route's forward (a warp per query row) K1 and K6 ran above
+# head dim 256, and its f32 dK/dV and dQ, which f32 K2/K3 and K7/K8 ran
+# there: phase 2 fails if a built library still holds one
 RETIRED_KERNELS = (r"flash_bwd_dq_kernel|bs_dq_kernel|conv3x3_kernel_f32"
-                   r"|wide_fwd_kernel")
+                   r"|wide_fwd_kernel|wide_(dkv|dq)_kernelIf")
 
 
 # the head dims phase 2 holds each Hopper attention kernel to: in bf16 D
 # 128, 192 and 256 (K2, K3, K7 and K8 there are the 64-row blocks); in f32
 # (split products; K2, K3, K7 and K8 on 64-row blocks) at every head dim
 # (at 192 and 256 on 32-row streamed tiles, the own rows split into
-# registers)
+# registers); above 256 the chunked forward in both dtypes and the
+# chunked backward in f32
 CHECKED_HEAD_DIMS = {
-    **{(label, dtype): dims + ((CHUNKED,) if label in ("K1", "K6") else ())
+    **{(label, dtype): dims + ((CHUNKED,) if label in ("K1", "K6")
+                               or dtype == "float32" else ())
        for label in ("K1", "K2", "K3", "K6", "K7", "K8")
        for dtype, dims in (("bfloat16", (128, 192, 256)),
                            ("float32", (16, 32, 64, 128, 192, 256)))}}
@@ -447,8 +458,8 @@ CHECKED_HEAD_DIMS = {
 
 def design_kernel(fn: str):
     """(label, head dim, dtype) of a phase-2 kernel's mangled name, or
-    None for the others; the chunked forward's head dim is
-    ``CHUNKED``."""
+    None for the others; the chunked forward's and backward's head dim
+    is ``CHUNKED``."""
     for pattern, labels, dtype in DESIGN_KERNELS:
         m = re.search(pattern, fn)
         if m:
@@ -458,6 +469,11 @@ def design_kernel(fn: str):
     if m:
         return ({"Dense": "K1", "List": "K6"}[m.group(2)], CHUNKED,
                 "float32" if m.group(1) == "f" else "bfloat16")
+    m = re.search(CHUNK_BWD_KERNEL, fn)
+    if m:
+        return ({"dkvDense": "K2", "dqDense": "K3", "dkvList": "K7",
+                 "dqList": "K8"}[m.group(1) + m.group(3)], CHUNKED,
+                "float32" if m.group(2) == "f" else "bfloat16")
     return None
 
 
@@ -469,7 +485,8 @@ def kernel_design(torch):
     at D 128, 192 or 256 (the bf16 route of head dims 129-256; K2, K3, K7
     and K8 there are the 64-row dK/dV and dQ blocks), or an f32 one (split
     products) at D 16-256, or the chunked forward above 256 (K1, K6, one
-    instantiation per dtype for every head dim), spills, has its
+    instantiation per dtype for every head dim), or the f32 chunked
+    backward above 256 (K2, K3, K7, K8), spills, has its
     wgmma serialised by ptxas (C7520, C7514),
     holds no HGMMA or no UTMALDG, or is missing, and where a library still
     holds a retired FMA loop (``RETIRED_KERNELS``).  A library loaded
@@ -702,12 +719,13 @@ def attn_inputs(torch, label, B, H, rows, D, dt, g, n):
             for _ in range(n)]
 
 
-def wide_launches(fa, D, passes):
-    """Wide-route launches a call makes at true head dim D: one a
-    backward pass ("dkv", "dq") where D is above the built head dims
-    (256), in either dtype; none at D 129-256, in f32 too, and none for
-    the forward ("fwd"), which runs the chunked forward above 256."""
-    return sum(p != "fwd" for p in passes) * int(fa._wide(D))
+def wide_launches(fa, D, dt, passes):
+    """Wide-route launches a call makes at true head dim D in dtype
+    ``dt``: one a backward pass ("dkv", "dq") where D is above the built
+    head dims (256) in bf16; none at D 129-256, none in f32 (the chunked
+    backward above 256), and none for the forward ("fwd"), which runs the
+    chunked forward above 256."""
+    return sum(p != "fwd" for p in passes) * int(fa._takes_wide_route(D, dt))
 
 
 
@@ -736,7 +754,7 @@ def check_flash(torch, F):
         tol = ROW_TOL[dname]
         ok = row_err <= tol and lse_err <= LSE_TOL and bool(
             torch.isfinite(o.float()).all()) and wide == wide_launches(
-                fa, D, ("fwd",)) and chunked == int(fa._wide(D))
+                fa, D, dt, ("fwd",)) and chunked == int(fa._wide(D))
         same = None
         if label.startswith("strided"):
             # in place (no copy), and the contiguous launch's bits
@@ -828,8 +846,9 @@ def check_layer_norm(torch, F):
 
 def launch_counters():
     """Every kernel's launch counter, by the kernel's name (K1-K3 and
-    K6-K8 also by f32 head dim 192 and 256, and K1 and K6 above 256 by
-    dtype: the ``variants`` of the ``kernels`` line), and the attention
+    K6-K8 also by f32 head dim 192 and 256, K1 and K6 above 256 by dtype
+    and K2, K3, K7 and K8 above 256 in f32: the ``variants`` of the
+    ``kernels`` line), and the attention
     and LayerNorm wrappers' counts
     of operand copies, which the bf16 main paths hold at 0.  A checkout
     without some per-head-dim counters (``f32_steps.py`` runs these
@@ -841,7 +860,9 @@ def launch_counters():
 
     by_dim = [c for m in (fa, bs) for n in ("LAUNCHES_F32", "LAUNCHES_DKV_F32",
                                             "LAUNCHES_DQ_F32",
-                                            "LAUNCHES_CHUNKED")
+                                            "LAUNCHES_CHUNKED",
+                                            "LAUNCHES_DKV_CHUNKED",
+                                            "LAUNCHES_DQ_CHUNKED")
               for c in getattr(m, n, {}).values()]
     return {c.name: c for c in (fa.LAUNCHES, fa.LAUNCHES_DKV,
                                 fa.LAUNCHES_DQ, ln.LAUNCHES, bs.LAUNCHES,
@@ -861,7 +882,8 @@ def bwd_cases(torch):
     step (also head-strided, as ``flash_cases``), a ragged T, causal
     T > S and S > T, f32 (also head-strided), narrower heads, head dims
     192 and 256 (K2 and K3 on the 64-row Hopper blocks, in f32 too, on
-    split products) and 320 (the wide route, in both dtypes)."""
+    split products) and 320 (bf16 the wide route, f32 the chunked
+    backward) and 512 (f32, the chunked backward)."""
     bf16, f32 = torch.bfloat16, torch.float32
     return [("train", 16, 8, 1024, 1024, 128, bf16, True),
             ("strided_train", 16, 8, 1024, 1024, 128, bf16, True),
@@ -878,7 +900,8 @@ def bwd_cases(torch):
             ("wide_D320", 2, 8, 1024, 1024, 320, bf16, True),
             ("f32_D192", 2, 8, 1024, 1024, 192, f32, True),
             ("f32_D256", 2, 8, 1024, 1024, 256, f32, True),
-            ("wide_f32_D320", 2, 8, 1024, 1024, 320, f32, True)]
+            ("wide_f32_D320", 2, 8, 1024, 1024, 320, f32, True),
+            ("wide_f32_D512", 2, 8, 1024, 1024, 512, f32, True)]
 
 
 def sdpa_bwd_ms(torch, F, q, k, v, d_o, iters: int = 10, reps: int = 5,
@@ -982,7 +1005,7 @@ def check_flash_bwd(torch, F):
         finite = all(bool(torch.isfinite(t.float()).all())
                      for t in (dq, dk, dv))
         ok = (finite and max(rel.values()) <= tol and copies == 0
-              and wide == wide_launches(fa, D, ("dkv", "dq")))
+              and wide == wide_launches(fa, D, dt, ("dkv", "dq")))
         same = None
         if label.startswith("strided"):
             # dO read in place too; the contiguous launches' bits
@@ -1011,7 +1034,7 @@ def check_flash_bwd(torch, F):
         BH = B * H
         stats = 8 * BH * T
         # the f32 K2 and K3 form their products from bf16 products on the
-        # tensor cores (the wide route on FMA)
+        # tensor cores (the bf16 wide route on FMA)
         b_dkv, by_dkv = bound(item * (2 * BH * T * D + 4 * BH * S * D)
                               + stats, 8.0 * BH * pairs * D,
                               split_rate(dname, wide, "dkv"))
@@ -1058,8 +1081,8 @@ def bs_cases(torch):
     192 and 256 (the Hopper route of 129-256: K7 and K8 on 64-row
     blocks; in f32 all three on split products, also on an all-ones mask
     at 256) and above 256 in both dtypes (K6 the chunked forward, K7 and
-    K8 the wide route: 320, also head-strided and on an all-ones mask,
-    300 padded to 320, 384, 512)."""
+    K8 in f32 the chunked backward, in bf16 the wide route: 320, also
+    head-strided and on an all-ones mask, 300 padded to 320, 384, 512)."""
     import numpy as np
 
     from bigdl_tpu_torch.ops import block_sparse as bs
@@ -1197,7 +1220,7 @@ def check_block_sparse(torch, F):
         finite = all(bool(torch.isfinite(t.float()).all())
                      for _, t, _ in outs)
         ok = (finite and max(rel.values()) <= tol and lse_err <= LSE_TOL
-              and wide == wide_launches(fa, D, ("fwd", "dkv", "dq"))
+              and wide == wide_launches(fa, D, dt, ("fwd", "dkv", "dq"))
               and chunked == int(fa._wide(D)))
         del o_ref, lse_ref, grads_ref
         live = int(keep.sum().item())
@@ -1209,9 +1232,9 @@ def check_block_sparse(torch, F):
                    operand_copies=copies)
         if label.startswith("strided"):
             # read in place (no copy) by K6-K8, above 256 by K6's chunked
-            # forward, while the wide dK/dV and dQ copy the four operands,
-            # which are not contiguous, once a launch; the contiguous
-            # launches' bits
+            # forward and the f32 chunked backward, while the bf16 wide
+            # dK/dV and dQ copy the four operands, which are not
+            # contiguous, once a launch; the contiguous launches' bits
             qc, kc, vc, doc = (t.contiguous() for t in (q, k, v, do))
             oc, lsec = bs._bs_fwd_cuda(qc, kc, vc, mask, causal, scale)
             got = bs._launch_bs_dkv(qc, kc, vc, doc, lse, delta, mask,

@@ -23,7 +23,9 @@ Hopper bodies' split products, or the wide route where a checkout has no
 Hopper kernel for it), with the wide launches each makes; then the
 forward above head dim 256 in bf16 and f32 (K1 and K6 at D 320, K1 at
 D 512, the same shape and mask), on the checkout's route (the chunked
-forward, or the wide route), with its wide launches.  Prints a line per
+forward, or the wide route), with its wide launches, and in f32 the
+backward there (K2/K3 and K7/K8 on the checkout's route: the chunked
+backward, or the wide route).  Prints a line per
 leg and, last, the
 JSON record.  Run parent, change, change, parent in one call to compare
 two versions.
@@ -210,31 +212,54 @@ def above_256_leg(torch, cs, fa, bs, repo):
     """K1 and K6 (phase 3's window 2 + 1 global at block 128) at head dim
     320 and K1 at 512, in bf16 and f32 (B 2, H 8, T 1024, causal), each
     on the route the checkout gives the forward there, with the wide
-    launches it makes."""
+    launches it makes; in f32 also K2/K3 (K7/K8) on the forward's O and
+    LSE, on the route the checkout gives them (the chunked backward, or
+    the wide route), with their wide launches."""
     rec = {}
     mask = bs.sliding_window_mask(8, 8, 2, 1, True, 128, 128)
     for dt in (torch.bfloat16, torch.float32):
         for D, kinds in ((320, ("flash", "block_sparse")), (512, ("flash",))):
             g = torch.Generator(device="cuda").manual_seed(7)
-            q, k, v = (torch.randn(2, 8, 1024, D, device="cuda",
-                                   generator=g).to(dt) for _ in range(3))
+            q, k, v, d_o = (torch.randn(2, 8, 1024, D, device="cuda",
+                                        generator=g).to(dt) for _ in range(4))
             scale = 1 / math.sqrt(D)
             for name in kinds:
                 if name == "flash":
                     def fwd():
                         return fa._flash_cuda(q, k, v, True, scale)
+                    dkv, dq = fa._launch_dkv, fa._launch_dq
                 else:
                     def fwd():
                         return bs._bs_fwd_cuda(q, k, v, mask, True, scale)
+
+                    def dkv(*a):
+                        return bs._launch_bs_dkv(*a[:6], mask, *a[6:])
+
+                    def dq(*a):
+                        return bs._launch_bs_dq(*a[:6], mask, *a[6:])
                 wide = fa.LAUNCHES_WIDE.count
-                fwd()
+                o, lse = fwd()
                 wide = fa.LAUNCHES_WIDE.count - wide
                 # the wide route takes milliseconds a call
                 it = dict(iters=3, reps=2) if wide else dict(iters=20, reps=5)
                 key = f"{name}_{str(dt)[6:]}_D{D}"
                 rec[key] = dict(wide_launches=wide, fwd_ms=cs.cuda_ms(fwd, **it))
+                if dt == torch.float32:
+                    do, delta = fa._bwd_inputs(q, o, d_o)
+                    args = (q, k, v, do, lse, delta, True, scale)
+                    wide = fa.LAUNCHES_WIDE.count
+                    dkv(*args)
+                    dq(*args)
+                    wide = fa.LAUNCHES_WIDE.count - wide
+                    it = dict(iters=3, reps=2) if wide else dict(iters=10, reps=5)
+                    rec[key].update(
+                        bwd_wide_launches=wide,
+                        dkv_ms=cs.cuda_ms(lambda: dkv(*args), **it),
+                        dq_ms=cs.cuda_ms(lambda: dq(*args), **it))
+                    del do, delta
                 print(f"{repo} {key}: {rec[key]}", flush=True)
-            del q, k, v
+                del o, lse
+            del q, k, v, d_o
             torch.cuda.empty_cache()
     return rec
 

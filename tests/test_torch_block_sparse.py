@@ -932,36 +932,46 @@ def test_wide_head_dims_route_the_block_sparse_passes(monkeypatch, D, dtype,
     (over the 64-row key lists) and K8 (over the 64-row query lists);
     above 256 K6 runs the chunked forward over the same 128-row query
     lists at D zero-padded to a multiple of 64 (counted under
-    ``LAUNCHES_CHUNKED`` for its dtype), and dK/dV and dQ take the wide
-    route under the block mask (its grid, bq, bk).  ``fwd`` and ``bwd``
-    are the head dims the Hopper kernels run at (None: above the built
-    ones).  An f32 launch of each pass at 192 or 256 also counts under
-    that pass's counter for the head dim."""
+    ``LAUNCHES_CHUNKED`` for its dtype), and dK/dV and dQ in f32 the
+    chunked backward over the 64-row key and query lists at the same
+    padded D (counted under ``LAUNCHES_DKV_CHUNKED`` and
+    ``LAUNCHES_DQ_CHUNKED``), in bf16 the wide route under the block mask
+    (its grid, bq, bk).  ``fwd`` and ``bwd`` are the head dims the Hopper
+    kernels run at (None: above the built ones).  An f32 launch of each
+    pass at 192 or 256 also counts under that pass's counter for the head
+    dim."""
     calls = _record_attention(monkeypatch)
     q, k, v, d_o = (torch.zeros(1, 2, 128, D, dtype=dtype)
                     for _ in range(4))
     mask = P.sliding_window_mask(4, 4, 2, 1, True, 32, 32)
     counters = (P.LAUNCHES_F32, P.LAUNCHES_DKV_F32, P.LAUNCHES_DQ_F32)
     per_dim = [{d: c.count for d, c in by.items()} for by in counters]
-    chunked = {dt: c.count for dt, c in P.LAUNCHES_CHUNKED.items()}
+    chunked_counters = (P.LAUNCHES_CHUNKED, P.LAUNCHES_DKV_CHUNKED,
+                        P.LAUNCHES_DQ_CHUNKED)
+    chunked = [{dt: c.count for dt, c in by.items()}
+               for by in chunked_counters]
     o, lse = P._bs_fwd_cuda(q, k, v, mask, True, 0.1)
     grads = P._bs_bwd_cuda(q, k, v, o, lse, d_o, mask, True, 0.1)
     for by, before, at in zip(counters, per_dim, (fwd, bwd, bwd)):
         assert {d: c.count - before[d] for d, c in by.items()} == {
             d: int(d == at) for d in before}
-    assert {dt: c.count - chunked[dt]
-            for dt, c in P.LAUNCHES_CHUNKED.items()} == {
-        dt: int(dt == dtype and fwd is None) for dt in chunked}
+    for by, before, either in zip(chunked_counters, chunked,
+                                  (True, False, False)):
+        assert {dt: c.count - before[dt] for dt, c in by.items()} == {
+            dt: int(dt == dtype and fwd is None
+                    and (either or dt == torch.float32)) for dt in before}
+    wide = bwd is None and dtype == torch.bfloat16
     assert [c[0] for c in calls] == [
         "bigdl_bs_fwd",
-        *(["bigdl_wide_bwd_dkv", "bigdl_wide_bwd_dq"] if bwd is None
+        *(["bigdl_wide_bwd_dkv", "bigdl_wide_bwd_dq"] if wide
           else ["bigdl_bs_bwd_dkv", "bigdl_bs_bwd_dq"])]
     tab = P._attention_tables(mask, True, q.device)
     grid = tab["block_mask"].data_ptr()
     # after the tensors (5, 8 and 7): tiles, counts, flags, the block
     # mask, order, rows
+    padded = -(-D // 64) * 64
     for (name, args), at, n, which in zip(
-            calls, (fwd or -(-D // 64) * 64, bwd, bwd), (5, 8, 7),
+            calls, (fwd or padded, bwd or padded, bwd or padded), (5, 8, 7),
             ("dq_blocks", "dkv_tiles", "dq_tiles")):
         if name.startswith("bigdl_wide"):
             # ..., block mask, nkb, bq, bk, first head, heads, T, S, D

@@ -12,8 +12,9 @@ inputs, forward and backward (the f32 forward, K1 and K6, dK/dV, K2 and
 K7, and dQ, K3 and K8, on bf16 products an f32 one at every head dim
 they are built for), also at head dims the kernels are not built for
 (zero-padded to the next, or above the built ones, 256: the chunked
-forward at D padded to a multiple of 64, dK/dV and dQ through the wide
-route) and at more heads than one grid takes; a small
+forward at D padded to a multiple of 64, dK/dV and dQ in f32 through the
+chunked backward at the same D, in bf16 through the wide route) and at
+more heads than one grid takes; a small
 TransformerLM served on
 the card in f32 (also at head dim 8, through the server), and small
 flash and block-sparse ones, a ResNet-CIFAR on K5 and a LeNet-5 trained
@@ -210,7 +211,8 @@ def test_layer_norm_kernel_matches_plain_on_card(cuda_device, rows, F,
 
 def test_kernels_reject_what_they_do_not_take(cuda_device):
     # an f32 forward at a head dim up to 256 is padded to a built one (160
-    # runs K1 and K6 at 192); past 256 the wide route takes it as it is
+    # runs K1 and K6 at 192); past 256 the chunked forward takes it padded
+    # to a multiple of 64
     g = torch.Generator(device=cuda_device).manual_seed(3)
     q, k, v = (torch.randn(1, 2, 16, 160, device=cuda_device, generator=g)
                for _ in range(3))
@@ -375,7 +377,9 @@ def test_wide_head_dims_run_the_wide_route_on_card(cuda_device, D, dtype,
     192 or 256 and run the Hopper bodies in both dtypes (in f32 on split
     products; no wide launch); above 256 the forward runs the chunked
     forward (D zero-padded to a multiple of 64, one launch under its
-    dtype's ``LAUNCHES_CHUNKED``) and dK/dV and dQ take the wide route
+    dtype's ``LAUNCHES_CHUNKED``), and dK/dV and dQ in f32 the chunked
+    backward at the same D (one launch each under ``LAUNCHES_DKV_CHUNKED``
+    and ``LAUNCHES_DQ_CHUNKED``, no wide launch), in bf16 the wide route
     (``csrc/attn_wide.cu``) at the true D (two wide launches).  Forward
     and backward through the entry points launch K1-K3 (K6-K8) once each
     and match the plain versions in the working dtype row by row, LSE
@@ -388,7 +392,9 @@ def test_wide_head_dims_run_the_wide_route_on_card(cuda_device, D, dtype,
     scale = 1 / math.sqrt(D)
     if which == "flash":
         counters = (fa.LAUNCHES, fa.LAUNCHES_DKV, fa.LAUNCHES_DQ,
-                    fa.LAUNCHES_WIDE, fa.LAUNCHES_CHUNKED[dtype])
+                    fa.LAUNCHES_WIDE, fa.LAUNCHES_CHUNKED[dtype],
+                    fa.LAUNCHES_DKV_CHUNKED[torch.float32],
+                    fa.LAUNCHES_DQ_CHUNKED[torch.float32])
         before = [c.count for c in counters]
         o, lse = fa.flash_forward(*leaves, causal=True)
         got = torch.autograd.grad(o, leaves, d_o)
@@ -398,7 +404,9 @@ def test_wide_head_dims_run_the_wide_route_on_card(cuda_device, D, dtype,
     else:
         mask = bs.sliding_window_mask(5, 5, 2, 1, True, 40, 40)
         counters = (bs.LAUNCHES, bs.LAUNCHES_DKV, bs.LAUNCHES_DQ,
-                    fa.LAUNCHES_WIDE, bs.LAUNCHES_CHUNKED[dtype])
+                    fa.LAUNCHES_WIDE, bs.LAUNCHES_CHUNKED[dtype],
+                    bs.LAUNCHES_DKV_CHUNKED[torch.float32],
+                    bs.LAUNCHES_DQ_CHUNKED[torch.float32])
         before = [c.count for c in counters]
         # the Function behind block_sparse_attention, which returns O alone
         o, lse = bs._BlockSparseAttention.apply(*leaves, mask, True, scale)
@@ -408,8 +416,9 @@ def test_wide_head_dims_run_the_wide_route_on_card(cuda_device, D, dtype,
                                 scale)
     torch.cuda.synchronize()
     above = int(D > 256)
+    f32 = int(dtype == torch.float32)
     assert [c.count - n for c, n in zip(counters, before)] == [
-        1, 1, 1, 2 * above, above]
+        1, 1, 1, 2 * above * (1 - f32), above, above * f32, above * f32]
     assert o.shape == (2, 4, T, D) and o.dtype == dtype
     assert _row_rel_err(o, o_ref) <= ROW_TOL[dtype]
     assert (lse - lse_ref).abs().max().item() <= 1e-3
@@ -501,26 +510,31 @@ def test_f32_chunked_forward_and_wide_backward_through_autograd_on_card(
         cuda_device):
     """f32 at head dim 320 through ``flash_attention``'s autograd: the
     chunked forward (one K1 launch, under ``LAUNCHES_CHUNKED``) and the
-    wide dK/dV and dQ (two wide launches), O, LSE and the gradients
-    against the CPU plain version row by row within the f32 limit.  The
-    gradient of a key bias, the sum of dK over the key rows (0 in exact
-    arithmetic), stays at rounding level: within twice what the same
-    wide backward reads from the plain forward's O and LSE on the card,
-    or the CPU plain pipeline's, whichever is larger (the split
-    products' O must agree with the backward's recomputed P . V to f32
-    rounding, ``tests/test_torch_f32_split.py``)."""
+    chunked dK/dV and dQ (one launch each, under ``LAUNCHES_DKV_CHUNKED``
+    and ``LAUNCHES_DQ_CHUNKED``; no wide launch), O, LSE and the
+    gradients against the CPU plain version row by row within the f32
+    limit.  The gradient of a key bias, the sum of dK over the key rows
+    (0 in exact arithmetic), stays at rounding level: within twice what
+    the same chunked backward reads from the plain forward's O and LSE
+    on the card, or the CPU plain pipeline's, whichever is larger (the
+    split products' O must agree with the backward's recomputed P . V to
+    f32 rounding, and the backward's scores, summed over the panels, with
+    the forward's LSE: ``tests/test_torch_f32_split.py``)."""
     B, H, T, D = 2, 4, 130, 320
     g = torch.Generator().manual_seed(320)
     q, k, v, d_o = (torch.randn(B, H, T, D, generator=g) for _ in range(4))
     scale = 1 / math.sqrt(D)
     counters = (fa.LAUNCHES, fa.LAUNCHES_DKV, fa.LAUNCHES_DQ,
-                fa.LAUNCHES_WIDE, fa.LAUNCHES_CHUNKED[torch.float32])
+                fa.LAUNCHES_WIDE, fa.LAUNCHES_CHUNKED[torch.float32],
+                fa.LAUNCHES_DKV_CHUNKED[torch.float32],
+                fa.LAUNCHES_DQ_CHUNKED[torch.float32])
     before = [c.count for c in counters]
     leaves = [t.to(cuda_device).requires_grad_() for t in (q, k, v)]
     o, lse = fa.flash_forward(*leaves, causal=True)
     got = torch.autograd.grad(o, leaves, d_o.to(cuda_device))
     torch.cuda.synchronize()
-    assert [c.count - n for c, n in zip(counters, before)] == [1, 1, 1, 2, 1]
+    assert [c.count - n for c, n in zip(counters, before)] == [
+        1, 1, 1, 0, 1, 1, 1]
     cpu = [t.clone().requires_grad_() for t in (q, k, v)]
     o_cpu, lse_cpu = fa.flash_forward(*cpu, causal=True)
     want = torch.autograd.grad(o_cpu, cpu, d_o)
@@ -675,6 +689,25 @@ F32_DKV_CASES = {
     "D256_strided_noncausal_T136_S264": (136, 264, 256, False, "strided", 8,
                                          24),
 }
+# the same, above head dim 256: the f32 chunked backward (300 padded to
+# 320), one query row, T 64, the ragged non-causal T 65 x S 130 and the
+# head-strided layout at 320
+F32_CHUNKED_CASES = {
+    "D320_causal_T1": (1, 1, 320, True, "contiguous", 1, 1),
+    "D1024_causal_T1": (1, 1, 1024, True, "contiguous", 1, 1),
+    "D300_causal_T64": (64, 64, 300, True, "contiguous", 32, 32),
+    "D384_causal_T64": (64, 64, 384, True, "contiguous", 32, 32),
+    "D512_causal_T64": (64, 64, 512, True, "contiguous", 32, 32),
+    "D300_noncausal_T65_S130": (65, 130, 300, False, "contiguous", 13, 26),
+    "D320_noncausal_T65_S130": (65, 130, 320, False, "contiguous", 13, 26),
+    "D512_noncausal_T65_S130": (65, 130, 512, False, "contiguous", 13, 26),
+    "D1024_noncausal_T65_S130": (65, 130, 1024, False, "contiguous", 13,
+                                 26),
+    "D320_strided_causal_T264": (264, 264, 320, True, "strided", 24, 24),
+    "D320_strided_noncausal_T136_S264": (136, 264, 320, False, "strided", 8,
+                                         24),
+}
+F32_BWD_CASES = {**F32_DKV_CASES, **F32_CHUNKED_CASES}
 
 
 def _f32_dkv_mask(T, S, bq, bk):
@@ -687,7 +720,7 @@ def _f32_dkv_mask(T, S, bq, bk):
     return bs.BlockMask(m, bq, bk)
 
 
-@pytest.mark.parametrize("case", sorted(F32_DKV_CASES))
+@pytest.mark.parametrize("case", sorted(F32_BWD_CASES))
 @pytest.mark.parametrize("which", ["flash", "block_sparse"])
 def test_f32_dkv_runs_the_split_products_on_card(cuda_device, case, which):
     """The f32 K2 (flash) and K7 (block-sparse) on the Hopper dK/dV block
@@ -698,9 +731,9 @@ def test_f32_dkv_runs_the_split_products_on_card(cuda_device, case, which):
     limit of the plain backward (one scale for both; a key row whose
     queries attend it alone, 0 in exact arithmetic, against its terms'
     size, ``_dk_row_err``), and two launches give the same bits.  At D
-    192 and 256 each launch also counts under that head dim's
-    counter."""
-    T, S, D, causal, layout, bq, bk = F32_DKV_CASES[case]
+    192 and 256 each launch also counts under that head dim's counter,
+    above 256 (the chunked backward) under ``LAUNCHES_DKV_CHUNKED``."""
+    T, S, D, causal, layout, bq, bk = F32_BWD_CASES[case]
     g = torch.Generator(device=cuda_device).manual_seed(T * 7 + D)
 
     def make(rows):
@@ -729,17 +762,21 @@ def test_f32_dkv_runs_the_split_products_on_card(cuda_device, case, which):
             return bs._launch_bs_dkv(q, k, v, do, lse, delta, mask, causal,
                                      scale)
     do, delta = fa._bwd_inputs(q, o, d_o)
-    by_dim = (fa if mask is None else bs).LAUNCHES_DKV_F32.get(D)
+    mod = fa if mask is None else bs
+    by_dim = mod.LAUNCHES_DKV_F32.get(D)
+    chunked = mod.LAUNCHES_DKV_CHUNKED[torch.float32]
 
     def tally():
         return (counter.count, fa.OPERAND_COPIES.count,
-                fa.LAUNCHES_WIDE.count, by_dim.count if by_dim else 0)
+                fa.LAUNCHES_WIDE.count, by_dim.count if by_dim else 0,
+                chunked.count)
 
     counts = tally()
     runs = [launch(), launch()]
     torch.cuda.synchronize()
     assert tally() == (counts[0] + 2, counts[1], counts[2],
-                       counts[3] + (2 if by_dim else 0))
+                       counts[3] + (2 if by_dim else 0),
+                       counts[4] + 2 * (D > 256))
     for a, b in zip(*runs):
         assert a.dtype == torch.float32 and a.is_contiguous()
         assert torch.equal(a, b)
@@ -925,7 +962,8 @@ F32_DQ_CASES = dict(
     D16_causal_T1=(1, 1, 16, True, "contiguous", 1, 1),
     D128_causal_T64=(64, 64, 128, True, "contiguous", 32, 32),
     D32_noncausal_T65_S130=(65, 130, 32, False, "contiguous", 13, 26),
-    D128_strided_causal_T264=(264, 264, 128, True, "strided", 24, 24))
+    D128_strided_causal_T264=(264, 264, 128, True, "strided", 24, 24),
+    **F32_CHUNKED_CASES)
 
 
 @pytest.mark.parametrize("case", sorted(F32_DQ_CASES))
@@ -939,7 +977,8 @@ def test_f32_dq_runs_the_split_products_on_card(cuda_device, case, which):
     the f32 limit of the plain backward (one scale for dQ, dK and dV; a
     row with one live key against its terms' size, ``_dq_row_err``), and
     two launches give the same bits.  At D 192 and 256 each launch also
-    counts under that head dim's counter."""
+    counts under that head dim's counter, above 256 (the chunked
+    backward) under ``LAUNCHES_DQ_CHUNKED``."""
     T, S, D, causal, layout, bq, bk = F32_DQ_CASES[case]
     g = torch.Generator(device=cuda_device).manual_seed(T * 3 + D)
 
@@ -969,17 +1008,21 @@ def test_f32_dq_runs_the_split_products_on_card(cuda_device, case, which):
             return bs._launch_bs_dq(*t, lse, delta, mask, causal, scale)
 
     do, delta = fa._bwd_inputs(q, o, d_o)
-    by_dim = (fa if which == "flash" else bs).LAUNCHES_DQ_F32.get(D)
+    mod = fa if which == "flash" else bs
+    by_dim = mod.LAUNCHES_DQ_F32.get(D)
+    chunked = mod.LAUNCHES_DQ_CHUNKED[torch.float32]
 
     def tally():
         return (counter.count, fa.OPERAND_COPIES.count,
-                fa.LAUNCHES_WIDE.count, by_dim.count if by_dim else 0)
+                fa.LAUNCHES_WIDE.count, by_dim.count if by_dim else 0,
+                chunked.count)
 
     counts = tally()
     runs = [launch(q, k, v, do), launch(q, k, v, do)]
     torch.cuda.synchronize()
     assert tally() == (counts[0] + 2, counts[1], counts[2],
-                       counts[3] + (2 if by_dim else 0))
+                       counts[3] + (2 if by_dim else 0),
+                       counts[4] + 2 * (D > 256))
     assert runs[0].dtype == torch.float32 and runs[0].is_contiguous()
     assert torch.equal(runs[0], runs[1])
     if which == "flash":
@@ -1039,15 +1082,69 @@ def test_f32_dq_of_k8_is_k3s_and_never_reads_dead_kv_on_card(cuda_device,
         assert torch.isfinite(b).all() and torch.equal(a, b)
 
 
+@pytest.mark.parametrize("D", [320, 512])
+def test_f32_chunked_k7_k8_are_k2_k3s_and_never_read_dead_kv_on_card(
+        cuda_device, D):
+    """Above head dim 256 the f32 K7 and K8 run K2's and K3's chunked
+    backward over their 64-row key and query lists: on an all-ones causal
+    mask at block 128 (and at a ragged T 200, block 40) they visit the
+    same tiles in the same order, each list step streamed as two 32-row
+    halves, so K7 = K2 and K8 = K3 bit for bit (fed the same O, LSE, dO
+    and delta).  Under a mask at block 32 (partly live tiles, whose live
+    rows the producer stages for every panel and chunk operand) with NaN
+    in every K/V row that no query may attend, O, LSE, dQ, dK and dV are
+    finite and equal the clean run's bit for bit, and the gradients
+    match the plain backward row by row."""
+    q, k, v, d_o = _bs_inputs(512, 512, D, torch.float32, cuda_device, D + 5)
+    scale = 1 / math.sqrt(D)
+    for T, block in ((512, 128), (200, 40)):
+        n = T // block
+        ones = bs.BlockMask(np.ones((n, n), bool), block, block)
+        qt, kt, vt, dt = (t[:, :, :T] for t in (q, k, v, d_o))
+        o, lse = bs._bs_fwd_cuda(qt, kt, vt, ones, True, scale)
+        do, delta = fa._bwd_inputs(qt, o, dt)
+        args = (qt, kt, vt, do, lse, delta)
+        got = bs._launch_bs_dkv(*args, ones, True, scale) + (
+            bs._launch_bs_dq(*args, ones, True, scale),)
+        want = fa._launch_dkv(*args, True, scale) + (
+            fa._launch_dq(*args, True, scale),)
+        torch.cuda.synchronize()
+        for a, b in zip(got, want):
+            assert torch.equal(a, b)
+    m = np.eye(16, dtype=bool)
+    m[:, 0] = True
+    m[9, 9] = False   # k block 9 is read by no query
+    mask = bs.BlockMask(m, 32, 32)
+    dead = ~bs._elementwise_keep(mask, True, cuda_device).any(dim=0)
+    assert int(dead.sum()) == 32
+    kp, vp = k.clone(), v.clone()
+    kp[:, :, dead] = float("nan")
+    vp[:, :, dead] = float("nan")
+    runs = []
+    for kk, vv in ((k, v), (kp, vp)):
+        o, lse = bs._bs_fwd_cuda(q, kk, vv, mask, True, scale)
+        runs.append((o, lse) + bs._bs_bwd_cuda(q, kk, vv, o, lse, d_o, mask,
+                                                True, scale))
+    torch.cuda.synchronize()
+    for a, b in zip(*runs):
+        assert torch.isfinite(b).all() and torch.equal(a, b)
+    o, lse = runs[0][:2]
+    want = bs._bs_bwd_plain(q, k, v, o, lse, d_o, mask, True, scale)
+    _check_attention_grads(runs[0][2:], want, torch.float32,
+                           _keep(512, 512, True, cuda_device, mask), k, v,
+                           d_o, scale)
+
+
 def test_f32_dq_raises_where_its_kernel_refuses_on_card(cuda_device):
     """The f32 K3 and K8 launch their split-product kernel or raise: no
     route falls back to a tile loop or to the plain version.  The C
-    entries refuse a head dim they are not built for (K3 at 320) and an
-    f32 K8 launch without its block lists' order and rows (the tile
-    tables the retired loop read had none); each raises, counts no
-    launch and writes nothing."""
+    entries refuse a head dim they are not built for (K3 at 288: above
+    256 the chunked backward takes multiples of 64, which the wrappers
+    pad to) and an f32 K8 launch without its block lists' order and rows
+    (the tile tables the retired loop read had none); each raises, counts
+    no launch and writes nothing."""
     g = torch.Generator(device=cuda_device).manual_seed(11)
-    q, k, v, d_o = (torch.randn(1, 2, 64, 320, device=cuda_device,
+    q, k, v, d_o = (torch.randn(1, 2, 64, 288, device=cuda_device,
                                 generator=g) for _ in range(4))
     lse = torch.zeros(2, 1, 64, device=cuda_device)
     delta = torch.zeros(2, 64, device=cuda_device)
@@ -1059,7 +1156,7 @@ def test_f32_dq_raises_where_its_kernel_refuses_on_card(cuda_device):
             fa._bwd_fn("bigdl_flash_bwd_dq", 7),
             [*(t.data_ptr() for t in (q, k, v, d_o, lse, delta, dq)),
              fa._strides_arg(q, k, v, d_o), 2, fa.FIRST_HEAD, fa.HEADS, 64,
-             64, 320, 0, 0.125, 1], 2, q.device)
+             64, 288, 0, 0.125, 1], 2, q.device)
     torch.cuda.synchronize()
     assert fa.LAUNCHES_DQ.count == before and dq.isnan().all()
     q, k, v, d_o = (t[..., :64].contiguous() for t in (q, k, v, d_o))

@@ -26,7 +26,11 @@ partial of each score per panel), with wgmma's truncation toward zero
 modelled, k16 step by step; ``_fwd_chunked_split`` forms O and LSE as
 the f32 forward above D 256 does (``attn_fwd_chunk_kernel``: D padded to
 a multiple of 64, O in chunks of 256 columns, each chunk forming S anew
-as at D 256), and the chunks' column plan is checked for D 257-1024.
+as at D 256), ``_dkv_chunked_split`` and ``_dq_chunked_split`` dK, dV
+and dQ as the f32 backward above D 256 does (``bwd_dkv_chunk_kernel``,
+``bwd_dq_chunk_kernel``: the same padding and chunks, the scores summed
+over the panels as at D 256), and the chunks' column plans are checked
+for D 257-1024.
 The results are held row by row, at the f32 limit the card holds the
 kernels to (1e-4; LSE 1e-3; the wide forward at a third of it), against
 the JAX package's ``flash_attention``, ``block_sparse_attention`` and
@@ -975,7 +979,7 @@ WIDE_STEP = 16
 
 
 def _dkv_wide_split(q, k, v, o, lse, d_o, keep, scale, truncate=True,
-                    partial=WIDE_STEP):
+                    partial=WIDE_STEP, cols=slice(None)):
     """dK and dV (B, H, S, D) as the f32 K2/K7 compute them at D 192 and
     256 (``dkv_f32_consume`` with ``WIDE``): S^T = K . Q^T and dP^T = V .
     dO^T by ``_wide_scores`` (K and V, the block's own rows, split into
@@ -986,7 +990,8 @@ def _dkv_wide_split(q, k, v, o, lse, d_o, keep, scale, truncate=True,
     k16 steps inner, in one accumulator a row; wgmma's sums rounded toward
     zero where ``truncate``.  A tile whose pairs are all masked adds zeros,
     which leave the accumulator as it is, as the sweep's skipping it
-    does."""
+    does.  dK and dV are formed over the columns ``cols`` of Q and dO
+    (the chunked backward's chunk; all of them at D 192 and 256)."""
     B, H, T, D = q.shape
     delta = (d_o * o).sum(dim=-1)[:, :, None, :]
     lse = lse.reshape(B, H, 1, T)
@@ -996,17 +1001,18 @@ def _dkv_wide_split(q, k, v, o, lse, d_o, keep, scale, truncate=True,
                      zero)
     dpt = _wide_scores(v, d_o, truncate, partial)
     dst = torch.where(keep.T, pt * (dpt - delta), zero)
-    dk = torch.zeros(B, H, k.shape[2], D)
+    qc, doc = q[..., cols], d_o[..., cols]
+    dk = torch.zeros(B, H, k.shape[2], qc.shape[-1])
     dv = torch.zeros_like(dk)
     for r0 in range(0, T, WIDE_TILE):
         rows = slice(r0, r0 + WIDE_TILE)
-        dv = _wide_pv(dv, pt[..., rows], d_o[:, :, rows], truncate, TERMS[1:])
-        dk = _wide_pv(dk, dst[..., rows], q[:, :, rows], truncate, TERMS[1:])
+        dv = _wide_pv(dv, pt[..., rows], doc[:, :, rows], truncate, TERMS[1:])
+        dk = _wide_pv(dk, dst[..., rows], qc[:, :, rows], truncate, TERMS[1:])
     return dk * scale, dv
 
 
 def _dq_wide_split(q, k, v, o, lse, d_o, keep, scale, truncate=True,
-                   partial=WIDE_STEP, terms=TERMS):
+                   partial=WIDE_STEP, terms=TERMS, cols=slice(None)):
     """dQ (B, H, T, D) as the f32 K3/K8 compute it at D 192 and 256
     (``dq_f32_consume`` with ``WIDE``): S = Q . K^T and dP = dO . V^T by
     ``_wide_scores`` (Q and dO split into registers a panel at a time, a
@@ -1014,7 +1020,8 @@ def _dq_wide_split(q, k, v, o, lse, d_o, keep, scale, truncate=True,
     P and dS as ``_dq_split`` forms them, then over the 32-key tiles in
     order, warpgroup w adding dS . K over keys 16 w .. 16 w + 15 of each
     (six products, ``terms``) into its own accumulator; the two meet
-    once, in f32, at the end."""
+    once, in f32, at the end.  dQ is formed over the columns ``cols`` of
+    K (the chunked backward's chunk; all of them at D 192 and 256)."""
     B, H, T, D = q.shape
     S = k.shape[2]
     delta = (d_o * o).sum(dim=-1, keepdim=True)
@@ -1026,12 +1033,13 @@ def _dq_wide_split(q, k, v, o, lse, d_o, keep, scale, truncate=True,
     dp = _wide_scores(d_o, v, truncate, partial)
     ds = torch.where(keep, p * (dp - delta), zero)
     half = WIDE_TILE // 2
-    acc = [torch.zeros(B, H, T, D), torch.zeros(B, H, T, D)]
+    kc = k[..., cols]
+    acc = [torch.zeros(B, H, T, kc.shape[-1]) for _ in range(2)]
     for k0 in range(0, S, WIDE_TILE):
         for w in range(2):
             keys = slice(k0 + half * w, min(S, k0 + half * (w + 1)))
             if keys.start < S:
-                acc[w] = _wide_pv(acc[w], ds[..., keys], k[:, :, keys],
+                acc[w] = _wide_pv(acc[w], ds[..., keys], kc[:, :, keys],
                                   truncate, terms)
     return (acc[0] + acc[1]) * scale
 
@@ -1155,6 +1163,203 @@ def test_the_wide_dq_keeps_a_key_shift_at_rounding_level(D):
                               ("one", dict(partial=None)))}
     assert moved["kernel"] <= 2 * noise
     assert min(moved["five"], moved["one"]) > 4 * noise
+
+
+# ----------------------------------------------------------------------
+# the f32 backward above head dim 256: K2/K7 and K3/K8, the chunked
+# backward
+# ----------------------------------------------------------------------
+
+def _chunked(wide_split, outs, q, k, v, o, lse, d_o, keep, scale, **kw):
+    """The outputs of ``wide_split`` (``_dkv_wide_split``: dK, dV;
+    ``_dq_wide_split``: dQ) as the f32 chunked backward forms them above
+    head dim 256 (``bwd_dkv_chunk_kernel``, ``bwd_dq_chunk_kernel``): q,
+    k, v, O and dO zero-padded to a multiple of 64 columns
+    (``fa._bwd_head_dim``); for each chunk of the columns
+    (``fa._fwd_chunks``) a block of its own forms the scores anew over
+    every 64-column panel, a fresh partial per k16 step added in f32 (the
+    order of ``_wide_scores``: zero columns add exact zeros), and the
+    products over the chunk's 256 columns of the chunk operands (dO and
+    Q, or K); it writes its own columns.  Cut back to D."""
+    D = q.shape[-1]
+    Dp = fa._bwd_head_dim(D, torch.float32)
+    padded = [fa._pad_head_dim(t, Dp) for t in (q, k, v, o)]
+    got = [torch.zeros(*t.shape[:-1], Dp) for t in outs]
+    for col0, lo, hi in fa._fwd_chunks(Dp):
+        part = wide_split(*padded, lse, fa._pad_head_dim(d_o, Dp), keep,
+                          scale, cols=slice(col0, col0 + fa.CHUNK_COLS), **kw)
+        for g, c in zip(got, part if isinstance(part, tuple) else (part,)):
+            g[..., lo:hi] = c[..., lo - col0:hi - col0]
+    return [g[..., :D] for g in got]
+
+
+def _dkv_chunked_split(q, k, v, o, lse, d_o, keep, scale, **kw):
+    """dK and dV (B, H, S, D) as the f32 K2/K7 compute them above head
+    dim 256 (``_chunked`` over ``_dkv_wide_split``: S^T and dP^T summed
+    over the panels of the own K and V rows and the 32-row Q and dO
+    tiles, dV and dK over the chunk's columns of dO and Q, five products
+    each)."""
+    return tuple(_chunked(_dkv_wide_split, (k, v), q, k, v, o, lse, d_o,
+                          keep, scale, **kw))
+
+
+def _dq_chunked_split(q, k, v, o, lse, d_o, keep, scale, **kw):
+    """dQ (B, H, T, D) as the f32 K3/K8 compute it above head dim 256
+    (``_chunked`` over ``_dq_wide_split``: S and dP summed over the
+    panels of the own Q and dO rows and the 32-key K and V tiles, each
+    warpgroup's 16 keys; dS . K over the chunk's columns of K, six
+    products)."""
+    return _chunked(_dq_wide_split, (q,), q, k, v, o, lse, d_o, keep, scale,
+                    **kw)[0]
+
+
+def _chunked_backward(q, k, v, g, keep, scale):
+    """dQ, dK and dV of the f32 slice above head dim 256 on the card: O
+    and LSE from the chunked forward's products (``_fwd_chunked_split``),
+    then the chunked dK/dV and dQ on them."""
+    o, lse = _fwd_chunked_split(q, k, v, keep, scale)
+    return (_dq_chunked_split(q, k, v, o, lse, g, keep, scale),
+            *_dkv_chunked_split(q, k, v, o, lse, g, keep, scale))
+
+
+# (B, H, T, S, D, causal): T 128 takes the JAX package's Pallas kernels in
+# interpret mode, T 130 and the ragged non-causal case its plain reference
+CHUNKED_BWD_CASES = {
+    "causal_T128_D320": (1, 2, 128, 128, 320, True),
+    "causal_T130_D512": (1, 2, 130, 130, 512, True),
+    "causal_T130_D300": (1, 2, 130, 130, 300, True),
+    "ragged_T65_S130_noncausal_D320": (1, 2, 65, 130, 320, False),
+}
+
+
+@pytest.mark.parametrize("case", sorted(CHUNKED_BWD_CASES))
+def test_chunked_split_backward_matches_the_jax_flash_backward(case):
+    """The f32 slice above head dim 256 (the chunked forward's O and LSE,
+    then the chunked dK/dV and dQ: the scores summed over 64-column
+    panels, a fresh partial per k16 step, the outputs in chunks of 256
+    columns; wgmma's truncation toward zero modelled) against the
+    gradients ``jax.vjp`` takes through the JAX flash attention, which
+    takes D as it is (the Pallas kernels in interpret mode; the plain
+    reference at T 130 and 65), row by row within a third of the f32
+    limit."""
+    B, H, T, S, D, causal = CHUNKED_BWD_CASES[case]
+    q, k, v, g = _inputs(B, H, T, S, D, seed=11 * len(case))
+    scale = 1 / math.sqrt(D)
+    want = _jax_grads(lambda a, b, c: jax_flash(a, b, c, causal=causal,
+                                                sm_scale=scale,
+                                                interpret=True), q, k, v, g)
+    t = [torch.from_numpy(a) for a in (q, k, v, g)]
+    keep = (fa._causal_keep(T, S, "cpu") if causal
+            else torch.ones(T, S, dtype=torch.bool))
+    got = _chunked_backward(*t[:3], t[3], keep, scale)
+    assert [a.shape for a in got] == [a.shape for a in t[:3]]
+    _check_wide_grads(got, want, keep, t[1], t[2], t[3], scale)
+
+
+def test_chunked_split_backward_matches_the_jax_block_sparse_backward():
+    """Under a block mask with a dead key block, a dead query block, a
+    query row whose one live key is its own and partly live 32-row tiles
+    (block 32), at D 320: the f32 chunked backward against ``jax.vjp`` of
+    ``block_sparse_attention`` through the Pallas kernels in interpret
+    mode; the dead blocks' rows are 0 on both sides."""
+    m = J.sliding_window_mask(4, 4, 2, 1, True, 32, 32).mask.copy()
+    m[:, 2] = False     # k block 2: read by no query
+    m[3, :] = False     # q block 3: reads nothing
+    m[1, 0] = False     # q block 1: its own block alone, so row 32 has one key
+    mask = J.BlockMask(m, 32, 32)
+    q, k, v, g = _inputs(1, 2, 128, 128, 320, seed=29)
+    scale = 1 / math.sqrt(320)
+    want = _jax_grads(lambda a, b, c: J.block_sparse_attention(
+        a, b, c, mask, causal=True, sm_scale=scale, interpret=True),
+        q, k, v, g)
+    port = P.BlockMask(mask.mask, mask.block_q, mask.block_k)
+    t = [torch.from_numpy(a) for a in (q, k, v, g)]
+    keep = P._elementwise_keep(port, True, "cpu")
+    assert keep[32].sum() == 1
+    got = _chunked_backward(*t[:3], t[3], keep, scale)
+    _check_wide_grads(got, want, keep, t[1], t[2], t[3], scale)
+    assert not got[0][:, :, 96:].any() and not want[0][:, :, 96:].any()
+    for a, b in zip(got[1:], want[1:]):
+        assert not a[:, :, 64:96].any() and not b[:, :, 64:96].any()
+
+
+def test_the_chunked_backward_keeps_the_key_bias_gradient_at_rounding_level():
+    """The key-bias check of ``test_the_wide_backward_keeps_the_key_bias_
+    gradient_at_rounding_level`` at D 320 (two chunks): O and LSE from
+    the chunked forward's products, S^T and dP^T summed over the panels
+    from a fresh partial per k16 step (truncation modelled), keep the sum
+    of dK over the key rows within twice the plain f32 pipeline's; S^T
+    and dP^T over all of D in one accumulator (120 truncations) three
+    times it or more."""
+    rng = np.random.RandomState(2)
+    q, k, v, g = (torch.from_numpy(rng.randn(3, 4, 20, 320)
+                                   .astype(np.float32)) for _ in range(4))
+    scale = 1 / math.sqrt(320)
+    keep = fa._causal_keep(20, 20, "cpu")
+    o, lse = fa._flash_plain(q, k, v, True, scale)
+    noise = fa._flash_bwd_plain(q, k, v, o, lse, g, True, scale)[1] \
+        .sum(dim=2).norm().item()
+    o, lse = _fwd_chunked_split(q, k, v, keep, scale)
+    sums = {name: _dkv_chunked_split(q, k, v, o, lse, g, keep, scale, **kw)[0]
+            .sum(dim=2).norm().item()
+            for name, kw in (("kernel", {}), ("one", dict(partial=None)))}
+    assert sums["kernel"] <= 2 * noise
+    assert sums["one"] > 3 * noise
+
+
+def test_the_chunked_dq_keeps_a_key_shift_at_rounding_level():
+    """The property of ``test_the_wide_dq_keeps_a_key_shift_at_rounding_
+    level`` at D 320 (truncation modelled): a common shift of the key
+    rows moves the chunked dQ within twice what it moves the plain f32
+    pipeline's, while K in two pieces (five products for dS . K) or S and
+    dP over all of D in one accumulator move it four times that or
+    more."""
+    rng = np.random.RandomState(3)
+    q, k, v, g = (torch.from_numpy(rng.randn(3, 4, 20, 320)
+                                   .astype(np.float32)) for _ in range(4))
+    b = torch.from_numpy(np.random.RandomState(4).randn(1, 4, 1, 320)
+                         .astype(np.float32))
+    scale = 1 / math.sqrt(320)
+    keep = fa._causal_keep(20, 20, "cpu")
+    o, lse = fa._flash_plain(q, k, v, True, scale)
+    exact = fa._flash_bwd_plain(q, k, v, o, lse, g, True, scale)[0]
+    o, lse = fa._flash_plain(q, k + b, v, True, scale)
+    plain = fa._flash_bwd_plain(q, k + b, v, o, lse, g, True, scale)[0]
+    noise = (plain - exact).norm().item()
+    moved = {name: (_dq_chunked_split(q, k + b, v, o, lse, g, keep, scale,
+                                      **kw) - exact).norm().item()
+             for name, kw in (("kernel", {}), ("five", dict(terms=TERMS[1:])),
+                              ("one", dict(partial=None)))}
+    assert moved["kernel"] <= 2 * noise
+    assert min(moved["five"], moved["one"]) > 4 * noise
+
+
+def test_the_chunked_backwards_plan_covers_each_column_once():
+    """Every head dim from 257 to 1024: f32 dK/dV and dQ run at the
+    forward's padded head dim (the next multiple of 64,
+    ``_bwd_head_dim``), whose 64-column panels the scores sum over, in
+    ceil(Dp / 256) chunks of the output, each forming 256 columns from a
+    panel's first column, inside Dp, and writing its own, which together
+    are each of Dp's columns once, in order; bf16 takes the wide route at
+    D as it is.  Up to 256 both dtypes run the built head dims."""
+    for D in range(257, 1025):
+        Dp = fa._bwd_head_dim(D, torch.float32)
+        assert Dp == fa._fwd_head_dim(D) and Dp % fa.CHUNK_PANEL == 0
+        assert D <= Dp < D + fa.CHUNK_PANEL
+        assert not fa._takes_wide_route(D, torch.float32)
+        assert fa._takes_wide_route(D, torch.bfloat16)
+        assert fa._bwd_head_dim(D, torch.bfloat16) == D
+        written = []
+        for col0, lo, hi in fa._fwd_chunks(Dp):
+            assert col0 % fa.CHUNK_PANEL == 0
+            assert 0 <= col0 <= lo < hi <= col0 + fa.CHUNK_COLS <= Dp
+            written += range(lo, hi)
+        assert written == list(range(Dp)), D
+    for D in range(1, 257):
+        for dt in (torch.float32, torch.bfloat16):
+            assert fa._bwd_head_dim(D, dt) == fa._padded_head_dim(D) \
+                == fa._fwd_head_dim(D)
+            assert not fa._takes_wide_route(D, dt)
 
 
 # ----------------------------------------------------------------------

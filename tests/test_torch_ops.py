@@ -447,32 +447,42 @@ def test_wide_head_dims_route_by_dtype(monkeypatch, D, dtype, fwd, bwd):
     dims 129-256 are zero-padded to 192 or 256 and run the Hopper forward
     (K1), dK/dV (K2) and dQ (K3); above 256 the forward runs the chunked
     forward (``bigdl_flash_fwd`` at D zero-padded to a multiple of 64,
-    counted under ``LAUNCHES_CHUNKED`` for its dtype) and dK/dV and dQ
-    take the wide route at D as it is.  ``fwd`` and ``bwd`` are the head
-    dims the Hopper kernels run at (None: above the built ones).  The
-    outputs are cut back to D.  An f32 launch of each pass at 192 or 256
-    also counts under that pass's counter for the head dim."""
+    counted under ``LAUNCHES_CHUNKED`` for its dtype), and dK/dV and dQ
+    in f32 the chunked backward (``bigdl_flash_bwd_dkv`` and
+    ``bigdl_flash_bwd_dq`` at the same padded D, counted under
+    ``LAUNCHES_DKV_CHUNKED`` and ``LAUNCHES_DQ_CHUNKED``), in bf16 the wide
+    route at D as it is.  ``fwd`` and ``bwd`` are the head dims the Hopper
+    kernels run at (None: above the built ones).  The outputs are cut
+    back to D.  An f32 launch of each pass at 192 or 256 also counts
+    under that pass's counter for the head dim."""
     calls = _record_launches(monkeypatch)
     q, k, v, d_o = (torch.zeros(1, 2, 16, D, dtype=dtype) for _ in range(4))
     counters = (fa.LAUNCHES_F32, fa.LAUNCHES_DKV_F32, fa.LAUNCHES_DQ_F32)
     per_dim = [{d: c.count for d, c in by.items()} for by in counters]
-    chunked = {dt: c.count for dt, c in fa.LAUNCHES_CHUNKED.items()}
+    chunked_counters = (fa.LAUNCHES_CHUNKED, fa.LAUNCHES_DKV_CHUNKED,
+                        fa.LAUNCHES_DQ_CHUNKED)
+    chunked = [{dt: c.count for dt, c in by.items()}
+               for by in chunked_counters]
     o, lse = fa._flash_cuda(q, k, v, True, 0.1)
     grads = fa._flash_bwd_cuda(q, k, v, o, lse, d_o, True, 0.1)
     for by, before, at in zip(counters, per_dim, (fwd, bwd, bwd)):
         assert {d: c.count - before[d] for d, c in by.items()} == {
             d: int(dtype == torch.float32 and d == at) for d in before}
-    assert {dt: c.count - chunked[dt]
-            for dt, c in fa.LAUNCHES_CHUNKED.items()} == {
-        dt: int(dt == dtype and fwd is None) for dt in chunked}
+    for by, before, either in zip(chunked_counters, chunked,
+                                  (True, False, False)):
+        assert {dt: c.count - before[dt] for dt, c in by.items()} == {
+            dt: int(dt == dtype and fwd is None
+                    and (either or dt == torch.float32)) for dt in before}
+    wide = bwd is None and dtype == torch.bfloat16
     names = [c[0] for c in calls]
     assert names == [
         "bigdl_flash_fwd",
-        *(["bigdl_wide_bwd_dkv", "bigdl_wide_bwd_dq"] if bwd is None
+        *(["bigdl_wide_bwd_dkv", "bigdl_wide_bwd_dq"] if wide
           else ["bigdl_flash_bwd_dkv", "bigdl_flash_bwd_dq"])]
     # every entry ends (..., D, dtype, sm_scale, causal)
-    assert [c[1][-4] for c in calls] == [fwd or -(-D // 64) * 64] \
-        + [bwd or D] * 2
+    padded = -(-D // 64) * 64
+    assert [c[1][-4] for c in calls] == [fwd or padded] \
+        + [bwd or (D if wide else padded)] * 2
     for t in (o, *grads):
         assert t.shape == (1, 2, 16, D)
 
