@@ -27,7 +27,7 @@ per-warpgroup flags, the live rows of each partial pair and a
 heaviest-first block order; K6 reads the 128-row query lists
 (``dq_blocks``) in both dtypes, in f32 on K1's f32 body (each f32 product
 formed from bf16 wgmma products on bf16 pieces of its operands).  K7 and
-K8 at head dims 192 and 256, and in f32 (K2's and K3's f32 bodies, split
+K8 above head dim 128, and in f32 (K2's and K3's f32 bodies, split
 products too), own 64 rows a block and read the lists per 64-row tile.
 The f32 K6-K8 at head dims 192 and 256 stream each 64-row list step as
 two 32-row tiles.  The tables go to the card once per (mask, causal,
@@ -35,13 +35,12 @@ device) and stay cached: no launch uploads anything.  Above the built
 head dims (256) K6 runs the chunked forward of ``csrc/attn_fwd_hopper.cuh``
 over the same 128-row query lists (D zero-padded to a multiple of 64,
 q and K streamed in 64-column panels, O kept 256 columns a block; a
-partial pair's live rows staged for every panel), and in f32 K7 and K8
-the chunked backward of ``csrc/attn_bwd_hopper.cuh`` over the 64-row
-key and query lists (at the forward's padded D, the scores summed over
+partial pair's live rows staged for every panel), and K7 and K8 the
+chunked backward of ``csrc/attn_bwd_hopper.cuh`` over the 64-row key
+and query lists (at the forward's padded D, the scores summed over
 64-column panels, dK/dV and dQ kept 256 columns a block; a partial
-pair's live rows staged for every panel and chunk operand); in bf16 K7
-and K8 take the wide route of ``flash_attention``
-(``csrc/attn_wide.cu``) under the block mask.
+pair's live rows staged for every panel and chunk operand), both in
+either dtype.
 
 ``block_sparse_attention`` and ``block_sparse_matmul`` are
 ``torch.autograd.Function``s, the counterparts of the ``custom_vjp``s
@@ -49,11 +48,11 @@ and K8 take the wide route of ``flash_attention``
 versions (``_bs_attention_plain``, ``_bs_bwd_plain``, ``_bs_mm_plain``:
 the kernels' math in PyTorch, masking with a select); for CUDA tensors
 they launch the kernels or raise, forward and backward.  Any block size
-that tiles the sequence (or the weight), any head dim (padded, or the
-backward taken wide, as ``flash_attention`` does), any B*H, float32 or
-bfloat16.  K9 takes its Hopper route (TMA + wgmma) in bf16 at blocks
-that are multiples of 16 and its tile route otherwise (``_mm_plan``), W
-in either orientation, so dX reads W in place.
+that tiles the sequence (or the weight), any head dim (padded as
+``flash_attention`` pads it), any B*H, float32 or bfloat16.  K9 takes its
+Hopper route (TMA + wgmma) in bf16 at blocks that are multiples of 16 and
+its tile route otherwise (``_mm_plan``), W in either orientation, so dX
+reads W in place.
 """
 from __future__ import annotations
 
@@ -72,8 +71,7 @@ from .flash_attention import (_DTYPE_CODE, _F, _I, _P, FIRST_HEAD, HEADS,
                               _check_lse, _chunked_counter, _cut_head_dim,
                               _bwd_head_dim, _bwd_operands, _empty,
                               _f32_counter, _fwd_head_dim, _kernel_operands,
-                              _launch_heads, _pad_head_dim, _strides_arg,
-                              _takes_wide_route, _wide_dkv, _wide_dq)
+                              _launch_heads, _pad_head_dim, _strides_arg)
 
 __all__ = ["BlockMask", "block_sparse_attention", "block_sparse_matmul",
            "sliding_window_mask", "strided_mask", "magnitude_block_mask",
@@ -101,11 +99,13 @@ LAUNCHES_CHUNKED = {dt: LaunchCounter(f"block_sparse_fwd {name} D > 256")
                     for dt, name in ((torch.bfloat16, "bf16"),
                                      (torch.float32, "f32"))}
 #: the launches of K7 and K8, among those above, at head dims above 256
-#: on the chunked backward, by dtype (f32; no model path runs them)
-LAUNCHES_DKV_CHUNKED = {torch.float32: LaunchCounter(
-    "block_sparse_bwd_dkv f32 D > 256")}
-LAUNCHES_DQ_CHUNKED = {torch.float32: LaunchCounter(
-    "block_sparse_bwd_dq f32 D > 256")}
+#: on the chunked backward, by dtype (no model path runs them)
+LAUNCHES_DKV_CHUNKED = {
+    dt: LaunchCounter(f"block_sparse_bwd_dkv {name} D > 256")
+    for dt, name in ((torch.bfloat16, "bf16"), (torch.float32, "f32"))}
+LAUNCHES_DQ_CHUNKED = {
+    dt: LaunchCounter(f"block_sparse_bwd_dq {name} D > 256")
+    for dt, name in ((torch.bfloat16, "bf16"), (torch.float32, "f32"))}
 LAUNCHES_MM = LaunchCounter("block_sparse_mm")
 #: the K9 launches, among those above, that took the tile route
 LAUNCHES_MM_TILE = LaunchCounter("block_sparse_mm_tile")
@@ -471,8 +471,8 @@ def _attention_tables(mask: BlockMask, causal: bool, device):
     device): the 128-row block lists of K6 in both dtypes and of the bf16
     K8 (``dq_blocks``) and of the bf16 K7 (``dkv_blocks``), the 64-row
     block lists of K8 (``dq_tiles``) and K7 (``dkv_tiles``) at bf16 head
-    dims 192 and 256 and in f32, and the runtime block mask (uint8) for
-    partial pairs and the wide route."""
+    dims 192 and 256, above 256 and in f32, and the runtime block mask
+    (uint8) for partial pairs."""
     def make():
         visited, partial = _tile_tables(mask, causal)
         dq_blocks, dkv_blocks = _block_tables(mask, causal, visited, partial)
@@ -601,11 +601,6 @@ def _table_args(tab, which: str, mask: BlockMask, q, k, operands):
             _DTYPE_CODE[q.dtype]]
 
 
-def _wide_block_mask(tab, mask: BlockMask):
-    """The wide route's mask arguments: the runtime block mask, bq, bk."""
-    return tab["block_mask"], mask.block_q, mask.block_k
-
-
 def _bs_fwd_cuda(q, k, v, mask: BlockMask, causal: bool, sm_scale: float
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Launch K6 on the current stream of q's device (a head dim between
@@ -617,8 +612,7 @@ def _bs_fwd_cuda(q, k, v, mask: BlockMask, causal: bool, sm_scale: float
     tab = _attention_tables(mask, causal, q.device)
     D_true = q.shape[-1]
     Dp = _fwd_head_dim(D_true)
-    q, k, v = _kernel_operands(*(_pad_head_dim(t, Dp) for t in (q, k, v)),
-                               tma=True)
+    q, k, v = _kernel_operands(*(_pad_head_dim(t, Dp) for t in (q, k, v)))
     B, H, T, D = q.shape
     o = _empty(q)
     lse = _empty(q, (B * H, 1, T), torch.float32)
@@ -640,9 +634,6 @@ def _launch_bs_dkv(q, k, v, do, lse, delta, mask: BlockMask, causal: bool,
     query reads."""
     tab = _attention_tables(mask, causal, q.device)
     B, H, T, D = q.shape
-    if _takes_wide_route(D, q.dtype):
-        return _wide_dkv(q, k, v, do, lse, delta, causal, sm_scale,
-                         LAUNCHES_DKV, _wide_block_mask(tab, mask))
     q, k, v, do = _bwd_operands(q, k, v, do)
     dk, dv = _empty(k), _empty(v)
     _launch_heads("block_sparse_bwd_dkv",
@@ -662,9 +653,6 @@ def _launch_bs_dq(q, k, v, do, lse, delta, mask: BlockMask, causal: bool,
     read as it reads them."""
     tab = _attention_tables(mask, causal, q.device)
     B, H, T, D = q.shape
-    if _takes_wide_route(D, q.dtype):
-        return _wide_dq(q, k, v, do, lse, delta, causal, sm_scale,
-                        LAUNCHES_DQ, _wide_block_mask(tab, mask))
     q, k, v, do = _bwd_operands(q, k, v, do)
     dq = _empty(q)
     _launch_heads("block_sparse_bwd_dq",
@@ -682,14 +670,13 @@ def _bs_bwd_cuda(q, k, v, o, lse, d_o, mask: BlockMask, causal: bool,
                  sm_scale: float
                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Launch K7 then K8 on the current stream of q's device (a head dim
-    between the built ones zero-padded, above them in f32 padded to a
-    multiple of 64 for the chunked backward, the gradients cut back; in
-    bf16 above them the wide route)."""
+    between the built ones zero-padded, above them padded to a multiple
+    of 64 for the chunked backward, the gradients cut back)."""
     _check_kernel_inputs("block_sparse_attention backward", q, k, v)
     _check_lse("block_sparse_attention backward", lse)
     do, delta = _bwd_inputs(q, o, d_o)
     D = q.shape[-1]
-    Dp = _bwd_head_dim(D, q.dtype)
+    Dp = _bwd_head_dim(D)
     q, k, v, do = (_pad_head_dim(t, Dp) for t in (q, k, v, do))
     dk, dv = _launch_bs_dkv(q, k, v, do, lse, delta, mask, causal, sm_scale)
     dq = _launch_bs_dq(q, k, v, do, lse, delta, mask, causal, sm_scale)

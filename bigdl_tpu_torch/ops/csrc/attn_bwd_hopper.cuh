@@ -1,8 +1,8 @@
 // The attention backward for Hopper (sm_90a): the dK/dV and dQ kernels
 // that flash_bwd.cu runs as K2 and K3 and block_sparse.cu as K7 and K8, in
-// bf16 and in f32 (D 16-256; in f32 above 256 too).  Both pairs compute the same
-// math; only the sweep differs, so the body is written once here and
-// templated on a sweep policy.
+// bf16 and in f32, at every head dim (above 256 chunked).  Both pairs
+// compute the same math; only the sweep differs, so the body is written
+// once here and templated on a sweep policy.
 //
 // What they compute (the TPU kernels `_dkv_kernel` / `_dq_kernel` of
 // bigdl_tpu/ops/flash_attention.py and `_bs_dkv_kernel` / `_bs_dq_kernel` of
@@ -93,17 +93,32 @@
 //     are of 32 keys, 16 a warpgroup (m64n16 products), split in place:
 //     one stage, 230,448 B at D 256.  Each warpgroup keeps all of dQ (D /
 //     2 f32) beside one k16 step's pieces of its A operand.
-//   * dK/dV and dQ in f32 above D 256 (bwd_dkv_chunk_kernel,
+//   * dK/dV and dQ above D 256, both dtypes (bwd_dkv_chunk_kernel,
 //     bwd_dq_chunk_kernel): design (a) of the chunked forward
-//     (attn_fwd_hopper.cuh) carried to the 64-row WIDE blocks above.  Own
-//     rows at D 512 would take 256 KB, so they stream with each 32-row
-//     tile in 64-column panels through a ring; S^T and dP^T (or S and dP)
-//     are summed over the panels, a fresh partial per k16 step as at D
-//     256, and a block keeps 256 columns of its output (dV in warpgroup 0
-//     and dK in 1, or dQ in both: D / 2 = 128 f32 a thread, the D 256
-//     budget), the chunks of a head in blocks of their own, each forming
-//     the scores anew.  The tile's chunk operands land in a slot of their
-//     own.  One instantiation per pass and sweep for every D.
+//     (attn_fwd_hopper.cuh) carried to the 64-row blocks above.  Own rows
+//     at D 512 would take 256 KB in f32 (128 KB in bf16), so they stream
+//     with each tile in 64-column panels through a ring; S^T and dP^T (or
+//     S and dP) are summed over the panels, and a block keeps 256 columns
+//     of its output (dV in warpgroup 0 and dK in 1, or dQ in both: D / 2
+//     = 128 f32 a thread, the D 256 budget), the chunks of a head in
+//     blocks of their own, each forming the scores anew.  The tile's chunk
+//     operands land in a slot of their own.  One instantiation per pass,
+//     dtype and sweep for every D.  f32 streams the WIDE blocks' 32-row
+//     tiles (each tile and chunk operand split in place, a fresh score
+//     partial per k16 step; 2 or 3 stages of 56 KB).  bf16 has no pieces:
+//     one wgmma product a k16 step, each panel read by wgmma as it lands,
+//     and one f32 score accumulator over the panels, chained stage behind
+//     stage as the bf16 forward chains S (bf16's 7e-3 limit asks for no
+//     fresh partial), with the work split of the bf16 64-row blocks: dV in
+//     warpgroup 0 and dK in 1 with P^T handed over in shared memory, dQ
+//     split by keys as in f32 (m64n32 scores, nothing crossing per tile).
+//     What the layout is chosen for: the own rows are re-read from L2 for
+//     every tile, so bf16 streams 64-row tiles (m64n64 scores for dK/dV),
+//     which halves that traffic against 32-row ones and, at 32 KB a stage,
+//     still leaves room for 4 stages beside 64 KB of chunk operands and
+//     P^T (214,616 B for dK/dV); 128-row tiles would put 64 score f32 a
+//     thread beside the 128 of the chunk, past the consumers' 224
+//     registers (producer 56 + 2 * 224 = 504).
 //   * A zero-filled row scores 0 and exp(0 - LSE) is not 0, so the masks
 //     (causal, ragged, block) are applied on edge and partial tiles.
 //
@@ -1510,44 +1525,48 @@ bwd_dq_split_kernel(const __grid_constant__ CUtensorMap tm_q,
                  sm_scale, causal, H, h0, sw);
 }
 
-// ---- the f32 backward above head dim 256 --------------------------------------
+// ---- the backward above head dim 256 ------------------------------------------
 //
 // See the note at the top.  A block owns 64 rows (key rows for dK/dV,
 // query rows for dQ) and keeps kChunkCols columns of its output, the chunk
 // chunk_of gives it (hopper_common.cuh); the chunks of a head are blocks of
-// their own.  For each 32-row streamed tile (query rows for dK/dV, key rows
-// for dQ) it forms the scores anew over all of D from kChunkPanel-column
-// panels that stream through a ring: a stage holds panel p of the two own
-// operands (K and V, or Q and dO; f32, split into wgmma's register operand
-// as they are read, as wide_scores does) and of the tile's two (Q and dO,
-// or K and V; split in place, split_tile), 56 KB.  Then the tile's chunk operands
-// (dO and Q for dV and dK, K for dQ: 32 rows by the chunk's 256 columns,
-// split in place, 48 KB each) land in a slot of their own.  So one
-// instantiation per pass and sweep serves every D above 256 (the panel
-// count is an argument), and every chunk forms the same scores bit for
-// bit: up to the epilogue a chunk's code differs only in which columns of
-// its chunk operands it reads.
+// their own.  For each streamed tile (query rows for dK/dV, key rows for
+// dQ: 32 rows in f32, 64 in bf16) it forms the scores anew over all of D
+// from kChunkPanel-column panels that stream through a ring: a stage holds
+// panel p of the two own operands (K and V, or Q and dO; in f32 split into
+// wgmma's register operand as they are read, as wide_scores does) and of
+// the tile's two (Q and dO, or K and V; in f32 split in place,
+// split_tile).  Then the tile's chunk operands (dO and Q for dV and dK, K
+// for dQ: the tile's rows by the chunk's 256 columns, in f32 split in
+// place) land in a slot of their own.  So one instantiation per pass,
+// dtype and sweep serves every D above 256 (the panel count is an
+// argument), and every chunk forms the same scores bit for bit: up to the
+// epilogue a chunk's code differs only in which columns of its chunk
+// operands it reads.
 
 // The ring and the chunk slot of the chunked dK/dV (kDkv) or dQ over
-// operands of type T (the chunk plan, the producer and the launch take
-// either; the consumers are f32's).  TMA lands a panel in boxes of TMA's
-// panel width (L: 32 f32 columns, 128-byte rows): an own panel as boxes of
-// 64 rows (LPANEL_OWN apart), a tile panel as boxes of 32 rows (LPANEL_T
-// apart), a chunk operand as boxes of 32 rows; in f32 with room after the
+// operands of type T.  TMA lands a panel in boxes of TMA's panel width (L:
+// 64 bf16 or 32 f32 columns, 128-byte rows): an own panel as boxes of 64
+// rows (LPANEL_OWN apart), a tile panel as boxes of TR rows (LPANEL_T
+// apart), a chunk operand as boxes of TR rows; in f32 with room after the
 // tile panel and the chunk operand for their third pieces.  f32 dK/dV: 2
-// stages, the dO and Q chunk operands and P^T (222,520 B); f32 dQ: 3
-// stages and the K chunk operand (222,536 B).
+// stages of 56 KB, the dO and Q chunk operands (48 KB each) and P^T
+// (222,520 B); f32 dQ: 3 stages and the K chunk operand (222,536 B).  bf16
+// streams 64-row tiles (m64n64 scores: the own rows, re-read for every
+// tile, take half the stages they would at 32 rows): 4 stages of 32 KB,
+// dK/dV with the dO and Q chunk operands (32 KB each) and P^T (214,616 B),
+// dQ with the K chunk operand (165,464 B).
 template <bool kDkv, typename T = float>
 struct BwdChunkCfg {
   using L = Panels<kChunkPanel, sizeof(T)>;
   static constexpr int E = sizeof(T);
   static constexpr int THIRD = kIsBf16<T> ? 0 : 2;   // bytes of a third piece an element
-  static constexpr int TR = kWideRows;                          // rows of a streamed tile
+  static constexpr int TR = kIsBf16<T> ? kTileRows : kWideRows;   // rows of a streamed tile
   static constexpr int OWN_PANEL = kTileRows * kChunkPanel * E;    // an own panel
   static constexpr int TILE_LOAD = TR * kChunkPanel * E;           // a tile panel's bytes
   static constexpr int TILE_PANEL = TR * kChunkPanel * (E + THIRD);   // and its third pieces
   static constexpr int STAGE = 2 * OWN_PANEL + 2 * TILE_PANEL;
-  static constexpr int STAGES = kDkv ? 2 : 3;
+  static constexpr int STAGES = kIsBf16<T> ? 4 : kDkv ? 2 : 3;
   static constexpr int CHUNK_LOAD = TR * kChunkCols * E;
   static constexpr int CHUNK_BYTES = TR * kChunkCols * (E + THIRD);
   static constexpr int CHUNKS = kDkv ? 2 : 1;                      // chunk operands
@@ -1564,14 +1583,14 @@ struct BwdChunkCfg {
 };
 
 // registers after the hand-over: the consumers keep 128 f32 of their
-// chunk beside a tile's scores and one k16 step's pieces; the producer
-// warp stages rows (list sweeps) and LSE and delta (dK/dV), and the list
-// dK/dV's spills in 40
+// chunk beside a tile's scores (and in f32 one k16 step's pieces); the
+// producer warp stages rows (list sweeps) and LSE and delta (dK/dV), and
+// the f32 list dK/dV's spills in 40
 constexpr int kChunkBwdProducerRegs = 56;
 constexpr int kChunkBwdConsumerRegs = 224;
 
 // The producer warp of the chunked dK/dV (kDkv) or dQ: for each of the n
-// 32-row tiles of block b, its np panels into the stage ring (own rows
+// streamed tiles of block b, its np panels into the stage ring (own rows
 // own0 .. of own_a and own_b, the tile's rows of tile_a and tile_b), and
 // after the first STAGES of them its chunk operands (columns col0 ..) into
 // the chunk slot: dO and Q (tile_b, tile_a) for dK/dV, with the tile's LSE
@@ -1609,9 +1628,13 @@ __device__ __forceinline__ void bwd_chunk_produce(
       if (p == C::STAGES) {   // the tile's chunk operands
         mbar_wait(empty_c, (it & 1) ^ 1);   // the first round passes
         if constexpr (kDkv) {
-          const bool in = r0 + lane < tile_len;
-          lse_s[lane] = (in ? lse[r0 + lane] : BIG_LSE) * kLog2e;
-          delta_s[lane] = in ? delta[r0 + lane] : 0.0f;
+#pragma unroll
+          for (int i = 0; i < TR / 32; ++i) {
+            const int c = lane + 32 * i;
+            const bool in = r0 + c < tile_len;
+            lse_s[c] = (in ? lse[r0 + c] : BIG_LSE) * kLog2e;
+            delta_s[c] = in ? delta[r0 + c] : 0.0f;
+          }
         }
         bool staged = false;
         if constexpr (Sweep::kList) {
@@ -1991,6 +2014,326 @@ __device__ __forceinline__ void dq_chunk_consume(const Sweep& sw, unsigned char*
       }
 }
 
+// The scores of one streamed tile of a bf16 chunked consumer, over the np
+// ring stages from stage si (the stages read so far) on: `products(stage,
+// first)` issues a stage's wgmma (the first overwriting its accumulators),
+// chained behind the stage before's into the same f32 accumulators, and a
+// stage is released once its products are done, after the next stage's
+// are issued (wgmma_wait<1>), as the bf16 chunked forward sums S.  Done
+// when it returns; the caller fences the accumulators.
+template <class C, class Products>
+__device__ __forceinline__ void chunk_stage_scores(unsigned char* stages, uint64_t* full,
+                                                   uint64_t* empty, int si, int np,
+                                                   Products&& products) {
+  mbar_wait(&full[si % C::STAGES], (si / C::STAGES) & 1);
+  wgmma_fence();
+  products(stages + (si % C::STAGES) * C::STAGE, true);
+  wgmma_commit();
+#pragma unroll 1
+  for (int p = 1; p < np; ++p) {
+    const int s = (si + p) % C::STAGES;
+    mbar_wait(&full[s], ((si + p) / C::STAGES) & 1);
+    wgmma_fence();
+    products(stages + s * C::STAGE, false);
+    wgmma_commit();
+    wgmma_wait<1>();   // the stage before is read
+    mbar_arrive(&empty[(si + p - 1) % C::STAGES]);
+  }
+  wgmma_wait<0>();
+  mbar_arrive(&empty[(si + np - 1) % C::STAGES]);
+}
+
+// The two consumer warpgroups of the chunked bf16 dK/dV, over the block's
+// 64 key rows k0 .. k0 + 63 (this thread holds rows key0 and key0 + 8 of
+// each accumulator, whose columns are the tile's query rows):
+// dkv_split_consume's split of the work at D 192 and 256, with D in
+// panels.  Per stage warpgroup 0 adds the products of its K and Q panels
+// to S^T = K . Q^T and warpgroup 1 those of its V and dO panels to dP^T =
+// V . dO^T, both operands read from the stage, one f32 accumulator over
+// the panels (chunk_stage_scores); then, from the chunk slot, warpgroup 0
+// forms P^T, hands it to 1 in f32 (pt_s, kPtFull and kPtEmpty as in
+// dkv_split_consume) and adds P^T . dO to dV's chunk; warpgroup 1 forms
+// dS^T = P^T * (dP^T - delta) (a dead key row's NaN in dP^T replaced by
+// delta first) and adds dS^T . Q to dK's; P^T and dS^T packed to bf16 as
+// the register A operand, dO and Q read MN-major.  The epilogue writes the
+// chunk's own columns of dV (0) or dK * sm_scale (1), in bf16.
+template <class Sweep>
+__device__ __forceinline__ void dkv_chunk_bf16_consume(
+    const Sweep& sw, unsigned char* stages, const unsigned char* chunk_s, float* pt_s,
+    const float* lse_s, const float* delta_s, const Step* step_s, uint64_t* full,
+    uint64_t* empty, uint64_t* full_c, uint64_t* empty_c, __nv_bfloat16* __restrict__ dk,
+    __nv_bfloat16* __restrict__ dv, int bh, int b, int n, int np, int chunk, int T_len,
+    int S_len, float scale_log2, float sm_scale, int causal) {
+  using C = BwdChunkCfg<true, __nv_bfloat16>;
+  using P = Panels<kChunkCols>;   // the chunk's panels
+  constexpr int TR = C::TR;
+  static_assert(TR == kTileRows, "a sweep step is one bf16 tile");
+  const int wg = threadIdx.x / 128;
+  const int tid = threadIdx.x % 128;
+  const int warp = tid / 32;
+  const int lane = threadIdx.x % 32;
+  const int t = lane % 4;
+  const int k0 = b * kTileRows;
+  const int key0 = k0 + 16 * warp + lane / 4;
+  // this warpgroup's operands: K and the Q panel (0), V and the dO panel
+  // (1) in a stage; the dO (0) or Q (1) chunk operand.  The products take
+  // them by warpgroup, not in branches: a wgmma on a divergent path is
+  // serialised (ptxas C7520).
+  const int own_off = wg * C::OWN_PANEL;
+  const int tile_off = 2 * C::OWN_PANEL + wg * C::TILE_PANEL;
+  const unsigned char* ct = chunk_s + wg * C::CHUNK_BYTES;
+
+  float acc[kChunkCols / 2];   // dV (warpgroup 0) or dK (1): 64 x the chunk
+#pragma unroll
+  for (int i = 0; i < kChunkCols / 2; ++i) acc[i] = 0.0f;
+
+  for (int it = 0; it < n; ++it) {
+    float sc[TR / 2];   // S^T (warpgroup 0) or dP^T (1)
+    chunk_stage_scores<C>(stages, full, empty, it * np, np,
+                          [&](const unsigned char* st, bool first) {
+                            chunk_scores_bf16<TR>(sc, st + own_off, st + tile_off, first);
+                          });
+#pragma unroll
+    for (int i = 0; i < TR / 2; ++i) fence_regs(sc[i]);
+
+    mbar_wait(full_c, it & 1);
+    Step step;
+    if constexpr (Sweep::kList) step = *step_s;   // staged by the producer
+    else step = sw.dkv_step(b, it, kTileRows);
+    const int q0 = step.tile * TR;
+    const bool part = Sweep::kList && (step.flags & kPartial);
+    const bool edge = part || q0 + TR > T_len || (causal && q0 < k0 + 63);
+    uint32_t a[TR / 4];
+    if (wg == 0) {
+      // P^T, masked as dkv_split_consume masks it (element i: query row q0
+      // + c, c = 8 (i / 4) + 2 t + (i & 1), key row key0 + 8 ((i >> 1) & 1))
+#pragma unroll
+      for (int i = 0; i < TR / 2; ++i)
+        sc[i] = exp2f(fmaf(sc[i], scale_log2, -lse_s[8 * (i / 4) + 2 * t + (i & 1)]));
+      if (edge) {
+#pragma unroll
+        for (int i = 0; i < TR / 2; ++i) {
+          const int q = q0 + 8 * (i / 4) + 2 * t + (i & 1);
+          const int key = key0 + 8 * ((i >> 1) & 1);
+          if (q >= T_len || (causal && key > q)) sc[i] = 0.0f;
+        }
+        if constexpr (Sweep::kList) {
+          if (part) {
+#pragma unroll
+            for (int i = 0; i < TR / 2; ++i) {
+              const int q = q0 + 8 * (i / 4) + 2 * t + (i & 1);
+              const int key = key0 + 8 * ((i >> 1) & 1);
+              if (q < T_len && (key >= S_len || !sw.keep(q, key))) sc[i] = 0.0f;
+            }
+          }
+        }
+      }
+      if (it > 0) named_barrier_sync(kPtEmpty, kConsumers);
+#pragma unroll
+      for (int i = 0; i < TR / 2; ++i) pt_s[i * 128 + tid] = sc[i];
+      named_barrier_arrive(kPtFull, kConsumers);
+#pragma unroll
+      for (int i = 0; i < TR / 4; ++i) a[i] = pack_bf16x2(sc[2 * i], sc[2 * i + 1]);
+    } else {
+      named_barrier_sync(kPtFull, kConsumers);
+      // dS^T = P^T * (dP^T - delta) in bf16; where P^T is 0 on an edge or
+      // partial tile, dP^T (NaN from a dead key row of V) is replaced by
+      // delta first, so that dS^T is 0 by select
+#pragma unroll
+      for (int i = 0; i < TR / 4; ++i) {
+        const int c = 8 * (i / 2) + 2 * t;
+        float ds[2];
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const float pv = pt_s[(2 * i + e) * 128 + tid];
+          const float dp = edge && pv == 0.0f ? delta_s[c + e] : sc[2 * i + e];
+          ds[e] = pv * (dp - delta_s[c + e]);
+        }
+        a[i] = pack_bf16x2(ds[0], ds[1]);
+      }
+      if (it + 1 < n) named_barrier_arrive(kPtEmpty, kConsumers);
+    }
+    // dV += P^T . dO (warpgroup 0), dK += dS^T . Q (1), over the chunk
+    wgmma_fence();
+    wgmma_accumulate<kChunkCols, C::LPANEL_T, TR / 16>(acc, a, ct);
+    wgmma_commit();
+    wgmma_wait<0>();
+#pragma unroll
+    for (int i = 0; i < kChunkCols / 2; ++i) fence_regs(acc[i]);
+    mbar_arrive(empty_c);
+  }
+
+  // epilogue: dV (warpgroup 0) or dK * sm_scale (1) in bf16, the chunk's
+  // own columns, two a store (element 4 j + 2 h of panel p: row key0 + 8
+  // h, column col0 + p PW + 8 j + 2 t)
+  const int D = np * kChunkPanel;
+  const Chunk ch = chunk_of(chunk, D);
+  __nv_bfloat16* out = (wg == 0 ? dv : dk) + (size_t)bh * S_len * D;
+  const float scale = wg == 0 ? 1.0f : sm_scale;
+#pragma unroll
+  for (int p = 0; p < P::NP; ++p)
+#pragma unroll
+    for (int j = 0; j < P::PW / 8; ++j)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int row = key0 + 8 * h;
+        const int col = ch.col0 + p * P::PW + 8 * j + 2 * t;
+        const float* v = acc + p * (P::PW / 2) + 4 * j + 2 * h;
+        if (row < S_len && col >= ch.lo && col < ch.hi)
+          *reinterpret_cast<uint32_t*>(out + (size_t)row * D + col) =
+              pack_bf16x2(v[0] * scale, v[1] * scale);
+      }
+}
+
+// The two consumer warpgroups of the chunked bf16 dQ, over the block's 64
+// query rows q0 .. q0 + 63 (this thread holds rows row0 and row0 + 8 of
+// each accumulator): each 64-key tile split by keys, as the f32 chunked dQ
+// splits it.  Per stage warpgroup w adds the products of the Q and dO
+// panels and keys 32 w .. 32 w + 31 of the K and V panels to S = Q . K^T
+// and dP = dO . V^T (m64n32, both operands read from the stage, one f32
+// accumulator each over the panels, chunk_stage_scores); then, from the
+// chunk slot, it forms P and dS = P * (dP - delta) over its keys in its own
+// registers (masked as the f32 chunked dQ masks them) and adds dS . K over
+// the same keys to its own sum of dQ's chunk, dS packed to bf16 as the
+// register A operand and K's chunk read MN-major: nothing crosses between
+// the warpgroups per tile.  The two sums meet once, at the end, in the
+// drained ring (kDqSum), added in one order for every element, and
+// warpgroup 0 writes the chunk's own columns of dQ * sm_scale in bf16.
+template <class Sweep>
+__device__ __forceinline__ void dq_chunk_bf16_consume(
+    const Sweep& sw, unsigned char* stages, const unsigned char* chunk_s, const Step* step_s,
+    uint64_t* full, uint64_t* empty, uint64_t* full_c, uint64_t* empty_c,
+    const float* __restrict__ lse, const float* __restrict__ delta,
+    __nv_bfloat16* __restrict__ dq, int bh, int b, int n, int np, int chunk, int T_len,
+    int S_len, float scale_log2, float sm_scale, int causal) {
+  using C = BwdChunkCfg<false, __nv_bfloat16>;
+  using P = Panels<kChunkCols>;   // the chunk's panels
+  constexpr int TR = C::TR;
+  constexpr int KH = TR / 2;      // the keys of a warpgroup's half of a tile
+  static_assert(TR == kTileRows, "a sweep step is one bf16 tile");
+  const int wg = threadIdx.x / 128;
+  const int tid = threadIdx.x % 128;
+  const int warp = tid / 32;
+  const int lane = threadIdx.x % 32;
+  const int t = lane % 4;
+  const int q0 = b * kTileRows;
+  const int row0 = q0 + 16 * warp + lane / 4;
+  // this warpgroup's keys in a tile panel and in the chunk operand
+  const int key_off = KH * wg * C::L::RB;
+
+  // this thread's two rows: LSE (times log2 e) and delta; rows past T
+  // read LSE = 1e30, so their P is 0
+  float lse_r[2], delta_r[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = row0 + 8 * h;
+    const bool in = row < T_len;
+    lse_r[h] = (in ? lse[(size_t)bh * T_len + row] : BIG_LSE) * kLog2e;
+    delta_r[h] = in ? delta[(size_t)bh * T_len + row] : 0.0f;
+  }
+  float acc[kChunkCols / 2];   // this warpgroup's keys' share of dQ's chunk
+#pragma unroll
+  for (int i = 0; i < kChunkCols / 2; ++i) acc[i] = 0.0f;
+
+  for (int it = 0; it < n; ++it) {
+    float sc[KH / 2], dp[KH / 2];
+    chunk_stage_scores<C>(stages, full, empty, it * np, np,
+                          [&](const unsigned char* st, bool first) {
+                            const unsigned char* kp = st + 2 * C::OWN_PANEL + key_off;
+                            chunk_scores_bf16<KH>(sc, st, kp, first);   // S = Q . K^T
+                            chunk_scores_bf16<KH>(dp, st + C::OWN_PANEL, kp + C::TILE_PANEL,
+                                                  first);               // dP = dO . V^T
+                          });
+#pragma unroll
+    for (int i = 0; i < KH / 2; ++i) {
+      fence_regs(sc[i]);
+      fence_regs(dp[i]);
+    }
+
+    mbar_wait(full_c, it & 1);
+    Step step;
+    if constexpr (Sweep::kList) step = *step_s;   // staged by the producer
+    else step = sw.dq_step(b, it, kTileRows);
+    const int kw = step.tile * TR + KH * wg;   // this warpgroup's first key
+    const bool part = Sweep::kList && (step.flags & kPartial);
+    const bool edge = part || kw + KH > S_len || (causal && kw + KH - 1 > q0);
+
+    // P = exp(S * scale - LSE), the masks first (a killed score to -inf);
+    // element i is query row row0 + 8 ((i >> 1) & 1), key column kw + 8
+    // (i / 4) + 2 t + (i & 1)
+    if (edge) {
+#pragma unroll
+      for (int i = 0; i < KH / 2; ++i) {
+        const int col = kw + 8 * (i / 4) + 2 * t + (i & 1);
+        if (col >= S_len || (causal && col > row0 + 8 * ((i >> 1) & 1))) sc[i] = -INFINITY;
+      }
+      if constexpr (Sweep::kList) {
+        if (part) {
+#pragma unroll
+          for (int i = 0; i < KH / 2; ++i) {
+            const int col = kw + 8 * (i / 4) + 2 * t + (i & 1);
+            const int row = row0 + 8 * ((i >> 1) & 1);
+            if (col < S_len && (row >= T_len || !sw.keep(row, col))) sc[i] = -INFINITY;
+          }
+        }
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < KH / 2; ++i) sc[i] = exp2f(fmaf(sc[i], scale_log2, -lse_r[(i >> 1) & 1]));
+    // dS = P * (dP - delta) in bf16; where P is 0 on an edge or partial
+    // tile, dP (NaN from a dead key row of V) is replaced by delta first
+    uint32_t a[KH / 4];
+#pragma unroll
+    for (int i = 0; i < KH / 4; ++i) {
+      float ds[2];
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const float pv = sc[2 * i + e];
+        const float d = delta_r[i & 1];
+        ds[e] = pv * ((edge && pv == 0.0f ? d : dp[2 * i + e]) - d);
+      }
+      a[i] = pack_bf16x2(ds[0], ds[1]);
+    }
+    // dQ += dS . K over this warpgroup's keys, the chunk's columns
+    wgmma_fence();
+    wgmma_accumulate<kChunkCols, C::LPANEL_T, KH / 16>(acc, a, chunk_s + key_off);
+    wgmma_commit();
+    wgmma_wait<0>();
+#pragma unroll
+    for (int i = 0; i < kChunkCols / 2; ++i) fence_regs(acc[i]);
+    mbar_arrive(empty_c);
+  }
+
+  // epilogue: warpgroup 1's share into the drained ring, added to
+  // warpgroup 0's; dQ * sm_scale in bf16, the chunk's own columns
+  float* share = reinterpret_cast<float*>(stages);
+  named_barrier_sync(kDqSum, kConsumers);
+  if (wg == 1) {
+#pragma unroll
+    for (int i = 0; i < kChunkCols / 2; ++i) share[i * 128 + tid] = acc[i];
+  }
+  named_barrier_sync(kDqSum, kConsumers);
+  if (wg != 0) return;
+#pragma unroll
+  for (int i = 0; i < kChunkCols / 2; ++i) acc[i] += share[i * 128 + tid];
+  const int D = np * kChunkPanel;
+  const Chunk ch = chunk_of(chunk, D);
+  __nv_bfloat16* out = dq + (size_t)bh * T_len * D;
+#pragma unroll
+  for (int p = 0; p < P::NP; ++p)
+#pragma unroll
+    for (int j = 0; j < P::PW / 8; ++j)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int row = row0 + 8 * h;
+        const int col = ch.col0 + p * P::PW + 8 * j + 2 * t;
+        const float* v = acc + p * (P::PW / 2) + 4 * j + 2 * h;
+        if (row < T_len && col >= ch.lo && col < ch.hi)
+          *reinterpret_cast<uint32_t*>(out + (size_t)row * D + col) =
+              pack_bf16x2(v[0] * sm_scale, v[1] * sm_scale);
+      }
+}
+
 // The shared memory of the chunked dK/dV (kDkv) or dQ: the stage ring, the
 // chunk slot, P^T (dK/dV), the tile's LSE and delta (dK/dV), the ring's
 // and the slot's barriers and, for a list sweep, the slot's step.  The
@@ -2040,14 +2383,14 @@ struct BwdChunkSmem {
   }
 };
 
-// dK/dV in f32 above head dim 256 (K2, K7): grid (chunk_count(D) chunks of
-// each of B*H heads, ceil(S / 64)); the sweep maps blockIdx.y to a block,
-// blockIdx.x is head * chunks + chunk, so a head's chunks run side by side
-// and share its operands in L2.  D is a multiple of kChunkPanel above
-// kChunkCols, the same instantiation at every such D.  The block's chunk,
-// head and tiles are worked out by the producer and the consumers each
-// after their setmaxnreg: values live across it are spilled.  T is the
-// operands' type; only f32 has its consumers.
+// dK/dV above head dim 256 (K2, K7) in T (bf16, or f32 on split
+// products): grid (chunk_count(D) chunks of each of B*H heads, ceil(S /
+// 64)); the sweep maps blockIdx.y to a block, blockIdx.x is head * chunks
+// + chunk, so a head's chunks run side by side and share its operands in
+// L2.  D is a multiple of kChunkPanel above kChunkCols, the same
+// instantiation at every such D.  The block's chunk, head and tiles are
+// worked out by the producer and the consumers each after their
+// setmaxnreg: values live across it are spilled.
 template <typename T, class Sweep>
 __global__ void __launch_bounds__(kBwdThreads, 1)
 bwd_dkv_chunk_kernel(const __grid_constant__ CUtensorMap tm_q,
@@ -2057,14 +2400,14 @@ bwd_dkv_chunk_kernel(const __grid_constant__ CUtensorMap tm_q,
                      const float* __restrict__ delta, T* __restrict__ dk, T* __restrict__ dv,
                      int T_len, int S_len, int D, float scale_log2, float sm_scale, int causal,
                      int H, int h0, int chunks, const Sweep sw) {
-  static_assert(!kIsBf16<T>, "the chunked backward's consumers are f32's");
+  constexpr int kSub = kTileRows / BwdChunkCfg<true, T>::TR;   // tiles a sweep step
   extern __shared__ unsigned char smem_raw[];
   BwdChunkSmem<true, T>(smem_raw).init();
   const auto where = [&](int& chunk, int& bh, int& b, int& n) {
     chunk = blockIdx.x % chunks;
     bh = h0 + blockIdx.x / chunks;
     b = sw.dkv_block();
-    n = sw.dkv_count(b, T_len, kTileRows) * (kTileRows / kWideRows);   // 0: dK = dV = 0
+    n = sw.dkv_count(b, T_len, kTileRows) * kSub;   // 0: dK = dV = 0
   };
   int chunk, bh, b, n;
   if (threadIdx.x >= kConsumers) {
@@ -2082,14 +2425,19 @@ bwd_dkv_chunk_kernel(const __grid_constant__ CUtensorMap tm_q,
     setmaxnreg_inc<kChunkBwdConsumerRegs>();
     const BwdChunkSmem<true, T> m(smem_raw);
     where(chunk, bh, b, n);
-    dkv_chunk_consume(sw, m.stages, m.chunk_s, m.pt_s, m.lse_s, m.delta_s, m.step_s, m.full,
-                      m.empty, m.full_c, m.empty_c, dk, dv, bh, b, n, D / kChunkPanel, chunk,
-                      T_len, S_len, scale_log2, sm_scale, causal);
+    if constexpr (kIsBf16<T>)
+      dkv_chunk_bf16_consume(sw, m.stages, m.chunk_s, m.pt_s, m.lse_s, m.delta_s, m.step_s,
+                             m.full, m.empty, m.full_c, m.empty_c, dk, dv, bh, b, n,
+                             D / kChunkPanel, chunk, T_len, S_len, scale_log2, sm_scale, causal);
+    else
+      dkv_chunk_consume(sw, m.stages, m.chunk_s, m.pt_s, m.lse_s, m.delta_s, m.step_s, m.full,
+                        m.empty, m.full_c, m.empty_c, dk, dv, bh, b, n, D / kChunkPanel, chunk,
+                        T_len, S_len, scale_log2, sm_scale, causal);
   }
 }
 
-// dQ in f32 above head dim 256 (K3, K8): grid (chunks of each of B*H
-// heads, ceil(T / 64)), as bwd_dkv_chunk_kernel.
+// dQ above head dim 256 (K3, K8) in T: grid (chunks of each of B*H heads,
+// ceil(T / 64)), as bwd_dkv_chunk_kernel.
 template <typename T, class Sweep>
 __global__ void __launch_bounds__(kBwdThreads, 1)
 bwd_dq_chunk_kernel(const __grid_constant__ CUtensorMap tm_q,
@@ -2099,14 +2447,14 @@ bwd_dq_chunk_kernel(const __grid_constant__ CUtensorMap tm_q,
                     const float* __restrict__ delta, T* __restrict__ dq, int T_len,
                     int S_len, int D, float scale_log2, float sm_scale, int causal, int H,
                     int h0, int chunks, const Sweep sw) {
-  static_assert(!kIsBf16<T>, "the chunked backward's consumers are f32's");
+  constexpr int kSub = kTileRows / BwdChunkCfg<false, T>::TR;   // tiles a sweep step
   extern __shared__ unsigned char smem_raw[];
   BwdChunkSmem<false, T>(smem_raw).init();
   const auto where = [&](int& chunk, int& bh, int& b, int& n) {
     chunk = blockIdx.x % chunks;
     bh = h0 + blockIdx.x / chunks;
     b = sw.dq_block();
-    n = sw.dq_count(b, S_len, kTileRows) * (kTileRows / kWideRows);   // 0: dQ = 0
+    n = sw.dq_count(b, S_len, kTileRows) * kSub;   // 0: dQ = 0
   };
   int chunk, bh, b, n;
   if (threadIdx.x >= kConsumers) {
@@ -2123,9 +2471,14 @@ bwd_dq_chunk_kernel(const __grid_constant__ CUtensorMap tm_q,
     setmaxnreg_inc<kChunkBwdConsumerRegs>();
     const BwdChunkSmem<false, T> m(smem_raw);
     where(chunk, bh, b, n);
-    dq_chunk_consume(sw, m.stages, m.chunk_s, m.step_s, m.full, m.empty, m.full_c, m.empty_c,
-                     lse, delta, dq, bh, b, n, D / kChunkPanel, chunk, T_len, S_len, scale_log2,
-                     sm_scale, causal);
+    if constexpr (kIsBf16<T>)
+      dq_chunk_bf16_consume(sw, m.stages, m.chunk_s, m.step_s, m.full, m.empty, m.full_c,
+                            m.empty_c, lse, delta, dq, bh, b, n, D / kChunkPanel, chunk, T_len,
+                            S_len, scale_log2, sm_scale, causal);
+    else
+      dq_chunk_consume(sw, m.stages, m.chunk_s, m.step_s, m.full, m.empty, m.full_c,
+                       m.empty_c, lse, delta, dq, bh, b, n, D / kChunkPanel, chunk, T_len,
+                       S_len, scale_log2, sm_scale, causal);
   }
 }
 
@@ -2219,7 +2572,7 @@ cudaError_t launch_dq_wgmma(const BwdArgs& a, const Sweep& sw) {
 
 // the chunked dK/dV (kDkv: out0 dK, out1 dV) or dQ (out0 dQ) over `sw` at a
 // head dim D above 256 (a multiple of kChunkPanel; the wrappers zero-pad
-// to one), operands of type T (f32)
+// to one), operands of type T (bf16 or f32)
 template <bool kDkv, typename T, class Sweep>
 cudaError_t launch_bwd_chunked(const BwdArgs& a, int D, const Sweep& sw) {
   using C = BwdChunkCfg<kDkv, T>;

@@ -842,18 +842,6 @@ __device__ __forceinline__ void chunk_produce(const Sweep& sw, const CUtensorMap
   }
 }
 
-// wgmma's products of S (this warpgroup's 64 rows, 64 keys) over one
-// bf16 ring stage: q rows at q, K's 64 rows at k, both one panel of
-// 128-byte rows; the first of them overwrites S where first.  Issued, not
-// waited.
-__device__ __forceinline__ void chunk_scores_bf16(float* sc, const unsigned char* q,
-                                                  const unsigned char* k, bool first) {
-#pragma unroll
-  for (int j = 0; j < kChunkPanel / 16; ++j)
-    wgmma_ss<kTileRows, 0>(sc, smem_desc<128>(q + 32 * j), smem_desc<128>(k + 32 * j),
-                           !first || j > 0);
-}
-
 // S += Q . K^T over one f32 ring stage: the stage's two 32-column panels of
 // this warpgroup's 64 q rows (f32, TMA's layout, LPANEL_Q apart) each split
 // into wgmma's register operand a k16 step at a time, against the 32 keys

@@ -67,12 +67,12 @@
 // with it).  Above D 256 K6 is K1's chunked forward (attn_fwd_hopper.cuh's
 // attn_fwd_chunk_kernel, one instantiation per dtype for every head dim)
 // over the same 128-row query lists, a partial pair's live rows staged for
-// every 64-column panel of K and for V's 256-column chunk; in f32 K7 and
-// K8 are K2's and K3's chunked backward (attn_bwd_hopper.cuh's
-// bwd_dkv_chunk_kernel, bwd_dq_chunk_kernel) over the 64-row key and
-// query lists, a partial pair's live rows staged for every panel and
-// chunk operand; in bf16 they take the wide route (attn_wide.cu).  On an
-// all-ones mask both dtypes give K1-K3's bits.
+// every 64-column panel of K and for V's 256-column chunk; K7 and K8 are
+// K2's and K3's chunked backward (attn_bwd_hopper.cuh's
+// bwd_dkv_chunk_kernel, bwd_dq_chunk_kernel, one instantiation per dtype)
+// over the 64-row key and query lists, a partial pair's live rows staged
+// for every panel and chunk operand.  On an all-ones mask both dtypes give
+// K1-K3's bits.
 //
 // K9 design.  At the flagship MLP shape (x 16384 x 1024 bf16, W 1024 x 4096
 // at density 0.5, block 128) it must do 68.7 GFLOP (0.069 ms) and move about
@@ -239,21 +239,17 @@ cudaError_t launch_attn(const AttnArgs& a) {
   return launch_wgmma<W, D, T>(a);
 }
 
-// Above head dim 256 (a multiple of 64): K6 in either dtype, the chunked
-// forward over the 128-row query lists, and K7 and K8 in f32, the chunked
-// backward over the 64-row key and query lists; one instantiation for
-// every D.  bf16 K7 and K8 take attn_wide.cu.
+// Above head dim 256 (a multiple of 64), in either dtype: K6 the chunked
+// forward over the 128-row query lists, K7 and K8 the chunked backward
+// over the 64-row key and query lists; one instantiation for every D.
 template <Which W, typename T>
 cudaError_t launch_chunked_list(int D, const AttnArgs& a) {
   if (a.order == nullptr || a.rows == nullptr) return cudaErrorInvalidValue;
   const ListSweep<T> sw = list_sweep<T>(a, W == Which::kDkv);
-  if constexpr (W == Which::kFwd) {
+  if constexpr (W == Which::kFwd)
     return launch_fwd_chunked<T>(fwd_args(a), D, sw);
-  } else if constexpr (kIsBf16<T>) {
-    return cudaErrorInvalidValue;
-  } else {
+  else
     return launch_bwd_chunked<W == Which::kDkv, T>(bwd_args(a), D, sw);
-  }
 }
 
 template <Which W, typename T>
@@ -326,9 +322,13 @@ int smem_of_d(int D, int dtype) {
   if (W == Which::kFwd)
     return dtype == 1 ? (int)ChunkCfg<__nv_bfloat16>::SMEM
                       : dtype == 0 ? (int)ChunkCfg<float>::SMEM : 0;
-  if (dtype != 0) return 0;
-  return (int)(W == Which::kDkv ? BwdChunkCfg<true, float>::SMEM
-                                : BwdChunkCfg<false, float>::SMEM);
+  if (dtype == 1)
+    return (int)(W == Which::kDkv ? BwdChunkCfg<true, __nv_bfloat16>::SMEM
+                                  : BwdChunkCfg<false, __nv_bfloat16>::SMEM);
+  if (dtype == 0)
+    return (int)(W == Which::kDkv ? BwdChunkCfg<true, float>::SMEM
+                                  : BwdChunkCfg<false, float>::SMEM);
+  return 0;
 }
 
 // ---------------------------------------------------------------------------

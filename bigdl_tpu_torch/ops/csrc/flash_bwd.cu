@@ -52,6 +52,17 @@
 //     K2's four products are 17.3 GFLOP, 17.5 us at 989 TFLOP/s, against
 //     50.5 MB, 15.1 us; K3's three 12.9 GFLOP, 13.0 us, against 42.1 MB,
 //     12.6 us.
+//   * Above D 256 (zero-padded by the wrapper to a multiple of 64) K2 and
+//     K3 run the chunked backward in bf16 as in f32 (below): 64 own rows a
+//     block and one 256-column chunk of dK/dV or dQ, the own rows and each
+//     64-row tile streamed in 64-column panels through 4 ring stages, the
+//     scores summed over them in one f32 accumulator.  At B 2, H 8, T
+//     1024, D 320, causal K2's four products are 21.5 GFLOP, 21.7 us at
+//     989 TFLOP/s, against 63.0 MB, 18.8 us; K3's three 16.1 GFLOP, 16.3
+//     us, against 52.6 MB, 15.7 us.  Each block re-reads its own rows from
+//     L2 for every tile (K2's TMA loads request 1.0 GB, K3's 0.86 GB),
+//     which holds them at 6.6x and 7.2x those bounds on an H100 (PERF.md;
+//     attn_bwd_hopper.cuh says how the tiles are sized for it).
 // q, k, v and dO are read at their own strides (the head-strided view of an
 // attention layer in place); the outputs are contiguous.
 //
@@ -75,10 +86,9 @@
 // the 32-row tiles stream in 64-column panels, the scores summed over
 // them, and a block keeps 256 columns of dK/dV or dQ, the chunks of a head
 // in blocks of their own; at D 320 (same shape) K2's four products are
-// 21.5 GFLOP as f32, 0.120 ms at 989 * 4 / 22, K3's 16.1, 0.098 ms.  bf16
-// above 256 takes attn_wide.cu.  K7 and K8
-// (block_sparse.cu) run the same f32 kernels over their tile lists, so on
-// an all-ones mask the two pairs agree bit for bit in f32.
+// 21.5 GFLOP as f32, 0.120 ms at 989 * 4 / 22, K3's 16.1, 0.098 ms.  K7
+// and K8 (block_sparse.cu) run the same kernels over their tile lists, so
+// on an all-ones mask the two pairs agree bit for bit in both dtypes.
 
 #include "attn_bwd_hopper.cuh"
 
@@ -146,12 +156,16 @@ int dispatch(bool dkv, int D, int dtype, const BwdArgs& a) {
     case 192: return (int)launch<192>(dkv, dtype, a);
     case 256: return (int)launch<256>(dkv, dtype, a);
   }
-  // above head dim 256 in f32: the chunked backward, one instantiation
-  // per pass for every D (a multiple of 64); bf16 takes attn_wide.cu
-  if (dtype != 0) return (int)cudaErrorInvalidValue;
+  // above head dim 256: the chunked backward, one instantiation per pass
+  // and dtype for every D (a multiple of 64)
   const DenseSweep sw{a.causal};
-  return (int)(dkv ? launch_bwd_chunked<true, float>(a, D, sw)
-                   : launch_bwd_chunked<false, float>(a, D, sw));
+  if (dtype == 1)
+    return (int)(dkv ? launch_bwd_chunked<true, __nv_bfloat16>(a, D, sw)
+                     : launch_bwd_chunked<false, __nv_bfloat16>(a, D, sw));
+  if (dtype == 0)
+    return (int)(dkv ? launch_bwd_chunked<true, float>(a, D, sw)
+                     : launch_bwd_chunked<false, float>(a, D, sw));
+  return (int)cudaErrorInvalidValue;
 }
 
 template <int D>
@@ -212,6 +226,10 @@ extern "C" int bigdl_flash_bwd_smem_bytes(int dkv, int D, int dtype) {
     case 192: return smem_of<192>(dkv != 0, dtype);
     case 256: return smem_of<256>(dkv != 0, dtype);
   }
-  if (dtype != 0 || D <= kChunkCols || D % kChunkPanel) return 0;
-  return (int)(dkv ? BwdChunkCfg<true, float>::SMEM : BwdChunkCfg<false, float>::SMEM);
+  if (D <= kChunkCols || D % kChunkPanel) return 0;
+  if (dtype == 1)
+    return (int)(dkv ? BwdChunkCfg<true, __nv_bfloat16>::SMEM
+                     : BwdChunkCfg<false, __nv_bfloat16>::SMEM);
+  if (dtype == 0) return (int)(dkv ? BwdChunkCfg<true, float>::SMEM : BwdChunkCfg<false, float>::SMEM);
+  return 0;
 }

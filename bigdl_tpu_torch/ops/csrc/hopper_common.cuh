@@ -830,8 +830,8 @@ __device__ __forceinline__ void wide_scores(float (&sc)[N / 2], const unsigned c
 // ---- head dims above 256: panels and chunks --------------------------------
 //
 // Above head dim 256 the attention kernels (attn_fwd_chunk_kernel in
-// attn_fwd_hopper.cuh, the f32 bwd_dkv_chunk_kernel and bwd_dq_chunk_kernel
-// in attn_bwd_hopper.cuh) stream the operands whose products sum over D in
+// attn_fwd_hopper.cuh, bwd_dkv_chunk_kernel and bwd_dq_chunk_kernel in
+// attn_bwd_hopper.cuh) stream the operands whose products sum over D in
 // panels of kChunkPanel columns, and a block keeps kChunkCols columns of
 // its output: the chunks of a head are blocks of their own.
 
@@ -853,6 +853,20 @@ __host__ __device__ inline Chunk chunk_of(int c, int D) {
 }
 
 __host__ __device__ inline int chunk_count(int D) { return (D + kChunkCols - 1) / kChunkCols; }
+
+// The bf16 chunked kernels' scores over one ring stage: wgmma's products
+// of a consumer warpgroup's 64 own rows at a and N rows of the streamed
+// tile at b (64 keys in the forward and dK/dV, a warpgroup's 32 in dQ),
+// both one kChunkPanel-column panel of 128-byte rows, into acc (m64 x N);
+// the first of them overwrites acc where `first`.  Issued, not waited.
+template <int N = kTileRows>
+__device__ __forceinline__ void chunk_scores_bf16(float* acc, const unsigned char* a,
+                                                  const unsigned char* b, bool first) {
+#pragma unroll
+  for (int j = 0; j < kChunkPanel / 16; ++j)
+    wgmma_ss<N, 0>(acc, smem_desc<128>(a + 32 * j), smem_desc<128>(b + 32 * j),
+                   !first || j > 0);
+}
 
 
 // ---- tensor maps (host) ----------------------------------------------------

@@ -1,7 +1,7 @@
 // Helpers shared by the port's kernels: the block shape of the FMA tile
 // loop left, K9's tile route (block_sparse.cu), one block of four warps;
-// element conversions, warp reductions (attn_wide.cu), the LSE sentinel
-// and the shared-memory opt-in that every kernel takes.  The attention
+// its element conversions, the LSE sentinel and the shared-memory opt-in
+// that every kernel takes.  The attention
 // kernels K1-K3 and K6-K8, K5 and K9's Hopper route are built on
 // hopper_common.cuh (TMA, mbarriers, wgmma), the attention kernels also on
 // attn_fwd_hopper.cuh and attn_bwd_hopper.cuh; in f32 the attention
@@ -38,16 +38,6 @@ template <typename T> __device__ __forceinline__ T from_f32(float x);
 template <> __device__ __forceinline__ float from_f32<float>(float x) { return x; }
 template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
   return __float2bfloat16(x);   // round to nearest even, as astype does
-}
-
-__device__ __forceinline__ float warp_max(float v) {
-  for (int off = 16; off > 0; off >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, off));
-  return v;
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
-  for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
-  return v;
 }
 
 // The dynamic shared-memory opt-in of `kernel`, made once per device, not

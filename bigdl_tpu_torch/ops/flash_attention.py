@@ -21,35 +21,27 @@ computes, what bounds it and how:
   registers) over the dense causal sweep; in f32 each f32 product is
   formed from bf16 wgmma products on three bf16 pieces of its operands
   (the streamed tiles split in place; the block's own rows too up to
-  D 128, into registers at 192 and 256); in f32 above head dim 256 the
-  chunked backward of the same header (``bwd_dkv_chunk_kernel``,
-  ``bwd_dq_chunk_kernel``): the scores summed over 64-column panels of
-  the own rows and the streamed tile through a ring, dK/dV or dQ kept
-  256 columns a block, the chunks of a head in blocks of their own;
-* bf16 dK/dV and dQ above the built head dims take the wide route,
-  ``csrc/attn_wide.cu``: one warp per output row, any D, under the dense
-  mask here and the block mask in ``block_sparse.py``.  A wide launch
-  counts under the counter of the kernel it stands for and under
-  ``LAUNCHES_WIDE``.
+  D 128, into registers at 192 and 256); above head dim 256, in both
+  dtypes, the chunked backward of the same header
+  (``bwd_dkv_chunk_kernel``, ``bwd_dq_chunk_kernel``): the scores summed
+  over 64-column panels of the own rows and the streamed tile through a
+  ring, dK/dV or dQ kept 256 columns a block, the chunks of a head in
+  blocks of their own.
 
-Routing by head dim D: the forward runs the Hopper bodies at 16, 32, 64,
-128, 192 and 256 (f32 on split products) and the chunked forward above
-256, at D zero-padded to a multiple of 64 (``_fwd_head_dim``: 300 runs
-at 320), counted under ``LAUNCHES_CHUNKED`` too; dK/dV and dQ run the
-Hopper bodies at the same built head dims and above 256 in f32 the
-chunked backward at the forward's padded D (counted under
-``LAUNCHES_DKV_CHUNKED`` and ``LAUNCHES_DQ_CHUNKED`` too), in bf16 the
-wide route at D as it is (``_bwd_head_dim``).  A head dim between the
-built ones is zero-padded to the next (160 runs at 192, 200 at 256) in
-every pass.
+Routing by head dim D, the same in all three passes and both dtypes: the
+Hopper bodies at 16, 32, 64, 128, 192 and 256 (f32 on split products), a
+head dim between them zero-padded to the next (160 runs at 192, 200 at
+256); above 256 the chunked forward and backward at D zero-padded to a
+multiple of 64 (``_fwd_head_dim``, ``_bwd_head_dim``: 300 runs at 320),
+counted under ``LAUNCHES_CHUNKED``, ``LAUNCHES_DKV_CHUNKED`` and
+``LAUNCHES_DQ_CHUNKED`` for their dtype too.  A head dim whose chunks,
+times the heads of a launch, outgrow a grid raises (``MAX_GRID_X``).
 
-Layouts: the Hopper kernels (K1-K3 in both dtypes, the chunked forward
-and backward too) read q, k, v and dO through TMA at their own strides,
-so the (B, T, H, D).transpose(1, 2) view that every attention layer
-makes is read in place; only an operand TMA cannot read (a start not 16-byte
-aligned, a stride not a multiple of 16 bytes, a last dim that is not
-unit-stride) is copied, and the wide route, which has no TMA, copies
-what is not contiguous (``OPERAND_COPIES`` counts both).  Outputs are
+Layouts: every kernel reads q, k, v and dO through TMA at their own
+strides, so the (B, T, H, D).transpose(1, 2) view that every attention
+layer makes is read in place; only an operand TMA cannot read (a start
+not 16-byte aligned, a stride not a multiple of 16 bytes, a last dim
+that is not unit-stride) is copied (``OPERAND_COPIES``).  Outputs are
 contiguous.
 
 ``flash_attention`` and ``flash_forward`` run through one
@@ -107,21 +99,22 @@ LAUNCHES_CHUNKED = {dt: LaunchCounter(f"flash_fwd {name} D > 256")
                     for dt, name in ((torch.bfloat16, "bf16"),
                                      (torch.float32, "f32"))}
 #: the launches of K2 and K3, among those above, at head dims above 256 on
-#: the chunked backward, by dtype (f32; no model path runs them)
-LAUNCHES_DKV_CHUNKED = {torch.float32: LaunchCounter(
-    "flash_bwd_dkv f32 D > 256")}
-LAUNCHES_DQ_CHUNKED = {torch.float32: LaunchCounter(
-    "flash_bwd_dq f32 D > 256")}
-#: launches of the wide route (bf16 head dims above the built ones) of
-#: K2/K3 and K7/K8
-LAUNCHES_WIDE = LaunchCounter("attn_wide")
-#: q, k, v and dO operands the attention wrappers copied because a kernel
-#: could not read them in place (not 16-byte aligned, a stride TMA does
-#: not take, or not contiguous for the wide route); padded head dims
-#: are not counted (the pad is the copy)
+#: the chunked backward, by dtype (no model path runs them)
+LAUNCHES_DKV_CHUNKED = {dt: LaunchCounter(f"flash_bwd_dkv {name} D > 256")
+                        for dt, name in ((torch.bfloat16, "bf16"),
+                                         (torch.float32, "f32"))}
+LAUNCHES_DQ_CHUNKED = {dt: LaunchCounter(f"flash_bwd_dq {name} D > 256")
+                       for dt, name in ((torch.bfloat16, "bf16"),
+                                        (torch.float32, "f32"))}
+#: q, k, v and dO operands the attention wrappers copied because TMA
+#: could not read them in place (not 16-byte aligned, or a stride TMA
+#: does not take); padded head dims are not counted (the pad is the copy)
 OPERAND_COPIES = LaunchCounter("attn_operand_copies")
 #: heads a launch takes at most: the limit of a grid's y dimension
 MAX_HEADS = 65535
+#: blocks a grid's x dimension takes at most: the chunked kernels launch
+#: one block per chunk of each head there
+MAX_GRID_X = 2 ** 31 - 1
 #: mark the head count and the first head index among a launch's arguments
 HEADS = object()
 FIRST_HEAD = object()
@@ -214,8 +207,7 @@ def _check_kernel_inputs(what: str, q, k, v):
 
 def _wide(D: int) -> bool:
     """Whether head dim D is above the built ones: the chunked forward
-    and, in f32, the chunked backward; in bf16 the wide route of dK/dV
-    and dQ."""
+    and backward."""
     return D > HEAD_DIMS[-1]
 
 
@@ -233,18 +225,11 @@ def _fwd_head_dim(D: int) -> int:
         else _padded_head_dim(D)
 
 
-def _takes_wide_route(D: int, dtype: torch.dtype) -> bool:
-    """Whether dK/dV and dQ at head dim D in ``dtype`` take the wide route
-    (bf16 above the built head dims); f32 there takes the chunked
-    backward."""
-    return _wide(D) and dtype != torch.float32
-
-
-def _bwd_head_dim(D: int, dtype: torch.dtype) -> int:
-    """The head dim dK/dV and dQ run for a true head dim D in ``dtype``:
-    the forward's (``_fwd_head_dim``; the chunked backward above 256 in
-    f32), or D itself on the wide route."""
-    return D if _takes_wide_route(D, dtype) else _fwd_head_dim(D)
+def _bwd_head_dim(D: int) -> int:
+    """The head dim dK/dV and dQ run for a true head dim D, in both
+    dtypes: the forward's (``_fwd_head_dim``; above 256 the chunked
+    backward)."""
+    return _fwd_head_dim(D)
 
 
 def _fwd_chunks(D: int):
@@ -264,8 +249,20 @@ def _fwd_chunks(D: int):
 
 def _chunked_counter(counters, q: torch.Tensor) -> Tuple[LaunchCounter, ...]:
     """The counter of ``counters`` (by dtype) for a launch on the padded
-    operand ``q``, if it runs a chunked kernel."""
-    return (counters[q.dtype],) if _wide(q.shape[-1]) else ()
+    operand ``q``, if it runs a chunked kernel, whose grid must take its
+    chunks: ``MAX_GRID_X`` blocks at most for the heads of one launch
+    (``MAX_HEADS``), or it raises."""
+    B, H, _, D = q.shape
+    if not _wide(D):
+        return ()
+    heads = min(B * H, MAX_HEADS)
+    chunks = len(_fwd_chunks(D))
+    if heads * chunks > MAX_GRID_X:
+        raise ValueError(
+            f"attention: head dim {D} takes {chunks} chunks a head, "
+            f"{heads * chunks} blocks for {heads} heads a launch, more than "
+            f"a grid's {MAX_GRID_X}")
+    return (counters[q.dtype],)
 
 
 def _f32_counter(counters, q: torch.Tensor) -> Tuple[LaunchCounter, ...]:
@@ -299,24 +296,22 @@ def _head_strides(t: torch.Tensor):
             for s, n, c in zip(t.stride()[:3], t.shape[:3], dense)]
 
 
-def _readable(t: torch.Tensor, tma: bool) -> bool:
-    """Whether a kernel reads ``t`` in place: through TMA (``tma``) a
-    unit-stride last dim, 16-byte-aligned start and strides that are
-    non-zero multiples of 16 bytes; otherwise contiguous."""
-    if not tma:
-        return t.is_contiguous()
+def _readable(t: torch.Tensor) -> bool:
+    """Whether TMA reads ``t`` in place: a unit-stride last dim, a
+    16-byte-aligned start and strides that are non-zero multiples of 16
+    bytes."""
     item = t.element_size()
     return (t.stride(-1) == 1 and t.data_ptr() % 16 == 0
             and all(s > 0 and s * item % 16 == 0 for s in _head_strides(t)))
 
 
-def _kernel_operands(*tensors, tma: bool):
+def _kernel_operands(*tensors):
     """The tensors as a kernel reads them: each in place where
     ``_readable``, else a contiguous copy (counted in
     ``OPERAND_COPIES``)."""
     out = []
     for t in tensors:
-        if not _readable(t, tma):
+        if not _readable(t):
             t = t.contiguous()
             OPERAND_COPIES.add()
         out.append(t)
@@ -375,51 +370,6 @@ def _launch_heads(name: str, counters, fn, args, BH: int, device):
             c.add()
 
 
-def _wide_mask(mask):
-    """The wide kernels' mask arguments: the block-sparse wrappers'
-    (runtime block mask uint8 (T / bq, S / bk), bq, bk), or None for the
-    dense mask."""
-    if mask is None:
-        return [None, 0, 1, 1]
-    grid, bq, bk = mask
-    return [grid.data_ptr(), grid.shape[1], bq, bk]
-
-
-def _wide_launch(what: str, counter, tensors, outs, causal, sm_scale, mask):
-    """One wide kernel (``bigdl_wide_<what>``) over ``tensors`` (q, k, v
-    and dO copied where they are not contiguous), writing ``outs``;
-    counts under ``counter`` and ``LAUNCHES_WIDE``."""
-    q, k = tensors[0], tensors[1]
-    tensors = _kernel_operands(*tensors[:4], tma=False) + tensors[4:]
-    B, H, T, D = q.shape
-    fn = _c_fn("attn_wide", f"bigdl_wide_{what}",
-               [_P] * (len(tensors) + len(outs) + 1) + [_I] * 9
-               + [_F, _I, _P])
-    _launch_heads(f"attn_wide {what}", (counter, LAUNCHES_WIDE), fn,
-                  [*(t.data_ptr() for t in (*tensors, *outs)),
-                   *_wide_mask(mask), FIRST_HEAD, HEADS, T, k.shape[2], D,
-                   _DTYPE_CODE[q.dtype], float(sm_scale), int(bool(causal))],
-                  B * H, q.device)
-
-
-def _wide_dkv(q, k, v, do, lse, delta, causal: bool, sm_scale: float, counter,
-              mask=None) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The wide dK/dV over prepared inputs (as ``_launch_dkv``)."""
-    dk, dv = _empty(k), _empty(v)
-    _wide_launch("bwd_dkv", counter, [q, k, v, do, lse, delta], [dk, dv],
-                 causal, sm_scale, mask)
-    return dk, dv
-
-
-def _wide_dq(q, k, v, do, lse, delta, causal: bool, sm_scale: float, counter,
-             mask=None) -> torch.Tensor:
-    """The wide dQ over prepared inputs (as ``_launch_dq``)."""
-    dq = _empty(q)
-    _wide_launch("bwd_dq", counter, [q, k, v, do, lse, delta], [dq],
-                 causal, sm_scale, mask)
-    return dq
-
-
 def _flash_cuda(q, k, v, causal: bool, sm_scale: float
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Launch K1 on the current stream of q's device (a head dim between
@@ -430,8 +380,7 @@ def _flash_cuda(q, k, v, causal: bool, sm_scale: float
     _check_kernel_inputs("flash_attention", q, k, v)
     D_true = q.shape[-1]
     Dp = _fwd_head_dim(D_true)
-    q, k, v = _kernel_operands(*(_pad_head_dim(t, Dp) for t in (q, k, v)),
-                               tma=True)
+    q, k, v = _kernel_operands(*(_pad_head_dim(t, Dp) for t in (q, k, v)))
     B, H, T, D = q.shape
     fn = _c_fn("flash_fwd", "bigdl_flash_fwd", [_P] * 6 + [_I] * 7
                + [_F, _I, _P])
@@ -456,23 +405,18 @@ def _bwd_operands(q, k, v, do):
     """q, k, v and dO as the Hopper dK/dV and dQ read them: zero-padded to
     the head dim they run (``_bwd_head_dim``; as they are where they have
     it), in place where TMA reads them, else copied."""
-    Dp = _bwd_head_dim(q.shape[-1], q.dtype)
-    return _kernel_operands(*(_pad_head_dim(t, Dp) for t in (q, k, v, do)),
-                            tma=True)
+    Dp = _bwd_head_dim(q.shape[-1])
+    return _kernel_operands(*(_pad_head_dim(t, Dp) for t in (q, k, v, do)))
 
 
 def _launch_dkv(q, k, v, do, lse, delta, causal: bool, sm_scale: float
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Launch K2 over prepared inputs: dO in q's dtype and delta
     (B*H, T) f32, at any head dim (zero-padded to the one it runs,
-    ``_bwd_head_dim``, the gradients cut back; bf16 above the built head
-    dims on the wide route).  q, k, v and dO are read at their strides
-    through TMA in both dtypes (copied where TMA cannot read them).
-    Returns contiguous (dk, dv)."""
+    ``_bwd_head_dim``, the gradients cut back).  q, k, v and dO are read
+    at their strides through TMA in both dtypes (copied where TMA cannot
+    read them).  Returns contiguous (dk, dv)."""
     B, H, T, D = q.shape
-    if _takes_wide_route(D, q.dtype):
-        return _wide_dkv(q, k, v, do, lse, delta, causal, sm_scale,
-                         LAUNCHES_DKV)
     q, k, v, do = _bwd_operands(q, k, v, do)
     dk, dv = _empty(k), _empty(v)
     _launch_heads("flash_bwd_dkv",
@@ -491,9 +435,6 @@ def _launch_dq(q, k, v, do, lse, delta, causal: bool, sm_scale: float
     """Launch K3 over the same prepared inputs as ``_launch_dkv``, read
     as ``_launch_dkv`` reads them (through TMA in both dtypes)."""
     B, H, T, D = q.shape
-    if _takes_wide_route(D, q.dtype):
-        return _wide_dq(q, k, v, do, lse, delta, causal, sm_scale,
-                        LAUNCHES_DQ)
     q, k, v, do = _bwd_operands(q, k, v, do)
     dq = _empty(q)
     _launch_heads("flash_bwd_dq",
@@ -524,14 +465,13 @@ def _check_lse(what: str, lse):
 def _flash_bwd_cuda(q, k, v, o, lse, d_o, causal: bool, sm_scale: float
                     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Launch K2 then K3 on the current stream of q's device (a head dim
-    between the built ones zero-padded, above them in f32 padded to a
-    multiple of 64 for the chunked backward, the gradients cut back; in
-    bf16 above them the wide route)."""
+    between the built ones zero-padded, above them padded to a multiple
+    of 64 for the chunked backward, the gradients cut back)."""
     _check_kernel_inputs("flash_attention backward", q, k, v)
     _check_lse("flash_attention backward", lse)
     do, delta = _bwd_inputs(q, o, d_o)
     D = q.shape[-1]
-    Dp = _bwd_head_dim(D, q.dtype)
+    Dp = _bwd_head_dim(D)
     q, k, v, do = (_pad_head_dim(t, Dp) for t in (q, k, v, do))
     dk, dv = _launch_dkv(q, k, v, do, lse, delta, causal, sm_scale)
     dq = _launch_dq(q, k, v, do, lse, delta, causal, sm_scale)

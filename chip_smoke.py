@@ -7,11 +7,9 @@ Phases; any failure exits non-zero:
 
 1. probe — a CUDA device is required; print the card's
    ``nvidia-smi`` name and power limit; TF32 off for matmul and cuDNN.
-2. build — compile the kernels from this checkout's sources: the five
+2. build — compile the kernels from this checkout's sources: the four
    CUDA libraries (``flash_fwd.cu``: K1; ``flash_bwd.cu``: K2 and K3;
-   ``block_sparse.cu``: K6-K9; ``conv3x3.cu``: K5; ``attn_wide.cu``: the
-   route of bf16 K2/K3 and K7/K8 for head dims above the built ones, 256)
-   with one ``nvcc``
+   ``block_sparse.cu``: K6-K9; ``conv3x3.cu``: K5) with one ``nvcc``
    each, started together, into ``.torch_kernels/``; Triton compiles K4
    at first launch.  Print the build seconds, and for each instantiation
    of K1, K2, K3, K6-K8, K5's bf16 and f32 kernels (one per KC input
@@ -21,15 +19,15 @@ Phases; any failure exits non-zero:
    instructions (``cuobjdump -sass``, where the toolkit has it); each
    bf16 attention kernel at D 128, 192 and 256, the f32 K1-K3 and K6-K8
    (bf16 products on bf16 pieces of each f32 operand) at D 16-256, the
-   chunked K1 and K6 above 256 in both dtypes and the chunked f32 K2, K3,
-   K7 and K8 above 256 (one instantiation each for every head dim), the
+   chunked K1, K2, K3 and K6-K8 above 256 in both dtypes (one
+   instantiation each for every head dim), the
    bf16 K5 at KC 64, every f32 K5 (split products too) and every K9
    instantiation must not spill and must hold both (and the attention
    kernels must not have their wgmma serialised, ptxas C7520 or C7514), two bf16
    K5 or K9 blocks must share an SM (an f32 K5 block is alone on its
    SM), and no library may still hold the f32 dQ's or the f32 K5's
-   retired FMA loops, or the wide route's retired forward or f32
-   dK/dV and dQ.
+   retired FMA loops, or the retired wide route's forward, dK/dV or dQ
+   in either dtype.
 3. kernel parity — each kernel against its plain PyTorch version on the
    card at the shapes the served, the training, the block-sparse
    training, the matmul and the ResNet-50 paths give it, with the stated
@@ -48,10 +46,9 @@ Phases; any failure exits non-zero:
    Hopper bodies in all three passes, dK/dV and dQ on 64-row blocks; NaN
    in dead K/V at 256 too), f32 head dims 192 and 256 (the Hopper
    bodies' split products in all three passes, 32-row streamed tiles),
-   and in both dtypes head dims above 256 (the chunked forward at 300,
-   320, 384 and 512, also head-strided at 320 with no operand copy; dK/dV
-   and dQ in f32 the chunked backward, also head-strided at 320 with no
-   operand copy, in bf16 the wide route); K5 forward and dX
+   and in both dtypes head dims above 256 (the chunked forward, dK/dV and
+   dQ at 300, 320, 384 and 512, also head-strided at 320 with no operand
+   copy); K5 forward and dX
    at ResNet-50's
    four stage shapes (B 64) in bf16 and in f32, ResNet-CIFAR's first
    width (B 128, 32 x 32, C = O = 16) and ragged C 3, O 10, H 7, W 5,
@@ -344,8 +341,8 @@ def bwd_yardstick(torch, fa, D, dt, tensors):
     backward above 256) the tensors in f64, so the plain version's math
     runs in f64 (its own f32 rounding, which dS = P (dP - delta) amplifies
     on a row whose dP and delta nearly cancel, would read as the kernel's
-    error); the tensors as they are for bf16, whose kernels (the wide
-    route above 256 too) round where the plain version does."""
+    error); the tensors as they are for bf16, whose kernels (the chunked
+    backward above 256 too) round where the plain version does."""
     if dt != torch.float32:
         return tensors
     return [t.double() for t in tensors]
@@ -427,7 +424,7 @@ DESIGN_KERNELS = (
 # dtype and sweep for every such head dim: (dtype by its mangled
 # argument, sweep)
 CHUNK_KERNEL = r"attn_fwd_chunk_kernelI(13__nv_bfloat16|f)NS_\d+(Dense|List)Sweep"
-# the chunked dK/dV and dQ above head dim 256 (K2, K3, K7, K8; f32), one
+# the chunked dK/dV and dQ above head dim 256 (K2, K3, K7, K8), one
 # instantiation per pass, dtype and sweep for every such head dim: (pass,
 # dtype by its mangled argument, sweep)
 CHUNK_BWD_KERNEL = (r"bwd_(dkv|dq)_chunk_kernelI(13__nv_bfloat16|f)NS_\d+"
@@ -435,25 +432,23 @@ CHUNK_BWD_KERNEL = (r"bwd_(dkv|dq)_chunk_kernelI(13__nv_bfloat16|f)NS_\d+"
 #: the head dim phase 2 reports the chunked forward under
 CHUNKED = "above 256"
 # the FMA loops the f32 K3, K8 and K5 ran before their split products,
-# the wide route's forward (a warp per query row) K1 and K6 ran above
-# head dim 256, and its f32 dK/dV and dQ, which f32 K2/K3 and K7/K8 ran
-# there: phase 2 fails if a built library still holds one
+# and the wide route's (a warp per output row) forward, which K1 and K6
+# ran above head dim 256, and its dK/dV and dQ in either dtype, which K2/K3
+# and K7/K8 ran there: phase 2 fails if a built library still holds one
 RETIRED_KERNELS = (r"flash_bwd_dq_kernel|bs_dq_kernel|conv3x3_kernel_f32"
-                   r"|wide_fwd_kernel|wide_(dkv|dq)_kernelIf")
+                   r"|wide_fwd_kernel|wide_(dkv|dq)_kernel")
 
 
 # the head dims phase 2 holds each Hopper attention kernel to: in bf16 D
 # 128, 192 and 256 (K2, K3, K7 and K8 there are the 64-row blocks); in f32
 # (split products; K2, K3, K7 and K8 on 64-row blocks) at every head dim
 # (at 192 and 256 on 32-row streamed tiles, the own rows split into
-# registers); above 256 the chunked forward in both dtypes and the
-# chunked backward in f32
+# registers); above 256 the chunked kernels in both dtypes
 CHECKED_HEAD_DIMS = {
-    **{(label, dtype): dims + ((CHUNKED,) if label in ("K1", "K6")
-                               or dtype == "float32" else ())
-       for label in ("K1", "K2", "K3", "K6", "K7", "K8")
-       for dtype, dims in (("bfloat16", (128, 192, 256)),
-                           ("float32", (16, 32, 64, 128, 192, 256)))}}
+    (label, dtype): dims + (CHUNKED,)
+    for label in ("K1", "K2", "K3", "K6", "K7", "K8")
+    for dtype, dims in (("bfloat16", (128, 192, 256)),
+                        ("float32", (16, 32, 64, 128, 192, 256)))}
 
 
 def design_kernel(fn: str):
@@ -484,9 +479,8 @@ def kernel_design(torch):
     TMA load (UTMALDG) instructions in SASS.  Fails where a bf16 kernel
     at D 128, 192 or 256 (the bf16 route of head dims 129-256; K2, K3, K7
     and K8 there are the 64-row dK/dV and dQ blocks), or an f32 one (split
-    products) at D 16-256, or the chunked forward above 256 (K1, K6, one
-    instantiation per dtype for every head dim), or the f32 chunked
-    backward above 256 (K2, K3, K7, K8), spills, has its
+    products) at D 16-256, or a chunked kernel above 256 (K1-K3, K6-K8,
+    one instantiation per dtype for every head dim), spills, has its
     wgmma serialised by ptxas (C7520, C7514),
     holds no HGMMA or no UTMALDG, or is missing, and where a library still
     holds a retired FMA loop (``RETIRED_KERNELS``).  A library loaded
@@ -510,11 +504,10 @@ def kernel_design(torch):
                "K3": lambda D, dt: bwd(0, D, dt), "K6": bs_fwd,
                "K7": lambda D, dt: bs_bwd(1, D, dt),
                "K8": lambda D, dt: bs_bwd(0, D, dt)}
-    # conv3x3's kernels are reported by conv_design; it and attn_wide are
-    # scanned here for a retired loop only
+    # conv3x3's kernels are reported by conv_design; it is scanned here for
+    # a retired loop only
     libs = {"flash_fwd": ("K1",), "flash_bwd": ("K2", "K3"),
-            "block_sparse": ("K6", "K7", "K8"), "conv3x3": (),
-            "attn_wide": ()}
+            "block_sparse": ("K6", "K7", "K8"), "conv3x3": ()}
     rows, failures = [], []
     for lib_name, labels in libs.items():
         report = _support.BUILD_INFO[lib_name][1]
@@ -719,16 +712,6 @@ def attn_inputs(torch, label, B, H, rows, D, dt, g, n):
             for _ in range(n)]
 
 
-def wide_launches(fa, D, dt, passes):
-    """Wide-route launches a call makes at true head dim D in dtype
-    ``dt``: one a backward pass ("dkv", "dq") where D is above the built
-    head dims (256) in bf16; none at D 129-256, none in f32 (the chunked
-    backward above 256), and none for the forward ("fwd"), which runs the
-    chunked forward above 256."""
-    return sum(p != "fwd" for p in passes) * int(fa._takes_wide_route(D, dt))
-
-
-
 def check_flash(torch, F):
     from bigdl_tpu_torch.ops import flash_attention as fa
 
@@ -738,12 +721,10 @@ def check_flash(torch, F):
         q, = attn_inputs(torch, label, B, H, T, D, dt, g, 1)
         k, v = attn_inputs(torch, label, B, H, S, D, dt, g, 2)
         scale = 1.0 / math.sqrt(D)
-        wide = fa.LAUNCHES_WIDE.count
         copies = fa.OPERAND_COPIES.count
         chunked = fa.LAUNCHES_CHUNKED[dt].count
         o, lse = fa._flash_cuda(q, k, v, causal, scale)
         torch.cuda.synchronize()
-        wide = fa.LAUNCHES_WIDE.count - wide
         copies = fa.OPERAND_COPIES.count - copies
         chunked = fa.LAUNCHES_CHUNKED[dt].count - chunked
         o_ref, lse_ref = fa._flash_plain(q, k, v, causal, scale)
@@ -753,8 +734,7 @@ def check_flash(torch, F):
         dname = str(dt).split(".")[-1]
         tol = ROW_TOL[dname]
         ok = row_err <= tol and lse_err <= LSE_TOL and bool(
-            torch.isfinite(o.float()).all()) and wide == wide_launches(
-                fa, D, dt, ("fwd",)) and chunked == int(fa._wide(D))
+            torch.isfinite(o.float()).all()) and chunked == int(fa._wide(D))
         same = None
         if label.startswith("strided"):
             # in place (no copy), and the contiguous launch's bits
@@ -773,12 +753,12 @@ def check_flash(torch, F):
         item = q.element_size()
         nbytes = item * (2 * B * H * T * D + 2 * B * H * S * D) + 4 * B * H * T
         # the f32 K1 forms its products from bf16 products on the tensor
-        # cores (the wide route on FMA)
+        # cores
         bound_ms, bound_by = bound(nbytes, 4.0 * B * H * pairs * D,
-                                   split_rate(dname, wide, "fwd"))
+                                   split_rate(dname, "fwd"))
         rows.append(dict(case=label, shape=[B, H, T, S, D], dtype=dname,
                          causal=causal, max_abs_err=err, row_rel_err=row_err,
-                         lse_err=lse_err, tol=tol, ok=ok, wide_launches=wide,
+                         lse_err=lse_err, tol=tol, ok=ok,
                          chunked_launches=chunked,
                          operand_copies=copies, equals_contiguous=same,
                          ms=ms,
@@ -786,7 +766,7 @@ def check_flash(torch, F):
                          bound_ms=bound_ms, bound_by=bound_by))
         print(f"K1 flash_fwd {label:>20} {dname:>8} row err {row_err:.3e} "
               f"(tol {tol:g}) max abs err {err:.3e} lse_err {lse_err:.3e} "
-              f"wide {wide} chunked {chunked} copies {copies}"
+              f"chunked {chunked} copies {copies}"
               f"{'' if same is None else f' = contiguous bitwise {same}'} "
               f"| kernel {ms:.4f} ms "
               f"plain {plain_ms:.4f} ms sdpa {lib_ms} ms (kernel / sdpa "
@@ -846,9 +826,8 @@ def check_layer_norm(torch, F):
 
 def launch_counters():
     """Every kernel's launch counter, by the kernel's name (K1-K3 and
-    K6-K8 also by f32 head dim 192 and 256, K1 and K6 above 256 by dtype
-    and K2, K3, K7 and K8 above 256 in f32: the ``variants`` of the
-    ``kernels`` line), and the attention
+    K6-K8 also by f32 head dim 192 and 256 and above 256 by dtype: the
+    ``variants`` of the ``kernels`` line), and the attention
     and LayerNorm wrappers' counts
     of operand copies, which the bf16 main paths hold at 0.  A checkout
     without some per-head-dim counters (``f32_steps.py`` runs these
@@ -868,7 +847,7 @@ def launch_counters():
                                 fa.LAUNCHES_DQ, ln.LAUNCHES, bs.LAUNCHES,
                                 bs.LAUNCHES_DKV, bs.LAUNCHES_DQ,
                                 bs.LAUNCHES_MM, bs.LAUNCHES_MM_TILE,
-                                conv3x3.LAUNCHES, fa.LAUNCHES_WIDE, *by_dim,
+                                conv3x3.LAUNCHES, *by_dim,
                                 fa.OPERAND_COPIES, ln.X_COPIES)}
 
 
@@ -882,8 +861,9 @@ def bwd_cases(torch):
     step (also head-strided, as ``flash_cases``), a ragged T, causal
     T > S and S > T, f32 (also head-strided), narrower heads, head dims
     192 and 256 (K2 and K3 on the 64-row Hopper blocks, in f32 too, on
-    split products) and 320 (bf16 the wide route, f32 the chunked
-    backward) and 512 (f32, the chunked backward)."""
+    split products) and above 256 in both dtypes (the chunked backward:
+    320, also head-strided in bf16, and 512; in bf16 also 300 padded to
+    320 and 384 with T != S, not causal)."""
     bf16, f32 = torch.bfloat16, torch.float32
     return [("train", 16, 8, 1024, 1024, 128, bf16, True),
             ("strided_train", 16, 8, 1024, 1024, 128, bf16, True),
@@ -901,7 +881,11 @@ def bwd_cases(torch):
             ("f32_D192", 2, 8, 1024, 1024, 192, f32, True),
             ("f32_D256", 2, 8, 1024, 1024, 256, f32, True),
             ("wide_f32_D320", 2, 8, 1024, 1024, 320, f32, True),
-            ("wide_f32_D512", 2, 8, 1024, 1024, 512, f32, True)]
+            ("wide_D512", 2, 8, 1024, 1024, 512, bf16, True),
+            ("wide_f32_D512", 2, 8, 1024, 1024, 512, f32, True),
+            ("wide_D300", 1, 4, 512, 512, 300, bf16, True),
+            ("wide_D384", 1, 4, 384, 500, 384, bf16, False),
+            ("strided_D320", 1, 4, 300, 300, 320, bf16, True)]
 
 
 def sdpa_bwd_ms(torch, F, q, k, v, d_o, iters: int = 10, reps: int = 5,
@@ -958,11 +942,35 @@ def bwd_tma_bytes(BH, T, S, D, causal, dkv):
     return BH * 2 * D * 2 * boxes
 
 
+def chunk_bwd_tma_bytes(BH, T, S, D, causal, dkv, item):
+    """The bytes the TMA loads of the chunked K2 (``dkv``) or K3 request
+    on the dense sweep at a padded head dim D above 256: per block of 64
+    own rows and each of its ceil(D / 256) chunks, for every streamed
+    tile (64 rows in bf16, 32 in f32; ``item`` the bytes of an element)
+    both own tensors' 64 rows and both streamed tensors' tile rows over
+    all of D, then the tile's chunk operands (dO and Q, or K) over the
+    chunk's 256 columns.  Each block reads its own rows again for every
+    tile, from L2 after the first read."""
+    tr = 64 if item == 2 else 32
+    rows, other = (S, T) if dkv else (T, S)
+    per_tile = 2 * 64 * D + 2 * tr * D + (2 if dkv else 1) * tr * 256
+    tiles = 0
+    for b in range(-(-rows // 64)):
+        if dkv:
+            begin = b * 64 if causal else 0
+            n = -(-(other - begin) // 64) if other > begin else 0
+        else:
+            n = -(-(min(other, (b + 1) * 64) if causal else other) // 64)
+        tiles += n * (64 // tr)
+    return BH * -(-D // 256) * tiles * per_tile * item
+
+
 def check_flash_bwd(torch, F):
     """K2 and K3 against ``_flash_bwd_plain`` on the same (q, k, v, O,
     LSE, dO), O and LSE from K1 (for the f32 split-product kernels its math
-    in f64, ``bwd_yardstick``); no operand copied, and a head-strided
-    launch equal to the contiguous one bit for bit.  Times: each kernel
+    in f64, ``bwd_yardstick``); no operand copied, one launch of each
+    pass counted as chunked above head dim 256, and a head-strided launch
+    equal to the contiguous one bit for bit.  Times: each kernel
     alone (graph replay), the whole plain backward, and the backward of
     one ``scaled_dot_product_attention`` call (``sdpa_bwd_ms``: graph
     replay too)."""
@@ -977,13 +985,15 @@ def check_flash_bwd(torch, F):
         scale = 1.0 / math.sqrt(D)
         o, lse = fa._flash_cuda(q, k, v, causal, scale)
         do, delta = fa._bwd_inputs(q, o, d_o)
-        wide = fa.LAUNCHES_WIDE.count
+        chunked_counters = (fa.LAUNCHES_DKV_CHUNKED[dt],
+                            fa.LAUNCHES_DQ_CHUNKED[dt])
+        chunked = [c.count for c in chunked_counters]
         copies = fa.OPERAND_COPIES.count
         dk, dv = fa._launch_dkv(q, k, v, do, lse, delta, causal, scale)
         torch.cuda.synchronize()   # one kernel per synchronise
         dq = fa._launch_dq(q, k, v, do, lse, delta, causal, scale)
         torch.cuda.synchronize()
-        wide = fa.LAUNCHES_WIDE.count - wide
+        chunked = [c.count - n for c, n in zip(chunked_counters, chunked)]
         copies = fa.OPERAND_COPIES.count - copies
         dq_ref, dk_ref, dv_ref = fa._flash_bwd_plain(
             *bwd_yardstick(torch, fa, D, dt, [q, k, v, o, lse, d_o]), causal,
@@ -1005,7 +1015,7 @@ def check_flash_bwd(torch, F):
         finite = all(bool(torch.isfinite(t.float()).all())
                      for t in (dq, dk, dv))
         ok = (finite and max(rel.values()) <= tol and copies == 0
-              and wide == wide_launches(fa, D, dt, ("dkv", "dq")))
+              and chunked == [int(fa._wide(D))] * 2)
         same = None
         if label.startswith("strided"):
             # dO read in place too; the contiguous launches' bits
@@ -1034,22 +1044,27 @@ def check_flash_bwd(torch, F):
         BH = B * H
         stats = 8 * BH * T
         # the f32 K2 and K3 form their products from bf16 products on the
-        # tensor cores (the bf16 wide route on FMA)
+        # tensor cores
         b_dkv, by_dkv = bound(item * (2 * BH * T * D + 4 * BH * S * D)
                               + stats, 8.0 * BH * pairs * D,
-                              split_rate(dname, wide, "dkv"))
+                              split_rate(dname, "dkv"))
         b_dq, by_dq = bound(item * (3 * BH * T * D + 2 * BH * S * D)
                             + stats, 6.0 * BH * pairs * D,
-                            split_rate(dname, wide, "dq"))
-        # the Hopper route's TMA traffic and its rate (bf16 up to D 256)
+                            split_rate(dname, "dq"))
+        # the TMA traffic and its rate: the bf16 Hopper bodies up to D
+        # 256, the chunked backward above it in both dtypes
         tma = {}
-        if dname == "bfloat16" and not wide:
+        if fa._wide(D):
+            tma = {p: chunk_bwd_tma_bytes(BH, T, S, fa._bwd_head_dim(D),
+                                          causal, p == "dkv", item)
+                   for p in ("dkv", "dq")}
+        elif dname == "bfloat16":
             tma = {p: bwd_tma_bytes(BH, T, S, D, causal, p == "dkv")
                    for p in ("dkv", "dq")}
         rows.append(dict(
             case=label, shape=[B, H, T, S, D], dtype=dname, causal=causal,
             row_rel_err=rel, max_abs_err=err, tol=tol, ok=ok,
-            wide_launches=wide, operand_copies=copies,
+            chunked_launches=chunked, operand_copies=copies,
             equals_contiguous=same, plain_ms=plain_ms,
             library_ms=lib_ms,
             library_backend=lib_backend,
@@ -1062,7 +1077,7 @@ def check_flash_bwd(torch, F):
                         for (k, n), ms in zip(tma.items(), (ms_dkv, ms_dq)))
         print(f"K2/K3 flash_bwd {label:>18} {dname:>8} row err dq "
               f"{rel['dq']:.3e} dk {rel['dk']:.3e} dv {rel['dv']:.3e} (tol "
-              f"{tol:g}) wide {wide} copies {copies}"
+              f"{tol:g}) chunked {chunked} copies {copies}"
               f"{'' if same is None else f' = contiguous bitwise {same}'} "
               f"| K2 {ms_dkv:.4f} ms (bound {b_dkv:.4f}, {by_dkv}) "
               f"K3 {ms_dq:.4f} ms (bound {b_dq:.4f}, {by_dq}) plain "
@@ -1081,8 +1096,8 @@ def bs_cases(torch):
     192 and 256 (the Hopper route of 129-256: K7 and K8 on 64-row
     blocks; in f32 all three on split products, also on an all-ones mask
     at 256) and above 256 in both dtypes (K6 the chunked forward, K7 and
-    K8 in f32 the chunked backward, in bf16 the wide route: 320, also
-    head-strided and on an all-ones mask, 300 padded to 320, 384, 512)."""
+    K8 the chunked backward: 320, also head-strided and on an all-ones
+    mask, 300 padded to 320, 384, 512)."""
     import numpy as np
 
     from bigdl_tpu_torch.ops import block_sparse as bs
@@ -1140,29 +1155,27 @@ def bs_cases(torch):
               for pre, dt in (("", bf16), ("f32_", f32)))]
 
 
-def split_rate(dname: str, wide: int, kind: str) -> str:
+def split_rate(dname: str, kind: str) -> str:
     """The ``PEAK_FLOPS`` key of a forward (``kind`` "fwd": K1, K6), dK/dV
     ("dkv": K2, K7) or dQ ("dq": K3, K8) launch in ``dname``: in f32 its
-    split products on the tensor cores, unless it took the wide route
-    (``wide`` launches), which runs on FMA."""
-    if dname != "float32" or wide:
+    split products on the tensor cores."""
+    if dname != "float32":
         return dname
     return {"fwd": "float32_split_fwd", "dkv": "float32_split",
             "dq": "float32_split_dq"}[kind]
 
 
-def _bs_bounds(B, H, T, D, item, live, dname, wide):
+def _bs_bounds(B, H, T, D, item, live, dname):
     """(ms, by) of K6, K7 and K8 over ``live`` score elements per head:
     2, 4 and 3 products of 2 * live * D FLOP; bytes as K1-K3 move them;
-    each at ``split_rate`` (``wide``: the wide launches of the forward
-    and of the backward)."""
+    each at ``split_rate``."""
     BH = B * H
     return (bound(item * 4 * BH * T * D + 4 * BH * T, 4.0 * BH * live * D,
-                  split_rate(dname, wide[0], "fwd")),
+                  split_rate(dname, "fwd")),
             bound(item * 6 * BH * T * D + 8 * BH * T, 8.0 * BH * live * D,
-                  split_rate(dname, wide[1], "dkv")),
+                  split_rate(dname, "dkv")),
             bound(item * 5 * BH * T * D + 8 * BH * T, 6.0 * BH * live * D,
-                  split_rate(dname, wide[1], "dq")))
+                  split_rate(dname, "dq")))
 
 
 def check_block_sparse(torch, F):
@@ -1185,20 +1198,20 @@ def check_block_sparse(torch, F):
         g = torch.Generator(device="cuda").manual_seed(17)
         q, k, v, d_o = attn_inputs(torch, label, B, H, T, D, dt, g, 4)
         scale = 1.0 / math.sqrt(D)
-        wide = fa.LAUNCHES_WIDE.count
+        chunked_counters = (bs.LAUNCHES_CHUNKED[dt],
+                            bs.LAUNCHES_DKV_CHUNKED[dt],
+                            bs.LAUNCHES_DQ_CHUNKED[dt])
+        chunked = [c.count for c in chunked_counters]
         copies = fa.OPERAND_COPIES.count
-        chunked = bs.LAUNCHES_CHUNKED[dt].count
         o, lse = bs._bs_fwd_cuda(q, k, v, mask, causal, scale)
         torch.cuda.synchronize()   # one kernel per synchronise
-        wide_fwd = fa.LAUNCHES_WIDE.count - wide
-        chunked = bs.LAUNCHES_CHUNKED[dt].count - chunked
         do, delta = fa._bwd_inputs(q, o, d_o)
         dk, dv = bs._launch_bs_dkv(q, k, v, do, lse, delta, mask, causal,
                                    scale)
         torch.cuda.synchronize()
         dq = bs._launch_bs_dq(q, k, v, do, lse, delta, mask, causal, scale)
         torch.cuda.synchronize()
-        wide = fa.LAUNCHES_WIDE.count - wide
+        chunked = [c.count - n for c, n in zip(chunked_counters, chunked)]
         copies = fa.OPERAND_COPIES.count - copies
         o_ref, lse_ref = bs._bs_attention_plain(q, k, v, mask, causal, scale)
         grads_ref = bs._bs_bwd_plain(
@@ -1220,21 +1233,17 @@ def check_block_sparse(torch, F):
         finite = all(bool(torch.isfinite(t.float()).all())
                      for _, t, _ in outs)
         ok = (finite and max(rel.values()) <= tol and lse_err <= LSE_TOL
-              and wide == wide_launches(fa, D, dt, ("fwd", "dkv", "dq"))
-              and chunked == int(fa._wide(D)))
+              and chunked == [int(fa._wide(D))] * 3)
         del o_ref, lse_ref, grads_ref
         live = int(keep.sum().item())
         row = dict(case=label, shape=[B, H, T, D], dtype=dname,
                    causal=causal, mask=repr(mask), live_per_head=live,
                    tiles=bs.tile_work(mask, causal), row_rel_err=rel,
                    max_abs_err=err, lse_err=lse_err, tol=tol,
-                   wide_launches=wide, chunked_launches=chunked,
-                   operand_copies=copies)
+                   chunked_launches=chunked, operand_copies=copies)
         if label.startswith("strided"):
-            # read in place (no copy) by K6-K8, above 256 by K6's chunked
-            # forward and the f32 chunked backward, while the bf16 wide
-            # dK/dV and dQ copy the four operands, which are not
-            # contiguous, once a launch; the contiguous launches' bits
+            # read in place (no copy) by K6-K8, above 256 by the chunked
+            # kernels too; the contiguous launches' bits
             qc, kc, vc, doc = (t.contiguous() for t in (q, k, v, do))
             oc, lsec = bs._bs_fwd_cuda(qc, kc, vc, mask, causal, scale)
             got = bs._launch_bs_dkv(qc, kc, vc, doc, lse, delta, mask,
@@ -1245,7 +1254,7 @@ def check_block_sparse(torch, F):
                 ("o", "lse", "dk", "dv", "dq"), (o, lse, dk, dv, dq),
                 (oc, lsec) + got)}
             row.update(equals_contiguous=same, ok=ok and all(same.values())
-                       and copies == 4 * wide)
+                       and copies == 0)
             rows.append(row)
             print(f"K6-K8 block_sparse {label}: row err o {rel['o']:.3e} dq "
                   f"{rel['dq']:.3e} dk {rel['dk']:.3e} dv {rel['dv']:.3e} "
@@ -1303,8 +1312,7 @@ def check_block_sparse(torch, F):
                                               attn_mask=keep)
         del keep
         (b_f, by_f), (b_dkv, by_dkv), (b_dq, by_dq) = _bs_bounds(
-            B, H, T, D, q.element_size(), live, dname,
-            (wide_fwd, wide - wide_fwd))
+            B, H, T, D, q.element_size(), live, dname)
         row.update(ok=ok, plain_ms=plain_ms, plain_bwd_ms=plain_bwd_ms,
                    library_ms=lib_ms, library_bwd_ms=lib_bwd_ms,
                    library_backend=lib_backend,
@@ -1317,7 +1325,8 @@ def check_block_sparse(torch, F):
         rows.append(row)
         print(f"K6-K8 block_sparse {label:>21} {dname:>8} row err o "
               f"{rel['o']:.3e} dq {rel['dq']:.3e} dk {rel['dk']:.3e} dv "
-              f"{rel['dv']:.3e} lse {lse_err:.3e} (tol {tol:g}) wide {wide} "
+              f"{rel['dv']:.3e} lse {lse_err:.3e} (tol {tol:g}) chunked "
+              f"{chunked} "
               f"| K6 "
               f"{ms:.4f} ms (bound {b_f:.4f}, {by_f}) K7 {ms_dkv:.4f} ms "
               f"(bound {b_dkv:.4f}) K8 {ms_dq:.4f} ms (bound {b_dq:.4f}) "
@@ -2440,8 +2449,6 @@ def train_resnet50(torch):
 
 
 def _kernel_group(name: str) -> str:
-    if "wide_" in name:
-        return "wide route (head dims above the built ones)"
     if "attn_fwd_" in name and "ListSweep" in name:   # bf16 and f32
         return "K6 block_sparse_fwd"
     if "bwd_dkv_" in name and "ListSweep" in name:   # bf16 and f32
@@ -2702,11 +2709,11 @@ def main(argv=None) -> int:
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
 
-    # phase 2: build — the five CUDA libraries at once, then Triton's K4
+    # phase 2: build — the four CUDA libraries at once, then Triton's K4
     from bigdl_tpu_torch.ops import _support
     from bigdl_tpu_torch.ops import layer_norm as ln
 
-    libs = ("flash_fwd", "flash_bwd", "block_sparse", "conv3x3", "attn_wide")
+    libs = ("flash_fwd", "flash_bwd", "block_sparse", "conv3x3")
     t0 = time.perf_counter()
     _support.load_cuda_libraries(*libs)
     cuda_build_s = time.perf_counter() - t0

@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """The f32 training steps of ``chip_smoke.py``'s phases 5, 6 and 8, the
 f32 forward (K1, K6), dK/dV (K2, K7) and dQ (K3, K8) launches at each
-LM step's shape, K5 in f32 at ResNet-50's four stage shapes, and the f32
-attention kernels at head dims 192 and 256, on one GPU.
+LM step's shape, K5 in f32 at ResNet-50's four stage shapes, the f32
+attention kernels at head dims 192 and 256 and the attention kernels
+above 256 in both dtypes, on one GPU.
 
     python3 f32_steps.py [CHECKOUT]
 
@@ -19,16 +20,16 @@ wrapper's K5 call (forward, and dX on the flipped weights) alone at the
 four stage shapes; then K1-K3 and K6-K8 in f32 at head dims 192 and 256
 (B 2, H 8, T 1024, causal; K6-K8 under phase 3's sliding window 2 + 1
 global at block 128), each pass on the route the checkout gives it (the
-Hopper bodies' split products, or the wide route where a checkout has no
-Hopper kernel for it), with the wide launches each makes; then the
-forward above head dim 256 in bf16 and f32 (K1 and K6 at D 320, K1 at
-D 512, the same shape and mask), on the checkout's route (the chunked
-forward, or the wide route), with its wide launches, and in f32 the
-backward there (K2/K3 and K7/K8 on the checkout's route: the chunked
-backward, or the wide route).  Prints a line per
-leg and, last, the
-JSON record.  Run parent, change, change, parent in one call to compare
-two versions.
+Hopper bodies' split products, or the wide route where a checkout has
+one and no Hopper kernel for it), with the wide launches each makes;
+then the forward and backward above head dim 256 in bf16 and f32 (K1-K3
+and K6-K8 at D 320 and 512, the same shape and mask) on the checkout's
+route (the chunked kernels, or the wide route of a checkout that has
+one), with the wide launches of each, and the backward of one
+``scaled_dot_product_attention`` call (with the elementwise mask for
+K7/K8) on the same inputs.  Prints a line per leg and, last, the JSON
+record.  Run parent, change, change, parent in one call to compare two
+versions.
 """
 import importlib.util
 import json
@@ -61,8 +62,9 @@ def main(argv=None) -> int:
         return 1
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    # a checkout that has the wide route builds it at its first launch
     _support.load_cuda_libraries("flash_fwd", "flash_bwd", "block_sparse",
-                                 "conv3x3", "attn_wide")
+                                 "conv3x3")
     L, heads = cs.FLAGSHIP["num_layers"], cs.FLAGSHIP["num_heads"]
     D = cs.FLAGSHIP["embed_dim"] // heads
     out = {}
@@ -169,6 +171,12 @@ def resnet_leg(torch, cs, conv3x3, repo):
     return rec
 
 
+def wide_launches(fa) -> int:
+    """The wide route's launches so far: 0 on a checkout without it."""
+    counter = getattr(fa, "LAUNCHES_WIDE", None)
+    return 0 if counter is None else counter.count
+
+
 def wide_leg(torch, cs, fa, bs, repo):
     """K1, K2 and K3, then K6, K7 and K8 (phase 3's window 2 + 1 global at
     block 128), in f32 at head dims 192 and 256 (B 2, H 8, T 1024,
@@ -187,15 +195,15 @@ def wide_leg(torch, cs, fa, bs, repo):
                  lambda: bs._bs_fwd_cuda(q, k, v, mask, True, scale),
                  lambda *a: bs._launch_bs_dkv(*a[:6], mask, *a[6:]),
                  lambda *a: bs._launch_bs_dq(*a[:6], mask, *a[6:]))):
-            wide = fa.LAUNCHES_WIDE.count
+            wide = wide_launches(fa)
             o, lse = fwd()
-            wide_fwd = fa.LAUNCHES_WIDE.count - wide
+            wide_fwd = wide_launches(fa) - wide
             do, delta = fa._bwd_inputs(q, o, d_o)
             args = (q, k, v, do, lse, delta, True, scale)
             dkv(*args)
             dq(*args)
             rec[f"{name}_D{D}"] = dict(
-                wide_launches=dict(fwd=wide_fwd, bwd=fa.LAUNCHES_WIDE.count
+                wide_launches=dict(fwd=wide_fwd, bwd=wide_launches(fa)
                                    - wide - wide_fwd),
                 fwd_ms=cs.cuda_ms(fwd, iters=3, reps=2),
                 dkv_ms=cs.cuda_ms(lambda: dkv(*args), iters=3, reps=2),
@@ -209,25 +217,31 @@ def wide_leg(torch, cs, fa, bs, repo):
 
 
 def above_256_leg(torch, cs, fa, bs, repo):
-    """K1 and K6 (phase 3's window 2 + 1 global at block 128) at head dim
-    320 and K1 at 512, in bf16 and f32 (B 2, H 8, T 1024, causal), each
-    on the route the checkout gives the forward there, with the wide
-    launches it makes; in f32 also K2/K3 (K7/K8) on the forward's O and
-    LSE, on the route the checkout gives them (the chunked backward, or
-    the wide route), with their wide launches."""
+    """K1-K3 and K6-K8 (phase 3's window 2 + 1 global at block 128) at head
+    dims 320 and 512, in bf16 and f32 (B 2, H 8, T 1024, causal), each
+    pass on the route the checkout gives it (the chunked kernels, or the
+    wide route of a checkout that has one), with the wide launches of the
+    forward and of the backward (K2/K3, K7/K8 on the forward's O and
+    LSE); beside them the backward of one ``scaled_dot_product_attention``
+    call on the same inputs (``chip_smoke.sdpa_bwd_ms``; for K7/K8 with
+    the elementwise mask)."""
+    import torch.nn.functional as F
+
     rec = {}
     mask = bs.sliding_window_mask(8, 8, 2, 1, True, 128, 128)
+    keep = bs._elementwise_keep(mask, True, "cuda")
     for dt in (torch.bfloat16, torch.float32):
-        for D, kinds in ((320, ("flash", "block_sparse")), (512, ("flash",))):
+        for D in (320, 512):
             g = torch.Generator(device="cuda").manual_seed(7)
             q, k, v, d_o = (torch.randn(2, 8, 1024, D, device="cuda",
                                         generator=g).to(dt) for _ in range(4))
             scale = 1 / math.sqrt(D)
-            for name in kinds:
+            for name in ("flash", "block_sparse"):
                 if name == "flash":
                     def fwd():
                         return fa._flash_cuda(q, k, v, True, scale)
                     dkv, dq = fa._launch_dkv, fa._launch_dq
+                    sdpa_kw = dict(is_causal=True)
                 else:
                     def fwd():
                         return bs._bs_fwd_cuda(q, k, v, mask, True, scale)
@@ -237,28 +251,30 @@ def above_256_leg(torch, cs, fa, bs, repo):
 
                     def dq(*a):
                         return bs._launch_bs_dq(*a[:6], mask, *a[6:])
-                wide = fa.LAUNCHES_WIDE.count
+                    sdpa_kw = dict(attn_mask=keep)
+                wide = wide_launches(fa)
                 o, lse = fwd()
-                wide = fa.LAUNCHES_WIDE.count - wide
+                wide = wide_launches(fa) - wide
                 # the wide route takes milliseconds a call
                 it = dict(iters=3, reps=2) if wide else dict(iters=20, reps=5)
                 key = f"{name}_{str(dt)[6:]}_D{D}"
                 rec[key] = dict(wide_launches=wide, fwd_ms=cs.cuda_ms(fwd, **it))
-                if dt == torch.float32:
-                    do, delta = fa._bwd_inputs(q, o, d_o)
-                    args = (q, k, v, do, lse, delta, True, scale)
-                    wide = fa.LAUNCHES_WIDE.count
-                    dkv(*args)
-                    dq(*args)
-                    wide = fa.LAUNCHES_WIDE.count - wide
-                    it = dict(iters=3, reps=2) if wide else dict(iters=10, reps=5)
-                    rec[key].update(
-                        bwd_wide_launches=wide,
-                        dkv_ms=cs.cuda_ms(lambda: dkv(*args), **it),
-                        dq_ms=cs.cuda_ms(lambda: dq(*args), **it))
-                    del do, delta
+                do, delta = fa._bwd_inputs(q, o, d_o)
+                args = (q, k, v, do, lse, delta, True, scale)
+                wide = wide_launches(fa)
+                dkv(*args)
+                dq(*args)
+                wide = wide_launches(fa) - wide
+                it = dict(iters=3, reps=2) if wide else dict(iters=10, reps=5)
+                sdpa_ms, backend = cs.sdpa_bwd_ms(torch, F, q, k, v, d_o,
+                                                  **sdpa_kw)
+                rec[key].update(
+                    bwd_wide_launches=wide,
+                    dkv_ms=cs.cuda_ms(lambda: dkv(*args), **it),
+                    dq_ms=cs.cuda_ms(lambda: dq(*args), **it),
+                    sdpa_bwd_ms=sdpa_ms, sdpa_backend=backend)
                 print(f"{repo} {key}: {rec[key]}", flush=True)
-                del o, lse
+                del o, lse, do, delta
             del q, k, v, d_o
             torch.cuda.empty_cache()
     return rec

@@ -522,9 +522,10 @@ def test_block_sparse_bwd_plain_matches_pallas_interpret(case):
 
 @pytest.mark.parametrize("D", [160, 256])
 def test_block_sparse_wide_head_dim_plain_matches_pallas_interpret(D):
-    """What the wide route (head dims above 128) must compute under a
-    block mask: the plain forward and backward at D as it is, against
-    the Pallas kernels in interpret mode."""
+    """What the kernels above head dim 128 (the Hopper bodies at 192 and
+    256, the chunked kernels above 256) must compute under a block mask:
+    the plain forward and backward at D as it is, against the Pallas
+    kernels in interpret mode."""
     rng = np.random.RandomState(D)
     q, k, v, g = ((rng.randn(1, 2, 128, D) * 0.5).astype(np.float32)
                   for _ in range(4))
@@ -893,8 +894,7 @@ def test_wide_bf16_head_dims_run_k6_k7_on_64_row_key_lists(monkeypatch, D,
     """bf16 head dims 129-256 pad to 192 or 256: K6 over the 128-row query
     lists, K7 over the 64-row key lists (``dkv_tiles``) of its 64-row
     blocks, and K8 over the 64-row query lists (``dq_tiles``) of its
-    64-row blocks, each with its lists' order and live rows; no launch
-    takes the wide route."""
+    64-row blocks, each with its lists' order and live rows."""
     calls = _record_attention(monkeypatch)
     q, k, v, d_o = (torch.zeros(1, 2, 128, D, dtype=torch.bfloat16)
                     for _ in range(4))
@@ -930,16 +930,15 @@ def test_wide_head_dims_route_the_block_sparse_passes(monkeypatch, D, dtype,
     ``flash_attention``: f32 head dims 129-256 pad to 192 or 256 for K6
     (over the 128-row query lists, with their order and live rows), K7
     (over the 64-row key lists) and K8 (over the 64-row query lists);
-    above 256 K6 runs the chunked forward over the same 128-row query
-    lists at D zero-padded to a multiple of 64 (counted under
-    ``LAUNCHES_CHUNKED`` for its dtype), and dK/dV and dQ in f32 the
-    chunked backward over the 64-row key and query lists at the same
-    padded D (counted under ``LAUNCHES_DKV_CHUNKED`` and
-    ``LAUNCHES_DQ_CHUNKED``), in bf16 the wide route under the block mask
-    (its grid, bq, bk).  ``fwd`` and ``bwd`` are the head dims the Hopper
-    kernels run at (None: above the built ones).  An f32 launch of each
-    pass at 192 or 256 also counts under that pass's counter for the head
-    dim."""
+    above 256, in both dtypes, K6 runs the chunked forward over the same
+    128-row query lists at D zero-padded to a multiple of 64, and dK/dV
+    and dQ the chunked backward over the 64-row key and query lists at
+    the same padded D (counted under ``LAUNCHES_CHUNKED``,
+    ``LAUNCHES_DKV_CHUNKED`` and ``LAUNCHES_DQ_CHUNKED`` for its dtype),
+    every launch with its lists' order and live rows.  ``fwd`` and
+    ``bwd`` are the head dims the Hopper kernels run at (None: above the
+    built ones).  An f32 launch of each pass at 192 or 256 also counts
+    under that pass's counter for the head dim."""
     calls = _record_attention(monkeypatch)
     q, k, v, d_o = (torch.zeros(1, 2, 128, D, dtype=dtype)
                     for _ in range(4))
@@ -955,37 +954,25 @@ def test_wide_head_dims_route_the_block_sparse_passes(monkeypatch, D, dtype,
     for by, before, at in zip(counters, per_dim, (fwd, bwd, bwd)):
         assert {d: c.count - before[d] for d, c in by.items()} == {
             d: int(d == at) for d in before}
-    for by, before, either in zip(chunked_counters, chunked,
-                                  (True, False, False)):
+    for by, before in zip(chunked_counters, chunked):
         assert {dt: c.count - before[dt] for dt, c in by.items()} == {
-            dt: int(dt == dtype and fwd is None
-                    and (either or dt == torch.float32)) for dt in before}
-    wide = bwd is None and dtype == torch.bfloat16
-    assert [c[0] for c in calls] == [
-        "bigdl_bs_fwd",
-        *(["bigdl_wide_bwd_dkv", "bigdl_wide_bwd_dq"] if wide
-          else ["bigdl_bs_bwd_dkv", "bigdl_bs_bwd_dq"])]
+            dt: int(dt == dtype and fwd is None) for dt in before}
+    assert [c[0] for c in calls] == ["bigdl_bs_fwd", "bigdl_bs_bwd_dkv",
+                                     "bigdl_bs_bwd_dq"]
     tab = P._attention_tables(mask, True, q.device)
     grid = tab["block_mask"].data_ptr()
     # after the tensors (5, 8 and 7): tiles, counts, flags, the block
-    # mask, order, rows
+    # mask, order, rows; last the head dim, the dtype, sm_scale, causal
     padded = -(-D // 64) * 64
     for (name, args), at, n, which in zip(
             calls, (fwd or padded, bwd or padded, bwd or padded), (5, 8, 7),
             ("dq_blocks", "dkv_tiles", "dq_tiles")):
-        if name.startswith("bigdl_wide"):
-            # ..., block mask, nkb, bq, bk, first head, heads, T, S, D
-            i = args.index(grid)
-            assert args[i:i + 4] == [grid, 4, 32, 32]
-            assert args[i + 6:i + 9] == [128, 128, D]
-        else:
-            t = tab[which]
-            assert args[n:n + 6] == [t["tiles"].data_ptr(),
-                                     t["counts"].data_ptr(),
-                                     t["flags"].data_ptr(), grid,
-                                     t["order"].data_ptr(),
-                                     t["rows"].data_ptr()]
-            assert args[-4] == at
+        t = tab[which]
+        assert args[n:n + 6] == [t["tiles"].data_ptr(),
+                                 t["counts"].data_ptr(),
+                                 t["flags"].data_ptr(), grid,
+                                 t["order"].data_ptr(), t["rows"].data_ptr()]
+        assert args[-4:] == [at, P._DTYPE_CODE[dtype], 0.1, 1]
     for t in (o, *grads):
         assert t.shape == (1, 2, 128, D)
 

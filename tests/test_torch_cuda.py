@@ -12,9 +12,8 @@ inputs, forward and backward (the f32 forward, K1 and K6, dK/dV, K2 and
 K7, and dQ, K3 and K8, on bf16 products an f32 one at every head dim
 they are built for), also at head dims the kernels are not built for
 (zero-padded to the next, or above the built ones, 256: the chunked
-forward at D padded to a multiple of 64, dK/dV and dQ in f32 through the
-chunked backward at the same D, in bf16 through the wide route) and at
-more heads than one grid takes; a small
+forward, dK/dV and dQ at D padded to a multiple of 64, in both dtypes)
+and at more heads than one grid takes; a small
 TransformerLM served on
 the card in f32 (also at head dim 8, through the server), and small
 flash and block-sparse ones, a ResNet-CIFAR on K5 and a LeNet-5 trained
@@ -216,7 +215,7 @@ def test_kernels_reject_what_they_do_not_take(cuda_device):
     g = torch.Generator(device=cuda_device).manual_seed(3)
     q, k, v = (torch.randn(1, 2, 16, 160, device=cuda_device, generator=g)
                for _ in range(3))
-    counters = (fa.LAUNCHES, bs.LAUNCHES, fa.LAUNCHES_WIDE)
+    counters = (fa.LAUNCHES, bs.LAUNCHES, fa.LAUNCHES_CHUNKED[torch.float32])
     before = [c.count for c in counters]
     o = fa.flash_attention(q, k, v)
     ob = bs.block_sparse_attention(q, k, v, np.ones((1, 1), bool))
@@ -371,19 +370,16 @@ def test_odd_head_dims_run_the_kernels_on_card(cuda_device, D, dtype, which):
 @pytest.mark.parametrize("D", [160, 200, 256, 320, 300, 384, 512, 1024])
 @pytest.mark.parametrize("dtype", [bf16, torch.float32])
 @pytest.mark.parametrize("which", ["flash", "block_sparse"])
-def test_wide_head_dims_run_the_wide_route_on_card(cuda_device, D, dtype,
-                                                   which):
+def test_wide_head_dims_run_the_chunked_kernels_on_card(cuda_device, D,
+                                                        dtype, which):
     """Head dims above 128: up to 256 all three passes are zero-padded to
     192 or 256 and run the Hopper bodies in both dtypes (in f32 on split
-    products; no wide launch); above 256 the forward runs the chunked
-    forward (D zero-padded to a multiple of 64, one launch under its
-    dtype's ``LAUNCHES_CHUNKED``), and dK/dV and dQ in f32 the chunked
-    backward at the same D (one launch each under ``LAUNCHES_DKV_CHUNKED``
-    and ``LAUNCHES_DQ_CHUNKED``, no wide launch), in bf16 the wide route
-    (``csrc/attn_wide.cu``) at the true D (two wide launches).  Forward
-    and backward through the entry points launch K1-K3 (K6-K8) once each
-    and match the plain versions in the working dtype row by row, LSE
-    within 1e-3."""
+    products); above 256 all three run the chunked kernels at D
+    zero-padded to a multiple of 64 in both dtypes (one launch each under
+    its dtype's ``LAUNCHES_CHUNKED``, ``LAUNCHES_DKV_CHUNKED`` and
+    ``LAUNCHES_DQ_CHUNKED``), no operand copied.  Forward and backward
+    through the entry points launch K1-K3 (K6-K8) once each and match the
+    plain versions in the working dtype row by row, LSE within 1e-3."""
     T = 200
     g = torch.Generator(device=cuda_device).manual_seed(D)
     q, k, v, d_o = (torch.randn(2, 4, T, D, device=cuda_device,
@@ -392,9 +388,9 @@ def test_wide_head_dims_run_the_wide_route_on_card(cuda_device, D, dtype,
     scale = 1 / math.sqrt(D)
     if which == "flash":
         counters = (fa.LAUNCHES, fa.LAUNCHES_DKV, fa.LAUNCHES_DQ,
-                    fa.LAUNCHES_WIDE, fa.LAUNCHES_CHUNKED[dtype],
-                    fa.LAUNCHES_DKV_CHUNKED[torch.float32],
-                    fa.LAUNCHES_DQ_CHUNKED[torch.float32])
+                    fa.OPERAND_COPIES, fa.LAUNCHES_CHUNKED[dtype],
+                    fa.LAUNCHES_DKV_CHUNKED[dtype],
+                    fa.LAUNCHES_DQ_CHUNKED[dtype])
         before = [c.count for c in counters]
         o, lse = fa.flash_forward(*leaves, causal=True)
         got = torch.autograd.grad(o, leaves, d_o)
@@ -404,9 +400,9 @@ def test_wide_head_dims_run_the_wide_route_on_card(cuda_device, D, dtype,
     else:
         mask = bs.sliding_window_mask(5, 5, 2, 1, True, 40, 40)
         counters = (bs.LAUNCHES, bs.LAUNCHES_DKV, bs.LAUNCHES_DQ,
-                    fa.LAUNCHES_WIDE, bs.LAUNCHES_CHUNKED[dtype],
-                    bs.LAUNCHES_DKV_CHUNKED[torch.float32],
-                    bs.LAUNCHES_DQ_CHUNKED[torch.float32])
+                    fa.OPERAND_COPIES, bs.LAUNCHES_CHUNKED[dtype],
+                    bs.LAUNCHES_DKV_CHUNKED[dtype],
+                    bs.LAUNCHES_DQ_CHUNKED[dtype])
         before = [c.count for c in counters]
         # the Function behind block_sparse_attention, which returns O alone
         o, lse = bs._BlockSparseAttention.apply(*leaves, mask, True, scale)
@@ -416,9 +412,8 @@ def test_wide_head_dims_run_the_wide_route_on_card(cuda_device, D, dtype,
                                 scale)
     torch.cuda.synchronize()
     above = int(D > 256)
-    f32 = int(dtype == torch.float32)
     assert [c.count - n for c, n in zip(counters, before)] == [
-        1, 1, 1, 2 * above * (1 - f32), above, above * f32, above * f32]
+        1, 1, 1, 0, above, above, above]
     assert o.shape == (2, 4, T, D) and o.dtype == dtype
     assert _row_rel_err(o, o_ref) <= ROW_TOL[dtype]
     assert (lse - lse_ref).abs().max().item() <= 1e-3
@@ -510,8 +505,9 @@ def test_f32_chunked_forward_and_wide_backward_through_autograd_on_card(
         cuda_device):
     """f32 at head dim 320 through ``flash_attention``'s autograd: the
     chunked forward (one K1 launch, under ``LAUNCHES_CHUNKED``) and the
-    chunked dK/dV and dQ (one launch each, under ``LAUNCHES_DKV_CHUNKED``
-    and ``LAUNCHES_DQ_CHUNKED``; no wide launch), O, LSE and the
+    chunked dK/dV and dQ (one launch each, under the f32
+    ``LAUNCHES_DKV_CHUNKED`` and ``LAUNCHES_DQ_CHUNKED``, none under the
+    bf16 ones), O, LSE and the
     gradients against the CPU plain version row by row within the f32
     limit.  The gradient of a key bias, the sum of dK over the key rows
     (0 in exact arithmetic), stays at rounding level: within twice what
@@ -525,7 +521,8 @@ def test_f32_chunked_forward_and_wide_backward_through_autograd_on_card(
     q, k, v, d_o = (torch.randn(B, H, T, D, generator=g) for _ in range(4))
     scale = 1 / math.sqrt(D)
     counters = (fa.LAUNCHES, fa.LAUNCHES_DKV, fa.LAUNCHES_DQ,
-                fa.LAUNCHES_WIDE, fa.LAUNCHES_CHUNKED[torch.float32],
+                fa.LAUNCHES_DKV_CHUNKED[bf16],
+                fa.LAUNCHES_CHUNKED[torch.float32],
                 fa.LAUNCHES_DKV_CHUNKED[torch.float32],
                 fa.LAUNCHES_DQ_CHUNKED[torch.float32])
     before = [c.count for c in counters]
@@ -554,14 +551,14 @@ def test_f32_chunked_forward_and_wide_backward_through_autograd_on_card(
     assert bias(got[1]) <= 2 * level, (bias(got[1]), level)
 
 
-@pytest.mark.parametrize("D", [64, 128, 256])
+@pytest.mark.parametrize("D", [64, 128, 256, 320])
 @pytest.mark.parametrize("which", ["flash", "block_sparse"])
 def test_head_strided_layout_is_read_in_place_on_card(cuda_device, D, which):
     """bf16 q, k, v and dO in the (B, T, H, D).transpose(1, 2) layout an
     attention layer makes: forward and backward through the entry points
-    read them in place (no copy, at D 256 too) and give, bit for bit,
-    what the same values contiguous give, which match the plain versions
-    row by row."""
+    read them in place (no copy, at D 256 and on the chunked kernels at
+    320 too) and give, bit for bit, what the same values contiguous give,
+    which match the plain versions row by row."""
     B, T, H = 2, 200, 4
     g = torch.Generator(device=cuda_device).manual_seed(D + 1)
     q, k, v, d_o = (torch.randn(B, T, H, D, device=cuda_device,
@@ -610,7 +607,7 @@ def test_bf16_dq_of_64_row_blocks_repeats_its_bits_on_card(cuda_device, D,
     """K3 (block None) and K8 (block-sparse at block 128, whole tiles, and
     at block 32, partial pairs staged) at D 192 and 256, on the 64-row dQ
     block: two launches on the same inputs give the same bits, no launch
-    takes the wide route, and dQ matches the plain version row by row.
+    is counted as chunked, and dQ matches the plain version row by row.
     Under the block mask, NaN in every K/V row that no query may attend
     changes no bit of O, LSE, dQ, dK or dV: such a row is never loaded,
     or zero-filled where a partial pair is staged."""
@@ -619,7 +616,8 @@ def test_bf16_dq_of_64_row_blocks_repeats_its_bits_on_card(cuda_device, D,
     q, k, v, d_o = (torch.randn(2, 4, T, D, device=cuda_device,
                                 generator=g).to(bf16) for _ in range(4))
     scale = 1 / math.sqrt(D)
-    wide = fa.LAUNCHES_WIDE.count
+    chunked = (fa if block is None else bs).LAUNCHES_DQ_CHUNKED[bf16]
+    before_chunked = chunked.count
     if block is None:
         o, lse = fa._flash_cuda(q, k, v, True, scale)
         do, delta = fa._bwd_inputs(q, o, d_o)
@@ -653,7 +651,7 @@ def test_bf16_dq_of_64_row_blocks_repeats_its_bits_on_card(cuda_device, D,
         runs = [r[2] for r in outs[:2]]
         o, lse = outs[0][:2]
         want = bs._bs_bwd_plain(q, k, v, o, lse, d_o, mask, True, scale)
-    assert fa.LAUNCHES_WIDE.count == wide
+    assert chunked.count == before_chunked
     assert torch.equal(runs[0], runs[1])
     largest = max(torch.linalg.vector_norm(b.float(), dim=-1).max().item()
                   for b in want)
@@ -768,8 +766,8 @@ def test_f32_dkv_runs_the_split_products_on_card(cuda_device, case, which):
 
     def tally():
         return (counter.count, fa.OPERAND_COPIES.count,
-                fa.LAUNCHES_WIDE.count, by_dim.count if by_dim else 0,
-                chunked.count)
+                mod.LAUNCHES_DKV_CHUNKED[bf16].count,
+                by_dim.count if by_dim else 0, chunked.count)
 
     counts = tally()
     runs = [launch(), launch()]
@@ -852,11 +850,13 @@ def test_f32_forward_runs_the_split_products_on_card(cuda_device, case,
             return bs._bs_fwd_cuda(*t, mask, causal, scale)
 
         want = bs._bs_attention_plain(q, k, v, mask, causal, scale)
-    by_dim = (fa if which == "flash" else bs).LAUNCHES_F32.get(D)
+    mod = fa if which == "flash" else bs
+    by_dim = mod.LAUNCHES_F32.get(D)
 
     def tally():
         return (counter.count, fa.OPERAND_COPIES.count,
-                fa.LAUNCHES_WIDE.count, by_dim.count if by_dim else 0)
+                mod.LAUNCHES_CHUNKED[bf16].count,
+                by_dim.count if by_dim else 0)
 
     counts = tally()
     runs = [launch(q, k, v), launch(q, k, v)]
@@ -1014,8 +1014,8 @@ def test_f32_dq_runs_the_split_products_on_card(cuda_device, case, which):
 
     def tally():
         return (counter.count, fa.OPERAND_COPIES.count,
-                fa.LAUNCHES_WIDE.count, by_dim.count if by_dim else 0,
-                chunked.count)
+                mod.LAUNCHES_DQ_CHUNKED[bf16].count,
+                by_dim.count if by_dim else 0, chunked.count)
 
     counts = tally()
     runs = [launch(q, k, v, do), launch(q, k, v, do)]
@@ -1082,20 +1082,14 @@ def test_f32_dq_of_k8_is_k3s_and_never_reads_dead_kv_on_card(cuda_device,
         assert torch.isfinite(b).all() and torch.equal(a, b)
 
 
-@pytest.mark.parametrize("D", [320, 512])
-def test_f32_chunked_k7_k8_are_k2_k3s_and_never_read_dead_kv_on_card(
-        cuda_device, D):
-    """Above head dim 256 the f32 K7 and K8 run K2's and K3's chunked
-    backward over their 64-row key and query lists: on an all-ones causal
-    mask at block 128 (and at a ragged T 200, block 40) they visit the
-    same tiles in the same order, each list step streamed as two 32-row
-    halves, so K7 = K2 and K8 = K3 bit for bit (fed the same O, LSE, dO
-    and delta).  Under a mask at block 32 (partly live tiles, whose live
-    rows the producer stages for every panel and chunk operand) with NaN
-    in every K/V row that no query may attend, O, LSE, dQ, dK and dV are
-    finite and equal the clean run's bit for bit, and the gradients
-    match the plain backward row by row."""
-    q, k, v, d_o = _bs_inputs(512, 512, D, torch.float32, cuda_device, D + 5)
+def _chunked_k7_k8_are_k2_k3s(cuda_device, D, dtype):
+    """K7 and K8 above head dim 256 in ``dtype``: K7 = K2 and K8 = K3 bit
+    for bit on all-ones causal masks at block 128 (and at a ragged T 200,
+    block 40), fed the same O, LSE, dO and delta; under a mask at block
+    32 with NaN in every K/V row that no query may attend, O, LSE, dQ, dK
+    and dV finite and equal to the clean run's bit for bit, the gradients
+    matching the plain backward row by row."""
+    q, k, v, d_o = _bs_inputs(512, 512, D, dtype, cuda_device, D + 5)
     scale = 1 / math.sqrt(D)
     for T, block in ((512, 128), (200, 40)):
         n = T // block
@@ -1130,9 +1124,119 @@ def test_f32_chunked_k7_k8_are_k2_k3s_and_never_read_dead_kv_on_card(
         assert torch.isfinite(b).all() and torch.equal(a, b)
     o, lse = runs[0][:2]
     want = bs._bs_bwd_plain(q, k, v, o, lse, d_o, mask, True, scale)
-    _check_attention_grads(runs[0][2:], want, torch.float32,
+    _check_attention_grads(runs[0][2:], want, dtype,
                            _keep(512, 512, True, cuda_device, mask), k, v,
                            d_o, scale)
+
+
+@pytest.mark.parametrize("D", [320, 512])
+def test_f32_chunked_k7_k8_are_k2_k3s_and_never_read_dead_kv_on_card(
+        cuda_device, D):
+    """Above head dim 256 the f32 K7 and K8 run K2's and K3's chunked
+    backward over their 64-row key and query lists: on an all-ones causal
+    mask at block 128 (and at a ragged T 200, block 40) they visit the
+    same tiles in the same order, each list step streamed as two 32-row
+    halves, so K7 = K2 and K8 = K3 bit for bit (fed the same O, LSE, dO
+    and delta).  Under a mask at block 32 (partly live tiles, whose live
+    rows the producer stages for every panel and chunk operand) with NaN
+    in every K/V row that no query may attend, O, LSE, dQ, dK and dV are
+    finite and equal the clean run's bit for bit, and the gradients
+    match the plain backward row by row (``_chunked_k7_k8_are_k2_k3s``)."""
+    _chunked_k7_k8_are_k2_k3s(cuda_device, D, torch.float32)
+
+
+@pytest.mark.parametrize("D", [320, 512])
+def test_bf16_chunked_k7_k8_are_k2_k3s_and_never_read_dead_kv_on_card(
+        cuda_device, D):
+    """Above head dim 256 the bf16 K7 and K8 run K2's and K3's chunked
+    backward (their bf16 consumers) over the 64-row key and query lists,
+    each list step one 64-row tile: K7 = K2 and K8 = K3 bit for bit on
+    all-ones masks, NaN in dead K/V rows changes no bit (a partial pair's
+    live rows staged for every panel and chunk operand), and the
+    gradients match the plain backward row by row at the bf16 limit
+    (``_chunked_k7_k8_are_k2_k3s``)."""
+    _chunked_k7_k8_are_k2_k3s(cuda_device, D, bf16)
+
+
+# (T, S, D, causal): the bf16 chunked backward at a causal T not a
+# multiple of 64, T != S not causal, one query row, a long ragged head
+# dim (300 padded to 320) and D 1024 (four chunks)
+BF16_CHUNKED_CASES = {
+    "D320_causal_T200": (200, 200, 320, True),
+    "D384_noncausal_T130_S200": (130, 200, 384, False),
+    "D512_causal_T1": (1, 1, 512, True),
+    "D300_causal_T129": (129, 129, 300, True),
+    "D1024_causal_T129": (129, 129, 1024, True),
+}
+
+
+@pytest.mark.parametrize("case", sorted(BF16_CHUNKED_CASES))
+def test_bf16_chunked_backward_runs_its_kernels_on_card(cuda_device, case):
+    """bf16 K2 and K3 above head dim 256: one chunked launch each (under
+    the bf16 ``LAUNCHES_DKV_CHUNKED`` and ``LAUNCHES_DQ_CHUNKED``), no
+    operand copied, two launches on the same inputs give the same bits,
+    and dQ, dK and dV match the plain backward row by row at the bf16
+    limit, one scale for the three (dQ's rows with one live key and dK's
+    rows whose queries have one live key, 0 in exact arithmetic, against
+    their terms' size: ``_dq_row_err``, ``_dk_row_err``)."""
+    T, S, D, causal = BF16_CHUNKED_CASES[case]
+    q, k, v, d_o = _bs_inputs(T, S, D, bf16, cuda_device, D + T)
+    scale = 1 / math.sqrt(D)
+    o, lse = fa._flash_cuda(q, k, v, causal, scale)
+    do, delta = fa._bwd_inputs(q, o, d_o)
+    counters = (fa.LAUNCHES_DKV_CHUNKED[bf16], fa.LAUNCHES_DQ_CHUNKED[bf16],
+                fa.OPERAND_COPIES)
+    before = [c.count for c in counters]
+    runs = []
+    for _ in range(2):
+        dk, dv = fa._launch_dkv(q, k, v, do, lse, delta, causal, scale)
+        torch.cuda.synchronize()   # one kernel per synchronise
+        dq = fa._launch_dq(q, k, v, do, lse, delta, causal, scale)
+        torch.cuda.synchronize()
+        runs.append((dq, dk, dv))
+    assert [c.count - n for c, n in zip(counters, before)] == [2, 2, 0]
+    for a, b in zip(*runs):
+        assert a.is_contiguous() and torch.equal(a, b)
+    want = fa._flash_bwd_plain(q, k, v, o, lse, d_o, causal, scale)
+    keep = _keep(T, S, causal, cuda_device)
+    largest = max(torch.linalg.vector_norm(b.float(), dim=-1).max().item()
+                  for b in want)
+    dq, dk, dv = runs[0]
+    assert all(torch.isfinite(t.float()).all() for t in runs[0])
+    assert _dq_row_err(dq, want[0], keep, k, v, d_o, scale,
+                       largest) <= ROW_TOL[bf16]
+    assert _dk_row_err(dk, want[1], keep, q, v, d_o, scale,
+                       largest) <= ROW_TOL[bf16]
+    assert _row_rel_err(dv, want[2], largest) <= ROW_TOL[bf16]
+
+
+def test_bf16_chunked_backward_raises_where_its_kernel_refuses_on_card(
+        cuda_device):
+    """The bf16 K2 and K3 above head dim 256 launch the chunked backward
+    or raise: the C entries refuse a head dim that is not a multiple of
+    64 (the wrappers pad to one), and each call raises, counts no launch
+    and writes nothing."""
+    g = torch.Generator(device=cuda_device).manual_seed(17)
+    q, k, v, d_o = (torch.randn(1, 2, 64, 288, device=cuda_device,
+                                generator=g).to(bf16) for _ in range(4))
+    lse = torch.zeros(2, 1, 64, device=cuda_device)
+    delta = torch.zeros(2, 64, device=cuda_device)
+    for name, outs, counter in (
+            ("bigdl_flash_bwd_dkv", [torch.full_like(k, float("nan")),
+                                     torch.full_like(v, float("nan"))],
+             fa.LAUNCHES_DKV),
+            ("bigdl_flash_bwd_dq", [torch.full_like(q, float("nan"))],
+             fa.LAUNCHES_DQ)):
+        before = counter.count
+        with pytest.raises(RuntimeError, match="cudaError"):
+            fa._launch_heads(
+                name, (counter,), fa._bwd_fn(name, 6 + len(outs)),
+                [*(t.data_ptr() for t in (q, k, v, d_o, lse, delta, *outs)),
+                 fa._strides_arg(q, k, v, d_o), 2, fa.FIRST_HEAD, fa.HEADS,
+                 64, 64, 288, 1, 0.125, 1], 2, q.device)
+        torch.cuda.synchronize()
+        assert counter.count == before
+        assert all(t.isnan().all() for t in outs)
 
 
 def test_f32_dq_raises_where_its_kernel_refuses_on_card(cuda_device):

@@ -1182,7 +1182,7 @@ def _chunked(wide_split, outs, q, k, v, o, lse, d_o, keep, scale, **kw):
     products over the chunk's 256 columns of the chunk operands (dO and
     Q, or K); it writes its own columns.  Cut back to D."""
     D = q.shape[-1]
-    Dp = fa._bwd_head_dim(D, torch.float32)
+    Dp = fa._bwd_head_dim(D)
     padded = [fa._pad_head_dim(t, Dp) for t in (q, k, v, o)]
     got = [torch.zeros(*t.shape[:-1], Dp) for t in outs]
     for col0, lo, hi in fa._fwd_chunks(Dp):
@@ -1335,20 +1335,18 @@ def test_the_chunked_dq_keeps_a_key_shift_at_rounding_level():
 
 
 def test_the_chunked_backwards_plan_covers_each_column_once():
-    """Every head dim from 257 to 1024: f32 dK/dV and dQ run at the
-    forward's padded head dim (the next multiple of 64,
+    """Every head dim from 257 to 1024: dK/dV and dQ run, in both dtypes,
+    at the forward's padded head dim (the next multiple of 64,
     ``_bwd_head_dim``), whose 64-column panels the scores sum over, in
     ceil(Dp / 256) chunks of the output, each forming 256 columns from a
     panel's first column, inside Dp, and writing its own, which together
-    are each of Dp's columns once, in order; bf16 takes the wide route at
-    D as it is.  Up to 256 both dtypes run the built head dims."""
+    are each of Dp's columns once, in order.  Up to 256 both dtypes run
+    the built head dims."""
     for D in range(257, 1025):
-        Dp = fa._bwd_head_dim(D, torch.float32)
+        Dp = fa._bwd_head_dim(D)
         assert Dp == fa._fwd_head_dim(D) and Dp % fa.CHUNK_PANEL == 0
         assert D <= Dp < D + fa.CHUNK_PANEL
-        assert not fa._takes_wide_route(D, torch.float32)
-        assert fa._takes_wide_route(D, torch.bfloat16)
-        assert fa._bwd_head_dim(D, torch.bfloat16) == D
+        assert fa._wide(D) and fa._wide(Dp)
         written = []
         for col0, lo, hi in fa._fwd_chunks(Dp):
             assert col0 % fa.CHUNK_PANEL == 0
@@ -1356,10 +1354,9 @@ def test_the_chunked_backwards_plan_covers_each_column_once():
             written += range(lo, hi)
         assert written == list(range(Dp)), D
     for D in range(1, 257):
-        for dt in (torch.float32, torch.bfloat16):
-            assert fa._bwd_head_dim(D, dt) == fa._padded_head_dim(D) \
-                == fa._fwd_head_dim(D)
-            assert not fa._takes_wide_route(D, dt)
+        assert fa._bwd_head_dim(D) == fa._padded_head_dim(D) \
+            == fa._fwd_head_dim(D)
+        assert not fa._wide(D)
 
 
 # ----------------------------------------------------------------------

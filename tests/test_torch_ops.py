@@ -259,10 +259,11 @@ def test_padded_head_dim_leaves_attention_and_grads_unchanged(D, causal):
 @pytest.mark.parametrize("D", [160, 256])
 @pytest.mark.parametrize("causal", [True, False])
 def test_wide_head_dim_plain_matches_pallas_interpret(D, causal):
-    """What the wide route (head dims above 128, ``csrc/attn_wide.cu``)
-    must compute: the plain forward and backward, taken at D as it is,
-    against the Pallas kernels in interpret mode, which hand D straight
-    to their (1, block, D) blocks."""
+    """What the kernels above head dim 128 must compute (the Hopper bodies
+    at 192 and 256, the chunked kernels above 256): the plain forward and
+    backward, taken at D as it is, against the Pallas kernels in
+    interpret mode, which hand D straight to their (1, block, D)
+    blocks."""
     q, k, v = _qkv(1, 2, 128, 128, D, seed=D)
     g = np.random.RandomState(D + 1).randn(1, 2, 128, D).astype(np.float32)
     scale = 1 / math.sqrt(D)
@@ -281,7 +282,7 @@ def test_wide_head_dim_plain_matches_pallas_interpret(D, causal):
         np.testing.assert_allclose(a.numpy(), np.asarray(b), **GRAD_TOL,
                                    err_msg=name)
     # both dtypes pad such a head dim to 192 or 256 for all three passes,
-    # and take the wide route only above 256
+    # and take the chunked kernels only above 256
     Dp = fa._padded_head_dim(D)
     assert Dp == {160: 192, 256: 256}[D]
     assert not fa._wide(Dp) and fa._wide(D) == (D > 256)
@@ -448,13 +449,13 @@ def test_wide_head_dims_route_by_dtype(monkeypatch, D, dtype, fwd, bwd):
     (K1), dK/dV (K2) and dQ (K3); above 256 the forward runs the chunked
     forward (``bigdl_flash_fwd`` at D zero-padded to a multiple of 64,
     counted under ``LAUNCHES_CHUNKED`` for its dtype), and dK/dV and dQ
-    in f32 the chunked backward (``bigdl_flash_bwd_dkv`` and
+    the chunked backward (``bigdl_flash_bwd_dkv`` and
     ``bigdl_flash_bwd_dq`` at the same padded D, counted under
-    ``LAUNCHES_DKV_CHUNKED`` and ``LAUNCHES_DQ_CHUNKED``), in bf16 the wide
-    route at D as it is.  ``fwd`` and ``bwd`` are the head dims the Hopper
-    kernels run at (None: above the built ones).  The outputs are cut
-    back to D.  An f32 launch of each pass at 192 or 256 also counts
-    under that pass's counter for the head dim."""
+    ``LAUNCHES_DKV_CHUNKED`` and ``LAUNCHES_DQ_CHUNKED`` for its dtype).
+    ``fwd`` and ``bwd`` are the head dims the Hopper kernels run at
+    (None: above the built ones).  The outputs are cut back to D.  An f32
+    launch of each pass at 192 or 256 also counts under that pass's
+    counter for the head dim."""
     calls = _record_launches(monkeypatch)
     q, k, v, d_o = (torch.zeros(1, 2, 16, D, dtype=dtype) for _ in range(4))
     counters = (fa.LAUNCHES_F32, fa.LAUNCHES_DKV_F32, fa.LAUNCHES_DQ_F32)
@@ -468,23 +469,79 @@ def test_wide_head_dims_route_by_dtype(monkeypatch, D, dtype, fwd, bwd):
     for by, before, at in zip(counters, per_dim, (fwd, bwd, bwd)):
         assert {d: c.count - before[d] for d, c in by.items()} == {
             d: int(dtype == torch.float32 and d == at) for d in before}
-    for by, before, either in zip(chunked_counters, chunked,
-                                  (True, False, False)):
+    for by, before in zip(chunked_counters, chunked):
         assert {dt: c.count - before[dt] for dt, c in by.items()} == {
-            dt: int(dt == dtype and fwd is None
-                    and (either or dt == torch.float32)) for dt in before}
-    wide = bwd is None and dtype == torch.bfloat16
+            dt: int(dt == dtype and fwd is None) for dt in before}
     names = [c[0] for c in calls]
-    assert names == [
-        "bigdl_flash_fwd",
-        *(["bigdl_wide_bwd_dkv", "bigdl_wide_bwd_dq"] if wide
-          else ["bigdl_flash_bwd_dkv", "bigdl_flash_bwd_dq"])]
+    assert names == ["bigdl_flash_fwd", "bigdl_flash_bwd_dkv",
+                     "bigdl_flash_bwd_dq"]
     # every entry ends (..., D, dtype, sm_scale, causal)
     padded = -(-D // 64) * 64
-    assert [c[1][-4] for c in calls] == [fwd or padded] \
-        + [bwd or (D if wide else padded)] * 2
+    assert [c[1][-4:] for c in calls] == [
+        [at or padded, fa._DTYPE_CODE[dtype], 0.1, 1]
+        for at in (fwd, bwd, bwd)]
     for t in (o, *grads):
         assert t.shape == (1, 2, 16, D)
+
+
+@pytest.mark.parametrize("D", [300, 320])
+def test_bf16_chunked_backward_reads_head_strided_operands_in_place(
+        monkeypatch, D):
+    """bf16 q, k, v and dO in an attention layer's (B, T, H, D).transpose(1,
+    2) layout above head dim 256: K2 and K3 launch the chunked backward
+    once each (counted under the bf16 chunked counters) on the operands as
+    they stand at D 320 (their own pointers and strides, no copy), and on
+    the operands zero-padded to 320 at D 300 (the pad is the copy, not
+    counted), at the padded head dim; dQ, dK and dV come back cut to D,
+    contiguous."""
+    calls = _record_launches(monkeypatch)
+    B, T, H = 1, 24, 2
+    q, k, v, d_o = (_head_strided(B, T, H, D, torch.bfloat16, s)
+                    for s in range(4))
+    o, lse = fa._flash_cuda(q, k, v, True, 0.1)
+    calls.clear()
+    before = [c[torch.bfloat16].count
+              for c in (fa.LAUNCHES_DKV_CHUNKED, fa.LAUNCHES_DQ_CHUNKED)]
+    copies = fa.OPERAND_COPIES.count
+    grads = fa._flash_bwd_cuda(q, k, v, o, lse, d_o, True, 0.1)
+    assert fa.OPERAND_COPIES.count == copies
+    assert [c[torch.bfloat16].count - n for c, n in zip(
+        (fa.LAUNCHES_DKV_CHUNKED, fa.LAUNCHES_DQ_CHUNKED), before)] == [1, 1]
+    assert [c[0] for c in calls] == ["bigdl_flash_bwd_dkv",
+                                     "bigdl_flash_bwd_dq"]
+    for _, args in calls:
+        if D == 320:
+            assert args[:4] == [t.data_ptr() for t in (q, k, v, d_o)]
+            assert _strides(args) == [[T * H * D, D, H * D]] * 4
+        else:
+            assert _strides(args) == [[H * T * 320, T * 320, 320]] * 4
+        # ..., D, dtype (1: bf16), sm_scale, causal
+        assert args[-4:] == [320, 1, 0.1, 1]
+    for t in grads:
+        assert t.shape == (B, H, T, D) and t.is_contiguous()
+
+
+def test_a_head_dim_whose_chunks_outgrow_the_grid_raises(monkeypatch):
+    """The chunked kernels launch one block per chunk of each head in the
+    grid's x dimension: a head dim whose chunks, times the heads of a
+    launch, pass ``MAX_GRID_X`` raises a ValueError naming it before any
+    launch (here with the limit lowered to 7 blocks: D 512 takes 2 chunks
+    a head, 8 blocks for 4 heads), in the forward and in the backward; a
+    head dim that fits launches."""
+    calls = _record_launches(monkeypatch)
+    monkeypatch.setattr(fa, "MAX_GRID_X", 7)
+    q, k, v, d_o = (torch.zeros(2, 2, 16, 512, dtype=torch.bfloat16)
+                    for _ in range(4))
+    with pytest.raises(ValueError, match="head dim 512 takes 2 chunks"):
+        fa._flash_cuda(q, k, v, True, 0.1)
+    lse = torch.zeros(4, 1, 16)
+    with pytest.raises(ValueError, match="more than a grid's 7"):
+        fa._flash_bwd_cuda(q, k, v, q, lse, d_o, True, 0.1)
+    assert calls == []
+    fa._flash_bwd_cuda(*(t[:, :1] for t in (q, k, v, q)), lse[:2],
+                       d_o[:, :1], True, 0.1)
+    assert [c[0] for c in calls] == ["bigdl_flash_bwd_dkv",
+                                     "bigdl_flash_bwd_dq"]
 
 
 @pytest.mark.parametrize("D,runs", [(160, 192), (200, 256), (256, 256)])
