@@ -53,6 +53,20 @@ class LaunchCounter:
         return self._n
 
 
+def split_bf16x3(src: torch.Tensor, out: torch.Tensor) -> None:
+    """Writes the three bf16 pieces of the f32 tensor ``src`` into
+    ``out[0]``, ``out[1]``, ``out[2]`` (each of src's shape, any strides):
+    p1 = bf16(src), p2 = bf16(src − p1), p3 = bf16(src − p1 − p2), each
+    rounded to nearest even; the differences are exact in f32, so p1 + p2
+    + p3 = src exactly (for |src| above 2^-102).  The f32 kernels on split
+    products (K5, K9) read one operand's pieces so, split once per call."""
+    out[0].copy_(src)
+    rest = src - out[0]
+    out[1].copy_(rest)
+    rest -= out[1]
+    out[2].copy_(rest)
+
+
 def on_cpu(*tensors: torch.Tensor) -> bool:
     """True when every tensor lies on the CPU (the wrapper then takes
     the plain version); False when every one lies on one CUDA device

@@ -50,9 +50,11 @@ the kernels' math in PyTorch, masking with a select); for CUDA tensors
 they launch the kernels or raise, forward and backward.  Any block size
 that tiles the sequence (or the weight), any head dim (padded as
 ``flash_attention`` pads it), any B*H, float32 or bfloat16.  K9 takes its
-Hopper route (TMA + wgmma) in bf16 at blocks that are multiples of 16 and
-its tile route otherwise (``_mm_plan``), W in either orientation, so dX
-reads W in place.
+Hopper route (TMA + wgmma) at blocks that are multiples of 16 and its
+tile route otherwise (``_mm_plan``), W in either orientation, so dX
+reads W in place; in f32 the Hopper route forms each f32 product from
+six bf16 products on three bf16 pieces of each operand, W split once
+per call in its own orientation (``_mm_pieces``).
 """
 from __future__ import annotations
 
@@ -63,7 +65,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from ._support import LaunchCounter, on_cpu
+from ._support import LaunchCounter, on_cpu, split_bf16x3
 from .flash_attention import (_DTYPE_CODE, _F, _I, _P, FIRST_HEAD, HEADS,
                               WIDE_F32_DIMS, _attn_bwd_plain, _attn_plain,
                               _bwd_inputs,
@@ -109,9 +111,13 @@ LAUNCHES_DQ_CHUNKED = {
 LAUNCHES_MM = LaunchCounter("block_sparse_mm")
 #: the K9 launches, among those above, that took the tile route
 LAUNCHES_MM_TILE = LaunchCounter("block_sparse_mm_tile")
-#: K9's Hopper route: the K chunks and N tiles it is built for, largest
-#: first
+#: the K9 launches, among those above, on the Hopper route in f32 (split
+#: products)
+LAUNCHES_MM_F32 = LaunchCounter("block_sparse_mm f32")
+#: K9's Hopper route: the K chunks (bf16; f32, whose x boxes hold 4-byte
+#: elements) and N tiles it is built for, largest first
 MM_CHUNKS = (64, 32, 16)
+MM_SPLIT_CHUNKS = (32, 16)
 MM_COL_TILES = (128, 64, 32, 16)
 
 
@@ -772,15 +778,17 @@ def _bs_mm_plain(x2, w, mask: BlockMask) -> torch.Tensor:
 
 def _mm_plan(dtype: torch.dtype, bk: int, bn: int) -> Optional[Tuple[int, int]]:
     """K9's route, chosen by shape before the launch: (KC, BN) of the
-    Hopper route, which takes bf16 with bk and bn multiples of 16 (so K
-    and N are too, as TMA's 16-byte row pitch needs): KC the largest of
-    ``MM_CHUNKS`` dividing bk, so a K chunk never reaches into a dead
-    block, BN the largest of ``MM_COL_TILES`` dividing bn, so an N tile
-    reads one column block's list.  None: the tile route (f32, and bf16
-    blocks that are not multiples of 16)."""
-    if dtype != torch.bfloat16 or bk % 16 or bn % 16:
+    Hopper route, which takes blocks whose bk and bn are multiples of 16
+    (so K and N are too, as TMA's 16-byte row pitch needs): KC the
+    largest of ``MM_CHUNKS`` (bf16) or ``MM_SPLIT_CHUNKS`` (f32, on split
+    products) dividing bk, so a K chunk never reaches into a dead block,
+    BN the largest of ``MM_COL_TILES`` dividing bn, so an N tile reads one
+    column block's list.  None: the tile route (blocks that are not
+    multiples of 16)."""
+    if dtype not in _DTYPE_CODE or bk % 16 or bn % 16:
         return None
-    return (next(c for c in MM_CHUNKS if bk % c == 0),
+    chunks = MM_CHUNKS if dtype == torch.bfloat16 else MM_SPLIT_CHUNKS
+    return (next(c for c in chunks if bk % c == 0),
             next(c for c in MM_COL_TILES if bn % c == 0))
 
 
@@ -795,26 +803,49 @@ def _row_pitch(t: torch.Tensor) -> Optional[int]:
     return t.stride(0) if t.stride(0) >= C else None
 
 
-def _mm_operands(x2, b, tma: bool):
-    """x2 (M, K) and the B operand b (K, N) as K9 reads them: (x, ldx, w,
-    ldw, kmajor).  Each is read in place where its rows are contiguous:
-    b MN-major as it stands (the forward's W), or K-major through bᵀ's
-    rows (dX's Wᵀ, W as it stands; a weight stored (out, in) and viewed
-    ``.t()``).  Otherwise, and on the Hopper route (``tma``) where a row
-    pitch is not a multiple of 8 elements or the start not 16-byte
-    aligned, it is copied, contiguous."""
-    def readable(t, ld):
-        return ld is not None and (not tma or (ld % 8 == 0
-                                               and t.data_ptr() % 16 == 0))
+def _mm_pieces(w: torch.Tensor) -> torch.Tensor:
+    """The f32 Hopper route's B operand: the three bf16 pieces of the f32
+    2-D ``w`` (any strides), p1 = bf16(w), p2 = bf16(w − p1), p3 = bf16(w −
+    p1 − p2), each rounded to nearest even (the differences are exact in
+    f32), as one contiguous (3, *w.shape) tensor: each piece keeps w's
+    orientation.  p1 + p2 + p3 = w exactly (for |w| above 2^-102); NaN
+    stays NaN in every piece."""
+    pieces = torch.empty((3, *w.shape), dtype=torch.bfloat16,
+                         device=w.device)
+    split_bf16x3(w, pieces)
+    return pieces
+
+
+def _mm_operands(x2, b, plan):
+    """x2 (M, K) and the B operand b (K, N) as K9 reads them on route
+    ``plan``: (x, ldx, w, ldw, kmajor).  Each is read in place where its
+    rows are contiguous: b MN-major as it stands (the forward's W), or
+    K-major through bᵀ's rows (dX's Wᵀ, W as it stands; a weight stored
+    (out, in) and viewed ``.t()``).  Otherwise, and on the Hopper route
+    (TMA) where a row pitch is not a multiple of 16 bytes or the start
+    not 16-byte aligned, it is copied, contiguous.  On the f32 Hopper
+    route w is b's three bf16 pieces (``_mm_pieces``) in the orientation
+    b's storage has, so nothing is transposed."""
+    tma = plan is not None
+    split = tma and x2.dtype == torch.float32
+
+    def readable(t, ld, by_tma):
+        return ld is not None and (not by_tma or (
+            ld * t.element_size() % 16 == 0 and t.data_ptr() % 16 == 0))
 
     ldx = _row_pitch(x2)
-    if not readable(x2, ldx):
+    if not readable(x2, ldx, tma):
         x2 = x2.clone(memory_format=torch.contiguous_format)
         ldx = x2.shape[1]
     for w, kmajor in ((b, 0), (b.t(), 1)):
         ldw = _row_pitch(w)
-        if readable(w, ldw):
+        if readable(w, ldw, tma and not split):
+            if split:
+                w = _mm_pieces(w)
+                ldw = w.shape[2]
             return x2, ldx, w, ldw, kmajor
+    if split:
+        return x2, ldx, _mm_pieces(b), b.shape[1], 0
     return x2, ldx, b.clone(memory_format=torch.contiguous_format), \
         b.shape[1], 0
 
@@ -839,7 +870,8 @@ def _bs_mm_cuda(x2, b, mask: BlockMask) -> torch.Tensor:
 def _launch_mm(x2, b, mask: BlockMask, plan) -> torch.Tensor:
     """K9 on route ``plan`` ((KC, BN), or None for the tile route).  A B
     operand of another dtype than x is cast to x's (the output is in x's
-    dtype, as the plain version's)."""
+    dtype, as the plain version's).  On the f32 Hopper route the split of
+    b into its bf16 pieces is part of the call."""
     if x2.dtype not in _DTYPE_CODE:
         raise TypeError(f"block_sparse_matmul: dtype {x2.dtype} not in "
                         f"{tuple(_DTYPE_CODE)}")
@@ -847,8 +879,7 @@ def _launch_mm(x2, b, mask: BlockMask, plan) -> torch.Tensor:
     N = b.shape[1]
     if M == 0:
         raise ValueError("block_sparse_matmul: x has no rows")
-    x2, ldx, w, ldw, kmajor = _mm_operands(x2, b.to(x2.dtype),
-                                           plan is not None)
+    x2, ldx, w, ldw, kmajor = _mm_operands(x2, b.to(x2.dtype), plan)
     tiles, counts = _MM_TABLES.get_or_make(
         ("tables", mask, x2.device),
         lambda: tuple(_to_device(a, x2.device)
@@ -862,6 +893,8 @@ def _launch_mm(x2, b, mask: BlockMask, plan) -> torch.Tensor:
     LAUNCHES_MM.add()
     if plan is None:
         LAUNCHES_MM_TILE.add()
+    elif x2.dtype == torch.float32:
+        LAUNCHES_MM_F32.add()
     return out
 
 

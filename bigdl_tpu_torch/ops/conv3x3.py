@@ -40,7 +40,7 @@ import ctypes
 import torch
 import torch.nn.functional as F
 
-from ._support import LaunchCounter, load_cuda_library, on_cpu
+from ._support import LaunchCounter, load_cuda_library, on_cpu, split_bf16x3
 from .conv_gemm import conv2d_gemm_nhwc
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
@@ -89,12 +89,7 @@ def _weight_pieces(wk: torch.Tensor, c8: int) -> torch.Tensor:
     pieces = torch.empty((3, 9, O, c8), dtype=torch.bfloat16,
                          device=wk.device)
     pieces[..., C:].zero_()
-    live = pieces[..., :C]
-    live[0].copy_(w)
-    rest = w - live[0]
-    live[1].copy_(rest)
-    rest -= live[1]
-    live[2].copy_(rest)
+    split_bf16x3(w, pieces[..., :C])
     return pieces
 
 

@@ -94,12 +94,30 @@
 // column block with no live block writes zeros.  N tiles vary fastest over
 // the grid.  What bounds it on the card is the L2 -> SM traffic of the
 // boxes (64 FLOP a byte at 128 x 128 tiles), not the products (PERF.md).
-// The tile route (bs_mm_kernel_tile: f32 on FMA, bf16 blocks that are not
-// multiples of 16 on WMMA) keeps the first design: one 4-warp block per
-// (64 rows, up to 64 columns of one column block), 32-deep chunks staged in
-// shared memory, zero past the live block and M; 16-byte loads where the
-// layout keeps them aligned.  Both routes take any M and any number of
-// column tiles (a 1-D grid).
+// In f32 (bs_mm_kernel_split) the same walk and grid form every f32
+// product from six bf16 products on three bf16 pieces of each operand, as
+// K5 does in f32 (conv3x3.cu), with the consumers K5 shares
+// (hopper_common.cuh, split_gemm): the wrapper splits W once per call into
+// three bf16 pieces in W's own orientation (so dX still reads W's storage
+// K-major, nothing transposed), read with the bf16 route's boxes; x lands
+// in f32 boxes (KC 32 or 16: 128- or 64-byte rows) that each consumer
+// warpgroup reads straight into wgmma's register operand and splits there,
+// the next step's box while a step's six products a k16 step run; each
+// step's products go to a fresh partial, added to the f32 total (round to
+// nearest), since wgmma rounds its sums toward zero.  The f32 total, the
+// partial and two split boxes take about 200 registers at BN 128, so the
+// block is two consumer warpgroups and a producer warpgroup that gives its
+// registers up (setmaxnreg 40 / 232), one block an SM with a ring of up to
+// 8 stages; the epilogue stores f32 straight from the total, a warp writing
+// whole 32-byte sectors.  Six products make it bound by operations (68.7
+// GFLOP at the MLP shape, 0.417 ms at 989 / 6 TFLOP/s); its boxes move 4
+// bytes an x element and 6 a W element from L2.
+// The tile route (bs_mm_kernel_tile: f32 and bf16 blocks that are not
+// multiples of 16, on FMA and WMMA) keeps the first design: one 4-warp
+// block per (64 rows, up to 64 columns of one column block), 32-deep chunks
+// staged in shared memory, zero past the live block and M; 16-byte loads
+// where the layout keeps them aligned.  Both routes take any M and any
+// number of column tiles (a 1-D grid).
 
 #include <mma.h>   // the bf16 products of K9's tile route (WMMA)
 
@@ -357,6 +375,8 @@ struct MmCfg {
   static constexpr int kChunk = KC;
   static constexpr int kCols = BN;
   static constexpr bool kKMajor = KMAJ;
+  static constexpr int kThreads = kMmThreads;
+  static constexpr int kBlocksPerSm = kMmBlocksPerSm;
   static constexpr int RA = KC * 2;                        // bytes of an x box row
   static constexpr int PW = KMAJ ? KC : (BN < 64 ? BN : 64);   // elements of a W box row
   static constexpr int RB = PW * 2;                        // its bytes = its swizzle span
@@ -521,41 +541,46 @@ struct MmArgs {
   cudaStream_t stream;
 };
 
-template <int KC, int BN, class R, class F>
+template <template <int, int, bool> class Cfg, int KC, int BN, class R, class F>
 R mm_with_kmajor(int kmajor, F f) {
-  return kmajor ? f(MmCfg<KC, BN, true>{}) : f(MmCfg<KC, BN, false>{});
+  return kmajor ? f(Cfg<KC, BN, true>{}) : f(Cfg<KC, BN, false>{});
 }
 
-template <int KC, class R, class F>
+template <template <int, int, bool> class Cfg, int KC, class R, class F>
 R mm_with_bn(int bn, int kmajor, R none, F f) {
   switch (bn) {
-    case 16: return mm_with_kmajor<KC, 16, R>(kmajor, f);
-    case 32: return mm_with_kmajor<KC, 32, R>(kmajor, f);
-    case 64: return mm_with_kmajor<KC, 64, R>(kmajor, f);
-    case 128: return mm_with_kmajor<KC, 128, R>(kmajor, f);
+    case 16: return mm_with_kmajor<Cfg, KC, 16, R>(kmajor, f);
+    case 32: return mm_with_kmajor<Cfg, KC, 32, R>(kmajor, f);
+    case 64: return mm_with_kmajor<Cfg, KC, 64, R>(kmajor, f);
+    case 128: return mm_with_kmajor<Cfg, KC, 128, R>(kmajor, f);
   }
   return none;
 }
 
-// f(MmCfg<KC, BN, kmajor>{}) for the Hopper route's instantiation at (kc,
-// bn, kmajor), or `none`
+// f(MmCfg<KC, BN, kmajor>{}) for the bf16 Hopper route's instantiation at
+// (kc, bn, kmajor), or `none`
 template <class R, class F>
 R with_mm_cfg(int kc, int bn, int kmajor, R none, F f) {
   switch (kc) {
-    case 16: return mm_with_bn<16>(bn, kmajor, none, f);
-    case 32: return mm_with_bn<32>(bn, kmajor, none, f);
-    case 64: return mm_with_bn<64>(bn, kmajor, none, f);
+    case 16: return mm_with_bn<MmCfg, 16>(bn, kmajor, none, f);
+    case 32: return mm_with_bn<MmCfg, 32>(bn, kmajor, none, f);
+    case 64: return mm_with_bn<MmCfg, 64>(bn, kmajor, none, f);
   }
   return none;
 }
 
-// the once-per-device shared-memory opt-in of bs_mm_kernel_wgmma<Cfg>
+template <int KC, int BN, bool KMAJ>
+auto mm_kernel(MmCfg<KC, BN, KMAJ>) {
+  return bs_mm_kernel_wgmma<KC, BN, KMAJ>;
+}
+
+// the once-per-device shared-memory opt-in of Cfg's kernel (mm_kernel)
 template <class Cfg>
 cudaError_t mm_opt_in() {
   static std::mutex mu;
   static bool attr_set[kMaxDevices] = {};
-  return smem_opt_in_once(bs_mm_kernel_wgmma<Cfg::kChunk, Cfg::kCols, Cfg::kKMajor>,
-                          (int)Cfg::SMEM, mu, attr_set, true);
+  return smem_opt_in_once(mm_kernel(Cfg{}), (int)Cfg::SMEM, mu, attr_set,
+                          Cfg::kBlocksPerSm > 1);
 }
 
 template <class Cfg>
@@ -573,12 +598,12 @@ cudaError_t launch_mm_wgmma(const MmArgs& a) {
   if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
   // encoded per launch and passed by value: a CUDA graph captures them
   CUtensorMap tm_x, tm_w, tm_out;
-  cudaError_t err = encode_bf16_2d(&tm_x, a.x, a.K, a.M, a.ldx, KC, 64);
+  cudaError_t err = encode_2d(&tm_x, a.x, a.K, a.M, a.ldx, KC, 64);
   if (err == cudaSuccess)
-    err = Cfg::kKMajor ? encode_bf16_2d(&tm_w, a.w, a.K, a.N, a.ldw, KC, BN)
-                       : encode_bf16_2d(&tm_w, a.w, a.N, a.K, a.ldw, Cfg::PW, KC);
+    err = Cfg::kKMajor ? encode_2d(&tm_w, a.w, a.K, a.N, a.ldw, KC, BN)
+                       : encode_2d(&tm_w, a.w, a.N, a.K, a.ldw, Cfg::PW, KC);
   if (err == cudaSuccess)
-    err = encode_bf16_2d(&tm_out, a.out, a.N, a.M, a.N, Panels<BN>::PW, 64);
+    err = encode_2d(&tm_out, a.out, a.N, a.M, a.N, Panels<BN>::PW, 64);
   if (err == cudaSuccess) err = mm_opt_in<Cfg>();
   if (err != cudaSuccess) return err;
   bs_mm_kernel_wgmma<KC, BN, Cfg::kKMajor><<<(unsigned)blocks, kMmThreads, Cfg::SMEM, a.stream>>>(
@@ -586,7 +611,216 @@ cudaError_t launch_mm_wgmma(const MmArgs& a) {
   return cudaGetLastError();
 }
 
-// ---- the tile route: f32, and bf16 blocks that are not multiples of 16 -----
+// ---- f32: the block-masked GEMM on bf16 pieces ------------------------------
+
+constexpr int kMmSplitThreads = kConsumers + 128;   // and a producer warpgroup
+// the producer gives up registers for the consumers' total, partial and
+// split x boxes (64 + 64 + 48 at BN 128, KC 32): 40 + 2 * 232 = 504, the
+// most a 384-thread block launched at 168 registers a thread can move
+constexpr int kMmSplitProducerRegs = 40;
+constexpr int kMmSplitConsumerRegs = 232;
+
+// The ring of the f32 route (one block an SM): each stage holds both
+// consumers' x boxes as TMA lands them in f32 (64 rows of KC columns,
+// K-major, the swizzle of a KC * 4-byte row) and the three bf16 pieces of
+// W's boxes for the block's BN output columns, each piece PIECE bytes:
+// MN-major (the forward's W) as NP panels of KC rows of PW <= 64 columns,
+// each the transposed B of one product, its k16 step 16 rows down;
+// K-major (dX's W^T, W's own storage) as one box of BN rows of KC, read as
+// NP products of PW rows each, its k16 step 32 bytes along.
+template <int KC, int BN, bool KMAJ>
+struct MmSplitCfg {
+  static constexpr int kChunk = KC;
+  static constexpr int kCols = BN;
+  static constexpr bool kKMajor = KMAJ;
+  static constexpr int kThreads = kMmSplitThreads;
+  static constexpr int kBlocksPerSm = 1;
+  static constexpr int kSteps = KC / 16;                    // k16 steps a stage
+  static constexpr int kAcc = BN / 2;                       // accumulator floats a thread
+  static constexpr int FRB = KC * 4;                        // bytes of an x box row
+  static constexpr int PW = BN < 64 ? BN : 64;              // columns of one product
+  static constexpr int NP = BN / PW;                        // products a k16 step and piece
+  static constexpr int RB = (KMAJ ? KC : PW) * 2;           // bytes of a W box row
+  static constexpr int NEXT = KMAJ ? PW * RB : KC * RB;     // from one product's B to the next
+  static constexpr int KSTEP = KMAJ ? 32 : 16 * RB;         // from one k16 step's B to the next
+  static constexpr int W_BYTES = KC * BN * 2;               // one piece's boxes
+  static constexpr int PIECE = (W_BYTES + 1023) / 1024 * 1024;
+  static constexpr int A_SLOT = 64 * FRB;                   // one consumer's x box
+  static constexpr int B_SLOT = 3 * PIECE;
+  static constexpr int STAGE = 2 * A_SLOT + B_SLOT;
+  static constexpr int STAGES = (int)((kMaxSmemBytes - 2048) / STAGE) < 8
+                                    ? (int)((kMaxSmemBytes - 2048) / STAGE) : 8;
+  static constexpr size_t SMEM = 1024 + (size_t)STAGES * STAGE + 2 * STAGES * sizeof(uint64_t);
+  static_assert(KC == 16 || KC == 32, "bs_mm: f32 chunks of 16 or 32 columns");
+  static_assert(STAGES >= 2, "bs_mm: the ring needs two stages");
+
+  // a step's six products a k16 step: the x box's pieces in registers by
+  // W's pieces at b
+  __device__ static void products(float* acc, const uint32_t (&a)[3][kSteps][4],
+                                  const unsigned char* b) {
+    wgmma_split_products<PW, KMAJ ? 0 : 1, RB, kSteps, PIECE, KSTEP, NP, NEXT>(acc, a, b);
+  }
+};
+
+// A consumer warpgroup's total (its 64 rows from row0 by BN output
+// columns from n0, f32) to out (rows of N): each thread stores its two
+// rows' pairs of columns, 8 bytes at a time, so a warp writes whole
+// 32-byte sectors; rows at or past M are not written.
+template <class C>
+__device__ __forceinline__ void store_mm_f32(const float* acc, float* __restrict__ out, int row0,
+                                             int M, int N, int n0) {
+  const int warp = (threadIdx.x % 128) / 32, lane = threadIdx.x % 32;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = row0 + 16 * warp + lane / 4 + 8 * h;
+    if (r >= M) continue;
+    float* dst = out + (size_t)r * N + n0 + 2 * (lane % 4);
+#pragma unroll
+    for (int p = 0; p < C::NP; ++p)
+#pragma unroll
+      for (int j = 0; j < C::PW / 8; ++j) {
+        const float* e = acc + p * (C::PW / 2) + 4 * j + 2 * h;
+        *reinterpret_cast<float2*>(dst + p * C::PW + 8 * j) = make_float2(e[0], e[1]);
+      }
+  }
+}
+
+// The f32 route: the bf16 route's grid and walk over each column block's
+// live K blocks, on f32 x boxes and W's three bf16 pieces (tm_w maps them
+// as (inner, rows, 3): piece p at index p), with a producer warpgroup
+// that hands its registers to the consumers (setmaxnreg).  grid (m_tiles *
+// n_tiles), N tiles fastest: block i computes rows 128 (i / n_tiles) ..
+// +127 of output columns BN (i % n_tiles) .. +BN-1, which lie in one
+// column block.
+template <int KC, int BN, bool KMAJ>
+__global__ void __launch_bounds__(kMmSplitThreads, 1)
+bs_mm_kernel_split(const __grid_constant__ CUtensorMap tm_x,
+                   const __grid_constant__ CUtensorMap tm_w, float* __restrict__ out,
+                   const int* __restrict__ tiles, const int* __restrict__ counts, int L, int M,
+                   int N, int bk, int bn, int n_tiles) {
+  using C = MmSplitCfg<KC, BN, KMAJ>;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* a_s = align1024(smem_raw);              // [consumer][stage] x boxes
+  unsigned char* b_s = a_s + 2 * C::STAGES * C::A_SLOT;  // [stage] W's pieces
+  uint64_t* full = reinterpret_cast<uint64_t*>(b_s + C::STAGES * C::B_SLOT);
+  uint64_t* empty = full + C::STAGES;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < C::STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], kConsumers);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  // the block's tile and its steps (0: the block writes zeros), worked out
+  // by the producer and the consumers each after their setmaxnreg: values
+  // live across it are spilled
+  const auto where = [&](int& m0, int& n0, int& n_steps) {
+    m0 = (blockIdx.x / n_tiles) * kMmRows;
+    n0 = (blockIdx.x % n_tiles) * BN;
+    n_steps = counts[n0 / bn] * (bk / KC);
+  };
+
+  if (threadIdx.x >= kConsumers) {
+    setmaxnreg_dec<kMmSplitProducerRegs>();
+    if (threadIdx.x == kConsumers) {
+      int m0, n0, n_steps;
+      where(m0, n0, n_steps);
+      const int chunks = bk / KC;   // steps a live K block
+      // a second x box only where the block has rows past its first 64
+      const bool two = m0 + 64 < M;
+      const uint32_t bytes = (two ? 2 : 1) * C::A_SLOT + 3 * C::W_BYTES;
+      const int* kblocks = tiles + (size_t)(n0 / bn) * L;
+      for (int it = 0; it < n_steps; ++it) {
+        const int s = it % C::STAGES;
+        const int k0 = kblocks[it / chunks] * bk + (it % chunks) * KC;
+        mbar_wait(&empty[s], ((it / C::STAGES) & 1) ^ 1);   // the first round passes
+        mbar_arrive_expect_tx(&full[s], bytes);
+        tma_load_2d(a_s + s * C::A_SLOT, &tm_x, &full[s], k0, m0);
+        if (two) tma_load_2d(a_s + (C::STAGES + s) * C::A_SLOT, &tm_x, &full[s], k0, m0 + 64);
+        unsigned char* b = b_s + s * C::B_SLOT;
+#pragma unroll
+        for (int p = 0; p < 3; ++p) {
+          if constexpr (KMAJ) {
+            tma_load_3d(b + p * C::PIECE, &tm_w, &full[s], k0, n0, p);
+          } else {
+#pragma unroll
+            for (int q = 0; q < C::NP; ++q)
+              tma_load_3d(b + p * C::PIECE + q * C::NEXT, &tm_w, &full[s], n0 + q * C::PW, k0, p);
+          }
+        }
+      }
+    }
+  } else {
+    setmaxnreg_inc<kMmSplitConsumerRegs>();
+    int m0, n0, n_steps;
+    where(m0, n0, n_steps);
+    const int wg = threadIdx.x / 128;
+    const int row0 = m0 + 64 * wg;
+    const bool live = row0 < M;   // else only the barriers, in step
+    const unsigned char* a_wg = a_s + wg * C::STAGES * C::A_SLOT;
+
+    float part[C::kAcc], total[C::kAcc];
+#pragma unroll
+    for (int i = 0; i < C::kAcc; ++i) part[i] = total[i] = 0.0f;
+    if (live) {
+      if (n_steps > 0) split_gemm<C>(part, total, a_wg, b_s, full, empty, n_steps);
+      store_mm_f32<C>(total, out, row0, M, N, n0);
+    } else {
+      split_gemm_drain<C>(full, empty, n_steps);
+    }
+  }
+}
+
+template <int KC, int BN, bool KMAJ>
+auto mm_kernel(MmSplitCfg<KC, BN, KMAJ>) {
+  return bs_mm_kernel_split<KC, BN, KMAJ>;
+}
+
+// f(MmSplitCfg<KC, BN, kmajor>{}) for the f32 route's instantiation at
+// (kc, bn, kmajor), or `none`
+template <class R, class F>
+R with_mm_split_cfg(int kc, int bn, int kmajor, R none, F f) {
+  switch (kc) {
+    case 16: return mm_with_bn<MmSplitCfg, 16>(bn, kmajor, none, f);
+    case 32: return mm_with_bn<MmSplitCfg, 32>(bn, kmajor, none, f);
+  }
+  return none;
+}
+
+// a.w holds W's three bf16 pieces, (3, K, ldw) MN-major or (3, N, ldw)
+// K-major, contiguous: piece p of row r at a.w + (p rows + r) ldw
+template <class Cfg>
+cudaError_t launch_mm_split(const MmArgs& a) {
+  constexpr int KC = Cfg::kChunk, BN = Cfg::kCols;
+  static_assert(Cfg::SMEM <= kMaxSmemBytes, "bs_mm: the f32 ring does not fit");
+  const bool aligned = (reinterpret_cast<uintptr_t>(a.x) | reinterpret_cast<uintptr_t>(a.w) |
+                        reinterpret_cast<uintptr_t>(a.out)) % 16 == 0;
+  // a K chunk never leaves its K block, an N tile never its column block;
+  // TMA's row pitches are multiples of 16 bytes
+  if (a.bk % KC || a.bn % BN || a.N % 2 || a.ldx % 4 || a.ldw % 8 || !aligned)
+    return cudaErrorInvalidValue;
+  const long long n_tiles = a.N / BN;
+  const long long blocks = (a.M + kMmRows - 1) / kMmRows * n_tiles;
+  if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
+  // encoded per launch and passed by value: a CUDA graph captures them
+  CUtensorMap tm_x, tm_w;
+  cudaError_t err = encode_2d<4>(&tm_x, a.x, a.K, a.M, a.ldx, KC, 64);
+  if (err == cudaSuccess)
+    err = Cfg::kKMajor ? encode_bf16_stack(&tm_w, a.w, a.K, a.N, 3, a.ldw, KC, BN)
+                       : encode_bf16_stack(&tm_w, a.w, a.N, a.K, 3, a.ldw, Cfg::PW, KC);
+  if (err == cudaSuccess) err = mm_opt_in<Cfg>();
+  if (err != cudaSuccess) return err;
+  bs_mm_kernel_split<KC, BN, Cfg::kKMajor><<<(unsigned)blocks, kMmSplitThreads, Cfg::SMEM,
+                                             a.stream>>>(
+      tm_x, tm_w, static_cast<float*>(a.out), a.tiles, a.counts, a.L, a.M, a.N, a.bk, a.bn,
+      (int)n_tiles);
+  return cudaGetLastError();
+}
+
+// ---- the tile route: blocks that are not multiples of 16 (f32 and bf16) ----
 
 constexpr int MM_TILE = 64;   // rows of x and columns of W per block
 constexpr int MM_KC = 32;     // depth of one staged chunk
@@ -830,10 +1064,14 @@ extern "C" int bigdl_bs_bwd_smem_bytes(int dkv, int D, int dtype) {
 // (N / bn,) int32 their number.  x's rows lie ldx elements apart; W is
 // MN-major (kmajor 0: element (k, n) at w[k * ldw + n]) or K-major (kmajor
 // 1: at w[n * ldw + k]); out (M, N) contiguous; one dtype.  kc > 0 takes
-// the Hopper route (bf16; K chunks of kc, N tiles of bn_tile, the wrapper's
-// choice: kc divides bk, bn_tile divides bn; ldx, ldw and N multiples of 8
-// and x, w, out 16-byte aligned, for TMA); kc = 0 the tile route (any
-// layout the arguments describe).
+// the Hopper route (K chunks of kc, N tiles of bn_tile, the wrapper's
+// choice: kc divides bk, bn_tile divides bn; x, w, out 16-byte aligned and
+// the row pitches multiples of 16 bytes, for TMA): in bf16 on W as it
+// stands (kc 16, 32 or 64; ldx, ldw and N multiples of 8), in f32 on W's
+// three bf16 pieces, which w then points to (kc 16 or 32; (3, K, ldw)
+// MN-major or (3, N, ldw) K-major, contiguous: piece p of row r at w + (p
+// rows + r) ldw; ldx a multiple of 4, ldw of 8).  kc = 0 takes the tile
+// route (any layout the arguments describe).
 extern "C" int bigdl_bs_mm(const void* x, const void* w, void* out, const void* tiles,
                            const void* counts, int L, int M, int K, int N, int bk, int bn,
                            int ldx, int ldw, int kmajor, int kc, int bn_tile, int dtype,
@@ -844,31 +1082,46 @@ extern "C" int bigdl_bs_mm(const void* x, const void* w, void* out, const void* 
   const MmArgs a{x, w, out, static_cast<const int*>(tiles), static_cast<const int*>(counts), L,
                  M, K, N, bk, bn, ldx, ldw, kmajor, static_cast<cudaStream_t>(stream)};
   if (kc > 0) {
-    if (dtype != 1) return (int)cudaErrorInvalidValue;
-    return (int)with_mm_cfg(kc, bn_tile, kmajor, (cudaError_t)cudaErrorInvalidValue,
-                            [&](auto cfg) { return launch_mm_wgmma<decltype(cfg)>(a); });
+    const cudaError_t none = cudaErrorInvalidValue;
+    if (dtype == 1)
+      return (int)with_mm_cfg(kc, bn_tile, kmajor, none,
+                              [&](auto cfg) { return launch_mm_wgmma<decltype(cfg)>(a); });
+    if (dtype == 0)
+      return (int)with_mm_split_cfg(kc, bn_tile, kmajor, none,
+                                    [&](auto cfg) { return launch_mm_split<decltype(cfg)>(a); });
+    return (int)none;
   }
   if (dtype == 1) return (int)dispatch_mm_tile<__nv_bfloat16>(a);
   if (dtype == 0) return (int)dispatch_mm_tile<float>(a);
   return (int)cudaErrorInvalidValue;
 }
 
-// Dynamic shared memory per block of K9's Hopper route at (kc, bn_tile,
-// kmajor), or 0 for what it does not take.
-extern "C" int bigdl_bs_mm_smem_bytes(int kc, int bn_tile, int kmajor) {
-  return with_mm_cfg(kc, bn_tile, kmajor, 0, [](auto cfg) { return (int)decltype(cfg)::SMEM; });
+// f(Cfg{}) for K9's Hopper route at (kc, bn_tile, kmajor) in dtype (1 bf16,
+// 0 f32), or `none`
+template <class R, class F>
+R with_mm_route(int kc, int bn_tile, int kmajor, int dtype, R none, F f) {
+  if (dtype == 1) return with_mm_cfg(kc, bn_tile, kmajor, none, f);
+  if (dtype == 0) return with_mm_split_cfg(kc, bn_tile, kmajor, none, f);
+  return none;
 }
 
-// How many blocks of K9's Hopper route at (kc, bn_tile, kmajor) the current
-// device runs on one SM at once (2 by design), or -1.
-extern "C" int bigdl_bs_mm_blocks_per_sm(int kc, int bn_tile, int kmajor) {
-  return with_mm_cfg(kc, bn_tile, kmajor, -1, [](auto cfg) {
+// Dynamic shared memory per block of K9's Hopper route at (kc, bn_tile,
+// kmajor) in dtype (1 bf16, 0 f32), or 0 for what it does not take.
+extern "C" int bigdl_bs_mm_smem_bytes(int kc, int bn_tile, int kmajor, int dtype) {
+  return with_mm_route(kc, bn_tile, kmajor, dtype, 0,
+                       [](auto cfg) { return (int)decltype(cfg)::SMEM; });
+}
+
+// How many blocks of K9's Hopper route at (kc, bn_tile, kmajor) in dtype
+// the current device runs on one SM at once (bf16: 2 by design, f32: 1),
+// or -1.
+extern "C" int bigdl_bs_mm_blocks_per_sm(int kc, int bn_tile, int kmajor, int dtype) {
+  return with_mm_route(kc, bn_tile, kmajor, dtype, -1, [](auto cfg) {
     using Cfg = decltype(cfg);
     int n = -1;
     if (mm_opt_in<Cfg>() != cudaSuccess ||
-        cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-            &n, bs_mm_kernel_wgmma<Cfg::kChunk, Cfg::kCols, Cfg::kKMajor>, kMmThreads,
-            Cfg::SMEM) != cudaSuccess)
+        cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, mm_kernel(Cfg{}), Cfg::kThreads,
+                                                      Cfg::SMEM) != cudaSuccess)
       return -1;
     return n;
   });

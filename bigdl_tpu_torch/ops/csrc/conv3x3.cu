@@ -60,7 +60,8 @@
 // 16 or 32 channels: 64- or 128-byte rows), TMA's zero fill again making
 // the halo, and each consumer warpgroup reads its own box straight into
 // wgmma's register operand, split there into its three pieces
-// (load_split_a), the next step's while a step's products run.  Shared
+// (hopper_common.cuh's split_gemm, which K9's f32 route shares), the next
+// step's while a step's products run.  Shared
 // memory's 128 bytes a cycle is what the design spares: a product with
 // both operands in shared memory reads 128 bytes a cycle at n64 (96 at
 // n128), which with the TMA writes and a split of the boxes in shared
@@ -345,11 +346,15 @@ constexpr int kSplitRingBytes = 196608;   // the ring of a block alone on its SM
 // The ring's stages of the f32 kernel: each holds both consumers' pixel
 // boxes as TMA lands them in f32 (64 rows of KC channels), and the three
 // bf16 pieces of the weight box (BN rows of KC channels each), which the
-// wrapper split once per call.
+// wrapper split once per call.  Its consumers are hopper_common.cuh's
+// split_gemm: each reads its box into wgmma's register operand, split
+// there (load_split_rows), and products() forms a step's six products a
+// k16 step on the weight pieces, K-major.
 template <int KC, int BN>
 struct ConvSplitCfg {
   static constexpr int kChunk = KC;             // input channels a step
   static constexpr int kOut = BN;               // output channels a block
+  static constexpr int kAcc = BN / 2;           // accumulator floats a thread
   static constexpr int kSteps = KC / 16;        // k16 steps of a product
   static constexpr int FRB = KC * 4;            // bytes of an f32 box row = its swizzle span
   static constexpr int RB = KC * 2;             // bytes of a bf16 piece's row = its swizzle span
@@ -362,78 +367,14 @@ struct ConvSplitCfg {
   static constexpr size_t SMEM = 1024 + (size_t)STAGES * STAGE + 2 * STAGES * sizeof(uint64_t);
   static_assert(KC == 16 || KC == 32, "conv3x3: f32 chunks of 16 or 32 channels");
   static_assert(STAGES >= 2, "conv3x3: the ring needs two stages");
+
+  // a step's six products a k16 step: the box's pieces in registers by the
+  // weight pieces at b (W_PIECE apart), K-major, each k16 step 32 bytes on
+  __device__ static void products(float* acc, const uint32_t (&a)[3][kSteps][4],
+                                  const unsigned char* b) {
+    wgmma_split_products<BN, 0, RB, kSteps, W_PIECE, 32>(acc, a, b);
+  }
 };
-
-// A consumer warpgroup's pixel box as wgmma's register operand: the three
-// bf16 pieces (split_bf16x3) of its 64 rows by KC f32 channels, per piece
-// and k16 step the four packed pairs of an m64k16 A fragment (those of an
-// m64 accumulator's 16 columns: thread t of warp w holds rows 16w + t/4
-// and + 8, columns 2(t%4) + {0, 1} and + 8), read from the f32 box at `box`
-// as TMA landed it (rows of KC * 4 bytes, their 16-byte chunks xor'd by
-// address bits 7..).
-template <class C>
-__device__ __forceinline__ void load_split_a(uint32_t (&a)[3][C::kSteps][4],
-                                             const unsigned char* box) {
-  constexpr uint32_t SWZ = (C::FRB / 16 - 1) << 4;
-  const int warp = (threadIdx.x % 128) / 32, lane = threadIdx.x % 32;
-#pragma unroll
-  for (int j = 0; j < C::kSteps; ++j)
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {   // i = 2 * (column half) + row half
-      const uint32_t r = 16 * warp + lane / 4 + 8 * (i & 1);
-      const uint32_t o = r * C::FRB + 4 * (16 * j + 8 * (i >> 1) + 2 * (lane % 4));
-      const float2 v = *reinterpret_cast<const float2*>(box + (o ^ ((o >> 3) & SWZ)));
-      split_bf16x3(v.x, v.y, a[0][j][i], a[1][j][i], a[2][j][i]);
-    }
-}
-
-// acc (m64 x BN) = the f32 product of a pixel box split into registers (a)
-// and the weight pieces at `b` (W_PIECE apart), as six bf16 products,
-// small terms first: a1 w3 + a2 w2 + a3 w1, then a1 w2 + a2 w1, then a1 w1;
-// the first overwrites acc.  Issued, not waited.
-template <class C>
-__device__ __forceinline__ void wgmma_conv_split(float* acc,
-                                                 const uint32_t (&a)[3][C::kSteps][4],
-                                                 const unsigned char* b) {
-#pragma unroll
-  for (int t = 0; t < 6; ++t) {
-    // the pieces (0-based) of term t: (0, 2) (1, 1) (2, 0) (0, 1) (1, 0) (0, 0)
-    const int pa = t < 3 ? t : t < 5 ? t - 3 : 0;
-    const int pw = t < 3 ? 2 - t : t == 3 ? 1 : 0;
-#pragma unroll
-    for (int j = 0; j < C::kSteps; ++j)
-      wgmma_rs<C::kOut, 0>(acc, a[pa][j], smem_desc<C::RB>(b + pw * C::W_PIECE + 32 * j),
-                           t + j > 0);
-  }
-}
-
-// Step `it` of a live consumer warpgroup of the f32 kernel, its box split
-// into a[kA] already: issue the step's products into `part`, split the
-// next step's box into a[1 - kA] while they run, then add them to the
-// total (round to nearest) and free the step's stage.
-template <class C, int kA>
-__device__ __forceinline__ void split_step(uint32_t (&a)[2][3][C::kSteps][4],
-                                           float (&part)[C::kOut / 2],
-                                           float (&total)[C::kOut / 2], const unsigned char* a_wg,
-                                           const unsigned char* b_s, uint64_t* full,
-                                           uint64_t* empty, int it, int n_steps) {
-  const int s = it % C::STAGES;
-  wgmma_fence();
-  wgmma_conv_split<C>(part, a[kA], b_s + s * C::B_SLOT);
-  wgmma_commit();
-  if (it + 1 < n_steps) {
-    const int s1 = (it + 1) % C::STAGES;
-    mbar_wait(&full[s1], ((it + 1) / C::STAGES) & 1);
-    load_split_a<C>(a[1 - kA], a_wg + s1 * C::A_SLOT);
-  }
-  wgmma_wait<0>();
-  mbar_arrive(&empty[s]);
-#pragma unroll
-  for (int i = 0; i < C::kOut / 2; ++i) {
-    fence_regs(part[i]);
-    total[i] += part[i];
-  }
-}
 
 // The accumulator of a consumer warpgroup (its box's 64 pixels by output
 // channels o0 .. o0 + BN - 1, f32) to y: each thread stores its two rows'
@@ -539,21 +480,10 @@ conv3x3_kernel_split(const __grid_constant__ CUtensorMap tm_x,
 #pragma unroll
     for (int i = 0; i < BN / 2; ++i) part[i] = total[i] = 0.0f;
     if (live) {
-      uint32_t a[2][3][C::kSteps][4];
-      mbar_wait(&full[0], 0);
-      load_split_a<C>(a[0], a_wg);
-      for (int it = 0; it < n_steps; it += 2) {
-        split_step<C, 0>(a, part, total, a_wg, b_s, full, empty, it, n_steps);
-        if (it + 1 < n_steps)
-          split_step<C, 1>(a, part, total, a_wg, b_s, full, empty, it + 1, n_steps);
-      }
+      split_gemm<C>(part, total, a_wg, b_s, full, empty, n_steps);
       store_acc_f32<BN>(total, y, sh, box_origin(sh, tile), o0);
     } else {
-      for (int it = 0; it < n_steps; ++it) {
-        const int s = it % C::STAGES;
-        mbar_wait(&full[s], (it / C::STAGES) & 1);
-        mbar_arrive(&empty[s]);
-      }
+      split_gemm_drain<C>(full, empty, n_steps);
     }
   }
 }

@@ -10,8 +10,9 @@
 // block-masked GEMM (block_sparse.cu).
 // Its last sections hold what the two attention bodies share: the block
 // shape and the steps of a sweep, the split of f32 operands into bf16
-// pieces on which the f32 forward, dK/dV and dQ (and K5 in f32) form
-// their products, and the products themselves.
+// pieces on which the f32 forward, dK/dV and dQ (and K5 and K9 in f32)
+// form their products, and the products themselves; and the consumers
+// that K5 and K9 share in f32.
 //
 // Conventions.
 //   * Tiles land in shared memory by TMA with a swizzle whose span equals
@@ -639,6 +640,110 @@ __device__ __forceinline__ void load_split_rows(uint32_t (&a)[3][kSteps][4],
     }
 }
 
+// ---- GEMMs on f32 operands split into bf16 pieces (K5, K9) -------------------
+//
+// K5's f32 implicit GEMM (conv3x3.cu) and K9's f32 block-masked GEMM
+// (block_sparse.cu) share their consumers: each consumer warpgroup reads
+// its 64-row f32 box of A (as TMA landed it) straight into wgmma's register
+// A operand, split there into three pieces (load_split_rows), the next
+// step's while a step's products run, and B comes as three bf16 pieces
+// that the wrapper split once per call.  A step (one ring stage, KC
+// columns of A) makes six products a k16 step, small terms first, into a
+// fresh partial, which is added to the f32 total (round to nearest) once
+// done: wgmma rounds the sums it accumulates toward zero, which over all
+// the steps' products in one accumulator shrank K5's output by 3.3e-5 at
+// K = 4608 (PERF.md).  A ring's configuration C gives kSteps (k16 steps a
+// stage), FRB (bytes of an A box row), kAcc (accumulator floats a thread),
+// STAGES, A_SLOT, B_SLOT and products(part, a, b): the six products into
+// part, issued, not waited.
+
+// acc = the f32 product of A split into registers (a: piece, k16 step,
+// fragment) and B's three pieces in shared memory, as six bf16 products a
+// k16 step, small terms first: a1 b3 + a2 b2 + a3 b1, then a1 b2 + a2 b1,
+// then a1 b1.  Piece p of B lies kPiece bytes after piece p - 1, k16 step
+// j kStep bytes after step 0, rows of kRowBytes bytes (the descriptor's
+// swizzle), read K-major (kTransB 0) or MN-major (1); a step makes kProducts
+// m64nN products, product n's B kNext bytes after product 0's, its
+// accumulator N / 2 floats after product 0's.  The first product of each
+// overwrites its accumulator.  Issued, not waited.
+template <int N, int kTransB, int kRowBytes, int kSteps, int kPiece, int kStep,
+          int kProducts = 1, int kNext = 0>
+__device__ __forceinline__ void wgmma_split_products(float* acc,
+                                                     const uint32_t (&a)[3][kSteps][4],
+                                                     const unsigned char* b) {
+#pragma unroll
+  for (int t = 0; t < 6; ++t) {
+    // the pieces (0-based) of term t: (0, 2) (1, 1) (2, 0) (0, 1) (1, 0) (0, 0)
+    const int pa = t < 3 ? t : t < 5 ? t - 3 : 0;
+    const int pb = t < 3 ? 2 - t : t == 3 ? 1 : 0;
+#pragma unroll
+    for (int j = 0; j < kSteps; ++j)
+#pragma unroll
+      for (int n = 0; n < kProducts; ++n)
+        wgmma_rs<N, kTransB>(acc + n * (N / 2), a[pa][j],
+                             smem_desc<kRowBytes>(b + pb * kPiece + n * kNext + kStep * j),
+                             t + j > 0);
+  }
+}
+
+// Step `it` of a live consumer warpgroup of ring C, its A box split into
+// a[kA] already: issue the step's products into `part`, split the next
+// step's box (at a_wg, A_SLOT bytes a stage) into a[1 - kA] while they
+// run, then add them to the total (round to nearest) and free the stage.
+template <class C, int kA>
+__device__ __forceinline__ void split_gemm_step(uint32_t (&a)[2][3][C::kSteps][4],
+                                                float (&part)[C::kAcc], float (&total)[C::kAcc],
+                                                const unsigned char* a_wg,
+                                                const unsigned char* b_s, uint64_t* full,
+                                                uint64_t* empty, int it, int n_steps) {
+  const int s = it % C::STAGES;
+  wgmma_fence();
+  C::products(part, a[kA], b_s + s * C::B_SLOT);
+  wgmma_commit();
+  if (it + 1 < n_steps) {
+    const int s1 = (it + 1) % C::STAGES;
+    mbar_wait(&full[s1], ((it + 1) / C::STAGES) & 1);
+    load_split_rows<C::FRB, C::kSteps>(a[1 - kA], a_wg + s1 * C::A_SLOT);
+  }
+  wgmma_wait<0>();
+  mbar_arrive(&empty[s]);
+#pragma unroll
+  for (int i = 0; i < C::kAcc; ++i) {
+    fence_regs(part[i]);
+    total[i] += part[i];
+  }
+}
+
+// All n_steps (at least 1) steps of a live consumer warpgroup of ring C
+// into `total`: its A boxes at a_wg, the B pieces at b_s, the box splits
+// into registers alternating so that the next step's split runs beside a
+// step's products.
+template <class C>
+__device__ __forceinline__ void split_gemm(float (&part)[C::kAcc], float (&total)[C::kAcc],
+                                           const unsigned char* a_wg, const unsigned char* b_s,
+                                           uint64_t* full, uint64_t* empty, int n_steps) {
+  uint32_t a[2][3][C::kSteps][4];
+  mbar_wait(&full[0], 0);
+  load_split_rows<C::FRB, C::kSteps>(a[0], a_wg);
+  for (int it = 0; it < n_steps; it += 2) {
+    split_gemm_step<C, 0>(a, part, total, a_wg, b_s, full, empty, it, n_steps);
+    if (it + 1 < n_steps)
+      split_gemm_step<C, 1>(a, part, total, a_wg, b_s, full, empty, it + 1, n_steps);
+  }
+}
+
+// The n_steps steps of a consumer warpgroup with no rows of its own (past
+// the output's end): it waits for each stage and frees it, in step with
+// the live warpgroup, since each stage's empty barrier counts both.
+template <class C>
+__device__ __forceinline__ void split_gemm_drain(uint64_t* full, uint64_t* empty, int n_steps) {
+  for (int it = 0; it < n_steps; ++it) {
+    const int s = it % C::STAGES;
+    mbar_wait(&full[s], (it / C::STAGES) & 1);
+    mbar_arrive(&empty[s]);
+  }
+}
+
 // ---- the attention bodies' products ------------------------------------------
 
 // acc (m64 x N f32, one consumer warpgroup) = A . B^T over D (kAcc: acc
@@ -933,14 +1038,28 @@ inline cudaError_t encode_tiled(CUtensorMap* map, const void* base, int rank,
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
-// A tensor map over a bf16 matrix of n1 rows of n0 elements, row r at
-// `base` + r * `pitch` elements, read in boxes of (box1 rows, box0 columns).
-inline cudaError_t encode_bf16_2d(CUtensorMap* map, const void* base, uint64_t n0, uint64_t n1,
-                                  uint64_t pitch, uint32_t box0, uint32_t box1) {
+// A tensor map over a matrix of kElem-byte elements (bf16 2, f32 4) of n1
+// rows of n0 elements, row r at `base` + r * `pitch` elements, read in
+// boxes of (box1 rows, box0 columns).
+template <int kElem = 2>
+inline cudaError_t encode_2d(CUtensorMap* map, const void* base, uint64_t n0, uint64_t n1,
+                             uint64_t pitch, uint32_t box0, uint32_t box1) {
   const uint64_t dims[2] = {n0, n1};
   const uint32_t box[2] = {box0, box1};
-  const uint64_t pitches[1] = {2 * pitch};
-  return encode_tiled(map, base, 2, dims, box, pitches);
+  const uint64_t pitches[1] = {kElem * pitch};
+  return encode_tiled<kElem>(map, base, 2, dims, box, pitches);
+}
+
+// A tensor map over n2 bf16 matrices of n1 rows of n0 elements, row r of
+// matrix i at `base` + (i n1 + r) * `pitch` elements, read in boxes of
+// (1, box1 rows, box0 columns): a box never reaches past its matrix.
+// K9's f32 route reads W's three bf16 pieces so.
+inline cudaError_t encode_bf16_stack(CUtensorMap* map, const void* base, uint64_t n0, uint64_t n1,
+                                     uint64_t n2, uint64_t pitch, uint32_t box0, uint32_t box1) {
+  const uint64_t dims[3] = {n0, n1, n2};
+  const uint32_t box[3] = {box0, box1, 1};
+  const uint64_t pitches[2] = {2 * pitch, 2 * pitch * n1};
+  return encode_tiled<2>(map, base, 3, dims, box, pitches);
 }
 
 // A tensor map over a contiguous bf16 array of shape (n2, n1, n0), n0

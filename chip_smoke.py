@@ -14,7 +14,8 @@ Phases; any failure exits non-zero:
    at first launch.  Print the build seconds, and for each instantiation
    of K1, K2, K3, K6-K8, K5's bf16 and f32 kernels (one per KC input
    channels a step and BN output channels a block) and K9's Hopper route
-   (one per KC, BN and W orientation) its registers, spills and dynamic
+   in bf16 and in f32 (split products; one per KC, BN and W orientation)
+   its registers, spills and dynamic
    shared memory (ptxas) and its wgmma (HGMMA) and TMA (UTMALDG)
    instructions (``cuobjdump -sass``, where the toolkit has it); each
    bf16 attention kernel at D 128, 192 and 256, the f32 K1-K3 and K6-K8
@@ -23,9 +24,10 @@ Phases; any failure exits non-zero:
    instantiation each for every head dim), the
    bf16 K5 at KC 64, every f32 K5 (split products too) and every K9
    instantiation must not spill and must hold both (and the attention
-   kernels must not have their wgmma serialised, ptxas C7520 or C7514), two bf16
-   K5 or K9 blocks must share an SM (an f32 K5 block is alone on its
-   SM), and no library may still hold the f32 dQ's or the f32 K5's
+   kernels and the f32 K5 and K9 must not have their wgmma serialised,
+   ptxas C7520 or C7514), two bf16
+   K5 or K9 blocks must share an SM (an f32 K5 or K9 block is alone on
+   its SM), and no library may still hold the f32 dQ's or the f32 K5's
    retired FMA loops, or the retired wide route's forward, dK/dV or dQ
    in either dtype.
 3. kernel parity — each kernel against its plain PyTorch version on the
@@ -54,9 +56,12 @@ Phases; any failure exits non-zero:
    width (B 128, 32 x 32, C = O = 16) and ragged C 3, O 10, H 7, W 5,
    with K5's pixel box, its dead rows and the bytes its TMA boxes
    request, and the wrapper's whole call (in f32 with its weight split);
-   K9 forward and dX (on W in place) with the route each took,
+   K9 forward and dX (on W in place) with the route each took (the
+   Hopper route at blocks that are multiples of 16, in f32 on split
+   products; the tile route at block 8 in both dtypes),
    and on its Hopper route the tile route's time on the same inputs and
-   the bytes its TMA boxes request; kernel, plain and library times
+   the bytes its TMA boxes request (in f32 also the split of W into its
+   pieces, which the call's time includes); kernel, plain and library times
    (SDPA's backward by CUDA graph replay, with the backend that ran);
    the bound.
 4. serving path — the flagship TransformerLM (V 32000, D 1024, 8 heads,
@@ -90,10 +95,11 @@ Phases; any failure exits non-zero:
    copy), MFU on
    executed and flash-equivalent work, peak memory.
 7. the block-sparse matmul's entry point — ``block_sparse_matmul`` at
-   the flagship MLP shape in bf16 under autograd, 3 forward+backward
-   passes: 2 launches of K9 per pass, all on its Hopper route (dX reads
-   W in place), dW zero on every dead tile, the forward and dX as phase 3
-   holds them.
+   the flagship MLP shape in bf16 and in f32 under autograd, 3
+   forward+backward passes each: 2 launches of K9 per pass, all on its
+   Hopper route (dX reads W in place; in f32 all 6 on split products,
+   none on the tile route), dW zero on every dead tile, the forward and
+   dX as phase 3 holds them.
 8. ResNet-50 training path — ``bench.py``'s ``conv_impl="pallas"`` leg on
    the port: ``ResNet50(1000)`` with the conv7 stem (random weights from
    a seeded generator), every ``SpatialConvolution`` on ``"pallas"`` (the
@@ -145,12 +151,14 @@ T_START = time.perf_counter()
 # "float32_split_fwd" that of the f32 K1 and K6: 12 bf16 products for
 # their two (six for S, six for P.V); "float32_split_dq" that of the f32
 # K3 and K8: 18 for their three (six each for S, dP and dQ);
-# "float32_split_conv" that of the f32 K5: six for its one
+# "float32_split_conv" that of the f32 K5 and "float32_split_mm" that of
+# the f32 K9's Hopper route: six for their one
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12,
               "float32_split": 989e12 * 4 / 22,
               "float32_split_fwd": 989e12 * 2 / 12,
               "float32_split_dq": 989e12 * 3 / 18,
-              "float32_split_conv": 989e12 / 6}
+              "float32_split_conv": 989e12 / 6,
+              "float32_split_mm": 989e12 / 6}
 MEM_BYTES_PER_S = 3.35e12
 
 FLAGSHIP = dict(vocab=32000, embed_dim=1024, num_heads=8, num_layers=8,
@@ -563,10 +571,12 @@ def kernel_design(torch):
 
 # the wgmma GEMMs by their mangled names: K5 in bf16 and in f32 (split
 # products; KC input channels a step, BN output channels a block) and
-# K9's Hopper route (KC, BN, W read K-major)
+# K9's Hopper route in bf16 and in f32 (split products; KC, BN, W read
+# K-major)
 CONV_KERNEL = r"conv3x3_kernel_wgmmaILi(\d+)ELi(\d+)E"
 CONV_SPLIT_KERNEL = r"conv3x3_kernel_splitILi(\d+)ELi(\d+)E"
 MM_KERNEL = r"bs_mm_kernel_wgmmaILi(\d+)ELi(\d+)ELb([01])E"
+MM_SPLIT_KERNEL = r"bs_mm_kernel_splitILi(\d+)ELi(\d+)ELb([01])E"
 
 
 def wgmma_design(lib_name, label, pattern, names, smem, occ, checked,
@@ -657,12 +667,22 @@ def conv_design(torch):
 
 
 def mm_design(torch):
-    """K9's Hopper route (``wgmma_design``), per (KC, BN, W K-major):
-    none may spill, each must hold HGMMA and UTMALDG."""
-    return wgmma_design("block_sparse", "K9", MM_KERNEL, ("kc", "bn", "kmajor"),
-                        _int_fn("block_sparse", "bigdl_bs_mm_smem_bytes", 3),
-                        _int_fn("block_sparse", "bigdl_bs_mm_blocks_per_sm", 3),
-                        lambda *args: True)
+    """K9's Hopper route (``wgmma_design``), per (KC, BN, W K-major): in
+    bf16 two blocks an SM, in f32 (split products) a block alone on its
+    SM; none may spill, each must hold HGMMA and UTMALDG, and no f32 one
+    may have its wgmma serialised."""
+    smem = _int_fn("block_sparse", "bigdl_bs_mm_smem_bytes", 4)
+    occ = _int_fn("block_sparse", "bigdl_bs_mm_blocks_per_sm", 4)
+    names = ("kc", "bn", "kmajor")
+    rows, failures = wgmma_design(
+        "block_sparse", "K9", MM_KERNEL, names,
+        lambda *args: smem(*args, 1), lambda *args: occ(*args, 1),
+        lambda *args: True)
+    more_rows, more_failures = wgmma_design(
+        "block_sparse", "K9", MM_SPLIT_KERNEL, names,
+        lambda *args: smem(*args, 0), lambda *args: occ(*args, 0),
+        lambda *args: True, dtype="float32", blocks=1, serial_check=True)
+    return rows + more_rows, failures + more_failures
 
 
 def flash_cases(torch):
@@ -826,11 +846,11 @@ def check_layer_norm(torch, F):
 
 def launch_counters():
     """Every kernel's launch counter, by the kernel's name (K1-K3 and
-    K6-K8 also by f32 head dim 192 and 256 and above 256 by dtype: the
-    ``variants`` of the ``kernels`` line), and the attention
-    and LayerNorm wrappers' counts
+    K6-K8 also by f32 head dim 192 and 256 and above 256 by dtype, K9 on
+    its f32 Hopper route: the ``variants`` of the ``kernels`` line), and
+    the attention and LayerNorm wrappers' counts
     of operand copies, which the bf16 main paths hold at 0.  A checkout
-    without some per-head-dim counters (``f32_steps.py`` runs these
+    without some of the variants' counters (``f32_steps.py`` runs these
     helpers on an earlier one) lists those it has."""
     from bigdl_tpu_torch.ops import block_sparse as bs
     from bigdl_tpu_torch.ops import conv3x3
@@ -843,6 +863,7 @@ def launch_counters():
                                             "LAUNCHES_DKV_CHUNKED",
                                             "LAUNCHES_DQ_CHUNKED")
               for c in getattr(m, n, {}).values()]
+    by_dim += [bs.LAUNCHES_MM_F32] if hasattr(bs, "LAUNCHES_MM_F32") else []
     return {c.name: c for c in (fa.LAUNCHES, fa.LAUNCHES_DKV,
                                 fa.LAUNCHES_DQ, ln.LAUNCHES, bs.LAUNCHES,
                                 bs.LAUNCHES_DKV, bs.LAUNCHES_DQ,
@@ -1384,14 +1405,18 @@ def check_bs_poison(torch, D, dt):
 
 def mm_cases(torch):
     """(label, M, K, N, block, dtype) for K9: the flagship MLP shape in
-    bf16 and f32, the kernel lab's shape, ragged M, block 32."""
+    bf16 and f32 (the Hopper route, on split products in f32), the kernel
+    lab's shape in f32, ragged M, block 32, and block 8 in both dtypes
+    (the tile route: blocks that are not multiples of 16)."""
     bf16, f32 = torch.bfloat16, torch.float32
     M, K, N = MM_SHAPE
     return [("mlp_bf16", M, K, N, MM_BLOCK, bf16),
             ("mlp_f32", M, K, N, MM_BLOCK, f32),
             ("lab_f32", 64, 1024, 1024, 512, f32),
             ("ragged_M100", 100, K, N, MM_BLOCK, bf16),
-            ("block32", 4096, K, K, 32, bf16)]
+            ("block32", 4096, K, K, 32, bf16),
+            ("block8_bf16", 4096, K, K, 8, bf16),
+            ("block8_f32", 4096, K, K, 8, f32)]
 
 
 def mm_inputs(torch, M, K, N, block, dt):
@@ -1405,20 +1430,22 @@ def mm_inputs(torch, M, K, N, block, dt):
     return x, w, gy, bs.magnitude_block_mask(w, block, block, MM_DENSITY)
 
 
-def mm_boxes(M, K, N, mask):
-    """What K9's Hopper route reads for one call (its plan from
-    ``_mm_plan``): KC, BN, and the bytes its TMA boxes request, per live
-    step of each 128-row tile and BN-column tile: two 64-row x boxes
-    (one where the tile has 64 rows or fewer) and the W box; x and W come
-    from L2 after their first read."""
+def mm_boxes(M, K, N, mask, dtype):
+    """What K9's Hopper route reads for one call in ``dtype`` (its plan
+    from ``_mm_plan``): KC, BN, and the bytes its TMA boxes request, per
+    live step of each 128-row tile and BN-column tile: two 64-row x boxes
+    (one where the tile has 64 rows or fewer; 2 bytes an element in bf16,
+    4 in f32) and W's box (bf16: 2 bytes an element; f32: its three bf16
+    pieces, 6); x and W come from L2 after their first read."""
     import torch
 
     from bigdl_tpu_torch.ops import block_sparse as bs
 
-    kc, bn_t = bs._mm_plan(torch.bfloat16, mask.block_q, mask.block_k)
+    kc, bn_t = bs._mm_plan(dtype, mask.block_q, mask.block_k)
+    x_item, w_item = (2, 2) if dtype == torch.bfloat16 else (4, 6)
     steps = mask.nnz * (mask.block_q // kc) * (mask.block_k // bn_t)
-    x_step = -(-M // 64) * 64 * kc * 2
-    w_step = -(-M // 128) * kc * bn_t * 2
+    x_step = -(-M // 64) * 64 * kc * x_item
+    w_step = -(-M // 128) * kc * bn_t * w_item
     return dict(kc=kc, bn=bn_t, tma_bytes=steps * (x_step + w_step))
 
 
@@ -1427,7 +1454,10 @@ def check_block_sparse_mm(torch):
     (dY, Wᵀ, maskᵀ) with Wᵀ a view that K9 reads in place; NaN in every
     dead W tile; the route each took.  Times against ``torch.matmul`` on
     the masked dense W, and on the Hopper route the tile route on the same
-    inputs (K9's first design) and the bytes its TMA boxes request."""
+    inputs (K9's first design), forward and dX, and the bytes its TMA
+    boxes request; in f32 the bound of six bf16 products an f32 one (the
+    FMA loop's beside it) and the time of the wrapper's split of W into
+    its pieces, which the kernel's time includes."""
     from bigdl_tpu_torch.ops import block_sparse as bs
 
     rows = []
@@ -1453,7 +1483,9 @@ def check_block_sparse_mm(torch):
                                   mask)
         poison_ok = bool(torch.isfinite(poisoned.float()).all()) and bool(
             torch.equal(poisoned, y))
-        ok = max(rel.values()) <= tol and poison_ok
+        # the route _mm_plan gives the case's blocks
+        want_route = "hopper" if bs._mm_plan(dt, block, block) else "tile"
+        ok = max(rel.values()) <= tol and poison_ok and route == want_route
         w_dense = torch.where(live, w, torch.zeros((), dtype=dt,
                                                    device="cuda"))
         ms = cuda_ms(lambda: bs._bs_mm_cuda(x, w, mask))
@@ -1462,32 +1494,45 @@ def check_block_sparse_mm(torch):
         lib_ms = cuda_ms(lambda: torch.matmul(x, w_dense))
         item = x.element_size()
         nnz = mask.nnz * mask.block_q * mask.block_k
-        b_ms, b_by = bound(item * (M * K + nnz + M * N), 2.0 * M * nnz, dname)
+        rate = ("float32_split_mm" if dname == "float32" and route == "hopper"
+                else dname)
+        nbytes, flops = item * (M * K + nnz + M * N), 2.0 * M * nnz
+        b_ms, b_by = bound(nbytes, flops, rate)
         row = dict(case=label, shape=[M, K, N], block=block, dtype=dname,
                    route=route, density=mask.density, row_rel_err=rel,
                    max_abs_err=err, tol=tol, nan_poison_ok=poison_ok, ok=ok,
                    ms=ms, dx_ms=dx_ms, plain_ms=plain_ms, library_ms=lib_ms,
-                   bound_ms=b_ms, bound_by=b_by)
+                   bound_ms=b_ms, bound_by=b_by, bound_rate=rate)
         extra = ""
         if route == "hopper":
             row["tile_route_ms"] = cuda_ms(
                 lambda: bs._launch_mm(x, w, mask, None), iters=5)
-            row["boxes"] = mm_boxes(M, K, N, mask)
-            row["boxes_dx"] = mm_boxes(M, N, K, mask.transposed())
-            extra = (f" tile route {row['tile_route_ms']:.4f} ms; KC "
+            row["tile_route_dx_ms"] = cuda_ms(
+                lambda: bs._launch_mm(gy, w.t(), mask.transposed(), None),
+                iters=5)
+            row["boxes"] = mm_boxes(M, K, N, mask, dt)
+            row["boxes_dx"] = mm_boxes(M, N, K, mask.transposed(), dt)
+            extra = (f" tile route {row['tile_route_ms']:.4f} ms (dX "
+                     f"{row['tile_route_dx_ms']:.4f}); KC "
                      f"{row['boxes']['kc']} BN {row['boxes']['bn']}, TMA "
                      f"boxes {row['boxes']['tma_bytes'] / 1e6:.1f} MB "
                      f"({row['boxes']['tma_bytes'] / ms / 1e9:.2f} TB/s), "
                      f"dX {row['boxes_dx']['tma_bytes'] / 1e6:.1f} MB "
                      f"({row['boxes_dx']['tma_bytes'] / dx_ms / 1e9:.2f} "
                      f"TB/s)")
+            if dname == "float32":
+                row["fma_bound_ms"] = bound(nbytes, flops, "float32")[0]
+                row["split_w_ms"] = cuda_ms(lambda: bs._mm_pieces(w))
+                extra += (f"; FMA bound {row['fma_bound_ms']:.4f} ms, W's "
+                          f"split {row['split_w_ms']:.4f} ms")
         rows.append(row)
         print(f"K9 block_sparse_mm {label:>12} {dname:>8} {route:>6} route "
               f"row err y {rel['y']:.3e} dx {rel['dx']:.3e} (tol {tol:g}) "
               f"NaN in dead tiles ignored: {poison_ok} | kernel {ms:.4f} ms "
               f"(dX on W in place {dx_ms:.4f}) plain {plain_ms:.4f} ms "
               f"matmul(x, W*mask) {lib_ms:.4f} ms bound {b_ms:.4f} ms "
-              f"({b_by}){extra} {'OK' if ok else 'FAIL'}")
+              f"({b_by}){extra} (want the {want_route} route) "
+              f"{'OK' if ok else 'FAIL'}")
         del x, w, gy, y, dx, poisoned, w_dense
         torch.cuda.empty_cache()
     return rows
@@ -2141,16 +2186,18 @@ def train_blocksparse(torch):
         step_ratio_vs_flash=step_ms / flash_ms), failures
 
 
-def matmul_entry(torch):
-    """Phase 7: ``block_sparse_matmul`` at the flagship MLP shape in bf16
-    under autograd, 3 forward+backward passes (phase 3's inputs)."""
+def matmul_entry(torch, dt):
+    """Phase 7: ``block_sparse_matmul`` at the flagship MLP shape in ``dt``
+    under autograd, 3 forward+backward passes (phase 3's inputs): 6 K9
+    launches, all on the Hopper route (in f32 on split products)."""
     from bigdl_tpu_torch.ops import block_sparse as bs
 
     failures = []
-    x, w, gy, mask = mm_inputs(torch, *MM_SHAPE, MM_BLOCK, torch.bfloat16)
+    dname = str(dt).split(".")[-1]
+    x, w, gy, mask = mm_inputs(torch, *MM_SHAPE, MM_BLOCK, dt)
     xl, wl = x.clone().requires_grad_(), w.clone().requires_grad_()
-    bs.LAUNCHES_MM.reset()
-    bs.LAUNCHES_MM_TILE.reset()
+    for counter in (bs.LAUNCHES_MM, bs.LAUNCHES_MM_TILE, bs.LAUNCHES_MM_F32):
+        counter.reset()
     t0 = time.perf_counter()
     outs = []
     for _ in range(3):
@@ -2159,7 +2206,8 @@ def matmul_entry(torch):
         outs.append((y.detach(), dx, dw))
     torch.cuda.synchronize()
     wall_s = time.perf_counter() - t0
-    launches, tile = bs.LAUNCHES_MM.count, bs.LAUNCHES_MM_TILE.count
+    launches, tile, split = (bs.LAUNCHES_MM.count, bs.LAUNCHES_MM_TILE.count,
+                             bs.LAUNCHES_MM_F32.count)
     live = bs._elementwise_weight_mask(mask, "cuda")
     dead_zero = all(not bool(o[2][~live].any()) for o in outs)
     same = all(torch.equal(o[0], outs[0][0]) and torch.equal(o[1], outs[0][1])
@@ -2168,25 +2216,29 @@ def matmul_entry(torch):
     rel_y = row_rel_err(torch, y, bs._bs_mm_plain(x, w, mask))
     rel_dx = row_rel_err(torch, dx, bs._bs_mm_plain(
         gy, w.t(), mask.transposed()))
-    tol = ROW_TOL["bfloat16"]
+    tol = ROW_TOL[dname]
+    want_split = 6 if dt == torch.float32 else 0
     print(f"matmul path: block_sparse_matmul x {tuple(x.shape)} W "
-          f"{tuple(w.shape)} bf16, {mask}: 3 forward+backward passes, "
+          f"{tuple(w.shape)} {dname}, {mask}: 3 forward+backward passes, "
           f"{launches} K9 launches (want 6), {tile} on the tile route (want "
-          f"0), dW zero on every dead tile: {dead_zero}, passes equal: "
+          f"0), {split} on split products (want {want_split}), dW zero on "
+          f"every dead tile: {dead_zero}, passes equal: "
           f"{same}; row err y {rel_y:.3e} dx {rel_dx:.3e} (tol {tol:g}); "
           f"{wall_s * 1e3:.1f} ms")
-    if launches != 6 or tile != 0:
-        failures.append(f"block_sparse_matmul launched K9 {launches} times "
-                        f"in 3 passes, {tile} on the tile route; want 6, all "
-                        f"on the Hopper route")
+    if launches != 6 or tile != 0 or split != want_split:
+        failures.append(f"block_sparse_matmul {dname} launched K9 {launches} "
+                        f"times in 3 passes, {tile} on the tile route, "
+                        f"{split} on split products; want 6, all on the "
+                        f"Hopper route, {want_split} on split products")
     if not (dead_zero and same and rel_y <= tol and rel_dx <= tol):
-        failures.append(f"block_sparse_matmul: dead dW zero {dead_zero}, "
-                        f"passes equal {same}, row err {rel_y:.3e} / "
-                        f"{rel_dx:.3e}")
+        failures.append(f"block_sparse_matmul {dname}: dead dW zero "
+                        f"{dead_zero}, passes equal {same}, row err "
+                        f"{rel_y:.3e} / {rel_dx:.3e}")
     del x, w, gy, xl, wl, outs, y, dx, dw
     torch.cuda.empty_cache()
     return dict(shape=list(MM_SHAPE), block=MM_BLOCK, density=MM_DENSITY,
-                passes=3, launches=launches, tile_route_launches=tile,
+                dtype=dname, passes=3, launches=launches,
+                tile_route_launches=tile, split_launches=split,
                 dead_tile_dw_zero=dead_zero,
                 passes_equal=same, row_rel_err_y=rel_y,
                 row_rel_err_dx=rel_dx, wall_ms=wall_s * 1e3), failures
@@ -2674,7 +2726,8 @@ def profile_resnet(torch):
 # the phase-3 cases the ``kernels`` line's variants read, and the tag of
 # their counters (a kernel's name, then the tag)
 VARIANT_CASES = {"f32_D192": "f32 D 192", "f32_D256": "f32 D 256",
-                 "wide_D320": "bf16 D > 256", "wide_f32_D320": "f32 D > 256"}
+                 "wide_D320": "bf16 D > 256", "wide_f32_D320": "f32 D > 256",
+                 "mlp_f32": "f32"}
 
 
 def main(argv=None) -> int:
@@ -2793,9 +2846,13 @@ def main(argv=None) -> int:
     bs_trained, bs_failures = train_blocksparse(torch)
     failures += bs_failures
 
-    # phase 7: the block-sparse matmul through its entry point
-    mm_path, mm_failures = matmul_entry(torch)
-    failures += mm_failures
+    # phase 7: the block-sparse matmul through its entry point, bf16 and
+    # f32
+    mm_paths = []
+    for dt in (torch.bfloat16, torch.float32):
+        mm_path, mm_failures = matmul_entry(torch, dt)
+        mm_paths.append(mm_path)
+        failures += mm_failures
 
     # phase 8: the ResNet-50 training path
     resnet, resnet_failures = train_resnet50(torch)
@@ -2805,8 +2862,10 @@ def main(argv=None) -> int:
     launches = {n: sum(b["launches"][n] for b in served["batches"])
                 + trained["launches"][n] + bs_trained["launches"][n]
                 + resnet["launches"][n] for n in launch_counters()}
-    launches["block_sparse_mm"] += mm_path["launches"]
-    launches["block_sparse_mm_tile"] += mm_path["tile_route_launches"]
+    for mm_path in mm_paths:
+        launches["block_sparse_mm"] += mm_path["launches"]
+        launches["block_sparse_mm_tile"] += mm_path["tile_route_launches"]
+        launches["block_sparse_mm f32"] += mm_path["split_launches"]
     bs_row = bs_rows[0]
     rows = {"flash_fwd": dict(flash_rows[0]),
             "layer_norm_fwd": dict(ln_rows[0]),
@@ -2864,7 +2923,8 @@ def main(argv=None) -> int:
             (kernels[1], [dict(r, **r["dkv"]) for r in bwd_rows]),
             (kernels[2], [dict(r, **r["dq"]) for r in bwd_rows]),
             *((kernels[i], [bs_pass(r, p) for r in bs_rows if p in r])
-              for i, p in ((4, "fwd"), (5, "dkv"), (6, "dq")))):
+              for i, p in ((4, "fwd"), (5, "dkv"), (6, "dq"))),
+            (kernels[7], mm_rows)):
         kernel["variants"] = [dict(
             name=name, route="cuda", source=kernel["source"],
             replaces=kernel["replaces"], launches=launches[name],
@@ -2883,7 +2943,7 @@ def main(argv=None) -> int:
         flash=flash_rows, layer_norm=ln_rows,
         flash_bwd=bwd_rows, block_sparse=bs_rows, block_sparse_mm=mm_rows,
         conv3x3=conv_rows, serving_path=served, training_path=trained,
-        blocksparse_training_path=bs_trained, matmul_path=mm_path,
+        blocksparse_training_path=bs_trained, matmul_path=mm_paths,
         resnet50_training_path=resnet,
         kernels=kernels, failures=failures, seconds=time.perf_counter()
         - T_START), indent=1))

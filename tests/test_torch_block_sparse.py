@@ -732,11 +732,17 @@ def test_block_sparse_matmul_strided_layouts_match_pallas_interpret(layout):
     (torch.bfloat16, 256, 512, (64, 128)),
     (torch.bfloat16, 24, 100, None),         # blocks not multiples of 16
     (torch.bfloat16, 128, 8, None),
-    (torch.float32, 128, 128, None),         # wgmma has no full-f32 product
+    # f32 on split products: x boxes of 4-byte elements, KC at most 32
+    (torch.float32, 128, 128, (32, 128)),
+    (torch.float32, 32, 32, (32, 32)),
+    (torch.float32, 48, 80, (16, 16)),
+    (torch.float32, 24, 100, None),          # blocks not multiples of 16
+    (torch.float32, 64, 192, (32, 64)),
+    (torch.float32, 16, 8, None),
 ])
 def test_mm_plan_picks_the_route_and_tiles(dtype, bk, bn, want):
-    """K9's route by shape: (KC, BN) on the Hopper route, None on the
-    tile route."""
+    """K9's route by shape: (KC, BN) on the Hopper route, in bf16 and in
+    f32 (six bf16 products an f32 one), None on the tile route."""
     assert P._mm_plan(dtype, bk, bn) == want
 
 
@@ -753,33 +759,59 @@ def test_bs_mm_autograd_reads_w_in_place(monkeypatch, dtype):
     """The forward launches K9 on W as it stands (MN-major) and dX on
     W's own bytes read K-major: no transposed copy of W; a W stored
     (N, K) and viewed ``.t()`` is read K-major in the forward and
-    MN-major in dX.  The launches are recorded on CPU tensors, not
-    run."""
+    MN-major in dX.  Both dtypes take the Hopper route; in f32 K9 reads
+    W's three bf16 pieces, split from W in place and laid out as W's
+    storage is (so dX's pieces are W's, not Wᵀ's).  The launches are
+    recorded on CPU tensors, not run."""
     calls = _record_mm(monkeypatch)
+    split, pieces_of = [], P._mm_pieces
+
+    def record_split(w):
+        split.append((w, pieces_of(w)))
+        return split[-1][1]
+
+    monkeypatch.setattr(P, "_mm_pieces", record_split)
     monkeypatch.setattr(P, "on_cpu", lambda *t: False)
     mask = P.magnitude_block_mask(np.random.RandomState(3).randn(128, 96),
                                   32, 32, 0.5)
     x = torch.randn(24, 128, dtype=dtype, requires_grad=True)
-    route = (0, 0) if dtype == torch.float32 else (32, 32)
     for w, fwd_kmajor in ((torch.randn(128, 96, dtype=dtype), 0),
                           (torch.randn(96, 128, dtype=dtype).t(), 1)):
         calls.clear()
+        split.clear()
         w.requires_grad_()
-        before = (P.LAUNCHES_MM.count, P.LAUNCHES_MM_TILE.count)
+        before = (P.LAUNCHES_MM.count, P.LAUNCHES_MM_TILE.count,
+                  P.LAUNCHES_MM_F32.count)
         y = P.block_sparse_matmul(x, w, mask)
         torch.autograd.grad(y, (x, w), torch.ones_like(y))
         assert (P.LAUNCHES_MM.count - before[0],
-                P.LAUNCHES_MM_TILE.count - before[1]) == (
-                    2, 2 if dtype == torch.float32 else 0)
+                P.LAUNCHES_MM_TILE.count - before[1],
+                P.LAUNCHES_MM_F32.count - before[2]) == (
+                    2, 0, 2 if dtype == torch.float32 else 0)
         (fwd_ptrs, fwd_ints), (dx_ptrs, dx_ints) = calls
-        assert fwd_ptrs[0] == x.data_ptr() and fwd_ptrs[1] == w.data_ptr()
-        assert dx_ptrs[1] == w.data_ptr()          # W in place, no copy
+        assert fwd_ptrs[0] == x.data_ptr()
+        if dtype == torch.bfloat16:
+            assert not split
+            assert fwd_ptrs[1] == w.data_ptr()
+            assert dx_ptrs[1] == w.data_ptr()      # W in place, no copy
+        else:
+            # one split a launch, of W's own bytes, into pieces laid out
+            # as W is stored: (3, K, N) for W, (3, N, K) for a .t() view
+            stored = w.t() if fwd_kmajor else w
+            assert [p.data_ptr() for _, p in split] == [fwd_ptrs[1],
+                                                        dx_ptrs[1]]
+            for src, pieces in split:
+                assert src.data_ptr() == w.data_ptr()
+                assert src.shape == stored.shape
+                assert pieces.shape == (3, *stored.shape)
+                assert pieces.is_contiguous()
+                assert torch.equal(pieces.double().sum(0), stored.double())
         pitch = max(w.stride())
         # ints: L, M, K, N, bk, bn, ldx, ldw, kmajor, kc, bn_tile, dtype
         assert fwd_ints[1:4] == [24, 128, 96] and dx_ints[1:4] == [24, 96, 128]
-        assert fwd_ints[6:] == [128, pitch, fwd_kmajor, *route,
+        assert fwd_ints[6:] == [128, pitch, fwd_kmajor, 32, 32,
                                 P._DTYPE_CODE[dtype]]
-        assert dx_ints[6:] == [96, pitch, 1 - fwd_kmajor, *route,
+        assert dx_ints[6:] == [96, pitch, 1 - fwd_kmajor, 32, 32,
                                P._DTYPE_CODE[dtype]]
 
 
@@ -813,6 +845,66 @@ def test_bs_mm_copies_only_what_its_route_cannot_read(monkeypatch):
                  (32, 32))
     ptrs, ints = calls[0]
     assert ptrs[1] != w_strided.data_ptr() and ints[7:9] == [64, 0]
+
+
+def test_bs_mm_f32_copies_only_what_its_route_cannot_read(monkeypatch):
+    """The f32 Hopper route reads x through TMA in f32: in place where
+    its row pitch is a multiple of 4 elements and its start 16-byte
+    aligned, else a contiguous copy; W is never handed over as it is but
+    as its three bf16 pieces, split from W's own bytes (a W with neither
+    dim contiguous is split as it stands: no copy before the split), with
+    the pieces' row pitch.  The tile route reads both in place."""
+    calls = _record_mm(monkeypatch)
+    mask = P.BlockMask(np.ones((2, 2), bool), 32, 32)
+    w = torch.randn(64, 64)
+
+    def cols(pitch, start):   # columns start .. start + 63 of (8, pitch)
+        return torch.zeros(8, pitch)[:, start:start + 64]
+
+    # (x, route, copied, row pitch K9 gets)
+    for x, plan, copied, ldx in ((cols(100, 8), (32, 32), False, 100),
+                                 (cols(98, 8), (32, 32), True, 64),
+                                 (cols(72, 1), (32, 32), True, 64),
+                                 (cols(72, 1), None, False, 72),
+                                 (cols(98, 8), None, False, 98)):
+        calls.clear()
+        P._launch_mm(x, w, mask, plan)
+        ptrs, ints = calls[0]
+        assert (ptrs[0] != x.data_ptr()) == copied
+        assert ints[6] == ldx
+        assert (ptrs[1] == w.data_ptr()) == (plan is None)
+    split = []
+    pieces_of = P._mm_pieces
+    monkeypatch.setattr(P, "_mm_pieces",
+                        lambda t: split.append(t) or pieces_of(t))
+    calls.clear()
+    w_strided = torch.randn(128, 128)[::2, ::2]
+    P._launch_mm(torch.zeros(8, 64), w_strided, mask, (32, 32))
+    ptrs, ints = calls[0]
+    (src,) = split
+    assert src.data_ptr() == w_strided.data_ptr()
+    assert ints[7:9] == [64, 0]
+
+
+def test_bs_mm_casts_w_to_x_dtype_before_the_split(monkeypatch):
+    """x f32 with W bf16 (fault F5's other side): K9 splits W cast to
+    f32, so its first piece is W's bits and the other two are zero; the
+    output is f32 on the f32 Hopper route."""
+    calls = _record_mm(monkeypatch)
+    split = []
+    pieces_of = P._mm_pieces
+    monkeypatch.setattr(P, "_mm_pieces",
+                        lambda t: split.append(pieces_of(t)) or split[-1])
+    mask = P.BlockMask(np.ones((2, 2), bool), 32, 32)
+    x = torch.randn(16, 64)
+    w = torch.randn(64, 64).bfloat16()
+    y = P._bs_mm_cuda(x, w, mask)
+    (ptrs, ints), = calls
+    (pieces,) = split
+    assert y.dtype == torch.float32 and ptrs[0] == x.data_ptr()
+    assert ptrs[1] == pieces.data_ptr() and ints[-1] == P._DTYPE_CODE[x.dtype]
+    assert ints[9:11] == [32, 32]
+    assert torch.equal(pieces[0], w) and not pieces[1:].any()
 
 
 def _record_attention(monkeypatch):

@@ -1731,12 +1731,14 @@ def test_block_sparse_autograd_runs_k6_to_k8(cuda_device):
         assert (a - b).abs().max().item() <= 1e-4 * b.abs().max().item()
 
 
-# (M, K, N, bk, bn, dtype, route).  The Hopper route (bf16, blocks that
-# are multiples of 16): the flagship MLP shape cut in M, ragged M, M a
+# (M, K, N, bk, bn, dtype, route).  The Hopper route (blocks that are
+# multiples of 16): in bf16 the flagship MLP shape cut in M, ragged M, M a
 # multiple of 128 and not, bk/bn of 64, 32 and 16 (KC and BN 16 at 48),
-# K and N 8-multiples that are not 64-multiples, one row.  The tile route:
-# f32 (the MLP shape, the lab shape, block 32) and bf16 blocks that are
-# not multiples of 16, with 16-byte loads and scalar ones (bn 100, bk 6).
+# K and N 8-multiples that are not 64-multiples, one row; in f32 (split
+# products) the MLP shape, the lab shape, block 32, ragged M, KC 16 with
+# BN 16 (48 x 80), BN 128 one way and 64 the other (64 x 128), one row.
+# The tile route: blocks that are not multiples of 16, with 16-byte loads
+# and scalar ones (bn 100, bk 6).
 MM_CASES = {
     "mlp_bf16": (512, 1024, 4096, 128, 128, torch.bfloat16, "hopper"),
     "ragged_M100": (100, 256, 192, 32, 32, torch.bfloat16, "hopper"),
@@ -1745,9 +1747,13 @@ MM_CASES = {
     "m129_b64x32": (129, 192, 160, 64, 32, torch.bfloat16, "hopper"),
     "m64_b48": (64, 144, 96, 48, 48, torch.bfloat16, "hopper"),
     "m1_b16": (1, 64, 64, 16, 16, torch.bfloat16, "hopper"),
-    "mlp_f32": (256, 1024, 4096, 128, 128, torch.float32, "tile"),
-    "lab_f32": (64, 1024, 1024, 512, 512, torch.float32, "tile"),
-    "block32_f32": (96, 128, 64, 32, 32, torch.float32, "tile"),
+    "mlp_f32": (256, 1024, 4096, 128, 128, torch.float32, "hopper"),
+    "lab_f32": (64, 1024, 1024, 512, 512, torch.float32, "hopper"),
+    "block32_f32": (96, 128, 64, 32, 32, torch.float32, "hopper"),
+    "ragged_M100_f32": (100, 256, 192, 32, 32, torch.float32, "hopper"),
+    "m129_b48x80_f32": (129, 240, 160, 48, 80, torch.float32, "hopper"),
+    "m200_b64x128_f32": (200, 256, 384, 64, 128, torch.float32, "hopper"),
+    "m1_b16_f32": (1, 64, 64, 16, 16, torch.float32, "hopper"),
     "bn100_bf16": (70, 96, 200, 24, 100, torch.bfloat16, "tile"),
     "bk6_f32": (33, 96, 60, 6, 20, torch.float32, "tile"),
 }
@@ -1761,14 +1767,17 @@ def _check_mm_on_card(x, w, gy, mask, route):
     """block_sparse_matmul under autograd on (x, w), as they are laid
     out: forward and dX row by row against the plain version on
     contiguous copies, dW zero on every dead tile, 2 launches on
-    ``route``."""
+    ``route`` (the Hopper route in f32: both on split products)."""
     xl, wl = x.detach().requires_grad_(), w.detach().requires_grad_()
     before = _mm_launches()
+    split_before = bs.LAUNCHES_MM_F32.count
     y = bs.block_sparse_matmul(xl, wl, mask)
     dx, dw = torch.autograd.grad(y, (xl, wl), gy)
     torch.cuda.synchronize()
     launches, tile = (a - b for a, b in zip(_mm_launches(), before))
     assert (launches, tile) == (2, 2 if route == "tile" else 0)
+    split = route == "hopper" and x.dtype == torch.float32
+    assert bs.LAUNCHES_MM_F32.count - split_before == (2 if split else 0)
     dtype = x.dtype
     assert y.dtype == dtype and dx.dtype == dtype and dw.dtype == dtype
     tol = ROW_TOL[dtype]
@@ -1815,7 +1824,13 @@ def test_block_sparse_matmul_dead_column_block_writes_zeros_on_card(
 MM_LAYOUTS = {
     "w_t_view_bf16": (300, 1024, 512, 128, torch.bfloat16, "hopper",
                       "w_t_view"),
-    "w_t_view_f32": (70, 256, 192, 32, torch.float32, "tile", "w_t_view"),
+    "w_t_view_f32": (70, 256, 192, 32, torch.float32, "hopper", "w_t_view"),
+    "x_column_slice_f32": (300, 1024, 512, 128, torch.float32, "hopper",
+                           "x_column_slice"),
+    "x_misaligned_columns_f32": (130, 256, 192, 32, torch.float32, "hopper",
+                                 "x_misaligned_columns"),
+    "x_rows_from_1_f32": (129, 256, 192, 32, torch.float32, "hopper",
+                          "x_rows_from_1"),
     "x_column_slice": (300, 1024, 512, 128, torch.bfloat16, "hopper",
                        "x_column_slice"),
     "x_misaligned_columns": (130, 256, 192, 32, torch.bfloat16, "hopper",
@@ -1896,6 +1911,64 @@ def test_block_sparse_matmul_hopper_route_never_reads_dead_tiles_on_card(
     assert _mm_launches() == (before[0] + 3, before[1])
     assert torch.isfinite(dirty.float()).all()
     assert torch.equal(dirty, clean) and torch.equal(again, clean)
+
+
+def test_block_sparse_matmul_f32_dead_column_block_writes_zeros_on_card(
+        cuda_device):
+    """The same in f32 on split products: a dead column of the mask
+    gives exactly zero forward columns, a dead row exactly zero dX
+    columns."""
+    g = torch.Generator(device=cuda_device).manual_seed(16)
+    m = np.random.RandomState(16).rand(4, 4) < 0.6
+    m[:, 2] = False
+    m[1, :] = False
+    mask = bs.BlockMask(m, 64, 64)
+    x = torch.randn(200, 256, device=cuda_device, generator=g)
+    w = 0.05 * torch.randn(256, 256, device=cuda_device, generator=g)
+    gy = torch.randn(200, 256, device=cuda_device, generator=g)
+    y, dx = _check_mm_on_card(x, w, gy, mask, "hopper")
+    assert not y[:, 128:192].any() and not dx[:, 64:128].any()
+
+
+@pytest.mark.parametrize("w_layout", ["mn_major", "k_major"])
+def test_block_sparse_matmul_f32_route_never_reads_dead_tiles_on_card(
+        cuda_device, w_layout):
+    """The f32 Hopper route (split products), W read MN-major and
+    K-major: NaN in every dead W tile, and so in its pieces, leaves the
+    output bit-identical; two calls give equal bits; every launch on
+    split products, none on the tile route."""
+    g = torch.Generator(device=cuda_device).manual_seed(17)
+    x = torch.randn(100, 256, device=cuda_device, generator=g)
+    w = torch.randn(256, 192, device=cuda_device, generator=g)
+    mask = bs.magnitude_block_mask(w, 32, 64, 0.5)
+    live = torch.from_numpy(mask.elementwise()).to(cuda_device)
+    poisoned = w.masked_fill(~live, float("nan"))
+    if w_layout == "k_major":
+        w, poisoned = w.t().contiguous().t(), poisoned.t().contiguous().t()
+    before = (*_mm_launches(), bs.LAUNCHES_MM_F32.count)
+    clean = bs._bs_mm_cuda(x, w, mask)
+    dirty = bs._bs_mm_cuda(x, poisoned, mask)
+    again = bs._bs_mm_cuda(x, w, mask)
+    assert (*_mm_launches(), bs.LAUNCHES_MM_F32.count) == (
+        before[0] + 3, before[1], before[2] + 3)
+    assert torch.isfinite(dirty).all()
+    assert torch.equal(dirty, clean) and torch.equal(again, clean)
+    want = bs._bs_mm_plain(x, w, mask)
+    assert _row_rel_err(clean, want) <= ROW_TOL[torch.float32]
+
+
+def test_block_sparse_matmul_f32_route_raises_instead_of_falling_back(
+        cuda_device):
+    """A launch the f32 Hopper route refuses (a K chunk of 64, which it is
+    not built for) raises; it does not fall back to the tile route."""
+    g = torch.Generator(device=cuda_device).manual_seed(18)
+    x = torch.randn(64, 128, device=cuda_device, generator=g)
+    w = torch.randn(128, 128, device=cuda_device, generator=g)
+    mask = bs.magnitude_block_mask(w, 64, 64, 0.5)
+    before = (*_mm_launches(), bs.LAUNCHES_MM_F32.count)
+    with pytest.raises(RuntimeError):
+        bs._launch_mm(x, w, mask, (64, 64))
+    assert (*_mm_launches(), bs.LAUNCHES_MM_F32.count) == before
 
 
 def test_small_blocksparse_lm_trains_on_card_like_cpu(cuda_device):

@@ -1,6 +1,7 @@
 """The arithmetic of the f32 forward (K1 and K6 in f32), dK/dV (K2 and
-K7 in f32), dQ (K3 and K8 in f32) and 3x3 conv (K5 in f32, forward and
-dX) kernels on the CPU.
+K7 in f32), dQ (K3 and K8 in f32), 3x3 conv (K5 in f32, forward and
+dX) and block-sparse matmul (K9 in f32, forward and dX) kernels on the
+CPU.
 
 The kernels form every f32 product from bf16 products on the tensor
 cores: each f32 operand a is split into bf16 pieces a1 = bf16(a), a2 =
@@ -14,7 +15,10 @@ pieces (five), six again for dQ's S, dP and dS . K
 ``csrc/attn_fwd_hopper.cuh``, ``fwd_f32_consume``;
 ``csrc/attn_bwd_hopper.cuh``, ``dkv_f32_consume`` and
 ``dq_f32_consume``; ``csrc/conv3x3.cu``, ``conv3x3_kernel_split``: six
-for each tap's product of the shifted pixels and the weights).
+for each tap's product of the shifted pixels and the weights;
+``csrc/block_sparse.cu``, ``bs_mm_kernel_split``: six for each step of
+x's columns against W's live block, a fresh partial a step, ``_mm_split``
+below, with wgmma's truncation modelled).
 ``_fwd_split``, ``_dkv_split``, ``_dq_split`` and ``_conv_split`` below
 form O and LSE, dK and dV, dQ, and the conv's output that way from
 seeded numpy inputs; ``_fwd_wide_split``, ``_dkv_wide_split`` and
@@ -32,9 +36,10 @@ and dQ as the f32 backward above D 256 does (``bwd_dkv_chunk_kernel``,
 over the panels as at D 256), and the chunks' column plans are checked
 for D 257-1024.
 The results are held row by row, at the f32 limit the card holds the
-kernels to (1e-4; LSE 1e-3; the wide forward at a third of it), against
-the JAX package's ``flash_attention``, ``block_sparse_attention`` and
-``conv3x3_s1_same`` with ``interpret=True`` (the forward's O and LSE or
+kernels to (1e-4; LSE 1e-3; the wide forward, K5 and K9 at a third of
+it), against the JAX package's ``flash_attention``,
+``block_sparse_attention``, ``conv3x3_s1_same`` and
+``block_sparse_matmul`` with ``interpret=True`` (the forward's O and LSE or
 y, and the gradients that ``jax.vjp`` takes): the Pallas kernels in
 interpret mode where the shapes reach them, the JAX package's plain
 reference where they do not (T 130).
@@ -1501,3 +1506,177 @@ def test_the_f32_wrapper_hands_the_kernel_its_operands(monkeypatch, C,
     assert not xa[..., C:].any()
     assert torch.equal(wa, conv3x3._weight_pieces(wk, -(-c // 8) * 8))
     assert ya is y and y.shape == (2, 5, 4, 12) and y.dtype == torch.float32
+
+
+# ----------------------------------------------------------------------
+# the f32 K9: the block-sparse matmul's forward and dX on split products
+# ----------------------------------------------------------------------
+
+def _mm_split(x, w, mask, truncate=True, fresh=True):
+    """out (M, N) = x @ (W ∘ mask) as the f32 K9 forms it
+    (``bs_mm_kernel_split``): each output column block sums its live K
+    blocks in ascending order, in steps of KC columns (``_mm_plan``: 32
+    where it divides bk, else 16); a step's six products a k16 step on
+    three pieces a side (``TERMS``, terms outer, k16 steps inner) go into
+    a fresh partial with wgmma's truncation toward zero (``_wgmma_add``),
+    added to the f32 total (round to nearest) once done.  ``fresh``
+    False: one accumulator over all the steps, the design K5 measured
+    shrinking every output (PERF.md, PR 16); ``truncate`` False: the
+    partials rounded to nearest."""
+    bk, bn = mask.block_q, mask.block_k
+    kc = P._mm_plan(torch.float32, bk, bn)[0]
+    A, B = _pieces(x, 3), _pieces(w, 3)
+    out = torch.zeros(x.shape[0], w.shape[1])
+    for c in range(w.shape[1] // bn):
+        cols = slice(c * bn, (c + 1) * bn)
+        total = torch.zeros(x.shape[0], bn)
+        part = torch.zeros_like(total)
+        for kb in np.nonzero(mask.mask[:, c])[0]:
+            for k0 in range(kb * bk, (kb + 1) * bk, kc):
+                if fresh:
+                    part = torch.zeros_like(total)
+                for i, j in TERMS:
+                    for k in range(k0, k0 + kc, 16):
+                        part = _wgmma_add(part, A[i][:, k:k + 16],
+                                          B[j][k:k + 16, cols], truncate)
+                if fresh:
+                    total = total + part
+        out[:, cols] = total if fresh else part
+    return out
+
+
+def _mm_mask(nk, nn, seed, dead_col=None, live_per_col=None):
+    """A (nk, nn) bool block mask at density about 0.5 from a seed: with
+    column ``dead_col`` all dead, or with exactly ``live_per_col`` live K
+    blocks in every column."""
+    rng = np.random.RandomState(seed)
+    if live_per_col is not None:
+        m = np.zeros((nk, nn), bool)
+        for c in range(nn):
+            m[rng.choice(nk, live_per_col, replace=False), c] = True
+        return m
+    m = rng.rand(nk, nn) < 0.5
+    m[rng.randint(nk), :] = True    # every column block keeps a live block
+    if dead_col is not None:
+        m[:, dead_col] = False
+    return m
+
+
+#: (M, K, N, bk, bn, live K blocks a column or None): blocks 32 and 64
+#: (KC 32), 48 x 80 (KC 16, BN 16), each at density ~0.5 with one dead
+#: column block; and the flagship MLP's column block depth, 4 live blocks
+#: of 128 (512 of K 1024), at narrow M and N
+MM_SPLIT_CASES = {"b32": (96, 256, 128, 32, 32, None),
+                  "b64": (96, 256, 128, 64, 64, None),
+                  "b48x80": (96, 240, 160, 48, 80, None),
+                  "depth512": (16, 1024, 256, 128, 128, 4)}
+
+
+def _mm_split_case(case, seed):
+    """x, w, g (f32 numpy, W scaled 1 / sqrt(K)) and the mask of a case,
+    as (JAX BlockMask, port BlockMask)."""
+    M, K, N, bk, bn, per_col = MM_SPLIT_CASES[case]
+    rng = np.random.RandomState(seed)
+    x = rng.randn(M, K).astype(np.float32)
+    w = (rng.randn(K, N) / math.sqrt(K)).astype(np.float32)
+    g = rng.randn(M, N).astype(np.float32)
+    m = _mm_mask(K // bk, N // bn, seed, dead_col=None if per_col else 1,
+                 live_per_col=per_col)
+    return x, w, g, J.BlockMask(m, bk, bn), P.BlockMask(m, bk, bn)
+
+
+@pytest.mark.parametrize("case", sorted(MM_SPLIT_CASES))
+def test_split_mm_matches_the_jax_kernel(case):
+    """The f32 K9's split products, forward and dX (K9 on (g, Wᵀ, maskᵀ):
+    Wᵀ's pieces are W's, transposed), row by row against the JAX
+    ``block_sparse_matmul`` with ``interpret=True`` (the Pallas kernel in
+    interpret mode) and ``jax.grad`` through it, at a third of the f32
+    limit; a dead column block is exactly zero."""
+    x, w, g, jmask, pmask = _mm_split_case(case, seed=31)
+    want = J.block_sparse_matmul(jnp.asarray(x), jnp.asarray(w), jmask,
+                                 interpret=True)
+    dx_want = jax.grad(lambda a: jnp.sum(J.block_sparse_matmul(
+        a, jnp.asarray(w), jmask, interpret=True) * jnp.asarray(g)))(
+        jnp.asarray(x))
+    xt, wt, gt = (torch.from_numpy(a) for a in (x, w, g))
+    y = _mm_split(xt, wt, pmask)
+    dx = _mm_split(gt, wt.t(), pmask.transposed())
+    assert _row_rel_err(y, torch.from_numpy(np.array(want))) <= ROW_TOL / 3
+    assert _row_rel_err(dx, torch.from_numpy(np.array(dx_want))) \
+        <= ROW_TOL / 3
+    for c in np.nonzero(~pmask.mask.any(axis=0))[0]:
+        assert not y[:, c * pmask.block_k:(c + 1) * pmask.block_k].any()
+
+
+def test_the_split_mm_keeps_f32_rounding():
+    """The designs at the MLP column block's depth (512 live of K 1024),
+    forward and dX, against x @ (W ∘ mask) in f64: a fresh partial a step
+    reads what the plain f32 product reads (within 2x: 0.8-1.1e-7 against
+    2.5-3.6e-7); one accumulator over all the steps, which wgmma rounds
+    toward zero 192 times a sum, reads 16-45x more (1.5-4.8e-6) and leans
+    one way (81-83 % of the outputs shrink, as every one of K5's did on
+    the card, PERF.md PR 16), though it stays under the limit here;
+    rounding to nearest in one accumulator does not lean (49-51 %)."""
+    x, w, g, _, mask = _mm_split_case("depth512", seed=37)
+    xt, wt, gt = (torch.from_numpy(a) for a in (x, w, g))
+    for a, b, m in ((xt, wt, mask), (gt, wt.t(), mask.transposed())):
+        bm = torch.where(torch.from_numpy(m.elementwise()), b,
+                         torch.zeros(()))
+        want = a.double() @ bm.double()
+        plain = _row_rel_err(a @ bm, want)
+        fresh = _mm_split(a, b, m)
+        one = _mm_split(a, b, m, fresh=False)
+        nearest = _mm_split(a, b, m, truncate=False, fresh=False)
+        err = {name: _row_rel_err(t, want) for name, t in
+               (("fresh", fresh), ("one", one), ("nearest", nearest))}
+        assert plain <= 1e-6
+        assert err["fresh"] <= 2 * plain
+        assert err["one"] >= 10 * err["fresh"]
+        assert err["one"] <= ROW_TOL / 3
+        # the share of the (nonzero) outputs below the exact value in size
+        nz = want != 0
+
+        def shrunk(t):
+            return ((t.double().abs() < want.abs()) & nz).sum().item() \
+                / nz.sum().item()
+
+        assert shrunk(one) >= 0.75 and 0.4 <= shrunk(nearest) <= 0.6
+
+
+@pytest.mark.parametrize("layout", ["mn_major", "t_view"])
+def test_the_mm_pieces_add_back_to_w_in_its_orientation(layout):
+    """What the f32 K9 reads for W (``_mm_operands`` on the f32 Hopper
+    route): W's three bf16 pieces, bit for bit ``_pieces``, summing back
+    to W exactly, in the orientation W is stored in: (3, K, N) MN-major
+    for W as it stands, (3, N, K) K-major for a ``.t()`` view of a
+    weight stored (N, K), and the same for dX's Wᵀ the other way round;
+    the row pitch K9 gets is the pieces'."""
+    x, w, _, _, mask = _mm_split_case("b32", seed=41)
+    xt = torch.from_numpy(x)
+    stored = torch.from_numpy(w)
+    if layout == "t_view":
+        stored = stored.t().contiguous()
+    wt = stored.t() if layout == "t_view" else stored
+    plan = P._mm_plan(torch.float32, mask.block_q, mask.block_k)
+    for b, kmajor in ((wt, int(layout == "t_view")),
+                      (wt.t(), int(layout != "t_view"))):
+        x2, ldx, pieces, ldw, got_kmajor = P._mm_operands(xt, b, plan)
+        assert x2 is xt and ldx == xt.shape[1] and got_kmajor == kmajor
+        assert pieces.dtype == torch.bfloat16 and pieces.is_contiguous()
+        assert pieces.shape == (3, *stored.shape) and ldw == stored.shape[1]
+        for have, want in zip(pieces, _pieces(stored, 3)):
+            assert torch.equal(have.float(), want)
+        assert torch.equal(pieces.double().sum(0), stored.double())
+
+
+def test_the_mm_pieces_keep_nan_in_place():
+    """NaN in a dead tile of W stays NaN in all three pieces and nowhere
+    else (the kernel never loads a dead tile: the card test holds the
+    output bit for bit); the live tiles' pieces are those of W."""
+    _, w, _, _, mask = _mm_split_case("b64", seed=43)
+    live = torch.from_numpy(mask.elementwise())
+    poisoned = torch.from_numpy(w).masked_fill(~live, float("nan"))
+    pieces = P._mm_pieces(poisoned)
+    assert torch.equal(torch.isnan(pieces), (~live).expand(3, -1, -1))
+    clean = P._mm_pieces(torch.from_numpy(w))
+    assert torch.equal(pieces[:, live], clean[:, live])
