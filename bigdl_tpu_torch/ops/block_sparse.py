@@ -49,18 +49,24 @@ versions (``_bs_attention_plain``, ``_bs_bwd_plain``, ``_bs_mm_plain``:
 the kernels' math in PyTorch, masking with a select); for CUDA tensors
 they launch the kernels or raise, forward and backward.  Any block size
 that tiles the sequence (or the weight), any head dim (padded as
-``flash_attention`` pads it), any B*H, float32 or bfloat16.  K9 takes its
-Hopper route (TMA + wgmma) at blocks that are multiples of 16 and its
-tile route otherwise (``_mm_plan``), W in either orientation, so dX
-reads W in place; in f32 the Hopper route forms each f32 product from
-six bf16 products on three bf16 pieces of each operand, W split once
-per call in its own orientation (``_mm_pieces``).
+``flash_attention`` pads it), any B*H, float32 or bfloat16.  K9 is a
+GEMM on TMA + wgmma in both dtypes (in f32 each f32 product formed from
+six bf16 products on three bf16 pieces of each operand).  At blocks that
+are multiples of 64 it takes its block route, over the mask's own
+blocks, W read in place in either orientation (dX reads W's storage; in
+f32 W split once per call in its own orientation, ``_mm_pieces``).  At
+every other block it takes its coarse route (``_mm_plan``): a masked
+copy of W written once per call (``_mm_masked``: a select, zero-padded
+to whole coarse tiles, in W's own orientation; in f32 straight as its
+three pieces) walked in coarse (KC, BN) tiles that hold a live element
+(``_coarse_grid``).
 """
 from __future__ import annotations
 
+import ctypes
 import math
 from collections import OrderedDict
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -109,16 +115,30 @@ LAUNCHES_DQ_CHUNKED = {
     dt: LaunchCounter(f"block_sparse_bwd_dq {name} D > 256")
     for dt, name in ((torch.bfloat16, "bf16"), (torch.float32, "f32"))}
 LAUNCHES_MM = LaunchCounter("block_sparse_mm")
-#: the K9 launches, among those above, that took the tile route
-LAUNCHES_MM_TILE = LaunchCounter("block_sparse_mm_tile")
-#: the K9 launches, among those above, on the Hopper route in f32 (split
-#: products)
+#: the K9 launches, among those above, on the block route in f32 (split
+#: products over the mask's blocks)
 LAUNCHES_MM_F32 = LaunchCounter("block_sparse_mm f32")
-#: K9's Hopper route: the K chunks (bf16; f32, whose x boxes hold 4-byte
-#: elements) and N tiles it is built for, largest first
+#: the K9 launches, among those above, on the coarse route (coarse tiles
+#: of a masked copy of W: blocks that are not multiples of 64), by dtype
+LAUNCHES_MM_COARSE = {dt: LaunchCounter(f"block_sparse_mm coarse {name}")
+                      for dt, name in ((torch.bfloat16, "bf16"),
+                                       (torch.float32, "f32"))}
+#: launches of the coarse route's masked copy of W (``bigdl_bs_mm_mask``)
+LAUNCHES_MM_MASK = LaunchCounter("block_sparse_mm masked W")
+#: K9's kernels: the K chunks (bf16; f32, whose x boxes hold 4-byte
+#: elements) and N tiles they are built for, largest first
 MM_CHUNKS = (64, 32, 16)
 MM_SPLIT_CHUNKS = (32, 16)
 MM_COL_TILES = (128, 64, 32, 16)
+#: the coarse route's largest (KC, BN) tile by dtype: taken where it
+#: divides K and N
+MM_COARSE_TILE = {torch.bfloat16: (64, 128), torch.float32: (32, 128)}
+#: the block route takes blocks whose bk and bn are multiples of this.
+#: On an H100 at density 0.5 the coarse route was faster at blocks 16 and
+#: 32 in both dtypes (the block route's 16- or 32-column N tiles re-read x
+#: from L2 for every one), the block route faster in bf16 at 64 and above,
+#: and in f32 neither everywhere there (PERF.md §6)
+MM_BLOCK_ROUTE = 64
 
 
 # --------------------------------------------------------------------------
@@ -776,20 +796,60 @@ def _bs_mm_plain(x2, w, mask: BlockMask) -> torch.Tensor:
     return torch.matmul(x2.float(), wm).to(x2.dtype)
 
 
-def _mm_plan(dtype: torch.dtype, bk: int, bn: int) -> Optional[Tuple[int, int]]:
-    """K9's route, chosen by shape before the launch: (KC, BN) of the
-    Hopper route, which takes blocks whose bk and bn are multiples of 16
-    (so K and N are too, as TMA's 16-byte row pitch needs): KC the
-    largest of ``MM_CHUNKS`` (bf16) or ``MM_SPLIT_CHUNKS`` (f32, on split
-    products) dividing bk, so a K chunk never reaches into a dead block,
-    BN the largest of ``MM_COL_TILES`` dividing bn, so an N tile reads one
-    column block's list.  None: the tile route (blocks that are not
-    multiples of 16)."""
-    if dtype not in _DTYPE_CODE or bk % 16 or bn % 16:
+class MmPlan(NamedTuple):
+    """K9's route for one call: K chunks of ``kc`` columns and N tiles of
+    ``bn`` columns.  ``coarse`` False: the block route, over the mask's own
+    blocks (kc divides bk, bn divides the mask's bn); True: the coarse
+    route, over coarse (kc, bn) tiles of a masked copy of W."""
+    kc: int
+    bn: int
+    coarse: bool = False
+
+
+def _mm_plan(dtype: torch.dtype, bk: int, bn: int, K: int, N: int) -> MmPlan:
+    """K9's route for W (K, N) in (bk, bn) blocks, chosen by shape before
+    the launch: the block route (``_block_plan``) for blocks whose bk and
+    bn are multiples of ``MM_BLOCK_ROUTE``, the coarse route
+    (``_coarse_plan``) for every other block.  The rule is symmetric, so
+    the forward and dX (blocks (bn, bk)) take one route."""
+    if bk % MM_BLOCK_ROUTE == 0 and bn % MM_BLOCK_ROUTE == 0:
+        return _block_plan(dtype, bk, bn)
+    return _coarse_plan(dtype, K, N)
+
+
+def _block_plan(dtype: torch.dtype, bk: int, bn: int) -> Optional[MmPlan]:
+    """The block route's plan for (bk, bn) blocks, which it can take
+    wherever bk and bn are multiples of 16 (else None): KC the largest of
+    ``MM_CHUNKS`` (bf16) or
+    ``MM_SPLIT_CHUNKS`` (f32, on split products) dividing bk, so a K chunk
+    never reaches into a dead block, BN the largest of ``MM_COL_TILES``
+    dividing bn, so an N tile reads one column block's list."""
+    if bk % 16 or bn % 16:
         return None
     chunks = MM_CHUNKS if dtype == torch.bfloat16 else MM_SPLIT_CHUNKS
-    return (next(c for c in chunks if bk % c == 0),
-            next(c for c in MM_COL_TILES if bn % c == 0))
+    return MmPlan(next(c for c in chunks if bk % c == 0),
+                  next(c for c in MM_COL_TILES if bn % c == 0))
+
+
+def _coarse_plan(dtype: torch.dtype, K: int, N: int) -> MmPlan:
+    """The coarse route's tile for W (K, N) in ``dtype``: KC the largest
+    chunk up to ``MM_COARSE_TILE``'s that divides K, BN the largest column
+    tile up to its BN that divides N; where none divides (K or N not a
+    multiple of 16), the smallest that covers it, or the largest, and the
+    masked copy of W is padded with zeros to whole tiles."""
+    kc0, bn0 = MM_COARSE_TILE[dtype]
+    chunks = MM_CHUNKS if dtype == torch.bfloat16 else MM_SPLIT_CHUNKS
+
+    def pick(n, sizes, most):
+        sizes = [s for s in sizes if s <= most]
+        return next((s for s in sizes if n % s == 0), None) or min(
+            (s for s in sizes if s >= n), default=sizes[0])
+
+    return MmPlan(pick(K, chunks, kc0), pick(N, MM_COL_TILES, bn0), True)
+
+
+def _round_up(n: int, m: int) -> int:
+    return -(-n // m) * m
 
 
 def _row_pitch(t: torch.Tensor) -> Optional[int]:
@@ -803,8 +863,30 @@ def _row_pitch(t: torch.Tensor) -> Optional[int]:
     return t.stride(0) if t.stride(0) >= C else None
 
 
+def _tma_readable(t: torch.Tensor, ld: Optional[int]) -> bool:
+    """Whether TMA reads 2-D ``t`` at row pitch ``ld`` in place: rows
+    contiguous, the pitch a multiple of 16 bytes, the start 16-byte
+    aligned."""
+    return ld is not None and ld * t.element_size() % 16 == 0 \
+        and t.data_ptr() % 16 == 0
+
+
+def _tma_rows(t: torch.Tensor) -> Tuple[torch.Tensor, int]:
+    """2-D ``t`` and its row pitch as TMA reads it: ``t`` itself where
+    ``_tma_readable``, else a copy whose rows lie a multiple of 16 bytes
+    apart (a view of the first t.shape[1] columns of a padded tensor)."""
+    ld = _row_pitch(t)
+    if _tma_readable(t, ld):
+        return t, ld
+    R, C = t.shape
+    ld = _round_up(C, 16 // t.element_size())
+    rows = torch.empty((R, ld), dtype=t.dtype, device=t.device)
+    rows[:, :C].copy_(t)
+    return rows[:, :C], ld
+
+
 def _mm_pieces(w: torch.Tensor) -> torch.Tensor:
-    """The f32 Hopper route's B operand: the three bf16 pieces of the f32
+    """The f32 block route's B operand: the three bf16 pieces of the f32
     2-D ``w`` (any strides), p1 = bf16(w), p2 = bf16(w − p1), p3 = bf16(w −
     p1 − p2), each rounded to nearest even (the differences are exact in
     f32), as one contiguous (3, *w.shape) tensor: each piece keeps w's
@@ -816,33 +898,23 @@ def _mm_pieces(w: torch.Tensor) -> torch.Tensor:
     return pieces
 
 
-def _mm_operands(x2, b, plan):
-    """x2 (M, K) and the B operand b (K, N) as K9 reads them on route
-    ``plan``: (x, ldx, w, ldw, kmajor).  Each is read in place where its
-    rows are contiguous: b MN-major as it stands (the forward's W), or
-    K-major through bᵀ's rows (dX's Wᵀ, W as it stands; a weight stored
-    (out, in) and viewed ``.t()``).  Otherwise, and on the Hopper route
-    (TMA) where a row pitch is not a multiple of 16 bytes or the start
-    not 16-byte aligned, it is copied, contiguous.  On the f32 Hopper
-    route w is b's three bf16 pieces (``_mm_pieces``) in the orientation
-    b's storage has, so nothing is transposed."""
-    tma = plan is not None
-    split = tma and x2.dtype == torch.float32
-
-    def readable(t, ld, by_tma):
-        return ld is not None and (not by_tma or (
-            ld * t.element_size() % 16 == 0 and t.data_ptr() % 16 == 0))
-
-    ldx = _row_pitch(x2)
-    if not readable(x2, ldx, tma):
-        x2 = x2.clone(memory_format=torch.contiguous_format)
-        ldx = x2.shape[1]
+def _mm_operands(x2, b):
+    """x2 (M, K) and the B operand b (K, N) as the block route reads them:
+    (x, ldx, w, ldw, kmajor).  Each is read in place where TMA takes its
+    rows (``_tma_rows``: else x is copied): b MN-major as it stands (the
+    forward's W), or K-major through bᵀ's rows (dX's Wᵀ, W as it stands; a
+    weight stored (out, in) and viewed ``.t()``); a b with neither dim
+    contiguous is copied.  In f32 w is b's three bf16 pieces
+    (``_mm_pieces``) in the orientation b's storage has, so nothing is
+    transposed."""
+    split = x2.dtype == torch.float32
+    x2, ldx = _tma_rows(x2)
     for w, kmajor in ((b, 0), (b.t(), 1)):
         ldw = _row_pitch(w)
-        if readable(w, ldw, tma and not split):
-            if split:
-                w = _mm_pieces(w)
-                ldw = w.shape[2]
+        if split and ldw is not None:
+            w = _mm_pieces(w)
+            return x2, ldx, w, w.shape[2], kmajor
+        if not split and _tma_readable(w, ldw):
             return x2, ldx, w, ldw, kmajor
     if split:
         return x2, ldx, _mm_pieces(b), b.shape[1], 0
@@ -850,28 +922,130 @@ def _mm_operands(x2, b, plan):
         b.shape[1], 0
 
 
+def _coarse_grid(mask: BlockMask, kc: int, bn: int) -> np.ndarray:
+    """(ceil(K / kc), ceil(N / bn)) bool over the coarse tiles of W (K, N):
+    whether each holds a live element of ``mask`` (the OR of the
+    elementwise mask over the tile; tiles need not line up with the
+    mask's blocks, and the last ones reach past K and N)."""
+    def spans(n_blocks, block, tile):   # each tile's first and last block
+        start = np.arange(0, n_blocks * block, tile)
+        return (start // block,
+                (np.minimum(start + tile, n_blocks * block) - 1) // block)
+
+    def any_over(a, first, last, axis):   # OR over blocks first..last
+        c = np.cumsum(a, axis=axis, dtype=np.int64)
+        c = np.concatenate([np.zeros_like(np.take(c, [0], axis=axis)), c],
+                           axis=axis)
+        return np.take(c, last + 1, axis=axis) \
+            - np.take(c, first, axis=axis) > 0
+
+    g = any_over(mask.mask, *spans(mask.mask.shape[0], mask.block_q, kc), 0)
+    return any_over(g, *spans(mask.mask.shape[1], mask.block_k, bn), 1)
+
+
+def _mm_tables(mask: BlockMask, plan: MmPlan, device):
+    """(tiles, counts) on the card for K9 on ``plan``: for each column
+    block (block route) or BN-column tile (coarse route), its live K
+    blocks or KC-row chunks, as ``_index_tables`` lists them; cached per
+    (mask, plan, device)."""
+    def make():
+        grid = _coarse_grid(mask, plan.kc, plan.bn) if plan.coarse \
+            else mask.mask
+        return tuple(_to_device(a, device)
+                     for a in _index_tables(grid.T)[:2])
+
+    return _MM_TABLES.get_or_make(
+        ("tables", mask, plan if plan.coarse else None, device), make)
+
+
+def _mm_mask_call(ptrs, ints, strides, device):
+    """``bigdl_bs_mm_mask`` on the current stream of ``device``; raises on
+    a launch error."""
+    _call("block_sparse_mm_mask",
+          _c_fn("block_sparse", "bigdl_bs_mm_mask",
+                [_P] * 3 + [_I] * 2 + [ctypes.c_longlong] * 2 + [_I] * 6
+                + [_P]),
+          [*ptrs, *ints[:2], *strides, *ints[2:]], device)
+
+
+def _mm_masked_plain(stored: torch.Tensor, mask: BlockMask,
+                     dst: torch.Tensor) -> None:
+    """``bigdl_bs_mm_mask``'s math: ``stored`` (R, C) with its dead
+    elements under ``mask`` selected to 0 into the top-left (R, C) corner
+    of ``dst`` (P, Rp, Cp) bf16, zeros elsewhere; in bf16 (P 1) the
+    elements, in f32 (P 3) their three bf16 pieces (``split_bf16x3``)."""
+    R, C = stored.shape
+    live = _elementwise_weight_mask(mask, stored.device)
+    kept = torch.where(live, stored, torch.zeros((), dtype=stored.dtype,
+                                                 device=stored.device))
+    dst.zero_()
+    if dst.shape[0] == 3:
+        split_bf16x3(kept, dst[:, :R, :C])
+    else:
+        dst[0, :R, :C] = kept
+
+
+def _mm_masked(b: torch.Tensor, mask: BlockMask, plan: MmPlan):
+    """The coarse route's B operand for b (K, N) under ``mask``: (w, ldw,
+    kmajor), w a fresh masked copy of b, padded with zeros to whole
+    coarse tiles (K and N rounded up to ``plan``'s kc and bn), its dead
+    elements selected to 0 (a select: NaN or inf in a dead block never
+    reaches the product), in the orientation of b's storage: MN-major
+    (Kp, Np) for b as it stands, K-major (Np, Kp) where bᵀ's rows are the
+    contiguous ones (dX's Wᵀ, a weight stored (out, in) viewed ``.t()``),
+    so nothing is transposed.  In bf16 w is the bf16 copy; in f32 its
+    three bf16 pieces, (3, rows, ldw), written in the same pass.  On the
+    card ``bigdl_bs_mm_mask`` writes it; on the CPU its plain version."""
+    kmajor = int(b.stride(0) < b.stride(1))
+    stored, smask = (b.t(), mask.transposed()) if kmajor else (b, mask)
+    K, N = b.shape
+    Kp, Np = _round_up(K, plan.kc), _round_up(N, plan.bn)
+    rows, cols = (Np, Kp) if kmajor else (Kp, Np)
+    split = b.dtype == torch.float32
+    dst = torch.empty((3 if split else 1, rows, cols), dtype=torch.bfloat16,
+                      device=b.device)
+    if on_cpu(b):
+        _mm_masked_plain(stored, smask, dst)
+    else:
+        grid = _MM_TABLES.get_or_make(
+            ("grid", smask, b.device),
+            lambda: _to_device(smask.mask.astype(np.uint8), b.device))
+        _mm_mask_call([stored.data_ptr(), dst.data_ptr(), grid.data_ptr()],
+                      [*stored.shape, rows, cols, smask.block_q,
+                       smask.block_k, smask.mask.shape[1],
+                       _DTYPE_CODE[b.dtype]], stored.stride(), b.device)
+        LAUNCHES_MM_MASK.add()
+    return (dst if split else dst[0]), cols, kmajor
+
+
 def _mm_call(ptrs, ints, device):
     """``bigdl_bs_mm`` on the current stream of ``device``; raises on a
     launch error."""
     _call("block_sparse_mm",
-          _c_fn("block_sparse", "bigdl_bs_mm", [_P] * 5 + [_I] * 12 + [_P]),
+          _c_fn("block_sparse", "bigdl_bs_mm", [_P] * 5 + [_I] * 15 + [_P]),
           [*ptrs, *ints], device)
 
 
 def _bs_mm_cuda(x2, b, mask: BlockMask) -> torch.Tensor:
     """Launch K9 on the current stream of x's device: x2 (M, K) @ b (K, N)
-    over b's live blocks (``mask``), the sum for each output column block
-    over its live K blocks only, on the route ``_mm_plan`` picks.  b is
-    the forward's W or dX's Wᵀ, read in place where its layout allows."""
+    over b's live blocks (``mask``), on the route ``_mm_plan`` picks.  b
+    is the forward's W or dX's Wᵀ, read in place on the block route where
+    its layout allows."""
+    if x2.dtype not in _DTYPE_CODE:
+        raise TypeError(f"block_sparse_matmul: dtype {x2.dtype} not in "
+                        f"{tuple(_DTYPE_CODE)}")
     return _launch_mm(x2, b, mask, _mm_plan(x2.dtype, mask.block_q,
-                                            mask.block_k))
+                                            mask.block_k, *b.shape))
 
 
-def _launch_mm(x2, b, mask: BlockMask, plan) -> torch.Tensor:
-    """K9 on route ``plan`` ((KC, BN), or None for the tile route).  A B
-    operand of another dtype than x is cast to x's (the output is in x's
-    dtype, as the plain version's).  On the f32 Hopper route the split of
-    b into its bf16 pieces is part of the call."""
+def _launch_mm(x2, b, mask: BlockMask, plan: MmPlan) -> torch.Tensor:
+    """K9 on route ``plan``.  A B operand of another dtype than x is cast
+    to x's (the output is in x's dtype, as the plain version's).  On the
+    coarse route the masked copy of b, and in f32 on the block route the
+    split of b into its bf16 pieces, is part of the call.  The output is
+    (M, N), contiguous: where its rows must be padded (the f32 epilogue
+    writes whole N tiles; the bf16 TMA store needs rows of a multiple of
+    16 bytes), it is written padded and copied out."""
     if x2.dtype not in _DTYPE_CODE:
         raise TypeError(f"block_sparse_matmul: dtype {x2.dtype} not in "
                         f"{tuple(_DTYPE_CODE)}")
@@ -879,23 +1053,29 @@ def _launch_mm(x2, b, mask: BlockMask, plan) -> torch.Tensor:
     N = b.shape[1]
     if M == 0:
         raise ValueError("block_sparse_matmul: x has no rows")
-    x2, ldx, w, ldw, kmajor = _mm_operands(x2, b.to(x2.dtype), plan)
-    tiles, counts = _MM_TABLES.get_or_make(
-        ("tables", mask, x2.device),
-        lambda: tuple(_to_device(a, x2.device)
-                      for a in _index_tables(mask.mask.T)[:2]))
-    out = torch.empty((M, N), dtype=x2.dtype, device=x2.device)
-    kc, bn_tile = plan or (0, 0)
+    b = b.to(x2.dtype)
+    if plan.coarse:
+        x2, ldx = _tma_rows(x2)
+        w, ldw, kmajor = _mm_masked(b, mask, plan)
+        Kp, Np, bk, bn = (_round_up(K, plan.kc), _round_up(N, plan.bn),
+                          plan.kc, plan.bn)
+    else:
+        x2, ldx, w, ldw, kmajor = _mm_operands(x2, b)
+        Kp, Np, bk, bn = K, N, mask.block_q, mask.block_k
+    tiles, counts = _mm_tables(mask, plan, x2.device)
+    split = x2.dtype == torch.float32
+    ldo = Np if split else _round_up(N, 8)
+    out = torch.empty((M, ldo), dtype=x2.dtype, device=x2.device)
     _mm_call([x2.data_ptr(), w.data_ptr(), out.data_ptr(), tiles.data_ptr(),
               counts.data_ptr()],
-             [tiles.shape[1], M, K, N, mask.block_q, mask.block_k, ldx, ldw,
-              kmajor, kc, bn_tile, _DTYPE_CODE[x2.dtype]], x2.device)
+             [tiles.shape[1], M, Kp, Np, bk, bn, ldx, ldw, kmajor, plan.kc,
+              plan.bn, K, N, ldo, _DTYPE_CODE[x2.dtype]], x2.device)
     LAUNCHES_MM.add()
-    if plan is None:
-        LAUNCHES_MM_TILE.add()
-    elif x2.dtype == torch.float32:
+    if plan.coarse:
+        LAUNCHES_MM_COARSE[x2.dtype].add()
+    elif split:
         LAUNCHES_MM_F32.add()
-    return out
+    return out if ldo == N else out[:, :N].contiguous()
 
 
 class _BlockSparseMatmul(torch.autograd.Function):

@@ -145,11 +145,10 @@
 //     would give and writes zeros for the rest, so a dead row (NaN in K/V)
 //     never reaches a product.
 //
-// Everything lives in an anonymous namespace, as in tile_common.cuh.
+// Everything lives in an anonymous namespace, as in hopper_common.cuh.
 #pragma once
 
 #include "hopper_common.cuh"
-#include "tile_common.cuh"
 
 namespace {
 

@@ -164,11 +164,10 @@
 // sweep of 64-key tiles (bf16 at D 128, f32 at every D), tile for tile, so
 // K6 and K1 give the same bits.
 //
-// Everything lives in an anonymous namespace, as in tile_common.cuh.
+// Everything lives in an anonymous namespace, as in hopper_common.cuh.
 #pragma once
 
 #include "hopper_common.cuh"
-#include "tile_common.cuh"
 
 namespace {
 

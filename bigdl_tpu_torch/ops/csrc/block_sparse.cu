@@ -112,14 +112,24 @@
 // whole 32-byte sectors.  Six products make it bound by operations (68.7
 // GFLOP at the MLP shape, 0.417 ms at 989 / 6 TFLOP/s); its boxes move 4
 // bytes an x element and 6 a W element from L2.
-// The tile route (bs_mm_kernel_tile: f32 and bf16 blocks that are not
-// multiples of 16, on FMA and WMMA) keeps the first design: one 4-warp
-// block per (64 rows, up to 64 columns of one column block), 32-deep chunks
-// staged in shared memory, zero past the live block and M; 16-byte loads
-// where the layout keeps them aligned.  Both routes take any M and any
-// number of column tiles (a 1-D grid).
-
-#include <mma.h>   // the bf16 products of K9's tile route (WMMA)
+// Blocks that are not multiples of 64 (any bk and bn, in either dtype)
+// take the coarse route: at blocks that are not multiples of 16 a K chunk
+// cannot stay inside a block (a wgmma step is 16 deep, a TMA box row 16
+// bytes), and at 16 and 32 the block walk's narrow N tiles re-read x from
+// L2 for every one (measured slower, PERF.md).  The wrapper writes
+// a masked copy of W once per call (bs_mm_mask_kernel: W's live elements,
+// zeros at its dead ones and in the padding up to whole coarse tiles, in
+// W's own orientation, so dX still reads W's storage K-major; in f32
+// straight as its three bf16 pieces), and the kernels above walk coarse
+// (KC x BN) tiles of the copy as if they were the mask's blocks: the host
+// lists, for each BN-column tile, the KC-row chunks that hold a live
+// element.  The copy is a select, not a product, so NaN in a dead block
+// never reaches a product.  x's tensor map zero-fills past K, the bf16 TMA
+// store clips at N, and the f32 epilogue writes whole tiles into an output
+// row padded to them.  At small blocks nearly every coarse tile holds a
+// live element, so the route does the dense product's work, as a matmul
+// on the masked W does.  Every route takes any M and any number of column
+// tiles (a 1-D grid).
 
 #include "attn_bwd_hopper.cuh"
 #include "attn_fwd_hopper.cuh"
@@ -530,14 +540,16 @@ bs_mm_kernel_wgmma(const __grid_constant__ CUtensorMap tm_x,
   }
 }
 
-// What one K9 launch reads (bigdl_bs_mm's arguments).
+// What one K9 launch reads (bigdl_bs_mm's arguments): W (K, N) in (bk,
+// bn) blocks; x's first kx <= K columns (TMA zero-fills the rest), out's
+// first nout <= N columns, its rows ldo elements apart.
 struct MmArgs {
   const void* x;
   const void* w;
   void* out;
   const int* tiles;
   const int* counts;
-  int L, M, K, N, bk, bn, ldx, ldw, kmajor;
+  int L, M, K, N, bk, bn, ldx, ldw, kmajor, kx, nout, ldo;
   cudaStream_t stream;
 };
 
@@ -591,19 +603,19 @@ cudaError_t launch_mm_wgmma(const MmArgs& a) {
                         reinterpret_cast<uintptr_t>(a.out)) % 16 == 0;
   // a K chunk never leaves its K block, an N tile never its column block;
   // TMA's row pitches are multiples of 16 bytes
-  if (a.bk % KC || a.bn % BN || a.N % 8 || a.ldx % 8 || a.ldw % 8 || !aligned)
+  if (a.bk % KC || a.bn % BN || a.ldo % 8 || a.ldx % 8 || a.ldw % 8 || !aligned)
     return cudaErrorInvalidValue;
   const long long n_tiles = a.N / BN;
   const long long blocks = (a.M + kMmRows - 1) / kMmRows * n_tiles;
   if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
   // encoded per launch and passed by value: a CUDA graph captures them
   CUtensorMap tm_x, tm_w, tm_out;
-  cudaError_t err = encode_2d(&tm_x, a.x, a.K, a.M, a.ldx, KC, 64);
+  cudaError_t err = encode_2d(&tm_x, a.x, a.kx, a.M, a.ldx, KC, 64);
   if (err == cudaSuccess)
     err = Cfg::kKMajor ? encode_2d(&tm_w, a.w, a.K, a.N, a.ldw, KC, BN)
                        : encode_2d(&tm_w, a.w, a.N, a.K, a.ldw, Cfg::PW, KC);
   if (err == cudaSuccess)
-    err = encode_2d(&tm_out, a.out, a.N, a.M, a.N, Panels<BN>::PW, 64);
+    err = encode_2d(&tm_out, a.out, a.nout, a.M, a.ldo, Panels<BN>::PW, 64);
   if (err == cudaSuccess) err = mm_opt_in<Cfg>();
   if (err != cudaSuccess) return err;
   bs_mm_kernel_wgmma<KC, BN, Cfg::kKMajor><<<(unsigned)blocks, kMmThreads, Cfg::SMEM, a.stream>>>(
@@ -799,15 +811,16 @@ cudaError_t launch_mm_split(const MmArgs& a) {
   const bool aligned = (reinterpret_cast<uintptr_t>(a.x) | reinterpret_cast<uintptr_t>(a.w) |
                         reinterpret_cast<uintptr_t>(a.out)) % 16 == 0;
   // a K chunk never leaves its K block, an N tile never its column block;
-  // TMA's row pitches are multiples of 16 bytes
-  if (a.bk % KC || a.bn % BN || a.N % 2 || a.ldx % 4 || a.ldw % 8 || !aligned)
+  // TMA's row pitches are multiples of 16 bytes; the epilogue writes whole
+  // tiles, 8 bytes a store, into rows ldo apart
+  if (a.bk % KC || a.bn % BN || a.ldo % 2 || a.ldo < a.N || a.ldx % 4 || a.ldw % 8 || !aligned)
     return cudaErrorInvalidValue;
   const long long n_tiles = a.N / BN;
   const long long blocks = (a.M + kMmRows - 1) / kMmRows * n_tiles;
   if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
   // encoded per launch and passed by value: a CUDA graph captures them
   CUtensorMap tm_x, tm_w;
-  cudaError_t err = encode_2d<4>(&tm_x, a.x, a.K, a.M, a.ldx, KC, 64);
+  cudaError_t err = encode_2d<4>(&tm_x, a.x, a.kx, a.M, a.ldx, KC, 64);
   if (err == cudaSuccess)
     err = Cfg::kKMajor ? encode_bf16_stack(&tm_w, a.w, a.K, a.N, 3, a.ldw, KC, BN)
                        : encode_bf16_stack(&tm_w, a.w, a.N, a.K, 3, a.ldw, Cfg::PW, KC);
@@ -815,178 +828,74 @@ cudaError_t launch_mm_split(const MmArgs& a) {
   if (err != cudaSuccess) return err;
   bs_mm_kernel_split<KC, BN, Cfg::kKMajor><<<(unsigned)blocks, kMmSplitThreads, Cfg::SMEM,
                                              a.stream>>>(
-      tm_x, tm_w, static_cast<float*>(a.out), a.tiles, a.counts, a.L, a.M, a.N, a.bk, a.bn,
+      tm_x, tm_w, static_cast<float*>(a.out), a.tiles, a.counts, a.L, a.M, a.ldo, a.bk, a.bn,
       (int)n_tiles);
   return cudaGetLastError();
 }
 
-// ---- the tile route: blocks that are not multiples of 16 (f32 and bf16) ----
+// ---- the coarse route's masked copy of W ------------------------------------
 
-constexpr int MM_TILE = 64;   // rows of x and columns of W per block
-constexpr int MM_KC = 32;     // depth of one staged chunk
+constexpr int kMaskThreads = 256;
 
-// Rows [0, 64) x columns [0, MM_KC) of x from (m0, kk); zero past M and kw.
-template <typename T, bool VEC>
-__device__ __forceinline__ void load_x_chunk(T* x_s, const T* x, int m0, int M, int ldx, int kk,
-                                             int kw) {
-  if constexpr (VEC) {
-    constexpr int V = 16 / sizeof(T);
-    constexpr int VPR = MM_KC / V;
-    for (int i = threadIdx.x; i < MM_TILE * VPR; i += NTHREADS) {
-      const int r = i / VPR, c = (i % VPR) * V;
-      uint4 val = make_uint4(0u, 0u, 0u, 0u);
-      if (m0 + r < M && c < kw)
-        val = *reinterpret_cast<const uint4*>(x + (size_t)(m0 + r) * ldx + kk + c);
-      *reinterpret_cast<uint4*>(x_s + r * MM_KC + c) = val;
-    }
-  } else {
-    for (int i = threadIdx.x; i < MM_TILE * MM_KC; i += NTHREADS) {
-      const int r = i / MM_KC, c = i % MM_KC;
-      x_s[i] = (m0 + r < M && c < kw) ? x[(size_t)(m0 + r) * ldx + kk + c] : from_f32<T>(0.0f);
-    }
-  }
-}
-
-// Rows [0, MM_KC) x columns [0, 64) of W from (kk, c0), row-major; zero past
-// kw and cw.  16-byte loads run along W's contiguous dim: along a row of an
-// MN-major W, down a column of a K-major one.
-template <typename T, bool VEC, bool KMAJ>
-__device__ __forceinline__ void load_w_chunk(T* w_s, const T* w, int ldw, int kk, int kw, int c0,
-                                             int cw) {
-  constexpr int V = 16 / sizeof(T);
-  if constexpr (VEC && KMAJ) {
-    constexpr int VPC = MM_KC / V;
-    for (int i = threadIdx.x; i < MM_TILE * VPC; i += NTHREADS) {
-      const int c = i / VPC, r = (i % VPC) * V;
-      uint4 val = make_uint4(0u, 0u, 0u, 0u);
-      if (r < kw && c < cw)
-        val = *reinterpret_cast<const uint4*>(w + (size_t)(c0 + c) * ldw + kk + r);
-      const T* e = reinterpret_cast<const T*>(&val);
+// dst (P, Rp, Cp) bf16, contiguous, from src (R, C) of T at element strides
+// (sr, sc): element (r, c) is src's where r < R, c < C and its block in the
+// uint8 grid ((R / br) x ngc, row-major) is live, else 0; P = 1 in bf16
+// (the element), 3 in f32 (its three bf16 pieces, split_bf16x3: p1 =
+// bf16(v), p2 = bf16(v - p1), p3 = bf16(v - p1 - p2), each rounded to
+// nearest even, as the wrapper's plain version splits).  A dead element is
+// never loaded.  A thread writes 8 columns of one row, 16 bytes a piece (Cp
+// a multiple of 8).  Bound by bytes: W's live elements read once, 2 or 6
+// bytes written an element of the padded copy.  It is K9's coarse route's
+// first step, no TPU kernel's counterpart: the TPU kernel never forms W's
+// dead blocks, and the select and split in plain PyTorch (several passes)
+// took a large share of a call at small blocks (PERF.md).
+template <typename T>
+__global__ void __launch_bounds__(kMaskThreads)
+bs_mm_mask_kernel(const T* __restrict__ src, __nv_bfloat16* __restrict__ dst,
+                  const uint8_t* __restrict__ grid, int R, int C, long long sr, long long sc,
+                  int Rp, int Cp, int br, int bc, int ngc) {
+  const size_t per_row = Cp / 8;
+  const size_t groups = (size_t)Rp * per_row;
+  const size_t plane = (size_t)Rp * Cp;
+  for (size_t g = (size_t)blockIdx.x * kMaskThreads + threadIdx.x; g < groups;
+       g += (size_t)gridDim.x * kMaskThreads) {
+    const int r = (int)(g / per_row);
+    const int c0 = (int)(g % per_row) * 8;
+    const uint8_t* live = r < R ? grid + (size_t)(r / br) * ngc : nullptr;
+    float v[8];
 #pragma unroll
-      for (int q = 0; q < V; ++q) w_s[(r + q) * MM_TILE + c] = e[q];
+    for (int j = 0; j < 8; ++j) {
+      const int c = c0 + j;
+      v[j] = live != nullptr && c < C && live[c / bc]
+                 ? to_f32(src[(long long)r * sr + (long long)c * sc])
+                 : 0.0f;
     }
-  } else if constexpr (VEC) {
-    constexpr int VPR = MM_TILE / V;
-    for (int i = threadIdx.x; i < MM_KC * VPR; i += NTHREADS) {
-      const int r = i / VPR, c = (i % VPR) * V;
-      uint4 val = make_uint4(0u, 0u, 0u, 0u);
-      if (r < kw && c < cw)
-        val = *reinterpret_cast<const uint4*>(w + (size_t)(kk + r) * ldw + c0 + c);
-      *reinterpret_cast<uint4*>(w_s + r * MM_TILE + c) = val;
-    }
-  } else {
-    for (int i = threadIdx.x; i < MM_KC * MM_TILE; i += NTHREADS) {
-      const int r = i / MM_TILE, c = i % MM_TILE;
-      const size_t at = KMAJ ? (size_t)(c0 + c) * ldw + kk + r : (size_t)(kk + r) * ldw + c0 + c;
-      w_s[i] = (r < kw && c < cw) ? w[at] : from_f32<T>(0.0f);
-    }
-  }
-}
-
-// grid (m_tiles * N / bn * chunks): block i computes rows 64 (i % m_tiles)
-// .. of the 64-column chunk i / m_tiles of all column blocks' chunks.
-template <typename T, bool VEC, bool KMAJ>
-__global__ void __launch_bounds__(NTHREADS)
-bs_mm_kernel_tile(const T* __restrict__ x, const T* __restrict__ w, T* __restrict__ out,
-                  const int* __restrict__ tiles, const int* __restrict__ counts, int L, int M,
-                  int N, int bk, int bn, int ldx, int ldw, int m_tiles, int chunks) {
-  __shared__ __align__(128) T x_s[MM_TILE * MM_KC];
-  __shared__ __align__(128) T w_s[MM_KC * MM_TILE];
-
-  const int m0 = (blockIdx.x % m_tiles) * MM_TILE;
-  const int y = blockIdx.x / m_tiles;
-  const int cb = y / chunks;   // output column block
-  const int c0 = cb * bn + (y % chunks) * MM_TILE;
-  const int cw = min(MM_TILE, (cb + 1) * bn - c0);
-  const int n_blocks = counts[cb];
-  const int* kblocks = tiles + (size_t)cb * L;
-  const int warp = threadIdx.x / 32;
-
-  if constexpr (kIsBf16<T>) {
-    using namespace nvcuda;
-    __shared__ __align__(128) float o_s[MM_TILE * MM_TILE];
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[MM_TILE / 16];
-    for (int ct = 0; ct < MM_TILE / 16; ++ct) wmma::fill_fragment(acc[ct], 0.0f);
-    for (int it = 0; it < n_blocks; ++it) {
-      const int k_beg = kblocks[it] * bk, k_end = k_beg + bk;
-      for (int kk = k_beg; kk < k_end; kk += MM_KC) {
-        const int kw = min(MM_KC, k_end - kk);
-        __syncthreads();   // every warp done with the last chunk
-        load_x_chunk<T, VEC>(x_s, x, m0, M, ldx, kk, kw);
-        load_w_chunk<T, VEC, KMAJ>(w_s, w, ldw, kk, kw, c0, cw);
-        __syncthreads();
-        for (int ks = 0; ks < MM_KC; ks += 16) {
-          wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> a;
-          wmma::load_matrix_sync(a, x_s + warp * 16 * MM_KC + ks, MM_KC);
-          for (int ct = 0; ct < MM_TILE / 16; ++ct) {
-            wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::row_major> b;
-            wmma::load_matrix_sync(b, w_s + ks * MM_TILE + ct * 16, MM_TILE);
-            wmma::mma_sync(acc[ct], a, b, acc[ct]);
-          }
-        }
-      }
-    }
-    for (int ct = 0; ct < MM_TILE / 16; ++ct)
-      wmma::store_matrix_sync(o_s + warp * 16 * MM_TILE + ct * 16, acc[ct], MM_TILE,
-                              wmma::mem_row_major);
-    __syncwarp();
-    const int lane = threadIdx.x % 32;
-    for (int i = lane; i < 16 * MM_TILE; i += 32) {
-      const int r = warp * 16 + i / MM_TILE, c = i % MM_TILE;
-      if (m0 + r < M && c < cw)
-        out[(size_t)(m0 + r) * N + c0 + c] = from_f32<T>(o_s[r * MM_TILE + c]);
-    }
-  } else {
-    const int rg = threadIdx.x / 8, cg = threadIdx.x % 8;   // 4 rows x 8 columns each
-    float acc[4][8] = {};
-    for (int it = 0; it < n_blocks; ++it) {
-      const int k_beg = kblocks[it] * bk, k_end = k_beg + bk;
-      for (int kk = k_beg; kk < k_end; kk += MM_KC) {
-        const int kw = min(MM_KC, k_end - kk);
-        __syncthreads();
-        load_x_chunk<T, VEC>(x_s, x, m0, M, ldx, kk, kw);
-        load_w_chunk<T, VEC, KMAJ>(w_s, w, ldw, kk, kw, c0, cw);
-        __syncthreads();
-        for (int kc = 0; kc < MM_KC; ++kc) {
-          float a[4], b[8];
-          for (int i = 0; i < 4; ++i) a[i] = to_f32(x_s[(rg * 4 + i) * MM_KC + kc]);
-          for (int j = 0; j < 8; ++j) b[j] = to_f32(w_s[kc * MM_TILE + cg * 8 + j]);
-          for (int i = 0; i < 4; ++i)
-            for (int j = 0; j < 8; ++j) acc[i][j] += a[i] * b[j];
-        }
-      }
-    }
-    for (int i = 0; i < 4; ++i) {
-      const int r = rg * 4 + i;
-      if (m0 + r >= M) break;
-      for (int j = 0; j < 8; ++j) {
-        const int c = cg * 8 + j;
-        if (c < cw) out[(size_t)(m0 + r) * N + c0 + c] = from_f32<T>(acc[i][j]);
-      }
+    __nv_bfloat16* out = dst + (size_t)r * Cp + c0;
+    if constexpr (kIsBf16<T>) {
+      // bf16 to f32 and back is exact
+      *reinterpret_cast<uint4*>(out) = make_uint4(pack_bf16x2(v[0], v[1]), pack_bf16x2(v[2], v[3]),
+                                                  pack_bf16x2(v[4], v[5]), pack_bf16x2(v[6], v[7]));
+    } else {
+      uint32_t p[3][4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) split_bf16x3(v[2 * i], v[2 * i + 1], p[0][i], p[1][i], p[2][i]);
+#pragma unroll
+      for (int q = 0; q < 3; ++q)
+        *reinterpret_cast<uint4*>(out + q * plane) = make_uint4(p[q][0], p[q][1], p[q][2], p[q][3]);
     }
   }
-}
-
-template <typename T, bool KMAJ>
-cudaError_t launch_mm_tile(const MmArgs& a) {
-  constexpr int V = 16 / sizeof(T);
-  const int chunks = (a.bn + MM_TILE - 1) / MM_TILE;
-  const long long m_tiles = (a.M + MM_TILE - 1) / MM_TILE;
-  const long long blocks = m_tiles * (a.N / a.bn) * chunks;
-  if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
-  // 16-byte loads where every row and block edge keeps them aligned
-  const bool vec = a.bk % V == 0 && a.bn % V == 0 && a.ldx % V == 0 && a.ldw % V == 0 &&
-                   (reinterpret_cast<uintptr_t>(a.x) | reinterpret_cast<uintptr_t>(a.w)) % 16 == 0;
-  auto kernel = vec ? bs_mm_kernel_tile<T, true, KMAJ> : bs_mm_kernel_tile<T, false, KMAJ>;
-  kernel<<<(unsigned)blocks, NTHREADS, 0, a.stream>>>(
-      static_cast<const T*>(a.x), static_cast<const T*>(a.w), static_cast<T*>(a.out), a.tiles,
-      a.counts, a.L, a.M, a.N, a.bk, a.bn, a.ldx, a.ldw, (int)m_tiles, chunks);
-  return cudaGetLastError();
 }
 
 template <typename T>
-cudaError_t dispatch_mm_tile(const MmArgs& a) {
-  return a.kmajor ? launch_mm_tile<T, true>(a) : launch_mm_tile<T, false>(a);
+cudaError_t launch_mm_mask(const void* src, void* dst, const uint8_t* grid, int R, int C,
+                           long long sr, long long sc, int Rp, int Cp, int br, int bc, int ngc,
+                           cudaStream_t stream) {
+  const long long groups = (long long)Rp * (Cp / 8);
+  const long long blocks = (groups + kMaskThreads - 1) / kMaskThreads;
+  bs_mm_mask_kernel<T><<<(unsigned)(blocks < 65536 ? blocks : 65536), kMaskThreads, 0, stream>>>(
+      static_cast<const T*>(src), static_cast<__nv_bfloat16*>(dst), grid, R, C, sr, sc, Rp, Cp,
+      br, bc, ngc);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -1059,44 +968,65 @@ extern "C" int bigdl_bs_bwd_smem_bytes(int dkv, int D, int dtype) {
   return dkv ? smem_of_d<Which::kDkv>(D, dtype) : smem_of_d<Which::kDq>(D, dtype);
 }
 
-// K9: out (M, N) = x (M, K) @ W (K, N) over W's live (bk, bn) blocks; tiles
-// (N / bn, L) int32 lists each output column block's live K blocks, counts
-// (N / bn,) int32 their number.  x's rows lie ldx elements apart; W is
-// MN-major (kmajor 0: element (k, n) at w[k * ldw + n]) or K-major (kmajor
-// 1: at w[n * ldw + k]); out (M, N) contiguous; one dtype.  kc > 0 takes
-// the Hopper route (K chunks of kc, N tiles of bn_tile, the wrapper's
-// choice: kc divides bk, bn_tile divides bn; x, w, out 16-byte aligned and
-// the row pitches multiples of 16 bytes, for TMA): in bf16 on W as it
-// stands (kc 16, 32 or 64; ldx, ldw and N multiples of 8), in f32 on W's
-// three bf16 pieces, which w then points to (kc 16 or 32; (3, K, ldw)
-// MN-major or (3, N, ldw) K-major, contiguous: piece p of row r at w + (p
-// rows + r) ldw; ldx a multiple of 4, ldw of 8).  kc = 0 takes the tile
-// route (any layout the arguments describe).
+// K9: out (M, nout) = x (M, kx) @ W (kx, nout) over W's live (bk, bn)
+// blocks, where W is handed over as a (K, N) operand, K >= kx and N >= nout
+// multiples of bk and bn, zero past (kx, nout) (the coarse route pads its
+// masked copy so; elsewhere K = kx, N = nout); tiles (N / bn, L) int32 lists
+// each column block's live K blocks, counts (N / bn,) int32 their number.
+// x's rows lie ldx elements apart (TMA reads its first kx columns, zeros
+// past them); W is MN-major (kmajor 0: element (k, n) at w[k * ldw + n]) or
+// K-major (kmajor 1: at w[n * ldw + k]); out's rows lie ldo elements apart;
+// one dtype.  K chunks of kc, N tiles of bn_tile, the wrapper's choice (kc
+// divides bk, bn_tile divides bn; x, w, out 16-byte aligned and the row
+// pitches multiples of 16 bytes, for TMA): in bf16 on W as it stands (kc
+// 16, 32 or 64; ldx, ldw and ldo multiples of 8; the TMA store clips at
+// nout), in f32 on W's three bf16 pieces, which w then points to (kc 16 or
+// 32; (3, K, ldw) MN-major or (3, N, ldw) K-major, contiguous: piece p of
+// row r at w + (p rows + r) ldw; ldx a multiple of 4, ldw of 8; the
+// epilogue writes whole N tiles, so ldo >= N, even).
 extern "C" int bigdl_bs_mm(const void* x, const void* w, void* out, const void* tiles,
                            const void* counts, int L, int M, int K, int N, int bk, int bn,
-                           int ldx, int ldw, int kmajor, int kc, int bn_tile, int dtype,
-                           void* stream) {
+                           int ldx, int ldw, int kmajor, int kc, int bn_tile, int kx, int nout,
+                           int ldo, int dtype, void* stream) {
   if (M <= 0 || K <= 0 || N <= 0 || bk <= 0 || bn <= 0 || K % bk || N % bn || L <= 0 ||
-      ldx < K || ldw < (kmajor ? K : N))
+      kx <= 0 || kx > K || nout <= 0 || nout > N || ldx < kx || ldo < nout ||
+      ldw < (kmajor ? K : N))
     return (int)cudaErrorInvalidValue;
-  const MmArgs a{x, w, out, static_cast<const int*>(tiles), static_cast<const int*>(counts), L,
-                 M, K, N, bk, bn, ldx, ldw, kmajor, static_cast<cudaStream_t>(stream)};
-  if (kc > 0) {
-    const cudaError_t none = cudaErrorInvalidValue;
-    if (dtype == 1)
-      return (int)with_mm_cfg(kc, bn_tile, kmajor, none,
-                              [&](auto cfg) { return launch_mm_wgmma<decltype(cfg)>(a); });
-    if (dtype == 0)
-      return (int)with_mm_split_cfg(kc, bn_tile, kmajor, none,
-                                    [&](auto cfg) { return launch_mm_split<decltype(cfg)>(a); });
-    return (int)none;
-  }
-  if (dtype == 1) return (int)dispatch_mm_tile<__nv_bfloat16>(a);
-  if (dtype == 0) return (int)dispatch_mm_tile<float>(a);
+  const MmArgs a{x,  w,   out, static_cast<const int*>(tiles), static_cast<const int*>(counts),
+                 L,  M,   K,   N,
+                 bk, bn,  ldx, ldw, kmajor, kx, nout, ldo, static_cast<cudaStream_t>(stream)};
+  const cudaError_t none = cudaErrorInvalidValue;
+  if (dtype == 1)
+    return (int)with_mm_cfg(kc, bn_tile, kmajor, none,
+                            [&](auto cfg) { return launch_mm_wgmma<decltype(cfg)>(a); });
+  if (dtype == 0)
+    return (int)with_mm_split_cfg(kc, bn_tile, kmajor, none,
+                                  [&](auto cfg) { return launch_mm_split<decltype(cfg)>(a); });
+  return (int)none;
+}
+
+// The coarse route's masked copy of W (bs_mm_mask_kernel): dst (P, Rp, Cp)
+// bf16 contiguous, 16-byte aligned, Cp a multiple of 8, from src (R, C) at
+// element strides (sr, sc) in dtype (1 bf16: P = 1, the element; 0 f32: P
+// = 3, its three bf16 pieces), element (r, c) kept where r < R, c < C and
+// the uint8 grid ((R / br) x ngc, row-major) holds its (br, bc) block, else
+// 0.  R and C are multiples of br and bc.
+extern "C" int bigdl_bs_mm_mask(const void* src, void* dst, const void* grid, int R, int C,
+                                long long sr, long long sc, int Rp, int Cp, int br, int bc,
+                                int ngc, int dtype, void* stream) {
+  if (R <= 0 || C <= 0 || Rp < R || Cp < C || Cp % 8 || br <= 0 || bc <= 0 || R % br ||
+      C % bc || ngc != C / bc || reinterpret_cast<uintptr_t>(dst) % 16)
+    return (int)cudaErrorInvalidValue;
+  const uint8_t* g = static_cast<const uint8_t*>(grid);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype == 1)
+    return (int)launch_mm_mask<__nv_bfloat16>(src, dst, g, R, C, sr, sc, Rp, Cp, br, bc, ngc, st);
+  if (dtype == 0)
+    return (int)launch_mm_mask<float>(src, dst, g, R, C, sr, sc, Rp, Cp, br, bc, ngc, st);
   return (int)cudaErrorInvalidValue;
 }
 
-// f(Cfg{}) for K9's Hopper route at (kc, bn_tile, kmajor) in dtype (1 bf16,
+// f(Cfg{}) for K9's kernel at (kc, bn_tile, kmajor) in dtype (1 bf16,
 // 0 f32), or `none`
 template <class R, class F>
 R with_mm_route(int kc, int bn_tile, int kmajor, int dtype, R none, F f) {
@@ -1105,14 +1035,14 @@ R with_mm_route(int kc, int bn_tile, int kmajor, int dtype, R none, F f) {
   return none;
 }
 
-// Dynamic shared memory per block of K9's Hopper route at (kc, bn_tile,
+// Dynamic shared memory per block of K9's kernel at (kc, bn_tile,
 // kmajor) in dtype (1 bf16, 0 f32), or 0 for what it does not take.
 extern "C" int bigdl_bs_mm_smem_bytes(int kc, int bn_tile, int kmajor, int dtype) {
   return with_mm_route(kc, bn_tile, kmajor, dtype, 0,
                        [](auto cfg) { return (int)decltype(cfg)::SMEM; });
 }
 
-// How many blocks of K9's Hopper route at (kc, bn_tile, kmajor) in dtype
+// How many blocks of K9's kernel at (kc, bn_tile, kmajor) in dtype
 // the current device runs on one SM at once (bf16: 2 by design, f32: 1),
 // or -1.
 extern "C" int bigdl_bs_mm_blocks_per_sm(int kc, int bn_tile, int kmajor, int dtype) {

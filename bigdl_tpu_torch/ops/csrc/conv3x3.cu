@@ -83,7 +83,6 @@
 // zero-pads x), x and y 16-byte aligned.
 
 #include "hopper_common.cuh"
-#include "tile_common.cuh"
 
 namespace {
 

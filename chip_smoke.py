@@ -13,8 +13,8 @@ Phases; any failure exits non-zero:
    each, started together, into ``.torch_kernels/``; Triton compiles K4
    at first launch.  Print the build seconds, and for each instantiation
    of K1, K2, K3, K6-K8, K5's bf16 and f32 kernels (one per KC input
-   channels a step and BN output channels a block) and K9's Hopper route
-   in bf16 and in f32 (split products; one per KC, BN and W orientation)
+   channels a step and BN output channels a block) and K9 in bf16 and
+   in f32 (split products; one per KC, BN and W orientation)
    its registers, spills and dynamic
    shared memory (ptxas) and its wgmma (HGMMA) and TMA (UTMALDG)
    instructions (``cuobjdump -sass``, where the toolkit has it); each
@@ -24,12 +24,12 @@ Phases; any failure exits non-zero:
    instantiation each for every head dim), the
    bf16 K5 at KC 64, every f32 K5 (split products too) and every K9
    instantiation must not spill and must hold both (and the attention
-   kernels and the f32 K5 and K9 must not have their wgmma serialised,
-   ptxas C7520 or C7514), two bf16
+   kernels, the f32 K5 and every K9 must not have their wgmma
+   serialised, ptxas C7520 or C7514), two bf16
    K5 or K9 blocks must share an SM (an f32 K5 or K9 block is alone on
    its SM), and no library may still hold the f32 dQ's or the f32 K5's
-   retired FMA loops, or the retired wide route's forward, dK/dV or dQ
-   in either dtype.
+   retired FMA loops, the retired wide route's forward, dK/dV or dQ
+   in either dtype, or K9's retired tile loop.
 3. kernel parity — each kernel against its plain PyTorch version on the
    card at the shapes the served, the training, the block-sparse
    training, the matmul and the ResNet-50 paths give it, with the stated
@@ -56,12 +56,15 @@ Phases; any failure exits non-zero:
    width (B 128, 32 x 32, C = O = 16) and ragged C 3, O 10, H 7, W 5,
    with K5's pixel box, its dead rows and the bytes its TMA boxes
    request, and the wrapper's whole call (in f32 with its weight split);
-   K9 forward and dX (on W in place) with the route each took (the
-   Hopper route at blocks that are multiples of 16, in f32 on split
-   products; the tile route at block 8 in both dtypes),
-   and on its Hopper route the tile route's time on the same inputs and
-   the bytes its TMA boxes request (in f32 also the split of W into its
-   pieces, which the call's time includes); kernel, plain and library times
+   K9 forward and dX with the route each took (the block route at
+   blocks that are multiples of 64, W read in place, in f32 on split
+   products; the coarse route at blocks 8, 16 and 32 in both dtypes,
+   over a masked copy of W, which is held bit for bit against its plain
+   version, with NaN in every dead block, and timed on its own beside the
+   call that includes it), blocks 16 and 32 also on the block route, the
+   bytes the TMA boxes request (in f32 on the block route also the split
+   of W into its pieces, which the call's time includes); kernel, plain
+   and library times
    (SDPA's backward by CUDA graph replay, with the backend that ran);
    the bound.
 4. serving path — the flagship TransformerLM (V 32000, D 1024, 8 heads,
@@ -96,10 +99,12 @@ Phases; any failure exits non-zero:
    executed and flash-equivalent work, peak memory.
 7. the block-sparse matmul's entry point — ``block_sparse_matmul`` at
    the flagship MLP shape in bf16 and in f32 under autograd, 3
-   forward+backward passes each: 2 launches of K9 per pass, all on its
-   Hopper route (dX reads W in place; in f32 all 6 on split products,
-   none on the tile route), dW zero on every dead tile, the forward and
-   dX as phase 3 holds them.
+   forward+backward passes each, at the MLP's block 128 and at block 8:
+   2 launches of K9 per pass, at block 128 all on its block route (dX
+   reads W in place; in f32 all 6 on split products, none on the coarse
+   route), at block 8 all on its coarse route after one masked copy of W
+   each; dW zero on every dead tile, the forward and dX as phase 3 holds
+   them.
 8. ResNet-50 training path — ``bench.py``'s ``conv_impl="pallas"`` leg on
    the port: ``ResNet50(1000)`` with the conv7 stem (random weights from
    a seeded generator), every ``SpatialConvolution`` on ``"pallas"`` (the
@@ -152,7 +157,7 @@ T_START = time.perf_counter()
 # their two (six for S, six for P.V); "float32_split_dq" that of the f32
 # K3 and K8: 18 for their three (six each for S, dP and dQ);
 # "float32_split_conv" that of the f32 K5 and "float32_split_mm" that of
-# the f32 K9's Hopper route: six for their one
+# the f32 K9 (either route): six for their one
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12,
               "float32_split": 989e12 * 4 / 22,
               "float32_split_fwd": 989e12 * 2 / 12,
@@ -440,11 +445,13 @@ CHUNK_BWD_KERNEL = (r"bwd_(dkv|dq)_chunk_kernelI(13__nv_bfloat16|f)NS_\d+"
 #: the head dim phase 2 reports the chunked forward under
 CHUNKED = "above 256"
 # the FMA loops the f32 K3, K8 and K5 ran before their split products,
-# and the wide route's (a warp per output row) forward, which K1 and K6
-# ran above head dim 256, and its dK/dV and dQ in either dtype, which K2/K3
-# and K7/K8 ran there: phase 2 fails if a built library still holds one
+# the wide route's (a warp per output row) forward, which K1 and K6 ran
+# above head dim 256, and its dK/dV and dQ in either dtype, which K2/K3
+# and K7/K8 ran there, and K9's tile loop (FMA, WMMA), which blocks that
+# are not multiples of 16 ran: phase 2 fails if a built library still
+# holds one
 RETIRED_KERNELS = (r"flash_bwd_dq_kernel|bs_dq_kernel|conv3x3_kernel_f32"
-                   r"|wide_fwd_kernel|wide_(dkv|dq)_kernel")
+                   r"|wide_fwd_kernel|wide_(dkv|dq)_kernel|bs_mm_kernel_tile")
 
 
 # the head dims phase 2 holds each Hopper attention kernel to: in bf16 D
@@ -571,8 +578,8 @@ def kernel_design(torch):
 
 # the wgmma GEMMs by their mangled names: K5 in bf16 and in f32 (split
 # products; KC input channels a step, BN output channels a block) and
-# K9's Hopper route in bf16 and in f32 (split products; KC, BN, W read
-# K-major)
+# K9 in bf16 and in f32 (split products; KC, BN, W read K-major), which
+# its block and coarse routes share
 CONV_KERNEL = r"conv3x3_kernel_wgmmaILi(\d+)ELi(\d+)E"
 CONV_SPLIT_KERNEL = r"conv3x3_kernel_splitILi(\d+)ELi(\d+)E"
 MM_KERNEL = r"bs_mm_kernel_wgmmaILi(\d+)ELi(\d+)ELb([01])E"
@@ -667,17 +674,17 @@ def conv_design(torch):
 
 
 def mm_design(torch):
-    """K9's Hopper route (``wgmma_design``), per (KC, BN, W K-major): in
-    bf16 two blocks an SM, in f32 (split products) a block alone on its
-    SM; none may spill, each must hold HGMMA and UTMALDG, and no f32 one
-    may have its wgmma serialised."""
+    """K9's kernels (``wgmma_design``), per (KC, BN, W K-major), which its
+    block and coarse routes share: in bf16 two blocks an SM, in f32
+    (split products) a block alone on its SM; none may spill, each must
+    hold HGMMA and UTMALDG, and none may have its wgmma serialised."""
     smem = _int_fn("block_sparse", "bigdl_bs_mm_smem_bytes", 4)
     occ = _int_fn("block_sparse", "bigdl_bs_mm_blocks_per_sm", 4)
     names = ("kc", "bn", "kmajor")
     rows, failures = wgmma_design(
         "block_sparse", "K9", MM_KERNEL, names,
         lambda *args: smem(*args, 1), lambda *args: occ(*args, 1),
-        lambda *args: True)
+        lambda *args: True, serial_check=True)
     more_rows, more_failures = wgmma_design(
         "block_sparse", "K9", MM_SPLIT_KERNEL, names,
         lambda *args: smem(*args, 0), lambda *args: occ(*args, 0),
@@ -847,7 +854,8 @@ def check_layer_norm(torch, F):
 def launch_counters():
     """Every kernel's launch counter, by the kernel's name (K1-K3 and
     K6-K8 also by f32 head dim 192 and 256 and above 256 by dtype, K9 on
-    its f32 Hopper route: the ``variants`` of the ``kernels`` line), and
+    its f32 block route and on its coarse route by dtype, and the coarse
+    route's masked copy of W: the ``variants`` of the ``kernels`` line), and
     the attention and LayerNorm wrappers' counts
     of operand copies, which the bf16 main paths hold at 0.  A checkout
     without some of the variants' counters (``f32_steps.py`` runs these
@@ -863,12 +871,13 @@ def launch_counters():
                                             "LAUNCHES_DKV_CHUNKED",
                                             "LAUNCHES_DQ_CHUNKED")
               for c in getattr(m, n, {}).values()]
-    by_dim += [bs.LAUNCHES_MM_F32] if hasattr(bs, "LAUNCHES_MM_F32") else []
+    by_dim += [getattr(bs, n) for n in ("LAUNCHES_MM_F32", "LAUNCHES_MM_MASK")
+               if hasattr(bs, n)]
+    by_dim += list(getattr(bs, "LAUNCHES_MM_COARSE", {}).values())
     return {c.name: c for c in (fa.LAUNCHES, fa.LAUNCHES_DKV,
                                 fa.LAUNCHES_DQ, ln.LAUNCHES, bs.LAUNCHES,
                                 bs.LAUNCHES_DKV, bs.LAUNCHES_DQ,
-                                bs.LAUNCHES_MM, bs.LAUNCHES_MM_TILE,
-                                conv3x3.LAUNCHES, *by_dim,
+                                bs.LAUNCHES_MM, conv3x3.LAUNCHES, *by_dim,
                                 fa.OPERAND_COPIES, ln.X_COPIES)}
 
 
@@ -1405,9 +1414,10 @@ def check_bs_poison(torch, D, dt):
 
 def mm_cases(torch):
     """(label, M, K, N, block, dtype) for K9: the flagship MLP shape in
-    bf16 and f32 (the Hopper route, on split products in f32), the kernel
-    lab's shape in f32, ragged M, block 32, and block 8 in both dtypes
-    (the tile route: blocks that are not multiples of 16)."""
+    bf16 and f32 (the block route, on split products in f32), the kernel
+    lab's shape in f32, ragged M, and on the coarse route (blocks that are
+    not multiples of 64) blocks 32 and 16 in both dtypes (timed on the
+    block route too) and block 8 in both dtypes."""
     bf16, f32 = torch.bfloat16, torch.float32
     M, K, N = MM_SHAPE
     return [("mlp_bf16", M, K, N, MM_BLOCK, bf16),
@@ -1415,6 +1425,9 @@ def mm_cases(torch):
             ("lab_f32", 64, 1024, 1024, 512, f32),
             ("ragged_M100", 100, K, N, MM_BLOCK, bf16),
             ("block32", 4096, K, K, 32, bf16),
+            ("block32_f32", 4096, K, K, 32, f32),
+            ("block16", 4096, K, K, 16, bf16),
+            ("block16_f32", 4096, K, K, 16, f32),
             ("block8_bf16", 4096, K, K, 8, bf16),
             ("block8_f32", 4096, K, K, 8, f32)]
 
@@ -1430,61 +1443,109 @@ def mm_inputs(torch, M, K, N, block, dt):
     return x, w, gy, bs.magnitude_block_mask(w, block, block, MM_DENSITY)
 
 
-def mm_boxes(M, K, N, mask, dtype):
-    """What K9's Hopper route reads for one call in ``dtype`` (its plan
-    from ``_mm_plan``): KC, BN, and the bytes its TMA boxes request, per
-    live step of each 128-row tile and BN-column tile: two 64-row x boxes
-    (one where the tile has 64 rows or fewer; 2 bytes an element in bf16,
-    4 in f32) and W's box (bf16: 2 bytes an element; f32: its three bf16
-    pieces, 6); x and W come from L2 after their first read."""
+def mm_boxes(M, K, N, mask, dtype, plan=None):
+    """What K9 reads for one call in ``dtype`` on ``plan`` (default: the
+    one ``_mm_plan`` gives): KC, BN, and the bytes its TMA boxes request,
+    per live step of each 128-row tile and BN-column tile (a KC chunk of a
+    live K block on the block route, a coarse tile holding a live element
+    on the coarse route): two 64-row x boxes (one where the tile has 64
+    rows or fewer; 2 bytes an element in bf16, 4 in f32) and W's box
+    (bf16: 2 bytes an element; f32: its three bf16 pieces, 6); x and W
+    come from L2 after their first read."""
     import torch
 
     from bigdl_tpu_torch.ops import block_sparse as bs
 
-    kc, bn_t = bs._mm_plan(dtype, mask.block_q, mask.block_k)
+    plan = plan or bs._mm_plan(dtype, mask.block_q, mask.block_k, K, N)
+    kc, bn_t = plan.kc, plan.bn
     x_item, w_item = (2, 2) if dtype == torch.bfloat16 else (4, 6)
-    steps = mask.nnz * (mask.block_q // kc) * (mask.block_k // bn_t)
+    steps = (int(bs._coarse_grid(mask, kc, bn_t).sum()) if plan.coarse else
+             mask.nnz * (mask.block_q // kc) * (mask.block_k // bn_t))
     x_step = -(-M // 64) * 64 * kc * x_item
     w_step = -(-M // 128) * kc * bn_t * w_item
-    return dict(kc=kc, bn=bn_t, tma_bytes=steps * (x_step + w_step))
+    return dict(kc=kc, bn=bn_t, coarse=plan.coarse,
+                tma_bytes=steps * (x_step + w_step))
+
+
+def _other_plans(bs, dt, block, K, N, plan):
+    """For a block that both routes take (a multiple of 16), the route
+    ``_mm_plan`` did not pick, for the forward and for dX: (label, plan,
+    dX's plan), or None."""
+    block_plan = bs._block_plan(dt, block, block)
+    if block_plan is None:
+        return None
+    if plan.coarse:
+        return "block", block_plan, block_plan
+    return "coarse", bs._coarse_plan(dt, K, N), bs._coarse_plan(dt, N, K)
+
+
+def check_mm_masked(torch, bs, w, mask, plan, dname):
+    """The coarse route's masked copy of W (``bigdl_bs_mm_mask``) against
+    its plain version on the same W, bit for bit, with NaN in every dead
+    block; its time, the plain version's, ``torch.where`` (the same
+    function where no padding is needed, bf16) and its bound: W's live
+    elements read once and the padded copy written (2 bytes an element in
+    bf16, 6 in f32)."""
+    live = bs._elementwise_weight_mask(mask, "cuda")
+    poisoned = w.masked_fill(~live, float("nan"))
+    got, ldw, kmajor = bs._mm_masked(poisoned, mask, plan)
+    want = torch.empty_like(got if got.dim() == 3 else got[None])
+    bs._mm_masked_plain(w, mask, want)
+    equal = bool(torch.equal(got if got.dim() == 3 else got[None], want))
+    ms = cuda_ms(lambda: bs._mm_masked(w, mask, plan))
+    dst = torch.empty_like(want)
+    plain_ms = cuda_ms(lambda: bs._mm_masked_plain(w, mask, dst))
+    K, N = w.shape
+    padded = K % plan.kc == 0 and N % plan.bn == 0
+    zero = torch.zeros((), dtype=w.dtype, device="cuda")
+    lib_ms = (cuda_ms(lambda: torch.where(live, w, zero))
+              if dname == "bfloat16" and padded else None)
+    nbytes = int(live.sum().item()) * w.element_size() + want.numel() * 2
+    b_ms, b_by = bound(nbytes, 0.0, dname)
+    return dict(equal_to_plain=equal, max_abs_err=0.0 if equal else math.inf,
+                ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms,
+                bound_by=b_by, ldw=ldw, kmajor=kmajor)
 
 
 def check_block_sparse_mm(torch):
     """K9 against ``_bs_mm_plain`` row by row: the forward, and dX = K9 on
-    (dY, Wᵀ, maskᵀ) with Wᵀ a view that K9 reads in place; NaN in every
-    dead W tile; the route each took.  Times against ``torch.matmul`` on
-    the masked dense W, and on the Hopper route the tile route on the same
-    inputs (K9's first design), forward and dX, and the bytes its TMA
-    boxes request; in f32 the bound of six bf16 products an f32 one (the
-    FMA loop's beside it) and the time of the wrapper's split of W into
-    its pieces, which the kernel's time includes."""
+    (dY, Wᵀ, maskᵀ) with Wᵀ a view (read in place on the block route, its
+    storage copied masked K-major on the coarse route); NaN in every dead
+    W tile; the route each took.  Times against ``torch.matmul`` on the
+    masked dense W; at blocks 16 and 32 the other route on the same
+    inputs too (forward and dX, held to the same limit); the bytes the
+    TMA boxes request; on the coarse route the masked copy of W (bit for
+    bit its plain version; its time is part of the call's); in f32 the
+    bound of six bf16 products an f32 one (the FMA loop's beside it) and,
+    on the block route, the time of the wrapper's split of W into its
+    pieces, which the kernel's time includes."""
     from bigdl_tpu_torch.ops import block_sparse as bs
 
     rows = []
     for label, M, K, N, block, dt in mm_cases(torch):
         x, w, gy, mask = mm_inputs(torch, M, K, N, block, dt)
-        tile_before = bs.LAUNCHES_MM_TILE.count
+        coarse_before = bs.LAUNCHES_MM_COARSE[dt].count
         y = bs._bs_mm_cuda(x, w, mask)
         torch.cuda.synchronize()
         dx = bs._bs_mm_cuda(gy, w.t(), mask.transposed())
         torch.cuda.synchronize()
-        route = ("tile" if bs.LAUNCHES_MM_TILE.count > tile_before
-                 else "hopper")
+        route = ("coarse" if bs.LAUNCHES_MM_COARSE[dt].count > coarse_before
+                 else "block")
         dname = str(dt).split(".")[-1]
         tol = ROW_TOL[dname]
         y_ref = bs._bs_mm_plain(x, w, mask)
+        dx_ref = bs._bs_mm_plain(gy, w.t(), mask.transposed())
         rel = {"y": row_rel_err(torch, y, y_ref),
-               "dx": row_rel_err(torch, dx, bs._bs_mm_plain(
-                   gy, w.t(), mask.transposed()))}
+               "dx": row_rel_err(torch, dx, dx_ref)}
         err = (y.float() - y_ref.float()).abs().max().item()
-        del y_ref
         live = bs._elementwise_weight_mask(mask, "cuda")
         poisoned = bs._bs_mm_cuda(x, w.masked_fill(~live, float("nan")),
                                   mask)
         poison_ok = bool(torch.isfinite(poisoned.float()).all()) and bool(
             torch.equal(poisoned, y))
         # the route _mm_plan gives the case's blocks
-        want_route = "hopper" if bs._mm_plan(dt, block, block) else "tile"
+        plan = bs._mm_plan(dt, block, block, K, N)
+        want_route = "coarse" if plan.coarse else "block"
         ok = max(rel.values()) <= tol and poison_ok and route == want_route
         w_dense = torch.where(live, w, torch.zeros((), dtype=dt,
                                                    device="cuda"))
@@ -1494,46 +1555,62 @@ def check_block_sparse_mm(torch):
         lib_ms = cuda_ms(lambda: torch.matmul(x, w_dense))
         item = x.element_size()
         nnz = mask.nnz * mask.block_q * mask.block_k
-        rate = ("float32_split_mm" if dname == "float32" and route == "hopper"
-                else dname)
+        rate = "float32_split_mm" if dname == "float32" else dname
         nbytes, flops = item * (M * K + nnz + M * N), 2.0 * M * nnz
         b_ms, b_by = bound(nbytes, flops, rate)
         row = dict(case=label, shape=[M, K, N], block=block, dtype=dname,
                    route=route, density=mask.density, row_rel_err=rel,
-                   max_abs_err=err, tol=tol, nan_poison_ok=poison_ok, ok=ok,
+                   max_abs_err=err, tol=tol, nan_poison_ok=poison_ok,
                    ms=ms, dx_ms=dx_ms, plain_ms=plain_ms, library_ms=lib_ms,
-                   bound_ms=b_ms, bound_by=b_by, bound_rate=rate)
-        extra = ""
-        if route == "hopper":
-            row["tile_route_ms"] = cuda_ms(
-                lambda: bs._launch_mm(x, w, mask, None), iters=5)
-            row["tile_route_dx_ms"] = cuda_ms(
-                lambda: bs._launch_mm(gy, w.t(), mask.transposed(), None),
-                iters=5)
-            row["boxes"] = mm_boxes(M, K, N, mask, dt)
-            row["boxes_dx"] = mm_boxes(M, N, K, mask.transposed(), dt)
-            extra = (f" tile route {row['tile_route_ms']:.4f} ms (dX "
-                     f"{row['tile_route_dx_ms']:.4f}); KC "
-                     f"{row['boxes']['kc']} BN {row['boxes']['bn']}, TMA "
-                     f"boxes {row['boxes']['tma_bytes'] / 1e6:.1f} MB "
-                     f"({row['boxes']['tma_bytes'] / ms / 1e9:.2f} TB/s), "
-                     f"dX {row['boxes_dx']['tma_bytes'] / 1e6:.1f} MB "
-                     f"({row['boxes_dx']['tma_bytes'] / dx_ms / 1e9:.2f} "
-                     f"TB/s)")
-            if dname == "float32":
-                row["fma_bound_ms"] = bound(nbytes, flops, "float32")[0]
+                   bound_ms=b_ms, bound_by=b_by, bound_rate=rate,
+                   boxes=mm_boxes(M, K, N, mask, dt),
+                   boxes_dx=mm_boxes(M, N, K, mask.transposed(), dt))
+        extra = (f" KC {row['boxes']['kc']} BN {row['boxes']['bn']}, TMA "
+                 f"boxes {row['boxes']['tma_bytes'] / 1e6:.1f} MB "
+                 f"({row['boxes']['tma_bytes'] / ms / 1e9:.2f} TB/s), dX "
+                 f"{row['boxes_dx']['tma_bytes'] / 1e6:.1f} MB "
+                 f"({row['boxes_dx']['tma_bytes'] / dx_ms / 1e9:.2f} TB/s)")
+        other = _other_plans(bs, dt, block, K, N, plan)
+        if other is not None:
+            name, o_plan, o_dx_plan = other
+            o_rel = max(
+                row_rel_err(torch, bs._launch_mm(x, w, mask, o_plan), y_ref),
+                row_rel_err(torch, bs._launch_mm(
+                    gy, w.t(), mask.transposed(), o_dx_plan), dx_ref))
+            row["other_route"] = dict(
+                route=name, kc=o_plan.kc, bn=o_plan.bn, row_rel_err=o_rel,
+                ms=cuda_ms(lambda: bs._launch_mm(x, w, mask, o_plan)),
+                dx_ms=cuda_ms(lambda: bs._launch_mm(
+                    gy, w.t(), mask.transposed(), o_dx_plan)),
+                boxes=mm_boxes(M, K, N, mask, dt, o_plan))
+            ok = ok and o_rel <= tol
+            o = row["other_route"]
+            extra += (f"; the {name} route (KC {o['kc']} BN {o['bn']}) "
+                      f"{o['ms']:.4f} ms, dX {o['dx_ms']:.4f}, row err "
+                      f"{o_rel:.3e}")
+        if route == "coarse":
+            row["masked_w"] = check_mm_masked(torch, bs, w, mask, plan, dname)
+            m = row["masked_w"]
+            ok = ok and m["equal_to_plain"]
+            extra += (f"; masked copy of W {m['ms']:.4f} ms (in the call; "
+                      f"plain {m['plain_ms']:.4f}, bound {m['bound_ms']:.4f},"
+                      f" equal to plain: {m['equal_to_plain']})")
+        if dname == "float32":
+            row["fma_bound_ms"] = bound(nbytes, flops, "float32")[0]
+            extra += f"; FMA bound {row['fma_bound_ms']:.4f} ms"
+            if route == "block":
                 row["split_w_ms"] = cuda_ms(lambda: bs._mm_pieces(w))
-                extra += (f"; FMA bound {row['fma_bound_ms']:.4f} ms, W's "
-                          f"split {row['split_w_ms']:.4f} ms")
+                extra += f", W's split {row['split_w_ms']:.4f} ms"
+        row["ok"] = ok
         rows.append(row)
         print(f"K9 block_sparse_mm {label:>12} {dname:>8} {route:>6} route "
               f"row err y {rel['y']:.3e} dx {rel['dx']:.3e} (tol {tol:g}) "
               f"NaN in dead tiles ignored: {poison_ok} | kernel {ms:.4f} ms "
-              f"(dX on W in place {dx_ms:.4f}) plain {plain_ms:.4f} ms "
+              f"(dX {dx_ms:.4f}) plain {plain_ms:.4f} ms "
               f"matmul(x, W*mask) {lib_ms:.4f} ms bound {b_ms:.4f} ms "
-              f"({b_by}){extra} (want the {want_route} route) "
+              f"({b_by});{extra} (want the {want_route} route) "
               f"{'OK' if ok else 'FAIL'}")
-        del x, w, gy, y, dx, poisoned, w_dense
+        del x, w, gy, y, dx, poisoned, w_dense, y_ref, dx_ref
         torch.cuda.empty_cache()
     return rows
 
@@ -2186,17 +2263,21 @@ def train_blocksparse(torch):
         step_ratio_vs_flash=step_ms / flash_ms), failures
 
 
-def matmul_entry(torch, dt):
+def matmul_entry(torch, dt, block=MM_BLOCK):
     """Phase 7: ``block_sparse_matmul`` at the flagship MLP shape in ``dt``
-    under autograd, 3 forward+backward passes (phase 3's inputs): 6 K9
-    launches, all on the Hopper route (in f32 on split products)."""
+    under autograd, 3 forward+backward passes (phase 3's inputs, a
+    magnitude mask at ``block``): 6 K9 launches, at the MLP's block 128
+    all on the block route (in f32 on split products), at block 8 all on
+    the coarse route, each after one masked copy of W."""
     from bigdl_tpu_torch.ops import block_sparse as bs
 
     failures = []
     dname = str(dt).split(".")[-1]
-    x, w, gy, mask = mm_inputs(torch, *MM_SHAPE, MM_BLOCK, dt)
+    x, w, gy, mask = mm_inputs(torch, *MM_SHAPE, block, dt)
     xl, wl = x.clone().requires_grad_(), w.clone().requires_grad_()
-    for counter in (bs.LAUNCHES_MM, bs.LAUNCHES_MM_TILE, bs.LAUNCHES_MM_F32):
+    counters = {name: c for name, c in launch_counters().items()
+                if name.startswith("block_sparse_mm")}
+    for counter in counters.values():
         counter.reset()
     t0 = time.perf_counter()
     outs = []
@@ -2206,8 +2287,16 @@ def matmul_entry(torch, dt):
         outs.append((y.detach(), dx, dw))
     torch.cuda.synchronize()
     wall_s = time.perf_counter() - t0
-    launches, tile, split = (bs.LAUNCHES_MM.count, bs.LAUNCHES_MM_TILE.count,
-                             bs.LAUNCHES_MM_F32.count)
+    counts = {name: c.count for name, c in counters.items()}
+    coarse = bool(bs._mm_plan(dt, block, block, *w.shape).coarse)
+    split = "f32" if dt == torch.float32 else "bf16"
+    want = {name: 0 for name in counts}
+    want["block_sparse_mm"] = 6
+    if coarse:
+        want[f"block_sparse_mm coarse {split}"] = 6
+        want["block_sparse_mm masked W"] = 6
+    elif dt == torch.float32:
+        want["block_sparse_mm f32"] = 6
     live = bs._elementwise_weight_mask(mask, "cuda")
     dead_zero = all(not bool(o[2][~live].any()) for o in outs)
     same = all(torch.equal(o[0], outs[0][0]) and torch.equal(o[1], outs[0][1])
@@ -2217,28 +2306,24 @@ def matmul_entry(torch, dt):
     rel_dx = row_rel_err(torch, dx, bs._bs_mm_plain(
         gy, w.t(), mask.transposed()))
     tol = ROW_TOL[dname]
-    want_split = 6 if dt == torch.float32 else 0
+    route = "coarse" if coarse else "block"
     print(f"matmul path: block_sparse_matmul x {tuple(x.shape)} W "
           f"{tuple(w.shape)} {dname}, {mask}: 3 forward+backward passes, "
-          f"{launches} K9 launches (want 6), {tile} on the tile route (want "
-          f"0), {split} on split products (want {want_split}), dW zero on "
-          f"every dead tile: {dead_zero}, passes equal: "
+          f"launches {counts} (want {want}: all on the {route} route), dW "
+          f"zero on every dead tile: {dead_zero}, passes equal: "
           f"{same}; row err y {rel_y:.3e} dx {rel_dx:.3e} (tol {tol:g}); "
           f"{wall_s * 1e3:.1f} ms")
-    if launches != 6 or tile != 0 or split != want_split:
-        failures.append(f"block_sparse_matmul {dname} launched K9 {launches} "
-                        f"times in 3 passes, {tile} on the tile route, "
-                        f"{split} on split products; want 6, all on the "
-                        f"Hopper route, {want_split} on split products")
+    if counts != want:
+        failures.append(f"block_sparse_matmul {dname} at block {block} "
+                        f"launched {counts} in 3 passes; want {want}")
     if not (dead_zero and same and rel_y <= tol and rel_dx <= tol):
-        failures.append(f"block_sparse_matmul {dname}: dead dW zero "
-                        f"{dead_zero}, passes equal {same}, row err "
+        failures.append(f"block_sparse_matmul {dname} at block {block}: dead "
+                        f"dW zero {dead_zero}, passes equal {same}, row err "
                         f"{rel_y:.3e} / {rel_dx:.3e}")
     del x, w, gy, xl, wl, outs, y, dx, dw
     torch.cuda.empty_cache()
-    return dict(shape=list(MM_SHAPE), block=MM_BLOCK, density=MM_DENSITY,
-                dtype=dname, passes=3, launches=launches,
-                tile_route_launches=tile, split_launches=split,
+    return dict(shape=list(MM_SHAPE), block=block, density=MM_DENSITY,
+                dtype=dname, route=route, passes=3, launches=counts,
                 dead_tile_dw_zero=dead_zero,
                 passes_equal=same, row_rel_err_y=rel_y,
                 row_rel_err_dx=rel_dx, wall_ms=wall_s * 1e3), failures
@@ -2727,7 +2812,9 @@ def profile_resnet(torch):
 # their counters (a kernel's name, then the tag)
 VARIANT_CASES = {"f32_D192": "f32 D 192", "f32_D256": "f32 D 256",
                  "wide_D320": "bf16 D > 256", "wide_f32_D320": "f32 D > 256",
-                 "mlp_f32": "f32"}
+                 "mlp_f32": "f32", "block8_bf16": "coarse bf16",
+                 "block8_f32": "coarse f32",
+                 "block8_bf16 masked W": "masked W"}
 
 
 def main(argv=None) -> int:
@@ -2847,12 +2934,14 @@ def main(argv=None) -> int:
     failures += bs_failures
 
     # phase 7: the block-sparse matmul through its entry point, bf16 and
-    # f32
+    # f32, at the MLP's block 128 (the block route) and at block 8 (the
+    # coarse route)
     mm_paths = []
-    for dt in (torch.bfloat16, torch.float32):
-        mm_path, mm_failures = matmul_entry(torch, dt)
-        mm_paths.append(mm_path)
-        failures += mm_failures
+    for block in (MM_BLOCK, 8):
+        for dt in (torch.bfloat16, torch.float32):
+            mm_path, mm_failures = matmul_entry(torch, dt, block)
+            mm_paths.append(mm_path)
+            failures += mm_failures
 
     # phase 8: the ResNet-50 training path
     resnet, resnet_failures = train_resnet50(torch)
@@ -2863,9 +2952,8 @@ def main(argv=None) -> int:
                 + trained["launches"][n] + bs_trained["launches"][n]
                 + resnet["launches"][n] for n in launch_counters()}
     for mm_path in mm_paths:
-        launches["block_sparse_mm"] += mm_path["launches"]
-        launches["block_sparse_mm_tile"] += mm_path["tile_route_launches"]
-        launches["block_sparse_mm f32"] += mm_path["split_launches"]
+        for name, n in mm_path["launches"].items():
+            launches[name] += n
     bs_row = bs_rows[0]
     rows = {"flash_fwd": dict(flash_rows[0]),
             "layer_norm_fwd": dict(ln_rows[0]),
@@ -2924,7 +3012,9 @@ def main(argv=None) -> int:
             (kernels[2], [dict(r, **r["dq"]) for r in bwd_rows]),
             *((kernels[i], [bs_pass(r, p) for r in bs_rows if p in r])
               for i, p in ((4, "fwd"), (5, "dkv"), (6, "dq"))),
-            (kernels[7], mm_rows)):
+            (kernels[7], mm_rows + [
+                dict(r["masked_w"], case=f"{r['case']} masked W")
+                for r in mm_rows if "masked_w" in r])):
         kernel["variants"] = [dict(
             name=name, route="cuda", source=kernel["source"],
             replaces=kernel["replaces"], launches=launches[name],

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
-"""Where K9's Hopper route spends its time, on one GPU.
+"""Where K9 spends its time, on one GPU.
 
-    python3 k9_variants.py [--f32 | --routes CHECKOUT]
+    python3 k9_variants.py [--f32 | --coarse | --routes CHECKOUT]
 
 Builds ``bigdl_tpu_torch/ops/csrc/block_sparse.cu`` as it stands and
 variants of it, each a text patch of the source that leaves one part of
@@ -20,22 +20,30 @@ and dX (W read in place), by CUDA-graph replay (``chip_smoke.cuda_ms``),
 the unpatched build first and last.  A variant's output is wrong by
 construction; the unpatched build is held against the plain version.
 
-With ``--f32`` it does the same for the f32 route (split products) at
-the same shape in f32: the plans (KC, BN) the route is built for, 32 or
-16 by 128 or 64, on the shipped build (each forward and dX, the split of
-W into its pieces included), the variants ``f32_no_products`` (the
-consumers split the x boxes and add their partials but issue no wgmma)
-and ``f32_stages_3`` (a ring of three stages), the tile route, the split
-of W alone and ``matmul(x, W∘mask)``.
+With ``--f32`` it does the same for the f32 block route (split
+products) at the same shape in f32: the plans (KC, BN) the route is built
+for, 32 or 16 by 128 or 64, on the shipped build (each forward and dX,
+the split of W into its pieces included), the variants
+``f32_no_products`` (the consumers split the x boxes and add their
+partials but issue no wgmma) and ``f32_stages_3`` (a ring of three
+stages), the split of W alone and ``matmul(x, W∘mask)``.
+
+With ``--coarse`` it times the coarse route at block 8 (x 4096 x 1024, W
+1024 x 1024, density 0.5, phase 3's ``block8`` cases) in both dtypes on
+each coarse tile (KC, BN) it is built for (``COARSE_PLANS``; forward and
+dX, the masked copy of W included), the masked copy alone and
+``matmul(x, W∘mask)``; then both routes at blocks 32, 64, 128 and 256
+(``ROUTE_BLOCKS``), at that shape and the MLP shape, in both dtypes:
+where ``_mm_plan``'s rule (``MM_BLOCK_ROUTE``) comes from.
 
 With ``--routes CHECKOUT`` it times K9 of CHECKOUT's package (default:
-this one) at the same shape, forward and dX, in bf16 and in f32, on the
-route that checkout gives each, the f32 tile route and
-``matmul(x, W∘mask)`` in both dtypes beside them: run parent, change,
+this one), forward and dX, in bf16 and in f32, at the same MLP shape and
+at block 8 (phase 3's ``block8`` shape), on the route that checkout
+gives each, with ``matmul(x, W∘mask)`` beside them: run parent, change,
 change, parent in one call to compare two versions.
 
 Prints the times, a JSON line of them (also written to
-``chiprun_out/k9_variants[_f32|_routes].json``) and the card's name and
+``chiprun_out/k9_variants[_f32|_coarse|_routes].json``) and the card's name and
 power limit; exits non-zero without a CUDA device.
 """
 import ctypes
@@ -71,6 +79,14 @@ F32_VARIANTS = {"f32_no_products": [(F32_PRODUCTS, "")],
 #: the f32 route's plans (KC, BN) timed at the MLP shape, the shipped one
 #: (``_mm_plan``) first
 F32_PLANS = ((32, 128), (32, 64), (16, 128), (16, 64))
+#: the coarse route's tiles (KC, BN) timed at block 8, by dtype, the
+#: largest (``MM_COARSE_TILE``) first
+COARSE_PLANS = {"bfloat16": ((64, 128), (64, 64), (32, 128), (32, 64)),
+                "float32": ((32, 128), (32, 64), (16, 128), (16, 64))}
+#: phase 3's block-8 shape: x (M, K), W (K, N), the block
+BLOCK8 = (4096, 1024, 1024, 8)
+#: the blocks ``--coarse`` times on both routes
+ROUTE_BLOCKS = (32, 64, 128, 256)
 
 
 def build(name, patches):
@@ -130,7 +146,7 @@ def bf16_variants(torch, cs, bs, _support):
 def f32_variants(torch, cs, bs, _support):
     """The f32 route's variants (``F32_VARIANTS``, the shipped build
     first and last), its plans (``F32_PLANS``) on the shipped build, the
-    tile route, the split of W and ``matmul(x, W∘mask)``."""
+    split of W and ``matmul(x, W∘mask)``."""
     libs = {"as_shipped": _support.load_cuda_library("block_sparse")}
     with ThreadPoolExecutor(max_workers=len(F32_VARIANTS)) as pool:
         built = {n: pool.submit(build, n, p) for n, p in F32_VARIANTS.items()}
@@ -155,11 +171,10 @@ def f32_variants(torch, cs, bs, _support):
                                                         mask.transposed())))
     finally:
         _support._LIBS["block_sparse"] = libs["as_shipped"]
-    for plan in (*F32_PLANS, None):
-        record(f"plan {plan}" if plan else "tile route", *_timed(
+    for plan in map(bs.MmPlan._make, F32_PLANS):
+        record(f"plan {tuple(plan[:2])}", *_timed(
             cs, lambda: bs._launch_mm(x, w, mask, plan),
-            lambda: bs._launch_mm(gy, w.t(), mask.transposed(), plan),
-            iters=20 if plan else 5))
+            lambda: bs._launch_mm(gy, w.t(), mask.transposed(), plan)))
     live = bs._elementwise_weight_mask(mask, "cuda")
     w_dense = torch.where(live, w, torch.zeros((), device="cuda"))
     extra = dict(split_w_ms=cs.cuda_ms(lambda: bs._mm_pieces(w)),
@@ -169,40 +184,131 @@ def f32_variants(torch, cs, bs, _support):
     return dict(row_rel_err=err, times=times, **extra)
 
 
-def routes(torch, cs, bs):
-    """K9 of the imported package in bf16 and f32 on the route it takes
-    at the MLP shape, the f32 tile route and ``matmul(x, W∘mask)``."""
+def coarse_plans(torch, cs, bs):
+    """The coarse route at block 8 in both dtypes on each of
+    ``COARSE_PLANS`` (forward and dX, each plan for the forward's W (K, N)
+    and dX's Wᵀ (N, K) alike, as the shape is square), the masked copy of
+    W alone on the shipped plan, and ``matmul(x, W∘mask)``; every plan's
+    output held against the plain version."""
+    M, K, N, block = BLOCK8
     out = {}
     for dt in (torch.bfloat16, torch.float32):
         dname = str(dt).split(".")[-1]
-        x, w, gy, mask = cs.mm_inputs(torch, *cs.MM_SHAPE, cs.MM_BLOCK, dt)
-        tile_before = bs.LAUNCHES_MM_TILE.count
-        err = cs.row_rel_err(torch, bs._bs_mm_cuda(x, w, mask),
-                             bs._bs_mm_plain(x, w, mask))
-        route = ("tile" if bs.LAUNCHES_MM_TILE.count > tile_before
-                 else "hopper")
-        fwd, dx = _timed(cs, lambda: bs._bs_mm_cuda(x, w, mask),
-                         lambda: bs._bs_mm_cuda(gy, w.t(),
-                                                mask.transposed()))
+        x, w, gy, mask = cs.mm_inputs(torch, M, K, N, block, dt)
+        ref = bs._bs_mm_plain(x, w, mask)
+        rows = {}
+        for kc, bn in COARSE_PLANS[dname]:
+            plan = bs.MmPlan(kc, bn, True)
+            err = cs.row_rel_err(torch, bs._launch_mm(x, w, mask, plan), ref)
+            if err > cs.ROW_TOL[dname]:
+                raise RuntimeError(f"{dname} plan {(kc, bn)}: row err "
+                                   f"{err:.3e}")
+            fwd, dx = _timed(cs, lambda: bs._launch_mm(x, w, mask, plan),
+                             lambda: bs._launch_mm(gy, w.t(),
+                                                   mask.transposed(), plan))
+            rows[f"{kc}x{bn}"] = dict(fwd_ms=fwd, dx_ms=dx, row_rel_err=err)
+            print(f"K9 coarse {dname:>8} plan ({kc:3d}, {bn:3d}): forward "
+                  f"{fwd:.4f} ms, dX {dx:.4f} ms, row err {err:.3e}")
+        plan = bs._mm_plan(dt, block, block, K, N)
         live = bs._elementwise_weight_mask(mask, "cuda")
         w_dense = torch.where(live, w, torch.zeros((), dtype=dt,
                                                    device="cuda"))
-        row = dict(route=route, row_rel_err=err, fwd_ms=fwd, dx_ms=dx,
-                   library_ms=cs.cuda_ms(lambda: torch.matmul(x, w_dense)))
-        if dt == torch.float32:
-            row["tile_fwd_ms"], row["tile_dx_ms"] = _timed(
-                cs, lambda: bs._launch_mm(x, w, mask, None),
-                lambda: bs._launch_mm(gy, w.t(), mask.transposed(), None),
-                iters=5)
-        out[dname] = row
-        print(f"K9 {dname:>8} {route:>6} route: forward {fwd:.4f} ms, dX "
-              f"{dx:.4f} ms, row err {err:.3e}, matmul(x, W*mask) "
-              f"{row['library_ms']:.4f} ms"
-              + (f"; tile route {row['tile_fwd_ms']:.4f}, dX "
-                 f"{row['tile_dx_ms']:.4f} ms" if "tile_fwd_ms" in row
-                 else ""))
-        del x, w, gy, w_dense
+        out[dname] = dict(
+            plans=rows, shipped=[plan.kc, plan.bn],
+            masked_w_ms=cs.cuda_ms(lambda: bs._mm_masked(w, mask, plan)),
+            library_ms=cs.cuda_ms(lambda: torch.matmul(x, w_dense)))
+        print(f"K9 coarse {dname:>8} masked copy of W "
+              f"{out[dname]['masked_w_ms']:.4f} ms, matmul(x, W*mask) "
+              f"{out[dname]['library_ms']:.4f} ms")
+        del x, w, gy, w_dense, ref
         torch.cuda.empty_cache()
+    out["blocks"] = route_blocks(torch, cs, bs)
+    return out
+
+
+def route_blocks(torch, cs, bs):
+    """Both routes at each of ``ROUTE_BLOCKS``, at phase 3's block-8 shape
+    and the MLP shape, in both dtypes (forward and dX; the block route's
+    plan from ``_block_plan``, the coarse route's from ``_coarse_plan``
+    for the forward's W and dX's Wᵀ), each held against the plain
+    version."""
+    rows = []
+    for M, K, N in (BLOCK8[:3], cs.MM_SHAPE):
+        for block in ROUTE_BLOCKS:
+            for dt in (torch.bfloat16, torch.float32):
+                dname = str(dt).split(".")[-1]
+                x, w, gy, mask = cs.mm_inputs(torch, M, K, N, block, dt)
+                ref = bs._bs_mm_plain(x, w, mask)
+                bp = bs._block_plan(dt, block, block)
+                row = dict(shape=[M, K, N], block=block, dtype=dname,
+                           taken="coarse" if bs._mm_plan(
+                               dt, block, block, K, N).coarse else "block")
+                for name, plan, dx_plan in (
+                        ("block", bp, bp),
+                        ("coarse", bs._coarse_plan(dt, K, N),
+                         bs._coarse_plan(dt, N, K))):
+                    err = cs.row_rel_err(
+                        torch, bs._launch_mm(x, w, mask, plan), ref)
+                    if err > cs.ROW_TOL[dname]:
+                        raise RuntimeError(f"{name} route at block {block} "
+                                           f"{dname}: row err {err:.3e}")
+                    row[name] = dict(zip(("fwd_ms", "dx_ms"), _timed(
+                        cs, lambda: bs._launch_mm(x, w, mask, plan),
+                        lambda: bs._launch_mm(gy, w.t(), mask.transposed(),
+                                              dx_plan))), kc=plan.kc,
+                                     bn=plan.bn)
+                rows.append(row)
+                b, c = row["block"], row["coarse"]
+                print(f"K9 {M}x{K}x{N} block {block:3d} {dname:>8}: block "
+                      f"route {b['fwd_ms']:.4f} ms, dX {b['dx_ms']:.4f}; "
+                      f"coarse {c['fwd_ms']:.4f}, dX {c['dx_ms']:.4f} "
+                      f"(_mm_plan takes the {row['taken']} route)")
+                del x, w, gy, ref
+                torch.cuda.empty_cache()
+    return rows
+
+
+def _route_counts(bs, dt):
+    """(launches off the route over the mask's blocks, by name) of the
+    imported package: its tile route where it has one, else its coarse
+    route in ``dt``."""
+    counters = [getattr(bs, "LAUNCHES_MM_TILE", None),
+                getattr(bs, "LAUNCHES_MM_COARSE", {}).get(dt)]
+    return {c.name: c.count for c in counters if c is not None}
+
+
+def routes(torch, cs, bs):
+    """K9 of the imported package in bf16 and f32 at the MLP shape and at
+    block 8, on the route it takes there, and ``matmul(x, W∘mask)``."""
+    out = {}
+    M, K, N, block = BLOCK8
+    for shape, blk, tag in ((cs.MM_SHAPE, cs.MM_BLOCK, "mlp"),
+                            ((M, K, N), block, "block8")):
+        for dt in (torch.bfloat16, torch.float32):
+            dname = str(dt).split(".")[-1]
+            x, w, gy, mask = cs.mm_inputs(torch, *shape, blk, dt)
+            before = _route_counts(bs, dt)
+            err = cs.row_rel_err(torch, bs._bs_mm_cuda(x, w, mask),
+                                 bs._bs_mm_plain(x, w, mask))
+            after = _route_counts(bs, dt)
+            route = next((name for name in after
+                          if after[name] > before[name]), "block")
+            fwd, dx = _timed(cs, lambda: bs._bs_mm_cuda(x, w, mask),
+                             lambda: bs._bs_mm_cuda(gy, w.t(),
+                                                    mask.transposed()),
+                             iters=5 if "tile" in route else 20)
+            live = bs._elementwise_weight_mask(mask, "cuda")
+            w_dense = torch.where(live, w, torch.zeros((), dtype=dt,
+                                                       device="cuda"))
+            row = dict(route=route, row_rel_err=err, fwd_ms=fwd, dx_ms=dx,
+                       library_ms=cs.cuda_ms(lambda: torch.matmul(x,
+                                                                  w_dense)))
+            out[f"{tag}_{dname}"] = row
+            print(f"K9 {tag:>6} {dname:>8} route {route}: forward "
+                  f"{fwd:.4f} ms, dX {dx:.4f} ms, row err {err:.3e}, "
+                  f"matmul(x, W*mask) {row['library_ms']:.4f} ms")
+            del x, w, gy, w_dense
+            torch.cuda.empty_cache()
     return out
 
 
@@ -216,6 +322,8 @@ def main(argv=None) -> int:
     mode = ap.add_mutually_exclusive_group()
     mode.add_argument("--f32", action="store_true",
                       help="the f32 route's variants and plans")
+    mode.add_argument("--coarse", action="store_true",
+                      help="the coarse route's tiles at block 8")
     mode.add_argument("--routes", nargs="?", const=str(REPO), default=None,
                       metavar="CHECKOUT",
                       help="K9 of CHECKOUT's package in both dtypes")
@@ -248,6 +356,8 @@ def main(argv=None) -> int:
         elif args.f32:
             name, result = "k9_variants_f32", f32_variants(torch, cs, bs,
                                                            _support)
+        elif args.coarse:
+            name, result = "k9_variants_coarse", coarse_plans(torch, cs, bs)
         else:
             name, result = "k9_variants", bf16_variants(torch, cs, bs,
                                                         _support)

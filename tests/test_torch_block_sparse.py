@@ -722,28 +722,63 @@ def test_block_sparse_matmul_strided_layouts_match_pallas_interpret(layout):
     np.testing.assert_allclose(gw.numpy(), np.asarray(jgw), **GRAD_TOL)
 
 
-@pytest.mark.parametrize("dtype,bk,bn,want", [
-    (torch.bfloat16, 128, 128, (64, 128)),   # the flagship MLP's blocks
-    (torch.bfloat16, 32, 32, (32, 32)),
-    (torch.bfloat16, 64, 32, (64, 32)),
-    (torch.bfloat16, 16, 16, (16, 16)),
-    (torch.bfloat16, 48, 80, (16, 16)),      # KC and BN divide the blocks
-    (torch.bfloat16, 96, 192, (32, 64)),
-    (torch.bfloat16, 256, 512, (64, 128)),
-    (torch.bfloat16, 24, 100, None),         # blocks not multiples of 16
-    (torch.bfloat16, 128, 8, None),
+@pytest.mark.parametrize("dtype,bk,bn,K,N,want", [
+    # blocks that are multiples of 64: the block route, KC and BN dividing
+    # the blocks (the flagship MLP's blocks first)
+    (torch.bfloat16, 128, 128, 1024, 4096, (64, 128, False)),
+    (torch.bfloat16, 64, 64, 256, 256, (64, 64, False)),
+    (torch.bfloat16, 64, 192, 192, 384, (64, 64, False)),
+    (torch.bfloat16, 256, 512, 512, 1024, (64, 128, False)),
+    # multiples of 16 below 64 one way or both: the coarse route, KC and
+    # BN dividing K and N (the largest that does)
+    (torch.bfloat16, 32, 32, 256, 256, (64, 128, True)),
+    (torch.bfloat16, 64, 32, 256, 256, (64, 128, True)),
+    (torch.bfloat16, 16, 16, 64, 64, (64, 64, True)),
+    (torch.bfloat16, 48, 80, 96, 160, (32, 32, True)),
+    (torch.bfloat16, 96, 192, 192, 384, (64, 128, True)),
+    # blocks not multiples of 16: coarse tiles, KC and BN dividing K and N
+    # where some do, else covering them (N 200 padded to 256, 60 to 64)
+    (torch.bfloat16, 24, 100, 96, 200, (32, 128, True)),
+    (torch.bfloat16, 128, 8, 256, 64, (64, 64, True)),
+    (torch.bfloat16, 8, 8, 1024, 1024, (64, 128, True)),
+    (torch.bfloat16, 6, 20, 96, 60, (32, 64, True)),
+    (torch.bfloat16, 8, 8, 8, 40, (16, 64, True)),
     # f32 on split products: x boxes of 4-byte elements, KC at most 32
-    (torch.float32, 128, 128, (32, 128)),
+    (torch.float32, 128, 128, 1024, 4096, (32, 128, False)),
+    (torch.float32, 64, 192, 192, 384, (32, 64, False)),
+    (torch.float32, 512, 512, 1024, 1024, (32, 128, False)),
+    (torch.float32, 32, 32, 256, 256, (32, 128, True)),
+    (torch.float32, 48, 80, 96, 160, (32, 32, True)),
+    (torch.float32, 24, 100, 96, 200, (32, 128, True)),
+    (torch.float32, 16, 8, 64, 64, (32, 64, True)),
+    (torch.float32, 8, 8, 1024, 1024, (32, 128, True)),
+    (torch.float32, 6, 20, 96, 60, (32, 64, True)),
+])
+def test_mm_plan_picks_the_route_and_tiles(dtype, bk, bn, K, N, want):
+    """K9's route by shape, in bf16 and in f32 (six bf16 products an f32
+    one): (KC, BN) over the mask's blocks on the block route (blocks that
+    are multiples of 64), or over coarse tiles of the masked W on the
+    coarse route (every other block); forward and dX take one route."""
+    assert P._mm_plan(dtype, bk, bn, K, N) == want
+    assert P._mm_plan(dtype, bn, bk, N, K).coarse == want[2]
+
+
+@pytest.mark.parametrize("dtype,bk,bn,want", [
+    (torch.bfloat16, 32, 32, (32, 32)),
+    (torch.bfloat16, 16, 16, (16, 16)),
+    (torch.bfloat16, 48, 80, (16, 16)),
+    (torch.bfloat16, 96, 192, (32, 64)),
     (torch.float32, 32, 32, (32, 32)),
     (torch.float32, 48, 80, (16, 16)),
-    (torch.float32, 24, 100, None),          # blocks not multiples of 16
-    (torch.float32, 64, 192, (32, 64)),
+    (torch.bfloat16, 24, 100, None),
     (torch.float32, 16, 8, None),
 ])
-def test_mm_plan_picks_the_route_and_tiles(dtype, bk, bn, want):
-    """K9's route by shape: (KC, BN) on the Hopper route, in bf16 and in
-    f32 (six bf16 products an f32 one), None on the tile route."""
-    assert P._mm_plan(dtype, bk, bn) == want
+def test_block_plan_takes_every_multiple_of_16(dtype, bk, bn, want):
+    """The block route can take any blocks that are multiples of 16 (an
+    explicit plan, as phase 3 times blocks 16 and 32 on it): KC and BN
+    the largest built that divide bk and bn; None elsewhere."""
+    got = P._block_plan(dtype, bk, bn)
+    assert (got and tuple(got)) == (want and (*want, False))
 
 
 def _record_mm(monkeypatch):
@@ -754,12 +789,16 @@ def _record_mm(monkeypatch):
     return calls
 
 
+def _coarse_launches():
+    return sum(c.count for c in P.LAUNCHES_MM_COARSE.values())
+
+
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_bs_mm_autograd_reads_w_in_place(monkeypatch, dtype):
     """The forward launches K9 on W as it stands (MN-major) and dX on
     W's own bytes read K-major: no transposed copy of W; a W stored
     (N, K) and viewed ``.t()`` is read K-major in the forward and
-    MN-major in dX.  Both dtypes take the Hopper route; in f32 K9 reads
+    MN-major in dX.  Both dtypes take the block route; in f32 K9 reads
     W's three bf16 pieces, split from W in place and laid out as W's
     storage is (so dX's pieces are W's, not Wᵀ's).  The launches are
     recorded on CPU tensors, not run."""
@@ -772,20 +811,20 @@ def test_bs_mm_autograd_reads_w_in_place(monkeypatch, dtype):
 
     monkeypatch.setattr(P, "_mm_pieces", record_split)
     monkeypatch.setattr(P, "on_cpu", lambda *t: False)
-    mask = P.magnitude_block_mask(np.random.RandomState(3).randn(128, 96),
-                                  32, 32, 0.5)
+    mask = P.magnitude_block_mask(np.random.RandomState(3).randn(128, 192),
+                                  64, 64, 0.5)
     x = torch.randn(24, 128, dtype=dtype, requires_grad=True)
-    for w, fwd_kmajor in ((torch.randn(128, 96, dtype=dtype), 0),
-                          (torch.randn(96, 128, dtype=dtype).t(), 1)):
+    for w, fwd_kmajor in ((torch.randn(128, 192, dtype=dtype), 0),
+                          (torch.randn(192, 128, dtype=dtype).t(), 1)):
         calls.clear()
         split.clear()
         w.requires_grad_()
-        before = (P.LAUNCHES_MM.count, P.LAUNCHES_MM_TILE.count,
+        before = (P.LAUNCHES_MM.count, _coarse_launches(),
                   P.LAUNCHES_MM_F32.count)
         y = P.block_sparse_matmul(x, w, mask)
         torch.autograd.grad(y, (x, w), torch.ones_like(y))
         assert (P.LAUNCHES_MM.count - before[0],
-                P.LAUNCHES_MM_TILE.count - before[1],
+                _coarse_launches() - before[1],
                 P.LAUNCHES_MM_F32.count - before[2]) == (
                     2, 0, 2 if dtype == torch.float32 else 0)
         (fwd_ptrs, fwd_ints), (dx_ptrs, dx_ints) = calls
@@ -807,79 +846,101 @@ def test_bs_mm_autograd_reads_w_in_place(monkeypatch, dtype):
                 assert pieces.is_contiguous()
                 assert torch.equal(pieces.double().sum(0), stored.double())
         pitch = max(w.stride())
-        # ints: L, M, K, N, bk, bn, ldx, ldw, kmajor, kc, bn_tile, dtype
-        assert fwd_ints[1:4] == [24, 128, 96] and dx_ints[1:4] == [24, 96, 128]
-        assert fwd_ints[6:] == [128, pitch, fwd_kmajor, 32, 32,
+        # ints: L, M, K, N, bk, bn, ldx, ldw, kmajor, kc, bn_tile, kx,
+        # nout, ldo, dtype
+        kc = 64 if dtype == torch.bfloat16 else 32
+        assert fwd_ints[1:4] == [24, 128, 192] and dx_ints[1:4] == [24, 192, 128]
+        assert fwd_ints[6:] == [128, pitch, fwd_kmajor, kc, 64, 128, 192, 192,
                                 P._DTYPE_CODE[dtype]]
-        assert dx_ints[6:] == [96, pitch, 1 - fwd_kmajor, 32, 32,
-                               P._DTYPE_CODE[dtype]]
+        assert dx_ints[6:] == [192, pitch, 1 - fwd_kmajor, kc, 64, 192, 128,
+                               128, P._DTYPE_CODE[dtype]]
 
 
 def test_bs_mm_copies_only_what_its_route_cannot_read(monkeypatch):
     """x and W are read in place where their rows are contiguous: a
-    column slice of x keeps its row pitch.  The Hopper route (TMA) copies
-    an x whose start is not 16-byte aligned or whose row pitch is not a
-    multiple of 8 elements; the tile route reads it as it stands.  A W
-    with neither dim contiguous is copied on either route."""
+    column slice of x keeps its row pitch.  Both routes read x through
+    TMA and copy an x whose start is not 16-byte aligned or whose row
+    pitch is not a multiple of 8 elements, into rows padded to such a
+    pitch (x's own columns only reach K9: kx); the coarse route always
+    reads its own masked copy of W.  A W with neither dim contiguous is
+    copied on the block route and read as it stands by the masked
+    copy."""
     calls = _record_mm(monkeypatch)
     mask = P.BlockMask(np.ones((2, 2), bool), 32, 32)
     w = torch.zeros(64, 64, dtype=torch.bfloat16)
+    block, coarse = P.MmPlan(32, 32), P.MmPlan(64, 64, True)
 
-    def cols(pitch, start):   # columns start .. start + 63 of (8, pitch)
-        return torch.zeros(8, pitch, dtype=torch.bfloat16)[:, start:start + 64]
+    def cols(pitch, start, n=64):   # columns start .. start + n - 1 of (8, pitch)
+        return torch.zeros(8, pitch, dtype=torch.bfloat16)[:, start:start + n]
 
     # (x, route, copied, row pitch K9 gets)
-    for x, plan, copied, ldx in ((cols(104, 8), (32, 32), False, 104),
-                                 (cols(100, 8), (32, 32), True, 64),
-                                 (cols(72, 1), (32, 32), True, 64),
-                                 (cols(72, 1), None, False, 72),
-                                 (cols(100, 8), None, False, 100)):
+    for x, plan, copied, ldx in ((cols(104, 8), block, False, 104),
+                                 (cols(100, 8), block, True, 64),
+                                 (cols(72, 1), block, True, 64),
+                                 (cols(72, 1), coarse, True, 64),
+                                 (cols(100, 8), coarse, True, 64),
+                                 (cols(104, 8), coarse, False, 104)):
         calls.clear()
         P._launch_mm(x, w, mask, plan)
         ptrs, ints = calls[0]
         assert (ptrs[0] != x.data_ptr()) == copied
-        assert ints[6] == ldx
+        assert ints[6] == ldx and ints[11] == 64
+        assert (ptrs[1] == w.data_ptr()) == (plan is block)
+    # K 60 (bk 6 and 20-column blocks): 120-byte rows, copied into rows of
+    # 64 elements, of which K9 reads 60; W padded to the coarse tile
     calls.clear()
-    w_strided = torch.zeros(128, 128, dtype=torch.bfloat16)[::2, ::2]
-    P._launch_mm(torch.zeros(8, 64, dtype=torch.bfloat16), w_strided, mask,
-                 (32, 32))
+    x = torch.ones(8, 60, dtype=torch.bfloat16)
+    mask6 = P.BlockMask(np.ones((10, 3), bool), 6, 20)
+    P._launch_mm(x, torch.ones(60, 60, dtype=torch.bfloat16), mask6,
+                 P._mm_plan(torch.bfloat16, 6, 20, 60, 60))
     ptrs, ints = calls[0]
-    assert ptrs[1] != w_strided.data_ptr() and ints[7:9] == [64, 0]
+    assert ptrs[0] != x.data_ptr() and ints[6] == 64
+    assert ints[2:6] == [64, 64, 64, 64] and ints[9:14] == [64, 64, 60, 60, 64]
+    for plan in (block, coarse):
+        calls.clear()
+        w_strided = torch.zeros(128, 128, dtype=torch.bfloat16)[::2, ::2]
+        P._launch_mm(torch.zeros(8, 64, dtype=torch.bfloat16), w_strided,
+                     mask, plan)
+        ptrs, ints = calls[0]
+        assert ptrs[1] != w_strided.data_ptr() and ints[7:9] == [64, 0]
 
 
 def test_bs_mm_f32_copies_only_what_its_route_cannot_read(monkeypatch):
-    """The f32 Hopper route reads x through TMA in f32: in place where
-    its row pitch is a multiple of 4 elements and its start 16-byte
-    aligned, else a contiguous copy; W is never handed over as it is but
-    as its three bf16 pieces, split from W's own bytes (a W with neither
-    dim contiguous is split as it stands: no copy before the split), with
-    the pieces' row pitch.  The tile route reads both in place."""
+    """The f32 routes read x through TMA in f32: in place where its row
+    pitch is a multiple of 4 elements and its start 16-byte aligned, else
+    a copy with rows padded to such a pitch; W is never handed over as it
+    is but as its three bf16 pieces (the block route's split from W's own
+    bytes, the coarse route's masked copy), with the pieces' row pitch; a
+    W with neither dim contiguous is split as it stands: no copy before
+    the split."""
     calls = _record_mm(monkeypatch)
     mask = P.BlockMask(np.ones((2, 2), bool), 32, 32)
     w = torch.randn(64, 64)
+    block, coarse = P.MmPlan(32, 32), P.MmPlan(32, 64, True)
 
     def cols(pitch, start):   # columns start .. start + 63 of (8, pitch)
         return torch.zeros(8, pitch)[:, start:start + 64]
 
     # (x, route, copied, row pitch K9 gets)
-    for x, plan, copied, ldx in ((cols(100, 8), (32, 32), False, 100),
-                                 (cols(98, 8), (32, 32), True, 64),
-                                 (cols(72, 1), (32, 32), True, 64),
-                                 (cols(72, 1), None, False, 72),
-                                 (cols(98, 8), None, False, 98)):
+    for x, plan, copied, ldx in ((cols(100, 8), block, False, 100),
+                                 (cols(98, 8), block, True, 64),
+                                 (cols(72, 1), block, True, 64),
+                                 (cols(72, 1), coarse, True, 64),
+                                 (cols(98, 8), coarse, True, 64),
+                                 (cols(100, 8), coarse, False, 100)):
         calls.clear()
         P._launch_mm(x, w, mask, plan)
         ptrs, ints = calls[0]
         assert (ptrs[0] != x.data_ptr()) == copied
         assert ints[6] == ldx
-        assert (ptrs[1] == w.data_ptr()) == (plan is None)
+        assert ptrs[1] != w.data_ptr()
     split = []
     pieces_of = P._mm_pieces
     monkeypatch.setattr(P, "_mm_pieces",
                         lambda t: split.append(t) or pieces_of(t))
     calls.clear()
     w_strided = torch.randn(128, 128)[::2, ::2]
-    P._launch_mm(torch.zeros(8, 64), w_strided, mask, (32, 32))
+    P._launch_mm(torch.zeros(8, 64), w_strided, mask, block)
     ptrs, ints = calls[0]
     (src,) = split
     assert src.data_ptr() == w_strided.data_ptr()
@@ -895,7 +956,7 @@ def test_bs_mm_casts_w_to_x_dtype_before_the_split(monkeypatch):
     pieces_of = P._mm_pieces
     monkeypatch.setattr(P, "_mm_pieces",
                         lambda t: split.append(pieces_of(t)) or split[-1])
-    mask = P.BlockMask(np.ones((2, 2), bool), 32, 32)
+    mask = P.BlockMask(np.ones((1, 1), bool), 64, 64)
     x = torch.randn(16, 64)
     w = torch.randn(64, 64).bfloat16()
     y = P._bs_mm_cuda(x, w, mask)
@@ -903,8 +964,143 @@ def test_bs_mm_casts_w_to_x_dtype_before_the_split(monkeypatch):
     (pieces,) = split
     assert y.dtype == torch.float32 and ptrs[0] == x.data_ptr()
     assert ptrs[1] == pieces.data_ptr() and ints[-1] == P._DTYPE_CODE[x.dtype]
-    assert ints[9:11] == [32, 32]
+    assert ints[9:11] == [32, 64]
     assert torch.equal(pieces[0], w) and not pieces[1:].any()
+
+
+@pytest.mark.parametrize("shape", [
+    # (K, N, bk, bn, kc, bn_tile): blocks that divide the tile, blocks
+    # that straddle its edges (bk 24 under KC 64, bk 6 x bn 20), tiles
+    # reaching past K and N, one coarse tile
+    (1024, 1024, 8, 8, 64, 128),
+    (240, 200, 24, 40, 64, 64),
+    (96, 60, 6, 20, 32, 64),
+    (90, 100, 6, 20, 16, 32),
+    (40, 30, 8, 10, 64, 128),
+])
+def test_coarse_grid_is_the_or_of_the_elementwise_mask(shape):
+    """The coarse route's tile grid: a (KC, BN) tile of W is live iff an
+    element in it is live, the tiles laid from W's corner whatever the
+    mask's blocks (brute force over the elementwise mask, zero-padded to
+    whole tiles); the route's tables list exactly those tiles."""
+    K, N, bk, bn, kc, bt = shape
+    rng = np.random.RandomState(K + N)
+    m = rng.rand(K // bk, N // bn) < 0.3
+    m[:, 0] = False                 # a dead first column block
+    mask = P.BlockMask(m, bk, bn)
+    Kp, Np = -(-K // kc) * kc, -(-N // bt) * bt
+    e = np.zeros((Kp, Np), bool)
+    e[:K, :N] = mask.elementwise()
+    want = e.reshape(Kp // kc, kc, Np // bt, bt).any(axis=(1, 3))
+    got = P._coarse_grid(mask, kc, bt)
+    assert got.dtype == bool and np.array_equal(got, want)
+    tiles, counts = P._mm_tables(mask, P.MmPlan(kc, bt, True), "cpu")
+    for c in range(Np // bt):
+        live = np.nonzero(want[:, c])[0]
+        assert counts[c] == live.size
+        assert np.array_equal(tiles[c, :live.size].numpy(), live)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("layout", ["mn_major", "t_view"])
+def test_the_masked_operand_keeps_live_bits_and_zeros_the_rest(dtype,
+                                                               layout):
+    """The coarse route's copy of W (``_mm_masked``) for the forward's W
+    and dX's Wᵀ, W as it stands or a ``.t()`` view of a weight stored
+    (N, K): laid out as W's storage is (K-major for a ``.t()`` view: its
+    rows are W's columns), padded with zeros to whole coarse tiles, every
+    dead element exactly 0 though NaN and inf are planted in W's dead
+    blocks, every live element W's bits; in f32 its three bf16 pieces,
+    which add back to W ∘ mask exactly."""
+    K, N, bk, bn = 96, 60, 6, 20
+    rng = np.random.RandomState(5)
+    m = rng.rand(K // bk, N // bn) < 0.5
+    m[0, :] = True
+    m[:, 1] = False
+    mask = P.BlockMask(m, bk, bn)
+    live = torch.from_numpy(mask.elementwise())
+    w = torch.from_numpy(rng.randn(K, N).astype(np.float32)).to(dtype)
+    poisoned = w.masked_fill(~live, float("nan"))
+    poisoned[~live & (torch.arange(N) % 2 == 0)] = float("inf")
+    w_masked = torch.where(live, w, torch.zeros((), dtype=dtype))
+    if layout == "t_view":
+        poisoned = poisoned.t().contiguous().t()
+    for b, bmask, want in ((poisoned, mask, w_masked),
+                           (poisoned.t(), mask.transposed(), w_masked.t())):
+        plan = P._mm_plan(dtype, bmask.block_q, bmask.block_k, *b.shape)
+        assert plan.coarse
+        w_op, ldw, kmajor = P._mm_masked(b, bmask, plan)
+        # K-major where b's storage runs along its K dim (bᵀ's rows)
+        assert kmajor == int(b.stride(0) < b.stride(1))
+        stored = want.t() if kmajor else want
+        Kp = -(-b.shape[0] // plan.kc) * plan.kc
+        Np = -(-b.shape[1] // plan.bn) * plan.bn
+        rows, cols = (Np, Kp) if kmajor else (Kp, Np)
+        pieces = w_op if dtype == torch.float32 else w_op[None]
+        assert pieces.dtype == torch.bfloat16 and pieces.is_contiguous()
+        assert pieces.shape == (3 if dtype == torch.float32 else 1, rows,
+                                cols) and ldw == cols
+        assert torch.isfinite(pieces.float()).all()
+        R, C = stored.shape
+        assert not pieces[:, R:].any() and not pieces[:, :, C:].any()
+        if dtype == torch.float32:
+            assert torch.equal(pieces[:, :R, :C].double().sum(0),
+                               stored.double())
+            p1 = stored.to(torch.bfloat16)
+            assert torch.equal(pieces[0, :R, :C], p1)
+        else:
+            assert torch.equal(pieces[0, :R, :C], stored)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_bs_mm_coarse_route_launches_at_block_8(monkeypatch, dtype):
+    """block_sparse_matmul at block 8 under autograd: the forward and dX
+    each launch K9 once, both on the coarse route, carrying the coarse
+    tile as the blocks (K and N padded up to it, x's own K and the
+    output's N beside them) and the masked copy of W (or of Wᵀ, laid out
+    as W's storage, K-major) as the B operand, written first, once a
+    launch.  Recorded on CPU tensors, not run."""
+    calls = _record_mm(monkeypatch)
+    masked = []
+    monkeypatch.setattr(
+        P, "_mm_mask_call",
+        lambda ptrs, ints, strides, device: masked.append((ptrs, ints,
+                                                           strides)))
+    monkeypatch.setattr(P, "on_cpu", lambda *t: False)
+    M, K, N = 24, 200, 136
+    w = torch.randn(K, N, dtype=dtype, requires_grad=True)
+    mask = P.magnitude_block_mask(w.detach().float().numpy(), 8, 8, 0.5)
+    x = torch.randn(M, K, dtype=dtype, requires_grad=True)
+    before = (P.LAUNCHES_MM.count, P.LAUNCHES_MM_COARSE[dtype].count,
+              P.LAUNCHES_MM_F32.count, P.LAUNCHES_MM_MASK.count)
+    y = P.block_sparse_matmul(x, w, mask)
+    torch.autograd.grad(y, (x, w), torch.ones_like(y))
+    assert (P.LAUNCHES_MM.count - before[0],
+            P.LAUNCHES_MM_COARSE[dtype].count - before[1],
+            P.LAUNCHES_MM_F32.count - before[2],
+            P.LAUNCHES_MM_MASK.count - before[3]) == (2, 2, 0, 2)
+    code = P._DTYPE_CODE[dtype]
+    (fwd_ptrs, fwd_ints), (dx_ptrs, dx_ints) = calls
+    kc, bt = P.MM_COARSE_TILE[dtype]
+    for (ptrs, ints), (mptrs, mints, strides), (Ko, No, kmajor) in zip(
+            calls, masked, ((K, N, 0), (N, K, 1))):
+        # neither 200 nor 136 is a multiple of 16: the largest tile,
+        # W's copy padded to it
+        plan = P._mm_plan(dtype, 8, 8, Ko, No)
+        assert plan == (kc, bt, True)
+        Kp, Np = -(-Ko // kc) * kc, -(-No // bt) * bt
+        rows, cols = (Np, Kp) if kmajor else (Kp, Np)
+        # ints: L, M, K, N, bk, bn, ldx, ldw, kmajor, kc, bn_tile, kx,
+        # nout, ldo, dtype
+        assert ints[1:9] == [M, Kp, Np, plan.kc, plan.bn, Ko, cols, kmajor]
+        assert ints[9:] == [plan.kc, plan.bn, Ko, No,
+                            Np if dtype == torch.float32 else No, code]
+        # the masked copy: src (W's storage), dst, grid; R, C, Rp, Cp, br,
+        # bc, ngc, dtype; W's element strides
+        assert mptrs[0] == w.data_ptr() and mptrs[1] == ptrs[1]
+        assert mints == [K, N, rows, cols, 8, 8, N // 8, code]
+        assert strides == (N, 1)
+    assert fwd_ptrs[0] == x.data_ptr()
 
 
 def _record_attention(monkeypatch):
@@ -1073,14 +1269,14 @@ def test_bs_mm_casts_w_to_x_dtype_on_the_card(monkeypatch):
     """x bf16 with W f32: K9 gets W cast to bf16 (the bf16 Hopper route,
     out in x's dtype), as the plain version returns x's dtype."""
     calls = _record_mm(monkeypatch)
-    mask = P.BlockMask(np.ones((2, 2), bool), 32, 32)
+    mask = P.BlockMask(np.ones((1, 1), bool), 64, 64)
     x = torch.randn(16, 64).bfloat16()
     w = torch.randn(64, 64)
     y = P._bs_mm_cuda(x, w, mask)
     (ptrs, ints), = calls
     assert y.dtype == torch.bfloat16 and ptrs[0] == x.data_ptr()
     assert ptrs[1] != w.data_ptr() and ints[-1] == P._DTYPE_CODE[x.dtype]
-    assert ints[9:11] == [32, 32]      # the Hopper route's KC, BN
+    assert ints[9:11] == [64, 64]      # the block route's KC, BN
 
 
 def test_block_sparse_matmul_mixed_dtypes_match_pallas_interpret():

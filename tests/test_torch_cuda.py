@@ -1731,55 +1731,75 @@ def test_block_sparse_autograd_runs_k6_to_k8(cuda_device):
         assert (a - b).abs().max().item() <= 1e-4 * b.abs().max().item()
 
 
-# (M, K, N, bk, bn, dtype, route).  The Hopper route (blocks that are
-# multiples of 16): in bf16 the flagship MLP shape cut in M, ragged M, M a
-# multiple of 128 and not, bk/bn of 64, 32 and 16 (KC and BN 16 at 48),
-# K and N 8-multiples that are not 64-multiples, one row; in f32 (split
-# products) the MLP shape, the lab shape, block 32, ragged M, KC 16 with
-# BN 16 (48 x 80), BN 128 one way and 64 the other (64 x 128), one row.
-# The tile route: blocks that are not multiples of 16, with 16-byte loads
-# and scalar ones (bn 100, bk 6).
+# (M, K, N, bk, bn, dtype, route).  The Hopper route over the mask's
+# blocks ("hopper": blocks that are multiples of 64): in bf16 the flagship
+# MLP shape cut in M, M a multiple of 128 and not, block 64 (KC 64, BN
+# 64); in f32 (split products) the MLP shape, the lab shape, block 64,
+# BN 128 one way and 64 the other (64 x 128).  The coarse route (every
+# other block, coarse tiles of the masked W): blocks 32 and 16 at ragged
+# M, 64 x 32, 48 (KC 16 and BN 32 from K 144 and N 96), one row, in bf16;
+# block 32, ragged M, 48 x 80, one row in f32; block 8 at ragged M in
+# both dtypes, bk 24 x bn 40 (blocks across the tiles' edges) in both,
+# bn 100 and bk 6 x bn 20 (N 200, 60 padded to the tile; K 96), N 100 in
+# bf16 (rows of 200 bytes, which TMA cannot store: the output is written
+# padded and copied out), K 100 (x rows copied), one row.
 MM_CASES = {
     "mlp_bf16": (512, 1024, 4096, 128, 128, torch.bfloat16, "hopper"),
-    "ragged_M100": (100, 256, 192, 32, 32, torch.bfloat16, "hopper"),
+    "ragged_M100": (100, 256, 192, 32, 32, torch.bfloat16, "coarse"),
     "m256_b64": (256, 512, 384, 64, 64, torch.bfloat16, "hopper"),
-    "m200_b16": (200, 160, 240, 16, 16, torch.bfloat16, "hopper"),
-    "m129_b64x32": (129, 192, 160, 64, 32, torch.bfloat16, "hopper"),
-    "m64_b48": (64, 144, 96, 48, 48, torch.bfloat16, "hopper"),
-    "m1_b16": (1, 64, 64, 16, 16, torch.bfloat16, "hopper"),
+    "m129_b64": (129, 192, 320, 64, 64, torch.bfloat16, "hopper"),
+    "m200_b16": (200, 160, 240, 16, 16, torch.bfloat16, "coarse"),
+    "m129_b64x32": (129, 192, 160, 64, 32, torch.bfloat16, "coarse"),
+    "m64_b48": (64, 144, 96, 48, 48, torch.bfloat16, "coarse"),
+    "m1_b16": (1, 64, 64, 16, 16, torch.bfloat16, "coarse"),
     "mlp_f32": (256, 1024, 4096, 128, 128, torch.float32, "hopper"),
     "lab_f32": (64, 1024, 1024, 512, 512, torch.float32, "hopper"),
-    "block32_f32": (96, 128, 64, 32, 32, torch.float32, "hopper"),
-    "ragged_M100_f32": (100, 256, 192, 32, 32, torch.float32, "hopper"),
-    "m129_b48x80_f32": (129, 240, 160, 48, 80, torch.float32, "hopper"),
+    "m130_b64_f32": (130, 256, 192, 64, 64, torch.float32, "hopper"),
+    "block32_f32": (96, 128, 64, 32, 32, torch.float32, "coarse"),
+    "ragged_M100_f32": (100, 256, 192, 32, 32, torch.float32, "coarse"),
+    "m129_b48x80_f32": (129, 240, 160, 48, 80, torch.float32, "coarse"),
     "m200_b64x128_f32": (200, 256, 384, 64, 128, torch.float32, "hopper"),
-    "m1_b16_f32": (1, 64, 64, 16, 16, torch.float32, "hopper"),
-    "bn100_bf16": (70, 96, 200, 24, 100, torch.bfloat16, "tile"),
-    "bk6_f32": (33, 96, 60, 6, 20, torch.float32, "tile"),
+    "m1_b16_f32": (1, 64, 64, 16, 16, torch.float32, "coarse"),
+    "bn100_bf16": (70, 96, 200, 24, 100, torch.bfloat16, "coarse"),
+    "bk6_f32": (33, 96, 60, 6, 20, torch.float32, "coarse"),
+    "m200_b8_bf16": (200, 256, 384, 8, 8, torch.bfloat16, "coarse"),
+    "m200_b8_f32": (200, 256, 384, 8, 8, torch.float32, "coarse"),
+    "m130_b24x40_bf16": (130, 240, 200, 24, 40, torch.bfloat16, "coarse"),
+    "m130_b24x40_f32": (130, 240, 200, 24, 40, torch.float32, "coarse"),
+    "n100_bf16": (96, 160, 100, 16, 20, torch.bfloat16, "coarse"),
+    "k100_f32": (64, 100, 96, 20, 8, torch.float32, "coarse"),
+    "m1_b8_bf16": (1, 64, 64, 8, 8, torch.bfloat16, "coarse"),
 }
 
 
 def _mm_launches():
-    return bs.LAUNCHES_MM.count, bs.LAUNCHES_MM_TILE.count
+    """K9's launches, those on the coarse route, and its masked copies."""
+    return (bs.LAUNCHES_MM.count,
+            sum(c.count for c in bs.LAUNCHES_MM_COARSE.values()),
+            bs.LAUNCHES_MM_MASK.count)
 
 
 def _check_mm_on_card(x, w, gy, mask, route):
     """block_sparse_matmul under autograd on (x, w), as they are laid
     out: forward and dX row by row against the plain version on
     contiguous copies, dW zero on every dead tile, 2 launches on
-    ``route`` (the Hopper route in f32: both on split products)."""
+    ``route`` (the Hopper route in f32: both on split products; the
+    coarse route: both after a masked copy of W); NaN in every dead block
+    of W leaves the forward and dX bit for bit."""
     xl, wl = x.detach().requires_grad_(), w.detach().requires_grad_()
     before = _mm_launches()
     split_before = bs.LAUNCHES_MM_F32.count
     y = bs.block_sparse_matmul(xl, wl, mask)
     dx, dw = torch.autograd.grad(y, (xl, wl), gy)
     torch.cuda.synchronize()
-    launches, tile = (a - b for a, b in zip(_mm_launches(), before))
-    assert (launches, tile) == (2, 2 if route == "tile" else 0)
+    launches, coarse, copies = (a - b for a, b in zip(_mm_launches(), before))
+    n = 2 if route == "coarse" else 0
+    assert (launches, coarse, copies) == (2, n, n)
     split = route == "hopper" and x.dtype == torch.float32
     assert bs.LAUNCHES_MM_F32.count - split_before == (2 if split else 0)
     dtype = x.dtype
     assert y.dtype == dtype and dx.dtype == dtype and dw.dtype == dtype
+    assert y.is_contiguous() and dx.is_contiguous()
     tol = ROW_TOL[dtype]
     xc, wc = x.contiguous(), w.contiguous()
     assert _row_rel_err(y, bs._bs_mm_plain(xc, wc, mask)) <= tol
@@ -1787,6 +1807,10 @@ def _check_mm_on_card(x, w, gy, mask, route):
     assert _row_rel_err(dx, want_dx) <= tol
     live = torch.from_numpy(mask.elementwise()).to(x.device)
     assert not dw[~live].any()
+    poisoned = w.detach().clone().masked_fill_(~live, float("nan"))
+    assert torch.equal(bs._bs_mm_cuda(x, poisoned, mask), y)
+    assert torch.equal(bs._bs_mm_cuda(gy, poisoned.t(), mask.transposed()),
+                       dx)
     return y, dx
 
 
@@ -1824,21 +1848,31 @@ def test_block_sparse_matmul_dead_column_block_writes_zeros_on_card(
 MM_LAYOUTS = {
     "w_t_view_bf16": (300, 1024, 512, 128, torch.bfloat16, "hopper",
                       "w_t_view"),
-    "w_t_view_f32": (70, 256, 192, 32, torch.float32, "hopper", "w_t_view"),
+    "w_t_view_f32": (70, 256, 192, 64, torch.float32, "hopper", "w_t_view"),
     "x_column_slice_f32": (300, 1024, 512, 128, torch.float32, "hopper",
                            "x_column_slice"),
-    "x_misaligned_columns_f32": (130, 256, 192, 32, torch.float32, "hopper",
+    "x_misaligned_columns_f32": (130, 256, 192, 64, torch.float32, "hopper",
                                  "x_misaligned_columns"),
-    "x_rows_from_1_f32": (129, 256, 192, 32, torch.float32, "hopper",
+    "x_rows_from_1_f32": (129, 256, 192, 64, torch.float32, "hopper",
                           "x_rows_from_1"),
     "x_column_slice": (300, 1024, 512, 128, torch.bfloat16, "hopper",
                        "x_column_slice"),
-    "x_misaligned_columns": (130, 256, 192, 32, torch.bfloat16, "hopper",
+    "x_misaligned_columns": (130, 256, 192, 64, torch.bfloat16, "hopper",
                              "x_misaligned_columns"),
-    "x_misaligned_rows_k100": (71, 100, 60, 20, torch.bfloat16, "tile",
+    "x_misaligned_rows_k100": (71, 100, 60, 20, torch.bfloat16, "coarse",
                                "x_rows_from_1"),
-    "x_rows_from_1_hopper": (129, 256, 192, 32, torch.bfloat16, "hopper",
+    "w_t_view_b8_bf16": (300, 1024, 512, 8, torch.bfloat16, "coarse",
+                         "w_t_view"),
+    "w_t_view_b8_f32": (200, 256, 192, 8, torch.float32, "coarse",
+                        "w_t_view"),
+    "x_column_slice_b8_bf16": (300, 1024, 512, 8, torch.bfloat16, "coarse",
+                               "x_column_slice"),
+    "x_misaligned_columns_b8_f32": (130, 256, 192, 8, torch.float32, "coarse",
+                                    "x_misaligned_columns"),
+    "x_rows_from_1_hopper": (129, 256, 192, 64, torch.bfloat16, "hopper",
                              "x_rows_from_1"),
+    "x_rows_from_1_b8": (129, 256, 192, 8, torch.bfloat16, "coarse",
+                         "x_rows_from_1"),
 }
 
 
@@ -1865,11 +1899,11 @@ def test_block_sparse_matmul_takes_any_layout_on_card(cuda_device, case):
 
 
 @pytest.mark.parametrize("dtype,route", [(torch.bfloat16, "hopper"),
-                                         (torch.float32, "tile")])
+                                         (torch.float32, "coarse")])
 def test_block_sparse_matmul_more_column_tiles_than_a_grid_axis_on_card(
         cuda_device, dtype, route):
     """N / bn above 65535 at a tiny K: the grid is 1-D."""
-    bk = 16 if dtype == torch.bfloat16 else 8
+    bk = 64 if dtype == torch.bfloat16 else 8
     K, N = bk, bk * 66000
     g = torch.Generator(device=cuda_device).manual_seed(15)
     x = torch.randn(8, K, device=cuda_device, generator=g).to(dtype)
@@ -1899,7 +1933,7 @@ def test_block_sparse_matmul_hopper_route_never_reads_dead_tiles_on_card(
     g = torch.Generator(device=cuda_device).manual_seed(11)
     x = torch.randn(100, 256, device=cuda_device, generator=g).bfloat16()
     w = torch.randn(256, 192, device=cuda_device, generator=g).bfloat16()
-    mask = bs.magnitude_block_mask(w, 32, 64, 0.5)
+    mask = bs.magnitude_block_mask(w, 64, 64, 0.5)
     live = torch.from_numpy(mask.elementwise()).to(cuda_device)
     poisoned = w.masked_fill(~live, float("nan"))
     if w_layout == "k_major":
@@ -1908,7 +1942,7 @@ def test_block_sparse_matmul_hopper_route_never_reads_dead_tiles_on_card(
     clean = bs._bs_mm_cuda(x, w, mask)
     dirty = bs._bs_mm_cuda(x, poisoned, mask)
     again = bs._bs_mm_cuda(x, w, mask)
-    assert _mm_launches() == (before[0] + 3, before[1])
+    assert _mm_launches() == (before[0] + 3, before[1], before[2])
     assert torch.isfinite(dirty.float()).all()
     assert torch.equal(dirty, clean) and torch.equal(again, clean)
 
@@ -1930,17 +1964,41 @@ def test_block_sparse_matmul_f32_dead_column_block_writes_zeros_on_card(
     assert not y[:, 128:192].any() and not dx[:, 64:128].any()
 
 
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_block_sparse_matmul_coarse_dead_column_tile_writes_zeros_on_card(
+        cuda_device, dtype):
+    """On the coarse route (block 8): a BN-column tile of the masked W
+    with no live element writes exactly zero, in the forward (output
+    columns 128..255 dead) and in dX (W's rows 128..255 dead, dX's
+    columns there)."""
+    g = torch.Generator(device=cuda_device).manual_seed(19)
+    m = np.random.RandomState(19).rand(32, 48) < 0.5
+    m[:, 16:32] = False
+    m[16:32, :] = False
+    m[0, :] = True
+    m[0, 16:32] = False
+    mask = bs.BlockMask(m, 8, 8)
+    x = torch.randn(200, 256, device=cuda_device, generator=g).to(dtype)
+    w = (0.05 * torch.randn(256, 384, device=cuda_device, generator=g)
+         ).to(dtype)
+    gy = torch.randn(200, 384, device=cuda_device, generator=g).to(dtype)
+    assert bs._mm_plan(dtype, 8, 8, 256, 384).bn == 128
+    y, dx = _check_mm_on_card(x, w, gy, mask, "coarse")
+    assert not y[:, 128:256].any() and not dx[:, 128:256].any()
+    assert y[:, :128].any() and dx[:, :128].any()
+
+
 @pytest.mark.parametrize("w_layout", ["mn_major", "k_major"])
 def test_block_sparse_matmul_f32_route_never_reads_dead_tiles_on_card(
         cuda_device, w_layout):
     """The f32 Hopper route (split products), W read MN-major and
     K-major: NaN in every dead W tile, and so in its pieces, leaves the
     output bit-identical; two calls give equal bits; every launch on
-    split products, none on the tile route."""
+    split products, none on the coarse route."""
     g = torch.Generator(device=cuda_device).manual_seed(17)
     x = torch.randn(100, 256, device=cuda_device, generator=g)
     w = torch.randn(256, 192, device=cuda_device, generator=g)
-    mask = bs.magnitude_block_mask(w, 32, 64, 0.5)
+    mask = bs.magnitude_block_mask(w, 64, 64, 0.5)
     live = torch.from_numpy(mask.elementwise()).to(cuda_device)
     poisoned = w.masked_fill(~live, float("nan"))
     if w_layout == "k_major":
@@ -1950,7 +2008,7 @@ def test_block_sparse_matmul_f32_route_never_reads_dead_tiles_on_card(
     dirty = bs._bs_mm_cuda(x, poisoned, mask)
     again = bs._bs_mm_cuda(x, w, mask)
     assert (*_mm_launches(), bs.LAUNCHES_MM_F32.count) == (
-        before[0] + 3, before[1], before[2] + 3)
+        before[0] + 3, before[1], before[2], before[3] + 3)
     assert torch.isfinite(dirty).all()
     assert torch.equal(dirty, clean) and torch.equal(again, clean)
     want = bs._bs_mm_plain(x, w, mask)
@@ -1960,14 +2018,14 @@ def test_block_sparse_matmul_f32_route_never_reads_dead_tiles_on_card(
 def test_block_sparse_matmul_f32_route_raises_instead_of_falling_back(
         cuda_device):
     """A launch the f32 Hopper route refuses (a K chunk of 64, which it is
-    not built for) raises; it does not fall back to the tile route."""
+    not built for) raises; it does not fall back to another route."""
     g = torch.Generator(device=cuda_device).manual_seed(18)
     x = torch.randn(64, 128, device=cuda_device, generator=g)
     w = torch.randn(128, 128, device=cuda_device, generator=g)
     mask = bs.magnitude_block_mask(w, 64, 64, 0.5)
     before = (*_mm_launches(), bs.LAUNCHES_MM_F32.count)
     with pytest.raises(RuntimeError):
-        bs._launch_mm(x, w, mask, (64, 64))
+        bs._launch_mm(x, w, mask, bs.MmPlan(64, 64))
     assert (*_mm_launches(), bs.LAUNCHES_MM_F32.count) == before
 
 

@@ -1515,7 +1515,7 @@ def test_the_f32_wrapper_hands_the_kernel_its_operands(monkeypatch, C,
 def _mm_split(x, w, mask, truncate=True, fresh=True):
     """out (M, N) = x @ (W ∘ mask) as the f32 K9 forms it
     (``bs_mm_kernel_split``): each output column block sums its live K
-    blocks in ascending order, in steps of KC columns (``_mm_plan``: 32
+    blocks in ascending order, in steps of KC columns (``_block_plan``: 32
     where it divides bk, else 16); a step's six products a k16 step on
     three pieces a side (``TERMS``, terms outer, k16 steps inner) go into
     a fresh partial with wgmma's truncation toward zero (``_wgmma_add``),
@@ -1524,7 +1524,7 @@ def _mm_split(x, w, mask, truncate=True, fresh=True):
     shrinking every output (PERF.md, PR 16); ``truncate`` False: the
     partials rounded to nearest."""
     bk, bn = mask.block_q, mask.block_k
-    kc = P._mm_plan(torch.float32, bk, bn)[0]
+    kc = P._block_plan(torch.float32, bk, bn).kc
     A, B = _pieces(x, 3), _pieces(w, 3)
     out = torch.zeros(x.shape[0], w.shape[1])
     for c in range(w.shape[1] // bn):
@@ -1608,6 +1608,79 @@ def test_split_mm_matches_the_jax_kernel(case):
         assert not y[:, c * pmask.block_k:(c + 1) * pmask.block_k].any()
 
 
+def _mm_coarse_split(x, w, mask):
+    """out (M, N) = x @ (W ∘ mask) as the f32 K9 forms it on the coarse
+    route: W's masked copy (dead elements 0, zero-padded to whole (KC,
+    BN) tiles of ``_mm_plan``'s coarse plan; ``_mm_masked``), x zero past
+    K (TMA's fill), and for each BN-column tile the KC-row chunks that
+    hold a live element (``_coarse_grid``), ascending, each chunk's six
+    products a k16 step (``TERMS``, terms outer) into a fresh partial with
+    wgmma's truncation toward zero, added to the f32 total once done."""
+    K, N = w.shape
+    kc, bn, coarse = P._mm_plan(torch.float32, mask.block_q, mask.block_k,
+                                K, N)
+    assert coarse
+    grid = P._coarse_grid(mask, kc, bn)
+    Kp, Np = grid.shape[0] * kc, grid.shape[1] * bn
+    wm = torch.zeros(Kp, Np)
+    wm[:K, :N] = torch.where(torch.from_numpy(mask.elementwise()), w,
+                             torch.zeros(()))
+    xp = torch.zeros(x.shape[0], Kp)
+    xp[:, :K] = x
+    A, B = _pieces(xp, 3), _pieces(wm, 3)
+    out = torch.zeros(x.shape[0], Np)
+    for c in range(grid.shape[1]):
+        cols = slice(c * bn, (c + 1) * bn)
+        total = torch.zeros(x.shape[0], bn)
+        for t in np.nonzero(grid[:, c])[0]:
+            part = torch.zeros_like(total)
+            for i, j in TERMS:
+                for k in range(t * kc, (t + 1) * kc, 16):
+                    part = _wgmma_add(part, A[i][:, k:k + 16],
+                                      B[j][k:k + 16, cols], True)
+            total = total + part
+        out[:, cols] = total
+    return out[:, :N]
+
+
+#: (M, K, N, bk, bn): block 8 (the Pallas kernel in the JAX package;
+#: coarse tiles of 32 x 64 over 8 x 8 blocks, one column tile dead), bk 6
+#: x bn 20 (the JAX package's dense path; tiles across block edges, N
+#: padded 60 -> 64)
+MM_COARSE_CASES = {"b8": (40, 128, 192, 8, 8), "b6x20": (40, 96, 60, 6, 20)}
+
+
+@pytest.mark.parametrize("case", sorted(MM_COARSE_CASES))
+def test_coarse_split_mm_matches_the_jax_kernel(case):
+    """The f32 K9 on its coarse route (split products over coarse tiles
+    of the masked W), forward and dX (K9 on (g, Wᵀ, maskᵀ)), row by row
+    against the JAX ``block_sparse_matmul`` with ``interpret=True`` and
+    ``jax.grad`` through it, at a third of the f32 limit; a dead coarse
+    column tile is exactly zero."""
+    M, K, N, bk, bn = MM_COARSE_CASES[case]
+    rng = np.random.RandomState(47)
+    x = rng.randn(M, K).astype(np.float32)
+    w = (rng.randn(K, N) / math.sqrt(K)).astype(np.float32)
+    g = rng.randn(M, N).astype(np.float32)
+    m = rng.rand(K // bk, N // bn) < 0.5
+    if case == "b8":
+        m[:, 8:16] = False          # output columns 64..127: a dead tile
+    jmask, pmask = J.BlockMask(m, bk, bn), P.BlockMask(m, bk, bn)
+    want = J.block_sparse_matmul(jnp.asarray(x), jnp.asarray(w), jmask,
+                                 interpret=True)
+    dx_want = jax.grad(lambda a: jnp.sum(J.block_sparse_matmul(
+        a, jnp.asarray(w), jmask, interpret=True) * jnp.asarray(g)))(
+        jnp.asarray(x))
+    xt, wt, gt = (torch.from_numpy(a) for a in (x, w, g))
+    y = _mm_coarse_split(xt, wt, pmask)
+    dx = _mm_coarse_split(gt, wt.t(), pmask.transposed())
+    assert _row_rel_err(y, torch.from_numpy(np.array(want))) <= ROW_TOL / 3
+    assert _row_rel_err(dx, torch.from_numpy(np.array(dx_want))) \
+        <= ROW_TOL / 3
+    if case == "b8":
+        assert not y[:, 64:128].any()
+
+
 def test_the_split_mm_keeps_f32_rounding():
     """The designs at the MLP column block's depth (512 live of K 1024),
     forward and dX, against x @ (W ∘ mask) in f64: a fresh partial a step
@@ -1645,7 +1718,7 @@ def test_the_split_mm_keeps_f32_rounding():
 
 @pytest.mark.parametrize("layout", ["mn_major", "t_view"])
 def test_the_mm_pieces_add_back_to_w_in_its_orientation(layout):
-    """What the f32 K9 reads for W (``_mm_operands`` on the f32 Hopper
+    """What the f32 K9 reads for W (``_mm_operands`` on the f32 block
     route): W's three bf16 pieces, bit for bit ``_pieces``, summing back
     to W exactly, in the orientation W is stored in: (3, K, N) MN-major
     for W as it stands, (3, N, K) K-major for a ``.t()`` view of a
@@ -1657,10 +1730,9 @@ def test_the_mm_pieces_add_back_to_w_in_its_orientation(layout):
     if layout == "t_view":
         stored = stored.t().contiguous()
     wt = stored.t() if layout == "t_view" else stored
-    plan = P._mm_plan(torch.float32, mask.block_q, mask.block_k)
     for b, kmajor in ((wt, int(layout == "t_view")),
                       (wt.t(), int(layout != "t_view"))):
-        x2, ldx, pieces, ldw, got_kmajor = P._mm_operands(xt, b, plan)
+        x2, ldx, pieces, ldw, got_kmajor = P._mm_operands(xt, b)
         assert x2 is xt and ldx == xt.shape[1] and got_kmajor == kmajor
         assert pieces.dtype == torch.bfloat16 and pieces.is_contiguous()
         assert pieces.shape == (3, *stored.shape) and ldw == stored.shape[1]
