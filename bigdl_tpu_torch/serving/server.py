@@ -17,11 +17,19 @@ Request lifecycle (every path ends in a typed
               OVERLOADED   DEADLINE_  UNAVAILABLE  INTERNAL_ERROR
               (shed)       EXCEEDED   (reject fast) (+ breaker count)
 
+With a ``kv_pool`` (``serving.kvpool.KVPagePool``) generation serves
+through the paged decoder instead: one continuous loop advances every
+in-flight request a token per round, each holding pages only for the
+positions it has filled; pool exhaustion sheds typed OVERLOADED.  A
+``role`` of ``"prefill"`` or ``"decode"`` splits the two phases across
+servers (``submit_prefill`` returns a crc-sealed KV handoff blob that
+``submit_decode`` continues from, ``serving/pools.py``).
+
 Ported: start/drain/stop, admission, deadlines, the circuit breaker,
-micro-batching, ``submit`` and ``submit_generate`` on the non-paged
-path.  Not ported yet, and raising when asked for: the paged KV pool
-and the disaggregated prefill/decode roles, ``swap_params``, request
-tracing, tenants, and a device mesh.
+micro-batching, ``submit`` and ``submit_generate``, the paged KV pool
+with its page window, and the prefill/decode roles.  Not ported yet,
+and raising when asked for: ``swap_params``, request tracing, tenants,
+and a device mesh.
 """
 from __future__ import annotations
 
@@ -116,6 +124,15 @@ class InferenceServer:
         classification.
     generate_dtype : compute dtype for the generation path (e.g.
         ``torch.bfloat16``); ``None`` serves in the params' dtype.
+    kv_pool : a ``KVPagePool`` on the model's device: generation serves
+        through the paged decode path (see the module docstring).
+    role : ``"both"`` (default), ``"prefill"`` or ``"decode"`` — which
+        generation phase(s) this server serves, advertised in
+        ``health()``; a split role requires a ``kv_pool``.
+    kv_page_window, kv_page_globals : the page-granular block mask of
+        long paged decodes: attend only the first ``kv_page_globals``
+        anchor pages + the last ``kv_page_window`` pages (the prefill
+        through kernel K6); ``None`` = dense over the page table.
     """
 
     def __init__(self, model, mesh=None, max_batch: int = 32,
@@ -126,19 +143,36 @@ class InferenceServer:
                  metrics: Optional[ServingMetrics] = None,
                  generate_dtype: Optional[torch.dtype] = None,
                  name: Optional[str] = None, kv_pool=None,
-                 role: str = "both", trace_sink=None,
+                 role: str = "both",
+                 kv_page_window: Optional[int] = None,
+                 kv_page_globals: int = 1, trace_sink=None,
                  model_name: Optional[str] = None):
+        from .pools import ROLES
+
         if mesh is not None:
             raise _not_ported("serving over a device mesh")
-        if kv_pool is not None or role != "both":
-            raise _not_ported("the paged KV pool / prefill-decode roles")
         if trace_sink is not None:
             raise _not_ported("request tracing")
         if model_name is not None:
             raise _not_ported("multi-tenant serving")
+        if role not in ROLES:
+            raise ValueError(f"role {role!r} not in {ROLES}")
+        if role != "both" and kv_pool is None:
+            raise ValueError(
+                f"role {role!r} requires a kv_pool (the prefill/"
+                f"decode split moves KV pages between pools)")
+        if kv_pool is not None and kv_pool.device != model.device:
+            raise ValueError(f"kv_pool on {kv_pool.device}, model on "
+                             f"{model.device}: the arena must be on the "
+                             f"model's device")
         self.name = name
         self.model = model
         self.role = role
+        #: paged KV arena: when set, generation serves through the
+        #: paged decode path and pool exhaustion sheds typed OVERLOADED
+        self.kv_pool = kv_pool
+        self.kv_page_window = kv_page_window
+        self.kv_page_globals = int(kv_page_globals)
         self.batcher = MicroBatcher(max_batch)
         self.metrics = metrics or ServingMetrics()
         self.breaker = breaker or CircuitBreaker()
@@ -223,7 +257,7 @@ class InferenceServer:
                 and len(self._queue) < self._queue.maxsize)
 
     def health(self) -> dict:
-        return {
+        out = {
             "healthy": self.healthy(),
             "ready": self.ready(),
             "draining": bool(self._draining or self._should_drain()),
@@ -231,6 +265,9 @@ class InferenceServer:
             "breaker": self.breaker.snapshot(),
             "role": self.role,
         }
+        if self.kv_pool is not None:
+            out["kv"] = self.kv_pool.stats()
+        return out
 
     # ------------------------------------------------------------ admission
     def _admit(self, req: Request) -> ServeFuture:
@@ -325,11 +362,61 @@ class InferenceServer:
             submitted_at=now, deadline=deadline,
             opts=(int(max_new), eos_id, pad_id)))
 
-    def submit_prefill(self, *args, **kwargs):
-        raise _not_ported("disaggregated prefill (submit_prefill)")
+    def _require_pool(self, what: str):
+        if self.kv_pool is None:
+            raise RuntimeError(
+                f"{what} requires a kv_pool (paged serving); this "
+                f"server has none")
 
-    def submit_decode(self, *args, **kwargs):
-        raise _not_ported("disaggregated decode (submit_decode)")
+    def submit_prefill(self, prompt_ids,
+                       deadline_s: Optional[float] = None,
+                       trace=None) -> ServeFuture:
+        """Prefill-only dispatch for the disaggregated path: run the
+        prompt pass, produce the first token, and return a crc-sealed
+        KV handoff blob (``result.output``) a decode server can
+        continue from.  The prefill server's pages are released as soon
+        as the blob is exported."""
+        if trace is not None:
+            raise _not_ported("request tracing")
+        self._require_pool("submit_prefill")
+        prompt = np.asarray(prompt_ids, np.int32)
+        if prompt.ndim != 1:
+            raise ValueError(f"prompt_ids must be 1-D, got shape "
+                             f"{prompt.shape}")
+        now = time.monotonic()
+        deadline = self._deadline(deadline_s, now)
+        fast = self._fast_fail_expired(deadline, now)
+        if fast is not None:
+            return fast
+        return self._admit(Request(
+            kind="prefill", payload=prompt, future=ServeFuture(),
+            submitted_at=now, deadline=deadline))
+
+    def submit_decode(self, handoff: bytes, max_new: int,
+                      eos_id: Optional[int] = None,
+                      pad_id: Optional[int] = None,
+                      deadline_s: Optional[float] = None,
+                      trace=None) -> ServeFuture:
+        """Decode-only dispatch for the disaggregated path: verify
+        ``handoff`` (crc32c + geometry), import its pages into this
+        server's pool, and stream the remaining ``max_new - 1`` tokens
+        (the first one was produced by prefill and rides the handoff).
+        The result's ``output`` holds those remaining tokens; a corrupt
+        blob resolves INTERNAL_ERROR, a full pool sheds OVERLOADED."""
+        if trace is not None:
+            raise _not_ported("request tracing")
+        self._require_pool("submit_decode")
+        if max_new < 1:
+            raise ValueError(f"max_new must be >= 1, got {max_new}")
+        now = time.monotonic()
+        deadline = self._deadline(deadline_s, now)
+        fast = self._fast_fail_expired(deadline, now)
+        if fast is not None:
+            return fast
+        return self._admit(Request(
+            kind="decode", payload=handoff, future=ServeFuture(),
+            submitted_at=now, deadline=deadline,
+            opts=(int(max_new), eos_id, pad_id)))
 
     def swap_params(self, *args, **kwargs):
         raise _not_ported("hot param swap (swap_params)")
@@ -421,11 +508,15 @@ class InferenceServer:
     @staticmethod
     def _group(reqs):
         """Classify requests coalesce together; generate requests group
-        by (prompt_len, opts)."""
+        by (prompt_len, opts); the paged kinds (prefill / decode) each
+        form one group — the continuous paged loop drives them per
+        request, whatever their shapes."""
         groups: dict = {}
         for r in reqs:
             if r.kind == "classify":
                 key = ("classify",)
+            elif r.kind in ("prefill", "decode"):
+                key = (r.kind,)
             else:
                 key = ("generate", r.payload.shape[0], r.opts)
             groups.setdefault(key, []).append(r)
@@ -433,6 +524,9 @@ class InferenceServer:
             yield key[0], group
 
     def _run_group(self, kind: str, reqs: list):
+        if kind in ("prefill", "decode") or (
+                kind == "generate" and self.kv_pool is not None):
+            return self._run_paged_group(kind, reqs)
         t_batch = time.monotonic()
         queued = [t_batch - r.submitted_at for r in reqs]
         try:
@@ -463,6 +557,193 @@ class InferenceServer:
         for i, (r, q) in enumerate(zip(reqs, queued)):
             self._resolve(r, ServeResult(
                 Status.OK, output=out_np[i], queued_s=q, bucket=bucket))
+
+    # ------------------------------------------------------- paged decode
+    def _import_handoff(self, blob):
+        """Verify a KV handoff blob and materialize it as a live
+        PagedSequence in THIS server's pool (crc + geometry checked;
+        pages leased here, scattered from the blob)."""
+        from ..models.generate import PagedSequence
+        from .pools import HandoffCorrupt, deserialize_handoff
+
+        h = deserialize_handoff(blob)
+        pool = self.kv_pool
+        geometry = (h["layers"], h["num_kv_heads"], h["page_size"],
+                    h["head_dim"])
+        expect = (pool.layers, pool.num_kv_heads, pool.page_size,
+                  pool.head_dim)
+        if geometry != expect:
+            raise HandoffCorrupt(
+                f"handoff geometry {geometry} does not match this "
+                f"pool {expect}")
+        lease = pool.alloc(int(h["k_pages"].shape[0]))
+        try:
+            pool.write_pages(lease.pages, h["k_pages"], h["v_pages"],
+                             wire_dtype=h.get("kv_dtype"))
+        except BaseException:
+            lease.release()
+            raise
+        return PagedSequence(lease, pos=int(h["pos"]),
+                             last=int(h["first_token"]),
+                             prompt_len=int(h["pos"]))
+
+    def _run_paged_group(self, kind: str, reqs: list):
+        """Continuous paged generation: one host loop interleaves every
+        in-flight sequence a token at a time, so a long decode never
+        blocks a short one and a stop or deadline mid-stream resolves
+        typed WITH its pages released.  Outcomes:
+
+        * pool exhaustion (at start or on a mid-decode page extension)
+          → typed OVERLOADED shed;
+        * a corrupt or mismatched handoff → INTERNAL_ERROR (refused
+          before any K/V byte is trusted);
+        * deadline mid-decode → DEADLINE_EXCEEDED;
+        * hard stop mid-decode → CANCELLED;
+        * everything else finishes OK with the unpaged path's
+          eos-then-pad emission convention.
+        """
+        from ..models.generate import _eos_pad, cached_paged_decoder
+        from .kvpool import PoolExhausted
+        from .pools import serialize_handoff
+
+        pool = self.kv_pool
+        decoder = cached_paged_decoder(
+            self.model, pool, compute_dtype=self.generate_dtype,
+            page_window=self.kv_page_window,
+            page_globals=self.kv_page_globals)
+        with self._model_lock:
+            params = self.model.param_tree()
+
+        def fail(req, queued_s, exc):
+            fatal = self.policy.classify(exc) == "fatal"
+            self.breaker.record_failure(fatal=fatal)
+            err = f"{type(exc).__name__}: {exc}"
+            log.warning("paged serving %s failed (%s, %s): %s",
+                        req.kind, "fatal" if fatal else "retryable",
+                        self.breaker.state, err)
+            self._resolve(req, ServeResult(Status.INTERNAL_ERROR,
+                                           error=err, queued_s=queued_s))
+
+        def entry(req, seq, toks, target, queued_s):
+            max_new, eos_id, pad_id = req.opts
+            eos, pad = _eos_pad(self.model, eos_id, pad_id)
+            return {"req": req, "seq": seq, "toks": toks,
+                    "target": target, "eos": eos, "pad": pad,
+                    "queued_s": queued_s,
+                    "done": eos > 0 and seq.last == eos,
+                    "t_decode": time.monotonic(), "steps": 0}
+
+        live = []
+        for req in reqs:
+            queued_s = time.monotonic() - req.submitted_at
+            seq = None
+            try:
+                if req.kind == "decode":
+                    seq = self._import_handoff(req.payload)
+                    # the first token rode the handoff: this dispatch
+                    # owes the remaining max_new - 1
+                    live.append(entry(req, seq, [], req.opts[0] - 1,
+                                      queued_s))
+                    continue
+                t0 = time.monotonic()
+                seq = decoder.start(params, req.payload)
+                prefill_s = time.monotonic() - t0
+                self.metrics.record_phase("prefill", prefill_s)
+                self.metrics.record_ttft(time.monotonic()
+                                         - req.submitted_at)
+                if req.kind == "generate":
+                    live.append(entry(req, seq, [seq.last], req.opts[0],
+                                      queued_s))
+                    continue
+                k_pages, v_pages = pool.read_pages(seq.lease.pages)
+                extras = ({"kv_dtype": pool.wire_dtype}
+                          if pool.wire_dtype else None)
+                blob = serialize_handoff(k_pages, v_pages, seq.last,
+                                         seq.pos, pool.page_size,
+                                         extras=extras)
+                seq.release()
+                self.breaker.record_success()
+                self.metrics.record_batch(1, 1)
+                self._resolve(req, ServeResult(
+                    Status.OK, output=blob, queued_s=queued_s, bucket=1))
+            except PoolExhausted as e:
+                # admission control, not failure: shed typed (the
+                # breaker must not trip on a full pool)
+                self._resolve(req, ServeResult(
+                    Status.OVERLOADED, error=f"KV pool exhausted: {e}",
+                    queued_s=queued_s))
+            except (KeyboardInterrupt, SystemExit):
+                raise
+            except Exception as e:
+                if seq is not None:
+                    seq.release()
+                fail(req, queued_s, e)
+        self.metrics.set_kv_pool(pool.stats())
+
+        def finish(e):
+            e["seq"].release()
+            decode_s = time.monotonic() - e["t_decode"]
+            self.metrics.record_phase("decode", decode_s)
+            if e["steps"]:
+                self.metrics.record_tpot(decode_s / e["steps"])
+            self.breaker.record_success()
+            self.metrics.record_batch(1, 1)
+            self._resolve(e["req"], ServeResult(
+                Status.OK, output=np.asarray(e["toks"], np.int32),
+                queued_s=e["queued_s"], bucket=1))
+
+        def abort(e, result: ServeResult):
+            e["seq"].release()
+            result.queued_s = e["queued_s"]
+            self._resolve(e["req"], result)
+
+        # round-robin continuous decode: every live sequence advances
+        # one token per round, so a long decode never starves a short
+        # one and page pressure tracks actual lengths
+        while live:
+            if self._hard_stop:
+                for e in live:
+                    abort(e, ServeResult(
+                        Status.CANCELLED,
+                        error="server stopped mid-decode"))
+                break
+            nxt = []
+            for e in live:
+                if len(e["toks"]) >= e["target"]:
+                    finish(e)
+                    continue
+                if e["done"]:
+                    # eos already emitted: pad-fill (the unpaged path's
+                    # convention) without spending device steps
+                    e["toks"].extend(
+                        [e["pad"]] * (e["target"] - len(e["toks"])))
+                    nxt.append(e)
+                    continue
+                if e["req"].expired(time.monotonic()):
+                    abort(e, ServeResult(
+                        Status.DEADLINE_EXCEEDED,
+                        error="deadline expired mid-decode"))
+                    continue
+                try:
+                    tok = decoder.step(params, e["seq"])
+                except PoolExhausted as exc:
+                    abort(e, ServeResult(
+                        Status.OVERLOADED,
+                        error=f"KV pool exhausted mid-decode: {exc}"))
+                    continue
+                except (KeyboardInterrupt, SystemExit):
+                    raise
+                except Exception as exc:
+                    e["seq"].release()
+                    fail(e["req"], e["queued_s"], exc)
+                    continue
+                e["steps"] += 1
+                e["toks"].append(tok)
+                if e["eos"] > 0 and tok == e["eos"]:
+                    e["done"] = True
+                nxt.append(e)
+            live = nxt
+        self.metrics.set_kv_pool(pool.stats())
 
     def _run_generate(self, reqs):
         """One generator call per (bucket, prompt_len, max_new): prompts

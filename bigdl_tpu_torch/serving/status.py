@@ -113,7 +113,8 @@ class ServeFuture:
 
 @dataclass
 class Request:
-    """Internal queue entry (kind: ``"classify"`` or ``"generate"``)."""
+    """Internal queue entry (kind: ``"classify"``, ``"generate"``, or
+    the paged ``"prefill"`` / ``"decode"``)."""
     kind: str
     payload: Any
     future: ServeFuture

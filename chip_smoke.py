@@ -37,7 +37,7 @@ Phases; any failure exits non-zero:
    against the plain version's math carried in f64); the block-sparse
    kernels also at
    block 32, 8 (ragged
-   T 200), 96, in f32, non-causal with a dead q block, strided, with NaN
+   T 200), 96, 16 (phase 9's page-window mask, 32 x 32 pages), in f32, non-causal with a dead q block, strided, with NaN
    in the K/V rows no query may attend (bf16 and f32 D 128, 256 and
    320), and on all-ones masks against
    K1-K3 (K6-K8 = K1-K3 bit for bit on the same inputs in both dtypes,
@@ -121,7 +121,25 @@ Phases; any failure exits non-zero:
    the same plus BatchNorm's running statistics, then one eval-mode
    forward.  Step ms, images/s, MFU, peak memory, and the ``"xla"``
    impl's bf16 images/s beside them.
-9. a ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and as the
+9. paged serving path — phase 4's model and four 512-token prompts in
+   bf16, 32 new tokens, through ``KVPagePool`` (page size 16, a bf16
+   arena of 160 pages): (a) ``InferenceServer(kv_pool=...)``, each stream
+   equal to ``cached_generate``'s (B 1) token for token, launches K1 8
+   and K4 17 x 32 per request and nothing else; (b) with the page window
+   8 + 1 global: K6 8 per request at block 16 and no K1, the first
+   token's logits against the same windowed paged prefill in f32 on the
+   CPU, a 96-token prompt's stream equal to (a)'s; (c) a prefill server
+   and a decode server, each with its own pool, across the crc-sealed
+   handoff: first token + the rest equal (a)'s, a flipped byte resolves
+   INTERNAL_ERROR, the blob's bytes and its seal and verify seconds;
+   (d) a 40-page pool: one of two 512-token requests OK, the other
+   OVERLOADED, then OK again; (e) beam search, bf16 B 2 x 4 beams, 1
+   beam = greedy, and in f32 (128-token prompt, 16 new) the score
+   against the f32 forward's rescoring of the returned ids; (f) the
+   int8 KV cache, B 4: first tokens equal bf16's, launches K1 8 and K4
+   17 x 32.  Every pool free at the end; prefill + first token ms,
+   decode tokens/s and latency for each leg.
+10. a ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and as the
    last line ``{"ok": true, "device": {...}}``.
 
 The full record goes to ``chiprun_out/chip_smoke.json``.
@@ -169,6 +187,13 @@ MEM_BYTES_PER_S = 3.35e12
 FLAGSHIP = dict(vocab=32000, embed_dim=1024, num_heads=8, num_layers=8,
                 max_len=1024)
 BATCH, MAX_NEW, PROMPT_LENS = 4, 32, (512, 200)
+# phase 9: paged serving (the JAX package's page size, kvpool.py:161); a
+# bf16 arena of 160 pages (42 MB) holds the four 512-token requests and
+# their growth, 40 pages only one; the page window 8 + 1 global binds at
+# 512 tokens (32 pages); beam search in f32 on a 128-token prompt; its
+# score against the f32 forward's rescoring of the returned ids
+PAGE_SIZE, PAGED_POOL_PAGES, EXHAUST_PAGES, PAGE_WINDOW = 16, 160, 40, 8
+BEAMS, BEAM_F32_PROMPT, BEAM_F32_NEW, BEAM_SCORE_REL_TOL = 4, 128, 16, 1e-3
 
 # tolerances, kernel vs its plain version on the same inputs.
 # K1-K3 are held row by row (row_rel_err): under causal masking the
@@ -1119,7 +1144,8 @@ def check_flash_bwd(torch, F):
 def bs_cases(torch):
     """(label, B, H, T, D, dtype, causal, mask) for K6-K8: the block-sparse
     training step, block 32 (partly live 64-row tiles), ragged T 200 at
-    block 8 (a 25 x 25 mask), block 96, f32, non-causal with a dead q
+    block 8 (a 25 x 25 mask), block 96, the serving mask of phase 9
+    (block 16, window 8 + 1 global, B 1, T 512), f32, non-causal with a dead q
     block, strided, all-ones masks in bf16 and f32 (held against K1-K3 as
     well), the training step and the f32 case head-strided (as
     ``flash_cases``), head dims
@@ -1145,6 +1171,10 @@ def bs_cases(torch):
              bs.sliding_window_mask(25, 25, 3, 1, True, 8, 8)),
             ("block96", 2, 8, 768, 128, bf16, True,
              bs.sliding_window_mask(8, 8, 2, 1, True, 96, 96)),
+            # phase 9's windowed paged prefill: 32 x 32 pages of 16
+            ("serve_page16", 1, 8, PROMPT_LENS[0], 128, bf16, True,
+             bs.sliding_window_mask(32, 32, PAGE_WINDOW, 1, True, PAGE_SIZE,
+                                    PAGE_SIZE)),
             ("f32_block128", 2, 8, 1024, 128, f32, True,
              bs.sliding_window_mask(8, 8, 2, 1, True, 128, 128)),
             ("strided_f32_block128", 2, 8, 1024, 128, f32, True,
@@ -1856,6 +1886,345 @@ def serve_flagship(torch):
     return dict(model_build_s=build_s, batches=batches, timing=timing,
                 logits_max_abs_err=err, logits_rel_err=rel,
                 logits_top1_agrees=same_top1), failures
+
+
+def _flagship(torch, device):
+    """Phase 4's model: the flagship in f32 from ``manual_seed(0)``."""
+    from bigdl_tpu_torch.models.transformer import TransformerLM
+
+    cfg = FLAGSHIP
+    return TransformerLM(cfg["vocab"], embed_dim=cfg["embed_dim"],
+                         num_heads=cfg["num_heads"],
+                         num_layers=cfg["num_layers"],
+                         max_len=cfg["max_len"], device=device,
+                         generator=torch.Generator().manual_seed(0))
+
+
+def serve_paged(torch):
+    """Phase 9: paged serving at full flagship width in bf16, phase 4's
+    four 512-token prompts, 32 new tokens, page size 16 — (a) the dense
+    paged server, (b) the windowed one (K6 prefill), (c) prefill and
+    decode roles across a handoff, (d) pool exhaustion, (e) beam search,
+    (f) the int8 KV cache.  Returns (record, failures); the record's
+    ``launches`` are those of (a), (b) and (f)'s checked runs, each read
+    from zero."""
+    import numpy as np
+
+    from bigdl_tpu_torch.models import generate as tgen
+    from bigdl_tpu_torch.serving import InferenceServer, KVPagePool, Status
+    from bigdl_tpu_torch.serving.pools import (deserialize_handoff,
+                                               serialize_handoff)
+
+    bf16, f32 = torch.bfloat16, torch.float32
+    V, L = FLAGSHIP["vocab"], FLAGSHIP["num_layers"]
+    T0, n_req = PROMPT_LENS[0], BATCH
+    per_ln = (2 * L + 1) * MAX_NEW
+    counters = launch_counters()
+    failures, rec = [], {}
+    total = {n: 0 for n in counters}
+
+    def count_from_zero():
+        for c in counters.values():
+            c.reset()
+
+    def read_counts():
+        got = {n: c.count for n, c in counters.items()}
+        for n, c in got.items():
+            total[n] += c
+        return got
+
+    def check(ok, what):
+        if not ok:
+            failures.append(f"phase 9 {what}")
+        return ok
+
+    def synced(fn):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t
+
+    model = _flagship(torch, "cuda")
+    params = model.param_tree()
+    prompts = np.random.RandomState(0).randint(
+        1, V + 1, size=(n_req, T0)).astype(np.int32)     # phase 4's
+    short = np.random.RandomState(9).randint(1, V + 1, 96).astype(np.int32)
+    gen = tgen.cached_generate(model, compute_dtype=bf16)
+    want = [gen(params, p[None], MAX_NEW).cpu().numpy()[0, T0:]
+            for p in prompts]
+    pool = KVPagePool.for_model(model, PAGED_POOL_PAGES, PAGE_SIZE,
+                                dtype=bf16)
+    rec["pool"] = dict(num_pages=pool.num_pages, page_size=pool.page_size,
+                       arena_bytes=pool.arena_bytes())
+
+    def serve(label, **kw):
+        """The four prompts submitted together, then the 96-token one;
+        the server's timings and the direct prefill's."""
+        server = InferenceServer(model, kv_pool=pool, max_batch=n_req,
+                                 generate_dtype=bf16, **kw).start()
+        try:
+            count_from_zero()
+            t = time.perf_counter()
+            results = [f.result(timeout=600) for f in
+                       [server.submit_generate(p, MAX_NEW) for p in prompts]]
+            wall = time.perf_counter() - t
+            launches = read_counts()
+            snap = server.metrics.snapshot()
+            extra = server.submit_generate(short, MAX_NEW).result(timeout=600)
+        finally:
+            server.stop(timeout=60)
+        dec = tgen.cached_paged_decoder(
+            model, pool, compute_dtype=bf16,
+            page_window=kw.get("kv_page_window"))
+
+        def first():
+            seq = dec.start(params, prompts[0])
+            seq.release()
+
+        prefill_s = min(synced(first)[1] for _ in range(3))
+        outs = [np.asarray(r.output) for r in results if r.ok]
+        row = dict(statuses=[r.status.value for r in results],
+                   launches=launches, wall_s=wall,
+                   latency_s=[r.latency_s for r in results],
+                   prefill_first_token_ms=prefill_s * 1e3,
+                   ttft_p50_s=snap["ttft_p50_s"],
+                   tpot_p50_s=snap["tpot_p50_s"],
+                   decode_tokens_per_s=n_req / snap["tpot_p50_s"],
+                   short_status=extra.status.value,
+                   free_pages=pool.free_pages)
+        print(f"paged {label}: statuses {row['statuses']} launches "
+              f"flash {launches['flash_fwd']} block_sparse "
+              f"{launches['block_sparse_fwd']} layer_norm "
+              f"{launches['layer_norm_fwd']} | prefill+first token "
+              f"{row['prefill_first_token_ms']:.2f} ms (B 1), ttft p50 "
+              f"{snap['ttft_p50_s'] * 1e3:.2f} ms, loop of {n_req}: tpot "
+              f"p50 {snap['tpot_p50_s'] * 1e3:.2f} ms, decode "
+              f"{row['decode_tokens_per_s']:.1f} tokens/s, latency "
+              f"{max(row['latency_s']):.3f} s, free pages {pool.free_pages}")
+        check(row["statuses"] == ["ok"] * n_req,
+              f"{label}: statuses {row['statuses']} "
+              f"{[r.error for r in results]}")
+        check(len(outs) == n_req and all(
+            o.shape == (MAX_NEW,) and o.min() >= 1 and o.max() <= V
+            for o in outs), f"{label}: ids out of 1..{V}")
+        check(extra.ok, f"{label}: the 96-token prompt: {extra.error}")
+        check(pool.free_pages == pool.num_pages,
+              f"{label}: {pool.free_pages} of {pool.num_pages} pages free")
+        return row, outs, np.asarray(extra.output)
+
+    # (a) the dense paged server: the unpaged stream, token for token
+    rec["dense"], dense_outs, dense_short = serve("dense")
+    same = [bool(np.array_equal(o, w)) for o, w in zip(dense_outs, want)]
+    rec["dense"]["equals_unpaged"] = same
+    print(f"paged dense: each stream equals cached_generate's (B 1): {same}")
+    check(all(same) and len(same) == n_req,
+          f"dense: streams equal the unpaged ones: {same}")
+    check(rec["dense"]["launches"] == want_launches(
+        flash_fwd=L * n_req, layer_norm_fwd=per_ln * n_req),
+        f"dense: launches {rec['dense']['launches']}, want flash "
+        f"{L * n_req}, ln {per_ln * n_req}, no other")
+
+    # (b) the windowed server: K6 prefill at block 16 over 32 x 32 pages
+    rec["windowed"], _, win_short = serve(
+        "windowed", kv_page_window=PAGE_WINDOW, kv_page_globals=1)
+    rec["windowed"]["short_equals_dense"] = bool(
+        np.array_equal(win_short, dense_short))
+    check(rec["windowed"]["short_equals_dense"],
+          "windowed: the 96-token stream differs from the dense one")
+    check(rec["windowed"]["launches"] == want_launches(
+        block_sparse_fwd=L * n_req, layer_norm_fwd=per_ln * n_req),
+        f"windowed: launches {rec['windowed']['launches']}, want "
+        f"block_sparse {L * n_req}, ln {per_ln * n_req}, no other")
+    rec["page16_k6_launches"] = rec["windowed"]["launches"][
+        "block_sparse_fwd"]
+    n_pages = T0 // PAGE_SIZE
+    arena = (n_pages, L, FLAGSHIP["num_heads"], PAGE_SIZE,
+             FLAGSHIP["embed_dim"] // FLAGSHIP["num_heads"])
+    logits = []
+    for m, dt in ((model, bf16), (_flagship(torch, "cpu"), f32)):
+        prefill, _ = tgen._paged_machinery(m, 1, L, PAGE_SIZE,
+                                           page_window=PAGE_WINDOW,
+                                           page_globals=1)
+        with torch.no_grad():
+            logits.append(prefill(
+                tgen._cast_floats(m.param_tree(), dt),
+                torch.as_tensor(prompts[:1], device=m.device),
+                torch.arange(n_pages, device=m.device),
+                torch.zeros(arena, dtype=dt, device=m.device),
+                torch.zeros(arena, dtype=dt, device=m.device)).cpu())
+    err = (logits[0] - logits[1]).abs().max().item()
+    rel = err / logits[1].abs().max().item()
+    rec["windowed"].update(logits_max_abs_err=err, logits_rel_err=rel)
+    print(f"paged windowed: K6 launches {rec['page16_k6_launches']}; "
+          f"last-position logits bf16/cuda vs f32/cpu (the windowed paged "
+          f"prefill): max abs err {err:.4e} ({rel:.3e} of max |logit|, tol "
+          f"{LOGITS_REL_TOL}); 96-token stream equals the dense one: "
+          f"{rec['windowed']['short_equals_dense']}")
+    check(rel <= LOGITS_REL_TOL, f"windowed: logits rel err {rel:.3e}")
+
+    # (c) prefill and decode roles across the crc-sealed handoff
+    pools = [KVPagePool.for_model(model, PAGED_POOL_PAGES, PAGE_SIZE,
+                                  dtype=bf16) for _ in range(2)]
+    pre, dec = (InferenceServer(model, kv_pool=p, role=r,
+                                generate_dtype=bf16).start()
+                for p, r in zip(pools, ("prefill", "decode")))
+    try:
+        t = time.perf_counter()
+        blobs = [f.result(timeout=600) for f in
+                 [pre.submit_prefill(p) for p in prompts[:2]]]
+        prefill_wall = time.perf_counter() - t
+        t = time.perf_counter()
+        got = [f.result(timeout=600) for f in
+               [dec.submit_decode(b.output, MAX_NEW) for b in blobs]]
+        decode_wall = time.perf_counter() - t
+        small = pre.submit_prefill(short).result(timeout=600)
+        bad = bytearray(small.output)
+        bad[len(bad) // 2] ^= 0x40
+        refused = dec.submit_decode(bytes(bad), MAX_NEW).result(timeout=600)
+    finally:
+        pre.stop(timeout=60)
+        dec.stop(timeout=60)
+    check(all(b.ok for b in blobs + got + [small]),
+          f"roles: statuses {[r.status.value for r in blobs + got]}")
+    t = time.perf_counter()
+    heads = [deserialize_handoff(b.output) for b in blobs]
+    verify_s = (time.perf_counter() - t) / len(blobs)
+    h = heads[0]
+    t = time.perf_counter()
+    resealed = serialize_handoff(h["k_pages"], h["v_pages"],
+                                 h["first_token"], h["pos"], h["page_size"],
+                                 extras={"kv_dtype": h["kv_dtype"]})
+    seal_s = time.perf_counter() - t
+    streams = [np.concatenate([[hd["first_token"]], g.output])
+               for hd, g in zip(heads, got)]
+    same = [bool(np.array_equal(s_, o)) for s_, o in zip(streams,
+                                                         dense_outs)]
+    rec["roles"] = dict(
+        blob_bytes=[len(b.output) for b in blobs], seal_s=seal_s,
+        verify_s=verify_s, resealed_equal=resealed == blobs[0].output,
+        prefill_latency_s=[b.latency_s for b in blobs],
+        decode_latency_s=[g.latency_s for g in got],
+        prefill_wall_s=prefill_wall, decode_wall_s=decode_wall,
+        decode_tokens_per_s=2 * (MAX_NEW - 1) / decode_wall,
+        equals_dense=same, corrupt_status=refused.status.value,
+        corrupt_error=refused.error,
+        free_pages=[p.free_pages for p in pools])
+    print(f"paged roles: blob {len(blobs[0].output)} bytes, seal "
+          f"{seal_s:.2f} s, verify {verify_s:.2f} s (crc32c, pure Python), "
+          f"latency of prefill + seal {max(rec['roles']['prefill_latency_s']):.3f}"
+          f" s, of verify + decode {max(rec['roles']['decode_latency_s']):.3f} s "
+          f"({rec['roles']['decode_tokens_per_s']:.1f} tokens/s for 2); "
+          f"first + rest equal (a): {same}; flipped byte: "
+          f"{refused.status.value}; free pages "
+          f"{rec['roles']['free_pages']}")
+    check(all(same) and len(same) == 2, f"roles: streams equal (a): {same}")
+    check(rec["roles"]["resealed_equal"], "roles: resealed blob differs")
+    check(refused.status is Status.INTERNAL_ERROR
+          and "crc32c" in (refused.error or ""),
+          f"roles: flipped byte gave {refused.status.value}")
+    check(all(p.free_pages == p.num_pages for p in pools),
+          f"roles: free pages {rec['roles']['free_pages']}")
+
+    # (d) exhaustion: 40 pages hold one 512-token request, not two
+    small_pool = KVPagePool.for_model(model, EXHAUST_PAGES, PAGE_SIZE,
+                                      dtype=bf16)
+    server = InferenceServer(model, kv_pool=small_pool, max_batch=2,
+                             batch_window_s=0.05,
+                             generate_dtype=bf16).start()
+    try:
+        first_two = [f.result(timeout=600) for f in
+                     [server.submit_generate(p, MAX_NEW)
+                      for p in prompts[:2]]]
+        again = server.submit_generate(prompts[1], MAX_NEW).result(
+            timeout=600)
+    finally:
+        server.stop(timeout=60)
+    statuses = sorted(r.status.value for r in first_two)
+    rec["exhaustion"] = dict(statuses=statuses, again=again.status.value,
+                             exhaustions=small_pool.exhaustions,
+                             free_pages=small_pool.free_pages,
+                             latency_s=[r.latency_s for r in first_two],
+                             again_latency_s=again.latency_s)
+    print(f"paged exhaustion ({EXHAUST_PAGES} pages): {statuses} (latency "
+          f"{[round(r.latency_s, 3) for r in first_two]} s), then "
+          f"{again.status.value} ({again.latency_s:.3f} s); free pages "
+          f"{small_pool.free_pages}")
+    check(statuses == ["ok", "overloaded"] and again.ok
+          and small_pool.free_pages == small_pool.num_pages,
+          f"exhaustion: {rec['exhaustion']}")
+
+    # (e) beam search: bf16 B 2 x 4 beams; 1 beam = greedy; f32 scores
+    beam = tgen.make_beam_search(model, compute_dtype=bf16)
+    ids, scores = beam(params, prompts[:2], MAX_NEW, num_beams=BEAMS)
+    ids = ids.cpu().numpy()
+    _, beam_prefill = synced(lambda: beam(params, prompts[:2], 1,
+                                          num_beams=BEAMS))
+    _, beam_full = synced(lambda: beam(params, prompts[:2], MAX_NEW,
+                                       num_beams=BEAMS))
+    greedy = tgen.make_generate(model, compute_dtype=bf16)(
+        params, prompts[:2], MAX_NEW).cpu().numpy()
+    one, _ = beam(params, prompts[:2], MAX_NEW, num_beams=1)
+    one_equal = bool(np.array_equal(one.cpu().numpy(), greedy))
+    beam32 = tgen.make_beam_search(model)
+    p128 = prompts[2:3, :BEAM_F32_PROMPT]
+    f_ids, f_score = beam32(params, p128, BEAM_F32_NEW, num_beams=BEAMS)
+    with torch.no_grad():
+        lp = model(f_ids[:, :-1].long())
+    picked = torch.gather(lp[:, BEAM_F32_PROMPT - 1:], -1,
+                          f_ids[:, BEAM_F32_PROMPT:, None].long() - 1)
+    rescored = picked.sum().item()
+    score_rel = abs(rescored - f_score.item()) / abs(rescored)
+    rec["beam"] = dict(
+        ids_in_vocab=bool(ids[:, T0:].min() >= 1 and ids.max() <= V),
+        scores=scores.tolist(), finite=bool(torch.isfinite(scores).all()),
+        one_beam_equals_greedy=one_equal,
+        prefill_first_token_ms=beam_prefill * 1e3,
+        generate_ms=beam_full * 1e3,
+        decode_tokens_per_s=2 * (MAX_NEW - 1) / (beam_full - beam_prefill),
+        f32_score=f_score.item(), f32_rescored=rescored,
+        f32_score_rel_err=score_rel)
+    print(f"paged beam: bf16 B 2 x {BEAMS} beams: scores "
+          f"{[round(x, 3) for x in scores.tolist()]}, prefill+first token "
+          f"{beam_prefill * 1e3:.2f} ms, generate {beam_full * 1e3:.2f} ms, "
+          f"decode {rec['beam']['decode_tokens_per_s']:.1f} tokens/s; "
+          f"1 beam = greedy: {one_equal}; f32 score {f_score.item():.5f} vs "
+          f"rescored {rescored:.5f} (rel {score_rel:.2e}, tol "
+          f"{BEAM_SCORE_REL_TOL})")
+    check(rec["beam"]["ids_in_vocab"] and rec["beam"]["finite"],
+          f"beam: ids or scores {rec['beam']}")
+    check(one_equal, "beam: 1 beam differs from greedy")
+    check(score_rel <= BEAM_SCORE_REL_TOL, f"beam: f32 score rel {score_rel}")
+
+    # (f) the int8 KV cache
+    q8 = tgen.make_generate(model, compute_dtype=bf16, kv_dtype="int8")
+    full = gen(params, prompts, MAX_NEW).cpu().numpy()
+    count_from_zero()
+    out8 = q8(params, prompts, MAX_NEW).cpu().numpy()
+    launches = read_counts()
+    _, q8_prefill = synced(lambda: q8(params, prompts, 1))
+    _, q8_full = synced(lambda: q8(params, prompts, MAX_NEW))
+    agree = float((out8[:, T0:] == full[:, T0:]).mean())
+    rec["int8"] = dict(
+        launches=launches, agree_share=agree,
+        first_token_equal=bool((out8[:, T0] == full[:, T0]).all()),
+        ids_in_vocab=bool(out8.min() >= 1 and out8.max() <= V),
+        prefill_first_token_ms=q8_prefill * 1e3, generate_ms=q8_full * 1e3,
+        decode_tokens_per_s=n_req * (MAX_NEW - 1) / (q8_full - q8_prefill))
+    print(f"paged int8: first tokens equal bf16's: "
+          f"{rec['int8']['first_token_equal']}, share of tokens equal "
+          f"{agree:.4f}, launches flash {launches['flash_fwd']} layer_norm "
+          f"{launches['layer_norm_fwd']}; prefill+first token "
+          f"{q8_prefill * 1e3:.2f} ms, generate {q8_full * 1e3:.2f} ms, decode "
+          f"{rec['int8']['decode_tokens_per_s']:.1f} tokens/s (batch {n_req})")
+    check(rec["int8"]["first_token_equal"] and rec["int8"]["ids_in_vocab"],
+          f"int8: {rec['int8']}")
+    check(launches == want_launches(flash_fwd=L, layer_norm_fwd=per_ln),
+          f"int8: launches {launches}, want flash {L}, ln {per_ln}")
+    rec["launches"] = total
+    del model, pool, pools, small_pool
+    torch.cuda.empty_cache()
+    return rec, failures
 
 
 def _lm(torch, device, num_layers, max_len=None, seq_strategy="flash",
@@ -2947,10 +3316,16 @@ def main(argv=None) -> int:
     resnet, resnet_failures = train_resnet50(torch)
     failures += resnet_failures
 
+    # phase 9: paged serving — dense, windowed (K6 at block 16), prefill
+    # and decode roles, exhaustion, beam search, the int8 KV cache
+    paged, paged_failures = serve_paged(torch)
+    failures += paged_failures
+
     # launches summed over every path, each read from zero
     launches = {n: sum(b["launches"][n] for b in served["batches"])
                 + trained["launches"][n] + bs_trained["launches"][n]
-                + resnet["launches"][n] for n in launch_counters()}
+                + resnet["launches"][n] + paged["launches"][n]
+                for n in launch_counters()}
     for mm_path in mm_paths:
         for name, n in mm_path["launches"].items():
             launches[name] += n
@@ -3024,6 +3399,18 @@ def main(argv=None) -> int:
             for r in cases if r["case"] in VARIANT_CASES
             for name in [f"{kernel['name']} {VARIANT_CASES[r['case']]}"]
             if name in launches]
+    # K6 at the serving mask (block 16, 32 x 32 pages, window 8 + 1
+    # global): phase 3's case, its launches phase 9's windowed server's
+    for r in bs_rows:
+        if r["case"] == "serve_page16":
+            row = bs_pass(r, "fwd")
+            kernels[4]["variants"].append(dict(
+                name="block_sparse_fwd page16", route="cuda",
+                source=bs_src, replaces=kernels[4]["replaces"],
+                launches=paged["page16_k6_launches"],
+                max_abs_err=row["max_abs_err"], ms=row["ms"],
+                plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
+                bound_by=row["bound_by"], library_ms=row["library_ms"]))
 
     (out / "chip_smoke.json").write_text(json.dumps(dict(
         device=kind, nvidia_smi=smi, torch=torch.__version__,
@@ -3034,7 +3421,7 @@ def main(argv=None) -> int:
         flash_bwd=bwd_rows, block_sparse=bs_rows, block_sparse_mm=mm_rows,
         conv3x3=conv_rows, serving_path=served, training_path=trained,
         blocksparse_training_path=bs_trained, matmul_path=mm_paths,
-        resnet50_training_path=resnet,
+        resnet50_training_path=resnet, paged_serving_path=paged,
         kernels=kernels, failures=failures, seconds=time.perf_counter()
         - T_START), indent=1))
 

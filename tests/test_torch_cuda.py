@@ -15,7 +15,9 @@ they are built for), also at head dims the kernels are not built for
 forward, dK/dV and dQ at D padded to a multiple of 64, in both dtypes)
 and at more heads than one grid takes; a small
 TransformerLM served on
-the card in f32 (also at head dim 8, through the server), and small
+the card in f32 (also at head dim 8, through the server; paged, with
+the page window's prefill on K6 at block 16, across a bf16 handoff, by
+one beam, over the int8 cache), and small
 flash and block-sparse ones, a ResNet-CIFAR on K5 and a LeNet-5 trained
 three steps on the card in f32, are held against the same model on the
 CPU.
@@ -28,7 +30,10 @@ import torch
 
 from bigdl_tpu_torch import nn
 from bigdl_tpu_torch.dataset import Sample, array
-from bigdl_tpu_torch.models.generate import make_generate
+from bigdl_tpu_torch.models.generate import (_paged_machinery,
+                                             cached_generate,
+                                             cached_paged_decoder,
+                                             make_beam_search, make_generate)
 from bigdl_tpu_torch.models.lenet import LeNet5
 from bigdl_tpu_torch.models.resnet import ResNetCifar
 from bigdl_tpu_torch.models.transformer import TransformerLM
@@ -37,7 +42,8 @@ from bigdl_tpu_torch.ops import conv3x3
 from bigdl_tpu_torch.ops import flash_attention as fa
 from bigdl_tpu_torch.ops import layer_norm as ln
 from bigdl_tpu_torch.optim import SGD, LocalOptimizer, Trigger, max_iteration
-from bigdl_tpu_torch.serving import InferenceServer, Status
+from bigdl_tpu_torch.serving import InferenceServer, KVPagePool, Status
+from bigdl_tpu_torch.serving.pools import deserialize_handoff
 from bigdl_tpu_torch.utils.rng import RNG
 
 pytestmark = pytest.mark.cuda
@@ -2204,3 +2210,128 @@ def test_conv_models_train_on_card_like_cpu(cuda_device, which):
     for name, b in cpu_model.named_buffers():
         torch.testing.assert_close(card_stats[name].cpu(), b, rtol=1e-4,
                                    atol=1e-6)
+
+
+# ----------------------------------------------------------------------
+# paged serving, beam search and the int8 KV cache on the card
+# ----------------------------------------------------------------------
+
+def _serving_lm(device, seed=11):
+    return TransformerLM(64, embed_dim=64, num_heads=4, num_layers=2,
+                         max_len=128, seq_strategy="flash", device=device,
+                         generator=torch.Generator().manual_seed(seed))
+
+
+def _paged_stream(dec, params, prompt, max_new):
+    seq = dec.start(params, prompt)
+    toks = [seq.last]
+    for _ in range(max_new - 1):
+        toks.append(dec.step(params, seq))
+    seq.release()
+    return np.asarray(toks)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "f32"])
+def test_paged_stream_equals_unpaged_on_card(cuda_device, dtype):
+    """The paged decode gathers each request's pages into the view the
+    unpaged decode reads from its cache: the same values, shapes and ops
+    on the card, so the same tokens.  The prefill runs K1 once a
+    layer."""
+    model = _serving_lm(cuda_device)
+    params = model.param_tree()
+    pool = KVPagePool.for_model(model, 32, page_size=16, dtype=dtype)
+    dec = cached_paged_decoder(model, pool, compute_dtype=dtype)
+    gen = cached_generate(model, compute_dtype=dtype)
+    rng = np.random.RandomState(2)
+    for T0, max_new in ((40, 20), (64, 24)):
+        prompt = rng.randint(1, 65, T0).astype(np.int32)
+        before = fa.LAUNCHES.count
+        got = _paged_stream(dec, params, prompt, max_new)
+        assert fa.LAUNCHES.count - before == 2
+        want = gen(params, prompt[None], max_new).cpu().numpy()[0, T0:]
+        np.testing.assert_array_equal(got, want)
+    assert pool.free_pages == pool.num_pages
+    assert pool.arena[0].device == model.device
+
+
+def test_windowed_paged_prefill_runs_k6_at_block_16_on_card(cuda_device):
+    """A 96-token prompt (6 pages of 16) under a window of 2 + 1 global
+    binds: the prefill runs K6 once a layer over the page-window mask at
+    block 16, no K1, and its first-token logits equal the CPU's plain
+    version of the same prefill in f32."""
+    model = _serving_lm(cuda_device)
+    cpu = _serving_lm("cpu")
+    prompt = np.random.RandomState(3).randint(1, 65, 96).astype(np.int32)
+    shape = (8, 2, 4, 16, 16)
+    logits = []
+    for m in (model, cpu):
+        prefill, _ = _paged_machinery(m, 1, 2, 16, page_window=2,
+                                      page_globals=1)
+        k6, k1 = bs.LAUNCHES.count, fa.LAUNCHES.count
+        with torch.no_grad():
+            logits.append(prefill(
+                m.param_tree(), torch.as_tensor(prompt, device=m.device)[None],
+                torch.arange(6, device=m.device),
+                torch.zeros(shape, device=m.device),
+                torch.zeros(shape, device=m.device)).cpu())
+        if m is model:
+            assert (bs.LAUNCHES.count - k6, fa.LAUNCHES.count - k1) == (2, 0)
+    np.testing.assert_allclose(logits[0].numpy(), logits[1].numpy(), rtol=0,
+                               atol=1e-4)
+    # through the server: windowed stream ids in range, pages back
+    pool = KVPagePool.for_model(model, 16, page_size=16,
+                                dtype=torch.bfloat16)
+    server = InferenceServer(model, kv_pool=pool, kv_page_window=2,
+                             generate_dtype=torch.bfloat16).start()
+    before = bs.LAUNCHES.count
+    try:
+        res = server.submit_generate(prompt, 30).result(timeout=300)
+    finally:
+        assert server.stop(timeout=60)
+    assert res.ok and res.output.min() >= 1 and res.output.max() <= 64
+    assert bs.LAUNCHES.count - before == 2
+    assert pool.free_pages == pool.num_pages
+
+
+def test_bf16_handoff_round_trip_on_card(cuda_device):
+    """Prefill on one server, decode on another, bf16 arenas on the
+    card: the pages cross as their bit patterns and the stream equals
+    one server's."""
+    model = _serving_lm(cuda_device)
+    prompt = np.random.RandomState(4).randint(1, 65, 50).astype(np.int32)
+    pools = [KVPagePool.for_model(model, 16, page_size=16,
+                                  dtype=torch.bfloat16) for _ in range(3)]
+    servers = [InferenceServer(model, kv_pool=p, role=r,
+                               generate_dtype=torch.bfloat16).start()
+               for p, r in zip(pools, ("both", "prefill", "decode"))]
+    try:
+        want = servers[0].submit_generate(prompt, 12).result(timeout=300)
+        blob = servers[1].submit_prefill(prompt).result(timeout=300)
+        got = servers[2].submit_decode(blob.output, 12).result(timeout=300)
+    finally:
+        for s in servers:
+            assert s.stop(timeout=60)
+    assert want.ok and blob.ok and got.ok
+    first = deserialize_handoff(blob.output)["first_token"]
+    np.testing.assert_array_equal(np.concatenate([[first], got.output]),
+                                  want.output)
+    assert all(p.free_pages == p.num_pages for p in pools)
+
+
+def test_one_beam_is_greedy_and_int8_first_token_exact_on_card(cuda_device):
+    model = _serving_lm(cuda_device)
+    params = model.param_tree()
+    prompts = np.random.RandomState(5).randint(1, 65, (2, 30)).astype(
+        np.int32)
+    for dtype in (torch.bfloat16, torch.float32):
+        greedy = make_generate(model, compute_dtype=dtype)(
+            params, prompts, 10).cpu().numpy()
+        ids, scores = make_beam_search(model, compute_dtype=dtype)(
+            params, prompts, 10, num_beams=1)
+        np.testing.assert_array_equal(ids.cpu().numpy(), greedy)
+        assert torch.isfinite(scores).all()
+        q8 = make_generate(model, compute_dtype=dtype, kv_dtype="int8")(
+            params, prompts, 10).cpu().numpy()
+        np.testing.assert_array_equal(q8[:, :31], greedy[:, :31])
+        assert q8.min() >= 1 and q8.max() <= 64

@@ -128,13 +128,15 @@ def test_inference_server_matches_jax():
 
 def test_inference_server_refuses_unported_paths():
     _, tm = _pair()
-    with pytest.raises(NotImplementedError):
-        InferenceServer(tm, kv_pool=object())
+    for kw in (dict(mesh=object()), dict(trace_sink=object()),
+               dict(model_name="m")):
+        with pytest.raises(NotImplementedError):
+            InferenceServer(tm, **kw)
     server = InferenceServer(tm)
     with pytest.raises(NotImplementedError):
         server.swap_params(tm.param_tree())
     with pytest.raises(NotImplementedError):
-        server.submit_prefill(np.arange(1, 5))
+        server.submit_generate(np.arange(1, 5), 2, trace=object())
 
 
 def test_load_param_tree_round_trip_and_errors():
