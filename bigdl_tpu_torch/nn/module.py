@@ -139,10 +139,16 @@ class AbstractModule(torch.nn.Module):
         ``set_param_tree``."""
         return self._copy_tree(tree, "buffer", _path)
 
-    def evaluate(self):
-        """Switch to eval mode (the JAX package's no-arg ``evaluate``)."""
-        self.eval()
-        return self
+    def evaluate(self, *args, **kwargs):
+        """No arguments: switch to eval mode (the JAX package's no-arg
+        ``evaluate``).  With a dataset and validation methods: run them
+        (``optim.evaluator.Evaluator(self).test``)."""
+        if not args and not kwargs:
+            self.eval()
+            return self
+        from ..optim.evaluator import Evaluator
+
+        return Evaluator(self).test(*args, **kwargs)
 
     def train(self, mode: bool = True):
         """Switch to training mode: the JAX package's ``training()``,

@@ -25,11 +25,21 @@ positions it has filled; pool exhaustion sheds typed OVERLOADED.  A
 servers (``submit_prefill`` returns a crc-sealed KV handoff blob that
 ``submit_decode`` continues from, ``serving/pools.py``).
 
+``swap_params`` installs new parameters between batches: a candidate
+from a checkpoint file is crc32c-verified (a corrupt file is
+quarantined and refused), then faces a canary (the last good
+classification batch on the live forward, or a finiteness check of the
+params before any has been served); the install copies it into the
+model's parameters under the model lock, which the worker holds for
+each whole batch, so a batch in flight finishes on the old parameters
+and the next one sees the new.  ``resilience.faults.check_serving_fault``
+runs before every batch step and before the canary.
+
 Ported: start/drain/stop, admission, deadlines, the circuit breaker,
 micro-batching, ``submit`` and ``submit_generate``, the paged KV pool
-with its page window, and the prefill/decode roles.  Not ported yet,
-and raising when asked for: ``swap_params``, request tracing, tenants,
-and a device mesh.
+with its page window, the prefill/decode roles and the hot swap.  Not
+ported yet, and raising when asked for: request tracing, tenants, and a
+device mesh.
 """
 from __future__ import annotations
 
@@ -43,8 +53,11 @@ from typing import Optional
 import numpy as np
 import torch
 
+from ..resilience import faults as _faults
+from ..resilience.guards import tree_finite
 from ..resilience.preemption import PreemptionHandler
 from ..resilience.retry import RetryPolicy
+from ..utils.tree import tree_map
 from .batcher import MicroBatcher
 from .breaker import OPEN, PROBE, REJECT, CircuitBreaker
 from .metrics import ServingMetrics
@@ -56,6 +69,16 @@ log = logging.getLogger("bigdl_tpu")
 def _not_ported(what: str):
     return NotImplementedError(
         f"{what} is not ported to bigdl_tpu_torch yet")
+
+
+def _shapes(tree, prefix: str = "") -> dict:
+    """Dotted path -> shape of every leaf of a param tree."""
+    if isinstance(tree, dict):
+        out = {}
+        for k, v in tree.items():
+            out.update(_shapes(v, f"{prefix}{k}."))
+        return out
+    return {prefix[:-1]: tuple(torch.as_tensor(tree).shape)}
 
 
 class _BoundedQueue:
@@ -183,8 +206,15 @@ class InferenceServer:
         self._batch_window_s = float(batch_window_s)
         self._default_deadline_s = default_deadline_s
         self._poll_s = 0.02
+        # held by the worker for each whole batch and by a swap's
+        # install: a batch runs on one set of parameters
         self._model_lock = threading.Lock()
         self._feature_shape = None  # pinned by the first classify submit
+        # the last good classification batch: the hot swap's canary
+        self._canary_x: Optional[torch.Tensor] = None
+        #: seconds of the last swap: (verify, canary, install)
+        self.last_swap_s: Optional[tuple] = None
+        self.model_version: Optional[str] = None
         self._worker: Optional[threading.Thread] = None
         self._started = False
         self._draining = False
@@ -418,8 +448,85 @@ class InferenceServer:
             submitted_at=now, deadline=deadline,
             opts=(int(max_new), eos_id, pad_id)))
 
-    def swap_params(self, *args, **kwargs):
-        raise _not_ported("hot param swap (swap_params)")
+    # ------------------------------------------------------------ hot swap
+    def swap_params(self, params=None, path: Optional[str] = None,
+                    buffers=None, outcome: str = "installed",
+                    version: Optional[str] = None) -> bool:
+        """Install new params between batches; True on install.
+
+        ``path`` loads through the crc32c-verified checkpoint path
+        (:func:`.swap.load_verified_params`): a corrupt file is
+        quarantined and the swap refused.  The candidate then faces the
+        canary — the last good ``submit`` batch on the live forward, or
+        ``tree_finite(params)`` when none has been served; a canary that
+        raises or gives non-finite outputs raises :class:`SwapRejected`
+        and the server keeps its params.  ``outcome`` names the success
+        leg of the swap counter (``"rolled_back"`` for a rollback)."""
+        from ..utils.file_io import to_device
+        from .swap import SwapRejected, load_verified_params
+
+        if (params is None) == (path is None):
+            raise ValueError("pass exactly one of params/path")
+        t0 = time.perf_counter()
+        try:
+            if path is not None:
+                params = load_verified_params(path, device=self.device)
+            else:
+                params = to_device(params, self.device)
+            t1 = time.perf_counter()
+            # the install copies leaf by leaf: a tree that does not fit
+            # the model is refused before any parameter is touched
+            want, got = _shapes(self.model.param_tree()), _shapes(params)
+            if want != got:
+                moved = [k for k in want if k in got and want[k] != got[k]]
+                raise SwapRejected(
+                    f"candidate params do not fit the model: missing "
+                    f"{sorted(set(want) - set(got))[:4]}, extra "
+                    f"{sorted(set(got) - set(want))[:4]}, shapes "
+                    f"{moved[:4]}")
+            canary = self._canary_x
+            _faults.check_serving_fault(self.name)
+            if canary is not None:
+                with torch.no_grad():
+                    out = self.model.apply_fn(params, canary)
+                if not bool(tree_finite(out)):
+                    raise SwapRejected(
+                        "canary batch produced non-finite outputs")
+            elif not bool(tree_finite(params)):
+                raise SwapRejected("candidate params are non-finite")
+            t2 = time.perf_counter()
+        except SwapRejected:
+            self.metrics.record_swap(installed=False)
+            raise
+        except (KeyboardInterrupt, SystemExit):
+            raise
+        except Exception as e:
+            self.metrics.record_swap(installed=False)
+            raise SwapRejected(f"canary batch failed "
+                               f"({type(e).__name__}: {e})")
+        with self._model_lock:
+            self.model.set_param_tree(params)
+            if buffers is not None:
+                self.model.set_buffer_tree(buffers)
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+        self.last_swap_s = (t1 - t0, t2 - t1, time.perf_counter() - t2)
+        if version is not None:
+            self.model_version = str(version)
+        self.metrics.record_swap(outcome=outcome)
+        log.info("serving params hot-swapped%s%s",
+                 f" from {path}" if path else "",
+                 " (rollback)" if outcome == "rolled_back" else "")
+        return True
+
+    def current_params(self):
+        """Copies of the (params, buffers) trees now serving — what a
+        rollback re-installs."""
+        with self._model_lock:
+            return (tree_map(lambda t: t.detach().clone(),
+                             self.model.param_tree()),
+                    tree_map(lambda t: t.detach().clone(),
+                             self.model.buffer_tree()))
 
     # ------------------------------------------------------------ worker
     def _note_drain(self):
@@ -496,7 +603,10 @@ class InferenceServer:
                         self._queue.put_front(live[1:])
                         live = live[:1]
                     for kind, group in self._group(live):
-                        self._run_group(kind, group)
+                        # one batch on one set of parameters: a swap
+                        # installs between batches
+                        with self._model_lock:
+                            self._run_group(kind, group)
         finally:
             # hard stop (or a worker crash — nothing may hang): every
             # queued request resolves
@@ -529,11 +639,14 @@ class InferenceServer:
             return self._run_paged_group(kind, reqs)
         t_batch = time.monotonic()
         queued = [t_batch - r.submitted_at for r in reqs]
+        x = None
         try:
+            _faults.check_serving_fault(self.name)
             if kind == "classify":
                 x, bucket = self.batcher.coalesce(
                     [r.payload for r in reqs])
-                out = self.model(torch.as_tensor(x, device=self.device))
+                x = torch.as_tensor(x, device=self.device)
+                out = self.model(x)
                 # the host copy doubles as the execution barrier —
                 # device-side failures surface here, inside the try
                 out_np = out.float().cpu().numpy()
@@ -553,6 +666,8 @@ class InferenceServer:
                     Status.INTERNAL_ERROR, error=err, queued_s=q))
             return
         self.breaker.record_success()
+        if x is not None:
+            self._canary_x = x
         self.metrics.record_batch(len(reqs), bucket)
         for i, (r, q) in enumerate(zip(reqs, queued)):
             self._resolve(r, ServeResult(
@@ -611,8 +726,7 @@ class InferenceServer:
             self.model, pool, compute_dtype=self.generate_dtype,
             page_window=self.kv_page_window,
             page_globals=self.kv_page_globals)
-        with self._model_lock:
-            params = self.model.param_tree()
+        params = self.model.param_tree()
 
         def fail(req, queued_s, exc):
             fatal = self.policy.classify(exc) == "fatal"
@@ -638,6 +752,7 @@ class InferenceServer:
             queued_s = time.monotonic() - req.submitted_at
             seq = None
             try:
+                _faults.check_serving_fault(self.name)
                 if req.kind == "decode":
                     seq = self._import_handoff(req.payload)
                     # the first token rode the handoff: this dispatch
@@ -725,6 +840,7 @@ class InferenceServer:
                         error="deadline expired mid-decode"))
                     continue
                 try:
+                    _faults.check_serving_fault(self.name)
                     tok = decoder.step(params, e["seq"])
                 except PoolExhausted as exc:
                     abort(e, ServeResult(
@@ -762,8 +878,7 @@ class InferenceServer:
         self.batcher.buckets_dispatched.add(
             ("gen", bucket, prompts.shape[1], max_new))
         gen = cached_generate(self.model, compute_dtype=self.generate_dtype)
-        with self._model_lock:
-            params = self.model.param_tree()
+        params = self.model.param_tree()
         ids = gen(params, prompts, max_new, eos_id=eos_id, pad_id=pad_id)
         out = ids.cpu().numpy()[:, prompts.shape[1]:]  # generated tail
         return out, bucket

@@ -139,7 +139,31 @@ Phases; any failure exits non-zero:
    int8 KV cache, B 4: first tokens equal bf16's, launches K1 8 and K4
    17 x 32.  Every pool free at the end; prefill + first token ms,
    decode tokens/s and latency for each leg.
-10. a ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and as the
+10. train, validate, checkpoint, resume, swap — (a) phase 5's flagship
+   and batch, bf16, 8 iterations, with ``set_validation`` every 4 over 8
+   held-out sequences in batches of 4 (``Loss`` of the training
+   criterion), ``set_checkpoint`` every 4 (async writer), train and
+   validation summaries: model/optimMethod/trainState at 4 and 8, each
+   with a sidecar that verifies; the native crc32c = the pure-Python
+   table on the first 16 MB of ``model.8``; the validation loss finite
+   and equal (1e-6 relative) to ``evaluate_dataset`` by hand on each
+   step's restored params; "Loss" read back at every iteration;
+   launches a step K1 8, K2 8, K3 8, K4 17 (a validation step adds K1 8
+   and K4 17 per held-out batch); (b) the same 8 steps once more, then a
+   model from another seed resumed from step 4 and trained to 8: bit for
+   bit the uninterrupted run's params when two uninterrupted runs agree
+   bit for bit, else within phase 5's first-loss and decrease limits,
+   printing the first parameter that differs; (c) the XOR classifier
+   of ``tests/test_resilience.py:201`` on the card with two batches
+   scaled 100x under ``set_loss_spike_guard(k=2)``: at least one
+   rollback, every loss finite; (d) a bf16 server on the flagship (seed
+   0) serving two of phase 4's 512-token prompts, 16 new tokens (K1 8,
+   K4 272 a batch): ``swap_params(path=model.8)`` gives the streams of a
+   fresh server on the restored model, a bit-flipped copy is refused
+   (``SwapRejected``, quarantined, streams unchanged), ``poison_params``
+   is refused.  Leg bytes, serialize, blocked and background write
+   seconds, verify, resume, validation and swap seconds, crc GB/s.
+11. a ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and as the
    last line ``{"ok": true, "device": {...}}``.
 
 The full record goes to ``chiprun_out/chip_smoke.json``.
@@ -2111,7 +2135,7 @@ def serve_paged(torch):
         corrupt_error=refused.error,
         free_pages=[p.free_pages for p in pools])
     print(f"paged roles: blob {len(blobs[0].output)} bytes, seal "
-          f"{seal_s:.2f} s, verify {verify_s:.2f} s (crc32c, pure Python), "
+          f"{seal_s:.4f} s, verify {verify_s:.4f} s (native crc32c), "
           f"latency of prefill + seal {max(rec['roles']['prefill_latency_s']):.3f}"
           f" s, of verify + decode {max(rec['roles']['decode_latency_s']):.3f} s "
           f"({rec['roles']['decode_tokens_per_s']:.1f} tokens/s for 2); "
@@ -2228,7 +2252,7 @@ def serve_paged(torch):
 
 
 def _lm(torch, device, num_layers, max_len=None, seq_strategy="flash",
-        blocksparse=None):
+        blocksparse=None, seed=0):
     from bigdl_tpu_torch.models.transformer import TransformerLM
 
     cfg = FLAGSHIP
@@ -2237,7 +2261,7 @@ def _lm(torch, device, num_layers, max_len=None, seq_strategy="flash",
                          max_len=max_len or cfg["max_len"],
                          seq_strategy=seq_strategy, blocksparse=blocksparse,
                          output="logits", device=device,
-                         generator=torch.Generator().manual_seed(0))
+                         generator=torch.Generator().manual_seed(seed))
 
 
 def _lm_data(B: int, T: int):
@@ -3177,6 +3201,364 @@ def profile_resnet(torch):
     return rep
 
 
+# phase 10: train with validation and verified checkpoints, resume, roll
+# back a loss spike, swap a checkpoint into a live server
+VAL_SEQS, VAL_BATCH, CKPT_EVERY = 8, 4, 4
+SWAP_PROMPTS, SWAP_NEW = 2, 16
+CRC_CHECK_BYTES = 16 << 20
+VAL_REL_TOL = 1e-6
+
+
+def _params_cpu(model):
+    return {n: p.detach().to("cpu", copy=True)
+            for n, p in model.named_parameters()}
+
+
+def _val_data():
+    """VAL_SEQS held-out sequences of TRAIN_T ids (``RandomState(1)``)."""
+    import numpy as np
+
+    from bigdl_tpu_torch.dataset import Sample, array
+
+    V = FLAGSHIP["vocab"]
+    rng = np.random.RandomState(1)
+    x = rng.randint(1, V + 1, size=(VAL_SEQS, TRAIN_T)).astype(np.int32)
+    y = rng.randint(1, V + 1, size=(VAL_SEQS, TRAIN_T)).astype(np.int32)
+    return array([Sample(a, b) for a, b in zip(x, y)])
+
+
+def _val_methods():
+    from bigdl_tpu_torch import nn
+    from bigdl_tpu_torch.optim import Loss
+
+    return [Loss(nn.TimeDistributedCriterion(nn.CrossEntropyCriterion(),
+                                             True))]
+
+
+def _spike_leg(torch, tmp):
+    """(c): the XOR classifier of ``tests/test_resilience.py:201`` on the
+    card, two spiked batches under ``set_loss_spike_guard(k=2)``, a
+    checkpoint every iteration."""
+    import numpy as np
+
+    from bigdl_tpu_torch import nn
+    from bigdl_tpu_torch.dataset import Sample, SampleToMiniBatch, array
+    from bigdl_tpu_torch.optim import (SGD, LocalOptimizer, Trigger,
+                                       several_iteration)
+    from bigdl_tpu_torch.resilience import RetryPolicy, faults
+
+    rng = np.random.RandomState(0)
+    x = rng.rand(256, 2).astype(np.float32)
+    y = ((x[:, 0] > 0.5) ^ (x[:, 1] > 0.5)).astype(np.float32) + 1
+    g = torch.Generator().manual_seed(0)
+    model = nn.Sequential(nn.Linear(2, 2, device="cuda", generator=g),
+                          nn.LogSoftMax(device="cuda"), device="cuda")
+    fault = faults.ScaleInjector(at=257, n=128, scale=100.0)
+    ds = array([Sample(a, b) for a, b in zip(x, y)]) >> fault \
+        >> SampleToMiniBatch(64)
+    losses = []
+
+    def end(state):
+        if "loss" in state:
+            losses.append(state["loss"])
+        return state["neval"] > 12
+
+    opt = LocalOptimizer(model, ds, nn.ClassNLLCriterion(), batch_size=64)
+    opt.set_optim_method(SGD(learning_rate=0.1)).set_end_when(Trigger(end))
+    opt.set_checkpoint(str(tmp / "spike"), several_iteration(1))
+    opt.set_loss_spike_guard(k=2, ratio=2.0, warmup=2)
+    opt.set_retry_policy(RetryPolicy(max_retries=5, backoff_base=0.01))
+    opt.optimize()
+    finite = all(math.isfinite(v) for v in losses) and all(
+        bool(torch.isfinite(p).all()) for p in model.parameters())
+    return dict(rollbacks=opt.rollbacks, spiked_records=fault.fired,
+                iterations=opt.optim_method.state["neval"] - 1,
+                losses=losses, finite=finite)
+
+
+def train_checkpoint_swap(torch):
+    """Phase 10: (a) the flagship trained as in phase 5 with validation,
+    verified async checkpoints and summaries; (b) a fresh model resumed
+    from step 4; (c) a loss-spike rollback; (d) the step-8 checkpoint
+    swapped into a live bf16 server.  Returns (record, failures); the
+    record's ``launches`` are the whole phase's, read from zero."""
+    import tempfile
+
+    import numpy as np
+
+    from bigdl_tpu_torch.optim import several_iteration
+    from bigdl_tpu_torch.optim.evaluator import evaluate_dataset
+    from bigdl_tpu_torch.resilience import faults
+    from bigdl_tpu_torch.resilience.checkpoint import (sidecar_path,
+                                                       verify_file)
+    from bigdl_tpu_torch.serving import InferenceServer, SwapRejected
+    from bigdl_tpu_torch.utils import file_io
+    from bigdl_tpu_torch.utils.rng import RNG
+    from bigdl_tpu_torch.visualization import (TrainSummary,
+                                               ValidationSummary)
+    from bigdl_tpu_torch.visualization.crc32c import crc32c, crc32c_table
+
+    L, V = FLAGSHIP["num_layers"], FLAGSHIP["vocab"]
+    B, T, iters = TRAIN_BATCH, TRAIN_T, TRAIN_ITERS
+    failures, rec = [], {}
+
+    def check(ok, what):
+        if not ok:
+            failures.append(f"phase 10 {what}")
+
+    counters = launch_counters()
+    for c in counters.values():
+        c.reset()
+    tmp = Path(tempfile.mkdtemp(prefix="phase10-"))
+    t_phase = time.perf_counter()
+    try:
+        # (a) train with validation, checkpoints and summaries
+        model = _lm(torch, "cuda", L)
+        marks = []
+        opt = make_trainer(torch, model, B, T, iters, torch.bfloat16,
+                           lambda s: marks.append(
+                               (s.get("loss"),
+                                {n: c.count for n, c in counters.items()})))
+        ckpt = tmp / "ckpt"
+        opt.set_validation(several_iteration(CKPT_EVERY), _val_data(),
+                           _val_methods(), batch_size=VAL_BATCH)
+        opt.set_checkpoint(str(ckpt), several_iteration(CKPT_EVERY))
+        ts = TrainSummary(str(tmp / "logs"), "phase10")
+        vs = ValidationSummary(str(tmp / "logs"), "phase10")
+        opt.set_train_summary(ts).set_validation_summary(vs)
+        RNG().set_seed(1)
+        t0 = time.perf_counter()
+        opt.optimize()
+        torch.cuda.synchronize()
+        rec["train_s"] = time.perf_counter() - t0
+        losses = [m[0] for m in marks[1:]]
+        trained = _params_cpu(model)
+        step = want_launches(flash_fwd=L, flash_bwd_dkv=L, flash_bwd_dq=L,
+                             layer_norm_fwd=2 * L + 1)
+        val = {n: step[n] + {"flash_fwd": VAL_SEQS // VAL_BATCH * L,
+                             "layer_norm_fwd": VAL_SEQS // VAL_BATCH
+                             * (2 * L + 1)}.get(n, 0) for n in step}
+        per_step = [{n: b[1][n] - a[1][n] for n in b[1]}
+                    for a, b in zip(marks, marks[1:])]
+        bad = [(k + 1, s) for k, s in enumerate(per_step)
+               if s != (val if (k + 1) % CKPT_EVERY == 0 else step)]
+        check(not bad, f"launches per step {bad[:1]}, want {step} (and "
+                       f"{val} at a validation step)")
+        check(len(losses) == iters and all(map(math.isfinite, losses))
+              and opt.skipped_steps == 0, f"training losses {losses}")
+        names = sorted(os.listdir(ckpt))
+        legs = [f"{leg}.{n}" for n in (4, 8)
+                for leg in ("model", "optimMethod", "trainState")]
+        t0 = time.perf_counter()
+        verified = {f: verify_file(str(ckpt / f)) for f in legs}
+        rec["verify_s"] = time.perf_counter() - t0
+        check(all(v is True for v in verified.values()),
+              f"checkpoint files {names}, verified {verified}")
+        # the native crc against the plain table on the first 16 MB
+        with open(ckpt / "model.8", "rb") as f:
+            head = f.read(CRC_CHECK_BYTES)
+        t0 = time.perf_counter()
+        native_crc = crc32c(head)
+        native_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        table_crc = crc32c_table(head)
+        table_s = time.perf_counter() - t0
+        check(native_crc == table_crc, f"native crc {native_crc:08x} != "
+                                       f"table {table_crc:08x}")
+        rec.update(crc_bytes=len(head), native_crc_gb_s=len(head) / native_s
+                   / 1e9, table_crc_gb_s=len(head) / table_s / 1e9,
+                   native_crc_s=native_s, table_crc_s=table_s)
+        # summaries: Loss at every iteration, validation at 4 and 8
+        got_loss = ts.read_scalar("Loss")
+        check([s for s, _ in got_loss] == list(range(1, iters + 1))
+              and all(v == float(np.float32(x))
+                      for (_, v), x in zip(got_loss, losses)),
+              f"summary Loss {got_loss} vs losses {losses}")
+        vals = {s["step"]: s for s in opt.validation_stats}
+        check(sorted(vals) == [4, 8] and [s for s, _ in vs.read_scalar(
+            "Loss")] == [4, 8], f"validation at {sorted(vals)}")
+        ts.close()
+        vs.close()
+        # the validation loss against evaluate_dataset by hand on the
+        # restored params of each step
+        val_rel = {}
+        for n in (4, 8):
+            leg = file_io.load(str(ckpt / f"model.{n}"))
+            model.set_param_tree(leg["params"])
+            (res,) = evaluate_dataset(model, _val_data(), _val_methods(),
+                                      batch_size=VAL_BATCH)
+            want_v, got_v = res.result()[0], vals[n]["results"][0][0]
+            val_rel[n] = abs(got_v - want_v) / abs(want_v)
+            check(math.isfinite(got_v) and val_rel[n] <= VAL_REL_TOL,
+                  f"validation loss at {n}: {got_v} vs by hand {want_v}")
+        stats = opt.checkpoint_stats
+        rec.update(
+            losses=losses, checkpoint_files=names,
+            leg_bytes={k: v for s in stats for k, v in s["bytes"].items()},
+            serialize_s=[s["serialize_s"] for s in stats],
+            blocked_s=[s["blocked_s"] for s in stats],
+            background_write_s=opt.checkpoint_write_seconds,
+            background_writes=opt.checkpoint_writes,
+            validation={n: dict(loss=vals[n]["results"][0][0],
+                                seconds=vals[n]["seconds"],
+                                rel_vs_by_hand=val_rel[n]) for n in vals},
+            launches_per_step=per_step[0],
+            launches_validation_step=per_step[CKPT_EVERY - 1])
+        del model, opt
+        torch.cuda.empty_cache()
+        print(f"phase 10 (a): losses {[round(x, 4) for x in losses]}; "
+              f"legs {rec['leg_bytes']} bytes; serialize "
+              f"{[round(s, 3) for s in rec['serialize_s']]} s on the step's "
+              f"path, blocked {[round(s, 4) for s in rec['blocked_s']]} s, "
+              f"background write {rec['background_write_s']:.3f} s for "
+              f"{rec['background_writes']} checkpoints; verify of "
+              f"{len(legs)} files {rec['verify_s']:.3f} s; crc on "
+              f"{len(head)} bytes native {rec['native_crc_gb_s']:.3f} GB/s "
+              f"vs table {rec['table_crc_gb_s'] * 1e3:.3f} MB/s; "
+              f"validation { {n: (round(v['loss'], 6), round(v['seconds'], 3)) for n, v in rec['validation'].items()} } "
+              f"(loss, s), rel vs by hand {val_rel}")
+
+        # (b) resume: the uninterrupted steps once more, then a fresh
+        # model (another seed) resumed from step 4
+        again = _lm(torch, "cuda", L)
+        opt2 = make_trainer(torch, again, B, T, iters, torch.bfloat16)
+        RNG().set_seed(1)
+        opt2.optimize()
+        repeat = _params_cpu(again)
+        del again
+        deterministic = all(torch.equal(trained[n], repeat[n])
+                            for n in trained)
+        fresh = _lm(torch, "cuda", L, seed=7)
+        res_marks = []
+        opt3 = make_trainer(torch, fresh, B, T, iters, torch.bfloat16,
+                            lambda s: res_marks.append(s.get("loss")))
+        opt3.set_checkpoint(str(ckpt), several_iteration(10 * iters))
+        RNG().set_seed(999)
+        t0 = time.perf_counter()
+        restored = opt3.resume_from_checkpoint(CKPT_EVERY)
+        torch.cuda.synchronize()
+        rec["resume_s"] = time.perf_counter() - t0
+        check(restored and opt3.optim_method.state["neval"]
+              == CKPT_EVERY + 1, "resume_from_checkpoint(4)")
+        opt3.optimize()
+        resumed = _params_cpu(fresh)
+        del fresh, opt2, opt3
+        torch.cuda.empty_cache()
+        res_losses = res_marks[1:]
+        first_diff = next((n for n in trained
+                           if not torch.equal(trained[n], resumed[n])), None)
+        rec["resume"] = dict(deterministic=deterministic,
+                             losses=res_losses, first_differing=first_diff,
+                             uninterrupted_losses=losses[CKPT_EVERY:])
+        if deterministic:
+            check(first_diff is None and res_losses == losses[CKPT_EVERY:],
+                  f"resumed run differs from the uninterrupted one at "
+                  f"{first_diff}: {res_losses} vs {losses[CKPT_EVERY:]}")
+        else:
+            ref = losses[CKPT_EVERY:]
+            first_rel = abs(res_losses[0] - ref[0]) / abs(ref[0])
+            dec_rel = decrease_rel_err(res_losses, ref)
+            rec["resume"].update(first_rel=first_rel, decrease_rel=dec_rel)
+            check(first_rel <= TRAIN_FIRST_REL_TOL
+                  and dec_rel <= TRAIN_DECREASE_REL_TOL,
+                  f"resumed losses {res_losses} vs {ref}")
+        print(f"phase 10 (b): two uninterrupted runs bit for bit equal: "
+              f"{deterministic}; resume {rec['resume_s']:.3f} s; resumed "
+              f"losses {[round(x, 6) for x in res_losses]}, first "
+              f"parameter that differs from the uninterrupted run: "
+              f"{first_diff}")
+
+        # (c) loss-spike rollback on the card
+        rec["spike"] = _spike_leg(torch, tmp)
+        check(rec["spike"]["rollbacks"] >= 1 and rec["spike"]["finite"]
+              and rec["spike"]["spiked_records"] == 128,
+              f"spike rollback {rec['spike']}")
+        print(f"phase 10 (c): rollbacks {rec['spike']['rollbacks']}, "
+              f"{rec['spike']['iterations']} iterations, every loss "
+              f"finite: {rec['spike']['finite']}")
+
+        # (d) the step-8 checkpoint into a live bf16 server
+        prompts = np.random.RandomState(0).randint(
+            1, V + 1, size=(BATCH, PROMPT_LENS[0])).astype(
+                np.int32)[:SWAP_PROMPTS]
+        serve_launch = want_launches(flash_fwd=L,
+                                     layer_norm_fwd=(2 * L + 1) * SWAP_NEW)
+
+        def streams(server, counted=False):
+            before = {n: c.count for n, c in counters.items()}
+            futs = [server.submit_generate(p, SWAP_NEW) for p in prompts]
+            res = [f.result(timeout=600) for f in futs]
+            check(all(r.ok for r in res),
+                  f"swap statuses {[r.status.value for r in res]}")
+            if counted:
+                got = {n: c.count - before[n] for n, c in counters.items()}
+                check(got == serve_launch, f"served batch launches {got}, "
+                                           f"want {serve_launch}")
+            return [np.asarray(r.output).tolist() for r in res]
+
+        server = InferenceServer(_flagship(torch, "cuda"), max_batch=BATCH,
+                                 generate_dtype=torch.bfloat16).start()
+        try:
+            old = streams(server, counted=True)
+            assert server.swap_params(path=str(ckpt / "model.8"))
+            swap_s = server.last_swap_s
+            new = streams(server, counted=True)
+            bad = ckpt / "model.9"
+            shutil.copyfile(ckpt / "model.8", bad)
+            shutil.copyfile(sidecar_path(str(ckpt / "model.8")),
+                            sidecar_path(str(bad)))
+            faults.bit_flip(str(bad))
+            try:
+                server.swap_params(path=str(bad))
+                flipped = "installed"
+            except SwapRejected as e:
+                flipped = f"rejected: {e}"
+            after_flip = streams(server)
+            try:
+                server.swap_params(params=faults.poison_params(
+                    server.model.param_tree()))
+                poisoned = "installed"
+            except SwapRejected as e:
+                poisoned = f"rejected: {e}"
+            after_poison = streams(server)
+        finally:
+            server.stop(timeout=120)
+        ref_model = _flagship(torch, "cuda")
+        ref_model.set_param_tree(file_io.load(str(ckpt / "model.8"))
+                                 ["params"])
+        ref_server = InferenceServer(ref_model, max_batch=BATCH,
+                                     generate_dtype=torch.bfloat16).start()
+        try:
+            want_new = streams(ref_server)
+        finally:
+            ref_server.stop(timeout=120)
+        del ref_model
+        torch.cuda.empty_cache()
+        check(new == want_new, "swapped streams differ from a fresh "
+                               "server's on the restored model")
+        check(flipped.startswith("rejected") and "crc32c" in flipped
+              and os.path.exists(str(bad) + ".corrupt")
+              and after_flip == new, f"bit-flipped swap: {flipped}")
+        check(poisoned.startswith("rejected") and after_poison == new,
+              f"poisoned swap: {poisoned}")
+        rec["swap"] = dict(verify_s=swap_s[0], canary_s=swap_s[1],
+                           install_s=swap_s[2], streams_changed=new != old,
+                           equal_fresh=new == want_new, bit_flip=flipped,
+                           poison=poisoned, first_ids=[s[:8] for s in new])
+        print(f"phase 10 (d): swap verify {swap_s[0]:.3f} s, canary "
+              f"{swap_s[1]:.4f} s, install {swap_s[2]:.4f} s; streams = a "
+              f"fresh server's on model.8: {new == want_new} (changed: "
+              f"{new != old}); bit flip {flipped[:60]}; poison "
+              f"{poisoned[:60]}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    rec["launches"] = {n: c.count for n, c in counters.items()}
+    rec["seconds"] = time.perf_counter() - t_phase
+    print(f"phase 10: {rec['seconds']:.1f} s; launches "
+          f"{ {n: v for n, v in rec['launches'].items() if v} }")
+    return rec, failures
+
+
 # the phase-3 cases the ``kernels`` line's variants read, and the tag of
 # their counters (a kernel's name, then the tag)
 VARIANT_CASES = {"f32_D192": "f32 D 192", "f32_D256": "f32 D 256",
@@ -3196,7 +3578,7 @@ def main(argv=None) -> int:
                     help="after the build, profile the served generator, "
                          "one training step, one block-sparse and one "
                          "flash training step at T 4096, and one ResNet-50 "
-                         "step instead of phases 3-9")
+                         "step instead of phases 3-10")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         return fail("torch.cuda.is_available() is false; a CUDA card is "
@@ -3321,10 +3703,16 @@ def main(argv=None) -> int:
     paged, paged_failures = serve_paged(torch)
     failures += paged_failures
 
+    # phase 10: train with validation and verified checkpoints, resume,
+    # a loss-spike rollback, the hot swap of a checkpoint into a server
+    phase10, phase10_failures = train_checkpoint_swap(torch)
+    failures += phase10_failures
+
     # launches summed over every path, each read from zero
     launches = {n: sum(b["launches"][n] for b in served["batches"])
                 + trained["launches"][n] + bs_trained["launches"][n]
                 + resnet["launches"][n] + paged["launches"][n]
+                + phase10["launches"][n]
                 for n in launch_counters()}
     for mm_path in mm_paths:
         for name, n in mm_path["launches"].items():
@@ -3422,7 +3810,7 @@ def main(argv=None) -> int:
         conv3x3=conv_rows, serving_path=served, training_path=trained,
         blocksparse_training_path=bs_trained, matmul_path=mm_paths,
         resnet50_training_path=resnet, paged_serving_path=paged,
-        kernels=kernels, failures=failures, seconds=time.perf_counter()
+        checkpoint_swap_path=phase10, kernels=kernels, failures=failures, seconds=time.perf_counter()
         - T_START), indent=1))
 
     if failures:

@@ -20,7 +20,10 @@ the page window's prefill on K6 at block 16, across a bf16 handoff, by
 one beam, over the int8 cache), and small
 flash and block-sparse ones, a ResNet-CIFAR on K5 and a LeNet-5 trained
 three steps on the card in f32, are held against the same model on the
-CPU.
+CPU.  Checkpoints written from card tensors load in a process that
+sees no card, a resumed run on the card is held against an
+uninterrupted one, and a bf16 server on the card swaps in a verified
+checkpoint.
 """
 import math
 
@@ -41,7 +44,8 @@ from bigdl_tpu_torch.ops import block_sparse as bs
 from bigdl_tpu_torch.ops import conv3x3
 from bigdl_tpu_torch.ops import flash_attention as fa
 from bigdl_tpu_torch.ops import layer_norm as ln
-from bigdl_tpu_torch.optim import SGD, LocalOptimizer, Trigger, max_iteration
+from bigdl_tpu_torch.optim import (SGD, LocalOptimizer, Trigger, max_iteration,
+                                   several_iteration)
 from bigdl_tpu_torch.serving import InferenceServer, KVPagePool, Status
 from bigdl_tpu_torch.serving.pools import deserialize_handoff
 from bigdl_tpu_torch.utils.rng import RNG
@@ -2335,3 +2339,139 @@ def test_one_beam_is_greedy_and_int8_first_token_exact_on_card(cuda_device):
             params, prompts, 10).cpu().numpy()
         np.testing.assert_array_equal(q8[:, :31], greedy[:, :31])
         assert q8.min() >= 1 and q8.max() <= 64
+
+
+# ----------------------------------------------------------------------
+# checkpoints, resume and the hot swap on the card
+# ----------------------------------------------------------------------
+
+def _ckpt_lm(device, seed):
+    return TransformerLM(64, embed_dim=64, num_heads=4, num_layers=2,
+                         max_len=32, seq_strategy="flash", output="logits",
+                         device=device,
+                         generator=torch.Generator().manual_seed(seed))
+
+
+def _ckpt_trainer(model, ckpt_dir, steps, method):
+    rng = np.random.RandomState(2)
+    x = rng.randint(1, 65, size=(16, 32)).astype(np.int32)
+    y = rng.randint(1, 65, size=(16, 32)).astype(np.int32)
+    opt = LocalOptimizer(model, array([Sample(a, b) for a, b in zip(x, y)]),
+                         nn.TimeDistributedCriterion(
+                             nn.CrossEntropyCriterion(), True), batch_size=4)
+    opt.set_optim_method(method)
+    opt.set_end_when(max_iteration(steps))
+    opt.set_checkpoint(ckpt_dir, several_iteration(1))
+    return opt
+
+
+def test_checkpoint_from_card_loads_in_a_cpu_only_process(cuda_device,
+                                                          tmp_path):
+    """Legs written from card tensors (params, Adam's slots) unpickle in a
+    process that sees no card, every tensor on the CPU."""
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    from bigdl_tpu_torch.optim import Adam
+
+    model = _ckpt_lm(cuda_device, 0)
+    opt = _ckpt_trainer(model, str(tmp_path), 2, Adam(1e-3))
+    opt.optimize()
+    want = sum(float(p.detach().double().sum()) for p in model.parameters())
+    code = (
+        "import torch\n"
+        "from bigdl_tpu_torch.resilience.checkpoint import "
+        "verify_and_load_latest\n"
+        "from bigdl_tpu_torch.utils.tree import tree_leaves\n"
+        "assert not torch.cuda.is_available()\n"
+        f"d = {str(tmp_path)!r}\n"
+        "leg, p = verify_and_load_latest(d, 'model')\n"
+        "om, _ = verify_and_load_latest(d, 'optimMethod')\n"
+        "ts, _ = verify_and_load_latest(d, 'trainState')\n"
+        "ts_ok = ts['records_this_epoch'] == 8\n"
+        "leaves = tree_leaves(leg['params']) + tree_leaves(om._slots)\n"
+        "assert all(t.device.type == 'cpu' for t in leaves)\n"
+        "print(p.rsplit('.', 1)[-1], int(om._slots['t']), ts_ok,\n"
+        "      repr(sum(float(t.double().sum())\n"
+        "               for t in tree_leaves(leg['params']))))\n")
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="",
+               PYTHONPATH=str(Path(__file__).resolve().parents[1]))
+    out = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-2000:]
+    step, t, ts_ok, total = out.stdout.split()
+    assert (step, t, ts_ok) == ("2", "2", "True")
+    assert float(total) == want
+
+
+def test_resume_on_card(cuda_device, tmp_path):
+    """2 steps + resume + 2 steps against 4 uninterrupted ones on the
+    card: bit for bit when two uninterrupted runs agree bit for bit
+    (the card's kernels need not be deterministic), else within the
+    card-vs-CPU training limit."""
+    def run(seed, resume=None, steps=4, ckpt="a"):
+        model = _ckpt_lm(cuda_device, seed)
+        opt = _ckpt_trainer(model, str(tmp_path / ckpt), steps,
+                            SGD(0.05, momentum=0.9))
+        RNG().set_seed(999 if resume else 1)
+        if resume is not None:
+            assert opt.resume_from_checkpoint(resume)
+        opt.optimize()
+        return [p.detach().cpu() for p in model.parameters()]
+
+    ref = run(0)
+    again = run(0, ckpt="b")
+    got = run(5, resume=2)
+    if all(torch.equal(a, b) for a, b in zip(ref, again)):
+        assert all(torch.equal(a, b) for a, b in zip(ref, got))
+    else:
+        for a, b in zip(ref, got):
+            np.testing.assert_allclose(b.numpy(), a.numpy(), rtol=2e-3,
+                                       atol=1e-6)
+
+
+def test_swap_from_checkpoint_on_card(cuda_device, tmp_path):
+    """A bf16 server on the card swaps in a verified checkpoint written
+    from card tensors: the next stream equals a fresh server's on the
+    new params; a bit-flipped file is refused and quarantined."""
+    import os
+
+    from bigdl_tpu_torch.resilience import faults
+    from bigdl_tpu_torch.serving import SwapRejected
+    from bigdl_tpu_torch.utils import file_io
+
+    prompts = np.random.RandomState(6).randint(1, 65, (2, 12)).astype(
+        np.int32)
+
+    def streams(server):
+        futs = [server.submit_generate(p, 8) for p in prompts]
+        res = [f.result(timeout=300) for f in futs]
+        assert all(r.ok for r in res)
+        return [r.output.tolist() for r in res]
+
+    new = _ckpt_lm(cuda_device, 3)
+    path = str(tmp_path / "model.8")
+    file_io.save({"params": new.param_tree(), "buffers": new.buffer_tree()},
+                 path, atomic=True, checksum=True)
+    bad = str(tmp_path / "model.9")
+    file_io.save({"params": _ckpt_lm(cuda_device, 4).param_tree(),
+                  "buffers": new.buffer_tree()}, bad, atomic=True,
+                 checksum=True)
+    faults.bit_flip(bad)
+    server = InferenceServer(_ckpt_lm(cuda_device, 0),
+                             generate_dtype=torch.bfloat16).start()
+    fresh = InferenceServer(new, generate_dtype=torch.bfloat16).start()
+    try:
+        old = streams(server)
+        assert server.swap_params(path=path)
+        got = streams(server)
+        with pytest.raises(SwapRejected, match="crc32c"):
+            server.swap_params(path=bad)
+        assert streams(server) == got
+        want = streams(fresh)
+    finally:
+        assert server.stop(timeout=60) and fresh.stop(timeout=60)
+    assert got == want and got != old
+    assert os.path.exists(bad + ".corrupt")

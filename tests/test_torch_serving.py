@@ -134,8 +134,6 @@ def test_inference_server_refuses_unported_paths():
             InferenceServer(tm, **kw)
     server = InferenceServer(tm)
     with pytest.raises(NotImplementedError):
-        server.swap_params(tm.param_tree())
-    with pytest.raises(NotImplementedError):
         server.submit_generate(np.arange(1, 5), 2, trace=object())
 
 

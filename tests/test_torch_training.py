@@ -276,9 +276,8 @@ def test_unported_optimizer_options_raise():
     opt = LocalOptimizer(tnn.Linear(6, 3, device="cpu"),
                          _linear_problem(False), tnn.CrossEntropyCriterion(),
                          batch_size=8)
-    for call in (lambda: opt.set_checkpoint("/nonexistent", None),
-                 lambda: opt.set_validation(None, None, []),
-                 lambda: opt.set_retry_policy(None),
+    for call in (lambda: opt.set_checkpoint("/nonexistent", None,
+                                            format="orbax"),
                  lambda: opt.set_telemetry(None),
                  lambda: opt.set_elastic(None)):
         with pytest.raises(NotImplementedError):
