@@ -3,8 +3,8 @@
 Ported: ``ln|rms`` norms, ``gelu|swiglu`` MLPs, learned positions or
 rope, GQA, the ``dense``, ``flash`` and ``blocksparse`` attention
 strategies (``blocksparse={...}`` passes ``pattern``, ``window``,
-``globals``, ``stride`` and ``block`` to each block's mask builder).
-MoE, remat and dropout > 0 come with later slices and raise.
+``globals``, ``stride`` and ``block`` to each block's mask builder),
+and residual dropout.  MoE and remat come with later slices and raise.
 """
 from __future__ import annotations
 
@@ -15,7 +15,8 @@ import torch.nn.functional as F
 
 from .. import nn
 from ..device import DeviceLike
-from ..nn.module import Container
+from ..nn.dropout import dropout
+from ..nn.module import Container, current_generator
 from ..parallel.tensor_parallel import ColumnParallelLinear, RowParallelLinear
 
 
@@ -34,17 +35,22 @@ def _norm_factory(norm: str, norm_eps, device):
     return lambda d: nn.LayerNorm(d, eps=eps, device=device)
 
 
-def _unported(moe_experts: int, dropout: float, remat: bool = False):
+def _unported(moe_experts: int, remat: bool = False):
     if moe_experts:
         raise NotImplementedError("moe_experts > 0 is not ported yet")
-    if dropout > 0.0:
-        raise NotImplementedError("dropout > 0 is not ported yet")
     if remat:
         raise NotImplementedError("remat is not ported yet")
 
 
 class TransformerBlock(Container):
-    """Pre-norm residual block: x + MHA(LN(x)); x + MLP(LN(x))."""
+    """Pre-norm residual block: x + drop(MHA(LN(x))); x + drop(MLP(LN(x))).
+
+    ``dropout`` > 0 zeroes each element of the attention branch and of
+    the MLP branch before its residual add with that probability (the
+    kept ones scaled by 1 / (1 - dropout)), in training only, as the JAX
+    block does (bigdl_tpu/models/transformer.py:133-176).  The masks
+    come from the forward's generator (``nn/module.py``), attention's
+    first, block by block."""
 
     def __init__(self, embed_dim: int, num_heads: int, mlp_dim: int,
                  causal: bool = True, seq_strategy: str = "dense",
@@ -62,7 +68,7 @@ class TransformerBlock(Container):
             raise ValueError(f"norm {norm!r} not in ('ln', 'rms')")
         if mlp not in ("gelu", "swiglu"):
             raise ValueError(f"mlp {mlp!r} not in ('gelu', 'swiglu')")
-        _unported(moe_experts, dropout)
+        _unported(moe_experts)
         Norm = _norm_factory(norm, norm_eps, device)
         # llama convention: bias-free attention (and swiglu) projections
         with_bias = (attn_bias if attn_bias is not None
@@ -103,6 +109,12 @@ class TransformerBlock(Container):
                                        device=device, generator=generator)]
         super().__init__(*mods, device=device)
         self.mlp_kind = mlp
+        self.dropout = float(dropout)
+
+    def _drop(self, v):
+        if self.dropout <= 0.0 or not self.training:
+            return v
+        return dropout(v, self.dropout, current_generator(v.device))
 
     def mlp(self, params, h):
         """The MLP on the ln2 output (gelu or swiglu), no residual."""
@@ -115,9 +127,9 @@ class TransformerBlock(Container):
 
     def apply_fn(self, params, x):
         h = self[0].apply_fn(params["0"], x)
-        x = x + self[1].apply_fn(params["1"], h)
+        x = x + self._drop(self[1].apply_fn(params["1"], h))
         h = self[2].apply_fn(params["2"], x)
-        return x + self.mlp(params, h)
+        return x + self._drop(self.mlp(params, h))
 
 
 class TransformerLM(Container):
@@ -145,10 +157,11 @@ class TransformerLM(Container):
                  generator: Optional[torch.Generator] = None):
         if output not in ("log_probs", "logits"):
             raise ValueError(f"output {output!r} not in (log_probs, logits)")
-        _unported(moe_experts, dropout, remat)
+        _unported(moe_experts, remat)
         mlp_dim = mlp_dim or 4 * embed_dim
         blocks = [TransformerBlock(embed_dim, num_heads, mlp_dim, causal,
-                                   seq_strategy, model_axis, norm=norm,
+                                   seq_strategy, model_axis,
+                                   dropout=dropout, norm=norm,
                                    mlp=mlp, num_kv_heads=num_kv_heads,
                                    rope=rope, rope_theta=rope_theta,
                                    attn_bias=attn_bias, mlp_bias=mlp_bias,

@@ -1,15 +1,47 @@
-"""bigdl_tpu_torch.nn — the layers and criterions of the serving,
-training and conv slices."""
-from .activations import LogSoftMax, ReLU, Tanh
+"""bigdl_tpu_torch.nn — the layers and criterions of the port."""
+from .activations import (Abs, Clamp, ELU, Exp, HardShrink, HardTanh,
+                          LeakyReLU, Log, LogSigmoid, LogSoftMax, Max, Mean,
+                          Min, Power, PReLU, ReLU, ReLU6, RReLU, Sigmoid,
+                          SoftMax, SoftMin, SoftPlus, SoftShrink, SoftSign,
+                          Sqrt, Square, Sum, Tanh, TanhShrink, Threshold)
 from .attention import MultiHeadAttention, rope_rotate
-from .containers import Concat, ConcatTable, Identity, Sequential
+from .containers import (Bottle, Concat, ConcatTable, Echo, Identity,
+                         MapTable, ParallelTable, Sequential)
 from .conv import SpatialConvolution
-from .criterion import (AbstractCriterion, ClassNLLCriterion,
-                        CrossEntropyCriterion, TimeDistributedCriterion)
-from .linear import Linear, LookupTable, MulConstant
-from .module import AbstractModule, Container, TensorModule
-from .normalization import (BatchNormalization, LayerNorm, RMSNorm,
-                            SpatialBatchNormalization)
+from .criterion import (AbsCriterion, AbstractCriterion, BCECriterion,
+                        ClassNLLCriterion, ClassSimplexCriterion,
+                        CosineDistanceCriterion, CosineEmbeddingCriterion,
+                        CrossEntropyCriterion, DiceCoefficientCriterion,
+                        DistKLDivCriterion, HingeEmbeddingCriterion, L1Cost,
+                        L1HingeEmbeddingCriterion, MarginCriterion,
+                        MarginRankingCriterion, MSECriterion, MultiCriterion,
+                        MultiLabelMarginCriterion,
+                        MultiLabelSoftMarginCriterion, MultiMarginCriterion,
+                        ParallelCriterion, SmoothL1Criterion,
+                        SmoothL1CriterionWithWeights, SoftmaxWithCriterion,
+                        SoftMarginCriterion, TimeDistributedCriterion)
+from .dropout import Dropout
+from .initialization import (BilinearFiller, ConstInitMethod,
+                             InitializationMethod, MsraFiller, Ones,
+                             RandomNormal, RandomUniform, VariableFormat,
+                             Xavier, Zeros)
+from .linear import (Add, AddConstant, Bilinear, CAdd, CMul, Cosine,
+                     Euclidean, Linear, LookupTable, MM, Mul, MulConstant, MV)
+from .module import (AbstractModule, Container, TensorModule, load_module,
+                     rng_scope)
+from .normalization import (BatchNormalization, ImageNormalize, L1Penalty,
+                            LayerNorm, Normalize, RMSNorm,
+                            SpatialBatchNormalization,
+                            SpatialContrastiveNormalization,
+                            SpatialCrossMapLRN, SpatialDivisiveNormalization,
+                            SpatialSubtractiveNormalization)
 from .pooling import SpatialAveragePooling, SpatialMaxPooling
-from .shape_ops import Reshape, View
-from .table_ops import CAddTable
+from .shape_ops import (Contiguous, CosineDistance, DotProduct, FlattenTable,
+                        GradientReversal, Index, InferReshape, JoinTable,
+                        MaskedSelect, MixtureTable, Narrow, NarrowTable, Pack,
+                        Padding, PairwiseDistance, Replicate, Reshape,
+                        Reverse, Scale, Select, SelectTable,
+                        SpatialZeroPadding, SplitTable, Squeeze, Transpose,
+                        Unsqueeze, View)
+from .table_ops import (CAddTable, CDivTable, CMaxTable, CMinTable,
+                        CMulTable, CSubTable)

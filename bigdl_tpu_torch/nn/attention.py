@@ -108,10 +108,12 @@ class MultiHeadAttention(TensorModule):
         kv = self.num_kv_heads * self.head_dim
         for name, rows in (("wq", E), ("wk", kv), ("wv", kv), ("wo", E)):
             self._register_param(name, Xavier().init((rows, E), IN_OUT,
-                                                     generator))
+                                                     generator),
+                                 Xavier(), IN_OUT)
         if with_bias:
             for name, n in (("bq", E), ("bk", kv), ("bv", kv), ("bo", E)):
-                self._register_param(name, Zeros().init((n,), ONE_D))
+                self._register_param(name, Zeros().init((n,), ONE_D),
+                                     Zeros(), ONE_D)
 
     def _split(self, x, heads=None):
         B, T, _ = x.shape

@@ -1,7 +1,6 @@
-"""Containers (counterpart of ``bigdl_tpu/nn/containers.py``, trimmed to
-what the conv slice's models use: ``Sequential``, ``Concat``,
-``ConcatTable`` and ``Identity``; reference nn/Sequential.scala:30,
-Concat.scala, ConcatTable.scala).
+"""Containers (counterpart of ``bigdl_tpu/nn/containers.py``; reference
+nn/Sequential.scala:30, Concat.scala, ConcatTable.scala,
+ParallelTable.scala, MapTable.scala, Bottle.scala, Echo.scala).
 
 Each container's ``apply_fn`` composes its children's: child ``i`` gets
 ``params[str(i)]``, the key it is registered under.  Children with state
@@ -13,7 +12,7 @@ from __future__ import annotations
 import torch
 
 from ..utils.table import Table
-from .module import Container, TensorModule
+from .module import AbstractModule, Container, TensorModule
 
 
 class Sequential(Container):
@@ -54,4 +53,59 @@ class Identity(TensorModule):
     """reference nn/Identity.scala"""
 
     def _compute(self, params, x):
+        return x
+
+
+class ParallelTable(Container):
+    """Child i applied to entry i of the input Table (reference
+    nn/ParallelTable.scala)."""
+
+    def apply_fn(self, params, x):
+        out = Table()
+        for i, (key, m) in enumerate(self.named_children()):
+            out[i + 1] = m.apply_fn(params[key], x[i + 1])
+        return out
+
+
+class MapTable(Container):
+    """One shared child applied to every entry of the input Table
+    (reference nn/MapTable.scala): one parameter tree, so the weights
+    are shared."""
+
+    def __init__(self, module: AbstractModule, device=None):
+        super().__init__(module, device=device)
+
+    def apply_fn(self, params, x):
+        m = self[0]
+        out = Table()
+        for key in sorted(x.keys()):
+            out[key] = m.apply_fn(params["0"], x[key])
+        return out
+
+
+class Bottle(Container):
+    """Fold the leading dims into one, apply the child, unfold them
+    (reference nn/Bottle.scala)."""
+
+    def __init__(self, module: AbstractModule, n_input_dim: int = 2,
+                 n_output_dim: int = 2, device=None):
+        super().__init__(module, device=device)
+        self.n_input_dim = n_input_dim
+        self.n_output_dim = n_output_dim
+
+    def apply_fn(self, params, x):
+        if x.dim() <= self.n_input_dim:
+            return self[0].apply_fn(params["0"], x)
+        cut = x.dim() - self.n_input_dim + 1
+        out = self[0].apply_fn(params["0"],
+                               x.reshape((-1,) + tuple(x.shape[cut:])))
+        return out.reshape(tuple(x.shape[:cut]) + tuple(out.shape[1:]))
+
+
+class Echo(TensorModule):
+    """Print the shape of the activations that pass (reference
+    nn/Echo.scala); the identity."""
+
+    def _compute(self, params, x):
+        print(f"{self.get_name()} shape: {tuple(x.shape)}")
         return x

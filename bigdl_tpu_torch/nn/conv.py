@@ -28,6 +28,7 @@ import torch.nn.functional as F
 from ..device import DeviceLike
 from ..ops.conv3x3 import conv3x3_s1_same
 from ..ops.conv_gemm import conv2d_gemm_nchw, same_pads
+from ..utils.engine import get_property
 from .initialization import ONE_D, OUT_IN_KW_KH, RandomUniform
 from .module import TensorModule
 
@@ -57,13 +58,15 @@ class SpatialConvolution(TensorModule):
         self.pad_w, self.pad_h = pad_w, pad_h
         self.n_group = n_group
         self.with_bias = with_bias
-        self.conv_impl = "xla"
+        # None: the ``bigdl.conv.impl`` property at each call, "xla"
+        # when unset (bigdl_tpu/nn/conv.py:89-90)
+        self.conv_impl = None
         shape = (n_output_plane, n_input_plane // n_group, kernel_h, kernel_w)
         self._register_param("weight", RandomUniform().init(
-            shape, OUT_IN_KW_KH, generator))
+            shape, OUT_IN_KW_KH, generator), RandomUniform(), OUT_IN_KW_KH)
         if with_bias:
             self._register_param("bias", RandomUniform().init(
-                (n_output_plane,), ONE_D, generator))
+                (n_output_plane,), ONE_D, generator), RandomUniform(), ONE_D)
 
     def set_conv_impl(self, impl: str):
         if impl not in IMPLS:
@@ -91,6 +94,8 @@ class SpatialConvolution(TensorModule):
 
     def _conv(self, x, w):
         impl = self.conv_impl
+        if impl is None:
+            impl = get_property("bigdl.conv.impl", "xla")
         if impl == "gemm" and self.n_group == 1:
             return conv2d_gemm_nchw(x, w, (self.stride_h, self.stride_w),
                                     self._padding())

@@ -1,6 +1,7 @@
-"""Linear, LookupTable and MulConstant (counterpart of
-``bigdl_tpu/nn/linear.py``; the other layers of that module are not
-ported yet)."""
+"""Linear-algebra layers (counterpart of ``bigdl_tpu/nn/linear.py``;
+reference Linear.scala:44, Bilinear, CMul, CAdd, Mul, Add, MulConstant,
+AddConstant, MM, MV, Cosine, Euclidean, LookupTable).  Plain PyTorch,
+as the JAX layers are plain ``jnp``; no Pallas kernel computes them."""
 from __future__ import annotations
 
 from typing import Optional
@@ -9,7 +10,7 @@ import torch
 
 from ..device import DeviceLike
 from .initialization import IN_OUT, ONE_D, RandomNormal, RandomUniform
-from .module import TensorModule
+from .module import AbstractModule, TensorModule
 
 
 def linear(x: torch.Tensor, weight: torch.Tensor,
@@ -33,10 +34,11 @@ class Linear(TensorModule):
         self.output_size = output_size
         self.with_bias = with_bias
         self._register_param("weight", RandomUniform().init(
-            (output_size, input_size), IN_OUT, generator))
+            (output_size, input_size), IN_OUT, generator),
+            RandomUniform(), IN_OUT)
         if with_bias:
             self._register_param("bias", RandomUniform().init(
-                (output_size,), ONE_D, generator))
+                (output_size,), ONE_D, generator), RandomUniform(), ONE_D)
 
     def _compute(self, params, x):
         return linear(x, params["weight"],
@@ -67,7 +69,8 @@ class LookupTable(TensorModule):
         self.n_index, self.n_output = n_index, n_output
         self.padding_value = padding_value
         self._register_param("weight", RandomNormal(0, 1).init(
-            (n_index, n_output), ONE_D, generator))
+            (n_index, n_output), ONE_D, generator), RandomNormal(0, 1),
+            ONE_D)
 
     def _compute(self, params, x):
         return lookup(x, params["weight"], self.padding_value)
@@ -84,3 +87,172 @@ class MulConstant(TensorModule):
 
     def _compute(self, params, x):
         return x * self.constant_scalar
+
+
+def _param(init, shape, fmt, generator):
+    return init.init(shape, fmt, generator), init, fmt
+
+
+class Bilinear(AbstractModule):
+    """y_k = x1^T W_k x2 + b_k over a Table(x1, x2) (reference
+    nn/Bilinear.scala)."""
+
+    def __init__(self, input_size1: int, input_size2: int, output_size: int,
+                 bias_res: bool = True, device: DeviceLike = None,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__(device)
+        self.input_size1, self.input_size2 = input_size1, input_size2
+        self.output_size = output_size
+        self.bias_res = bias_res
+        self._register_param("weight", *_param(
+            RandomUniform(), (output_size, input_size1, input_size2), ONE_D,
+            generator))
+        if bias_res:
+            self._register_param("bias", *_param(
+                RandomUniform(), (output_size,), ONE_D, generator))
+
+    def _compute(self, params, inp):
+        y = torch.einsum("ni,kij,nj->nk", inp[1], params["weight"], inp[2])
+        return y + params["bias"] if self.bias_res else y
+
+
+def _lead_ones(t: torch.Tensor, ndim: int) -> torch.Tensor:
+    """t with leading singleton dims up to rank ``ndim``."""
+    return t.reshape((1,) * (ndim - t.dim()) + tuple(t.shape)) \
+        if t.dim() < ndim else t
+
+
+class CMul(TensorModule):
+    """Learned componentwise scale, broadcast by size (reference
+    nn/CMul.scala)."""
+
+    def __init__(self, size, device: DeviceLike = None,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__(device)
+        self.size = tuple(size)
+        self._register_param("weight", *_param(
+            RandomUniform(), self.size, ONE_D, generator))
+
+    def _compute(self, params, x):
+        return x * _lead_ones(params["weight"], x.dim())
+
+
+class CAdd(TensorModule):
+    """Learned componentwise bias (reference nn/CAdd.scala)."""
+
+    def __init__(self, size, device: DeviceLike = None,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__(device)
+        self.size = tuple(size)
+        self._register_param("bias", *_param(
+            RandomUniform(), self.size, ONE_D, generator))
+
+    def _compute(self, params, x):
+        return x + _lead_ones(params["bias"], x.dim())
+
+
+class Mul(TensorModule):
+    """One learned scalar multiplier (reference nn/Mul.scala)."""
+
+    def __init__(self, device: DeviceLike = None,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__(device)
+        self._register_param("weight", *_param(
+            RandomUniform(), (1,), ONE_D, generator))
+
+    def _compute(self, params, x):
+        return x * params["weight"][0]
+
+
+class Add(TensorModule):
+    """Learned bias vector added to the input (reference nn/Add.scala)."""
+
+    def __init__(self, input_size: int, device: DeviceLike = None,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__(device)
+        self.input_size = input_size
+        self._register_param("bias", *_param(
+            RandomUniform(), (input_size,), ONE_D, generator))
+
+    def _compute(self, params, x):
+        return x + params["bias"]
+
+
+class AddConstant(TensorModule):
+    """x plus a fixed scalar (reference nn/AddConstant.scala)."""
+
+    def __init__(self, constant_scalar: float, inplace: bool = False,
+                 device: DeviceLike = None):
+        super().__init__(device)
+        self.constant_scalar = constant_scalar
+
+    def _compute(self, params, x):
+        return x + self.constant_scalar
+
+
+class MM(AbstractModule):
+    """Matrix product of a Table(a, b), batched over leading dims
+    (reference nn/MM.scala)."""
+
+    def __init__(self, trans_a: bool = False, trans_b: bool = False,
+                 device: DeviceLike = None):
+        super().__init__(device)
+        self.trans_a, self.trans_b = trans_a, trans_b
+
+    def _compute(self, params, inp):
+        a, b = inp[1], inp[2]
+        if self.trans_a:
+            a = a.transpose(-1, -2)
+        if self.trans_b:
+            b = b.transpose(-1, -2)
+        return torch.matmul(a, b)
+
+
+class MV(AbstractModule):
+    """Matrix-vector product of Table(mat, vec) (reference nn/MV.scala)."""
+
+    def __init__(self, trans: bool = False, device: DeviceLike = None):
+        super().__init__(device)
+        self.trans = trans
+
+    def _compute(self, params, inp):
+        m, v = inp[1], inp[2]
+        if self.trans:
+            m = m.transpose(-1, -2)
+        return torch.matmul(m, v.unsqueeze(-1)).squeeze(-1)
+
+
+class Cosine(TensorModule):
+    """Cosine similarity against learned weight rows (reference
+    nn/Cosine.scala)."""
+
+    def __init__(self, input_size: int, output_size: int,
+                 device: DeviceLike = None,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__(device)
+        self.input_size, self.output_size = input_size, output_size
+        self._register_param("weight", *_param(
+            RandomUniform(), (output_size, input_size), IN_OUT, generator))
+
+    def _compute(self, params, x):
+        w = params["weight"]
+        xn = x / (torch.linalg.vector_norm(x, dim=-1, keepdim=True) + 1e-12)
+        wn = w / (torch.linalg.vector_norm(w, dim=-1, keepdim=True) + 1e-12)
+        return torch.matmul(xn, wn.t())
+
+
+class Euclidean(TensorModule):
+    """||x - w_j|| for each column j of the (input, output) weight
+    (reference nn/Euclidean.scala)."""
+
+    def __init__(self, input_size: int, output_size: int,
+                 fast_backward: bool = True, device: DeviceLike = None,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__(device)
+        self.input_size, self.output_size = input_size, output_size
+        self._register_param("weight", *_param(
+            RandomUniform(), (input_size, output_size), ONE_D, generator))
+
+    def _compute(self, params, x):
+        diff = x[..., :, None] - params["weight"][None, :, :]
+        return torch.sqrt((diff * diff).sum(dim=-2) + 1e-12)

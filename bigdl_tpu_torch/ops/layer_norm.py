@@ -9,8 +9,13 @@ output cast back to x's dtype.
 Design: one program per row, the whole row in one masked block (the
 next power of two >= F).  x is read in place at its row pitch where its
 rows are unit-stride and one pitch apart (a column slice, the rows of a
-sliced batch); any other layout is copied (``X_COPIES``).  The output is
-contiguous.  The work is a one-row reduction plus an
+sliced batch).  A layout whose rows take two strides to reach and whose
+row elements need not be adjacent — the last two dims of a transposed
+[B, F, T] activation read as [B, T, F] — goes to a second instantiation,
+``_ln_fwd_strided_kernel``, the same arithmetic over (outer, inner,
+column) strides, so it too is read in place; only a layout that is
+neither is copied (``X_COPIES``).  The output is contiguous.  The work
+is a one-row reduction plus an
 elementwise pass, with no matrix product and no reuse across rows, so
 it is bound by memory: read x once, write y once.  At the served
 prefill shape (2048 rows x 1024, bf16) that is 8.4 MB, 2.5 us at
@@ -45,7 +50,12 @@ LAUNCHES = LaunchCounter("layer_norm_fwd")
 #: not one pitch apart
 X_COPIES = LaunchCounter("layer_norm_x_copies")
 
+#: launches of K4 on a strided layout (``_ln_fwd_strided_kernel``), also
+#: counted in ``LAUNCHES``
+LAUNCHES_STRIDED = LaunchCounter("layer_norm_fwd_strided")
+
 _KERNEL = None
+_STRIDED_KERNEL = None
 
 
 def _layer_norm_plain(x, gamma, beta, eps: float):
@@ -90,19 +100,74 @@ def _triton_kernel():
     return _KERNEL
 
 
-def _rows(x: torch.Tensor):
-    """x as the kernel reads it: (x, row pitch in elements) where its rows
-    are unit-stride and one pitch apart, else (a contiguous copy, F),
-    counted in ``X_COPIES``."""
+def _triton_strided_kernel():
+    """K4 over a layout of (outer, inner, column) strides (once per
+    process): row r of the [outer x inner] rows starts at
+    (r // inner) * s_outer + (r % inner) * s_inner, its elements
+    s_col apart; the arithmetic is ``_ln_fwd_kernel``'s."""
+    global _STRIDED_KERNEL
+    if _STRIDED_KERNEL is None:
+        _triton_kernel()
+
+        @triton.jit
+        def _ln_fwd_strided_kernel(x_ptr, g_ptr, b_ptr, o_ptr, F, inner,
+                                   s_outer, s_inner, s_col, eps,
+                                   BLOCK: tl.constexpr):
+            row = tl.program_id(0).to(tl.int64)
+            base = (row // inner) * s_outer + (row % inner) * s_inner
+            cols = tl.arange(0, BLOCK)
+            mask = cols < F
+            x = tl.load(x_ptr + base + cols.to(tl.int64) * s_col, mask=mask,
+                        other=0.0).to(tl.float32)
+            mean = tl.sum(x, axis=0) / F
+            centered = tl.where(mask, x - mean, 0.0)
+            var = tl.sum(centered * centered, axis=0) / F
+            inv = 1.0 / tl.sqrt(var + eps)
+            g = tl.load(g_ptr + cols, mask=mask, other=0.0).to(tl.float32)
+            b = tl.load(b_ptr + cols, mask=mask, other=0.0).to(tl.float32)
+            y = centered * inv * g + b
+            tl.store(o_ptr + row * F + cols,
+                     y.to(o_ptr.dtype.element_ty), mask=mask)
+
+        _STRIDED_KERNEL = _ln_fwd_strided_kernel
+    return _STRIDED_KERNEL
+
+
+def _three_level(x: torch.Tensor):
+    """(inner rows, outer stride, inner stride, column stride) of x read
+    as [outer, inner, F] without a copy, or None."""
+    F = x.shape[-1]
+    if x.dim() < 2:
+        return None
+    try:
+        x3 = x.view(-1, x.shape[-2], F)
+    except RuntimeError:
+        return None
+    return (x3.shape[1],) + tuple(x3.stride())
+
+
+def _pitch(x: torch.Tensor):
+    """x's row pitch in elements where its rows are unit-stride and one
+    pitch apart, else None."""
     F = x.shape[-1]
     if F == 1 or x.stride(-1) == 1:
         try:
             x2 = x.view(-1, F)
-            return x, x2.stride(0) if x2.shape[0] > 1 else F
+            return x2.stride(0) if x2.shape[0] > 1 else F
         except RuntimeError:   # the leading dims do not share one pitch
             pass
+    return None
+
+
+def _rows(x: torch.Tensor):
+    """x as the kernel reads it: (x, row pitch in elements) where its rows
+    are unit-stride and one pitch apart, else (a contiguous copy, F),
+    counted in ``X_COPIES``."""
+    pitch = _pitch(x)
+    if pitch is not None:
+        return x, pitch
     X_COPIES.add()
-    return x.contiguous(), F
+    return x.contiguous(), x.shape[-1]
 
 
 def _layer_norm_cuda(x, gamma, beta, eps: float):
@@ -118,12 +183,22 @@ def _layer_norm_cuda(x, gamma, beta, eps: float):
     rows = x.numel() // F if F else 0
     if rows == 0:
         return out
+    warps = min(max(block // 256, 1), 16)
+    strided = _three_level(x) if _pitch(x) is None else None
+    if strided is not None:
+        kernel = _triton_strided_kernel()
+        with torch.cuda.device(x.device):
+            kernel[(rows,)](x, gamma.contiguous(), beta.contiguous(), out,
+                            F, *strided, float(eps), BLOCK=block,
+                            num_warps=warps)
+        LAUNCHES_STRIDED.add()
+        LAUNCHES.add()
+        return out
     x, pitch = _rows(x)
     kernel = _triton_kernel()
     with torch.cuda.device(x.device):
         kernel[(rows,)](x, gamma.contiguous(), beta.contiguous(), out, F,
-                        pitch, float(eps), BLOCK=block,
-                        num_warps=min(max(block // 256, 1), 16))
+                        pitch, float(eps), BLOCK=block, num_warps=warps)
     LAUNCHES.add()
     return out
 

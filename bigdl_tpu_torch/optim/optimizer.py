@@ -72,6 +72,7 @@ import torch
 
 from ..dataset.dataset import TransformedDataSet
 from ..dataset.sample import MiniBatch, SampleToMiniBatch
+from ..nn.module import rng_scope
 from ..resilience.guards import LossSpikeDetector, tree_finite, where_tree
 from ..resilience.preemption import PreemptionHandler
 from ..resilience.retry import LossSpikeError, RetryPolicy
@@ -631,10 +632,14 @@ class LocalOptimizer(Optimizer):
             fetch_time = time.time() - t_fetch
             lr = optim.get_current_lr()
             # the JAX package draws a per-step key from the host RNG
-            # here; drawing the same keeps its epoch shuffles
-            next_step_seed()
+            # here; the same draw seeds the step's generator, which every
+            # random layer of the forward (dropout) draws from in order,
+            # and keeps the JAX package's epoch shuffles
+            step_gen = torch.Generator(device=model.device).manual_seed(
+                next_step_seed())
             t0 = time.time()
-            loss, ok, slots = self._step(params, slots, x, y, lr)
+            with rng_scope(step_gen):
+                loss, ok, slots = self._step(params, slots, x, y, lr)
             # one read-back for both: the device sync of the step
             loss, ok = torch.stack([loss.float(), ok.float()]).tolist()
             train_time = time.time() - t0

@@ -163,7 +163,31 @@ Phases; any failure exits non-zero:
    (``SwapRejected``, quarantined, streams unchanged), ``poison_params``
    is refused.  Leg bytes, serialize, blocked and background write
    seconds, verify, resume, validation and swap seconds, crc GB/s.
-11. a ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and as the
+11. the Torch-style API — (a) the flagship in f32, 4 steps written with
+   the verbs (``zero_grad_parameters``, ``forward``, the criterion's
+   ``forward`` and ``backward``, ``backward``, ``update_parameters``)
+   against ``LocalOptimizer``'s 4 steps from the same weights and
+   batches: losses within 1e-6, every update row within 1e-2, whether
+   bit for bit; launches a step K1 8, K2 8, K3 8, K4 17 (one forward a
+   step); both step ms; (b) phase 5's bf16 cell with residual dropout
+   0.1, 8 steps: every loss finite, the last below the first, launches
+   as phase 5, the eval forward = a dropout-0 model's bit for bit, one
+   generator seed twice the same bits and two seeds different ones, the
+   keep share of a 16 x 1024 x 1024 mask within 5 sigma of 0.9; the step
+   ms beside phase 5's; one step traced with dropout and one without;
+   (c) ``Sequential(Transpose([(2, 3)]),
+   LayerNorm(1024))`` on [16, 1024, 1024] and a ``Narrow`` column slice
+   into flash attention, bf16 and f32: K4 (its strided instantiation)
+   and K1-K3 read the view with no copy, the output bit for bit the
+   contiguous input's, the strided K4 within phase 3's K4 limit of the
+   plain version; its ms beside the copy route's (a copy, then the
+   row-pitched K4), the copy's, its bound, the plain version and
+   ``F.layer_norm`` on the view; (d) every layer and criterion class
+   ported with the API, and the Tensor facade's ops, forward and
+   backward in f32 on the card against the CPU (each within 1e-5 of its
+   largest value, every tensor on the card), the random layers also
+   trained on the card.
+12. a ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and as the
    last line ``{"ok": true, "device": {...}}``.
 
 The full record goes to ``chiprun_out/chip_smoke.json``.
@@ -923,6 +947,7 @@ def launch_counters():
     by_dim += [getattr(bs, n) for n in ("LAUNCHES_MM_F32", "LAUNCHES_MM_MASK")
                if hasattr(bs, n)]
     by_dim += list(getattr(bs, "LAUNCHES_MM_COARSE", {}).values())
+    by_dim.append(ln.LAUNCHES_STRIDED)
     return {c.name: c for c in (fa.LAUNCHES, fa.LAUNCHES_DKV,
                                 fa.LAUNCHES_DQ, ln.LAUNCHES, bs.LAUNCHES,
                                 bs.LAUNCHES_DKV, bs.LAUNCHES_DQ,
@@ -2252,7 +2277,7 @@ def serve_paged(torch):
 
 
 def _lm(torch, device, num_layers, max_len=None, seq_strategy="flash",
-        blocksparse=None, seed=0):
+        blocksparse=None, seed=0, dropout=0.0):
     from bigdl_tpu_torch.models.transformer import TransformerLM
 
     cfg = FLAGSHIP
@@ -2260,7 +2285,7 @@ def _lm(torch, device, num_layers, max_len=None, seq_strategy="flash",
                          num_heads=cfg["num_heads"], num_layers=num_layers,
                          max_len=max_len or cfg["max_len"],
                          seq_strategy=seq_strategy, blocksparse=blocksparse,
-                         output="logits", device=device,
+                         output="logits", dropout=dropout, device=device,
                          generator=torch.Generator().manual_seed(seed))
 
 
@@ -2997,6 +3022,8 @@ def _kernel_group(name: str) -> str:
         return "K4 layer_norm_fwd"
     if "conv3x3_kernel" in name:
         return "K5 conv3x3"
+    if "bernoulli" in name.lower():
+        return "dropout masks (bernoulli draws)"
     if any(s in name.lower() for s in ("gemm", "gemv", "nvjet", "cutlass",
                                        "xmma", "sm90_")):
         return "matmul (cuBLAS)"
@@ -3165,8 +3192,9 @@ def profile_training(torch, B=TRAIN_BATCH, T=TRAIN_T, **lm_kw):
         return time.perf_counter() - t
 
     rep = profile_window(torch, run)
+    drop = f", dropout {lm_kw['dropout']}" if lm_kw.get("dropout") else ""
     print_profile(f"profile training step (bf16, batch {B}, T {T}, "
-                  f"{model.seq_strategy})", rep)
+                  f"{model.seq_strategy}{drop})", rep)
     del model, opt
     torch.cuda.empty_cache()
     return rep
@@ -3559,6 +3587,437 @@ def train_checkpoint_swap(torch):
     return rec, failures
 
 
+# phase 11: the Torch-style API.  (a) 4 f32 steps of the flagship
+# written with the verbs against LocalOptimizer's, phase 5's f32 limits
+# (TRAJ_RTOL on the losses, TRAJ_UPDATE_ROW_TOL on each update row);
+# (b) phase 5's bf16 cell with residual dropout 0.1, 8 steps, and a
+# keep share within 5 sigma of 0.9 on one 16 x 1024 x 1024 mask;
+# (c) a transposed LayerNorm input (K4's strided instantiation: its
+# features are T apart) and a column-sliced attention input (K1-K3)
+# read in place, bit for bit the contiguous input's; (d) every class
+# ported with the API, card against CPU in f32 (``utils/api_cases.py``)
+VERBS_ITERS, DROPOUT, DROPOUT_ITERS = 4, 0.1, 8
+STRIDED_B = 16
+
+
+def zoo_sweep(torch):
+    """Phase 11 (d): each case on the card against the CPU; every
+    tensor the card's run returns must lie on the card.  The random
+    layers also run in training mode on the card: the dropout mask and
+    RReLU's slopes of ``backward`` are the forward's."""
+    from bigdl_tpu_torch.nn.module import rng_scope
+    from bigdl_tpu_torch.utils.api_cases import (ZOO_REL_TOL, rel_err,
+                                                 zoo_case_on, zoo_cases)
+
+    rows, failures = [], []
+    for case in zoo_cases():
+        name = case[0]
+        try:
+            ref = zoo_case_on(case, "cpu")
+            got = zoo_case_on(case, "cuda", module=ref[4]
+                              if case[3] is None else None)
+            on_card = all(t.device.type == "cuda" for t in got[3])
+            err = max([rel_err(g, w) for part in range(3)
+                       for g, w in zip(got[part], ref[part], strict=True)],
+                      default=0.0)
+            train_ok = True
+            if case[4]:                 # the random layers, trained
+                m = got[4].train()
+                x = torch.randn(64, 64, device="cuda")
+                with rng_scope(torch.Generator(device="cuda").manual_seed(0)):
+                    y = m.forward(x)
+                gi = m.update_grad_input(x, torch.ones_like(y))
+                if name == "Dropout":
+                    train_ok = bool(torch.equal(gi == 0, y == 0))
+                else:
+                    neg = x < 0
+                    train_ok = bool(torch.allclose(gi[neg], y[neg] / x[neg],
+                                                   rtol=1e-5))
+            why = (None if on_card and err <= ZOO_REL_TOL and train_ok else
+                   f"rel err {err:.3e} (tol {ZOO_REL_TOL}), on the card "
+                   f"{on_card}, the forward's masks in backward {train_ok}")
+        except Exception as e:          # a class that raises fails the phase
+            err, on_card, train_ok = float("nan"), False, False
+            why = f"{type(e).__name__}: {e}"
+        rows.append(dict(name=name, rel_err=err, on_card=on_card,
+                         train_ok=train_ok, ok=why is None))
+        if why is not None:
+            failures.append(f"phase 11 (d) {name}: {why}")
+    return rows, failures
+
+
+def _verbs_step_data(torch, opt):
+    """The batches ``opt``'s loop would train on, in its order: the host
+    stream seeded as ``run_training`` seeds it, one step seed drawn a
+    step, the dataset shuffled at each epoch's end."""
+    from bigdl_tpu_torch.optim.optimizer import _device_batch, _epoch_records
+    from bigdl_tpu_torch.utils.rng import RNG, next_step_seed
+
+    RNG().set_seed(1)
+    ds, seen = opt.dataset, 0
+    epoch = _epoch_records(ds)
+    it = ds.data(train=True)
+    while True:
+        batch = next(it)
+        next_step_seed()
+        yield _device_batch(batch, opt.model.device)
+        seen += batch.size()
+        if seen >= epoch:
+            seen = 0
+            ds.shuffle()
+            it = ds.data(train=True)
+
+
+def verbs_vs_optimizer(torch):
+    """Phase 11 (a): the flagship in f32, 4 steps written with the verbs
+    against LocalOptimizer's 4 steps from the same weights and batches."""
+    from bigdl_tpu_torch import nn
+
+    L, B, T = FLAGSHIP["num_layers"], TRAIN_BATCH, TRAIN_T
+    failures = []
+    model = _lm(torch, "cuda", L)
+    start = _params_cpu(model)
+    ref = run_training(torch, model, B, T, VERBS_ITERS, None, updates=True)
+    del model
+    torch.cuda.empty_cache()
+
+    counters = launch_counters()
+    model = _lm(torch, "cuda", L)
+    crit = nn.TimeDistributedCriterion(nn.CrossEntropyCriterion(), True)
+    opt = make_trainer(torch, model, B, T, VERBS_ITERS, None)
+    model.train()
+    losses, step_s, per_step = [], [], []
+    data = _verbs_step_data(torch, opt)
+    for _ in range(VERBS_ITERS):
+        x, y = next(data)
+        before = {n: c.count for n, c in counters.items()}
+        t0 = time.perf_counter()
+        model.zero_grad_parameters()
+        out = model.forward(x)
+        loss = crit.forward(out, y)
+        g = crit.backward(out, y)
+        model.backward(x, g)
+        model.update_parameters(TRAIN_LR)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        losses.append(loss)
+        per_step.append({n: c.count - before[n] for n, c in counters.items()})
+        del out, g
+    got = {n: (p.detach() - start[n].to(p.device)).cpu()
+           for n, p in model.named_parameters()}
+    bitwise = all(torch.equal(got[n], ref["updates"][n]) for n in got) \
+        and losses == ref["losses"]
+    del model
+    torch.cuda.empty_cache()
+
+    want = want_launches(flash_fwd=L, flash_bwd_dkv=L, flash_bwd_dq=L,
+                         layer_norm_fwd=2 * L + 1)
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(losses,
+                                                      ref["losses"]))
+    scale = max(max_row_norm(torch, u) for u in ref["updates"].values())
+    upd_err = {n: row_rel_err(torch, got[n], u, scale)
+               for n, u in ref["updates"].items()}
+    worst = max(upd_err, key=upd_err.get)
+    ms = 1e3 * sum(step_s[1:]) / (VERBS_ITERS - 1)
+    ref_ms = 1e3 * sum(ref["step_s"][1:]) / (VERBS_ITERS - 1)
+    print(f"phase 11 (a): verbs f32 losses {losses} vs LocalOptimizer "
+          f"{ref['losses']}: max rel {loss_rel:.3e} (tol {TRAJ_RTOL}); "
+          f"updates of {len(got)} parameters, worst row err "
+          f"{upd_err[worst]:.3e} in {worst} (tol {TRAJ_UPDATE_ROW_TOL}); "
+          f"bit for bit: {bitwise}; step {ms:.2f} ms vs LocalOptimizer "
+          f"{ref_ms:.2f} ms (steps 2-{VERBS_ITERS}); launches per step "
+          f"{ {n: v for n, v in per_step[0].items() if v} }")
+    if len(losses) != VERBS_ITERS or not loss_rel <= TRAJ_RTOL:
+        failures.append(f"phase 11 (a) losses {losses} vs {ref['losses']}")
+    if not upd_err[worst] <= TRAJ_UPDATE_ROW_TOL:
+        failures.append(f"phase 11 (a) {worst} row err {upd_err[worst]:.3e}")
+    bad = [s for s in per_step if s != want]
+    if bad:
+        failures.append(f"phase 11 (a) launches per step {bad[0]}, want "
+                        f"{want}")
+    return dict(losses=losses, optimizer_losses=ref["losses"],
+                loss_rel=loss_rel, update_row_err=upd_err[worst],
+                worst=worst, bitwise=bitwise, step_ms=ms,
+                optimizer_step_ms=ref_ms, launches_per_step=per_step[0],
+                forwards_per_step=1), failures
+
+
+def dropout_leg(torch, bf16_step_ms):
+    """Phase 11 (b): phase 5's bf16 cell with residual dropout 0.1; one
+    step traced with dropout and one without, in this call."""
+    from bigdl_tpu_torch.nn.dropout import dropout
+    from bigdl_tpu_torch.nn.module import rng_scope
+
+    cfg, L, B, T = FLAGSHIP, FLAGSHIP["num_layers"], TRAIN_BATCH, TRAIN_T
+    failures = []
+
+    def lm(p):
+        return _lm(torch, "cuda", L, dropout=p)
+
+    model = lm(DROPOUT)
+    run = run_training(torch, model, B, T, DROPOUT_ITERS, torch.bfloat16)
+    losses = run["losses"]
+    want = want_launches(flash_fwd=L, flash_bwd_dkv=L, flash_bwd_dq=L,
+                         layer_norm_fwd=2 * L + 1)
+    if len(losses) != DROPOUT_ITERS or not all(math.isfinite(v)
+                                               for v in losses):
+        failures.append(f"phase 11 (b) losses {losses}")
+    elif not losses[-1] < losses[0]:
+        failures.append(f"phase 11 (b) loss did not fall: {losses}")
+    bad = [s for s in run["launches_per_step"] if s != want]
+    if bad:
+        failures.append(f"phase 11 (b) launches per step {bad[0]}, want "
+                        f"{want}")
+    steady = run["step_s"][2:]
+    ms = 1e3 * sum(steady) / len(steady)
+
+    x = torch.randint(1, cfg["vocab"] + 1, (2, T),
+                      generator=torch.Generator().manual_seed(3)).to("cuda")
+    plain = lm(0.0)
+    plain.set_param_tree(model.param_tree())
+    with torch.no_grad():
+        eval_equal = bool(torch.equal(model.evaluate().forward(x),
+                                      plain.evaluate().forward(x)))
+        model.train()
+        outs = []
+        for seed in (5, 5, 6):
+            with rng_scope(torch.Generator(device="cuda").manual_seed(seed)):
+                outs.append(model.forward(x))
+        same_seed = bool(torch.equal(outs[0], outs[1]))
+        other_seed = not bool(torch.equal(outs[0], outs[2]))
+    del model, plain, outs
+    torch.cuda.empty_cache()
+    n = B * T * cfg["embed_dim"]
+    mask = dropout(torch.ones(B, T, cfg["embed_dim"], device="cuda"),
+                   DROPOUT, torch.Generator(device="cuda").manual_seed(0))
+    keep = (mask != 0).float().mean().item()
+    del mask
+    sigma = math.sqrt((1 - DROPOUT) * DROPOUT / n)
+    keep_ok = abs(keep - (1 - DROPOUT)) <= 5 * sigma
+    print(f"phase 11 (b): dropout {DROPOUT}, bf16, B {B} T {T}: losses "
+          f"{[round(v, 4) for v in losses]}; launches per step "
+          f"{ {k: v for k, v in run['launches_per_step'][0].items() if v} }; "
+          f"step {ms:.2f} ms (iterations 3-{DROPOUT_ITERS}) vs phase 5's "
+          f"{bf16_step_ms:.2f} ms; eval = dropout-0 model bit for bit: "
+          f"{eval_equal}; one seed twice equal: {same_seed}, two seeds "
+          f"differ: {other_seed}; keep share {keep:.6f} (0.9 +- "
+          f"{5 * sigma:.2e})")
+    # where the dropout step's extra time goes: one step traced with
+    # dropout and one without, each after two warm iterations
+    traced = {"dropout": profile_training(torch, dropout=DROPOUT),
+              "plain": profile_training(torch)}
+    groups = {k: traced["dropout"]["groups"].get(k, {}).get("ms", 0.0)
+              - traced["plain"]["groups"].get(k, {}).get("ms", 0.0)
+              for k in set(traced["dropout"]["groups"])
+              | set(traced["plain"]["groups"])}
+    print(f"phase 11 (b): traced step with dropout: wall "
+          f"{traced['dropout']['wall_ms']:.3f} ms, device "
+          f"{traced['dropout']['device_ms']:.3f} ms, "
+          f"{traced['dropout']['launches']} launches; without: wall "
+          f"{traced['plain']['wall_ms']:.3f}, device "
+          f"{traced['plain']['device_ms']:.3f}, "
+          f"{traced['plain']['launches']} launches; device ms added by "
+          f"group { {k: round(v, 3) for k, v in groups.items()} }")
+    for ok, what in ((eval_equal, "eval forward differs from the dropout-0 "
+                                  "model's"),
+                     (same_seed, "one generator seed gave two masks"),
+                     (other_seed, "two generator seeds gave one mask"),
+                     (keep_ok, f"keep share {keep}")):
+        if not ok:
+            failures.append(f"phase 11 (b) {what}")
+    return dict(losses=losses, step_ms=ms, phase5_bf16_step_ms=bf16_step_ms,
+                launches_per_step=run["launches_per_step"][0],
+                eval_equal=eval_equal, same_seed=same_seed,
+                other_seed_differs=other_seed, keep_share=keep,
+                keep_sigma=sigma, traced=traced), failures
+
+
+def strided_leg(torch):
+    """Phase 11 (c): ``Sequential(Transpose([(2, 3)]), LayerNorm(1024))``
+    on [B, 1024, T] and a ``Narrow`` column slice into flash attention,
+    bf16 and f32: each kernel reads the view in place (the transposed
+    view's features are T apart: K4's strided instantiation), and each
+    output equals the contiguous input's bit for bit.  The strided K4 is
+    held against the plain version at phase 3's K4 limit and timed
+    beside the route it replaces (a copy, then the row-pitched K4), the
+    copy alone, the row-pitched K4 on the contiguous input, the plain
+    version and ``F.layer_norm`` on the view."""
+    import torch.nn.functional as F
+
+    from bigdl_tpu_torch import nn
+    from bigdl_tpu_torch.ops import layer_norm as ln
+    from bigdl_tpu_torch.optim.optimizer import cast_floats
+    from bigdl_tpu_torch.utils.tree import tree_leaves, tree_map
+
+    D, H, T, B = FLAGSHIP["embed_dim"], FLAGSHIP["num_heads"], TRAIN_T, \
+        STRIDED_B
+    g = torch.Generator(device="cuda").manual_seed(0)
+    rows, failures = [], []
+    counters = launch_counters()
+
+    def run(model, params, x, go):
+        for c in counters.values():
+            c.reset()
+        with torch.enable_grad():
+            params = tree_map(lambda p: p.detach().requires_grad_(), params)
+            out = model.apply_fn(params, x)
+            grads = torch.autograd.grad(out, tree_leaves(params), go)
+        torch.cuda.synchronize()
+        return out.detach(), grads, {n: c.count for n, c in counters.items()}
+
+    for dt in (torch.bfloat16, torch.float32):
+        dname = str(dt).split(".")[-1]
+        seq = nn.Sequential(nn.Transpose([(2, 3)], device="cuda"),
+                            nn.LayerNorm(D, device="cuda"))
+        with torch.no_grad():
+            seq[1].weight.normal_(1.0, 0.1, generator=g)
+            seq[1].bias.normal_(0.0, 0.1, generator=g)
+        x = torch.randn(B, D, T, device="cuda", generator=g).to(dt)
+        params = cast_floats(seq.param_tree(), dt)
+        go = torch.randn(B, T, D, device="cuda", generator=g).to(dt)
+        y, gr, n = run(seq, params, x, go)
+        xc = x.transpose(1, 2).contiguous()
+        y_ref, gr_ref, _ = run(seq[1], params["1"], xc, go)
+        xv, gm, bt = x.transpose(1, 2), params["1"]["weight"], \
+            params["1"]["bias"]
+        err = (y.float() - ln._layer_norm_plain(
+            xv, gm, bt, 1e-5).float()).abs().max().item()
+        tol = TOL[("layer_norm_fwd", dname)]
+        rows.append(leg_row(
+            f"transpose+layernorm {dname}", n, y, y_ref, gr, gr_ref,
+            n["layer_norm_fwd"] == 1 and n["layer_norm_fwd_strided"] == 1
+            and n["layer_norm_x_copies"] == 0 and err <= tol))
+        # the strided K4 on the view, beside the copy route it replaces,
+        # that route's parts, the plain version and F.layer_norm
+        rows[-1].update(
+            ms=cuda_ms(lambda: ln._layer_norm_cuda(xv, gm, bt, 1e-5)),
+            copy_route_ms=cuda_ms(lambda: ln._layer_norm_cuda(
+                xv.contiguous(), gm, bt, 1e-5)),
+            copy_ms=cuda_ms(lambda: xv.contiguous()),
+            contiguous_ms=cuda_ms(lambda: ln._layer_norm_cuda(xc, gm, bt,
+                                                              1e-5)),
+            plain_ms=cuda_ms(lambda: ln._layer_norm_plain(xv, gm, bt, 1e-5)),
+            library_ms=cuda_ms(lambda: F.layer_norm(xv, (D,), gm, bt, 1e-5)),
+            max_abs_err=err, tol=tol)
+        rows[-1]["bound_ms"], rows[-1]["bound_by"] = bound(
+            x.element_size() * (2 * B * T * D + 2 * D), 8.0 * B * T * D,
+            "float32")
+
+        mha = nn.Sequential(nn.Narrow(3, 1, D, device="cuda"),
+                            nn.MultiHeadAttention(
+                                D, H, causal=True, seq_strategy="flash",
+                                device="cuda",
+                                generator=torch.Generator().manual_seed(1)))
+        x = torch.randn(B, T, 2 * D, device="cuda", generator=g).to(dt)
+        params = cast_floats(mha.param_tree(), dt)
+        go = torch.randn(B, T, D, device="cuda", generator=g).to(dt)
+        y, gr, n = run(mha, params, x, go)
+        y_ref, gr_ref, _ = run(mha[1], params["1"],
+                               x.narrow(2, 0, D).contiguous(), go)
+        rows.append(leg_row(
+            f"narrow+flash attention {dname}", n, y, y_ref, gr, gr_ref,
+            n["flash_fwd"] == 1 and n["flash_bwd_dkv"] == 1
+            and n["flash_bwd_dq"] == 1 and n["attn_operand_copies"] == 0))
+    for r in rows:
+        timing = (f"; K4 strided {r['ms']:.4f} ms, the copy route "
+                  f"{r['copy_route_ms']:.4f} (the copy {r['copy_ms']:.4f}, "
+                  f"K4 on the contiguous input {r['contiguous_ms']:.4f}), "
+                  f"plain {r['plain_ms']:.4f}, "
+                  f"F.layer_norm {r['library_ms']:.4f}, bound "
+                  f"{r['bound_ms']:.4f} ({r['bound_by']}), err vs plain "
+                  f"{r['max_abs_err']:.3e} (tol {r['tol']:g})"
+                  if "ms" in r else "")
+        print(f"phase 11 (c): {r['case']}: launches {r['launches']}; as "
+              f"designed {r['as_designed']}; output bit for bit the "
+              f"contiguous input's: {r['output_bitwise']}; parameter "
+              f"gradients bit for bit: {r['grads_bitwise']} (worst rel "
+              f"{r['grad_rel']:.3e}){timing}")
+        if not (r["as_designed"] and r["output_bitwise"]):
+            failures.append(f"phase 11 (c) {r['case']}: {r}")
+    return rows, failures
+
+
+def leg_row(case, launches, y, y_ref, grads, grads_ref, as_designed):
+    """A phase 11 (c) case: ``as_designed`` (each kernel launched once,
+    the copies as the route makes them, the error within its limit),
+    whether the output is the contiguous input's bit for bit; the
+    parameter gradients (the backward's own reductions over the two
+    layouts) are reported, bitwise or by their worst relative error."""
+    import torch
+
+    from bigdl_tpu_torch.utils.api_cases import rel_err
+
+    return dict(case=case, launches={k: v for k, v in launches.items() if v},
+                as_designed=bool(as_designed),
+                output_bitwise=bool(torch.equal(y, y_ref)),
+                grads_bitwise=all(bool(torch.equal(a, b))
+                                  for a, b in zip(grads, grads_ref)),
+                grad_rel=max(rel_err(a, b)
+                             for a, b in zip(grads, grads_ref)))
+
+
+def torch_api(torch, bf16_step_ms):
+    """Phase 11: the Torch-style API, (a)-(d).  Returns (record,
+    failures); the record's ``launches`` are the whole phase's, read from
+    zero."""
+    from bigdl_tpu_torch.utils.api_cases import (ZOO_REL_TOL, rel_err,
+                                                 tensor_ops)
+
+    failures, rec = [], {}
+    t_phase = time.perf_counter()
+    counters = launch_counters()
+    for c in counters.values():
+        c.reset()
+    totals = {n: 0 for n in counters}
+
+    def bank():
+        # bank each leg's launches, read from zero
+        for n, c in counters.items():
+            totals[n] += c.count
+            c.reset()
+
+    rec["verbs"], more = verbs_vs_optimizer(torch)
+    failures += more
+    bank()
+    rec["dropout"], more = dropout_leg(torch, bf16_step_ms)
+    failures += more
+    bank()
+    rec["strided"], more = strided_leg(torch)
+    failures += more
+    # (c)'s path launches are its view runs', not the contiguous
+    # references' or the timing's
+    for c in counters.values():
+        c.reset()
+    for r in rec["strided"]:
+        for n, v in r["launches"].items():
+            totals[n] += v
+    rows, more = zoo_sweep(torch)
+    failures += more
+    bank()
+    worst = max(rows, key=lambda r: r["rel_err"]
+                if math.isfinite(r["rel_err"]) else float("inf"))
+    print(f"phase 11 (d): {len(rows)} classes card vs CPU, forward and "
+          f"backward f32: {sum(r['ok'] for r in rows)} within {ZOO_REL_TOL}, "
+          f"every tensor on the card, worst {worst['rel_err']:.3e} "
+          f"({worst['name']})")
+    got, on_card = tensor_ops("cuda")
+    want, _ = tensor_ops("cpu")
+    t_err = {k: rel_err(got[k], want[k]) for k in want}
+    t_worst = max(t_err, key=t_err.get)
+    print(f"phase 11 (d): {len(t_err)} Tensor ops card vs CPU, worst "
+          f"{t_err[t_worst]:.3e} ({t_worst}), on the card: {on_card}")
+    if not on_card or not t_err[t_worst] <= ZOO_REL_TOL:
+        failures.append(f"phase 11 (d) Tensor {t_worst} {t_err[t_worst]} "
+                        f"on card {on_card}")
+    rec["zoo"] = rows
+    rec["tensor_ops"] = t_err
+    rec["launches"] = totals
+    rec["seconds"] = time.perf_counter() - t_phase
+    print(f"phase 11: {rec['seconds']:.1f} s; launches "
+          f"{ {n: v for n, v in totals.items() if v} }")
+    return rec, failures
+
+
 # the phase-3 cases the ``kernels`` line's variants read, and the tag of
 # their counters (a kernel's name, then the tag)
 VARIANT_CASES = {"f32_D192": "f32 D 192", "f32_D256": "f32 D 256",
@@ -3708,11 +4167,17 @@ def main(argv=None) -> int:
     phase10, phase10_failures = train_checkpoint_swap(torch)
     failures += phase10_failures
 
+    # phase 11: the Torch-style API — the flagship trained by the verbs,
+    # with dropout 0.1, strided layouts through K4 and K1-K3, and every
+    # class ported with the API card against CPU
+    phase11, phase11_failures = torch_api(torch, trained["step_ms"])
+    failures += phase11_failures
+
     # launches summed over every path, each read from zero
     launches = {n: sum(b["launches"][n] for b in served["batches"])
                 + trained["launches"][n] + bs_trained["launches"][n]
                 + resnet["launches"][n] + paged["launches"][n]
-                + phase10["launches"][n]
+                + phase10["launches"][n] + phase11["launches"][n]
                 for n in launch_counters()}
     for mm_path in mm_paths:
         for name, n in mm_path["launches"].items():
@@ -3800,6 +4265,18 @@ def main(argv=None) -> int:
                 plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
                 bound_by=row["bound_by"], library_ms=row["library_ms"]))
 
+    # K4's strided instantiation, one variant a dtype: phase 11 (c)'s
+    # transposed LayerNorm input, its launches that leg's count
+    kernels[3]["variants"] = [dict(
+        name=f"layer_norm_fwd strided {r['case'].split()[-1]}",
+        route="triton", source=kernels[3]["source"],
+        replaces=kernels[3]["replaces"],
+        launches=r["launches"].get("layer_norm_fwd_strided", 0),
+        max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
+        bound_ms=r["bound_ms"], bound_by=r["bound_by"],
+        library_ms=r["library_ms"])
+        for r in phase11["strided"] if "ms" in r]
+
     (out / "chip_smoke.json").write_text(json.dumps(dict(
         device=kind, nvidia_smi=smi, torch=torch.__version__,
         cuda=torch.version.cuda, cuda_build_s=cuda_build_s,
@@ -3810,7 +4287,8 @@ def main(argv=None) -> int:
         conv3x3=conv_rows, serving_path=served, training_path=trained,
         blocksparse_training_path=bs_trained, matmul_path=mm_paths,
         resnet50_training_path=resnet, paged_serving_path=paged,
-        checkpoint_swap_path=phase10, kernels=kernels, failures=failures, seconds=time.perf_counter()
+        checkpoint_swap_path=phase10, torch_api_path=phase11,
+        kernels=kernels, failures=failures, seconds=time.perf_counter()
         - T_START), indent=1))
 
     if failures:

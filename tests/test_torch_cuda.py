@@ -48,6 +48,7 @@ from bigdl_tpu_torch.optim import (SGD, LocalOptimizer, Trigger, max_iteration,
                                    several_iteration)
 from bigdl_tpu_torch.serving import InferenceServer, KVPagePool, Status
 from bigdl_tpu_torch.serving.pools import deserialize_handoff
+from bigdl_tpu_torch.utils import api_cases
 from bigdl_tpu_torch.utils.rng import RNG
 
 pytestmark = pytest.mark.cuda
@@ -1293,19 +1294,26 @@ def test_f32_dq_raises_where_its_kernel_refuses_on_card(cuda_device):
 def test_layer_norm_reads_a_column_slice_in_place_on_card(cuda_device):
     """K4 on a column slice (rows 1000 apart, under a leading dim) reads
     it in place and matches the plain version and the contiguous launch
-    bit for bit; a transposed x is copied first."""
+    bit for bit; so does its strided instantiation on a transposed x; a
+    layout neither reads (leading dims that do not merge, columns not
+    adjacent) is copied first."""
     g = torch.Generator(device=cuda_device).manual_seed(12)
     base = torch.randn(3, 50, 1000, device=cuda_device, generator=g).to(bf16)
     gamma = (1 + 0.1 * torch.randn(768, device=cuda_device,
                                    generator=g)).to(bf16)
     beta = (0.1 * torch.randn(768, device=cuda_device, generator=g)).to(bf16)
-    for x, copied in ((base[:, :, 16:784], False),
-                      (base[0, :768, :50].t(), True)):
+    odd = torch.randn(2, 3, 50, 4, device=cuda_device, generator=g).to(
+        bf16).permute(3, 0, 2, 1)
+    for x, copied, strided in ((base[:, :, 16:784], False, False),
+                               (base[0, :768, :50].t(), False, True),
+                               (odd, True, False)):
         copies, before = ln.X_COPIES.count, ln.LAUNCHES.count
+        before_strided = ln.LAUNCHES_STRIDED.count
         y = ln.fused_layer_norm(x, gamma[:x.shape[-1]], beta[:x.shape[-1]])
         torch.cuda.synchronize()
-        assert (ln.X_COPIES.count - copies, ln.LAUNCHES.count - before) == (
-            int(copied), 1)
+        assert (ln.X_COPIES.count - copies, ln.LAUNCHES.count - before,
+                ln.LAUNCHES_STRIDED.count - before_strided) == (
+            int(copied), 1, int(strided))
         assert y.is_contiguous() and y.shape == x.shape
         ref = ln._layer_norm_plain(x, gamma[:x.shape[-1]], beta[:x.shape[-1]],
                                    1e-5)
@@ -2475,3 +2483,121 @@ def test_swap_from_checkpoint_on_card(cuda_device, tmp_path):
         assert server.stop(timeout=60) and fresh.stop(timeout=60)
     assert got == want and got != old
     assert os.path.exists(bad + ".corrupt")
+
+
+# ----------------------------------------------------------------------
+# the Torch-style API on the card: strided layouts through K4 and K1-K3,
+# every class ported with the API against the CPU, a verbs step
+# ----------------------------------------------------------------------
+
+@pytest.mark.parametrize("dtype", [bf16, torch.float32])
+def test_transposed_layer_norm_input_is_read_in_place_on_card(cuda_device,
+                                                              dtype):
+    """``Sequential(Transpose([(2, 3)]), LayerNorm)`` on [B, F, T]: K4's
+    strided instantiation reads the view (no copy), bit for bit the
+    kernel on the contiguous input."""
+    g = torch.Generator(device=cuda_device).manual_seed(0)
+    seq = nn.Sequential(nn.Transpose([(2, 3)], device=cuda_device),
+                        nn.LayerNorm(96, device=cuda_device))
+    x = torch.randn(3, 96, 40, device=cuda_device, generator=g).to(dtype)
+    gam = torch.randn(96, device=cuda_device, generator=g).to(dtype)
+    bet = torch.randn(96, device=cuda_device, generator=g).to(dtype)
+    params = {"0": {}, "1": {"weight": gam, "bias": bet}}
+    for c in (ln.LAUNCHES, ln.LAUNCHES_STRIDED, ln.X_COPIES):
+        c.reset()
+    with torch.no_grad():
+        y = seq.apply_fn(params, x)
+        want = seq[1].apply_fn(params["1"], x.transpose(1, 2).contiguous())
+    assert (ln.LAUNCHES.count, ln.LAUNCHES_STRIDED.count,
+            ln.X_COPIES.count) == (2, 1, 0)
+    assert torch.equal(y, want)
+    plain = ln._layer_norm_plain(x.transpose(1, 2), gam, bet, 1e-5)
+    tol = 4e-2 if dtype == bf16 else 1e-4
+    assert (y.float() - plain.float()).abs().max().item() <= tol
+
+
+@pytest.mark.parametrize("dtype", [bf16, torch.float32])
+def test_narrowed_attention_input_is_read_in_place_on_card(cuda_device,
+                                                           dtype):
+    """A ``Narrow`` column slice into flash attention: K1-K3 read the
+    layer's head-strided q, k, v with no operand copy; the output is the
+    contiguous input's bit for bit."""
+    from bigdl_tpu_torch.optim.optimizer import cast_floats
+
+    g = torch.Generator(device=cuda_device).manual_seed(1)
+    model = nn.Sequential(
+        nn.Narrow(3, 1, 64, device=cuda_device),
+        nn.MultiHeadAttention(64, 2, causal=True, seq_strategy="flash",
+                              device=cuda_device,
+                              generator=torch.Generator().manual_seed(0)))
+    params = cast_floats(model.param_tree(), dtype)
+    x = torch.randn(2, 48, 128, device=cuda_device, generator=g).to(dtype)
+    for c in (fa.LAUNCHES, fa.LAUNCHES_DKV, fa.LAUNCHES_DQ,
+              fa.OPERAND_COPIES):
+        c.reset()
+    xl = x.detach().requires_grad_()
+    y = model.apply_fn(params, xl)
+    y.float().square().sum().backward()
+    assert (fa.LAUNCHES.count, fa.LAUNCHES_DKV.count, fa.LAUNCHES_DQ.count,
+            fa.OPERAND_COPIES.count) == (1, 1, 1, 0)
+    with torch.no_grad():
+        want = model[1].apply_fn(params["1"], x.narrow(2, 0, 64).contiguous())
+    assert torch.equal(y.detach(), want)
+    assert torch.isfinite(xl.grad).all() and not xl.grad[..., 64:].any()
+
+
+@pytest.mark.parametrize("case", api_cases.zoo_cases(), ids=lambda c: c[0])
+def test_ported_api_class_on_card_matches_cpu(cuda_device, case):
+    """Each class ported with the Torch-style API, forward and backward
+    in f32 on the card against the same module on the CPU (chip_smoke.py
+    phase 11 (d)): every tensor it returns on the card, each within
+    1e-5 of its largest value."""
+    ref = api_cases.zoo_case_on(case, "cpu")
+    got = api_cases.zoo_case_on(case, "cuda",
+                                module=ref[4] if case[3] is None else None)
+    assert all(t.device.type == "cuda" for t in got[3])
+    for part in range(3):
+        for g, w in zip(got[part], ref[part], strict=True):
+            assert api_cases.rel_err(g, w) <= api_cases.ZOO_REL_TOL
+
+
+def test_tensor_facade_on_card_matches_cpu(cuda_device):
+    got, on_card = api_cases.tensor_ops("cuda")
+    want, _ = api_cases.tensor_ops("cpu")
+    assert on_card
+    for k in want:
+        assert api_cases.rel_err(got[k], want[k]) <= 1e-5, k
+
+
+def test_verbs_step_equals_local_optimizer_step_on_card(cuda_device):
+    """One step of a small flash TransformerLM written with the verbs
+    (zero_grad_parameters, forward, criterion forward and backward,
+    backward, update_parameters) against LocalOptimizer's step from the
+    same weights: the same loss and parameters; one forward a step (K1
+    once a layer)."""
+    V, T, B = 64, 32, 4
+    kw = dict(embed_dim=64, num_heads=2, num_layers=2, max_len=T,
+              seq_strategy="flash", output="logits", device=cuda_device)
+    rng = np.random.RandomState(0)
+    ids = rng.randint(1, V + 1, size=(B, T)).astype(np.int32)
+    crit = nn.TimeDistributedCriterion(nn.CrossEntropyCriterion(), True)
+
+    ref = TransformerLM(V, **kw, generator=torch.Generator().manual_seed(0))
+    opt = LocalOptimizer(ref, array([Sample(a, a) for a in ids]), crit,
+                         batch_size=B)
+    opt.set_optim_method(SGD(0.1)).set_end_when(max_iteration(1))
+    RNG().set_seed(1)
+    opt.optimize()
+
+    model = TransformerLM(V, **kw, generator=torch.Generator().manual_seed(0))
+    x = torch.as_tensor(ids, device=cuda_device)
+    fa.LAUNCHES.reset()
+    model.zero_grad_parameters()
+    out = model.forward(x)
+    loss = crit.forward(out, x)
+    model.backward(x, crit.backward(out, x))
+    model.update_parameters(0.1)
+    assert fa.LAUNCHES.count == 2
+    assert math.isclose(loss, opt.optim_method.state["loss"], rel_tol=1e-6)
+    for (name, p), q in zip(model.named_parameters(), ref.parameters()):
+        torch.testing.assert_close(p, q, rtol=1e-5, atol=1e-6, msg=name)

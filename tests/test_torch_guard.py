@@ -1,7 +1,8 @@
 """Guards of the PyTorch/CUDA port (bigdl_tpu_torch).
 
 * The port, ``chip_smoke.py``, ``k1_variants.py``, ``k9_variants.py``,
-  ``f32_steps.py``, ``sass_diff.py`` and ``bwd_rows.py`` import neither
+  ``f32_steps.py``, ``sass_diff.py``, ``bwd_rows.py`` and
+  ``k4_strided_variants.py`` import neither
   jax/jaxlib nor
   anything of the JAX package.  The scan is static (an AST walk of the sources): the
   interpreter that runs the tests may already hold jax, so an
@@ -26,7 +27,8 @@ def _port_sources():
     files = sorted((REPO / "bigdl_tpu_torch").rglob("*.py"))
     return files + [REPO / "chip_smoke.py", REPO / "k1_variants.py",
                     REPO / "k9_variants.py", REPO / "f32_steps.py",
-                    REPO / "sass_diff.py", REPO / "bwd_rows.py"]
+                    REPO / "sass_diff.py", REPO / "bwd_rows.py",
+                    REPO / "k4_strided_variants.py"]
 
 
 def forbidden_imports(source: str):
