@@ -4,8 +4,9 @@ trimmed to the local path; reference dataset/DataSet.scala:46-557).
 ``LocalArrayDataSet`` mirrors the reference's in-memory dataset with
 index-array shuffling (CachedDistriDataSet.shuffle, DataSet.scala:292)
 on the host RNG of ``utils/rng.py``, so one seed gives the JAX
-package's epoch order.  The sharded dataset comes with the distributed
-slice.
+package's epoch order.  ``ShardedDataSet``/``rdd`` keep the
+reference's distributed spelling; on one device they are the local
+array.
 """
 from __future__ import annotations
 
@@ -109,9 +110,26 @@ class TransformedDataSet(AbstractDataSet):
         return self.transformer(self.base.data(train))
 
 
+class ShardedDataSet(LocalArrayDataSet):
+    """Distributed-dataset seam (reference DataSet.rdd): the JAX
+    DistriOptimizer shards its batches over the mesh's ``data`` axis.
+    ``partition_num`` is kept for API parity; on one device the records
+    are the local array's."""
+
+    def __init__(self, data: Sequence, partition_num: int = 1):
+        super().__init__(data)
+        self.partition_num = partition_num
+
+
 def array(data: Sequence) -> LocalArrayDataSet:
     """reference DataSet.array (DataSet.scala:325)"""
     return LocalArrayDataSet(data)
+
+
+def rdd(data: Sequence, partition_num: int = 1) -> ShardedDataSet:
+    """reference DataSet.rdd (DataSet.scala:348): a host-sharded
+    stand-in."""
+    return ShardedDataSet(data, partition_num)
 
 
 def sort_data(samples, ascending: bool = True):

@@ -1,10 +1,24 @@
 """TransformerLM (counterpart of ``bigdl_tpu/models/transformer.py``).
 
 Ported: ``ln|rms`` norms, ``gelu|swiglu`` MLPs, learned positions or
-rope, GQA, the ``dense``, ``flash`` and ``blocksparse`` attention
-strategies (``blocksparse={...}`` passes ``pattern``, ``window``,
-``globals``, ``stride`` and ``block`` to each block's mask builder),
-and residual dropout.  MoE and remat come with later slices and raise.
+rope, GQA, the ``dense``, ``flash``, ``block`` and ``blocksparse``
+attention strategies (``blocksparse={...}`` passes ``pattern``,
+``window``, ``globals``, ``stride`` and ``block`` to each block's mask
+builder), residual dropout and ``remat``.  MoE comes with a later slice
+and raises.
+
+``remat=True`` recomputes each block's forward in the backward pass
+(the JAX ``jax.checkpoint`` of each block, HBM for FLOPs):
+``torch.utils.checkpoint`` without re-entry, which
+``torch.autograd.grad`` (the training step's) needs.  A block's dropout
+draws from the forward's generator (``nn/module.py``), which the
+checkpoint's RNG preservation does not cover (it saves the default CPU
+and CUDA generators only), so the block saves that generator's state
+before its forward and its recompute draws from that state again, under
+the same scope (the backward may run on another thread): the
+recomputed masks are the forward's.  Where no gradient is taken (under
+``torch.no_grad()``, or with no parameter requiring one) a block runs
+once, as without remat.
 """
 from __future__ import annotations
 
@@ -12,12 +26,14 @@ from typing import Optional
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from .. import nn
 from ..device import DeviceLike
 from ..nn.dropout import dropout
-from ..nn.module import Container, current_generator
+from ..nn.module import Container, current_generator, rng_scope
 from ..parallel.tensor_parallel import ColumnParallelLinear, RowParallelLinear
+from ..utils.tree import tree_leaves
 
 
 def gelu(x):
@@ -35,11 +51,35 @@ def _norm_factory(norm: str, norm_eps, device):
     return lambda d: nn.LayerNorm(d, eps=eps, device=device)
 
 
-def _unported(moe_experts: int, remat: bool = False):
+def _unported(moe_experts: int):
     if moe_experts:
         raise NotImplementedError("moe_experts > 0 is not ported yet")
-    if remat:
-        raise NotImplementedError("remat is not ported yet")
+
+
+def _remat_block(block, params, h):
+    """``block.apply_fn(params, h)`` with its activations recomputed in
+    the backward pass; the recompute draws the forward's dropout masks
+    (see the module docstring)."""
+    gen = (current_generator(h.device)
+           if block.dropout > 0.0 and block.training else None)
+    start = gen.get_state() if gen is not None else None
+    calls = []
+
+    def run(h_):
+        if gen is None:
+            return block.apply_fn(params, h_)
+        if not calls:                       # the forward
+            calls.append(True)
+            return block.apply_fn(params, h_)
+        after = gen.get_state()             # the recompute
+        gen.set_state(start)
+        try:
+            with rng_scope(gen):
+                return block.apply_fn(params, h_)
+        finally:
+            gen.set_state(after)
+
+    return checkpoint(run, h, use_reentrant=False, preserve_rng_state=False)
 
 
 class TransformerBlock(Container):
@@ -157,7 +197,7 @@ class TransformerLM(Container):
                  generator: Optional[torch.Generator] = None):
         if output not in ("log_probs", "logits"):
             raise ValueError(f"output {output!r} not in (log_probs, logits)")
-        _unported(moe_experts, remat)
+        _unported(moe_experts)
         mlp_dim = mlp_dim or 4 * embed_dim
         blocks = [TransformerBlock(embed_dim, num_heads, mlp_dim, causal,
                                    seq_strategy, model_axis,
@@ -183,6 +223,7 @@ class TransformerLM(Container):
         self.embed_dim = embed_dim
         self.max_len = max_len
         self.seq_strategy = seq_strategy
+        self.remat = bool(remat)
         # rope models carry no learned positional table — positions
         # live in the per-layer q/k rotation
         self.use_rope = bool(rope)
@@ -204,8 +245,14 @@ class TransformerLM(Container):
                 raise ValueError(f"sequence length {T} exceeds "
                                  f"max_len {self.max_len}")
             h = h + params["pos"][:T]
+        remat = self.remat and torch.is_grad_enabled() and any(
+            getattr(t, "requires_grad", False) for t in tree_leaves(params))
         for i in range(1, len(self)):
-            h = self[i].apply_fn(params[str(i)], h)
+            m = self[i]
+            if remat and isinstance(m, TransformerBlock):
+                h = _remat_block(m, params[str(i)], h)
+            else:
+                h = m.apply_fn(params[str(i)], h)
         if self._output_mode == "logits":
             return h
         return torch.log_softmax(h, dim=-1)

@@ -1,7 +1,7 @@
 """MultiHeadAttention and rotary embedding (counterpart of
-``bigdl_tpu/nn/attention.py``).  The ``dense``, ``flash`` and
-``blocksparse`` strategies are ported; the others come with later
-slices and raise."""
+``bigdl_tpu/nn/attention.py``).  The ``dense``, ``flash``, ``block``
+and ``blocksparse`` strategies are ported; ``ring`` and ``ulysses`` come
+with the distributed slice and raise."""
 from __future__ import annotations
 
 from typing import Optional
@@ -12,14 +12,14 @@ from ..device import DeviceLike
 from ..ops.block_sparse import (block_sparse_attention, pick_block_divisor,
                                 sliding_window_mask, strided_mask)
 from ..ops.flash_attention import flash_attention
-from ..parallel.ring_attention import attention
+from ..parallel.ring_attention import attention, blockwise_attention
 from .initialization import IN_OUT, ONE_D, Xavier, Zeros
 from .module import TensorModule
 
 #: the JAX layer's strategies, and those ported so far
 SEQ_STRATEGIES = ("dense", "flash", "block", "ring", "ulysses",
                   "blocksparse")
-PORTED_STRATEGIES = ("dense", "flash", "blocksparse")
+PORTED_STRATEGIES = ("dense", "flash", "block", "blocksparse")
 
 #: block-sparse mask patterns the layer can build (ops/block_sparse.py)
 SPARSE_PATTERNS = ("sliding", "strided")
@@ -51,7 +51,10 @@ def proj(x, params, w: str, b: str, with_bias: bool):
 class MultiHeadAttention(TensorModule):
     """Multi-head self-attention over [batch, seq, embed]; ``flash``
     runs kernel K1 forward and K2/K3 backward
-    (``ops/flash_attention.py``), ``blocksparse`` K6 forward and K7/K8
+    (``ops/flash_attention.py``), ``block`` the online softmax over K/V
+    blocks of ``block_size`` in plain PyTorch
+    (``parallel/ring_attention.py::blockwise_attention``, no kernel, as
+    the JAX strategy), ``blocksparse`` K6 forward and K7/K8
     backward (``ops/block_sparse.py``) over a static block mask built
     from ``sparse_pattern`` at ``sparse_block`` granularity (default
     ``block_size``): ``"sliding"`` = ``sparse_window`` blocks back plus
@@ -143,6 +146,9 @@ class MultiHeadAttention(TensorModule):
             return block_sparse_attention(
                 q, k, v, self.block_mask(q.shape[2], k.shape[2]),
                 causal=self.causal)
+        if self.seq_strategy == "block":
+            return blockwise_attention(q, k, v, block_size=self.block_size,
+                                       causal=self.causal)
         if self.seq_strategy == "flash":
             return flash_attention(q, k, v, causal=self.causal)
         return attention(q, k, v, causal=self.causal)

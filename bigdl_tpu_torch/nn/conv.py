@@ -45,7 +45,8 @@ class SpatialConvolution(TensorModule):
                  kernel_w: int, kernel_h: int, stride_w: int = 1,
                  stride_h: int = 1, pad_w: int = 0, pad_h: int = 0,
                  n_group: int = 1, propagate_back: bool = True,
-                 with_bias: bool = True, device: DeviceLike = None,
+                 w_regularizer=None, b_regularizer=None,
+                 with_bias: bool = True, *, device: DeviceLike = None,
                  generator: Optional[torch.Generator] = None):
         super().__init__(device)
         if n_input_plane % n_group or n_output_plane % n_group:
@@ -57,7 +58,10 @@ class SpatialConvolution(TensorModule):
         self.stride_w, self.stride_h = stride_w, stride_h
         self.pad_w, self.pad_h = pad_w, pad_h
         self.n_group = n_group
+        self.propagate_back = propagate_back
         self.with_bias = with_bias
+        self.w_regularizer = w_regularizer
+        self.b_regularizer = b_regularizer
         # None: the ``bigdl.conv.impl`` property at each call, "xla"
         # when unset (bigdl_tpu/nn/conv.py:89-90)
         self.conv_impl = None

@@ -27,12 +27,15 @@ class Linear(TensorModule):
     """y = x W^T + b (reference nn/Linear.scala:44)."""
 
     def __init__(self, input_size: int, output_size: int,
-                 with_bias: bool = True, device: DeviceLike = None,
+                 with_bias: bool = True, w_regularizer=None,
+                 b_regularizer=None, *, device: DeviceLike = None,
                  generator: Optional[torch.Generator] = None):
         super().__init__(device)
         self.input_size = input_size
         self.output_size = output_size
         self.with_bias = with_bias
+        self.w_regularizer = w_regularizer
+        self.b_regularizer = b_regularizer
         self._register_param("weight", RandomUniform().init(
             (output_size, input_size), IN_OUT, generator),
             RandomUniform(), IN_OUT)
@@ -59,21 +62,45 @@ def lookup(ids: torch.Tensor, weight: torch.Tensor,
     return out
 
 
+def max_norm_renorm(weight: torch.Tensor, max_norm: float,
+                    norm_type: float = 2.0) -> torch.Tensor:
+    """Every row whose ``norm_type``-norm exceeds ``max_norm`` scaled to
+    ``max_norm`` (over ``norm + 1e-7``), functionally: the JAX layer's
+    renorm of the whole table in its forward
+    (bigdl_tpu/nn/linear.py:274-277)."""
+    norms = torch.linalg.vector_norm(weight, ord=norm_type, dim=1,
+                                     keepdim=True)
+    return torch.where(norms > max_norm,
+                       weight * max_norm / (norms + 1e-7), weight)
+
+
 class LookupTable(TensorModule):
-    """Embedding over 1-based ids (reference nn/LookupTable.scala)."""
+    """Embedding over 1-based ids (reference nn/LookupTable.scala), with
+    the max-norm renorm of rows above ``max_norm``.
+    ``should_scale_grad_by_freq`` is kept for the reference's signature;
+    the JAX layer does not read it either."""
 
     def __init__(self, n_index: int, n_output: int, padding_value: float = 0,
-                 device: DeviceLike = None,
+                 max_norm: float = float("inf"), norm_type: float = 2.0,
+                 should_scale_grad_by_freq: bool = False, w_regularizer=None,
+                 *, device: DeviceLike = None,
                  generator: Optional[torch.Generator] = None):
         super().__init__(device)
         self.n_index, self.n_output = n_index, n_output
         self.padding_value = padding_value
+        self.max_norm = max_norm
+        self.norm_type = norm_type
+        self.should_scale_grad_by_freq = should_scale_grad_by_freq
+        self.w_regularizer = w_regularizer
         self._register_param("weight", RandomNormal(0, 1).init(
             (n_index, n_output), ONE_D, generator), RandomNormal(0, 1),
             ONE_D)
 
     def _compute(self, params, x):
-        return lookup(x, params["weight"], self.padding_value)
+        w = params["weight"]
+        if self.max_norm != float("inf"):
+            w = max_norm_renorm(w, self.max_norm, self.norm_type)
+        return lookup(x, w, self.padding_value)
 
 
 class MulConstant(TensorModule):

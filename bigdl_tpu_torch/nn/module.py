@@ -433,18 +433,13 @@ class AbstractModule(torch.nn.Module):
         self.backward_time += time.time() - t0
         return gi
 
-    def _scaled_params(self):
-        """(parameter, scale) for every parameter, the scale its owning
-        layer's ``scale_b`` for a name holding "bias", else ``scale_w``
-        (AbstractModule.scala:70-101)."""
-        for m in self.modules():
-            for name, p in m.named_parameters(recurse=False):
-                s = getattr(m, "scale_b" if "bias" in name else "scale_w", 1.0)
-                yield p, s
-
     def _accumulate(self, grads_by_param: Dict[int, torch.Tensor]):
+        """Add each parameter's gradient, times its leaf of
+        ``gradient_scale_tree()``, to its ``.grad``."""
+        scales = zip(tree_leaves(self.param_tree()),
+                     tree_leaves(self.gradient_scale_tree()))
         with torch.no_grad():
-            for p, s in self._scaled_params():
+            for p, s in scales:
                 g = grads_by_param.get(id(p))
                 if g is None:
                     continue
@@ -456,9 +451,21 @@ class AbstractModule(torch.nn.Module):
                     p.grad.add_(g)
 
     def gradient_scale_tree(self) -> Dict:
-        """Per-leaf gradient scales in ``param_tree``'s layout."""
-        scale = {id(p): s for p, s in self._scaled_params()}
-        return tree_map(lambda p: scale[id(p)], self.param_tree())
+        """Per-leaf gradient scales in ``param_tree``'s layout (the
+        reference's setScaleW/setScaleB, AbstractModule.scala:70-101):
+        this module's ``scale_b`` for a leaf whose key holds "bias",
+        else its ``scale_w``.  A ``Container`` gives each child's own
+        tree instead (its own parameters, as TransformerLM's ``"pos"``,
+        take its scales), so the scales that count are those of the
+        modules a container holds, not of the tensors' owners below
+        them: the JAX package's rule (bigdl_tpu/nn/module.py:205-214,
+        :499-501)."""
+        def scale_of(node, key=""):
+            if isinstance(node, dict):
+                return {k: scale_of(v, k) for k, v in node.items()}
+            return self.scale_b if "bias" in key else self.scale_w
+
+        return scale_of(self.param_tree())
 
     # ------------------------------------------------------------------
     # parameter surface (AbstractModule.scala:284-310)
@@ -823,3 +830,10 @@ class Container(AbstractModule):
         inner = "\n".join("  " + repr(m).replace("\n", "\n  ")
                           for m in self.children())
         return f"{self.get_name()} {{\n{inner}\n}}"
+
+    def gradient_scale_tree(self) -> Dict:
+        tree = {name: self.scale_b if "bias" in name else self.scale_w
+                for name, _ in self.named_parameters(recurse=False)}
+        for key, child in self.named_children():
+            tree[key] = child.gradient_scale_tree()
+        return tree

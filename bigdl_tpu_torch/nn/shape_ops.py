@@ -402,6 +402,10 @@ class Scale(TensorModule):
         y = self._modules["mul"].apply_fn(params["mul"], x)
         return self._modules["add"].apply_fn(params["add"], y)
 
+    def gradient_scale_tree(self):
+        # the children's scales, as the JAX layer (shape_ops.py:410-412)
+        return {k: m.gradient_scale_tree() for k, m in self.named_children()}
+
 
 class _Reverse(torch.autograd.Function):
     @staticmethod

@@ -15,13 +15,18 @@ The single-GPU training loop.  The host loop is the JAX package's
    criterion ``accepts_low_precision``;
 2. the loss and the gradients of every parameter (autograd: through K1,
    K2, K3 and K4's Functions on the card);
-3. ``optim.step`` over the parameter tree, functional, under
+3. the regularizers' penalty (``optim/regularizer.py``, taken on the
+   f32 master parameters): its gradient added to the loss gradient, the
+   penalty to the logged loss; then every gradient times its leaf of
+   ``model.gradient_scale_tree()`` (``set_scale_w``/``set_scale_b``),
+   in the JAX step's order (``bigdl_tpu/parallel/plan.py:1599-1610``);
+4. ``optim.step`` over the parameter tree, functional, under
    ``torch.no_grad()``;
-4. the gradient guard (on by default): with a non-finite loss or
+5. the gradient guard (on by default): with a non-finite loss or
    gradient the parameters and slots keep their old values and the step
    counts in ``skipped_steps``.  The decision is a device-side select,
    read back with the loss the loop fetches anyway;
-5. the result written into the model's parameters in place.
+6. the result written into the model's parameters in place.
 
 Model state (BatchNorm's running statistics) lives in the model's f32
 buffers, outside the parameter tree, so the compute-dtype cast never
@@ -80,7 +85,8 @@ from ..utils.rng import RNG, next_step_seed
 from ..utils.tree import tree_leaves, tree_map
 from .metrics import Metrics
 from .optim_method import SGD, OptimMethod
-from .trigger import Trigger, max_epoch
+from .regularizer import collect_regularizer_paths, regularizer_loss
+from .trigger import Trigger, max_epoch, max_iteration
 
 log = logging.getLogger("bigdl_tpu_torch")
 
@@ -133,6 +139,12 @@ class Optimizer:
         # application's decision)
         self.handle_preemption = False
         self._preemption: Optional[PreemptionHandler] = None
+        # reference straggler knobs (Optimizer.scala:229-243): kept, and
+        # inert with a warning on one device (no straggler to drop)
+        self.drop_percentage = 0.0
+        self.max_drop_percentage = 0.0
+        self._drop_warmup = 200
+        self.compute_threshold_batchsize = 100
         # background snapshot-then-write checkpoints (on by default)
         self.async_checkpoint = True
         self._ckpt_writer = None
@@ -253,6 +265,38 @@ class Optimizer:
         ``resume_from_checkpoint``."""
         self.handle_preemption = bool(enabled)
         return self
+
+    def set_drop_module_property(self, drop_percentage, max_drop_percentage,
+                                 batch_size=100, warmup_iteration=200):
+        """Straggler-drop knobs (reference Optimizer.scala:229-243).  The
+        JAX package hands them to its elastic straggler policy; one
+        device has no straggler to drop, so ``optimize()`` warns that
+        they are set and do nothing."""
+        self.drop_percentage = float(drop_percentage)
+        self.max_drop_percentage = float(max_drop_percentage)
+        self.compute_threshold_batchsize = batch_size
+        self._drop_warmup = int(warmup_iteration)
+        return self
+
+    def _warn_drop_knobs_if_inert(self):
+        if self.drop_percentage:
+            log.warning(
+                "straggler-drop knobs set (drop_percentage=%.2f, "
+                "max_drop_percentage=%.2f) on a single-device run: there "
+                "is no straggler to drop", self.drop_percentage,
+                self.max_drop_percentage)
+
+    def train_more(self, n_steps: int):
+        """Continue training for ``n_steps`` more iterations: the optim
+        method's state table carries ``neval``/``epoch`` across calls,
+        so each slice resumes where the last one stopped; this extends
+        the end trigger by ``n_steps`` completed iterations and
+        re-enters ``optimize()``."""
+        if n_steps < 1:
+            raise ValueError(f"n_steps must be >= 1, got {n_steps}")
+        done = int(self.optim_method.state.get("neval", 1)) - 1
+        self.set_end_when(max_iteration(done + int(n_steps)))
+        return self.optimize()
 
     def set_telemetry(self, *args, **kwargs):
         _unported("telemetry")
@@ -563,9 +607,12 @@ class LocalOptimizer(Optimizer):
     """Single-device training loop (reference
     optim/LocalOptimizer.scala:41) on the model's device."""
 
-    def _step(self, params, slots, x, y, lr: float):
+    def _step(self, params, slots, x, y, lr: float, reg_paths=(),
+              scales=None):
         """One training step; returns (loss, ok, new_slots) with loss
-        and ok still on the device."""
+        and ok still on the device.  ``reg_paths``: the model's
+        regularizers (``collect_regularizer_paths``); ``scales``: the
+        leaves of its gradient scale tree, or None when all are 1."""
         model, crit, dtype = self.model, self.criterion, self.compute_dtype
         leaves = tree_leaves(params)
         buffers = tree_leaves(model.buffer_tree())
@@ -581,9 +628,20 @@ class LocalOptimizer(Optimizer):
                 out = cast_floats(out, torch.float32)
             loss = crit._loss(out, y)
             grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+            # the penalty on the f32 masters, after the loss gradient
+            reg = regularizer_loss(params, reg_paths)
+            if torch.is_tensor(reg):
+                reg_g = torch.autograd.grad(reg, leaves, allow_unused=True)
+                grads = [r if g is None else g if r is None else g + r
+                         for g, r in zip(grads, reg_g)]
+                loss = loss + reg.detach()
         with torch.no_grad():
-            it = iter(torch.zeros_like(p) if g is None else g
-                      for g, p in zip(grads, leaves))
+            grads = [torch.zeros_like(p) if g is None else g
+                     for g, p in zip(grads, leaves)]
+            if scales is not None:
+                grads = [g if s == 1.0 else g * s
+                         for g, s in zip(grads, scales)]
+            it = iter(grads)
             grads = tree_map(lambda _: next(it), params)
             old = tree_map(torch.Tensor.detach, params)
             new_params, new_slots = self.optim_method.step(grads, old,
@@ -601,6 +659,7 @@ class LocalOptimizer(Optimizer):
         return loss.detach(), ok, new_slots
 
     def optimize(self):
+        self._warn_drop_knobs_if_inert()
         try:
             with self._preemption_scope():
                 return self._with_retry(self._loop)
@@ -612,6 +671,10 @@ class LocalOptimizer(Optimizer):
         model.train()
         params = model.param_tree()
         slots = _resume_slots(optim, tree_map(torch.Tensor.detach, params))
+        reg_paths = list(collect_regularizer_paths(model))
+        scales = tree_leaves(model.gradient_scale_tree())
+        if all(s == 1.0 for s in scales):
+            scales = None
 
         state = optim.state
         state["epoch"] = state.get("epoch", 1)
@@ -639,7 +702,8 @@ class LocalOptimizer(Optimizer):
                 next_step_seed())
             t0 = time.time()
             with rng_scope(step_gen):
-                loss, ok, slots = self._step(params, slots, x, y, lr)
+                loss, ok, slots = self._step(params, slots, x, y, lr,
+                                             reg_paths, scales)
             # one read-back for both: the device sync of the step
             loss, ok = torch.stack([loss.float(), ok.float()]).tolist()
             train_time = time.time() - t0

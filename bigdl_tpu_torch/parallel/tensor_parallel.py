@@ -32,8 +32,8 @@ class ColumnParallelLinear(Linear):
                  generator: Optional[torch.Generator] = None):
         _unbound("ColumnParallelLinear", axis_name)
         self.axis_name = axis_name
-        super().__init__(input_size, output_size, with_bias, device,
-                         generator)
+        super().__init__(input_size, output_size, with_bias,
+                         device=device, generator=generator)
 
 
 class RowParallelLinear(Linear):
@@ -46,8 +46,8 @@ class RowParallelLinear(Linear):
                  generator: Optional[torch.Generator] = None):
         _unbound("RowParallelLinear", axis_name)
         self.axis_name = axis_name
-        super().__init__(input_size, output_size, with_bias, device,
-                         generator)
+        super().__init__(input_size, output_size, with_bias,
+                         device=device, generator=generator)
 
     def _compute(self, params, x):
         w = params["weight"]

@@ -4,8 +4,11 @@
 Paths carry an optional scheme the way the reference's Hadoop-path seam
 does: ``scheme://...`` routes through a backend registered with
 :func:`register_filesystem`; bare (or ``file://``) paths use the local
-filesystem.  The JAX package falls back to fsspec for other schemes;
-that backend is not ported and raises.
+filesystem; any other scheme falls back to fsspec (``memory://``,
+``gs://``, ``s3://`` where their fsspec packages are installed), as in
+the JAX package.  ``fsspec`` is imported only when such a path is
+used; without it, or for a protocol it does not know, the path raises
+``ValueError`` naming ``register_filesystem``.
 
 Serialization is pickle (protocol 5).  :func:`serialize` moves every
 tensor to the CPU first and pickles it as its dtype, shape and raw
@@ -70,6 +73,31 @@ class _LocalBackend(FileSystemBackend):
         return os.path.isdir(_strip_file_scheme(path))
 
 
+class _FsspecBackend(FileSystemBackend):
+    """Adapter over an fsspec filesystem instance."""
+
+    def __init__(self, scheme: str):
+        import fsspec
+
+        self.fs = fsspec.filesystem(scheme)
+
+    def open(self, path, mode):
+        return self.fs.open(path, mode)
+
+    def exists(self, path):
+        return self.fs.exists(path)
+
+    def makedirs(self, path):
+        self.fs.makedirs(path, exist_ok=True)
+
+    def listdir(self, path):
+        return [p.rstrip("/").rsplit("/", 1)[-1]
+                for p in self.fs.ls(path, detail=False)]
+
+    def isdir(self, path):
+        return self.fs.isdir(path)
+
+
 _FILESYSTEMS: Dict[str, FileSystemBackend] = {}
 _LOCAL = _LocalBackend()
 
@@ -89,10 +117,12 @@ def filesystem_for(path: str) -> FileSystemBackend:
     if not scheme or scheme == "file":
         return _LOCAL
     if scheme not in _FILESYSTEMS:
-        raise NotImplementedError(
-            f"no filesystem backend for scheme {scheme!r}: register one "
-            f"with register_filesystem (the fsspec fallback is not ported "
-            f"to bigdl_tpu_torch yet)")
+        try:
+            _FILESYSTEMS[scheme] = _FsspecBackend(scheme)
+        except Exception as e:  # no fsspec / unknown protocol
+            raise ValueError(
+                f"no filesystem backend for scheme {scheme!r} "
+                f"(register one with register_filesystem): {e}")
     return _FILESYSTEMS[scheme]
 
 

@@ -187,10 +187,39 @@ Phases; any failure exits non-zero:
    backward in f32 on the card against the CPU (each within 1e-5 of its
    largest value, every tensor on the card), the random layers also
    trained on the card.
-12. a ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and as the
+12. training breadth — (a) phase 5's cell built with ``remat=True``
+   beside the same weights without, in one call: every loss finite, no
+   step skipped, the last below the first, launches a step K1 16 (the
+   forward and each block's recompute), K2 8, K3 8, K4 33 and no
+   operand copy, the first loss = the plain run's bit for bit, the
+   decreases within 5e-2 and each update p_8 - p_0 within 1e-2 row by
+   row (bit for bit reported); both runs' step ms and peak memory; an
+   eval forward under ``no_grad`` launches K1 8 and K4 17; (b) with
+   dropout 0.1, 2 steps with and without remat from the same step
+   seeds: the losses equal bit for bit, the updates within 1e-2 row by
+   row (bit for bit reported); (c) ``seq_strategy="block"`` at block
+   512, bf16, 8 steps from phase 5's weights and batch: K1-K3 0, K4 17
+   a step, the first loss within 4e-5 of (a)'s flash run and the
+   decreases within 5e-2; step ms and peak memory; its 2-layer copy at
+   block 64 (T 256, B 2, 3 steps, f32) card vs CPU at phase 5's limits;
+   (d) the 2-layer copy in f32, 3 steps, card vs CPU at phase 5's limits
+   under Adagrad, Adadelta, Adamax, RMSprop,
+   ``TorchOptimMethod(torch.optim.Adam)`` and SGD with momentum 0.9, a
+   ``Step`` schedule, ``L1L2Regularizer(1e-4, 1e-4)`` on the embedding
+   and the head and ``set_scale_w(0.5)`` on the head, each step's
+   learning rate its schedule's; (e) ``LBFGS`` with the line search on
+   the 4-dimensional Rosenbrock function in f32 on the card below
+   1e-2, its first 5 evaluation points within 1e-5 of the CPU's.  The
+   phase's seconds.
+13. a ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and as the
    last line ``{"ok": true, "device": {...}}``.
 
 The full record goes to ``chiprun_out/chip_smoke.json``.
+
+    python3 chip_smoke.py --phase12
+
+runs phase 1, builds K1-K4 and runs phase 12 alone (record in
+``chiprun_out/chip_phase12.json``; exit 1 on a failed check).
 
     python3 chip_smoke.py --profile
 
@@ -202,6 +231,7 @@ ResNet-50 by the op that launched it: K5 forward, K5 dX, the dW
 matmuls and pads, cuDNN, the NCHW/NHWC layout copies; launches, the
 device's busy share) into ``chiprun_out/chip_profile.json``.
 """
+import copy
 import json
 import math
 import os
@@ -2277,7 +2307,7 @@ def serve_paged(torch):
 
 
 def _lm(torch, device, num_layers, max_len=None, seq_strategy="flash",
-        blocksparse=None, seed=0, dropout=0.0):
+        blocksparse=None, seed=0, dropout=0.0, remat=False):
     from bigdl_tpu_torch.models.transformer import TransformerLM
 
     cfg = FLAGSHIP
@@ -2285,7 +2315,8 @@ def _lm(torch, device, num_layers, max_len=None, seq_strategy="flash",
                          num_heads=cfg["num_heads"], num_layers=num_layers,
                          max_len=max_len or cfg["max_len"],
                          seq_strategy=seq_strategy, blocksparse=blocksparse,
-                         output="logits", dropout=dropout, device=device,
+                         output="logits", dropout=dropout, remat=remat,
+                         device=device,
                          generator=torch.Generator().manual_seed(seed))
 
 
@@ -2304,13 +2335,13 @@ def _lm_data(B: int, T: int):
 
 
 def make_trainer(torch, model, B, T, iters, compute_dtype, on_check=None,
-                 data=None, crit=None):
+                 data=None, crit=None, method=None):
     """The port's LocalOptimizer over one batch of B samples, SGD at
-    ``TRAIN_LR``, stopping after ``iters`` iterations; ``on_check(state)``
-    runs each time the loop evaluates its end trigger (before the first
-    iteration and after each).  The samples and the criterion are the
-    flagship's (B sequences of T ids) unless ``data`` and ``crit`` are
-    given."""
+    ``TRAIN_LR`` (or ``method``), stopping after ``iters`` iterations;
+    ``on_check(state)`` runs each time the loop evaluates its end trigger
+    (before the first iteration and after each).  The samples and the
+    criterion are the flagship's (B sequences of T ids) unless ``data``
+    and ``crit`` are given."""
     from bigdl_tpu_torch import nn
     from bigdl_tpu_torch.optim import SGD, LocalOptimizer, Trigger
 
@@ -2324,14 +2355,15 @@ def make_trainer(torch, model, B, T, iters, compute_dtype, on_check=None,
     if data is None:
         data = _lm_data(B, T)
     opt = LocalOptimizer(model, data, crit, batch_size=B)
-    opt.set_optim_method(SGD(TRAIN_LR)).set_end_when(Trigger(check))
+    opt.set_optim_method(method if method is not None else SGD(TRAIN_LR))
+    opt.set_end_when(Trigger(check))
     if compute_dtype is not None:
         opt.set_compute_dtype(compute_dtype)
     return opt
 
 
 def run_training(torch, model, B, T, iters, compute_dtype, updates=False,
-                 data=None, crit=None):
+                 data=None, crit=None, method=None):
     """Train and record, at each end-trigger check: the host clock, the
     state's loss and every launch count.  Each iteration ends in the
     loss read-back, a device sync, so consecutive clocks bound one
@@ -2348,7 +2380,7 @@ def run_training(torch, model, B, T, iters, compute_dtype, updates=False,
                       {n: c.count for n, c in counters.items()}))
 
     opt = make_trainer(torch, model, B, T, iters, compute_dtype, mark, data,
-                       crit)
+                       crit, method)
     start = ({n: p.detach().clone() for n, p in model.named_parameters()}
              if updates else {})
     RNG().set_seed(1)
@@ -4018,6 +4050,457 @@ def torch_api(torch, bf16_step_ms):
     return rec, failures
 
 
+# phase 12: training breadth.  (a) phase 5's cell with remat beside it
+# without, same weights, one call; (b) the same with dropout 0.1, 2
+# steps each from the same step seeds; (c) seq_strategy="block" at
+# block 512 in bf16, and its 2-layer copy at block 64, card vs CPU;
+# (d) the optim methods, a schedule, regularizers and a gradient scale
+# on the 2-layer copy, card vs CPU; (e) LBFGS on Rosenbrock.  The limits
+# are phase 5's (and phase 6's first-loss limit for "block" vs flash);
+# remat's first loss and its dropout losses are held bit for bit.
+BREADTH_DROPOUT, BREADTH_DROPOUT_ITERS = 0.1, 2
+BLOCK_SIZE, SMALL_BLOCK_SIZE = 512, 64
+LBFGS_POINTS, LBFGS_REL_TOL, ROSEN_TOL = 5, 1e-5, 1e-2
+
+
+def _flagship_run(torch, model, iters, dtype=None):
+    """``run_training`` of ``model`` on phase 5's batch, with the peak
+    memory of the run (read from a reset), and the parameters' updates
+    taken on the CPU (so no device copy adds to the peak)."""
+    B, T = TRAIN_BATCH, TRAIN_T
+    start = _params_cpu(model)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    rec = run_training(torch, model, B, T, iters, dtype or torch.bfloat16)
+    rec["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    rec["updates"] = {n: p.detach().to("cpu", copy=True) - start[n]
+                      for n, p in model.named_parameters()}
+    steady = rec["step_s"][2:] or rec["step_s"][1:]
+    rec["step_ms"] = 1e3 * sum(steady) / len(steady)
+    return rec
+
+
+def _update_err(torch, got, want, skip=()):
+    """The worst parameter's ``row_rel_err`` of ``got``'s updates against
+    ``want``'s, at the largest update row's scale (phase 5's reading)."""
+    scale = max(max_row_norm(torch, u) for u in want.values())
+    err = {n: row_rel_err(torch, got[n], u, scale)
+           for n, u in want.items() if not any(s in n for s in skip)}
+    worst = max(err, key=err.get)
+    return worst, err[worst]
+
+
+def _nz(counts):
+    return {n: v for n, v in counts.items() if v}
+
+
+def _same_bits(torch, a, b):
+    return all(torch.equal(a[n], b[n]) for n in b)
+
+
+def remat_leg(torch):
+    """Phase 12 (a), (b)."""
+    L = FLAGSHIP["num_layers"]
+    failures = []
+    runs = {}
+    for remat in (False, True):
+        model = _lm(torch, "cuda", L, remat=remat)
+        runs[remat] = _flagship_run(torch, model, TRAIN_ITERS)
+        if remat:
+            # the eval forward: one K1 per layer, one K4 per norm
+            counters = launch_counters()
+            for c in counters.values():
+                c.reset()
+            model.evaluate()
+            x = torch.randint(1, FLAGSHIP["vocab"] + 1, (2, TRAIN_T),
+                              generator=torch.Generator().manual_seed(0),
+                              dtype=torch.int32).cuda()
+            with torch.no_grad():
+                y = model(x)
+            torch.cuda.synchronize()
+            eval_launches = {n: c.count for n, c in counters.items()}
+            eval_ok = bool(torch.isfinite(y).all())
+            del y
+        del model
+        torch.cuda.empty_cache()
+    plain, rm = runs[False], runs[True]
+    losses = rm["losses"]
+    want = want_launches(flash_fwd=2 * L, flash_bwd_dkv=L, flash_bwd_dq=L,
+                         layer_norm_fwd=4 * L + 1)
+    want_eval = want_launches(flash_fwd=L, layer_norm_fwd=2 * L + 1)
+    dec_rel = decrease_rel_err(losses, plain["losses"])
+    worst, upd = _update_err(torch, rm["updates"], plain["updates"])
+    bitwise = losses == plain["losses"] and _same_bits(
+        torch, rm["updates"], plain["updates"])
+    print(f"phase 12 (a): remat bf16, B {TRAIN_BATCH} T {TRAIN_T}: losses "
+          f"{[round(v, 4) for v in losses]}; first loss = plain's bit for "
+          f"bit: {losses[0] == plain['losses'][0]}; decreases worst rel "
+          f"{dec_rel:.3e} (tol {TRAIN_DECREASE_REL_TOL}); updates worst row "
+          f"err {upd:.3e} in {worst} (tol {TRAJ_UPDATE_ROW_TOL}); bit for "
+          f"bit: {bitwise}; step {rm['step_ms']:.2f} ms, peak "
+          f"{rm['peak_gb']:.2f} GB vs plain {plain['step_ms']:.2f} ms, "
+          f"{plain['peak_gb']:.2f} GB; launches per step "
+          f"{_nz(rm['launches_per_step'][0])}; eval forward "
+          f"{_nz(eval_launches)}")
+    if len(losses) != TRAIN_ITERS or not all(math.isfinite(v)
+                                             for v in losses):
+        failures.append(f"phase 12 (a) losses {losses}")
+    if rm["skipped_steps"] or plain["skipped_steps"]:
+        failures.append("phase 12 (a) skipped steps")
+    if not losses[-1] < losses[0]:
+        failures.append(f"phase 12 (a) loss did not fall: {losses}")
+    bad = [st for st in rm["launches_per_step"] if st != want]
+    if bad:
+        failures.append(f"phase 12 (a) launches per step {_nz(bad[0])}, "
+                        f"want {_nz(want)}")
+    if losses[0] != plain["losses"][0]:
+        failures.append(f"phase 12 (a) first loss {losses[0]} vs plain "
+                        f"{plain['losses'][0]}")
+    if not dec_rel <= TRAIN_DECREASE_REL_TOL:
+        failures.append(f"phase 12 (a) decreases rel {dec_rel:.3e}")
+    if not upd <= TRAJ_UPDATE_ROW_TOL:
+        failures.append(f"phase 12 (a) {worst} row err {upd:.3e}")
+    if eval_launches != want_eval or not eval_ok:
+        failures.append(f"phase 12 (a) eval forward launches "
+                        f"{_nz(eval_launches)}, finite {eval_ok}")
+    rec = dict(
+        remat=dict(losses=losses, step_ms=rm["step_ms"],
+                   peak_memory_gb=rm["peak_gb"], step_s=rm["step_s"],
+                   launches_per_step=rm["launches_per_step"][0]),
+        plain=dict(losses=plain["losses"], step_ms=plain["step_ms"],
+                   peak_memory_gb=plain["peak_gb"], step_s=plain["step_s"]),
+        decrease_rel=dec_rel, update_row_err=upd, worst=worst,
+        bitwise=bitwise, eval_launches=eval_launches)
+    launches = {n: rm["launches"][n] + plain["launches"][n]
+                for n in rm["launches"]}
+    for n, v in eval_launches.items():
+        launches[n] += v
+
+    # (b) dropout 0.1: remat's recompute must draw the forward's masks
+    drop = {}
+    for remat in (False, True):
+        model = _lm(torch, "cuda", L, dropout=BREADTH_DROPOUT, remat=remat)
+        drop[remat] = _flagship_run(torch, model, BREADTH_DROPOUT_ITERS)
+        del model
+        torch.cuda.empty_cache()
+        for n, v in drop[remat]["launches"].items():
+            launches[n] += v
+    d_plain, d_rm = drop[False], drop[True]
+    worst_d, upd_d = _update_err(torch, d_rm["updates"], d_plain["updates"])
+    d_bitwise = _same_bits(torch, d_rm["updates"], d_plain["updates"])
+    print(f"phase 12 (b): dropout {BREADTH_DROPOUT}, {BREADTH_DROPOUT_ITERS} "
+          f"steps: losses remat {d_rm['losses']} plain {d_plain['losses']}; "
+          f"updates worst row err {upd_d:.3e} in {worst_d}; bit for bit: "
+          f"{d_bitwise}")
+    if d_rm["losses"] != d_plain["losses"] \
+            or len(d_rm["losses"]) != BREADTH_DROPOUT_ITERS:
+        failures.append(f"phase 12 (b) losses {d_rm['losses']} vs "
+                        f"{d_plain['losses']}")
+    if not upd_d <= TRAJ_UPDATE_ROW_TOL:
+        failures.append(f"phase 12 (b) {worst_d} row err {upd_d:.3e}")
+    rec["dropout"] = dict(remat_losses=d_rm["losses"],
+                          plain_losses=d_plain["losses"],
+                          update_row_err=upd_d, worst=worst_d,
+                          bitwise=d_bitwise)
+    rec["launches"] = launches
+    return rec, plain, failures
+
+
+def _tensor_err(torch, got, want, skip=()):
+    """The worst parameter's ||got - want|| / ||want|| over the whole
+    tensor (parameters whose update is 0 on both sides read 0)."""
+    err = {}
+    for n, u in want.items():
+        if any(k in n for k in skip):
+            continue
+        d = torch.linalg.vector_norm((got[n] - u).float()).item()
+        r = torch.linalg.vector_norm(u.float()).item()
+        err[n] = d / r if r else d
+    worst = max(err, key=err.get)
+    return worst, err[worst]
+
+
+def _small_card_vs_cpu(torch, label, make, method=None, iters=SMALL_ITERS,
+                       adaptive=0.0, loss_ulps=0):
+    """``make(device)``'s model trained ``iters`` steps in f32 on the card
+    and on the CPU (phase 5's 2-layer copy and batch), held to phase 5's
+    limits: the losses, the decreases and every update row by row.
+    ``method()`` builds a fresh optim method a run; each step's learning
+    rate is recorded.
+
+    ``adaptive`` (its learning rate, else 0): the method divides each
+    gradient element by its own size (Adagrad, Adamax, RMSprop, Adam),
+    so an element whose gradient is rounding noise (a cancelling sum)
+    moves by about lr in a direction of its own on each side, and one
+    such element is 1/sqrt(F) of a row's update: the updates are held at
+    the same limit over each whole tensor instead (the row-by-row reading
+    is reported), and the key bias ``bk``, whose gradient is zero in
+    exact arithmetic, by its size (at most 10 lr a step; RMSprop's first
+    step is 10 lr).
+    ``loss_ulps``: the decreases are held to phase 5's limit plus that
+    many f32 ulps of the first loss, where a penalty makes the logged
+    loss too large for f32 to resolve a decrease to the limit."""
+    runs, lrs = {}, {}
+    for dev in ("cuda", "cpu"):
+        m = method() if method is not None else None
+        if m is not None:
+            step, lrs[dev] = m.step, []
+
+            def rec_step(g, p, s, lr, _step=step, _lrs=lrs[dev]):
+                _lrs.append(lr)
+                return _step(g, p, s, lr)
+            m.step = rec_step
+        runs[dev] = run_training(torch, make(dev), SMALL_BATCH, SMALL_T,
+                                 iters, None, updates=True, method=m)
+    card, cpu = runs["cuda"]["losses"], runs["cpu"]["losses"]
+    got, want = runs["cuda"]["updates"], runs["cpu"]["updates"]
+    rel = max(abs(a - b) / abs(b) for a, b in zip(card, cpu))
+    dec = decrease_rel_err(card, cpu)
+    floor = loss_ulps * _f32_ulp(cpu[0])
+    dec_abs = max(abs((a - card[0]) - (b - cpu[0]))
+                  for a, b in zip(card[1:], cpu[1:]))
+    dec_ok = all(abs((a - card[0]) - (b - cpu[0]))
+                 <= TRAJ_DECREASE_REL_TOL * abs(b - cpu[0]) + floor
+                 for a, b in zip(card[1:], cpu[1:]))
+    skip = (".bk",) if adaptive else ()
+    worst, upd = _update_err(torch, got, want, skip)
+    held, held_err = (_tensor_err(torch, got, want, skip) if adaptive
+                      else (worst, upd))
+    failures = []
+    if len(card) != iters or not rel <= TRAJ_RTOL:
+        failures.append(f"phase 12 {label}: losses {card} vs {cpu}")
+    if not dec_ok:
+        failures.append(f"phase 12 {label}: decreases rel {dec:.3e} (abs "
+                        f"{dec_abs:.3e}, floor {floor:.3e})")
+    if not held_err <= TRAJ_UPDATE_ROW_TOL:
+        failures.append(f"phase 12 {label}: {held} err {held_err:.3e}")
+    bk = None
+    if adaptive:
+        bk = max(u.abs().max().item() for n, u in got.items() if ".bk" in n)
+        if not bk <= 10 * adaptive * iters:
+            failures.append(f"phase 12 {label}: bk moved {bk:.3e}")
+    if runs["cuda"]["skipped_steps"] or runs["cpu"]["skipped_steps"]:
+        failures.append(f"phase 12 {label}: skipped steps")
+    rec = dict(card_losses=card, cpu_losses=cpu, max_rel=rel,
+               decrease_rel=dec, decrease_abs=dec_abs,
+               decrease_floor=floor, update_row_err=upd, worst=worst,
+               held_by="tensor" if adaptive else "row",
+               update_err=held_err, held_worst=held, bk_max_update=bk,
+               lrs=lrs.get("cuda"), cpu_lrs=lrs.get("cpu"),
+               launches=runs["cuda"]["launches"])
+    print(f"phase 12 {label}: losses card {card} cpu {cpu}: max rel "
+          f"{rel:.3e}, decreases {dec:.3e} (abs {dec_abs:.3e}"
+          + (f", floor {floor:.3e}" if floor else "") + "), updates worst "
+          f"row err {upd:.3e} in {worst}"
+          + (f", worst tensor err {held_err:.3e} in {held}, bk max "
+             f"{bk:.3e}" if adaptive else "")
+          + (f"; lr {rec['lrs']}" if rec["lrs"] else ""))
+    return rec, failures
+
+
+def _f32_ulp(x: float) -> float:
+    """One f32 ulp at |x|."""
+    import numpy as np
+
+    return float(np.spacing(np.float32(abs(x))))
+
+
+def block_leg(torch, plain):
+    """Phase 12 (c): "block" attention on the flagship against (a)'s flash
+    run, and its 2-layer copy at block 64, card vs CPU."""
+    L = FLAGSHIP["num_layers"]
+    failures = []
+    model = _lm(torch, "cuda", L, seq_strategy="block")
+    run = _flagship_run(torch, model, TRAIN_ITERS)
+    del model
+    torch.cuda.empty_cache()
+    losses = run["losses"]
+    want = want_launches(layer_norm_fwd=2 * L + 1)
+    first_rel = abs(losses[0] - plain["losses"][0]) / abs(plain["losses"][0])
+    dec_rel = decrease_rel_err(losses, plain["losses"])
+    print(f"phase 12 (c): block {BLOCK_SIZE} bf16: losses "
+          f"{[round(v, 4) for v in losses]}; first loss vs flash rel "
+          f"{first_rel:.3e} (tol {BS_FIRST_REL_TOL}); decreases worst rel "
+          f"{dec_rel:.3e} (tol {TRAIN_DECREASE_REL_TOL}); step "
+          f"{run['step_ms']:.2f} ms, peak {run['peak_gb']:.2f} GB vs flash "
+          f"{plain['step_ms']:.2f} ms, {plain['peak_gb']:.2f} GB; launches "
+          f"per step {_nz(run['launches_per_step'][0])}")
+    if len(losses) != TRAIN_ITERS or not all(math.isfinite(v)
+                                             for v in losses) \
+            or not losses[-1] < losses[0] or run["skipped_steps"]:
+        failures.append(f"phase 12 (c) losses {losses}")
+    bad = [st for st in run["launches_per_step"] if st != want]
+    if bad:
+        failures.append(f"phase 12 (c) launches per step {_nz(bad[0])}, "
+                        f"want {_nz(want)}")
+    if not first_rel <= BS_FIRST_REL_TOL:
+        failures.append(f"phase 12 (c) first loss rel {first_rel:.3e}")
+    if not dec_rel <= TRAIN_DECREASE_REL_TOL:
+        failures.append(f"phase 12 (c) decreases rel {dec_rel:.3e}")
+
+    def small(dev):
+        m = _lm(torch, dev, SMALL_LAYERS, seq_strategy="block")
+        for blk in m.blocks:
+            blk[1].block_size = SMALL_BLOCK_SIZE
+        return m
+
+    small_rec, more = _small_card_vs_cpu(torch, f"(c) block "
+                                         f"{SMALL_BLOCK_SIZE} 2-layer",
+                                         small)
+    failures += more
+    launches = dict(run["launches"])
+    for n, v in small_rec["launches"].items():
+        launches[n] += v
+    return dict(losses=losses, step_ms=run["step_ms"],
+                peak_memory_gb=run["peak_gb"], step_s=run["step_s"],
+                first_rel=first_rel, decrease_rel=dec_rel,
+                launches_per_step=run["launches_per_step"][0],
+                small=small_rec, launches=launches), failures
+
+
+def optim_methods_leg(torch):
+    """Phase 12 (d): each optim method on the 2-layer copy, card vs CPU,
+    each step's learning rate equal to its schedule's."""
+    from bigdl_tpu_torch.optim import (SGD, Adadelta, Adagrad, Adamax,
+                                       L1L2Regularizer, RMSprop, Step,
+                                       TorchOptimMethod)
+
+    # phase 5's 2-layer copy, built once: each run takes a copy
+    master = _lm(torch, "cpu", SMALL_LAYERS)
+
+    def plain(dev):
+        return copy.deepcopy(master)._place(torch.device(dev))
+
+    def regularized(dev):
+        m = plain(dev)
+        head = m[len(m) - 1]
+        m[0].w_regularizer = L1L2Regularizer(1e-4, 1e-4)
+        head.w_regularizer = L1L2Regularizer(1e-4, 1e-4)
+        head.b_regularizer = L1L2Regularizer(1e-4, 1e-4)
+        head.set_scale_w(0.5)
+        return m
+
+    n = SMALL_ITERS
+    # (label, method factory, model, each step's lr, the rate of an
+    # adaptive method (see _small_card_vs_cpu) or 0, loss ulps).
+    # The adaptive methods' rates keep each step a small move of the
+    # loss (at 1e-2 Adagrad's first step halves it).  The regularized
+    # run's logged loss is ~4316 (the embedding's N(0, 1) weights under
+    # L1 and L2 1e-4), where one f32 ulp is 4.9e-4, a sixth of a step's
+    # decrease: its decreases are held to phase 5's limit plus 2 ulps of
+    # that loss
+    cases = (
+        ("Adagrad", lambda: Adagrad(1e-4), plain, [1e-4] * n, 1e-4, 0),
+        ("Adadelta", lambda: Adadelta(), plain, [1.0] * n, 0.0, 0),
+        ("Adamax", lambda: Adamax(1e-4), plain, [1e-4] * n, 1e-4, 0),
+        ("RMSprop", lambda: RMSprop(1e-5), plain, [1e-5] * n, 1e-5, 0),
+        # the bridge's lr is the multiplier 1.0; Adam's own is 1e-4
+        ("TorchOptimMethod(Adam)",
+         lambda: TorchOptimMethod(torch.optim.Adam, lr=1e-4), plain,
+         [1.0] * n, 1e-4, 0),
+        ("SGD momentum + Step + L1L2 + scale_w",
+         lambda: SGD(TRAIN_LR, momentum=0.9,
+                     learning_rate_schedule=Step(2, 0.5)),
+         regularized, [TRAIN_LR * 0.5 ** (k // 2) for k in range(n)],
+         0.0, 2))
+    failures, rows = [], []
+    launches = {c: 0 for c in launch_counters()}
+    for label, method, make, want_lr, adaptive, ulps in cases:
+        t0 = time.perf_counter()
+        rec, more = _small_card_vs_cpu(torch, f"(d) {label}", make, method,
+                                       adaptive=adaptive, loss_ulps=ulps)
+        rec.update(label=label, seconds=time.perf_counter() - t0)
+        failures += more
+        if rec["lrs"] != want_lr or rec["cpu_lrs"] != want_lr:
+            failures.append(f"phase 12 (d) {label}: lr {rec['lrs']} / "
+                            f"{rec['cpu_lrs']}, want {want_lr}")
+        for k, v in rec.pop("launches").items():
+            launches[k] += v
+        rows.append(rec)
+    return rows, launches, failures
+
+
+def lbfgs_leg(torch):
+    """Phase 12 (e): LBFGS with the line search on the 4-dimensional
+    Rosenbrock function in f32, on the card and on the CPU
+    (tests/test_local_optimizer.py:161)."""
+    from bigdl_tpu_torch.optim import LBFGS
+
+    def run(dev):
+        points = []
+
+        def feval(x):
+            points.append(x.detach().to("cpu", copy=True))
+            a, b = x[:-1], x[1:]
+            r = b - a * a
+            f = torch.sum(100.0 * r * r + (1 - a) ** 2)
+            g = torch.zeros_like(x)
+            g[:-1] += -400.0 * a * r - 2.0 * (1 - a)
+            g[1:] += 200.0 * r
+            return float(f), g
+
+        lbfgs = LBFGS(max_iter=100, learning_rate=0.5, line_search=True)
+        x = torch.zeros(4, device=dev)
+        for _ in range(20):
+            x, _ = lbfgs.optimize(feval, x)
+        return feval(x)[0], points
+
+    def rel_of(a, b):
+        d = float((a - b).abs().max())
+        return d / max(float(b.abs().max()), 1e-30) if d else 0.0
+
+    f_card, p_card = run("cuda")
+    f_cpu, p_cpu = run("cpu")
+    rel = max(rel_of(a, b) for a, b in zip(p_card[:LBFGS_POINTS],
+                                           p_cpu[:LBFGS_POINTS]))
+    print(f"phase 12 (e): LBFGS Rosenbrock f32: f {f_card:.3e} card, "
+          f"{f_cpu:.3e} cpu (tol {ROSEN_TOL}); first {LBFGS_POINTS} points "
+          f"evaluated, card vs cpu max rel {rel:.3e} (tol {LBFGS_REL_TOL}); "
+          f"{len(p_card)} and {len(p_cpu)} evaluations")
+    failures = []
+    if not f_card < ROSEN_TOL:
+        failures.append(f"phase 12 (e) Rosenbrock {f_card}")
+    if len(p_card) < LBFGS_POINTS or not rel <= LBFGS_REL_TOL:
+        failures.append(f"phase 12 (e) points card vs cpu rel {rel:.3e}")
+    return dict(f_card=f_card, f_cpu=f_cpu, points_rel=rel,
+                evaluations=(len(p_card), len(p_cpu))), failures
+
+
+def training_breadth(torch):
+    """Phase 12 (a)-(e).  Returns (record, failures); the record's
+    ``launches`` are the whole phase's, each leg's read from zero."""
+    t_phase = time.perf_counter()
+    failures, rec, legs = [], {}, {}
+    t0 = time.perf_counter()
+    rec["remat"], plain, more = remat_leg(torch)
+    legs["a, b"] = time.perf_counter() - t0
+    failures += more
+    launches = dict(rec["remat"]["launches"])
+    t0 = time.perf_counter()
+    rec["block"], more = block_leg(torch, plain)
+    legs["c"] = time.perf_counter() - t0
+    failures += more
+    t0 = time.perf_counter()
+    rows, optim_launches, more = optim_methods_leg(torch)
+    legs["d"] = time.perf_counter() - t0
+    failures += more
+    rec["optim_methods"] = rows
+    t0 = time.perf_counter()
+    rec["lbfgs"], more = lbfgs_leg(torch)
+    legs["e"] = time.perf_counter() - t0
+    rec["leg_seconds"] = legs
+    failures += more
+    for part in (rec["block"]["launches"], optim_launches):
+        for n, v in part.items():
+            launches[n] += v
+    rec["launches"] = launches
+    rec["seconds"] = time.perf_counter() - t_phase
+    print(f"phase 12: {rec['seconds']:.1f} s (legs "
+          f"{ {k: round(v, 1) for k, v in legs.items()} }); launches "
+          f"{_nz(launches)}")
+    return rec, failures
+
+
 # the phase-3 cases the ``kernels`` line's variants read, and the tag of
 # their counters (a kernel's name, then the tag)
 VARIANT_CASES = {"f32_D192": "f32 D 192", "f32_D256": "f32 D 256",
@@ -4038,6 +4521,9 @@ def main(argv=None) -> int:
                          "one training step, one block-sparse and one "
                          "flash training step at T 4096, and one ResNet-50 "
                          "step instead of phases 3-10")
+    ap.add_argument("--phase12", action="store_true",
+                    help="build K1-K4 and run phase 12 (training "
+                         "breadth) alone")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         return fail("torch.cuda.is_available() is false; a CUDA card is "
@@ -4063,7 +4549,8 @@ def main(argv=None) -> int:
     from bigdl_tpu_torch.ops import _support
     from bigdl_tpu_torch.ops import layer_norm as ln
 
-    libs = ("flash_fwd", "flash_bwd", "block_sparse", "conv3x3")
+    libs = ("flash_fwd", "flash_bwd") if args.phase12 else (
+        "flash_fwd", "flash_bwd", "block_sparse", "conv3x3")
     t0 = time.perf_counter()
     _support.load_cuda_libraries(*libs)
     cuda_build_s = time.perf_counter() - t0
@@ -4084,14 +4571,25 @@ def main(argv=None) -> int:
           f") -> {_support.BUILD_DIR}; layer_norm (triton, first launch) "
           f"{triton_build_s:.1f} s")
 
+    out = REPO / "chiprun_out"
+    out.mkdir(exist_ok=True)
+    if args.phase12:
+        rec, failures = training_breadth(torch)
+        (out / "chip_phase12.json").write_text(json.dumps(dict(
+            device=kind, nvidia_smi=smi, torch=torch.__version__,
+            training_breadth_path=rec, failures=failures), indent=1,
+            default=str))
+        for f in failures:
+            print(f"FAIL: {f}", file=sys.stderr)
+        print(smi)
+        return 1 if failures else 0
+
     design_rows, design_failures = kernel_design(torch)
     for design in (conv_design, mm_design):
         more_rows, more_failures = design(torch)
         design_rows += more_rows
         design_failures += more_failures
 
-    out = REPO / "chiprun_out"
-    out.mkdir(exist_ok=True)
     if args.profile:
         if design_failures:
             for f in design_failures:
@@ -4173,11 +4671,17 @@ def main(argv=None) -> int:
     phase11, phase11_failures = torch_api(torch, trained["step_ms"])
     failures += phase11_failures
 
+    # phase 12: training breadth — remat, "block" attention, the optim
+    # methods, schedules, regularizers and scales, LBFGS
+    phase12, phase12_failures = training_breadth(torch)
+    failures += phase12_failures
+
     # launches summed over every path, each read from zero
     launches = {n: sum(b["launches"][n] for b in served["batches"])
                 + trained["launches"][n] + bs_trained["launches"][n]
                 + resnet["launches"][n] + paged["launches"][n]
                 + phase10["launches"][n] + phase11["launches"][n]
+                + phase12["launches"][n]
                 for n in launch_counters()}
     for mm_path in mm_paths:
         for name, n in mm_path["launches"].items():
@@ -4288,6 +4792,7 @@ def main(argv=None) -> int:
         blocksparse_training_path=bs_trained, matmul_path=mm_paths,
         resnet50_training_path=resnet, paged_serving_path=paged,
         checkpoint_swap_path=phase10, torch_api_path=phase11,
+        training_breadth_path=phase12,
         kernels=kernels, failures=failures, seconds=time.perf_counter()
         - T_START), indent=1))
 

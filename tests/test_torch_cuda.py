@@ -1443,12 +1443,16 @@ def test_cuda_gradients_match_the_plain_backward(cuda_device):
         torch.testing.assert_close(a.cpu(), b, rtol=1e-4, atol=1e-5)
 
 
-def _train_small(device, steps=3, seq_strategy="flash", T=20, **extra):
+def _train_small(device, steps=3, seq_strategy="flash", T=20, block_size=None,
+                 **extra):
     cfg = dict(embed_dim=64, num_heads=4, num_layers=2, max_len=max(32, T),
                seq_strategy=seq_strategy, output="logits", **extra)
     V, B = 64, 3
     model = TransformerLM(V, **cfg, device=device,
                           generator=torch.Generator().manual_seed(3))
+    if block_size is not None:   # the "block" strategy's K/V block
+        for blk in model.blocks:
+            blk[1].block_size = block_size
     rng = np.random.RandomState(0)
     x = rng.randint(1, V + 1, size=(B, T)).astype(np.int32)
     y = rng.randint(1, V + 1, size=(B, T)).astype(np.int32)
@@ -2601,3 +2605,149 @@ def test_verbs_step_equals_local_optimizer_step_on_card(cuda_device):
     assert math.isclose(loss, opt.optim_method.state["loss"], rel_tol=1e-6)
     for (name, p), q in zip(model.named_parameters(), ref.parameters()):
         torch.testing.assert_close(p, q, rtol=1e-5, atol=1e-6, msg=name)
+
+
+# ----------------------------------------------------------------------
+# training breadth: remat, "block" attention, the optim methods
+# ----------------------------------------------------------------------
+
+def _lm_grads(model, ids, generator_seed=5):
+    """Loss and parameter gradients of one training-mode forward of
+    ``model`` on ``ids``, random draws from a seeded step generator."""
+    from bigdl_tpu_torch.nn.module import rng_scope
+    from bigdl_tpu_torch.utils.tree import tree_leaves
+
+    model.train()
+    params = model.param_tree()
+    leaves = tree_leaves(params)
+    crit = nn.TimeDistributedCriterion(nn.CrossEntropyCriterion(), True)
+    x = torch.as_tensor(ids, device=model.device)
+    gen = torch.Generator(device=model.device).manual_seed(generator_seed)
+    with rng_scope(gen):
+        loss = crit._loss(model.apply_fn(params, x), x)
+        grads = torch.autograd.grad(loss, leaves)
+    return loss.detach(), grads
+
+
+@pytest.mark.parametrize("dropout", [0.0, 0.1])
+def test_remat_runs_each_block_twice_and_keeps_the_gradients_on_card(
+        cuda_device, dropout):
+    """remat=True on the card: K1 and K4 run again for each block in the
+    backward (K1 2L, K2 L, K3 L, K4 4L + 1 a step), and the loss and
+    every gradient equal the plain model's; under dropout the recompute
+    draws the forward's masks."""
+    V, T, B, L = 64, 32, 3, 2
+    ids = np.random.RandomState(0).randint(1, V + 1, size=(B, T)) \
+        .astype(np.int32)
+    out = {}
+    for remat in (False, True):
+        model = TransformerLM(V, embed_dim=64, num_heads=4, num_layers=L,
+                              max_len=T, seq_strategy="flash",
+                              output="logits", dropout=dropout, remat=remat,
+                              device=cuda_device,
+                              generator=torch.Generator().manual_seed(3))
+        counts = [c.count for c in (fa.LAUNCHES, fa.LAUNCHES_DKV,
+                                    fa.LAUNCHES_DQ, ln.LAUNCHES)]
+        out[remat] = _lm_grads(model, ids)
+        torch.cuda.synchronize()
+        launched = [c.count - n for c, n in zip(
+            (fa.LAUNCHES, fa.LAUNCHES_DKV, fa.LAUNCHES_DQ, ln.LAUNCHES),
+            counts)]
+        want = [2 * L, L, L, 4 * L + 1] if remat else [L, L, L, 2 * L + 1]
+        assert launched == want, (remat, launched)
+    assert torch.equal(out[True][0], out[False][0])
+    for a, b in zip(out[True][1], out[False][1]):
+        torch.testing.assert_close(a, b, rtol=0, atol=1e-6)
+
+
+def test_remat_costs_nothing_without_gradients_on_card(cuda_device):
+    V, T, L = 64, 32, 2
+    model = TransformerLM(V, embed_dim=64, num_heads=4, num_layers=L,
+                          max_len=T, seq_strategy="flash", remat=True,
+                          device=cuda_device,
+                          generator=torch.Generator().manual_seed(3))
+    x = torch.randint(1, V + 1, (2, T), device=cuda_device)
+    fa.LAUNCHES.reset()
+    ln.LAUNCHES.reset()
+    with torch.no_grad():
+        model.evaluate()(x)
+    assert fa.LAUNCHES.count == L and ln.LAUNCHES.count == 2 * L + 1
+
+
+def test_block_strategy_lm_trains_on_card_like_cpu(cuda_device):
+    """seq_strategy="block" (plain PyTorch, no kernel): 3 f32 steps on
+    the card held against the CPU, blocks of 8 over a ragged T 20."""
+    counts = [c.count for c in (fa.LAUNCHES, fa.LAUNCHES_DKV,
+                                fa.LAUNCHES_DQ, ln.LAUNCHES)]
+    card, _, card_upd = _train_small(cuda_device, seq_strategy="block", block_size=8)
+    launched = [c.count - n for c, n in zip(
+        (fa.LAUNCHES, fa.LAUNCHES_DKV, fa.LAUNCHES_DQ, ln.LAUNCHES), counts)]
+    assert launched == [0, 0, 0, 15]
+    cpu, _, cpu_upd = _train_small("cpu", seq_strategy="block", block_size=8)
+    np.testing.assert_allclose(card, cpu, rtol=1e-6)
+    np.testing.assert_allclose(np.subtract(card[1:], card[0]),
+                               np.subtract(cpu[1:], cpu[0]), rtol=1e-4)
+    scale = max(torch.linalg.vector_norm(u, dim=-1).max().item()
+                for u in cpu_upd.values())
+    for name, u in cpu_upd.items():
+        assert _row_rel_err(card_upd[name], u, scale) <= 1e-3, name
+
+
+def _method_cases():
+    from bigdl_tpu_torch import optim
+
+    return {
+        "Adagrad": lambda: optim.Adagrad(0.05, weight_decay=0.01),
+        "Adadelta": lambda: optim.Adadelta(epsilon=1e-2),
+        "Adamax": lambda: optim.Adamax(0.05),
+        "RMSprop": lambda: optim.RMSprop(0.05),
+        "TorchOptimMethod(Adam)": lambda: optim.TorchOptimMethod(
+            torch.optim.Adam, lr=0.05),
+        "TorchOptimMethod(SGD)": lambda: optim.TorchOptimMethod(
+            torch.optim.SGD, lr=0.05, momentum=0.9, dampening=0.5),
+    }
+
+
+@pytest.mark.parametrize("name", list(_method_cases()))
+def test_optim_method_steps_on_card_match_cpu(cuda_device, name):
+    """Three steps of each optim method on a small tree, card vs CPU."""
+    rng = np.random.RandomState(5)
+    params = {"w": rng.randn(4, 3).astype(np.float32),
+              "sub": {"b": rng.randn(3).astype(np.float32)}}
+    grads = [{"w": rng.randn(4, 3).astype(np.float32),
+              "sub": {"b": rng.randn(3).astype(np.float32)}}
+             for _ in range(3)]
+    from bigdl_tpu_torch.utils.tree import tree_leaves, tree_map
+
+    out = {}
+    for dev in (cuda_device, torch.device("cpu")):
+        method = _method_cases()[name]()
+        p = tree_map(lambda a: torch.as_tensor(a, device=dev), params)
+        slots = method.init_state(p)
+        for g in grads:
+            p, slots = method.step(
+                tree_map(lambda a: torch.as_tensor(a, device=dev), g), p,
+                slots, method.get_current_lr())
+        out[dev.type] = [t.cpu() for t in tree_leaves(p)]
+        assert all(t.device.type == dev.type for t in tree_leaves(slots)
+                   if torch.is_tensor(t))
+    for a, b in zip(out["cuda"], out["cpu"]):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-6)
+
+
+def test_lbfgs_rosenbrock_on_card(cuda_device):
+    from bigdl_tpu_torch.optim import LBFGS
+
+    def feval(x):
+        a, b = x[:-1], x[1:]
+        r = b - a * a
+        g = torch.zeros_like(x)
+        g[:-1] += -400.0 * a * r - 2.0 * (1 - a)
+        g[1:] += 200.0 * r
+        return float(torch.sum(100.0 * r * r + (1 - a) ** 2)), g
+
+    lbfgs = LBFGS(max_iter=100, learning_rate=0.5, line_search=True)
+    x = torch.zeros(4, device=cuda_device)
+    for _ in range(20):
+        x, _ = lbfgs.optimize(feval, x)
+    assert x.device.type == "cuda" and feval(x)[0] < 1e-2

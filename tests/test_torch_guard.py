@@ -63,6 +63,19 @@ def test_port_sources_import_no_jax_and_no_jax_package():
     assert bad == {}
 
 
+@pytest.mark.parametrize("module", [
+    "optim/regularizer.py", "optim/optax_bridge.py", "optim/optim_method.py",
+    "optim/optimizer.py", "parallel/ring_attention.py", "nn/attention.py",
+    "models/transformer.py", "utils/file_io.py", "dataset/dataset.py"])
+def test_scan_covers_the_training_breadth_modules(module):
+    """The modules of the training-breadth slice are in the scan and
+    import neither jax nor the JAX package (the bridge wraps
+    ``torch.optim``, the fsspec backend imports ``fsspec`` only)."""
+    path = REPO / "bigdl_tpu_torch" / module
+    assert path in _port_sources()
+    assert forbidden_imports(path.read_text()) == []
+
+
 @pytest.mark.parametrize("snippet", [
     "import jax",
     "import jax.numpy as jnp",
