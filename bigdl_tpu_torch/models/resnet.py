@@ -20,29 +20,12 @@ import torch
 import torch.nn.functional as F
 
 from .. import nn
-from ..device import DeviceLike, resolve_device
+from ..device import DeviceLike
 from ..nn.initialization import ONE_D, OUT_IN_KW_KH, RandomUniform
+from ._build import Build
 
 
-class _Build:
-    """The device and generator every layer of one model is built with."""
-
-    def __init__(self, device: DeviceLike,
-                 generator: Optional[torch.Generator]):
-        self.dev = resolve_device(device)
-        self.gen = generator
-
-    def __call__(self, cls, *args, **kwargs):
-        if cls in (nn.SpatialConvolution, nn.SpatialBatchNormalization,
-                   nn.Linear, SpaceToDepthStem):
-            kwargs["generator"] = self.gen
-        return cls(*args, device=self.dev, **kwargs)
-
-    def seq(self, *modules):
-        return nn.Sequential(*modules, device=self.dev)
-
-
-def _shortcut(L: _Build, n_in: int, n_out: int, stride: int,
+def _shortcut(L: Build, n_in: int, n_out: int, stride: int,
               shortcut_type: str):
     use_conv = (shortcut_type == "C"
                 or (shortcut_type == "B" and n_in != n_out))
@@ -59,7 +42,7 @@ def _shortcut(L: _Build, n_in: int, n_out: int, stride: int,
     return L(nn.Identity)
 
 
-def _residual(L: _Build, s, n_in: int, n_out: int, stride: int,
+def _residual(L: Build, s, n_in: int, n_out: int, stride: int,
               shortcut_type: str):
     return L.seq(
         nn.ConcatTable(s, _shortcut(L, n_in, n_out, stride, shortcut_type),
@@ -68,7 +51,7 @@ def _residual(L: _Build, s, n_in: int, n_out: int, stride: int,
         L(nn.ReLU, True))
 
 
-def _basic_block(L: _Build, n_in: int, n_out: int, stride: int,
+def _basic_block(L: Build, n_in: int, n_out: int, stride: int,
                  shortcut_type: str):
     s = L.seq(
         L(nn.SpatialConvolution, n_in, n_out, 3, 3, stride, stride, 1, 1),
@@ -79,7 +62,7 @@ def _basic_block(L: _Build, n_in: int, n_out: int, stride: int,
     return _residual(L, s, n_in, n_out, stride, shortcut_type)
 
 
-def _bottleneck(L: _Build, n_in: int, n_mid: int, n_out: int, stride: int,
+def _bottleneck(L: Build, n_in: int, n_mid: int, n_out: int, stride: int,
                 shortcut_type: str):
     s = L.seq(
         L(nn.SpatialConvolution, n_in, n_mid, 1, 1, 1, 1),
@@ -99,7 +82,7 @@ def ResNetCifar(depth: int = 20, class_num: int = 10,
     if (depth - 2) % 6:
         raise ValueError(f"depth must be 6n+2, got {depth}")
     n = (depth - 2) // 6
-    L = _Build(device, generator)
+    L = Build(device, generator)
     model = L.seq(
         L(nn.SpatialConvolution, 3, 16, 3, 3, 1, 1, 1, 1),
         L(nn.SpatialBatchNormalization, 16),
@@ -205,7 +188,7 @@ def ResNet50(class_num: int = 1000, shortcut_type: str = "B",
         raise ValueError(f"stem must be 'conv7' or 's2d', got {stem!r}")
     cfg = [(64, 256, 3, 1), (128, 512, 4, 2), (256, 1024, 6, 2),
            (512, 2048, 3, 2)]
-    L = _Build(device, generator)
+    L = Build(device, generator)
     first = (L(SpaceToDepthStem, 64) if stem == "s2d"
              else L(nn.SpatialConvolution, 3, 64, 7, 7, 2, 2, 3, 3))
     model = L.seq(

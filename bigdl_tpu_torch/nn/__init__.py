@@ -7,7 +7,10 @@ from .activations import (Abs, Clamp, ELU, Exp, HardShrink, HardTanh,
 from .attention import MultiHeadAttention, rope_rotate
 from .containers import (Bottle, Concat, ConcatTable, Echo, Identity,
                          MapTable, ParallelTable, Sequential)
-from .conv import SpatialConvolution
+from .conv import (SpatialConvolution, SpatialConvolutionMap,
+                   SpatialDilatedConvolution, SpatialFullConvolution,
+                   SpatialShareConvolution, TemporalConvolution,
+                   VolumetricConvolution)
 from .criterion import (AbsCriterion, AbstractCriterion, BCECriterion,
                         ClassNLLCriterion, ClassSimplexCriterion,
                         CosineDistanceCriterion, CosineEmbeddingCriterion,
@@ -21,6 +24,7 @@ from .criterion import (AbsCriterion, AbstractCriterion, BCECriterion,
                         SmoothL1CriterionWithWeights, SoftmaxWithCriterion,
                         SoftMarginCriterion, TimeDistributedCriterion)
 from .dropout import Dropout
+from .graph import Graph, Input, Model, ModuleNode
 from .initialization import (BilinearFiller, ConstInitMethod,
                              InitializationMethod, MsraFiller, Ones,
                              RandomNormal, RandomUniform, VariableFormat,
@@ -35,7 +39,10 @@ from .normalization import (BatchNormalization, ImageNormalize, L1Penalty,
                             SpatialContrastiveNormalization,
                             SpatialCrossMapLRN, SpatialDivisiveNormalization,
                             SpatialSubtractiveNormalization)
-from .pooling import SpatialAveragePooling, SpatialMaxPooling
+from .pooling import (RoiPooling, SpatialAveragePooling, SpatialMaxPooling,
+                      VolumetricMaxPooling)
+from .recurrent import (GRU, LSTM, BiRecurrent, Cell, ConvLSTMPeephole,
+                        LSTMPeephole, Recurrent, RnnCell, TimeDistributed)
 from .shape_ops import (Contiguous, CosineDistance, DotProduct, FlattenTable,
                         GradientReversal, Index, InferReshape, JoinTable,
                         MaskedSelect, MixtureTable, Narrow, NarrowTable, Pack,
@@ -45,3 +52,5 @@ from .shape_ops import (Contiguous, CosineDistance, DotProduct, FlattenTable,
                         Unsqueeze, View)
 from .table_ops import (CAddTable, CDivTable, CMaxTable, CMinTable,
                         CMulTable, CSubTable)
+from .tf_ops import Const, Fill, Nms, Shape, SplitAndSelect, StrideSlice
+from .tree import BinaryTreeLSTM, TensorTree, TreeLSTM

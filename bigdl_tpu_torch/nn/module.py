@@ -52,8 +52,9 @@ of a re-run forward under its cached key — with every buffer restored
 after the replay.  Either way the dropout masks and RReLU slopes of the
 backward are the forward's.
 
-``module(x)`` is PyTorch's call, not the verbs (the reference's
-``__call__`` wires a graph node): the same forward, but it makes no
+``module(x)`` on an activity is PyTorch's call, not the verbs (on
+graph nodes it wires a graph, as the reference's ``__call__`` does;
+``nn/graph.py``): the same forward, but it makes no
 input a leaf and keeps neither the output nor the graph — only the
 generator state, so a later ``backward`` replays the same masks.  A
 torch-idiom loop (``crit(model(x)).backward()``) thus computes no input
@@ -216,6 +217,18 @@ def current_generator(device: torch.device) -> torch.Generator:
     return scope.get()
 
 
+def _graph_nodes(args) -> Optional[Tuple]:
+    """The graph nodes of a call's arguments (one node, one list of
+    nodes, or several nodes), or None where they are not all nodes."""
+    from .graph import ModuleNode
+
+    if len(args) == 1 and isinstance(args[0], (list, tuple)):
+        args = tuple(args[0])
+    if args and all(isinstance(a, ModuleNode) for a in args):
+        return tuple(args)
+    return None
+
+
 class _ForwardRecord:
     """What ``backward`` needs of the last forward: its input, leaves
     and output, whose graph it may run once (None after that, or for a
@@ -336,8 +349,14 @@ class AbstractModule(torch.nn.Module):
         return out
 
     def __call__(self, *args, **kwargs):
-        """PyTorch's call: ``forward`` without the verbs' record (no
-        input leaves, no graph or output kept)."""
+        """``module(node)``, ``module([n1, n2])`` or ``module(n1, n2)``
+        with graph nodes wires a graph (``inputs``, as the JAX package's
+        ``__call__`` does); anything else is PyTorch's call: ``forward``
+        without the verbs' record (no input leaves, no graph or output
+        kept)."""
+        nodes = _graph_nodes(args)
+        if nodes is not None and not kwargs:
+            return self.inputs(*nodes)
         _local.torch_call = True
         try:
             return super().__call__(*args, **kwargs)
@@ -345,9 +364,14 @@ class AbstractModule(torch.nn.Module):
             _local.torch_call = False
 
     def inputs(self, *nodes):
-        """Graph wiring (reference ``inputs(...)``,
-        AbstractModule.scala:539)."""
-        raise _not_ported("graph wiring (nn/graph.py's Graph container)")
+        """A graph node for this module, fed by ``nodes`` in their order
+        (reference ``inputs(...)``, AbstractModule.scala:539)."""
+        from .graph import ModuleNode
+
+        node = ModuleNode(self)
+        for n in nodes:
+            n.add_edge(node)
+        return node
 
     def _replay(self, inp: Activity):
         """Re-run the forward from ``inp`` with autograd on, under the

@@ -14,6 +14,7 @@ import torch
 from .. import nn
 from .. import tensor as P
 from ..nn.module import activity_leaves, activity_map
+from ..ops import conv3x3
 from .table import Table
 
 #: card against CPU in f32: each output and gradient within this share
@@ -211,6 +212,108 @@ def zoo_cases():
             + [(n, m, x, t, False) for n, m, x, t in C])
 
 
+def zoo_tail_cases():
+    """(name, make(device), input, None, False) for every class of the
+    image and sequence zoo that phase 13 (a)-(c) do not train: the conv
+    and pooling tail, the recurrent stack's cells and containers, the
+    Tree-LSTM, the TF ops, a graph, ``Autoencoder`` and
+    ``VggForCifar10``, at the shapes of their CPU tests
+    (``tests/test_torch_{conv_tail,recurrent,tree_tf,graph,zoo_models}
+    .py``); numpy inputs from ``RandomState(8)``.  ``chip_smoke.py``
+    (phase 13 (d)) and ``tests/test_torch_cuda.py`` hold each on the
+    card against the CPU, as ``zoo_cases``."""
+    from .. import models
+
+    R = np.random.RandomState(8)
+    X4 = R.randn(2, 4, 7, 6).astype(np.float32)
+    X5 = R.randn(2, 2, 5, 6, 7).astype(np.float32)
+    SEQ = R.randn(2, 5, 6).astype(np.float32)
+    MAPS = R.randn(2, 3, 3, 5, 5).astype(np.float32)
+    TOKENS = R.randn(2, 3, 4).astype(np.float32)
+    TREES = np.array([[[2, 3, -1], [0, 0, 1], [4, 5, 0], [0, 0, 2],
+                       [0, 0, 3], [-1, -1, 0]]] * 2, np.float32)
+    ROIS = np.array([[1, 0, 0, 5, 4], [2, 1.5, 2.5, 6, 6],
+                     [1, 9, 9, 12, 12]], np.float32)
+    CONN = [[1, 1], [2, 1], [2, 2], [3, 2], [4, 3], [1, 3]]
+
+    def layer(name, *args, **kw):
+        return lambda dev: getattr(nn, name)(*args, **kw, device=dev)
+
+    def seeded(make):
+        return lambda dev: make(dev, torch.Generator().manual_seed(0))
+
+    def recurrent(cell, *args, reverse=False):
+        return lambda dev: nn.Recurrent(getattr(nn, cell)(*args, device=dev),
+                                        reverse=reverse)
+
+    def birecurrent(merge):
+        def make(dev):
+            m = nn.BiRecurrent(None if merge is None
+                               else nn.JoinTable(3, device=dev))
+            return m.add(nn.LSTM(6, 4, device=dev),
+                         torch.Generator().manual_seed(1))
+        return make
+
+    def diamond(dev):
+        inp = nn.Input(device=dev)
+        l1 = nn.Linear(6, 6, device=dev)(inp)
+        add = nn.CAddTable(device=dev)([nn.ReLU(device=dev)(l1),
+                                        nn.Tanh(device=dev)(l1)])
+        return nn.Graph(inp, nn.Linear(6, 3, device=dev)(add))
+
+    L = [
+        ("SpatialShareConvolution",
+         layer("SpatialShareConvolution", 4, 5, 3, 3, 1, 1, 1, 1), X4),
+        ("SpatialDilatedConvolution",
+         layer("SpatialDilatedConvolution", 4, 5, 3, 3, 1, 1, 2, 2, 2, 2),
+         X4),
+        ("SpatialFullConvolution",
+         layer("SpatialFullConvolution", 4, 6, 3, 3, 2, 2, 1, 1, 1, 1,
+               n_group=2), X4),
+        ("SpatialConvolutionMap",
+         layer("SpatialConvolutionMap", CONN, 3, 3, 1, 1, 1, 1), X4),
+        ("TemporalConvolution", layer("TemporalConvolution", 6, 4, 3, 2),
+         SEQ),
+        ("VolumetricConvolution",
+         layer("VolumetricConvolution", 2, 3, 2, 3, 3, 1, 2, 1, 1, 1, 0),
+         X5),
+        ("VolumetricMaxPooling",
+         layer("VolumetricMaxPooling", 3, 3, 2, 2, 2, 1, 1, 1, 0), X5),
+        ("RoiPooling", layer("RoiPooling", 3, 2, 0.5), _T(X4, ROIS)),
+        ("Recurrent(RnnCell)", recurrent("RnnCell", 6, 4), SEQ),
+        ("Recurrent(LSTM)", recurrent("LSTM", 6, 4), SEQ),
+        ("Recurrent(LSTMPeephole) reversed",
+         recurrent("LSTMPeephole", 6, 4, reverse=True), SEQ),
+        ("Recurrent(GRU)", recurrent("GRU", 6, 4), SEQ),
+        ("Recurrent(ConvLSTMPeephole)",
+         recurrent("ConvLSTMPeephole", 3, 4, 3, 3), MAPS),
+        ("BiRecurrent", birecurrent(None), SEQ),
+        ("BiRecurrent(JoinTable)", birecurrent("join"), SEQ),
+        ("TimeDistributed", lambda dev: nn.TimeDistributed(
+            nn.Linear(6, 4, device=dev)), SEQ),
+        ("LSTM step", layer("LSTM", 6, 4),
+         _T(SEQ[:, 0], _T(SEQ[:, 1, :4], SEQ[:, 2, :4]))),
+        ("BinaryTreeLSTM", layer("BinaryTreeLSTM", 4, 3),
+         _T(TOKENS, TREES)),
+        ("TreeLSTM", layer("TreeLSTM", 4, 3, gate_output=False),
+         _T(TOKENS, TREES)),
+        ("Const", layer("Const", np.arange(6.0).reshape(2, 3)), SEQ),
+        ("Fill", layer("Fill", 2.5), np.array([2.0, 3.0], np.float32)),
+        ("Shape", layer("Shape"), X5),
+        ("SplitAndSelect", layer("SplitAndSelect", 3, 2, 3), SEQ),
+        ("StrideSlice", layer("StrideSlice", [(1, 1, 2, 1), (3, 2, 5, 1)]),
+         SEQ),
+        ("Graph", diamond, SEQ[:, 0]),
+        ("Autoencoder", seeded(lambda dev, g: models.Autoencoder(
+            16, device=dev, generator=g)),
+         R.rand(2, 28, 28).astype(np.float32)),
+        ("VggForCifar10", seeded(lambda dev, g: models.VggForCifar10(
+            10, device=dev, generator=g)),
+         R.rand(2, 3, 32, 32).astype(np.float32)),
+    ]
+    return [(n, m, x, None, False) for n, m, x in L]
+
+
 def rel_err(got, want) -> float:
     """max |got - want| / max |want| in f32 (0 when both are 0)."""
     g, w = got.detach().float().cpu(), want.detach().float().cpu()
@@ -221,6 +324,20 @@ def rel_err(got, want) -> float:
     scale = w.abs().max().item()
     err = (g - w).abs().max().item()
     return err / scale if scale > 0 else err
+
+
+def conv3x3_yardstick(x, w):
+    """What K5's output on the card is held to: the plain version
+    (``x`` NHWC, ``w`` HWIO), except where its rows (one pixel's output
+    channels) are shorter than 16 in bf16.  Two bf16 roundings of the
+    same f32 sum may land on neighbouring values, one bf16 step up to
+    2^-7 of the element, which in a row of a few elements is that much
+    of the whole row (the row limits assume rows of 16 or more, as the
+    attention checks do); such rows are held to the plain version's f32
+    sum before its rounding."""
+    if x.dtype == torch.bfloat16 and w.shape[-1] < 16:
+        return conv3x3._conv3x3_plain(x.float(), w.float())
+    return conv3x3._conv3x3_plain(x, w)
 
 
 def zoo_case_on(case, dev, module=None):

@@ -2142,8 +2142,8 @@ def _check_conv3x3_on_card(cuda_device, B, H, W, C, O, dtype,
     torch.cuda.synchronize()
     assert conv3x3.LAUNCHES.count == before + 2
     assert y.dtype == dx.dtype == dtype
-    want_y = conv3x3._conv3x3_plain(x, w)
-    want_dx = conv3x3._conv3x3_plain(gy, w.flip(0, 1).transpose(2, 3))
+    want_y = api_cases.conv3x3_yardstick(x, w)
+    want_dx = api_cases.conv3x3_yardstick(gy, w.flip(0, 1).transpose(2, 3))
     assert _row_rel_err(y, want_y) <= ROW_TOL[dtype]
     assert _row_rel_err(dx, want_dx) <= ROW_TOL[dtype]
 
@@ -2226,6 +2226,137 @@ def test_conv_models_train_on_card_like_cpu(cuda_device, which):
     for name, b in cpu_model.named_buffers():
         torch.testing.assert_close(card_stats[name].cpu(), b, rtol=1e-4,
                                    atol=1e-6)
+
+
+# K5 at the shapes Inception v1/v2 and VGG give it (chip_smoke.py phase
+# 13 (e) holds every one at B 32): output channels that are not multiples
+# of 64 or 128 (208, 224, 288, 320), input channels 96-192, 7 x 7 grids,
+# 224 x 224 and 112 x 112 planes, VGG's 3-channel first conv (padded to
+# 16), and dX's reversed shapes
+K5_ZOO_CASES = [(2, 56, 56, 64, 192, torch.bfloat16),
+                (2, 28, 28, 96, 128, torch.float32),
+                (2, 14, 14, 96, 208, torch.bfloat16),
+                (2, 14, 14, 112, 224, torch.float32),
+                (2, 14, 14, 144, 288, torch.bfloat16),
+                (2, 14, 14, 288, 144, torch.float32),
+                (3, 7, 7, 160, 320, torch.bfloat16),
+                (3, 7, 7, 320, 160, torch.float32),
+                (2, 7, 7, 192, 384, torch.bfloat16),
+                (2, 7, 7, 224, 224, torch.float32),
+                (2, 14, 14, 192, 256, torch.bfloat16),
+                (1, 224, 224, 3, 64, torch.bfloat16),
+                (1, 224, 224, 3, 64, torch.float32),
+                (1, 224, 224, 64, 64, torch.bfloat16),
+                (1, 112, 112, 128, 64, torch.float32),
+                (2, 28, 28, 512, 256, torch.bfloat16)]
+
+
+@pytest.mark.parametrize("B,H,W,C,O,dtype", K5_ZOO_CASES)
+def test_conv3x3_kernel_at_zoo_shapes_matches_plain_on_card(
+        cuda_device, B, H, W, C, O, dtype):
+    """Forward and dX row by row against the plain version at phase 3's
+    limits."""
+    _check_conv3x3_on_card(cuda_device, B, H, W, C, O, dtype)
+
+
+def _inception_module(device):
+    from bigdl_tpu_torch.models._build import Build
+    from bigdl_tpu_torch.models.inception import _inception_module
+
+    m = _inception_module(Build(device, torch.Generator().manual_seed(6)),
+                          32, ((16,), (24, 40), (8, 16), (16,)), "m/")
+    return _pallas(m)
+
+
+def test_inception_module_on_card_matches_cpu(cuda_device):
+    """A small Inception v1 module on ``"pallas"`` (its 3x3 on K5, beside
+    cuDNN's 1x1, 5x5 and the pool branch, joined by Concat over K5's
+    channels-last output), forward and backward in f32: the card against
+    the CPU within 1e-5 of each tensor's largest value."""
+    x = np.random.RandomState(7).randn(2, 32, 14, 14).astype(np.float32)
+    go = np.random.RandomState(8).randn(2, 88, 14, 14).astype(np.float32)
+    got, want = {}, {}
+    before = conv3x3.LAUNCHES.count
+    for dev, out in ((cuda_device, got), ("cpu", want)):
+        m = _inception_module(dev)
+        xt = torch.from_numpy(x).to(dev)
+        out["y"] = m.forward(xt)
+        m.zero_grad_parameters()
+        out["gi"] = m.backward(xt, torch.from_numpy(go).to(dev))
+        out.update({n: p.grad for n, p in m.named_parameters()})
+    assert conv3x3.LAUNCHES.count - before == 2      # forward and dX
+    for k, w in want.items():
+        assert got[k].device.type == "cuda"
+        assert api_cases.rel_err(got[k], w) <= 1e-5, k
+
+
+def test_recurrent_lstm_trains_on_card_like_cpu(cuda_device):
+    """``Recurrent(LSTM)`` under a Select and a classifier, 3 f32 SGD
+    steps on the card and on the CPU from the same weights: the losses,
+    their decreases and every update row by row."""
+    rng = np.random.RandomState(9)
+    x = rng.randn(8, 12, 10).astype(np.float32)
+    y = rng.randint(1, 5, 8).astype(np.float32)
+
+    def build(dev):
+        g = torch.Generator().manual_seed(4)
+        return nn.Sequential(
+            nn.Recurrent(nn.LSTM(10, 16, device=dev, generator=g)),
+            nn.Select(2, -1, device=dev),
+            nn.Linear(16, 4, device=dev, generator=g),
+            nn.LogSoftMax(device=dev))
+
+    card, _, card_upd = _train_conv_model(build, x, y, cuda_device)
+    cpu, _, cpu_upd = _train_conv_model(build, x, y, "cpu")
+    np.testing.assert_allclose(card, cpu, rtol=1e-5)
+    np.testing.assert_allclose(np.subtract(card[1:], card[0]),
+                               np.subtract(cpu[1:], cpu[0]), rtol=1e-3)
+    scale = max(torch.linalg.vector_norm(u, dim=-1).max().item()
+                for u in cpu_upd.values())
+    for name, u in cpu_upd.items():
+        assert _row_rel_err(card_upd[name], u, scale) <= 1e-3, name
+
+
+@pytest.mark.parametrize("case", api_cases.zoo_tail_cases(),
+                         ids=lambda c: c[0])
+def test_zoo_tail_class_on_card_matches_cpu(cuda_device, case):
+    """Each class of the image and sequence zoo that phase 13 (a)-(c) do
+    not train, forward and backward in f32 on the card against the same
+    module on the CPU (chip_smoke.py phase 13 (d)): every tensor it
+    returns on the card, each within 1e-5 of its largest value."""
+    ref = api_cases.zoo_case_on(case, "cpu")
+    got = api_cases.zoo_case_on(case, cuda_device, module=ref[4])
+    assert all(t.device.type == "cuda" for t in got[3])
+    for part in range(3):
+        for g, w in zip(got[part], ref[part], strict=True):
+            assert api_cases.rel_err(g, w) <= api_cases.ZOO_REL_TOL
+
+
+@pytest.fixture
+def deterministic_cudnn():
+    """cuDNN's deterministic algorithms for one test: its default
+    backward algorithms need not give the same bits twice."""
+    saved = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    yield
+    torch.backends.cudnn.deterministic = saved
+
+
+def test_lenet_graph_is_lenet5_on_card(cuda_device, deterministic_cudnn):
+    from bigdl_tpu_torch.models.lenet import lenet_graph
+
+    seq = LeNet5(device=cuda_device,
+                 generator=torch.Generator().manual_seed(3))
+    g = lenet_graph(device=cuda_device)
+    with torch.no_grad():
+        for p, q in zip(g.parameters(), seq.parameters(), strict=True):
+            p.copy_(q)
+    x = torch.rand(4, 28, 28, device=cuda_device)
+    go = torch.randn(4, 10, device=cuda_device)
+    assert torch.equal(seq.forward(x), g.forward(x))
+    assert torch.equal(seq.backward(x, go), g.backward(x, go))
+    for p, q in zip(g.parameters(), seq.parameters()):
+        assert torch.equal(p.grad, q.grad)
 
 
 # ----------------------------------------------------------------------

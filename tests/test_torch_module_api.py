@@ -227,10 +227,18 @@ def test_clone_is_independent():
     ("save_torch", ("x.t7",)), ("save_caffe", ("a", "b")),
     ("save_tf", ((1, 6), "x.pb")), ("inputs", ())])
 def test_unported_verbs_raise(verb, args):
-    """Graph wiring waits for nn/graph.py's container, and the Torch7,
-    Caffe and TF writers for the interop slice."""
+    """The Torch7, Caffe and TF writers wait for the interop slice and
+    raise.  ``inputs`` raised until the graph API was ported
+    (nn/graph.py): it now returns a graph node of the module, fed by the
+    nodes given (none here)."""
+    m = tnn.Linear(6, 2, **CPU)
+    if verb == "inputs":
+        node = m.inputs(*args)
+        assert isinstance(node, tnn.ModuleNode)
+        assert node.element is m and node.prev_nodes == []
+        return
     with pytest.raises(NotImplementedError, match="not ported"):
-        getattr(tnn.Linear(6, 2, **CPU), verb)(*args)
+        getattr(m, verb)(*args)
 
 
 def test_init_methods_apply():
@@ -524,8 +532,6 @@ RENAMED_VERBS = {
 }
 #: JAX verbs that raise the port's _not_ported, and why
 UNPORTED_VERBS = {
-    "inputs": "graph wiring needs nn/graph.py's Graph container "
-              "(Queue 1 item 4)",
     "save_torch": "the Torch7 writer comes with the interop slice",
     "save_caffe": "the Caffe writer comes with the interop slice",
     "save_tf": "the TF writer comes with the interop slice",
