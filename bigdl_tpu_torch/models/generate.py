@@ -9,10 +9,13 @@ is an eager Python loop, and the caches are written in place.
 
 Ported: greedy and temperature / top-k / top-p sampling on an explicit
 ``torch.Generator``, eos/pad, GQA and rope; the int8 KV cache
-(``kv_dtype="int8"``); beam search (:func:`make_beam_search`); and the
+(``kv_dtype="int8"``); beam search (:func:`make_beam_search`); the
 paged decode against a ``serving.kvpool.KVPagePool`` arena
 (:class:`PagedDecoder`), whose prefill runs K1, or K6 over the
-page-granular sliding-window block mask when ``page_window`` binds.
+page-granular sliding-window block mask when ``page_window`` binds; and
+MoE blocks, which decode through the capacity-free top-k dispatch
+(:func:`_moe_ffn_nodrop`), with :func:`capacity_bind_report` measuring
+how often the training dispatch's capacity would have dropped.
 
 Token ids are 1-based: a greedy step emits ``argmax + 1``.  Finished
 rows emit ``pad``; ``eos_id=None`` becomes the sentinel 0, which no
@@ -21,6 +24,7 @@ rows emit ``pad``; ``eos_id=None`` becomes the sentinel 0, which no
 from __future__ import annotations
 
 import math
+import threading
 import weakref
 from typing import Optional
 
@@ -30,6 +34,7 @@ import torch
 from ..nn.attention import proj, rope_rotate
 from ..ops.block_sparse import block_sparse_attention, sliding_window_mask
 from ..ops.flash_attention import flash_attention
+from ..parallel.moe import top_choices
 from ..utils.tree import tree_leaves
 
 # generators per model instance (weak: dies with the model), keyed by
@@ -117,10 +122,58 @@ def _gqa_attend(q, k_cache, v_cache, pos: int, H: int, Hkv: int, Dh: int,
     return o.reshape(B, H, Tq, Dh)
 
 
+# capacity-bind capture: while a list is installed on this thread,
+# every _moe_ffn_nodrop call appends the share of its routing
+# assignments that the TRAINING dispatch's static capacity would have
+# dropped (capacity_bind_report's side channel; absent during decode)
+_BIND_TLS = threading.local()
+
+
+def _moe_ffn_nodrop(moe, params, x):
+    """Capacity-free top-k dispatch for decode: each token through its
+    chosen experts' MLPs, mixed by the (top-1 raw / top-k renormalised)
+    gates in x's dtype, [B, Tq, D] -> [B, Tq, D] — the JAX function
+    (``bigdl_tpu/models/generate.py:117-147``).  Where the JAX function
+    gathers each token's ``[D, H]`` weights, the tokens are grouped by
+    expert through the layer's own dispatch at capacity N: an expert
+    takes a token at most once, so slot ``e·N + n`` is each assignment's
+    own and every one is kept, and each expert runs its tokens' rows,
+    padded to N, in one product.  Nothing is read back to the host, so
+    the decode step stays free of syncs; the experts compute E·N rows
+    for the N·K assignments."""
+    B, Tq, D = x.shape
+    N, K = B * Tq, moe.top_k
+    x2 = x.reshape(N, D)
+    logits = torch.matmul(x2, params["router_w"].t()) + params["router_b"]
+    probs = torch.softmax(logits.float(), dim=-1)
+    gk, idxk = top_choices(probs, K)                     # [N, K]
+    capture = getattr(_BIND_TLS, "capture", None)
+    if capture is not None:
+        # the training dispatch's keep rule, through the layer's own
+        # helper (capacity from THIS call's token count, the choices in
+        # order), over all N·K routing assignments
+        kept, counts = 0.0, None
+        for c in range(K):
+            oh = torch.nn.functional.one_hot(idxk[:, c], moe.n_experts)
+            _, keep, counts = moe.keep_mask(oh.float(), counts)
+            kept = kept + keep.float().sum()
+        capture.append(1.0 - kept / (N * K))
+    slot = idxk.t() * N + torch.arange(N, device=x.device)
+    rows = moe.dispatch(params, x2, slot, None, N)       # [K, N, D]
+    y = 0.0
+    for c in range(K):
+        y = y + gk[:, c, None].to(x.dtype) * rows[c]
+    return y.reshape(B, Tq, D)
+
+
 def _ffn_sublayer(block, bp, h):
-    """ln2 + the block's MLP with the residual add — the post-attention
-    half of a block, shared by the dense-cache and paged machineries."""
-    return h + block.mlp(bp, block[2].apply_fn(bp["2"], h))
+    """ln2 + the block's MLP (gelu, swiglu or the capacity-free MoE
+    dispatch) with the residual add — the post-attention half of a
+    block, shared by the dense-cache and paged machineries."""
+    ln2 = block[2].apply_fn(bp["2"], h)
+    if block.mlp_kind == "moe":
+        return h + _moe_ffn_nodrop(block[3], bp["3"], ln2)
+    return h + block.mlp(bp, ln2)
 
 
 def _quant_kv(x):
@@ -370,6 +423,51 @@ def last_logits(model, prompt_ids, compute_dtype=None) -> torch.Tensor:
     pc = _cast_floats(params, compute_dtype) if compute_dtype else params
     h, _ = prefill(pc, prompt, compute_dtype or model[0].weight.dtype)
     return logits_last(pc, h)
+
+
+# prefill machinery per model instance and sequence length (the
+# _GEN_CACHE pattern): the report is meant to run on every batch a
+# generator produces
+_BIND_CACHE = weakref.WeakKeyDictionary()
+
+
+@torch.no_grad()
+def capacity_bind_report(model, params, ids):
+    """How far MoE decode departs from the trained function: per MoE
+    block, the share of ``ids``'s routing assignments (``N·top_k``; for
+    top-1 the tokens) that the TRAINING dispatch's static capacity
+    (``parallel/moe.py``: ``C = ceil(f·N/E)`` at this batch's token
+    count, the choices in order, one cumsum over all ``B·T`` tokens)
+    would have dropped.  Decode routes capacity-free, so a model whose
+    capacity binds decodes through another function than it was trained
+    on; this measures how often.  A teacher-forced replay of ``ids``
+    through the decode machinery's prefill (capacity-free MoE, so the
+    hidden states are exactly the decode path's).
+
+    Returns ``{block_index: share}`` over the model's MoE blocks plus
+    ``"overall"`` (their mean); ``{}`` for a dense model."""
+    first, count = _check_model(model)
+    moe_idx = [first + bi for bi in range(count)
+               if model[first + bi].is_moe]
+    if not moe_idx:
+        return {}
+    ids = torch.as_tensor(np.asarray(ids, np.int32), device=model.device)
+    T = int(ids.shape[1])
+    if T > model.max_len:
+        raise ValueError(f"sequence length {T} exceeds max_len "
+                         f"{model.max_len}")
+    slot = _BIND_CACHE.setdefault(model, {})
+    if T not in slot:
+        slot[T] = _decode_machinery(model, first, count, T)[0]
+    _BIND_TLS.capture = []
+    try:
+        slot[T](params, ids, tree_leaves(params)[0].dtype)
+        fracs = [float(f) for f in _BIND_TLS.capture]
+    finally:
+        _BIND_TLS.capture = None
+    report = dict(zip(moe_idx, fracs))
+    report["overall"] = sum(fracs) / len(fracs)
+    return report
 
 
 def cached_generate(model, compute_dtype=None, kv_dtype=None,

@@ -4,19 +4,22 @@ Ported: ``ln|rms`` norms, ``gelu|swiglu`` MLPs, learned positions or
 rope, GQA, the ``dense``, ``flash``, ``block`` and ``blocksparse``
 attention strategies (``blocksparse={...}`` passes ``pattern``,
 ``window``, ``globals``, ``stride`` and ``block`` to each block's mask
-builder), residual dropout and ``remat``.  MoE comes with a later slice
-and raises.
+builder), residual dropout, ``remat`` and the single-device Switch-MoE
+FFN (``moe_experts > 0``: ``parallel/moe.py``'s ``MoEFFN`` at block
+index 3, gelu experts; ``moe_axis``, expert parallelism, raises).
 
 ``remat=True`` recomputes each block's forward in the backward pass
 (the JAX ``jax.checkpoint`` of each block, HBM for FLOPs):
 ``torch.utils.checkpoint`` without re-entry, which
 ``torch.autograd.grad`` (the training step's) needs.  A block's dropout
-draws from the forward's generator (``nn/module.py``), which the
-checkpoint's RNG preservation does not cover (it saves the default CPU
-and CUDA generators only), so the block saves that generator's state
-before its forward and its recompute draws from that state again, under
-the same scope (the backward may run on another thread): the
-recomputed masks are the forward's.  Where no gradient is taken (under
+(and an MoE router's jitter) draws from the forward's generator
+(``nn/module.py``), which the checkpoint's RNG preservation does not
+cover (it saves the default CPU and CUDA generators only), so the block
+saves that generator's state before its forward and its recompute draws
+from that state again, under the same scope (the backward may run on
+another thread): the recomputed masks are the forward's.  The recompute
+runs outside the training step's ``capture_aux`` scope, so an MoE
+block's auxiliary term counts once.  Where no gradient is taken (under
 ``torch.no_grad()``, or with no parameter requiring one) a block runs
 once, as without remat.
 """
@@ -32,6 +35,7 @@ from .. import nn
 from ..device import DeviceLike
 from ..nn.dropout import dropout
 from ..nn.module import Container, current_generator, rng_scope
+from ..parallel.moe import MoEFFN
 from ..parallel.tensor_parallel import ColumnParallelLinear, RowParallelLinear
 from ..utils.tree import tree_leaves
 
@@ -51,17 +55,11 @@ def _norm_factory(norm: str, norm_eps, device):
     return lambda d: nn.LayerNorm(d, eps=eps, device=device)
 
 
-def _unported(moe_experts: int):
-    if moe_experts:
-        raise NotImplementedError("moe_experts > 0 is not ported yet")
-
-
 def _remat_block(block, params, h):
     """``block.apply_fn(params, h)`` with its activations recomputed in
     the backward pass; the recompute draws the forward's dropout masks
     (see the module docstring)."""
-    gen = (current_generator(h.device)
-           if block.dropout > 0.0 and block.training else None)
+    gen = current_generator(h.device) if block.draws_random else None
     start = gen.get_state() if gen is not None else None
     calls = []
 
@@ -85,6 +83,10 @@ def _remat_block(block, params, h):
 class TransformerBlock(Container):
     """Pre-norm residual block: x + drop(MHA(LN(x))); x + drop(MLP(LN(x))).
 
+    ``moe_experts > 0`` swaps the dense MLP for a Switch-style
+    mixture-of-experts FFN (``parallel/moe.py``) at index 3; tokens
+    dropped over capacity ride the residual.
+
     ``dropout`` > 0 zeroes each element of the attention branch and of
     the MLP branch before its residual add with that probability (the
     kept ones scaled by 1 / (1 - dropout)), in training only, as the JAX
@@ -95,6 +97,9 @@ class TransformerBlock(Container):
     def __init__(self, embed_dim: int, num_heads: int, mlp_dim: int,
                  causal: bool = True, seq_strategy: str = "dense",
                  model_axis: Optional[str] = None, moe_experts: int = 0,
+                 moe_axis: Optional[str] = None,
+                 moe_capacity_factor: float = 1.25,
+                 moe_aux_coef: float = 0.0, moe_top_k: int = 1,
                  dropout: float = 0.0, norm: str = "ln", mlp: str = "gelu",
                  num_kv_heads: Optional[int] = None, rope: bool = False,
                  rope_theta: float = 10000.0,
@@ -108,7 +113,9 @@ class TransformerBlock(Container):
             raise ValueError(f"norm {norm!r} not in ('ln', 'rms')")
         if mlp not in ("gelu", "swiglu"):
             raise ValueError(f"mlp {mlp!r} not in ('gelu', 'swiglu')")
-        _unported(moe_experts)
+        if mlp == "swiglu" and moe_experts:
+            raise ValueError("moe_experts uses gelu expert MLPs; "
+                             "mlp='swiglu' does not compose with MoE")
         Norm = _norm_factory(norm, norm_eps, device)
         # llama convention: bias-free attention (and swiglu) projections
         with_bias = (attn_bias if attn_bias is not None
@@ -129,7 +136,19 @@ class TransformerBlock(Container):
                                   device=device, generator=generator),
             Norm(embed_dim),
         ]
-        if mlp == "swiglu":
+        if moe_experts:
+            if model_axis is not None:
+                raise ValueError(
+                    "moe_experts replaces the Column/RowParallel MLP — "
+                    "tensor parallelism of the FFN would be silently "
+                    "dropped; pass model_axis=None with MoE")
+            mods.append(MoEFFN(embed_dim, mlp_dim, moe_experts,
+                               capacity_factor=moe_capacity_factor,
+                               axis_name=moe_axis,
+                               aux_loss_coef=moe_aux_coef,
+                               top_k=moe_top_k, device=device,
+                               generator=generator))
+        elif mlp == "swiglu":
             mb = mlp_bias if mlp_bias is not None else with_bias
             mods += [ColumnParallelLinear(embed_dim, mlp_dim, with_bias=mb,
                                           axis_name=model_axis,
@@ -148,8 +167,16 @@ class TransformerBlock(Container):
                                        axis_name=model_axis,
                                        device=device, generator=generator)]
         super().__init__(*mods, device=device)
-        self.mlp_kind = mlp
+        self.is_moe = bool(moe_experts)
+        self.mlp_kind = "moe" if moe_experts else mlp
         self.dropout = float(dropout)
+
+    @property
+    def draws_random(self) -> bool:
+        """Whether a forward in this mode draws from the generator: the
+        residual dropout, or an MoE router's jitter."""
+        return self.training and (
+            self.dropout > 0.0 or (self.is_moe and self[3].jitter > 0.0))
 
     def _drop(self, v):
         if self.dropout <= 0.0 or not self.training:
@@ -157,7 +184,10 @@ class TransformerBlock(Container):
         return dropout(v, self.dropout, current_generator(v.device))
 
     def mlp(self, params, h):
-        """The MLP on the ln2 output (gelu or swiglu), no residual."""
+        """The MLP on the ln2 output (gelu, swiglu or the capacity-limited
+        MoE dispatch), no residual."""
+        if self.mlp_kind == "moe":
+            return self[3].apply_fn(params["3"], h)
         if self.mlp_kind == "swiglu":
             g = self[3].apply_fn(params["3"], h)
             u = self[4].apply_fn(params["4"], h)
@@ -186,6 +216,9 @@ class TransformerLM(Container):
                  causal: bool = True, seq_strategy: str = "dense",
                  model_axis: Optional[str] = None, remat: bool = False,
                  output: str = "log_probs", moe_experts: int = 0,
+                 moe_axis: Optional[str] = None,
+                 moe_capacity_factor: float = 1.25,
+                 moe_aux_coef: float = 0.0, moe_top_k: int = 1,
                  dropout: float = 0.0, norm: str = "ln", mlp: str = "gelu",
                  num_kv_heads: Optional[int] = None, rope: bool = False,
                  rope_theta: float = 10000.0,
@@ -197,10 +230,14 @@ class TransformerLM(Container):
                  generator: Optional[torch.Generator] = None):
         if output not in ("log_probs", "logits"):
             raise ValueError(f"output {output!r} not in (log_probs, logits)")
-        _unported(moe_experts)
         mlp_dim = mlp_dim or 4 * embed_dim
         blocks = [TransformerBlock(embed_dim, num_heads, mlp_dim, causal,
                                    seq_strategy, model_axis,
+                                   moe_experts=moe_experts,
+                                   moe_axis=moe_axis,
+                                   moe_capacity_factor=moe_capacity_factor,
+                                   moe_aux_coef=moe_aux_coef,
+                                   moe_top_k=moe_top_k,
                                    dropout=dropout, norm=norm,
                                    mlp=mlp, num_kv_heads=num_kv_heads,
                                    rope=rope, rope_theta=rope_theta,

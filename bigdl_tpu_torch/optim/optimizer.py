@@ -14,7 +14,11 @@ The single-GPU training loop.  The host loop is the JAX package's
    f32 through the casts; the output is cast back to f32 unless the
    criterion ``accepts_low_precision``;
 2. the loss and the gradients of every parameter (autograd: through K1,
-   K2, K3 and K4's Functions on the card);
+   K2, K3 and K4's Functions on the card); an MoE model's auxiliary
+   terms (``coef · aux`` of each ``MoEFFN`` with ``aux_loss_coef > 0``,
+   handed over live by ``parallel.moe.capture_aux``) join the
+   criterion's loss before the gradient, so the reported loss includes
+   them (``bigdl_tpu/parallel/plan.py:1575``);
 3. the regularizers' penalty (``optim/regularizer.py``, taken on the
    f32 master parameters): its gradient added to the loss gradient, the
    penalty to the logged loss; then every gradient times its leaf of
@@ -28,7 +32,8 @@ The single-GPU training loop.  The host loop is the JAX package's
    read back with the loss the loop fetches anyway;
 6. the result written into the model's parameters in place.
 
-Model state (BatchNorm's running statistics) lives in the model's f32
+Model state (BatchNorm's running statistics, an MoE layer's last
+``aux_loss``) lives in the model's f32
 buffers, outside the parameter tree, so the compute-dtype cast never
 reaches it; the forward updates it in place in training mode.  Under
 the guard the step snapshots the buffers before the forward and, on a
@@ -78,6 +83,7 @@ import torch
 from ..dataset.dataset import TransformedDataSet
 from ..dataset.sample import MiniBatch, SampleToMiniBatch
 from ..nn.module import rng_scope
+from ..parallel.moe import capture_aux
 from ..resilience.guards import LossSpikeDetector, tree_finite, where_tree
 from ..resilience.preemption import PreemptionHandler
 from ..resilience.retry import LossSpikeError, RetryPolicy
@@ -622,11 +628,14 @@ class LocalOptimizer(Optimizer):
             p_c, x_c = params, x
             if dtype is not None:
                 p_c, x_c = cast_floats(params, dtype), cast_floats(x, dtype)
-            out = model.apply_fn(p_c, x_c)
+            with capture_aux() as aux_terms:
+                out = model.apply_fn(p_c, x_c)
             if dtype is not None \
                     and not getattr(crit, "accepts_low_precision", False):
                 out = cast_floats(out, torch.float32)
             loss = crit._loss(out, y)
+            for coef, aux in aux_terms:
+                loss = loss + coef * aux
             grads = torch.autograd.grad(loss, leaves, allow_unused=True)
             # the penalty on the f32 masters, after the loss gradient
             reg = regularizer_loss(params, reg_paths)

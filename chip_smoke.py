@@ -257,8 +257,40 @@ Phases; any failure exits non-zero:
    timed beside its bound, the plain version and ``F.conv2d`` /
    ``conv2d_input``, and K5's kernel time in one step of each model.
    The phase's seconds.
-14. a ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and as the
-   last line ``{"ok": true, "device": {...}}``.
+14. Switch-MoE — ``bench.py``'s MoE leg (``bench.py:711-731``: V 32000,
+   D 512, 4 heads of 128, 4 layers, mlp 2048, 8 experts, capacity 1.25,
+   aux 0.01; random weights from ``manual_seed(0)``): (a) 8
+   ``LocalOptimizer`` steps at T 1024, B 16, SGD 0.01, ``"flash"``,
+   bf16 over f32 masters, then the same in f32: every loss finite, no
+   step skipped, the last below the first, launches a step exactly K1 4,
+   K2 4, K3 4, K4 9 and no operand copy, each step's loss minus its
+   criterion loss = 0.01 x the aux buffers' sum (1e-6 of the loss), the
+   bf16 first loss and decreases at phase 5's limits against the f32 run
+   routed as the bf16 run routed (each step's top-1 choices replayed: a
+   near tie that bf16's rounding resolves the other way moves a token to
+   another expert, an O(1) change, not a rounding), the freely routed f32
+   run reported beside it with the share of first choices it routes
+   elsewhere; step
+   ms, tokens/s, peak memory, the active parameters (``bench.py:295-300``)
+   and the active MFU, each layer's dropped share at steps 1 and 8, and
+   one more step traced by ``torch.profiler``, grouped into K1-K4, the
+   experts' bmm, the dispatch's scatter, the combine's gather, routing
+   and the rest; (b) a 2-layer copy at full width, f32, 3 steps card vs
+   CPU at phase 5's limits, capacity loose (f 8.0), binding (f 0.5) and
+   top-2; (c) served in bf16 by ``InferenceServer`` as phase 4 (B 4,
+   512- then 200-token prompts, 32 new tokens; K1 4 and K4 288 a batch):
+   every status OK, ids in 1..V, last-position logits against f32 on the
+   CPU, the paged stream (page 16) = ``cached_generate``'s at B 1, one
+   beam = greedy, ``capacity_bind_report`` on the served sequences,
+   prefill + first token ms and decode tokens/s; (d) one layer's index
+   dispatch against the one-hot einsum form of the JAX layer at the
+   step's shape (16384 tokens, C 2560), f32, top-1 bit for bit and top-2
+   within 1e-6 of the largest output, both timed; then K1-K4 at the MoE
+   step's shapes as phase 3 holds them.
+15. a ``{"kernels": [...]}`` line (K1-K4 with a ``moe step`` variant
+   each: its time at the MoE step's shape, its launches (a)'s bf16 run's),
+   the ``nvidia-smi`` line, and as the last line ``{"ok": true,
+   "device": {...}}``.
 
 The full record goes to ``chiprun_out/chip_smoke.json``.
 
@@ -271,6 +303,11 @@ runs phase 1, builds K1-K4 and runs phase 12 alone (record in
 
 runs phase 1, builds K5 and runs phase 13 alone (record in
 ``chiprun_out/chip_phase13.json``; exit 1 on a failed check).
+
+    python3 chip_smoke.py --phase-moe
+
+runs phase 1, builds K1-K4 and runs phase 14 alone (record in
+``chiprun_out/chip_phase_moe.json``; exit 1 on a failed check).
 
     python3 chip_smoke.py --profile
 
@@ -893,11 +930,11 @@ def attn_inputs(torch, label, B, H, rows, D, dt, g, n):
             for _ in range(n)]
 
 
-def check_flash(torch, F):
+def check_flash(torch, F, cases=None):
     from bigdl_tpu_torch.ops import flash_attention as fa
 
     rows = []
-    for label, B, H, T, S, D, dt, causal in flash_cases(torch):
+    for label, B, H, T, S, D, dt, causal in cases or flash_cases(torch):
         g = torch.Generator(device="cuda").manual_seed(7)
         q, = attn_inputs(torch, label, B, H, T, D, dt, g, 1)
         k, v = attn_inputs(torch, label, B, H, S, D, dt, g, 2)
@@ -956,16 +993,17 @@ def check_flash(torch, F):
     return rows
 
 
-def check_layer_norm(torch, F):
+def check_layer_norm(torch, F, cases=None):
     from bigdl_tpu_torch.ops import layer_norm as ln
 
     rows = []
-    for label, R, Fdim, dt in (("served_prefill", 2048, 1024, torch.bfloat16),
-                               ("train", 16384, 1024, torch.bfloat16),
-                               ("f32", 2048, 1024, torch.float32),
-                               ("decode_step", 4, 1024, torch.bfloat16),
-                               ("ragged_F", 300, 1000, torch.bfloat16),
-                               ("column_slice", 16384, 1024, torch.bfloat16)):
+    for label, R, Fdim, dt in cases or (
+            ("served_prefill", 2048, 1024, torch.bfloat16),
+            ("train", 16384, 1024, torch.bfloat16),
+            ("f32", 2048, 1024, torch.float32),
+            ("decode_step", 4, 1024, torch.bfloat16),
+            ("ragged_F", 300, 1000, torch.bfloat16),
+            ("column_slice", 16384, 1024, torch.bfloat16)):
         g = torch.Generator(device="cuda").manual_seed(11)
         if label == "column_slice":   # rows 1536 apart, read in place
             x = torch.randn(R, 1536, device="cuda", generator=g).to(dt)[
@@ -1150,7 +1188,7 @@ def chunk_bwd_tma_bytes(BH, T, S, D, causal, dkv, item):
     return BH * -(-D // 256) * tiles * per_tile * item
 
 
-def check_flash_bwd(torch, F):
+def check_flash_bwd(torch, F, cases=None):
     """K2 and K3 against ``_flash_bwd_plain`` on the same (q, k, v, O,
     LSE, dO), O and LSE from K1 (for the f32 split-product kernels its math
     in f64, ``bwd_yardstick``); no operand copied, one launch of each
@@ -1162,7 +1200,7 @@ def check_flash_bwd(torch, F):
     from bigdl_tpu_torch.ops import flash_attention as fa
 
     rows = []
-    for label, B, H, T, S, D, dt, causal in bwd_cases(torch):
+    for label, B, H, T, S, D, dt, causal in cases or bwd_cases(torch):
         g = torch.Generator(device="cuda").manual_seed(13)
         q, = attn_inputs(torch, label, B, H, T, D, dt, g, 1)
         k, v = attn_inputs(torch, label, B, H, S, D, dt, g, 2)
@@ -3294,13 +3332,15 @@ def _op_groups(prof, group):
     return groups
 
 
-def profile_window(torch, run, group_by_op=None):
+def profile_window(torch, run, group_by_op=None, ranges=(), top=12):
     """Wall (min of 3 runs of ``run`` without the profiler), then one run
     under ``torch.profiler``: device time by kernel and by group,
     launches, and the device's busy share of that wall.  Groups come
     from the kernel's name, or with ``group_by_op`` from it and the ops
     that launched the kernel; device time no op claims is
-    "unattributed"."""
+    "unattributed".  ``ranges``: the names of ``record_function`` ranges
+    the run opens, whose device-side spans are no kernels; ``top``: how
+    many kernels to list."""
     from torch.profiler import ProfilerActivity, profile
 
     cuda_type = torch.autograd.DeviceType.CUDA
@@ -3310,7 +3350,7 @@ def profile_window(torch, run, group_by_op=None):
         run()
     by_kernel = {}
     for e in prof.key_averages():
-        if e.device_type != cuda_type:
+        if e.device_type != cuda_type or e.key in ranges:
             continue
         us = getattr(e, "self_device_time_total", None)
         if us is None:
@@ -3330,7 +3370,7 @@ def profile_window(torch, run, group_by_op=None):
             g = groups.setdefault(_kernel_group(name), [0.0, 0])
             g[0] += ms
             g[1] += count
-    top = sorted(by_kernel.items(), key=lambda kv: -kv[1][0])[:12]
+    top = sorted(by_kernel.items(), key=lambda kv: -kv[1][0])[:top]
     return dict(
         wall_ms=wall_s * 1e3, device_ms=device_ms,
         busy_share=device_ms / (wall_s * 1e3) if device_ms else None,
@@ -4352,7 +4392,7 @@ def _tensor_err(torch, got, want, skip=()):
 
 
 def _small_card_vs_cpu(torch, label, make, method=None, iters=SMALL_ITERS,
-                       adaptive=0.0, loss_ulps=0):
+                       adaptive=0.0, loss_ulps=0, phase="12"):
     """``make(device)``'s model trained ``iters`` steps in f32 on the card
     and on the CPU (phase 5's 2-layer copy and batch), held to phase 5's
     limits: the losses, the decreases and every update row by row.
@@ -4399,19 +4439,19 @@ def _small_card_vs_cpu(torch, label, make, method=None, iters=SMALL_ITERS,
                       else (worst, upd))
     failures = []
     if len(card) != iters or not rel <= TRAJ_RTOL:
-        failures.append(f"phase 12 {label}: losses {card} vs {cpu}")
+        failures.append(f"phase {phase} {label}: losses {card} vs {cpu}")
     if not dec_ok:
-        failures.append(f"phase 12 {label}: decreases rel {dec:.3e} (abs "
+        failures.append(f"phase {phase} {label}: decreases rel {dec:.3e} (abs "
                         f"{dec_abs:.3e}, floor {floor:.3e})")
     if not held_err <= TRAJ_UPDATE_ROW_TOL:
-        failures.append(f"phase 12 {label}: {held} err {held_err:.3e}")
+        failures.append(f"phase {phase} {label}: {held} err {held_err:.3e}")
     bk = None
     if adaptive:
         bk = max(u.abs().max().item() for n, u in got.items() if ".bk" in n)
         if not bk <= 10 * adaptive * iters:
-            failures.append(f"phase 12 {label}: bk moved {bk:.3e}")
+            failures.append(f"phase {phase} {label}: bk moved {bk:.3e}")
     if runs["cuda"]["skipped_steps"] or runs["cpu"]["skipped_steps"]:
-        failures.append(f"phase 12 {label}: skipped steps")
+        failures.append(f"phase {phase} {label}: skipped steps")
     rec = dict(card_losses=card, cpu_losses=cpu, max_rel=rel,
                decrease_rel=dec, decrease_abs=dec_abs,
                decrease_floor=floor, update_row_err=upd, worst=worst,
@@ -4419,7 +4459,7 @@ def _small_card_vs_cpu(torch, label, make, method=None, iters=SMALL_ITERS,
                update_err=held_err, held_worst=held, bk_max_update=bk,
                lrs=lrs.get("cuda"), cpu_lrs=lrs.get("cpu"),
                launches=runs["cuda"]["launches"])
-    print(f"phase 12 {label}: losses card {card} cpu {cpu}: max rel "
+    print(f"phase {phase} {label}: losses card {card} cpu {cpu}: max rel "
           f"{rel:.3e}, decreases {dec:.3e} (abs {dec_abs:.3e}"
           + (f", floor {floor:.3e}" if floor else "") + "), updates worst "
           f"row err {upd:.3e} in {worst}"
@@ -5309,6 +5349,547 @@ def zoo_phase(torch, F):
     return rec, failures
 
 
+# phase 14: Switch-MoE.  bench.py's "Switch-MoE LM (single-chip dense
+# dispatch)" leg (bench.py:711-731): V 32000, D 512, 4 heads of 128, 4
+# layers, mlp 2048, 8 experts, capacity 1.25, aux 0.01, T 1024, B 16,
+# bf16 over f32 masters.  (a) trained 8 steps, then in f32, freely routed
+# and routed as the bf16 run routed (the held comparison: near ties flip
+# some first choices between bf16 and f32, PERF.md); (b) a 2-layer
+# copy at full width card vs CPU in f32, capacity loose, binding and
+# top-2; (c) served in bf16 as phase 4 serves the flagship, paged as
+# phase 9, one beam; (d) the index dispatch against the one-hot einsum
+# form at one layer's bench shape; then K1-K4 at the step's shapes.
+MOE = dict(vocab=32000, embed_dim=512, num_heads=4, num_layers=4,
+           mlp_dim=2048, experts=8, capacity=1.25, aux=0.01, max_len=1024)
+MOE_BATCH, MOE_T, MOE_ITERS = 16, 1024, 8
+# (b): capacity loose (no assignment dropped at random init) and binding
+MOE_SMALL = (("loose f 8.0", 8.0, 1), ("binding f 0.5", 0.5, 1),
+             ("top-2 f 1.25", 1.25, 2))
+# the reported loss minus the criterion's against 0.01 x the aux
+# buffers' sum, relative to the loss: the two f32 sums' roundings
+MOE_AUX_REL_TOL = 1e-6
+# (d): the index dispatch against the one-hot form, f32, relative to the
+# largest output (bit for bit expected for top-1)
+MOE_DISPATCH_REL_TOL = 1e-6
+# the profiled step's record_function ranges: routing, slots, aux, the
+# whole MoE forward
+MOE_RANGES = ("moe.route", "moe.slots", "moe.aux", "moe.ffn")
+
+
+def _moe_lm(torch, device, num_layers=None, capacity=None, top_k=1, seed=0):
+    from bigdl_tpu_torch.models.transformer import TransformerLM
+
+    return TransformerLM(
+        MOE["vocab"], embed_dim=MOE["embed_dim"], num_heads=MOE["num_heads"],
+        mlp_dim=MOE["mlp_dim"], num_layers=num_layers or MOE["num_layers"],
+        max_len=MOE["max_len"], seq_strategy="flash", output="logits",
+        moe_experts=MOE["experts"], moe_aux_coef=MOE["aux"],
+        moe_capacity_factor=capacity or MOE["capacity"], moe_top_k=top_k,
+        device=device, generator=torch.Generator().manual_seed(seed))
+
+
+def active_params(model) -> int:
+    """bench.py:295-300: every parameter, less the (E - 1)/E inactive
+    share of each MoE layer's expert weights, from the modules' own
+    leaves."""
+    from bigdl_tpu_torch.parallel.moe import MoEFFN
+
+    active = sum(p.numel() for p in model.parameters())
+    for m in model.modules():
+        if isinstance(m, MoEFFN) and m.n_experts > 1:
+            ex = sum(getattr(m, k).numel() for k in ("wi", "bi", "wo", "bo"))
+            active -= ex * (m.n_experts - 1) // m.n_experts
+    return active
+
+
+def _record_drops(model):
+    """Each MoE layer's dispatch records the share of its routing
+    assignments that capacity dropped, a device scalar a forward (read
+    after the run); returns the per-layer lists."""
+    drops = []
+    for blk in model.blocks:
+        moe, seen = blk[3], []
+        slots = moe.slots
+
+        def rec(idxk, _slots=slots, _seen=seen):
+            slot, keep, C = _slots(idxk)
+            _seen.append(1.0 - keep.float().mean())
+            return slot, keep, C
+        moe.slots = rec
+        drops.append(seen)
+    return drops
+
+
+def _route_layers(model, pinned=None):
+    """Each MoE layer's router records its choices, a forward at a time
+    (per-layer lists, returned); with ``pinned`` (such lists from another
+    run) each forward routes to the choices that run made instead, its
+    gates the recorded experts' probabilities (renormalised for top-k)."""
+    seen_by_layer = []
+    for li, blk in enumerate(model.blocks):
+        moe, seen = blk[3], []
+        route = moe.route
+
+        def pinned_route(params, x2d, _route=route, _seen=seen, _li=li,
+                         _k=moe.top_k):
+            gk, idxk, probs = _route(params, x2d)
+            if pinned is not None:
+                idxk = pinned[_li][len(_seen)]
+                gk = probs.gather(1, idxk)
+                if _k > 1:
+                    gk = gk / gk.sum(dim=-1, keepdim=True)
+            _seen.append(idxk.detach())
+            return gk, idxk, probs
+        moe.route = pinned_route
+        seen_by_layer.append(seen)
+    return seen_by_layer
+
+
+def moe_train(torch, dtype, record_drops=False, pinned=None):
+    """The MoE LM trained MOE_ITERS steps by LocalOptimizer: at each
+    end-trigger check the host clock, the loss, the criterion's loss of
+    the step, the layers' aux buffers and every launch count; each
+    layer's routing choices a forward (``_route_layers``, routed as
+    ``pinned`` when given)."""
+    from bigdl_tpu_torch import nn
+    from bigdl_tpu_torch.utils.rng import RNG
+
+    crit_losses = []
+
+    class Recording(nn.TimeDistributedCriterion):
+        def _loss(self, out, y):
+            loss = super()._loss(out, y)
+            crit_losses.append(loss.detach())
+            return loss
+
+    model = _moe_lm(torch, "cuda")
+    drops = _record_drops(model) if record_drops else None
+    routing = _route_layers(model, pinned)
+    counters = launch_counters()
+    marks = []
+
+    def mark(state):
+        aux = sum(blk[3].aux_loss for blk in model.blocks)
+        marks.append((time.perf_counter(), state.get("loss"),
+                      {n: c.count for n, c in counters.items()},
+                      float(aux)))
+
+    opt = make_trainer(torch, model, MOE_BATCH, MOE_T, MOE_ITERS, dtype,
+                       mark, crit=Recording(nn.CrossEntropyCriterion(), True))
+    RNG().set_seed(1)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held_gb = torch.cuda.memory_allocated() / 1e9
+    for c in counters.values():
+        c.reset()
+    opt.optimize()
+    torch.cuda.synchronize()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    losses = [m[1] for m in marks[1:]]
+    run = dict(
+        losses=losses, crit_losses=[float(c) for c in crit_losses],
+        aux_sums=[m[3] for m in marks[1:]],
+        step_s=[b[0] - a[0] for a, b in zip(marks, marks[1:])],
+        launches_per_step=[{n: b[2][n] - a[2][n] for n in b[2]}
+                           for a, b in zip(marks, marks[1:])],
+        launches={n: c.count for n, c in counters.items()},
+        skipped_steps=opt.skipped_steps, peak_memory_gb=peak_gb,
+        held_before_gb=held_gb,
+        active_params=active_params(model),
+        n_params=sum(p.numel() for p in model.parameters()),
+        routing=routing)
+    if drops is not None:
+        run["dropped_share"] = {f"step {k + 1}": [float(d[k]) for d in drops]
+                                for k in (0, MOE_ITERS - 1)}
+    return model, opt, run
+
+
+def _moe_group(kernel: str, ops) -> str:
+    """The group of a kernel of the MoE step: K1-K4 by name, the rest by
+    the op that launched it (the MoE forward's own ranges, and the
+    autograd nodes of its backward)."""
+    def under(*parts):
+        return any(part in op for op in ops for part in parts)
+
+    if any(k in kernel for k in ("attn_fwd_", "bwd_dkv_", "bwd_dq_",
+                                 "_ln_fwd")):
+        return _kernel_group(kernel)
+    if under("aten::bmm", "BmmBackward"):
+        return "experts: bmm (forward and backward)"
+    if under("aten::index_put", "IndexPutBackward"):
+        return "dispatch: scatter to slots (index_put; bwd a gather)"
+    if under("aten::index_select", "IndexSelectBackward"):
+        return "combine: gather from slots (index_select; bwd index_add)"
+    if under(*MOE_RANGES[:3]):
+        return "routing: router, softmax, top-1, one-hot, cumsum, aux"
+    if under(MOE_RANGES[3]):
+        return "MoE forward, other (zeros, gelu, where, combine, casts)"
+    if any(s in kernel.lower() for s in ("gemm", "gemv", "nvjet", "cutlass",
+                                         "xmma", "sm90_")):
+        return "matmul (cuBLAS: projections, vocab head, router bwd)"
+    return "other (elementwise, loss, optimizer, backward of the rest)"
+
+
+def profile_moe_step(torch, model, opt):
+    """One more bf16 MoE step of ``opt`` under ``torch.profiler`` (after
+    three unprofiled ones for the wall), the MoE forward's parts inside
+    ``record_function`` ranges, grouped by ``_moe_group``."""
+    from torch.profiler import record_function
+
+    def ranged(name, fn):
+        def run(*a, **k):
+            with record_function(name):
+                return fn(*a, **k)
+        return run
+
+    for blk in model.blocks:
+        moe = blk[3]
+        for name, attr in zip(MOE_RANGES, ("route", "slots", "aux_term",
+                                           "_compute")):
+            setattr(moe, attr, ranged(name, getattr(moe, attr)))
+
+    def run():
+        state = opt.optim_method.state
+        opt.set_end_when(lambda s, last=state["neval"]: s["neval"] > last)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        opt.optimize()
+        torch.cuda.synchronize()
+        return time.perf_counter() - t
+
+    rep = profile_window(torch, run, group_by_op=_moe_group,
+                         ranges=MOE_RANGES, top=25)
+    print_profile(f"phase 14 (a) profile MoE training step (bf16, batch "
+                  f"{MOE_BATCH}, T {MOE_T})", rep)
+    return rep
+
+
+def moe_dispatch_leg(torch):
+    """Phase 14 (d): one MoE layer at the bench step's shape (16 x 1024
+    tokens, D 512, H 2048, E 8, capacity 1.25: C 2560), f32, eval: the
+    index dispatch against the one-hot einsum form, and both timed
+    (CUDA events over 5 calls, host launches included)."""
+    from bigdl_tpu_torch.parallel.moe import MoEFFN, onehot_forward
+
+    rec, failures = {}, []
+    for top_k in (1, 2):
+        moe = MoEFFN(MOE["embed_dim"], MOE["mlp_dim"], MOE["experts"],
+                     capacity_factor=MOE["capacity"], top_k=top_k,
+                     device="cuda",
+                     generator=torch.Generator().manual_seed(0)).evaluate()
+        x = torch.randn(MOE_BATCH, MOE_T, MOE["embed_dim"], device="cuda",
+                        generator=torch.Generator(device="cuda").manual_seed(
+                            1))
+        params = moe.param_tree()
+        with torch.no_grad():
+            got = moe(x)
+            want = onehot_forward(moe, params, x)
+            _, keep, C = moe.slots(moe.route(params, x.reshape(
+                -1, MOE["embed_dim"]))[1])
+            times = {}
+            for name, fn in (("index", lambda: moe(x)),
+                             ("onehot", lambda: onehot_forward(moe, params,
+                                                               x))):
+                fn()
+                torch.cuda.synchronize()
+                times[name] = _event_ms(lambda f=fn: [f() for _ in range(5)],
+                                        5)
+        err = (got - want).abs().max().item()
+        scale = want.abs().max().item()
+        same = bool(torch.equal(got, want))
+        dropped = 1.0 - keep.float().mean().item()
+        ok = err <= MOE_DISPATCH_REL_TOL * scale and (same or top_k > 1)
+        rec[f"top{top_k}"] = dict(
+            tokens=MOE_BATCH * MOE_T, capacity=C, dropped_share=dropped,
+            max_abs_err=err, max_abs_out=scale, bit_for_bit=same,
+            index_ms=times["index"], onehot_ms=times["onehot"], ok=ok)
+        print(f"phase 14 (d) dispatch top-{top_k}, f32, {MOE_BATCH * MOE_T} "
+              f"tokens, C {C}, dropped {dropped:.4f}: index vs one-hot max "
+              f"abs err {err:.3e} ({err / scale:.3e} of max |y|, tol "
+              f"{MOE_DISPATCH_REL_TOL}), bit for bit {same}; index "
+              f"{times['index']:.3f} ms, one-hot einsum "
+              f"{times['onehot']:.3f} ms {'OK' if ok else 'FAIL'}")
+        if not ok:
+            failures.append(f"phase 14 (d) top-{top_k} dispatch err {err:.3e}"
+                            f" of {scale:.3e}, bit for bit {same}")
+        del got, want, moe, x
+        torch.cuda.empty_cache()
+    return rec, failures
+
+
+def moe_serve_leg(torch):
+    """Phase 14 (c): the MoE LM (seed 0) served in bf16 by
+    InferenceServer as phase 4 serves the flagship, the paged stream and
+    one beam against cached_generate, the capacity report, the timings."""
+    import numpy as np
+
+    from bigdl_tpu_torch.models import generate as tgen
+    from bigdl_tpu_torch.ops import flash_attention as fa
+    from bigdl_tpu_torch.ops import layer_norm as ln
+    from bigdl_tpu_torch.serving import InferenceServer, KVPagePool, Status
+
+    bf16 = torch.bfloat16
+    V, L = MOE["vocab"], MOE["num_layers"]
+    counters = launch_counters()
+    failures, rec = [], dict(batches=[])
+    model = _moe_lm(torch, "cuda")
+    server = InferenceServer(model, max_batch=BATCH,
+                             generate_dtype=bf16).start()
+    rng = np.random.RandomState(0)
+    prompts_by_len, served = {}, {}
+    try:
+        for T0 in PROMPT_LENS:
+            prompts = rng.randint(1, V + 1, size=(BATCH, T0)).astype(np.int32)
+            prompts_by_len[T0] = prompts
+            for c in counters.values():
+                c.reset()
+            results = [f.result(timeout=600) for f in
+                       [server.submit_generate(p, MAX_NEW) for p in prompts]]
+            launches = {n: c.count for n, c in counters.items()}
+            statuses = [r.status.value for r in results]
+            outs = [np.asarray(r.output) for r in results
+                    if r.status is Status.OK]
+            served[T0] = outs
+            ids_ok = len(outs) == BATCH and all(
+                o.shape == (MAX_NEW,) and o.min() >= 1 and o.max() <= V
+                for o in outs)
+            want_ln = (2 * L + 1) * MAX_NEW
+            rec["batches"].append(dict(
+                prompt_len=T0, statuses=statuses, launches=launches,
+                latency_s=[r.latency_s for r in results]))
+            print(f"phase 14 (c) served prompt {T0}: statuses {statuses} "
+                  f"flash {fa.LAUNCHES.count} (want {L}) layer_norm "
+                  f"{ln.LAUNCHES.count} (want {want_ln}) latency "
+                  f"{max(r.latency_s for r in results):.3f} s")
+            if statuses != ["ok"] * BATCH or not ids_ok:
+                failures.append(f"phase 14 (c) prompt {T0}: statuses "
+                                f"{statuses}, ids in 1..V {ids_ok}")
+            if launches != want_launches(flash_fwd=L, layer_norm_fwd=want_ln):
+                failures.append(f"phase 14 (c) prompt {T0}: launches "
+                                f"{_nz(launches)}")
+    finally:
+        server.stop(timeout=60)
+
+    params = model.param_tree()
+    gen = tgen.cached_generate(model, compute_dtype=bf16)
+    timing = {}
+    for T0, prompts in prompts_by_len.items():
+        def run(n, _p=prompts):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            gen(params, _p, n)
+            torch.cuda.synchronize()
+            return time.perf_counter() - t
+
+        run(MAX_NEW)
+        prefill_s = min(run(1) for _ in range(3))
+        full_s = min(run(MAX_NEW) for _ in range(3))
+        timing[T0] = dict(prefill_s=prefill_s, generate_s=full_s,
+                          decode_tokens_per_s=BATCH * (MAX_NEW - 1)
+                          / (full_s - prefill_s))
+        print(f"phase 14 (c) prompt {T0}: prefill+first token "
+              f"{prefill_s * 1e3:.2f} ms, generate {full_s * 1e3:.2f} ms, "
+              f"decode {timing[T0]['decode_tokens_per_s']:.1f} tokens/s "
+              f"(batch {BATCH})")
+    rec["timing"] = timing
+
+    # last-position logits: bf16 on the card vs the same model in f32 on
+    # the CPU (phase 4's limit)
+    prompt = prompts_by_len[PROMPT_LENS[1]][:1]
+    got = tgen.last_logits(model, prompt, compute_dtype=bf16).cpu()
+    ref = tgen.last_logits(_moe_lm(torch, "cpu"), prompt)
+    rel = (got - ref).abs().max().item() / ref.abs().max().item()
+    rec["logits_rel_err"] = rel
+    print(f"phase 14 (c) last-position logits bf16/cuda vs f32/cpu: "
+          f"{rel:.3e} of max |logit| (tol {LOGITS_REL_TOL})")
+    if not rel <= LOGITS_REL_TOL:
+        failures.append(f"phase 14 (c) logits vs f32 CPU: rel {rel:.3e}")
+
+    # the paged stream (page size 16) = cached_generate's at B 1; one
+    # beam = greedy
+    T0 = PROMPT_LENS[0]
+    prompts = prompts_by_len[T0]
+    pool = KVPagePool.for_model(model, PAGED_POOL_PAGES, PAGE_SIZE,
+                                dtype=bf16)
+    dec = tgen.cached_paged_decoder(model, pool, compute_dtype=bf16)
+    paged_equal = []
+    for p in prompts[:2]:
+        want = gen(params, p[None], MAX_NEW).cpu().numpy()[0, T0:]
+        seq = dec.start(params, p)
+        toks = [seq.last] + [dec.step(params, seq)
+                             for _ in range(MAX_NEW - 1)]
+        seq.release()
+        paged_equal.append(bool(np.array_equal(toks, want)))
+    beam = tgen.make_beam_search(model, compute_dtype=bf16)
+    one, _ = beam(params, prompts[:2], MAX_NEW, num_beams=1)
+    greedy = gen(params, prompts[:2], MAX_NEW)
+    beam_equal = bool(torch.equal(one.cpu(), greedy.cpu()))
+    rec.update(paged_equal=paged_equal, beam1_equals_greedy=beam_equal,
+               pool_free_after=pool.free_pages == pool.num_pages)
+    print(f"phase 14 (c) paged (page {PAGE_SIZE}) = cached_generate at B 1: "
+          f"{paged_equal}; 1 beam = greedy: {beam_equal}; pool free "
+          f"{rec['pool_free_after']}")
+    if not (all(paged_equal) and beam_equal and rec["pool_free_after"]):
+        failures.append(f"phase 14 (c) paged {paged_equal} beam "
+                        f"{beam_equal} pool {rec['pool_free_after']}")
+
+    # the share of the served sequences' routing assignments the training
+    # dispatch's capacity would drop, on the served (bf16) weights
+    report = {}
+    for T0, outs in served.items():
+        ids = np.concatenate([prompts_by_len[T0], np.stack(outs)], axis=1)
+        report[T0] = tgen.capacity_bind_report(
+            model, tgen._cast_floats(params, bf16), ids)
+        print(f"phase 14 (c) capacity_bind_report on the {T0}-token "
+              f"prompts + {MAX_NEW} generated: "
+              f"{ {k: round(v, 5) for k, v in report[T0].items()} }")
+    rec["capacity_bind_report"] = report
+    rec["launches"] = {n: sum(b["launches"][n] for b in rec["batches"])
+                       for n in counters}
+    del model, pool
+    torch.cuda.empty_cache()
+    return rec, failures
+
+
+def moe_phase(torch, F, smi):
+    """Phase 14 (a)-(d), then K1-K4 at the MoE step's shapes.  Returns
+    (record, failures); the record's ``launches`` are (a)'s bf16 run and
+    (c)'s served batches, each read from zero."""
+    t_phase = time.perf_counter()
+    failures, rec = [], {}
+    L, B, T = MOE["num_layers"], MOE_BATCH, MOE_T
+    bf16 = torch.bfloat16
+
+    # (a) bf16 over f32 masters, 8 steps; then the same in f32
+    model, opt, run = moe_train(torch, bf16, record_drops=True)
+    losses = run["losses"]
+    want = want_launches(flash_fwd=L, flash_bwd_dkv=L, flash_bwd_dq=L,
+                         layer_norm_fwd=2 * L + 1)
+    if len(losses) != MOE_ITERS or not all(math.isfinite(x) for x in losses):
+        failures.append(f"phase 14 (a) losses {losses}")
+    if run["skipped_steps"]:
+        failures.append(f"phase 14 (a) {run['skipped_steps']} steps skipped")
+    if not losses[-1] < losses[0]:
+        failures.append(f"phase 14 (a) loss did not fall: {losses}")
+    bad = [st for st in run["launches_per_step"] if st != want]
+    if bad:
+        failures.append(f"phase 14 (a) launches per step {_nz(bad[0])}")
+    aux_err = [abs(l - c - MOE["aux"] * a) / abs(l) for l, c, a in zip(
+        losses, run["crit_losses"], run["aux_sums"])]
+    if len(run["crit_losses"]) != MOE_ITERS \
+            or not max(aux_err) <= MOE_AUX_REL_TOL:
+        failures.append(f"phase 14 (a) loss - criterion vs 0.01 aux: "
+                        f"{aux_err}")
+    steady = run["step_s"][2:]
+    step_ms = 1e3 * sum(steady) / len(steady)
+    tps = B * T / (step_ms / 1e3)
+    mfu = 6.0 * run["active_params"] * tps / PEAK_FLOPS["bfloat16"]
+    mfu_attn = ((6.0 * run["active_params"] + 6.0 * T * MOE["embed_dim"] * L)
+                * tps / PEAK_FLOPS["bfloat16"])
+    run.update(step_ms=step_ms, tokens_per_s=tps, active_mfu=mfu,
+               active_mfu_attn_incl=mfu_attn, aux_rel_err=aux_err)
+    print(f"phase 14 (a) MoE LM bf16, B {B} T {T}, {MOE['experts']} experts "
+          f"({smi}): losses {[round(x, 4) for x in losses]}; launches per "
+          f"step {_nz(run['launches_per_step'][0])}; step {step_ms:.2f} ms "
+          f"(iterations 3-{MOE_ITERS}), {tps:.0f} tokens/s, parameters "
+          f"{run['n_params']} ({run['active_params']} active), active MFU "
+          f"{mfu:.4f} (with attention {mfu_attn:.4f}), peak memory "
+          f"{run['peak_memory_gb']:.2f} GB ({run['held_before_gb']:.2f} GB "
+          f"held before the run, the model's included); loss - criterion "
+          f"vs 0.01 aux "
+          f"worst {max(aux_err):.3e} (tol {MOE_AUX_REL_TOL}); dropped share "
+          f"by layer {run['dropped_share']}")
+    rec["profile"] = profile_moe_step(torch, model, opt)
+    bf16_routing = [layer[:MOE_ITERS] for layer in run.pop("routing")]
+    rec["bf16"] = run
+    del model, opt
+    torch.cuda.empty_cache()
+    # f32 routed freely, then f32 routed as the bf16 run routed
+    free_model, _, free = moe_train(torch, None)
+    del free_model
+    f32_model, _, f32 = moe_train(torch, None, pinned=bf16_routing)
+    del f32_model
+    torch.cuda.empty_cache()
+    # the share of first choices the free f32 run routes elsewhere than
+    # the bf16 run, a layer, at steps 1 and 8
+    free_routing = free.pop("routing")
+    flips = {f"step {k + 1}": [
+        (a[k][:, 0] != b[k][:, 0]).float().mean().item()
+        for a, b in zip(bf16_routing, free_routing)]
+        for k in (0, MOE_ITERS - 1)}
+    f32.pop("routing")
+    free_first = abs(losses[0] - free["losses"][0]) / abs(free["losses"][0])
+    free_dec = decrease_rel_err(losses, free["losses"])
+    ref = f32["losses"]
+    f32_ms = 1e3 * sum(free["step_s"][2:]) / len(free["step_s"][2:])
+    first_rel = abs(losses[0] - ref[0]) / abs(ref[0])
+    dec_rel = decrease_rel_err(losses, ref)
+    free.update(step_ms=f32_ms, tokens_per_s=B * T / (f32_ms / 1e3),
+                bf16_vs_f32_first_rel=free_first,
+                bf16_vs_f32_decrease_rel=free_dec, first_choice_flips=flips)
+    f32.update(bf16_vs_f32_first_rel=first_rel,
+               bf16_vs_f32_decrease_rel=dec_rel)
+    rec["f32"], rec["f32_bf16_routing"] = free, f32
+    print(f"phase 14 (a) f32: step {f32_ms:.2f} ms, "
+          f"{free['tokens_per_s']:.0f} tokens/s; first choices routed "
+          f"elsewhere than bf16's, by layer: {flips}; bf16 vs f32 first "
+          f"loss {losses[0]:.6f} vs {free['losses'][0]:.6f}, rel "
+          f"{free_first:.3e}, decreases worst rel {free_dec:.3e}; vs f32 "
+          f"routed as bf16: first loss {ref[0]:.6f}, rel {first_rel:.3e} "
+          f"(tol {TRAIN_FIRST_REL_TOL}), decreases worst rel {dec_rel:.3e} "
+          f"(tol {TRAIN_DECREASE_REL_TOL})")
+    if any(st["attn_operand_copies"] for run_ in (free, f32)
+           for st in run_["launches_per_step"]):
+        failures.append("phase 14 (a) f32 steps copied attention operands")
+    if len(ref) != MOE_ITERS or not first_rel <= TRAIN_FIRST_REL_TOL:
+        failures.append(f"phase 14 (a) first loss bf16 vs f32 routed as "
+                        f"bf16: rel {first_rel:.3e}")
+    if not dec_rel <= TRAIN_DECREASE_REL_TOL:
+        failures.append(f"phase 14 (a) decreases bf16 vs f32 routed as "
+                        f"bf16: rel {dec_rel:.3e}")
+    if len(free["losses"]) != MOE_ITERS or not all(
+            math.isfinite(x) for x in free["losses"]) \
+            or not free["losses"][-1] < free["losses"][0]:
+        failures.append(f"phase 14 (a) f32 losses {free['losses']}")
+
+    # (b) a 2-layer copy at full width, f32, card vs CPU
+    rec["card_vs_cpu"] = {}
+    for label, cap, top_k in MOE_SMALL:
+        small, more = _small_card_vs_cpu(
+            torch, f"(b) {label}", lambda dev, c=cap, k=top_k: _moe_lm(
+                torch, dev, SMALL_LAYERS, capacity=c, top_k=k), phase="14")
+        rec["card_vs_cpu"][label] = small
+        failures += more
+
+    # (c) serving; (d) the dispatch
+    rec["serving"], more = moe_serve_leg(torch)
+    failures += more
+    rec["dispatch"], more = moe_dispatch_leg(torch)
+    failures += more
+
+    # K1-K4 at the MoE step's shapes (4 heads of 128; LayerNorm over 512)
+    case = ("moe_train", B, MOE["num_heads"], T, T,
+            MOE["embed_dim"] // MOE["num_heads"], bf16, True)
+    rec["kernels"] = dict(
+        flash=check_flash(torch, F, [case]),
+        flash_bwd=check_flash_bwd(torch, F, [case]),
+        layer_norm=check_layer_norm(torch, F, [("moe_train", B * T,
+                                                MOE["embed_dim"], bf16)]))
+    failures += [f"phase 14 K{n} {r['case']}: {r.get('row_rel_err')}"
+                 for n, rows in (("1", rec["kernels"]["flash"]),
+                                 ("2/K3", rec["kernels"]["flash_bwd"]),
+                                 ("4", rec["kernels"]["layer_norm"]))
+                 for r in rows if not r["ok"]]
+    launches = dict(run["launches"])
+    for n, v in rec["serving"]["launches"].items():
+        launches[n] += v
+    rec["launches"] = launches
+    rec["step_launches"] = run["launches"]
+    rec["seconds"] = time.perf_counter() - t_phase
+    print(f"phase 14: {rec['seconds']:.1f} s; launches {_nz(launches)}")
+    return rec, failures
+
+
 # the phase-3 cases the ``kernels`` line's variants read, and the tag of
 # their counters (a kernel's name, then the tag)
 VARIANT_CASES = {"f32_D192": "f32 D 192", "f32_D256": "f32 D 256",
@@ -5335,6 +5916,9 @@ def main(argv=None) -> int:
     ap.add_argument("--phase13", action="store_true",
                     help="build K5 and run phase 13 (the image and "
                          "sequence zoo) alone")
+    ap.add_argument("--phase-moe", action="store_true",
+                    help="build K1-K4 and run phase 14 (Switch-MoE) "
+                         "alone")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         return fail("torch.cuda.is_available() is false; a CUDA card is "
@@ -5360,7 +5944,8 @@ def main(argv=None) -> int:
     from bigdl_tpu_torch.ops import _support
     from bigdl_tpu_torch.ops import layer_norm as ln
 
-    libs = (("flash_fwd", "flash_bwd") if args.phase12 else
+    libs = (("flash_fwd", "flash_bwd") if args.phase12 or args.phase_moe
+            else
             ("conv3x3",) if args.phase13 else
             ("flash_fwd", "flash_bwd", "block_sparse", "conv3x3"))
     t0 = time.perf_counter()
@@ -5392,6 +5977,15 @@ def main(argv=None) -> int:
         (out / "chip_phase13.json").write_text(json.dumps(dict(
             device=kind, nvidia_smi=smi, torch=torch.__version__,
             zoo_path=rec, failures=failures), indent=1, default=str))
+        for f in failures:
+            print(f"FAIL: {f}", file=sys.stderr)
+        print(smi)
+        return 1 if failures else 0
+    if args.phase_moe:
+        rec, failures = moe_phase(torch, F, smi)
+        (out / "chip_phase_moe.json").write_text(json.dumps(dict(
+            device=kind, nvidia_smi=smi, torch=torch.__version__,
+            moe_path=rec, failures=failures), indent=1, default=str))
         for f in failures:
             print(f"FAIL: {f}", file=sys.stderr)
         print(smi)
@@ -5506,12 +6100,19 @@ def main(argv=None) -> int:
     phase13, phase13_failures = zoo_phase(torch, F)
     failures += phase13_failures
 
+    # phase 14: Switch-MoE — bench.py's MoE leg trained in bf16 and f32,
+    # a 2-layer copy card vs CPU, served, the dispatch against the one-hot
+    # form, K1-K4 at the MoE step's shapes
+    phase14, phase14_failures = moe_phase(torch, F, smi)
+    failures += phase14_failures
+
     # launches summed over every path, each read from zero
     launches = {n: sum(b["launches"][n] for b in served["batches"])
                 + trained["launches"][n] + bs_trained["launches"][n]
                 + resnet["launches"][n] + paged["launches"][n]
                 + phase10["launches"][n] + phase11["launches"][n]
                 + phase12["launches"][n] + phase13["launches"][n]
+                + phase14["launches"][n]
                 for n in launch_counters()}
     for mm_path in mm_paths:
         for name, n in mm_path["launches"].items():
@@ -5610,9 +6211,28 @@ def main(argv=None) -> int:
         bound_by=step["bound_by"], library_ms=step["library_ms"])
         for name, step in phase13["k5_per_step"].items()]
 
+    # K1-K4 at the MoE step's shapes (4 heads of 128; LayerNorm over
+    # 512), one variant each: its launches phase 14 (a)'s bf16 run's
+    moe_k = phase14["kernels"]
+    moe_rows = {"flash_fwd": moe_k["flash"][0],
+                "flash_bwd_dkv": dict(moe_k["flash_bwd"][0],
+                                      **moe_k["flash_bwd"][0]["dkv"]),
+                "flash_bwd_dq": dict(moe_k["flash_bwd"][0],
+                                     **moe_k["flash_bwd"][0]["dq"]),
+                "layer_norm_fwd": moe_k["layer_norm"][0]}
+    for kernel in kernels[:4]:
+        r = moe_rows[kernel["name"]]
+        kernel.setdefault("variants", []).append(dict(
+            name=f"{kernel['name']} moe step", route=kernel["route"],
+            source=kernel["source"], replaces=kernel["replaces"],
+            launches=phase14["step_launches"][kernel["name"]],
+            max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
+            bound_ms=r["bound_ms"], bound_by=r["bound_by"],
+            library_ms=r["library_ms"]))
+
     # K4's strided instantiation, one variant a dtype: phase 11 (c)'s
     # transposed LayerNorm input, its launches that leg's count
-    kernels[3]["variants"] = [dict(
+    kernels[3]["variants"] += [dict(
         name=f"layer_norm_fwd strided {r['case'].split()[-1]}",
         route="triton", source=kernels[3]["source"],
         replaces=kernels[3]["replaces"],
@@ -5633,7 +6253,7 @@ def main(argv=None) -> int:
         blocksparse_training_path=bs_trained, matmul_path=mm_paths,
         resnet50_training_path=resnet, paged_serving_path=paged,
         checkpoint_swap_path=phase10, torch_api_path=phase11,
-        training_breadth_path=phase12, zoo_path=phase13,
+        training_breadth_path=phase12, zoo_path=phase13, moe_path=phase14,
         kernels=kernels, failures=failures, seconds=time.perf_counter()
         - T_START), indent=1))
 

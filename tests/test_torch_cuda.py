@@ -1499,6 +1499,60 @@ def test_small_lm_trains_on_card_like_cpu(cuda_device):
         assert _row_rel_err(card_upd[name], u, scale) <= 1e-3, name
 
 
+@pytest.mark.parametrize("capacity", [8.0, 0.5])
+def test_small_moe_lm_trains_on_card_like_cpu(cuda_device, capacity):
+    """A Switch-MoE LM (4 experts, aux 0.01) trained 3 f32 steps on the
+    card and on the CPU, capacity loose and binding: K1-K4 as the dense
+    LM's, the losses, decreases, aux buffers and every update row by
+    row at the dense LM's limits."""
+    moe = dict(moe_experts=4, moe_aux_coef=0.01,
+               moe_capacity_factor=capacity)
+    counts = [c.count for c in (fa.LAUNCHES, fa.LAUNCHES_DKV,
+                                fa.LAUNCHES_DQ, ln.LAUNCHES)]
+    card, card_model, card_upd = _train_small(cuda_device, **moe)
+    launched = [c.count - n for c, n in zip(
+        (fa.LAUNCHES, fa.LAUNCHES_DKV, fa.LAUNCHES_DQ, ln.LAUNCHES), counts)]
+    assert launched == [6, 6, 6, 15]
+    cpu, cpu_model, cpu_upd = _train_small("cpu", **moe)
+    np.testing.assert_allclose(card, cpu, rtol=2e-3)
+    np.testing.assert_allclose(np.subtract(card[1:], card[0]),
+                               np.subtract(cpu[1:], cpu[0]), rtol=1e-4)
+    for blk_card, blk_cpu in zip(card_model.blocks, cpu_model.blocks):
+        np.testing.assert_allclose(float(blk_card[3].aux_loss),
+                                   float(blk_cpu[3].aux_loss), rtol=1e-5)
+    scale = max(torch.linalg.vector_norm(u, dim=-1).max().item()
+                for u in cpu_upd.values())
+    for name, u in cpu_upd.items():
+        assert _row_rel_err(card_upd[name], u, scale) <= 1e-3, name
+
+
+@pytest.mark.parametrize("top_k,capacity", [(1, 0.5), (2, 1.25)])
+def test_moe_index_dispatch_is_the_onehot_einsum_on_card(cuda_device, top_k,
+                                                         capacity):
+    """The index dispatch against the JAX layer's one-hot einsum form on
+    the card, f32, 2048 tokens at the bench width (D 512, H 2048, E 8),
+    capacity binding (top-1 at 0.5; top-2 at 1.25 has fewer slots than
+    assignments): bit for bit for top-1, within 1e-6 of the largest
+    output for top-2 (the order of its two products' sum)."""
+    from bigdl_tpu_torch.parallel.moe import MoEFFN, onehot_forward
+
+    moe = MoEFFN(512, 2048, 8, capacity_factor=capacity, top_k=top_k,
+                 device=cuda_device,
+                 generator=torch.Generator().manual_seed(0)).evaluate()
+    x = torch.randn(2, 1024, 512, generator=torch.Generator().manual_seed(1)
+                    ).to(cuda_device)
+    with torch.no_grad():
+        got = moe(x)
+        want = onehot_forward(moe, moe.param_tree(), x)
+        _, keep, _ = moe.slots(moe.route(moe.param_tree(),
+                                         x.reshape(-1, 512))[1])
+    assert not bool(keep.all())
+    err = (got - want).abs().max().item()
+    assert err <= 1e-6 * want.abs().max().item()
+    if top_k == 1:
+        assert torch.equal(got, want)
+
+
 def test_small_lm_on_card_matches_cpu(cuda_device):
     cfg = dict(embed_dim=64, num_heads=4, num_layers=2, max_len=64,
                seq_strategy="flash")
