@@ -1,7 +1,7 @@
 """bigdl_tpu_torch.optim — optim methods and schedules, regularizers, the
 ``torch.optim`` bridge, triggers, validation methods, the evaluator, the
-predictor and the local training loop (the JAX package's exports less
-``DistriOptimizer`` and ``DistriValidator``)."""
+predictor, and the local and data-parallel training loops (the JAX
+package's exports)."""
 from .optim_method import (
     SGD, Adadelta, Adagrad, Adam, Adamax, Default, EpochDecay, EpochSchedule,
     EpochStep, Exponential, LBFGS, LearningRateSchedule, MultiStep, NaturalExp,
@@ -20,5 +20,7 @@ from .regularizer import (L1L2Regularizer, L1Regularizer, L2Regularizer,
 from .metrics import Metrics
 from .optax_bridge import OptaxMethod, TorchOptimMethod
 from .optimizer import LocalOptimizer, Optimizer
-from .evaluator import Evaluator, LocalValidator, evaluate_dataset
+from .distri_optimizer import DistriOptimizer
+from .evaluator import (DistriValidator, Evaluator, LocalValidator,
+                        evaluate_dataset)
 from .predictor import LocalPredictor, Predictor

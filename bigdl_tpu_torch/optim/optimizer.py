@@ -65,10 +65,37 @@ dataset's order and the record cursor).  ``resume_from_checkpoint``
 restores all three from the newest step that verifies, so the resumed
 run continues on the exact next batch.
 
+Over a data axis (``DistriOptimizer``, ``optim/distri_optimizer.py``)
+the same step and loop run on every rank of the process group, one rank
+a device, with the data-axis rules of the JAX plan step
+(``bigdl_tpu/parallel/plan.py``):
+
+- every rank starts from rank 0's parameters, buffers, host RNG and
+  dataset order, so each walks the same global batches; rank r trains
+  rows ``[r·b, (r+1)·b)`` of each, on its own device;
+- a full batch: each rank's mean gradient, loss and floating buffers
+  (BatchNorm statistics) go into one flat f32 buffer, one
+  ``all_reduce(SUM)``, then ``/N``: the global batch's mean;
+- a trailing batch whose record count does not divide by N is padded
+  to the multiple by repeating its last record; each record's loss is
+  weighted 1-real/0-pad over the global real count (an MoE term adds
+  ``aux / N``), the gradients and losses are summed over ranks, and the
+  buffers keep their values from before the step;
+- the regularizers' gradient is added after the reduction, then the
+  gradient scales; the gradient guard's decision is the same on every
+  rank (``all_reduce(MIN)``); the step's dropout seed is folded with
+  the rank;
+- rank 0 writes checkpoints and summaries while the others wait at a
+  barrier; a restore reads the same files on every rank.
+
+One rank sums one term and divides by 1, so its numbers are
+``LocalOptimizer``'s bit for bit.
+
 Not ported yet, and refused if configured: telemetry and elastic
-training; ``"orbax"`` checkpoints.  Pad-and-mask never arises here: one
-device takes every batch whole, as the JAX package's one-device mesh
-does.
+training; ``"orbax"`` checkpoints; the sharding-plan engine's knobs
+(``set_sharding_plan``, ``set_fsdp``, ``set_sparse_density``,
+``set_sync_period``, ``set_sync_staleness``,
+``set_pipeline_microbatch``).
 """
 from __future__ import annotations
 
@@ -79,9 +106,12 @@ from typing import Optional, Sequence
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..dataset.dataset import TransformedDataSet
 from ..dataset.sample import MiniBatch, SampleToMiniBatch
+from ._sharding_utils import (map_batch, maskable, mesh_device, pad_batch,
+                              round_up, rows_of)
 from ..nn.module import rng_scope
 from ..parallel.moe import capture_aux
 from ..resilience.guards import LossSpikeDetector, tree_finite, where_tree
@@ -169,6 +199,8 @@ class Optimizer:
         self.checkpoint_write_seconds = 0.0
         #: per validation trigger: step, seconds, each method's result
         self.validation_stats: list = []
+        #: the data axis of a DistriOptimizer run (None: one device)
+        self._axis: Optional[_DataAxis] = None
 
     # -- fluent config (Optimizer.scala:98-243) -------------------------
     def set_optim_method(self, method: OptimMethod):
@@ -248,6 +280,13 @@ class Optimizer:
         """Replace the failure retry policy (default: built from the
         ``bigdl.failure.*`` properties)."""
         self.retry_policy = policy
+        # keep DistriOptimizer's compat aliases (max_retry, retry_window)
+        # in step: a caller-mutated alias wins in its _with_retry, so a
+        # snapshot of the default policy must not override this one
+        if hasattr(self, "max_retry"):
+            self.max_retry = policy.max_retries
+        if hasattr(self, "retry_window"):
+            self.retry_window = policy.window
         return self
 
     def set_async_checkpoint(self, enabled: bool = True,
@@ -307,6 +346,31 @@ class Optimizer:
     def set_telemetry(self, *args, **kwargs):
         _unported("telemetry")
 
+    # -- the sharding-plan engine's knobs (not ported: the port trains
+    # over the data axis only) ------------------------------------------
+    def set_sharding_plan(self, plan):
+        _unported("the sharding-plan engine (set_sharding_plan; ROADMAP "
+                  "Queue 1 item 5b)")
+
+    def set_fsdp(self, min_bytes: Optional[int] = 1 << 20):
+        _unported("FSDP (set_fsdp; ROADMAP Queue 1 item 5c)")
+
+    def set_sparse_density(self, density: Optional[float]):
+        _unported("the sparse gradient transport (set_sparse_density; "
+                  "ROADMAP Queue 1 item 5c)")
+
+    def set_sync_period(self, k: Optional[int]):
+        _unported("relaxed synchrony (set_sync_period; ROADMAP Queue 1 "
+                  "item 5c)")
+
+    def set_sync_staleness(self, s: Optional[int]):
+        _unported("relaxed synchrony (set_sync_staleness; ROADMAP Queue 1 "
+                  "item 5c)")
+
+    def set_pipeline_microbatch(self, n: int):
+        _unported("pipeline parallelism (set_pipeline_microbatch; ROADMAP "
+                  "Queue 1 item 5d)")
+
     def set_elastic(self, *args, **kwargs):
         _unported("elastic training")
 
@@ -357,16 +421,17 @@ class Optimizer:
         from .evaluator import evaluate_dataset
 
         t0 = time.perf_counter()
-        results = evaluate_dataset(self.model, self.validation_dataset,
-                                   self.validation_methods,
-                                   batch_size=self.batch_size or 128)
+        results = evaluate_dataset(
+            self.model, self.validation_dataset, self.validation_methods,
+            batch_size=self.batch_size or 128,
+            mesh=None if self._axis is None else self._axis.mesh)
         self.model.train()
         self.validation_stats.append(dict(
             step=state["neval"] - 1, seconds=time.perf_counter() - t0,
             results=[r.result() for r in results]))
         for method, result in zip(self.validation_methods, results):
             log.info("%s is %s", method.format(), result)
-            if self.validation_summary is not None:
+            if self.validation_summary is not None and self._chief():
                 self.validation_summary.add_scalar(
                     method.format(), result.result()[0], state["neval"] - 1)
             if method.format() in ("Top1Accuracy", "Top5Accuracy"):
@@ -455,7 +520,7 @@ class Optimizer:
         (``async_checkpoint``) or here."""
         from ..utils import file_io
 
-        if self.checkpoint_path is None:
+        if self.checkpoint_path is None or not self._chief():
             return
         n = state["neval"] - 1
         suffix = "" if self.is_overwrite else f".{n}"
@@ -493,8 +558,11 @@ class Optimizer:
         from ..utils.file_io import to_device
 
         # a restore must see every checkpoint already triggered; a failed
-        # background write is simply absent, which the walk-back handles
+        # background write is simply absent, which the walk-back handles;
+        # over a data axis every rank reads what rank 0 committed
         self._drain_checkpoints(raise_errors=False)
+        if self._axis is not None:
+            self._axis.barrier()
         restored_any = False
         leg, path = verify_and_load_latest(self.checkpoint_path, "model",
                                            max_step=step)
@@ -546,7 +614,211 @@ class Optimizer:
         return self._preemption
 
     def _preempted(self) -> bool:
-        return self._preemption is not None and self._preemption.should_stop
+        stop = self._preemption is not None and self._preemption.should_stop
+        if self._axis is not None and self.handle_preemption:
+            # a signal on any rank stops every rank at the same step
+            stop = self._axis.any(stop)
+        return stop
+
+    # -- the step and the loop (LocalOptimizer and DistriOptimizer) -----
+    def _chief(self) -> bool:
+        """Rank 0 of the data axis, or the one process of a local run:
+        the process that writes checkpoints and summaries."""
+        return self._axis is None or self._axis.rank == 0
+
+    def _step(self, params, slots, x, y, lr: float, reg_paths=(),
+              scales=None, weight=None):
+        """One training step; returns (loss, ok, new_slots) with loss
+        and ok still on the device.  ``reg_paths``: the model's
+        regularizers (``collect_regularizer_paths``); ``scales``: the
+        leaves of its gradient scale tree, or None when all are 1.
+
+        Over a data axis (``self._axis``) ``x``/``y`` are this rank's
+        rows; ``weight``, for a trailing batch padded to the axis
+        multiple, is ``(w, n_real)``: this rank's 1-real/0-pad record
+        weights and the global real count."""
+        model, crit, dtype = self.model, self.criterion, self.compute_dtype
+        axis = self._axis
+        masked = weight is not None
+        leaves = tree_leaves(params)
+        buffers = tree_leaves(model.buffer_tree())
+        if self.gradient_guard or masked:
+            old_buffers = [b.clone() for b in buffers]
+        with torch.enable_grad():
+            p_c, x_c = params, x
+            if dtype is not None:
+                p_c, x_c = cast_floats(params, dtype), cast_floats(x, dtype)
+            with capture_aux() as aux_terms:
+                out = model.apply_fn(p_c, x_c)
+            if dtype is not None \
+                    and not getattr(crit, "accepts_low_precision", False):
+                out = cast_floats(out, torch.float32)
+            if masked:
+                # each record's loss weighted 1-real/0-pad over the
+                # global real count; the ranks' sums add to the mean
+                # (bigdl_tpu/parallel/plan.py:1578-1588)
+                loss = _weighted_loss(crit, out, y, *weight)
+                for coef, aux in aux_terms:
+                    loss = loss + coef * aux / axis.size
+            else:
+                loss = crit._loss(out, y)
+                for coef, aux in aux_terms:
+                    loss = loss + coef * aux
+            grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+            if axis is not None:
+                with torch.no_grad():
+                    grads, loss = axis.reduce(grads, leaves, loss, buffers,
+                                              masked)
+            # the penalty on the f32 masters, after the loss gradient
+            # (and after the reduction over the data axis: each rank's
+            # penalty gradient is already the whole one)
+            reg = regularizer_loss(params, reg_paths)
+            if torch.is_tensor(reg):
+                reg_g = torch.autograd.grad(reg, leaves, allow_unused=True)
+                grads = [r if g is None else g if r is None else g + r
+                         for g, r in zip(grads, reg_g)]
+                loss = loss + reg.detach()
+        with torch.no_grad():
+            grads = [torch.zeros_like(p) if g is None else g
+                     for g, p in zip(grads, leaves)]
+            if scales is not None:
+                grads = [g if s == 1.0 else g * s
+                         for g, s in zip(grads, scales)]
+            it = iter(grads)
+            grads = tree_map(lambda _: next(it), params)
+            old = tree_map(torch.Tensor.detach, params)
+            new_params, new_slots = self.optim_method.step(grads, old,
+                                                           slots, lr)
+            if masked:
+                # padded rows would pollute the batch statistics: the
+                # trailing batch keeps the buffers from before the step
+                for b, b_old in zip(buffers, old_buffers):
+                    b.copy_(b_old)
+            if self.gradient_guard:
+                ok = tree_finite(grads) & torch.isfinite(loss)
+                if axis is not None:
+                    ok = axis.agree(ok)
+                new_params = where_tree(ok, new_params, old)
+                new_slots = where_tree(ok, new_slots, slots)
+                for b, b_old in zip(buffers, old_buffers):
+                    b.copy_(torch.where(ok, b, b_old))
+            else:
+                ok = torch.ones((), dtype=torch.bool, device=loss.device)
+            for p, n in zip(leaves, tree_leaves(new_params)):
+                p.copy_(n)
+        return loss.detach(), ok, new_slots
+
+    def _loop(self):
+        model, optim, axis = self.model, self.optim_method, self._axis
+        model.train()
+        if axis is not None:
+            # every rank starts from rank 0's weights, host RNG and
+            # dataset order, so each walks the same global batches
+            axis.sync_start(model, self.dataset)
+        params = model.param_tree()
+        slots = _resume_slots(optim, tree_map(torch.Tensor.detach, params))
+        reg_paths = list(collect_regularizer_paths(model))
+        scales = tree_leaves(model.gradient_scale_tree())
+        if all(s == 1.0 for s in scales):
+            scales = None
+
+        state = optim.state
+        state["epoch"] = state.get("epoch", 1)
+        state["neval"] = state.get("neval", 1)
+        state["epoch_finished"] = False
+        epoch_size = _epoch_records(self.dataset)
+        data_iter = self.dataset.data(train=True)
+        # a total-state resume continues mid-epoch on the exact next batch
+        records_this_epoch = self._consume_resume_cursor(data_iter,
+                                                         epoch_size)
+        wall_start = time.time()
+        while not self.end_when(state):
+            state["epoch_finished"] = False
+            t_fetch = time.time()
+            batch = next(data_iter)
+            n_records = batch.size()
+            weight = None
+            if axis is None:
+                x, y = _device_batch(batch, model.device)
+            else:
+                x, y, weight = axis.place(batch, model.device)
+            fetch_time = time.time() - t_fetch
+            lr = optim.get_current_lr()
+            # the JAX package draws a per-step key from the host RNG
+            # here; the same draw seeds the step's generator, which every
+            # random layer of the forward (dropout) draws from in order,
+            # and keeps the JAX package's epoch shuffles.  Over a data
+            # axis the draw is folded with the rank, so the ranks' masks
+            # differ (bigdl_tpu/parallel/plan.py:1565-1569)
+            seed = next_step_seed()
+            if axis is not None:
+                seed = axis.fold(seed)
+            step_gen = torch.Generator(device=model.device).manual_seed(seed)
+            t0 = time.time()
+            with rng_scope(step_gen):
+                loss, ok, slots = self._step(params, slots, x, y, lr,
+                                             reg_paths, scales, weight)
+            # one read-back for both: the device sync of the step
+            loss, ok = torch.stack([loss.float(), ok.float()]).tolist()
+            train_time = time.time() - t0
+            self._check_loss_anomaly(loss, not ok)
+
+            records_this_epoch += n_records
+            state["records_this_epoch"] = records_this_epoch
+            state["loss"] = loss
+            self.metrics.add("computing time average", train_time)
+            self.metrics.add("aggregate gradient time", 0.0)
+            self.metrics.add("get weights average", fetch_time)
+            self.metrics.add("data fetch time", fetch_time)
+            throughput = n_records / max(train_time + fetch_time, 1e-9)
+            log.info(
+                "[Epoch %d %d/%d][Iteration %d][Wall Clock %.3fs] "
+                "Train %d in %.4f seconds. Throughput is %.1f "
+                "records/second. Loss is %.5f.",
+                state["epoch"], records_this_epoch, epoch_size,
+                state["neval"], time.time() - wall_start, n_records,
+                train_time + fetch_time, throughput, loss)
+            if self._chief():
+                self._summarize_step(state, loss, lr, throughput)
+            state["neval"] += 1
+            optim.state = state
+
+            if records_this_epoch >= epoch_size:
+                state["epoch"] += 1
+                state["epoch_finished"] = True
+                records_this_epoch = 0
+                state["records_this_epoch"] = 0
+                self.dataset.shuffle()
+                data_iter = self.dataset.data(train=True)
+
+            # each trigger evaluated once per iteration (a stateful user
+            # trigger must not see a second call): validate, checkpoint
+            do_validate = self._should(self.validation_trigger, state)
+            do_checkpoint = self._should(self.checkpoint_trigger, state)
+            preempted = self._preempted()
+            if do_validate:
+                self._validate(state)
+            if do_checkpoint or preempted:
+                optim._slots = slots
+                self._write_pickle_checkpoint(state)
+                if axis is not None:
+                    # rank 0 writes; the others wait for it here
+                    axis.barrier()
+            if preempted:
+                self._drain_checkpoints()
+                log.warning("preemption requested — checkpointed at "
+                            "iteration %d; exiting resumable",
+                            state["neval"] - 1)
+                break
+
+        optim._slots = slots
+        model.evaluate()
+        # every triggered checkpoint is durable, or its write error
+        # surfaces here, into the retry loop
+        self._drain_checkpoints()
+        if axis is not None:
+            axis.barrier()
+        return model
 
     def optimize(self):
         raise NotImplementedError
@@ -570,6 +842,115 @@ def _epoch_records(dataset) -> int:
     if items and isinstance(items[0], MiniBatch):
         return sum(b.size() for b in items)
     return dataset.size()
+
+
+def _weighted_loss(crit, out, y, w, n_real: float):
+    """The sum of each record's loss (the criterion on that record
+    alone) times its weight, over ``n_real``: pad-and-mask's loss
+    (``bigdl_tpu/parallel/plan.py:1578-1588``, a vmap there)."""
+    def record(tree, i):
+        return map_batch(lambda a: a[i:i + 1], tree)
+
+    per = torch.stack([crit._loss(record(out, i), record(y, i))
+                       for i in range(w.shape[0])])
+    return (per * w).sum() / n_real
+
+
+class _DataAxis:
+    """The data axis of a DistriOptimizer run over a ``("data",)`` mesh:
+    this rank's rows of each global batch and the step's collectives
+    (``bigdl_tpu/parallel/plan.py``'s data-axis rules, on
+    ``torch.distributed``)."""
+
+    def __init__(self, mesh):
+        self.mesh = mesh
+        self.group = mesh.get_group()
+        self.size = mesh.size()
+        self.rank = mesh.get_local_rank()
+
+    def sync_start(self, model, dataset):
+        """Rank 0's parameters, buffers, host RNG and dataset order on
+        every rank (``ModelBroadcast``'s broadcast of the trees)."""
+        from ..parallel.broadcast import broadcast_tree_
+
+        if self.size == 1:
+            return
+        broadcast_tree_(model.param_tree(), group=self.group)
+        broadcast_tree_(model.buffer_tree(), group=self.group)
+        host = [dict(rng=RNG().state_dict(), dataset=dataset.state_dict())]
+        dist.broadcast_object_list(host, src=0, group=self.group)
+        RNG().load_state_dict(host[0]["rng"])
+        dataset.load_state_dict(host[0]["dataset"])
+
+    def place(self, batch: MiniBatch, device: torch.device):
+        """This rank's rows ``[r·b, (r+1)·b)`` of a global batch on
+        ``device``, and for a batch whose record count does not divide
+        by the axis, padded to the multiple, ``(w, n_real)`` (else None):
+        this rank's record weights and the global real count."""
+        n = batch.size()
+        x, y = batch.get_input(), batch.get_target()
+        weight = None
+        if n % self.size:
+            if not maskable(y, n):
+                raise ValueError(
+                    f"training got a batch of {n} records, not a multiple "
+                    f"of the data axis {self.size}, but the targets are "
+                    "not record-leading arrays for pad-and-mask; size the "
+                    f"batches to a multiple of {self.size}")
+            x, y, w = pad_batch(x, y, n, round_up(n, self.size))
+            weight = (rows_of(w, self.rank, self.size, device), float(n))
+        return (rows_of(x, self.rank, self.size, device),
+                rows_of(y, self.rank, self.size, device), weight)
+
+    def reduce(self, grads, leaves, loss, buffers, masked: bool):
+        """One ``all_reduce(SUM)`` of a flat f32 buffer of the gradients,
+        the loss and, for a full batch, the floating buffers (BatchNorm
+        statistics), then ``/N`` for a full batch: the mean gradient,
+        loss and statistics over ranks.  A padded batch's weighted
+        gradients and losses are sums already (``plan.py:1612-1626``)."""
+        grads = [torch.zeros_like(p) if g is None else g
+                 for g, p in zip(grads, leaves)]
+        synced = [] if masked else [b for b in buffers
+                                    if b.is_floating_point()]
+        parts = grads + [loss.detach()] + synced
+        flat = torch.cat([t.reshape(-1).float() for t in parts])
+        dist.all_reduce(flat, group=self.group)
+        if not masked:
+            flat.div_(self.size)
+        out, at = [], 0
+        for t in parts:
+            out.append(flat[at:at + t.numel()].view(t.shape).to(t.dtype))
+            at += t.numel()
+        for b, v in zip(synced, out[len(grads) + 1:]):
+            b.copy_(v)
+        return out[:len(grads)], out[len(grads)]
+
+    def agree(self, ok: torch.Tensor) -> torch.Tensor:
+        """The guard's decision, the same on every rank: a step is
+        skipped everywhere when it is bad anywhere (``plan.py:1629-1636``)."""
+        flag = ok.to(torch.int32).reshape(1)
+        dist.all_reduce(flag, op=dist.ReduceOp.MIN, group=self.group)
+        return flag[0] > 0
+
+    def any(self, flag: bool) -> bool:
+        t = torch.tensor([int(flag)], dtype=torch.int32,
+                         device=mesh_device(self.mesh))
+        dist.all_reduce(t, op=dist.ReduceOp.MAX, group=self.group)
+        return bool(t.item())
+
+    def fold(self, seed: int) -> int:
+        """The step's seed folded with the rank (itself on one rank)."""
+        if self.size == 1:
+            return seed
+        return int(np.random.SeedSequence([seed, self.rank])
+                   .generate_state(1)[0]) & 0x7FFFFFFF
+
+    def barrier(self):
+        if self.size == 1:
+            return
+        kw = ({"device_ids": [torch.cuda.current_device()]}
+              if self.mesh.device_type == "cuda" else {})
+        dist.barrier(group=self.group, **kw)
 
 
 def cast_floats(tree, dtype: torch.dtype):
@@ -613,60 +994,6 @@ class LocalOptimizer(Optimizer):
     """Single-device training loop (reference
     optim/LocalOptimizer.scala:41) on the model's device."""
 
-    def _step(self, params, slots, x, y, lr: float, reg_paths=(),
-              scales=None):
-        """One training step; returns (loss, ok, new_slots) with loss
-        and ok still on the device.  ``reg_paths``: the model's
-        regularizers (``collect_regularizer_paths``); ``scales``: the
-        leaves of its gradient scale tree, or None when all are 1."""
-        model, crit, dtype = self.model, self.criterion, self.compute_dtype
-        leaves = tree_leaves(params)
-        buffers = tree_leaves(model.buffer_tree())
-        if self.gradient_guard:
-            old_buffers = [b.clone() for b in buffers]
-        with torch.enable_grad():
-            p_c, x_c = params, x
-            if dtype is not None:
-                p_c, x_c = cast_floats(params, dtype), cast_floats(x, dtype)
-            with capture_aux() as aux_terms:
-                out = model.apply_fn(p_c, x_c)
-            if dtype is not None \
-                    and not getattr(crit, "accepts_low_precision", False):
-                out = cast_floats(out, torch.float32)
-            loss = crit._loss(out, y)
-            for coef, aux in aux_terms:
-                loss = loss + coef * aux
-            grads = torch.autograd.grad(loss, leaves, allow_unused=True)
-            # the penalty on the f32 masters, after the loss gradient
-            reg = regularizer_loss(params, reg_paths)
-            if torch.is_tensor(reg):
-                reg_g = torch.autograd.grad(reg, leaves, allow_unused=True)
-                grads = [r if g is None else g if r is None else g + r
-                         for g, r in zip(grads, reg_g)]
-                loss = loss + reg.detach()
-        with torch.no_grad():
-            grads = [torch.zeros_like(p) if g is None else g
-                     for g, p in zip(grads, leaves)]
-            if scales is not None:
-                grads = [g if s == 1.0 else g * s
-                         for g, s in zip(grads, scales)]
-            it = iter(grads)
-            grads = tree_map(lambda _: next(it), params)
-            old = tree_map(torch.Tensor.detach, params)
-            new_params, new_slots = self.optim_method.step(grads, old,
-                                                           slots, lr)
-            if self.gradient_guard:
-                ok = tree_finite(grads) & torch.isfinite(loss)
-                new_params = where_tree(ok, new_params, old)
-                new_slots = where_tree(ok, new_slots, slots)
-                for b, b_old in zip(buffers, old_buffers):
-                    b.copy_(torch.where(ok, b, b_old))
-            else:
-                ok = torch.ones((), dtype=torch.bool, device=loss.device)
-            for p, n in zip(leaves, tree_leaves(new_params)):
-                p.copy_(n)
-        return loss.detach(), ok, new_slots
-
     def optimize(self):
         self._warn_drop_knobs_if_inert()
         try:
@@ -674,96 +1001,3 @@ class LocalOptimizer(Optimizer):
                 return self._with_retry(self._loop)
         finally:
             self._shutdown_async_writer()
-
-    def _loop(self):
-        model, optim = self.model, self.optim_method
-        model.train()
-        params = model.param_tree()
-        slots = _resume_slots(optim, tree_map(torch.Tensor.detach, params))
-        reg_paths = list(collect_regularizer_paths(model))
-        scales = tree_leaves(model.gradient_scale_tree())
-        if all(s == 1.0 for s in scales):
-            scales = None
-
-        state = optim.state
-        state["epoch"] = state.get("epoch", 1)
-        state["neval"] = state.get("neval", 1)
-        state["epoch_finished"] = False
-        epoch_size = _epoch_records(self.dataset)
-        data_iter = self.dataset.data(train=True)
-        # a total-state resume continues mid-epoch on the exact next batch
-        records_this_epoch = self._consume_resume_cursor(data_iter,
-                                                         epoch_size)
-        wall_start = time.time()
-        while not self.end_when(state):
-            state["epoch_finished"] = False
-            t_fetch = time.time()
-            batch = next(data_iter)
-            n_records = batch.size()
-            x, y = _device_batch(batch, model.device)
-            fetch_time = time.time() - t_fetch
-            lr = optim.get_current_lr()
-            # the JAX package draws a per-step key from the host RNG
-            # here; the same draw seeds the step's generator, which every
-            # random layer of the forward (dropout) draws from in order,
-            # and keeps the JAX package's epoch shuffles
-            step_gen = torch.Generator(device=model.device).manual_seed(
-                next_step_seed())
-            t0 = time.time()
-            with rng_scope(step_gen):
-                loss, ok, slots = self._step(params, slots, x, y, lr,
-                                             reg_paths, scales)
-            # one read-back for both: the device sync of the step
-            loss, ok = torch.stack([loss.float(), ok.float()]).tolist()
-            train_time = time.time() - t0
-            self._check_loss_anomaly(loss, not ok)
-
-            records_this_epoch += n_records
-            state["records_this_epoch"] = records_this_epoch
-            state["loss"] = loss
-            self.metrics.add("computing time average", train_time)
-            self.metrics.add("aggregate gradient time", 0.0)
-            self.metrics.add("get weights average", fetch_time)
-            self.metrics.add("data fetch time", fetch_time)
-            throughput = n_records / max(train_time + fetch_time, 1e-9)
-            log.info(
-                "[Epoch %d %d/%d][Iteration %d][Wall Clock %.3fs] "
-                "Train %d in %.4f seconds. Throughput is %.1f "
-                "records/second. Loss is %.5f.",
-                state["epoch"], records_this_epoch, epoch_size,
-                state["neval"], time.time() - wall_start, n_records,
-                train_time + fetch_time, throughput, loss)
-            self._summarize_step(state, loss, lr, throughput)
-            state["neval"] += 1
-            optim.state = state
-
-            if records_this_epoch >= epoch_size:
-                state["epoch"] += 1
-                state["epoch_finished"] = True
-                records_this_epoch = 0
-                state["records_this_epoch"] = 0
-                self.dataset.shuffle()
-                data_iter = self.dataset.data(train=True)
-
-            # each trigger evaluated once per iteration (a stateful user
-            # trigger must not see a second call): validate, checkpoint
-            do_validate = self._should(self.validation_trigger, state)
-            do_checkpoint = self._should(self.checkpoint_trigger, state)
-            if do_validate:
-                self._validate(state)
-            if do_checkpoint or self._preempted():
-                optim._slots = slots
-                self._write_pickle_checkpoint(state)
-            if self._preempted():
-                self._drain_checkpoints()
-                log.warning("preemption requested — checkpointed at "
-                            "iteration %d; exiting resumable",
-                            state["neval"] - 1)
-                break
-
-        optim._slots = slots
-        model.evaluate()
-        # every triggered checkpoint is durable, or its write error
-        # surfaces here, into the retry loop
-        self._drain_checkpoints()
-        return model

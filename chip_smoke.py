@@ -287,7 +287,30 @@ Phases; any failure exits non-zero:
    step's shape (16384 tokens, C 2560), f32, top-1 bit for bit and top-2
    within 1e-6 of the largest output, both timed; then K1-K4 at the MoE
    step's shapes as phase 3 holds them.
-15. a ``{"kernels": [...]}`` line (K1-K4 with a ``moe step`` variant
+15. data-parallel training — ``Engine.init_distributed`` starts a
+   one-rank NCCL group on the card: (a) ``DistriOptimizer`` trains phase
+   5's cell (bf16 over f32, SGD 0.01, 8 steps, the same weights and
+   batch) and every loss and parameter update equals a
+   ``LocalOptimizer`` run of the same cell bit for bit (one rank sums
+   one term and divides by 1); launches a step exactly K1 8, K2 8, K3 8,
+   K4 17 with no operand copy; the NCCL kernels of one more step under
+   ``torch.profiler`` by name; step ms beside ``LocalOptimizer``'s (and
+   phase 5's), peak memory, the flat gradient buffer's bytes; (b)
+   ``DistriValidator`` over the data axis against ``evaluate_dataset``
+   without a mesh: the flagship's ``Loss`` on 6 held-out sequences
+   (batches of 4 and 2) and a classifier head (1024 → 4096 → 1000 over
+   96 records, batches of 64 and 32) with ``Top1Accuracy`` and ``Loss``,
+   counts exact and losses within 1e-6; the flagship's prediction over
+   the data axis (3 sequences of 128 ids, batches of 2) against local
+   prediction within 1e-5 of the largest logit; (c) ``AllReduceParameter``
+   at the flagship's parameter count: the f32 reduce-scatter +
+   all-gather round trip returns its input bit for bit, the bf16 wire
+   within one bf16 rounding (2^-8), both timed, and the step's
+   ``all_reduce`` of its flat buffer; (d) phase 5's 2-layer copy in f32,
+   3 steps, one NCCL rank on the card against two gloo ranks on the CPU
+   (this script as two processes, stopped on failure) at phase 5's f32
+   limits.  The group is destroyed after.
+16. a ``{"kernels": [...]}`` line (K1-K4 with a ``moe step`` variant
    each: its time at the MoE step's shape, its launches (a)'s bf16 run's),
    the ``nvidia-smi`` line, and as the last line ``{"ok": true,
    "device": {...}}``.
@@ -308,6 +331,11 @@ runs phase 1, builds K5 and runs phase 13 alone (record in
 
 runs phase 1, builds K1-K4 and runs phase 14 alone (record in
 ``chiprun_out/chip_phase_moe.json``; exit 1 on a failed check).
+
+    python3 chip_smoke.py --phase15
+
+runs phase 1, builds K1-K4 and runs phase 15 alone (record in
+``chiprun_out/chip_phase15.json``; exit 1 on a failed check).
 
     python3 chip_smoke.py --profile
 
@@ -2446,13 +2474,13 @@ def _lm_data(B: int, T: int):
 
 
 def make_trainer(torch, model, B, T, iters, compute_dtype, on_check=None,
-                 data=None, crit=None, method=None):
-    """The port's LocalOptimizer over one batch of B samples, SGD at
-    ``TRAIN_LR`` (or ``method``), stopping after ``iters`` iterations;
-    ``on_check(state)`` runs each time the loop evaluates its end trigger
-    (before the first iteration and after each).  The samples and the
-    criterion are the flagship's (B sequences of T ids) unless ``data``
-    and ``crit`` are given."""
+                 data=None, crit=None, method=None, optimizer=None):
+    """The port's LocalOptimizer (or ``optimizer``) over one batch of B
+    samples, SGD at ``TRAIN_LR`` (or ``method``), stopping after
+    ``iters`` iterations; ``on_check(state)`` runs each time the loop
+    evaluates its end trigger (before the first iteration and after
+    each).  The samples and the criterion are the flagship's (B
+    sequences of T ids) unless ``data`` and ``crit`` are given."""
     from bigdl_tpu_torch import nn
     from bigdl_tpu_torch.optim import SGD, LocalOptimizer, Trigger
 
@@ -2465,7 +2493,7 @@ def make_trainer(torch, model, B, T, iters, compute_dtype, on_check=None,
         crit = nn.TimeDistributedCriterion(nn.CrossEntropyCriterion(), True)
     if data is None:
         data = _lm_data(B, T)
-    opt = LocalOptimizer(model, data, crit, batch_size=B)
+    opt = (optimizer or LocalOptimizer)(model, data, crit, batch_size=B)
     opt.set_optim_method(method if method is not None else SGD(TRAIN_LR))
     opt.set_end_when(Trigger(check))
     if compute_dtype is not None:
@@ -2474,7 +2502,7 @@ def make_trainer(torch, model, B, T, iters, compute_dtype, on_check=None,
 
 
 def run_training(torch, model, B, T, iters, compute_dtype, updates=False,
-                 data=None, crit=None, method=None):
+                 data=None, crit=None, method=None, optimizer=None):
     """Train and record, at each end-trigger check: the host clock, the
     state's loss and every launch count.  Each iteration ends in the
     loss read-back, a device sync, so consecutive clocks bound one
@@ -2491,7 +2519,7 @@ def run_training(torch, model, B, T, iters, compute_dtype, updates=False,
                       {n: c.count for n, c in counters.items()}))
 
     opt = make_trainer(torch, model, B, T, iters, compute_dtype, mark, data,
-                       crit, method)
+                       crit, method, optimizer)
     start = ({n: p.detach().clone() for n, p in model.named_parameters()}
              if updates else {})
     RNG().set_seed(1)
@@ -4234,7 +4262,7 @@ BLOCK_SIZE, SMALL_BLOCK_SIZE = 512, 64
 LBFGS_POINTS, LBFGS_REL_TOL, ROSEN_TOL = 5, 1e-5, 1e-2
 
 
-def _flagship_run(torch, model, iters, dtype=None):
+def _flagship_run(torch, model, iters, dtype=None, optimizer=None):
     """``run_training`` of ``model`` on phase 5's batch, with the peak
     memory of the run (read from a reset), and the parameters' updates
     taken on the CPU (so no device copy adds to the peak)."""
@@ -4242,7 +4270,8 @@ def _flagship_run(torch, model, iters, dtype=None):
     start = _params_cpu(model)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    rec = run_training(torch, model, B, T, iters, dtype or torch.bfloat16)
+    rec = run_training(torch, model, B, T, iters, dtype or torch.bfloat16,
+                       optimizer=optimizer)
     rec["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
     rec["updates"] = {n: p.detach().to("cpu", copy=True) - start[n]
                       for n, p in model.named_parameters()}
@@ -5890,6 +5919,408 @@ def moe_phase(torch, F, smi):
     return rec, failures
 
 
+# phase 15: data-parallel training.  (b): phase 10's held-out sequences
+# (6: batches of 4 and 2) and a classifier head of ImageNet's width over
+# 1024 features (96 records: batches of 64 and 32); prediction on 3
+# sequences of 128 ids in batches of 2.  (d): the 2-layer copy as
+# DISTRI_CPU_RANKS gloo ranks on the CPU, each a process of this script.
+DISTRI_VAL_SEQS, DISTRI_PRED_SEQS, DISTRI_PRED_T = 6, 3, 128
+DISTRI_CLS_FEATURES, DISTRI_CLS_HIDDEN, DISTRI_CLS_CLASSES = 1024, 4096, 1000
+DISTRI_CLS_RECORDS, DISTRI_CLS_BATCH = 96, 64
+DISTRI_CPU_RANKS, DISTRI_CPU_TIMEOUT_S = 2, 300
+# validation losses over the data axis against the one-device result
+# (1e-6 relative, tests/test_torch_distri.py's); predictions against
+# local prediction, f32, relative to the largest |logit|: the data axis
+# pads the trailing batch of 1 to 2, so its GEMMs take another M
+DISTRI_VAL_REL_TOL, DISTRI_PRED_REL_TOL = 1e-6, 1e-5
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _seq_data(n, T, seed):
+    """n samples of T int32 ids in 1..V, inputs then targets."""
+    import numpy as np
+
+    from bigdl_tpu_torch.dataset import Sample, array
+
+    V = FLAGSHIP["vocab"]
+    rng = np.random.RandomState(seed)
+    x = rng.randint(1, V + 1, size=(n, T)).astype(np.int32)
+    y = rng.randint(1, V + 1, size=(n, T)).astype(np.int32)
+    return array([Sample(a, b) for a, b in zip(x, y)])
+
+
+def _nccl_kernels(torch, model):
+    """One more bf16 step of phase 5's cell by a DistriOptimizer under
+    ``torch.profiler``: the collectives the step issued (the host-side
+    ``nccl:*`` ranges by name and count) and the NCCL kernels by name,
+    their launches and device ms."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from bigdl_tpu_torch.optim import DistriOptimizer
+
+    opt = make_trainer(torch, model, TRAIN_BATCH, TRAIN_T, 1, torch.bfloat16,
+                       optimizer=DistriOptimizer)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        opt.optimize()
+        torch.cuda.synchronize()
+    cuda_type = torch.autograd.DeviceType.CUDA
+    kernels, collectives = {}, {}
+    for e in prof.key_averages():
+        if e.device_type != cuda_type:
+            if e.key.startswith("nccl:"):
+                collectives[e.key] = e.count
+            continue
+        if "nccl" not in e.key.lower():
+            continue
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = e.self_cuda_time_total
+        kernels[e.key[:120]] = dict(launches=e.count, ms=us / 1e3)
+    return dict(collectives=collectives, kernels=kernels)
+
+
+def _timed(torch, fn, n=5, warmup=2) -> float:
+    """Device ms per call of ``fn`` (CUDA events around ``n`` calls
+    after ``warmup``; collectives are not captured in a CUDA graph)."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    return _event_ms(lambda: [fn() for _ in range(n)], n)
+
+
+def _classifier(torch, device):
+    from bigdl_tpu_torch import nn
+
+    g = torch.Generator().manual_seed(0)
+    kw = dict(device=device)
+    return nn.Sequential(
+        nn.Linear(DISTRI_CLS_FEATURES, DISTRI_CLS_HIDDEN, generator=g, **kw),
+        nn.ReLU(**kw),
+        nn.Linear(DISTRI_CLS_HIDDEN, DISTRI_CLS_CLASSES, generator=g, **kw),
+        nn.LogSoftMax(**kw))
+
+
+def _classifier_data():
+    import numpy as np
+
+    from bigdl_tpu_torch.dataset import Sample, array
+
+    rng = np.random.RandomState(2)
+    x = rng.randn(DISTRI_CLS_RECORDS, DISTRI_CLS_FEATURES).astype(np.float32)
+    y = (rng.randint(0, DISTRI_CLS_CLASSES, DISTRI_CLS_RECORDS)
+         + 1).astype(np.float32)
+    return array([Sample(a, b) for a, b in zip(x, y)])
+
+
+def _same_results(got, want):
+    """(counts equal, worst relative difference of the results)."""
+    counts = [r.count for r in got] == [r.count for r in want]
+    rel = max(abs(g.result()[0] - w.result()[0]) / max(abs(w.result()[0]),
+                                                      1e-30)
+              for g, w in zip(got, want))
+    return counts and len(got) == len(want), rel
+
+
+def distri_cpu_rank(rank: int, world: int, init: str, out: str) -> int:
+    """One gloo rank of phase 15 (d), run as its own process: phase 5's
+    2-layer copy trained by DistriOptimizer on the CPU; rank 0 saves
+    its losses and updates to ``out``."""
+    import torch
+
+    sys.path.insert(0, str(REPO))
+    torch.set_num_threads(max(1, (os.cpu_count() or world) // world))
+    from bigdl_tpu_torch.optim import DistriOptimizer
+    from bigdl_tpu_torch.utils.engine import Engine
+
+    Engine.init_distributed(init, world, rank, device="cpu",
+                            timeout=DISTRI_CPU_TIMEOUT_S)
+    try:
+        t0 = time.perf_counter()
+        run = run_training(torch, _lm(torch, "cpu", SMALL_LAYERS),
+                           SMALL_BATCH, SMALL_T, SMALL_ITERS, None,
+                           updates=True, optimizer=DistriOptimizer)
+        seconds = time.perf_counter() - t0
+    finally:
+        Engine.reset()
+    if rank == 0:
+        torch.save(dict(losses=run["losses"], updates=run["updates"],
+                        skipped_steps=run["skipped_steps"], seconds=seconds,
+                        threads=torch.get_num_threads()), out)
+    return 0
+
+
+def _start_cpu_ranks(tmp: Path):
+    init = f"file://{tmp / 'store'}"
+    return [subprocess.Popen(
+        [sys.executable, str(Path(__file__).resolve()),
+         "--distri-cpu-rank", str(r), "--distri-cpu-world",
+         str(DISTRI_CPU_RANKS), "--distri-cpu-init", init,
+         "--distri-cpu-out", str(tmp / "cpu_rank0.pt")],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, cwd=str(REPO))
+        for r in range(DISTRI_CPU_RANKS)]
+
+
+def distri_phase(torch, smi, phase5_step_ms=None):
+    """Phase 15 (a)-(d) over a one-rank NCCL group, destroyed at the
+    end.  Returns (record, failures); the record's ``launches`` are
+    (a)'s DistriOptimizer run, (b)'s evaluations and prediction and
+    (d)'s card run, each read from zero."""
+    import tempfile
+
+    import torch.distributed as dist
+
+    from bigdl_tpu_torch import nn
+    from bigdl_tpu_torch.optim import (DistriOptimizer, DistriValidator,
+                                       Loss, Top1Accuracy, evaluate_dataset)
+    from bigdl_tpu_torch.parallel import AllReduceParameter
+    from bigdl_tpu_torch.utils.engine import Engine
+    from bigdl_tpu_torch.utils.tree import tree_leaves
+
+    t_phase = time.perf_counter()
+    failures, rec = [], {}
+    L = FLAGSHIP["num_layers"]
+    counters = launch_counters()
+    launches = {n: 0 for n in counters}
+
+    def count_from_zero(fn):
+        for c in counters.values():
+            c.reset()
+        out = fn()
+        for n, c in counters.items():
+            launches[n] += c.count
+        return out
+
+    Engine.reset()
+    Engine.init_distributed(f"127.0.0.1:{_free_port()}", 1, 0,
+                            device="cuda")
+    tmp = Path(tempfile.mkdtemp(prefix="phase15-"))
+    procs = []
+    try:
+        rec.update(backend=str(dist.get_backend()),
+                   world_size=dist.get_world_size())
+        if rec["backend"] != "nccl" or rec["world_size"] != 1:
+            failures.append(f"phase 15: group {rec}")
+
+        # (a) phase 5's cell: LocalOptimizer, then DistriOptimizer from
+        # the same weights and batch
+        local = _flagship_run(torch, _lm(torch, "cuda", L), TRAIN_ITERS)
+        local_updates, local_losses = local.pop("updates"), local["losses"]
+        torch.cuda.empty_cache()
+        model = _lm(torch, "cuda", L)
+        n_params = sum(p.numel() for p in model.parameters())
+        float_buffers = sum(b.numel() for b in model.buffers()
+                            if b.is_floating_point())
+        distri = _flagship_run(torch, model, TRAIN_ITERS,
+                               optimizer=DistriOptimizer)
+        for n, v in distri["launches"].items():
+            launches[n] += v
+        want = want_launches(flash_fwd=L, flash_bwd_dkv=L, flash_bwd_dq=L,
+                             layer_norm_fwd=2 * L + 1)
+        bad = [st for st in distri["launches_per_step"] if st != want]
+        if bad:
+            failures.append(f"phase 15 (a) launches per step {_nz(bad[0])}")
+        losses = distri["losses"]
+        same_losses = losses == local_losses
+        same_updates = _same_bits(torch, distri["updates"], local_updates)
+        if not (same_losses and same_updates):
+            worst, err = _update_err(torch, distri["updates"], local_updates)
+            failures.append(f"phase 15 (a) not LocalOptimizer's bits: losses "
+                            f"{losses} vs {local_losses}; worst update "
+                            f"{worst} {err:.3e}")
+        if distri["skipped_steps"] or not all(math.isfinite(x)
+                                              for x in losses) \
+                or not losses[-1] < losses[0]:
+            failures.append(f"phase 15 (a) losses {losses}, skipped "
+                            f"{distri['skipped_steps']}")
+        del local_updates
+        distri.pop("updates")
+        nccl = _nccl_kernels(torch, model)
+        flat_bytes = 4 * (n_params + 1 + float_buffers)
+        rec["a"] = dict(
+            losses=losses, local_losses=local_losses,
+            same_losses=same_losses, same_updates=same_updates,
+            step_ms=distri["step_ms"], local_step_ms=local["step_ms"],
+            phase5_step_ms=phase5_step_ms, peak_gb=distri["peak_gb"],
+            local_peak_gb=local["peak_gb"], step_s=distri["step_s"],
+            launches_per_step=distri["launches_per_step"][0],
+            n_params=n_params, flat_buffer_bytes=flat_bytes,
+            nccl_kernels=nccl)
+        print(f"phase 15 (a) DistriOptimizer, one NCCL rank, flagship bf16 B "
+              f"{TRAIN_BATCH} T {TRAIN_T} ({smi}): losses "
+              f"{[round(x, 4) for x in losses]}; = LocalOptimizer's bit for "
+              f"bit: losses {same_losses}, every update {same_updates}; "
+              f"launches per step {_nz(distri['launches_per_step'][0])}; "
+              f"step {distri['step_ms']:.2f} ms against LocalOptimizer's "
+              f"{local['step_ms']:.2f} ms here"
+              + (f" and phase 5's {phase5_step_ms:.2f} ms"
+                 if phase5_step_ms else "")
+              + f" (iterations 3-{TRAIN_ITERS}); peak {distri['peak_gb']:.2f}"
+              f" GB against {local['peak_gb']:.2f}; flat buffer {flat_bytes} "
+              f"bytes ({n_params} parameters); one profiled step's "
+              f"collectives {nccl['collectives'] or 'none'}, NCCL kernels "
+              f"{nccl['kernels'] or 'none'}")
+
+        # (b) validation and prediction over the data axis
+        mesh = Engine.default_mesh()
+        val_methods = [Loss(nn.TimeDistributedCriterion(
+            nn.CrossEntropyCriterion(), True))]
+        cls = _classifier(torch, "cuda")
+        cls_methods = [Top1Accuracy(), Loss(nn.ClassNLLCriterion())]
+
+        def evaluations():
+            return [
+                (evaluate_dataset(model, _seq_data(DISTRI_VAL_SEQS, TRAIN_T, 1),
+                                  val_methods, VAL_BATCH),
+                 [r for r, _ in DistriValidator(model, mesh).test(
+                     _seq_data(DISTRI_VAL_SEQS, TRAIN_T, 1), val_methods,
+                     VAL_BATCH)]),
+                (evaluate_dataset(cls, _classifier_data(), cls_methods,
+                                  DISTRI_CLS_BATCH),
+                 [r for r, _ in DistriValidator(cls, mesh).test(
+                     _classifier_data(), cls_methods, DISTRI_CLS_BATCH)])]
+
+        rec["b"] = {}
+        for label, (want_r, got_r) in zip(("flagship", "classifier"),
+                                          count_from_zero(evaluations)):
+            counts_ok, rel = _same_results(got_r, want_r)
+            rec["b"][label] = dict(results=[repr(r) for r in got_r],
+                                   local=[repr(r) for r in want_r],
+                                   counts_equal=counts_ok, max_rel=rel)
+            if not counts_ok or not rel <= DISTRI_VAL_REL_TOL:
+                failures.append(f"phase 15 (b) {label} validation "
+                                f"{got_r} vs {want_r}")
+        pred_data = _seq_data(DISTRI_PRED_SEQS, DISTRI_PRED_T, 3)
+
+        def predictions():
+            return (model.predict(pred_data, 2, mesh=mesh),
+                    model.predict(pred_data, 2))
+
+        got_p, want_p = count_from_zero(predictions)
+        scale = max(abs(w).max() for w in want_p)
+        pred_rel = max(abs(g - w).max() for g, w in zip(got_p, want_p)) \
+            / scale
+        pred_exact = all((g == w).all() for g, w in zip(got_p, want_p))
+        rec["b"]["predict"] = dict(samples=len(got_p),
+                                   shape=list(got_p[0].shape),
+                                   max_rel=float(pred_rel),
+                                   bit_for_bit=bool(pred_exact))
+        if len(got_p) != DISTRI_PRED_SEQS \
+                or not pred_rel <= DISTRI_PRED_REL_TOL:
+            failures.append(f"phase 15 (b) prediction rel {pred_rel:.3e}")
+        print(f"phase 15 (b) over the data axis against one device: "
+              f"flagship {rec['b']['flagship']['results']} (max rel "
+              f"{rec['b']['flagship']['max_rel']:.3e}); classifier "
+              f"{rec['b']['classifier']['results']} (max rel "
+              f"{rec['b']['classifier']['max_rel']:.3e}; tol "
+              f"{DISTRI_VAL_REL_TOL}); prediction of {len(got_p)} x "
+              f"{list(got_p[0].shape)}: rel {pred_rel:.3e} (tol "
+              f"{DISTRI_PRED_REL_TOL}), bit for bit {pred_exact}")
+        del cls
+        torch.cuda.empty_cache()
+
+        # (c) AllReduceParameter at the flagship's parameter count
+        tree = model.param_tree()
+        rec["c"] = {}
+        for compress in ("none", "bf16"):
+            arp = AllReduceParameter(tree, 1, compress=compress)
+
+            def round_trip(a=arp):
+                return a.all_gather_weights(a.reduce_scatter_gradients(tree))
+
+            back = round_trip()
+            pairs = list(zip(tree_leaves(back), tree_leaves(tree)))
+            exact = all(torch.equal(a, b) for a, b in pairs)
+            rel = max(((a - b).abs() / b.abs().clamp_min(1e-30)).max().item()
+                      for a, b in pairs)
+            del back, pairs
+            ms = _timed(torch, round_trip)
+            rec["c"][compress] = dict(bit_for_bit=exact, max_rel=rel, ms=ms,
+                                      bytes=4 * arp.padded)
+            if compress == "none" and not exact:
+                failures.append("phase 15 (c) f32 round trip is not bit "
+                                "for bit")
+            if compress == "bf16" and not rel <= 2 ** -8:
+                failures.append(f"phase 15 (c) bf16 round trip rel {rel:.3e}")
+        flat = torch.zeros(n_params + 1, device="cuda")
+        rec["c"]["all_reduce_ms"] = _timed(torch, lambda: dist.all_reduce(
+            flat), n=10)
+        del flat
+        torch.cuda.empty_cache()
+        print(f"phase 15 (c) AllReduceParameter over NCCL, {n_params} f32 "
+              f"parameters: round trip bit for bit "
+              f"{rec['c']['none']['bit_for_bit']}, "
+              f"{rec['c']['none']['ms']:.3f} ms; bf16 wire max rel "
+              f"{rec['c']['bf16']['max_rel']:.3e} (tol {2 ** -8:.3e}), "
+              f"{rec['c']['bf16']['ms']:.3f} ms; the step's all_reduce of "
+              f"its flat buffer {rec['c']['all_reduce_ms']:.3f} ms")
+        del model
+        torch.cuda.empty_cache()
+
+        # (d) the 2-layer copy, f32: one NCCL rank on the card against
+        # DISTRI_CPU_RANKS gloo ranks on this machine's CPU
+        procs = _start_cpu_ranks(tmp)
+        card = count_from_zero(lambda: run_training(
+            torch, _lm(torch, "cuda", SMALL_LAYERS), SMALL_BATCH, SMALL_T,
+            SMALL_ITERS, None, updates=True, optimizer=DistriOptimizer))
+        outs = []
+        deadline = time.monotonic() + DISTRI_CPU_TIMEOUT_S
+        for p in procs:
+            out, _ = p.communicate(timeout=max(1.0,
+                                               deadline - time.monotonic()))
+            outs.append(out.decode(errors="replace")[-2000:])
+        if any(p.returncode for p in procs):
+            failures.append(f"phase 15 (d) CPU ranks failed: {outs}")
+        else:
+            cpu = torch.load(tmp / "cpu_rank0.pt")
+            c_l, p_l = card["losses"], cpu["losses"]
+            rel = max(abs(a - b) / abs(b) for a, b in zip(c_l, p_l))
+            dec = decrease_rel_err(c_l, p_l)
+            worst, upd = _update_err(torch, card["updates"], cpu["updates"])
+            rec["d"] = dict(layers=SMALL_LAYERS, batch=SMALL_BATCH,
+                            seq_len=SMALL_T, cpu_ranks=DISTRI_CPU_RANKS,
+                            card_losses=c_l, cpu_losses=p_l, max_rel=rel,
+                            decrease_rel=dec, update_row_err=upd,
+                            worst=worst, cpu_seconds=cpu["seconds"],
+                            cpu_threads_per_rank=cpu["threads"])
+            print(f"phase 15 (d) 2-layer f32, B {SMALL_BATCH} T {SMALL_T}, "
+                  f"{SMALL_ITERS} steps: one NCCL rank on the card {c_l} vs "
+                  f"{DISTRI_CPU_RANKS} gloo ranks on the CPU {p_l}: max rel "
+                  f"{rel:.3e} (tol {TRAJ_RTOL}), decreases {dec:.3e} (tol "
+                  f"{TRAJ_DECREASE_REL_TOL}), updates worst row err "
+                  f"{upd:.3e} in {worst} (tol {TRAJ_UPDATE_ROW_TOL}); CPU "
+                  f"side {cpu['seconds']:.1f} s at {cpu['threads']} threads "
+                  f"a rank")
+            if len(c_l) != SMALL_ITERS or not rel <= TRAJ_RTOL:
+                failures.append(f"phase 15 (d) losses {c_l} vs {p_l}")
+            if not dec <= TRAJ_DECREASE_REL_TOL:
+                failures.append(f"phase 15 (d) decreases rel {dec:.3e}")
+            if not upd <= TRAJ_UPDATE_ROW_TOL:
+                failures.append(f"phase 15 (d) {worst} row err {upd:.3e}")
+            if card["skipped_steps"] or cpu["skipped_steps"]:
+                failures.append("phase 15 (d) skipped steps")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        shutil.rmtree(tmp, ignore_errors=True)
+        Engine.reset()
+    rec["launches"] = launches
+    rec["seconds"] = time.perf_counter() - t_phase
+    print(f"phase 15: {rec['seconds']:.1f} s; launches {_nz(launches)}; "
+          f"group destroyed: {not dist.is_initialized()}")
+    return rec, failures
+
+
 # the phase-3 cases the ``kernels`` line's variants read, and the tag of
 # their counters (a kernel's name, then the tag)
 VARIANT_CASES = {"f32_D192": "f32 D 192", "f32_D256": "f32 D 256",
@@ -5919,7 +6350,18 @@ def main(argv=None) -> int:
     ap.add_argument("--phase-moe", action="store_true",
                     help="build K1-K4 and run phase 14 (Switch-MoE) "
                          "alone")
+    ap.add_argument("--phase15", action="store_true",
+                    help="build K1-K4 and run phase 15 (data-parallel "
+                         "training) alone")
+    # phase 15 (d)'s CPU ranks: this script run as one gloo rank
+    for flag in ("--distri-cpu-rank", "--distri-cpu-world"):
+        ap.add_argument(flag, type=int, help=argparse.SUPPRESS)
+    for flag in ("--distri-cpu-init", "--distri-cpu-out"):
+        ap.add_argument(flag, help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
+    if args.distri_cpu_rank is not None:
+        return distri_cpu_rank(args.distri_cpu_rank, args.distri_cpu_world,
+                               args.distri_cpu_init, args.distri_cpu_out)
     if not torch.cuda.is_available():
         return fail("torch.cuda.is_available() is false; a CUDA card is "
                     "required")
@@ -5944,8 +6386,8 @@ def main(argv=None) -> int:
     from bigdl_tpu_torch.ops import _support
     from bigdl_tpu_torch.ops import layer_norm as ln
 
-    libs = (("flash_fwd", "flash_bwd") if args.phase12 or args.phase_moe
-            else
+    libs = (("flash_fwd", "flash_bwd")
+            if args.phase12 or args.phase_moe or args.phase15 else
             ("conv3x3",) if args.phase13 else
             ("flash_fwd", "flash_bwd", "block_sparse", "conv3x3"))
     t0 = time.perf_counter()
@@ -5977,6 +6419,15 @@ def main(argv=None) -> int:
         (out / "chip_phase13.json").write_text(json.dumps(dict(
             device=kind, nvidia_smi=smi, torch=torch.__version__,
             zoo_path=rec, failures=failures), indent=1, default=str))
+        for f in failures:
+            print(f"FAIL: {f}", file=sys.stderr)
+        print(smi)
+        return 1 if failures else 0
+    if args.phase15:
+        rec, failures = distri_phase(torch, smi)
+        (out / "chip_phase15.json").write_text(json.dumps(dict(
+            device=kind, nvidia_smi=smi, torch=torch.__version__,
+            distri_path=rec, failures=failures), indent=1, default=str))
         for f in failures:
             print(f"FAIL: {f}", file=sys.stderr)
         print(smi)
@@ -6106,13 +6557,20 @@ def main(argv=None) -> int:
     phase14, phase14_failures = moe_phase(torch, F, smi)
     failures += phase14_failures
 
+    # phase 15: data-parallel training — DistriOptimizer on a one-rank
+    # NCCL group against phase 5's LocalOptimizer run, validation and
+    # prediction over the data axis, AllReduceParameter, the 2-layer copy
+    # against gloo ranks on the CPU; the group destroyed after
+    phase15, phase15_failures = distri_phase(torch, smi, trained["step_ms"])
+    failures += phase15_failures
+
     # launches summed over every path, each read from zero
     launches = {n: sum(b["launches"][n] for b in served["batches"])
                 + trained["launches"][n] + bs_trained["launches"][n]
                 + resnet["launches"][n] + paged["launches"][n]
                 + phase10["launches"][n] + phase11["launches"][n]
                 + phase12["launches"][n] + phase13["launches"][n]
-                + phase14["launches"][n]
+                + phase14["launches"][n] + phase15["launches"][n]
                 for n in launch_counters()}
     for mm_path in mm_paths:
         for name, n in mm_path["launches"].items():
@@ -6254,7 +6712,7 @@ def main(argv=None) -> int:
         resnet50_training_path=resnet, paged_serving_path=paged,
         checkpoint_swap_path=phase10, torch_api_path=phase11,
         training_breadth_path=phase12, zoo_path=phase13, moe_path=phase14,
-        kernels=kernels, failures=failures, seconds=time.perf_counter()
+        distri_path=phase15, kernels=kernels, failures=failures, seconds=time.perf_counter()
         - T_START), indent=1))
 
     if failures:

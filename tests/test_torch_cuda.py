@@ -23,7 +23,9 @@ three steps on the card in f32, are held against the same model on the
 CPU.  Checkpoints written from card tensors load in a process that
 sees no card, a resumed run on the card is held against an
 uninterrupted one, and a bf16 server on the card swaps in a verified
-checkpoint.
+checkpoint.  Over a one-rank NCCL group, ``DistriOptimizer`` trains the
+small LM bit for bit as ``LocalOptimizer`` does, and
+``AllReduceParameter``'s round trip returns its input bit for bit.
 """
 import math
 
@@ -1444,7 +1446,7 @@ def test_cuda_gradients_match_the_plain_backward(cuda_device):
 
 
 def _train_small(device, steps=3, seq_strategy="flash", T=20, block_size=None,
-                 **extra):
+                 optimizer=LocalOptimizer, **extra):
     cfg = dict(embed_dim=64, num_heads=4, num_layers=2, max_len=max(32, T),
                seq_strategy=seq_strategy, output="logits", **extra)
     V, B = 64, 3
@@ -1463,9 +1465,9 @@ def _train_small(device, steps=3, seq_strategy="flash", T=20, block_size=None,
             losses.append(state["loss"])
         return max_iteration(steps)(state)
 
-    opt = LocalOptimizer(model, array([Sample(a, b) for a, b in zip(x, y)]),
-                         nn.TimeDistributedCriterion(
-                             nn.CrossEntropyCriterion(), True), batch_size=B)
+    opt = optimizer(model, array([Sample(a, b) for a, b in zip(x, y)]),
+                    nn.TimeDistributedCriterion(
+                        nn.CrossEntropyCriterion(), True), batch_size=B)
     opt.set_optim_method(SGD(0.05)).set_end_when(Trigger(check))
     start = {n: p.detach().clone() for n, p in model.named_parameters()}
     RNG().set_seed(1)
@@ -1497,6 +1499,58 @@ def test_small_lm_trains_on_card_like_cpu(cuda_device):
                 for u in cpu_upd.values())
     for name, u in cpu_upd.items():
         assert _row_rel_err(card_upd[name], u, scale) <= 1e-3, name
+
+
+@pytest.fixture
+def nccl_group(cuda_device):
+    """An NCCL group of this process alone on the card; destroyed after
+    the test."""
+    from bigdl_tpu_torch.utils.engine import Engine
+
+    Engine.reset()
+    yield Engine.init_distributed(device=cuda_device)
+    Engine.reset()
+
+
+def test_distri_optimizer_on_one_nccl_rank_is_local_bit_for_bit(nccl_group):
+    """The small LM trained 3 f32 steps by DistriOptimizer over a group
+    of one (NCCL): one term summed and divided by 1, so every loss and
+    parameter is LocalOptimizer's bit for bit, through the same K1-K4
+    launches."""
+    import torch.distributed as dist
+
+    from bigdl_tpu_torch.optim import DistriOptimizer
+
+    counters = (fa.LAUNCHES, fa.LAUNCHES_DKV, fa.LAUNCHES_DQ, ln.LAUNCHES)
+    local, local_model, _ = _train_small("cuda")
+    before = [c.count for c in counters]
+    got, model, _ = _train_small("cuda", optimizer=DistriOptimizer)
+    assert [c.count - n for c, n in zip(counters, before)] == [6, 6, 6, 15]
+    assert dist.get_backend() == "nccl" and dist.get_world_size() == 1
+    assert got == local
+    for (name, a), b in zip(model.state_dict().items(),
+                            local_model.state_dict().values()):
+        assert torch.equal(a, b), name
+
+
+def test_allreduce_parameter_round_trip_over_nccl_is_bit_for_bit(nccl_group):
+    """Reduce-scatter then all-gather over a group of one returns the
+    flat parameter bit for bit in f32, and within bf16 rounding with
+    ``compress="bf16"``."""
+    from bigdl_tpu_torch.parallel import AllReduceParameter
+
+    g = torch.Generator().manual_seed(0)
+    tree = {"w": torch.randn(1000, 37, generator=g).cuda(),
+            "b": {"v": torch.randn(123, generator=g).cuda()}}
+    for compress in ("none", "bf16"):
+        arp = AllReduceParameter(tree, 1, compress=compress)
+        back = arp.all_gather_weights(arp.reduce_scatter_gradients(tree))
+        for a, b in zip((back["w"], back["b"]["v"]),
+                        (tree["w"], tree["b"]["v"])):
+            if compress == "none":
+                assert torch.equal(a, b)
+            else:
+                torch.testing.assert_close(a, b, rtol=2 ** -8, atol=0)
 
 
 @pytest.mark.parametrize("capacity", [8.0, 0.5])

@@ -1,10 +1,10 @@
 """Guards of the PyTorch/CUDA port (bigdl_tpu_torch).
 
 * The port, ``chip_smoke.py``, ``k1_variants.py``, ``k9_variants.py``,
-  ``f32_steps.py``, ``sass_diff.py``, ``bwd_rows.py`` and
-  ``k4_strided_variants.py`` import neither
-  jax/jaxlib nor
-  anything of the JAX package.  The scan is static (an AST walk of the sources): the
+  ``f32_steps.py``, ``sass_diff.py``, ``bwd_rows.py``,
+  ``k4_strided_variants.py``, ``lm_update_probe.py`` and the rank
+  processes of the data-parallel tests (``tests/_torch_distri_child.py``)
+  import neither jax/jaxlib nor anything of the JAX package.  The scan is static (an AST walk of the sources): the
   interpreter that runs the tests may already hold jax, so an
   import-time check could not tell.
 * The default device is the GPU: with no CUDA device an entry point
@@ -28,7 +28,9 @@ def _port_sources():
     return files + [REPO / "chip_smoke.py", REPO / "k1_variants.py",
                     REPO / "k9_variants.py", REPO / "f32_steps.py",
                     REPO / "sass_diff.py", REPO / "bwd_rows.py",
-                    REPO / "k4_strided_variants.py"]
+                    REPO / "k4_strided_variants.py",
+                    REPO / "lm_update_probe.py",
+                    REPO / "tests" / "_torch_distri_child.py"]
 
 
 def forbidden_imports(source: str):
@@ -74,6 +76,21 @@ def test_scan_covers_the_training_breadth_modules(module):
     path = REPO / "bigdl_tpu_torch" / module
     assert path in _port_sources()
     assert forbidden_imports(path.read_text()) == []
+
+
+@pytest.mark.parametrize("path", [
+    "bigdl_tpu_torch/optim/distri_optimizer.py",
+    "bigdl_tpu_torch/optim/_sharding_utils.py",
+    "bigdl_tpu_torch/optim/evaluator.py", "bigdl_tpu_torch/optim/predictor.py",
+    "bigdl_tpu_torch/parallel/all_reduce.py",
+    "bigdl_tpu_torch/parallel/broadcast.py", "bigdl_tpu_torch/utils/engine.py",
+    "tests/_torch_distri_child.py", "lm_update_probe.py"])
+def test_scan_covers_the_data_parallel_modules(path):
+    """The data-parallel slice's modules, the rank processes of its
+    tests and the F6 probe are in the scan and import neither jax nor
+    the JAX package."""
+    assert REPO / path in _port_sources()
+    assert forbidden_imports((REPO / path).read_text()) == []
 
 
 @pytest.mark.parametrize("snippet", [

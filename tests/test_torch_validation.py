@@ -202,11 +202,21 @@ def test_evaluate_dataset_lm_equals_jax_and_module_evaluate(monkeypatch):
     # the module verb routes to the Evaluator
     (res, name), = tm.evaluate(ds, [validation.Loss(crit)], 4)
     assert name == "Loss" and res.result() == got[0].result()
-    with pytest.raises(NotImplementedError):
+    # over a mesh: a torch.distributed DeviceMesh; DistriValidator's
+    # default, a group of this process alone, gives the one-device result
+    # (more ranks: tests/test_torch_distri.py)
+    with pytest.raises(TypeError):
         evaluator.evaluate_dataset(tm, ds, [validation.Loss(crit)],
                                    mesh=object())
-    with pytest.raises(NotImplementedError):
-        evaluator.DistriValidator(tm)
+    from bigdl_tpu_torch.utils.engine import Engine
+
+    Engine.reset()
+    try:
+        (res, name), = evaluator.DistriValidator(tm).test(
+            ds, [validation.Loss(crit)], 4)
+    finally:
+        Engine.reset()
+    assert name == "Loss" and res.result() == got[0].result()
 
 
 # ----------------------------------------------------------------------
