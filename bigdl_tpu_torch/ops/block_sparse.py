@@ -71,10 +71,11 @@ from typing import NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
+from ..telemetry.perf import kernel_work, nbytes
 from ._support import LaunchCounter, on_cpu, split_bf16x3
 from .flash_attention import (_DTYPE_CODE, _F, _I, _P, FIRST_HEAD, HEADS,
                               WIDE_F32_DIMS, _attn_bwd_plain, _attn_plain,
-                              _bwd_inputs,
+                              _bwd_inputs, attention_products, fwd_bytes,
                               _c_fn, _call, _causal_keep, _check_kernel_inputs,
                               _check_lse, _chunked_counter, _cut_head_dim,
                               _bwd_head_dim, _bwd_operands, _empty,
@@ -717,10 +718,18 @@ class _BlockSparseAttention(torch.autograd.Function):
     @staticmethod
     def forward(ctx, q, k, v, mask: BlockMask, causal: bool,
                 sm_scale: float):
-        if on_cpu(q, k, v):
-            o, lse = _bs_attention_plain(q, k, v, mask, causal, sm_scale)
-        else:
-            o, lse = _bs_fwd_cuda(q, k, v, mask, causal, sm_scale)
+        # the dense products of the masked plain math, and beside them
+        # the executed and dense-equivalent FLOPs of attention_work
+        work = attention_work(mask, q.shape[0], q.shape[1], q.shape[3],
+                              causal)
+        with kernel_work(attention_products(q, k), fwd_bytes(q, k, v),
+                         sparse=(work["executed_flops"],
+                                 work["dense_equivalent_flops"])):
+            if on_cpu(q, k, v):
+                o, lse = _bs_attention_plain(q, k, v, mask, causal,
+                                             sm_scale)
+            else:
+                o, lse = _bs_fwd_cuda(q, k, v, mask, causal, sm_scale)
         ctx.save_for_backward(q, k, v, o, lse)
         ctx.mask, ctx.causal, ctx.sm_scale = mask, causal, sm_scale
         ctx.mark_non_differentiable(lse)
@@ -730,8 +739,15 @@ class _BlockSparseAttention(torch.autograd.Function):
     def backward(ctx, d_o, _d_lse):
         q, k, v, o, lse = ctx.saved_tensors
         bwd = _bs_bwd_plain if on_cpu(q, k, v, d_o) else _bs_bwd_cuda
-        dq, dk, dv = bwd(q, k, v, o, lse, d_o, ctx.mask, ctx.causal,
-                         ctx.sm_scale)
+        # attention_work's training count less its forward's
+        args = (ctx.mask, q.shape[0], q.shape[1], q.shape[3], ctx.causal)
+        fwd, both = attention_work(*args), attention_work(*args, train=True)
+        with kernel_work(2 * attention_products(q, k),
+                         nbytes(q, k, v, o, lse, d_o, q, k, v),
+                         sparse=tuple(both[key] - fwd[key] for key in (
+                             "executed_flops", "dense_equivalent_flops"))):
+            dq, dk, dv = bwd(q, k, v, o, lse, d_o, ctx.mask, ctx.causal,
+                             ctx.sm_scale)
         return dq, dk, dv, None, None, None
 
 
@@ -1078,6 +1094,20 @@ def _launch_mm(x2, b, mask: BlockMask, plan: MmPlan) -> torch.Tensor:
     return out if ldo == N else out[:, :N].contiguous()
 
 
+def _mm_work(a, w, mask: BlockMask, K: int, N: int, out_like=None
+             ) -> kernel_work:
+    """K9's work report for ``a`` [M, K] times the masked W: the dense
+    product 2·M·K·N, the bytes of a, W and the [M, N] result (in
+    ``out_like``'s dtype, else a's), and matmul_work's executed and
+    dense-equivalent FLOPs."""
+    M = a.shape[0]
+    work = matmul_work(mask, M)
+    size = (out_like if out_like is not None else a).element_size()
+    return kernel_work(2.0 * M * K * N, nbytes(a, w) + M * N * size,
+                       sparse=(work["executed_flops"],
+                               work["dense_equivalent_flops"]))
+
+
 class _BlockSparseMatmul(torch.autograd.Function):
     """The ``custom_vjp`` of the TPU ``_bs_mm``: dX is K9 again on
     (g, Wᵀ, mask.T), Wᵀ a view that K9 reads in place; dW = (x2ᵀ · g) ∘
@@ -1089,7 +1119,8 @@ class _BlockSparseMatmul(torch.autograd.Function):
         mm = _bs_mm_plain if on_cpu(x2, w) else _bs_mm_cuda
         ctx.save_for_backward(x2, w)
         ctx.mask = mask
-        return mm(x2, w, mask)
+        with _mm_work(x2, w, mask, x2.shape[1], w.shape[1]):
+            return mm(x2, w, mask)
 
     @staticmethod
     def backward(ctx, g):
@@ -1098,7 +1129,9 @@ class _BlockSparseMatmul(torch.autograd.Function):
         dx = dw = None
         if ctx.needs_input_grad[0]:
             mm = _bs_mm_plain if on_cpu(x2, w, g) else _bs_mm_cuda
-            dx = mm(g, w.t().to(g.dtype), mask.transposed()).to(x2.dtype)
+            with _mm_work(g, w, mask, w.shape[1], w.shape[0], x2):
+                dx = mm(g, w.t().to(g.dtype), mask.transposed()).to(
+                    x2.dtype)
         if ctx.needs_input_grad[1]:
             live = _elementwise_weight_mask(mask, w.device)
             dw = torch.matmul(x2.t(), g.to(x2.dtype))

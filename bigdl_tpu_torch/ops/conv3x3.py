@@ -40,6 +40,7 @@ import ctypes
 import torch
 import torch.nn.functional as F
 
+from ..telemetry.perf import kernel_work, nbytes
 from ._support import LaunchCounter, load_cuda_library, on_cpu, split_bf16x3
 from .conv_gemm import conv2d_gemm_nhwc
 
@@ -165,34 +166,51 @@ def _conv3x3_dw(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
     return dw
 
 
+def _conv_products(x, w) -> float:
+    """The products of the 3×3 SAME conv of NHWC ``x`` by HWIO ``w``:
+    2·9·B·H·W·C·O (its dX and its dW are as many each)."""
+    B, H, W, C = x.shape
+    return 18.0 * B * H * W * C * w.shape[3]
+
+
 class _Conv3x3(torch.autograd.Function):
     """The ``custom_vjp`` of the TPU ``_conv3x3``: K5 forward; dX by K5
-    on the flipped, transposed weights; dW by nine matmuls."""
+    on the flipped, transposed weights; dW by nine matmuls.  Each pass
+    reports the conv's products and bytes to the work counter
+    (``telemetry.perf.kernel_work``), the backward's dW among them, so
+    the count is the conv's whatever computes it."""
 
     @staticmethod
     def forward(ctx, x, w):
         ctx.save_for_backward(x, w)
-        if on_cpu(x, w):
-            return _conv3x3_plain(x, w)
-        # (3, 3, C, O) -> (tap, out, in): one small copy per call
-        return _conv3x3_cuda(x.contiguous(),
-                             w.to(x.dtype).permute(0, 1, 3, 2).contiguous())
+        y_bytes = x.numel() // x.shape[3] * w.shape[3] * x.element_size()
+        with kernel_work(_conv_products(x, w), nbytes(x, w) + y_bytes):
+            if on_cpu(x, w):
+                return _conv3x3_plain(x, w)
+            # (3, 3, C, O) -> (tap, out, in): one small copy per call
+            return _conv3x3_cuda(
+                x.contiguous(), w.to(x.dtype).permute(0, 1, 3, 2).contiguous())
 
     @staticmethod
     def backward(ctx, g):
         x, w = ctx.saved_tensors
-        gx = g.to(x.dtype)
+        need = ctx.needs_input_grad
         dx = dw = None
-        if ctx.needs_input_grad[0]:
-            # the dX conv's HWIO weights are w[::-1, ::-1] with in and
-            # out swapped, so as (tap, out, in) they are w[::-1, ::-1]
-            w_flip = w.to(x.dtype).flip(0, 1)
-            if on_cpu(x, w, g):
-                dx = _conv3x3_plain(gx, w_flip.transpose(2, 3))
-            else:
-                dx = _conv3x3_cuda(gx.contiguous(), w_flip.contiguous())
-        if ctx.needs_input_grad[1]:
-            dw = _conv3x3_dw(x, gx).to(w.dtype)
+        # reads g, x, w; writes dX and dW where they are wanted
+        with kernel_work(_conv_products(x, w) * (need[0] + need[1]),
+                         nbytes(g, x, w) + need[0] * nbytes(x)
+                         + need[1] * nbytes(w)):
+            gx = g.to(x.dtype)
+            if need[0]:
+                # the dX conv's HWIO weights are w[::-1, ::-1] with in and
+                # out swapped, so as (tap, out, in) they are w[::-1, ::-1]
+                w_flip = w.to(x.dtype).flip(0, 1)
+                if on_cpu(x, w, g):
+                    dx = _conv3x3_plain(gx, w_flip.transpose(2, 3))
+                else:
+                    dx = _conv3x3_cuda(gx.contiguous(), w_flip.contiguous())
+            if need[1]:
+                dw = _conv3x3_dw(x, gx).to(w.dtype)
         return dx, dw
 
 

@@ -65,6 +65,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from ..telemetry.perf import kernel_work, nbytes
 from ._support import LaunchCounter, load_cuda_library, on_cpu
 
 _BIG_LSE = 1e30  # lse sentinel for fully-masked rows: exp(s - BIG) == 0
@@ -478,16 +479,33 @@ def _flash_bwd_cuda(q, k, v, o, lse, d_o, causal: bool, sm_scale: float
     return tuple(_cut_head_dim(t, D) for t in (dq, dk, dv))
 
 
+def attention_products(q, k) -> float:
+    """The products of dense attention's forward over (B, H, T, D) q
+    and (B, H, S, D) k: QKᵀ and PV, 2·B·H·T·S·D each, the whole [T, S]
+    grid whatever the mask (the backward's four are twice these)."""
+    B, H, T, D = q.shape
+    return 4.0 * B * H * T * k.shape[2] * D
+
+
+def fwd_bytes(q, k, v) -> int:
+    """What an attention forward reads and writes once: q, k, v, then O
+    (q's shape and dtype) and the f32 LSE (B·H·T)."""
+    return nbytes(q, k, v, q) + 4 * q.shape[0] * q.shape[1] * q.shape[2]
+
+
 class _FlashAttention(torch.autograd.Function):
     """The ``custom_vjp`` of the TPU ``_flash``: (O, LSE) forward, the
-    FlashAttention-2 backward from the saved (q, k, v, o, lse)."""
+    FlashAttention-2 backward from the saved (q, k, v, o, lse).  Each
+    pass reports the dense products and the bytes of its math to the
+    work counter (``telemetry.perf.kernel_work``), from either branch."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal: bool, sm_scale: float):
-        if on_cpu(q, k, v):
-            o, lse = _flash_plain(q, k, v, causal, sm_scale)
-        else:
-            o, lse = _flash_cuda(q, k, v, causal, sm_scale)
+        with kernel_work(attention_products(q, k), fwd_bytes(q, k, v)):
+            if on_cpu(q, k, v):
+                o, lse = _flash_plain(q, k, v, causal, sm_scale)
+            else:
+                o, lse = _flash_cuda(q, k, v, causal, sm_scale)
         ctx.save_for_backward(q, k, v, o, lse)
         ctx.causal, ctx.sm_scale = causal, sm_scale
         ctx.mark_non_differentiable(lse)
@@ -497,7 +515,10 @@ class _FlashAttention(torch.autograd.Function):
     def backward(ctx, d_o, _d_lse):
         q, k, v, o, lse = ctx.saved_tensors
         bwd = _flash_bwd_plain if on_cpu(q, k, v, d_o) else _flash_bwd_cuda
-        dq, dk, dv = bwd(q, k, v, o, lse, d_o, ctx.causal, ctx.sm_scale)
+        # reads q, k, v, O, LSE, dO; writes dq, dk, dv
+        with kernel_work(2 * attention_products(q, k),
+                         nbytes(q, k, v, o, lse, d_o, q, k, v)):
+            dq, dk, dv = bwd(q, k, v, o, lse, d_o, ctx.causal, ctx.sm_scale)
         return dq, dk, dv, None, None
 
 

@@ -39,6 +39,7 @@ import os
 
 import torch
 
+from ..telemetry.perf import kernel_work, nbytes
 from ._support import BUILD_DIR, LaunchCounter, on_cpu
 
 _DTYPES = (torch.float32, torch.bfloat16, torch.float16)
@@ -212,9 +213,11 @@ class _FusedLayerNorm(torch.autograd.Function):
     def forward(ctx, x, gamma, beta, eps: float):
         ctx.save_for_backward(x, gamma, beta)
         ctx.eps = eps
-        if on_cpu(x, gamma, beta):
-            return _layer_norm_plain(x, gamma, beta, eps)
-        return _layer_norm_cuda(x, gamma, beta, eps)
+        # no products; reads x, gamma, beta and writes y once
+        with kernel_work(0.0, nbytes(x, gamma, beta, x)):
+            if on_cpu(x, gamma, beta):
+                return _layer_norm_plain(x, gamma, beta, eps)
+            return _layer_norm_cuda(x, gamma, beta, eps)
 
     @staticmethod
     def backward(ctx, g):

@@ -55,7 +55,14 @@ Around the step the loop runs the JAX ``_plan_loop``'s host side:
   writer (``set_async_checkpoint``, on by default) or writes them at
   once;
 - a preemption request (``set_preemption_handling``) writes a
-  checkpoint at the step boundary, drains the writer and returns.
+  checkpoint at the step boundary, drains the writer and returns;
+- an attached ``Telemetry`` (``set_telemetry``) takes the attempt's
+  start, each data wait, each step (the first of an attempt, run once
+  under the work counter of ``telemetry.perf``, as compile), each
+  checkpoint and its back-pressure, each retry rollback as the start of
+  a recovery window, and an end-of-run snapshot; an attached
+  ``TrainingHealthMonitor`` (``set_health_monitor``) takes each step's
+  loss and time.  Neither changes a loss or an update.
 
 A checkpoint has three legs, each an atomic file with a crc32c sidecar
 (``resilience.checkpoint``): ``model.N`` (the param and buffer trees
@@ -86,13 +93,19 @@ a device, with the data-axis rules of the JAX plan step
   rank (``all_reduce(MIN)``); the step's dropout seed is folded with
   the rank;
 - rank 0 writes checkpoints and summaries while the others wait at a
-  barrier; a restore reads the same files on every rank.
+  barrier; a restore reads the same files on every rank;
+- every ``bigdl.metrics.profileInterval``-th step (default 10) runs
+  under ``torch.profiler`` (``optim.profiling.trace_phase_split``): its
+  compute and collective time split the step's metrics and, with
+  telemetry, become the step span's children; the telemetry's
+  collective bytes are the flat all-reduce's wire estimate, 2(N − 1)/N
+  times the flat buffer's bytes.
 
 One rank sums one term and divides by 1, so its numbers are
 ``LocalOptimizer``'s bit for bit.
 
-Not ported yet, and refused if configured: telemetry and elastic
-training; ``"orbax"`` checkpoints; the sharding-plan engine's knobs
+Not ported yet, and refused if configured: elastic training;
+``"orbax"`` checkpoints; the sharding-plan engine's knobs
 (``set_sharding_plan``, ``set_fsdp``, ``set_sparse_density``,
 ``set_sync_period``, ``set_sync_staleness``,
 ``set_pipeline_microbatch``).
@@ -117,6 +130,7 @@ from ..parallel.moe import capture_aux
 from ..resilience.guards import LossSpikeDetector, tree_finite, where_tree
 from ..resilience.preemption import PreemptionHandler
 from ..resilience.retry import LossSpikeError, RetryPolicy
+from ..utils.engine import get_property
 from ..utils.rng import RNG, next_step_seed
 from ..utils.tree import tree_leaves, tree_map
 from .metrics import Metrics
@@ -201,6 +215,12 @@ class Optimizer:
         self.validation_stats: list = []
         #: the data axis of a DistriOptimizer run (None: one device)
         self._axis: Optional[_DataAxis] = None
+        #: the Telemetry bundle the loop feeds (set_telemetry), or None
+        self.telemetry = None
+        #: the TrainingHealthMonitor the loop feeds, or None
+        self.health_monitor = None
+        #: "trace" once a profiled step's split parsed, else None
+        self.phase_source = None
 
     # -- fluent config (Optimizer.scala:98-243) -------------------------
     def set_optim_method(self, method: OptimMethod):
@@ -343,8 +363,41 @@ class Optimizer:
         self.set_end_when(max_iteration(done + int(n_steps)))
         return self.optimize()
 
-    def set_telemetry(self, *args, **kwargs):
-        _unported("telemetry")
+    def set_telemetry(self, telemetry):
+        """Attach a :class:`bigdl_tpu_torch.telemetry.Telemetry` bundle:
+        the step loop then feeds the metrics registry (step/data-wait/
+        checkpoint histograms, step/record counters), records
+        categorized spans into the tracer (Chrome-trace/Perfetto
+        export), classifies run wall clock in the goodput ledger
+        (productive/compile/data-stall/checkpoint/recovery/idle) and
+        counts the first step of each attempt into its PerfAccountant
+        (FLOPs, bytes, MFU).  Pass ``None`` to detach."""
+        self.telemetry = telemetry
+        return self
+
+    def set_health_monitor(self, monitor):
+        """Attach a :class:`bigdl_tpu_torch.telemetry.TrainingHealthMonitor`:
+        the step loop then feeds it per-iteration loss and step time,
+        it evaluates the training SLO rule pack (loss-descent stall/
+        divergence, step-time drift, goodput floor, MFU collapse) at
+        its cadence, and :meth:`health_verdict` answers the live
+        :class:`~bigdl_tpu_torch.telemetry.HealthVerdict`.  A monitor
+        built without a telemetry bundle adopts this optimizer's at
+        attach time.  Pass ``None`` to detach."""
+        self.health_monitor = monitor
+        if monitor is not None and monitor.telemetry is None \
+                and self.telemetry is not None:
+            monitor.telemetry = self.telemetry
+            if getattr(self.telemetry, "slo", None) is None:
+                self.telemetry.slo = monitor.engine
+        return self
+
+    def health_verdict(self):
+        """The live training health verdict
+        (:class:`~bigdl_tpu_torch.telemetry.HealthVerdict`), or None when
+        no monitor is attached."""
+        return (self.health_monitor.verdict()
+                if self.health_monitor is not None else None)
 
     # -- the sharding-plan engine's knobs (not ported: the port trains
     # over the data axis only) ------------------------------------------
@@ -373,6 +426,51 @@ class Optimizer:
 
     def set_elastic(self, *args, **kwargs):
         _unported("elastic training")
+
+    # -- telemetry plumbing (the JAX drivers' _tm_* hooks) --------------
+    def _tm_attempt_begin(self):
+        """Top of every optimize attempt: start the goodput run clock
+        (idempotent — only the first attempt stamps it) and read the
+        model's device for the work accounting."""
+        if self.telemetry is not None:
+            self.telemetry.on_attempt_begin()
+            self.telemetry.perf.bind_device(self.model.device)
+
+    def _tm_step(self, state, train_time: float, data_time: float,
+                 records: int, compiled: bool = False,
+                 phase_split=None, skipped: bool = False):
+        """One iteration for the telemetry spine: data-wait + step time
+        into the registry histograms and goodput ledger, categorized
+        spans into the tracer (``compiled=True`` marks the first step of
+        an attempt; ``phase_split`` attributes a profiled step's time to
+        compute/collective children)."""
+        tm = self.telemetry
+        if tm is None:
+            return
+        step = state["neval"]
+        if data_time > 0:
+            tm.on_data_wait(data_time, step=step)
+        tm.on_step(train_time, records=records, step=step,
+                   compiled=compiled, phase_split=phase_split,
+                   skipped=skipped)
+
+    def _tm_finish(self, state):
+        """End of a training loop: drop the host's snapshot file when a
+        snapshot directory is configured."""
+        if self.telemetry is not None:
+            self.telemetry.write_snapshot(step=state.get("neval"))
+
+    def _health_step(self, state, loss: float, seconds: float):
+        """Per-iteration health feed (no-op without a monitor): the
+        monitor samples at its own cadence and must never take down
+        training."""
+        hm = self.health_monitor
+        if hm is None:
+            return
+        try:
+            hm.on_step(state["neval"], loss, seconds)
+        except Exception:
+            log.debug("health monitor step failed", exc_info=True)
 
     # -- host-side loop pieces -----------------------------------------
     @staticmethod
@@ -544,6 +642,15 @@ class Optimizer:
                            for path, data in files},
             serialize_s=serialize_s, blocked_s=blocked,
             async_write=self.async_checkpoint))
+        tm = self.telemetry
+        if tm is not None:
+            if self.async_checkpoint:
+                # the snapshot (serialize) cost is the checkpoint's
+                # critical-path tax; back-pressure is ledgered apart
+                tm.on_checkpoint(serialize_s, step=n)
+                tm.on_checkpoint_blocked(blocked, step=n)
+            else:
+                tm.on_checkpoint(serialize_s + blocked, step=n)
 
     def resume_from_checkpoint(self, step: Optional[int] = None) -> bool:
         """Restore the newest verified checkpoint under
@@ -600,6 +707,9 @@ class Optimizer:
 
         def on_retry(exc, attempt):
             self.rollbacks += 1
+            if self.telemetry is not None:
+                # everything until the next completed step is recovery
+                self.telemetry.on_recovery_begin()
             if self.spike_detector is not None:
                 self.spike_detector.reset()
             self._restore_latest()
@@ -710,6 +820,7 @@ class Optimizer:
 
     def _loop(self):
         model, optim, axis = self.model, self.optim_method, self._axis
+        self._tm_attempt_begin()
         model.train()
         if axis is not None:
             # every rank starts from rank 0's weights, host RNG and
@@ -732,17 +843,38 @@ class Optimizer:
         records_this_epoch = self._consume_resume_cursor(data_iter,
                                                          epoch_size)
         wall_start = time.time()
+        tm = self.telemetry
+        # the first step of the attempt runs under the work counter and
+        # is booked as compile (the kernels build on their first call)
+        first_step = True
+        # a data axis profiles every profile_interval-th step past the
+        # first (the JAX driver profiles its multi-device meshes)
+        profile_interval = (int(get_property(
+            "bigdl.metrics.profileInterval", 10)) if axis is not None else 0)
+        compute_ratio = None   # the last profiled step's compute share
+        collective_bytes = (axis.wire_bytes(tree_leaves(params),
+                                            tree_leaves(model.buffer_tree()))
+                            if axis is not None else 0.0)
         while not self.end_when(state):
             state["epoch_finished"] = False
             t_fetch = time.time()
             batch = next(data_iter)
             n_records = batch.size()
+            t_place = time.time()
             weight = None
             if axis is None:
                 x, y = _device_batch(batch, model.device)
             else:
                 x, y, weight = axis.place(batch, model.device)
             fetch_time = time.time() - t_fetch
+            # one device: the placement is part of the data wait; over a
+            # data axis it is ledgered apart, as the JAX driver's h2d
+            data_time = fetch_time
+            if axis is not None:
+                data_time = t_place - t_fetch
+                if tm is not None:
+                    tm.on_host_to_device(time.time() - t_place,
+                                         step=state["neval"])
             lr = optim.get_current_lr()
             # the JAX package draws a per-step key from the host RNG
             # here; the same draw seeds the step's generator, which every
@@ -754,20 +886,62 @@ class Optimizer:
             if axis is not None:
                 seed = axis.fold(seed)
             step_gen = torch.Generator(device=model.device).manual_seed(seed)
+            profiled = (profile_interval > 0 and state["neval"] > 1
+                        and state["neval"] % profile_interval == 0
+                        and weight is None and not first_step)
+
+            def run_step():
+                with rng_scope(step_gen):
+                    return self._step(params, slots, x, y, lr, reg_paths,
+                                      scales, weight)
+
+            def read_back(out):
+                # one read-back for both: the device sync of the step
+                return (*torch.stack([out[0].float(),
+                                      out[1].float()]).tolist(), out[2])
+
             t0 = time.time()
-            with rng_scope(step_gen):
-                loss, ok, slots = self._step(params, slots, x, y, lr,
-                                             reg_paths, scales, weight)
-            # one read-back for both: the device sync of the step
-            loss, ok = torch.stack([loss.float(), ok.float()]).tolist()
+            trace_split = None
+            if first_step and tm is not None:
+                # the work counter sees the step, not the read-back
+                out, _ = tm.perf.analyze_step(
+                    run_step, collective_bytes=collective_bytes)
+                loss, ok, slots = read_back(out)
+            elif profiled:
+                from .profiling import trace_phase_split
+
+                step_out = []
+                trace_split = trace_phase_split(
+                    lambda: step_out.append(read_back(run_step())),
+                    model.device)
+                loss, ok, slots = step_out[0]
+            else:
+                loss, ok, slots = read_back(run_step())
             train_time = time.time() - t0
+            if tm is not None:
+                self._tm_step(state, train_time, data_time,
+                              n_records if axis is None
+                              else axis.records(n_records, weight),
+                              compiled=first_step, phase_split=trace_split,
+                              skipped=not ok)
+            first_step = False
             self._check_loss_anomaly(loss, not ok)
+            self._health_step(state, loss, train_time)
 
             records_this_epoch += n_records
             state["records_this_epoch"] = records_this_epoch
             state["loss"] = loss
-            self.metrics.add("computing time average", train_time)
-            self.metrics.add("aggregate gradient time", 0.0)
+            # metric-name contract (reference DistriOptimizer.scala:
+            # 146-151): profiled steps pin the compute/aggregate split,
+            # the last one measured attributes the steps in between
+            if trace_split is not None:
+                c_s, agg_s = trace_split
+                compute_ratio = c_s / max(c_s + agg_s, 1e-12)
+                self.phase_source = "trace"
+            ratio = 1.0 if compute_ratio is None else compute_ratio
+            self.metrics.add("computing time average", train_time * ratio)
+            self.metrics.add("aggregate gradient time",
+                             train_time * (1.0 - ratio))
             self.metrics.add("get weights average", fetch_time)
             self.metrics.add("data fetch time", fetch_time)
             throughput = n_records / max(train_time + fetch_time, 1e-9)
@@ -818,6 +992,7 @@ class Optimizer:
         self._drain_checkpoints()
         if axis is not None:
             axis.barrier()
+        self._tm_finish(state)
         return model
 
     def optimize(self):
@@ -924,6 +1099,22 @@ class _DataAxis:
         for b, v in zip(synced, out[len(grads) + 1:]):
             b.copy_(v)
         return out[:len(grads)], out[len(grads)]
+
+    def records(self, n: int, weight) -> int:
+        """The records of a global batch of ``n`` this rank trained (its
+        real rows), so the ranks' telemetry counts sum to the batch."""
+        if weight is None:
+            return n // self.size
+        return int(weight[0].sum().item())
+
+    def wire_bytes(self, leaves, buffers) -> float:
+        """The flat all-reduce's wire bytes a rank moves a full-batch
+        step: 2(N − 1)/N times the f32 buffer of the gradients, the loss
+        and the floating buffers (0 on one rank), the ring estimate the
+        JAX plan gives a data-parallel leaf."""
+        n = sum(t.numel() for t in leaves) + 1 + sum(
+            b.numel() for b in buffers if b.is_floating_point())
+        return 2.0 * (self.size - 1) / self.size * 4.0 * n
 
     def agree(self, ok: torch.Tensor) -> torch.Tensor:
         """The guard's decision, the same on every rank: a step is

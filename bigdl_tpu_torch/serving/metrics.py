@@ -40,6 +40,9 @@ class ServingMetrics:
     def __init__(self, window: int = _WINDOW,
                  registry: Optional[MetricsRegistry] = None):
         self._lock = threading.Lock()
+        #: the device whose peak ``goodput_per_chip`` divides by (the
+        #: server sets its model's; None: the card, else the CPU row)
+        self.device = None
         self.registry = registry or MetricsRegistry()
         self._requests = self.registry.counter(
             "bigdl_serving_requests_total",
@@ -363,9 +366,19 @@ class ServingMetrics:
         total = self.flops_total
         wall = (t1 - t0) if (t0 is not None and t1 is not None) else 0.0
         rate = total / wall if wall > 0 else 0.0
-        # the port has no device-peak table yet, so mfu stays None
-        return {"flops_total": total, "wall_s": wall,
-                "model_flops_per_sec": rate, "mfu": None}
+        out = {"flops_total": total, "wall_s": wall,
+               "model_flops_per_sec": rate, "mfu": None}
+        if rate > 0:
+            try:
+                from ..telemetry.device_info import current_device_spec
+
+                spec = current_device_spec(self.device)
+                if spec.peak_flops_per_sec:
+                    out["mfu"] = rate / spec.peak_flops_per_sec
+                    out["nominal_device"] = spec.nominal
+            except Exception:
+                pass
+        return out
 
     def tenants(self) -> dict:
         """Per-tenant request/shed counts folded from the tenant twin

@@ -198,6 +198,7 @@ class InferenceServer:
         self.kv_page_globals = int(kv_page_globals)
         self.batcher = MicroBatcher(max_batch)
         self.metrics = metrics or ServingMetrics()
+        self.metrics.device = model.device
         self.breaker = breaker or CircuitBreaker()
         self.policy = policy or RetryPolicy.from_properties(
             prefix="bigdl.serving")
@@ -212,6 +213,9 @@ class InferenceServer:
         self._feature_shape = None  # pinned by the first classify submit
         # the last good classification batch: the hot swap's canary
         self._canary_x: Optional[torch.Tensor] = None
+        # classify buckets whose forward was already counted (one
+        # counted forward per bucket and feature shape, ever)
+        self._costed_buckets: set = set()
         #: seconds of the last swap: (verify, canary, install)
         self.last_swap_s: Optional[tuple] = None
         self.model_version: Optional[str] = None
@@ -646,7 +650,7 @@ class InferenceServer:
                 x, bucket = self.batcher.coalesce(
                     [r.payload for r in reqs])
                 x = torch.as_tensor(x, device=self.device)
-                out = self.model(x)
+                out = self._classify_forward(bucket, x)
                 # the host copy doubles as the execution barrier —
                 # device-side failures surface here, inside the try
                 out_np = out.float().cpu().numpy()
@@ -672,6 +676,25 @@ class InferenceServer:
         for i, (r, q) in enumerate(zip(reqs, queued)):
             self._resolve(r, ServeResult(
                 Status.OK, output=out_np[i], queued_s=q, bucket=bucket))
+
+    def _classify_forward(self, bucket: int, x: torch.Tensor):
+        """The batch's forward; the first batch of each bucket (and
+        feature shape) runs under the work counter, whose FLOPs go to
+        ``record_bucket_cost``, so ``snapshot()`` can report goodput
+        per chip (served model-FLOP/s over the device's peak; counterpart
+        of the JAX server's ``_account_bucket_cost``).  Counting failing
+        never fails the batch."""
+        key = (int(bucket), tuple(x.shape[1:]))
+        if key in self._costed_buckets:
+            return self.model(x)
+        self._costed_buckets.add(key)
+        from ..telemetry.perf import WorkCounter
+
+        with WorkCounter() as counter:
+            out = self.model(x)
+        if counter.executed_flops > 0:
+            self.metrics.record_bucket_cost(bucket, counter.executed_flops)
+        return out
 
     # ------------------------------------------------------- paged decode
     def _import_handoff(self, blob):

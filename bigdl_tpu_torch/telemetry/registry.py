@@ -23,9 +23,10 @@ one spine they all land on:
   tests.
 
 Library subsystems (retry, breaker, watchdog, elastic) record into the
-process-wide :func:`default_registry`; a :class:`~bigdl_tpu.telemetry
-.Telemetry` facade built without an explicit registry shares it, so
-resilience counters land in the same snapshot as the training metrics.
+process-wide :func:`default_registry`; a
+:class:`~bigdl_tpu_torch.telemetry.Telemetry` facade built without an
+explicit registry shares it, so resilience counters land in the same
+snapshot as the training metrics.
 """
 from __future__ import annotations
 

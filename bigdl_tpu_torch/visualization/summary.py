@@ -1,9 +1,10 @@
-"""Train/Validation/Serving summaries (counterpart of
-``bigdl_tpu/visualization/summary.py``, trimmed to the train, validation
-and serving streams; reference visualization/Summary.scala:32,
-TrainSummary.scala:32, ValidationSummary.scala) — scalar + histogram
+"""Train/Validation/Serving/Telemetry summaries (counterpart of
+``bigdl_tpu/visualization/summary.py``, trimmed to the train,
+validation, serving and telemetry streams; reference
+visualization/Summary.scala:32, TrainSummary.scala:32,
+ValidationSummary.scala) — scalar + histogram
 events, TensorBoard-compatible, with trigger control per tag.  The
-elastic, telemetry and integrity streams are not ported yet."""
+elastic and integrity streams are not ported yet."""
 from __future__ import annotations
 
 import os
@@ -96,6 +97,19 @@ class ServingSummary(Summary):
 
     def __init__(self, log_dir: str, app_name: str):
         super().__init__(log_dir, os.path.join(app_name, "serving"))
+
+
+class TelemetrySummary(Summary):
+    """Telemetry stream (``<app>/telemetry``) — the export target of
+    :meth:`bigdl_tpu_torch.telemetry.Telemetry.to_summary`: the goodput
+    ledger (``telemetry/goodput_fraction``, ``telemetry/accounted_
+    fraction``, per-category seconds) and headline counters
+    (``telemetry/steps_total``, ``telemetry/recovery_windows``), so
+    "where did the wall clock go" lands next to the train/validation
+    curves in the same tensorboard layout."""
+
+    def __init__(self, log_dir: str, app_name: str):
+        super().__init__(log_dir, os.path.join(app_name, "telemetry"))
 
 
 def read_scalars(log_dir: str, tag: str) -> List[Tuple[int, float]]:

@@ -310,7 +310,29 @@ Phases; any failure exits non-zero:
    3 steps, one NCCL rank on the card against two gloo ranks on the CPU
    (this script as two processes, stopped on failure) at phase 5's f32
    limits.  The group is destroyed after.
-16. a ``{"kernels": [...]}`` line (K1-K4 with a ``moe step`` variant
+16. telemetry — (a) phase 5's cell (bf16 over f32, SGD 0.01, 8 steps)
+   with a ``Telemetry`` bundle and a ``TrainingHealthMonitor`` attached
+   against the same run without: every loss and update bit for bit;
+   counters (8 steps, 1 compile, 7 steps timed, 8 × 16 records); the
+   goodput ledger accounting ≥ 0.99 of the wall; the Chrome trace's 7
+   ``step`` spans, each with FLOPs, bytes and its roofline bound; the
+   counted FLOPs a step within 5 % of 6 · N · B · T (N less the token
+   and position tables) plus attention's dense-equivalent products; the
+   MFU gauge within 5 % of that count over the median step (phase 5's
+   own formula printed beside it); the HBM gauges = the allocator's peak
+   and the device's total memory; a healthy verdict; step ms with and
+   without telemetry; the same model at 2 layers, T 256, B 2, f32, the
+   same count on the card and on the CPU; (b) ``DistriOptimizer`` on a
+   one-rank NCCL group with ``bigdl.metrics.profileInterval`` 4: steps 4
+   and 8 carry ``compute`` children with seconds > 0 and ``collective``
+   ones of 0 (one rank launches no NCCL kernel), collective bytes 0,
+   the losses (a)'s; (c) the flagship in bf16 behind ``InferenceServer``,
+   16 classify requests of 1024 ids, ``max_batch`` 8: each bucket's
+   counted FLOPs within 5 % of 2 · N · B · T plus attention, a numeric
+   goodput-per-chip MFU in (0, 1); (d) the payload through
+   ``write_snapshot``, ``read_snapshot_dir``, ``merge_cluster`` and
+   ``render_report``, which names the card.
+17. a ``{"kernels": [...]}`` line (K1-K4 with a ``moe step`` variant
    each: its time at the MoE step's shape, its launches (a)'s bf16 run's),
    the ``nvidia-smi`` line, and as the last line ``{"ok": true,
    "device": {...}}``.
@@ -337,6 +359,11 @@ runs phase 1, builds K1-K4 and runs phase 14 alone (record in
 runs phase 1, builds K1-K4 and runs phase 15 alone (record in
 ``chiprun_out/chip_phase15.json``; exit 1 on a failed check).
 
+    python3 chip_smoke.py --phase16
+
+runs phase 1, builds K1-K4 and runs phase 16 alone (record in
+``chiprun_out/chip_phase16.json``; exit 1 on a failed check).
+
     python3 chip_smoke.py --profile
 
 runs phases 1-2, then profiles the served generator of phase 4, one
@@ -361,8 +388,10 @@ from pathlib import Path
 REPO = Path(__file__).resolve().parent
 T_START = time.perf_counter()
 
-# H100 SXM data-sheet peaks (dense) and memory rate.  "float32" is the
-# rate of the FMA loops; "float32_split" the f32 rate of the f32 K2 and K7,
+# H100 SXM data-sheet peaks (dense) and memory rate: the bf16 peak and
+# the memory rate are the H100 row of the port's device table
+# (bigdl_tpu_torch/telemetry/device_info.py); "float32" is the rate of
+# the FMA loops; "float32_split" the f32 rate of the f32 K2 and K7,
 # which form their four f32 products from 22 bf16 products on the tensor
 # cores (six for each score product, five for dV and dK);
 # "float32_split_fwd" that of the f32 K1 and K6: 12 bf16 products for
@@ -370,13 +399,20 @@ T_START = time.perf_counter()
 # K3 and K8: 18 for their three (six each for S, dP and dQ);
 # "float32_split_conv" that of the f32 K5 and "float32_split_mm" that of
 # the f32 K9 (either route): six for their one
-PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12,
-              "float32_split": 989e12 * 4 / 22,
-              "float32_split_fwd": 989e12 * 2 / 12,
-              "float32_split_dq": 989e12 * 3 / 18,
-              "float32_split_conv": 989e12 / 6,
-              "float32_split_mm": 989e12 / 6}
-MEM_BYTES_PER_S = 3.35e12
+try:
+    from bigdl_tpu_torch.telemetry.device_info import device_spec
+except ImportError:   # no checkout beside the script: main() fails first
+    H100 = None
+else:
+    H100 = device_spec("NVIDIA H100 80GB HBM3")
+_BF16 = H100.peak_flops_per_sec if H100 else float("nan")
+PEAK_FLOPS = {"bfloat16": _BF16, "float32": 67e12,
+              "float32_split": _BF16 * 4 / 22,
+              "float32_split_fwd": _BF16 * 2 / 12,
+              "float32_split_dq": _BF16 * 3 / 18,
+              "float32_split_conv": _BF16 / 6,
+              "float32_split_mm": _BF16 / 6}
+MEM_BYTES_PER_S = H100.hbm_bytes_per_sec if H100 else float("nan")
 
 FLAGSHIP = dict(vocab=32000, embed_dim=1024, num_heads=8, num_layers=8,
                 max_len=1024)
@@ -6030,6 +6066,323 @@ def _same_results(got, want):
     return counts and len(got) == len(want), rel
 
 
+# phase 16: telemetry.  The flagship's products a token: 6 · (N less the
+# token and position tables, which are looked up, never multiplied) for
+# the training step, 2 · that for a forward; attention's QKᵀ and PV at
+# the dense-equivalent count (the whole [T, T] grid, as the work counter
+# takes the flash kernels), 4 · T · D a layer forward, 12 · T · D with
+# the backward
+TELEMETRY_FLOP_REL_TOL = 0.05   # the counted step against that count
+TELEMETRY_MFU_REL_TOL = 0.05    # the MFU gauge against the median step's
+TELEMETRY_ACCOUNTED_MIN = 0.99  # the goodput ledger's accounted share
+TELEMETRY_CPU_LAYERS, TELEMETRY_CPU_T, TELEMETRY_CPU_B = 2, 256, 2
+TELEMETRY_PROFILE_INTERVAL = 4  # phase 16 (b): steps 4 and 8 profiled
+TELEMETRY_SERVED, TELEMETRY_SERVE_BATCH = 16, 8
+
+
+def _lm_products(n_params, B, T, train=True):
+    """The flagship's analytic products for B sequences of T tokens (see
+    above): ``n_params`` less its token and position tables."""
+    cfg = FLAGSHIP
+    D, L = cfg["embed_dim"], cfg["num_layers"]
+    n_prod = n_params - (cfg["vocab"] + cfg["max_len"]) * D
+    k = 3 if train else 1
+    return k * (2.0 * n_prod * B * T + 4.0 * B * T * T * D * L)
+
+
+def _with_telemetry(cls, tm, monitor=None, seen=None):
+    """An optimizer factory for ``make_trainer``: ``cls`` with ``tm``
+    (and ``monitor``) attached; ``seen`` collects the optimizers."""
+    def make(*args, **kw):
+        opt = cls(*args, **kw).set_telemetry(tm)
+        if monitor is not None:
+            opt.set_health_monitor(monitor)
+        if seen is not None:
+            seen.append(opt)
+        return opt
+
+    return make
+
+
+def _gauge(tm, family):
+    series = tm.registry.snapshot()["metrics"][family]["series"]
+    return series[0]["value"] if series else None
+
+
+def telemetry_phase(torch, smi):
+    """Phase 16 (a)-(d).  Returns (record, failures); the record's
+    ``launches`` are (a)'s telemetry run, (b)'s DistriOptimizer run and
+    (c)'s served batches, each read from zero."""
+    import tempfile
+
+    import numpy as np
+
+    from bigdl_tpu_torch.optim import DistriOptimizer, LocalOptimizer
+    from bigdl_tpu_torch.serving import InferenceServer, Status
+    from bigdl_tpu_torch.telemetry import (MetricsRegistry, Telemetry,
+                                           TrainingHealthMonitor,
+                                           merge_cluster, read_snapshot_dir)
+    from bigdl_tpu_torch.telemetry.report import render_report
+    from bigdl_tpu_torch.utils.engine import Engine
+
+    t_phase = time.perf_counter()
+    failures, rec = [], {}
+    cfg = FLAGSHIP
+    L, D = cfg["num_layers"], cfg["embed_dim"]
+    B, T = TRAIN_BATCH, TRAIN_T
+    counters = launch_counters()
+    launches = {n: 0 for n in counters}
+    want = want_launches(flash_fwd=L, flash_bwd_dkv=L, flash_bwd_dq=L,
+                         layer_norm_fwd=2 * L + 1)
+
+    # (a) phase 5's cell without and with a Telemetry bundle and a
+    # TrainingHealthMonitor, from the same weights and batch
+    plain = _flagship_run(torch, _lm(torch, "cuda", L), TRAIN_ITERS)
+    torch.cuda.empty_cache()
+    tm = Telemetry(registry=MetricsRegistry(), host="card0")
+    monitor = TrainingHealthMonitor(tm)
+    seen = []
+    model = _lm(torch, "cuda", L)
+    n_params = sum(p.numel() for p in model.parameters())
+    observed = _flagship_run(torch, model, TRAIN_ITERS,
+                             optimizer=_with_telemetry(LocalOptimizer, tm,
+                                                       monitor, seen))
+    for n, v in observed["launches"].items():
+        launches[n] += v
+    memory = tm.perf.poll_memory_stats()
+    peak_allocated = torch.cuda.max_memory_allocated()
+    total_memory = torch.cuda.get_device_properties(0).total_memory
+    del model
+    torch.cuda.empty_cache()
+    same_losses = observed["losses"] == plain["losses"]
+    same_updates = _same_bits(torch, observed["updates"], plain["updates"])
+    if not (same_losses and same_updates):
+        worst, err = _update_err(torch, observed["updates"], plain["updates"])
+        failures.append(f"phase 16 (a) telemetry changed the run: losses "
+                        f"{observed['losses']} vs {plain['losses']}; worst "
+                        f"update {worst} {err:.3e}")
+    bad = [st for st in observed["launches_per_step"] if st != want]
+    if bad:
+        failures.append(f"phase 16 (a) launches per step {_nz(bad[0])}")
+    counts = dict(steps=tm.steps.value, records=tm.records.value,
+                  compile=tm.compile_seconds.count,
+                  step=tm.step_seconds.count)
+    if counts != dict(steps=TRAIN_ITERS, records=TRAIN_ITERS * B, compile=1,
+                      step=TRAIN_ITERS - 1):
+        failures.append(f"phase 16 (a) counters {counts}")
+    ledger = tm.ledger.snapshot()
+    if not ledger["accounted_fraction"] >= TELEMETRY_ACCOUNTED_MIN:
+        failures.append(f"phase 16 (a) goodput accounted "
+                        f"{ledger['accounted_fraction']}")
+    trace = json.loads(json.dumps(tm.tracer.to_chrome_trace()))
+    steps = [e for e in trace["traceEvents"] if e["name"] == "step"]
+    if len(steps) != TRAIN_ITERS - 1 or not all(
+            {"flops", "bytes", "bound"} <= set(e["args"]) for e in steps):
+        failures.append(f"phase 16 (a) Chrome trace: {len(steps)} step "
+                        f"spans, args {[e['args'] for e in steps[:1]]}")
+    counted = _gauge(tm, "bigdl_perf_flops_per_step")
+    analytic = _lm_products(n_params, B, T)
+    flop_rel = abs(counted - analytic) / analytic
+    if not flop_rel <= TELEMETRY_FLOP_REL_TOL:
+        failures.append(f"phase 16 (a) counted FLOPs {counted:.6g} vs "
+                        f"{analytic:.6g}, rel {flop_rel:.3e}")
+    mfu = _gauge(tm, "bigdl_perf_mfu")
+    median_s = float(np.median(observed["step_s"][1:]))
+    peak = PEAK_FLOPS["bfloat16"]
+    mfu_median = analytic / median_s / peak
+    mfu_phase5 = ((6.0 * n_params + 6.0 * T * D * L) * B * T / median_s
+                  / peak)   # phase 5's formula over the same median step
+    mfu_rel = abs(mfu - mfu_median) / mfu_median if mfu else float("inf")
+    if not mfu_rel <= TELEMETRY_MFU_REL_TOL:
+        failures.append(f"phase 16 (a) MFU gauge {mfu} vs {mfu_median:.6g} "
+                        f"from the median step, rel {mfu_rel:.3e}")
+    hbm = {k: _gauge(tm, f"bigdl_perf_hbm_{k}")
+           for k in ("bytes_in_use", "peak_bytes", "limit_bytes")}
+    if not (memory and hbm["peak_bytes"] == peak_allocated
+            and hbm["limit_bytes"] == total_memory):
+        failures.append(f"phase 16 (a) HBM gauges {hbm} vs allocator peak "
+                        f"{peak_allocated}, total {total_memory}")
+    verdict = seen[0].health_verdict()
+    if not verdict.healthy:
+        failures.append(f"phase 16 (a) health verdict {verdict}")
+
+    # the same model at TELEMETRY_CPU_LAYERS layers, T 256, B 2, f32: one
+    # counted step on the card and on the CPU
+    small = {}
+    for dev in ("cuda", "cpu"):
+        tm_s = Telemetry(registry=MetricsRegistry())
+        run_training(torch, _lm(torch, dev, TELEMETRY_CPU_LAYERS),
+                     TELEMETRY_CPU_B, TELEMETRY_CPU_T, 1, None,
+                     optimizer=_with_telemetry(LocalOptimizer, tm_s))
+        cost = tm_s.perf.current_cost
+        small[dev] = dict(flops=cost.flops, bytes=cost.bytes_accessed)
+    torch.cuda.empty_cache()
+    if small["cuda"] != small["cpu"]:
+        failures.append(f"phase 16 (a) the {TELEMETRY_CPU_LAYERS}-layer "
+                        f"step's count on the card {small['cuda']} vs the "
+                        f"CPU {small['cpu']}")
+    rec["a"] = dict(
+        losses=observed["losses"], plain_losses=plain["losses"],
+        same_losses=same_losses, same_updates=same_updates,
+        counters=counts, goodput=ledger, step_spans=len(steps),
+        step_span_args=steps[0]["args"] if steps else None,
+        counted_flops=counted, analytic_flops=analytic, flop_rel=flop_rel,
+        six_nd_all_params=6.0 * n_params * B * T,
+        bytes_per_step=_gauge(tm, "bigdl_perf_bytes_per_step"),
+        roofline=tm.perf.roofline(), mfu_gauge=mfu,
+        mfu_median_step=mfu_median, mfu_rel=mfu_rel,
+        mfu_phase5_formula=mfu_phase5, median_step_ms=1e3 * median_s,
+        step_ms_telemetry=observed["step_ms"], step_ms_plain=plain["step_ms"],
+        compile_step_ms=1e3 * observed["step_s"][0],
+        plain_first_step_ms=1e3 * plain["step_s"][0],
+        hbm=hbm, allocator_peak=peak_allocated, total_memory=total_memory,
+        verdict=str(verdict), small_card_vs_cpu=small,
+        device_spec=tm.perf.spec.to_dict())
+    print(f"phase 16 (a) Telemetry on phase 5's cell ({smi}): losses and "
+          f"updates = the run without it bit for bit: {same_losses}, "
+          f"{same_updates}; counters {counts}; goodput accounted "
+          f"{ledger['accounted_fraction']:.4f}, productive "
+          f"{ledger['productive_fraction']:.4f}, compile "
+          f"{ledger['seconds']['compile']:.3f} s; {len(steps)} step spans; "
+          f"FLOPs a step counted {counted:.6g} vs analytic {analytic:.6g} "
+          f"(rel {flop_rel:.3e}; 6ND over all {n_params} parameters "
+          f"{6.0 * n_params * B * T:.6g}); bytes a step "
+          f"{rec['a']['bytes_per_step']:.6g}, bound "
+          f"{rec['a']['roofline']['bound']}; MFU gauge {mfu:.6f} vs "
+          f"{mfu_median:.6f} from the median step {1e3 * median_s:.2f} ms "
+          f"(rel {mfu_rel:.3e}), phase 5's formula {mfu_phase5:.6f}; HBM "
+          f"peak {hbm['peak_bytes']} (allocator {peak_allocated}), limit "
+          f"{hbm['limit_bytes']}; verdict {verdict}; step ms with "
+          f"telemetry {observed['step_ms']:.2f}, without "
+          f"{plain['step_ms']:.2f} (iterations 3-{TRAIN_ITERS}); counted "
+          f"first step {1e3 * observed['step_s'][0]:.1f} ms vs "
+          f"{1e3 * plain['step_s'][0]:.1f}; {TELEMETRY_CPU_LAYERS}-layer "
+          f"count card {small['cuda']} cpu {small['cpu']}")
+
+    # (b) DistriOptimizer over a one-rank NCCL group, every
+    # TELEMETRY_PROFILE_INTERVAL-th step under torch.profiler
+    Engine.reset()
+    Engine.init_distributed(f"127.0.0.1:{_free_port()}", 1, 0,
+                            device="cuda")
+    env = "BIGDL_METRICS_PROFILEINTERVAL"
+    old = os.environ.get(env)
+    os.environ[env] = str(TELEMETRY_PROFILE_INTERVAL)
+    tm_d, seen = Telemetry(registry=MetricsRegistry(), host="rank0"), []
+    try:
+        for c in counters.values():
+            c.reset()
+        distri = _flagship_run(torch, _lm(torch, "cuda", L), TRAIN_ITERS,
+                               optimizer=_with_telemetry(DistriOptimizer,
+                                                         tm_d, seen=seen))
+        for n, v in distri["launches"].items():
+            launches[n] += v
+    finally:
+        if old is None:
+            os.environ.pop(env)
+        else:
+            os.environ[env] = old
+        Engine.reset()
+    torch.cuda.empty_cache()
+    spans = tm_d.tracer.spans()
+    by_id = {s.id: s for s in spans}
+    children = {}
+    for s in spans:
+        if s.parent_id is not None and s.name in ("compute", "collective"):
+            step = by_id[s.parent_id].args.get("step")
+            children.setdefault(step, {})[s.name] = s.duration
+    profiled = list(range(TELEMETRY_PROFILE_INTERVAL, TRAIN_ITERS + 1,
+                          TELEMETRY_PROFILE_INTERVAL))
+    coll_bytes = _gauge(tm_d, "bigdl_perf_collective_bytes")
+    if sorted(children) != profiled or not all(
+            c.get("compute", 0) > 0 and c.get("collective") == 0
+            for c in children.values()):
+        failures.append(f"phase 16 (b) profiled steps' children {children}")
+    if coll_bytes != 0 or seen[0].phase_source != "trace":
+        failures.append(f"phase 16 (b) collective bytes {coll_bytes}, phase "
+                        f"source {seen[0].phase_source}")
+    if distri["losses"] != plain["losses"]:
+        failures.append(f"phase 16 (b) losses {distri['losses']} vs "
+                        f"{plain['losses']}")
+    rec["b"] = dict(losses=distri["losses"], children=children,
+                    collective_bytes=coll_bytes,
+                    phase_source=seen[0].phase_source,
+                    same_updates=_same_bits(torch, distri["updates"],
+                                            plain["updates"]),
+                    step_ms=distri["step_ms"])
+    print(f"phase 16 (b) DistriOptimizer, one NCCL rank, profile interval "
+          f"{TELEMETRY_PROFILE_INTERVAL} ({smi}): profiled steps' "
+          f"compute/collective "
+          f"seconds {children}; collective bytes {coll_bytes}; phase source "
+          f"{seen[0].phase_source}; losses = (a)'s plain run "
+          f"{distri['losses'] == plain['losses']}, updates "
+          f"{rec['b']['same_updates']}")
+    del distri
+
+    # (c) served in bf16 behind InferenceServer: 16 classify requests of
+    # T token ids, max_batch 8
+    model = _lm(torch, "cuda", L)
+    with torch.no_grad():
+        for p in model.parameters():
+            p.data = p.data.to(torch.bfloat16)
+    server = InferenceServer(model, max_batch=TELEMETRY_SERVE_BATCH)
+    rng = np.random.RandomState(5)
+    ids = rng.randint(1, cfg["vocab"] + 1, size=(TELEMETRY_SERVED, T)
+                      ).astype(np.int32)
+    for c in counters.values():
+        c.reset()
+    server.start()
+    try:
+        futs = [server.submit(row, deadline_s=300.0) for row in ids]
+        results = [f.result(timeout=300) for f in futs]
+    finally:
+        server.stop(timeout=60)
+    for n, c in counters.items():
+        launches[n] += c.count
+    served_ok = all(r.status == Status.OK and r.output.shape == (
+        T, cfg["vocab"]) and np.isfinite(r.output).all() for r in results)
+    buckets = dict(server.metrics._bucket_flops)
+    bucket_rel = {b: abs(f - _lm_products(n_params, b, T, train=False))
+                  / _lm_products(n_params, b, T, train=False)
+                  for b, f in buckets.items()}
+    gpc = server.metrics.goodput_per_chip()
+    if not served_ok:
+        failures.append("phase 16 (c) a classify request failed: "
+                        f"{[r.status for r in results]}")
+    if not buckets or not all(r <= TELEMETRY_FLOP_REL_TOL
+                              for r in bucket_rel.values()):
+        failures.append(f"phase 16 (c) bucket FLOPs {buckets}, rel "
+                        f"{bucket_rel}")
+    if not (gpc["mfu"] is not None and 0 < gpc["mfu"] < 1):
+        failures.append(f"phase 16 (c) goodput per chip {gpc}")
+    rec["c"] = dict(buckets=buckets, bucket_rel=bucket_rel, goodput=gpc,
+                    served_ok=served_ok)
+    print(f"phase 16 (c) {TELEMETRY_SERVED} classify requests of {T} ids, "
+          f"bf16, max_batch {TELEMETRY_SERVE_BATCH} ({smi}): statuses OK "
+          f"{served_ok}; bucket FLOPs {buckets} (rel to 2·N·B·T + "
+          f"attention {bucket_rel}); goodput per chip {gpc}")
+    del model, server, results, futs
+    torch.cuda.empty_cache()
+
+    # (d) the payload through a snapshot directory, the cluster fold and
+    # the run report
+    snap_dir = Path(tempfile.mkdtemp(prefix="phase16-"))
+    tm.write_snapshot(str(snap_dir), step=TRAIN_ITERS)
+    cluster = merge_cluster(read_snapshot_dir(str(snap_dir)))
+    report = render_report(cluster)
+    shutil.rmtree(snap_dir, ignore_errors=True)
+    names_card = tm.perf.spec.kind in report and not tm.perf.spec.nominal
+    if not (cluster["hosts"] == ["card0"] and names_card
+            and cluster["perf"]["flops_total"] == tm.perf.flops_total.value):
+        failures.append(f"phase 16 (d) cluster {cluster['hosts']}, report "
+                        f"names the card {names_card}")
+    rec["d"] = dict(hosts=cluster["hosts"], report=report,
+                    cluster_perf=cluster["perf"])
+    print(f"phase 16 (d) payload -> snapshot -> merge_cluster -> report "
+          f"({smi}):\n{report}")
+    rec.update(launches=launches, seconds=time.perf_counter() - t_phase)
+    return rec, failures
+
+
 def distri_cpu_rank(rank: int, world: int, init: str, out: str) -> int:
     """One gloo rank of phase 15 (d), run as its own process: phase 5's
     2-layer copy trained by DistriOptimizer on the CPU; rank 0 saves
@@ -6353,6 +6706,8 @@ def main(argv=None) -> int:
     ap.add_argument("--phase15", action="store_true",
                     help="build K1-K4 and run phase 15 (data-parallel "
                          "training) alone")
+    ap.add_argument("--phase16", action="store_true",
+                    help="build K1-K4 and run phase 16 (telemetry) alone")
     # phase 15 (d)'s CPU ranks: this script run as one gloo rank
     for flag in ("--distri-cpu-rank", "--distri-cpu-world"):
         ap.add_argument(flag, type=int, help=argparse.SUPPRESS)
@@ -6387,7 +6742,8 @@ def main(argv=None) -> int:
     from bigdl_tpu_torch.ops import layer_norm as ln
 
     libs = (("flash_fwd", "flash_bwd")
-            if args.phase12 or args.phase_moe or args.phase15 else
+            if args.phase12 or args.phase_moe or args.phase15
+            or args.phase16 else
             ("conv3x3",) if args.phase13 else
             ("flash_fwd", "flash_bwd", "block_sparse", "conv3x3"))
     t0 = time.perf_counter()
@@ -6428,6 +6784,15 @@ def main(argv=None) -> int:
         (out / "chip_phase15.json").write_text(json.dumps(dict(
             device=kind, nvidia_smi=smi, torch=torch.__version__,
             distri_path=rec, failures=failures), indent=1, default=str))
+        for f in failures:
+            print(f"FAIL: {f}", file=sys.stderr)
+        print(smi)
+        return 1 if failures else 0
+    if args.phase16:
+        rec, failures = telemetry_phase(torch, smi)
+        (out / "chip_phase16.json").write_text(json.dumps(dict(
+            device=kind, nvidia_smi=smi, torch=torch.__version__,
+            telemetry_path=rec, failures=failures), indent=1, default=str))
         for f in failures:
             print(f"FAIL: {f}", file=sys.stderr)
         print(smi)
@@ -6564,6 +6929,12 @@ def main(argv=None) -> int:
     phase15, phase15_failures = distri_phase(torch, smi, trained["step_ms"])
     failures += phase15_failures
 
+    # phase 16: telemetry — phase 5's cell with a Telemetry bundle and a
+    # health monitor against the same run without, DistriOptimizer's
+    # profiled steps, the served goodput per chip, the snapshot's fold
+    phase16, phase16_failures = telemetry_phase(torch, smi)
+    failures += phase16_failures
+
     # launches summed over every path, each read from zero
     launches = {n: sum(b["launches"][n] for b in served["batches"])
                 + trained["launches"][n] + bs_trained["launches"][n]
@@ -6571,6 +6942,7 @@ def main(argv=None) -> int:
                 + phase10["launches"][n] + phase11["launches"][n]
                 + phase12["launches"][n] + phase13["launches"][n]
                 + phase14["launches"][n] + phase15["launches"][n]
+                + phase16["launches"][n]
                 for n in launch_counters()}
     for mm_path in mm_paths:
         for name, n in mm_path["launches"].items():
@@ -6712,7 +7084,8 @@ def main(argv=None) -> int:
         resnet50_training_path=resnet, paged_serving_path=paged,
         checkpoint_swap_path=phase10, torch_api_path=phase11,
         training_breadth_path=phase12, zoo_path=phase13, moe_path=phase14,
-        distri_path=phase15, kernels=kernels, failures=failures, seconds=time.perf_counter()
+        distri_path=phase15, telemetry_path=phase16, kernels=kernels,
+        failures=failures, seconds=time.perf_counter()
         - T_START), indent=1))
 
     if failures:

@@ -1,10 +1,11 @@
 """One rank of ``tests/test_torch_distri.py``'s multi-process runs.
 
-    python tests/_torch_distri_child.py RANK WORLD INIT_URL WORKDIR
+    python tests/_torch_distri_child.py RANK WORLD INIT_URL WORKDIR [NAMES]
 
 Joins a gloo group of WORLD processes (``Engine.init_distributed`` over
-INIT_URL, a ``file://`` store), runs every scenario of ``SCENARIOS`` on
-the CPU with one intra-op thread, and pickles what each one read to
+INIT_URL, a ``file://`` store), runs every scenario of ``SCENARIOS``
+(or those NAMES lists, comma-separated) on the CPU with one intra-op
+thread, and pickles what each one read to
 ``WORKDIR/rank<RANK>.pkl`` (a scenario's traceback under ``"error"``
 when one fails).  The initial weights come from the JAX models the test
 built (``WORKDIR/inputs.pkl``: numpy trees, loaded by key), so the test
@@ -364,16 +365,67 @@ def divisibility(inputs, rank, world, workdir):
     return None
 
 
+def telemetry(inputs, rank, world, workdir):
+    """``tests/test_telemetry.py``'s regression MLP, 12 iterations of
+    batch 64, with a Telemetry bundle (the default profile interval
+    profiles iteration 10), then again without one: what the bundle
+    read, and both runs' losses and weights."""
+    torch, nn, optim, *_ = _port()
+    from bigdl_tpu_torch.telemetry import MetricsRegistry, Telemetry
+
+    rng = np.random.RandomState(0)
+    x = rng.rand(256, 4).astype(np.float32)
+    w = np.array([[1.5], [-2.0], [0.5], [3.0]], np.float32)
+    y = (x @ w + 0.7).astype(np.float32)
+    out = {}
+    for label in ("telemetry", "plain"):
+        g = torch.Generator().manual_seed(0)
+        model = nn.Sequential(nn.Linear(4, 8, device="cpu", generator=g),
+                              nn.Tanh(device="cpu"),
+                              nn.Linear(8, 1, device="cpu", generator=g),
+                              device="cpu")
+        tm = Telemetry(registry=MetricsRegistry(), host=f"rank{rank}")
+
+        def setup(opt, tm=tm, label=label):
+            if label == "telemetry":
+                opt.set_telemetry(tm)
+
+        opt, losses = train(model, samples(x, y), nn.MSECriterion(),
+                            optim.SGD(0.2), optim.max_iteration(12),
+                            batch_size=64, setup=setup)
+        got = trained(opt, losses, model)
+        if label == "telemetry":
+            spans = tm.tracer.spans()
+            by_id = {s.id: s for s in spans}
+            got.update(
+                n_params=sum(p.numel() for p in model.parameters()),
+                steps=tm.steps.value, records=tm.records.value,
+                compile_count=tm.compile_seconds.count,
+                step_count=tm.step_seconds.count,
+                phase_source=opt.phase_source,
+                span_names=[s.name for s in spans],
+                children={s.name: (by_id[s.parent_id].args.get("step"),
+                                   s.duration)
+                          for s in spans if s.parent_id is not None},
+                payload=tm.payload(step=12),
+                accounted=tm.ledger.snapshot()["accounted_fraction"])
+        out[label] = got
+    return out
+
+
 SCENARIOS = dict(allreduce=allreduce, xor_sgd=xor_sgd, adam=adam,
                  tail40=tail40, masked=masked, bn=bn, lm=lm,
                  validate=validate, trigger=trigger, retry=retry, nan=nan,
                  dropout=dropout,
                  divisibility=divisibility)
+#: run only when named (tests/test_torch_telemetry.py)
+ON_REQUEST = dict(telemetry=telemetry)
 
 
 def main(argv):
     rank, world, init, workdir = (int(argv[1]), int(argv[2]), argv[3],
                                   Path(argv[4]))
+    names = argv[5].split(",") if len(argv) > 5 else list(SCENARIOS)
     sys.path.insert(0, str(REPO))
     import torch
 
@@ -384,7 +436,8 @@ def main(argv):
     Engine.init_distributed(init, world, rank, device="cpu", timeout=60)
     results = {}
     try:
-        for name, fn in SCENARIOS.items():
+        for name in names:
+            fn = SCENARIOS.get(name) or ON_REQUEST[name]
             results[name] = fn(inputs, rank, world, workdir)
     except Exception:
         results["error"] = traceback.format_exc()

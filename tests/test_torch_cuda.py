@@ -25,7 +25,11 @@ sees no card, a resumed run on the card is held against an
 uninterrupted one, and a bf16 server on the card swaps in a verified
 checkpoint.  Over a one-rank NCCL group, ``DistriOptimizer`` trains the
 small LM bit for bit as ``LocalOptimizer`` does, and
-``AllReduceParameter``'s round trip returns its input bit for bit.
+``AllReduceParameter``'s round trip returns its input bit for bit.  The
+telemetry's work counter reads the same work from K1-K4 on the card as
+from their plain versions on the CPU, a Telemetry bundle leaves the
+small LM's losses and weights as they are, bit for bit, and the memory
+gauges read the caching allocator.
 """
 import math
 
@@ -2990,3 +2994,94 @@ def test_lbfgs_rosenbrock_on_card(cuda_device):
     for _ in range(20):
         x, _ = lbfgs.optimize(feval, x)
     assert x.device.type == "cuda" and feval(x)[0] < 1e-2
+
+
+# ---------------------------------------------------------------------------
+# telemetry: the kernels' work reports, losses with telemetry, memory gauges
+# ---------------------------------------------------------------------------
+
+def _counted(fn):
+    """(FLOPs, bytes, sparse reports) of ``fn()`` under the work counter."""
+    from bigdl_tpu_torch.telemetry.perf import WorkCounter
+
+    with WorkCounter() as c:
+        fn()
+    return c.flops, c.bytes, c.sparse
+
+
+@pytest.mark.parametrize("dtype", [bf16, torch.float32])
+def test_k1_k4_report_the_same_work_on_card_as_on_cpu(cuda_device, dtype):
+    """K1-K3 (forward and backward of flash attention) and K4 report the
+    same FLOPs and bytes from the card as their plain versions from the
+    CPU: the work is counted by the op's shapes, not by what runs it."""
+    rng = np.random.RandomState(0)
+    B, H, T, D = 2, 4, 128, 64
+    arrays = [rng.randn(B, H, T, D).astype(np.float32) for _ in range(4)]
+    x = rng.randn(6, 96).astype(np.float32)
+    gb = [rng.randn(96).astype(np.float32) for _ in range(2)]
+    got = {}
+    for dev in ("cpu", cuda_device):
+        q, k, v, g = (torch.tensor(a, device=dev, dtype=dtype,
+                                   requires_grad=i < 3)
+                      for i, a in enumerate(arrays))
+
+        def attend():
+            o = fa.flash_attention(q, k, v, causal=True)
+            torch.autograd.backward(o, g)
+
+        xs = [torch.tensor(a, device=dev, dtype=dtype) for a in [x] + gb]
+        got[torch.device(dev).type] = (
+            _counted(attend), _counted(lambda: ln.fused_layer_norm(*xs)))
+    assert got["cuda"] == got["cpu"]
+    (flops, _, _), (ln_flops, ln_bytes, _) = got["cuda"]
+    assert flops == 12.0 * B * H * T * T * D   # fwd 4 BHTSD, bwd 8 BHTSD
+    assert ln_flops == 0.0
+    assert ln_bytes == (2 * x.size + 2 * 96) * torch.empty(
+        (), dtype=dtype).element_size()
+
+
+def test_telemetry_leaves_small_lm_losses_unchanged_bit_for_bit(cuda_device):
+    """The 2-layer LM trained 3 f32 steps on the card with a Telemetry
+    bundle attached (the first step under the work counter) gives every
+    loss and parameter of the run without it, bit for bit, through the
+    same K1-K4 launches, and the bundle counts 3 steps, one compile."""
+    from bigdl_tpu_torch.telemetry import MetricsRegistry, Telemetry
+
+    counters = (fa.LAUNCHES, fa.LAUNCHES_DKV, fa.LAUNCHES_DQ, ln.LAUNCHES)
+    plain, plain_model, _ = _train_small("cuda")
+    tm = Telemetry(registry=MetricsRegistry())
+
+    class Observed(LocalOptimizer):
+        def __init__(self, *a, **k):
+            super().__init__(*a, **k)
+            self.set_telemetry(tm)
+
+    before = [c.count for c in counters]
+    got, model, _ = _train_small("cuda", optimizer=Observed)
+    assert [c.count - n for c, n in zip(counters, before)] == [6, 6, 6, 15]
+    assert got == plain
+    for (name, a), b in zip(model.state_dict().items(),
+                            plain_model.state_dict().values()):
+        assert torch.equal(a, b), name
+    assert tm.steps.value == 3 and tm.compile_seconds.count == 1
+    assert tm.perf.current_cost.flops > 0
+    assert tm.perf.spec.kind in ("h100", "cpu")
+
+
+def test_memory_gauges_read_the_allocator(cuda_device):
+    """``poll_memory_stats`` on the card: in use and peak are the caching
+    allocator's allocated bytes, the limit the device's total memory."""
+    from bigdl_tpu_torch.telemetry import MetricsRegistry
+    from bigdl_tpu_torch.telemetry.perf import PerfAccountant
+
+    keep = torch.empty(1 << 24, device=cuda_device)
+    pa = PerfAccountant(registry=MetricsRegistry(), device=cuda_device)
+    stats = pa.poll_memory_stats()
+    assert stats["bytes_in_use"] == torch.cuda.memory_allocated()
+    assert stats["peak_bytes_in_use"] == torch.cuda.max_memory_allocated()
+    assert stats["bytes_limit"] == torch.cuda.get_device_properties(
+        cuda_device).total_memory
+    snap = pa.registry.snapshot()["metrics"]
+    assert snap["bigdl_perf_hbm_peak_bytes"]["series"][0]["value"] == \
+        stats["peak_bytes_in_use"]
+    assert stats["bytes_in_use"] >= keep.numel() * 4

@@ -68,11 +68,14 @@ def test_port_sources_import_no_jax_and_no_jax_package():
 @pytest.mark.parametrize("module", [
     "optim/regularizer.py", "optim/optax_bridge.py", "optim/optim_method.py",
     "optim/optimizer.py", "parallel/ring_attention.py", "nn/attention.py",
-    "models/transformer.py", "utils/file_io.py", "dataset/dataset.py"])
+    "models/transformer.py", "utils/file_io.py", "dataset/dataset.py",
+    "telemetry/__init__.py", "telemetry/perf.py", "telemetry/device_info.py",
+    "telemetry/aggregate.py", "optim/profiling.py"])
 def test_scan_covers_the_training_breadth_modules(module):
-    """The modules of the training-breadth slice are in the scan and
-    import neither jax nor the JAX package (the bridge wraps
-    ``torch.optim``, the fsspec backend imports ``fsspec`` only)."""
+    """The modules of the training-breadth and telemetry slices are in
+    the scan and import neither jax nor the JAX package (the bridge wraps
+    ``torch.optim``, the fsspec backend imports ``fsspec`` only, the
+    telemetry modules are their own copies of the jax-free ones)."""
     path = REPO / "bigdl_tpu_torch" / module
     assert path in _port_sources()
     assert forbidden_imports(path.read_text()) == []

@@ -278,12 +278,13 @@ def test_unported_optimizer_options_raise():
                          batch_size=8)
     for call in (lambda: opt.set_checkpoint("/nonexistent", None,
                                             format="orbax"),
-                 lambda: opt.set_telemetry(None),
                  lambda: opt.set_elastic(None)):
         with pytest.raises(NotImplementedError):
             call()
     with pytest.raises(ValueError):
         opt.set_compute_dtype(torch.int32)
+    # telemetry is ported: attaching and detaching a bundle works
+    assert opt.set_telemetry(None) is opt and opt.telemetry is None
 
 
 def test_train_sets_mode_and_requires_grad():
