@@ -28,8 +28,9 @@ import numpy as np
 from ..visualization.crc32c import crc32c
 
 __all__ = ["PREFILL", "DECODE", "BOTH", "ROLES", "HandoffCorrupt",
-           "serialize_handoff", "deserialize_handoff", "serves_phase",
-           "split_pool", "pool_members"]
+           "serialize_handoff", "deserialize_handoff",
+           "peek_handoff_trace", "serves_phase", "split_pool",
+           "pool_members"]
 
 PREFILL = "prefill"
 DECODE = "decode"
@@ -122,3 +123,17 @@ def deserialize_handoff(blob: bytes) -> dict:
         if key not in out:
             raise HandoffCorrupt(f"handoff missing field {key!r}")
     return out
+
+
+def peek_handoff_trace(blob) -> Optional[dict]:
+    """The distributed-trace context a prefill server sealed into the
+    handoff extras (``telemetry.trace_context.TRACE_WIRE_KEY``), or
+    None — on an untraced blob AND on a corrupt one.  The crc verdict
+    belongs to the decode path; this peek must never preempt it."""
+    from ..telemetry.trace_context import TRACE_WIRE_KEY
+
+    try:
+        wire = deserialize_handoff(blob).get(TRACE_WIRE_KEY)
+        return wire if isinstance(wire, dict) else None
+    except Exception:
+        return None

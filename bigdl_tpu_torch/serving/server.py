@@ -35,10 +35,20 @@ each whole batch, so a batch in flight finishes on the old parameters
 and the next one sees the new.  ``resilience.faults.check_serving_fault``
 runs before every batch step and before the canary.
 
+With a ``trace_sink`` (``serving.request_trace.ReplicaTraceSink``) a
+request that carries a trace context records its phases — queue wait,
+batch formation, the device step (``execute``, or ``prefill`` and
+``decode`` on the paged path), KV-page export and import, swap windows
+and typed failures — as spans under the router's attempt span.  A
+phase's span ends once its outputs are on the host, never at a kernel
+launch.  A ``model_name`` makes the server one tenant of a multi-model
+fleet: it advertises (model, version) in ``health()`` and labels its
+phase samples with the request's tenant.
+
 Ported: start/drain/stop, admission, deadlines, the circuit breaker,
 micro-batching, ``submit`` and ``submit_generate``, the paged KV pool
-with its page window, the prefill/decode roles and the hot swap.  Not
-ported yet, and raising when asked for: request tracing, tenants, and a
+with its page window, the prefill/decode roles, the hot swap, request
+tracing and tenants.  Not ported yet, and raising when asked for: a
 device mesh.
 """
 from __future__ import annotations
@@ -156,6 +166,12 @@ class InferenceServer:
         long paged decodes: attend only the first ``kv_page_globals``
         anchor pages + the last ``kv_page_window`` pages (the prefill
         through kernel K6); ``None`` = dense over the page table.
+    trace_sink : a ``ReplicaTraceSink``: traced requests record their
+        phase spans into it (``None`` = no tracing, one None check a
+        request).
+    model_name, model_version : the (model, version) this server
+        advertises in a multi-tenant fleet; ``None`` = a single-model
+        server.
     """
 
     def __init__(self, model, mesh=None, max_batch: int = 32,
@@ -169,15 +185,12 @@ class InferenceServer:
                  role: str = "both",
                  kv_page_window: Optional[int] = None,
                  kv_page_globals: int = 1, trace_sink=None,
-                 model_name: Optional[str] = None):
+                 model_name: Optional[str] = None,
+                 model_version: str = "v1"):
         from .pools import ROLES
 
         if mesh is not None:
             raise _not_ported("serving over a device mesh")
-        if trace_sink is not None:
-            raise _not_ported("request tracing")
-        if model_name is not None:
-            raise _not_ported("multi-tenant serving")
         if role not in ROLES:
             raise ValueError(f"role {role!r} not in {ROLES}")
         if role != "both" and kv_pool is None:
@@ -190,10 +203,21 @@ class InferenceServer:
                              f"model's device")
         self.name = name
         self.model = model
+        #: multi-tenant identity, advertised in ``health()`` for the
+        #: router's registry routing; None = a single-model server
+        self.model_name = model_name
+        self.model_version = str(model_version)
         self.role = role
+        #: request tracing (``serving.request_trace.ReplicaTraceSink``);
+        #: None = no tracing
+        self.trace_sink = trace_sink
         #: paged KV arena: when set, generation serves through the
         #: paged decode path and pool exhaustion sheds typed OVERLOADED
         self.kv_pool = kv_pool
+        if kv_pool is not None and model_name is not None \
+                and kv_pool.default_owner is None:
+            # decoder-internal page allocs charge this model's tenant
+            kv_pool.default_owner = model_name
         self.kv_page_window = kv_page_window
         self.kv_page_globals = int(kv_page_globals)
         self.batcher = MicroBatcher(max_batch)
@@ -218,7 +242,6 @@ class InferenceServer:
         self._costed_buckets: set = set()
         #: seconds of the last swap: (verify, canary, install)
         self.last_swap_s: Optional[tuple] = None
-        self.model_version: Optional[str] = None
         self._worker: Optional[threading.Thread] = None
         self._started = False
         self._draining = False
@@ -299,6 +322,9 @@ class InferenceServer:
             "breaker": self.breaker.snapshot(),
             "role": self.role,
         }
+        if self.model_name is not None:
+            out["model"] = self.model_name
+            out["model_version"] = self.model_version
         if self.kv_pool is not None:
             out["kv"] = self.kv_pool.stats()
         return out
@@ -344,13 +370,29 @@ class InferenceServer:
         fut._resolve(result)
         return fut
 
+    @staticmethod
+    def _parse_trace(trace):
+        """Wire dict (or TraceContext) → TraceContext; malformed
+        contexts degrade to untraced, never fail the request."""
+        if trace is None:
+            return None
+        from ..telemetry.trace_context import TraceContext
+
+        return TraceContext.from_wire(trace)
+
+    def _trace(self, req: Request, name: str, category: str,
+               start: float, duration: float, **args):
+        """Record one request-phase span for a traced request (no-op
+        without a sink or context)."""
+        if self.trace_sink is not None and req.trace is not None:
+            self.trace_sink.record(req.trace, name, category, start,
+                                   duration, **args)
+
     def submit(self, feature, deadline_s: Optional[float] = None,
                trace=None) -> ServeFuture:
         """One classification/regression request: ``feature`` is a
         single record (no batch dim); the result's ``output`` is the
         model's output row for it, as numpy."""
-        if trace is not None:
-            raise _not_ported("request tracing")
         feature = np.asarray(feature)
         # shape-check at admission: one malformed request must fail ITS
         # caller synchronously, not poison whole batches
@@ -367,7 +409,8 @@ class InferenceServer:
             return fast
         return self._admit(Request(
             kind="classify", payload=feature,
-            future=ServeFuture(), submitted_at=now, deadline=deadline))
+            future=ServeFuture(), submitted_at=now, deadline=deadline,
+            trace=self._parse_trace(trace)))
 
     def submit_generate(self, prompt_ids, max_new: int,
                         eos_id: Optional[int] = None,
@@ -378,8 +421,6 @@ class InferenceServer:
         ``output`` is the generated id row (``max_new`` tokens,
         eos-then-pad per ``models.generate``).  Requests are micro-
         batched with others sharing (prompt_len, max_new, eos, pad)."""
-        if trace is not None:
-            raise _not_ported("request tracing")
         prompt = np.asarray(prompt_ids, np.int32)
         if prompt.ndim != 1:
             raise ValueError(f"prompt_ids must be 1-D, got shape "
@@ -394,7 +435,8 @@ class InferenceServer:
         return self._admit(Request(
             kind="generate", payload=prompt, future=ServeFuture(),
             submitted_at=now, deadline=deadline,
-            opts=(int(max_new), eos_id, pad_id)))
+            opts=(int(max_new), eos_id, pad_id),
+            trace=self._parse_trace(trace)))
 
     def _require_pool(self, what: str):
         if self.kv_pool is None:
@@ -410,8 +452,6 @@ class InferenceServer:
         KV handoff blob (``result.output``) a decode server can
         continue from.  The prefill server's pages are released as soon
         as the blob is exported."""
-        if trace is not None:
-            raise _not_ported("request tracing")
         self._require_pool("submit_prefill")
         prompt = np.asarray(prompt_ids, np.int32)
         if prompt.ndim != 1:
@@ -424,7 +464,8 @@ class InferenceServer:
             return fast
         return self._admit(Request(
             kind="prefill", payload=prompt, future=ServeFuture(),
-            submitted_at=now, deadline=deadline))
+            submitted_at=now, deadline=deadline,
+            trace=self._parse_trace(trace)))
 
     def submit_decode(self, handoff: bytes, max_new: int,
                       eos_id: Optional[int] = None,
@@ -437,8 +478,6 @@ class InferenceServer:
         (the first one was produced by prefill and rides the handoff).
         The result's ``output`` holds those remaining tokens; a corrupt
         blob resolves INTERNAL_ERROR, a full pool sheds OVERLOADED."""
-        if trace is not None:
-            raise _not_ported("request tracing")
         self._require_pool("submit_decode")
         if max_new < 1:
             raise ValueError(f"max_new must be >= 1, got {max_new}")
@@ -447,10 +486,18 @@ class InferenceServer:
         fast = self._fast_fail_expired(deadline, now)
         if fast is not None:
             return fast
+        ctx = self._parse_trace(trace)
+        if ctx is None:
+            # the context also rides the sealed blob itself (handoff
+            # extras), so a decode dispatched outside the router still
+            # joins its trace
+            from .pools import peek_handoff_trace
+
+            ctx = self._parse_trace(peek_handoff_trace(handoff))
         return self._admit(Request(
             kind="decode", payload=handoff, future=ServeFuture(),
             submitted_at=now, deadline=deadline,
-            opts=(int(max_new), eos_id, pad_id)))
+            opts=(int(max_new), eos_id, pad_id), trace=ctx))
 
     # ------------------------------------------------------------ hot swap
     def swap_params(self, params=None, path: Optional[str] = None,
@@ -472,6 +519,15 @@ class InferenceServer:
         if (params is None) == (path is None):
             raise ValueError("pass exactly one of params/path")
         t0 = time.perf_counter()
+        t_swap = time.monotonic()
+
+        def note_swap(outcome: str):
+            # traced requests overlapping this window see it as a
+            # swap_window span in their stitched timeline
+            if self.trace_sink is not None:
+                self.trace_sink.record_swap_window(
+                    t_swap, time.monotonic() - t_swap, outcome)
+
         try:
             if path is not None:
                 params = load_verified_params(path, device=self.device)
@@ -501,11 +557,13 @@ class InferenceServer:
             t2 = time.perf_counter()
         except SwapRejected:
             self.metrics.record_swap(installed=False)
+            note_swap("rejected")
             raise
         except (KeyboardInterrupt, SystemExit):
             raise
         except Exception as e:
             self.metrics.record_swap(installed=False)
+            note_swap("rejected")
             raise SwapRejected(f"canary batch failed "
                                f"({type(e).__name__}: {e})")
         with self._model_lock:
@@ -518,6 +576,7 @@ class InferenceServer:
         if version is not None:
             self.model_version = str(version)
         self.metrics.record_swap(outcome=outcome)
+        note_swap(outcome)
         log.info("serving params hot-swapped%s%s",
                  f" from {path}" if path else "",
                  " (rollback)" if outcome == "rolled_back" else "")
@@ -540,11 +599,32 @@ class InferenceServer:
         return self._preemption is not None \
             and self._preemption.should_stop
 
+    def _tenant_of(self, req: Request) -> Optional[str]:
+        """The tenant a request's phase/latency samples attribute to:
+        the trace's tenant when the router stamped one, else this
+        server's model (one model ≈ one tenant), else None (untagged
+        single-model servers pay no tenant series)."""
+        tenant = getattr(req.trace, "tenant", None) \
+            if req.trace is not None else None
+        return tenant if tenant is not None else self.model_name
+
     def _resolve(self, req: Request, result: ServeResult):
         now = time.monotonic()
         result.latency_s = now - req.submitted_at
         self.metrics.record(result.status, result.latency_s,
-                            result.queued_s)
+                            result.queued_s,
+                            tenant=self._tenant_of(req))
+        if req.trace is not None:
+            result.trace_id = req.trace.trace_id
+            if result.status is not Status.OK:
+                # typed failure span: the stitched trace shows WHAT
+                # failed on WHICH replica, not just a missing interval
+                self._trace(req, f"fail:{req.kind}", "error",
+                            req.submitted_at, result.latency_s,
+                            status=result.status.value,
+                            error=(result.error or "")[:200])
+            if self.trace_sink is not None:
+                self.trace_sink.finish(req.trace)
         req.future._resolve(result)
 
     def _gather(self, limit: int) -> list:
@@ -643,6 +723,8 @@ class InferenceServer:
             return self._run_paged_group(kind, reqs)
         t_batch = time.monotonic()
         queued = [t_batch - r.submitted_at for r in reqs]
+        for r, q in zip(reqs, queued):
+            self._trace(r, "admission_queue", "queue", r.submitted_at, q)
         x = None
         try:
             _faults.check_serving_fault(self.name)
@@ -650,12 +732,24 @@ class InferenceServer:
                 x, bucket = self.batcher.coalesce(
                     [r.payload for r in reqs])
                 x = torch.as_tensor(x, device=self.device)
+                t_exec = time.monotonic()
                 out = self._classify_forward(bucket, x)
                 # the host copy doubles as the execution barrier —
                 # device-side failures surface here, inside the try
                 out_np = out.float().cpu().numpy()
             else:
+                t_exec = time.monotonic()
                 out_np, bucket = self._run_generate(reqs)
+            # the outputs are on the host: the span ends at the card's
+            # finish, not at the launch
+            t_done = time.monotonic()
+            for r in reqs:
+                self._trace(r, "batch_form", "batch", t_batch,
+                            t_exec - t_batch, batch=len(reqs),
+                            bucket=bucket)
+                self._trace(r, f"execute:{kind}", "execute", t_exec,
+                            t_done - t_exec, bucket=bucket,
+                            batch=len(reqs))
         except (KeyboardInterrupt, SystemExit):
             raise
         except Exception as e:
@@ -773,32 +867,58 @@ class InferenceServer:
         live = []
         for req in reqs:
             queued_s = time.monotonic() - req.submitted_at
+            self._trace(req, "admission_queue", "queue",
+                        req.submitted_at, queued_s)
             seq = None
             try:
                 _faults.check_serving_fault(self.name)
                 if req.kind == "decode":
+                    t_g = time.monotonic()
                     seq = self._import_handoff(req.payload)
+                    self._trace(req, "kv_import", "kv_gather", t_g,
+                                time.monotonic() - t_g,
+                                pages=len(seq.lease.pages))
                     # the first token rode the handoff: this dispatch
                     # owes the remaining max_new - 1
                     live.append(entry(req, seq, [], req.opts[0] - 1,
                                       queued_s))
                     continue
                 t0 = time.monotonic()
+                # the first token comes back as a host int: the span
+                # ends when the card has finished the prompt pass
                 seq = decoder.start(params, req.payload)
                 prefill_s = time.monotonic() - t0
-                self.metrics.record_phase("prefill", prefill_s)
+                tenant = self._tenant_of(req)
+                self.metrics.record_phase("prefill", prefill_s,
+                                          tenant=tenant)
                 self.metrics.record_ttft(time.monotonic()
-                                         - req.submitted_at)
+                                         - req.submitted_at, tenant=tenant)
+                self._trace(req, "prefill", "prefill", t0, prefill_s,
+                            prompt_len=int(req.payload.shape[0]),
+                            pages=len(seq.lease.pages))
                 if req.kind == "generate":
                     live.append(entry(req, seq, [seq.last], req.opts[0],
                                       queued_s))
                     continue
+                t_g = time.monotonic()
                 k_pages, v_pages = pool.read_pages(seq.lease.pages)
-                extras = ({"kv_dtype": pool.wire_dtype}
-                          if pool.wire_dtype else None)
+                extras = {}
+                if pool.wire_dtype:
+                    extras["kv_dtype"] = pool.wire_dtype
+                if req.trace is not None:
+                    from ..telemetry.trace_context import TRACE_WIRE_KEY
+
+                    # the context rides the sealed blob: the decode
+                    # server joins the trace even when the dispatch
+                    # path loses the kwarg
+                    extras[TRACE_WIRE_KEY] = req.trace.to_wire()
                 blob = serialize_handoff(k_pages, v_pages, seq.last,
                                          seq.pos, pool.page_size,
-                                         extras=extras)
+                                         extras=extras or None)
+                self._trace(req, "kv_export", "kv_gather", t_g,
+                            time.monotonic() - t_g,
+                            pages=len(seq.lease.pages),
+                            blob_bytes=len(blob))
                 seq.release()
                 self.breaker.record_success()
                 self.metrics.record_batch(1, 1)
@@ -820,10 +940,16 @@ class InferenceServer:
 
         def finish(e):
             e["seq"].release()
+            # every token is a host int by now: the span ends at the
+            # card's last step
             decode_s = time.monotonic() - e["t_decode"]
-            self.metrics.record_phase("decode", decode_s)
+            tenant = self._tenant_of(e["req"])
+            self.metrics.record_phase("decode", decode_s, tenant=tenant)
             if e["steps"]:
-                self.metrics.record_tpot(decode_s / e["steps"])
+                self.metrics.record_tpot(decode_s / e["steps"],
+                                         tenant=tenant)
+            self._trace(e["req"], "decode", "decode", e["t_decode"],
+                        decode_s, steps=e["steps"], tokens=len(e["toks"]))
             self.breaker.record_success()
             self.metrics.record_batch(1, 1)
             self._resolve(e["req"], ServeResult(
@@ -832,6 +958,9 @@ class InferenceServer:
 
         def abort(e, result: ServeResult):
             e["seq"].release()
+            self._trace(e["req"], "decode", "decode", e["t_decode"],
+                        time.monotonic() - e["t_decode"],
+                        steps=e["steps"], aborted=True)
             result.queued_s = e["queued_s"]
             self._resolve(e["req"], result)
 

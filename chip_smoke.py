@@ -332,7 +332,38 @@ Phases; any failure exits non-zero:
    goodput-per-chip MFU in (0, 1); (d) the payload through
    ``write_snapshot``, ``read_snapshot_dir``, ``merge_cluster`` and
    ``render_report``, which names the card.
-17. a ``{"kernels": [...]}`` line (K1-K4 with a ``moe step`` variant
+17. the serving fleet — two replicas of the flagship on the card, each
+   its own copy of the parameters, bf16 generation, prompts of 128 ids,
+   32 new tokens: (a) 32 requests one at a time through ``ServingFleet``
+   with tracing on and every trace kept, at ``max_batch`` 1: every
+   result OK and its tokens a lone ``InferenceServer``'s at
+   ``max_batch`` 1 bit for bit, every kept trace stitched (categories
+   request, attempt, queue, batch, execute, within the shared
+   vocabulary; at least two hosts; coverage ≥ 0.95), the lone and
+   routed p50/p99; then 64 requests at once at ``max_batch`` 8: p50,
+   p99, tokens/s, router and replica counters, mean attribution shares
+   (reported); (b) 16 requests in flight while ``faults.kill_replica``
+   takes r1 down: every result typed, the OK ones the lone tokens, r1
+   ejected, restarted and readmitted, the retries printed; (c)
+   ``faults.serving_step_latency`` slows r0 under ``hedge=True`` at a
+   fixed 0.05 s delay: hedges fired and won, tokens the lone ones, each
+   lost attempt labeled ``hedge_outcome=lost`` and coverage within
+   [0.95, 1]; (d) the flagship and phase 14's Switch-MoE LM, one
+   replica each behind a ``ModelRegistry``: tokens each model's lone
+   server's, each replica serving only its model, a ``ghost`` model
+   ``NOT_FOUND`` with no retry, ``faults.tenant_flood`` on the MoE
+   tenant shedding only it (``tenant_quota``); (e) r0 prefills and r1
+   decodes (``disaggregate``): tokens one paged server's, each trace
+   holding both replicas' fragments, a context sealed into a
+   ``submit_prefill`` blob bit for bit (``peek_handoff_trace``) and
+   joined by the decode server from the blob; (f) ``ContinuousLoop``
+   trains phase 5's cell (T 1024, B 16, bf16 over f32, SGD 0.01) 4
+   steps an interval while the fleet serves: deploys at intervals 1
+   and 3 confirmed at 2 and 4 through the verified swap, a
+   ``poison_candidate`` deploy at 5 rejected with no swap and the
+   served tokens unchanged, no request failing, and the first
+   interval's losses ``LocalOptimizer``'s on the same batch bit for bit.
+18. a ``{"kernels": [...]}`` line (K1-K4 with a ``moe step`` variant
    each: its time at the MoE step's shape, its launches (a)'s bf16 run's),
    the ``nvidia-smi`` line, and as the last line ``{"ok": true,
    "device": {...}}``.
@@ -363,6 +394,11 @@ runs phase 1, builds K1-K4 and runs phase 15 alone (record in
 
 runs phase 1, builds K1-K4 and runs phase 16 alone (record in
 ``chiprun_out/chip_phase16.json``; exit 1 on a failed check).
+
+    python3 chip_smoke.py --phase17
+
+runs phase 1, builds K1-K4 and runs phase 17 alone (record in
+``chiprun_out/chip_phase17.json``; exit 1 on a failed check).
 
     python3 chip_smoke.py --profile
 
@@ -6683,6 +6719,581 @@ VARIANT_CASES = {"f32_D192": "f32 D 192", "f32_D256": "f32 D 256",
                  "block8_bf16 masked W": "masked W"}
 
 
+# phase 17: the serving fleet.  Two replicas of the flagship on one card
+# (each its own copy of the parameters), prompts of 128 ids from
+# RandomState(17), 32 new tokens a request, bf16 generation
+FLEET = dict(replicas=2, prompt=128, new=32, lone=32, killed=16, hedged=4,
+             batched=64, batch=8, tenants=8, paged=4, kv_pages=64,
+             page=16, loop_steps=4, hedge_delay_s=0.05, slow_s=0.5,
+             deadline_s=300.0, pump_s=0.05, heartbeat_s=1.0)
+# every kept trace's span union over its request wall: the reference
+# spec's limit (tests/test_request_trace.py:132-133)
+FLEET_COVERAGE_MIN = 0.95
+
+
+def _fleet_lm(torch, cfg, moe=False):
+    """The phase's LM at ``cfg``'s width on the card (the trainer's
+    ``output="logits"``), from ``manual_seed(0)``; ``moe``: the Switch-MoE
+    LM of phase 14."""
+    from bigdl_tpu_torch.models.transformer import TransformerLM
+
+    kw = {} if not moe else dict(
+        mlp_dim=cfg["mlp_dim"], moe_experts=cfg["experts"],
+        moe_aux_coef=cfg["aux"], moe_capacity_factor=cfg["capacity"])
+    return TransformerLM(cfg["vocab"], embed_dim=cfg["embed_dim"],
+                         num_heads=cfg["num_heads"],
+                         num_layers=cfg["num_layers"],
+                         max_len=cfg["max_len"], seq_strategy="flash",
+                         output="logits", device="cuda",
+                         generator=torch.Generator().manual_seed(0), **kw)
+
+
+def _percentile_ms(lat, q):
+    import numpy as np
+
+    return float(np.percentile(np.asarray(lat) * 1e3, q)) if lat else None
+
+
+def _replica_counts(fl):
+    return {rid: dict(srv.metrics.counts, batches=srv.metrics.batches,
+                      swaps=srv.metrics.swaps)
+            for rid, srv in sorted(fl.servers.items())}
+
+
+def _router_counts(fl):
+    m = fl.router.metrics
+    return dict(served_ok=m.snapshot()["served_ok"], retries=m.retries,
+                hedges_fired=m.hedges_fired, hedges_won=m.hedges_won,
+                ejections=fl.router.ejections,
+                readmissions=fl.router.readmissions)
+
+
+def _check_traces(fl, want_cats, label, failures):
+    """Stitch every kept trace: categories ⊇ ``want_cats`` and within the
+    shared vocabulary, at least two hosts, coverage ≥ the reference's
+    limit.  Returns (stitched traces, their coverages)."""
+    from bigdl_tpu_torch.serving import trace_coverage
+    from bigdl_tpu_torch.telemetry.trace_context import REQUEST_CATEGORIES
+
+    traces, covs = {}, []
+    for k in fl.kept_traces():
+        t = fl.stitch_trace(k["trace_id"])
+        cats = {e["cat"] for e in (t or {}).get("traceEvents", ())
+                if e.get("ph") == "X"}
+        cov = trace_coverage(t) if t else None
+        covs.append(cov)
+        traces[k["trace_id"]] = t
+        if not (t and set(want_cats) <= cats
+                and cats <= set(REQUEST_CATEGORIES)
+                and len(t["hosts"]) >= 2 and cov is not None
+                and cov >= FLEET_COVERAGE_MIN):
+            failures.append(f"phase 17 {label} trace {k['trace_id']}: "
+                            f"categories {sorted(cats)}, hosts "
+                            f"{t and t['hosts']}, coverage {cov}")
+    return traces, covs
+
+
+def _attribution_shares(traces):
+    """Mean share of the request wall per phase over ``traces``."""
+    from bigdl_tpu_torch.serving import trace_attribution
+
+    shares = {}
+    attrs = [a for a in (trace_attribution(t) for t in traces.values())
+             if a and a["wall_s"] > 0]
+    for a in attrs:
+        for ph, s in a["phases"].items():
+            shares[ph] = shares.get(ph, 0.0) + s / a["wall_s"] / len(attrs)
+    return shares
+
+
+def fleet_phase(torch, smi):
+    """Phase 17 (a)-(f): the flagship, phase 14's MoE width and ``FLEET``'s
+    sizes, in bf16 on the card.  Returns (record, failures); the record's
+    ``launches`` are every path of the phase, read from zero."""
+    import collections
+    import threading
+
+    import numpy as np
+
+    from bigdl_tpu_torch import nn
+    from bigdl_tpu_torch.dataset import Sample, array
+    from bigdl_tpu_torch.loop import ContinuousLoop
+    from bigdl_tpu_torch.optim import SGD, LocalOptimizer, Trigger
+    from bigdl_tpu_torch.resilience import faults
+    from bigdl_tpu_torch.serving import (InferenceServer, KVPagePool,
+                                         ServingFleet, Status,
+                                         trace_coverage)
+    from bigdl_tpu_torch.serving.pools import (deserialize_handoff,
+                                               peek_handoff_trace)
+    from bigdl_tpu_torch.telemetry.trace_context import TraceContext
+    from bigdl_tpu_torch.utils.rng import RNG
+
+    t_phase = time.perf_counter()
+    cfg, S, bf16 = dict(FLAGSHIP, max_len=TRAIN_T), FLEET, torch.bfloat16
+    V, NEW, wait = cfg["vocab"], S["new"], S["deadline_s"]
+    failures, rec = [], {}
+    counters = launch_counters()
+    for c in counters.values():
+        c.reset()
+    rng = np.random.RandomState(17)
+    prompts = rng.randint(1, V + 1, size=(S["lone"], S["prompt"])).astype(
+        np.int32)
+    model = _fleet_lm(torch, cfg)
+    server_kw = dict(max_batch=1, generate_dtype=bf16)
+
+    def make_fleet(n=S["replicas"], kw=None, router_kw=None, **fleet_kw):
+        return ServingFleet.build(
+            model, n_replicas=n, server_kw=dict(server_kw, **(kw or {})),
+            heartbeat_timeout=S["heartbeat_s"], pump_interval_s=S["pump_s"],
+            tracing=True, trace_kw=dict(keep_per_s=1e9, burst=1e9),
+            router_kw=dict(default_deadline_s=wait, **(router_kw or {})),
+            **fleet_kw)
+
+    def warm(fl, prompt):
+        # every replica once, one at a time, before the router routes:
+        # the kernels load on one thread (a decode replica is warmed by
+        # the caller, from a prefill's blob)
+        for srv in fl.servers.values():
+            if srv.role == "decode":
+                continue
+            r = (srv.submit_prefill(prompt) if srv.role == "prefill"
+                 else srv.submit_generate(prompt, NEW)).result(wait)
+            if r.status is not Status.OK:
+                failures.append(f"phase 17 warm-up on {srv.name}: "
+                                f"{r.status} {r.error}")
+
+    def closed_loop(submit, batch):
+        # one request in flight at a time
+        return [submit(p).result(wait) for p in batch]
+
+    def same_tokens(results, want):
+        return [r.status is Status.OK and np.array_equal(
+            np.asarray(r.output), w) for r, w in zip(results, want)]
+
+    # the lone server: the tokens every routed run is held to
+    lone = InferenceServer(model, name="lone", **server_kw).start()
+    try:
+        lone.submit_generate(prompts[0], NEW).result(wait)
+        lone_res = closed_loop(lambda p: lone.submit_generate(p, NEW),
+                               prompts)
+    finally:
+        lone.stop(timeout=60)
+    lone_tokens = [np.asarray(r.output) for r in lone_res]
+    lone_lat = [r.latency_s for r in lone_res]
+    if not all(r.status is Status.OK for r in lone_res):
+        failures.append(f"phase 17 lone server: "
+                        f"{[r.status for r in lone_res]}")
+
+    # (a) routed equals lone at max_batch 1; every kept trace stitches
+    fl = make_fleet().start()
+    try:
+        warm(fl, prompts[0])
+        routed = closed_loop(lambda p: fl.submit_generate(p, NEW), prompts)
+        equal = same_tokens(routed, lone_tokens)
+        traces, covs = _check_traces(
+            fl, ("request", "attempt", "queue", "batch", "execute"),
+            "(a)", failures)
+        routed_lat = [r.latency_s for r in routed]
+        rec["a"] = dict(
+            statuses=[r.status.value for r in routed], equal=equal,
+            kept=len(traces), coverage_min=min(covs) if covs else None,
+            lone_p50_ms=_percentile_ms(lone_lat, 50),
+            routed_p50_ms=_percentile_ms(routed_lat, 50),
+            lone_p99_ms=_percentile_ms(lone_lat, 99),
+            routed_p99_ms=_percentile_ms(routed_lat, 99),
+            router=_router_counts(fl), replicas=_replica_counts(fl),
+            shares=_attribution_shares(traces))
+        if not all(equal):
+            failures.append(f"phase 17 (a) routed tokens differ from the "
+                            f"lone server's: {equal}")
+        if len(traces) < len(prompts):
+            failures.append(f"phase 17 (a) kept {len(traces)} of "
+                            f"{len(prompts)} traces")
+        print(f"phase 17 (a) {len(prompts)} requests, max_batch 1, "
+              f"{S['replicas']} replicas ({smi}): routed = lone "
+              f"{sum(equal)}/{len(equal)}; kept traces {len(traces)}, "
+              f"coverage min {rec['a']['coverage_min']}; p50 lone "
+              f"{rec['a']['lone_p50_ms']:.2f} ms, routed "
+              f"{rec['a']['routed_p50_ms']:.2f} ms; router "
+              f"{rec['a']['router']}")
+
+        # (b) kill one replica mid-stream, then rejoin it
+        killed = prompts[:S["killed"]]
+        retries0 = fl.router.metrics.retries
+        futs = [fl.submit_generate(p, NEW) for p in killed]
+        with faults.kill_replica("r1"):
+            deadline = time.monotonic() + 60
+            while "r1" in fl.router.members \
+                    and time.monotonic() < deadline:
+                time.sleep(0.01)
+        ejected = "r1" not in fl.router.members
+        kres = [f.result(wait) for f in futs]
+        typed = all(isinstance(r.status, Status) for r in kres)
+        ok_equal = [np.array_equal(np.asarray(r.output), w)
+                    for r, w in zip(kres, lone_tokens) if r.ok]
+        fl.servers["r1"]._drained.wait(wait)
+        fl.restart_replica("r1")
+        deadline = time.monotonic() + 60
+        while "r1" not in fl.router.members \
+                and time.monotonic() < deadline:
+            time.sleep(0.01)
+        readmitted = "r1" in fl.router.members
+        after = closed_loop(lambda p: fl.submit_generate(p, NEW),
+                            prompts[:4])
+        rec["b"] = dict(statuses=[r.status.value for r in kres],
+                        ok_equal=ok_equal, ejected=ejected,
+                        readmitted=readmitted,
+                        retries=fl.router.metrics.retries - retries0,
+                        after_equal=same_tokens(after, lone_tokens[:4]),
+                        router=_router_counts(fl))
+        if not (typed and ejected and readmitted and all(ok_equal)
+                and all(rec["b"]["after_equal"])):
+            failures.append(f"phase 17 (b) kill/rejoin {rec['b']}")
+        print(f"phase 17 (b) kill r1 mid-stream ({smi}): statuses "
+              f"{dict(collections.Counter(rec['b']['statuses']))}, OK "
+              f"tokens = lone {sum(ok_equal)}/{len(ok_equal)}, ejected "
+              f"{ejected}, readmitted {readmitted}, retries "
+              f"{rec['b']['retries']}")
+    finally:
+        fl.stop(timeout=60)
+    del fl
+
+    # (c) hedging: r0 slowed, the hedge fires after a fixed delay and
+    # the other replica's answer wins
+    fl = make_fleet(router_kw=dict(hedge=True,
+                                   hedge_delay_s=S["hedge_delay_s"])).start()
+    try:
+        warm(fl, prompts[0])
+        time.sleep(2 * S["pump_s"])
+        hedged = []
+        with faults.serving_step_latency(S["slow_s"], server="r0"):
+            for p in prompts[:S["hedged"]]:
+                hedged.append(fl.submit_generate(p, NEW).result(wait))
+                # the slowed loser finishes before the next request
+                time.sleep(S["slow_s"] + 0.2)
+        equal = same_tokens(hedged, lone_tokens)
+        m = fl.router.metrics
+        lost_cov, lost_ok = [], []
+        for k in fl.kept_traces():
+            if not k["hedged"]:
+                continue
+            t = fl.stitch_trace(k["trace_id"])
+            atts = [e for e in t["traceEvents"] if e.get("ph") == "X"
+                    and e.get("cat") == "attempt"]
+            lost_ok.append("lost" in {e["args"].get("hedge_outcome")
+                                      for e in atts})
+            lost_cov.append(trace_coverage(t))
+        rec["c"] = dict(equal=equal, hedges_fired=m.hedges_fired,
+                        hedges_won=m.hedges_won, lost_labeled=lost_ok,
+                        coverage=lost_cov)
+        if not (all(equal) and m.hedges_fired > 0 and m.hedges_won > 0
+                and lost_ok and all(lost_ok) and all(
+                    c is not None and FLEET_COVERAGE_MIN <= c <= 1.0
+                    for c in lost_cov)):
+            failures.append(f"phase 17 (c) hedging {rec['c']}")
+        print(f"phase 17 (c) r0 slowed {S['slow_s']} s, hedge after "
+              f"{S['hedge_delay_s']} s ({smi}): tokens = lone "
+              f"{sum(equal)}/{len(equal)}, hedges fired {m.hedges_fired} "
+              f"won {m.hedges_won}, lost attempts labeled {lost_ok}, "
+              f"coverage {lost_cov}")
+    finally:
+        fl.stop(timeout=60)
+    del fl
+
+    # (a) continued: 64 requests at once at max_batch 8 through a lone
+    # server and through the fleet, each server first warmed at every
+    # bucket of the ladder — reported
+    batch_prompts = rng.randint(1, V + 1, size=(
+        S["batched"], S["prompt"])).astype(np.int32)
+    batched_kw = dict(server_kw, max_batch=S["batch"])
+
+    def warm_buckets(srv):
+        n = S["batch"]
+        while n >= 1:
+            for f in [srv.submit_generate(p, NEW) for p in prompts[:n]]:
+                f.result(wait)
+            n //= 2
+
+    def at_once(submit):
+        t0 = time.perf_counter()
+        res = [f.result(wait) for f in [submit(p) for p in batch_prompts]]
+        wall = time.perf_counter() - t0
+        lat = [r.latency_s for r in res]
+        return res, dict(
+            statuses=dict(collections.Counter(r.status.value for r in res)),
+            p50_ms=_percentile_ms(lat, 50), p99_ms=_percentile_ms(lat, 99),
+            wall_s=wall, tokens_per_s=len(res) * NEW / wall)
+
+    lone = InferenceServer(model, name="lone-batched", **batched_kw).start()
+    try:
+        warm_buckets(lone)
+        lone_batches = lone.metrics.batches
+        lone_res, lone_rec = at_once(lambda p: lone.submit_generate(p, NEW))
+        lone_rec["batches"] = lone.metrics.batches - lone_batches
+    finally:
+        lone.stop(timeout=60)
+    fl = make_fleet(kw=dict(max_batch=S["batch"])).start()
+    try:
+        for srv in fl.servers.values():
+            warm_buckets(srv)
+        batches0 = {rid: s.metrics.batches for rid, s in fl.servers.items()}
+        res, fleet_rec = at_once(lambda p: fl.submit_generate(p, NEW))
+        traces, _ = _check_traces(fl, ("request", "attempt", "queue",
+                                       "batch", "execute"), "(a) batched",
+                                  failures)
+        fleet_rec.update(
+            batches={rid: s.metrics.batches - batches0[rid]
+                     for rid, s in fl.servers.items()},
+            router=_router_counts(fl), replicas=_replica_counts(fl),
+            shares=_attribution_shares(traces))
+        rec["a_batched"] = dict(lone=lone_rec, fleet=fleet_rec)
+        if not all(r.ok for r in res + lone_res):
+            failures.append(f"phase 17 (a) batched statuses "
+                            f"{rec['a_batched']}")
+        for label, r in (("lone server", lone_rec), ("fleet", fleet_rec)):
+            print(f"phase 17 (a) {len(res)} requests at once, max_batch "
+                  f"{S['batch']}, {label} ({smi}): p50 {r['p50_ms']:.1f} "
+                  f"ms p99 {r['p99_ms']:.1f} ms, wall {r['wall_s']:.3f} s, "
+                  f"{r['tokens_per_s']:.0f} tokens/s, batches "
+                  f"{r['batches']}")
+        print(f"phase 17 (a) fleet counters ({smi}): router "
+              f"{fleet_rec['router']}; replicas {fleet_rec['replicas']}; "
+              f"mean attribution shares "
+              f"{ {k: round(v, 4) for k, v in fleet_rec['shares'].items()} }")
+    finally:
+        fl.stop(timeout=60)
+    del fl
+    torch.cuda.empty_cache()
+
+    # (d) two tenants on one card: the flagship and the Switch-MoE LM
+    moe_model = _fleet_lm(torch, MOE, moe=True)
+    tp = prompts[:S["tenants"]]
+    lone_moe = InferenceServer(moe_model, name="lone-moe", **server_kw)
+    lone_moe.start()
+    try:
+        moe_tokens = [np.asarray(r.output) for r in closed_loop(
+            lambda p: lone_moe.submit_generate(p, NEW), tp)]
+    finally:
+        lone_moe.stop(timeout=60)
+    fl = ServingFleet.build_multi(
+        {"flagship": model, "moe": moe_model}, n_replicas_each=1,
+        server_kw=server_kw, heartbeat_timeout=S["heartbeat_s"],
+        pump_interval_s=S["pump_s"],
+        router_kw=dict(default_deadline_s=wait)).start()
+    try:
+        for rid in ("flagship-r0", "moe-r0"):
+            fl.servers[rid].submit_generate(tp[0], NEW).result(wait)
+        flag = closed_loop(lambda p: fl.submit_generate(
+            p, NEW, model="flagship"), tp)
+        moe = closed_loop(lambda p: fl.submit_generate(
+            p, NEW, model="moe"), tp)
+        served = {rid: srv.metrics.counts["ok"]
+                  for rid, srv in fl.servers.items()}
+        retries0 = fl.router.metrics.retries
+        ghost = fl.submit_generate(tp[0], NEW, model="ghost").result(wait)
+        with faults.tenant_flood("moe", rps=10 ** 6):
+            flooded = [fl.submit_generate(p, NEW, model="moe").result(wait)
+                       for p in tp[:2]]
+            calm = [fl.submit_generate(p, NEW, model="flagship").result(
+                wait) for p in tp[:2]]
+        tenants = fl.router.metrics.tenants()
+        rec["d"] = dict(
+            flagship_equal=same_tokens(flag, lone_tokens),
+            moe_equal=same_tokens(moe, moe_tokens), served=served,
+            ghost=ghost.status.value,
+            ghost_retries=fl.router.metrics.retries - retries0,
+            flooded=[(r.status.value, r.error) for r in flooded],
+            calm=same_tokens(calm, lone_tokens),
+            sheds={t: tenants[t]["sheds"] for t in ("flagship", "moe")
+                   if t in tenants})
+        ok = (all(rec["d"]["flagship_equal"]) and all(rec["d"]["moe_equal"])
+              and served == {"flagship-r0": len(tp) + 1,
+                             "moe-r0": len(tp) + 1}
+              and ghost.status is Status.NOT_FOUND
+              and rec["d"]["ghost_retries"] == 0
+              and all(r.status is Status.OVERLOADED
+                      and "tenant_quota" in (r.error or "")
+                      for r in flooded)
+              and all(rec["d"]["calm"])
+              and tenants["moe"]["sheds"].get("tenant_quota") == len(flooded)
+              and tenants["flagship"]["shed_total"] == 0)
+        if not ok:
+            failures.append(f"phase 17 (d) tenants {rec['d']}")
+        print(f"phase 17 (d) flagship + MoE on one card ({smi}): tokens = "
+              f"lone {sum(rec['d']['flagship_equal'])}/{len(tp)} and "
+              f"{sum(rec['d']['moe_equal'])}/{len(tp)}, served {served}, "
+              f"ghost {ghost.status.value} ({rec['d']['ghost_retries']} "
+              f"retries), sheds {rec['d']['sheds']}")
+    finally:
+        fl.stop(timeout=60)
+    del fl, moe_model
+    torch.cuda.empty_cache()
+
+    # (e) disaggregated: one replica prefills, the other decodes
+    pp = prompts[:S["paged"]]
+    lone_paged = InferenceServer(
+        model, name="lone-paged", kv_pool=KVPagePool.for_model(
+            model, S["kv_pages"], page_size=S["page"]), **server_kw).start()
+    try:
+        paged_tokens = [np.asarray(r.output) for r in closed_loop(
+            lambda p: lone_paged.submit_generate(p, NEW), pp)]
+    finally:
+        lone_paged.stop(timeout=60)
+    fl = make_fleet(roles=("prefill", "decode"), kv_pages=S["kv_pages"],
+                    kv_page_size=S["page"],
+                    router_kw=dict(disaggregate=True)).start()
+    try:
+        pre, dec = fl.servers["r0"], fl.servers["r1"]
+        warm(fl, pp[0])
+        blob = pre.submit_prefill(pp[0]).result(wait).output
+        dec.submit_decode(blob, NEW).result(wait)
+        disagg = closed_loop(lambda p: fl.submit_generate(p, NEW), pp)
+        traces, covs = _check_traces(
+            fl, ("request", "attempt", "queue", "prefill", "decode",
+                 "kv_gather"), "(e)", failures)
+        crossed = [{"r0", "r1"} <= set(t["hosts"]) for t in traces.values()]
+        ctx = TraceContext.mint(deadline_s=wait)
+        pre_res = pre.submit_prefill(pp[0], trace=ctx.to_wire()).result(wait)
+        carried = peek_handoff_trace(pre_res.output) == ctx.to_wire()
+        dec_res = dec.submit_decode(pre_res.output, NEW).result(wait)
+        direct = np.concatenate([
+            [deserialize_handoff(pre_res.output)["first_token"]],
+            np.asarray(dec_res.output)]).astype(np.int32)
+        dec_frag = dec.trace_sink.fragment(ctx.trace_id)
+        joined = bool(dec_frag and dec_frag["spans"])
+        rec["e"] = dict(equal=same_tokens(disagg, paged_tokens),
+                        crossed=crossed, coverage=covs, carried=carried,
+                        direct_equal=bool(np.array_equal(
+                            direct, paged_tokens[0])),
+                        decode_joined=joined)
+        if not (all(rec["e"]["equal"]) and crossed and all(crossed)
+                and carried and rec["e"]["direct_equal"] and joined):
+            failures.append(f"phase 17 (e) handoff {rec['e']}")
+        print(f"phase 17 (e) prefill on r0, decode on r1 ({smi}): tokens = "
+              f"the paged run {sum(rec['e']['equal'])}/{len(pp)}, traces "
+              f"crossing both replicas {sum(crossed)}/{len(crossed)}, "
+              f"context in the blob bit for bit {carried}, the decode "
+              f"server joined it from the blob {joined}")
+    finally:
+        fl.stop(timeout=60)
+    del fl
+    torch.cuda.empty_cache()
+
+    # (f) the continuous loop: phase 5's cell trained while the fleet
+    # serves; deploys through the verified swap; a poisoned candidate
+    B, T, steps = TRAIN_BATCH, cfg["max_len"], S["loop_steps"]
+    data_rng = np.random.RandomState(5)
+
+    def samples(n):
+        x = data_rng.randint(1, V + 1, size=(n, T)).astype(np.int32)
+        y = data_rng.randint(1, V + 1, size=(n, T)).astype(np.int32)
+        return [Sample(a, b) for a, b in zip(x, y)]
+
+    def trainer(m, data):
+        opt = LocalOptimizer(
+            m, data, nn.TimeDistributedCriterion(nn.CrossEntropyCriterion(),
+                                                 True), batch_size=B)
+        opt.set_optim_method(SGD(TRAIN_LR))
+        opt.set_compute_dtype(bf16)
+        return opt
+
+    def recording(opt, seen):
+        orig = opt.set_end_when
+
+        def set_end_when(trigger):
+            def check(state):
+                if "loss" in state and len(seen) < state["neval"] - 1:
+                    seen.append(float(state["loss"]))
+                return trigger(state)
+            return orig(Trigger(check))
+        opt.set_end_when = set_end_when
+        return opt
+
+    first, fresh = samples(B), samples(B)
+    ref_model = _fleet_lm(torch, cfg)
+    ref_losses = []
+    RNG().set_seed(1)
+    recording(trainer(ref_model, array(fresh)), ref_losses).train_more(steps)
+    del ref_model
+    train_model = _fleet_lm(torch, cfg)
+    loop_losses = []
+    opt = recording(trainer(train_model, array(first)), loop_losses)
+    feed = [fresh]
+    fl = make_fleet().start()
+    try:
+        warm(fl, prompts[0])
+        loop = ContinuousLoop(opt, fl, lambda: feed.pop(0) if feed
+                              else samples(B), steps_per_interval=steps,
+                              deploy_every=1, watch_intervals=1,
+                              cooldown_intervals=0, dataset_capacity=B,
+                              interval_s=1.0)
+        stop, served, errs = threading.Event(), [], []
+
+        def client():
+            r = np.random.RandomState(23)
+            while not stop.is_set():
+                p = r.randint(1, V + 1, size=(S["prompt"],)).astype(
+                    np.int32)
+                try:
+                    served.append(fl.submit_generate(p, 8).result(wait))
+                except Exception as e:  # pragma: no cover - fail below
+                    errs.append(e)
+
+        th = threading.Thread(target=client, daemon=True)
+        th.start()
+        try:
+            RNG().set_seed(1)
+            for _ in range(4):
+                loop.tick()
+            probe = fl.submit_generate(prompts[1], NEW).result(wait)
+            swaps = {rid: s.metrics.swaps for rid, s in fl.servers.items()}
+            with faults.poison_candidate(times=1):
+                loop.tick()
+            probe_after = fl.submit_generate(prompts[1], NEW).result(wait)
+        finally:
+            stop.set()
+            th.join(timeout=wait)
+        outcomes = dict(loop.deploy_outcomes)
+        first_equal = loop_losses[:steps] == ref_losses
+        rec["f"] = dict(
+            outcomes=outcomes, swaps=swaps,
+            swaps_after={rid: s.metrics.swaps
+                         for rid, s in fl.servers.items()},
+            loop_losses=loop_losses, ref_losses=ref_losses,
+            first_cycle_equal=first_equal,
+            served=dict(collections.Counter(r.status.value for r in served)),
+            bad_params_served=loop.bad_params_served,
+            poison_unserved=bool(probe.ok and probe_after.ok
+                                 and np.array_equal(probe.output,
+                                                    probe_after.output)),
+            last_swap_s={rid: s.last_swap_s
+                         for rid, s in fl.servers.items()})
+        ok = (outcomes == {"confirmed": 2, "rejected": 1}
+              and set(swaps.values()) == {2}
+              and rec["f"]["swaps_after"] == swaps
+              and first_equal and not errs and served
+              and all(r.ok for r in served)
+              and loop.bad_params_served == 0
+              and rec["f"]["poison_unserved"])
+        if not ok:
+            failures.append(f"phase 17 (f) loop {rec['f']} {errs[:1]}")
+        print(f"phase 17 (f) ContinuousLoop, {steps} steps an interval, B "
+              f"{B} T {T} ({smi}): outcomes {outcomes}, swaps {swaps}, "
+              f"first cycle = LocalOptimizer bit for bit {first_equal} "
+              f"({loop_losses[:steps]}), served during the loop "
+              f"{rec['f']['served']}, poisoned candidate served nowhere "
+              f"{rec['f']['poison_unserved']}")
+    finally:
+        fl.stop(timeout=60)
+    del fl, train_model, opt
+    torch.cuda.empty_cache()
+    rec.update(launches={n: c.count for n, c in counters.items()},
+               seconds=time.perf_counter() - t_phase)
+    print(f"phase 17 launches {_nz(rec['launches'])}, "
+          f"{rec['seconds']:.1f} s ({smi})")
+    return rec, failures
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -6708,6 +7319,9 @@ def main(argv=None) -> int:
                          "training) alone")
     ap.add_argument("--phase16", action="store_true",
                     help="build K1-K4 and run phase 16 (telemetry) alone")
+    ap.add_argument("--phase17", action="store_true",
+                    help="build K1-K4 and run phase 17 (the serving fleet) "
+                         "alone")
     # phase 15 (d)'s CPU ranks: this script run as one gloo rank
     for flag in ("--distri-cpu-rank", "--distri-cpu-world"):
         ap.add_argument(flag, type=int, help=argparse.SUPPRESS)
@@ -6743,7 +7357,7 @@ def main(argv=None) -> int:
 
     libs = (("flash_fwd", "flash_bwd")
             if args.phase12 or args.phase_moe or args.phase15
-            or args.phase16 else
+            or args.phase16 or args.phase17 else
             ("conv3x3",) if args.phase13 else
             ("flash_fwd", "flash_bwd", "block_sparse", "conv3x3"))
     t0 = time.perf_counter()
@@ -6793,6 +7407,15 @@ def main(argv=None) -> int:
         (out / "chip_phase16.json").write_text(json.dumps(dict(
             device=kind, nvidia_smi=smi, torch=torch.__version__,
             telemetry_path=rec, failures=failures), indent=1, default=str))
+        for f in failures:
+            print(f"FAIL: {f}", file=sys.stderr)
+        print(smi)
+        return 1 if failures else 0
+    if args.phase17:
+        rec, failures = fleet_phase(torch, smi)
+        (out / "chip_phase17.json").write_text(json.dumps(dict(
+            device=kind, nvidia_smi=smi, torch=torch.__version__,
+            fleet_path=rec, failures=failures), indent=1, default=str))
         for f in failures:
             print(f"FAIL: {f}", file=sys.stderr)
         print(smi)
@@ -6935,6 +7558,12 @@ def main(argv=None) -> int:
     phase16, phase16_failures = telemetry_phase(torch, smi)
     failures += phase16_failures
 
+    # phase 17: the serving fleet — two flagship replicas on the card
+    # behind the router (traced, killed and rejoined, hedged), two
+    # tenants, the disaggregated handoff, the continuous loop
+    phase17, phase17_failures = fleet_phase(torch, smi)
+    failures += phase17_failures
+
     # launches summed over every path, each read from zero
     launches = {n: sum(b["launches"][n] for b in served["batches"])
                 + trained["launches"][n] + bs_trained["launches"][n]
@@ -6942,7 +7571,7 @@ def main(argv=None) -> int:
                 + phase10["launches"][n] + phase11["launches"][n]
                 + phase12["launches"][n] + phase13["launches"][n]
                 + phase14["launches"][n] + phase15["launches"][n]
-                + phase16["launches"][n]
+                + phase16["launches"][n] + phase17["launches"][n]
                 for n in launch_counters()}
     for mm_path in mm_paths:
         for name, n in mm_path["launches"].items():
@@ -7084,7 +7713,8 @@ def main(argv=None) -> int:
         resnet50_training_path=resnet, paged_serving_path=paged,
         checkpoint_swap_path=phase10, torch_api_path=phase11,
         training_breadth_path=phase12, zoo_path=phase13, moe_path=phase14,
-        distri_path=phase15, telemetry_path=phase16, kernels=kernels,
+        distri_path=phase15, telemetry_path=phase16, fleet_path=phase17,
+        kernels=kernels,
         failures=failures, seconds=time.perf_counter()
         - T_START), indent=1))
 

@@ -29,7 +29,9 @@ small LM bit for bit as ``LocalOptimizer`` does, and
 telemetry's work counter reads the same work from K1-K4 on the card as
 from their plain versions on the CPU, a Telemetry bundle leaves the
 small LM's losses and weights as they are, bit for bit, and the memory
-gauges read the caching allocator.
+gauges read the caching allocator.  A two-replica fleet of the small
+LM on the card routes the CPU fleet's greedy tokens, its traces
+stitched.
 """
 import math
 
@@ -1669,6 +1671,59 @@ def test_head_dim_8_lm_served_on_card_matches_cpu(cuda_device):
     assert fa.LAUNCHES.count > before   # the prefill ran K1
     np.testing.assert_array_equal(np.stack([r.output for r in results]),
                                   want[:, T0:])
+
+
+def test_small_lm_fleet_on_card_routes_like_cpu_fleet(cuda_device):
+    """A two-replica ``ServingFleet`` of a small LM on the card in f32,
+    ``max_batch`` 1, tracing on and every trace kept: the routed greedy
+    tokens equal the same fleet's on the CPU (six prompts whose greedy
+    choices clear the runner-up by 1e-3), and every kept trace stitches
+    across the router and a replica with coverage >= 0.95 (the JAX
+    package's spec limit)."""
+    from bigdl_tpu_torch.serving import ServingFleet, trace_coverage
+
+    cfg = dict(embed_dim=64, num_heads=4, num_layers=2, max_len=64,
+               seq_strategy="flash")
+    V, T0, max_new = 64, 20, 12
+    prompts = np.random.RandomState(0).randint(
+        1, V + 1, size=(6, T0)).astype(np.int32)
+
+    def routed(device):
+        model = TransformerLM(V, **cfg, device=device,
+                              generator=torch.Generator().manual_seed(9))
+        fl = ServingFleet.build(
+            model, n_replicas=2, server_kw=dict(max_batch=1),
+            heartbeat_timeout=2.0, pump_interval_s=0.05, tracing=True,
+            trace_kw=dict(keep_per_s=1e9, burst=1e9),
+            router_kw=dict(default_deadline_s=300.0)).start()
+        try:
+            # one replica at a time before the router routes
+            for srv in fl.servers.values():
+                assert srv.submit_generate(prompts[0],
+                                           max_new).result(300).ok
+            res = [fl.submit_generate(p, max_new).result(300)
+                   for p in prompts]
+            traces = [fl.stitch_trace(k["trace_id"])
+                      for k in fl.kept_traces()]
+        finally:
+            assert fl.stop(timeout=60)
+        assert [r.status for r in res] == [Status.OK] * len(prompts)
+        return np.stack([r.output for r in res]), traces, model
+
+    want, _, cpu = routed("cpu")
+    full = np.concatenate([prompts, want], axis=1)
+    with torch.no_grad():
+        lp = cpu(torch.as_tensor(full[:, :-1])).numpy()
+    top2 = np.sort(lp[:, T0 - 1:], axis=-1)[..., -2:]
+    assert (top2[..., 1] - top2[..., 0]).min() > 1e-3
+    before = fa.LAUNCHES.count
+    got, traces, _ = routed(cuda_device)
+    assert fa.LAUNCHES.count > before
+    np.testing.assert_array_equal(got, want)
+    assert len(traces) == len(prompts)
+    for t in traces:
+        assert len(t["hosts"]) >= 2
+        assert trace_coverage(t) >= 0.95
 
 
 # ----------------------------------------------------------------------

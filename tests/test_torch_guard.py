@@ -96,6 +96,22 @@ def test_scan_covers_the_data_parallel_modules(path):
     assert forbidden_imports((REPO / path).read_text()) == []
 
 
+@pytest.mark.parametrize("module", [
+    "serving/fleet.py", "serving/router.py", "serving/registry.py",
+    "serving/health.py", "serving/autoscale.py",
+    "serving/request_trace.py", "serving/trace_report.py",
+    "serving/server.py", "serving/pools.py", "loop/__init__.py",
+    "loop/continuous.py", "resilience/elastic.py",
+    "serving/__init__.py", "resilience/faults.py"])
+def test_scan_covers_the_serving_fleet_modules(module):
+    """The serving-fleet slice's modules (copies of the JAX package's
+    jax-free ones, with their own imports) are in the scan and import
+    neither jax nor the JAX package."""
+    path = REPO / "bigdl_tpu_torch" / module
+    assert path in _port_sources()
+    assert forbidden_imports(path.read_text()) == []
+
+
 @pytest.mark.parametrize("snippet", [
     "import jax",
     "import jax.numpy as jnp",

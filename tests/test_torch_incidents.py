@@ -6,8 +6,9 @@ Every spec of ``tests/test_incidents.py`` whose module the port has is
 mirrored: the same events, on the same injected clock, go through the
 JAX objects and their port counterparts; each scenario makes the
 reference's assertions on both, and the two sides' journals, incident
-bundles and folds must be equal.  The ``trace_report`` spec waits for
-the server's request tracing (ROADMAP Queue 1 item 9).
+bundles and folds must be equal.  The ``trace_report`` spec holds the
+port's ``serving/trace_report.py`` against the JAX repository's
+``tools/trace_report.py``.
 """
 import pytest
 import torch
@@ -515,3 +516,36 @@ def test_runtime_registered_families_stay_in_shared_table():
     stray = {f for f in registered if f.startswith("bigdl_")} \
         - set(METRIC_FAMILY_NAMES)
     assert not stray, sorted(stray)
+
+
+def test_trace_report_buckets_untagged_traces_under_default(monkeypatch):
+    """Traces with no tenant stamp land in the ``_default`` bucket — the
+    per-tenant attribution never drops wall seconds; the port's report
+    equals the JAX repository's tool on the same traces."""
+    import bigdl_tpu.serving.request_trace as jrt
+    import bigdl_tpu_torch.serving.request_trace as trt
+    import tools.trace_report as jreport
+    from bigdl_tpu_torch.serving import trace_report as treport
+
+    def fake_attr(trace):
+        return {"wall_s": trace["wall_s"],
+                "tenant": trace.get("tenant"),
+                "phases": {"compute": trace["wall_s"]},
+                "compute_by_replica": {"r0": trace["wall_s"]},
+                "coverage": 1.0, "critical_phase": "compute",
+                "critical_replica": "r0"}
+
+    monkeypatch.setattr(jrt, "trace_attribution", fake_attr)
+    monkeypatch.setattr(trt, "trace_attribution", fake_attr)
+    traces = {"t1": {"wall_s": 0.5, "tenant": "alpha"},
+              "t2": {"wall_s": 0.25},
+              "t3": {"wall_s": 0.125, "tenant": None}}
+    report = treport.analyze(traces)
+    tenants = report["tenants"]
+    assert set(tenants) == {"alpha", "_default"}
+    assert tenants["_default"]["traces"] == 2
+    assert tenants["_default"]["wall_s"] == pytest.approx(0.375)
+    total = sum(t["wall_s"] for t in tenants.values())
+    assert total == pytest.approx(sum(r["wall_s"] for r in report["rows"]))
+    assert report == jreport.analyze(traces)
+    assert treport.render(report) == jreport.render(report)

@@ -127,14 +127,20 @@ def test_inference_server_matches_jax():
 
 
 def test_inference_server_refuses_unported_paths():
+    """Only a device mesh is still refused; tracing and tenants are
+    ported (a malformed trace context degrades to untraced)."""
     _, tm = _pair()
-    for kw in (dict(mesh=object()), dict(trace_sink=object()),
-               dict(model_name="m")):
-        with pytest.raises(NotImplementedError):
-            InferenceServer(tm, **kw)
-    server = InferenceServer(tm)
-    with pytest.raises(NotImplementedError):
-        server.submit_generate(np.arange(1, 5), 2, trace=object())
+    with pytest.raises(NotImplementedError, match="mesh"):
+        InferenceServer(tm, mesh=object())
+    server = InferenceServer(tm, trace_sink=None, model_name="m",
+                             max_batch=2).start()
+    try:
+        res = server.submit_generate(np.arange(1, 5), 2,
+                                     trace=object()).result(timeout=120)
+    finally:
+        assert server.stop(timeout=30)
+    assert res.status is Status.OK and res.trace_id is None
+    assert server.health()["model"] == "m"
 
 
 def test_load_param_tree_round_trip_and_errors():

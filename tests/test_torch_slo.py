@@ -8,8 +8,9 @@ JAX object and its port counterpart, each scenario makes the reference's
 assertions on both, and the two sides' readings — reducer values,
 alert transitions, verdicts, snapshots — must be equal.  The
 autoscaler and fleet specs (``test_autoscaler_*``, ``test_router_*``,
-``test_fleet_health_monitor_*``) wait for the serving fleet (ROADMAP
-Queue 1 item 9).
+``test_fleet_health_monitor_*``) run both packages' ``Autoscaler`` and
+``ServingFleet`` the same way (``tests/_torch_fleet_sides.py``; each
+fleet stopped in ``finally`` under a deadline of its own).
 """
 import dataclasses
 
@@ -554,3 +555,219 @@ def test_optimizer_health_hook_feeds_monitor():
     assert run(ttel, topt) == run(jtel, jopt) == (True, "ok", [])
     assert LocalOptimizer(topt.model, topt.dataset,
                           topt.criterion).health_verdict() is None
+
+
+# ---------------------------------------------------------------------------
+# autoscaler: SLO verdicts reproduce raw-threshold decisions
+# ---------------------------------------------------------------------------
+
+class _StubServer:
+    def __init__(self, role):
+        self.role = role
+
+
+class _StubRouter:
+    def __init__(self, side):
+        self.metrics = side.serving.ServingMetrics()
+        self.health = {}
+
+    def health_of(self, rid):
+        return self.health.get(rid)
+
+
+class _StubFleet:
+    """Just enough fleet for the Autoscaler: scripted health
+    snapshots, recorded add/remove calls."""
+
+    def __init__(self, side, roles):
+        self.servers = {rid: _StubServer(role)
+                        for rid, role in roles.items()}
+        self.router = _StubRouter(side)
+        self.actions = []
+
+    def add_replica(self, rid, server):
+        self.servers[rid] = server
+        self.actions.append(("add", rid))
+
+    def remove_replica(self, rid, timeout=None, drain=True):
+        self.servers.pop(rid, None)
+        self.router.health.pop(rid, None)
+        self.actions.append(("remove", rid))
+        return True
+
+
+def _scripted_rounds():
+    """quiet -> sustained p99 breach -> recovery -> idle drain -> a
+    one-sample blip that must scale nothing."""
+    quiet = {"ready": True, "role": "both", "p99_s": 0.02,
+             "queue_depth": 0, "shed_total": 0, "requests_total": 0}
+    rounds = []
+    req = 0
+    for spec in ([dict(p99=0.02, dreq=50)] * 3
+                 + [dict(p99=2.0, dreq=200)] * 4
+                 + [dict(p99=0.02, dreq=50)] * 2
+                 + [dict(p99=0.01, dreq=50)] * 6
+                 + [dict(p99=3.0, dreq=200)]
+                 + [dict(p99=0.01, dreq=50)] * 4):
+        req += spec["dreq"]
+        rounds.append(dict(quiet, p99_s=spec["p99"], requests_total=req))
+    return rounds
+
+
+def _drive(side, signal_source):
+    clk = Clock()
+    fleet = _StubFleet(side, {"r0": "both"})
+    policy = side.autoscale.AutoscalePolicy(
+        min_replicas=1, max_replicas=3, p99_high_s=0.5, sustain=2,
+        p99_idle_s=0.05, idle_sustain=3, cooldown_s=0.0,
+        idle_requests_delta=0)
+    asc = side.autoscale.Autoscaler(
+        fleet, lambda rid, role: _StubServer(role), policy=policy,
+        signal_source=signal_source, clock=clk)
+    decisions = []
+    for h in _scripted_rounds():
+        clk.tick()
+        fleet.router.health = {rid: dict(h) for rid in fleet.servers}
+        for d in asc.evaluate_once():
+            decisions.append((d["pool"], d["direction"]))
+    return asc, fleet, decisions
+
+
+def test_autoscaler_slo_reproduces_raw_decisions():
+    from _torch_fleet_sides import both
+
+    def scenario(side):
+        asc_raw, fleet_raw, raw = _drive(side, "raw")
+        asc_slo, fleet_slo, slo = _drive(side, "slo")
+        assert raw == slo
+        assert fleet_raw.actions == fleet_slo.actions
+        assert ("both", "up") in raw and ("both", "down") in raw
+        assert asc_slo.slo_engine is not None
+        states = [a["state"] for a in asc_slo.slo_engine.snapshot()
+                  ["recent"]]
+        assert "firing" in states and "resolved" in states
+        assert asc_raw.slo_engine is None
+        return {"decisions": raw, "actions": fleet_slo.actions,
+                "states": states}
+    both(scenario)
+
+
+def test_autoscaler_slo_traffic_gate_is_staleness():
+    from _torch_fleet_sides import both
+
+    def scenario(side):
+        clk = Clock()
+        fleet = _StubFleet(side, {"r0": "both"})
+        policy = side.autoscale.AutoscalePolicy(
+            min_replicas=1, max_replicas=3, p99_high_s=0.5, sustain=1,
+            cooldown_s=0.0, idle_requests_delta=0)
+        asc = side.autoscale.Autoscaler(
+            fleet, lambda rid, role: _StubServer(role), policy=policy,
+            signal_source="slo", clock=clk)
+        fleet.router.health = {"r0": {
+            "ready": True, "role": "both", "p99_s": 9.9,
+            "queue_depth": 0, "shed_total": 0, "requests_total": 0}}
+        for _ in range(4):
+            clk.tick()
+            assert asc.evaluate_once() == []
+        assert fleet.actions == []
+        return fleet.actions
+    both(scenario)
+
+
+# ---------------------------------------------------------------------------
+# fleet integration: degradation marks ride the eject machinery
+# ---------------------------------------------------------------------------
+
+def test_router_degraded_mark_ejects_and_clears():
+    from _torch_fleet_sides import SpecDeadline, both
+
+    def scenario(side):
+        with SpecDeadline(90) as dl:
+            fl = dl.add(side.serving.ServingFleet.build(
+                side.small_model(), n_replicas=3,
+                server_kw=dict(max_batch=8), heartbeat_timeout=0.4,
+                pump_interval_s=0))
+            fl.start()
+            try:
+                assert set(fl.router.members) == {"r0", "r1", "r2"}
+                fl.router.mark_degraded("r1", "replica/r1/p99")
+                assert "r1" not in fl.router.live()
+                fl.pump_once()
+                assert "r1" not in fl.router.members
+                assert fl.router.degraded == {"r1": "replica/r1/p99"}
+                fl.pump_once()
+                assert "r1" not in fl.router.members
+                rng = np.random.RandomState(0)
+                res = fl.submit(rng.rand(4).astype(np.float32)).result(60)
+                assert res.ok
+                fl.router.clear_degraded("r1")
+                fl.pump_once()
+                assert "r1" in fl.router.members
+                assert "r1" in fl.router.live()
+                assert fl.router.snapshot()["degraded"] == {}
+                return {"output": res.output,
+                        "members": fl.router.members,
+                        "ejections": fl.router.ejections}
+            finally:
+                fl.stop(10)
+    both(scenario)
+
+
+def test_fleet_health_monitor_marks_slow_replica_degraded():
+    import json as _json
+
+    from _torch_fleet_sides import SpecDeadline, both
+
+    def scenario(side):
+        with SpecDeadline(90) as dl:
+            fl = dl.add(side.serving.ServingFleet.build(
+                side.small_model(), n_replicas=3,
+                server_kw=dict(max_batch=8),
+                heartbeat_timeout=5.0, pump_interval_s=0, health=True,
+                health_kw=dict(policy=side.serving.ReplicaHealthPolicy(
+                    p99_high_s=0.5, window_s=30.0, feed_dead_s=30.0,
+                    for_intervals=2, resolve_intervals=2))))
+            fl.start()
+            try:
+                mon = fl.health_monitor
+                assert mon is not None
+
+                def publish(rid, p99, ts):
+                    h = {"replica": rid, "ready": True, "healthy": True,
+                         "draining": False, "queue_depth": 0,
+                         "breaker_state": "closed", "role": "both",
+                         "p99_s": p99, "served_ok": 100,
+                         "shed_total": 0, "requests_total": 100,
+                         "ts": ts}
+                    fl.transport.put(side.router.HEALTH_PREFIX + rid,
+                                     _json.dumps(h))
+
+                for i in range(3):
+                    for rid in ("r0", "r1", "r2"):
+                        publish(rid, 2.0 if rid == "r1" else 0.01,
+                                ts=1000.0 + i)
+                    fl.router.refresh()
+                    mon.observe()
+                assert "r1" in fl.router.degraded
+                assert "r1" in mon.degraded()
+                fl.router.refresh()
+                assert "r1" not in fl.router.members
+                snap = fl.snapshot()
+                assert snap["health"]["degraded"]
+                assert "bigdl_alerts_total" in snap["metrics"]
+                marked = sorted(fl.router.degraded)
+                for i in range(3):
+                    for rid in ("r0", "r1", "r2"):
+                        publish(rid, 0.01, ts=2000.0 + i)
+                    fl.router.refresh()
+                    mon.observe()
+                assert "r1" not in fl.router.degraded
+                fl.pump_once()
+                assert "r1" in fl.router.members
+                return {"marked": marked,
+                        "degraded": snap["health"]["degraded"],
+                        "members": fl.router.members}
+            finally:
+                fl.stop(10)
+    both(scenario)
