@@ -14,8 +14,8 @@ import torch
 
 def data_mesh(mesh):
     """The ``("data",)`` mesh of ``mesh``: itself, or its ``data``
-    dimension where every other dimension has size 1.  A mesh with a
-    model axis of more than one is not ported and raises."""
+    dimension where every other dimension has size 1.  A mesh with any
+    other axis of more than one is not ported and raises."""
     from torch.distributed.device_mesh import DeviceMesh
 
     if mesh is None:
@@ -31,8 +31,9 @@ def data_mesh(mesh):
     if other or "data" not in names:
         raise NotImplementedError(
             f"a mesh with dimensions {dict(zip(names, shape))} is not "
-            "ported to bigdl_tpu_torch yet (ROADMAP Queue 1 items 5b and "
-            "5d); the port trains over a ('data',) mesh")
+            "ported to bigdl_tpu_torch yet (ROADMAP Queue 1 item 5d: the "
+            "model, seq and pipe axes); the port trains over a ('data',) "
+            "mesh")
     return mesh["data"]
 
 

@@ -7,18 +7,24 @@ The reference's iteration is two Spark jobs and a block-manager
 all-reduce; the JAX package's is one shard_mapped program over a device
 mesh.  Here every process of the group runs the same loop on its own
 device (NCCL on the card, gloo on the CPU), the loop of
-``LocalOptimizer`` with the data axis of ``optimizer._DataAxis``:
+``LocalOptimizer`` with the data axis of ``optimizer._DataAxis`` and the
+plan step of ``parallel/plan.py``:
 
   reference                                    this step
   ---------                                    ---------
   getWeights (all-gather via BlockManager)  →  replicated parameters,
-                                               rank 0's at the start
+                                               rank 0's at the start;
+                                               FSDP leaves gathered on
+                                               use
   forward/backward per core clone           →  this rank's rows of the
                                                global batch
   putGradients + aggregateGradientPartition →  one all_reduce of a flat
-                                               f32 buffer, then /N
+                                               f32 buffer, then /N; an
+                                               FSDP leaf's reduce-scatter
   optimMethod on owned slice                →  optim.step on every rank
-                                               (replicated)
+                                               (replicated leaves whole,
+                                               FSDP leaves this rank's
+                                               shard)
 
 This class only routes: it resolves the mesh (the Engine's, which
 starts a group of one on the model's device where there is no group and
@@ -75,6 +81,7 @@ class DistriOptimizer(Optimizer):
             with self._preemption_scope():
                 return self._with_retry(self._loop)
         finally:
+            self._abandon_plan()
             self._shutdown_async_writer()
 
     def _route_mesh(self):

@@ -70,19 +70,29 @@ on the CPU, keyed as the module), ``optimMethod.N`` (the optim method
 with its slots and state table) and ``trainState.N`` (the host RNG, the
 dataset's order and the record cursor).  ``resume_from_checkpoint``
 restores all three from the newest step that verifies, so the resumed
-run continues on the exact next batch.
+run continues on the exact next batch.  A retry restores the same way;
+under FSDP a retry with no checkpoint to restore re-raises the error
+that stopped the attempt (the FSDP leaves lived only as its shards).
 
-Over a data axis (``DistriOptimizer``, ``optim/distri_optimizer.py``)
-the same step and loop run on every rank of the process group, one rank
-a device, with the data-axis rules of the JAX plan step
-(``bigdl_tpu/parallel/plan.py``):
+The step is the sharding-plan engine's (``parallel/plan.py``,
+``compile_step_with_plan``): each attempt derives the plan for the live
+mesh (or re-binds ``set_sharding_plan``'s), reports its table, and runs
+its step; ``LocalOptimizer`` and a one-rank group run the single-device
+step, where FSDP is cleared.  Over a data axis (``DistriOptimizer``,
+``optim/distri_optimizer.py``) the same step and loop run on every rank
+of the process group, one rank a device, with the data-axis rules of the
+JAX plan step (``bigdl_tpu/parallel/plan.py``):
 
 - every rank starts from rank 0's parameters, buffers, host RNG and
   dataset order, so each walks the same global batches; rank r trains
   rows ``[r·b, (r+1)·b)`` of each, on its own device;
-- a full batch: each rank's mean gradient, loss and floating buffers
-  (BatchNorm statistics) go into one flat f32 buffer, one
-  ``all_reduce(SUM)``, then ``/N``: the global batch's mean;
+- a full batch: each rank's mean gradient of the replicated leaves,
+  loss and floating buffers (BatchNorm statistics) go into one flat f32
+  buffer, one ``all_reduce(SUM)``, then ``/N``: the global batch's mean;
+- under ``set_fsdp`` a large leaf is held as this rank's shard with its
+  optimizer slots, gathered on use in the step, its gradient
+  reduce-scattered then ``/N``; the module's own copy is written back
+  (gathered) at a checkpoint, for validation and at the end of the loop;
 - a trailing batch whose record count does not divide by N is padded
   to the multiple by repeating its last record; each record's loss is
   weighted 1-real/0-pad over the global real count (an MoE term adds
@@ -98,17 +108,19 @@ a device, with the data-axis rules of the JAX plan step
   under ``torch.profiler`` (``optim.profiling.trace_phase_split``): its
   compute and collective time split the step's metrics and, with
   telemetry, become the step span's children; the telemetry's
-  collective bytes are the flat all-reduce's wire estimate, 2(N − 1)/N
-  times the flat buffer's bytes.
+  collective bytes are the plan's ``collective_bytes`` (the parameters'
+  own bytes, per leaf, ``bigdl_tpu/parallel/plan.py:1730``), and the
+  ``bigdl_plan_param_bytes_per_device``/``_total`` gauges what this
+  rank holds and what the model has.
 
-One rank sums one term and divides by 1, so its numbers are
-``LocalOptimizer``'s bit for bit.
+One rank runs no collective, so its numbers are ``LocalOptimizer``'s bit
+for bit.
 
 Not ported yet, and refused if configured: elastic training;
-``"orbax"`` checkpoints; the sharding-plan engine's knobs
-(``set_sharding_plan``, ``set_fsdp``, ``set_sparse_density``,
-``set_sync_period``, ``set_sync_staleness``,
-``set_pipeline_microbatch``).
+``"orbax"`` checkpoints; the sparse transport and relaxed synchrony
+(``set_sparse_density``, ``set_sync_period``, ``set_sync_staleness``,
+ROADMAP Queue 1 item 5c); pipeline parallelism
+(``set_pipeline_microbatch``, item 5d).
 """
 from __future__ import annotations
 
@@ -126,8 +138,7 @@ from ..dataset.sample import MiniBatch, SampleToMiniBatch
 from ._sharding_utils import (map_batch, maskable, mesh_device, pad_batch,
                               round_up, rows_of)
 from ..nn.module import rng_scope
-from ..parallel.moe import capture_aux
-from ..resilience.guards import LossSpikeDetector, tree_finite, where_tree
+from ..resilience.guards import LossSpikeDetector
 from ..resilience.preemption import PreemptionHandler
 from ..resilience.retry import LossSpikeError, RetryPolicy
 from ..utils.engine import get_property
@@ -135,7 +146,7 @@ from ..utils.rng import RNG, next_step_seed
 from ..utils.tree import tree_leaves, tree_map
 from .metrics import Metrics
 from .optim_method import SGD, OptimMethod
-from .regularizer import collect_regularizer_paths, regularizer_loss
+from .regularizer import collect_regularizer_paths
 from .trigger import Trigger, max_epoch, max_iteration
 
 log = logging.getLogger("bigdl_tpu_torch")
@@ -221,6 +232,15 @@ class Optimizer:
         self.health_monitor = None
         #: "trace" once a profiled step's split parsed, else None
         self.phase_source = None
+        # the sharding-plan engine (parallel/plan.py): ``sharding_plan``
+        # overrides the derived default rule set; ``fsdp_min_bytes``
+        # arms the threshold FSDP rule (bigdl.fsdp.minBytes)
+        self.sharding_plan = None
+        _fsdp = get_property("bigdl.fsdp.minBytes")
+        self.fsdp_min_bytes = int(_fsdp) if _fsdp else None
+        #: the plan step of the last attempt (its ``table``,
+        #: ``collective_bytes``, ``last_grad_norm``), or None
+        self.engine = None
 
     # -- fluent config (Optimizer.scala:98-243) -------------------------
     def set_optim_method(self, method: OptimMethod):
@@ -399,14 +419,27 @@ class Optimizer:
         return (self.health_monitor.verdict()
                 if self.health_monitor is not None else None)
 
-    # -- the sharding-plan engine's knobs (not ported: the port trains
-    # over the data axis only) ------------------------------------------
+    # -- the sharding-plan engine's knobs (bigdl_tpu/optim/optimizer.py:
+    # 272-330; the data axis only) --------------------------------------
     def set_sharding_plan(self, plan):
-        _unported("the sharding-plan engine (set_sharding_plan; ROADMAP "
-                  "Queue 1 item 5b)")
+        """Install an explicit :class:`~bigdl_tpu_torch.parallel.plan.Plan`
+        (ordered regex rules mapping param-tree path names to partition
+        specs).  ``None`` restores the derived default — module
+        introspection plus the FSDP threshold rule when :meth:`set_fsdp`
+        armed one.  The plan re-binds to the live mesh every attempt."""
+        self.sharding_plan = plan
+        return self
 
     def set_fsdp(self, min_bytes: Optional[int] = 1 << 20):
-        _unported("FSDP (set_fsdp; ROADMAP Queue 1 item 5c)")
+        """Arm FSDP parameter sharding: any parameter of at least
+        ``min_bytes`` that the plan would otherwise replicate over the
+        ``data`` axis is held sharded over it instead (largest divisible
+        dim), with its optimizer slots, gathered on use inside the step;
+        its gradient is reduce-scattered.  ``None`` disables.  (The
+        ``bigdl.fsdp.minBytes`` property sets the default.)  One rank
+        trains replicated: FSDP over one device is a no-op."""
+        self.fsdp_min_bytes = int(min_bytes) if min_bytes else None
+        return self
 
     def set_sparse_density(self, density: Optional[float]):
         _unported("the sparse gradient transport (set_sparse_density; "
@@ -472,6 +505,56 @@ class Optimizer:
         except Exception:
             log.debug("health monitor step failed", exc_info=True)
 
+    # -- the plan step --------------------------------------------------
+    def _plan_engine(self):
+        """The plan step for this attempt: the data axis' mesh, or one
+        device (``LocalOptimizer``, a one-rank group), where the plan is
+        derived and reported and FSDP is cleared."""
+        from ..parallel.plan import compile_step_with_plan
+
+        self.engine = compile_step_with_plan(
+            self.model, self.criterion, self.optim_method,
+            None if self._axis is None else self._axis.mesh,
+            plan=self.sharding_plan, compute_dtype=self.compute_dtype,
+            guard=self.gradient_guard, fsdp_min_bytes=self.fsdp_min_bytes)
+        fsdp = [n for n, row in self.engine.table.items()
+                if row.endswith("[fsdp]")]
+        log.info("sharding plan: %d parameters over data=%d, %d [fsdp]%s; "
+                 "collective bytes a step %.0f", len(self.engine.table),
+                 self.engine.n_data, len(fsdp),
+                 "" if self.engine.has_fsdp or not fsdp else
+                 " (cleared: one device)", self.engine.collective_bytes)
+        return self.engine
+
+    def _abandon_plan(self) -> bool:
+        """After an attempt that raised: the module's released FSDP
+        parameters full-size again (NaN), for a restore to overwrite.
+        True when there were any."""
+        return self.engine is not None and self.engine.abandon()
+
+    def _publish_plan_metrics(self, engine, params):
+        """The ``bigdl_plan_param_bytes_per_device`` (this rank's
+        parameter state) and ``bigdl_plan_param_bytes_total`` (the
+        model's) gauges (bigdl_tpu/optim/optimizer.py:1224-1248)."""
+        from ..telemetry.registry import default_registry
+
+        reg = (self.telemetry.registry if self.telemetry is not None
+               else default_registry())
+        try:
+            by_dev = engine.param_bytes_by_device(params)
+            if by_dev:
+                reg.gauge(
+                    "bigdl_plan_param_bytes_per_device",
+                    "max addressable parameter bytes on one device "
+                    "under the active sharding plan"
+                ).set(float(max(by_dev.values())))
+            reg.gauge(
+                "bigdl_plan_param_bytes_total",
+                "logical parameter bytes of the model"
+            ).set(float(engine.total_param_bytes))
+        except Exception:  # accounting must never take down training
+            log.debug("plan param-bytes accounting failed", exc_info=True)
+
     # -- host-side loop pieces -----------------------------------------
     @staticmethod
     def _should(trigger, state) -> bool:
@@ -511,9 +594,10 @@ class Optimizer:
         if self.gradient_guard:
             s.add_scalar("SkippedSteps", float(self.skipped_steps), step)
 
-    def _validate(self, state):
-        """Run the validation methods on the live parameters, then
-        report them (log, summary, the state's score)."""
+    def _validate(self, state, params=None):
+        """Run the validation methods on ``params`` (the plan step's full
+        parameters; by default the model's own), then report them (log,
+        summary, the state's score)."""
         if self.validation_dataset is None or not self.validation_methods:
             return
         from .evaluator import evaluate_dataset
@@ -522,7 +606,8 @@ class Optimizer:
         results = evaluate_dataset(
             self.model, self.validation_dataset, self.validation_methods,
             batch_size=self.batch_size or 128,
-            mesh=None if self._axis is None else self._axis.mesh)
+            mesh=None if self._axis is None else self._axis.mesh,
+            params=params)
         self.model.train()
         self.validation_stats.append(dict(
             step=state["neval"] - 1, seconds=time.perf_counter() - t0,
@@ -694,8 +779,8 @@ class Optimizer:
             self._apply_train_state(ts)
         return restored_any
 
-    def _restore_latest(self):
-        self.resume_from_checkpoint()
+    def _restore_latest(self) -> bool:
+        return self.resume_from_checkpoint()
 
     def _with_retry(self, fn):
         """The failure-retry loop (reference DistriOptimizer.scala:
@@ -707,12 +792,18 @@ class Optimizer:
 
         def on_retry(exc, attempt):
             self.rollbacks += 1
+            lost = self._abandon_plan()
             if self.telemetry is not None:
                 # everything until the next completed step is recovery
                 self.telemetry.on_recovery_begin()
             if self.spike_detector is not None:
                 self.spike_detector.reset()
-            self._restore_latest()
+            if not self._restore_latest() and lost:
+                # the FSDP leaves lived only as the failed attempt's
+                # shards and no checkpoint restores them: there is no
+                # state to restart from (the JAX optimizer's retry fails
+                # here too, its module's arrays donated to the step)
+                raise exc
 
         return self.retry_policy.run(fn, on_retry=on_retry)
 
@@ -736,88 +827,6 @@ class Optimizer:
         the process that writes checkpoints and summaries."""
         return self._axis is None or self._axis.rank == 0
 
-    def _step(self, params, slots, x, y, lr: float, reg_paths=(),
-              scales=None, weight=None):
-        """One training step; returns (loss, ok, new_slots) with loss
-        and ok still on the device.  ``reg_paths``: the model's
-        regularizers (``collect_regularizer_paths``); ``scales``: the
-        leaves of its gradient scale tree, or None when all are 1.
-
-        Over a data axis (``self._axis``) ``x``/``y`` are this rank's
-        rows; ``weight``, for a trailing batch padded to the axis
-        multiple, is ``(w, n_real)``: this rank's 1-real/0-pad record
-        weights and the global real count."""
-        model, crit, dtype = self.model, self.criterion, self.compute_dtype
-        axis = self._axis
-        masked = weight is not None
-        leaves = tree_leaves(params)
-        buffers = tree_leaves(model.buffer_tree())
-        if self.gradient_guard or masked:
-            old_buffers = [b.clone() for b in buffers]
-        with torch.enable_grad():
-            p_c, x_c = params, x
-            if dtype is not None:
-                p_c, x_c = cast_floats(params, dtype), cast_floats(x, dtype)
-            with capture_aux() as aux_terms:
-                out = model.apply_fn(p_c, x_c)
-            if dtype is not None \
-                    and not getattr(crit, "accepts_low_precision", False):
-                out = cast_floats(out, torch.float32)
-            if masked:
-                # each record's loss weighted 1-real/0-pad over the
-                # global real count; the ranks' sums add to the mean
-                # (bigdl_tpu/parallel/plan.py:1578-1588)
-                loss = _weighted_loss(crit, out, y, *weight)
-                for coef, aux in aux_terms:
-                    loss = loss + coef * aux / axis.size
-            else:
-                loss = crit._loss(out, y)
-                for coef, aux in aux_terms:
-                    loss = loss + coef * aux
-            grads = torch.autograd.grad(loss, leaves, allow_unused=True)
-            if axis is not None:
-                with torch.no_grad():
-                    grads, loss = axis.reduce(grads, leaves, loss, buffers,
-                                              masked)
-            # the penalty on the f32 masters, after the loss gradient
-            # (and after the reduction over the data axis: each rank's
-            # penalty gradient is already the whole one)
-            reg = regularizer_loss(params, reg_paths)
-            if torch.is_tensor(reg):
-                reg_g = torch.autograd.grad(reg, leaves, allow_unused=True)
-                grads = [r if g is None else g if r is None else g + r
-                         for g, r in zip(grads, reg_g)]
-                loss = loss + reg.detach()
-        with torch.no_grad():
-            grads = [torch.zeros_like(p) if g is None else g
-                     for g, p in zip(grads, leaves)]
-            if scales is not None:
-                grads = [g if s == 1.0 else g * s
-                         for g, s in zip(grads, scales)]
-            it = iter(grads)
-            grads = tree_map(lambda _: next(it), params)
-            old = tree_map(torch.Tensor.detach, params)
-            new_params, new_slots = self.optim_method.step(grads, old,
-                                                           slots, lr)
-            if masked:
-                # padded rows would pollute the batch statistics: the
-                # trailing batch keeps the buffers from before the step
-                for b, b_old in zip(buffers, old_buffers):
-                    b.copy_(b_old)
-            if self.gradient_guard:
-                ok = tree_finite(grads) & torch.isfinite(loss)
-                if axis is not None:
-                    ok = axis.agree(ok)
-                new_params = where_tree(ok, new_params, old)
-                new_slots = where_tree(ok, new_slots, slots)
-                for b, b_old in zip(buffers, old_buffers):
-                    b.copy_(torch.where(ok, b, b_old))
-            else:
-                ok = torch.ones((), dtype=torch.bool, device=loss.device)
-            for p, n in zip(leaves, tree_leaves(new_params)):
-                p.copy_(n)
-        return loss.detach(), ok, new_slots
-
     def _loop(self):
         model, optim, axis = self.model, self.optim_method, self._axis
         self._tm_attempt_begin()
@@ -826,8 +835,11 @@ class Optimizer:
             # every rank starts from rank 0's weights, host RNG and
             # dataset order, so each walks the same global batches
             axis.sync_start(model, self.dataset)
-        params = model.param_tree()
-        slots = _resume_slots(optim, tree_map(torch.Tensor.detach, params))
+        # the plan step for this attempt's mesh: the plan re-binds to the
+        # live mesh each attempt; FSDP leaves become this rank's shards
+        engine = self._plan_engine()
+        params, slots = engine.init_state()
+        self._publish_plan_metrics(engine, params)
         reg_paths = list(collect_regularizer_paths(model))
         scales = tree_leaves(model.gradient_scale_tree())
         if all(s == 1.0 for s in scales):
@@ -852,9 +864,8 @@ class Optimizer:
         profile_interval = (int(get_property(
             "bigdl.metrics.profileInterval", 10)) if axis is not None else 0)
         compute_ratio = None   # the last profiled step's compute share
-        collective_bytes = (axis.wire_bytes(tree_leaves(params),
-                                            tree_leaves(model.buffer_tree()))
-                            if axis is not None else 0.0)
+        # the plan's wire estimate (bigdl_tpu/parallel/plan.py:1730)
+        collective_bytes = engine.collective_bytes
         while not self.end_when(state):
             state["epoch_finished"] = False
             t_fetch = time.time()
@@ -892,8 +903,8 @@ class Optimizer:
 
             def run_step():
                 with rng_scope(step_gen):
-                    return self._step(params, slots, x, y, lr, reg_paths,
-                                      scales, weight)
+                    return engine.step(params, slots, x, y, lr, reg_paths,
+                                       scales, weight)
 
             def read_back(out):
                 # one read-back for both: the device sync of the step
@@ -971,10 +982,13 @@ class Optimizer:
             do_checkpoint = self._should(self.checkpoint_trigger, state)
             preempted = self._preempted()
             if do_validate:
-                self._validate(state)
+                self._validate(state, engine.eval_params(params))
             if do_checkpoint or preempted:
-                optim._slots = slots
+                # the full trees into the module and the optim method
+                # (FSDP leaves gathered) before rank 0 serializes them
+                engine.sync_to_model(params, slots)
                 self._write_pickle_checkpoint(state)
+                engine.release()
                 if axis is not None:
                     # rank 0 writes; the others wait for it here
                     axis.barrier()
@@ -985,7 +999,7 @@ class Optimizer:
                             state["neval"] - 1)
                 break
 
-        optim._slots = slots
+        engine.sync_to_model(params, slots)
         model.evaluate()
         # every triggered checkpoint is durable, or its write error
         # surfaces here, into the retry loop
@@ -1033,9 +1047,9 @@ def _weighted_loss(crit, out, y, w, n_real: float):
 
 class _DataAxis:
     """The data axis of a DistriOptimizer run over a ``("data",)`` mesh:
-    this rank's rows of each global batch and the step's collectives
-    (``bigdl_tpu/parallel/plan.py``'s data-axis rules, on
-    ``torch.distributed``)."""
+    this rank's rows of each global batch and the loop's collectives
+    (the start, the barrier, the preemption vote); the step's are the
+    plan step's (``parallel/plan.py``)."""
 
     def __init__(self, mesh):
         self.mesh = mesh
@@ -1077,51 +1091,12 @@ class _DataAxis:
         return (rows_of(x, self.rank, self.size, device),
                 rows_of(y, self.rank, self.size, device), weight)
 
-    def reduce(self, grads, leaves, loss, buffers, masked: bool):
-        """One ``all_reduce(SUM)`` of a flat f32 buffer of the gradients,
-        the loss and, for a full batch, the floating buffers (BatchNorm
-        statistics), then ``/N`` for a full batch: the mean gradient,
-        loss and statistics over ranks.  A padded batch's weighted
-        gradients and losses are sums already (``plan.py:1612-1626``)."""
-        grads = [torch.zeros_like(p) if g is None else g
-                 for g, p in zip(grads, leaves)]
-        synced = [] if masked else [b for b in buffers
-                                    if b.is_floating_point()]
-        parts = grads + [loss.detach()] + synced
-        flat = torch.cat([t.reshape(-1).float() for t in parts])
-        dist.all_reduce(flat, group=self.group)
-        if not masked:
-            flat.div_(self.size)
-        out, at = [], 0
-        for t in parts:
-            out.append(flat[at:at + t.numel()].view(t.shape).to(t.dtype))
-            at += t.numel()
-        for b, v in zip(synced, out[len(grads) + 1:]):
-            b.copy_(v)
-        return out[:len(grads)], out[len(grads)]
-
     def records(self, n: int, weight) -> int:
         """The records of a global batch of ``n`` this rank trained (its
         real rows), so the ranks' telemetry counts sum to the batch."""
         if weight is None:
             return n // self.size
         return int(weight[0].sum().item())
-
-    def wire_bytes(self, leaves, buffers) -> float:
-        """The flat all-reduce's wire bytes a rank moves a full-batch
-        step: 2(N − 1)/N times the f32 buffer of the gradients, the loss
-        and the floating buffers (0 on one rank), the ring estimate the
-        JAX plan gives a data-parallel leaf."""
-        n = sum(t.numel() for t in leaves) + 1 + sum(
-            b.numel() for b in buffers if b.is_floating_point())
-        return 2.0 * (self.size - 1) / self.size * 4.0 * n
-
-    def agree(self, ok: torch.Tensor) -> torch.Tensor:
-        """The guard's decision, the same on every rank: a step is
-        skipped everywhere when it is bad anywhere (``plan.py:1629-1636``)."""
-        flag = ok.to(torch.int32).reshape(1)
-        dist.all_reduce(flag, op=dist.ReduceOp.MIN, group=self.group)
-        return flag[0] > 0
 
     def any(self, flag: bool) -> bool:
         t = torch.tensor([int(flag)], dtype=torch.int32,
@@ -1191,4 +1166,5 @@ class LocalOptimizer(Optimizer):
             with self._preemption_scope():
                 return self._with_retry(self._loop)
         finally:
+            self._abandon_plan()
             self._shutdown_async_writer()

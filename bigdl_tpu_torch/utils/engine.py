@@ -200,9 +200,9 @@ class Engine:
             if size > 1:
                 raise NotImplementedError(
                     f"a {axis!r} mesh axis of {size} is not ported to "
-                    "bigdl_tpu_torch yet (ROADMAP Queue 1 items 5b and 5d: "
-                    "the sharding-plan engine and the model axes); the "
-                    "port's mesh has the data axis only")
+                    "bigdl_tpu_torch yet (ROADMAP Queue 1 item 5d: the "
+                    "model, seq and pipe axes); the port's mesh has the "
+                    "data axis only")
         if devices is not None:
             raise NotImplementedError(
                 "a mesh over chosen devices: each process of the port "

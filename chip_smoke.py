@@ -363,7 +363,24 @@ Phases; any failure exits non-zero:
    ``poison_candidate`` deploy at 5 rejected with no swap and the
    served tokens unchanged, no request failing, and the first
    interval's losses ``LocalOptimizer``'s on the same batch bit for bit.
-18. a ``{"kernels": [...]}`` line (K1-K4 with a ``moe step`` variant
+18. the sharding-plan engine — (a) phase 5's cell trained by
+   ``DistriOptimizer`` on a one-rank NCCL group (a ``Telemetry`` bundle
+   attached) with ``set_sharding_plan(derive_plan(model, mesh,
+   fsdp_min_bytes=1 MiB))`` and ``set_fsdp(1 MiB)``: every loss and
+   update phase 15 (a)'s planless run's bit for bit; K1 8, K2 8, K3 8,
+   K4 17 a step; no ``[fsdp]`` row at data 1 (FSDP over one device is a
+   no-op), ``bigdl_perf_collective_bytes`` 0 and the per-device
+   parameter bytes the total; the step ms beside phase 15's; (b) the
+   same flagship's plan bound to a ``data=4`` mesh shape, no process
+   started: its ``[fsdp]`` rows, per-device and total parameter bytes
+   and collective bytes, the plan's arithmetic; (c) phase 15 (d)'s
+   2-layer f32 copy under ``set_fsdp(1 MiB)`` (its embedding, head,
+   position table and every block's projections sharded), B 4, 3 steps,
+   as four gloo ranks on the CPU (this script as four processes) against
+   one NCCL rank on the card, at phase 5's f32 limits, each rank's
+   ``bigdl_plan_param_bytes_per_device`` the plan's figure for
+   ``data=4``.
+19. a ``{"kernels": [...]}`` line (K1-K4 with a ``moe step`` variant
    each: its time at the MoE step's shape, its launches (a)'s bf16 run's),
    the ``nvidia-smi`` line, and as the last line ``{"ok": true,
    "device": {...}}``.
@@ -399,6 +416,12 @@ runs phase 1, builds K1-K4 and runs phase 16 alone (record in
 
 runs phase 1, builds K1-K4 and runs phase 17 alone (record in
 ``chiprun_out/chip_phase17.json``; exit 1 on a failed check).
+
+    python3 chip_smoke.py --phase18
+
+runs phase 1, builds K1-K4 and runs phase 18 alone, with its own
+planless run for (a) (record in ``chiprun_out/chip_phase18.json``;
+exit 1 on a failed check).
 
     python3 chip_smoke.py --profile
 
@@ -6419,27 +6442,41 @@ def telemetry_phase(torch, smi):
     return rec, failures
 
 
-def distri_cpu_rank(rank: int, world: int, init: str, out: str) -> int:
-    """One gloo rank of phase 15 (d), run as its own process: phase 5's
-    2-layer copy trained by DistriOptimizer on the CPU; rank 0 saves
-    its losses and updates to ``out``."""
+def distri_cpu_rank(rank: int, world: int, init: str, out: str,
+                    fsdp: int = 0, batch: int = SMALL_BATCH) -> int:
+    """One gloo rank of phase 15 (d) or 18 (c), run as its own process:
+    phase 5's 2-layer copy trained by DistriOptimizer on the CPU, global
+    batch ``batch``, under ``set_fsdp(fsdp)`` when ``fsdp``; rank 0
+    saves its losses and updates to ``out``, every rank (with FSDP) its
+    plan gauges to ``out`` + ``.rank<r>``."""
     import torch
 
     sys.path.insert(0, str(REPO))
     torch.set_num_threads(max(1, (os.cpu_count() or world) // world))
     from bigdl_tpu_torch.optim import DistriOptimizer
+    from bigdl_tpu_torch.telemetry.registry import default_registry
     from bigdl_tpu_torch.utils.engine import Engine
 
     Engine.init_distributed(init, world, rank, device="cpu",
                             timeout=DISTRI_CPU_TIMEOUT_S)
+    seen = []
     try:
         t0 = time.perf_counter()
-        run = run_training(torch, _lm(torch, "cpu", SMALL_LAYERS),
-                           SMALL_BATCH, SMALL_T, SMALL_ITERS, None,
-                           updates=True, optimizer=DistriOptimizer)
+        run = run_training(torch, _lm(torch, "cpu", SMALL_LAYERS), batch,
+                           SMALL_T, SMALL_ITERS, None, updates=True,
+                           optimizer=(_planned(fsdp, seen=seen) if fsdp
+                                      else DistriOptimizer))
         seconds = time.perf_counter() - t0
     finally:
         Engine.reset()
+    if fsdp:
+        snap = default_registry().snapshot()["metrics"]
+        torch.save(dict(gauges={k: snap[k]["series"][0]["value"]
+                                for k in PLAN_GAUGES if k in snap},
+                        fsdp_rows=sum(r.endswith("[fsdp]") for r in
+                                      seen[0].engine.table.values()),
+                        has_fsdp=seen[0].engine.has_fsdp),
+                   f"{out}.rank{rank}")
     if rank == 0:
         torch.save(dict(losses=run["losses"], updates=run["updates"],
                         skipped_steps=run["skipped_steps"], seconds=seconds,
@@ -6447,22 +6484,26 @@ def distri_cpu_rank(rank: int, world: int, init: str, out: str) -> int:
     return 0
 
 
-def _start_cpu_ranks(tmp: Path):
+def _start_cpu_ranks(tmp: Path, ranks: int = DISTRI_CPU_RANKS, fsdp: int = 0,
+                     batch: int = SMALL_BATCH):
     init = f"file://{tmp / 'store'}"
     return [subprocess.Popen(
         [sys.executable, str(Path(__file__).resolve()),
          "--distri-cpu-rank", str(r), "--distri-cpu-world",
-         str(DISTRI_CPU_RANKS), "--distri-cpu-init", init,
-         "--distri-cpu-out", str(tmp / "cpu_rank0.pt")],
+         str(ranks), "--distri-cpu-init", init,
+         "--distri-cpu-out", str(tmp / "cpu_rank0.pt"),
+         "--distri-cpu-fsdp", str(fsdp), "--distri-cpu-batch", str(batch)],
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, cwd=str(REPO))
-        for r in range(DISTRI_CPU_RANKS)]
+        for r in range(ranks)]
 
 
-def distri_phase(torch, smi, phase5_step_ms=None):
+def distri_phase(torch, smi, phase5_step_ms=None, keep=None):
     """Phase 15 (a)-(d) over a one-rank NCCL group, destroyed at the
     end.  Returns (record, failures); the record's ``launches`` are
     (a)'s DistriOptimizer run, (b)'s evaluations and prediction and
-    (d)'s card run, each read from zero."""
+    (d)'s card run, each read from zero.  ``keep``, a dict, takes (a)'s
+    DistriOptimizer run (its losses, updates on the CPU, step ms and
+    launches a step) for phase 18."""
     import tempfile
 
     import torch.distributed as dist
@@ -6531,7 +6572,12 @@ def distri_phase(torch, smi, phase5_step_ms=None):
             failures.append(f"phase 15 (a) losses {losses}, skipped "
                             f"{distri['skipped_steps']}")
         del local_updates
-        distri.pop("updates")
+        planless_updates = distri.pop("updates")
+        if keep is not None:
+            keep.update(losses=losses, updates=planless_updates,
+                        step_ms=distri["step_ms"],
+                        launches_per_step=distri["launches_per_step"])
+        del planless_updates
         nccl = _nccl_kernels(torch, model)
         flat_bytes = 4 * (n_params + 1 + float_buffers)
         rec["a"] = dict(
@@ -6706,6 +6752,274 @@ def distri_phase(torch, smi, phase5_step_ms=None):
     rec["launches"] = launches
     rec["seconds"] = time.perf_counter() - t_phase
     print(f"phase 15: {rec['seconds']:.1f} s; launches {_nz(launches)}; "
+          f"group destroyed: {not dist.is_initialized()}")
+    return rec, failures
+
+
+# phase 18: the sharding-plan engine.  The FSDP threshold of (a)-(c):
+# 1 MiB, the JAX package's default (bigdl_tpu/optim/optimizer.py:283);
+# (b)'s mesh shape; (c)'s ranks and global batch (one record a rank)
+PLAN_FSDP_BYTES = 1 << 20
+PLAN_DATA = 4
+PLAN_CPU_RANKS, PLAN_CPU_BATCH = 4, 4
+PLAN_GAUGES = ("bigdl_plan_param_bytes_per_device",
+               "bigdl_plan_param_bytes_total", "bigdl_perf_collective_bytes")
+
+
+def _planned(min_bytes, mesh=None, seen=None):
+    """DistriOptimizer with ``set_fsdp(min_bytes)`` and, given a mesh
+    (or mesh shape), ``set_sharding_plan(derive_plan(model, mesh,
+    fsdp_min_bytes=min_bytes))``; each instance appended to ``seen``."""
+    from bigdl_tpu_torch.optim import DistriOptimizer
+    from bigdl_tpu_torch.parallel.plan import derive_plan
+
+    class Planned(DistriOptimizer):
+        def __init__(self, model, *a, **kw):
+            super().__init__(model, *a, **kw)
+            if mesh is not None:
+                self.set_sharding_plan(derive_plan(
+                    model, mesh, fsdp_min_bytes=min_bytes))
+            self.set_fsdp(min_bytes)
+            if seen is not None:
+                seen.append(self)
+
+    return Planned
+
+
+def plan_bytes(plan, tree) -> dict:
+    """The plan's arithmetic over ``tree``: per-device parameter bytes
+    (each leaf's bytes over the product of its spec's axis sizes), the
+    total, the collective bytes a step and the ``[fsdp]`` rows."""
+    from bigdl_tpu_torch.parallel.plan import _spec_axes, named_leaves
+
+    leaves = dict(named_leaves(tree))
+    per = total = 0.0
+    for name, e in plan.named_entries(tree):
+        leaf = leaves[name]
+        nbytes = leaf.numel() * leaf.element_size()
+        n = 1
+        for a in _spec_axes(e.spec):
+            n *= plan._mesh_size(a)
+        per += nbytes / n
+        total += nbytes
+    return dict(per_device=per, total=total,
+                collective=plan.collective_bytes(tree),
+                fsdp={n: r for n, r in plan.table(tree).items()
+                      if r.endswith("[fsdp]")})
+
+
+def plan_phase(torch, smi, planless=None):
+    """Phase 18 (a)-(c) over a one-rank NCCL group, destroyed at the
+    end.  ``planless``: phase 15 (a)'s DistriOptimizer run (losses,
+    updates, step ms); without it (``--phase18``) (a) trains that run
+    first.  Returns (record, failures); the record's ``launches`` are
+    (a)'s planned run's and (c)'s card run's, each read from zero."""
+    import tempfile
+
+    import torch.distributed as dist
+
+    from bigdl_tpu_torch.parallel.plan import MeshShape, derive_plan
+    from bigdl_tpu_torch.telemetry import MetricsRegistry, Telemetry
+    from bigdl_tpu_torch.utils.engine import Engine
+    from bigdl_tpu_torch.utils.tree import tree_leaves
+
+    t_phase = time.perf_counter()
+    failures, rec = [], {}
+    L = FLAGSHIP["num_layers"]
+    counters = launch_counters()
+    launches = {n: 0 for n in counters}
+    Engine.reset()
+    Engine.init_distributed(f"127.0.0.1:{_free_port()}", 1, 0,
+                            device="cuda")
+    tmp = Path(tempfile.mkdtemp(prefix="phase18-"))
+    procs = []
+    try:
+        mesh = Engine.default_mesh()
+        if not planless:
+            from bigdl_tpu_torch.optim import DistriOptimizer
+
+            run = _flagship_run(torch, _lm(torch, "cuda", L), TRAIN_ITERS,
+                                optimizer=DistriOptimizer)
+            planless = dict(losses=run["losses"], updates=run["updates"],
+                            step_ms=run["step_ms"], own_run=True)
+            del run
+            torch.cuda.empty_cache()
+
+        # (a) phase 5's cell under a derived plan and set_fsdp, one rank
+        seen, tm = [], Telemetry(registry=MetricsRegistry(), host="rank0")
+
+        def planned_cls():
+            cls = _planned(PLAN_FSDP_BYTES, mesh, seen)
+            return _with_telemetry(cls, tm)
+
+        model = _lm(torch, "cuda", L)
+        got = _flagship_run(torch, model, TRAIN_ITERS, optimizer=planned_cls())
+        for n, v in got["launches"].items():
+            launches[n] += v
+        engine = seen[0].engine
+        gauges = {k: _gauge(tm, k) for k in PLAN_GAUGES}
+        want = want_launches(flash_fwd=L, flash_bwd_dkv=L, flash_bwd_dq=L,
+                             layer_norm_fwd=2 * L + 1)
+        bad = [st for st in got["launches_per_step"] if st != want]
+        same_losses = got["losses"] == planless["losses"]
+        same_updates = _same_bits(torch, got["updates"], planless["updates"])
+        fsdp_rows = [n for n, r in engine.table.items()
+                     if r.endswith("[fsdp]")]
+        rec["a"] = dict(
+            losses=got["losses"], planless_losses=planless["losses"],
+            same_losses=same_losses, same_updates=same_updates,
+            step_ms=got["step_ms"], planless_step_ms=planless["step_ms"],
+            planless_from_phase15=not planless.get("own_run", False),
+            launches_per_step=got["launches_per_step"][0],
+            rows=len(engine.table), fsdp_rows=fsdp_rows,
+            single=engine.single, has_fsdp=engine.has_fsdp, gauges=gauges,
+            peak_gb=got["peak_gb"])
+        if bad:
+            failures.append(f"phase 18 (a) launches per step {_nz(bad[0])}")
+        if not (same_losses and same_updates):
+            worst, err = _update_err(torch, got["updates"],
+                                     planless["updates"])
+            failures.append(f"phase 18 (a) not the planless run's bits: "
+                            f"losses {got['losses']} vs {planless['losses']}"
+                            f"; worst update {worst} {err:.3e}")
+        if fsdp_rows or engine.has_fsdp or not engine.single:
+            failures.append(f"phase 18 (a) FSDP on one rank: rows "
+                            f"{fsdp_rows}, engine single {engine.single}")
+        if gauges["bigdl_perf_collective_bytes"] != 0 or gauges[
+                "bigdl_plan_param_bytes_per_device"] != gauges[
+                "bigdl_plan_param_bytes_total"]:
+            failures.append(f"phase 18 (a) gauges {gauges}")
+        if got["skipped_steps"] or not got["losses"][-1] < got["losses"][0]:
+            failures.append(f"phase 18 (a) losses {got['losses']}, skipped "
+                            f"{got['skipped_steps']}")
+        source = ("phase 15 (a)" if rec["a"]["planless_from_phase15"]
+                  else "this phase")
+        print(f"phase 18 (a) DistriOptimizer, one NCCL rank, derived plan + "
+              f"set_fsdp({PLAN_FSDP_BYTES}), flagship bf16 B {TRAIN_BATCH} "
+              f"T {TRAIN_T} ({smi}): losses "
+              f"{[round(x, 4) for x in got['losses']]}; = the planless run "
+              f"({source}'s) bit for bit: losses {same_losses}, every "
+              f"update "
+              f"{same_updates}; launches per step "
+              f"{_nz(got['launches_per_step'][0])}; {len(engine.table)} "
+              f"rows, [fsdp] rows {len(fsdp_rows)}; gauges {gauges}; step "
+              f"{got['step_ms']:.2f} ms against the planless "
+              f"{planless['step_ms']:.2f} ms (iterations 3-{TRAIN_ITERS})")
+        # the gradient norm every step computes (the plan step's _gnorm,
+        # as the JAX step does), alone on gradients of the flagship's
+        # shapes: its share of the step, beside its bytes bound
+        grads = [torch.randn_like(p) for p in tree_leaves(model.param_tree())]
+        gnorm_ms = cuda_ms(lambda: engine._gnorm(grads))
+        gnorm_bound = (sum(g.numel() * g.element_size() for g in grads)
+                       / MEM_BYTES_PER_S * 1e3)
+        del grads
+        rec["a"].update(gnorm_ms=gnorm_ms, gnorm_bound_ms=gnorm_bound)
+        print(f"phase 18 (a) gradient norm alone ({smi}): {gnorm_ms:.4f} ms "
+              f"a step ({gnorm_ms / got['step_ms']:.4%} of the step), bytes "
+              f"bound {gnorm_bound:.4f} ms")
+        # (c)'s CPU ranks start now, after (a)'s timed steps
+        procs = _start_cpu_ranks(tmp, PLAN_CPU_RANKS, PLAN_FSDP_BYTES,
+                                 PLAN_CPU_BATCH)
+
+        # (b) the flagship's plan bound to data=4: arithmetic only
+        plan4 = derive_plan(model, MeshShape(data=PLAN_DATA),
+                            fsdp_min_bytes=PLAN_FSDP_BYTES)
+        b = plan_bytes(plan4, model.param_tree())
+        n_rows = len(plan4.table(model.param_tree()))
+        by_spec = {}
+        for row in b["fsdp"].values():
+            spec = row.split(" | ")[0]
+            by_spec[spec] = by_spec.get(spec, 0) + 1
+        del got, model, seen, engine
+        planless.clear()
+        torch.cuda.empty_cache()
+        rec["b"] = dict(b, data=PLAN_DATA, label="the plan's arithmetic")
+        print(f"phase 18 (b) the flagship's plan at data={PLAN_DATA} (the "
+              f"plan's arithmetic, not a measurement): {len(b['fsdp'])} "
+              f"[fsdp] rows of {n_rows} by "
+              f"spec {by_spec} (the token and position tables, every "
+              f"block's projections and the head; LayerNorms and biases "
+              f"replicated); parameter bytes per device "
+              f"{b['per_device']:.0f} of {b['total']:.0f} "
+              f"({b['per_device'] / b['total']:.4f}); collective bytes a "
+              f"step {b['collective']:.0f}")
+        if not b["fsdp"] or not b["per_device"] < b["total"] / 2:
+            failures.append(f"phase 18 (b) plan at data={PLAN_DATA}: {b}")
+
+        # (c) the 2-layer copy, f32, B 4: one NCCL rank on the card with
+        # set_fsdp (a no-op there) against four gloo ranks with FSDP
+        small = _lm(torch, "cuda", SMALL_LAYERS)
+        want_b = plan_bytes(derive_plan(small, MeshShape(data=PLAN_CPU_RANKS),
+                                        fsdp_min_bytes=PLAN_FSDP_BYTES),
+                            small.param_tree())
+        for c in counters.values():
+            c.reset()
+        card = run_training(torch, small, PLAN_CPU_BATCH, SMALL_T,
+                            SMALL_ITERS, None, updates=True,
+                            optimizer=_planned(PLAN_FSDP_BYTES))
+        del small
+        for n, c in counters.items():
+            launches[n] += c.count
+        outs = []
+        deadline = time.monotonic() + DISTRI_CPU_TIMEOUT_S
+        for p in procs:
+            out, _ = p.communicate(timeout=max(1.0,
+                                               deadline - time.monotonic()))
+            outs.append(out.decode(errors="replace")[-2000:])
+        if any(p.returncode for p in procs):
+            failures.append(f"phase 18 (c) CPU ranks failed: {outs}")
+        else:
+            cpu = torch.load(tmp / "cpu_rank0.pt")
+            ranks = [torch.load(tmp / f"cpu_rank0.pt.rank{r}")
+                     for r in range(PLAN_CPU_RANKS)]
+            c_l, p_l = card["losses"], cpu["losses"]
+            rel = max(abs(a - b_) / abs(b_) for a, b_ in zip(c_l, p_l))
+            dec = decrease_rel_err(c_l, p_l)
+            worst, upd = _update_err(torch, card["updates"], cpu["updates"])
+            per_rank = [r["gauges"] for r in ranks]
+            rec["c"] = dict(layers=SMALL_LAYERS, batch=PLAN_CPU_BATCH,
+                            seq_len=SMALL_T, cpu_ranks=PLAN_CPU_RANKS,
+                            card_losses=c_l, cpu_losses=p_l, max_rel=rel,
+                            decrease_rel=dec, update_row_err=upd,
+                            worst=worst, cpu_seconds=cpu["seconds"],
+                            cpu_threads_per_rank=cpu["threads"],
+                            rank_gauges=per_rank, plan_bytes=want_b,
+                            fsdp_rows=[r["fsdp_rows"] for r in ranks])
+            print(f"phase 18 (c) 2-layer f32 under set_fsdp, B "
+                  f"{PLAN_CPU_BATCH} T {SMALL_T}, {SMALL_ITERS} steps: one "
+                  f"NCCL rank on the card {c_l} vs {PLAN_CPU_RANKS} gloo "
+                  f"ranks on the CPU {p_l}: max rel {rel:.3e} (tol "
+                  f"{TRAJ_RTOL}), decreases {dec:.3e} (tol "
+                  f"{TRAJ_DECREASE_REL_TOL}), updates worst row err "
+                  f"{upd:.3e} in {worst} (tol {TRAJ_UPDATE_ROW_TOL}); "
+                  f"[fsdp] rows {ranks[0]['fsdp_rows']}; per-device bytes "
+                  f"by rank {[g[PLAN_GAUGES[0]] for g in per_rank]}"
+                  f" against the plan's {want_b['per_device']:.0f} of "
+                  f"{want_b['total']:.0f}; CPU side {cpu['seconds']:.1f} s "
+                  f"at {cpu['threads']} threads a rank")
+            if len(c_l) != SMALL_ITERS or not rel <= TRAJ_RTOL:
+                failures.append(f"phase 18 (c) losses {c_l} vs {p_l}")
+            if not dec <= TRAJ_DECREASE_REL_TOL:
+                failures.append(f"phase 18 (c) decreases rel {dec:.3e}")
+            if not upd <= TRAJ_UPDATE_ROW_TOL:
+                failures.append(f"phase 18 (c) {worst} row err {upd:.3e}")
+            if card["skipped_steps"] or cpu["skipped_steps"]:
+                failures.append("phase 18 (c) skipped steps")
+            if not all(r["has_fsdp"] for r in ranks) or any(
+                    g["bigdl_plan_param_bytes_per_device"]
+                    != want_b["per_device"] for g in per_rank):
+                failures.append(f"phase 18 (c) per-device bytes {per_rank} "
+                                f"vs the plan's {want_b['per_device']}")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        shutil.rmtree(tmp, ignore_errors=True)
+        Engine.reset()
+    rec["launches"] = launches
+    rec["seconds"] = time.perf_counter() - t_phase
+    print(f"phase 18: {rec['seconds']:.1f} s; launches {_nz(launches)}; "
           f"group destroyed: {not dist.is_initialized()}")
     return rec, failures
 
@@ -7323,14 +7637,22 @@ def main(argv=None) -> int:
                     help="build K1-K4 and run phase 17 (the serving fleet) "
                          "alone")
     # phase 15 (d)'s CPU ranks: this script run as one gloo rank
-    for flag in ("--distri-cpu-rank", "--distri-cpu-world"):
+    ap.add_argument("--phase18", action="store_true",
+                    help="build K1-K4 and run phase 18 (the sharding-plan "
+                         "engine) alone")
+    for flag in ("--distri-cpu-rank", "--distri-cpu-world",
+                 "--distri-cpu-fsdp"):
         ap.add_argument(flag, type=int, help=argparse.SUPPRESS)
+    ap.add_argument("--distri-cpu-batch", type=int, default=SMALL_BATCH,
+                    help=argparse.SUPPRESS)
     for flag in ("--distri-cpu-init", "--distri-cpu-out"):
         ap.add_argument(flag, help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     if args.distri_cpu_rank is not None:
         return distri_cpu_rank(args.distri_cpu_rank, args.distri_cpu_world,
-                               args.distri_cpu_init, args.distri_cpu_out)
+                               args.distri_cpu_init, args.distri_cpu_out,
+                               args.distri_cpu_fsdp or 0,
+                               args.distri_cpu_batch)
     if not torch.cuda.is_available():
         return fail("torch.cuda.is_available() is false; a CUDA card is "
                     "required")
@@ -7357,7 +7679,7 @@ def main(argv=None) -> int:
 
     libs = (("flash_fwd", "flash_bwd")
             if args.phase12 or args.phase_moe or args.phase15
-            or args.phase16 or args.phase17 else
+            or args.phase16 or args.phase17 or args.phase18 else
             ("conv3x3",) if args.phase13 else
             ("flash_fwd", "flash_bwd", "block_sparse", "conv3x3"))
     t0 = time.perf_counter()
@@ -7416,6 +7738,15 @@ def main(argv=None) -> int:
         (out / "chip_phase17.json").write_text(json.dumps(dict(
             device=kind, nvidia_smi=smi, torch=torch.__version__,
             fleet_path=rec, failures=failures), indent=1, default=str))
+        for f in failures:
+            print(f"FAIL: {f}", file=sys.stderr)
+        print(smi)
+        return 1 if failures else 0
+    if args.phase18:
+        rec, failures = plan_phase(torch, smi)
+        (out / "chip_phase18.json").write_text(json.dumps(dict(
+            device=kind, nvidia_smi=smi, torch=torch.__version__,
+            plan_path=rec, failures=failures), indent=1, default=str))
         for f in failures:
             print(f"FAIL: {f}", file=sys.stderr)
         print(smi)
@@ -7549,7 +7880,9 @@ def main(argv=None) -> int:
     # NCCL group against phase 5's LocalOptimizer run, validation and
     # prediction over the data axis, AllReduceParameter, the 2-layer copy
     # against gloo ranks on the CPU; the group destroyed after
-    phase15, phase15_failures = distri_phase(torch, smi, trained["step_ms"])
+    planless = {}
+    phase15, phase15_failures = distri_phase(torch, smi, trained["step_ms"],
+                                             keep=planless)
     failures += phase15_failures
 
     # phase 16: telemetry — phase 5's cell with a Telemetry bundle and a
@@ -7564,6 +7897,14 @@ def main(argv=None) -> int:
     phase17, phase17_failures = fleet_phase(torch, smi)
     failures += phase17_failures
 
+    # phase 18: the sharding-plan engine — phase 5's cell under a derived
+    # plan and set_fsdp on one NCCL rank against phase 15's planless run,
+    # the plan's arithmetic at data=4, FSDP over four gloo CPU ranks
+    # against the card
+    phase18, phase18_failures = plan_phase(torch, smi, planless)
+    failures += phase18_failures
+    del planless
+
     # launches summed over every path, each read from zero
     launches = {n: sum(b["launches"][n] for b in served["batches"])
                 + trained["launches"][n] + bs_trained["launches"][n]
@@ -7572,6 +7913,7 @@ def main(argv=None) -> int:
                 + phase12["launches"][n] + phase13["launches"][n]
                 + phase14["launches"][n] + phase15["launches"][n]
                 + phase16["launches"][n] + phase17["launches"][n]
+                + phase18["launches"][n]
                 for n in launch_counters()}
     for mm_path in mm_paths:
         for name, n in mm_path["launches"].items():
@@ -7714,6 +8056,7 @@ def main(argv=None) -> int:
         checkpoint_swap_path=phase10, torch_api_path=phase11,
         training_breadth_path=phase12, zoo_path=phase13, moe_path=phase14,
         distri_path=phase15, telemetry_path=phase16, fleet_path=phase17,
+        plan_path=phase18,
         kernels=kernels,
         failures=failures, seconds=time.perf_counter()
         - T_START), indent=1))

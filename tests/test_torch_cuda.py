@@ -24,7 +24,8 @@ CPU.  Checkpoints written from card tensors load in a process that
 sees no card, a resumed run on the card is held against an
 uninterrupted one, and a bf16 server on the card swaps in a verified
 checkpoint.  Over a one-rank NCCL group, ``DistriOptimizer`` trains the
-small LM bit for bit as ``LocalOptimizer`` does, and
+small LM bit for bit as ``LocalOptimizer`` does, with a derived plan
+and ``set_fsdp`` as without (FSDP is a no-op on one rank), and
 ``AllReduceParameter``'s round trip returns its input bit for bit.  The
 telemetry's work counter reads the same work from K1-K4 on the card as
 from their plain versions on the CPU, a Telemetry bundle leaves the
@@ -1536,6 +1537,41 @@ def test_distri_optimizer_on_one_nccl_rank_is_local_bit_for_bit(nccl_group):
     assert got == local
     for (name, a), b in zip(model.state_dict().items(),
                             local_model.state_dict().values()):
+        assert torch.equal(a, b), name
+
+
+def test_derived_plan_and_fsdp_on_one_nccl_rank_are_planless_bit_for_bit(
+        nccl_group):
+    """The small LM by DistriOptimizer over a group of one with a plan
+    derived for a 4-way data axis and ``set_fsdp``: the plan re-binds to
+    the one rank, where FSDP is a no-op (no ``[fsdp]`` row, no gather),
+    so every loss and parameter is the planless run's bit for bit,
+    through the same K1-K4 launches."""
+    from bigdl_tpu_torch.optim import DistriOptimizer
+    from bigdl_tpu_torch.parallel.plan import MeshShape, derive_plan
+
+    counters = (fa.LAUNCHES, fa.LAUNCHES_DKV, fa.LAUNCHES_DQ, ln.LAUNCHES)
+    plain, plain_model, _ = _train_small("cuda", optimizer=DistriOptimizer)
+    seen = []
+
+    class Planned(DistriOptimizer):
+        def __init__(self, model, *a, **kw):
+            super().__init__(model, *a, **kw)
+            self.set_sharding_plan(derive_plan(
+                model, MeshShape(data=4), fsdp_min_bytes=1024))
+            self.set_fsdp(1024)
+            seen.append(self)
+
+    before = [c.count for c in counters]
+    got, model, _ = _train_small("cuda", optimizer=Planned)
+    assert [c.count - n for c, n in zip(counters, before)] == [6, 6, 6, 15]
+    engine = seen[0].engine
+    assert engine.single and not engine.has_fsdp
+    assert not any(r.endswith("[fsdp]") for r in engine.table.values())
+    assert engine.collective_bytes == 0
+    assert got == plain
+    for (name, a), b in zip(model.state_dict().items(),
+                            plain_model.state_dict().values()):
         assert torch.equal(a, b), name
 
 

@@ -3,7 +3,8 @@
 * The port, ``chip_smoke.py``, ``k1_variants.py``, ``k9_variants.py``,
   ``f32_steps.py``, ``sass_diff.py``, ``bwd_rows.py``,
   ``k4_strided_variants.py``, ``lm_update_probe.py`` and the rank
-  processes of the data-parallel tests (``tests/_torch_distri_child.py``)
+  processes of the data-parallel tests (``tests/_torch_distri_child.py``,
+  ``tests/_torch_fsdp_child.py``)
   import neither jax/jaxlib nor anything of the JAX package.  The scan is static (an AST walk of the sources): the
   interpreter that runs the tests may already hold jax, so an
   import-time check could not tell.
@@ -30,7 +31,8 @@ def _port_sources():
                     REPO / "sass_diff.py", REPO / "bwd_rows.py",
                     REPO / "k4_strided_variants.py",
                     REPO / "lm_update_probe.py",
-                    REPO / "tests" / "_torch_distri_child.py"]
+                    REPO / "tests" / "_torch_distri_child.py",
+                    REPO / "tests" / "_torch_fsdp_child.py"]
 
 
 def forbidden_imports(source: str):

@@ -632,9 +632,10 @@ def test_distri_optimizer_feeds_telemetry_on_every_rank(distri2):
     steps of 32 records, one compile; the default profile interval
     profiles iteration 10, whose step span gets compute and collective
     children (a gloo all-reduce takes host time: collective_s > 0); the
-    wire estimate is 2·(1/2)·4 bytes over the flat buffer (P parameters
-    and the loss); losses and weights equal the run without telemetry
-    bit for bit."""
+    wire estimate is the JAX plan's ``collective_bytes`` of the same
+    model on a data mesh of 2 (2·(1/2) times the parameters' own bytes,
+    no loss); losses and weights equal the run without telemetry bit for
+    bit."""
     for rank, got in enumerate(distri2):
         tm, plain = got["telemetry"], got["plain"]
         assert (tm["steps"], tm["records"]) == (12, 12 * 32), rank
@@ -645,8 +646,7 @@ def test_distri_optimizer_feeds_telemetry_on_every_rank(distri2):
         assert compute[0] == collective[0] == 10
         assert compute[1] > 0 and collective[1] > 0
         prog = tm["payload"]["perf"]["programs"]["train_step"]
-        assert prog["collective_bytes"] == 2 * (1 / 2) * 4 * (
-            tm["n_params"] + 1)
+        assert prog["collective_bytes"] == _jax_collective_bytes(2)
         assert prog["flops"] > 0
         assert {"host_to_device", "compute", "collective"} <= set(
             tm["span_names"])
@@ -657,6 +657,20 @@ def test_distri_optimizer_feeds_telemetry_on_every_rank(distri2):
                 assert np.array_equal(tm["params"][name][key], v)
     assert distri2[0]["telemetry"]["losses"] == \
         distri2[1]["telemetry"]["losses"]
+
+
+def _jax_collective_bytes(world):
+    """The JAX engine's figure for the child's regression MLP on a
+    ``("data",)`` mesh of ``world`` devices (``plan.py:1730``)."""
+    import jax
+    from jax.sharding import Mesh
+
+    from bigdl_tpu import nn as jnn
+    from bigdl_tpu.parallel.plan import derive_plan
+
+    jm = jnn.Sequential(jnn.Linear(4, 8), jnn.Tanh(), jnn.Linear(8, 1))
+    mesh = Mesh(np.array(jax.devices()[:world]), ("data",))
+    return derive_plan(jm, mesh).collective_bytes(jm.param_tree())
 
 
 def test_distri_optimizer_counts_like_jax_distri():
